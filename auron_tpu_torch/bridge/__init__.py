@@ -1,0 +1,1 @@
+"""bridge layer of the port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""columnar layer of the port (see the package docstring)."""

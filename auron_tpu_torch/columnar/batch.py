@@ -1,0 +1,384 @@
+"""Fixed-shape columnar device batches (torch).
+
+Port of ``auron_tpu/columnar/batch.py``. A batch is a capacity-bucketed
+set of dense tensors:
+
+- every column is a dense value tensor of length ``capacity`` (padded) plus
+  a bool validity tensor (SQL NULLs);
+- a bool selection tensor ``sel``: row *i* exists iff ``sel[i]``; filters
+  refine ``sel`` instead of compacting;
+- capacities are powers of two (``bucket_capacity``), as in the JAX package,
+  so operator code and results line up batch for batch;
+- dictionary-encoded columns (STRING/BINARY) carry int32 codes on the
+  device; the vocabulary is a numpy object array on the host.
+
+``DeviceBatch`` holds the tensors; ``Batch`` adds the schema and the host
+vocabularies. Arrow and pandas interop import their libraries lazily; the
+device path needs neither (``from_numpy``/``to_numpy``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from auron_tpu_torch import types as T
+from auron_tpu_torch.device import resolve_device
+
+MIN_CAPACITY = 128
+
+
+def bucket_capacity(n: int) -> int:
+    """Static-shape bucket for a batch holding n rows: next power of two."""
+    c = MIN_CAPACITY
+    while c < n:
+        c <<= 1
+    return c
+
+
+def compaction_bucket(n_live: int, in_capacity: int) -> int | None:
+    """The capacity bucket to compact ``n_live`` rows into, or None when
+    compaction would not pay (same 4x rule as auron_tpu)."""
+    cap = bucket_capacity(max(n_live, 1))
+    if cap * 4 > in_capacity:
+        return None
+    return cap
+
+
+class DeviceBatch(NamedTuple):
+    sel: torch.Tensor  # bool[capacity]
+    values: tuple  # one dense tensor per column
+    validity: tuple  # bool[capacity] per column
+
+    @property
+    def capacity(self) -> int:
+        return int(self.sel.shape[0])
+
+    def num_rows(self) -> torch.Tensor:
+        """Live row count as a device scalar (no sync)."""
+        return self.sel.sum()
+
+
+def empty_dict(dtype: T.DataType) -> np.ndarray:
+    """One-entry sentinel vocabulary (code 0 must always decode)."""
+    return np.array([b"" if dtype.kind == T.TypeKind.BINARY else ""], dtype=object)
+
+
+def encode_values(vals: np.ndarray, valid: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Dictionary-encode a host column: (int32 codes, vocabulary) with the
+    vocabulary in first-occurrence order (Arrow's dictionary_encode order).
+    Null rows get code 0."""
+    n = len(vals)
+    codes = np.zeros(n, dtype=np.int32)
+    idx = np.flatnonzero(valid)
+    if idx.size == 0:
+        return codes, np.array([""], dtype=object)
+    live = vals[idx]
+    uniq, first, inv = np.unique(live, return_index=True, return_inverse=True)
+    order = np.argsort(first, kind="stable")
+    rank = np.empty(len(uniq), dtype=np.int32)
+    rank[order] = np.arange(len(uniq), dtype=np.int32)
+    codes[idx] = rank[inv.reshape(-1)]
+    vocab = np.empty(len(uniq), dtype=object)
+    vocab[:] = [x.item() if hasattr(x, "item") else x for x in uniq[order]]
+    return codes, vocab
+
+
+@dataclass
+class Batch:
+    """Host-side handle: schema + host vocabularies + device tensors."""
+
+    schema: T.Schema
+    device: DeviceBatch
+    dicts: tuple  # per column: numpy object array (dict-encoded) or None
+
+    # ---- construction ----
+
+    @staticmethod
+    def from_numpy(
+        columns: Sequence[np.ndarray],
+        schema: T.Schema,
+        validity: Sequence[np.ndarray | None] | None = None,
+        dicts: Sequence[np.ndarray | None] | None = None,
+        capacity: int | None = None,
+        device="cuda",
+    ) -> "Batch":
+        """Ingest host numpy columns (one per schema field). For a
+        dict-encoded field the column is either the raw values (strings;
+        encoded here) or, when ``dicts[i]`` is given, int32 codes into it."""
+        dev = resolve_device(device)
+        n = len(columns[0]) if columns else 0
+        cap = capacity or bucket_capacity(n)
+        assert cap >= n, (cap, n)
+        vals, masks, out_dicts = [], [], []
+        for i, f in enumerate(schema):
+            col = np.asarray(columns[i])
+            valid = None if validity is None else validity[i]
+            valid = np.ones(n, bool) if valid is None else np.asarray(valid, bool)
+            d = None
+            if f.dtype.is_dict_encoded:
+                if dicts is not None and dicts[i] is not None:
+                    codes, d = col.astype(np.int32), dicts[i]
+                else:
+                    codes, d = encode_values(col, valid)
+                col = codes
+            phys = f.dtype.numpy_dtype()
+            v = np.zeros(cap, dtype=phys)
+            v[:n] = np.where(valid, col, 0) if not valid.all() else col
+            m = np.zeros(cap, dtype=bool)
+            m[:n] = valid
+            vals.append(v)
+            masks.append(m)
+            out_dicts.append(d)
+        sel = np.zeros(cap, dtype=bool)
+        sel[:n] = True
+        return Batch(
+            schema,
+            DeviceBatch(
+                torch.from_numpy(sel).to(dev),
+                tuple(torch.from_numpy(v).to(dev) for v in vals),
+                tuple(torch.from_numpy(m).to(dev) for m in masks),
+            ),
+            tuple(out_dicts),
+        )
+
+    @staticmethod
+    def from_arrow(rb, capacity: int | None = None, device="cuda") -> "Batch":
+        """Arrow RecordBatch ingest (imports pyarrow)."""
+        import pyarrow as pa
+        import pyarrow.compute as pc
+
+        schema = T.Schema.from_arrow(rb.schema)
+        cols, masks, dicts = [], [], []
+        for i, f in enumerate(schema):
+            arr = rb.column(i)
+            if isinstance(arr, pa.ChunkedArray):
+                arr = arr.combine_chunks()
+            valid = pc.is_valid(arr).to_numpy(zero_copy_only=False)
+            if f.dtype.is_dict_encoded:
+                if pa.types.is_dictionary(arr.type):
+                    codes = arr.indices.fill_null(0).to_numpy(zero_copy_only=False)
+                    vocab = np.empty(len(arr.dictionary), dtype=object)
+                    vocab[:] = arr.dictionary.to_pylist()
+                    cols.append(codes.astype(np.int32))
+                    dicts.append(vocab if len(vocab) else empty_dict(f.dtype))
+                else:
+                    vals = np.empty(len(arr), dtype=object)
+                    vals[:] = arr.to_pylist()
+                    codes, vocab = encode_values(vals, valid)
+                    cols.append(codes)
+                    dicts.append(vocab)
+            else:
+                if f.dtype.kind == T.TypeKind.TIMESTAMP:
+                    arr = arr.cast(pa.timestamp("us")).cast(pa.int64())
+                elif f.dtype.kind == T.TypeKind.DATE32:
+                    arr = arr.cast(pa.int32())
+                elif f.dtype.kind == T.TypeKind.DECIMAL:
+                    raise TypeError("decimal ingest is not in this slice of the port")
+                else:
+                    arr = arr.cast(f.dtype.to_arrow())
+                if arr.null_count:
+                    arr = arr.fill_null(False if f.dtype.kind == T.TypeKind.BOOL else 0)
+                cols.append(arr.to_numpy(zero_copy_only=False))
+                dicts.append(None)
+            masks.append(valid)
+        return Batch.from_numpy(cols, schema, masks, dicts, capacity, device)
+
+    @staticmethod
+    def from_pandas(df, schema: T.Schema | None = None, capacity: int | None = None,
+                    device="cuda") -> "Batch":
+        """pandas ingest through Arrow (imports pandas/pyarrow)."""
+        import pyarrow as pa
+
+        rb = pa.RecordBatch.from_pandas(df, preserve_index=False)
+        if schema is not None:
+            rb = rb.cast(schema.to_arrow())
+        return Batch.from_arrow(rb, capacity, device)
+
+    @staticmethod
+    def empty(schema: T.Schema, capacity: int = MIN_CAPACITY, device="cuda") -> "Batch":
+        dev = resolve_device(device)
+        return Batch(
+            schema,
+            DeviceBatch(
+                torch.zeros(capacity, dtype=torch.bool, device=dev),
+                tuple(torch.zeros(capacity, dtype=f.dtype.physical_dtype(), device=dev)
+                      for f in schema),
+                tuple(torch.zeros(capacity, dtype=torch.bool, device=dev) for _ in schema),
+            ),
+            tuple(empty_dict(f.dtype) if f.dtype.is_dict_encoded else None for f in schema),
+        )
+
+    # ---- accessors ----
+
+    @property
+    def capacity(self) -> int:
+        return self.device.capacity
+
+    @property
+    def torch_device(self) -> torch.device:
+        return self.device.sel.device
+
+    def num_rows(self) -> int:
+        """Live row count — one device read."""
+        return int(self.device.num_rows().item())
+
+    def col_values(self, i: int) -> torch.Tensor:
+        return self.device.values[i]
+
+    def col_validity(self, i: int) -> torch.Tensor:
+        return self.device.validity[i]
+
+    def with_device(self, dev: DeviceBatch, schema: T.Schema | None = None,
+                    dicts: tuple | None = None) -> "Batch":
+        return Batch(schema or self.schema, dev,
+                     dicts if dicts is not None else self.dicts)
+
+    # ---- materialization ----
+
+    def to_numpy(self) -> dict[str, tuple[np.ndarray, np.ndarray]]:
+        """Live rows on the host: name -> (values, validity). Dict-encoded
+        columns decode to object arrays (None at NULL rows)."""
+        sel = self.device.sel.cpu().numpy()
+        idx = np.flatnonzero(sel)
+        out = {}
+        for i, f in enumerate(self.schema):
+            v = self.device.values[i].cpu().numpy()[idx]
+            m = self.device.validity[i].cpu().numpy()[idx]
+            if f.dtype.is_dict_encoded:
+                d = self.dicts[i]
+                dec = np.empty(len(idx), dtype=object)
+                dec[:] = [d[c] if ok else None for c, ok in zip(v.tolist(), m.tolist())]
+                v = dec
+            out[f.name] = (v, m)
+        return out
+
+    def to_pydict(self) -> dict[str, list]:
+        out = {}
+        for name, (v, m) in self.to_numpy().items():
+            out[name] = [x if ok else None for x, ok in zip(v.tolist(), m.tolist())]
+        return out
+
+    def to_arrow(self):
+        """Live rows as an Arrow RecordBatch (imports pyarrow)."""
+        import pyarrow as pa
+
+        arrays = []
+        for f, (v, m) in zip(self.schema, self.to_numpy().values()):
+            if f.dtype.is_dict_encoded:
+                arrays.append(pa.array(list(v), type=f.dtype.to_arrow()))
+            else:
+                arrays.append(pa.array(v, mask=~m).cast(f.dtype.to_arrow()))
+        return pa.RecordBatch.from_arrays(arrays, schema=self.schema.to_arrow())
+
+
+# ---------------------------------------------------------------------------
+# batch-level utilities
+# ---------------------------------------------------------------------------
+
+
+def device_take(dev: DeviceBatch, order: torch.Tensor) -> DeviceBatch:
+    """Permute every column by one index tensor."""
+    return DeviceBatch(
+        dev.sel[order],
+        tuple(v[order] for v in dev.values),
+        tuple(m[order] for m in dev.validity),
+    )
+
+
+def merge_vocab(entry_lists: Sequence) -> tuple[np.ndarray, list[np.ndarray]]:
+    """Merge per-source vocabularies into ONE (first-occurrence order);
+    returns (unified, per-source remap tables new = remaps[src][old])."""
+    vocab: dict = {}
+    values: list = []
+    remaps: list[np.ndarray] = []
+    for entries in entry_lists:
+        r = np.empty(len(entries), dtype=np.int32)
+        for i, s in enumerate(entries):
+            if s in vocab:
+                r[i] = vocab[s]
+            else:
+                r[i] = vocab[s] = len(values)
+                values.append(s)
+        remaps.append(r)
+    out = np.empty(max(len(values), 1), dtype=object)
+    out[:] = values or [""]
+    return out, remaps
+
+
+def device_concat(batches: Sequence[Batch]) -> Batch:
+    """Concatenate batches on the device. Output capacity is the bucket of
+    the summed input capacities (dead rows keep sel=0); dictionary columns
+    are unified on the host and their codes remapped with one gather."""
+    assert batches
+    if len(batches) == 1:
+        return batches[0]
+    schema = batches[0].schema
+    total = sum(b.capacity for b in batches)
+    cap = bucket_capacity(total)
+    pad = cap - total
+    dev = batches[0].torch_device
+
+    def cat(parts):
+        out = torch.cat(parts)
+        if pad:
+            out = torch.cat([out, torch.zeros(pad, dtype=out.dtype, device=dev)])
+        return out
+
+    values, validity, dicts = [], [], []
+    for ci, f in enumerate(schema):
+        vs = [b.col_values(ci) for b in batches]
+        d = None
+        if f.dtype.is_dict_encoded:
+            d, remaps = merge_vocab([b.dicts[ci] for b in batches])
+            vs = [
+                torch.from_numpy(r).to(dev)[v.clamp(0, len(r) - 1).long()]
+                for v, r in zip(vs, remaps)
+            ]
+        values.append(cat(vs))
+        validity.append(cat([b.col_validity(ci) for b in batches]))
+        dicts.append(d)
+    sel = cat([b.device.sel for b in batches])
+    return Batch(schema, DeviceBatch(sel, tuple(values), tuple(validity)), tuple(dicts))
+
+
+def compact_batch(batch: Batch, out_capacity: int) -> Batch:
+    """Gather live rows into a dense prefix of ``out_capacity`` slots
+    (must be >= the live count)."""
+    if out_capacity >= batch.capacity:
+        return batch
+    dev = batch.device
+    idx = torch.nonzero(dev.sel).flatten()
+    n = idx.shape[0]
+    assert n <= out_capacity, (n, out_capacity)
+    pad = torch.zeros(out_capacity, dtype=idx.dtype, device=idx.device)
+    pad[:n] = idx
+    sel_out = torch.arange(out_capacity, device=idx.device) < n
+    return Batch(
+        batch.schema,
+        DeviceBatch(
+            sel_out,
+            tuple(v[pad] for v in dev.values),
+            tuple(m[pad] & sel_out for m in dev.validity),
+        ),
+        batch.dicts,
+    )
+
+
+def prefix_slice(batch: Batch, new_capacity: int) -> Batch:
+    """Keep only the first new_capacity slots."""
+    if new_capacity >= batch.capacity:
+        return batch
+    dev = batch.device
+    return Batch(
+        batch.schema,
+        DeviceBatch(
+            dev.sel[:new_capacity],
+            tuple(v[:new_capacity] for v in dev.values),
+            tuple(m[:new_capacity] for m in dev.validity),
+        ),
+        batch.dicts,
+    )

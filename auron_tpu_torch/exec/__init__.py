@@ -1,0 +1,1 @@
+"""exec layer of the port (see the package docstring)."""

@@ -1,0 +1,636 @@
+"""Hash-aggregate exec: partial / partial-merge / final modes.
+
+Port of ``auron_tpu/exec/agg_exec.py`` for sum / count / count_star / avg /
+min / max over fixed-width keys and inputs, with the two grouping paths the
+slice runs:
+
+- the DENSE direct-address table (``_DenseAggState``, agg_exec.py:2118;
+  the fold of ``_dense_update_jit``, :1959): up to three small-range
+  integer keys pack into one slot index (offset 0 of each key is its NULL
+  lane) and every batch folds in with scatter reductions, no sort. Ranges
+  anchor on the first batch with centred power-of-two headroom; a batch
+  outside the table drains it into the generic path and re-anchors on the
+  union range; a union beyond ``LIMIT`` slots falls back for good;
+- the generic SORT-SEGMENTATION path (``_sort_flags``, :243-273): per
+  batch, segment by the key words (fingerprint sort on CUDA tensors,
+  full-word sort otherwise — ops/segments.py), reduce to an intermediate
+  batch, stage, and merge staged intermediates by the same reduction.
+
+Spark typing: sum(int*) -> long (wrapping), sum(float*) -> double,
+avg -> double, count -> long (never null). Decimal, wide-decimal, collect,
+first and UDAF aggregates, spill and the probe/scatter path wait for later
+slices; the constructor rejects them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Iterator
+
+import torch
+
+from auron_tpu_torch import types as T
+from auron_tpu_torch.columnar.batch import (
+    Batch, bucket_capacity, compact_batch, device_concat, prefix_slice,
+)
+from auron_tpu_torch.exec.base import ExecOperator, ExecutionContext
+from auron_tpu_torch.exec.basic import batch_from_columns
+from auron_tpu_torch.exprs import ir
+from auron_tpu_torch.exprs.eval import ColumnVal, Evaluator
+from auron_tpu_torch.ops import bitonic
+from auron_tpu_torch.ops import segments as S
+from auron_tpu_torch.utils.config import (
+    AGG_INCREMENTAL_ENABLE, AGG_INCREMENTAL_FINGERPRINT, AGG_INCREMENTAL_FP_BITS,
+    PARTIAL_AGG_SKIPPING_ENABLE, PARTIAL_AGG_SKIPPING_MIN_ROWS,
+    PARTIAL_AGG_SKIPPING_RATIO, active_conf, resolve_tri,
+)
+
+PARTIAL = "partial"
+PARTIAL_MERGE = "partial_merge"
+FINAL = "final"
+
+_FUNCS = ("sum", "count", "count_star", "avg", "min", "max")
+
+
+@dataclass(frozen=True)
+class AggExpr:
+    func: str
+    expr: ir.Expr | None = None  # None only for count_star
+    udaf: str | None = None
+
+
+def sum_type(t: T.DataType) -> T.DataType:
+    if t.is_float:
+        return T.FLOAT64
+    if t.is_integer:
+        return T.INT64
+    raise TypeError(f"sum over {t} is not in this slice of the port")
+
+
+def avg_type(t: T.DataType) -> T.DataType:
+    if t.kind == T.TypeKind.DECIMAL:
+        raise TypeError("decimal avg is not in this slice of the port")
+    return T.FLOAT64
+
+
+def final_type(a: AggExpr, in_t: T.DataType | None) -> T.DataType:
+    if a.func in ("count", "count_star"):
+        return T.INT64
+    if a.func == "sum":
+        return sum_type(in_t)
+    if a.func == "avg":
+        return avg_type(in_t)
+    return in_t
+
+
+def intermediate_fields(a: AggExpr, in_t: T.DataType | None, prefix: str) -> list[T.Field]:
+    if a.func in ("count", "count_star"):
+        return [T.Field(f"{prefix}#count", T.INT64, False)]
+    if a.func == "sum":
+        return [T.Field(f"{prefix}#sum", sum_type(in_t), True)]
+    if a.func == "avg":
+        return [T.Field(f"{prefix}#sum", sum_type(in_t), True),
+                T.Field(f"{prefix}#count", T.INT64, False)]
+    if a.func in ("min", "max"):
+        return [T.Field(f"{prefix}#{a.func}", in_t, True)]
+    raise ValueError(a.func)
+
+
+def _input_type_from_intermediate(a: AggExpr, first_field: T.Field) -> T.DataType | None:
+    t = first_field.dtype
+    if a.func in ("count", "count_star"):
+        return None
+    if a.func in ("sum", "avg"):
+        return T.INT64 if t.kind == T.TypeKind.INT64 else T.FLOAT64
+    return t
+
+
+class HashAggExec(ExecOperator):
+    def __init__(self, child: ExecOperator, groupings: list[tuple[ir.Expr, str]],
+                 aggs: list[tuple[AggExpr, str]], mode: str):
+        assert mode in (PARTIAL, PARTIAL_MERGE, FINAL)
+        for a, _ in aggs:
+            if a.func not in _FUNCS:
+                raise NotImplementedError(f"aggregate {a.func} is not in this slice of the port")
+        self.mode = mode
+        self.groupings = groupings
+        self.aggs = aggs
+        in_schema = child.schema
+        key_fields = []
+        for e, name in groupings:
+            if mode == PARTIAL:
+                key_fields.append(T.Field(name, e.dtype_of(in_schema), True))
+            else:
+                key_fields.append(in_schema[len(key_fields)])
+        self._agg_input_types: list[T.DataType | None] = []
+        inter_fields: list[T.Field] = []
+        ofs = len(key_fields)
+        for a, name in aggs:
+            if mode == PARTIAL:
+                in_t = a.expr.dtype_of(in_schema) if a.expr is not None else None
+            else:
+                in_t = _input_type_from_intermediate(a, in_schema[ofs])
+                ofs += len(intermediate_fields(a, in_t or T.INT64, name))
+            self._agg_input_types.append(in_t)
+            inter_fields += intermediate_fields(a, in_t, name)
+        if mode == FINAL:
+            out_fields = key_fields + [
+                T.Field(name, final_type(a, t), True)
+                for (a, name), t in zip(aggs, self._agg_input_types)
+            ]
+        else:
+            out_fields = key_fields + inter_fields
+        super().__init__([child], T.Schema(tuple(out_fields)))
+        self.n_keys = len(key_fields)
+        self.inter_schema = T.Schema(tuple(key_fields + inter_fields))
+
+    # ------------------------------------------------------------------
+    # policy
+
+    def _sort_flags(self, device, force_full_sort: bool = False, conf=None,
+                    cap: int = 0) -> tuple:
+        """(device_impl, fingerprint, fp_bits) from config."""
+        conf = conf if conf is not None else active_conf()
+        fingerprint = (
+            not force_full_sort and self.n_keys >= 1 and conf.get(AGG_INCREMENTAL_ENABLE)
+            and resolve_tri(conf.get(AGG_INCREMENTAL_FINGERPRINT), device.type == "cuda")
+        )
+        fp_bits = conf.get(AGG_INCREMENTAL_FP_BITS) if fingerprint else 64
+        if fingerprint:
+            return ("lax", True, fp_bits)
+        n_words = self.n_keys + (1 if self.n_keys else 0)
+        n_narrow = 1 if 0 < self.n_keys <= 32 else 0
+        impl = bitonic.sort_impl_for(n_words, cap, n_narrow, conf=conf, device=device)
+        return (impl, False, 64)
+
+    def _dense_eligible(self) -> bool:
+        if not (1 <= self.n_keys <= 3):
+            return False
+        for i in range(self.n_keys):
+            kt = self.inter_schema[i].dtype
+            if kt.is_dict_encoded or kt.kind not in (
+                T.TypeKind.INT8, T.TypeKind.INT16, T.TypeKind.INT32, T.TypeKind.INT64,
+                T.TypeKind.DATE32, T.TypeKind.TIMESTAMP, T.TypeKind.BOOL,
+            ):
+                return False
+        return all(t is None or not t.is_dict_encoded for t in self._agg_input_types)
+
+    # ------------------------------------------------------------------
+
+    def _execute(self, partition: int, ctx: ExecutionContext) -> Iterator[Batch]:
+        conf = ctx.conf
+        skipping_enabled = self.mode == PARTIAL and conf.get(PARTIAL_AGG_SKIPPING_ENABLE)
+        skip_ratio = conf.get(PARTIAL_AGG_SKIPPING_RATIO)
+        skip_min_rows = conf.get(PARTIAL_AGG_SKIPPING_MIN_ROWS)
+        merge_threshold = max(ctx.batch_size() * 4, 1 << 15)
+        state: list[Batch] = []
+        staged: list[Batch] = []
+        staged_rows = 0
+        seen_rows = seen_groups = 0
+        skipping = False
+        dense = _DenseAggState(self, conf) if self._dense_eligible() else None
+
+        def process_generic(b):
+            nonlocal staged_rows, seen_rows, seen_groups, skipping, state, staged
+            n = b.num_rows()
+            if n == 0:
+                return
+            if self.mode == PARTIAL and 4 * n <= b.capacity:
+                b = compact_batch(b, bucket_capacity(n))
+            with ctx.metrics.timer("elapsed_compute"):
+                inter = self._to_intermediate(b, conf)
+            g = inter.num_rows()
+            inter = _slice_keep(inter, bucket_capacity(max(g, 1)))
+            seen_rows += n
+            seen_groups += g
+            if skipping:
+                yield inter
+                return
+            if skipping_enabled and seen_rows >= skip_min_rows and \
+                    seen_groups >= skip_ratio * seen_rows:
+                ctx.metrics.add("partial_agg_skipped", 1)
+                skipping = True
+                yield from state + staged
+                state, staged = [], []
+                yield inter
+                return
+            staged.append(inter)
+            staged_rows += g
+            state_cap = sum(s.capacity for s in state)
+            if staged_rows >= max(merge_threshold, state_cap):
+                with ctx.metrics.timer("merge_time"):
+                    merged = self._merge(state + staged, conf=conf)
+                state, staged, staged_rows = [merged], [], 0
+                ctx.metrics.add("num_merges", 1)
+
+        def drain_dense():
+            sb = dense.state_batch()
+            if sb is not None:
+                staged.append(sb)
+
+        for b in self.child_stream(0, partition, ctx):
+            ctx.check_cancelled()
+            if dense is not None:
+                with ctx.metrics.timer("elapsed_compute", count=True):
+                    r = dense.update(b)
+                    if r == "restart":
+                        drain_dense()
+                        dense.reset()
+                        r = dense.update(b)
+                if r is True:
+                    continue
+                # the union range can never fit: generic path from here on
+                drain_dense()
+                dense = None
+                skipping_enabled = False
+            yield from process_generic(b)
+        if dense is not None:
+            drain_dense()
+        if skipping:
+            return
+        with ctx.metrics.timer("merge_time"):
+            out = self._merge(state + staged, final=self.mode == FINAL, conf=conf)
+        if out is None:
+            if self.n_keys == 0:
+                yield self._empty_global_agg(ctx.device)
+            return
+        yield self._finalize(out) if self.mode == FINAL else out
+
+    # ------------------------------------------------------------------
+    # column extraction (shared by the dense table and the generic path)
+
+    def _raw_inputs(self, b: Batch):
+        ev = Evaluator(self.children[0].schema)
+        keys = ev.evaluate(b, [g for g, _ in self.groupings])
+        inputs: list[list[ColumnVal]] = []
+        for (a, _), in_t in zip(self.aggs, self._agg_input_types):
+            if a.expr is None:
+                inputs.append([])
+                continue
+            cv = ev.evaluate(b, [a.expr])[0]
+            if a.func in ("sum", "avg"):
+                cv = ev._cast(cv, sum_type(in_t))
+            inputs.append([cv])
+        return keys, inputs
+
+    def _state_keys(self, b: Batch) -> list[ColumnVal]:
+        return [ColumnVal(b.col_values(i), b.col_validity(i), self.inter_schema[i].dtype,
+                          b.dicts[i]) for i in range(self.n_keys)]
+
+    def _intermediate_groups(self, b: Batch) -> list[list[ColumnVal]]:
+        ofs = self.n_keys
+        groups = []
+        for (a, name), in_t in zip(self.aggs, self._agg_input_types):
+            k = len(intermediate_fields(a, in_t or T.INT64, name))
+            groups.append([
+                ColumnVal(b.col_values(ofs + j), b.col_validity(ofs + j),
+                          self.inter_schema[ofs + j].dtype, b.dicts[ofs + j])
+                for j in range(k)
+            ])
+            ofs += k
+        return groups
+
+    def _keys_and_inputs(self, b: Batch):
+        if self.mode == PARTIAL:
+            return self._raw_inputs(b)
+        return self._state_keys(b), self._intermediate_groups(b)
+
+    def _to_intermediate(self, b: Batch, conf) -> Batch:
+        keys, inputs = self._keys_and_inputs(b)
+        return self._group_reduce(b.device.sel, keys, inputs, raw=self.mode == PARTIAL,
+                                  conf=conf)
+
+    # ------------------------------------------------------------------
+    # sort-segmentation reduce
+
+    def _group_reduce(self, sel, keys, agg_cols, raw: bool, force_full_sort: bool = False,
+                      conf=None) -> Batch:
+        cap = int(sel.shape[0])
+        dev = sel.device
+        flags = self._sort_flags(dev, force_full_sort, conf, cap)
+        if self.n_keys == 0:
+            seg = S.Segmentation(
+                order=torch.arange(cap, device=dev),
+                seg_ids=torch.where(sel, 0, cap).to(torch.int64),
+                boundary=torch.zeros(cap, dtype=torch.bool, device=dev),
+                group_of_slot=torch.zeros(cap, dtype=torch.int64, device=dev),
+                num_groups=sel.sum().clamp(max=1),
+                sel_sorted=sel,
+            )
+        else:
+            seg = S.segment_by_keys(
+                S.key_words(keys), sel, device_impl=flags[0], n_key_cols=self.n_keys,
+                fingerprint=flags[1], fp_bits=flags[2],
+            )
+        order = seg.order
+        slot = seg.group_of_slot.clamp(0, cap - 1)
+        group_valid = torch.arange(cap, device=dev) < seg.num_groups
+        if self.n_keys == 0:
+            group_valid = torch.zeros(cap, dtype=torch.bool, device=dev)
+            group_valid[0] = True
+        out: list[ColumnVal] = []
+        for kv in keys:
+            sv, sm = kv.values[order], kv.validity[order]
+            out.append(ColumnVal(sv[slot], sm[slot] & group_valid, kv.dtype, kv.dict))
+        for (a, _), in_t, cols in zip(self.aggs, self._agg_input_types, agg_cols):
+            out.extend(_reduce_one(a, in_t, cols, seg, cap, raw, group_valid))
+        b = batch_from_columns(out, self.inter_schema.names, group_valid)
+        res = Batch(self.inter_schema, b.device, b.dicts)
+        res._fp_collision = seg.collision
+        return res
+
+    def _merge(self, parts: list[Batch], final: bool = False, conf=None) -> Batch | None:
+        """Merge prefix-packed group batches into one state batch. A FINAL
+        merge re-reduces with the full-word sort when any fingerprint
+        segmentation saw a collision (split groups must not reach output)."""
+        parts = [p for p in parts if p is not None]
+        if not parts:
+            return None
+        collided = _any_collision(parts)
+        if len(parts) == 1 and not (final and collided):
+            return parts[0]
+        big = device_concat(parts)
+        merged = self._group_reduce(big.device.sel, self._state_keys(big),
+                                    self._intermediate_groups(big), raw=False,
+                                    force_full_sort=final and collided, conf=conf)
+        if final and not collided and _any_collision([merged]):
+            merged = self._group_reduce(merged.device.sel, self._state_keys(merged),
+                                        self._intermediate_groups(merged), raw=False,
+                                        force_full_sort=True, conf=conf)
+        return _slice_keep(merged, bucket_capacity(max(merged.num_rows(), 1)))
+
+    # ------------------------------------------------------------------
+
+    def _finalize(self, state: Batch) -> Batch:
+        vals = self._state_keys(state)
+        names = [self.schema[i].name for i in range(self.n_keys)]
+        for ((a, name), in_t), cols in zip(zip(self.aggs, self._agg_input_types),
+                                           self._intermediate_groups(state)):
+            vals.append(_final_one(a, cols))
+            names.append(name)
+        out = batch_from_columns(vals, names, state.device.sel)
+        return Batch(self.schema, out.device, out.dicts)
+
+    def _empty_global_agg(self, device) -> Batch:
+        """Global aggregation over empty input: one row (count=0, else NULL)."""
+        cap = 128
+        schema = self.schema if self.mode == FINAL else self.inter_schema
+        vals = []
+        for f in schema:
+            is_count = f.name.endswith("#count") or (
+                self.mode == FINAL
+                and any(n == f.name and a.func in ("count", "count_star") for a, n in self.aggs)
+            )
+            valid = torch.zeros(cap, dtype=torch.bool, device=device)
+            valid[0] = is_count
+            vals.append(ColumnVal(torch.zeros(cap, dtype=f.dtype.physical_dtype(), device=device),
+                                  valid, f.dtype))
+        sel = torch.zeros(cap, dtype=torch.bool, device=device)
+        sel[0] = True
+        out = batch_from_columns(vals, schema.names, sel)
+        return Batch(schema, out.device, out.dicts)
+
+
+def _slice_keep(b: Batch, cap: int) -> Batch:
+    """prefix_slice carrying the fingerprint-collision flag."""
+    out = prefix_slice(b, cap)
+    if out is not b:
+        out._fp_collision = getattr(b, "_fp_collision", None)
+    return out
+
+
+def _any_collision(parts: list[Batch]) -> bool:
+    flags = [getattr(p, "_fp_collision", None) for p in parts]
+    flags = [f for f in flags if f is not None]
+    return bool(torch.stack(flags).any().item()) if flags else False
+
+
+def _reduce_one(a: AggExpr, in_t, cols, seg: S.Segmentation, cap: int, raw: bool,
+                group_valid) -> list[ColumnVal]:
+    ids = seg.seg_ids
+
+    def sortg(cv):
+        return cv.values[seg.order], cv.validity[seg.order] & seg.sel_sorted
+
+    if a.func == "count_star":
+        if raw:
+            cnt = S.seg_count(seg.sel_sorted, ids, cap)
+        else:
+            v, m = sortg(cols[0])
+            cnt, _ = S.seg_sum(v, m, ids, cap)
+        return [ColumnVal(cnt, group_valid, T.INT64)]
+    if a.func == "count":
+        v, m = sortg(cols[0])
+        cnt = S.seg_count(m, ids, cap) if raw else S.seg_sum(v, m, ids, cap)[0]
+        return [ColumnVal(cnt, group_valid, T.INT64)]
+    if a.func in ("sum", "avg"):
+        v, m = sortg(cols[0])
+        sm, any_valid = S.seg_sum(v, m, ids, cap)
+        out = [ColumnVal(sm, any_valid & group_valid, sum_type(in_t))]
+        if a.func == "avg":
+            if raw:
+                cnt = S.seg_count(m, ids, cap)
+            else:
+                cv, cm = sortg(cols[1])
+                cnt, _ = S.seg_sum(cv, cm, ids, cap)
+            out.append(ColumnVal(cnt, group_valid, T.INT64))
+        return out
+    if a.func in ("min", "max"):
+        v, m = sortg(cols[0])
+        fn = S.seg_min if a.func == "min" else S.seg_max
+        mv, any_valid = fn(v, m, ids, cap)
+        return [ColumnVal(mv, any_valid & group_valid, in_t)]
+    raise ValueError(a.func)
+
+
+def _final_one(a: AggExpr, cols: list[ColumnVal]) -> ColumnVal:
+    if a.func in ("count", "count_star"):
+        return ColumnVal(cols[0].values, torch.ones_like(cols[0].validity), T.INT64)
+    if a.func == "avg":
+        sm, cnt = cols
+        nz = cnt.values > 0
+        v = sm.values.to(torch.float64) / torch.where(nz, cnt.values, torch.ones_like(cnt.values))
+        return ColumnVal(v, sm.validity & nz, T.FLOAT64)
+    return cols[0]  # sum (non-decimal), min, max
+
+
+# ---------------------------------------------------------------------------
+# dense direct-address aggregation (integer keys, small range)
+# ---------------------------------------------------------------------------
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+class _DenseAggState:
+    """Dense table for 1-3 packed integer keys. Slot layout: per key,
+    offset 0 is its NULL lane and 1..dim-1 its values (base .. base+dim-2);
+    slot = sum(offset_i * stride_i). One trailing slot swallows dead rows.
+    One key-range read per batch decides fold vs re-anchor."""
+
+    LIMIT = 1 << 21  # max slots (product of per-key dims)
+
+    def __init__(self, exec_: HashAggExec, conf):
+        self.exec = exec_
+        self.bases: list[int] | None = None
+        self.dims: tuple[int, ...] | None = None
+        self.size = 0
+        self.vals: list | None = None
+        self.valids: list | None = None
+        self.present = None
+        self._hint: list | None = None
+        self._raw = exec_.mode == PARTIAL
+
+    def reset(self) -> None:
+        """Forget the table after a drain; its covered range survives as a
+        hint so the re-anchor pads the union of old and new ranges."""
+        if self.bases is not None:
+            self._hint = [((b, b + d - 2) if d > 1 else None)
+                          for b, d in zip(self.bases, self.dims)]
+        self.bases = self.dims = None
+        self.size = 0
+        self.vals = self.valids = self.present = None
+
+    def _anchor(self, mins, maxs) -> bool:
+        """Verbatim policy of auron_tpu _DenseAggState._anchor_from_stats."""
+        spans = []
+        for i, (mn, mx) in enumerate(zip(mins, maxs)):
+            hint = self._hint[i] if self._hint is not None else None
+            if mn > mx:
+                if hint is None:
+                    spans.append((0, 0))
+                    continue
+                mn, mx = hint
+            elif hint is not None:
+                mn, mx = min(mn, hint[0]), max(mx, hint[1])
+            spans.append((mn, mx - mn + 1))
+        pads = [(1 if s == 0 else max(_next_pow2(2 * (s + 1)), 4)) for _, s in spans]
+        exact = [s + 1 for _, s in spans]
+
+        def product(ds):
+            t = 1
+            for d in ds:
+                t *= d
+            return t
+
+        while product(pads) > self.LIMIT and pads != exact:
+            i = max(range(len(pads)), key=lambda i: pads[i] / exact[i])
+            pads[i] = exact[i] if pads[i] // 2 < exact[i] else pads[i] // 2
+        if product(pads) > self.LIMIT:
+            return False
+        self.bases = [max(mn - (d - (s + 1)) // 2, -(1 << 63)) for (mn, s), d in zip(spans, pads)]
+        self.dims = tuple(pads)
+        self.size = bucket_capacity(product(pads))
+        return True
+
+    def _alloc(self, device) -> None:
+        ex = self.exec
+        self.vals, self.valids = [], []
+        for (a, _), in_t in zip(ex.aggs, ex._agg_input_types):
+            for f in intermediate_fields(a, in_t or T.INT64, "x"):
+                dt = f.dtype.physical_dtype()
+                if f.name.endswith("#min"):
+                    fill = S.max_identity(dt)
+                elif f.name.endswith("#max"):
+                    fill = S.min_identity(dt)
+                else:
+                    fill = 0
+                self.vals.append(torch.full((self.size + 1,), fill, dtype=dt, device=device))
+                self.valids.append(
+                    torch.zeros(self.size + 1, dtype=torch.int32, device=device)
+                    if f.nullable else None)
+        self.present = torch.zeros(self.size + 1, dtype=torch.int32, device=device)
+
+    def update(self, b: Batch):
+        """Fold one batch: True (folded), "restart" (outside the anchored
+        table: drain, reset, retry) or False (never fits: fall back)."""
+        keys, per_agg = self.exec._keys_and_inputs(b)
+        sel = b.device.sel
+        imax, imin = torch.iinfo(torch.int64).max, torch.iinfo(torch.int64).min
+        parts = [sel.sum()]
+        for k in keys:
+            ok = sel & k.validity
+            s = k.values.to(torch.int64)
+            parts += [torch.where(ok, s, torch.full_like(s, imax)).min(),
+                      torch.where(ok, s, torch.full_like(s, imin)).max()]
+        stats = torch.stack(parts).tolist()
+        if stats[0] == 0:
+            return True
+        mins, maxs = stats[1::2], stats[2::2]
+        if self.bases is not None:
+            for mn, mx, base, d in zip(mins, maxs, self.bases, self.dims):
+                if mn <= mx and (d == 1 or mn < base or mx > base + d - 2):
+                    return "restart"
+        elif not self._anchor(mins, maxs):
+            return False
+        else:
+            self._alloc(sel.device)
+        self._fold(keys, per_agg, sel)
+        return True
+
+    def _fold(self, keys, per_agg, sel) -> None:
+        idx = torch.zeros(sel.shape, dtype=torch.int64, device=sel.device)
+        stride = 1
+        for k, base, d in zip(keys, self.bases, self.dims):
+            off = (k.values.to(torch.int64) - base + 1).clamp(1, max(d - 1, 1))
+            idx += torch.where(k.validity, off, torch.zeros_like(off)) * stride
+            stride *= d
+        idx = torch.where(sel, idx.clamp(0, self.size - 1), torch.full_like(idx, self.size))
+        self.present.scatter_reduce_(0, idx, sel.to(torch.int32), "amax")
+        fi = 0
+        for (a, _), ins in zip(self.exec.aggs, per_agg):
+            f = a.func
+            if f in ("count", "count_star"):
+                if not self._raw:
+                    c = ins[0].values.to(torch.int64)
+                elif f == "count_star":
+                    c = torch.ones_like(idx)
+                else:
+                    c = ins[0].validity.to(torch.int64)
+                self.vals[fi].index_add_(0, idx, torch.where(sel, c, torch.zeros_like(c)))
+                fi += 1
+                continue
+            v, m = ins[0].values, ins[0].validity
+            ok = m & sel
+            if f in ("sum", "avg"):
+                self.vals[fi].index_add_(0, idx, torch.where(ok, v, torch.zeros_like(v)))
+            else:
+                ident = (S.max_identity if f == "min" else S.min_identity)(v.dtype)
+                self.vals[fi].scatter_reduce_(0, idx, torch.where(ok, v, torch.full_like(v, ident)),
+                                              "amin" if f == "min" else "amax")
+            self.valids[fi].scatter_reduce_(0, idx, ok.to(torch.int32), "amax")
+            fi += 1
+            if f == "avg":
+                c = ok.to(torch.int64) if self._raw else ins[1].values.to(torch.int64)
+                self.vals[fi].index_add_(0, idx, torch.where(sel, c, torch.zeros_like(c)))
+                fi += 1
+
+    def state_batch(self) -> Batch | None:
+        """The table as an intermediate batch compacted to its group bucket."""
+        if self.bases is None:
+            return None
+        ex = self.exec
+        size = self.size
+        present = self.present[:size] > 0
+        g = int(present.sum().item())
+        if g == 0:
+            return None
+        slot = torch.arange(size, dtype=torch.int64, device=present.device)
+        cols = []
+        stride = 1
+        for i in range(ex.n_keys):
+            f = ex.inter_schema[i]
+            coord = (slot // stride) % self.dims[i]
+            vals = (coord - 1 + self.bases[i]).to(f.dtype.physical_dtype())
+            cols.append(ColumnVal(vals, present & (coord > 0), f.dtype))
+            stride *= self.dims[i]
+        for fi, f in enumerate(ex.inter_schema.fields[ex.n_keys:]):
+            m = self.valids[fi]
+            valid = present & (m[:size] > 0) if m is not None else present
+            cols.append(ColumnVal(self.vals[fi][:size], valid, f.dtype))
+        out = batch_from_columns(cols, ex.inter_schema.names, present)
+        return compact_batch(Batch(ex.inter_schema, out.device, out.dicts), bucket_capacity(g))

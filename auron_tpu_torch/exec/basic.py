@@ -1,0 +1,111 @@
+"""Stateless streaming operators (port of ``auron_tpu/exec/basic.py``
+lines 36-196): memory scan, project, filter, limit. A filter refines the
+selection mask instead of compacting; a limit trims with a prefix mask."""
+
+from __future__ import annotations
+
+from typing import Iterator, Sequence
+
+import torch
+
+from auron_tpu_torch import types as T
+from auron_tpu_torch.columnar.batch import Batch, DeviceBatch
+from auron_tpu_torch.exec.base import ExecOperator, ExecutionContext
+from auron_tpu_torch.exprs import ir
+from auron_tpu_torch.exprs.eval import ColumnVal, Evaluator
+
+
+def batch_from_columns(vals: Sequence[ColumnVal], names: Sequence[str],
+                       sel: torch.Tensor) -> Batch:
+    fields = tuple(
+        T.Field(n, v.dtype if v.dtype.kind != T.TypeKind.NULL else T.INT32, True)
+        for n, v in zip(names, vals)
+    )
+    dev = DeviceBatch(sel, tuple(v.values for v in vals), tuple(v.validity for v in vals))
+    return Batch(T.Schema(fields), dev, tuple(v.dict for v in vals))
+
+
+class MemoryScanExec(ExecOperator):
+    """In-memory batch source: partitions[p] is partition p's batch list."""
+
+    def __init__(self, partitions: list[list[Batch]], schema: T.Schema):
+        super().__init__([], schema)
+        self.partitions = partitions
+
+    def _execute(self, partition: int, ctx: ExecutionContext) -> Iterator[Batch]:
+        yield from self.partitions[partition]
+
+
+class ResourceScanExec(ExecOperator):
+    """memory_scan plan node: batches handed in through the task resource
+    map, as ``rid.<partition>`` or a per-partition-indexed ``rid`` entry."""
+
+    def __init__(self, schema: T.Schema, resource_id: str):
+        super().__init__([], schema)
+        self.resource_id = resource_id
+
+    def _execute(self, partition: int, ctx: ExecutionContext) -> Iterator[Batch]:
+        parts = ctx.resources.get(f"{self.resource_id}.{partition}")
+        if parts is None:
+            source = ctx.resources[self.resource_id]
+            if callable(source):
+                parts = source(partition)
+            elif isinstance(source, dict):
+                parts = source[partition]
+            else:
+                parts = source[partition]
+        yield from parts
+
+
+class ProjectExec(ExecOperator):
+    def __init__(self, child: ExecOperator, exprs: list[ir.Expr], names: list[str]):
+        self.exprs = exprs
+        self.names = names
+        out = [T.Field(n, e.dtype_of(child.schema), True) for e, n in zip(exprs, names)]
+        super().__init__([child], T.Schema(tuple(out)))
+
+    def _execute(self, partition: int, ctx: ExecutionContext) -> Iterator[Batch]:
+        ev = Evaluator(self.children[0].schema)
+        for b in self.child_stream(0, partition, ctx):
+            with ctx.metrics.timer("elapsed_compute"):
+                vals = ev.evaluate(b, self.exprs)
+                out = batch_from_columns(vals, self.names, b.device.sel)
+            yield out
+
+
+class FilterExec(ExecOperator):
+    def __init__(self, child: ExecOperator, predicates: list[ir.Expr]):
+        super().__init__([child], child.schema)
+        self.predicates = predicates
+
+    def _execute(self, partition: int, ctx: ExecutionContext) -> Iterator[Batch]:
+        ev = Evaluator(self.children[0].schema)
+        for b in self.child_stream(0, partition, ctx):
+            with ctx.metrics.timer("elapsed_compute"):
+                sel = b.device.sel
+                for cv in ev.evaluate(b, self.predicates):
+                    sel = sel & cv.validity & cv.values.to(torch.bool)
+                yield b.with_device(DeviceBatch(sel, b.device.values, b.device.validity))
+
+
+class LimitExec(ExecOperator):
+    """First `limit` live rows of the partition stream."""
+
+    def __init__(self, child: ExecOperator, limit: int):
+        super().__init__([child], child.schema)
+        self.limit = limit
+
+    def _execute(self, partition: int, ctx: ExecutionContext) -> Iterator[Batch]:
+        remaining = self.limit
+        for b in self.child_stream(0, partition, ctx):
+            if remaining <= 0:
+                break
+            n = b.num_rows()
+            if n <= remaining:
+                remaining -= n
+                yield b
+            else:
+                sel = b.device.sel
+                keep = sel & (torch.cumsum(sel.to(torch.int64), 0) <= remaining)
+                remaining = 0
+                yield b.with_device(DeviceBatch(keep, b.device.values, b.device.validity))

@@ -1,0 +1,1 @@
+"""exec/joins layer of the port (see the package docstring)."""

@@ -1,0 +1,101 @@
+"""Inner equi-join driver (port of the inner-join path of
+``auron_tpu/exec/joins/driver.py``): runs one prepared build side against
+a stream of probe batches. Output columns are (left ++ right), subset by
+the optional column-pruning ``projection``.
+
+A unique build emits one batch per probe batch with exact compaction: the
+live count is read once per batch, and when the output would fill less than
+a quarter of the probe capacity (``compaction_bucket``) the live rows are
+gathered into a smaller batch before the build columns are gathered
+(predicted compaction is a later slice). A duplicate-keyed build expands
+pair chunks."""
+
+from __future__ import annotations
+
+from typing import Iterator
+
+import torch
+
+from auron_tpu_torch import types as T
+from auron_tpu_torch.columnar.batch import Batch, compaction_bucket
+from auron_tpu_torch.exec.basic import batch_from_columns
+from auron_tpu_torch.exec.joins import core
+from auron_tpu_torch.exprs import ir
+from auron_tpu_torch.exprs.eval import ColumnVal
+from auron_tpu_torch.utils.config import JOIN_COMPACT_OUTPUT, resolve_tri
+
+
+class EquiJoinDriver:
+    def __init__(self, left_schema: T.Schema, right_schema: T.Schema,
+                 left_keys: list[ir.Expr], right_keys: list[ir.Expr], join_type: str,
+                 build_side: str, condition: ir.Expr | None = None,
+                 projection: list[int] | None = None):
+        if join_type != core.INNER or condition is not None:
+            raise NotImplementedError(
+                "only inner equi-joins without a residual condition are in this slice")
+        assert build_side in ("left", "right")
+        self.left_schema, self.right_schema = left_schema, right_schema
+        self.left_keys, self.right_keys = left_keys, right_keys
+        self.join_type = join_type
+        self.build_side = build_side
+        full = core.join_output_schema(left_schema, right_schema, join_type)
+        self.projection = list(projection) if projection is not None else None
+        proj = self.projection if self.projection is not None else range(len(full))
+        self.out_schema = T.Schema(tuple(full[i] for i in proj))
+        self.probe_is_left = build_side == "right"
+
+    def prepare(self, build_batches: list[Batch], device) -> core.PreparedBuild:
+        schema = self.left_schema if self.build_side == "left" else self.right_schema
+        keys = self.left_keys if self.build_side == "left" else self.right_keys
+        return core.prepare_build(build_batches, keys, schema, device)
+
+    def _out_cols(self):
+        """(output index, on probe side, side column index) per output column."""
+        nl = len(self.left_schema)
+        full_n = nl + len(self.right_schema)
+        for oi in (self.projection if self.projection is not None else range(full_n)):
+            on_left = oi < nl
+            yield on_left == self.probe_is_left, (oi if on_left else oi - nl)
+
+    def probe_batch(self, build: core.PreparedBuild, pb: Batch, conf) -> Iterator[Batch]:
+        probe_keys = self.left_keys if self.probe_is_left else self.right_keys
+        pwords, pvalid = core.canon_words(core.key_columns(pb, probe_keys))
+        ok_base = pb.device.sel & pvalid
+        bb = build.batch
+        if build.unique:
+            bi, ok = core.probe_unique(build, pwords, ok_base)
+            yield self._emit_unique(pb, bb, bi, ok, conf)
+            return
+        if build.n_live == 0:
+            return
+        lo, counts = core.probe_ranges(build, pwords, ok_base)
+        for li, ri, ok in core.expand_pairs(pb.capacity, bb.capacity, lo, counts):
+            yield self._emit(pb, bb, li, ri, ok)
+
+    def _emit_unique(self, pb: Batch, bb: Batch, bi, ok, conf) -> Batch:
+        pidx = None
+        sel = ok
+        if resolve_tri(conf.get(JOIN_COMPACT_OUTPUT), True):
+            n_live = int(ok.sum().item())
+            out_cap = compaction_bucket(n_live, pb.capacity)
+            if out_cap is not None:
+                idx = torch.nonzero(ok).flatten()
+                pidx = torch.zeros(out_cap, dtype=torch.int64, device=ok.device)
+                pidx[:n_live] = idx
+                sel = torch.arange(out_cap, device=ok.device) < n_live
+                bi = bi[pidx]
+        return self._emit(pb, bb, pidx, bi, sel)
+
+    def _emit(self, pb: Batch, bb: Batch, li, ri, ok) -> Batch:
+        """Gather output columns: probe rows at ``li`` (None = in place),
+        build rows at ``ri``; validity masked by ``ok``."""
+        cols = []
+        for on_probe, ci in self._out_cols():
+            src = pb if on_probe else bb
+            idx = li if on_probe else ri
+            v, m = src.col_values(ci), src.col_validity(ci)
+            if idx is not None:
+                v, m = v[idx], m[idx]
+            cols.append(ColumnVal(v, m & ok, src.schema[ci].dtype, src.dicts[ci]))
+        out = batch_from_columns(cols, self.out_schema.names, ok)
+        return Batch(self.out_schema, out.device, out.dicts)

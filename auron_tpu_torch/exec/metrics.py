@@ -1,0 +1,42 @@
+"""Per-operator metric tree (port of ``auron_tpu/exec/metrics.py``):
+every operator owns a node with named counters and nanosecond timers; the
+tree mirrors the plan and is handed back at task finalize."""
+
+from __future__ import annotations
+
+import time
+from contextlib import contextmanager
+
+
+class MetricNode:
+    def __init__(self, name: str = "", children: list["MetricNode"] | None = None):
+        self.name = name
+        self.values: dict[str, int] = {}
+        self.children: list[MetricNode] = children or []
+
+    def child(self, i: int) -> "MetricNode":
+        while len(self.children) <= i:
+            self.children.append(MetricNode(f"{self.name}.{len(self.children)}"))
+        return self.children[i]
+
+    def add(self, metric: str, value: int) -> None:
+        self.values[metric] = self.values.get(metric, 0) + int(value)
+
+    @contextmanager
+    def timer(self, metric: str, count: bool = False):
+        """Accumulate host wall nanos into ``metric`` (work enqueued on the
+        card is not waited for: these are host-side times)."""
+        t0 = time.perf_counter_ns()
+        try:
+            yield
+        finally:
+            self.add(metric, time.perf_counter_ns() - t0)
+            if count:
+                self.add(metric + "_n", 1)
+
+    def snapshot(self) -> dict:
+        return {
+            "name": self.name,
+            "values": dict(self.values),
+            "children": [c.snapshot() for c in list(self.children)],
+        }

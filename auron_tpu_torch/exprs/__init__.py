@@ -1,0 +1,1 @@
+"""exprs layer of the port (see the package docstring)."""

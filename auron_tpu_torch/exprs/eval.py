@@ -1,0 +1,245 @@
+"""Expression evaluator: IR trees -> eager torch programs.
+
+Port of the ``auron_tpu/exprs/eval.py`` subset this slice uses: Column,
+Literal, Cast (fixed-width types), BinaryOp (Kleene AND/OR, comparisons
+incl. dictionary-string equality/order, arithmetic), Not, IsNull,
+IsNotNull — with Spark's null semantics: arithmetic propagates NULLs,
+division and modulo by zero give NULL (non-ANSI), AND/OR are three-valued.
+Common subexpressions evaluate once per batch (structural memo).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from auron_tpu_torch import types as T
+from auron_tpu_torch.columnar.batch import Batch
+from auron_tpu_torch.exprs import ir
+
+
+@dataclass
+class ColumnVal:
+    values: torch.Tensor
+    validity: torch.Tensor
+    dtype: T.DataType
+    dict: np.ndarray | None = None  # host vocabulary iff dtype.is_dict_encoded
+
+
+_INT_BOUNDS = {
+    T.TypeKind.INT8: (-(2**7), 2**7 - 1),
+    T.TypeKind.INT16: (-(2**15), 2**15 - 1),
+    T.TypeKind.INT32: (-(2**31), 2**31 - 1),
+    T.TypeKind.INT64: (-(2**63), 2**63 - 1),
+}
+
+
+def cast_values(values: torch.Tensor, validity: torch.Tensor, src: T.DataType,
+                dst: T.DataType) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fixed-width device cast (``auron_tpu/exprs/cast.py:cast_values``
+    without the decimal branches): int->int wraps, float->int truncates
+    with NaN -> 0 and Java saturation, timestamp->long is seconds."""
+    if src == dst:
+        return values, validity
+    sk, dk = src.kind, dst.kind
+    if sk == T.TypeKind.DECIMAL or dk == T.TypeKind.DECIMAL:
+        raise TypeError("decimal casts are not in this slice of the port")
+    if sk == T.TypeKind.NULL:
+        return torch.zeros_like(values, dtype=dst.physical_dtype()), torch.zeros_like(validity)
+    if sk == T.TypeKind.BOOL:
+        return cast_values(values.to(torch.int64), validity, T.INT64, dst)
+    if dk == T.TypeKind.BOOL:
+        return values != 0, validity
+    us_per_day = 86_400_000_000
+    if sk == T.TypeKind.DATE32 and dk == T.TypeKind.TIMESTAMP:
+        return values.to(torch.int64) * us_per_day, validity
+    if sk == T.TypeKind.TIMESTAMP and dk == T.TypeKind.DATE32:
+        return torch.div(values, us_per_day, rounding_mode="floor").to(torch.int32), validity
+    if sk == T.TypeKind.DATE32 and dst.is_numeric:
+        return cast_values(values.to(torch.int32), validity, T.INT32, dst)
+    if sk == T.TypeKind.TIMESTAMP and dst.is_numeric:
+        secs = torch.div(values, 1_000_000, rounding_mode="floor")
+        return cast_values(secs, validity, T.INT64, dst)
+    if src.is_integer and dk == T.TypeKind.DATE32:
+        return values.to(torch.int32), validity
+    if src.is_integer and dk == T.TypeKind.TIMESTAMP:
+        return values.to(torch.int64) * 1_000_000, validity
+    if src.is_float and dst.is_integer:
+        lo, hi = _INT_BOUNDS[dk]
+        f = values.to(torch.float64)
+        t = torch.trunc(f)
+        if dk == T.TypeKind.INT64:
+            iv = t.clamp(-(2.0**63), float(2**63 - 1024)).to(torch.int64)
+            iv = torch.where(t >= 2.0**63, torch.full_like(iv, hi), iv)
+        else:
+            iv = t.clamp(float(lo), float(hi)).to(torch.int64)
+        iv = torch.where(torch.isnan(f), torch.zeros_like(iv), iv)
+        return iv.to(dst.physical_dtype()), validity
+    if (src.is_integer or src.is_float) and (dst.is_integer or dst.is_float):
+        return values.to(dst.physical_dtype()), validity
+    raise TypeError(f"unsupported device cast {src} -> {dst}")
+
+
+def _cmp_apply(op: str, l: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    if op == "eq":
+        return l == r
+    if op == "neq":
+        return l != r
+    if op == "lt":
+        return l < r
+    if op == "lteq":
+        return l <= r
+    if op == "gt":
+        return l > r
+    if op == "gteq":
+        return l >= r
+    raise ValueError(op)
+
+
+def _utf8_key(s):
+    return s.encode("utf-8") if isinstance(s, str) else (s if s is not None else b"")
+
+
+class Evaluator:
+    def __init__(self, schema: T.Schema):
+        self.schema = schema
+
+    def evaluate(self, batch: Batch, exprs: list[ir.Expr]) -> list[ColumnVal]:
+        memo: dict = {}
+        return [self._eval(e, batch, memo) for e in exprs]
+
+    def _eval(self, e: ir.Expr, b: Batch, memo: dict) -> ColumnVal:
+        if e in memo:
+            return memo[e]
+        out = self._eval_uncached(e, b, memo)
+        memo[e] = out
+        return out
+
+    def _eval_uncached(self, e: ir.Expr, b: Batch, memo: dict) -> ColumnVal:
+        if isinstance(e, ir.Column):
+            f = self.schema[e.index]
+            return ColumnVal(b.col_values(e.index), b.col_validity(e.index), f.dtype,
+                             b.dicts[e.index])
+        if isinstance(e, ir.Literal):
+            return self._literal(e, b.capacity, b.torch_device)
+        if isinstance(e, ir.Cast):
+            return self._cast(self._eval(e.child, b, memo), e.to)
+        if isinstance(e, ir.BinaryOp):
+            l = self._eval(e.left, b, memo)
+            r = self._eval(e.right, b, memo)
+            if e.op in ir._LOGIC_OPS:
+                return self._logic(e.op, l, r)
+            if e.op in ir._CMP_OPS:
+                return self._compare(e.op, l, r)
+            return self._arith(e.op, l, r)
+        if isinstance(e, ir.Not):
+            c = self._eval(e.child, b, memo)
+            return ColumnVal(~c.values.to(torch.bool), c.validity, T.BOOL)
+        if isinstance(e, ir.IsNull):
+            c = self._eval(e.child, b, memo)
+            return ColumnVal(~c.validity, torch.ones_like(c.validity), T.BOOL)
+        if isinstance(e, ir.IsNotNull):
+            c = self._eval(e.child, b, memo)
+            return ColumnVal(c.validity, torch.ones_like(c.validity), T.BOOL)
+        raise TypeError(f"unsupported expression {type(e).__name__}")
+
+    # ---- literals / casts ----
+
+    def _literal(self, e: ir.Literal, cap: int, device) -> ColumnVal:
+        dt = e.dtype
+        if e.value is None or dt.kind == T.TypeKind.NULL:
+            phys = dt.physical_dtype() if dt.kind != T.TypeKind.NULL else torch.int8
+            d = np.array([""], dtype=object) if dt.is_dict_encoded else None
+            return ColumnVal(torch.zeros(cap, dtype=phys, device=device),
+                             torch.zeros(cap, dtype=torch.bool, device=device), dt, d)
+        ones = torch.ones(cap, dtype=torch.bool, device=device)
+        if dt.is_dict_encoded:
+            d = np.empty(1, dtype=object)
+            d[0] = e.value
+            return ColumnVal(torch.zeros(cap, dtype=torch.int32, device=device), ones, dt, d)
+        if dt.kind == T.TypeKind.DECIMAL:
+            raise TypeError("decimal literals are not in this slice of the port")
+        return ColumnVal(torch.full((cap,), e.value, dtype=dt.physical_dtype(), device=device),
+                         ones, dt)
+
+    def _cast(self, c: ColumnVal, to: T.DataType) -> ColumnVal:
+        if c.dtype == to:
+            return c
+        if c.dtype.is_string_like and to.is_string_like:
+            return ColumnVal(c.values, c.validity, to, c.dict)
+        if c.dtype.is_dict_encoded or to.is_dict_encoded:
+            raise TypeError(f"cast {c.dtype} -> {to} is not in this slice of the port")
+        v, m = cast_values(c.values, c.validity, c.dtype, to)
+        return ColumnVal(v, m, to)
+
+    # ---- binary ops ----
+
+    def _logic(self, op: str, l: ColumnVal, r: ColumnVal) -> ColumnVal:
+        lv, rv = l.values.to(torch.bool), r.values.to(torch.bool)
+        if op == "and":
+            known = (l.validity & ~lv) | (r.validity & ~rv)  # a known False
+            value = ~known & lv & rv
+        else:
+            known = (l.validity & lv) | (r.validity & rv)  # a known True
+            value = known | (lv | rv)
+        return ColumnVal(value, (l.validity & r.validity) | known, T.BOOL)
+
+    def _compare(self, op: str, l: ColumnVal, r: ColumnVal) -> ColumnVal:
+        valid = l.validity & r.validity
+        if l.dtype.is_string_like or r.dtype.is_string_like:
+            return self._compare_strings(op, l, r)
+        if l.dtype.kind == T.TypeKind.DECIMAL or r.dtype.kind == T.TypeKind.DECIMAL:
+            raise TypeError("decimal comparisons are not in this slice of the port")
+        common = ir.numeric_common_type(l.dtype, r.dtype) if l.dtype != r.dtype else l.dtype
+        lc, rc = self._cast(l, common), self._cast(r, common)
+        return ColumnVal(_cmp_apply(op, lc.values, rc.values), valid, T.BOOL)
+
+    def _compare_strings(self, op: str, l: ColumnVal, r: ColumnVal) -> ColumnVal:
+        """Codes of both sides remapped onto one joint vocabulary; order
+        compares use the joint vocabulary's UTF-8 byte-order ranks."""
+        joint: dict = {}
+        maps = []
+        for d in (l.dict, r.dict):
+            m = np.empty(len(d), dtype=np.int64)
+            for i, s in enumerate(d):
+                m[i] = joint.setdefault(s, len(joint))
+            maps.append(torch.from_numpy(m).to(l.values.device))
+        lu = maps[0][l.values.long().clamp(0, len(maps[0]) - 1)]
+        ru = maps[1][r.values.long().clamp(0, len(maps[1]) - 1)]
+        valid = l.validity & r.validity
+        if op in ("eq", "neq"):
+            return ColumnVal(lu == ru if op == "eq" else lu != ru, valid, T.BOOL)
+        keys = list(joint)
+        order = sorted(range(len(keys)), key=lambda i: _utf8_key(keys[i]))
+        rank = np.empty(len(keys), dtype=np.int64)
+        rank[order] = np.arange(len(keys))
+        rk = torch.from_numpy(rank).to(l.values.device)
+        return ColumnVal(_cmp_apply(op, rk[lu], rk[ru]), valid, T.BOOL)
+
+    def _arith(self, op: str, l: ColumnVal, r: ColumnVal) -> ColumnVal:
+        out = ir.arith_result_type(op, l.dtype, r.dtype)
+        if out.kind == T.TypeKind.DECIMAL:
+            raise TypeError("decimal arithmetic is not in this slice of the port")
+        valid = l.validity & r.validity
+        lv, rv = self._cast(l, out).values, self._cast(r, out).values
+        if op == "add":
+            v = lv + rv
+        elif op == "sub":
+            v = lv - rv
+        elif op == "mul":
+            v = lv * rv
+        elif op in ("div", "mod"):
+            zero = rv == 0
+            safe = torch.where(zero, torch.ones_like(rv), rv)
+            if op == "div":
+                v = lv / safe if out.is_float else torch.div(lv, safe, rounding_mode="trunc")
+            elif out.is_float:
+                v = lv - torch.trunc(lv / safe) * safe  # Java % keeps the dividend's sign
+            else:
+                v = torch.fmod(lv, safe)
+            valid = valid & ~zero
+        else:
+            raise ValueError(op)
+        return ColumnVal(v, valid, out)

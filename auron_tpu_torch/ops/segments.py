@@ -1,0 +1,180 @@
+"""Device group-by primitives: key words, sort-segmentation, reducers.
+
+Port of ``auron_tpu/ops/segments.py``:
+
+1. every group-key column becomes a canonical uint64 word (int64 carrier;
+   0 for NULL) plus one packed null-bits word, so NULLs group together;
+2. a stable sort clusters equal keys, dead rows (sel=0) last: either the
+   full-word sort over ``(dead, *words, iota)`` (the bitonic kernels for
+   ``device_impl`` jnp/pallas, else the library lexsort), or the
+   fingerprint form over ``(dead, fingerprint64(words), iota)``;
+3. boundaries come from adjacent FULL-word compares (exact under
+   fingerprint collisions, which are flagged), segment ids are a cumsum,
+   and every aggregate is a scatter reduction into ``cap`` segments.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from auron_tpu_torch import types as T
+from auron_tpu_torch.exprs.eval import ColumnVal
+from auron_tpu_torch.ops import bitonic, hashing
+from auron_tpu_torch.ops.uwords import MASK32, i64
+
+_I32_MAX = 2**31 - 1
+
+
+def _canonical_word(cv: ColumnVal) -> torch.Tensor:
+    dt = cv.dtype
+    v = cv.values
+    if dt.kind == T.TypeKind.BOOL or dt.is_dict_encoded or dt.is_integer or dt.kind in (
+        T.TypeKind.DATE32, T.TypeKind.TIMESTAMP, T.TypeKind.DECIMAL
+    ):
+        return v.to(torch.int64)
+    if dt.kind == T.TypeKind.FLOAT32:
+        f = v.to(torch.float32)
+        f = torch.where(f == 0, torch.zeros_like(f), f)
+        f = torch.where(torch.isnan(f), torch.full_like(f, float("nan")), f)
+        return f.view(torch.int32).to(torch.int64) & MASK32
+    if dt.kind == T.TypeKind.FLOAT64:
+        f = v.to(torch.float64)
+        f = torch.where(f == 0, torch.zeros_like(f), f)
+        f = torch.where(torch.isnan(f), torch.full_like(f, float("nan")), f)
+        return f.view(torch.int64)
+    raise TypeError(f"ungroupable type {dt}")
+
+
+def key_words(vals: list[ColumnVal]) -> list[torch.Tensor]:
+    """Canonical equality words: one per column plus one null-bits word."""
+    words: list[torch.Tensor] = []
+    null_bits = None
+    for i, cv in enumerate(vals):
+        w = _canonical_word(cv)
+        words.append(torch.where(cv.validity, w, torch.zeros_like(w)))
+        bit = torch.where(cv.validity, torch.zeros_like(w), torch.full_like(w, i64(1 << (i % 64))))
+        null_bits = bit if null_bits is None else (null_bits | bit)
+    if null_bits is not None:
+        words.append(null_bits)
+    return words
+
+
+class Segmentation(NamedTuple):
+    order: torch.Tensor  # permutation clustering equal keys, dead rows last
+    seg_ids: torch.Tensor  # per sorted position (int64); dead rows -> cap
+    boundary: torch.Tensor  # first row of its segment
+    group_of_slot: torch.Tensor  # sorted position of each group's first row
+    num_groups: torch.Tensor  # device scalar
+    sel_sorted: torch.Tensor
+    fp_sorted: torch.Tensor | None = None
+    collision: torch.Tensor | None = None  # some fp run holds > 1 key
+
+
+def _finish_segmentation(order, sorted_words, sel_sorted, cap, fp_sorted=None) -> Segmentation:
+    dev = sel_sorted.device
+    word_change = torch.zeros(cap, dtype=torch.bool, device=dev)
+    for w in sorted_words:
+        word_change[1:] |= w[1:] != w[:-1]
+    diff = word_change.clone()
+    diff[0] = True
+    boundary = diff & sel_sorted
+    seg_live = torch.cumsum(boundary.to(torch.int64), 0) - 1
+    seg_ids = torch.where(sel_sorted, seg_live, torch.full_like(seg_live, cap))
+    num_groups = boundary.sum()
+    group_of_slot = torch.full((cap + 1,), _I32_MAX, dtype=torch.int64, device=dev).scatter_reduce_(
+        0, seg_ids, torch.arange(cap, device=dev), "amin")[:cap]
+    collision = None
+    if fp_sorted is not None:
+        fp_same = torch.zeros(cap, dtype=torch.bool, device=dev)
+        fp_same[1:] = fp_sorted[1:] == fp_sorted[:-1]
+        live_adj = sel_sorted.clone()
+        live_adj[1:] &= sel_sorted[:-1]
+        live_adj[0] = False
+        collision = (live_adj & fp_same & word_change).any()
+    return Segmentation(order, seg_ids, boundary, group_of_slot, num_groups, sel_sorted,
+                        fp_sorted, collision)
+
+
+def segment_by_keys(words: list[torch.Tensor], sel: torch.Tensor, fp=None, *,
+                    device_impl: str = "lax", n_key_cols: int = 0,
+                    fingerprint: bool = False, fp_bits: int = 64) -> Segmentation:
+    """Sort-segmentation of one batch, sorted where its tensors live.
+    ``device_impl`` picks the full-word sort: 'lax' (library lexsort) |
+    'jnp' | 'pallas' (the bitonic network, ops/bitonic.py)."""
+    cap = sel.shape[0]
+    dead = torch.where(sel, 0, 1).to(torch.int64)
+    iota = torch.arange(cap, dtype=torch.int32, device=sel.device)
+    if fingerprint:
+        if fp is None:
+            fp = hashing.fingerprint64(words, fp_bits)
+        s_dead, fp_sorted, order = bitonic.lex_sorted((dead, fp, iota))
+        order = order.long()
+        sorted_words = tuple(w[order] for w in words)
+        return _finish_segmentation(order, sorted_words, s_dead == 0, cap, fp_sorted=fp_sorted)
+    operands = (dead, *words, iota)
+    if device_impl in ("jnp", "pallas"):
+        narrow = [True] + [False] * len(words) + [False]
+        if 0 < n_key_cols <= 32 and len(words) == n_key_cols + 1:
+            narrow[len(words)] = True
+        sorted_ops = bitonic.bitonic_sort(operands, impl=device_impl, narrow=tuple(narrow))
+    else:
+        sorted_ops = bitonic.lex_sorted(operands)
+    order = sorted_ops[-1].long()
+    return _finish_segmentation(order, sorted_ops[1:-1], sorted_ops[0] == 0, cap)
+
+
+# ---------------------------------------------------------------------------
+# segment reducers (over sorted value tensors; segment ``cap`` is dropped)
+# ---------------------------------------------------------------------------
+
+
+def max_identity(dtype: torch.dtype):
+    if dtype.is_floating_point:
+        return float("inf")
+    if dtype == torch.bool:
+        return True
+    return torch.iinfo(dtype).max
+
+
+def min_identity(dtype: torch.dtype):
+    if dtype.is_floating_point:
+        return float("-inf")
+    if dtype == torch.bool:
+        return False
+    return torch.iinfo(dtype).min
+
+
+def seg_any(flags: torch.Tensor, seg_ids: torch.Tensor, cap: int) -> torch.Tensor:
+    out = torch.zeros(cap + 1, dtype=torch.int32, device=flags.device)
+    return out.scatter_reduce_(0, seg_ids, flags.to(torch.int32), "amax")[:cap] > 0
+
+
+def seg_sum(vals, valid, seg_ids, cap):
+    s = torch.zeros(cap + 1, dtype=vals.dtype, device=vals.device)
+    s.index_add_(0, seg_ids, torch.where(valid, vals, torch.zeros_like(vals)))
+    return s[:cap], seg_any(valid, seg_ids, cap)
+
+
+def seg_count(valid, seg_ids, cap):
+    c = torch.zeros(cap + 1, dtype=torch.int64, device=valid.device)
+    return c.index_add_(0, seg_ids, valid.to(torch.int64))[:cap]
+
+
+def _seg_extreme(vals, valid, seg_ids, cap, reduce: str, ident):
+    work = vals.to(torch.int8) if vals.dtype == torch.bool else vals
+    fill = torch.full((cap + 1,), ident, dtype=work.dtype, device=vals.device)
+    masked = torch.where(valid, work, torch.full_like(work, ident))
+    out = fill.scatter_reduce_(0, seg_ids, masked, reduce)[:cap]
+    if vals.dtype == torch.bool:
+        out = out > 0
+    return out, seg_any(valid, seg_ids, cap)
+
+
+def seg_min(vals, valid, seg_ids, cap):
+    return _seg_extreme(vals, valid, seg_ids, cap, "amin", max_identity(vals.dtype))
+
+
+def seg_max(vals, valid, seg_ids, cap):
+    return _seg_extreme(vals, valid, seg_ids, cap, "amax", min_identity(vals.dtype))

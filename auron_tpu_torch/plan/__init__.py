@@ -1,0 +1,1 @@
+"""plan layer of the port (see the package docstring)."""

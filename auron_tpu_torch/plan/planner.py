@@ -1,0 +1,153 @@
+"""Physical planner: plan proto -> executable operator tree.
+
+Port of ``auron_tpu/plan/planner.py`` for the node and expression variants
+this slice executes (memory_scan, project, filter, limit, hash_agg, sort,
+hash_join; column, literal, cast, binary, not, is_null, is_not_null).
+Other variants raise ``NotImplementedError`` naming the variant.
+
+The exec tree is the JAX package's tree with whole-stage fusion off
+(``exec.fuse.enable=off``), which the JAX package guarantees gives
+bit-identical results (plan/fusion.py:1200-1206). ``plan_pb2`` (and with
+it google.protobuf) is imported only by the functions that decode protos.
+"""
+
+from __future__ import annotations
+
+from auron_tpu_torch import types as T
+from auron_tpu_torch.exprs import ir
+from auron_tpu_torch.ops.sortkeys import SortSpec
+from auron_tpu_torch.utils.config import Configuration
+
+
+def _pb():
+    from auron_tpu_torch.proto import plan_pb2
+
+    return plan_pb2
+
+
+def dtype_from_proto(p) -> T.DataType:
+    kind = T.TypeKind[_pb().DataType.Kind.Name(p.kind)]
+    if kind == T.TypeKind.LIST:
+        return T.DataType(kind, inner=(dtype_from_proto(p.inner),))
+    if kind in (T.TypeKind.MAP, T.TypeKind.STRUCT):
+        return T.DataType(kind, inner=tuple(dtype_from_proto(i) for i in p.inners),
+                          struct_names=tuple(p.struct_names))
+    return T.DataType(kind, p.precision, p.scale)
+
+
+def schema_from_proto(p) -> T.Schema:
+    return T.Schema(tuple(T.Field(f.name, dtype_from_proto(f.dtype), f.nullable)
+                          for f in p.fields))
+
+
+def _literal_from_proto(p) -> ir.Literal:
+    dt = dtype_from_proto(p.dtype)
+    if p.is_null:
+        return ir.Literal(None, dt)
+    which = p.WhichOneof("value")
+    if which in ("bool_value", "int_value", "float_value", "string_value", "bytes_value"):
+        return ir.Literal(getattr(p, which), dt)
+    if which == "decimal_unscaled":
+        import decimal
+
+        return ir.Literal(decimal.Decimal(p.decimal_unscaled).scaleb(-dt.scale), dt)
+    return ir.Literal(None, dt)
+
+
+def expr_from_proto(p) -> ir.Expr:
+    which = p.WhichOneof("expr")
+    if which == "column":
+        return ir.Column(p.column.index, p.column.name)
+    if which == "literal":
+        return _literal_from_proto(p.literal)
+    if which == "cast":
+        return ir.Cast(expr_from_proto(p.cast.child), dtype_from_proto(p.cast.to),
+                       p.cast.try_cast)
+    if which == "binary":
+        return ir.BinaryOp(p.binary.op, expr_from_proto(p.binary.left),
+                           expr_from_proto(p.binary.right))
+    if which == "is_null":
+        return ir.IsNull(expr_from_proto(p.is_null.child))
+    if which == "is_not_null":
+        return ir.IsNotNull(expr_from_proto(p.is_not_null.child))
+    if which == "not":
+        return ir.Not(expr_from_proto(getattr(p, "not").child))
+    raise NotImplementedError(f"expression variant {which} is not in this slice of the port")
+
+
+def _sort_fields(fields):
+    return ([expr_from_proto(f.expr) for f in fields],
+            [SortSpec(asc=f.asc, nulls_first=f.nulls_first) for f in fields])
+
+
+_AGG_FUNC = {0: "sum", 1: "count", 2: "count_star", 3: "avg", 4: "min", 5: "max",
+             6: "first", 7: "first_ignores_null", 8: "collect_list", 9: "collect_set",
+             10: "host_udaf"}
+_AGG_MODE = {0: "partial", 1: "partial_merge", 2: "final"}
+_JOIN_TYPE = {0: "inner", 1: "left", 2: "right", 3: "full", 4: "left_semi",
+              5: "left_anti", 6: "existence"}
+
+
+def plan_from_proto(p):
+    from auron_tpu_torch.exec import basic
+    from auron_tpu_torch.exec.agg_exec import AggExpr, HashAggExec
+    from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
+    from auron_tpu_torch.exec.sort_exec import SortExec
+
+    pb = _pb()
+    which = p.WhichOneof("plan")
+    if which == "memory_scan":
+        return basic.ResourceScanExec(schema_from_proto(p.memory_scan.schema),
+                                      p.memory_scan.resource_id)
+    if which == "project":
+        return basic.ProjectExec(plan_from_proto(p.project.child),
+                                 [expr_from_proto(e.expr) for e in p.project.exprs],
+                                 [e.name for e in p.project.exprs])
+    if which == "filter":
+        return basic.FilterExec(plan_from_proto(p.filter.child),
+                                [expr_from_proto(e) for e in p.filter.predicates])
+    if which == "limit":
+        return basic.LimitExec(plan_from_proto(p.limit.child), p.limit.limit)
+    if which == "hash_agg":
+        n = p.hash_agg
+        return HashAggExec(
+            plan_from_proto(n.child),
+            [(expr_from_proto(g.expr), g.name) for g in n.groupings],
+            [(AggExpr(_AGG_FUNC[a.func], expr_from_proto(a.expr) if a.has_expr else None,
+                      udaf=a.udaf or None), a.name) for a in n.aggs],
+            _AGG_MODE[n.mode],
+        )
+    if which == "sort":
+        n = p.sort
+        exprs, specs = _sort_fields(n.fields)
+        return SortExec(plan_from_proto(n.child), exprs, specs,
+                        fetch=n.fetch if n.has_fetch else None)
+    if which == "hash_join":
+        n = p.hash_join
+        return BroadcastHashJoinExec(
+            plan_from_proto(n.left), plan_from_proto(n.right),
+            [expr_from_proto(e) for e in n.left_keys],
+            [expr_from_proto(e) for e in n.right_keys],
+            _JOIN_TYPE[n.join_type],
+            build_side="left" if n.build_side == pb.BUILD_LEFT else "right",
+            condition=expr_from_proto(n.condition) if n.has_condition else None,
+            cached_build_id=n.cached_build_id or None,
+            projection=list(n.projection) if n.has_projection else None,
+        )
+    raise NotImplementedError(f"plan variant {which} is not in this slice of the port")
+
+
+def task_from_proto(task):
+    """(root exec, stage_id, partition_id, Configuration) of a decoded
+    TaskDefinition; column pruning runs on every task, as in auron_tpu."""
+    from auron_tpu_torch.plan.optimizer import prune_columns
+
+    conf = Configuration(dict(task.conf))
+    plan = plan_from_proto(prune_columns(task.plan))
+    return plan, task.stage_id, task.partition_id, conf
+
+
+def decode_task(task_bytes: bytes):
+    t = _pb().TaskDefinition()
+    t.ParseFromString(bytes(task_bytes))
+    return t

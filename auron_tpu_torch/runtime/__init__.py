@@ -1,0 +1,1 @@
+"""runtime layer of the port (see the package docstring)."""

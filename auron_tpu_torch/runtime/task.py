@@ -1,0 +1,98 @@
+"""Per-task execution runtime: the batch pump (port of
+``auron_tpu/runtime/task.py:TaskRuntime``).
+
+A task is either serialized ``TaskDefinition`` bytes (decoded lazily with
+the verbatim ``plan_pb2`` copy) or an already-built exec tree. The runtime
+drives the root operator on a background thread into a bounded queue;
+the consumer pulls batches with ``next_batch``; an error anywhere in the
+operator stream is re-raised on the consumer side; ``finalize`` cancels,
+drains, joins the pump and returns the metric tree.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Iterator
+
+from auron_tpu_torch.columnar.batch import Batch
+from auron_tpu_torch.device import resolve_device
+from auron_tpu_torch.exec.base import ExecOperator, ExecutionContext, TaskCancelled
+from auron_tpu_torch.exec.metrics import MetricNode
+from auron_tpu_torch.utils.config import TOKIO_EQUIV_PREFETCH_DEPTH, Configuration, conf_scope
+
+_END = object()
+
+
+class TaskRuntime:
+    def __init__(self, task, resources: dict | None = None, shared: dict | None = None,
+                 stage_id: int = 0, partition_id: int = 0,
+                 conf: Configuration | None = None, device: str = "cuda"):
+        if isinstance(task, ExecOperator):
+            plan, conf = task, conf or Configuration()
+        else:
+            from auron_tpu_torch.plan.planner import decode_task, task_from_proto
+
+            if isinstance(task, (bytes, bytearray)):
+                task = decode_task(task)
+            plan, stage_id, partition_id, conf = task_from_proto(task)
+        self.plan = plan
+        self.ctx = ExecutionContext(
+            stage_id=stage_id, partition_id=partition_id, conf=conf,
+            metrics=MetricNode(plan.name), resources=resources or {}, shared=shared,
+            device=str(resolve_device(device)),
+        )
+        self._queue: queue.Queue = queue.Queue(maxsize=max(conf.get(TOKIO_EQUIV_PREFETCH_DEPTH), 1))
+        self._error: BaseException | None = None
+        self._finalized = False
+        self._thread = threading.Thread(target=self._pump, daemon=True, name="auron-torch-pump")
+        self._thread.start()
+
+    def _pump(self) -> None:
+        try:
+            with conf_scope(self.ctx.conf):
+                for batch in self.plan.execute(self.ctx.partition_id, self.ctx):
+                    self._queue.put(batch)
+        except TaskCancelled:
+            pass
+        except BaseException as e:  # noqa: BLE001 — relayed to the consumer
+            self._error = e
+        finally:
+            self._queue.put(_END)
+
+    def _check_error(self) -> None:
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError(
+                f"task stage={self.ctx.stage_id} partition={self.ctx.partition_id} failed"
+            ) from err
+
+    def next_batch(self) -> Batch | None:
+        """Next device batch, or None at end of stream."""
+        if self._finalized:
+            return None
+        item = self._queue.get()
+        if item is _END:
+            self._check_error()
+            return None
+        return item
+
+    def __iter__(self) -> Iterator[Batch]:
+        while (b := self.next_batch()) is not None:
+            yield b
+
+    def finalize(self) -> dict:
+        """Cancel, drain, join; returns the metric-tree snapshot."""
+        self._finalized = True
+        self.ctx.cancel()
+        deadline = 30.0
+        while self._thread.is_alive() and deadline > 0:
+            try:
+                while True:
+                    self._queue.get_nowait()
+            except queue.Empty:
+                pass
+            self._thread.join(timeout=0.05)
+            deadline -= 0.05
+        self._check_error()
+        return self.ctx.metrics.snapshot()

@@ -1,0 +1,229 @@
+"""SQL type system and its torch physical mapping.
+
+Copied from ``auron_tpu/types.py`` (logical types, Spark rules) with the
+physical mapping onto torch dtypes instead of jnp dtypes, and the Arrow
+conversions made lazy (pyarrow is imported only inside them):
+
+- fixed-width types map 1:1 onto dense torch tensors + a bool validity mask;
+- DECIMAL(p<=18) is a scaled int64; DECIMAL(19..38), STRING, BINARY and the
+  nested kinds are dictionary-encoded: int32 codes on the device, the
+  vocabulary on the host;
+- DATE is int32 days since epoch, TIMESTAMP int64 microseconds.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+
+class TypeKind(enum.Enum):
+    NULL = "null"
+    BOOL = "bool"
+    INT8 = "int8"
+    INT16 = "int16"
+    INT32 = "int32"
+    INT64 = "int64"
+    FLOAT32 = "float32"
+    FLOAT64 = "float64"
+    DECIMAL = "decimal"
+    DATE32 = "date32"
+    TIMESTAMP = "timestamp"  # microseconds
+    STRING = "string"
+    BINARY = "binary"
+    LIST = "list"
+    MAP = "map"
+    STRUCT = "struct"
+    UNSUPPORTED = "unsupported"
+
+
+_INT_KINDS = (TypeKind.INT8, TypeKind.INT16, TypeKind.INT32, TypeKind.INT64)
+_FLOAT_KINDS = (TypeKind.FLOAT32, TypeKind.FLOAT64)
+
+_TORCH_OF_KIND = {
+    TypeKind.BOOL: torch.bool,
+    TypeKind.INT8: torch.int8,
+    TypeKind.INT16: torch.int16,
+    TypeKind.INT32: torch.int32,
+    TypeKind.DATE32: torch.int32,
+    TypeKind.INT64: torch.int64,
+    TypeKind.TIMESTAMP: torch.int64,
+    TypeKind.FLOAT32: torch.float32,
+    TypeKind.FLOAT64: torch.float64,
+    TypeKind.NULL: torch.int8,
+}
+
+
+@dataclass(frozen=True)
+class DataType:
+    """A logical SQL data type. Hashable."""
+
+    kind: TypeKind
+    precision: int = 0  # DECIMAL only
+    scale: int = 0  # DECIMAL only
+    inner: tuple = ()  # LIST: (element,); MAP: (key, value); STRUCT: field types
+    struct_names: tuple = ()
+
+    def __post_init__(self):
+        if self.kind == TypeKind.DECIMAL:
+            if not (1 <= self.precision <= 38):
+                raise ValueError(f"bad decimal precision {self.precision}")
+
+    @property
+    def is_integer(self) -> bool:
+        return self.kind in _INT_KINDS
+
+    @property
+    def is_float(self) -> bool:
+        return self.kind in _FLOAT_KINDS
+
+    @property
+    def is_numeric(self) -> bool:
+        return self.is_integer or self.is_float or self.kind == TypeKind.DECIMAL
+
+    @property
+    def is_string_like(self) -> bool:
+        return self.kind in (TypeKind.STRING, TypeKind.BINARY)
+
+    @property
+    def is_wide_decimal(self) -> bool:
+        return self.kind == TypeKind.DECIMAL and self.precision > 18
+
+    @property
+    def is_dict_encoded(self) -> bool:
+        return (
+            self.is_string_like
+            or self.is_wide_decimal
+            or self.kind in (TypeKind.LIST, TypeKind.MAP, TypeKind.STRUCT)
+        )
+
+    def physical_dtype(self) -> torch.dtype:
+        """torch dtype of the device value tensor for this logical type."""
+        if self.is_dict_encoded:
+            return torch.int32
+        if self.kind == TypeKind.DECIMAL:
+            return torch.int64
+        if self.kind in _TORCH_OF_KIND:
+            return _TORCH_OF_KIND[self.kind]
+        raise TypeError(f"no physical dtype for {self}")
+
+    def numpy_dtype(self) -> np.dtype:
+        return np.dtype(str(self.physical_dtype()).replace("torch.", ""))
+
+    def to_arrow(self):
+        import pyarrow as pa
+
+        k = self.kind
+        m = {
+            TypeKind.NULL: pa.null(), TypeKind.BOOL: pa.bool_(),
+            TypeKind.INT8: pa.int8(), TypeKind.INT16: pa.int16(),
+            TypeKind.INT32: pa.int32(), TypeKind.INT64: pa.int64(),
+            TypeKind.FLOAT32: pa.float32(), TypeKind.FLOAT64: pa.float64(),
+            TypeKind.DATE32: pa.date32(), TypeKind.TIMESTAMP: pa.timestamp("us"),
+            TypeKind.STRING: pa.string(), TypeKind.BINARY: pa.binary(),
+        }
+        if k == TypeKind.DECIMAL:
+            return pa.decimal128(self.precision, self.scale)
+        if k in m:
+            return m[k]
+        raise TypeError(f"no arrow type for {self} in this slice")
+
+    @staticmethod
+    def from_arrow(t) -> "DataType":
+        import pyarrow as pa
+
+        if pa.types.is_null(t):
+            return NULL
+        if pa.types.is_boolean(t):
+            return BOOL
+        if pa.types.is_int8(t):
+            return INT8
+        if pa.types.is_int16(t) or pa.types.is_uint8(t):
+            return INT16
+        if pa.types.is_int32(t) or pa.types.is_uint16(t):
+            return INT32
+        if pa.types.is_int64(t) or pa.types.is_uint32(t) or pa.types.is_uint64(t):
+            return INT64
+        if pa.types.is_float32(t):
+            return FLOAT32
+        if pa.types.is_float64(t):
+            return FLOAT64
+        if pa.types.is_decimal(t):
+            return decimal(t.precision, t.scale)
+        if pa.types.is_date32(t) or pa.types.is_date64(t):
+            return DATE32
+        if pa.types.is_timestamp(t):
+            return TIMESTAMP
+        if pa.types.is_string(t) or pa.types.is_large_string(t):
+            return STRING
+        if pa.types.is_binary(t) or pa.types.is_large_binary(t):
+            return BINARY
+        if isinstance(t, pa.DictionaryType):
+            return DataType.from_arrow(t.value_type)
+        raise TypeError(f"unsupported arrow type {t}")
+
+    def __repr__(self) -> str:
+        if self.kind == TypeKind.DECIMAL:
+            return f"decimal({self.precision},{self.scale})"
+        return self.kind.value
+
+
+NULL = DataType(TypeKind.NULL)
+BOOL = DataType(TypeKind.BOOL)
+INT8 = DataType(TypeKind.INT8)
+INT16 = DataType(TypeKind.INT16)
+INT32 = DataType(TypeKind.INT32)
+INT64 = DataType(TypeKind.INT64)
+FLOAT32 = DataType(TypeKind.FLOAT32)
+FLOAT64 = DataType(TypeKind.FLOAT64)
+DATE32 = DataType(TypeKind.DATE32)
+TIMESTAMP = DataType(TypeKind.TIMESTAMP)
+STRING = DataType(TypeKind.STRING)
+BINARY = DataType(TypeKind.BINARY)
+
+
+def decimal(precision: int, scale: int) -> DataType:
+    return DataType(TypeKind.DECIMAL, precision, scale)
+
+
+@dataclass(frozen=True)
+class Field:
+    name: str
+    dtype: DataType
+    nullable: bool = True
+
+
+@dataclass(frozen=True)
+class Schema:
+    """A named, ordered list of fields. Hashable."""
+
+    fields: tuple[Field, ...] = field(default_factory=tuple)
+
+    def __len__(self) -> int:
+        return len(self.fields)
+
+    def __iter__(self):
+        return iter(self.fields)
+
+    def __getitem__(self, i: int) -> Field:
+        return self.fields[i]
+
+    @property
+    def names(self) -> list[str]:
+        return [f.name for f in self.fields]
+
+    def to_arrow(self):
+        import pyarrow as pa
+
+        return pa.schema(
+            [pa.field(f.name, f.dtype.to_arrow(), nullable=f.nullable) for f in self.fields]
+        )
+
+    @staticmethod
+    def from_arrow(s) -> "Schema":
+        return Schema(
+            tuple(Field(f.name, DataType.from_arrow(f.type), f.nullable) for f in s)
+        )

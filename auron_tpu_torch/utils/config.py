@@ -1,0 +1,171 @@
+"""Typed configuration: the keys this slice reads.
+
+Copied from ``auron_tpu/utils/config.py`` (the ``ConfigOption`` /
+``Configuration`` / ``resolve_tri`` / ``active_conf`` / ``conf_scope``
+machinery, verbatim in behaviour) with only the keys the port reads. Keys
+and values mean the same thing as in the JAX package, so a conf shipped by
+a host engine in a ``TaskDefinition`` configures both engines alike.
+Values resolve from (1) the session dict, (2) the env var
+``AURON_TPU_<KEY>``, (3) the default.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from dataclasses import dataclass
+from typing import Any, Callable, Generic, TypeVar
+
+T = TypeVar("T")
+
+_REGISTRY: dict[str, "ConfigOption"] = {}
+
+
+@dataclass(frozen=True)
+class ConfigOption(Generic[T]):
+    key: str
+    default: T
+    parse: Callable[[str], T]
+    category: str = "general"
+    doc: str = ""
+
+    def __post_init__(self):
+        _REGISTRY[self.key] = self
+
+    def get(self, conf: "Configuration | None" = None) -> T:
+        c = conf if conf is not None else active_conf()
+        return c.get(self)
+
+
+def _parse_bool(s: str) -> bool:
+    return s.strip().lower() in ("1", "true", "yes", "on")
+
+
+def env_key_for(key: str) -> str:
+    return "AURON_TPU_" + key.upper().replace(".", "_")
+
+
+def int_conf(key: str, default: int, category: str = "general", doc: str = "") -> ConfigOption[int]:
+    return ConfigOption(key, default, int, category, doc)
+
+
+def float_conf(key: str, default: float, category: str = "general", doc: str = "") -> ConfigOption[float]:
+    return ConfigOption(key, default, float, category, doc)
+
+
+def bool_conf(key: str, default: bool, category: str = "general", doc: str = "") -> ConfigOption[bool]:
+    return ConfigOption(key, default, _parse_bool, category, doc)
+
+
+def str_conf(key: str, default: str, category: str = "general", doc: str = "") -> ConfigOption[str]:
+    return ConfigOption(key, default, str, category, doc)
+
+
+class Configuration:
+    """Resolved key->value store with session overrides."""
+
+    def __init__(self, values: dict[str, Any] | None = None):
+        self._values: dict[str, Any] = dict(values or {})
+
+    def set(self, opt: ConfigOption[T] | str, value: Any) -> "Configuration":
+        key = opt if isinstance(opt, str) else opt.key
+        self._values[key] = value
+        return self
+
+    def get(self, opt: ConfigOption[T]) -> T:
+        if opt.key in self._values:
+            v = self._values[opt.key]
+            return opt.parse(v) if isinstance(v, str) else v
+        env_key = env_key_for(opt.key)
+        if env_key in os.environ:
+            return opt.parse(os.environ[env_key])
+        return opt.default
+
+    def copy(self) -> "Configuration":
+        return Configuration(self._values)
+
+
+_local = threading.local()
+_GLOBAL = Configuration()
+
+
+def active_conf() -> Configuration:
+    return getattr(_local, "conf", None) or _GLOBAL
+
+
+def resolve_tri(mode: str, auto: bool) -> bool:
+    """on|off|auto knobs: explicit on/off win, auto defers to the caller's
+    device predicate."""
+    if mode == "on":
+        return True
+    if mode == "off":
+        return False
+    return auto
+
+
+class conf_scope:
+    """Context manager installing a Configuration for the current thread."""
+
+    def __init__(self, conf: Configuration):
+        self.conf = conf
+
+    def __enter__(self):
+        self._prev = getattr(_local, "conf", None)
+        _local.conf = self.conf
+        return self.conf
+
+    def __exit__(self, *exc):
+        _local.conf = self._prev
+        return False
+
+
+# ---------------------------------------------------------------------------
+# keys read by this slice (same keys, same defaults as auron_tpu)
+# ---------------------------------------------------------------------------
+
+BATCH_SIZE = int_conf(
+    "batch.size", 131072, "exec", "target rows per columnar device batch",
+)
+JOIN_COMPACT_OUTPUT = str_conf(
+    "join.compact.output", "auto", "join",
+    "compact sparse unique-join outputs before gathering build columns "
+    "(one count read per probe batch): on | off | auto = on",
+)
+HOST_SORT_MODE = str_conf(
+    "exec.host.sort", "auto", "exec",
+    "kept so a conf from the host engine parses; the port reads it nowhere "
+    "and always sorts where its tensors live",
+)
+DEVICE_SORT_IMPL = str_conf(
+    "exec.device.sort.impl", "auto", "exec",
+    "cluster-sort implementation when sorting on the device: lax = stable "
+    "multi-pass torch.sort lexsort; jnp = the bitonic network in plain "
+    "torch; pallas = the hand-written CUDA bitonic kernels (the plain "
+    "network for CPU tensors); auto = pallas on CUDA when P >= 2048, else lax",
+)
+PARTIAL_AGG_SKIPPING_ENABLE = bool_conf(
+    "partial.agg.skipping.enable", True, "agg",
+    "skip partial aggregation when observed cardinality ratio is high",
+)
+PARTIAL_AGG_SKIPPING_RATIO = float_conf("partial.agg.skipping.ratio", 0.8, "agg", "")
+PARTIAL_AGG_SKIPPING_MIN_ROWS = int_conf("partial.agg.skipping.min.rows", 20480, "agg", "")
+AGG_INCREMENTAL_ENABLE = bool_conf(
+    "exec.agg.incremental.enable", True, "agg",
+    "umbrella for fingerprint-sort segmentation (False = full-word sort)",
+)
+AGG_INCREMENTAL_FINGERPRINT = str_conf(
+    "exec.agg.incremental.fingerprint", "auto", "agg",
+    "sort (dead, fingerprint64, iota) instead of every key word: "
+    "on | off | auto = on for CUDA tensors, off for CPU tensors",
+)
+AGG_INCREMENTAL_FP_BITS = int_conf(
+    "exec.agg.incremental.fp.bits", 64, "agg",
+    "fingerprint width; < 64 truncates (a test hook forcing collisions)",
+)
+METRICS_ROW_COUNTS = bool_conf(
+    "metrics.row.counts", False, "runtime",
+    "per-operator output_rows metrics (one device count read per operator)",
+)
+TOKIO_EQUIV_PREFETCH_DEPTH = int_conf(
+    "runtime.prefetch.depth", 2, "runtime", "batches prefetched by the task pump",
+)
