@@ -1,5 +1,6 @@
 """Broadcast hash join exec (port of ``auron_tpu/exec/joins/bhj.py``,
-inner joins): the build child becomes a prepared key map, optionally
+inner joins and left joins with the build on the right): the build child
+becomes a prepared key map, optionally
 cached in the executor-shared resource map under ``cached_build_id`` so
 tasks probing the same broadcast reuse one build."""
 

@@ -1,6 +1,7 @@
 """Equi-join core: build preparation, probes and pair expansion.
 
-Port of the inner-join parts of ``auron_tpu/exec/joins/core.py``:
+Port of the inner- and left-outer-join parts of
+``auron_tpu/exec/joins/core.py``:
 
 - a single integer-like key with a small value range and unique live keys
   builds a dense direct-address table (``lut[key - base] = build row``):
@@ -32,6 +33,7 @@ from auron_tpu_torch.ops.segments import _canonical_word
 from auron_tpu_torch.ops.uwords import flip
 
 INNER = "inner"
+LEFT = "left"
 
 #: pair slots per emitted chunk (same as auron_tpu)
 _EXPAND_CHUNK = 1 << 20
@@ -41,7 +43,7 @@ _LUT_KINDS = (T.TypeKind.INT8, T.TypeKind.INT16, T.TypeKind.INT32, T.TypeKind.IN
 
 
 def join_output_schema(left: T.Schema, right: T.Schema, join_type: str) -> T.Schema:
-    if join_type != INNER:
+    if join_type not in (INNER, LEFT):
         raise NotImplementedError(f"{join_type} joins are not in this slice of the port")
     lf = [T.Field(f.name, f.dtype, True) for f in left.fields]
     rf = [T.Field(f.name, f.dtype, True) for f in right.fields]

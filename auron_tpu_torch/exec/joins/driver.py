@@ -1,4 +1,4 @@
-"""Inner equi-join driver (port of the inner-join path of
+"""Equi-join driver (port of the inner and left-outer paths of
 ``auron_tpu/exec/joins/driver.py``): runs one prepared build side against
 a stream of probe batches. Output columns are (left ++ right), subset by
 the optional column-pruning ``projection``.
@@ -8,7 +8,10 @@ live count is read once per batch, and when the output would fill less than
 a quarter of the probe capacity (``compaction_bucket``) the live rows are
 gathered into a smaller batch before the build columns are gathered
 (predicted compaction is a later slice). A duplicate-keyed build expands
-pair chunks."""
+pair chunks. A LEFT join with the build on the right keeps every probe row
+(``probe_outer``, ``core.py:604-615``, ``:666-691``): NULL-keyed and
+unmatched rows stay live with NULL build columns.
+"""
 
 from __future__ import annotations
 
@@ -30,10 +33,12 @@ class EquiJoinDriver:
                  left_keys: list[ir.Expr], right_keys: list[ir.Expr], join_type: str,
                  build_side: str, condition: ir.Expr | None = None,
                  projection: list[int] | None = None):
-        if join_type != core.INNER or condition is not None:
-            raise NotImplementedError(
-                "only inner equi-joins without a residual condition are in this slice")
         assert build_side in ("left", "right")
+        if condition is not None or not (
+                join_type == core.INNER or (join_type == core.LEFT and build_side == "right")):
+            raise NotImplementedError(
+                "only inner equi-joins and left joins with the build on the right, "
+                "without a residual condition, are in this slice")
         self.left_schema, self.right_schema = left_schema, right_schema
         self.left_keys, self.right_keys = left_keys, right_keys
         self.join_type = join_type
@@ -43,6 +48,7 @@ class EquiJoinDriver:
         proj = self.projection if self.projection is not None else range(len(full))
         self.out_schema = T.Schema(tuple(full[i] for i in proj))
         self.probe_is_left = build_side == "right"
+        self.probe_outer = join_type == core.LEFT
 
     def prepare(self, build_batches: list[Batch], device) -> core.PreparedBuild:
         schema = self.left_schema if self.build_side == "left" else self.right_schema
@@ -67,28 +73,39 @@ class EquiJoinDriver:
             yield self._emit_unique(pb, bb, bi, ok, conf)
             return
         if build.n_live == 0:
+            if self.probe_outer:
+                yield self._emit_unmatched(pb, bb, pb.device.sel)
             return
         lo, counts = core.probe_ranges(build, pwords, ok_base)
         for li, ri, ok in core.expand_pairs(pb.capacity, bb.capacity, lo, counts):
             yield self._emit(pb, bb, li, ri, ok)
+        if self.probe_outer:
+            yield self._emit_unmatched(pb, bb, pb.device.sel & (counts == 0))
 
     def _emit_unique(self, pb: Batch, bb: Batch, bi, ok, conf) -> Batch:
         pidx = None
-        sel = ok
+        sel = pb.device.sel if self.probe_outer else ok
         if resolve_tri(conf.get(JOIN_COMPACT_OUTPUT), True):
-            n_live = int(ok.sum().item())
+            n_live = int(sel.sum().item())
             out_cap = compaction_bucket(n_live, pb.capacity)
             if out_cap is not None:
-                idx = torch.nonzero(ok).flatten()
+                idx = torch.nonzero(sel).flatten()
                 pidx = torch.zeros(out_cap, dtype=torch.int64, device=ok.device)
                 pidx[:n_live] = idx
-                sel = torch.arange(out_cap, device=ok.device) < n_live
-                bi = bi[pidx]
-        return self._emit(pb, bb, pidx, bi, sel)
+                new_sel = torch.arange(out_cap, device=ok.device) < n_live
+                bi, ok, sel = bi[pidx], ok[pidx] & new_sel, new_sel
+        return self._emit(pb, bb, pidx, bi, ok, sel)
 
-    def _emit(self, pb: Batch, bb: Batch, li, ri, ok) -> Batch:
+    def _emit_unmatched(self, pb: Batch, bb: Batch, sel) -> Batch:
+        """Probe rows ``sel`` with NULL build columns (left join)."""
+        ri = torch.zeros(pb.capacity, dtype=torch.int64, device=sel.device)
+        return self._emit(pb, bb, None, ri, torch.zeros_like(sel), sel)
+
+    def _emit(self, pb: Batch, bb: Batch, li, ri, ok, sel=None) -> Batch:
         """Gather output columns: probe rows at ``li`` (None = in place),
-        build rows at ``ri``; validity masked by ``ok``."""
+        build rows at ``ri``; rows ``sel`` (default ``ok``) are live, build
+        columns are valid only where ``ok`` (matched)."""
+        sel = ok if sel is None else sel
         cols = []
         for on_probe, ci in self._out_cols():
             src = pb if on_probe else bb
@@ -96,6 +113,7 @@ class EquiJoinDriver:
             v, m = src.col_values(ci), src.col_validity(ci)
             if idx is not None:
                 v, m = v[idx], m[idx]
-            cols.append(ColumnVal(v, m & ok, src.schema[ci].dtype, src.dicts[ci]))
-        out = batch_from_columns(cols, self.out_schema.names, ok)
+            cols.append(ColumnVal(v, m & (sel if on_probe else ok), src.schema[ci].dtype,
+                                  src.dicts[ci]))
+        out = batch_from_columns(cols, self.out_schema.names, sel)
         return Batch(self.out_schema, out.device, out.dicts)

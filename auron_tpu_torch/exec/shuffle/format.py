@@ -1,0 +1,632 @@
+"""Compacted shuffle block format, numpy only (port of
+``auron_tpu/exec/shuffle/format.py``).
+
+The layout is the JAX package's, so either engine reads the other's files:
+
+    data file  := concat of per-partition regions (partition order)
+                  | 16-byte "AURONPAR" pair trailer
+    region     := block*
+    block      := u64-LE payload length | payload
+    payload    := "AUB2" | u8 ver=2 | u8 pad | u16 ncols | u32 nrows
+                | u32 schema_len | Arrow IPC schema message + EOS
+                | column*
+    column     := u8 enc | u8 has_validity
+                | [u32 vlen | packbits(validity, little)]
+                | u32 plen | enc payload
+    index file := (num_partitions + 1) u64-LE offsets | pair magic + tag
+
+Ported here: the framing, the index and pair trailer (``format.py:90-169``)
+and the v2 block for fixed-width columns with the plane encoders RAW,
+BITPACK, RLE, PACKBITS, SPARSE and SCALED and their deterministic chooser
+(``format.py:272-533``, copied; SCALED is the numpy twin, which makes the
+same bytes as the JAX package's native kernels). The writer's rules that
+decide the bytes carry over: no validity section when a column has no
+NULLs, NULL lanes zeroed before encoding, a plane at least half NULL takes
+SPARSE. The port has no general codec (no pyarrow on the card): as in the
+JAX package when a codec is unavailable, the writer degrades to the
+light-weight encodings and warns once (``format.py:247-269``).
+
+The schema section is a minimal Arrow IPC schema message written without
+pyarrow (``pa.ipc.read_schema`` reads it, so the JAX reader reads the
+port's files); the port's reader skips it and takes the column types from
+its plan schema. ENC_CODEC, ENC_ARROW, ENC_DICT, ENC_DEC128 and v1 (Arrow
+IPC) blocks raise ``NotImplementedError`` naming the encoding: string,
+dictionary and decimal columns are not on this slice's path.
+"""
+
+from __future__ import annotations
+
+import struct
+import sys
+import threading
+from typing import Iterator
+
+import numpy as np
+
+from auron_tpu_torch import types as T
+from auron_tpu_torch.utils.config import (
+    SHUFFLE_ENCODING, SHUFFLE_ENCODING_FALLBACK, SPILL_COMPRESSION_CODEC, resolve_tri,
+)
+
+# ---------------------------------------------------------------------------
+# framing, index, pair trailer
+# ---------------------------------------------------------------------------
+
+PAIR_MAGIC = 0x41_55_52_4F_4E_50_41_52  # "AURONPAR"
+
+
+def iter_block_payloads(data: bytes) -> Iterator[bytes]:
+    """Walk the length-prefixed framing, yielding raw block payloads."""
+    pos = 0
+    n = len(data)
+    while pos + 8 <= n:
+        (length,) = struct.unpack_from("<Q", data, pos)
+        pos += 8
+        if pos + length > n:
+            raise ValueError(
+                f"corrupt shuffle block: length {length} at offset {pos - 8} "
+                f"overruns the region ({n} bytes)"
+            )
+        yield data[pos : pos + length]
+        pos += length
+
+
+def write_index(path: str, offsets: list[int], pair_tag: int | None = None) -> None:
+    with open(path, "wb") as f:
+        for o in offsets:
+            f.write(struct.pack("<Q", o))
+        if pair_tag is not None:
+            f.write(struct.pack("<QQ", PAIR_MAGIC, pair_tag))
+
+
+def data_trailer(pair_tag: int) -> bytes:
+    """16-byte trailer after the last offset of a data file (invisible to
+    offset-sliced reads)."""
+    return struct.pack("<QQ", PAIR_MAGIC, pair_tag)
+
+
+def read_index_tagged(path: str) -> tuple[list[int], int | None]:
+    with open(path, "rb") as f:
+        raw = f.read()
+    words = [struct.unpack_from("<Q", raw, i)[0] for i in range(0, len(raw) - 7, 8)]
+    if len(words) >= 3 and words[-2] == PAIR_MAGIC:
+        return words[:-2], words[-1]
+    return words, None
+
+
+def read_data_tag(path: str, last_offset: int) -> int | None:
+    """The pair tag from a data file's trailer (None for untagged files)."""
+    with open(path, "rb") as f:
+        f.seek(last_offset)
+        tail = f.read(16)
+    if len(tail) == 16:
+        magic, tag = struct.unpack("<QQ", tail)
+        if magic == PAIR_MAGIC:
+            return tag
+    return None
+
+
+# ---------------------------------------------------------------------------
+# v2 plane encoders (copied from auron_tpu/exec/shuffle/format.py:272-533)
+# ---------------------------------------------------------------------------
+
+V2_MAGIC = b"AUB2"
+
+ENC_RAW = 0
+ENC_BITPACK = 1
+ENC_RLE = 2
+ENC_PACKBITS = 3
+ENC_CODEC = 4
+ENC_ARROW = 5
+ENC_DICT = 6
+ENC_DEC128 = 7
+ENC_SCALED = 8
+ENC_SPARSE = 9
+
+ENC_NAMES = {
+    ENC_RAW: "raw", ENC_BITPACK: "bitpack", ENC_RLE: "rle",
+    ENC_PACKBITS: "packbits", ENC_CODEC: "codec", ENC_ARROW: "arrow",
+    ENC_DICT: "dict", ENC_DEC128: "dec128", ENC_SCALED: "scaled",
+    ENC_SPARSE: "sparse",
+}
+
+_codec_warned: set[str] = set()
+_codec_warn_lock = threading.Lock()
+
+
+def shuffle_encoding_enabled(conf) -> bool:
+    """The exec.shuffle.encoding tri-state (auto = on)."""
+    return resolve_tri(conf.get(SHUFFLE_ENCODING), True)
+
+
+def warn_unavailable_codec(conf) -> None:
+    """The JAX writer's general codec for planes no light-weight encoding
+    fits (``format.py:_fallback_codec``). The port has none, so a named
+    codec degrades with one stderr warning per name, the JAX package's rule
+    for an unavailable codec."""
+    name = conf.get(SHUFFLE_ENCODING_FALLBACK)
+    if name == "auto":
+        name = conf.get(SPILL_COMPRESSION_CODEC)
+    if name in (None, "none"):
+        return
+    for candidate in (name, "lz4"):
+        with _codec_warn_lock:
+            if candidate not in _codec_warned:
+                _codec_warned.add(candidate)
+                sys.stderr.write(
+                    f"auron-tpu: shuffle encoding fallback codec '{candidate}' "
+                    "unavailable; degrading to light-weight encodings only\n")
+
+
+def _for_width(lo: int, hi: int) -> int:
+    """Frame-of-reference byte width for [lo, hi]; 8 = no narrowing."""
+    span = hi - lo
+    for w in (1, 2, 4):
+        if span < (1 << (8 * w)):
+            return w
+    return 8
+
+
+def _pack_for(a: np.ndarray, ref: int, width: int) -> bytes:
+    if width == 8:
+        return struct.pack("<qB", 0, 8) + a.astype(np.int64).tobytes()
+    off = (a.astype(np.int64) - np.int64(ref)).astype(
+        {1: np.uint8, 2: np.uint16, 4: np.uint32}[width])
+    return struct.pack("<qB", ref, width) + off.tobytes()
+
+
+def _unpack_for(payload: bytes, n: int, dtype: np.dtype) -> np.ndarray:
+    ref, width = struct.unpack_from("<qB", payload, 0)
+    if width == 8:
+        return np.frombuffer(payload, np.int64, count=n, offset=9).astype(dtype, copy=False)
+    off = np.frombuffer(payload, {1: np.uint8, 2: np.uint16, 4: np.uint32}[width],
+                        count=n, offset=9)
+    return (off.astype(np.int64) + np.int64(ref)).astype(dtype, copy=False)
+
+
+def _as_bits(a: np.ndarray) -> np.ndarray:
+    if a.dtype.kind == "f":
+        return a.view(np.uint64 if a.dtype.itemsize == 8 else np.uint32)
+    return a
+
+
+def _run_stats(a: np.ndarray):
+    a = _as_bits(a)
+    if len(a) == 0:
+        return 0, None
+    neq = a[1:] != a[:-1]
+    return 1 + int(np.count_nonzero(neq)), neq
+
+
+def _starts_from(neq: np.ndarray | None) -> np.ndarray:
+    if neq is None:
+        return np.empty(0, dtype=np.int64)
+    return np.concatenate(([0], np.flatnonzero(neq) + 1))
+
+
+def _emit_rle(a: np.ndarray, neq, n: int, nruns: int, vw: int | None):
+    starts = _starts_from(neq)
+    lengths = np.diff(np.concatenate((starts, [n])))
+    vals = a[starts]
+    lo, hi = int(vals.min()), int(vals.max())
+    if not (-(2**63) <= lo and hi < 2**63):
+        return None
+    lpart = _pack_for(lengths, 0, _for_width(0, int(lengths.max())))
+    vpart = _pack_for(vals, lo, vw if vw is not None else _for_width(lo, hi))
+    return ENC_RLE, struct.pack("<I", nruns) + lpart + vpart
+
+
+def encode_int_plane(a: np.ndarray) -> tuple[int, bytes]:
+    """Deterministic chooser for integer planes: RLE on the run count
+    alone when runs dominate, else the smallest of RLE, FOR-bitpack, raw."""
+    n = len(a)
+    raw_bytes = n * a.dtype.itemsize
+    if n == 0:
+        return ENC_RAW, a.tobytes()
+    nruns, neq = _run_stats(a)
+    if 4 + (9 + nruns * _for_width(0, n)) + (9 + nruns * 8) < raw_bytes // 2:
+        out = _emit_rle(a, neq, n, nruns, None)
+        if out is not None:
+            return out
+    lo, hi = int(a.min()), int(a.max())
+    if not (-(2**63) <= lo and hi < 2**63):
+        return ENC_RAW, a.tobytes()
+    vw = _for_width(lo, hi)
+    bitpack_bytes = 9 + n * vw if vw < a.dtype.itemsize else raw_bytes + 9
+    lw = _for_width(0, n)
+    rle_bytes = 4 + (9 + nruns * lw) + (9 + nruns * vw)
+    best = min(rle_bytes, bitpack_bytes, raw_bytes)
+    if best == rle_bytes and rle_bytes < raw_bytes:
+        out = _emit_rle(a, neq, n, nruns, vw)
+        if out is not None:
+            return out
+    if best == bitpack_bytes and vw < a.dtype.itemsize:
+        return ENC_BITPACK, _pack_for(a, lo, vw)
+    return ENC_RAW, a.tobytes()
+
+
+def decode_int_plane(enc: int, payload: bytes, n: int, dtype: np.dtype) -> np.ndarray:
+    if enc == ENC_RAW:
+        return np.frombuffer(payload, dtype, count=n)
+    if enc == ENC_BITPACK:
+        return _unpack_for(payload, n, dtype)
+    if enc == ENC_RLE:
+        (nruns,) = struct.unpack_from("<I", payload, 0)
+        pos = 4
+        lwidth = payload[pos + 8]
+        lbytes = 9 + nruns * {1: 1, 2: 2, 4: 4, 8: 8}[lwidth]
+        lengths = _unpack_for(payload[pos : pos + lbytes], nruns, np.int64)
+        pos += lbytes
+        vals = _unpack_for(payload[pos:], nruns, dtype)
+        return np.repeat(vals, lengths)
+    _refuse(enc)
+    raise ValueError(f"bad int plane encoding {enc}")
+
+
+_SCALED_MAX_EXP = 4
+
+
+def _scaled_exponent(a: np.ndarray) -> int | None:
+    """Smallest e <= 4 such that round(v * 10^e) / 10^e reproduces a strided
+    sample bitwise; ``_scaled_pack`` then verifies the whole plane."""
+    sample = np.ascontiguousarray(a[:: max(1, len(a) // 2048)][:2048])
+    for e in range(_SCALED_MAX_EXP + 1):
+        if _scaled_pack(sample, e) is not None:
+            return e
+    return None
+
+
+def _scaled_pack(a: np.ndarray, e: int) -> bytes | None:
+    """Verify + pack a decimal-in-float plane: the decode is simulated
+    exactly (round(a*s)/s must reproduce ``a`` bitwise), magnitudes stay
+    below 2^53, and -0.0 refuses. Returns the ENC_SCALED payload or None."""
+    s = a.dtype.type(10.0**e)
+    with np.errstate(invalid="ignore", over="ignore"):
+        t = a * s
+        np.round(t, out=t)
+        if not np.array_equal(t / s, a):  # NaN/Inf refuse here too
+            return None
+        lo_f, hi_f = t.min(), t.max()
+        if not (float(-(2**53)) < lo_f and hi_f < float(2**53)):
+            return None
+        lo, hi = int(lo_f), int(hi_f)
+        if lo <= 0 <= hi and np.any(np.signbit(a) & (t == 0)):
+            return None
+    vw = _for_width(lo, hi)
+    if vw == 8:
+        payload = struct.pack("<qB", 0, 8) + t.astype(np.int64).tobytes()
+    else:
+        off = (t.astype(np.int64) - np.int64(lo)).astype(
+            {1: np.uint8, 2: np.uint16, 4: np.uint32}[vw])
+        payload = struct.pack("<qB", lo, vw) + off.tobytes()
+    return struct.pack("<BB", e, ENC_BITPACK) + payload
+
+
+def encode_float_plane(a: np.ndarray) -> tuple[int, bytes]:
+    """Floats: SCALED when the plane is decimal-in-float, RLE when runs
+    dominate (bit-pattern equality), else raw (no general codec)."""
+    n = len(a)
+    if n:
+        e = _scaled_exponent(a)
+        if e is not None:
+            payload = _scaled_pack(a, e)
+            if payload is not None:
+                return ENC_SCALED, payload
+    raw = a.tobytes()
+    if n:
+        nruns, neq = _run_stats(a)
+        rle_bytes = 4 + (9 + nruns * _for_width(0, n)) + nruns * a.dtype.itemsize
+        if rle_bytes < len(raw):
+            starts = _starts_from(neq)
+            lengths = np.diff(np.concatenate((starts, [n])))
+            lpart = _pack_for(lengths, 0, _for_width(0, int(lengths.max())))
+            return ENC_RLE, struct.pack("<I", nruns) + lpart + a[starts].tobytes()
+    return ENC_RAW, raw
+
+
+def decode_float_plane(enc: int, payload: bytes, n: int, dtype: np.dtype) -> np.ndarray:
+    if enc == ENC_RAW:
+        return np.frombuffer(payload, dtype, count=n)
+    if enc == ENC_SCALED:
+        e, ienc = struct.unpack_from("<BB", payload, 0)
+        ints = decode_int_plane(ienc, payload[2:], n, np.dtype(np.int64))
+        # exact: the encoder verified that this division reproduces the plane
+        return (ints.astype(dtype) / dtype.type(10.0**e)).astype(dtype, copy=False)
+    if enc == ENC_RLE:
+        (nruns,) = struct.unpack_from("<I", payload, 0)
+        pos = 4
+        lwidth = payload[pos + 8]
+        lbytes = 9 + nruns * {1: 1, 2: 2, 4: 4, 8: 8}[lwidth]
+        lengths = _unpack_for(payload[pos : pos + lbytes], nruns, np.int64)
+        pos += lbytes
+        vals = np.frombuffer(payload, dtype, count=nruns, offset=pos)
+        return np.repeat(vals, lengths)
+    _refuse(enc)
+    raise ValueError(f"bad float plane encoding {enc}")
+
+
+def _refuse(enc: int) -> None:
+    if enc in (ENC_CODEC, ENC_ARROW, ENC_DICT, ENC_DEC128):
+        raise NotImplementedError(
+            f"shuffle encoding {ENC_NAMES[enc]} ({enc}) is not in this slice of the port")
+
+
+# ---------------------------------------------------------------------------
+# columns
+# ---------------------------------------------------------------------------
+
+_INT_KINDS = (T.TypeKind.INT8, T.TypeKind.INT16, T.TypeKind.INT32, T.TypeKind.INT64,
+              T.TypeKind.DATE32, T.TypeKind.TIMESTAMP)
+
+
+def plane_kind(dtype: T.DataType) -> str:
+    """"int", "float" or "bool": the v2 plane family of a fixed-width type."""
+    if dtype.kind in _INT_KINDS:
+        return "int"
+    if dtype.is_float:
+        return "float"
+    if dtype.kind == T.TypeKind.BOOL:
+        return "bool"
+    raise NotImplementedError(
+        f"shuffle columns of type {dtype} are not in this slice of the port")
+
+
+def encode_column(vals: np.ndarray, valid: np.ndarray | None,
+                  dtype: T.DataType) -> tuple[int, bytes | None, bytes]:
+    """One column's (enc, packed validity or None, payload), with the JAX
+    writer's rules (``format.py:_encode_column``)."""
+    kind = plane_kind(dtype)
+    n = len(vals)
+    vals = np.ascontiguousarray(vals, dtype=dtype.numpy_dtype())
+    if valid is not None and valid.all():
+        valid = None
+    vbytes = None
+    if valid is not None:
+        valid = np.ascontiguousarray(valid, dtype=bool)
+        vbytes = np.packbits(valid, bitorder="little").tobytes()
+        if kind != "bool" and 2 * (n - int(np.count_nonzero(valid))) >= n:
+            # null-dominated plane: only the valid lanes' values
+            sub = np.ascontiguousarray(vals[valid])
+            se, sp = encode_int_plane(sub) if kind == "int" else encode_float_plane(sub)
+            return ENC_SPARSE, vbytes, struct.pack("<IBI", len(sub), se, len(sp)) + sp
+    if kind == "bool":
+        bits = vals if valid is None else (vals & valid)
+        return ENC_PACKBITS, vbytes, np.packbits(bits, bitorder="little").tobytes()
+    if valid is not None:  # null lanes zeroed: deterministic bytes
+        vals = vals * valid if kind == "int" else np.where(valid, vals, vals.dtype.type(0))
+    enc, payload = encode_int_plane(vals) if kind == "int" else encode_float_plane(vals)
+    return enc, vbytes, payload
+
+
+def decode_column(enc: int, body: bytes, valid: np.ndarray | None, nrows: int,
+                  dtype: T.DataType) -> np.ndarray:
+    kind = plane_kind(dtype)
+    npdt = dtype.numpy_dtype()
+    if enc == ENC_PACKBITS:
+        return np.unpackbits(np.frombuffer(body, np.uint8), count=nrows,
+                             bitorder="little").astype(bool)
+    if enc == ENC_SPARSE:
+        if valid is None:
+            raise ValueError("sparse plane without validity")
+        nvalid, se, slen = struct.unpack_from("<IBI", body, 0)
+        sub_body = body[9 : 9 + slen]
+        if kind == "int":
+            sub = decode_int_plane(se, sub_body, nvalid, npdt)
+        elif kind == "float":
+            sub = decode_float_plane(se, sub_body, nvalid, npdt)
+        else:
+            raise ValueError(f"sparse on a {dtype} column")
+        out = np.zeros(nrows, dtype=npdt)
+        out[valid] = sub
+        return out
+    if kind == "int":
+        return decode_int_plane(enc, body, nrows, npdt)
+    if kind == "float":
+        return decode_float_plane(enc, body, nrows, npdt)
+    _refuse(enc)
+    raise ValueError(f"encoding {enc} on a {dtype} column")
+
+
+# ---------------------------------------------------------------------------
+# the schema section: a minimal Arrow IPC schema message, without pyarrow
+# ---------------------------------------------------------------------------
+
+
+class _Flat:
+    """A forward flatbuffer writer: each table is laid out before the
+    objects it points to, so every uoffset is positive; scalars sit at
+    their natural alignment from the buffer start."""
+
+    def __init__(self):
+        self.buf = bytearray(4)  # root uoffset, patched by finish()
+
+    def _pad(self, align: int) -> None:
+        self.buf.extend(b"\0" * (-len(self.buf) % align))
+
+    def table(self, fields: list) -> int:
+        """``fields[i]`` is None (absent), (struct format, value) or
+        ("off", writer) where writer(self) returns the child's position."""
+        layout, pos = [], 4
+        present = sorted((i for i, f in enumerate(fields) if f is not None),
+                         key=lambda i: -self._size(fields[i][0]))
+        for fid in present:
+            sz = self._size(fields[fid][0])
+            pos += -pos % sz
+            layout.append((fid, pos, sz))
+            pos += sz
+        at = {fid: p for fid, p, _ in layout}
+        self._pad(2)
+        vt_pos = len(self.buf)
+        self.buf += struct.pack(f"<HH{len(fields)}H", 4 + 2 * len(fields), pos,
+                                *(at.get(i, 0) for i in range(len(fields))))
+        self._pad(max([4] + [sz for _, _, sz in layout]))
+        t_pos = len(self.buf)
+        body = bytearray(pos)
+        struct.pack_into("<i", body, 0, t_pos - vt_pos)
+        children = []
+        for fid, p, _ in layout:
+            fmt, val = fields[fid]
+            if fmt == "off":
+                children.append((t_pos + p, val))
+            else:
+                struct.pack_into("<" + fmt, body, p, val)
+        self.buf += body
+        for ref, writer in children:
+            struct.pack_into("<I", self.buf, ref, writer(self) - ref)
+        return t_pos
+
+    @staticmethod
+    def _size(fmt: str) -> int:
+        return 4 if fmt == "off" else struct.calcsize("<" + fmt)
+
+    def string(self, s: str) -> int:
+        self._pad(4)
+        pos = len(self.buf)
+        b = s.encode("utf-8")
+        self.buf += struct.pack("<I", len(b)) + b + b"\0"
+        return pos
+
+    def tables(self, writers: list) -> int:
+        self._pad(4)
+        pos = len(self.buf)
+        self.buf += struct.pack("<I", len(writers)) + bytes(4 * len(writers))
+        for i, writer in enumerate(writers):
+            ref = pos + 4 + 4 * i
+            struct.pack_into("<I", self.buf, ref, writer(self) - ref)
+        return pos
+
+    def finish(self, root) -> bytes:
+        struct.pack_into("<I", self.buf, 0, root(self))
+        return bytes(self.buf)
+
+
+# Arrow flatbuffer enums (format/Schema.fbs, format/Message.fbs)
+_TYPE_INT, _TYPE_FLOAT, _TYPE_BOOL, _TYPE_DATE, _TYPE_TIMESTAMP = 2, 3, 6, 8, 10
+_HEADER_SCHEMA = 1
+_METADATA_V5 = 4
+_INT_BITS = {T.TypeKind.INT8: 8, T.TypeKind.INT16: 16, T.TypeKind.INT32: 32,
+             T.TypeKind.INT64: 64}
+
+
+def _arrow_type(dtype: T.DataType):
+    """(Type union id, fields of its table) of a fixed-width type."""
+    k = dtype.kind
+    if k in _INT_BITS:
+        return _TYPE_INT, [("i", _INT_BITS[k]), ("B", 1)]  # bitWidth, is_signed
+    if k == T.TypeKind.FLOAT32:
+        return _TYPE_FLOAT, [("h", 1)]  # Precision.SINGLE
+    if k == T.TypeKind.FLOAT64:
+        return _TYPE_FLOAT, [("h", 2)]  # Precision.DOUBLE
+    if k == T.TypeKind.BOOL:
+        return _TYPE_BOOL, []
+    if k == T.TypeKind.DATE32:
+        return _TYPE_DATE, [("h", 0)]  # DateUnit.DAY
+    if k == T.TypeKind.TIMESTAMP:
+        return _TYPE_TIMESTAMP, [("h", 2), None]  # TimeUnit.MICROSECOND, no tz
+    raise NotImplementedError(f"arrow schema of {dtype} is not in this slice of the port")
+
+
+def arrow_schema_message(schema: T.Schema) -> bytes:
+    """The IPC stream ``pa.ipc.new_stream(sink, schema).close()`` would
+    write for the schema (one schema message, then end-of-stream), built
+    from the Arrow flatbuffer layout: Message{version V5, header Schema{
+    endianness Little, fields}, bodyLength 0}."""
+
+    def field(f: T.Field):
+        type_id, type_fields = _arrow_type(f.dtype)
+        return lambda fb: fb.table([
+            ("off", lambda fb: fb.string(f.name)),            # name
+            ("B", 1 if f.nullable else 0),                     # nullable
+            ("B", type_id),                                    # type_type
+            ("off", lambda fb: fb.table(type_fields)),         # type
+            None,                                              # dictionary
+            ("off", lambda fb: fb.tables([])),                 # children
+        ])
+
+    def schema_table(fb: _Flat) -> int:
+        return fb.table([
+            ("h", 0),                                          # endianness Little
+            ("off", lambda fb: fb.tables([field(f) for f in schema])),
+        ])
+
+    def message(fb: _Flat) -> int:
+        return fb.table([
+            ("h", _METADATA_V5),                               # version
+            ("B", _HEADER_SCHEMA),                             # header_type
+            ("off", schema_table),                             # header
+            ("q", 0),                                          # bodyLength
+        ])
+
+    meta = _Flat().finish(message)
+    meta += bytes(-len(meta) % 8)
+    return (struct.pack("<Ii", 0xFFFFFFFF, len(meta)) + meta
+            + struct.pack("<Ii", 0xFFFFFFFF, 0))
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+
+def encode_block(schema: T.Schema, cols: list, metrics=None) -> bytes:
+    """One length-prefixed v2 block from host planes ``cols[i] = (values,
+    validity or None)``, all of one length. Deterministic: the same rows
+    give the same bytes."""
+    nrows = len(cols[0][0]) if cols else 0
+    sbytes = arrow_schema_message(schema)
+    out = [V2_MAGIC, struct.pack("<BBHII", 2, 0, len(schema), nrows, len(sbytes)), sbytes]
+    for f, (vals, valid) in zip(schema, cols):
+        enc, vbytes, payload = encode_column(vals, valid, f.dtype)
+        if metrics is not None:
+            metrics.add(f"shuffle_enc_{ENC_NAMES[enc]}", 1)
+        out.append(struct.pack("<BB", enc, 1 if vbytes is not None else 0))
+        if vbytes is not None:
+            out.append(struct.pack("<I", len(vbytes)))
+            out.append(vbytes)
+        out.append(struct.pack("<I", len(payload)))
+        out.append(payload)
+    body = b"".join(out)
+    return struct.pack("<Q", len(body)) + body
+
+
+def is_v2_payload(payload: bytes) -> bool:
+    return payload[:4] == V2_MAGIC
+
+
+def decode_block(payload: bytes, schema: T.Schema) -> tuple[int, list]:
+    """(nrows, [(values, validity or None)]) of one v2 payload, column types
+    from ``schema``. Corrupt blocks raise ValueError; encodings outside
+    this slice raise NotImplementedError."""
+    if not is_v2_payload(payload):
+        raise NotImplementedError(
+            "v1 (Arrow IPC) shuffle blocks are not in this slice of the port")
+    try:
+        ver, _, ncols, nrows, slen = struct.unpack_from("<BBHII", payload, 4)
+        if ver != 2:
+            raise ValueError(f"unsupported block version {ver}")
+        if ncols != len(schema):
+            raise ValueError(f"block has {ncols} columns, the plan schema {len(schema)}")
+        pos = 16 + slen  # the reader takes its types from the plan schema
+        if pos > len(payload):
+            raise ValueError("schema section overruns the block")
+        cols = []
+        for f in schema:
+            enc, hasv = struct.unpack_from("<BB", payload, pos)
+            pos += 2
+            valid = None
+            if hasv:
+                (vlen,) = struct.unpack_from("<I", payload, pos)
+                pos += 4
+                vbits = np.frombuffer(payload, np.uint8, count=vlen, offset=pos)
+                valid = np.unpackbits(vbits, count=nrows, bitorder="little").astype(bool)
+                pos += vlen
+            (plen,) = struct.unpack_from("<I", payload, pos)
+            pos += 4
+            body = payload[pos : pos + plen]
+            if len(body) != plen:
+                raise ValueError("column payload truncated")
+            pos += plen
+            cols.append((decode_column(enc, body, valid, nrows, f.dtype), valid))
+        return nrows, cols
+    except (struct.error, IndexError, KeyError) as e:
+        raise ValueError(f"corrupt v2 shuffle block: {e!r}") from e

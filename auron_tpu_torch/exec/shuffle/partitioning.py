@@ -1,0 +1,73 @@
+"""Repartitioning strategies (port of ``auron_tpu/exec/shuffle/partitioning.py``).
+
+Each returns a per-row int32 partition id tensor on the batch's device:
+Hash (Spark murmur3 + Pmod, bit-exact so reducers receive exactly the rows
+the host engine expects), RoundRobin (per-task cursor) and Single. The
+eager ``_hash_pids`` policy is the JAX package's: a single non-dictionary
+int64 key runs the partition-id kernel K1 (``ops/partition_kernels.py``)
+with NULL keys blended to ``pmod(42, n)``; every other key list runs the
+chained murmur3 of ``ops/hash_dispatch.py``. The port has no whole-stage
+fusion, so its eager writer is its only writer and K1 serves every
+single-int64-key hash shuffle. ``RangePartitioning`` and ``fuse_spec``
+wait for a later slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from auron_tpu_torch import types as T
+from auron_tpu_torch.columnar.batch import Batch
+from auron_tpu_torch.exprs.eval import ColumnVal, Evaluator
+from auron_tpu_torch.ops import partition_kernels
+from auron_tpu_torch.ops.hash_dispatch import hash_batch
+from auron_tpu_torch.ops.hashing import pmod
+
+_K1_KINDS = (T.TypeKind.INT64, T.TypeKind.TIMESTAMP)
+
+
+class Partitioning:
+    num_partitions: int
+
+    def partition_ids(self, batch: Batch, ctx) -> torch.Tensor:
+        raise NotImplementedError
+
+
+def _hash_pids(vals: list[ColumnVal], sel: torch.Tensor, n_out: int) -> torch.Tensor:
+    if len(vals) == 1 and vals[0].dict is None and vals[0].dtype.kind in _K1_KINDS:
+        return partition_kernels.partition_ids(vals[0].values, vals[0].validity, n_out)
+    from auron_tpu_torch.exec.basic import batch_from_columns
+
+    kb = batch_from_columns(vals, [f"k{i}" for i in range(len(vals))], sel)
+    return pmod(hash_batch(kb, list(range(len(vals))), "murmur3", seed=42), n_out)
+
+
+@dataclass
+class SinglePartitioning(Partitioning):
+    num_partitions: int = 1
+
+    def partition_ids(self, batch: Batch, ctx) -> torch.Tensor:
+        return torch.zeros(batch.capacity, dtype=torch.int32, device=batch.torch_device)
+
+
+@dataclass
+class HashPartitioning(Partitioning):
+    exprs: list
+    num_partitions: int
+
+    def partition_ids(self, batch: Batch, ctx) -> torch.Tensor:
+        vals = Evaluator(batch.schema).evaluate(batch, self.exprs)
+        return _hash_pids(vals, batch.device.sel, self.num_partitions)
+
+
+@dataclass
+class RoundRobinPartitioning(Partitioning):
+    num_partitions: int
+
+    def partition_ids(self, batch: Batch, ctx) -> torch.Tensor:
+        # deterministic start per task partition (shuffle/mod.rs RoundRobin)
+        start = (ctx.partition_id if ctx is not None else 0) % self.num_partitions
+        ordinal = torch.cumsum(batch.device.sel.to(torch.int32), 0) - 1
+        return torch.remainder(ordinal + start, self.num_partitions).to(torch.int32)

@@ -1,0 +1,205 @@
+"""Shuffle writer exec (port of ``auron_tpu/exec/shuffle/writer.py``,
+the local-file ``ShuffleWriterExec``).
+
+Per batch, on the batch's device: partition ids (``partitioning.py``; K1
+for a single int64 key), then ``cluster_rows``'s policy — a stable sort by
+pid with dead rows given pid ``n_out`` and sorted last, per-partition
+counts by bincount (``writer.py:269-283``; ``torch.sort(stable=True)``
+stands in for ``lax.sort``, which is no Pallas kernel). The live prefix of
+the clustered rows comes to the host with one copy per column plane, is
+sliced per partition and staged in host RAM; a partition whose staged
+bytes reach ``shuffle.compression.target.buf.size`` is encoded into one v2
+block (``format.py``). ``partitioned_stream`` keeps the JAX package's
+one-deep stage/finish loop (``writer.py:473-492``): batch i's host copies
+are taken after batch i+1's device work was enqueued.
+
+The commit is atomic per attempt (``writer.py:90-130``): data and index
+go to attempt temp files, the data file gets the 16-byte pair trailer, the
+index the same tag, and both are renamed into place.
+
+Not ported yet: staging spill through ``MemManager`` (``memory/memmgr.py``
+is long-tail work, so staged blocks stay in RAM until the commit), the RSS
+writer, and v1 (Arrow IPC) blocks.
+"""
+
+from __future__ import annotations
+
+import os
+import uuid
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from auron_tpu_torch import types as T
+from auron_tpu_torch.columnar.batch import Batch
+from auron_tpu_torch.exec.base import ExecOperator, ExecutionContext
+from auron_tpu_torch.exec.shuffle.format import (
+    data_trailer, encode_block, shuffle_encoding_enabled, warn_unavailable_codec, write_index,
+)
+from auron_tpu_torch.exec.shuffle.partitioning import Partitioning
+from auron_tpu_torch.utils.config import SHUFFLE_COMPRESSION_TARGET_BUF_SIZE
+
+
+class ShuffleWriterExec(ExecOperator):
+    """Writes the child's partition stream to (data_file, index_file);
+    yields nothing (the exchange reports map status to the host engine)."""
+
+    def __init__(self, child: ExecOperator, partitioning: Partitioning, data_file: str,
+                 index_file: str):
+        super().__init__([child], child.schema)
+        self.partitioning = partitioning
+        self.data_file = data_file
+        self.index_file = index_file
+
+    def _execute(self, partition: int, ctx: ExecutionContext) -> Iterator[Batch]:
+        if not shuffle_encoding_enabled(ctx.conf):
+            raise NotImplementedError(
+                "exec.shuffle.encoding=off (v1 Arrow IPC blocks) is not in this slice of the port")
+        warn_unavailable_codec(ctx.conf)
+        n_out = self.partitioning.num_partitions
+        staging = _ShuffleStaging(n_out, self.schema, ctx)
+        for parts in partitioned_stream(self.child_stream(0, partition, ctx),
+                                        self.partitioning, ctx):
+            staging.add_all(parts)
+        offsets = [0]
+        with ctx.metrics.timer("write_time"):
+            attempt = uuid.uuid4()
+            suffix = f".attempt-{attempt.hex[:8]}"
+            pair_tag = attempt.int & ((1 << 64) - 1)
+            tmp_data, tmp_index = self.data_file + suffix, self.index_file + suffix
+            committed = False
+            try:
+                with open(tmp_data, "wb") as f:
+                    for pid in range(n_out):
+                        for blk in staging.blocks_of(pid):
+                            f.write(blk)
+                        offsets.append(f.tell())
+                    f.write(data_trailer(pair_tag))
+                write_index(tmp_index, offsets, pair_tag=pair_tag)
+                os.replace(tmp_data, self.data_file)
+                os.replace(tmp_index, self.index_file)
+                committed = True
+            finally:
+                if not committed:
+                    for p in (tmp_data, tmp_index):
+                        try:
+                            os.unlink(p)
+                        except OSError:
+                            pass
+        ctx.metrics.add("data_size", offsets[-1])
+        return
+        yield  # pragma: no cover — a generator with no items
+
+
+class _ShuffleStaging:
+    """Per-partition host staging: ``staged`` raw column chunks awaiting an
+    encode, ``regions`` encoded blocks awaiting the commit."""
+
+    def __init__(self, n_out: int, schema: T.Schema, ctx: ExecutionContext):
+        self.n_out = n_out
+        self.schema = schema
+        self.ctx = ctx
+        self.target = ctx.conf.get(SHUFFLE_COMPRESSION_TARGET_BUF_SIZE)
+        self.staged: list[list[list]] = [[] for _ in range(n_out)]
+        self.staged_bytes = [0] * n_out
+        self.regions: list[list[bytes]] = [[] for _ in range(n_out)]
+
+    def add_all(self, parts) -> None:
+        for pid, cols in parts:
+            self.staged[pid].append(cols)
+            self.staged_bytes[pid] += sum(
+                v.nbytes + (0 if m is None else (len(m) + 7) // 8) for v, m in cols)
+            if self.staged_bytes[pid] >= self.target:
+                self._flush(pid)
+
+    def _flush(self, pid: int) -> None:
+        chunks = self.staged[pid]
+        if not chunks:
+            return
+        with self.ctx.metrics.timer("compress_time"):
+            cols = []
+            for ci in range(len(self.schema)):
+                vals = np.concatenate([c[ci][0] for c in chunks])
+                masks = [c[ci][1] for c in chunks]
+                if all(m is None for m in masks):
+                    valid = None
+                else:
+                    valid = np.concatenate([np.ones(len(c[ci][0]), bool) if m is None else m
+                                            for c, m in zip(chunks, masks)])
+                cols.append((vals, valid))
+            blk = encode_block(self.schema, cols, metrics=self.ctx.metrics)
+        self.ctx.metrics.add("shuffle_bytes_raw", self.staged_bytes[pid])
+        self.ctx.metrics.add("shuffle_bytes_written", len(blk))
+        self.regions[pid].append(blk)
+        self.staged[pid], self.staged_bytes[pid] = [], 0
+
+    def blocks_of(self, pid: int) -> list[bytes]:
+        """All of a partition's blocks, after a final flush of leftovers."""
+        self._flush(pid)
+        return self.regions[pid]
+
+
+# ---------------------------------------------------------------------------
+# the pid-clustering policy (writer.py:269-283) and the stage/finish loop
+# ---------------------------------------------------------------------------
+
+
+def cluster_rows(sel: torch.Tensor, pids: torch.Tensor, n_out: int):
+    """(row order, counts[n_out + 1]): a stable sort by pid, dead rows with
+    pid ``n_out`` last, counts by bincount."""
+    sort_pid = torch.where(sel, pids.to(torch.int32), n_out).to(torch.int32)
+    s_pid, order = torch.sort(sort_pid, stable=True)
+    return order, torch.bincount(s_pid, minlength=n_out + 1)
+
+
+def stage_partition_batch(b: Batch, partitioning: Partitioning, ctx: ExecutionContext):
+    """Dispatch half: partition ids and the clustering order, enqueued on
+    the batch's device."""
+    pids = partitioning.partition_ids(b, ctx)
+    order, counts = cluster_rows(b.device.sel, pids, partitioning.num_partitions)
+    return b, order, counts
+
+
+def finish_partition_batch(staged, partitioning: Partitioning, ctx: ExecutionContext):
+    """Harvest half: the live prefix of the clustered rows, one host copy
+    per column plane, sliced into [(pid, [(values, validity or None)])]."""
+    b, order, counts = staged
+    n_out = partitioning.num_partitions
+    counts = counts.cpu().numpy()[:n_out]
+    total = int(counts.sum())
+    if total == 0:
+        return []
+    live = order[:total]
+    cols = []
+    for i in range(len(b.schema)):
+        vals = b.col_values(i)[live].cpu().numpy()
+        valid = b.col_validity(i)[live].cpu().numpy()
+        cols.append((vals, None if valid.all() else valid))
+    out, start = [], 0
+    for pid in range(n_out):
+        c = int(counts[pid])
+        if c:
+            out.append((pid, [(v[start:start + c], None if m is None else m[start:start + c])
+                              for v, m in cols]))
+        start += c
+    return out
+
+
+def partitioned_stream(child_iter, partitioning: Partitioning, ctx: ExecutionContext):
+    """One-deep stage/finish pipeline over a batch stream: batch i's host
+    copies are taken once batch i+1's device work is enqueued."""
+    pending = None
+    for b in child_iter:
+        ctx.check_cancelled()
+        with ctx.metrics.timer("repart_time", count=True):
+            cur = stage_partition_batch(b, partitioning, ctx)
+            parts = (finish_partition_batch(pending, partitioning, ctx)
+                     if pending is not None else None)
+        pending = cur
+        if parts is not None:
+            yield parts
+    if pending is not None:
+        with ctx.metrics.timer("repart_time"):
+            parts = finish_partition_batch(pending, partitioning, ctx)
+        yield parts

@@ -1,10 +1,11 @@
 """Expression evaluator: IR trees -> eager torch programs.
 
-Port of the ``auron_tpu/exprs/eval.py`` subset this slice uses: Column,
-Literal, Cast (fixed-width types), BinaryOp (Kleene AND/OR, comparisons
-incl. dictionary-string equality/order, arithmetic), Not, IsNull,
-IsNotNull — with Spark's null semantics: arithmetic propagates NULLs,
-division and modulo by zero give NULL (non-ANSI), AND/OR are three-valued.
+Port of the ``auron_tpu/exprs/eval.py`` subset the ported slices use:
+Column, Literal, Cast (fixed-width types), BinaryOp (Kleene AND/OR,
+comparisons incl. dictionary-string equality/order, arithmetic), Not,
+IsNull, IsNotNull, If (fixed-width branches) — with Spark's null
+semantics: arithmetic propagates NULLs, division and modulo by zero give
+NULL (non-ANSI), AND/OR are three-valued.
 Common subexpressions evaluate once per batch (structural memo).
 """
 
@@ -143,7 +144,31 @@ class Evaluator:
         if isinstance(e, ir.IsNotNull):
             c = self._eval(e.child, b, memo)
             return ColumnVal(c.validity, torch.ones_like(c.validity), T.BOOL)
+        if isinstance(e, ir.If):
+            return self._case([(e.cond, e.then)], e.orelse, b, memo)
         raise TypeError(f"unsupported expression {type(e).__name__}")
+
+    def _case(self, branches, orelse: ir.Expr, b: Batch, memo: dict) -> ColumnVal:
+        """CASE WHEN c THEN v ... ELSE e END (``eval.py:_case``): a NULL
+        condition counts as false, the first true branch wins, branch values
+        unify on their numeric common type."""
+        conds = [self._eval(c, b, memo) for c, _ in branches]
+        vals = [self._eval(v, b, memo) for _, v in branches] + [self._eval(orelse, b, memo)]
+        if any(v.dtype.is_dict_encoded for v in vals):
+            raise TypeError("CASE over dictionary-encoded branches is not in this slice")
+        target = vals[0].dtype
+        for v in vals[1:]:
+            if v.dtype != target:
+                target = ir.numeric_common_type(target, v.dtype)
+        vals = [self._cast(v, target) for v in vals]
+        out_v, out_m = vals[-1].values, vals[-1].validity
+        taken = torch.zeros_like(out_m)
+        for c, v in zip(conds, vals[:-1]):
+            fire = c.validity & c.values.to(torch.bool) & ~taken
+            out_v = torch.where(fire, v.values, out_v)
+            out_m = torch.where(fire, v.validity, out_m)
+            taken = taken | fire
+        return ColumnVal(out_v, out_m, vals[0].dtype)
 
     # ---- literals / casts ----
 

@@ -4,6 +4,7 @@ Copied from ``auron_tpu/exprs/ir.py``: frozen, structurally hashable
 dataclasses with the same names and fields, and the same Spark result-type
 rules (``arith_result_type``). Nodes of the JAX IR that this slice does not
 evaluate yet (Case, In, Like, functions, UDFs, ...) are not defined here;
+``Literal(None, T.INT64)`` is a typed NULL;
 the planner rejects them by name.
 """
 
@@ -106,6 +107,19 @@ class IsNotNull(Expr):
 
     def children(self):
         return (self.child,)
+
+
+@dataclass(frozen=True)
+class If(Expr):
+    cond: Expr
+    then: Expr
+    orelse: Expr
+
+    def dtype_of(self, schema: T.Schema) -> T.DataType:
+        return self.then.dtype_of(schema)
+
+    def children(self):
+        return (self.cond, self.then, self.orelse)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""TPC-DS-class data and the q42-class pipeline (port of the parts of
-``auron_tpu/models/tpcds.py`` this slice needs).
+"""TPC-DS-class data and query pipelines (port of the parts of
+``auron_tpu/models/tpcds.py`` the ported slices need).
 
 - ``generate(sf, seed)``: the synthetic star schema as numpy columns,
   bit-identical to ``auron_tpu.models.tpcds.generate`` for the same
@@ -11,18 +11,29 @@
   for the q42-class plan after column pruning, built without protobuf;
 - ``run_q42_class``: star join + group-by + ORDER BY revenue DESC LIMIT 10
   (TakeOrdered), through the task runtime;
-- ``q42_class_oracle``: the same answer in plain numpy.
+- ``q42_class_oracle``: the same answer in plain numpy;
+- ``run_q93_class``: the null-skew left join across a file hash shuffle on
+  one nullable int64 key (the partition-id kernel K1's main user), and
+  ``run_q3_class``: the flagship two-join partial aggregate, file shuffle on
+  two int32 keys, final aggregate and driver-side top-k — both two-stage
+  flows through ``_shuffle_stage``, with numpy oracles.
+
+Map tasks run one after another (the JAX package runs them on threads).
 """
 
 from __future__ import annotations
 
+import os
+import shutil
+import tempfile
+import time
 from dataclasses import dataclass
 
 import numpy as np
 
 from auron_tpu_torch import types as T
 from auron_tpu_torch.columnar.batch import Batch
-from auron_tpu_torch.exprs.ir import col
+from auron_tpu_torch.exprs.ir import col, lit
 from auron_tpu_torch.ops.sortkeys import SortSpec
 from auron_tpu_torch.utils.config import Configuration
 
@@ -200,3 +211,273 @@ def q42_class_oracle(data: TpcdsData) -> dict[str, np.ndarray]:
     rev = np.bincount(inv.reshape(-1), weights=price, minlength=len(uniq))
     top = np.lexsort((uniq, -rev))[:10]
     return {"brand": uniq[top].astype(np.int32), "rev": rev[top]}
+
+
+# ---------------------------------------------------------------------------
+# two-stage flows: map tasks hash-shuffled into files, then reduce tasks
+# ---------------------------------------------------------------------------
+
+
+def _sync(device) -> None:
+    import torch
+
+    if str(device).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def _shuffle_stage(plan, out_schema: T.Schema, key_cols: list[int], n_map: int, n_reduce: int,
+                   work: str, rid: str, resources: dict, stage_id: int = 1,
+                   conf: Configuration | None = None, device="cuda", stats: dict | None = None):
+    """Run ``plan`` as ``n_map`` map tasks hash-shuffled on ``key_cols``
+    into files under ``work``; registers the exchange's block provider as
+    ``resources[rid]`` and returns the reduce side's reader node."""
+    from auron_tpu_torch.exec.shuffle.partitioning import HashPartitioning
+    from auron_tpu_torch.exec.shuffle.reader import IpcReaderExec, MultiMapBlockProvider
+    from auron_tpu_torch.exec.shuffle.writer import ShuffleWriterExec
+    from auron_tpu_torch.runtime.task import run_task
+
+    part = HashPartitioning([col(c) for c in key_cols], n_reduce)
+    pairs = []
+    for p in range(n_map):
+        d, i = os.path.join(work, f"{rid}_m{p}.data"), os.path.join(work, f"{rid}_m{p}.index")
+        _, metrics = run_task(ShuffleWriterExec(plan, part, d, i), resources, stage_id, p,
+                              conf, device)
+        if stats is not None:
+            stats["shuffle_bytes"] = stats.get("shuffle_bytes", 0) + metrics["values"]["data_size"]
+            add_timers(stats, metrics)
+        pairs.append((d, i))
+    resources[rid] = MultiMapBlockProvider(pairs)
+    return IpcReaderExec(out_schema, rid)
+
+
+def add_timers(stats: dict, snapshot: dict) -> None:
+    """Sum the metric tree's host timers (seconds) into ``stats["timers"]``,
+    keyed operator.timer; timers nest (a parent's span covers the
+    children it pulls from)."""
+    timers = stats.setdefault("timers", {})
+    op = snapshot["name"].split(".")[0]
+    for k, v in snapshot["values"].items():
+        if k.endswith(("_time", "elapsed_compute")):
+            timers[f"{op}.{k}"] = timers.get(f"{op}.{k}", 0.0) + v / 1e9
+    for c in snapshot["children"]:
+        add_timers(stats, c)
+
+
+def _run_two_stage(map_plan, out_schema, key_cols, reduce_plan_of, resources, n_map, n_reduce,
+                   rid, work_dir, conf, device, stats) -> list[dict]:
+    """Map stage, then one reduce task per partition; returns the reduce
+    tasks' outputs as host columns. ``stats`` gets the stage walls."""
+    from auron_tpu_torch.runtime.task import run_task
+
+    work = work_dir or tempfile.mkdtemp(prefix=f"auron_{rid}_")
+    os.makedirs(work, exist_ok=True)
+    stats = stats if stats is not None else {}
+    try:
+        t0 = time.perf_counter()
+        read = _shuffle_stage(map_plan, out_schema, key_cols, n_map, n_reduce, work, rid,
+                              resources, 1, conf, device, stats)
+        _sync(device)
+        t1 = time.perf_counter()
+        reduce_plan = reduce_plan_of(read)
+        outs = []
+        for r in range(n_reduce):
+            batches, metrics = run_task(reduce_plan, resources, 2, r, conf, device)
+            outs.append(collect(batches))
+            add_timers(stats, metrics)
+        _sync(device)
+        stats["map_s"], stats["reduce_s"] = t1 - t0, time.perf_counter() - t1
+        return outs
+    finally:
+        resources.pop(rid, None)
+        if work_dir is None:
+            shutil.rmtree(work, ignore_errors=True)
+
+
+def _concat(outs: list[dict], names: list[str], dtypes: list) -> dict[str, np.ndarray]:
+    return {n: np.concatenate([o[n] for o in outs if o] or [np.empty(0, dt)])
+            for n, dt in zip(names, dtypes)}
+
+
+# ---------------------------------------------------------------------------
+# q93-class: null-skew left join across a hash shuffle
+# ---------------------------------------------------------------------------
+
+CUSTOMER_SCHEMA = _schema(("c_customer_sk", T.INT64), ("c_band", T.INT64))
+Q93_INTER_SCHEMA = _schema(("k", T.INT64), ("price", T.FLOAT64))
+
+
+def ingest_q93(data: TpcdsData, n_map: int, device="cuda", fact=None) -> dict:
+    """Device-resident inputs: the fact table in ``n_map`` partitions and
+    the 5,000-row customer dimension."""
+    sk = np.arange(1, 5001, dtype=np.int64)
+    cust = Table(CUSTOMER_SCHEMA, {"c_customer_sk": sk, "c_band": sk % 5}, {})
+    return {"fact": fact if fact is not None else to_batches(data.store_sales, n_map,
+                                                              device=device),
+            "cust": to_batches(cust, 1, device=device)[0]}
+
+
+def q93_map_tree():
+    """SELECT CASE WHEN ss_quantity < 85 THEN NULL ELSE ss_customer_sk END k,
+    ss_ext_sales_price price FROM store_sales: ~85 % of the keys are NULL."""
+    from auron_tpu_torch.exec.basic import ProjectExec, ResourceScanExec
+    from auron_tpu_torch.exprs.ir import BinaryOp, If, Literal
+
+    key = If(BinaryOp("lt", col(3), Literal(85, T.INT32)), Literal(None, T.INT64), col(2))
+    return ProjectExec(ResourceScanExec(STORE_SALES_SCHEMA, "q93_fact"), [key, col(4)],
+                       ["k", "price"])
+
+
+def q93_reduce_tree(read):
+    """read LEFT JOIN customer ON k = c_customer_sk, grouped by k IS NULL:
+    count(*) rows, count(c_customer_sk) matched, sum(price) s."""
+    from auron_tpu_torch.exec.agg_exec import AggExpr, HashAggExec
+    from auron_tpu_torch.exec.basic import ResourceScanExec
+    from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
+    from auron_tpu_torch.exprs.ir import IsNull
+
+    j = BroadcastHashJoinExec(read, ResourceScanExec(CUSTOMER_SCHEMA, "q93_cust"), [col(0)],
+                              [col(0)], "left", build_side="right", projection=[0, 1, 2])
+    p = HashAggExec(j, [(IsNull(col(0)), "k_null")],
+                    [(AggExpr("count_star"), "rows"), (AggExpr("count", col(2)), "matched"),
+                     (AggExpr("sum", col(1)), "s")], "partial")
+    return HashAggExec(p, [(col(0), "k_null")],
+                       [(AggExpr("count_star"), "rows"), (AggExpr("count", col(1)), "matched"),
+                        (AggExpr("sum", col(2)), "s")], "final")
+
+
+def run_q93_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 4,
+                  work_dir: str | None = None, device="cuda", conf: dict | None = None,
+                  ingested: dict | None = None, stats: dict | None = None) -> dict:
+    """The q93-class query in two stages; returns {k_null, rows, matched, s}
+    sorted by k_null. ``stats`` (optional) gets map_s, reduce_s,
+    shuffle_bytes, the NULL keys' partition and rows per reduce partition."""
+    if ingested is None:
+        ingested = ingest_q93(data, n_map, device)
+    n_map = len(ingested["fact"])
+    resources = {"q93_fact": ingested["fact"], "q93_cust": [ingested["cust"]] * n_reduce}
+    stats = stats if stats is not None else {}
+    outs = _run_two_stage(q93_map_tree(), Q93_INTER_SCHEMA, [0], q93_reduce_tree, resources,
+                          n_map, n_reduce, "q93_ex0", work_dir, Configuration(conf or {}),
+                          device, stats)
+    stats["null_partition"] = 42 % n_reduce
+    stats["partition_rows"] = [int(o["rows"].sum()) if o else 0 for o in outs]
+    got = _concat(outs, ["k_null", "rows", "matched", "s"],
+                  [bool, np.int64, np.int64, np.float64])
+    keys = np.unique(got["k_null"])
+    return {"k_null": keys,
+            "rows": np.array([got["rows"][got["k_null"] == k].sum() for k in keys], np.int64),
+            "matched": np.array([got["matched"][got["k_null"] == k].sum() for k in keys],
+                                np.int64),
+            "s": np.array([got["s"][got["k_null"] == k].sum() for k in keys], np.float64)}
+
+
+def q93_class_oracle(data: TpcdsData) -> dict:
+    ss = data.store_sales
+    c = ss.columns["ss_customer_sk"]
+    k_valid = ss.validity("ss_customer_sk") & (ss.columns["ss_quantity"] >= 85)
+    matched = k_valid & (c >= 1) & (c <= 5000)
+    price = ss.columns["ss_ext_sales_price"]
+    keys = np.unique(~k_valid)
+    return {"k_null": keys,
+            "rows": np.array([np.count_nonzero(~k_valid == k) for k in keys], np.int64),
+            "matched": np.array([np.count_nonzero(matched & (~k_valid == k)) for k in keys],
+                                np.int64),
+            "s": np.array([price[~k_valid == k].sum() for k in keys], np.float64)}
+
+
+# ---------------------------------------------------------------------------
+# q3-class: the flagship join + shuffle + agg + top-k pipeline
+# ---------------------------------------------------------------------------
+
+
+def ingest_q3(data: TpcdsData, n_map: int, device="cuda", fact=None) -> dict:
+    """Device-resident inputs: the fact table in ``n_map`` partitions and
+    one batch per dimension."""
+    return {"fact": fact if fact is not None else to_batches(data.store_sales, n_map,
+                                                              device=device),
+            "dd": to_batches(data.date_dim, 1, device=device)[0],
+            "item": to_batches(data.item, 1, device=device)[0]}
+
+
+def q3_map_tree(moy: int = 11, category_id: int = 1):
+    """store_sales JOIN date_dim (d_moy = moy) JOIN item (i_category_id =
+    cat), partial sum(price) by (d_year, i_brand_id); the joins' projections
+    are the pruned columns (ss_item_sk, price, d_year), then (d_year,
+    i_brand_id, price)."""
+    from auron_tpu_torch.exec.agg_exec import AggExpr, HashAggExec
+    from auron_tpu_torch.exec.basic import FilterExec, ResourceScanExec
+    from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
+    from auron_tpu_torch.exprs.ir import BinaryOp
+
+    scan = ResourceScanExec(STORE_SALES_SCHEMA, "q3_fact")
+    dscan = FilterExec(ResourceScanExec(DATE_DIM_SCHEMA, "q3_dd"),
+                       [BinaryOp("eq", col(2), lit(moy))])
+    iscan = FilterExec(ResourceScanExec(ITEM_SCHEMA, "q3_item"),
+                       [BinaryOp("eq", col(2), lit(category_id))])
+    j1 = BroadcastHashJoinExec(scan, dscan, [col(0)], [col(0)], "inner", build_side="right",
+                               cached_build_id="q3_dd_build", projection=[1, 4, 6])
+    j2 = BroadcastHashJoinExec(j1, iscan, [col(0)], [col(0)], "inner", build_side="right",
+                               cached_build_id="q3_it_build", projection=[2, 4, 1])
+    return HashAggExec(j2, [(col(0), "d_year"), (col(1), "i_brand_id")],
+                       [(AggExpr("sum", col(2)), "s")], "partial")
+
+
+def q3_reduce_tree(read):
+    from auron_tpu_torch.exec.agg_exec import AggExpr, HashAggExec
+
+    return HashAggExec(read, [(col(0), "d_year"), (col(1), "i_brand_id")],
+                       [(AggExpr("sum", col(2)), "s")], "final")
+
+
+def _top_k(d_year, brand, s, limit: int) -> dict[str, np.ndarray]:
+    """ORDER BY d_year, s DESC LIMIT k (ties by brand), the driver's
+    takeOrdered."""
+    top = np.lexsort((brand, -s, d_year))[:limit]
+    return {"d_year": d_year[top].astype(np.int32), "i_brand_id": brand[top].astype(np.int32),
+            "s": s[top]}
+
+
+def run_q3_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 4,
+                 moy: int = 11, category_id: int = 1, limit: int = 100,
+                 work_dir: str | None = None, device="cuda", conf: dict | None = None,
+                 ingested: dict | None = None, stats: dict | None = None) -> dict:
+    """SELECT d_year, i_brand_id, sum(ss_ext_sales_price) s FROM store_sales
+    JOIN date_dim ON ss_sold_date_sk = d_date_sk JOIN item ON ss_item_sk =
+    i_item_sk WHERE d_moy = <moy> AND i_category_id = <cat> GROUP BY d_year,
+    i_brand_id ORDER BY d_year, s DESC LIMIT <k>, in two stages."""
+    if ingested is None:
+        ingested = ingest_q3(data, n_map, device)
+    n_map = len(ingested["fact"])
+    resources = {"q3_fact": ingested["fact"], "q3_dd": [ingested["dd"]] * n_map,
+                 "q3_item": [ingested["item"]] * n_map}
+    partial = q3_map_tree(moy, category_id)
+    outs = _run_two_stage(partial, partial.schema, [0, 1], q3_reduce_tree, resources, n_map,
+                          n_reduce, "q3_blocks", work_dir, Configuration(conf or {}), device,
+                          stats)
+    got = _concat(outs, ["d_year", "i_brand_id", "s"], [np.int32, np.int32, np.float64])
+    return _top_k(got["d_year"], got["i_brand_id"], got["s"], limit)
+
+
+def _lookup(keys: np.ndarray, probe: np.ndarray):
+    """(row of keys matching each probe value, hit) for unique keys."""
+    order = np.argsort(keys, kind="stable")
+    k = keys[order]
+    pos = np.clip(np.searchsorted(k, probe), 0, max(len(k) - 1, 0))
+    hit = (k[pos] == probe) if len(k) else np.zeros(len(probe), bool)
+    return order[pos] if len(k) else pos, hit
+
+
+def q3_class_oracle(data: TpcdsData, moy: int = 11, category_id: int = 1,
+                    limit: int = 100) -> dict[str, np.ndarray]:
+    ss, dd, it = data.store_sales.columns, data.date_dim.columns, data.item.columns
+    dm = dd["d_moy"] == moy
+    im = it["i_category_id"] == category_id
+    drow, dhit = _lookup(dd["d_date_sk"][dm], ss["ss_sold_date_sk"])
+    irow, ihit = _lookup(it["i_item_sk"][im], ss["ss_item_sk"])
+    hit = dhit & ihit
+    year = dd["d_year"][dm][drow[hit]].astype(np.int64)
+    brand = it["i_brand_id"][im][irow[hit]].astype(np.int64)
+    uniq, inv = np.unique(np.stack([year, brand], 1), axis=0, return_inverse=True)
+    s = np.bincount(inv.reshape(-1), weights=ss["ss_ext_sales_price"][hit],
+                    minlength=len(uniq))
+    return _top_k(uniq[:, 0], uniq[:, 1], s, limit)

@@ -1,8 +1,10 @@
 """Physical planner: plan proto -> executable operator tree.
 
 Port of ``auron_tpu/plan/planner.py`` for the node and expression variants
-this slice executes (memory_scan, project, filter, limit, hash_agg, sort,
-hash_join; column, literal, cast, binary, not, is_null, is_not_null).
+the ported slices execute (memory_scan, project, filter, limit, hash_agg,
+sort, hash_join, shuffle_writer with single/hash/round-robin partitioning,
+ipc_reader; column, literal, cast, binary, not, is_null, is_not_null,
+if_expr).
 Other variants raise ``NotImplementedError`` naming the variant.
 
 The exec tree is the JAX package's tree with whole-stage fusion off
@@ -72,6 +74,9 @@ def expr_from_proto(p) -> ir.Expr:
         return ir.IsNotNull(expr_from_proto(p.is_not_null.child))
     if which == "not":
         return ir.Not(expr_from_proto(getattr(p, "not").child))
+    if which == "if_expr":
+        return ir.If(expr_from_proto(p.if_expr.cond), expr_from_proto(p.if_expr.then),
+                     expr_from_proto(p.if_expr.orelse))
     raise NotImplementedError(f"expression variant {which} is not in this slice of the port")
 
 
@@ -86,6 +91,22 @@ _AGG_FUNC = {0: "sum", 1: "count", 2: "count_star", 3: "avg", 4: "min", 5: "max"
 _AGG_MODE = {0: "partial", 1: "partial_merge", 2: "final"}
 _JOIN_TYPE = {0: "inner", 1: "left", 2: "right", 3: "full", 4: "left_semi",
               5: "left_anti", 6: "existence"}
+
+
+def partitioning_from_proto(p):
+    from auron_tpu_torch.exec.shuffle.partitioning import (
+        HashPartitioning, RoundRobinPartitioning, SinglePartitioning,
+    )
+
+    pb = _pb()
+    if p.kind == pb.Partitioning.SINGLE:
+        return SinglePartitioning()
+    if p.kind == pb.Partitioning.HASH:
+        return HashPartitioning([expr_from_proto(e) for e in p.hash_exprs], p.num_partitions)
+    if p.kind == pb.Partitioning.ROUND_ROBIN:
+        return RoundRobinPartitioning(p.num_partitions)
+    name = pb.Partitioning.Kind.Name(p.kind)
+    raise NotImplementedError(f"{name} partitioning is not in this slice of the port")
 
 
 def plan_from_proto(p):
@@ -134,6 +155,17 @@ def plan_from_proto(p):
             cached_build_id=n.cached_build_id or None,
             projection=list(n.projection) if n.has_projection else None,
         )
+    if which == "shuffle_writer":
+        from auron_tpu_torch.exec.shuffle.writer import ShuffleWriterExec
+
+        n = p.shuffle_writer
+        return ShuffleWriterExec(plan_from_proto(n.child),
+                                 partitioning_from_proto(n.partitioning),
+                                 n.output_data_file, n.output_index_file)
+    if which == "ipc_reader":
+        from auron_tpu_torch.exec.shuffle.reader import IpcReaderExec
+
+        return IpcReaderExec(schema_from_proto(p.ipc_reader.schema), p.ipc_reader.resource_id)
     raise NotImplementedError(f"plan variant {which} is not in this slice of the port")
 
 

@@ -1,4 +1,4 @@
-"""Typed configuration: the keys this slice reads.
+"""Typed configuration: the keys the ported slices read.
 
 Copied from ``auron_tpu/utils/config.py`` (the ``ConfigOption`` /
 ``Configuration`` / ``resolve_tri`` / ``active_conf`` / ``conf_scope``
@@ -168,4 +168,28 @@ METRICS_ROW_COUNTS = bool_conf(
 )
 TOKIO_EQUIV_PREFETCH_DEPTH = int_conf(
     "runtime.prefetch.depth", 2, "runtime", "batches prefetched by the task pump",
+)
+SPILL_COMPRESSION_CODEC = str_conf(
+    "spill.compression.codec", "lz4", "memory",
+    "codec for spill files and shuffle runs (zstd|lz4|none); the port has "
+    "no general codec, so a name other than none degrades (warned once)",
+)
+SHUFFLE_COMPRESSION_TARGET_BUF_SIZE = int_conf(
+    "shuffle.compression.target.buf.size", 4 << 20, "shuffle",
+    "staged raw bytes per reduce partition before the writer encodes a block",
+)
+SHUFFLE_ENCODING = str_conf(
+    "exec.shuffle.encoding", "auto", "shuffle",
+    "shuffle block format v2 (per-column light-weight encodings): on | off | "
+    "auto = on. The port writes v2 blocks only; off raises in its writer",
+)
+SHUFFLE_ENCODING_DICT_MAX = int_conf(
+    "exec.shuffle.encoding.dict.max", 4096, "shuffle",
+    "largest dictionary a v2 block carries for a dictionary column",
+)
+SHUFFLE_ENCODING_FALLBACK = str_conf(
+    "exec.shuffle.encoding.fallback.codec", "auto", "shuffle",
+    "general codec for planes no light-weight encoding fits (zstd|lz4|none|"
+    "auto = spill.compression.codec); unavailable codecs degrade to the "
+    "light-weight encodings with one stderr warning",
 )

@@ -1,29 +1,45 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (auron_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py            # full run: q42-class at SF 8
-    python3 chip_smoke.py --sf 0.5   # smaller end-to-end phase
-    python3 chip_smoke.py --profile  # plus a torch.profiler breakdown of one q42 run
+    python3 chip_smoke.py            # full run: q42, q93 and q3-class at SF 8
+    python3 chip_smoke.py --sf 0.5   # smaller end-to-end phases
+    python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of one q42, q93, q3 run
 
 Phases, in order, none of them caught — any failure exits non-zero:
 
 1. identify the card (torch device name + the nvidia-smi name/power line);
 2. build every CUDA source of the port (one nvcc per source, started
    together) and print the build seconds;
-3. hold each kernel against its plain PyTorch version and a numpy stable
-   lexsort, bit for bit: ``bitonic_sort`` at P in {2048, 16384, 2^20} with
-   3 and 8 planes, ``bitonic_merge`` on bitonic inputs at the same shapes,
-   and the operand-level ``bitonic_sort`` (int32 planes split and joined
-   on the card) against the plain network and the library lexsort;
-   time kernel, plain version and the NP-pass ``torch.sort`` lexsort at the
-   q42 shape (P = 16384, 8 planes) with CUDA events;
-4. drive the q42-class query (scan -> broadcast hash join -> partial and
-   final hash aggregate -> SortExec with fetch 10) end to end on ``cuda``
-   through the task runtime at the given scale factor, check it against
-   the numpy oracle (brand and order exact, revenue at rel 1e-9), and
-   require that the SortExec went through both bitonic kernels (their
-   launch counts, reset just before the run, must be non-zero);
-5. print the kernel table as one JSON line, then the final status line.
+3. hold each kernel against its plain PyTorch version, bit for bit:
+   ``bitonic_sort`` at P in {2048, 16384, 2^20} with 3 and 8 planes,
+   ``bitonic_merge`` on bitonic inputs at the same shapes (both also
+   against a numpy stable lexsort), the operand-level ``bitonic_sort``
+   (int32 planes split and joined on the card) against the plain network
+   and the library lexsort, and the partition-id kernel ``murmur3_pmod``
+   (K1) at n in {1, 1000, 2^20, 2^20 + 37, 5.76 M} rows x n_parts in
+   {1, 3, 4, 200, 4096}, 85 % and 0 % NULL keys, with INT64_MIN, INT64_MAX,
+   0 and -1 among the keys; time kernels, plain versions and library calls
+   with CUDA events (bitonic at the q42 shape P = 16384, 8 planes; K1 at
+   2^20 rows, 4 partitions);
+4. generate the data once (all later phases share it) and drive the
+   q42-class query (scan -> broadcast hash join -> partial and final hash
+   aggregate -> SortExec with fetch 10) end to end on ``cuda`` through the
+   task runtime, check it against the numpy oracle (brand and order exact,
+   revenue at rel 1e-9), and require that the SortExec went through both
+   bitonic kernels;
+5. the q93-class query: map tasks (scan -> CASE key -> file shuffle on one
+   nullable int64 key, ~85 % NULL) then reduce tasks (shuffle read -> left
+   broadcast hash join -> partial and final aggregate by key IS NULL),
+   4 map x 4 reduce; a warm-up run, then a timed run, each in its own
+   temporary directory; rows and matched exact and s at rel 1e-9 against
+   the numpy oracle, and the shuffle writer must have launched K1;
+6. the q3-class query (two inner broadcast hash joins -> partial aggregate
+   -> file shuffle on two int32 keys -> final aggregate -> driver top-k),
+   4 x 4, warm-up then timed; keys and order exact, s at rel 1e-9;
+7. print the kernel table as one JSON line, then the final status line.
+
+Every launch count is set to 0 just before the timed run of a query and
+read just after it; launches made to compare kernels are not counted.
 
 Needs no network, no pyarrow, no pandas and no protobuf; imports nothing
 of the JAX package. Exits with code 2 when no CUDA device is visible.
@@ -138,6 +154,105 @@ def check_kernels(seed: int) -> dict:
     return {"checks": checks, "max_abs_err": err}
 
 
+_I64_EDGES = (-(2**63), 2**63 - 1, 0, -1)
+
+
+def _profiled_kernel_ms(fn, name: str, iters: int):
+    """Mean device time of the kernels whose name holds ``name``, from
+    torch.profiler over ``iters`` calls; None when the trace has none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if name in e.key:
+            us = getattr(e, "self_device_time_total", None)
+            total += us if us is not None else getattr(e, "self_cuda_time_total", 0)
+            count += e.count
+    return total / 1e3 / count if count else None
+
+
+def check_partition_kernel(seed: int) -> dict:
+    """K1 against its plain version, bit for bit."""
+    import numpy as np
+    import torch
+
+    from auron_tpu_torch.ops import partition_kernels as pk
+
+    rng = np.random.default_rng(seed + 2)
+    dev = torch.device("cuda")
+    err = 0
+    checks = []
+    for n in (1, 1000, 1 << 20, (1 << 20) + 37, 5_760_000):
+        keys = rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64, endpoint=True)
+        keys[: min(n, len(_I64_EDGES))] = _I64_EDGES[: min(n, len(_I64_EDGES))]
+        k = torch.from_numpy(keys).to(dev)
+        for null_share in (0.85, 0.0):
+            valid = torch.from_numpy(rng.random(n) >= null_share).to(dev)
+            for n_parts in (1, 3, 4, 200, 4096):
+                got = pk.launch_partition_ids(k, valid, n_parts)
+                want = pk.plain_partition_ids(k, valid, n_parts)
+                torch.cuda.synchronize()
+                err = max(err, int((got.to(torch.int64) - want.to(torch.int64)).abs().max()))
+                assert torch.equal(got, want), ("murmur3_pmod", n, null_share, n_parts)
+                assert bool(((got >= 0) & (got < n_parts)).all()), ("pid range", n, n_parts)
+            checks.append({"n": n, "null_share": null_share, "equal": True})
+        print(f"kernel check murmur3_pmod n={n}: bit-equal to plain for n_parts "
+              f"1/3/4/200/4096 at 85 % and 0 % NULL", flush=True)
+    return {"checks": checks, "max_abs_err": err}
+
+
+def time_partition_kernel(seed: int, n: int = 1 << 20, n_parts: int = 4) -> dict:
+    """K1 / plain times at the q93 map batch shape (no one library call
+    computes Spark murmur3: library_ms is null)."""
+    import numpy as np
+    import torch
+
+    from auron_tpu_torch.ops import partition_kernels as pk
+
+    rng = np.random.default_rng(seed + 3)
+    k = torch.from_numpy(rng.integers(1, 100_000, n, dtype=np.int64)).cuda()
+    valid = torch.from_numpy(rng.random(n) >= 0.85).cuda()
+    saved = dict(pk.LAUNCHES)
+    ms = _event_ms(lambda: pk.launch_partition_ids(k, valid, n_parts), 200, warmup=5)
+    plain_ms = _event_ms(lambda: pk.plain_partition_ids(k, valid, n_parts), 20, warmup=2)
+    device_ms = _profiled_kernel_ms(lambda: pk.launch_partition_ids(k, valid, n_parts),
+                                    "murmur3_pmod", 50)
+    pk.LAUNCHES.update(saved)
+    nbytes = n * (8 + 1 + 4)  # key and validity read once, id written once
+    ops = n * 30  # two mix rounds, fmix, pmod, select: ~30 integer ops a row
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / NON_TENSOR_OPS_PER_S * 1e3
+    r = {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "n": n, "n_parts": n_parts,
+         "device_ms": device_ms,
+         "bound_ms": max(bytes_ms, ops_ms),
+         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    print(f"murmur3_pmod n={n} n_parts={n_parts}: kernel {ms:.4f} ms a call "
+          f"(device time {device_ms} ms a launch, torch.profiler), plain {plain_ms:.4f} ms, "
+          f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), no library call", flush=True)
+    return r
+
+
+def _reset_launches() -> None:
+    from auron_tpu_torch.ops import bitonic, partition_kernels
+
+    for counts in (bitonic.LAUNCHES, partition_kernels.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _launches() -> dict:
+    from auron_tpu_torch.ops import bitonic, partition_kernels
+
+    return {**bitonic.LAUNCHES, **partition_kernels.LAUNCHES}
+
+
 def time_kernels(seed: int, P: int = 16384, NP: int = 8) -> dict:
     """Kernel / plain / library times at the q42 sort shape."""
     import math
@@ -196,16 +311,12 @@ def time_kernels(seed: int, P: int = 16384, NP: int = 8) -> dict:
     return res
 
 
-def run_q42(sf: float, seed: int) -> dict:
+def run_q42(data, sf: float, t_gen: float) -> dict:
     import numpy as np
     import torch
 
     from auron_tpu_torch.models import tpcds
-    from auron_tpu_torch.ops import bitonic
 
-    t0 = time.perf_counter()
-    data = tpcds.generate(sf, seed)
-    t_gen = time.perf_counter() - t0
     t0 = time.perf_counter()
     ingested = tpcds.ingest_q42(data, device="cuda")
     torch.cuda.synchronize()
@@ -213,20 +324,19 @@ def run_q42(sf: float, seed: int) -> dict:
     oracle = tpcds.q42_class_oracle(data)
     # warm-up run (first launches, allocator), checked like the timed one
     warm = tpcds.run_q42_class(device="cuda", ingested=ingested)
-    for k in bitonic.LAUNCHES:
-        bitonic.LAUNCHES[k] = 0
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got = tpcds.run_q42_class(device="cuda", ingested=ingested)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(bitonic.LAUNCHES)
+    launches = _launches()
     for out in (warm, got):
         assert out["brand"].shape == (10,) and np.isfinite(out["rev"]).all(), out
         assert np.array_equal(out["brand"], oracle["brand"]), (out["brand"], oracle["brand"])
         np.testing.assert_allclose(out["rev"], oracle["rev"], rtol=1e-9, atol=0)
-    for name, n in launches.items():
-        assert n > 0, f"q42 main path launched {name} no time: {launches}"
+    for name in ("bitonic_sort", "bitonic_merge"):
+        assert launches[name] > 0, f"q42 main path launched {name} no time: {launches}"
     rows = data.fact_rows()
     print(f"q42-class SF {sf}: {rows} fact rows, wall {wall:.4f} s, "
           f"{rows / wall:.1f} fact rows/s, launches {launches}, top brand "
@@ -236,27 +346,29 @@ def run_q42(sf: float, seed: int) -> dict:
             "brand": got["brand"].tolist(), "rev": got["rev"].tolist()}, ingested
 
 
-def profile_q42(ingested: dict) -> dict:
-    """One more q42 run under torch.profiler: device busy time (sum of
-    kernel self times, one stream), the top kernels, and the operator
-    metric tree's host timers. Not counted in the launch counts above."""
+def _print_timers(query: str, stats: dict) -> None:
+    for k, v in sorted(stats["timers"].items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {query} host timer {v * 1e3:9.3f} ms  {k}", flush=True)
+
+
+def profile_run(query: str, fn) -> dict:
+    """One more run under torch.profiler: device busy time (sum of kernel
+    self times, one stream) against the wall, and the top kernels. Its
+    launches are not counted in the kernel table."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from auron_tpu_torch.models import tpcds
-    from auron_tpu_torch.ops import bitonic
-    from auron_tpu_torch.runtime.task import TaskRuntime
-
-    saved = dict(bitonic.LAUNCHES)
+    saved = _launches()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rt = TaskRuntime(tpcds.q42_exec_tree(), resources=dict(ingested), device="cuda")
-        tpcds.collect(list(rt))
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        snap = rt.finalize()
-    bitonic.LAUNCHES.update(saved)
+    from auron_tpu_torch.ops import bitonic, partition_kernels
+
+    for counts in (bitonic.LAUNCHES, partition_kernels.LAUNCHES):
+        counts.update({k: saved[k] for k in counts})
     kernels = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
@@ -266,36 +378,111 @@ def profile_q42(ingested: dict) -> dict:
             kernels.append((e.key, us / 1e3, e.count))
     kernels.sort(key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
-    ops: dict = {}
-
-    def walk(node):
-        name = node["name"].split(".")[0]
-        for k, v in node["values"].items():
-            if k.endswith(("_time", "elapsed_compute")):
-                ops[f"{name}.{k}"] = ops.get(f"{name}.{k}", 0) + v / 1e6
-        for c in node["children"]:
-            walk(c)
-
-    walk(snap)
     out = {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
            "device_idle_share": max(0.0, 1 - busy_ms / (wall * 1e3)),
-           "top_kernels": [{"name": n, "ms": ms, "count": c} for n, ms, c in kernels[:12]],
-           "operator_host_ms": ops}
-    print(f"q42 profile: wall {out['wall_ms']:.3f} ms (profiled), device busy "
+           "top_kernels": [{"name": n, "ms": ms, "count": c} for n, ms, c in kernels[:12]]}
+    print(f"{query} profile: wall {out['wall_ms']:.3f} ms (profiled), device busy "
           f"{busy_ms:.3f} ms, idle share {out['device_idle_share']:.3f}", flush=True)
-    for n, ms, c in kernels[:12]:
+    for n, ms, c in kernels[:8]:
         print(f"  kernel {ms:9.4f} ms x{c:5d}  {n[:100]}", flush=True)
-    for k, v in sorted(ops.items(), key=lambda kv: -kv[1]):
-        print(f"  host {v:9.3f} ms  {k}", flush=True)
+    return out
+
+
+def run_q93(data, fact) -> dict:
+    """q93-class, 4 map x 4 reduce: warm-up, then the timed run."""
+    import numpy as np
+    import torch
+
+    from auron_tpu_torch.models import tpcds
+
+    ingested = tpcds.ingest_q93(data, 4, device="cuda", fact=fact)
+    oracle = tpcds.q93_class_oracle(data)
+    warm = tpcds.run_q93_class(device="cuda", ingested=ingested)
+    _reset_launches()
+    torch.cuda.synchronize()
+    stats: dict = {}
+    t0 = time.perf_counter()
+    got = tpcds.run_q93_class(device="cuda", ingested=ingested, stats=stats)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    for out in (warm, got):
+        assert out["k_null"].tolist() == oracle["k_null"].tolist(), (out, oracle)
+        assert np.array_equal(out["rows"], oracle["rows"]), (out["rows"], oracle["rows"])
+        assert np.array_equal(out["matched"], oracle["matched"]), (out, oracle)
+        assert np.isfinite(out["s"]).all()
+        np.testing.assert_allclose(out["s"], oracle["s"], rtol=1e-9, atol=0)
+    assert launches["murmur3_pmod"] > 0, f"q93 main path launched K1 no time: {launches}"
+    null_rows = stats["partition_rows"][stats["null_partition"]]
+    rows = data.fact_rows()
+    print(f"q93-class: {rows} fact rows, wall {wall:.4f} s (map stage {stats['map_s']:.4f} s, "
+          f"reduce stage {stats['reduce_s']:.4f} s), shuffle bytes written "
+          f"{stats['shuffle_bytes']}, NULL-key partition {stats['null_partition']} got "
+          f"{null_rows} rows of {sum(stats['partition_rows'])}, launches {launches}", flush=True)
+    _print_timers("q93", stats)
+    return {"fact_rows": rows, "wall_s": wall, "rows_per_s": rows / wall, **stats,
+            "null_partition_rows": null_rows, "launches": launches,
+            "rows": got["rows"].tolist(), "matched": got["matched"].tolist(),
+            "s": got["s"].tolist()}
+
+
+def run_q3(data, fact) -> dict:
+    """q3-class, 4 map x 4 reduce: warm-up, then the timed run."""
+    import numpy as np
+    import torch
+
+    from auron_tpu_torch.models import tpcds
+
+    ingested = tpcds.ingest_q3(data, 4, device="cuda", fact=fact)
+    oracle = tpcds.q3_class_oracle(data)
+    warm = tpcds.run_q3_class(device="cuda", ingested=ingested)
+    _reset_launches()
+    torch.cuda.synchronize()
+    stats: dict = {}
+    t0 = time.perf_counter()
+    got = tpcds.run_q3_class(device="cuda", ingested=ingested, stats=stats)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    for out in (warm, got):
+        assert len(out["s"]) == len(oracle["s"]) > 0 and np.isfinite(out["s"]).all()
+        for k in ("d_year", "i_brand_id"):
+            assert np.array_equal(out[k], oracle[k]), (k, out[k][:10], oracle[k][:10])
+        np.testing.assert_allclose(out["s"], oracle["s"], rtol=1e-9, atol=0)
+    rows = data.fact_rows()
+    print(f"q3-class: {rows} fact rows, wall {wall:.4f} s (map stage {stats['map_s']:.4f} s, "
+          f"reduce stage {stats['reduce_s']:.4f} s), shuffle bytes written "
+          f"{stats['shuffle_bytes']}, launches {launches}, first row "
+          f"({int(got['d_year'][0])}, {int(got['i_brand_id'][0])}, {float(got['s'][0]):.2f})",
+          flush=True)
+    _print_timers("q3", stats)
+    return {"fact_rows": rows, "wall_s": wall, "rows_per_s": rows / wall, **stats,
+            "launches": launches, "top": {k: v[:10].tolist() for k, v in got.items()}}
+
+
+def profile_q42(ingested: dict) -> dict:
+    """One more q42 run under torch.profiler (``profile_run``), plus the
+    operator metric tree's host timers."""
+    from auron_tpu_torch.models import tpcds
+    from auron_tpu_torch.runtime.task import run_task
+
+    stats: dict = {}
+
+    def run():
+        batches, snap = run_task(tpcds.q42_exec_tree(), dict(ingested), device="cuda")
+        tpcds.collect(batches)
+        tpcds.add_timers(stats, snap)
+
+    out = profile_run("q42", run)
+    out["operator_host_ms"] = {k: v * 1e3 for k, v in stats["timers"].items()}
+    _print_timers("q42", stats)
     return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--sf", type=float, default=8.0, help="q42 scale factor (default 8)")
+    ap.add_argument("--sf", type=float, default=8.0, help="scale factor (default 8)")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one q42 run (device busy share, top kernels)")
+                    help="also profile one q42, q93 and q3 run (device busy share, top kernels)")
     args = ap.parse_args(argv)
 
     import torch
@@ -303,7 +490,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no result", file=sys.stderr)
         return 2
-    from auron_tpu_torch.ops import bitonic, cuda_build
+    from auron_tpu_torch.ops import cuda_build
 
     # 1. the card
     kind = torch.cuda.get_device_name(0)
@@ -324,31 +511,58 @@ def main(argv=None) -> int:
 
     # 3. kernels against their plain versions
     checks = check_kernels(args.seed)
+    checks["murmur3_pmod"] = check_partition_kernel(args.seed)
     timing = time_kernels(args.seed)
+    timing["murmur3_pmod"] = time_partition_kernel(args.seed)
 
-    # 4. q42-class end to end
-    q42, ingested = run_q42(args.sf, args.seed)
+    # 4. the data, once; q42-class end to end
+    from auron_tpu_torch.models import tpcds
+
+    t0 = time.perf_counter()
+    data = tpcds.generate(args.sf, args.seed)
+    t_gen = time.perf_counter() - t0
+    q42, ingested = run_q42(data, args.sf, t_gen)
     if args.profile:
         q42["profile"] = profile_q42(ingested)
+    del ingested
 
-    replaces = {
-        "bitonic_sort": "auron_tpu/ops/bitonic.py:145",
-        "bitonic_merge": "auron_tpu/ops/bitonic.py:176",
-    }
+    # 5-6. the two-stage queries over one 4-partition ingest of the fact table
+    t0 = time.perf_counter()
+    fact = tpcds.to_batches(data.store_sales, 4, device="cuda")
+    torch.cuda.synchronize()
+    print(f"fact table in 4 partitions on the card in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    q93 = run_q93(data, fact)
+    q3 = run_q3(data, fact)
+    if args.profile:
+        q93["profile"] = profile_run("q93", lambda: tpcds.run_q93_class(
+            device="cuda", ingested=tpcds.ingest_q93(data, 4, device="cuda", fact=fact)))
+        q3["profile"] = profile_run("q3", lambda: tpcds.run_q3_class(
+            device="cuda", ingested=tpcds.ingest_q3(data, 4, device="cuda", fact=fact)))
+
     kernels = []
-    for name in ("bitonic_sort", "bitonic_merge"):
+    for name, source, replaces, launches in (
+        ("bitonic_sort", "auron_tpu_torch/csrc/bitonic.cu", "auron_tpu/ops/bitonic.py:145",
+         q42["launches"]["bitonic_sort"]),
+        ("bitonic_merge", "auron_tpu_torch/csrc/bitonic.cu", "auron_tpu/ops/bitonic.py:176",
+         q42["launches"]["bitonic_merge"]),
+        ("murmur3_pmod", "auron_tpu_torch/csrc/partition.cu",
+         "auron_tpu/ops/pallas_kernels.py:26", q93["launches"]["murmur3_pmod"]),
+    ):
         t = timing[name]
+        err = (checks["murmur3_pmod"]["max_abs_err"] if name == "murmur3_pmod"
+               else checks["max_abs_err"][name])
         kernels.append({
-            "name": name, "route": "cuda", "source": "auron_tpu_torch/csrc/bitonic.cu",
-            "replaces": replaces[name], "launches": q42["launches"][name],
-            "max_abs_err": checks["max_abs_err"][name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
     os.makedirs(os.path.join(REPO_DIR, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO_DIR, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"device": kind, "nvidia_smi": smi, "build_s": build_s, "checks": checks,
-                   "timing": timing, "q42": q42, "kernels": kernels}, f, indent=1)
+                   "timing": timing, "q42": q42, "q93": q93, "q3": q3, "kernels": kernels},
+                  f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from auron_tpu_torch.ops import bitonic as pb
+from auron_tpu_torch.ops import partition_kernels as pk
 
 
 def _need_card():
@@ -74,3 +75,42 @@ def test_q42_on_card_goes_through_the_kernels():
     np.testing.assert_array_equal(got["brand"], want["brand"])
     np.testing.assert_allclose(got["rev"], want["rev"], rtol=1e-9, atol=0)
     assert all(pb.LAUNCHES[k] > before[k] for k in before), (before, pb.LAUNCHES)
+
+
+@pytest.mark.cuda
+def test_partition_kernel_matches_plain_on_card():
+    """K1 bit-equal to its plain version: negative hashes, INT64_MIN/MAX,
+    0 and -1, NULL keys, one and non-power-of-two partition counts, ragged
+    lengths."""
+    _need_card()
+    rng = np.random.default_rng(3)
+    for n in (1, 255, 257, 100_003):
+        keys = rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64, endpoint=True)
+        keys[: min(n, 4)] = np.array([-(2**63), 2**63 - 1, 0, -1])[: min(n, 4)]
+        k = torch.from_numpy(keys).cuda()
+        valid = torch.from_numpy(rng.random(n) > 0.5).cuda()
+        for n_parts in (1, 3, 4, 200, 4096):
+            got = pk.partition_ids(k, valid, n_parts)
+            assert torch.equal(got, pk.plain_partition_ids(k, valid, n_parts)), (n, n_parts)
+            assert bool((got[~valid] == 42 % n_parts).all())
+
+
+@pytest.mark.cuda
+def test_two_stage_queries_on_card_go_through_k1():
+    """Small q93- and q3-class runs on cuda equal their numpy oracles, and
+    q93's shuffle writer launched K1."""
+    _need_card()
+    from auron_tpu_torch.models import tpcds
+
+    data = tpcds.generate(0.05, 42)
+    before = pk.LAUNCHES["murmur3_pmod"]
+    got = tpcds.run_q93_class(data, device="cuda")
+    want = tpcds.q93_class_oracle(data)
+    assert pk.LAUNCHES["murmur3_pmod"] > before
+    np.testing.assert_array_equal(got["rows"], want["rows"])
+    np.testing.assert_array_equal(got["matched"], want["matched"])
+    np.testing.assert_allclose(got["s"], want["s"], rtol=1e-9, atol=0)
+    q3 = tpcds.run_q3_class(data, device="cuda")
+    o3 = tpcds.q3_class_oracle(data)
+    np.testing.assert_array_equal(q3["i_brand_id"], o3["i_brand_id"])
+    np.testing.assert_allclose(q3["s"], o3["s"], rtol=1e-9, atol=0)
