@@ -309,6 +309,18 @@ def merge_vocab(entry_lists: Sequence) -> tuple[np.ndarray, list[np.ndarray]]:
     return out, remaps
 
 
+def unify_dict(batches: Sequence[Batch], col: int) -> tuple[np.ndarray, list[np.ndarray]]:
+    """One vocabulary for column ``col`` across batches: (unified, per-batch
+    remap tables with new_code = remaps[i][old_code]); the device remap is
+    then a single gather."""
+    entries = []
+    for b in batches:
+        if b.dicts[col] is None:
+            raise ValueError(f"column {col} of {b.schema[col].name} is not dictionary-encoded")
+        entries.append(b.dicts[col])
+    return merge_vocab(entries)
+
+
 def device_concat(batches: Sequence[Batch]) -> Batch:
     """Concatenate batches on the device. Output capacity is the bucket of
     the summed input capacities (dead rows keep sel=0); dictionary columns

@@ -29,9 +29,15 @@ light-weight encodings and warns once (``format.py:247-269``).
 The schema section is a minimal Arrow IPC schema message written without
 pyarrow (``pa.ipc.read_schema`` reads it, so the JAX reader reads the
 port's files); the port's reader skips it and takes the column types from
-its plan schema. ENC_CODEC, ENC_ARROW, ENC_DICT, ENC_DEC128 and v1 (Arrow
-IPC) blocks raise ``NotImplementedError`` naming the encoding: string,
-dictionary and decimal columns are not on this slice's path.
+its plan schema. A dictionary-encoded string/binary column is an ENC_DICT
+column as in the JAX writer (``format.py:618-638``): the vocabulary rides
+once per block as a single-column Arrow IPC stream, written and read here
+without pyarrow (``arrow_column_stream``, ``read_arrow_column_stream``),
+then the int32 codes as an int plane. Its host plane is a ``DictCodes``
+(codes + vocabulary); the chunks staged into one block are merged onto one
+vocabulary. ENC_CODEC, ENC_ARROW, ENC_DEC128 and v1 (Arrow IPC) blocks
+raise ``NotImplementedError`` naming the encoding: they are not on the
+port's paths yet.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from typing import Iterator
 import numpy as np
 
 from auron_tpu_torch import types as T
+from auron_tpu_torch.columnar.batch import merge_vocab
 from auron_tpu_torch.utils.config import (
     SHUFFLE_ENCODING, SHUFFLE_ENCODING_FALLBACK, SPILL_COMPRESSION_CODEC, resolve_tri,
 )
@@ -346,7 +353,7 @@ def decode_float_plane(enc: int, payload: bytes, n: int, dtype: np.dtype) -> np.
 
 
 def _refuse(enc: int) -> None:
-    if enc in (ENC_CODEC, ENC_ARROW, ENC_DICT, ENC_DEC128):
+    if enc in (ENC_CODEC, ENC_ARROW, ENC_DEC128):
         raise NotImplementedError(
             f"shuffle encoding {ENC_NAMES[enc]} ({enc}) is not in this slice of the port")
 
@@ -371,10 +378,70 @@ def plane_kind(dtype: T.DataType) -> str:
         f"shuffle columns of type {dtype} are not in this slice of the port")
 
 
-def encode_column(vals: np.ndarray, valid: np.ndarray | None,
+class DictCodes:
+    """A dictionary column's host plane: int32 ``codes`` into ``vocab`` (a
+    numpy object array). Slices and lengths act on the codes."""
+
+    def __init__(self, codes: np.ndarray, vocab: np.ndarray):
+        self.codes = codes
+        self.vocab = vocab
+
+    def __len__(self) -> int:
+        return len(self.codes)
+
+    def __getitem__(self, sl) -> "DictCodes":
+        return DictCodes(self.codes[sl], self.vocab)
+
+    @property
+    def nbytes(self) -> int:
+        return self.codes.nbytes
+
+    @staticmethod
+    def concat(parts: list["DictCodes"]) -> "DictCodes":
+        """One plane over one merged vocabulary (first-occurrence order)."""
+        vocab, remaps = merge_vocab([p.vocab for p in parts])
+        return DictCodes(np.concatenate([r[np.clip(p.codes, 0, len(r) - 1)]
+                                         for p, r in zip(parts, remaps)]).astype(np.int32),
+                         vocab)
+
+
+def _encode_dict_column(vals: DictCodes, valid: np.ndarray | None,
+                        dtype: T.DataType) -> tuple[int, bytes | None, bytes]:
+    """ENC_DICT: the vocabulary as one Arrow IPC stream, then the codes
+    (null lanes zeroed) as an int plane (``format.py:618-638``)."""
+    if not dtype.is_string_like:
+        raise NotImplementedError(
+            f"shuffle columns of type {dtype} are not in this slice of the port")
+    codes = np.ascontiguousarray(vals.codes, dtype=np.int32)
+    vbytes = None
+    if valid is not None and not valid.all():
+        valid = np.ascontiguousarray(valid, dtype=bool)
+        vbytes = np.packbits(valid, bitorder="little").tobytes()
+        codes = codes * valid
+    denc, dpayload = encode_int_plane(codes)
+    dict_ipc = arrow_column_stream(vals.vocab, dtype)
+    return ENC_DICT, vbytes, (struct.pack("<I", len(dict_ipc)) + dict_ipc
+                              + struct.pack("<BI", denc, len(dpayload)) + dpayload)
+
+
+def _decode_dict_column(body: bytes, nrows: int, dtype: T.DataType) -> DictCodes:
+    (dlen,) = struct.unpack_from("<I", body, 0)
+    vocab = read_arrow_column_stream(body[4 : 4 + dlen], dtype)
+    denc, dplen = struct.unpack_from("<BI", body, 4 + dlen)
+    start = 4 + dlen + 5
+    codes = decode_int_plane(denc, body[start : start + dplen], nrows, np.dtype(np.int32))
+    if len(vocab) == 0:
+        vocab = np.array([b"" if dtype.kind == T.TypeKind.BINARY else ""], dtype=object)
+    return DictCodes(codes, vocab)
+
+
+def encode_column(vals, valid: np.ndarray | None,
                   dtype: T.DataType) -> tuple[int, bytes | None, bytes]:
     """One column's (enc, packed validity or None, payload), with the JAX
-    writer's rules (``format.py:_encode_column``)."""
+    writer's rules (``format.py:_encode_column``). ``vals`` is a numpy
+    plane, or a ``DictCodes`` for a dictionary-encoded column."""
+    if dtype.is_dict_encoded:
+        return _encode_dict_column(vals, valid, dtype)
     kind = plane_kind(dtype)
     n = len(vals)
     vals = np.ascontiguousarray(vals, dtype=dtype.numpy_dtype())
@@ -399,7 +466,10 @@ def encode_column(vals: np.ndarray, valid: np.ndarray | None,
 
 
 def decode_column(enc: int, body: bytes, valid: np.ndarray | None, nrows: int,
-                  dtype: T.DataType) -> np.ndarray:
+                  dtype: T.DataType):
+    """A column's host plane: numpy values, or ``DictCodes`` for ENC_DICT."""
+    if enc == ENC_DICT:
+        return _decode_dict_column(body, nrows, dtype)
     kind = plane_kind(dtype)
     npdt = dtype.numpy_dtype()
     if enc == ENC_PACKBITS:
@@ -499,11 +569,60 @@ class _Flat:
         struct.pack_into("<I", self.buf, 0, root(self))
         return bytes(self.buf)
 
+    def structs(self, fmt: str, items: list) -> int:
+        """A vector of 8-byte-aligned structs (``fmt`` per item)."""
+        self.buf.extend(b"\0" * (-(len(self.buf) + 4) % 8))
+        pos = len(self.buf)
+        self.buf += struct.pack("<I", len(items))
+        for item in items:
+            self.buf += struct.pack("<" + fmt, *item)
+        return pos
+
+
+class _FlatTable:
+    """Read access to one flatbuffer table of ``buf`` at ``pos``."""
+
+    def __init__(self, buf: bytes, pos: int):
+        self.buf, self.pos = buf, pos
+        vt = pos - struct.unpack_from("<i", buf, pos)[0]
+        vt_len = struct.unpack_from("<H", buf, vt)[0]
+        self.slots = struct.unpack_from(f"<{(vt_len - 4) // 2}H", buf, vt + 4)
+
+    def _at(self, field: int) -> int:
+        return self.slots[field] if field < len(self.slots) else 0
+
+    def scalar(self, field: int, fmt: str, default=0):
+        off = self._at(field)
+        return struct.unpack_from("<" + fmt, self.buf, self.pos + off)[0] if off else default
+
+    def ref(self, field: int) -> int | None:
+        """Position of the object a uoffset field points to (None: absent)."""
+        off = self._at(field)
+        if not off:
+            return None
+        p = self.pos + off
+        return p + struct.unpack_from("<I", self.buf, p)[0]
+
+    def table(self, field: int) -> "_FlatTable | None":
+        p = self.ref(field)
+        return None if p is None else _FlatTable(self.buf, p)
+
+    def structs(self, field: int, fmt: str) -> list[tuple]:
+        p = self.ref(field)
+        if p is None:
+            return []
+        (n,) = struct.unpack_from("<I", self.buf, p)
+        size = struct.calcsize("<" + fmt)
+        return [struct.unpack_from("<" + fmt, self.buf, p + 4 + i * size) for i in range(n)]
+
 
 # Arrow flatbuffer enums (format/Schema.fbs, format/Message.fbs)
-_TYPE_INT, _TYPE_FLOAT, _TYPE_BOOL, _TYPE_DATE, _TYPE_TIMESTAMP = 2, 3, 6, 8, 10
-_HEADER_SCHEMA = 1
+_TYPE_INT, _TYPE_FLOAT, _TYPE_BINARY, _TYPE_UTF8 = 2, 3, 4, 5
+_TYPE_BOOL, _TYPE_DATE, _TYPE_TIMESTAMP = 6, 8, 10
+_HEADER_SCHEMA, _HEADER_RECORD_BATCH = 1, 3
 _METADATA_V5 = 4
+_CONTINUATION = 0xFFFFFFFF
+_EOS = struct.pack("<Ii", _CONTINUATION, 0)
 _INT_BITS = {T.TypeKind.INT8: 8, T.TypeKind.INT16: 16, T.TypeKind.INT32: 32,
              T.TypeKind.INT64: 64}
 
@@ -523,7 +642,66 @@ def _arrow_type(dtype: T.DataType):
         return _TYPE_DATE, [("h", 0)]  # DateUnit.DAY
     if k == T.TypeKind.TIMESTAMP:
         return _TYPE_TIMESTAMP, [("h", 2), None]  # TimeUnit.MICROSECOND, no tz
+    if k == T.TypeKind.STRING:
+        return _TYPE_UTF8, []
+    if k == T.TypeKind.BINARY:
+        return _TYPE_BINARY, []
     raise NotImplementedError(f"arrow schema of {dtype} is not in this slice of the port")
+
+
+def _message(header_type: int, header, body_len: int) -> bytes:
+    """One encapsulated IPC message: continuation, metadata length, the
+    Message{version V5, header, bodyLength} flatbuffer padded to 8 bytes."""
+
+    def message(fb: _Flat) -> int:
+        return fb.table([
+            ("h", _METADATA_V5),                               # version
+            ("B", header_type),                                # header_type
+            ("off", header),                                   # header
+            ("q", body_len),                                   # bodyLength
+        ])
+
+    meta = _Flat().finish(message)
+    meta += bytes(-len(meta) % 8)
+    return struct.pack("<Ii", _CONTINUATION, len(meta)) + meta
+
+
+def _schema_msg(schema: T.Schema, dictionaries: bool) -> bytes:
+    """The schema message; with ``dictionaries`` each dictionary-encoded
+    field carries a DictionaryEncoding (ids 0, 1, ... in field order,
+    int32 indices), as pyarrow writes a dictionary-typed schema."""
+    dict_ids = {}
+    if dictionaries:
+        for i, f in enumerate(schema):
+            if f.dtype.is_dict_encoded:
+                dict_ids[i] = len(dict_ids)
+
+    def encoding(dict_id: int):
+        return ("off", lambda fb: fb.table([
+            ("q", dict_id),                                    # id
+            ("off", lambda fb: fb.table([("i", 32), ("B", 1)])),  # indexType Int32
+            ("B", 0),                                          # isOrdered
+            ("h", 0),                                          # DictionaryKind.DenseArray
+        ]))
+
+    def field(i: int, f: T.Field):
+        type_id, type_fields = _arrow_type(f.dtype)
+        return lambda fb: fb.table([
+            ("off", lambda fb: fb.string(f.name)),            # name
+            ("B", 1 if f.nullable else 0),                     # nullable
+            ("B", type_id),                                    # type_type
+            ("off", lambda fb: fb.table(type_fields)),         # type
+            encoding(dict_ids[i]) if i in dict_ids else None,  # dictionary
+            ("off", lambda fb: fb.tables([])),                 # children
+        ])
+
+    def schema_table(fb: _Flat) -> int:
+        return fb.table([
+            ("h", 0),                                          # endianness Little
+            ("off", lambda fb: fb.tables([field(i, f) for i, f in enumerate(schema)])),
+        ])
+
+    return _message(_HEADER_SCHEMA, schema_table, 0)
 
 
 def arrow_schema_message(schema: T.Schema) -> bytes:
@@ -531,36 +709,78 @@ def arrow_schema_message(schema: T.Schema) -> bytes:
     write for the schema (one schema message, then end-of-stream), built
     from the Arrow flatbuffer layout: Message{version V5, header Schema{
     endianness Little, fields}, bodyLength 0}."""
+    return _schema_msg(schema, dictionaries=True) + _EOS
 
-    def field(f: T.Field):
-        type_id, type_fields = _arrow_type(f.dtype)
-        return lambda fb: fb.table([
-            ("off", lambda fb: fb.string(f.name)),            # name
-            ("B", 1 if f.nullable else 0),                     # nullable
-            ("B", type_id),                                    # type_type
-            ("off", lambda fb: fb.table(type_fields)),         # type
-            None,                                              # dictionary
-            ("off", lambda fb: fb.tables([])),                 # children
-        ])
 
-    def schema_table(fb: _Flat) -> int:
+def _pad8(b: bytes) -> bytes:
+    return b + bytes(-len(b) % 8)
+
+
+def arrow_column_stream(vocab: np.ndarray, dtype: T.DataType) -> bytes:
+    """A one-column Arrow IPC stream of a string/binary vocabulary (no
+    NULLs): schema message, one record batch with buffers validity (absent),
+    int32 offsets and data, each 8-byte aligned in the body, then EOS."""
+    raw = [v.encode("utf-8") if isinstance(v, str) else bytes(v) for v in vocab]
+    n = len(raw)
+    offsets = np.zeros(n + 1, dtype=np.int32)
+    np.cumsum([len(r) for r in raw], out=offsets[1:])
+    off_b = _pad8(offsets.tobytes())
+    data = b"".join(raw)
+    body = off_b + _pad8(data)
+
+    def record_batch(fb: _Flat) -> int:
         return fb.table([
-            ("h", 0),                                          # endianness Little
-            ("off", lambda fb: fb.tables([field(f) for f in schema])),
+            ("q", n),                                          # length
+            ("off", lambda fb: fb.structs("qq", [(n, 0)])),    # nodes: (length, null_count)
+            ("off", lambda fb: fb.structs("qq", [(0, 0), (0, (n + 1) * 4),
+                                                 (len(off_b), len(data))])),  # buffers
         ])
 
-    def message(fb: _Flat) -> int:
-        return fb.table([
-            ("h", _METADATA_V5),                               # version
-            ("B", _HEADER_SCHEMA),                             # header_type
-            ("off", schema_table),                             # header
-            ("q", 0),                                          # bodyLength
-        ])
+    schema = T.Schema((T.Field("", dtype, False),))
+    return (_schema_msg(schema, dictionaries=False)
+            + _message(_HEADER_RECORD_BATCH, record_batch, len(body)) + body + _EOS)
 
-    meta = _Flat().finish(message)
-    meta += bytes(-len(meta) % 8)
-    return (struct.pack("<Ii", 0xFFFFFFFF, len(meta)) + meta
-            + struct.pack("<Ii", 0xFFFFFFFF, 0))
+
+def read_arrow_column_stream(payload: bytes, dtype: T.DataType) -> np.ndarray:
+    """The values of a one-column string/binary Arrow IPC stream (as
+    ``arrow_column_stream`` or pyarrow writes it) as a numpy object array.
+    Compressed bodies, NULL values and other layouts raise."""
+    pos = 0
+    while pos + 8 <= len(payload):
+        marker, mlen = struct.unpack_from("<Ii", payload, pos)
+        if marker != _CONTINUATION:
+            raise ValueError("Arrow IPC message without continuation marker")
+        pos += 8
+        if mlen == 0:
+            break
+        meta = payload[pos : pos + mlen]
+        pos += mlen
+        msg = _FlatTable(meta, struct.unpack_from("<I", meta, 0)[0])
+        header_type = msg.scalar(1, "B")
+        body_len = msg.scalar(3, "q")
+        body = payload[pos : pos + body_len]
+        pos += body_len
+        if header_type == _HEADER_SCHEMA:
+            continue
+        if header_type != _HEADER_RECORD_BATCH:
+            raise NotImplementedError(f"Arrow IPC message type {header_type} in a vocabulary")
+        rb = msg.table(2)
+        if rb.ref(3) is not None:
+            raise NotImplementedError("compressed Arrow IPC vocabulary")
+        (n, nulls), = rb.structs(1, "qq")
+        if nulls:
+            raise ValueError("a dictionary vocabulary holds NULL values")
+        if n == 0:
+            return np.empty(0, dtype=object)
+        bufs = rb.structs(2, "qq")
+        offsets = np.frombuffer(body, np.int32, count=n + 1, offset=bufs[1][0])
+        data = body[bufs[2][0] : bufs[2][0] + bufs[2][1]]
+        out = np.empty(n, dtype=object)
+        text = dtype.kind != T.TypeKind.BINARY
+        out[:] = [data[a:b].decode("utf-8") if text else data[a:b]
+                  for a, b in zip(offsets[:-1].tolist(), offsets[1:].tolist())]
+        return out
+    raise ValueError("Arrow IPC stream without a record batch")
 
 
 # ---------------------------------------------------------------------------

@@ -4,9 +4,10 @@ bucketed path ``reader.py:76-103``).
 A block provider in the task resource map yields the raw v2 block payloads
 of the task's reduce partition; each decodes to host column planes
 (``format.decode_block``, column types from the plan schema) and the planes
-of consecutive blocks assemble into ``bucket_capacity`` host buffers,
-sealed into one batch (one host->device copy per column plane) once
-``batch.size`` rows are pending. Providers: ``LocalFileBlockProvider``
+of consecutive blocks assemble into ``bucket_capacity`` host buffers (a
+dictionary column's blocks merged onto one vocabulary), sealed into one
+batch (one host->device copy per column plane) once ``batch.size`` rows are
+pending. Providers: ``LocalFileBlockProvider``
 (one map output pair, with the pair-integrity check) and
 ``MultiMapBlockProvider`` (every map output of an exchange).
 """
@@ -23,7 +24,7 @@ from auron_tpu_torch.columnar.batch import Batch, DeviceBatch, bucket_capacity
 from auron_tpu_torch.device import resolve_device
 from auron_tpu_torch.exec.base import ExecOperator, ExecutionContext
 from auron_tpu_torch.exec.shuffle.format import (
-    decode_block, iter_block_payloads, read_data_tag, read_index_tagged,
+    DictCodes, decode_block, iter_block_payloads, read_data_tag, read_index_tagged,
 )
 
 
@@ -71,23 +72,28 @@ class _BucketAssembler:
 
     def emit(self) -> Batch:
         rows, cap = self.rows, bucket_capacity(self.rows)
-        values, validity = [], []
+        values, validity, dicts = [], [], []
         for f, chunks in zip(self.schema, self.chunks):
             out = np.zeros(cap, dtype=f.dtype.numpy_dtype())
             out_m = np.zeros(cap, dtype=bool)
+            vocab = None
+            if f.dtype.is_dict_encoded:  # one vocabulary for the batch
+                merged = DictCodes.concat([vals for vals, _ in chunks])
+                out[:rows], vocab = merged.codes, merged.vocab
             pos = 0
             for vals, valid in chunks:
                 k = len(vals)
-                out[pos:pos + k] = vals
+                if vocab is None:
+                    out[pos:pos + k] = vals
                 out_m[pos:pos + k] = True if valid is None else valid
                 pos += k
             values.append(torch.from_numpy(out).to(self.device))
             validity.append(torch.from_numpy(out_m).to(self.device))
+            dicts.append(vocab)
         sel = torch.arange(cap, device=self.device) < rows
         self.rows = 0
         self.chunks = [[] for _ in self.schema]
-        dicts = tuple(None for _ in self.schema)
-        return Batch(self.schema, DeviceBatch(sel, tuple(values), tuple(validity)), dicts)
+        return Batch(self.schema, DeviceBatch(sel, tuple(values), tuple(validity)), tuple(dicts))
 
 
 class LocalFileBlockProvider:

@@ -7,8 +7,9 @@ pid with dead rows given pid ``n_out`` and sorted last, per-partition
 counts by bincount (``writer.py:269-283``; ``torch.sort(stable=True)``
 stands in for ``lax.sort``, which is no Pallas kernel). The live prefix of
 the clustered rows comes to the host with one copy per column plane, is
-sliced per partition and staged in host RAM; a partition whose staged
-bytes reach ``shuffle.compression.target.buf.size`` is encoded into one v2
+sliced per partition and staged in host RAM (a dictionary column as codes
+beside its batch's vocabulary, merged onto one vocabulary per block); a
+partition whose staged bytes reach ``shuffle.compression.target.buf.size`` is encoded into one v2
 block (``format.py``). ``partitioned_stream`` keeps the JAX package's
 one-deep stage/finish loop (``writer.py:473-492``): batch i's host copies
 are taken after batch i+1's device work was enqueued.
@@ -35,7 +36,8 @@ from auron_tpu_torch import types as T
 from auron_tpu_torch.columnar.batch import Batch
 from auron_tpu_torch.exec.base import ExecOperator, ExecutionContext
 from auron_tpu_torch.exec.shuffle.format import (
-    data_trailer, encode_block, shuffle_encoding_enabled, warn_unavailable_codec, write_index,
+    DictCodes, data_trailer, encode_block, shuffle_encoding_enabled, warn_unavailable_codec,
+    write_index,
 )
 from auron_tpu_torch.exec.shuffle.partitioning import Partitioning
 from auron_tpu_torch.utils.config import SHUFFLE_COMPRESSION_TARGET_BUF_SIZE
@@ -119,8 +121,10 @@ class _ShuffleStaging:
             return
         with self.ctx.metrics.timer("compress_time"):
             cols = []
-            for ci in range(len(self.schema)):
-                vals = np.concatenate([c[ci][0] for c in chunks])
+            for ci, f in enumerate(self.schema):
+                planes = [c[ci][0] for c in chunks]
+                vals = (DictCodes.concat(planes) if f.dtype.is_dict_encoded
+                        else np.concatenate(planes))
                 masks = [c[ci][1] for c in chunks]
                 if all(m is None for m in masks):
                     valid = None
@@ -172,8 +176,10 @@ def finish_partition_batch(staged, partitioning: Partitioning, ctx: ExecutionCon
         return []
     live = order[:total]
     cols = []
-    for i in range(len(b.schema)):
+    for i, f in enumerate(b.schema):
         vals = b.col_values(i)[live].cpu().numpy()
+        if f.dtype.is_dict_encoded:
+            vals = DictCodes(vals, b.dicts[i])
         valid = b.col_validity(i)[live].cpu().numpy()
         cols.append((vals, None if valid.all() else valid))
     out, start = [], 0

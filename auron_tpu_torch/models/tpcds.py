@@ -16,7 +16,12 @@
   one nullable int64 key (the partition-id kernel K1's main user), and
   ``run_q3_class``: the flagship two-join partial aggregate, file shuffle on
   two int32 keys, final aggregate and driver-side top-k — both two-stage
-  flows through ``_shuffle_stage``, with numpy oracles.
+  flows through ``_shuffle_stage``, with numpy oracles;
+- ``run_q93_mesh`` and ``run_q3_mesh``: the same two queries as ONE plan
+  with a ``MeshExchangeExec`` stage boundary, run by the planned-exchange
+  driver (``parallel/mesh_driver.py``) over P logical partitions on one
+  device, mesh or file transport; q3 then runs the lowered SQL q3's
+  single-task collect stage (``SortExec`` fetch 100 -> ``LimitExec``).
 
 Map tasks run one after another (the JAX package runs them on threads).
 """
@@ -361,6 +366,11 @@ def run_q93_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int =
                           device, stats)
     stats["null_partition"] = 42 % n_reduce
     stats["partition_rows"] = [int(o["rows"].sum()) if o else 0 for o in outs]
+    return _q93_by_key(outs)
+
+
+def _q93_by_key(outs: list[dict]) -> dict:
+    """Per-partition q93 outputs summed by k_null, sorted by k_null."""
     got = _concat(outs, ["k_null", "rows", "matched", "s"],
                   [bool, np.int64, np.int64, np.float64])
     keys = np.unique(got["k_null"])
@@ -401,11 +411,12 @@ def ingest_q3(data: TpcdsData, n_map: int, device="cuda", fact=None) -> dict:
 
 def q3_map_tree(moy: int = 11, category_id: int = 1):
     """store_sales JOIN date_dim (d_moy = moy) JOIN item (i_category_id =
-    cat), partial sum(price) by (d_year, i_brand_id); the joins' projections
-    are the pruned columns (ss_item_sk, price, d_year), then (d_year,
-    i_brand_id, price)."""
+    cat), partial sum(price) by (d_year, i_brand_id): the tree the planner
+    builds from the pruned q3 map plan (the joins' projections keep
+    (ss_item_sk, price, d_year), then (price, d_year, i_brand_id), and the
+    plan's projection reorders them)."""
     from auron_tpu_torch.exec.agg_exec import AggExpr, HashAggExec
-    from auron_tpu_torch.exec.basic import FilterExec, ResourceScanExec
+    from auron_tpu_torch.exec.basic import FilterExec, ProjectExec, ResourceScanExec
     from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
     from auron_tpu_torch.exprs.ir import BinaryOp
 
@@ -417,8 +428,9 @@ def q3_map_tree(moy: int = 11, category_id: int = 1):
     j1 = BroadcastHashJoinExec(scan, dscan, [col(0)], [col(0)], "inner", build_side="right",
                                cached_build_id="q3_dd_build", projection=[1, 4, 6])
     j2 = BroadcastHashJoinExec(j1, iscan, [col(0)], [col(0)], "inner", build_side="right",
-                               cached_build_id="q3_it_build", projection=[2, 4, 1])
-    return HashAggExec(j2, [(col(0), "d_year"), (col(1), "i_brand_id")],
+                               cached_build_id="q3_it_build", projection=[1, 2, 4])
+    proj = ProjectExec(j2, [col(1), col(2), col(0)], ["d_year", "i_brand_id", "price"])
+    return HashAggExec(proj, [(col(0), "d_year"), (col(1), "i_brand_id")],
                        [(AggExpr("sum", col(2)), "s")], "partial")
 
 
@@ -481,3 +493,112 @@ def q3_class_oracle(data: TpcdsData, moy: int = 11, category_id: int = 1,
     s = np.bincount(inv.reshape(-1), weights=ss["ss_ext_sales_price"][hit],
                     minlength=len(uniq))
     return _top_k(uniq[:, 0], uniq[:, 1], s, limit)
+
+
+# ---------------------------------------------------------------------------
+# the same queries through the planned-exchange driver (one plan, P logical
+# partitions on one device)
+# ---------------------------------------------------------------------------
+
+
+def q93_mesh_tree(n_parts: int = 4):
+    """q93's map tree -> mesh exchange hashed on k -> q93's reduce tree: the
+    tree ``plan_from_proto(prune_columns(proto))`` builds from the q93 plan
+    with a ``mesh_exchange`` node."""
+    from auron_tpu_torch.exec.shuffle.partitioning import HashPartitioning
+    from auron_tpu_torch.parallel.mesh_driver import MeshExchangeExec
+
+    ex = MeshExchangeExec(q93_map_tree(), HashPartitioning([col(0)], n_parts), "q93_ex0")
+    return q93_reduce_tree(ex)
+
+
+def q3_mesh_tree(n_parts: int = 4, moy: int = 11, category_id: int = 1):
+    """q3's partial aggregate -> mesh exchange hashed on (d_year,
+    i_brand_id) -> final aggregate."""
+    from auron_tpu_torch.exec.shuffle.partitioning import HashPartitioning
+    from auron_tpu_torch.parallel.mesh_driver import MeshExchangeExec
+
+    ex = MeshExchangeExec(q3_map_tree(moy, category_id),
+                          HashPartitioning([col(0), col(1)], n_parts), "q3_ex0")
+    return q3_reduce_tree(ex)
+
+
+def q3_collect_tree(schema: T.Schema, limit: int = 100):
+    """The single-task collect stage of the lowered SQL q3: ORDER BY d_year,
+    s DESC, i_brand_id with fetch, then LIMIT, over the gathered output."""
+    from auron_tpu_torch.exec.basic import LimitExec, ResourceScanExec
+    from auron_tpu_torch.exec.sort_exec import SortExec
+
+    sort = SortExec(ResourceScanExec(schema, "q3_stage"), [col(0), col(2), col(1)],
+                    [SortSpec(), SortSpec(asc=False), SortSpec()], fetch=limit)
+    return LimitExec(sort, limit)
+
+
+def _run_mesh(tree, resources: dict, n_parts: int, device, conf, stats: dict | None):
+    """One driver run over fresh per-run resources; ``stats`` gets the
+    exchange's statistics, stage walls, kernel launches and peak device
+    memory."""
+    import torch
+
+    from auron_tpu_torch.ops import partition_kernels
+    from auron_tpu_torch.parallel.mesh import make_mesh
+    from auron_tpu_torch.parallel.mesh_driver import MeshQueryDriver
+
+    mesh = make_mesh(n_parts, device)
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    before = dict(partition_kernels.LAUNCHES)
+    driver = MeshQueryDriver(mesh, Configuration(conf or {}))
+    outs = driver.run(tree, resources)
+    if stats is not None:
+        (ex,) = driver.stats
+        stats.update({
+            "mode": ex.mode, "routing": ex.rows.tolist(), "slot_cap": ex.slot_cap,
+            "est_bytes_per_shard": ex.est_bytes_per_shard,
+            "coalesced_groups": ex.coalesced_groups,
+            "map_s": driver.walls[f"{ex.exchange_id}.map_s"],
+            "exchange_s": driver.walls[f"{ex.exchange_id}.exchange_s"],
+            "reduce_s": driver.walls["reduce_s"],
+            "launches": {k: v - before[k] for k, v in partition_kernels.LAUNCHES.items()},
+            "peak_bytes": (torch.cuda.max_memory_allocated()
+                           if mesh.device.type == "cuda" else None),
+        })
+    return outs
+
+
+def run_q93_mesh(data: TpcdsData | None = None, n_parts: int = 4, device="cuda",
+                 conf: dict | None = None, stats: dict | None = None,
+                 ingested: dict | None = None) -> dict:
+    """The q93-class query through the planned-exchange driver; returns
+    {k_null, rows, matched, s} sorted by k_null, as ``run_q93_class``."""
+    if ingested is None:
+        ingested = ingest_q93(data, n_parts, device)
+    resources = {"q93_fact": ingested["fact"], "q93_cust": [ingested["cust"]] * n_parts}
+    outs = _run_mesh(q93_mesh_tree(n_parts), resources, n_parts, device, conf, stats)
+    return _q93_by_key([collect(o) for o in outs])
+
+
+def run_q3_mesh(data: TpcdsData | None = None, n_parts: int = 4, device="cuda",
+                conf: dict | None = None, stats: dict | None = None, moy: int = 11,
+                category_id: int = 1, limit: int = 100, ingested: dict | None = None) -> dict:
+    """The q3-class query through the planned-exchange driver, then its
+    single-task collect stage; returns {d_year, i_brand_id, s}."""
+    from auron_tpu_torch.runtime.task import run_task
+
+    if ingested is None:
+        ingested = ingest_q3(data, n_parts, device)
+    resources = {"q3_fact": ingested["fact"], "q3_dd": [ingested["dd"]] * n_parts,
+                 "q3_item": [ingested["item"]] * n_parts}
+    tree = q3_mesh_tree(n_parts, moy, category_id)
+    outs = _run_mesh(tree, resources, n_parts, device, conf, stats)
+    gathered = [b for part in outs for b in part]
+    t0 = time.perf_counter()
+    batches, _ = run_task(q3_collect_tree(tree.schema, limit), {"q3_stage": [gathered]},
+                          conf=Configuration(conf or {}), device=device)
+    out = collect(batches)
+    _sync(device)
+    if stats is not None:
+        stats["collect_s"] = time.perf_counter() - t0
+    return {"d_year": out["d_year"].astype(np.int32),
+            "i_brand_id": out["i_brand_id"].astype(np.int32), "s": out["s"]}

@@ -1,15 +1,19 @@
-"""Multi-column Spark murmur3 over fixed-width batch columns.
+"""Multi-column Spark murmur3 over batch columns.
 
-Port of the fixed-width part of ``auron_tpu/ops/hash_dispatch.py:hash_batch``
-(per-type dispatch of ``_column_hash_fn`` and the chained loop of
-``_hash_columns_jit``): column k's hash seeds column k+1, and a NULL leaves
-the running hash unchanged — Spark's Murmur3Hash contract, so a reducer
-receives exactly the rows the host engine expects. Dictionary-encoded
-columns (their byte-matrix hashing) and xxhash64 wait for a later slice.
+Port of ``auron_tpu/ops/hash_dispatch.py:hash_batch`` (per-type dispatch of
+``_column_hash_fn`` and the chained loop of ``_hash_columns_jit``): column
+k's hash seeds column k+1, and a NULL leaves the running hash unchanged —
+Spark's Murmur3Hash contract, so a reducer receives exactly the rows the
+host engine expects. A dictionary-encoded string/binary column hashes its
+rows' bytes: the vocabulary (small) becomes a zero-padded byte matrix on
+the batch's device and each row gathers its entry by code
+(``ops/bytesmat.py`` of the JAX package). Wide decimals and xxhash64 wait
+for a later slice.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from auron_tpu_torch import types as T
@@ -54,6 +58,25 @@ def column_hash_fn(dtype: T.DataType):
     raise NotImplementedError(f"murmur3 of {dtype} columns is not in this slice of the port")
 
 
+def byte_matrix(vocab, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(uint8 ``[E, W]`` zero-padded bytes, int64 lengths) of a vocabulary:
+    str entries as UTF-8, bytes as they are; W >= 4 and a multiple of 4."""
+    raw = [v.encode("utf-8") if isinstance(v, str) else bytes(v) for v in vocab]
+    width = (max([4] + [len(r) for r in raw]) + 3) & ~3
+    mat = np.zeros((max(len(raw), 1), width), dtype=np.uint8)
+    lens = np.zeros(max(len(raw), 1), dtype=np.int64)
+    for i, r in enumerate(raw):
+        mat[i, : len(r)] = np.frombuffer(r, dtype=np.uint8)
+        lens[i] = len(r)
+    return torch.from_numpy(mat).to(device), torch.from_numpy(lens).to(device)
+
+
+def _murmur3_dict(values: torch.Tensor, vocab, seed: torch.Tensor) -> torch.Tensor:
+    mat, lens = byte_matrix(vocab, values.device)
+    codes = values.to(torch.int64).clamp(0, mat.shape[0] - 1)
+    return H.murmur3_bytes(mat[codes], lens[codes], seed)
+
+
 def hash_batch(batch: Batch, cols: list[int], algo: str = "murmur3",
                seed: int = 42) -> torch.Tensor:
     """Per-row chained Spark murmur3 of the given columns, as int32. Rows
@@ -67,6 +90,9 @@ def hash_batch(batch: Batch, cols: list[int], algo: str = "murmur3",
         dtype = batch.schema[ci].dtype
         if dtype.kind == T.TypeKind.NULL:
             continue
-        hashed = column_hash_fn(dtype)(dev.values[ci], h)
+        if dtype.is_string_like:
+            hashed = _murmur3_dict(dev.values[ci], batch.dicts[ci], h)
+        else:
+            hashed = column_hash_fn(dtype)(dev.values[ci], h)
         h = torch.where(dev.validity[ci], hashed, h)
     return H.spark_hash_i32(h)

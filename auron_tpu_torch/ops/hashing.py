@@ -60,6 +60,29 @@ def murmur3_i64(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     return murmur3_words([lo32(u), hi32(u)], seed)
 
 
+def murmur3_bytes(bytes_u8: torch.Tensor, lengths: torch.Tensor,
+                  seed: torch.Tensor) -> torch.Tensor:
+    """Spark murmur3 of per-row byte strings (a zero-padded ``[n, W]`` uint8
+    matrix, W a multiple of 4, and the lengths): aligned 4-byte words get
+    standard rounds, and each of the ``len % 4`` trailing bytes gets a full
+    round with the byte sign-extended (Spark's hashUnsafeBytes). Rounds past
+    a row's length are masked, so one fixed loop serves every row."""
+    n, width = bytes_u8.shape
+    b = bytes_u8.to(torch.int64).reshape(n, width // 4, 4)
+    words = b[:, :, 0] | (b[:, :, 1] << 8) | (b[:, :, 2] << 16) | (b[:, :, 3] << 24)
+    lengths = lengths.to(torch.int64)
+    aligned = lengths // 4
+    h1 = (seed & MASK32).expand(n).clone()
+    for i in range(width // 4):
+        h1 = torch.where(i < aligned, _mix_h1(h1, _mix_k1(words[:, i])), h1)
+    signed = bytes_u8.view(torch.int8).to(torch.int64) & MASK32
+    for t in range(3):
+        pos = aligned * 4 + t
+        byte = signed.gather(1, pos.clamp(max=width - 1)[:, None])[:, 0]
+        h1 = torch.where(pos < lengths, _mix_h1(h1, _mix_k1(byte)), h1)
+    return _fmix(h1, lengths)
+
+
 def spark_hash_i32(h_u32: torch.Tensor) -> torch.Tensor:
     """The int32 Spark returns for a uint32 hash carrier."""
     return i32_of_u32(h_u32)

@@ -3,7 +3,8 @@
 Port of ``auron_tpu/plan/planner.py`` for the node and expression variants
 the ported slices execute (memory_scan, project, filter, limit, hash_agg,
 sort, hash_join, shuffle_writer with single/hash/round-robin partitioning,
-ipc_reader; column, literal, cast, binary, not, is_null, is_not_null,
+ipc_reader, mesh_exchange (a ``MeshExchangeExec`` stage boundary that
+``parallel/mesh_driver.MeshQueryDriver`` resolves); column, literal, cast, binary, not, is_null, is_not_null,
 if_expr).
 Other variants raise ``NotImplementedError`` naming the variant.
 
@@ -166,6 +167,12 @@ def plan_from_proto(p):
         from auron_tpu_torch.exec.shuffle.reader import IpcReaderExec
 
         return IpcReaderExec(schema_from_proto(p.ipc_reader.schema), p.ipc_reader.resource_id)
+    if which == "mesh_exchange":
+        from auron_tpu_torch.parallel.mesh_driver import MeshExchangeExec
+
+        n = p.mesh_exchange
+        return MeshExchangeExec(plan_from_proto(n.child), partitioning_from_proto(n.partitioning),
+                                n.exchange_id)
     raise NotImplementedError(f"plan variant {which} is not in this slice of the port")
 
 

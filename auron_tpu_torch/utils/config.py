@@ -193,3 +193,24 @@ SHUFFLE_ENCODING_FALLBACK = str_conf(
     "auto = spill.compression.codec); unavailable codecs degrade to the "
     "light-weight encodings with one stderr warning",
 )
+EXCHANGE_MODE = str_conf(
+    "exchange.mode", "auto", "shuffle",
+    "transport for planned mesh_exchange nodes: mesh (device-resident; the "
+    "port's P partitions share one card) | file (durable shuffle files) | "
+    "auto (mesh when the hottest receiving shard's payload fits "
+    "exchange.mesh.max.bytes)",
+)
+EXCHANGE_COALESCE_ENABLE = bool_conf(
+    "exchange.coalesce.enable", True, "shuffle",
+    "AQE post-shuffle coalescing: group small reduce partitions from "
+    "map-output statistics (CoalesceShufflePartitions analog)",
+)
+EXCHANGE_COALESCE_TARGET_BYTES = int_conf(
+    "exchange.coalesce.target.bytes", 64 << 20, "shuffle",
+    "target bytes per coalesced reduce partition",
+)
+EXCHANGE_MESH_MAX_BYTES = int_conf(
+    "exchange.mesh.max.bytes", 2 << 30, "shuffle",
+    "auto-mode ceiling for device-resident exchange payload per shard; "
+    "larger exchanges take the durable file path",
+)

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # full run: q42, q93 and q3-class at SF 8
     python3 chip_smoke.py --sf 0.5   # smaller end-to-end phases
-    python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of one q42, q93, q3 run
+    python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of one run of each query
 
 Phases, in order, none of them caught — any failure exits non-zero:
 
@@ -18,9 +18,15 @@ Phases, in order, none of them caught — any failure exits non-zero:
    and the library lexsort, and the partition-id kernel ``murmur3_pmod``
    (K1) at n in {1, 1000, 2^20, 2^20 + 37, 5.76 M} rows x n_parts in
    {1, 3, 4, 200, 4096}, 85 % and 0 % NULL keys, with INT64_MIN, INT64_MAX,
-   0 and -1 among the keys; time kernels, plain versions and library calls
-   with CUDA events (bitonic at the q42 shape P = 16384, 8 planes; K1 at
-   2^20 rows, 4 partitions);
+   0 and -1 among the keys, and the routing histogram kernel
+   ``partition_histogram`` (K2) at n in {0, 1, 1000, 2^20 + 37, 5,767,168,
+   23,040,000} x n_parts in {1, 2, 4, 8, 200, 4096, one past its
+   shared-memory branch} x 0 %, 50 % and 100 % live rows, with -1, n_parts,
+   INT32_MIN and INT32_MAX among the ids (also against numpy's bincount);
+   time kernels, plain versions and library calls with CUDA events
+   (bitonic at the q42 shape P = 16384, 8 planes; K1 at 2^20 rows, 4
+   partitions; K2 at a q93 map shard, 8,388,608 rows of which 5,760,000
+   live, 4 partitions, ~89 % to one);
 4. generate the data once (all later phases share it) and drive the
    q42-class query (scan -> broadcast hash join -> partial and final hash
    aggregate -> SortExec with fetch 10) end to end on ``cuda`` through the
@@ -36,7 +42,19 @@ Phases, in order, none of them caught — any failure exits non-zero:
 6. the q3-class query (two inner broadcast hash joins -> partial aggregate
    -> file shuffle on two int32 keys -> final aggregate -> driver top-k),
    4 x 4, warm-up then timed; keys and order exact, s at rel 1e-9;
-7. print the kernel table as one JSON line, then the final status line.
+7. q93-mesh and q3-mesh: the same two queries as one plan each through the
+   planned-exchange driver (``parallel/mesh_driver.py``) on P = 4 logical
+   partitions of the card, once with ``exchange.mode`` = mesh (device-
+   resident exchange) and once = file; q3 then runs its single-task
+   collect stage (SortExec fetch 100 -> LimitExec 100). Each mode gets a
+   warm-up and a timed run; every answer equals its oracle and the two
+   transports agree; K2 must launch exactly P times in every timed run, K1
+   in q93's and K3/K4 in q3's. The operands of q3's collect sort, recorded
+   in the warm-up run, go through K3/K4 and through the plain network on
+   the card once more, bit for bit (the kernels at the main path's own
+   shapes). The routing matrix, mode, slot capacity, stage walls and peak
+   device memory are printed;
+8. print the kernel table as one JSON line, then the final status line.
 
 Every launch count is set to 0 just before the timed run of a query and
 read just after it; launches made to compare kernels are not counted.
@@ -49,7 +67,9 @@ Detailed results also go to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -157,25 +177,41 @@ def check_kernels(seed: int) -> dict:
 _I64_EDGES = (-(2**63), 2**63 - 1, 0, -1)
 
 
-def _profiled_kernel_ms(fn, name: str, iters: int):
+def _device_events(prof):
+    """(name, device ms, count) of the device-side events of a trace:
+    kernels and copies. A host op's device time is the sum of the kernels
+    it launched, so summing host ops as well would count them twice."""
+    import torch
+
+    out = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = us if us is not None else getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            out.append((e.key, us / 1e3, e.count))
+    return out
+
+
+def _profiled_kernel_ms(fn, name: str, iters: int, attempts: int = 3):
     """Mean device time of the kernels whose name holds ``name``, from
-    torch.profiler over ``iters`` calls; None when the trace has none."""
+    torch.profiler over ``iters`` calls (a trace that caught none of them
+    is taken again, up to ``attempts`` times); None when no trace had any."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for e in prof.key_averages():
-        if name in e.key:
-            us = getattr(e, "self_device_time_total", None)
-            total += us if us is not None else getattr(e, "self_cuda_time_total", 0)
-            count += e.count
-    return total / 1e3 / count if count else None
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        hits = [(ms, c) for key, ms, c in _device_events(prof) if name in key]
+        if hits:
+            return sum(ms for ms, _ in hits) / sum(c for _, c in hits)
+    return None
 
 
 def check_partition_kernel(seed: int) -> dict:
@@ -237,6 +273,105 @@ def time_partition_kernel(seed: int, n: int = 1 << 20, n_parts: int = 4) -> dict
           f"(device time {device_ms} ms a launch, torch.profiler), plain {plain_ms:.4f} ms, "
           f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), no library call", flush=True)
     return r
+
+
+_I32_EDGES = (-1, -(2**31), 2**31 - 1)
+
+
+def check_histogram_kernel(seed: int) -> dict:
+    """K2 against its plain version (bit for bit) and numpy's bincount."""
+    import numpy as np
+    import torch
+
+    from auron_tpu_torch.ops import partition_kernels as pk
+
+    rng = np.random.default_rng(seed + 4)
+    dev = torch.device("cuda")
+    shared_parts = pk.histogram_shared_parts()
+    parts = (1, 2, 4, 8, 200, 4096, shared_parts + 1)
+    err = 0
+    checks = []
+    for n in (0, 1, 1000, (1 << 20) + 37, 5_767_168, 23_040_000):
+        base = rng.integers(0, 2**31, n, dtype=np.int64)
+        shares = rng.random(n)
+        for n_parts in parts:
+            # ids from -3 to n_parts + 2: some out of range on both sides
+            pids = (base % (n_parts + 6) - 3).astype(np.int32)
+            edges = np.array(_I32_EDGES + (n_parts,), np.int32)[: min(n, 4)]
+            pids[: len(edges)] = edges
+            p = torch.from_numpy(pids).to(dev)
+            for live_share in (0.0, 0.5, 1.0):
+                sel = shares < live_share
+                s = torch.from_numpy(sel).to(dev)
+                got = pk.launch_partition_histogram(p, n_parts, s)
+                want = pk.plain_partition_histogram(p, n_parts, s)
+                torch.cuda.synchronize()
+                err = max(err, int((got.to(torch.int64) - want.to(torch.int64)).abs().max()))
+                assert torch.equal(got, want), ("partition_histogram", n, n_parts, live_share)
+                keep = sel & (pids >= 0) & (pids < n_parts)
+                host = np.bincount(pids[keep], minlength=n_parts)
+                assert np.array_equal(got.cpu().numpy(), host), ("bincount", n, n_parts)
+            no_sel = pk.launch_partition_histogram(p, n_parts)
+            assert torch.equal(no_sel, pk.plain_partition_histogram(p, n_parts)), (
+                "partition_histogram without sel", n, n_parts)
+        checks.append({"n": n, "n_parts": list(parts), "equal": True})
+        print(f"kernel check partition_histogram n={n}: bit-equal to plain and numpy for "
+              f"n_parts {parts} at 0/50/100 % live", flush=True)
+    return {"checks": checks, "max_abs_err": err, "shared_parts": shared_parts}
+
+
+def time_histogram_kernel(seed: int, n_parts: int = 4) -> dict:
+    """K2 / plain / torch.bincount at one q93 map shard: six fact batches
+    concatenated to 8,388,608 rows of capacity, 5,760,000 live, ~89 % of
+    the live ids on one partition (the NULL-key skew); the same timings on
+    uniform ids beside it."""
+    import numpy as np
+    import torch
+
+    from auron_tpu_torch.columnar.batch import bucket_capacity
+    from auron_tpu_torch.ops import partition_kernels as pk
+
+    rng = np.random.default_rng(seed + 5)
+    n = bucket_capacity(5 * (1 << 20) + (1 << 19))
+    live = 5_760_000
+    sel = torch.zeros(n, dtype=torch.bool, device="cuda")
+    sel[:live] = True
+    saved = dict(pk.LAUNCHES)
+    res = {}
+    for shape in ("skewed", "uniform"):
+        ids = rng.integers(0, n_parts, n)
+        if shape == "skewed":
+            ids = np.where(rng.random(n) < 0.89, 42 % n_parts, ids)
+        p = torch.from_numpy(ids.astype(np.int32)).cuda()
+        blended = torch.where(sel, p.to(torch.int64), n_parts)
+        r = {
+            "ms": _event_ms(lambda: pk.launch_partition_histogram(p, n_parts, sel), 200,
+                            warmup=5),
+            "plain_ms": _event_ms(lambda: pk.plain_partition_histogram(p, n_parts, sel), 50),
+            # one library call on the blended ids (the blend itself not timed)
+            "library_ms": _event_ms(lambda: torch.bincount(blended, minlength=n_parts + 1),
+                                    50),
+            "device_ms": _profiled_kernel_ms(
+                lambda: pk.launch_partition_histogram(p, n_parts, sel), "histogram", 50),
+        }
+        res[shape] = r
+    pk.LAUNCHES.update(saved)
+    # every sel byte read once, the id of each live row read once (a dead
+    # row's id is not needed), the counts written once
+    nbytes = n * 1 + int(sel.sum()) * 4 + n_parts * 4
+    ops = n * 4  # range check, sel test, match, add: a few integer ops a row
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / NON_TENSOR_OPS_PER_S * 1e3
+    out = {**res["skewed"], "uniform": res["uniform"], "n": n, "live": live,
+           "n_parts": n_parts, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    for shape, r in res.items():
+        print(f"partition_histogram n={n} live={live} n_parts={n_parts} {shape}: kernel "
+              f"{r['ms']:.4f} ms a call (device time {r['device_ms']} ms a launch, "
+              f"torch.profiler), plain {r['plain_ms']:.4f} ms, torch.bincount "
+              f"{r['library_ms']:.4f} ms, bound {out['bound_ms']:.6f} ms ({out['bound_by']})",
+              flush=True)
+    return out
 
 
 def _reset_launches() -> None:
@@ -352,9 +487,9 @@ def _print_timers(query: str, stats: dict) -> None:
 
 
 def profile_run(query: str, fn) -> dict:
-    """One more run under torch.profiler: device busy time (sum of kernel
-    self times, one stream) against the wall, and the top kernels. Its
-    launches are not counted in the kernel table."""
+    """One more run under torch.profiler: device busy time (sum of the
+    device-side events, one stream) against the wall, and the top kernels.
+    Its launches are not counted in the kernel table."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -369,14 +504,7 @@ def profile_run(query: str, fn) -> dict:
 
     for counts in (bitonic.LAUNCHES, partition_kernels.LAUNCHES):
         counts.update({k: saved[k] for k in counts})
-    kernels = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            kernels.append((e.key, us / 1e3, e.count))
-    kernels.sort(key=lambda k: -k[1])
+    kernels = sorted(_device_events(prof), key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
     out = {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
            "device_idle_share": max(0.0, 1 - busy_ms / (wall * 1e3)),
@@ -390,7 +518,6 @@ def profile_run(query: str, fn) -> dict:
 
 def run_q93(data, fact) -> dict:
     """q93-class, 4 map x 4 reduce: warm-up, then the timed run."""
-    import numpy as np
     import torch
 
     from auron_tpu_torch.models import tpcds
@@ -406,11 +533,7 @@ def run_q93(data, fact) -> dict:
     wall = time.perf_counter() - t0
     launches = _launches()
     for out in (warm, got):
-        assert out["k_null"].tolist() == oracle["k_null"].tolist(), (out, oracle)
-        assert np.array_equal(out["rows"], oracle["rows"]), (out["rows"], oracle["rows"])
-        assert np.array_equal(out["matched"], oracle["matched"]), (out, oracle)
-        assert np.isfinite(out["s"]).all()
-        np.testing.assert_allclose(out["s"], oracle["s"], rtol=1e-9, atol=0)
+        _assert_q93(out, oracle)
     assert launches["murmur3_pmod"] > 0, f"q93 main path launched K1 no time: {launches}"
     null_rows = stats["partition_rows"][stats["null_partition"]]
     rows = data.fact_rows()
@@ -427,7 +550,6 @@ def run_q93(data, fact) -> dict:
 
 def run_q3(data, fact) -> dict:
     """q3-class, 4 map x 4 reduce: warm-up, then the timed run."""
-    import numpy as np
     import torch
 
     from auron_tpu_torch.models import tpcds
@@ -443,10 +565,7 @@ def run_q3(data, fact) -> dict:
     wall = time.perf_counter() - t0
     launches = _launches()
     for out in (warm, got):
-        assert len(out["s"]) == len(oracle["s"]) > 0 and np.isfinite(out["s"]).all()
-        for k in ("d_year", "i_brand_id"):
-            assert np.array_equal(out[k], oracle[k]), (k, out[k][:10], oracle[k][:10])
-        np.testing.assert_allclose(out["s"], oracle["s"], rtol=1e-9, atol=0)
+        _assert_q3(out, oracle)
     rows = data.fact_rows()
     print(f"q3-class: {rows} fact rows, wall {wall:.4f} s (map stage {stats['map_s']:.4f} s, "
           f"reduce stage {stats['reduce_s']:.4f} s), shuffle bytes written "
@@ -456,6 +575,153 @@ def run_q3(data, fact) -> dict:
     _print_timers("q3", stats)
     return {"fact_rows": rows, "wall_s": wall, "rows_per_s": rows / wall, **stats,
             "launches": launches, "top": {k: v[:10].tolist() for k, v in got.items()}}
+
+
+def _assert_q93(out: dict, want: dict) -> None:
+    assert out["k_null"].tolist() == want["k_null"].tolist(), (out, want)
+    for k in ("rows", "matched"):
+        assert _np_equal(out[k], want[k]), (k, out, want)
+    assert all(math.isfinite(x) for x in out["s"])
+    _assert_close(out["s"], want["s"])
+
+
+def _assert_q3(out: dict, want: dict) -> None:
+    assert len(out["s"]) == len(want["s"]) > 0 and all(math.isfinite(x) for x in out["s"])
+    for k in ("d_year", "i_brand_id"):
+        assert _np_equal(out[k], want[k]), (k, out[k][:10], want[k][:10])
+    _assert_close(out["s"], want["s"])
+
+
+def _np_equal(a, b) -> bool:
+    import numpy as np
+
+    return bool(np.array_equal(a, b))
+
+
+def _assert_close(got, want) -> None:
+    import numpy as np
+
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=0)
+
+
+@contextlib.contextmanager
+def _recording_sorts(record: list):
+    """Record a copy of the operands of every ORDER BY sort
+    (``SortExec`` calls ``bitonic.ordered_sort``) made inside the block."""
+    from auron_tpu_torch.ops import bitonic
+
+    real = bitonic.ordered_sort
+
+    def recording(operands, word_narrow=None, impl=None, conf=None):
+        record.append((tuple(o.clone() for o in operands), word_narrow))
+        return real(operands, word_narrow=word_narrow, impl=impl, conf=conf)
+
+    bitonic.ordered_sort = recording
+    try:
+        yield
+    finally:
+        bitonic.ordered_sort = real
+
+
+def check_sorts(label: str, record: list) -> list:
+    """K3/K4 at a main path's own sort shapes: each recorded operand tuple
+    sorted by the CUDA kernels and by the plain network on the card, bit
+    for bit, and against the library lexsort. Its launches are not counted."""
+    import torch
+
+    from auron_tpu_torch.ops import bitonic
+
+    saved = dict(bitonic.LAUNCHES)
+    out = []
+    for ops, word_narrow in record:
+        n_words = len(ops) - 2
+        narrow = (True, *(word_narrow or (False,) * n_words), False)
+        before = dict(bitonic.LAUNCHES)
+        got = bitonic.bitonic_sort(ops, impl="pallas", narrow=narrow)
+        launched = {k: bitonic.LAUNCHES[k] - before[k] for k in before}
+        ref = bitonic.bitonic_sort(ops, impl="jnp", narrow=narrow)
+        want = bitonic.lex_sorted(ops)
+        err = 0
+        for g, r, w in zip(got, ref, want):
+            assert g.dtype == r.dtype and torch.equal(g, r) and torch.equal(g, w), (
+                "collect sort", label)
+            err = max(err, int((g.to(torch.int64) - r.to(torch.int64)).abs().max()))
+        kinds = tuple(bitonic._default_kind(o) for o in ops)
+        cap = ops[0].shape[0]
+        shape = {"cap": cap, "P": max(bitonic._next_pow2(cap), 8 * bitonic._LANES),
+                 "NP": len(bitonic._split_planes32(ops, narrow, kinds)),
+                 "launches": launched, "max_abs_err": err}
+        assert launched["bitonic_sort"] > 0, (label, shape)
+        out.append(shape)
+        print(f"kernel check {label} collect sort: cap {cap}, P {shape['P']}, NP "
+              f"{shape['NP']}, kernel launches {launched}: bit-equal to plain and lexsort",
+              flush=True)
+    bitonic.LAUNCHES.update(saved)
+    return out
+
+
+def run_mesh(query: str, data, fact, n_parts: int = 4) -> dict:
+    """q93-mesh or q3-mesh through the planned-exchange driver, once per
+    transport (mesh, then file): warm-up, then the timed run."""
+    import torch
+
+    from auron_tpu_torch.models import tpcds
+
+    if query == "q93":
+        ingested = tpcds.ingest_q93(data, n_parts, device="cuda", fact=fact)
+        run, oracle, check = tpcds.run_q93_mesh, tpcds.q93_class_oracle(data), _assert_q93
+    else:
+        ingested = tpcds.ingest_q3(data, n_parts, device="cuda", fact=fact)
+        run, oracle, check = tpcds.run_q3_mesh, tpcds.q3_class_oracle(data), _assert_q3
+    out = {}
+    answers = {}
+    for mode in ("mesh", "file"):
+        conf = {"exchange.mode": mode}
+        sorts: list = []
+        with _recording_sorts(sorts):
+            warm = run(n_parts=n_parts, device="cuda", conf=conf, ingested=ingested)
+        sort_checks = check_sorts(f"{query}-mesh ({mode})", sorts)
+        _reset_launches()
+        torch.cuda.synchronize()
+        stats: dict = {}
+        t0 = time.perf_counter()
+        got = run(n_parts=n_parts, device="cuda", conf=conf, stats=stats, ingested=ingested)
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        for ans in (warm, got):
+            check(ans, oracle)
+        assert stats["mode"] == mode, stats
+        assert launches["partition_histogram"] == n_parts, (
+            f"{query}-mesh ({mode}) launched K2 {launches['partition_histogram']} times, "
+            f"not once per source shard ({n_parts}): {launches}")
+        if query == "q93":
+            assert launches["murmur3_pmod"] > 0, f"q93-mesh ({mode}) launched K1 no time"
+        answers[mode] = got
+        rows = data.fact_rows()
+        print(f"{query}-mesh exchange.mode={mode}: {rows} fact rows, P={n_parts}, wall "
+              f"{wall:.4f} s (map {stats['map_s']:.4f} s, exchange {stats['exchange_s']:.4f} s, "
+              f"reduce {stats['reduce_s']:.4f} s"
+              + (f", collect {stats['collect_s']:.4f} s" if "collect_s" in stats else "")
+              + f"), slot_cap {stats['slot_cap']}, est bytes per shard "
+              f"{stats['est_bytes_per_shard']}, coalesced {stats['coalesced_groups']}, peak "
+              f"device memory {stats['peak_bytes'] / 2**30:.3f} GiB, launches {launches}",
+              flush=True)
+        print(f"  {query}-mesh routing matrix [src][dst] (live rows): {stats['routing']}",
+              flush=True)
+        if query == "q3":
+            for name in ("bitonic_sort", "bitonic_merge"):
+                assert launches[name] > 0, f"q3-mesh ({mode}) launched {name} no time"
+            assert sort_checks, f"q3-mesh ({mode}): no collect sort was recorded"
+        out[mode] = {"wall_s": wall, "rows_per_s": rows / wall, **stats, "launches": launches,
+                     "sort_checks": sort_checks}
+    # the two transports agree with each other
+    a, b = answers["mesh"], answers["file"]
+    for k in a:
+        if k == "s":
+            _assert_close(a[k], b[k])
+        else:
+            assert _np_equal(a[k], b[k]), (query, k)
+    return out
 
 
 def profile_q42(ingested: dict) -> dict:
@@ -512,8 +778,10 @@ def main(argv=None) -> int:
     # 3. kernels against their plain versions
     checks = check_kernels(args.seed)
     checks["murmur3_pmod"] = check_partition_kernel(args.seed)
+    checks["partition_histogram"] = check_histogram_kernel(args.seed)
     timing = time_kernels(args.seed)
     timing["murmur3_pmod"] = time_partition_kernel(args.seed)
+    timing["partition_histogram"] = time_histogram_kernel(args.seed)
 
     # 4. the data, once; q42-class end to end
     from auron_tpu_torch.models import tpcds
@@ -540,6 +808,24 @@ def main(argv=None) -> int:
         q3["profile"] = profile_run("q3", lambda: tpcds.run_q3_class(
             device="cuda", ingested=tpcds.ingest_q3(data, 4, device="cuda", fact=fact)))
 
+    # 7. the same queries through the planned-exchange driver, P = 4
+    q93_mesh = run_mesh("q93", data, fact)
+    q3_mesh = run_mesh("q3", data, fact)
+    if args.profile:
+        for mode in ("mesh", "file"):
+            conf = {"exchange.mode": mode}
+            q93_mesh[mode]["profile"] = profile_run(f"q93-mesh ({mode})", lambda: (
+                tpcds.run_q93_mesh(device="cuda", conf=conf, ingested=tpcds.ingest_q93(
+                    data, 4, device="cuda", fact=fact))))
+            q3_mesh[mode]["profile"] = profile_run(f"q3-mesh ({mode})", lambda: (
+                tpcds.run_q3_mesh(device="cuda", conf=conf, ingested=tpcds.ingest_q3(
+                    data, 4, device="cuda", fact=fact))))
+
+    # the collect sorts of q3-mesh went through K3/K4 at their own shapes
+    checks["q3_mesh_collect_sorts"] = {m: q3_mesh[m]["sort_checks"] for m in q3_mesh}
+    sort_err = max(s["max_abs_err"] for m in q3_mesh for s in q3_mesh[m]["sort_checks"])
+    for name in ("bitonic_sort", "bitonic_merge"):
+        checks["max_abs_err"][name] = max(checks["max_abs_err"][name], sort_err)
     kernels = []
     for name, source, replaces, launches in (
         ("bitonic_sort", "auron_tpu_torch/csrc/bitonic.cu", "auron_tpu/ops/bitonic.py:145",
@@ -548,9 +834,12 @@ def main(argv=None) -> int:
          q42["launches"]["bitonic_merge"]),
         ("murmur3_pmod", "auron_tpu_torch/csrc/partition.cu",
          "auron_tpu/ops/pallas_kernels.py:26", q93["launches"]["murmur3_pmod"]),
+        ("partition_histogram", "auron_tpu_torch/csrc/partition.cu",
+         "auron_tpu/ops/pallas_kernels.py:78",
+         q93_mesh["mesh"]["launches"]["partition_histogram"]),
     ):
         t = timing[name]
-        err = (checks["murmur3_pmod"]["max_abs_err"] if name == "murmur3_pmod"
+        err = (checks[name]["max_abs_err"] if name in ("murmur3_pmod", "partition_histogram")
                else checks["max_abs_err"][name])
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -561,7 +850,8 @@ def main(argv=None) -> int:
     os.makedirs(os.path.join(REPO_DIR, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO_DIR, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"device": kind, "nvidia_smi": smi, "build_s": build_s, "checks": checks,
-                   "timing": timing, "q42": q42, "q93": q93, "q3": q3, "kernels": kernels},
+                   "timing": timing, "q42": q42, "q93": q93, "q3": q3, "q93_mesh": q93_mesh,
+                   "q3_mesh": q3_mesh, "kernels": kernels},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

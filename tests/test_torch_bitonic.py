@@ -17,21 +17,9 @@ from auron_tpu.utils.config import DEVICE_SORT_IMPL as J_IMPL
 from auron_tpu_torch.ops import bitonic as pb
 from auron_tpu_torch.ops import uwords as U
 from auron_tpu_torch.utils.config import Configuration as PConf
+from torch_carry import HostRef
 
 _pallas_ok: list = []
-
-
-class _Ref:
-    """Host stand-in for a Pallas VMEM ref (``ref[:]`` read and write)."""
-
-    def __init__(self, v=None):
-        self.v = v
-
-    def __getitem__(self, _):
-        return self.v
-
-    def __setitem__(self, _, v):
-        self.v = v
 
 
 def _pallas_interpret_works() -> bool:
@@ -49,16 +37,16 @@ def ref_kernel_sort(x: jnp.ndarray, P: int) -> jnp.ndarray:
     pallas_call in interpret mode, or the kernel body on host refs."""
     if _pallas_interpret_works():
         return jb._run_pallas(x, P, True)
-    out = _Ref()
-    jb._bitonic_kernel(_Ref(x), out, P=P)
+    out = HostRef()
+    jb._bitonic_kernel(HostRef(x), out, P=P)
     return out.v
 
 
 def ref_kernel_merge(x: jnp.ndarray, P: int) -> jnp.ndarray:
     if _pallas_interpret_works():
         return jb._run_pallas_merge(x, P, True)
-    out = _Ref()
-    jb._merge_kernel(_Ref(x), out, P=P)
+    out = HostRef()
+    jb._merge_kernel(HostRef(x), out, P=P)
     return out.v
 
 

@@ -114,3 +114,50 @@ def test_two_stage_queries_on_card_go_through_k1():
     o3 = tpcds.q3_class_oracle(data)
     np.testing.assert_array_equal(q3["i_brand_id"], o3["i_brand_id"])
     np.testing.assert_allclose(q3["s"], o3["s"], rtol=1e-9, atol=0)
+
+
+@pytest.mark.cuda
+def test_histogram_kernel_matches_plain_on_card():
+    """K2 bit-equal to its plain version and numpy: out-of-range ids (-1,
+    n_parts, INT32_MIN/MAX), dead rows, no sel, n = 0, one partition, and
+    a count past the shared-memory branch."""
+    _need_card()
+    rng = np.random.default_rng(4)
+    shared = pk.histogram_shared_parts()
+    for n in (0, 1, 257, 100_003):
+        for n_parts in (1, 2, 7, 4096, shared + 1):
+            pids = rng.integers(-3, n_parts + 3, n).astype(np.int32)
+            edges = np.array([-1, -(2**31), 2**31 - 1, n_parts], np.int32)[: min(n, 4)]
+            pids[: len(edges)] = edges
+            live = rng.random(n) < 0.6
+            p, s = torch.from_numpy(pids).cuda(), torch.from_numpy(live).cuda()
+            got = pk.partition_histogram(p, n_parts, s)
+            assert torch.equal(got, pk.plain_partition_histogram(p, n_parts, s)), (n, n_parts)
+            keep = live & (pids >= 0) & (pids < n_parts)
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          np.bincount(pids[keep], minlength=n_parts))
+            assert torch.equal(pk.partition_histogram(p, n_parts),
+                               pk.plain_partition_histogram(p, n_parts))
+
+
+@pytest.mark.cuda
+def test_mesh_driver_queries_on_card_go_through_k2():
+    """q93- and q3-class through the planned-exchange driver on 4 logical
+    partitions, both transports: equal to the numpy oracles, and K2
+    launched once per source shard."""
+    _need_card()
+    from auron_tpu_torch.models import tpcds
+
+    data = tpcds.generate(0.05, 42)
+    w93, w3 = tpcds.q93_class_oracle(data), tpcds.q3_class_oracle(data)
+    for mode in ("mesh", "file"):
+        before = pk.LAUNCHES["partition_histogram"]
+        got = tpcds.run_q93_mesh(data, conf={"exchange.mode": mode})
+        assert pk.LAUNCHES["partition_histogram"] - before == 4
+        np.testing.assert_array_equal(got["rows"], w93["rows"])
+        np.testing.assert_array_equal(got["matched"], w93["matched"])
+        np.testing.assert_allclose(got["s"], w93["s"], rtol=1e-9, atol=0)
+        q3 = tpcds.run_q3_mesh(data, conf={"exchange.mode": mode})
+        np.testing.assert_array_equal(q3["d_year"], w3["d_year"])
+        np.testing.assert_array_equal(q3["i_brand_id"], w3["i_brand_id"])
+        np.testing.assert_allclose(q3["s"], w3["s"], rtol=1e-9, atol=0)

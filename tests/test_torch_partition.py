@@ -24,23 +24,10 @@ from auron_tpu_torch.exec.shuffle.partitioning import SinglePartitioning as PSin
 from auron_tpu_torch.exprs.ir import col as pcol
 from auron_tpu_torch.ops import hash_dispatch as phd
 from auron_tpu_torch.ops import partition_kernels as ppk
-from torch_carry import carry, jax_batch
+from torch_carry import HostRef, carry, jax_batch
 
 N_PARTS = (1, 3, 4, 200, 4096)
 EDGES = np.array([-(2**63), 2**63 - 1, 0, -1], dtype=np.int64)
-
-
-class _Ref:
-    """Host stand-in for a Pallas VMEM ref (``ref[:]`` read and write)."""
-
-    def __init__(self, v=None):
-        self.v = v
-
-    def __getitem__(self, _):
-        return self.v
-
-    def __setitem__(self, _, v):
-        self.v = v
 
 
 def _keys(rng, n, null_share):
@@ -57,9 +44,9 @@ def _ref_kernel(keys: np.ndarray, n_parts: int) -> np.ndarray:
     except NotImplementedError:
         pass
     u = keys.view(np.uint64)
-    out = _Ref()
-    jpk._murmur3_pmod_kernel(_Ref(jnp.asarray((u & 0xFFFFFFFF).astype(np.uint32))),
-                             _Ref(jnp.asarray((u >> 32).astype(np.uint32))), out,
+    out = HostRef()
+    jpk._murmur3_pmod_kernel(HostRef(jnp.asarray((u & 0xFFFFFFFF).astype(np.uint32))),
+                             HostRef(jnp.asarray((u >> 32).astype(np.uint32))), out,
                              seed=42, n_parts=n_parts)
     return np.asarray(out.v)
 
@@ -175,3 +162,26 @@ def test_round_robin_and_single_match_reference(task_partition):
     got = PRR(5).partition_ids(carry(jb), ExecutionContext(partition_id=task_partition))
     np.testing.assert_array_equal(got.numpy(), want)
     assert not PSingle().partition_ids(carry(jb), None).any()
+
+
+@pytest.mark.parametrize("n_parts", (1, 4, 7))
+@pytest.mark.parametrize("order", ["string_first", "string_second"])
+def test_dictionary_string_keys_match_reference(n_parts, order):
+    """Spark's murmur3 over UTF-8 bytes (aligned words, then each trailing
+    byte sign-extended): empty, 1-3 byte tails, multi-byte characters,
+    bytes >= 0x80 and NULLs, alone and chained with an int key."""
+    rng = np.random.default_rng(n_parts * 3 + len(order))
+    pool = np.array(["", "a", "ab", "abc", "abcd", "héllo wörld", "key_17", "ÿ\u0080",
+                     "日本語テキスト", "x" * 37], dtype=object)
+    n = 800
+    s = pool[rng.integers(0, len(pool), n)]
+    g = rng.integers(-5, 5, n)
+    cols = {"s": s, "g": g} if order == "string_first" else {"g": g, "s": s}
+    jb = jax_batch(cols, {"s": rng.random(n) > 0.2})
+    for keys in ([0], [0, 1]):
+        want = np.asarray(jhd.hash_batch(jb, keys, "murmur3", 42))
+        np.testing.assert_array_equal(phd.hash_batch(carry(jb), keys, "murmur3", 42).numpy(),
+                                      want)
+        want_p = np.asarray(JHash([jcol(k) for k in keys], n_parts).partition_ids(jb, None))
+        got_p = PHash([pcol(k) for k in keys], n_parts).partition_ids(carry(jb), None)
+        np.testing.assert_array_equal(got_p.numpy(), want_p)

@@ -319,3 +319,73 @@ def test_reader_honours_batch_size_and_places_on_device(tmp_path):
     assert sum(b.num_rows() for b in out) == 4500
     assert all(b.torch_device == torch.device("cpu") for b in out)
     assert ctx.metrics.values["shuffle_bytes_read"] > 0
+
+
+# ---------------------------------------------------------------------------
+# dictionary-encoded string columns (ENC_DICT)
+# ---------------------------------------------------------------------------
+
+
+def _string_inputs(seed=6, n_batches=3, n=700):
+    """Batches whose string column has a different vocabulary each."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for b in range(n_batches):
+        pool = np.array([f"key_{i}" for i in range(b * 5, b * 5 + 40)] + ["", "héllo"],
+                        dtype=object)
+        out.append(jax_batch(
+            {"s": pool[rng.integers(0, len(pool), n)], "v": rng.integers(0, 9, n)},
+            {"s": rng.random(n) > 0.1}))
+    return out
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_dictionary_string_files_read_across_packages(writer, tmp_path):
+    """Hash-partitioned on a dictionary string column: either package reads
+    the other's ENC_DICT blocks (the port writes and reads the vocabulary's
+    Arrow IPC stream without pyarrow) and gets its own rows, in order."""
+    batches = _string_inputs()
+    schema = batches[0].schema
+    n_out = 3
+    mine = _write(writer, batches, tmp_path, 1, n_out, writer)
+    other = "port" if writer == "jax" else "jax"
+    theirs = _write(other, batches, tmp_path, 1, n_out, other)
+    total = 0
+    for p in range(n_out):
+        want = _read(writer, mine, schema, p)
+        assert _read(other, mine, schema, p) == want
+        assert _read(writer, theirs, schema, p) == want
+        total += len(want)
+    assert total == sum(len(rows([b])) for b in batches)
+    (d, i), = mine
+    enc = [struct.unpack_from("<B", pl, 16 + struct.unpack_from("<I", pl, 12)[0])[0]
+           for pl in LocalFileBlockProvider(d, i).iter_payloads(0)]
+    assert enc and set(enc) == {pf.ENC_DICT}
+
+
+def test_vocabulary_stream_round_trips_through_pyarrow():
+    import io
+
+    for dtype, vocab in ((T.STRING, ["", "a", "héllo", "x" * 41]),
+                         (T.BINARY, [b"", b"\x00\xff", b"abc"]), (T.STRING, [])):
+        arr = np.empty(len(vocab), dtype=object)
+        arr[:] = vocab
+        stream = pf.arrow_column_stream(arr, dtype)
+        with pa.ipc.open_stream(stream) as r:
+            assert r.read_all().column(0).to_pylist() == vocab
+        assert pf.read_arrow_column_stream(stream, dtype).tolist() == vocab
+        rb = pa.RecordBatch.from_arrays(
+            [pa.array(vocab, type=pa.binary() if dtype == T.BINARY else pa.string())], ["d"])
+        sink = io.BytesIO()
+        with pa.ipc.new_stream(sink, rb.schema) as w:
+            w.write_batch(rb)
+        assert pf.read_arrow_column_stream(sink.getvalue(), dtype).tolist() == vocab
+
+
+def test_dict_codes_merge_onto_one_vocabulary():
+    a = pf.DictCodes(np.array([0, 1, 1], np.int32), np.array(["x", "y"], dtype=object))
+    b = pf.DictCodes(np.array([1, 0], np.int32), np.array(["y", "z"], dtype=object))
+    m = pf.DictCodes.concat([a, b[0:2]])
+    assert m.vocab.tolist() == ["x", "y", "z"]
+    assert [m.vocab[c] for c in m.codes] == ["x", "y", "y", "z", "y"]
+    assert len(m) == 5 and m.nbytes == 20

@@ -16,6 +16,20 @@ from auron_tpu_torch import types as PT
 from auron_tpu_torch.columnar.batch import Batch as PBatch, DeviceBatch
 
 
+class HostRef:
+    """Host stand-in for a Pallas VMEM ref (``ref[:]`` read and write), to
+    run a Pallas kernel body on host arrays."""
+
+    def __init__(self, v=None):
+        self.v = v
+
+    def __getitem__(self, _):
+        return self.v
+
+    def __setitem__(self, _, v):
+        self.v = v
+
+
 def port_dtype(t: JT.DataType) -> PT.DataType:
     return PT.DataType(PT.TypeKind(t.kind.value), t.precision, t.scale)
 
