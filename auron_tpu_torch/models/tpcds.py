@@ -189,8 +189,9 @@ def collect(batches: list[Batch]) -> dict[str, np.ndarray]:
 
 
 def run_q42_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
-                  ingested: dict | None = None) -> dict[str, np.ndarray]:
-    """The q42-class query through the task runtime; returns {brand, rev}."""
+                  ingested: dict | None = None, stats: dict | None = None) -> dict[str, np.ndarray]:
+    """The q42-class query through the task runtime; returns {brand, rev}.
+    ``stats`` gets the metric tree's host timers (``add_timers``)."""
     from auron_tpu_torch.runtime.task import TaskRuntime
 
     if ingested is None:
@@ -200,7 +201,9 @@ def run_q42_class(data: TpcdsData | None = None, device="cuda", conf: dict | Non
     try:
         out = collect(list(rt))
     finally:
-        rt.finalize()
+        snapshot = rt.finalize()
+    if stats is not None:
+        add_timers(stats, snapshot)
     return {"brand": out["brand"], "rev": out["rev"]}
 
 

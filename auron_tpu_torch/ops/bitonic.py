@@ -9,11 +9,15 @@ package, a stable multi-pass ``torch.sort`` here).
 
 Two implementations of the same network:
 
-- the CUDA kernels in ``csrc/bitonic.cu`` (route: nvcc + ctypes): a tile
-  sort in shared memory (``_launch_block_sort``, replacing the Pallas
-  ``_bitonic_kernel``) and one merge stage (``_launch_merge_stage``,
-  replacing the Pallas ``_merge_kernel``). A sort of P > T elements is the
-  tile sort followed by merge stages k = 2T .. P;
+- the CUDA kernels in ``csrc/bitonic.cu`` (route: nvcc + ctypes), issued
+  by ``kernel_sort_`` / ``kernel_merge_`` as the launches that
+  ``sort_plan(NP, P)`` lists, in one ctypes call: a sort that fits one
+  thread-block cluster (up to 16 x 2048 elements at 2..16 planes) is one
+  ``bitonic_cluster`` launch (K3, replacing the Pallas ``_bitonic_kernel``);
+  a larger one adds, per merge stage, ``bitonic_strides`` launches of up to
+  three strides and a ``bitonic_cluster`` tail (K4, replacing the Pallas
+  ``_merge_kernel``). Other plane counts take the general shared-memory
+  kernels (``bitonic_local`` / ``bitonic_global``);
 - the plain torch network (``_network`` / ``_merge_network``): two rolls +
   a select per substage, as in the JAX package. The CPU tests run it, and
   ``chip_smoke.py`` holds the kernels against it on the card.
@@ -36,7 +40,9 @@ only the plain network's.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
+from dataclasses import dataclass
 
 import torch
 
@@ -45,10 +51,21 @@ from auron_tpu_torch.utils.config import DEVICE_SORT_IMPL, active_conf
 
 _LANES = 128
 _MIN_P = 2048  # auto: below this the network is not worth its setup
+_MAX_P = 1 << 30  # the kernels index a plane with 32 bits
+# register kernels (csrc/bitonic.cu bitonic_cluster / bitonic_strides)
+_MAX_NP = 16  # the largest plane count they are compiled for
+_TILE = 2048  # elements a CTA of bitonic_cluster holds at most ...
+_MIN_TILE = 512  # ... and at least, where P allows ...
+_PER_THREAD = 4  # ... 4 of them a thread (csrc/bitonic.cu kPerThread)
+_MAX_CLUSTER = 16  # CTAs a cluster (Hopper's non-portable limit)
+_MAX_STRIDES = 3  # strides a bitonic_strides launch runs (8 elements a thread) ...
+_MAX_STRIDES_NP = 10  # ... up to this plane count, two above it (register spills)
+# general kernels (bitonic_local / bitonic_global), for any plane count
 _SMEM_TILE_BYTES = 96 * 1024  # shared memory per CTA the tile may use
 _MAX_TILE = 2048  # 1024 threads x one pair each per substage
 
-#: launch counts, one per kernel-wrapper call that launched its kernel
+#: kernel launches, by the kernel they stand for: K3 (the sort launch of a
+#: plan) and K4 (its merge launches)
 LAUNCHES = {"bitonic_sort": 0, "bitonic_merge": 0}
 _launch_lock = threading.Lock()  # task pumps run on their own threads
 
@@ -214,7 +231,157 @@ def _merge_network(x: torch.Tensor, P: int) -> torch.Tensor:
 # CUDA kernels (csrc/bitonic.cu)
 # ---------------------------------------------------------------------------
 
+#: launch kinds of a plan, as csrc/bitonic.cu's auron_bitonic_run numbers them
+_KINDS = {"cluster": 0, "strides": 1, "local": 2, "global": 3}
+
+
+@dataclass(frozen=True)
+class Launch:
+    """One kernel launch of a plan: stages k_lo..k_hi (powers of two), each
+    from stride min(k/2, j_hi) down to j_lo. ``counts_as`` is the
+    ``LAUNCHES`` key it adds one to."""
+
+    kernel: str  # "cluster" | "strides" | "local" | "global"
+    counts_as: str  # "bitonic_sort" | "bitonic_merge"
+    k_lo: int
+    k_hi: int
+    j_hi: int
+    j_lo: int
+
+    def substages(self) -> list[tuple[int, int]]:
+        out = []
+        k = self.k_lo
+        while k <= self.k_hi:
+            j = min(k // 2, self.j_hi)
+            while j >= self.j_lo:
+                out.append((k, j))
+                j //= 2
+            k *= 2
+        return out
+
+
+@dataclass(frozen=True)
+class SortPlan:
+    """The launches that sort (or merge) NP planes of P elements on the
+    card: ``tile`` elements a CTA, ``per_thread`` of them a thread (0 on the
+    general kernels), ``cluster`` CTAs a cluster (1 on the general kernels)."""
+
+    NP: int
+    P: int
+    tile: int
+    per_thread: int
+    cluster: int
+    launches: tuple[Launch, ...]
+
+    @property
+    def registers(self) -> bool:
+        """True on the register/cluster kernels, False on the general ones."""
+        return self.per_thread > 0
+
+    def substages(self) -> list[tuple[int, int]]:
+        return [kj for launch in self.launches for kj in launch.substages()]
+
+    def launch_counts(self) -> dict[str, int]:
+        counts = dict.fromkeys(LAUNCHES, 0)
+        for launch in self.launches:
+            counts[launch.counts_as] += 1
+        return counts
+
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory a CTA of the plan's tile kernels takes."""
+        return self.NP * self.tile * 4
+
+
+def tile_for(n_planes: int, P: int) -> int:
+    """Elements per CTA tile of the general kernels: the largest power of
+    two <= _MAX_TILE whose planes fit the shared-memory budget, capped at P."""
+    T = _MAX_TILE
+    while T > 2 and n_planes * T * 4 > _SMEM_TILE_BYTES:
+        T //= 2
+    return min(T, P)
+
+
+def _stages(lo: int, hi: int) -> list[int]:
+    out = []
+    k = lo
+    while k <= hi:
+        out.append(k)
+        k *= 2
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def sort_plan(NP: int, P: int, merge: bool = False) -> SortPlan:
+    """The launches of a sort of NP planes x P elements (``merge``: of the
+    final stage only, k = P, which merges one bitonic sequence).
+
+    NP in 2.._MAX_NP and P >= 32 * _PER_THREAD take the register kernels:
+    one ``bitonic_cluster`` launch sorts up to a cluster of C <= 16 CTAs x
+    ``_TILE`` elements (the whole sort where P fits; the tile is P / 16,
+    but at least ``_MIN_TILE``, so small sorts still spread over several
+    SMs); each later stage k is ``bitonic_strides`` launches of up to
+    three strides each (two above ``_MAX_STRIDES_NP`` planes) for the
+    strides of one cluster's span and more, then one ``bitonic_cluster``
+    launch in tail mode for the rest. Other NP take the general kernels: a
+    ``bitonic_local`` tile sort, then per stage one ``bitonic_global``
+    launch a stride down to the tile and a ``bitonic_local`` tail."""
+    if P < 2 or P & (P - 1) or P > _MAX_P:
+        raise ValueError(f"bitonic kernel needs a power-of-two length up to 2^30, got {P}")
+    if NP < 1:
+        raise ValueError(f"bitonic kernel needs at least one plane, got {NP}")
+    stages = [P] if merge else None
+    launches: list[Launch] = []
+    E = _PER_THREAD
+    if 2 <= NP <= _MAX_NP and P >= 32 * E:
+        # spread the sort over as many CTAs as a cluster takes, down to
+        # _MIN_TILE elements each
+        T = min(P, _TILE, max(_MIN_TILE, P // _MAX_CLUSTER))
+        C = min(P // T, _MAX_CLUSTER)
+        span = C * T
+        max_strides = _MAX_STRIDES if NP <= _MAX_STRIDES_NP else _MAX_STRIDES - 1
+        if not merge:
+            launches.append(Launch("cluster", "bitonic_sort", 2, span, span // 2, 1))
+            stages = _stages(2 * span, P)
+        for k in stages:
+            j = k // 2
+            while j >= span:
+                m = min(max_strides, (j // span).bit_length())
+                launches.append(Launch("strides", "bitonic_merge", k, k, j, j >> (m - 1)))
+                j >>= m
+            launches.append(Launch("cluster", "bitonic_merge", k, k, span // 2, 1))
+        return SortPlan(NP, P, T, E, C, tuple(launches))
+    T = tile_for(NP, P)
+    if not merge:
+        launches.append(Launch("local", "bitonic_sort", 2, T, T // 2, 1))
+        stages = _stages(2 * T, P)
+    for k in stages:
+        j = k // 2
+        while j >= T:
+            launches.append(Launch("global", "bitonic_merge", k, k, j, j))
+            j //= 2
+        launches.append(Launch("local", "bitonic_merge", k, k, T // 2, 1))
+    return SortPlan(NP, P, T, 0, 1, tuple(launches))
+
+
+@functools.lru_cache(maxsize=None)
+def _descriptors(plan: SortPlan):
+    """The plan as auron_bitonic_run's rows of 4 int64 {kind, a, b, c}."""
+    rows = []
+    for launch in plan.launches:
+        if launch.kernel == "cluster":
+            row = (launch.k_lo, launch.k_hi, 0)
+        elif launch.kernel == "strides":
+            row = (launch.k_lo, launch.j_hi, (launch.j_hi // launch.j_lo).bit_length())
+        elif launch.kernel == "local":
+            row = (0 if launch.counts_as == "bitonic_sort" else launch.k_lo, 0, 0)
+        else:
+            row = (launch.k_lo, launch.j_hi, 0)
+        rows.extend((_KINDS[launch.kernel], *row))
+    return (ctypes.c_longlong * len(rows))(*rows)
+
+
 _lib_handle = None
+_prepared: dict = {}  # (device, NP, tile, cluster) -> clusters the card holds at once
 
 
 def _lib():
@@ -224,23 +391,14 @@ def _lib():
 
         lib = cuda_build.load("bitonic")
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.auron_bitonic_block_sort.argtypes = [vp, ci, cll, ci, vp]
-        lib.auron_bitonic_block_sort.restype = ci
-        lib.auron_bitonic_merge_stage.argtypes = [vp, ci, cll, ci, cll, vp]
-        lib.auron_bitonic_merge_stage.restype = ci
+        lib.auron_bitonic_prepare.argtypes = [ci, ci, ci, ci]
+        lib.auron_bitonic_prepare.restype = ci
+        lib.auron_bitonic_run.argtypes = [vp, ci, cll, ci, ci, ci, ctypes.POINTER(cll), ci, vp]
+        lib.auron_bitonic_run.restype = ci
         lib.auron_cuda_error_string.argtypes = [ci]
         lib.auron_cuda_error_string.restype = ctypes.c_char_p
         _lib_handle = lib
     return _lib_handle
-
-
-def tile_for(n_planes: int, P: int) -> int:
-    """Elements per CTA tile: the largest power of two <= _MAX_TILE whose
-    planes fit the shared-memory budget, capped at P."""
-    T = _MAX_TILE
-    while T > 2 and n_planes * T * 4 > _SMEM_TILE_BYTES:
-        T //= 2
-    return min(T, P)
 
 
 def _check(rc: int) -> None:
@@ -249,51 +407,56 @@ def _check(rc: int) -> None:
         raise RuntimeError(f"bitonic CUDA kernel failed: error {rc} ({msg})")
 
 
-def _kernel_args(x32: torch.Tensor):
+def _prepare(plan: SortPlan, device: torch.device) -> None:
+    """Once per (device, NP, tile, cluster): raise the cluster kernel's
+    shared-memory limit and make sure the card can schedule the cluster."""
+    key = (device.index, plan.NP, plan.tile, plan.cluster)
+    if not plan.registers or key in _prepared:
+        return
+    with _launch_lock:
+        if key not in _prepared:
+            n = _lib().auron_bitonic_prepare(plan.NP, plan.tile, plan.cluster, plan.per_thread)
+            if n < 0:
+                _check(-n)
+            if n == 0:
+                raise RuntimeError(
+                    f"bitonic: a cluster of {plan.cluster} CTAs x {plan.smem_bytes()} B of "
+                    f"shared memory (NP {plan.NP}, tile {plan.tile}) cannot be scheduled")
+            _prepared[key] = n
+
+
+def _run_plan(x32: torch.Tensor, merge: bool) -> torch.Tensor:
+    """Issue sort_plan(NP, P, merge) on x32 in one ctypes call; LAUNCHES
+    adds the plan's kernel launches once the call has issued them all."""
     if not (x32.is_cuda and x32.dtype == torch.int32 and x32.dim() == 2
-            and x32.is_contiguous()):
-        raise ValueError("bitonic kernel takes a contiguous CUDA int32 (planes, P) tensor")
+            and x32.is_contiguous() and x32.data_ptr() % 16 == 0):
+        raise ValueError("bitonic kernel takes a contiguous, 16-byte aligned CUDA int32 "
+                         "(planes, P) tensor")
     NP, P = x32.shape
-    if P < 2 or P & (P - 1):
-        raise ValueError(f"bitonic kernel needs a power-of-two length, got {P}")
-    stream = torch.cuda.current_stream(x32.device).cuda_stream
-    return ctypes.c_void_p(x32.data_ptr()), int(NP), int(P), ctypes.c_void_p(stream)
-
-
-def _launch_block_sort(x32: torch.Tensor, T: int) -> None:
-    ptr, NP, P, stream = _kernel_args(x32)
-    _check(_lib().auron_bitonic_block_sort(ptr, NP, P, T, stream))
+    plan = sort_plan(int(NP), int(P), merge)
+    with torch.cuda.device(x32.device):
+        _prepare(plan, x32.device)
+        desc = _descriptors(plan)
+        stream = torch.cuda.current_stream(x32.device).cuda_stream
+        _check(_lib().auron_bitonic_run(
+            ctypes.c_void_p(x32.data_ptr()), plan.NP, plan.P, plan.tile, plan.cluster,
+            plan.per_thread, desc, len(plan.launches), ctypes.c_void_p(stream)))
     with _launch_lock:
-        LAUNCHES["bitonic_sort"] += 1
-
-
-def _launch_merge_stage(x32: torch.Tensor, T: int, k: int) -> None:
-    ptr, NP, P, stream = _kernel_args(x32)
-    _check(_lib().auron_bitonic_merge_stage(ptr, NP, P, T, k, stream))
-    with _launch_lock:
-        LAUNCHES["bitonic_merge"] += 1
+        for name, n in plan.launch_counts().items():
+            LAUNCHES[name] += n
+    return x32
 
 
 def kernel_sort_(x32: torch.Tensor) -> torch.Tensor:
-    """Sort stacked int32 planes (NP, P) in place on the card: the tile
-    sort, then merge stages k = 2T .. P."""
-    NP, P = x32.shape
-    T = tile_for(NP, P)
-    with torch.cuda.device(x32.device):
-        _launch_block_sort(x32, T)
-        k = 2 * T
-        while k <= P:
-            _launch_merge_stage(x32, T, k)
-            k *= 2
-    return x32
+    """Sort stacked int32 planes (NP, P) in place on the card, by the
+    launches of ``sort_plan(NP, P)``."""
+    return _run_plan(x32, merge=False)
 
 
 def kernel_merge_(x32: torch.Tensor) -> torch.Tensor:
-    """Merge stacked int32 planes holding one bitonic sequence, in place."""
-    NP, P = x32.shape
-    with torch.cuda.device(x32.device):
-        _launch_merge_stage(x32, tile_for(NP, P), P)
-    return x32
+    """Merge stacked int32 planes holding one bitonic sequence, in place
+    (the final stage, ``sort_plan(NP, P, merge=True)``)."""
+    return _run_plan(x32, merge=True)
 
 
 def _run(stacked: torch.Tensor, P: int, impl: str, merge: bool) -> torch.Tensor:

@@ -11,11 +11,16 @@ Phases, in order, none of them caught — any failure exits non-zero:
 2. build every CUDA source of the port (one nvcc per source, started
    together) and print the build seconds;
 3. hold each kernel against its plain PyTorch version, bit for bit:
-   ``bitonic_sort`` at P in {2048, 16384, 2^20} with 3 and 8 planes,
-   ``bitonic_merge`` on bitonic inputs at the same shapes (both also
-   against a numpy stable lexsort), the operand-level ``bitonic_sort``
-   (int32 planes split and joined on the card) against the plain network
-   and the library lexsort, and the partition-id kernel ``murmur3_pmod``
+   ``bitonic_sort`` (K3) and ``bitonic_merge`` (K4, on bitonic inputs),
+   also against a numpy stable lexsort, at every plane count from 2 to
+   one past the largest register kernel (17: the general kernels) x P in
+   {1024, 2048, 8192, 16384, 32768, 65536} with tie-heavy, equal-leading-plane,
+   pre-sorted and reverse-sorted inputs in turn, and once each at
+   2^20 x 8, 2^18 x 13 and 2^18 x 17 planes (the multi-stride merge
+   launches, the general kernels); the operand-level ``bitonic_sort``
+   (int32 planes split and joined on the card) at padded lengths (cap =
+   P - 3) and mixed word kinds against the plain network and the library
+   lexsort; the partition-id kernel ``murmur3_pmod``
    (K1) at n in {1, 1000, 2^20, 2^20 + 37, 5.76 M} rows x n_parts in
    {1, 3, 4, 200, 4096}, 85 % and 0 % NULL keys, with INT64_MIN, INT64_MAX,
    0 and -1 among the keys, and the routing histogram kernel
@@ -23,16 +28,19 @@ Phases, in order, none of them caught — any failure exits non-zero:
    23,040,000} x n_parts in {1, 2, 4, 8, 200, 4096, one past its
    shared-memory branch} x 0 %, 50 % and 100 % live rows, with -1, n_parts,
    INT32_MIN and INT32_MAX among the ids (also against numpy's bincount);
-   time kernels, plain versions and library calls with CUDA events
-   (bitonic at the q42 shape P = 16384, 8 planes; K1 at 2^20 rows, 4
-   partitions; K2 at a q93 map shard, 8,388,608 rows of which 5,760,000
+   time kernels, plain versions and library calls with CUDA events, and
+   every bitonic launch's device time with torch.profiler (bitonic at
+   16384 x 8, 16384 x 11, 8192 x 11 and 2^20 x 8 planes; K1 at 2^20 rows,
+   4 partitions; K2 at a q93 map shard, 8,388,608 rows of which 5,760,000
    live, 4 partitions, ~89 % to one);
 4. generate the data once (all later phases share it) and drive the
    q42-class query (scan -> broadcast hash join -> partial and final hash
    aggregate -> SortExec with fetch 10) end to end on ``cuda`` through the
    task runtime, check it against the numpy oracle (brand and order exact,
-   revenue at rel 1e-9), and require that the SortExec went through both
-   bitonic kernels;
+   revenue at rel 1e-9), and require that the SortExec launched exactly
+   the bitonic kernels that ``sort_plan`` lists for the sort shapes the
+   warm-up recorded (one cluster launch of K3 at 16,384 x 8); print its
+   ``SortExec.sort_time`` host timer;
 5. the q93-class query: map tasks (scan -> CASE key -> file shuffle on one
    nullable int64 key, ~85 % NULL) then reduce tasks (shuffle read -> left
    broadcast hash join -> partial and final aggregate by key IS NULL),
@@ -49,7 +57,8 @@ Phases, in order, none of them caught — any failure exits non-zero:
    collect stage (SortExec fetch 100 -> LimitExec 100). Each mode gets a
    warm-up and a timed run; every answer equals its oracle and the two
    transports agree; K2 must launch exactly P times in every timed run, K1
-   in q93's and K3/K4 in q3's. The operands of q3's collect sort, recorded
+   in q93's, and q3's bitonic launches must equal ``sort_plan``'s for its
+   collect sort. The operands of q3's collect sort, recorded
    in the warm-up run, go through K3/K4 and through the plain network on
    the card once more, bit for bit (the kernels at the main path's own
    shapes). The routing matrix, mode, slot capacity, stage walls and peak
@@ -124,7 +133,41 @@ def _bitonic_input(planes):
     return np.ascontiguousarray(np.concatenate([a, b], axis=1))
 
 
+#: P of the bitonic sweep: clusters of 2, 4 and 16 CTAs of 512 elements,
+#: 16 of 1024, the largest single-cluster sort (16 x 2048), and twice that
+#: (one strides launch and a cluster tail)
+SWEEP_P = (1024, 2048, 8192, 16384, 32768, 65536)
+#: (P, NP) past one cluster, run once each: the multi-stride merge path at
+#: 8 and 13 planes (three and two strides a launch), the general kernels
+SWEEP_LARGE = ((1 << 20, 8), (1 << 18, 13), (1 << 18, 17))
+PATTERNS = ("ties", "equal_lead", "sorted", "reversed")
+
+
+def _sweep_planes(rng, NP: int, P: int, pattern: str):
+    """(NP, P) planes as in ``_planes`` shaped by ``pattern``: 'ties' (every
+    key plane in 0..2), 'equal_lead' (one value in the leading plane), or
+    random planes already 'sorted' or 'reversed'."""
+    import numpy as np
+
+    out = _planes(rng, NP, P)
+    out[NP - 1] = rng.permutation(P)
+    if pattern == "ties":
+        out[: NP - 1] = rng.integers(0, 3, (NP - 1, P))
+    elif pattern == "equal_lead":
+        out[0] = 7
+    elif pattern in ("sorted", "reversed"):
+        out = _lexsorted(out)
+        if pattern == "reversed":
+            out = np.ascontiguousarray(out[:, ::-1])
+    return out
+
+
 def check_kernels(seed: int) -> dict:
+    """K3/K4 against the plain network and numpy's lexsort, bit for bit:
+    every plane count from 2 to one past the largest register kernel (the
+    general kernels) at each of SWEEP_P, the patterns in turn; SWEEP_LARGE
+    once each; padded operand lengths (cap = P - 3) through the
+    operand-level ``bitonic_sort``."""
     import numpy as np
     import torch
 
@@ -134,27 +177,54 @@ def check_kernels(seed: int) -> dict:
     dev = torch.device("cuda")
     checks = []
     err = {"bitonic_sort": 0, "bitonic_merge": 0}
-    for P in (2048, 16384, 1 << 20):
-        for NP in (3, 8):
-            host = _planes(rng, NP, P)
-            want = _lexsorted(host)
-            x = torch.from_numpy(host).to(dev)
-            got_k = bitonic._run(x, P, "pallas", merge=False)
-            got_p = bitonic._network(x, P)
-            err["bitonic_sort"] = max(err["bitonic_sort"], int((got_k - got_p).abs().max()))
-            assert np.array_equal(got_k.cpu().numpy(), want), ("bitonic_sort", P, NP)
-            assert torch.equal(got_k, got_p), ("bitonic_sort plain", P, NP)
-            bit = _bitonic_input(host)
-            xb = torch.from_numpy(bit).to(dev)
-            mk = bitonic.bitonic_merge(xb, impl="pallas")
-            mp = bitonic._merge_network(xb, P)
-            err["bitonic_merge"] = max(err["bitonic_merge"], int((mk - mp).abs().max()))
-            assert np.array_equal(mk.cpu().numpy(), want), ("bitonic_merge", P, NP)
-            assert torch.equal(mk, mp), ("bitonic_merge plain", P, NP)
-            checks.append({"P": P, "NP": NP, "sort_equal": True, "merge_equal": True})
-            print(f"kernel check P={P} NP={NP}: sort and merge bit-equal to plain and numpy",
-                  flush=True)
-    # the operand-level entry: int32 planes split and joined on the card
+    saved = dict(bitonic.LAUNCHES)
+    cases = [(P, NP, PATTERNS[(NP + i) % len(PATTERNS)])
+             for NP in range(2, bitonic._MAX_NP + 2) for i, P in enumerate(SWEEP_P)]
+    cases += [(P, NP, "ties") for P, NP in SWEEP_LARGE]
+    for P, NP, pattern in cases:
+        host = _sweep_planes(rng, NP, P, pattern)
+        want = _lexsorted(host)
+        x = torch.from_numpy(host).to(dev)
+        got_k = bitonic._run(x, P, "pallas", merge=False)
+        got_p = bitonic._network(x, P)
+        err["bitonic_sort"] = max(err["bitonic_sort"], int((got_k - got_p).abs().max()))
+        assert np.array_equal(got_k.cpu().numpy(), want), ("bitonic_sort", P, NP, pattern)
+        assert torch.equal(got_k, got_p), ("bitonic_sort plain", P, NP, pattern)
+        xb = torch.from_numpy(_bitonic_input(host)).to(dev)
+        mk = bitonic.bitonic_merge(xb, impl="pallas")
+        mp = bitonic._merge_network(xb, P)
+        err["bitonic_merge"] = max(err["bitonic_merge"], int((mk - mp).abs().max()))
+        assert np.array_equal(mk.cpu().numpy(), want), ("bitonic_merge", P, NP, pattern)
+        assert torch.equal(mk, mp), ("bitonic_merge plain", P, NP, pattern)
+        plan = bitonic.sort_plan(NP, P)
+        checks.append({"P": P, "NP": NP, "pattern": pattern, "launches": len(plan.launches),
+                       "merge_launches": len(bitonic.sort_plan(NP, P, merge=True).launches),
+                       "sort_equal": True, "merge_equal": True})
+    for NP in range(2, bitonic._MAX_NP + 2):
+        print(f"kernel check NP={NP}: sort and merge bit-equal to plain and numpy at P "
+              f"{SWEEP_P} ({'register' if bitonic.sort_plan(NP, 1024).registers else 'general'}"
+              f" kernels)", flush=True)
+    for P, NP in SWEEP_LARGE:
+        plan = bitonic.sort_plan(NP, P)
+        print(f"kernel check P={P} NP={NP}: sort ({len(plan.launches)} launches) and merge "
+              f"({len(bitonic.sort_plan(NP, P, merge=True).launches)} launches) bit-equal to "
+              f"plain and numpy", flush=True)
+    # padded operand lengths: int32 operands of cap = P - 3 rows, -1 padding
+    for NP in (2, 8, 11, 16, 17):
+        for P in SWEEP_P:
+            cap = P - 3
+            ops = tuple(torch.from_numpy(rng.integers(-3, 3, cap).astype(np.int32)).to(dev)
+                        for _ in range(NP - 1)) + (torch.arange(cap, dtype=torch.int32,
+                                                                device=dev),)
+            got = bitonic.bitonic_sort(ops, impl="pallas")
+            ref = bitonic.bitonic_sort(ops, impl="jnp")
+            want = bitonic.lex_sorted(ops)
+            for g, r, w in zip(got, ref, want):
+                assert torch.equal(g, r) and torch.equal(g, w), ("padded operands", NP, P)
+        checks.append({"NP": NP, "caps": [P - 3 for P in SWEEP_P], "operands_equal": True})
+        print(f"kernel check padded operands NP={NP}: caps {[P - 3 for P in SWEEP_P]} "
+              f"bit-equal to plain and lexsort", flush=True)
+    # the operand-level entry: mixed word kinds split and joined on the card
     for cap in (10_000, (1 << 20) - 3):
         live = torch.from_numpy((rng.random(cap) < 0.1).astype(np.int64)).to(dev)
         words = [torch.from_numpy(rng.integers(-hi, hi, cap, dtype=np.int64)).to(dev)
@@ -171,6 +241,7 @@ def check_kernels(seed: int) -> dict:
                 "bitonic_sort operands", cap)
         checks.append({"cap": cap, "operands_equal": True})
         print(f"kernel check operands cap={cap}: bit-equal to plain and lexsort", flush=True)
+    bitonic.LAUNCHES.update(saved)
     return {"checks": checks, "max_abs_err": err}
 
 
@@ -388,8 +459,73 @@ def _launches() -> dict:
     return {**bitonic.LAUNCHES, **partition_kernels.LAUNCHES}
 
 
-def time_kernels(seed: int, P: int = 16384, NP: int = 8) -> dict:
-    """Kernel / plain / library times at the q42 sort shape."""
+#: (P, NP) of the sorts timed in phase 3: q42's SortExec (16,384 x 8),
+#: q3-mesh's collect sort on the mesh (16,384 x 11) and file (8,192 x 11)
+#: transports, and 2^20 x 8, past one cluster (the multi-stride merge path)
+SORT_SHAPES = ((16384, 8), (16384, 11), (8192, 11), (1 << 20, 8))
+
+
+def _kernel_name(name: str) -> str:
+    """'bitonic_cluster<8, 8>' out of a demangled kernel signature."""
+    import re
+
+    m = re.search(r"(bitonic_\w+(?:<[^>]*>)?)", name)
+    return m.group(1) if m else name
+
+
+def _profiled_launches(fn, iters: int, attempts: int = 3):
+    """The device launches of one call of ``fn`` in order, as [name, mean
+    device ms] pairs, from torch.profiler over ``iters`` calls (each call
+    must launch the same sequence of bitonic kernels); None when no trace
+    caught them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted((e.time_range.start, _kernel_name(e.name), e.time_range.elapsed_us())
+                     for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA and "bitonic" in e.name)
+        if evs and len(evs) % iters == 0:
+            n = len(evs) // iters
+            return [[evs[i][1], sum(evs[c * n + i][2] for c in range(iters)) / iters / 1e3]
+                    for i in range(n)]
+    return None
+
+
+def _by_kernel(seq) -> dict:
+    """Device ms and launches per kernel of one call's launch sequence; the
+    first launch is keyed apart (the tile or cluster sort of a sort call)."""
+    out: dict = {}
+    for i, (name, ms) in enumerate(seq or ()):
+        key = f"{name} (first launch)" if i == 0 else name
+        r = out.setdefault(key, {"ms": 0.0, "launches": 0})
+        r["ms"] += ms
+        r["launches"] += 1
+    return out
+
+
+def _sort_bound(NP: int, P: int, compare_exchanges: int) -> dict:
+    nbytes = 2 * NP * P * 4  # each plane read once and written once
+    ops = 3 * NP * compare_exchanges  # compare, equality chain, select per plane
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / NON_TENSOR_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def time_kernels(seed: int) -> dict:
+    """K3 (a whole sort, ``kernel_sort_``) and K4 (the merge of one bitonic
+    sequence, ``kernel_merge_``) at each of SORT_SHAPES: the call time by
+    CUDA events, the device time of every launch by torch.profiler (so
+    launches per call and the whole call's device time), the launches the
+    wrappers counted, the plain network's and the library lexsort's times.
+    The q42 shape's figures head the result (the kernel table's row)."""
     import math
 
     import numpy as np
@@ -400,50 +536,138 @@ def time_kernels(seed: int, P: int = 16384, NP: int = 8) -> dict:
 
     rng = np.random.default_rng(seed + 1)
     dev = torch.device("cuda")
-    host = _planes(rng, NP, P)
-    x = torch.from_numpy(host).to(dev)
-    x32 = i32_of_u32(x).contiguous()
-    sorted32 = i32_of_u32(torch.from_numpy(_lexsorted(host)).to(dev)).contiguous()
-    bit = torch.from_numpy(_bitonic_input(host)).to(dev)
-    cols = tuple(x[p] for p in range(NP))
-    bit_cols = tuple(bit[p] for p in range(NP))
-    kinds = ("i64",) * NP
-    L = int(math.log2(P))
-    T = bitonic.tile_for(NP, P)
     saved = dict(bitonic.LAUNCHES)
-    res = {}
-    iters = 50
-    # sort: the tile sort + merge stages (the data-oblivious network takes
-    # the same time on any input, so re-sorting one buffer is a fair loop)
-    res["bitonic_sort"] = {
-        "ms": _event_ms(lambda: bitonic.kernel_sort_(x32), iters),
-        "plain_ms": _event_ms(lambda: bitonic._network(x, P), 5, warmup=1),
-        "library_ms": _event_ms(lambda: bitonic.lexsort(cols, kinds), iters),
-        "compare_exchanges": (P // 2) * L * (L + 1) // 2,
-    }
-    # merge of one bitonic sequence (an ascending run is bitonic, so the
-    # in-place loop keeps a valid input)
-    res["bitonic_merge"] = {
-        "ms": _event_ms(lambda: bitonic.kernel_merge_(sorted32), iters),
-        "plain_ms": _event_ms(lambda: bitonic._merge_network(bit, P), 5, warmup=1),
-        "library_ms": _event_ms(lambda: bitonic.lexsort(bit_cols, kinds), iters),
-        "compare_exchanges": (P // 2) * L,
-    }
+    shapes = []
+    for P, NP in SORT_SHAPES:
+        host = _planes(rng, NP, P)
+        x = torch.from_numpy(host).to(dev)
+        x32 = i32_of_u32(x).contiguous()
+        sorted32 = i32_of_u32(torch.from_numpy(_lexsorted(host)).to(dev)).contiguous()
+        bit = torch.from_numpy(_bitonic_input(host)).to(dev)
+        kinds = ("i64",) * NP
+        L = int(math.log2(P))
+        small = P <= 16384
+        iters = 50 if small else 10
+        # sort: the data-oblivious network takes the same time on any input,
+        # so re-sorting one buffer is a fair loop; merge: an ascending run is
+        # bitonic, so the in-place loop keeps a valid input
+        calls = {
+            "bitonic_sort": (lambda: bitonic.kernel_sort_(x32), lambda: bitonic._network(x, P),
+                             tuple(x[p] for p in range(NP)), (P // 2) * L * (L + 1) // 2),
+            "bitonic_merge": (lambda: bitonic.kernel_merge_(sorted32),
+                              lambda: bitonic._merge_network(bit, P),
+                              tuple(bit[p] for p in range(NP)), (P // 2) * L),
+        }
+        shape = {"P": P, "NP": NP}
+        for name, (kernel, plain, cols, cx) in calls.items():
+            before = dict(bitonic.LAUNCHES)
+            kernel()
+            torch.cuda.synchronize()
+            counted = {k: bitonic.LAUNCHES[k] - before[k] for k in before}
+            seq = _profiled_launches(kernel, iters)
+            r = {
+                "ms": _event_ms(kernel, iters),
+                "device_ms": sum(ms for _, ms in seq) if seq else None,
+                "launches": len(seq) if seq else None,
+                "counted_launches": counted,
+                "by_kernel": _by_kernel(seq),
+                "sequence": seq,
+                "plain_ms": _event_ms(plain, 5, warmup=1) if small else None,
+                "library_ms": _event_ms(lambda: bitonic.lexsort(cols, kinds), iters),
+                "compare_exchanges": cx,
+                **_sort_bound(NP, P, cx),
+            }
+            shape[name] = r
+            kern = "; ".join(f"{k} {v['ms']:.5f} ms x{v['launches']}"
+                             for k, v in r["by_kernel"].items())
+            plain_s = f"{r['plain_ms']:.4f} ms" if r["plain_ms"] is not None else "not timed"
+            print(f"{name} P={P} NP={NP}: a call {r['ms']:.4f} ms (CUDA events), device "
+                  f"{r['device_ms']} ms in {r['launches']} launches (torch.profiler: {kern}), "
+                  f"wrapper counts {counted}, plain {plain_s}, torch.sort lexsort "
+                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']})",
+                  flush=True)
+        shapes.append(shape)
     bitonic.LAUNCHES.update(saved)
-    for name, r in res.items():
-        nbytes = 2 * NP * P * 4  # each plane read once and written once
-        ops = 3 * NP * r["compare_exchanges"]  # compare, equality chain, select per plane
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / NON_TENSOR_OPS_PER_S * 1e3
-        r.update({
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "P": P, "NP": NP, "tile": T,
-        })
-        print(f"{name} P={P} NP={NP} tile={T}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, torch.sort lexsort {r['library_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})", flush=True)
-    return res
+    return {"bitonic_sort": shapes[0]["bitonic_sort"], "bitonic_merge": shapes[0]["bitonic_merge"],
+            "sort_shapes": shapes}
+
+
+def time_cluster_sizes(seed: int) -> list:
+    """Device time of one ``bitonic_cluster`` launch that sorts (and one
+    that merges) each main-path shape, at every cluster size from 2 to 16
+    CTAs that the tile limits allow: the measurement behind sort_plan's
+    choice of cluster and tile."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from auron_tpu_torch.ops import bitonic
+    from auron_tpu_torch.ops.uwords import i32_of_u32
+
+    lib = bitonic._lib()
+    rng = np.random.default_rng(seed + 6)
+    out = []
+    for P, NP in SORT_SHAPES[:3]:
+        host = _sweep_planes(rng, NP, P, "ties")
+        want = _lexsorted(host)
+        for C in (2, 4, 8, 16):
+            T = P // C
+            if not 32 * bitonic._PER_THREAD <= T <= bitonic._TILE:
+                continue
+            clusters = lib.auron_bitonic_prepare(NP, T, C, bitonic._PER_THREAD)
+            assert clusters > 0, (P, NP, C, clusters)
+            x32 = i32_of_u32(torch.from_numpy(host).cuda()).contiguous()
+            r = {"P": P, "NP": NP, "cluster": C, "tile": T, "max_active_clusters": clusters}
+            for mode, k_lo in (("sort", 2), ("merge", P)):
+                desc = (ctypes.c_longlong * 4)(0, k_lo, P, 0)
+
+                def run(desc=desc, x32=x32, T=T, C=C):
+                    bitonic._check(lib.auron_bitonic_run(
+                        ctypes.c_void_p(x32.data_ptr()), NP, P, T, C, bitonic._PER_THREAD, desc,
+                        1, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)))
+
+                run()
+                torch.cuda.synchronize()
+                if mode == "sort":
+                    got = x32.cpu().numpy().astype(np.int64) & 0xFFFFFFFF
+                    assert np.array_equal(got, want), ("cluster size", P, NP, C)
+                seq = _profiled_launches(run, 20)
+                r[f"{mode}_device_ms"] = sum(ms for _, ms in seq) if seq else None
+            out.append(r)
+            print(f"one cluster launch P={P} NP={NP}: {C} CTAs x {T} elements "
+                  f"({clusters} such clusters fit the card): sort {r['sort_device_ms']} ms, "
+                  f"merge {r['merge_device_ms']} ms of device time", flush=True)
+    return out
+
+
+def time_sorts_main() -> int:
+    """``chip_smoke.py --time-sorts``: the card, the build, and phase 3's
+    bitonic timings only, as one JSON line (a yardstick to run on two trees
+    in one call); prints no status line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; no result", file=sys.stderr)
+        return 2
+    from auron_tpu_torch.ops import cuda_build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    cuda_build.build_all()
+    for name, log in cuda_build.BUILD_LOG.items():
+        print(f"nvcc {name}:\n{log.strip()}", flush=True)
+    from auron_tpu_torch.ops import bitonic
+
+    out = time_kernels(42)
+    # a tree without sort_plan has no cluster kernel to size
+    sizes = time_cluster_sizes(42) if hasattr(bitonic, "sort_plan") else None
+    print(json.dumps({"nvidia_smi": smi, "sort_shapes": out["sort_shapes"],
+                      "cluster_sizes": sizes}), flush=True)
+    return 0
 
 
 def run_q42(data, sf: float, t_gen: float) -> dict:
@@ -457,12 +681,16 @@ def run_q42(data, sf: float, t_gen: float) -> dict:
     torch.cuda.synchronize()
     t_ingest = time.perf_counter() - t0
     oracle = tpcds.q42_class_oracle(data)
-    # warm-up run (first launches, allocator), checked like the timed one
-    warm = tpcds.run_q42_class(device="cuda", ingested=ingested)
+    # warm-up run (first launches, allocator), checked like the timed one;
+    # it records the shape of every sort the kernels run
+    shapes: list = []
+    with _recording_kernel_sorts(shapes):
+        warm = tpcds.run_q42_class(device="cuda", ingested=ingested)
     _reset_launches()
     torch.cuda.synchronize()
+    stats: dict = {}
     t0 = time.perf_counter()
-    got = tpcds.run_q42_class(device="cuda", ingested=ingested)
+    got = tpcds.run_q42_class(device="cuda", ingested=ingested, stats=stats)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launches()
@@ -470,15 +698,49 @@ def run_q42(data, sf: float, t_gen: float) -> dict:
         assert out["brand"].shape == (10,) and np.isfinite(out["rev"]).all(), out
         assert np.array_equal(out["brand"], oracle["brand"]), (out["brand"], oracle["brand"])
         np.testing.assert_allclose(out["rev"], oracle["rev"], rtol=1e-9, atol=0)
-    for name in ("bitonic_sort", "bitonic_merge"):
-        assert launches[name] > 0, f"q42 main path launched {name} no time: {launches}"
+    _assert_planned_launches("q42", shapes, launches)
+    sort_ms = {k: v * 1e3 for k, v in stats["timers"].items() if k.endswith("sort_time")}
     rows = data.fact_rows()
     print(f"q42-class SF {sf}: {rows} fact rows, wall {wall:.4f} s, "
-          f"{rows / wall:.1f} fact rows/s, launches {launches}, top brand "
+          f"{rows / wall:.1f} fact rows/s, sorts (P, NP) {[s[::-1] for s in shapes]}, "
+          f"launches {launches}, host sort timer {sort_ms} ms, top brand "
           f"{int(got['brand'][0])} rev {float(got['rev'][0]):.2f}", flush=True)
     return {"sf": sf, "fact_rows": rows, "wall_s": wall, "rows_per_s": rows / wall,
             "generate_s": t_gen, "ingest_s": t_ingest, "launches": launches,
+            "sort_shapes": shapes, "sort_time_ms": sort_ms,
             "brand": got["brand"].tolist(), "rev": got["rev"].tolist()}, ingested
+
+
+@contextlib.contextmanager
+def _recording_kernel_sorts(shapes: list):
+    """Record the (NP, P) of every sort ``bitonic.kernel_sort_`` runs inside
+    the block."""
+    from auron_tpu_torch.ops import bitonic
+
+    real = bitonic.kernel_sort_
+
+    def recording(x32):
+        shapes.append(tuple(x32.shape))
+        return real(x32)
+
+    bitonic.kernel_sort_ = recording
+    try:
+        yield
+    finally:
+        bitonic.kernel_sort_ = real
+
+
+def _assert_planned_launches(label: str, shapes: list, launches: dict) -> None:
+    """The bitonic launches of a timed run equal what ``sort_plan`` lists
+    for the sorts its warm-up recorded (one cluster launch a sort at the
+    main path's shapes), and there was a sort."""
+    from auron_tpu_torch.ops import bitonic
+
+    assert shapes, f"{label}: no sort went through the bitonic kernels"
+    planned = {k: sum(bitonic.sort_plan(*s).launch_counts()[k] for s in shapes)
+               for k in bitonic.LAUNCHES}
+    got = {k: launches[k] for k in bitonic.LAUNCHES}
+    assert got == planned, f"{label}: bitonic launches {got}, sort_plan lists {planned}"
 
 
 def _print_timers(query: str, stats: dict) -> None:
@@ -639,6 +901,10 @@ def check_sorts(label: str, record: list) -> list:
         before = dict(bitonic.LAUNCHES)
         got = bitonic.bitonic_sort(ops, impl="pallas", narrow=narrow)
         launched = {k: bitonic.LAUNCHES[k] - before[k] for k in before}
+        cap = ops[0].shape[0]
+        kinds = tuple(bitonic._default_kind(o) for o in ops)
+        NP = len(bitonic._split_planes32(ops, narrow, kinds))
+        P = max(bitonic._next_pow2(cap), 8 * bitonic._LANES)
         ref = bitonic.bitonic_sort(ops, impl="jnp", narrow=narrow)
         want = bitonic.lex_sorted(ops)
         err = 0
@@ -646,12 +912,8 @@ def check_sorts(label: str, record: list) -> list:
             assert g.dtype == r.dtype and torch.equal(g, r) and torch.equal(g, w), (
                 "collect sort", label)
             err = max(err, int((g.to(torch.int64) - r.to(torch.int64)).abs().max()))
-        kinds = tuple(bitonic._default_kind(o) for o in ops)
-        cap = ops[0].shape[0]
-        shape = {"cap": cap, "P": max(bitonic._next_pow2(cap), 8 * bitonic._LANES),
-                 "NP": len(bitonic._split_planes32(ops, narrow, kinds)),
-                 "launches": launched, "max_abs_err": err}
-        assert launched["bitonic_sort"] > 0, (label, shape)
+        shape = {"cap": cap, "P": P, "NP": NP, "launches": launched, "max_abs_err": err}
+        assert launched == bitonic.sort_plan(NP, P).launch_counts(), (label, shape)
         out.append(shape)
         print(f"kernel check {label} collect sort: cap {cap}, P {shape['P']}, NP "
               f"{shape['NP']}, kernel launches {launched}: bit-equal to plain and lexsort",
@@ -678,7 +940,8 @@ def run_mesh(query: str, data, fact, n_parts: int = 4) -> dict:
     for mode in ("mesh", "file"):
         conf = {"exchange.mode": mode}
         sorts: list = []
-        with _recording_sorts(sorts):
+        shapes: list = []
+        with _recording_sorts(sorts), _recording_kernel_sorts(shapes):
             warm = run(n_parts=n_parts, device="cuda", conf=conf, ingested=ingested)
         sort_checks = check_sorts(f"{query}-mesh ({mode})", sorts)
         _reset_launches()
@@ -709,11 +972,10 @@ def run_mesh(query: str, data, fact, n_parts: int = 4) -> dict:
         print(f"  {query}-mesh routing matrix [src][dst] (live rows): {stats['routing']}",
               flush=True)
         if query == "q3":
-            for name in ("bitonic_sort", "bitonic_merge"):
-                assert launches[name] > 0, f"q3-mesh ({mode}) launched {name} no time"
+            _assert_planned_launches(f"q3-mesh ({mode})", shapes, launches)
             assert sort_checks, f"q3-mesh ({mode}): no collect sort was recorded"
         out[mode] = {"wall_s": wall, "rows_per_s": rows / wall, **stats, "launches": launches,
-                     "sort_checks": sort_checks}
+                     "sort_shapes": shapes, "sort_checks": sort_checks}
     # the two transports agree with each other
     a, b = answers["mesh"], answers["file"]
     for k in a:
@@ -749,7 +1011,12 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--profile", action="store_true",
                     help="also profile one q42, q93 and q3 run (device busy share, top kernels)")
+    ap.add_argument("--time-sorts", action="store_true",
+                    help="only build and time the bitonic kernels at the sort shapes "
+                         "(one JSON line, no status line)")
     args = ap.parse_args(argv)
+    if args.time_sorts:
+        return time_sorts_main()
 
     import torch
 
@@ -826,6 +1093,10 @@ def main(argv=None) -> int:
     sort_err = max(s["max_abs_err"] for m in q3_mesh for s in q3_mesh[m]["sort_checks"])
     for name in ("bitonic_sort", "bitonic_merge"):
         checks["max_abs_err"][name] = max(checks["max_abs_err"][name], sort_err)
+    # K4 runs on the main path only for a sort past one cluster: q42's and
+    # q3-mesh's sorts are one cluster launch each, so its launches there are
+    # what sort_plan lists for them (0); phase 3 holds it against its plain
+    # version at every shape, its multi-stride launches at 2^18 and 2^20
     kernels = []
     for name, source, replaces, launches in (
         ("bitonic_sort", "auron_tpu_torch/csrc/bitonic.cu", "auron_tpu/ops/bitonic.py:145",
@@ -845,7 +1116,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
         })
     os.makedirs(os.path.join(REPO_DIR, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO_DIR, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -189,7 +189,194 @@ def test_kernel_wrapper_rejects_cpu_tensors():
 
 
 def test_tile_size_fits_shared_memory():
+    """Every plan's tile fits a CTA's 227 KB of shared memory and every
+    cluster Hopper's 16 CTAs (8 is the portable limit, 16 the measured
+    faster one); the general kernels keep their 96 KB tiles."""
     for NP in range(1, 33):
+        for L in range(7, 21):
+            plan = pb.sort_plan(NP, 1 << L)
+            T = plan.tile
+            assert T & (T - 1) == 0 and T <= 2048 and plan.smem_bytes() <= 227 * 1024
+            assert 1 <= plan.cluster <= 16 and (1 << L) % (T * plan.cluster) == 0
+            if not plan.registers:
+                assert T == pb.tile_for(NP, 1 << L) and plan.smem_bytes() <= 96 * 1024
         T = pb.tile_for(NP, 1 << 20)
         assert T & (T - 1) == 0 and NP * T * 4 <= 96 * 1024 and T <= 2048
     assert pb.tile_for(8, 1024) == 1024
+
+
+def _network_substages(P, merge=False):
+    out = []
+    k = P if merge else 2
+    while k <= P:
+        j = k // 2
+        while j >= 1:
+            out.append((k, j))
+            j //= 2
+        k *= 2
+    return out
+
+
+@pytest.mark.parametrize("NP", [2, 8, 11, 16, 17])
+def test_sort_plan_substages_are_the_network(NP):
+    """The (k, j) substages of sort_plan's launches, in order, are exactly
+    the network's, for the sort and for the final-stage merge."""
+    for L in range(10, 21):
+        P = 1 << L
+        plan = pb.sort_plan(NP, P)
+        assert plan.substages() == _network_substages(P), (NP, P)
+        assert pb.sort_plan(NP, P, merge=True).substages() == _network_substages(P, True)
+        counts = plan.launch_counts()
+        assert counts["bitonic_sort"] == 1 and sum(counts.values()) == len(plan.launches)
+        assert plan.registers == (NP <= pb._MAX_NP)
+
+
+def test_sort_plan_main_path_shapes_are_one_launch():
+    """q42's SortExec (16,384 x 8) and q3-mesh's collect sorts (16,384 and
+    8,192 x 11) are one cluster launch each, over 16 CTAs."""
+    for NP, P in ((8, 16384), (11, 16384), (11, 8192)):
+        plan = pb.sort_plan(NP, P)
+        assert [launch.kernel for launch in plan.launches] == ["cluster"]
+        assert plan.cluster == 16 and plan.tile * plan.cluster == P
+    big = pb.sort_plan(8, 1 << 20)
+    assert [launch.kernel for launch in big.launches].count("cluster") == 1 + 5
+    assert pb.sort_plan(8, 1 << 20, merge=True).launch_counts() == {
+        "bitonic_sort": 0, "bitonic_merge": 3}
+
+
+@pytest.mark.parametrize("NP,P", [(2, 1024), (8, 4096), (11, 2048), (17, 4096)])
+def test_plan_grouping_equals_network(NP, P):
+    """The plain substages run launch by launch as the plan groups them
+    equal the plain _network and the JAX package's _network."""
+    planes = _planes(np.random.default_rng(NP * P), NP, P, 3)
+    x = _port(planes)
+    flat = torch.arange(P)
+    for launch in pb.sort_plan(NP, P).launches:
+        for k, j in launch.substages():
+            x = pb._substage(x, flat, k, j)
+    np.testing.assert_array_equal(x.numpy(), pb._network(_port(planes), P).numpy())
+    want = np.asarray(jb._network(_ref(planes, P), P)).reshape(NP, P)
+    np.testing.assert_array_equal(x.numpy(), want.astype(np.int64))
+
+
+# -- a numpy model of the kernels' index arithmetic (csrc/bitonic.cu) -------
+
+
+def _lex_less(a, b):
+    """a < b lexicographically over the plane axis 0 (numpy, any shape)."""
+    lt = np.zeros(a.shape[1:], bool)
+    eq = np.ones(a.shape[1:], bool)
+    for p in range(a.shape[0]):
+        lt |= eq & (a[p] < b[p])
+        eq &= a[p] == b[p]
+    return lt
+
+
+def _order_groups(x, idx, desc):
+    """order_group: groups idx (G, R) of element indices, each through its
+    log2(R) register substages in the direction desc (G,); every element
+    must be in exactly one group."""
+    G, R = idx.shape
+    assert np.array_equal(np.sort(idx.ravel()), np.arange(x.shape[1])), "groups must tile P"
+    v = x[:, idx]
+    bit = R // 2
+    while bit >= 1:
+        for m in range(R):
+            if not m & bit:
+                a, b = v[:, :, m].copy(), v[:, :, m | bit].copy()
+                swap = _lex_less(a, b) == desc
+                v[:, :, m] = np.where(swap, b, a)
+                v[:, :, m | bit] = np.where(swap, a, b)
+        bit //= 2
+    x[:, idx] = v
+
+
+def _insert_zero_bits(t, sh, M):
+    return ((t >> sh) << (sh + M)) | (t & ((1 << sh) - 1))
+
+
+def _model_cluster_launch(x, plan, launch):
+    """bitonic_cluster's stage loop: cluster passes, tile passes, warp
+    shuffles and register substages, with the kernel's own index math."""
+    P, T, C, E = plan.P, plan.tile, plan.cluster, plan.per_thread
+    span = C * T
+    blocks = np.arange(P // T)
+    k = launch.k_lo
+    while k <= launch.k_hi:
+        j = min(k // 2, span // 2)
+        while j >= T:  # cluster_pass: q-th CTA of a group orders its share of offsets
+            M = 2 if j >= 2 * T else 1
+            R, j_lo = 1 << M, j >> (M - 1)
+            rank, jr = blocks % C, j_lo // T
+            q = (rank // jr) & (R - 1)
+            t = np.arange(T // R)
+            o = q[:, None] * (T // R) + t[None, :]
+            tiles = (blocks - q * jr)[:, None] + jr * np.arange(R)[None, :]
+            assert np.array_equal(tiles // C, np.repeat(blocks[:, None] // C, R, 1))
+            idx = tiles[:, None, :] * T + o[:, :, None]
+            lo0 = blocks * T - q * j_lo
+            _order_groups(x, idx.reshape(-1, R), (((lo0[:, None] + o) & k) != 0).ravel())
+            j >>= M
+        while j >= 32 * E:  # tile_pass
+            M = 2 if j >= 64 * E else 1
+            R, j_lo = 1 << M, j >> (M - 1)
+            b = _insert_zero_bits(np.arange(T // R), j_lo.bit_length() - 1, M)
+            base = blocks[:, None] * T + b[None, :]
+            idx = base[:, :, None] + j_lo * np.arange(R)[None, None, :]
+            _order_groups(x, idx.reshape(-1, R), ((base & k) != 0).ravel())
+            j >>= M
+        g = np.arange(P)  # element g: thread g // E of tile g // T, register g % E
+        while j >= E:  # __shfl_xor_sync: register r of lane ^ (j / E)
+            tid, r = (g % T) // E, g % E
+            partner = (g // T) * T + (tid ^ (j // E)) * E + r
+            want_max = ((g & j) != 0) != ((g & k) != 0)
+            take = _lex_less(x, x[:, partner]) == want_max
+            x = np.where(take, x[:, partner], x)
+            j //= 2
+        while j >= 1:  # registers
+            lo = g[(g & j) == 0]
+            _order_groups(x, np.stack([lo, lo | j], 1), (lo & k) != 0)
+            j //= 2
+        k *= 2
+    return x
+
+
+def _model_run(x, plan):
+    """The plan's launches over numpy planes (NP, P), the register kernels
+    with their index math; the general kernels as plain substages."""
+    x = x.copy()
+    for launch in plan.launches:
+        if launch.kernel == "cluster":
+            x = _model_cluster_launch(x, plan, launch)
+        elif launch.kernel == "strides":  # bitonic_strides: thread q holds 2^M registers
+            M = (launch.j_hi // launch.j_lo).bit_length()
+            b = _insert_zero_bits(np.arange(plan.P >> M), launch.j_lo.bit_length() - 1, M)
+            idx = b[:, None] + launch.j_lo * np.arange(1 << M)[None, :]
+            _order_groups(x, idx, (b & launch.k_lo) != 0)
+        else:
+            flat = torch.arange(plan.P)
+            t = torch.from_numpy(x)
+            for k, j in launch.substages():
+                t = pb._substage(t, flat, k, j)
+            x = t.numpy().copy()
+    return x
+
+
+@pytest.mark.parametrize("NP", [2, 8, 11, 16])
+@pytest.mark.parametrize("P", [128, 256, 1024, 2048, 8192, 16384, 65536])
+def test_kernel_index_model_sorts(NP, P):
+    """The kernels' index arithmetic, run as numpy over each launch of the
+    plan: every pass covers all P elements once, cluster groups stay inside
+    their cluster, and the result is the lexsort (sort) and the merged
+    bitonic sequence (merge), ties and padding-like duplicates included."""
+    rng = np.random.default_rng(NP + P)
+    planes = _planes(rng, NP, P, 3).astype(np.int64)
+    planes[: NP - 1, : P // 8] = 0  # a run of equal keys (distinct payloads)
+    planes[:, P - 3:] = (1 << 32) - 1  # identical padding elements, as bitonic_sort pads
+    want = planes[:, np.lexsort(tuple(planes[::-1]))]
+    np.testing.assert_array_equal(_model_run(planes, pb.sort_plan(NP, P)), want)
+    half = P // 2
+    a = planes[:, :half][:, np.lexsort(tuple(planes[::-1, :half]))]
+    b = planes[:, half:][:, np.lexsort(tuple(planes[::-1, half:]))][:, ::-1]
+    bit = np.ascontiguousarray(np.concatenate([a, b], axis=1))
+    np.testing.assert_array_equal(_model_run(bit, pb.sort_plan(NP, P, merge=True)), want)

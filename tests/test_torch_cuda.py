@@ -27,17 +27,111 @@ def _planes(rng, NP, P, tie_range):
     return out
 
 
+_PATTERNS = ("ties", "equal_lead", "sorted", "reversed")
+
+
+def _sweep_planes(rng, NP, P, pattern):
+    """(NP, P) uint32 planes as int64 carriers, the last a distinct payload:
+    'ties' (every key plane in 0..2), 'equal_lead' (one value in the leading
+    plane), or random planes already 'sorted' or 'reversed'."""
+    hi = 3 if pattern == "ties" else 2**32
+    out = _planes(rng, NP, P, hi)
+    if pattern == "ties":
+        out[: NP - 1] = rng.integers(0, 3, (NP - 1, P))
+    if pattern == "equal_lead":
+        out[0] = 7
+    if pattern in ("sorted", "reversed"):
+        out = out[:, np.lexsort(tuple(out[::-1]))]
+        if pattern == "reversed":
+            out = np.ascontiguousarray(out[:, ::-1])
+    return out
+
+
+def _bitonic_of(planes):
+    half = planes.shape[1] // 2
+    a = planes[:, :half][:, np.lexsort(tuple(planes[::-1, :half]))]
+    b = planes[:, half:][:, np.lexsort(tuple(planes[::-1, half:]))][:, ::-1]
+    return np.ascontiguousarray(np.concatenate([a, b], axis=1))
+
+
+def _assert_sort_and_merge(rng, NP, P, pattern):
+    host = _sweep_planes(rng, NP, P, pattern)
+    want = host[:, np.lexsort(tuple(host[::-1]))]
+    x = torch.from_numpy(host).cuda()
+    got = pb._run(x, P, "pallas", merge=False)
+    assert np.array_equal(got.cpu().numpy(), want), ("sort vs numpy", NP, P, pattern)
+    assert torch.equal(got, pb._network(x, P)), ("sort vs plain", NP, P, pattern)
+    bit = torch.from_numpy(_bitonic_of(host)).cuda()
+    merged = pb.bitonic_merge(bit, impl="pallas")
+    assert np.array_equal(merged.cpu().numpy(), want), ("merge vs numpy", NP, P, pattern)
+    assert torch.equal(merged, pb._merge_network(bit, P)), ("merge vs plain", NP, P, pattern)
+
+
 @pytest.mark.cuda
-def test_kernels_match_plain_network_on_card():
+@pytest.mark.parametrize("NP", range(2, pb._MAX_NP + 2))
+def test_kernels_match_plain_network_on_card(NP):
+    """Every plane count with a register kernel and one past it (the
+    general kernels), at P from a cluster of 2 CTAs to twice the largest
+    single-cluster sort (32,768), the input patterns in turn: sort
+    bit-equal to the plain network and numpy, merge to the plain merge
+    network."""
     _need_card()
-    rng = np.random.default_rng(1)
-    for P in (1024, 2048, 16384, 1 << 18):
-        for NP in (2, 3, 8):
-            planes = torch.from_numpy(_planes(rng, NP, P, 5)).cuda()
-            got = pb._run(planes, P, "pallas", merge=False)
-            assert torch.equal(got, pb._network(planes, P))
-            srt = got.clone()
-            assert torch.equal(pb.bitonic_merge(srt, impl="pallas"), got)
+    rng = np.random.default_rng(NP)
+    for i, P in enumerate((1024, 2048, 8192, 16384, 32768, 65536)):
+        _assert_sort_and_merge(rng, NP, P, _PATTERNS[(NP + i) % len(_PATTERNS)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("NP,P", [(8, 1 << 20), (13, 1 << 18), (17, 1 << 18)])
+def test_kernels_past_one_cluster_on_card(NP, P):
+    """The multi-stride merge launches (and, at 17 planes, the general
+    kernels) at large P."""
+    _need_card()
+    _assert_sort_and_merge(np.random.default_rng(P + NP), NP, P, "ties")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("NP", [2, 8, 16, 17])
+def test_kernels_below_the_padded_length_on_card(NP):
+    """kernel_sort_ / kernel_merge_ called directly at P below the 1024
+    that bitonic_sort pads to: one small CTA (128..512) or, under 128, the
+    general kernels."""
+    _need_card()
+    rng = np.random.default_rng(200 + NP)
+    for P in (2, 64, 128, 256, 512):
+        _assert_sort_and_merge(rng, NP, P, "ties")
+
+
+@pytest.mark.cuda
+def test_sort_plan_launches_on_card():
+    """kernel_sort_ counts exactly the launches sort_plan lists."""
+    _need_card()
+    for NP, P in ((8, 16384), (11, 16384), (11, 8192), (8, 1 << 20), (17, 16384)):
+        x = torch.zeros((NP, P), dtype=torch.int32, device="cuda")
+        before = dict(pb.LAUNCHES)
+        pb.kernel_sort_(x)
+        torch.cuda.synchronize()
+        got = {k: pb.LAUNCHES[k] - before[k] for k in before}
+        assert got == pb.sort_plan(NP, P).launch_counts(), (NP, P, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("NP", [2, 8, 11, 16, 17])
+def test_padded_operand_sort_on_card(NP):
+    """Operands of cap = P - 3 rows (the -1 padding sorts last) at every
+    sweep length: equal to the plain network and the library lexsort."""
+    _need_card()
+    rng = np.random.default_rng(100 + NP)
+    for P in (1024, 2048, 8192, 16384, 32768, 65536):
+        cap = P - 3
+        ops = tuple(torch.from_numpy(rng.integers(-3, 3, cap).astype(np.int32)).cuda()
+                    for _ in range(NP - 1)) + (torch.arange(cap, dtype=torch.int32,
+                                                            device="cuda"),)
+        got = pb.bitonic_sort(ops, impl="pallas")
+        ref = pb.bitonic_sort(ops, impl="jnp")
+        want = pb.lex_sorted(ops)
+        for g, r, w in zip(got, ref, want):
+            assert torch.equal(g, r) and torch.equal(g, w), (NP, P)
 
 
 @pytest.mark.cuda
@@ -64,17 +158,31 @@ def test_operand_sort_on_card_matches_plain_and_lexsort():
 @pytest.mark.cuda
 def test_q42_on_card_goes_through_the_kernels():
     """A small q42-class run on cuda equals the numpy oracle exactly in
-    brand and order, and its SortExec launched both bitonic kernels."""
+    brand and order, and its SortExec launched exactly the bitonic kernels
+    that sort_plan lists for the shapes it sorted."""
     _need_card()
     from auron_tpu_torch.models import tpcds
 
     data = tpcds.generate(0.05, 42)
+    shapes = []
+    real = pb.kernel_sort_
+
+    def recording(x32):
+        shapes.append(tuple(x32.shape))
+        return real(x32)
+
     before = dict(pb.LAUNCHES)
-    got = tpcds.run_q42_class(data, device="cuda")
+    pb.kernel_sort_ = recording
+    try:
+        got = tpcds.run_q42_class(data, device="cuda")
+    finally:
+        pb.kernel_sort_ = real
     want = tpcds.q42_class_oracle(data)
     np.testing.assert_array_equal(got["brand"], want["brand"])
     np.testing.assert_allclose(got["rev"], want["rev"], rtol=1e-9, atol=0)
-    assert all(pb.LAUNCHES[k] > before[k] for k in before), (before, pb.LAUNCHES)
+    planned = {k: sum(pb.sort_plan(*s).launch_counts()[k] for s in shapes) for k in before}
+    assert shapes and planned["bitonic_sort"] == len(shapes), shapes
+    assert {k: pb.LAUNCHES[k] - before[k] for k in before} == planned, (shapes, pb.LAUNCHES)
 
 
 @pytest.mark.cuda
