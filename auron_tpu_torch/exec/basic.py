@@ -1,6 +1,6 @@
 """Stateless streaming operators (port of ``auron_tpu/exec/basic.py``
-lines 36-196): memory scan, project, filter, limit. A filter refines the
-selection mask instead of compacting; a limit trims with a prefix mask."""
+lines 36-208): memory scan, project, filter, limit, union. A filter refines
+the selection mask instead of compacting; a limit trims with a prefix mask."""
 
 from __future__ import annotations
 
@@ -109,3 +109,15 @@ class LimitExec(ExecOperator):
                 keep = sel & (torch.cumsum(sel.to(torch.int64), 0) <= remaining)
                 remaining = 0
                 yield b.with_device(DeviceBatch(keep, b.device.values, b.device.validity))
+
+
+class UnionExec(ExecOperator):
+    """UNION ALL: partition p streams partition p of every child in turn."""
+
+    def __init__(self, children: list[ExecOperator]):
+        assert children
+        super().__init__(children, children[0].schema)
+
+    def _execute(self, partition: int, ctx: ExecutionContext) -> Iterator[Batch]:
+        for i in range(len(self.children)):
+            yield from self.child_stream(i, partition, ctx)

@@ -1,17 +1,24 @@
 """Equi-join core: build preparation, probes and pair expansion.
 
-Port of the inner- and left-outer-join parts of
+Port of the inner, left-outer, left-semi and left-anti parts of
 ``auron_tpu/exec/joins/core.py``:
 
-- a single integer-like key with a small value range and unique live keys
-  builds a dense direct-address table (``lut[key - base] = build row``):
-  the probe is one gather (core.py:332, :349, :605-693);
+- several integer-like keys whose live ranges fit 63 bits together pack
+  into one word (``core.py:266-320``): every later pass is single-word,
+  bit-exact, since a packed word equals its int64 view;
+- a single integer-like key (or a packed word) with a small value range
+  and unique live keys builds a dense direct-address table
+  (``lut[key - base] = build row``): the probe is one gather (core.py:332,
+  :349-413, :605-693); when the join needs no pairs (semi/anti probes),
+  duplicate keys keep the dense table as an existence table
+  (``exists_lut``) and the build is never sorted (core.py:395-412, :708-717);
 - otherwise the build is clustered by its canonical key words (live rows
   first; a stable library sort, the counterpart of the ``lax.sort`` the JAX
   package uses here) and probed by branchless lexicographic binary search:
   a unique build takes one lower bound per probe row, a duplicate-keyed
   build a [lower, upper) range per row that expands into pair chunks with
-  one count read per probe batch (core.py:695-860).
+  one count read per probe batch (core.py:695-860), or, for semi/anti,
+  marks the probe rows whose range is not empty (core.py:720-775).
 
 SQL null semantics: a NULL in any key never matches.
 """
@@ -34,15 +41,20 @@ from auron_tpu_torch.ops.uwords import flip
 
 INNER = "inner"
 LEFT = "left"
+LEFT_SEMI = "left_semi"
+LEFT_ANTI = "left_anti"
 
 #: pair slots per emitted chunk (same as auron_tpu)
 _EXPAND_CHUNK = 1 << 20
 
 _LUT_KINDS = (T.TypeKind.INT8, T.TypeKind.INT16, T.TypeKind.INT32, T.TypeKind.INT64,
               T.TypeKind.DATE32, T.TypeKind.TIMESTAMP)
+_PACKABLE_KINDS = _LUT_KINDS + (T.TypeKind.BOOL,)
 
 
 def join_output_schema(left: T.Schema, right: T.Schema, join_type: str) -> T.Schema:
+    if join_type in (LEFT_SEMI, LEFT_ANTI):
+        return left
     if join_type not in (INNER, LEFT):
         raise NotImplementedError(f"{join_type} joins are not in this slice of the port")
     lf = [T.Field(f.name, f.dtype, True) for f in left.fields]
@@ -58,6 +70,19 @@ class PreparedBuild:
     unique: bool = False
     lut: torch.Tensor | None = None  # lut[key - lut_base] = row or -1
     lut_base: int = 0
+    # duplicate-keyed build probed only for existence: exists_lut[key - lut_base]
+    exists_lut: torch.Tensor | None = None
+    # multi-key packing: ``words`` is one packed word; probes pack with it
+    pack: "PackSpec | None" = None
+
+
+@dataclass(frozen=True)
+class PackSpec:
+    """Multi-key -> one-word packing from the build side's live ranges."""
+
+    mins: tuple  # signed per-key minimum
+    maxs: tuple  # signed per-key maximum
+    shifts: tuple  # left shift per key (leading key highest)
 
 
 def key_columns(batch: Batch, key_exprs: list[ir.Expr]) -> list[ColumnVal]:
@@ -74,8 +99,68 @@ def canon_words(vals: list[ColumnVal]) -> tuple[list[torch.Tensor], torch.Tensor
     return words, valid
 
 
+def _live_minmax(words: list[torch.Tensor], sel: torch.Tensor) -> tuple[int, list, list]:
+    """(live rows, per-word signed minima, maxima) over the live rows, one
+    host read."""
+    big_i = torch.iinfo(torch.int64)
+    stats = [sel.sum()]
+    for w in words:
+        stats += [torch.where(sel, w, torch.full_like(w, big_i.max)).min(),
+                  torch.where(sel, w, torch.full_like(w, big_i.min)).max()]
+    flat = torch.stack(stats).tolist()
+    return flat[0], flat[1::2], flat[2::2]
+
+
+def maybe_pack(vals: list[ColumnVal], words: list[torch.Tensor], sel) -> PackSpec | None:
+    """Multi-integer-key packing from the build side's live ranges
+    (``_maybe_pack``, core.py:266-288): None for one key, a key of another
+    type, no live rows, or ranges wider than 63 bits together."""
+    if len(words) < 2:
+        return None
+    for cv in vals:
+        if cv.dtype.kind not in _PACKABLE_KINDS or cv.dtype.is_dict_encoded:
+            return None
+    _, mins, maxs = _live_minmax(words, sel)
+    if any(mn > mx for mn, mx in zip(mins, maxs)):
+        return None
+    bits = [max(int(mx - mn).bit_length(), 1) for mn, mx in zip(mins, maxs)]
+    if sum(bits) > 63:
+        return None
+    shifts, acc = [], 0
+    for b in reversed(bits):  # the last key sits in the low bits
+        shifts.append(acc)
+        acc += b
+    return PackSpec(tuple(mins), tuple(maxs), tuple(reversed(shifts)))
+
+
+def pack_words(words: list[torch.Tensor], valid, spec: PackSpec):
+    """(packed word, valid) of key words under a build's PackSpec
+    (``_pack_probe_words_jit``, core.py:291-307): a row with a key outside
+    the build's range can never match and turns invalid (its clamped word
+    may alias a real build key)."""
+    in_range = None
+    acc = torch.zeros_like(words[0])
+    for w, mn, mx, sh in zip(words, spec.mins, spec.maxs, spec.shifts):
+        ok = (w >= mn) & (w <= mx)
+        in_range = ok if in_range is None else (in_range & ok)
+        acc = acc | ((w - mn).clamp(min=0) << sh)
+    return acc, (in_range if valid is None else (valid & in_range))
+
+
+def probe_words(build: PreparedBuild, vals: list[ColumnVal]):
+    """Canonical probe words (packed with the build's spec when it packed)
+    and the all-keys-valid mask."""
+    words, valid = canon_words(vals)
+    if build.pack is not None:
+        packed, valid = pack_words(words, valid, build.pack)
+        words = [torch.where(valid, packed, torch.zeros_like(packed))]
+    return words, valid
+
+
 def prepare_build(batches: list[Batch], key_exprs: list[ir.Expr], schema: T.Schema,
-                  device) -> PreparedBuild:
+                  device, need_pairs: bool = True) -> PreparedBuild:
+    """``need_pairs=False`` (semi/anti probes that only test existence)
+    lets a duplicate-keyed build stay unsorted behind an existence table."""
     if any(e.dtype_of(schema).is_dict_encoded for e in key_exprs):
         raise NotImplementedError("dictionary-encoded join keys are not in this slice")
     big = device_concat(batches) if batches else Batch.empty(schema, device=device)
@@ -85,16 +170,17 @@ def prepare_build(batches: list[Batch], key_exprs: list[ir.Expr], schema: T.Sche
     cap = big.capacity
     dev = sel.device
 
-    if len(words) == 1 and vals[0].dtype.kind in _LUT_KINDS:
+    pack = maybe_pack(vals, words, sel) if cap > 0 else None
+    if pack is not None:
+        words = [pack_words(words, None, pack)[0]]
+
+    if cap > 0 and len(words) == 1 and vals[0].dtype.kind in _LUT_KINDS:
         s = words[0]
-        big_i = torch.iinfo(torch.int64)
-        n_live, kmin, kmax = torch.stack([
-            sel.sum(),
-            torch.where(sel, s, torch.full_like(s, big_i.max)).min(),
-            torch.where(sel, s, torch.full_like(s, big_i.min)).max(),
-        ]).tolist()
+        n_live, (kmin,), (kmax,) = _live_minmax([s], sel)
+        # more live rows than slots means duplicates: a pairs build cannot be unique
+        cannot_be_unique = n_live > kmax - kmin + 1
         if (n_live > 0 and 0 <= kmax - kmin < min(max(4 * cap, 1 << 16), 1 << 22)
-                and n_live <= kmax - kmin + 1):
+                and not (need_pairs and cannot_be_unique)):
             size = bucket_capacity(kmax - kmin + 1)
             slot = torch.where(sel, s - kmin, torch.full_like(s, size))
             counts = torch.zeros(size + 1, dtype=torch.int32, device=dev)
@@ -103,7 +189,10 @@ def prepare_build(batches: list[Batch], key_exprs: list[ir.Expr], schema: T.Sche
                 lut = torch.full((size + 1,), -1, dtype=torch.int64, device=dev)
                 lut.scatter_(0, slot, torch.arange(cap, device=dev))
                 return PreparedBuild(big, [s], n_live, unique=True, lut=lut[:size],
-                                     lut_base=kmin)
+                                     lut_base=kmin, pack=pack)
+            if not need_pairs:
+                return PreparedBuild(big, [s], n_live, exists_lut=counts[:size] > 0,
+                                     lut_base=kmin, pack=pack)
     # sorted map: cluster by (dead, *words) with a stable sort
     dead = torch.where(sel, 0, 1).to(torch.int64)
     order = bitonic.lexsort((dead, *words))
@@ -117,7 +206,7 @@ def prepare_build(batches: list[Batch], key_exprs: list[ir.Expr], schema: T.Sche
         for w in sorted_words:
             dup &= w[1:] == w[:-1]
         unique = not bool((dup & live[1:]).any())
-    return PreparedBuild(clustered, sorted_words, n_live, unique=unique)
+    return PreparedBuild(clustered, sorted_words, n_live, unique=unique, pack=pack)
 
 
 def _lex_search(build_words, probe_words, n: int, or_equal: bool) -> torch.Tensor:
@@ -166,6 +255,19 @@ def probe_ranges(build: PreparedBuild, probe_words, ok) -> tuple[torch.Tensor, t
     lo = _lex_search(build.words, probe_words, build.n_live, or_equal=False)
     hi = _lex_search(build.words, probe_words, build.n_live, or_equal=True)
     return lo, torch.where(ok, hi - lo, torch.zeros_like(lo))
+
+
+def probe_mark(build: PreparedBuild, probe_words, ok) -> torch.Tensor:
+    """Probe rows with at least one build match (semi/anti, no pairs):
+    one gather from the existence table, or a non-empty [lower, upper)
+    range in the sorted map (``_probe_exists_jit`` / ``_probe_mark_jit``)."""
+    if build.exists_lut is not None:
+        size = build.exists_lut.shape[0]
+        idx = probe_words[0] - build.lut_base
+        in_range = (idx >= 0) & (idx < size)
+        return ok & in_range & build.exists_lut[idx.clamp(0, size - 1)]
+    _, counts = probe_ranges(build, probe_words, ok)
+    return counts > 0
 
 
 def expand_pairs(pcap: int, bcap: int, lo: torch.Tensor, counts: torch.Tensor):

@@ -1,7 +1,8 @@
-"""Equi-join driver (port of the inner and left-outer paths of
-``auron_tpu/exec/joins/driver.py``): runs one prepared build side against
-a stream of probe batches. Output columns are (left ++ right), subset by
-the optional column-pruning ``projection``.
+"""Equi-join driver (port of the inner, left-outer, left-semi and
+left-anti paths of ``auron_tpu/exec/joins/driver.py``): runs one prepared
+build side against a stream of probe batches. Output columns are (left ++
+right), or the left side's alone for semi/anti, subset by the optional
+column-pruning ``projection``.
 
 A unique build emits one batch per probe batch with exact compaction: the
 live count is read once per batch, and when the output would fill less than
@@ -35,10 +36,14 @@ class EquiJoinDriver:
                  projection: list[int] | None = None):
         assert build_side in ("left", "right")
         if condition is not None or not (
-                join_type == core.INNER or (join_type == core.LEFT and build_side == "right")):
+                join_type == core.INNER
+                or (join_type in (core.LEFT, core.LEFT_SEMI, core.LEFT_ANTI)
+                    and build_side == "right")):
             raise NotImplementedError(
-                "only inner equi-joins and left joins with the build on the right, "
-                "without a residual condition, are in this slice")
+                f"{join_type} join with the build on the {build_side}"
+                f"{' and a residual condition' if condition is not None else ''}: only "
+                "inner equi-joins, and left, left_semi and left_anti joins with the build "
+                "on the right, without a residual condition, are in this slice")
         self.left_schema, self.right_schema = left_schema, right_schema
         self.left_keys, self.right_keys = left_keys, right_keys
         self.join_type = join_type
@@ -49,11 +54,14 @@ class EquiJoinDriver:
         self.out_schema = T.Schema(tuple(full[i] for i in proj))
         self.probe_is_left = build_side == "right"
         self.probe_outer = join_type == core.LEFT
+        self.probe_mark = join_type in (core.LEFT_SEMI, core.LEFT_ANTI)
 
     def prepare(self, build_batches: list[Batch], device) -> core.PreparedBuild:
         schema = self.left_schema if self.build_side == "left" else self.right_schema
         keys = self.left_keys if self.build_side == "left" else self.right_keys
-        return core.prepare_build(build_batches, keys, schema, device)
+        # semi/anti probes only test existence: no pairs to enumerate
+        return core.prepare_build(build_batches, keys, schema, device,
+                                  need_pairs=not self.probe_mark)
 
     def _out_cols(self):
         """(output index, on probe side, side column index) per output column."""
@@ -65,12 +73,18 @@ class EquiJoinDriver:
 
     def probe_batch(self, build: core.PreparedBuild, pb: Batch, conf) -> Iterator[Batch]:
         probe_keys = self.left_keys if self.probe_is_left else self.right_keys
-        pwords, pvalid = core.canon_words(core.key_columns(pb, probe_keys))
+        pwords, pvalid = core.probe_words(build, core.key_columns(pb, probe_keys))
         ok_base = pb.device.sel & pvalid
         bb = build.batch
         if build.unique:
             bi, ok = core.probe_unique(build, pwords, ok_base)
-            yield self._emit_unique(pb, bb, bi, ok, conf)
+            if self.probe_mark:
+                yield self._emit_probe_marked(pb, ok)
+            else:
+                yield self._emit_unique(pb, bb, bi, ok, conf)
+            return
+        if self.probe_mark:
+            yield self._emit_probe_marked(pb, core.probe_mark(build, pwords, ok_base))
             return
         if build.n_live == 0:
             if self.probe_outer:
@@ -95,6 +109,20 @@ class EquiJoinDriver:
                 new_sel = torch.arange(out_cap, device=ok.device) < n_live
                 bi, ok, sel = bi[pidx], ok[pidx] & new_sel, new_sel
         return self._emit(pb, bb, pidx, bi, ok, sel)
+
+    def _emit_probe_marked(self, pb: Batch, matched) -> Batch:
+        """Semi: the matched probe rows; anti: the others."""
+        sel = pb.device.sel & (matched if self.join_type == core.LEFT_SEMI else ~matched)
+        return self._emit_probe_only(pb, sel)
+
+    def _emit_probe_only(self, pb: Batch, sel) -> Batch:
+        """The probe batch's columns (projected) with the selection ``sel``."""
+        cols = [ColumnVal(pb.col_values(i), pb.col_validity(i), f.dtype, pb.dicts[i])
+                for i, f in enumerate(pb.schema)]
+        if self.projection is not None:
+            cols = [cols[i] for i in self.projection]
+        out = batch_from_columns(cols, self.out_schema.names, sel)
+        return Batch(self.out_schema, out.device, out.dicts)
 
     def _emit_unmatched(self, pb: Batch, bb: Batch, sel) -> Batch:
         """Probe rows ``sel`` with NULL build columns (left join)."""

@@ -9,7 +9,8 @@ dictionary column's blocks merged onto one vocabulary), sealed into one
 batch (one host->device copy per column plane) once ``batch.size`` rows are
 pending. Providers: ``LocalFileBlockProvider``
 (one map output pair, with the pair-integrity check) and
-``MultiMapBlockProvider`` (every map output of an exchange).
+``MultiMapBlockProvider`` (every map output of an exchange, or a
+map-range slice of one partition for AQE skew splitting).
 """
 
 from __future__ import annotations
@@ -136,4 +137,11 @@ class MultiMapBlockProvider:
 
     def iter_payloads(self, partition: int) -> Iterator[bytes]:
         for p in self.providers:
+            yield from p.iter_payloads(partition)
+
+    def read_slice(self, partition: int, map_lo: int, map_hi: int) -> Iterator[bytes]:
+        """One partition's blocks from the map outputs [map_lo, map_hi): the
+        unit of an AQE skew split (a slice of the skewed side joins the full
+        other side; ``reader.py:303-310``)."""
+        for p in self.providers[map_lo:map_hi]:
             yield from p.iter_payloads(partition)

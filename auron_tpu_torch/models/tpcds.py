@@ -21,7 +21,17 @@
   with a ``MeshExchangeExec`` stage boundary, run by the planned-exchange
   driver (``parallel/mesh_driver.py``) over P logical partitions on one
   device, mesh or file transport; q3 then runs the lowered SQL q3's
-  single-task collect stage (``SortExec`` fetch 100 -> ``LimitExec``).
+  single-task collect stage (``SortExec`` fetch 100 -> ``LimitExec``);
+- the other shuffle-heavy gate classes, each over file shuffles through
+  ``_run_stages`` with a numpy oracle: ``run_q72_class`` (both facts
+  shuffled on item, a sort-merge join on (item, date) under
+  ``auron.smj.elide.sorts``), ``run_q95_class`` (left-semi joins below two
+  exchanges, a left-anti join above), ``run_q18_class``,
+  ``run_q14_class`` (two chained exchanges), ``run_q65_class`` and
+  ``run_q5_class`` (a union of two exchanges);
+- ``run_q72_mesh`` (q72 as one plan through the planned-exchange driver)
+  and ``run_skew_join`` (a hot-key join stage that AQE skew-join
+  splitting widens).
 
 Map tasks run one after another (the JAX package runs them on threads).
 """
@@ -179,12 +189,22 @@ def ingest_q42(data: TpcdsData, device="cuda", batch_rows: int = 1 << 20) -> dic
     }
 
 
-def collect(batches: list[Batch]) -> dict[str, np.ndarray]:
-    """Live rows of output batches as host columns (NULLs -> validity)."""
+def collect(batches: list[Batch], nulls: bool = False) -> dict[str, np.ndarray]:
+    """Live rows of output batches as host columns. A repeated column name
+    gets its position appended (a join's ``i``, ``i_2``); ``nulls`` adds
+    each column's validity as ``<name>_valid``."""
     cols: dict[str, list] = {}
     for b in batches:
-        for name, (v, _m) in b.to_numpy().items():
+        names, seen = [], set()
+        for i, n in enumerate(b.schema.names):
+            names.append(n if n not in seen else f"{n}_{i}")
+            seen.add(n)
+        named = Batch(T.Schema(tuple(T.Field(n, f.dtype, f.nullable)
+                                     for n, f in zip(names, b.schema))), b.device, b.dicts)
+        for name, (v, m) in named.to_numpy().items():
             cols.setdefault(name, []).append(v)
+            if nulls:
+                cols.setdefault(f"{name}_valid", []).append(m)
     return {k: np.concatenate(v) for k, v in cols.items()}
 
 
@@ -271,34 +291,54 @@ def add_timers(stats: dict, snapshot: dict) -> None:
         add_timers(stats, c)
 
 
-def _run_two_stage(map_plan, out_schema, key_cols, reduce_plan_of, resources, n_map, n_reduce,
-                   rid, work_dir, conf, device, stats) -> list[dict]:
-    """Map stage, then one reduce task per partition; returns the reduce
-    tasks' outputs as host columns. ``stats`` gets the stage walls."""
+def _run_stages(stages: list, reduce_plan_of, resources: dict, n_reduce: int, label: str,
+                work_dir, conf, device, stats, nulls: bool = False) -> list[dict]:
+    """Map stages hash-shuffled into files one after another, then one
+    reduce task per partition over ``reduce_plan_of(*readers)``; returns the
+    reduce tasks' outputs as host columns. A stage is a callable taking the
+    readers of the stages before it and returning (map plan, output schema,
+    key columns, map tasks, resource id). ``stats`` gets each stage's wall
+    (``stage_s``), their sum ``map_s``, ``reduce_s`` and the shuffle bytes."""
     from auron_tpu_torch.runtime.task import run_task
 
-    work = work_dir or tempfile.mkdtemp(prefix=f"auron_{rid}_")
+    work = work_dir or tempfile.mkdtemp(prefix=f"auron_{label}_")
     os.makedirs(work, exist_ok=True)
     stats = stats if stats is not None else {}
+    rids = []
     try:
-        t0 = time.perf_counter()
-        read = _shuffle_stage(map_plan, out_schema, key_cols, n_map, n_reduce, work, rid,
-                              resources, 1, conf, device, stats)
-        _sync(device)
+        readers = []
+        stage_s = stats.setdefault("stage_s", {})
+        for sid, stage in enumerate(stages, 1):
+            t0 = time.perf_counter()
+            plan, schema, keys, n_map, rid = stage(readers)
+            rids.append(rid)
+            readers.append(_shuffle_stage(plan, schema, keys, n_map, n_reduce, work, rid,
+                                          resources, sid, conf, device, stats))
+            _sync(device)
+            stage_s[rid] = time.perf_counter() - t0
         t1 = time.perf_counter()
-        reduce_plan = reduce_plan_of(read)
+        reduce_plan = reduce_plan_of(*readers)
         outs = []
         for r in range(n_reduce):
-            batches, metrics = run_task(reduce_plan, resources, 2, r, conf, device)
-            outs.append(collect(batches))
+            batches, metrics = run_task(reduce_plan, resources, len(stages) + 1, r, conf, device)
+            outs.append(collect(batches, nulls))
             add_timers(stats, metrics)
         _sync(device)
-        stats["map_s"], stats["reduce_s"] = t1 - t0, time.perf_counter() - t1
+        stats["map_s"] = sum(stage_s[r] for r in rids)
+        stats["reduce_s"] = time.perf_counter() - t1
         return outs
     finally:
-        resources.pop(rid, None)
+        for rid in rids:
+            resources.pop(rid, None)
         if work_dir is None:
             shutil.rmtree(work, ignore_errors=True)
+
+
+def _run_two_stage(map_plan, out_schema, key_cols, reduce_plan_of, resources, n_map, n_reduce,
+                   rid, work_dir, conf, device, stats) -> list[dict]:
+    """One map stage, then one reduce task per partition."""
+    return _run_stages([lambda _: (map_plan, out_schema, key_cols, n_map, rid)],
+                       reduce_plan_of, resources, n_reduce, rid, work_dir, conf, device, stats)
 
 
 def _concat(outs: list[dict], names: list[str], dtypes: list) -> dict[str, np.ndarray]:
@@ -555,13 +595,17 @@ def _run_mesh(tree, resources: dict, n_parts: int, device, conf, stats: dict | N
     driver = MeshQueryDriver(mesh, Configuration(conf or {}))
     outs = driver.run(tree, resources)
     if stats is not None:
-        (ex,) = driver.stats
-        stats.update({
-            "mode": ex.mode, "routing": ex.rows.tolist(), "slot_cap": ex.slot_cap,
-            "est_bytes_per_shard": ex.est_bytes_per_shard,
-            "coalesced_groups": ex.coalesced_groups,
+        exchanges = [{
+            "id": ex.exchange_id, "mode": ex.mode, "routing": ex.rows.tolist(),
+            "slot_cap": ex.slot_cap, "est_bytes_per_shard": ex.est_bytes_per_shard,
+            "coalesced_groups": ex.coalesced_groups, "skew_tasks": ex.skew_tasks,
             "map_s": driver.walls[f"{ex.exchange_id}.map_s"],
             "exchange_s": driver.walls[f"{ex.exchange_id}.exchange_s"],
+        } for ex in driver.stats]
+        if len(exchanges) == 1:  # one exchange: its figures at the top level
+            stats.update({k: v for k, v in exchanges[0].items() if k != "id"})
+        stats.update({
+            "exchanges": exchanges,
             "reduce_s": driver.walls["reduce_s"],
             "launches": {k: v - before[k] for k, v in partition_kernels.LAUNCHES.items()},
             "peak_bytes": (torch.cuda.max_memory_allocated()
@@ -605,3 +649,580 @@ def run_q3_mesh(data: TpcdsData | None = None, n_parts: int = 4, device="cuda",
         stats["collect_s"] = time.perf_counter() - t0
     return {"d_year": out["d_year"].astype(np.int32),
             "i_brand_id": out["i_brand_id"].astype(np.int32), "s": out["s"]}
+
+
+# ---------------------------------------------------------------------------
+# the shuffle-heavy gate classes (perf_gate.py HEAVY): q72, q95, q18, q14,
+# q65, q5, each in stages over file shuffles, with numpy oracles
+# ---------------------------------------------------------------------------
+
+
+def _fact_scan(rid: str):
+    from auron_tpu_torch.exec.basic import ResourceScanExec
+
+    return ResourceScanExec(STORE_SALES_SCHEMA, rid)
+
+
+def _aggs(*specs) -> list:
+    from auron_tpu_torch.exec.agg_exec import AggExpr
+
+    return [(AggExpr(func, expr), name) for func, expr, name in specs]
+
+
+def _partial(child, keys: list, aggs: list):
+    from auron_tpu_torch.exec.agg_exec import HashAggExec
+
+    return HashAggExec(child, keys, aggs, "partial")
+
+
+def _final(read, keys: list, aggs: list):
+    """The final aggregate of ``_partial(child, keys, aggs)``'s rows (its
+    key and aggregate expressions are positional)."""
+    from auron_tpu_torch.exec.agg_exec import HashAggExec
+
+    return HashAggExec(read, [(col(i), n) for i, (_, n) in enumerate(keys)], aggs, "final")
+
+
+def _sorted_by(got: dict, keys: list[str]) -> dict:
+    order = np.lexsort(tuple(got[k] for k in reversed(keys)))
+    return {k: v[order] for k, v in got.items()}
+
+
+def _group(keys: np.ndarray):
+    """(distinct keys ascending, inverse index) of an int64 key vector."""
+    uniq, inv = np.unique(keys, return_inverse=True)
+    return uniq, inv.reshape(-1)
+
+
+def _shuffle_one(plan, key_cols: list[int], n_map: int, rid: str):
+    """A map stage whose plan does not depend on earlier stages."""
+    return lambda _readers: (plan, plan.schema, key_cols, n_map, rid)
+
+
+# ---- q72-class: both facts shuffled on item, sort-merge join, aggregate ----
+
+#: q72's default SMJ input-sort elision (the JAX function's task conf)
+Q72_ELIDE_SORTS = "full"
+
+
+def q72_second_fact_rows(n: int) -> np.ndarray:
+    """Row indices of q72's second fact table: ``store_sales.sample(frac=0.5,
+    random_state=3)`` of pandas, without pandas."""
+    return np.random.RandomState(3).choice(n, size=round(0.5 * n), replace=False)
+
+
+def q72_second_fact(data: TpcdsData) -> Table:
+    ss = data.store_sales
+    rows = q72_second_fact_rows(len(ss))
+    return Table(ss.schema, {c: v[rows] for c, v in ss.columns.items()},
+                 {c: v[rows] for c, v in ss.valid.items()})
+
+
+def ingest_q72(data: TpcdsData, n_map: int, device="cuda", fact=None) -> dict:
+    """Device-resident inputs: both fact tables in ``n_map`` partitions."""
+    return {"fact": fact if fact is not None else to_batches(data.store_sales, n_map,
+                                                              device=device),
+            "fact2": to_batches(q72_second_fact(data), n_map, device=device)}
+
+
+def _elide_mode(conf: dict | None) -> str:
+    from auron_tpu_torch.plan.optimizer import SMJ_ELIDE_SORTS_KEY
+
+    mode = (conf or {}).get(SMJ_ELIDE_SORTS_KEY, Q72_ELIDE_SORTS)
+    if mode not in ("build", "full", "off"):
+        raise ValueError(f"{SMJ_ELIDE_SORTS_KEY} must be build, full or off, got {mode!r}")
+    return mode
+
+
+def _smj_side(child, keys: list, mode: str, side: str):
+    """``child``, or a SortExec on ``keys`` over it unless the elision mode
+    drops this side's sort (build: the right side's; full: both)."""
+    from auron_tpu_torch.exec.sort_exec import SortExec
+
+    if mode == "full" or (mode == "build" and side == "right"):
+        return child
+    return SortExec(child, keys, [SortSpec() for _ in keys])
+
+
+def q72_join_tree(lread, rread, mode: str = Q72_ELIDE_SORTS):
+    """Both facts' shuffled rows, each sorted on (item, date) unless
+    elided, sort-merge joined on (item, date), then the partial aggregate
+    by item: the pruned tree of the JAX q72 reduce plan (join projection
+    [item, qty, right price])."""
+    from auron_tpu_torch.exec.basic import ProjectExec
+    from auron_tpu_torch.exec.joins.smj import SortMergeJoinExec
+
+    keys = [col(1), col(0)]
+    smj = SortMergeJoinExec(_smj_side(lread, keys, mode, "left"),
+                            _smj_side(rread, keys, mode, "right"), keys, [col(1), col(0)],
+                            "inner", projection=[1, 3, 9])
+    proj = ProjectExec(smj, [col(0), col(1), col(2)], ["item", "qty", "price"])
+    return _partial(proj, [(col(0), "item")], _q72_aggs())
+
+
+def _q72_aggs() -> list:
+    return _aggs(("count_star", None, "cnt"), ("sum", col(1), "qty"), ("avg", col(2), "p_avg"))
+
+
+def q72_reduce_tree(lread, rread, mode: str = Q72_ELIDE_SORTS):
+    return _final(q72_join_tree(lread, rread, mode), [(col(0), "item")], _q72_aggs())
+
+
+def run_q72_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 4,
+                  work_dir: str | None = None, device="cuda", conf: dict | None = None,
+                  ingested: dict | None = None, stats: dict | None = None) -> dict:
+    """SELECT ss.ss_item_sk item, count(*) cnt, sum(ss.ss_quantity) qty,
+    avg(sr.ss_ext_sales_price) p_avg FROM store_sales ss JOIN store_sales2 sr
+    ON ss.ss_item_sk = sr.ss_item_sk AND ss.ss_sold_date_sk =
+    sr.ss_sold_date_sk GROUP BY item: both sides shuffled on item, each
+    reduce task sort-merge joins its co-partitioned slices and aggregates.
+    ``conf`` may set ``auron.smj.elide.sorts`` (default full, as the JAX
+    function's tasks). Returns {item, cnt, qty, p_avg} sorted by item."""
+    if ingested is None:
+        ingested = ingest_q72(data, n_map, device)
+    mode = _elide_mode(conf)
+    n_map = len(ingested["fact"])
+    resources = {"q72_l": ingested["fact"], "q72_r": ingested["fact2"]}
+    outs = _run_stages(
+        [_shuffle_one(_fact_scan("q72_l"), [1], n_map, "q72_lb"),
+         _shuffle_one(_fact_scan("q72_r"), [1], n_map, "q72_rb")],
+        lambda lr, rr: q72_reduce_tree(lr, rr, mode), resources, n_reduce, "q72",
+        work_dir, Configuration(conf or {}), device, stats)
+    got = _concat(outs, ["item", "cnt", "qty", "p_avg"],
+                  [np.int64, np.int64, np.int64, np.float64])
+    return _sorted_by(got, ["item"])
+
+
+def q72_class_oracle(data: TpcdsData) -> dict:
+    ss, sr = data.store_sales.columns, q72_second_fact(data).columns
+    base = int(min(ss["ss_sold_date_sk"].min(initial=0), sr["ss_sold_date_sk"].min(initial=0)))
+
+    def pair_key(t):
+        return t["ss_item_sk"] * (1 << 24) + (t["ss_sold_date_sk"] - base)
+
+    rkeys, rinv = _group(pair_key(sr))
+    r_cnt = np.bincount(rinv, minlength=len(rkeys))
+    r_sum = np.bincount(rinv, weights=sr["ss_ext_sales_price"], minlength=len(rkeys))
+    lk = pair_key(ss)
+    pos = np.clip(np.searchsorted(rkeys, lk), 0, max(len(rkeys) - 1, 0))
+    hit = (rkeys[pos] == lk) if len(rkeys) else np.zeros(len(lk), bool)
+    items, inv = _group(ss["ss_item_sk"][hit])
+    n = len(items)
+    cnt = np.bincount(inv, weights=r_cnt[pos[hit]], minlength=n).astype(np.int64)
+    qty = np.bincount(inv, weights=ss["ss_quantity"][hit] * r_cnt[pos[hit]],
+                      minlength=n).astype(np.int64)
+    p_sum = np.bincount(inv, weights=r_sum[pos[hit]], minlength=n)
+    return {"item": items, "cnt": cnt, "qty": qty, "p_avg": p_sum / cnt}
+
+
+# ---- q95-class: semi joins below the exchanges, anti join above ----------
+
+Q95_BAD_SCHEMA = _schema(("c", T.INT64))
+
+
+def ingest_q95(data: TpcdsData, n_map: int, device="cuda", fact=None) -> dict:
+    return {"fact": fact if fact is not None else to_batches(data.store_sales, n_map,
+                                                              device=device),
+            "item": to_batches(data.item, 1, device=device)[0]}
+
+
+def q95_map_trees():
+    """(fact rows whose item is in category 1, customers of fact rows whose
+    item is in category 2): left semi broadcast joins below the customer
+    exchange, as the host engine plans them."""
+    from auron_tpu_torch.exec.basic import FilterExec, ProjectExec, ResourceScanExec
+    from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
+    from auron_tpu_torch.exprs.ir import BinaryOp
+
+    def category(c: int):
+        return FilterExec(ResourceScanExec(ITEM_SCHEMA, "q95_item"),
+                          [BinaryOp("eq", col(2), lit(c))])
+
+    semi = BroadcastHashJoinExec(_fact_scan("q95_fact"), category(1), [col(1)], [col(0)],
+                                 "left_semi", build_side="right",
+                                 cached_build_id="q95_cat1_build")
+    bad = ProjectExec(
+        BroadcastHashJoinExec(_fact_scan("q95_fact"), category(2), [col(1)], [col(0)],
+                              "left_semi", build_side="right",
+                              cached_build_id="q95_cat2_build", projection=[2]),
+        [col(0)], ["c"])
+    return semi, bad
+
+
+def q95_reduce_tree(read, bad):
+    """read LEFT ANTI JOIN bad customers ON customer, counted per customer
+    (a NULL customer never matches, so its rows stay)."""
+    from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
+
+    anti = BroadcastHashJoinExec(read, bad, [col(2)], [col(0)], "left_anti",
+                                 build_side="right", projection=[2])
+    keys, aggs = [(col(0), "customer")], _aggs(("count_star", None, "cnt"))
+    return _final(_partial(anti, keys, aggs), keys, aggs)
+
+
+def run_q95_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 4,
+                  work_dir: str | None = None, device="cuda", conf: dict | None = None,
+                  ingested: dict | None = None, stats: dict | None = None) -> dict:
+    """EXISTS / NOT EXISTS (q95-class): rows of customers who bought an item
+    of category 1 and never one of category 2, counted per customer.
+    Returns {customer, customer_valid, cnt}, NULL customer last."""
+    if ingested is None:
+        ingested = ingest_q95(data, n_map, device)
+    n_map = len(ingested["fact"])
+    resources = {"q95_fact": ingested["fact"],
+                 "q95_item": [ingested["item"]] * max(n_map, n_reduce)}
+    semi, bad = q95_map_trees()
+    outs = _run_stages(
+        [_shuffle_one(semi, [2], n_map, "q95_blocks"),
+         _shuffle_one(bad, [0], n_map, "q95_bad")],
+        q95_reduce_tree, resources, n_reduce, "q95", work_dir, Configuration(conf or {}),
+        device, stats, nulls=True)
+    got = _concat(outs, ["customer", "customer_valid", "cnt"], [np.int64, bool, np.int64])
+    got["customer"] = np.where(got["customer_valid"], got["customer"], 0)
+    return _q95_order(got)
+
+
+def _q95_order(got: dict) -> dict:
+    order = np.lexsort((got["customer"], ~got["customer_valid"]))
+    return {k: v[order] for k, v in got.items()}
+
+
+def q95_class_oracle(data: TpcdsData) -> dict:
+    ss, it = data.store_sales, data.item.columns
+    item, cust = ss.columns["ss_item_sk"], ss.columns["ss_customer_sk"]
+    valid = ss.validity("ss_customer_sk")
+    cat1 = np.isin(item, it["i_item_sk"][it["i_category_id"] == 1])
+    cat2 = np.isin(item, it["i_item_sk"][it["i_category_id"] == 2])
+    bad = np.unique(cust[cat2 & valid])
+    keep = cat1 & ~(valid & np.isin(cust, bad))
+    keys, inv = _group(np.where(valid[keep], cust[keep], -1))
+    cnt = np.bincount(inv, minlength=len(keys)).astype(np.int64)
+    got = {"customer": np.where(keys == -1, 0, keys), "customer_valid": keys != -1, "cnt": cnt}
+    return _q95_order(got)
+
+
+# ---- q18-class: agg-heavy, two joins, shuffle on two int32 keys ----------
+
+
+def q18_map_tree():
+    """fact JOIN date_dim JOIN item -> (cat, d_year, qty, price) -> partial
+    avg(qty), avg(price), sum(price), count(*) by (cat, d_year): the pruned
+    tree of the JAX q18 map plan."""
+    from auron_tpu_torch.exec.basic import ProjectExec, ResourceScanExec
+    from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
+
+    j1 = BroadcastHashJoinExec(_fact_scan("q18_fact"), ResourceScanExec(DATE_DIM_SCHEMA, "q18_dd"),
+                               [col(0)], [col(0)], "inner", build_side="right",
+                               cached_build_id="q18_dd_b", projection=[1, 3, 4, 6])
+    j2 = BroadcastHashJoinExec(j1, ResourceScanExec(ITEM_SCHEMA, "q18_item"), [col(0)],
+                               [col(0)], "inner", build_side="right",
+                               cached_build_id="q18_it_b", projection=[1, 2, 3, 6])
+    proj = ProjectExec(j2, [col(3), col(2), col(0), col(1)], ["cat", "d_year", "qty", "price"])
+    return _partial(proj, _Q18_KEYS, _q18_aggs())
+
+
+_Q18_KEYS = [(col(0), "cat"), (col(1), "d_year")]
+
+
+def _q18_aggs() -> list:
+    return _aggs(("avg", col(2), "q_avg"), ("avg", col(3), "p_avg"), ("sum", col(3), "p_sum"),
+                 ("count_star", None, "cnt"))
+
+
+def run_q18_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 4,
+                  work_dir: str | None = None, device="cuda", conf: dict | None = None,
+                  ingested: dict | None = None, stats: dict | None = None) -> dict:
+    """SELECT i_category_id cat, d_year, avg(qty), avg(price), sum(price),
+    count(*) FROM fact JOIN date_dim JOIN item GROUP BY cat, d_year, with a
+    file shuffle on (cat, d_year) between the partial and final aggregate.
+    Returns {cat, d_year, q_avg, p_avg, p_sum, cnt} sorted by (cat, d_year)."""
+    if ingested is None:
+        ingested = ingest_q3(data, n_map, device)
+    n_map = len(ingested["fact"])
+    resources = {"q18_fact": ingested["fact"], "q18_dd": [ingested["dd"]] * n_map,
+                 "q18_item": [ingested["item"]] * n_map}
+    outs = _run_stages([_shuffle_one(q18_map_tree(), [0, 1], n_map, "q18_blocks")],
+                       lambda r: _final(r, _Q18_KEYS, _q18_aggs()), resources, n_reduce, "q18",
+                       work_dir, Configuration(conf or {}), device, stats)
+    got = _concat(outs, ["cat", "d_year", "q_avg", "p_avg", "p_sum", "cnt"],
+                  [np.int32, np.int32, np.float64, np.float64, np.float64, np.int64])
+    return _sorted_by(got, ["cat", "d_year"])
+
+
+def q18_class_oracle(data: TpcdsData) -> dict:
+    ss, dd, it = data.store_sales.columns, data.date_dim.columns, data.item.columns
+    drow, dhit = _lookup(dd["d_date_sk"], ss["ss_sold_date_sk"])
+    irow, ihit = _lookup(it["i_item_sk"], ss["ss_item_sk"])
+    hit = dhit & ihit
+    cat = it["i_category_id"][irow[hit]].astype(np.int64)
+    year = dd["d_year"][drow[hit]].astype(np.int64)
+    keys, inv = _group(cat * (1 << 32) + year)
+    n = len(keys)
+    cnt = np.bincount(inv, minlength=n).astype(np.int64)
+    qty = np.bincount(inv, weights=ss["ss_quantity"][hit], minlength=n)
+    price = np.bincount(inv, weights=ss["ss_ext_sales_price"][hit], minlength=n)
+    return {"cat": (keys >> 32).astype(np.int32), "d_year": (keys & 0xFFFFFFFF).astype(np.int32),
+            "q_avg": qty / cnt, "p_avg": price / cnt, "p_sum": price, "cnt": cnt}
+
+
+# ---- q14-class: COUNT(DISTINCT) as two chained shuffles ------------------
+
+_Q14_KEYS1 = [(col(0), "y"), (col(1), "i")]
+_Q14_KEYS2 = [(col(0), "y")]
+
+
+def q14_map_tree():
+    """fact JOIN date_dim -> (y, i) -> partial count(*) by (y, i)."""
+    from auron_tpu_torch.exec.basic import ProjectExec, ResourceScanExec
+    from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
+
+    j = BroadcastHashJoinExec(_fact_scan("q14_fact"), ResourceScanExec(DATE_DIM_SCHEMA, "q14_dd"),
+                              [col(0)], [col(0)], "inner", build_side="right",
+                              projection=[1, 6])
+    proj = ProjectExec(j, [col(1), col(0)], ["y", "i"])
+    return _partial(proj, _Q14_KEYS1, _aggs(("count_star", None, "c")))
+
+
+def q14_regroup_tree(read1):
+    """final count by (y, i), then partial count of its rows by y."""
+    f1 = _final(read1, _Q14_KEYS1, _aggs(("count_star", None, "c")))
+    return _partial(f1, _Q14_KEYS2, _aggs(("count_star", None, "d_items")))
+
+
+def run_q14_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 4,
+                  work_dir: str | None = None, device="cuda", conf: dict | None = None,
+                  ingested: dict | None = None, stats: dict | None = None) -> dict:
+    """COUNT(DISTINCT item) per year, Spark's distinct-aggregate rewrite: a
+    group-by on (year, item) across one shuffle, regrouped by year across
+    a second (its map tasks are the first's reduce partitions). Returns
+    {y, d_items} sorted by y."""
+    if ingested is None:
+        ingested = ingest_q3(data, n_map, device)
+    n_map = len(ingested["fact"])
+    resources = {"q14_fact": ingested["fact"], "q14_dd": [ingested["dd"]] * max(n_map, n_reduce)}
+    def regroup(readers):
+        plan = q14_regroup_tree(readers[0])
+        return plan, plan.schema, [0], n_reduce, "q14_ex1"
+
+    outs = _run_stages(
+        [_shuffle_one(q14_map_tree(), [0, 1], n_map, "q14_ex0"), regroup],
+        lambda _r1, r2: _final(r2, _Q14_KEYS2, _aggs(("count_star", None, "d_items"))),
+        resources, n_reduce, "q14", work_dir, Configuration(conf or {}), device, stats)
+    got = _concat(outs, ["y", "d_items"], [np.int32, np.int64])
+    return _sorted_by(got, ["y"])
+
+
+def q14_class_oracle(data: TpcdsData) -> dict:
+    ss, dd = data.store_sales.columns, data.date_dim.columns
+    drow, dhit = _lookup(dd["d_date_sk"], ss["ss_sold_date_sk"])
+    year = dd["d_year"][drow[dhit]].astype(np.int64)
+    pairs = np.unique(year * (1 << 32) + ss["ss_item_sk"][dhit])
+    y, d_items = np.unique(pairs >> 32, return_counts=True)
+    return {"y": y.astype(np.int32), "d_items": d_items.astype(np.int64)}
+
+
+# ---- q65-class: two aggregated subqueries over two shuffles, joined ------
+
+
+def q65_map_trees():
+    """(partial avg(price) by item, partial max(price) by item)."""
+    keys = [(col(1), "i")]
+    return (_partial(_fact_scan("q65_fact"), keys, _aggs(("avg", col(4), "a"))),
+            _partial(_fact_scan("q65_fact"), keys, _aggs(("max", col(4), "m"))))
+
+
+def q65_reduce_tree(read_a, read_b):
+    """final avg JOIN final max ON item, WHERE m > 2 a."""
+    from auron_tpu_torch.exec.basic import FilterExec
+    from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
+    from auron_tpu_torch.exprs.ir import BinaryOp
+
+    keys = [(col(0), "i")]
+    j = BroadcastHashJoinExec(_final(read_a, keys, _aggs(("avg", col(4), "a"))),
+                              _final(read_b, keys, _aggs(("max", col(4), "m"))),
+                              [col(0)], [col(0)], "inner", build_side="right")
+    return FilterExec(j, [BinaryOp("gt", col(3), BinaryOp("mul", col(1), lit(2.0)))])
+
+
+def run_q65_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 4,
+                  work_dir: str | None = None, device="cuda", conf: dict | None = None,
+                  ingested: dict | None = None, stats: dict | None = None) -> dict:
+    """Items whose max price exceeds twice their average: per-item avg and
+    max arrive over two separate shuffles into one join stage. Returns
+    {i, a, m} sorted by i."""
+    if ingested is None:
+        ingested = {"fact": to_batches(data.store_sales, n_map, device=device)}
+    n_map = len(ingested["fact"])
+    resources = {"q65_fact": ingested["fact"]}
+    pa_avg, pa_max = q65_map_trees()
+    outs = _run_stages(
+        [_shuffle_one(pa_avg, [0], n_map, "q65_exA"), _shuffle_one(pa_max, [0], n_map, "q65_exB")],
+        q65_reduce_tree, resources, n_reduce, "q65", work_dir, Configuration(conf or {}), device,
+        stats)
+    got = _concat(outs, ["i", "a", "m"], [np.int64, np.float64, np.float64])
+    return _sorted_by(got, ["i"])
+
+
+def q65_class_oracle(data: TpcdsData) -> dict:
+    ss = data.store_sales.columns
+    items, inv = _group(ss["ss_item_sk"])
+    price = ss["ss_ext_sales_price"]
+    a = (np.bincount(inv, weights=price, minlength=len(items))
+         / np.bincount(inv, minlength=len(items)))
+    m = np.full(len(items), -np.inf)
+    np.maximum.at(m, inv, price)
+    keep = m > 2.0 * a
+    return {"i": items[keep], "a": a[keep], "m": m[keep]}
+
+
+# ---- q5-class: UNION of two separately shuffled streams, re-aggregated ---
+
+_Q5_KEYS = [(col(1), "i")]
+
+
+def _q5_aggs() -> list:
+    return _aggs(("count_star", None, "c"), ("sum", col(4), "s"))
+
+
+def q5_map_trees():
+    """(partial count, sum(price) by item of the cheap rows, the same of
+    the others): the partial aggregates sit below the exchanges."""
+    from auron_tpu_torch.exec.basic import FilterExec
+    from auron_tpu_torch.exprs.ir import BinaryOp
+
+    cheap = FilterExec(_fact_scan("q5_fact"), [BinaryOp("lteq", col(4), lit(50.0))])
+    pricey = FilterExec(_fact_scan("q5_fact"), [BinaryOp("gt", col(4), lit(50.0))])
+    return _partial(cheap, _Q5_KEYS, _q5_aggs()), _partial(pricey, _Q5_KEYS, _q5_aggs())
+
+
+def q5_reduce_tree(read_a, read_b):
+    from auron_tpu_torch.exec.basic import UnionExec
+
+    return _final(UnionExec([read_a, read_b]), _Q5_KEYS, _q5_aggs())
+
+
+def run_q5_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 4,
+                 work_dir: str | None = None, device="cuda", conf: dict | None = None,
+                 ingested: dict | None = None, stats: dict | None = None) -> dict:
+    """UNION ALL of cheap and expensive sales, each partially aggregated by
+    item and shuffled through its own exchange, final-aggregated together.
+    Returns {i, c, s} sorted by i."""
+    if ingested is None:
+        ingested = {"fact": to_batches(data.store_sales, n_map, device=device)}
+    n_map = len(ingested["fact"])
+    resources = {"q5_fact": ingested["fact"]}
+    p_a, p_b = q5_map_trees()
+    outs = _run_stages(
+        [_shuffle_one(p_a, [0], n_map, "q5_exA"), _shuffle_one(p_b, [0], n_map, "q5_exB")],
+        q5_reduce_tree, resources, n_reduce, "q5", work_dir, Configuration(conf or {}), device,
+        stats)
+    got = _concat(outs, ["i", "c", "s"], [np.int64, np.int64, np.float64])
+    return _sorted_by(got, ["i"])
+
+
+def q5_class_oracle(data: TpcdsData) -> dict:
+    ss = data.store_sales.columns
+    items, inv = _group(ss["ss_item_sk"])
+    return {"i": items, "c": np.bincount(inv, minlength=len(items)).astype(np.int64),
+            "s": np.bincount(inv, weights=ss["ss_ext_sales_price"], minlength=len(items))}
+
+
+# ---------------------------------------------------------------------------
+# sort-merge join stages through the planned-exchange driver
+# ---------------------------------------------------------------------------
+
+
+def _exchange(child, key_cols: list[int], n_parts: int, ex_id: str):
+    from auron_tpu_torch.exec.shuffle.partitioning import HashPartitioning
+    from auron_tpu_torch.parallel.mesh_driver import MeshExchangeExec
+
+    return MeshExchangeExec(child, HashPartitioning([col(c) for c in key_cols], n_parts), ex_id)
+
+
+def q72_mesh_tree(n_parts: int = 4, mode: str = Q72_ELIDE_SORTS):
+    """q72 as one plan: both facts through a mesh exchange on item into the
+    SMJ stage, its partial aggregate through a third exchange on item, then
+    the final aggregate."""
+    join = q72_join_tree(_exchange(_fact_scan("q72_l"), [1], n_parts, "q72_ex_l"),
+                         _exchange(_fact_scan("q72_r"), [1], n_parts, "q72_ex_r"), mode)
+    return _final(_exchange(join, [0], n_parts, "q72_ex2"), [(col(0), "item")], _q72_aggs())
+
+
+def run_q72_mesh(data: TpcdsData | None = None, n_parts: int = 4, device="cuda",
+                 conf: dict | None = None, stats: dict | None = None,
+                 ingested: dict | None = None) -> dict:
+    """The q72-class query through the planned-exchange driver; returns
+    {item, cnt, qty, p_avg} sorted by item, as ``run_q72_class``."""
+    if ingested is None:
+        ingested = ingest_q72(data, n_parts, device)
+    resources = {"q72_l": ingested["fact"], "q72_r": ingested["fact2"]}
+    outs = _run_mesh(q72_mesh_tree(n_parts, _elide_mode(conf)), resources, n_parts, device,
+                     conf, stats)
+    got = _concat([collect(o) for o in outs], ["item", "cnt", "qty", "p_avg"],
+                  [np.int64, np.int64, np.int64, np.float64])
+    return _sorted_by(got, ["item"])
+
+
+SKEW_FACT_SCHEMA = _schema(("k", T.INT64), ("v", T.INT64))
+SKEW_DIM_SCHEMA = _schema(("k2", T.INT64), ("w", T.INT64))
+#: the skew plan's AQE settings: keep the full width (no coalescing),
+#: split a partition past twice the median
+SKEW_CONF = {"exchange.mode": "file", "exchange.coalesce.target.bytes": 1,
+             "exchange.skew.join.factor": 2.0, "exchange.skew.join.min.bytes": 1}
+
+
+def skew_data(n: int = 30000, hot_frac: float = 0.7) -> tuple[Table, Table]:
+    """(fact, dim): ``n`` fact rows over 60 keys with ``hot_frac`` of them on
+    key 7 (one hot partition), and a 60-row dimension."""
+    rng = np.random.default_rng(12)
+    keys = rng.integers(0, 60, n)
+    keys[: int(n * hot_frac)] = 7
+    fact = Table(SKEW_FACT_SCHEMA, {"k": keys.astype(np.int64),
+                                    "v": rng.integers(0, 5, n).astype(np.int64)}, {})
+    dim = Table(SKEW_DIM_SCHEMA, {"k2": np.arange(60, dtype=np.int64),
+                                  "w": rng.integers(1, 10, 60).astype(np.int64)}, {})
+    return fact, dim
+
+
+def skew_join_tree(n_parts: int = 4):
+    """fact JOIN dim over two planned exchanges and sorts on the key, the
+    partial count(*), sum(w) by key through a third exchange, then the
+    final aggregate: the join stage is skew-splittable."""
+    from auron_tpu_torch.exec.basic import ResourceScanExec
+    from auron_tpu_torch.exec.joins.smj import SortMergeJoinExec
+    from auron_tpu_torch.exec.sort_exec import SortExec
+
+    def side(schema, rid, ex_id):
+        ex = _exchange(ResourceScanExec(schema, rid), [0], n_parts, ex_id)
+        return SortExec(ex, [col(0)], [SortSpec()])
+
+    j = SortMergeJoinExec(side(SKEW_FACT_SCHEMA, "skew_l", "skew_ex_l"),
+                          side(SKEW_DIM_SCHEMA, "skew_r", "skew_ex_r"), [col(0)], [col(0)],
+                          "inner", projection=[0, 3])
+    keys = [(col(0), "k")]
+    aggs = _aggs(("count_star", None, "c"), ("sum", col(1), "w"))
+    return _final(_exchange(_partial(j, keys, aggs), [0], n_parts, "skew_ex2"), keys, aggs)
+
+
+def run_skew_join(fact: Table | None = None, dim: Table | None = None, n_parts: int = 4,
+                  device="cuda", conf: dict | None = None, stats: dict | None = None,
+                  ingested: dict | None = None) -> dict:
+    """The skew plan through the planned-exchange driver under ``SKEW_CONF``
+    (``conf`` entries override it); returns {k, c, w} sorted by k."""
+    if ingested is None:
+        per = max((len(fact) + n_parts - 1) // n_parts, 1)
+        ingested = {"skew_l": to_batches(fact, n_parts, per, device),
+                    "skew_r": to_batches(dim, n_parts, per, device)}
+    outs = _run_mesh(skew_join_tree(n_parts), dict(ingested), n_parts, device,
+                     {**SKEW_CONF, **(conf or {})}, stats)
+    got = _concat([collect(o) for o in outs], ["k", "c", "w"], [np.int64, np.int64, np.int64])
+    return _sorted_by(got, ["k"])
+
+
+def skew_join_oracle(fact: Table, dim: Table) -> dict:
+    k = fact.columns["k"]
+    row, hit = _lookup(dim.columns["k2"], k)
+    keys, inv = _group(k[hit])
+    return {"k": keys, "c": np.bincount(inv, minlength=len(keys)).astype(np.int64),
+            "w": np.bincount(inv, weights=dim.columns["w"][row[hit]],
+                             minlength=len(keys)).astype(np.int64)}

@@ -1,7 +1,9 @@
 """AQE partition statistics (port of ``auron_tpu/parallel/broadcast.py:63-90``).
 
 The shuffle writer's index files are the map output sizes (Spark's
-MapStatus); ``map_output_stats`` sums them per reduce partition and
+MapStatus): ``map_output_sizes`` reads the [map, reduce partition] byte
+matrix (AQE skew splitting slices a partition by map ranges; its column
+sums are ``map_output_stats``'s per-partition totals), and
 ``plan_coalesced_partitions`` groups adjacent small reduce partitions up to
 a target size (Spark's CoalesceShufflePartitions). The broadcast exchange
 halves of that module wait for a later slice.
@@ -14,14 +16,12 @@ import numpy as np
 from auron_tpu_torch.exec.shuffle.format import read_index_tagged
 
 
-def map_output_stats(index_files: list[str]) -> np.ndarray:
-    """Per-reduce-partition output bytes summed over all map tasks."""
-    totals: np.ndarray | None = None
-    for f in index_files:
-        offsets = np.asarray(read_index_tagged(f)[0], dtype=np.int64)
-        sizes = offsets[1:] - offsets[:-1]
-        totals = sizes if totals is None else totals + sizes
-    return totals if totals is not None else np.zeros(0, np.int64)
+def map_output_sizes(index_files: list[str], n_parts: int) -> np.ndarray:
+    """[map task, reduce partition] output bytes."""
+    if not index_files:
+        return np.zeros((0, n_parts), np.int64)
+    return np.stack([np.diff(np.asarray(read_index_tagged(f)[0], dtype=np.int64))
+                     for f in index_files])
 
 
 def plan_coalesced_partitions(partition_bytes: np.ndarray,

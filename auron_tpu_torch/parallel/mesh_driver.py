@@ -21,7 +21,11 @@ the plan IR); ``MeshQueryDriver.run`` resolves them bottom-up:
    rows become one batch behind a ``ResourceScanExec``. file: one
    ``ShuffleWriterExec`` per shard, read back through an ``IpcReaderExec``
    over a ``MultiMapBlockProvider``, with AQE coalescing of small reduce
-   partitions;
+   partitions, and AQE skew-join splitting of a stage whose one sort-merge
+   join reads two file exchanges (``_maybe_split_skew``: a hot partition
+   becomes map-range slices of its larger splittable side, each joined
+   against the whole other side, so the stage runs more tasks than P and
+   the next exchange sees more map shards than partitions);
 5. splice the scan where the exchange was, in a NEW tree: the caller's
    tree is never changed, so a warm-up and a timed run can share it.
 
@@ -29,13 +33,12 @@ The driver takes an operator tree or a plan proto (pruned with the port's
 ``prune_columns``, then planned). Differences from the JAX driver: the P
 partitions share one device (no SPMD across processes: ``spmd=True``
 raises); stages run eager (the port has no whole-stage fusion; the JAX
-package guarantees fused and eager results are bit-identical); AQE
-skew-join splitting needs ``sort_merge_join``, which the port does not
-have, so a stage holding one raises; the file transport's writers reuse
-the ids the driver computed for the routing counts instead of hashing
-each shard again; ``collect`` returns host numpy columns.
-``ExchangeStats`` adds the mesh transport's ``slot_cap``, and ``walls``
-holds each stage's wall clock.
+package guarantees fused and eager results are bit-identical); the file
+transport's writers reuse the ids the driver computed for the routing
+counts instead of hashing each shard again; the AQE rules walk operator
+trees where the JAX driver walks protos; ``collect`` returns host numpy
+columns. ``ExchangeStats`` adds the mesh transport's ``slot_cap``, and
+``walls`` holds each stage's wall clock.
 """
 
 from __future__ import annotations
@@ -61,7 +64,8 @@ from auron_tpu_torch.parallel.exchange import pid_exchange_step
 from auron_tpu_torch.parallel.mesh import Mesh
 from auron_tpu_torch.utils.config import (
     EXCHANGE_COALESCE_ENABLE, EXCHANGE_COALESCE_TARGET_BYTES, EXCHANGE_MESH_MAX_BYTES,
-    EXCHANGE_MODE, Configuration, conf_scope,
+    EXCHANGE_MODE, EXCHANGE_SKEW_ENABLE, EXCHANGE_SKEW_FACTOR, EXCHANGE_SKEW_MIN_BYTES,
+    Configuration, conf_scope,
 )
 
 
@@ -75,6 +79,8 @@ class ExchangeStats:
     est_bytes_per_shard: int  # payload of the hottest receiving shard
     coalesced_groups: list | None = None  # AQE partition grouping, if applied
     slot_cap: int | None = None  # rows per (src, dst) slot of a mesh exchange
+    #: AQE skew-split task table, if applied: [(pid, map_lo, map_hi | None)]
+    skew_tasks: list | None = None
 
     def partition_sizes(self) -> np.ndarray:
         return self.rows.sum(axis=0)
@@ -112,6 +118,35 @@ class CoalescedBlockProvider:
             yield from self.inner.iter_payloads(orig)
 
 
+class SkewSplitProvider:
+    """AQE skew-join split consumer (Spark OptimizeSkewedJoin): stage task i
+    reads ``tasks[i] = (pid, map_lo, map_hi)``, the map outputs [map_lo,
+    map_hi) of partition pid, or all of them when map_hi is None."""
+
+    def __init__(self, inner, tasks: list[tuple[int, int, int | None]]):
+        self.inner = inner
+        self.tasks = tasks
+
+    def iter_payloads(self, task: int):
+        pid, lo, hi = self.tasks[task]
+        if hi is None:
+            yield from self.inner.iter_payloads(pid)
+        else:
+            yield from self.inner.read_slice(pid, lo, hi)
+
+
+#: join types whose result survives splitting the given side: every row of
+#: the split side lands in exactly one slice, and the other side must not
+#: emit unmatched rows (they would repeat once per slice)
+_SPLITTABLE_SIDES = {
+    "inner": ("left", "right"),
+    "left": ("left",),
+    "left_semi": ("left",),
+    "left_anti": ("left",),
+    "right": ("right",),
+}
+
+
 class _ShardPids:
     """An exchange's partitioning whose ids the driver already computed,
     one tensor per map shard: the file transport's writer for shard p
@@ -146,8 +181,9 @@ class MeshQueryDriver:
         self.walls: dict[str, float] = {}
         self._exchange_seq = 0
         self._tmp_dirs: list[str] = []
-        #: ex_id -> (provider, per-partition byte totals) of just-resolved
-        #: file exchanges, consumed by AQE coalescing
+        #: ex_id -> (provider, per-partition byte totals, [map, partition]
+        #: bytes) of just-resolved file exchanges, consumed by AQE
+        #: coalescing and skew splitting
         self._coalesce_candidates: dict[str, tuple] = {}
 
     # ------------------------------------------------------------------
@@ -164,7 +200,7 @@ class MeshQueryDriver:
             t0 = time.perf_counter()
             n_reduce = self._maybe_coalesce_inputs(resolved, resources)
             if n_reduce == self.n_parts:
-                n_reduce = self._maybe_split_skew(resolved)
+                n_reduce = self._maybe_split_skew(resolved, resources)
             outs = [self._run_partition(resolved, p, resources) for p in range(n_reduce)]
             self._sync()
             self.walls["reduce_s"] = time.perf_counter() - t0
@@ -204,6 +240,7 @@ class MeshQueryDriver:
         then applies to all of them, which keeps hash co-partitioning across
         the stage's inputs. Returns the stage width."""
         if not self.conf.get(EXCHANGE_COALESCE_ENABLE):
+            # candidates may exist for skew splitting alone
             return self.n_parts
         leaves = _collect_sources(plan)
         ex_ids = [rid for kind, rid in leaves
@@ -222,19 +259,74 @@ class MeshQueryDriver:
             return self.n_parts
         by_id = {s.exchange_id: s for s in self.stats}
         for ex in ex_ids:
-            provider, _ = self._coalesce_candidates.pop(ex)
+            provider, _, _ = self._coalesce_candidates.pop(ex)
             resources[ex] = CoalescedBlockProvider(provider, groups)
             by_id[ex].coalesced_groups = groups
         return len(groups)
 
-    def _maybe_split_skew(self, plan: ExecOperator) -> int:
-        """AQE skew-join splitting applies only to a stage with a sort-merge
-        join; without one the stage keeps its width, as in the JAX driver.
-        The port has no SMJ yet: its detection and split come with it."""
-        if any(op.name == "SortMergeJoinExec" for op in _walk(plan)):
-            raise NotImplementedError(
-                "AQE skew-join splitting needs sort_merge_join, which the port does not have yet")
-        return self.n_parts
+    def _maybe_split_skew(self, plan: ExecOperator, resources: dict) -> int:
+        """AQE skew-join splitting over a stage whose one sort-merge join
+        reads two just-resolved file exchanges and nothing else: a reduce
+        partition larger than factor x the median (and the minimum bytes)
+        splits into map-range slices of its larger side whose join type
+        allows it (``_SPLITTABLE_SIDES``), each joined against the whole
+        other side; the stage widens to one task per slice. Returns the
+        stage width (``mesh_driver.py:301-382``)."""
+        if not self.conf.get(EXCHANGE_SKEW_ENABLE):
+            return self.n_parts
+        smj = _find_single_smj(plan)
+        if smj is None:
+            return self.n_parts
+        sides = {}
+        for i, side in enumerate(("left", "right")):
+            leaves = _collect_sources(smj.children[i])
+            if (len(leaves) != 1 or leaves[0][0] != "ipc_reader"
+                    or leaves[0][1] not in self._coalesce_candidates):
+                return self.n_parts
+            sides[side] = leaves[0][1]
+        if sides["left"] == sides["right"]:
+            return self.n_parts  # a self-join on one exchange: slices collide
+        # the whole stage reads only these two exchanges: widening its task
+        # range would mis-index any other source
+        all_leaves = _collect_sources(plan)
+        if {rid for _, rid in all_leaves} != set(sides.values()) or len(all_leaves) != 2:
+            return self.n_parts
+
+        sizes = {s: self._coalesce_candidates[ex][1] for s, ex in sides.items()}
+        factor = self.conf.get(EXCHANGE_SKEW_FACTOR)
+        min_bytes = self.conf.get(EXCHANGE_SKEW_MIN_BYTES)
+        total = sizes["left"] + sizes["right"]
+        median = float(np.median(total)) if total.size else 0.0
+        threshold = max(median * factor, float(min_bytes))
+        allowed = _SPLITTABLE_SIDES.get(smj.driver.join_type, ())
+
+        tasks: dict[str, list] = {"left": [], "right": []}
+        split_any = False
+        for pid in range(self.n_parts):
+            split_side = None
+            if total[pid] > threshold:
+                # split the larger side where the join type allows it
+                order = sorted(("left", "right"), key=lambda s: -int(sizes[s][pid]))
+                split_side = next((s for s in order if s in allowed), None)
+            if split_side is None:
+                for s in ("left", "right"):
+                    tasks[s].append((pid, 0, None))
+                continue
+            per_map = self._coalesce_candidates[sides[split_side]][2][:, pid]
+            groups = _group_maps_by_bytes(per_map, max(median, float(min_bytes) / 2, 1.0))
+            other = "left" if split_side == "right" else "right"
+            for lo, hi in groups:
+                tasks[split_side].append((pid, lo, hi))
+                tasks[other].append((pid, 0, None))  # the whole other side per slice
+            split_any = split_any or len(groups) > 1
+        if not split_any:
+            return self.n_parts
+        by_id = {s.exchange_id: s for s in self.stats}
+        for side, ex in sides.items():
+            provider, _, _ = self._coalesce_candidates.pop(ex)
+            resources[ex] = SkewSplitProvider(provider, tasks[side])
+            by_id[ex].skew_tasks = tasks[side]
+        return len(tasks["left"])
 
     # ------------------------------------------------------------------
 
@@ -265,7 +357,7 @@ class MeshQueryDriver:
         t0 = time.perf_counter()
         n_src = self._maybe_coalesce_inputs(child, resources)
         if n_src == self.n_parts:
-            n_src = self._maybe_split_skew(child)
+            n_src = self._maybe_split_skew(child, resources)
         schema = child.schema
         shard_batches: list[Batch] = []
         pids: list[torch.Tensor] = []
@@ -384,11 +476,13 @@ class MeshQueryDriver:
         finally:
             resources.pop(src_id, None)
         provider = MultiMapBlockProvider(pairs)
-        if self.conf.get(EXCHANGE_COALESCE_ENABLE):
-            from auron_tpu_torch.parallel.broadcast import map_output_stats
+        if self.conf.get(EXCHANGE_COALESCE_ENABLE) or self.conf.get(EXCHANGE_SKEW_ENABLE):
+            from auron_tpu_torch.parallel.broadcast import map_output_sizes
 
-            self._coalesce_candidates[ex_id] = (provider,
-                                                map_output_stats([i for _, i in pairs]))
+            # coalescing reads the per-partition totals, skew splitting the
+            # per-map breakdown
+            per_map = map_output_sizes([i for _, i in pairs], self.n_parts)
+            self._coalesce_candidates[ex_id] = (provider, per_map.sum(axis=0), per_map)
         resources[ex_id] = provider
         return IpcReaderExec(schema, ex_id)
 
@@ -412,10 +506,66 @@ def _collect_sources(op: ExecOperator) -> list[tuple[str, str]]:
     return [(kind, getattr(op, "resource_id", ""))]
 
 
-def _walk(op: ExecOperator):
-    yield op
-    for c in op.children:
-        yield from _walk(c)
+def _partition_scoped(op: ExecOperator) -> bool:
+    """Operators whose output depends on seeing a whole partition: running a
+    partition as several slices would change their result (a regrouping
+    aggregate, a limit, a per-partition top-k)."""
+    if op.name == "HashAggExec":
+        return op.mode != "partial"
+    if op.name == "SortExec":
+        return op.fetch is not None
+    return op.name == "LimitExec"
+
+
+#: operators allowed between the SMJ and its exchange leaf on a split side:
+#: per-row ones, or whole-input sorts feeding the join
+_SLICE_SAFE_BELOW = ("SortExec", "ProjectExec", "FilterExec", "IpcReaderExec")
+
+
+def _slice_safe(op: ExecOperator) -> bool:
+    if op.name not in _SLICE_SAFE_BELOW or (op.name == "SortExec" and op.fetch is not None):
+        return False
+    return op.name == "IpcReaderExec" or _slice_safe(op.children[0])
+
+
+def _find_single_smj(plan: ExecOperator):
+    """The stage's sort-merge join when the stage can be skew-split: exactly
+    one SMJ, no partition-scoped operator above it, and only slice-safe
+    operators from it down to its leaves (``mesh_driver.py:836-887``)."""
+    found: list = []
+    blocked = False
+
+    def rec(op: ExecOperator, above_scoped: bool) -> None:
+        nonlocal blocked
+        if op.name == "SortMergeJoinExec":
+            found.append(op)
+            blocked = blocked or above_scoped or not all(_slice_safe(c) for c in op.children)
+            return
+        scoped = above_scoped or _partition_scoped(op)
+        for c in op.children:
+            rec(c, scoped)
+
+    rec(plan, False)
+    return found[0] if len(found) == 1 and not blocked else None
+
+
+def _group_maps_by_bytes(per_map, target: float) -> list[tuple[int, int]]:
+    """Contiguous map ranges of about ``target`` bytes each (at least one
+    map a range; together they cover every map). A small tail folds into
+    the last range: every extra slice re-reads the other side."""
+    groups: list[tuple[int, int]] = []
+    lo, acc = 0, 0.0
+    for m, b in enumerate(per_map):
+        acc += b
+        if acc >= target:
+            groups.append((lo, m + 1))
+            lo, acc = m + 1, 0.0
+    if lo < len(per_map):
+        if groups and acc < target / 2:
+            groups[-1] = (groups[-1][0], len(per_map))
+        else:
+            groups.append((lo, len(per_map)))
+    return groups or [(0, len(per_map))]
 
 
 def _row_width_bytes(schema: T.Schema) -> int:

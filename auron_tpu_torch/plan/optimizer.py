@@ -1,8 +1,12 @@
-"""Plan-proto column pruning (port of ``prune_columns`` from
-``auron_tpu/plan/optimizer.py``): every operator asks its child only for
-the columns it reads; joins get a ``projection`` so pair gathers move only
-the surviving columns. Node types outside this slice are barriers (kept
-as they are, with their children pruned with everything required).
+"""Plan-proto rewrites (port of ``auron_tpu/plan/optimizer.py``):
+
+- ``prune_columns``: every operator asks its child only for the columns it
+  reads; joins get a ``projection`` so pair gathers move only the surviving
+  columns. Node types outside this slice are barriers (kept as they are,
+  with their children pruned with everything required);
+- ``elide_smj_input_sorts``: drop the SortExec children of a sort-merge
+  join (``optimizer.py:335-394``), which clusters its build side itself and
+  probes in any order.
 
 Imports ``plan_pb2`` (and with it google.protobuf) lazily."""
 
@@ -261,3 +265,63 @@ _HANDLERS = {
 }
 for _p in _PASSTHROUGH:
     _HANDLERS[_p] = _prune_passthrough
+
+
+# ---------------------------------------------------------------------------
+# Sort elision under sort-merge join
+# ---------------------------------------------------------------------------
+
+#: the task conf key that picks the elision mode; ``task_from_proto`` reads it
+SMJ_ELIDE_SORTS_KEY = "auron.smj.elide.sorts"
+#: the only operator whose output depends on its input's row order (head-N)
+_ORDER_SENSITIVE = ("limit",)
+
+
+def elide_smj_input_sorts(plan, mode: str = "build"):
+    """Drop SortExec children feeding a sort-merge join, in a copy.
+
+    - "build" (default): only the build (right) side's sort; the join's
+      output order follows the probe side, so the output order never changes;
+    - "full": both sides; the host asserts that nothing above needs the
+      order;
+    - "off": no rewrite.
+
+    A sort with a fetch (TakeOrdered: it changes the row set) is never
+    dropped, nor is any sort below an order-sensitive node (a limit)."""
+    if mode == "off":
+        return plan
+    new = _pb().PhysicalPlanNode()
+    new.CopyFrom(plan)
+    _elide(new, order_sensitive=False, full=(mode == "full"))
+    return new
+
+
+def _child_nodes(node):
+    """The direct child plan nodes (``child``, ``left``/``right``, or a
+    union's ``children``), as mutable references."""
+    inner = getattr(node, node.WhichOneof("plan"))
+    if hasattr(inner, "children"):
+        yield from inner.children
+        return
+    for f in ("child", "left", "right"):
+        try:
+            present = inner.HasField(f)
+        except ValueError:
+            continue
+        if present:
+            yield getattr(inner, f)
+
+
+def _elide(node, order_sensitive: bool, full: bool) -> None:
+    which = node.WhichOneof("plan")
+    sensitive = order_sensitive or which in _ORDER_SENSITIVE
+    if which == "sort_merge_join" and not sensitive:
+        j = node.sort_merge_join
+        for side in (("left", "right") if full else ("right",)):
+            child = getattr(j, side)
+            if child.WhichOneof("plan") == "sort" and not child.sort.has_fetch:
+                grand = _pb().PhysicalPlanNode()
+                grand.CopyFrom(child.sort.child)
+                getattr(j, side).CopyFrom(grand)
+    for c in _child_nodes(node):
+        _elide(c, sensitive, full)

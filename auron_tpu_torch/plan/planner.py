@@ -1,11 +1,12 @@
 """Physical planner: plan proto -> executable operator tree.
 
 Port of ``auron_tpu/plan/planner.py`` for the node and expression variants
-the ported slices execute (memory_scan, project, filter, limit, hash_agg,
-sort, hash_join, shuffle_writer with single/hash/round-robin partitioning,
-ipc_reader, mesh_exchange (a ``MeshExchangeExec`` stage boundary that
-``parallel/mesh_driver.MeshQueryDriver`` resolves); column, literal, cast, binary, not, is_null, is_not_null,
-if_expr).
+the ported slices execute (memory_scan, project, filter, limit, union,
+hash_agg, sort, hash_join, sort_merge_join, shuffle_writer with
+single/hash/round-robin partitioning, ipc_reader, mesh_exchange (a
+``MeshExchangeExec`` stage boundary that
+``parallel/mesh_driver.MeshQueryDriver`` resolves); column, literal, cast,
+binary, not, is_null, is_not_null, if_expr).
 Other variants raise ``NotImplementedError`` naming the variant.
 
 The exec tree is the JAX package's tree with whole-stage fusion off
@@ -130,6 +131,8 @@ def plan_from_proto(p):
                                 [expr_from_proto(e) for e in p.filter.predicates])
     if which == "limit":
         return basic.LimitExec(plan_from_proto(p.limit.child), p.limit.limit)
+    if which == "union":
+        return basic.UnionExec([plan_from_proto(c) for c in p.union.children])
     if which == "hash_agg":
         n = p.hash_agg
         return HashAggExec(
@@ -144,6 +147,18 @@ def plan_from_proto(p):
         exprs, specs = _sort_fields(n.fields)
         return SortExec(plan_from_proto(n.child), exprs, specs,
                         fetch=n.fetch if n.has_fetch else None)
+    if which == "sort_merge_join":
+        from auron_tpu_torch.exec.joins.smj import SortMergeJoinExec
+
+        n = p.sort_merge_join
+        return SortMergeJoinExec(
+            plan_from_proto(n.left), plan_from_proto(n.right),
+            [expr_from_proto(e) for e in n.left_keys],
+            [expr_from_proto(e) for e in n.right_keys],
+            _JOIN_TYPE[n.join_type],
+            condition=expr_from_proto(n.condition) if n.has_condition else None,
+            projection=list(n.projection) if n.has_projection else None,
+        )
     if which == "hash_join":
         n = p.hash_join
         return BroadcastHashJoinExec(
@@ -178,11 +193,16 @@ def plan_from_proto(p):
 
 def task_from_proto(task):
     """(root exec, stage_id, partition_id, Configuration) of a decoded
-    TaskDefinition; column pruning runs on every task, as in auron_tpu."""
-    from auron_tpu_torch.plan.optimizer import prune_columns
+    TaskDefinition. As in auron_tpu, the SMJ input sorts are elided in the
+    mode the task conf's ``auron.smj.elide.sorts`` names (default build),
+    then column pruning runs on every task."""
+    from auron_tpu_torch.plan.optimizer import (
+        SMJ_ELIDE_SORTS_KEY, elide_smj_input_sorts, prune_columns,
+    )
 
     conf = Configuration(dict(task.conf))
-    plan = plan_from_proto(prune_columns(task.plan))
+    mode = dict(task.conf).get(SMJ_ELIDE_SORTS_KEY, "build")
+    plan = plan_from_proto(prune_columns(elide_smj_input_sorts(task.plan, mode=mode)))
     return plan, task.stage_id, task.partition_id, conf
 
 

@@ -214,3 +214,17 @@ EXCHANGE_MESH_MAX_BYTES = int_conf(
     "auto-mode ceiling for device-resident exchange payload per shard; "
     "larger exchanges take the durable file path",
 )
+EXCHANGE_SKEW_ENABLE = bool_conf(
+    "exchange.skew.join.enable", True, "shuffle",
+    "AQE skew-join splitting: a reduce partition much larger than the "
+    "median splits into map-range slices joined against the full other "
+    "side (Spark OptimizeSkewedJoin analog)",
+)
+EXCHANGE_SKEW_FACTOR = float_conf(
+    "exchange.skew.join.factor", 5.0, "shuffle",
+    "a partition is skewed when its bytes exceed factor x median",
+)
+EXCHANGE_SKEW_MIN_BYTES = int_conf(
+    "exchange.skew.join.min.bytes", 64 << 20, "shuffle",
+    "partitions below this never count as skewed",
+)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (auron_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py            # full run: q42, q93 and q3-class at SF 8
+    python3 chip_smoke.py            # full run: every query class at SF 8
     python3 chip_smoke.py --sf 0.5   # smaller end-to-end phases
     python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of one run of each query
 
@@ -30,7 +30,8 @@ Phases, in order, none of them caught — any failure exits non-zero:
    INT32_MIN and INT32_MAX among the ids (also against numpy's bincount);
    time kernels, plain versions and library calls with CUDA events, and
    every bitonic launch's device time with torch.profiler (bitonic at
-   16384 x 8, 16384 x 11, 8192 x 11 and 2^20 x 8 planes; K1 at 2^20 rows,
+   16384 x 8, 16384 x 11, 8192 x 11, 2^20 x 8, 2^23 x 8 and 2^24 x 8
+   planes, the last two q72's probe-side sorts; K1 at 2^20 rows,
    4 partitions; K2 at a q93 map shard, 8,388,608 rows of which 5,760,000
    live, 4 partitions, ~89 % to one);
 4. generate the data once (all later phases share it) and drive the
@@ -63,7 +64,31 @@ Phases, in order, none of them caught — any failure exits non-zero:
    the card once more, bit for bit (the kernels at the main path's own
    shapes). The routing matrix, mode, slot capacity, stage walls and peak
    device memory are printed;
-8. print the kernel table as one JSON line, then the final status line.
+8. the six shuffle-heavy gate classes this slice adds, 4 map x 4 reduce
+   over the same fact partitions: q72 (both facts shuffled on item, a
+   sort-merge join on (item, date), aggregate) once with
+   ``auron.smj.elide.sorts`` = full and once = build (the probe side's
+   SortExec then sorts ~5.76 M rows a reduce partition through K3 and K4,
+   P = 2^23), q95 (left-semi broadcast joins below two exchanges, a
+   left-anti join above), q18, q14 (two chained exchanges), q65 and q5
+   (a union of two exchanges). Each gets a warm-up and a timed run and
+   equals its numpy oracle (keys and counts exact, float sums and averages
+   at rel 1e-9); the sorts recorded in the warm-up go through K3/K4 and the
+   plain network on the card once more, bit for bit; the timed run's
+   bitonic launches equal ``sort_plan``'s for those sorts, and K1 must
+   launch in every class with a single-INT64-key shuffle. Walls, stage
+   walls, shuffle bytes, launches and peak device memory are printed;
+9. sort-merge join stages through the planned-exchange driver: q72-mesh
+   (both facts through a mesh exchange on item into the SMJ stage, a third
+   exchange before the final aggregate) at P = 4 on the mesh and the file
+   transport, equal to the q72 oracle and to each other; then the skew plan
+   (``tpcds.skew_join_tree``: 2^20 x SF fact rows, 8,388,608 at SF 8, 70 %
+   on one key) on the
+   file transport with AQE skew-join splitting on and off: the hot
+   partition must split (more than P skew tasks), and both answers equal
+   the oracle. K2 must launch once per source shard of every exchange;
+10. print the kernel table as one JSON line (each kernel's launches summed
+   over the timed runs of phases 4-9, and per run), then the status line.
 
 Every launch count is set to 0 just before the timed run of a query and
 read just after it; launches made to compare kernels are not counted.
@@ -461,8 +486,10 @@ def _launches() -> dict:
 
 #: (P, NP) of the sorts timed in phase 3: q42's SortExec (16,384 x 8),
 #: q3-mesh's collect sort on the mesh (16,384 x 11) and file (8,192 x 11)
-#: transports, and 2^20 x 8, past one cluster (the multi-stride merge path)
-SORT_SHAPES = ((16384, 8), (16384, 11), (8192, 11), (1 << 20, 8))
+#: transports, 2^20 x 8, past one cluster (the multi-stride merge path),
+#: and q72's probe-side SortExec under elision mode build (2^23 x 8 and
+#: 2^24 x 8: the reader's batches of ~5.76 M rows concatenate to either)
+SORT_SHAPES = ((16384, 8), (16384, 11), (8192, 11), (1 << 20, 8), (1 << 23, 8), (1 << 24, 8))
 
 
 def _kernel_name(name: str) -> str:
@@ -542,11 +569,13 @@ def time_kernels(seed: int) -> dict:
         host = _planes(rng, NP, P)
         x = torch.from_numpy(host).to(dev)
         x32 = i32_of_u32(x).contiguous()
-        sorted32 = i32_of_u32(torch.from_numpy(_lexsorted(host)).to(dev)).contiguous()
-        bit = torch.from_numpy(_bitonic_input(host)).to(dev)
         kinds = ("i64",) * NP
+        # the sorted planes from the library lexsort on the card (numpy's
+        # takes seconds at 2^23)
+        sorted32 = i32_of_u32(torch.stack(bitonic.lex_sorted(tuple(x), kinds))).contiguous()
         L = int(math.log2(P))
         small = P <= 16384
+        bit = torch.from_numpy(_bitonic_input(host)).to(dev) if small else x
         iters = 50 if small else 10
         # sort: the data-oblivious network takes the same time on any input,
         # so re-sorting one buffer is a fair loop; merge: an ascending run is
@@ -730,13 +759,14 @@ def _recording_kernel_sorts(shapes: list):
         bitonic.kernel_sort_ = real
 
 
-def _assert_planned_launches(label: str, shapes: list, launches: dict) -> None:
+def _assert_planned_launches(label: str, shapes: list, launches: dict,
+                             sorts: bool = True) -> None:
     """The bitonic launches of a timed run equal what ``sort_plan`` lists
-    for the sorts its warm-up recorded (one cluster launch a sort at the
-    main path's shapes), and there was a sort."""
+    for the sorts its warm-up recorded, and there was a sort (none when
+    ``sorts`` is False)."""
     from auron_tpu_torch.ops import bitonic
 
-    assert shapes, f"{label}: no sort went through the bitonic kernels"
+    assert bool(shapes) == sorts, f"{label}: kernel sorts {shapes}, expected any: {sorts}"
     planned = {k: sum(bitonic.sort_plan(*s).launch_counts()[k] for s in shapes)
                for k in bitonic.LAUNCHES}
     got = {k: launches[k] for k in bitonic.LAUNCHES}
@@ -887,8 +917,9 @@ def _recording_sorts(record: list):
 
 def check_sorts(label: str, record: list) -> list:
     """K3/K4 at a main path's own sort shapes: each recorded operand tuple
-    sorted by the CUDA kernels and by the plain network on the card, bit
-    for bit, and against the library lexsort. Its launches are not counted."""
+    that the main path sorted with the kernels, sorted by the CUDA kernels
+    and by the plain network on the card, bit for bit, and against the
+    library lexsort. Its launches are not counted."""
     import torch
 
     from auron_tpu_torch.ops import bitonic
@@ -896,6 +927,8 @@ def check_sorts(label: str, record: list) -> list:
     saved = dict(bitonic.LAUNCHES)
     out = []
     for ops, word_narrow in record:
+        if bitonic.sort_impl_for(len(ops) - 2, ops[0].shape[0], device=ops[0].device) != "pallas":
+            continue  # the main path took the library sort
         n_words = len(ops) - 2
         narrow = (True, *(word_narrow or (False,) * n_words), False)
         before = dict(bitonic.LAUNCHES)
@@ -910,12 +943,12 @@ def check_sorts(label: str, record: list) -> list:
         err = 0
         for g, r, w in zip(got, ref, want):
             assert g.dtype == r.dtype and torch.equal(g, r) and torch.equal(g, w), (
-                "collect sort", label)
+                "main-path sort", label)
             err = max(err, int((g.to(torch.int64) - r.to(torch.int64)).abs().max()))
         shape = {"cap": cap, "P": P, "NP": NP, "launches": launched, "max_abs_err": err}
         assert launched == bitonic.sort_plan(NP, P).launch_counts(), (label, shape)
         out.append(shape)
-        print(f"kernel check {label} collect sort: cap {cap}, P {shape['P']}, NP "
+        print(f"kernel check {label} sort: cap {cap}, P {shape['P']}, NP "
               f"{shape['NP']}, kernel launches {launched}: bit-equal to plain and lexsort",
               flush=True)
     bitonic.LAUNCHES.update(saved)
@@ -983,6 +1016,221 @@ def run_mesh(query: str, data, fact, n_parts: int = 4) -> dict:
             _assert_close(a[k], b[k])
         else:
             assert _np_equal(a[k], b[k]), (query, k)
+    return out
+
+
+#: phase 8: (label, class, task conf, kernels its timed run must launch).
+#: q72 shuffles both facts on item, q95 on customer, q65 and q5 their
+#: partial aggregates on item: single-INT64-key shuffles, so K1; q18 and
+#: q14 shuffle on two keys or one INT32 key (the generic hash, no kernel)
+GATE_RUNS = (
+    ("q72 (full)", "q72", {"auron.smj.elide.sorts": "full"}, ("murmur3_pmod",)),
+    ("q72 (build)", "q72", {"auron.smj.elide.sorts": "build"},
+     ("murmur3_pmod", "bitonic_sort", "bitonic_merge")),
+    ("q95", "q95", None, ("murmur3_pmod",)),
+    ("q18", "q18", None, ()),
+    ("q14", "q14", None, ()),
+    ("q65", "q65", None, ("murmur3_pmod",)),
+    ("q5", "q5", None, ("murmur3_pmod",)),
+)
+#: answer columns held at rel 1e-9 (float sums and averages); the others exactly
+FLOAT_SUMS = ("p_avg", "q_avg", "p_sum", "a", "s")
+
+
+def _assert_answer(label: str, got: dict, want: dict) -> None:
+    assert sorted(got) == sorted(want), (label, sorted(got), sorted(want))
+    n = len(next(iter(want.values())))
+    assert n > 0, (label, "empty oracle")
+    for k, w in want.items():
+        g = got[k]
+        assert g.shape == w.shape, (label, k, g.shape, w.shape)
+        if k in FLOAT_SUMS:
+            assert all(math.isfinite(x) for x in g), (label, k)
+            _assert_close(g, w)
+        else:
+            assert _np_equal(g, w), (label, k, g[:10], w[:10])
+
+
+def _gate_inputs(name: str, data, fact) -> dict:
+    from auron_tpu_torch.models import tpcds
+
+    if name == "q72":
+        return tpcds.ingest_q72(data, 4, device="cuda", fact=fact)
+    if name == "q95":
+        return tpcds.ingest_q95(data, 4, device="cuda", fact=fact)
+    if name in ("q18", "q14"):
+        return tpcds.ingest_q3(data, 4, device="cuda", fact=fact)
+    return {"fact": fact}
+
+
+def _assert_must_launch(label: str, launches: dict, kernels) -> None:
+    for k in kernels:
+        assert launches[k] > 0, f"{label}: the main path launched {k} no time: {launches}"
+
+
+def run_gate_classes(data, fact, oracles: dict) -> dict:
+    """Phase 8: each of GATE_RUNS, 4 x 4: warm-up (its kernel sorts
+    recorded and checked on the card), then the timed run."""
+    import torch
+
+    from auron_tpu_torch.models import tpcds
+
+    out = {}
+    inputs: dict = {}
+    for label, name, conf, must in GATE_RUNS:
+        if name not in inputs:
+            inputs[name] = _gate_inputs(name, data, fact)
+        ingested = inputs[name]
+        run = getattr(tpcds, f"run_{name}_class")
+        sorts: list = []
+        shapes: list = []
+        with _recording_sorts(sorts), _recording_kernel_sorts(shapes):
+            warm = run(device="cuda", conf=conf, ingested=ingested)
+        sort_checks = check_sorts(label, sorts)
+        del sorts
+        if sort_checks:  # the checks' large temporaries leave the allocator cold
+            torch.cuda.empty_cache()
+            run(device="cuda", conf=conf, ingested=ingested)
+        _reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        stats: dict = {}
+        t0 = time.perf_counter()
+        got = run(device="cuda", conf=conf, ingested=ingested, stats=stats)
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        peak = torch.cuda.max_memory_allocated()
+        for ans in (warm, got):
+            _assert_answer(label, ans, oracles[name])
+        _assert_planned_launches(label, shapes, launches, sorts="bitonic_sort" in must)
+        assert len(sort_checks) == len(shapes), (label, len(sort_checks), shapes)
+        _assert_must_launch(label, launches, must)
+        rows = len(next(iter(got.values())))
+        print(f"{label}-class: wall {wall:.4f} s (stages {_fmt_s(stats['stage_s'])}, reduce "
+              f"{stats['reduce_s']:.4f} s), shuffle bytes written {stats['shuffle_bytes']}, "
+              f"{rows} result rows, kernel sorts (NP, P) {shapes}, launches {launches}, peak "
+              f"device memory {peak / 2**30:.3f} GiB", flush=True)
+        _print_timers(label, stats)
+        out[label] = {"wall_s": wall, **stats, "launches": launches, "peak_bytes": peak,
+                      "result_rows": rows, "sort_shapes": shapes, "sort_checks": sort_checks}
+    return out
+
+
+def _fmt_s(walls: dict) -> str:
+    return ", ".join(f"{k} {v:.4f} s" for k, v in walls.items())
+
+
+def _print_exchanges(label: str, stats: dict) -> None:
+    for ex in stats["exchanges"]:
+        print(f"  {label} exchange {ex['id']}: mode {ex['mode']}, map {ex['map_s']:.4f} s, "
+              f"exchange {ex['exchange_s']:.4f} s, slot_cap {ex['slot_cap']}, coalesced "
+              f"{ex['coalesced_groups']}, routing [src][dst] {ex['routing']}"
+              + (f", skew tasks {ex['skew_tasks']}" if ex["skew_tasks"] else ""), flush=True)
+
+
+def _shards(stats: dict) -> int:
+    """Source shards over every exchange of a driver run: K2 runs once a shard."""
+    return sum(len(ex["routing"]) for ex in stats["exchanges"])
+
+
+def run_q72_mesh_phase(data, fact, oracle: dict, n_parts: int = 4) -> dict:
+    """Phase 9a: q72-mesh on the mesh and the file transport, warm-up then
+    timed; each equals the oracle and the two agree."""
+    import torch
+
+    from auron_tpu_torch.models import tpcds
+
+    ingested = tpcds.ingest_q72(data, n_parts, device="cuda", fact=fact)
+    out, answers = {}, {}
+    for mode in ("mesh", "file"):
+        conf = {"exchange.mode": mode}
+        warm = tpcds.run_q72_mesh(n_parts=n_parts, device="cuda", conf=conf, ingested=ingested)
+        _reset_launches()
+        torch.cuda.synchronize()
+        stats: dict = {}
+        t0 = time.perf_counter()
+        got = tpcds.run_q72_mesh(n_parts=n_parts, device="cuda", conf=conf, stats=stats,
+                                 ingested=ingested)
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        label = f"q72-mesh ({mode})"
+        for ans in (warm, got):
+            _assert_answer(label, ans, oracle)
+        assert all(ex["mode"] == mode for ex in stats["exchanges"]), stats["exchanges"]
+        assert launches["partition_histogram"] == _shards(stats), (label, launches)
+        _assert_must_launch(label, launches, ("murmur3_pmod", "partition_histogram"))
+        answers[mode] = got
+        print(f"{label}: P={n_parts}, wall {wall:.4f} s (reduce {stats['reduce_s']:.4f} s), "
+              f"peak device memory {stats['peak_bytes'] / 2**30:.3f} GiB, launches {launches}",
+              flush=True)
+        _print_exchanges(label, stats)
+        out[mode] = {"wall_s": wall, **stats, "launches": launches}
+    for k in answers["mesh"]:
+        if k in FLOAT_SUMS:
+            _assert_close(answers["mesh"][k], answers["file"][k])
+        else:
+            assert _np_equal(answers["mesh"][k], answers["file"][k]), ("q72-mesh transports", k)
+    return out
+
+
+def run_skew_phase(n: int, n_parts: int = 4) -> dict:
+    """Phase 9b: the skew plan on the file transport with skew-join
+    splitting on, then off: warm-up (kernel sorts recorded and checked) and
+    timed run each; the split run must widen the join stage."""
+    import torch
+
+    from auron_tpu_torch.models import tpcds
+
+    fact, dim = tpcds.skew_data(n, 0.7)
+    oracle = tpcds.skew_join_oracle(fact, dim)
+    per = (n + n_parts - 1) // n_parts
+    ingested = {"skew_l": tpcds.to_batches(fact, n_parts, per, device="cuda"),
+                "skew_r": tpcds.to_batches(dim, n_parts, per, device="cuda")}
+    out, answers = {}, {}
+    for enable in (True, False):
+        conf = {"exchange.skew.join.enable": enable}
+        label = f"skew join (split {'on' if enable else 'off'})"
+        sorts: list = []
+        shapes: list = []
+        with _recording_sorts(sorts), _recording_kernel_sorts(shapes):
+            warm = tpcds.run_skew_join(n_parts=n_parts, device="cuda", conf=conf,
+                                       ingested=ingested)
+        sort_checks = check_sorts(label, sorts)
+        del sorts
+        torch.cuda.empty_cache()  # the checks' large temporaries leave the allocator cold
+        tpcds.run_skew_join(n_parts=n_parts, device="cuda", conf=conf, ingested=ingested)
+        _reset_launches()
+        torch.cuda.synchronize()
+        stats: dict = {}
+        t0 = time.perf_counter()
+        got = tpcds.run_skew_join(n_parts=n_parts, device="cuda", conf=conf, stats=stats,
+                                  ingested=ingested)
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        for ans in (warm, got):
+            _assert_answer(label, ans, oracle)
+        tasks = {ex["id"]: ex["skew_tasks"] for ex in stats["exchanges"]}
+        if enable:
+            assert tasks["skew_ex_l"] and len(tasks["skew_ex_l"]) > n_parts, (label, tasks)
+            assert len(tasks["skew_ex_r"]) == len(tasks["skew_ex_l"]), tasks
+        else:
+            assert not any(tasks.values()), (label, tasks)
+        assert launches["partition_histogram"] == _shards(stats), (label, launches)
+        _assert_planned_launches(label, shapes, launches)
+        assert len(sort_checks) == len(shapes), (label, len(sort_checks), shapes)
+        _assert_must_launch(label, launches, ("murmur3_pmod", "partition_histogram",
+                                              "bitonic_sort", "bitonic_merge"))
+        answers[enable] = got
+        print(f"{label}: {n} fact rows, P={n_parts}, wall {wall:.4f} s (reduce "
+              f"{stats['reduce_s']:.4f} s), join-stage tasks "
+              f"{len(tasks['skew_ex_l'] or range(n_parts))}, kernel sorts (NP, P) {shapes}, "
+              f"peak device memory {stats['peak_bytes'] / 2**30:.3f} GiB, launches {launches}",
+              flush=True)
+        _print_exchanges(label, stats)
+        out["on" if enable else "off"] = {"wall_s": wall, **stats, "launches": launches,
+                                          "sort_shapes": shapes, "sort_checks": sort_checks}
+    for k in answers[True]:
+        assert _np_equal(answers[True][k], answers[False][k]), ("skew split on/off", k)
     return out
 
 
@@ -1088,41 +1336,79 @@ def main(argv=None) -> int:
                 tpcds.run_q3_mesh(device="cuda", conf=conf, ingested=tpcds.ingest_q3(
                     data, 4, device="cuda", fact=fact))))
 
-    # the collect sorts of q3-mesh went through K3/K4 at their own shapes
-    checks["q3_mesh_collect_sorts"] = {m: q3_mesh[m]["sort_checks"] for m in q3_mesh}
-    sort_err = max(s["max_abs_err"] for m in q3_mesh for s in q3_mesh[m]["sort_checks"])
+    # 8. the six gate classes of this slice over the same fact partitions
+    oracles = {name: getattr(tpcds, f"{name}_class_oracle")(data)
+               for name in dict.fromkeys(name for _, name, _, _ in GATE_RUNS)}
+    gate = run_gate_classes(data, fact, oracles)
+    if args.profile:
+        for label, name, conf, _ in GATE_RUNS:
+            ing = _gate_inputs(name, data, fact)  # set-up, outside the profiled run
+            gate[label]["profile"] = profile_run(label, lambda: getattr(
+                tpcds, f"run_{name}_class")(device="cuda", conf=conf, ingested=ing))
+
+    # 9. sort-merge join stages through the planned-exchange driver
+    q72_mesh = run_q72_mesh_phase(data, fact, oracles["q72"])
+    # the skew plan's fact rows scale with the SF: 8,388,608 at SF 8
+    skew_rows = int((1 << 20) * args.sf)
+    skew = run_skew_phase(skew_rows)
+    if args.profile:
+        ing = tpcds.ingest_q72(data, 4, device="cuda", fact=fact)
+        for mode in ("mesh", "file"):
+            q72_mesh[mode]["profile"] = profile_run(f"q72-mesh ({mode})", lambda: (
+                tpcds.run_q72_mesh(device="cuda", conf={"exchange.mode": mode}, ingested=ing)))
+        sf, sd = tpcds.skew_data(skew_rows, 0.7)
+        per = (skew_rows + 3) // 4
+        ing = {"skew_l": tpcds.to_batches(sf, 4, per, device="cuda"),
+               "skew_r": tpcds.to_batches(sd, 4, per, device="cuda")}
+        skew["on"]["profile"] = profile_run("skew join (split on)", lambda: (
+            tpcds.run_skew_join(device="cuda", ingested=ing)))
+        del ing
+
+    # every kernel sort of the main paths, held against the plain network
+    # on the card at its own operands
+    checks["main_path_sorts"] = {
+        **{f"q3-mesh ({m})": q3_mesh[m]["sort_checks"] for m in q3_mesh},
+        **{label: gate[label]["sort_checks"] for label in gate},
+        **{f"skew join ({k})": skew[k]["sort_checks"] for k in skew}}
+    sort_err = max(s["max_abs_err"] for v in checks["main_path_sorts"].values() for s in v)
     for name in ("bitonic_sort", "bitonic_merge"):
         checks["max_abs_err"][name] = max(checks["max_abs_err"][name], sort_err)
-    # K4 runs on the main path only for a sort past one cluster: q42's and
-    # q3-mesh's sorts are one cluster launch each, so its launches there are
-    # what sort_plan lists for them (0); phase 3 holds it against its plain
-    # version at every shape, its multi-stride launches at 2^18 and 2^20
+    # each kernel's launches in the timed run of every main path (counts set
+    # to 0 just before each and read just after); K4 launches where a sort
+    # is past one cluster: q72 (build) and the skew plan
+    paths = {"q42": q42["launches"], "q93": q93["launches"], "q3": q3["launches"],
+             **{f"q93-mesh ({m})": q93_mesh[m]["launches"] for m in q93_mesh},
+             **{f"q3-mesh ({m})": q3_mesh[m]["launches"] for m in q3_mesh},
+             **{label: gate[label]["launches"] for label in gate},
+             **{f"q72-mesh ({m})": q72_mesh[m]["launches"] for m in q72_mesh},
+             **{f"skew join ({k})": skew[k]["launches"] for k in skew}}
     kernels = []
-    for name, source, replaces, launches in (
-        ("bitonic_sort", "auron_tpu_torch/csrc/bitonic.cu", "auron_tpu/ops/bitonic.py:145",
-         q42["launches"]["bitonic_sort"]),
-        ("bitonic_merge", "auron_tpu_torch/csrc/bitonic.cu", "auron_tpu/ops/bitonic.py:176",
-         q42["launches"]["bitonic_merge"]),
+    for name, source, replaces in (
+        ("bitonic_sort", "auron_tpu_torch/csrc/bitonic.cu", "auron_tpu/ops/bitonic.py:145"),
+        ("bitonic_merge", "auron_tpu_torch/csrc/bitonic.cu", "auron_tpu/ops/bitonic.py:176"),
         ("murmur3_pmod", "auron_tpu_torch/csrc/partition.cu",
-         "auron_tpu/ops/pallas_kernels.py:26", q93["launches"]["murmur3_pmod"]),
+         "auron_tpu/ops/pallas_kernels.py:26"),
         ("partition_histogram", "auron_tpu_torch/csrc/partition.cu",
-         "auron_tpu/ops/pallas_kernels.py:78",
-         q93_mesh["mesh"]["launches"]["partition_histogram"]),
+         "auron_tpu/ops/pallas_kernels.py:78"),
     ):
         t = timing[name]
         err = (checks[name]["max_abs_err"] if name in ("murmur3_pmod", "partition_histogram")
                else checks["max_abs_err"][name])
+        by_path = {p: v[name] for p, v in paths.items() if v[name]}
+        assert by_path, f"{name} launched on no main path"
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "launches": sum(by_path.values()), "max_abs_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "launches_by_path": by_path,
         })
     os.makedirs(os.path.join(REPO_DIR, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO_DIR, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"device": kind, "nvidia_smi": smi, "build_s": build_s, "checks": checks,
                    "timing": timing, "q42": q42, "q93": q93, "q3": q3, "q93_mesh": q93_mesh,
-                   "q3_mesh": q3_mesh, "kernels": kernels},
+                   "q3_mesh": q3_mesh, "gate": gate, "q72_mesh": q72_mesh, "skew": skew,
+                   "kernels": kernels},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -269,3 +269,70 @@ def test_mesh_driver_queries_on_card_go_through_k2():
         np.testing.assert_array_equal(q3["d_year"], w3["d_year"])
         np.testing.assert_array_equal(q3["i_brand_id"], w3["i_brand_id"])
         np.testing.assert_allclose(q3["s"], w3["s"], rtol=1e-9, atol=0)
+
+
+def _assert_answer(got: dict, want: dict) -> None:
+    for k, w in want.items():
+        if k in ("p_avg", "q_avg", "p_sum", "a", "s"):
+            np.testing.assert_allclose(got[k], w, rtol=1e-9, atol=0)
+        else:
+            np.testing.assert_array_equal(got[k], w)
+
+
+@pytest.mark.cuda
+def test_gate_classes_on_card_go_through_the_kernels():
+    """The six gate classes on cuda equal their numpy oracles; q72 under
+    elision mode build sorts its probe side through K3/K4 with exactly the
+    launches sort_plan lists, and every single-INT64-key shuffle launches K1."""
+    _need_card()
+    from auron_tpu_torch.models import tpcds
+
+    data = tpcds.generate(0.05, 42)
+    for name, conf in (("q72", {"auron.smj.elide.sorts": "build"}), ("q72", None),
+                       ("q95", None), ("q18", None), ("q14", None), ("q65", None),
+                       ("q5", None)):
+        shapes = []
+        real = pb.kernel_sort_
+
+        def recording(x32):
+            shapes.append(tuple(x32.shape))
+            return real(x32)
+
+        before = {**pb.LAUNCHES, **pk.LAUNCHES}
+        pb.kernel_sort_ = recording
+        try:
+            got = getattr(tpcds, f"run_{name}_class")(data, conf=conf)
+        finally:
+            pb.kernel_sort_ = real
+        launched = {k: v - before[k] for k, v in {**pb.LAUNCHES, **pk.LAUNCHES}.items()}
+        _assert_answer(got, getattr(tpcds, f"{name}_class_oracle")(data))
+        planned = {k: sum(pb.sort_plan(*s).launch_counts()[k] for s in shapes)
+                   for k in pb.LAUNCHES}
+        assert {k: launched[k] for k in pb.LAUNCHES} == planned, (name, conf, shapes)
+        assert bool(shapes) == (conf is not None), (name, conf, shapes)
+        assert (launched["murmur3_pmod"] > 0) == (name not in ("q18", "q14")), (name, launched)
+
+
+@pytest.mark.cuda
+def test_smj_stages_on_card_through_the_driver():
+    """q72-mesh on both transports equals the oracle with K2 once per
+    source shard of each exchange; the skew plan splits its hot partition
+    and sorts its slices through K3/K4."""
+    _need_card()
+    from auron_tpu_torch.models import tpcds
+
+    data = tpcds.generate(0.05, 42)
+    want = tpcds.q72_class_oracle(data)
+    for mode in ("mesh", "file"):
+        st = {}
+        got = tpcds.run_q72_mesh(data, conf={"exchange.mode": mode}, stats=st)
+        _assert_answer(got, want)
+        assert st["launches"]["partition_histogram"] == sum(
+            len(ex["routing"]) for ex in st["exchanges"])
+    fact, dim = tpcds.skew_data(200_000, 0.7)
+    before = dict(pb.LAUNCHES)
+    st = {}
+    got = tpcds.run_skew_join(fact, dim, stats=st)
+    _assert_answer(got, tpcds.skew_join_oracle(fact, dim))
+    assert len(st["exchanges"][0]["skew_tasks"]) > 4
+    assert pb.LAUNCHES["bitonic_sort"] > before["bitonic_sort"]

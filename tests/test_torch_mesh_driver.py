@@ -460,24 +460,52 @@ def test_each_shard_is_hashed_once(tpcds_data, mode):
 
 
 def test_skew_split_detection_finds_a_single_sort_merge_join():
-    """Plans without a sort-merge join keep their width; a stage holding
-    one raises, since the port has neither the SMJ nor its split yet."""
-    from auron_tpu_torch.exec.base import ExecOperator
-    from auron_tpu_torch.exec.basic import LimitExec
+    """``_find_single_smj`` accepts a stage whose one sort-merge join sits
+    below only per-partition-safe operators (a partial aggregate) with
+    per-row operators and whole-input sorts down to its exchange leaves,
+    and refuses a partition-scoped ancestor (a final aggregate, a limit), a
+    fetch sort below the join, and more than one join. A self-join on one
+    exchange is found but never split (its slices would collide), and plans
+    without a join keep their width."""
+    from auron_tpu_torch.exec.agg_exec import AggExpr, HashAggExec
+    from auron_tpu_torch.exec.basic import FilterExec, LimitExec, ProjectExec
+    from auron_tpu_torch.exec.joins.smj import SortMergeJoinExec
     from auron_tpu_torch.exec.shuffle.reader import IpcReaderExec
+    from auron_tpu_torch.exec.sort_exec import SortExec
+    from auron_tpu_torch.exprs.ir import BinaryOp as PBinaryOp, col as pcol, lit as plit
+    from auron_tpu_torch.ops.sortkeys import SortSpec as PSortSpec
+    from auron_tpu_torch.parallel.mesh_driver import _find_single_smj
 
-    class SortMergeJoinExec(ExecOperator):  # stands in for the SMJ slice's operator
-        def __init__(self, left, right):
-            super().__init__([left, right], left.schema)
+    schema = pt.SKEW_FACT_SCHEMA
 
-    schema = pt.Q93_INTER_SCHEMA
-    smj = SortMergeJoinExec(IpcReaderExec(schema, "a"), IpcReaderExec(schema, "b"))
+    def sort(child, fetch=None):
+        return SortExec(child, [pcol(0)], [PSortSpec()], fetch=fetch)
+
+    def smj(left, right):
+        return SortMergeJoinExec(left, right, [pcol(0)], [pcol(0)], "inner")
+
+    def agg(child, mode):
+        return HashAggExec(child, [(pcol(0), "k")], [(AggExpr("count_star", None), "c")], mode)
+
+    a, b = IpcReaderExec(schema, "a"), IpcReaderExec(schema, "b")
+    per_row = FilterExec(ProjectExec(a, [pcol(0), pcol(1)], ["k", "v"]),
+                         [PBinaryOp("gt", pcol(1), plit(0))])
+    join = smj(sort(per_row), sort(b))
+    assert _find_single_smj(join) is join
+    assert _find_single_smj(agg(join, "partial")) is join
+    for refused in (agg(join, "final"), LimitExec(join, 10), smj(sort(a, fetch=5), b),
+                    smj(agg(a, "partial"), b), ProjectExec(smj(join, smj(a, b)), [pcol(0)], ["k"])):
+        assert _find_single_smj(refused) is None
     driver = MeshQueryDriver(make_mesh(P, device="cpu"))
-    assert driver._maybe_split_skew(pt.q93_mesh_tree(P)) == P
-    assert driver._maybe_split_skew(pt.q3_mesh_tree(P)) == P
-    for plan in (smj, LimitExec(smj, 10)):
-        with pytest.raises(NotImplementedError, match="sort_merge_join"):
-            driver._maybe_split_skew(plan)
+    assert driver._maybe_split_skew(pt.q93_mesh_tree(P), {}) == P
+    assert driver._maybe_split_skew(pt.q3_mesh_tree(P), {}) == P
+    # a self-join on one just-resolved exchange, hot in partition 0: found, not split
+    per_map = np.array([[1000, 1, 1, 1]] * P, dtype=np.int64)
+    driver._coalesce_candidates = {"a": (None, per_map.sum(axis=0), per_map)}
+    self_join = smj(sort(a), IpcReaderExec(schema, "a"))
+    assert _find_single_smj(self_join) is self_join
+    assert driver._maybe_split_skew(self_join, {}) == P
+    assert "a" in driver._coalesce_candidates  # nothing consumed
 
 
 def test_mesh_queries_run_without_jax_arrow_pandas_or_protobuf():
