@@ -1,6 +1,7 @@
 """Broadcast hash join exec (port of ``auron_tpu/exec/joins/bhj.py``,
 inner joins, and left, left-semi and left-anti joins with the build on the
-right): the build child becomes a prepared key map, optionally cached in
+right, each with an optional residual condition): the build child becomes
+a prepared key map, optionally cached in
 the executor-shared resource map under ``cached_build_id`` so tasks
 probing the same broadcast reuse one build."""
 

@@ -18,7 +18,9 @@ Port of the inner, left-outer, left-semi and left-anti parts of
   a unique build takes one lower bound per probe row, a duplicate-keyed
   build a [lower, upper) range per row that expands into pair chunks with
   one count read per probe batch (core.py:695-860), or, for semi/anti,
-  marks the probe rows whose range is not empty (core.py:720-775).
+  marks the probe rows whose range is not empty (core.py:720-775);
+- a residual join condition narrows each chunk of expanded pairs and
+  recomputes which probe rows matched (``condition_pairs``, core.py:809-823).
 
 SQL null semantics: a NULL in any key never matches.
 """
@@ -285,3 +287,17 @@ def expand_pairs(pcap: int, bcap: int, lo: torch.Tensor, counts: torch.Tensor):
         ri = (lo[li] + (t - starts[li])).clamp(0, bcap - 1)
         chunks.append((li, ri, ok))
     return chunks
+
+
+def condition_pairs(chunks, holds, counts: torch.Tensor):
+    """Residual condition over the pair chunks of ``expand_pairs(...,
+    counts)`` (its condition branch, core.py:809-823): each chunk's ``ok``
+    narrows to ``holds(li, ri, ok)``, and a probe row matches when any of
+    its pairs still does. Returns (chunks, probe_matched)."""
+    hits = torch.zeros_like(counts, dtype=torch.int32)
+    out = []
+    for li, ri, ok in chunks:
+        ok = holds(li, ri, ok)
+        hits.index_add_(0, li, ok.to(torch.int32))
+        out.append((li, ri, ok))
+    return out, hits > 0

@@ -12,6 +12,16 @@ gathered into a smaller batch before the build columns are gathered
 pair chunks. A LEFT join with the build on the right keeps every probe row
 (``probe_outer``, ``core.py:604-615``, ``:666-691``): NULL-keyed and
 unmatched rows stay live with NULL build columns.
+
+A residual ``condition`` (over the combined left ++ right schema) is
+evaluated over only the columns it references (``_reduced_condition``,
+driver.py:665): on the unique path over the probe rows and their one build
+match, otherwise over each chunk of expanded pairs (``core.condition_pairs``,
+core.py:809-823). A pair whose condition is false or NULL does not match:
+``probe_matched`` is recomputed from the filtered pairs, so a left join
+emits such probe rows with NULL build columns, a semi join drops and an
+anti join keeps them. A condition makes semi and anti joins enumerate
+pairs, so their build never hides behind an existence table.
 """
 
 from __future__ import annotations
@@ -25,7 +35,7 @@ from auron_tpu_torch.columnar.batch import Batch, compaction_bucket
 from auron_tpu_torch.exec.basic import batch_from_columns
 from auron_tpu_torch.exec.joins import core
 from auron_tpu_torch.exprs import ir
-from auron_tpu_torch.exprs.eval import ColumnVal
+from auron_tpu_torch.exprs.eval import ColumnVal, Evaluator
 from auron_tpu_torch.utils.config import JOIN_COMPACT_OUTPUT, resolve_tri
 
 
@@ -35,15 +45,13 @@ class EquiJoinDriver:
                  build_side: str, condition: ir.Expr | None = None,
                  projection: list[int] | None = None):
         assert build_side in ("left", "right")
-        if condition is not None or not (
-                join_type == core.INNER
+        if not (join_type == core.INNER
                 or (join_type in (core.LEFT, core.LEFT_SEMI, core.LEFT_ANTI)
                     and build_side == "right")):
             raise NotImplementedError(
-                f"{join_type} join with the build on the {build_side}"
-                f"{' and a residual condition' if condition is not None else ''}: only "
-                "inner equi-joins, and left, left_semi and left_anti joins with the build "
-                "on the right, without a residual condition, are in this slice")
+                f"{join_type} join with the build on the {build_side}: only inner "
+                "equi-joins, and left, left_semi and left_anti joins with the build on the "
+                "right, are in this slice")
         self.left_schema, self.right_schema = left_schema, right_schema
         self.left_keys, self.right_keys = left_keys, right_keys
         self.join_type = join_type
@@ -55,13 +63,40 @@ class EquiJoinDriver:
         self.probe_is_left = build_side == "right"
         self.probe_outer = join_type == core.LEFT
         self.probe_mark = join_type in (core.LEFT_SEMI, core.LEFT_ANTI)
+        self._cond = self._reduced_condition(condition) if condition is not None else None
 
     def prepare(self, build_batches: list[Batch], device) -> core.PreparedBuild:
         schema = self.left_schema if self.build_side == "left" else self.right_schema
         keys = self.left_keys if self.build_side == "left" else self.right_keys
-        # semi/anti probes only test existence: no pairs to enumerate
+        # semi/anti probes without a condition only test existence: no
+        # pairs to enumerate
         return core.prepare_build(build_batches, keys, schema, device,
-                                  need_pairs=not self.probe_mark)
+                                  need_pairs=not self.probe_mark or self._cond is not None)
+
+    def _reduced_condition(self, condition: ir.Expr):
+        """(schema, expr, (on probe side, side column) per column) of the
+        condition re-bound to only the columns it references."""
+        comb = core.join_output_schema(self.left_schema, self.right_schema, core.INNER)
+        refs = sorted({c.index for c in ir.walk(condition) if isinstance(c, ir.Column)})
+        expr = ir.remap_columns(condition, {old: new for new, old in enumerate(refs)})
+        nl = len(self.left_schema)
+        side_col = [((r < nl) == self.probe_is_left, r if r < nl else r - nl) for r in refs]
+        return T.Schema(tuple(comb.fields[r] for r in refs)), expr, side_col
+
+    def _condition_holds(self, pb: Batch, bb: Batch, li, ri, ok):
+        """``ok`` narrowed to the pairs (probe row ``li`` — None: in place —,
+        build row ``ri``) whose condition is true."""
+        schema, expr, side_col = self._cond
+        cols = []
+        for (on_probe, ci), f in zip(side_col, schema):
+            src, idx = (pb, li) if on_probe else (bb, ri)
+            v, m = src.col_values(ci), src.col_validity(ci)
+            if idx is not None:
+                v, m = v[idx], m[idx]
+            cols.append(ColumnVal(v, m & ok, f.dtype, src.dicts[ci]))
+        pair = batch_from_columns(cols, schema.names, ok)
+        cv = Evaluator(schema).evaluate(Batch(schema, pair.device, pair.dicts), [expr])[0]
+        return ok & cv.validity & cv.values.to(torch.bool)
 
     def _out_cols(self):
         """(output index, on probe side, side column index) per output column."""
@@ -78,23 +113,35 @@ class EquiJoinDriver:
         bb = build.batch
         if build.unique:
             bi, ok = core.probe_unique(build, pwords, ok_base)
+            if self._cond is not None:
+                ok = self._condition_holds(pb, bb, None, bi, ok)
             if self.probe_mark:
                 yield self._emit_probe_marked(pb, ok)
             else:
                 yield self._emit_unique(pb, bb, bi, ok, conf)
             return
-        if self.probe_mark:
+        if self.probe_mark and self._cond is None:
             yield self._emit_probe_marked(pb, core.probe_mark(build, pwords, ok_base))
             return
         if build.n_live == 0:
-            if self.probe_outer:
+            if self.probe_mark:
+                yield self._emit_probe_marked(pb, torch.zeros_like(ok_base))
+            elif self.probe_outer:
                 yield self._emit_unmatched(pb, bb, pb.device.sel)
             return
         lo, counts = core.probe_ranges(build, pwords, ok_base)
-        for li, ri, ok in core.expand_pairs(pb.capacity, bb.capacity, lo, counts):
+        chunks = core.expand_pairs(pb.capacity, bb.capacity, lo, counts)
+        matched = counts > 0
+        if self._cond is not None:
+            chunks, matched = core.condition_pairs(
+                chunks, lambda li, ri, ok: self._condition_holds(pb, bb, li, ri, ok), counts)
+        if self.probe_mark:
+            yield self._emit_probe_marked(pb, matched)
+            return
+        for li, ri, ok in chunks:
             yield self._emit(pb, bb, li, ri, ok)
         if self.probe_outer:
-            yield self._emit_unmatched(pb, bb, pb.device.sel & (counts == 0))
+            yield self._emit_unmatched(pb, bb, pb.device.sel & ~matched)
 
     def _emit_unique(self, pb: Batch, bb: Batch, bi, ok, conf) -> Batch:
         pidx = None

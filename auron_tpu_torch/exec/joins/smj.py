@@ -5,7 +5,8 @@ sorted map, or a dense table, ``core.prepare_build``); the left side
 streams through the driver's batched binary-search probes with ragged pair
 expansion. Input order does not matter to it, which is why the planner may
 drop the SortExec children (``plan/optimizer.elide_smj_input_sorts``).
-Join types are the driver's: inner, left, left_semi, left_anti. The probe
+Join types are the driver's: inner, left, left_semi, left_anti, each with
+an optional residual condition. The probe
 runs eager, as in the port's broadcast hash join (predicted compaction is a
 later slice); the JAX package's ``finish`` step emits only build-side
 completions (right/full outer rows, build-side marks), which this slice

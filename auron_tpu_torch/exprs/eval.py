@@ -3,21 +3,28 @@
 Port of the ``auron_tpu/exprs/eval.py`` subset the ported slices use:
 Column, Literal, Cast (fixed-width types), BinaryOp (Kleene AND/OR,
 comparisons incl. dictionary-string equality/order, arithmetic), Not,
-IsNull, IsNotNull, If (fixed-width branches) — with Spark's null
-semantics: arithmetic propagates NULLs, division and modulo by zero give
-NULL (non-ANSI), AND/OR are three-valued.
+IsNull, IsNotNull, If and Case (fixed-width or dictionary-string
+branches), Coalesce, In and Like — with Spark's null semantics:
+arithmetic propagates NULLs, division and modulo by zero give NULL
+(non-ANSI), AND/OR are three-valued, a NULL CASE condition counts as
+false, and ``x IN (...)`` is NULL when x is NULL or when nothing matches
+and the list holds a NULL. Branches over dictionary strings merge their
+host vocabularies into one and remap the codes with one gather; IN and
+LIKE over a dictionary string test each vocabulary entry once on the host
+and gather the answer by code on the device.
 Common subexpressions evaluate once per batch (structural memo).
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from auron_tpu_torch import types as T
-from auron_tpu_torch.columnar.batch import Batch
+from auron_tpu_torch.columnar.batch import Batch, merge_vocab
 from auron_tpu_torch.exprs import ir
 
 
@@ -146,21 +153,26 @@ class Evaluator:
             return ColumnVal(c.validity, torch.ones_like(c.validity), T.BOOL)
         if isinstance(e, ir.If):
             return self._case([(e.cond, e.then)], e.orelse, b, memo)
+        if isinstance(e, ir.Case):
+            return self._case(list(e.branches), e.orelse, b, memo)
+        if isinstance(e, ir.Coalesce):
+            return self._coalesce([self._eval(a, b, memo) for a in e.args])
+        if isinstance(e, ir.In):
+            return self._in(e, b, memo)
+        if isinstance(e, ir.Like):
+            return self._like(e, b, memo)
         raise TypeError(f"unsupported expression {type(e).__name__}")
 
-    def _case(self, branches, orelse: ir.Expr, b: Batch, memo: dict) -> ColumnVal:
+    # ---- conditionals ----
+
+    def _case(self, branches, orelse: ir.Expr | None, b: Batch, memo: dict) -> ColumnVal:
         """CASE WHEN c THEN v ... ELSE e END (``eval.py:_case``): a NULL
         condition counts as false, the first true branch wins, branch values
-        unify on their numeric common type."""
+        unify (``_unify_vals``); no ELSE is a NULL of the first branch's type."""
         conds = [self._eval(c, b, memo) for c, _ in branches]
-        vals = [self._eval(v, b, memo) for _, v in branches] + [self._eval(orelse, b, memo)]
-        if any(v.dtype.is_dict_encoded for v in vals):
-            raise TypeError("CASE over dictionary-encoded branches is not in this slice")
-        target = vals[0].dtype
-        for v in vals[1:]:
-            if v.dtype != target:
-                target = ir.numeric_common_type(target, v.dtype)
-        vals = [self._cast(v, target) for v in vals]
+        vals = [self._eval(v, b, memo) for _, v in branches]
+        els = self._eval(orelse, b, memo) if orelse is not None else _null_like(vals[0])
+        vals = self._unify_vals(vals + [els])
         out_v, out_m = vals[-1].values, vals[-1].validity
         taken = torch.zeros_like(out_m)
         for c, v in zip(conds, vals[:-1]):
@@ -168,7 +180,75 @@ class Evaluator:
             out_v = torch.where(fire, v.values, out_v)
             out_m = torch.where(fire, v.validity, out_m)
             taken = taken | fire
-        return ColumnVal(out_v, out_m, vals[0].dtype)
+        return ColumnVal(out_v, out_m, vals[0].dtype, vals[0].dict)
+
+    def _coalesce(self, args: list[ColumnVal]) -> ColumnVal:
+        """The first valid argument of each row (``eval.py:_coalesce``)."""
+        args = self._unify_vals(args)
+        out_v, out_m = args[0].values, args[0].validity
+        for a in args[1:]:
+            take = ~out_m & a.validity
+            out_v = torch.where(take, a.values, out_v)
+            out_m = out_m | a.validity
+        return ColumnVal(out_v, out_m, args[0].dtype, args[0].dict)
+
+    def _unify_vals(self, vals: list[ColumnVal]) -> list[ColumnVal]:
+        """Make CASE/COALESCE branch values mergeable (``eval.py:_unify_vals``):
+        dictionary branches get one vocabulary (first occurrence over the
+        branches in order) and their codes remapped; fixed-width branches
+        are cast to their numeric common type."""
+        if any(v.dtype.is_dict_encoded for v in vals):
+            if not all(v.dtype.is_dict_encoded for v in vals):
+                raise TypeError("mixed dictionary-encoded and fixed-width branches")
+            first = vals[0].dtype
+            if first.kind == T.TypeKind.DECIMAL:
+                raise TypeError("wide-decimal branches are not in this slice of the port")
+            unified, remaps = merge_vocab([v.dict for v in vals])
+            out = []
+            for v, r in zip(vals, remaps):
+                table = torch.from_numpy(r).to(v.values.device)
+                codes = table[v.values.long().clamp(0, len(r) - 1)]
+                out.append(ColumnVal(codes, v.validity, first, unified))
+            return out
+        target = vals[0].dtype
+        for v in vals[1:]:
+            if v.dtype != target:
+                target = ir.numeric_common_type(target, v.dtype)
+        return [self._cast(v, target) for v in vals]
+
+    # ---- membership / pattern ----
+
+    def _in(self, e: ir.In, b: Batch, memo: dict) -> ColumnVal:
+        """``x [NOT] IN (items)`` (``eval.py:_in``): a dictionary string
+        tests each vocabulary entry once on the host; NULL when x is NULL,
+        or when nothing matched and the list holds a NULL."""
+        c = self._eval(e.child, b, memo)
+        items = [i if isinstance(i, ir.Literal) else ir.lit(i) for i in e.items]
+        has_null_item = any(i.value is None for i in items)
+        if c.dtype.is_string_like:
+            wanted = {i.value for i in items if i.value is not None}
+            member = np.array([s in wanted for s in c.dict], dtype=bool)
+            hit = _gather_table(member, c.values)
+        else:
+            hit = torch.zeros_like(c.validity)
+            for item in items:
+                if item.value is not None:
+                    lv = self._literal(item, b.capacity, b.torch_device)
+                    hit = hit | self._compare("eq", c, lv).values
+        valid = c.validity & ~(~hit & has_null_item)
+        return ColumnVal(~hit if e.negated else hit, valid, T.BOOL)
+
+    def _like(self, e: ir.Like, b: Batch, memo: dict) -> ColumnVal:
+        """SQL LIKE (``eval.py:_like``): the pattern matched once over the
+        dictionary on the host, the codes gather the answer on the device."""
+        c = self._eval(e.child, b, memo)
+        if not c.dtype.is_string_like:
+            raise TypeError("LIKE requires a string input")
+        rx = _like_to_regex(e.pattern, e.escape)
+        match = np.array([s is not None and rx.fullmatch(s) is not None for s in c.dict],
+                         dtype=bool)
+        hit = _gather_table(match, c.values)
+        return ColumnVal(~hit if e.negated else hit, c.validity, T.BOOL)
 
     # ---- literals / casts ----
 
@@ -268,3 +348,36 @@ class Evaluator:
         else:
             raise ValueError(op)
         return ColumnVal(v, valid, out)
+
+
+def _null_like(proto: ColumnVal) -> ColumnVal:
+    return ColumnVal(torch.zeros_like(proto.values), torch.zeros_like(proto.validity),
+                     proto.dtype, proto.dict)
+
+
+def _gather_table(table: np.ndarray, codes: torch.Tensor) -> torch.Tensor:
+    """``table[code]`` per row: a host table per vocabulary entry gathered
+    on the device by the dictionary codes."""
+    t = torch.from_numpy(table).to(codes.device)
+    return t[codes.long().clamp(0, len(table) - 1)]
+
+
+def _like_to_regex(pattern: str, escape: str) -> "re.Pattern":
+    """LIKE pattern -> anchored-by-fullmatch regex: % any run, _ one
+    character, ``escape`` + c the literal c."""
+    out = []
+    i = 0
+    while i < len(pattern):
+        ch = pattern[i]
+        if ch == escape and i + 1 < len(pattern):
+            out.append(re.escape(pattern[i + 1]))
+            i += 2
+            continue
+        if ch == "%":
+            out.append(".*")
+        elif ch == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(ch))
+        i += 1
+    return re.compile("".join(out), re.DOTALL)

@@ -1,15 +1,17 @@
-"""Physical expression IR (the subset this slice evaluates).
+"""Physical expression IR (the subset the port evaluates).
 
 Copied from ``auron_tpu/exprs/ir.py``: frozen, structurally hashable
 dataclasses with the same names and fields, and the same Spark result-type
-rules (``arith_result_type``). Nodes of the JAX IR that this slice does not
-evaluate yet (Case, In, Like, functions, UDFs, ...) are not defined here;
-``Literal(None, T.INT64)`` is a typed NULL;
-the planner rejects them by name.
+rules (``arith_result_type``). Nodes of the JAX IR that the port does not
+evaluate yet (scalar functions, UDFs, partition ids, subqueries) are not
+defined here, and the planner rejects them by name.
+``Literal(None, T.INT64)`` is a typed NULL. ``remap_columns`` re-binds an
+expression to a schema of only the columns it references.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any
 
@@ -122,6 +124,65 @@ class If(Expr):
         return (self.cond, self.then, self.orelse)
 
 
+@dataclass(frozen=True)
+class Case(Expr):
+    """CASE WHEN c1 THEN v1 WHEN c2 THEN v2 ... ELSE e END."""
+
+    branches: tuple[tuple[Expr, Expr], ...]
+    orelse: Expr | None = None
+
+    def dtype_of(self, schema: T.Schema) -> T.DataType:
+        return self.branches[0][1].dtype_of(schema)
+
+    def children(self):
+        cs: list[Expr] = []
+        for c, v in self.branches:
+            cs += [c, v]
+        if self.orelse is not None:
+            cs.append(self.orelse)
+        return tuple(cs)
+
+
+@dataclass(frozen=True)
+class In(Expr):
+    child: Expr
+    items: tuple[Any, ...]  # literal values (or Literal nodes)
+    negated: bool = False
+
+    def dtype_of(self, schema: T.Schema) -> T.DataType:
+        return T.BOOL
+
+    def children(self):
+        return (self.child,)
+
+
+@dataclass(frozen=True)
+class Coalesce(Expr):
+    args: tuple[Expr, ...]
+
+    def dtype_of(self, schema: T.Schema) -> T.DataType:
+        return self.args[0].dtype_of(schema)
+
+    def children(self):
+        return self.args
+
+
+@dataclass(frozen=True)
+class Like(Expr):
+    """SQL LIKE with % and _ wildcards; evaluated over the dictionary."""
+
+    child: Expr
+    pattern: str
+    negated: bool = False
+    escape: str = "\\"
+
+    def dtype_of(self, schema: T.Schema) -> T.DataType:
+        return T.BOOL
+
+    def children(self):
+        return (self.child,)
+
+
 # ---------------------------------------------------------------------------
 # Spark arithmetic result-type rules (verbatim from auron_tpu/exprs/ir.py)
 # ---------------------------------------------------------------------------
@@ -226,3 +287,28 @@ def walk(e: Expr):
     yield e
     for c in e.children():
         yield from walk(c)
+
+
+def remap_columns(e: Expr, mapping: dict) -> Expr:
+    """Rebuild an expression with Column indices remapped (every node is a
+    frozen dataclass). Containers are walked to any depth (Case.branches is
+    a tuple of (cond, value) tuples), so every Column that ``walk`` reaches
+    is rewritten."""
+
+    def rebuild(v):
+        if isinstance(v, Column):
+            return Column(mapping[v.index], v.name)
+        if isinstance(v, Expr):
+            changes = {}
+            for f in dataclasses.fields(v):
+                old = getattr(v, f.name)
+                new = rebuild(old)
+                if new is not old:
+                    changes[f.name] = new
+            return dataclasses.replace(v, **changes) if changes else v
+        if isinstance(v, (tuple, list)):
+            new = type(v)(rebuild(x) for x in v)
+            return v if all(a is b for a, b in zip(new, v)) else new
+        return v
+
+    return rebuild(e)

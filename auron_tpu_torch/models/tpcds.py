@@ -31,7 +31,12 @@
   ``run_q5_class`` (a union of two exchanges);
 - ``run_q72_mesh`` (q72 as one plan through the planned-exchange driver)
   and ``run_skew_join`` (a hot-key join stage that AQE skew-join
-  splitting widens).
+  splitting widens);
+- the 22 classes of ``TAIL_CLASSES`` (CASE, IN, LIKE, residual join
+  conditions, a three-way sort-merge join chain, CTEs read twice,
+  INTERSECT/EXCEPT as semi/anti joins, ...), each through the task runtime
+  with the JAX function's partition and task counts and its operator
+  tree, with a numpy oracle.
 
 Map tasks run one after another (the JAX package runs them on threads).
 """
@@ -48,7 +53,7 @@ import numpy as np
 
 from auron_tpu_torch import types as T
 from auron_tpu_torch.columnar.batch import Batch
-from auron_tpu_torch.exprs.ir import col, lit
+from auron_tpu_torch.exprs.ir import BinaryOp, Case, Cast, In, Like, Literal, col, lit
 from auron_tpu_torch.ops.sortkeys import SortSpec
 from auron_tpu_torch.utils.config import Configuration
 
@@ -368,7 +373,7 @@ def q93_map_tree():
     """SELECT CASE WHEN ss_quantity < 85 THEN NULL ELSE ss_customer_sk END k,
     ss_ext_sales_price price FROM store_sales: ~85 % of the keys are NULL."""
     from auron_tpu_torch.exec.basic import ProjectExec, ResourceScanExec
-    from auron_tpu_torch.exprs.ir import BinaryOp, If, Literal
+    from auron_tpu_torch.exprs.ir import If
 
     key = If(BinaryOp("lt", col(3), Literal(85, T.INT32)), Literal(None, T.INT64), col(2))
     return ProjectExec(ResourceScanExec(STORE_SALES_SCHEMA, "q93_fact"), [key, col(4)],
@@ -461,7 +466,6 @@ def q3_map_tree(moy: int = 11, category_id: int = 1):
     from auron_tpu_torch.exec.agg_exec import AggExpr, HashAggExec
     from auron_tpu_torch.exec.basic import FilterExec, ProjectExec, ResourceScanExec
     from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
-    from auron_tpu_torch.exprs.ir import BinaryOp
 
     scan = ResourceScanExec(STORE_SALES_SCHEMA, "q3_fact")
     dscan = FilterExec(ResourceScanExec(DATE_DIM_SCHEMA, "q3_dd"),
@@ -832,7 +836,6 @@ def q95_map_trees():
     exchange, as the host engine plans them."""
     from auron_tpu_torch.exec.basic import FilterExec, ProjectExec, ResourceScanExec
     from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
-    from auron_tpu_torch.exprs.ir import BinaryOp
 
     def category(c: int):
         return FilterExec(ResourceScanExec(ITEM_SCHEMA, "q95_item"),
@@ -1035,7 +1038,6 @@ def q65_reduce_tree(read_a, read_b):
     """final avg JOIN final max ON item, WHERE m > 2 a."""
     from auron_tpu_torch.exec.basic import FilterExec
     from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
-    from auron_tpu_torch.exprs.ir import BinaryOp
 
     keys = [(col(0), "i")]
     j = BroadcastHashJoinExec(_final(read_a, keys, _aggs(("avg", col(4), "a"))),
@@ -1088,7 +1090,6 @@ def q5_map_trees():
     """(partial count, sum(price) by item of the cheap rows, the same of
     the others): the partial aggregates sit below the exchanges."""
     from auron_tpu_torch.exec.basic import FilterExec
-    from auron_tpu_torch.exprs.ir import BinaryOp
 
     cheap = FilterExec(_fact_scan("q5_fact"), [BinaryOp("lteq", col(4), lit(50.0))])
     pricey = FilterExec(_fact_scan("q5_fact"), [BinaryOp("gt", col(4), lit(50.0))])
@@ -1226,3 +1227,776 @@ def skew_join_oracle(fact: Table, dim: Table) -> dict:
     return {"k": keys, "c": np.bincount(inv, minlength=len(keys)).astype(np.int64),
             "w": np.bincount(inv, weights=dim.columns["w"][row[hit]],
                              minlength=len(keys)).astype(np.int64)}
+
+
+# ---------------------------------------------------------------------------
+# the expression-tail and join-tail classes: CASE, IN, LIKE, residual join
+# conditions, SMJ chains, CTE reuse, set operations — each through the task
+# runtime with the JAX function's partition and task counts, and a numpy
+# oracle
+# ---------------------------------------------------------------------------
+
+#: the classes of this section, in the order chip_smoke.py runs them
+TAIL_CLASSES = ("q17", "q16", "q41", "q48", "q99", "q37", "q6", "q85", "q1", "q88", "q14b",
+                "q2", "q4", "q11", "q15", "q31", "q34", "q38", "q54", "q58", "q79", "q22")
+
+
+def _scan(schema: T.Schema, rid: str):
+    from auron_tpu_torch.exec.basic import ResourceScanExec
+
+    return ResourceScanExec(schema, rid)
+
+
+def _bhj(left, right, lkeys: list, rkeys: list, join_type: str = "inner", **kw):
+    """A broadcast hash join with the build on the right."""
+    from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
+
+    return BroadcastHashJoinExec(left, right, lkeys, rkeys, join_type, build_side="right", **kw)
+
+
+def _filter(child, *predicates):
+    from auron_tpu_torch.exec.basic import FilterExec
+
+    return FilterExec(child, list(predicates))
+
+
+def _project(child, *named):
+    from auron_tpu_torch.exec.basic import ProjectExec
+
+    return ProjectExec(child, [e for e, _ in named], [n for _, n in named])
+
+
+def _agg2(child, keys: list, aggs: list, final_aggs: list | None = None):
+    """Partial then final aggregate in one task (the JAX functions' hash_agg
+    pair); ``final_aggs`` names the final side where it differs (a final
+    ``count`` over a partial ``count_star``)."""
+    return _final(_partial(child, keys, aggs), keys, final_aggs or aggs)
+
+
+def _tasks(plan, resources: dict, n_tasks: int, conf, device, stats, stage_id: int = 0):
+    """Run partitions 0..n_tasks-1 of ``plan``: every task's output batches
+    in order; ``stats`` gets the metric trees' host timers."""
+    from auron_tpu_torch.runtime.task import run_task
+
+    out = []
+    for p in range(n_tasks):
+        batches, metrics = run_task(plan, resources, stage_id, p, Configuration(conf or {}),
+                                    device)
+        out += batches
+        if stats is not None:
+            add_timers(stats, metrics)
+    return out
+
+
+def _answer(batches, names: list[str], dtypes: list) -> dict:
+    return _concat([collect(batches)], names, dtypes)
+
+
+def _tail_inputs(data, n: int, device, ingested) -> dict:
+    """(fact in ``n`` partitions, dims broadcast to each) as resources."""
+    ing = ingested if ingested is not None else ingest_q3(data, n, device)
+    k = len(ing["fact"])
+    return {"fact": ing["fact"], "dd": [ing["dd"]] * k, "item": [ing["item"]] * k}
+
+
+def _materialize(plan, resources: dict, rid: str, conf, device, stats, n: int = 1) -> T.Schema:
+    """Run ``plan`` (one task) and register its output batches as the
+    ``n``-partition resource ``rid`` (a CTE or a broadcast subquery result,
+    collected once and read by every later task); returns its schema."""
+    resources[rid] = [_tasks(plan, resources, 1, conf, device, stats)] * n
+    return plan.schema
+
+
+def _fact():
+    return _fact_scan("fact")
+
+
+def _dd():
+    return _scan(DATE_DIM_SCHEMA, "dd")
+
+
+def _item():
+    return _scan(ITEM_SCHEMA, "item")
+
+
+def _year_is(y: int):
+    return BinaryOp("eq", col(1), lit(y))
+
+
+def _by(keys: np.ndarray, weights: np.ndarray | None = None):
+    """(distinct int64 keys ascending, row count per key, weight sum per key)."""
+    uniq, inv = _group(keys.astype(np.int64))
+    n = np.bincount(inv, minlength=len(uniq)).astype(np.int64)
+    s = None if weights is None else np.bincount(inv, weights=weights, minlength=len(uniq))
+    return uniq, n, s
+
+
+# ---- q17-class: three-way sort-merge join chain --------------------------
+
+
+def q17_tree(mode: str = "build"):
+    """fact SMJ item SMJ date_dim by (d_year, i_category), the pruned tree
+    of the JAX plan: the probe sides sorted (the fact by item, the first
+    join's output by date), the build sides' sorts elided under
+    ``auron.smj.elide.sorts`` = build (the task default)."""
+    from auron_tpu_torch.exec.joins.smj import SortMergeJoinExec
+
+    fact = _project(_fact(), (col(0), "d"), (col(1), "i"), (col(4), "p"))
+    item = _project(_item(), (col(0), "i_item_sk"), (col(3), "i_category"))
+    dd = _project(_dd(), (col(0), "d_date_sk"), (col(1), "d_year"))
+    j1 = SortMergeJoinExec(_smj_side(fact, [col(1)], mode, "left"),
+                           _smj_side(item, [col(0)], mode, "right"), [col(1)], [col(0)],
+                           "inner", projection=[0, 2, 4])
+    j2 = SortMergeJoinExec(_smj_side(j1, [col(0)], mode, "left"),
+                           _smj_side(dd, [col(0)], mode, "right"), [col(0)], [col(0)],
+                           "inner", projection=[1, 2, 4])
+    pr = _project(j2, (col(2), "y"), (col(1), "cat"), (col(0), "p"))
+    return _agg2(pr, [(col(0), "y"), (col(1), "cat")], _aggs(("sum", col(2), "s")))
+
+
+def run_q17_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                  stats: dict | None = None, ingested: dict | None = None) -> dict:
+    """SELECT d_year y, i_category cat, sum(price) s FROM fact SMJ item SMJ
+    date_dim GROUP BY y, cat (one task): {y, cat, s} sorted by (y, cat)."""
+    from auron_tpu_torch.plan.optimizer import SMJ_ELIDE_SORTS_KEY
+
+    res = _tail_inputs(data, 1, device, ingested)
+    mode = (conf or {}).get(SMJ_ELIDE_SORTS_KEY, "build")
+    out = _answer(_tasks(q17_tree(mode), res, 1, conf, device, stats), ["y", "cat", "s"],
+                  [np.int32, object, np.float64])
+    return _sorted_by(out, ["y", "cat"])
+
+
+def q17_class_oracle(data: TpcdsData) -> dict:
+    ss, dd, it = data.store_sales.columns, data.date_dim.columns, data.item.columns
+    irow, ihit = _lookup(it["i_item_sk"], ss["ss_item_sk"])
+    drow, dhit = _lookup(dd["d_date_sk"], ss["ss_sold_date_sk"])
+    hit = ihit & dhit
+    cats, cat_code = np.unique(it["i_category"].astype(str), return_inverse=True)
+    year = dd["d_year"][drow[hit]].astype(np.int64)
+    code = cat_code.reshape(-1)[irow[hit]]
+    keys, _, s = _by(year * 64 + code, ss["ss_ext_sales_price"][hit])
+    return {"y": (keys // 64).astype(np.int32), "cat": cats[keys % 64].astype(object), "s": s}
+
+
+# ---- q16-class: anti join after a shuffle on customer --------------------
+
+
+def run_q16_class(data: TpcdsData | None = None, n_map: int = 2, n_reduce: int = 2,
+                  work_dir: str | None = None, device="cuda", conf: dict | None = None,
+                  stats: dict | None = None, ingested: dict | None = None) -> dict:
+    """Rows of customers with no purchase above 400 anywhere: the fact
+    file-shuffled on the nullable INT64 customer (K1 on a card), then in
+    each reduce task the shuffled rows LEFT ANTI JOIN the customers of
+    their own high-value rows, counted. {c} (one row)."""
+    from auron_tpu_torch.exec.shuffle.reader import IpcReaderExec
+
+    ing = ingested if ingested is not None else ingest_q3(data, n_map, device)
+    resources = {"fact": ing["fact"]}
+
+    def reduce_tree(read):
+        high = _project(_filter(IpcReaderExec(read.schema, read.resource_id),
+                                BinaryOp("gt", col(4), lit(400.0))), (col(2), "hc"))
+        anti = _bhj(read, high, [col(2)], [col(0)], "left_anti")
+        return _agg2(anti, [], _aggs(("count_star", None, "c")))
+
+    outs = _run_stages([_shuffle_one(_fact(), [2], len(ing["fact"]), "q16_ex0")], reduce_tree,
+                       resources, n_reduce, "q16", work_dir, Configuration(conf or {}), device,
+                       stats)
+    c = _concat(outs, ["c"], [np.int64])["c"]
+    return {"c": np.array([c.sum()], dtype=np.int64)}
+
+
+def q16_class_oracle(data: TpcdsData) -> dict:
+    ss = data.store_sales
+    cust, valid = ss.columns["ss_customer_sk"], ss.validity("ss_customer_sk")
+    bad = np.unique(cust[valid & (ss.columns["ss_ext_sales_price"] > 400.0)])
+    keep = ~(valid & np.isin(cust, bad))
+    return {"c": np.array([keep.sum()], dtype=np.int64)}
+
+
+# ---- q41-class: LIKE over a dictionary string, then DISTINCT -------------
+
+
+def run_q41_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                  stats: dict | None = None, ingested: dict | None = None) -> dict:
+    """SELECT DISTINCT i_category cat FROM item WHERE i_category LIKE '%o%':
+    {cat} sorted."""
+    res = _tail_inputs(data, 1, device, ingested)
+    liked = _filter(_item(), Like(col(3), "%o%"))
+    plan = _agg2(liked, [(col(3), "cat")], [])
+    out = _answer(_tasks(plan, res, 1, conf, device, stats), ["cat"], [object])
+    return _sorted_by(out, ["cat"])
+
+
+def q41_class_oracle(data: TpcdsData) -> dict:
+    cats = sorted({c for c in data.item.columns["i_category"] if "o" in c})
+    return {"cat": np.array(cats, dtype=object)}
+
+
+# ---- q48-class: CASE inside an aggregate --------------------------------
+
+
+def run_q48_class(data: TpcdsData | None = None, n_map: int = 2, device="cuda",
+                  conf: dict | None = None, stats: dict | None = None,
+                  ingested: dict | None = None) -> dict:
+    """sum(CASE WHEN quantity < 25 THEN price ELSE 0 END), sum(price) per
+    year over a broadcast date join, ``n_map`` tasks merged on the driver:
+    {y, cheap_s, all_s} sorted by y."""
+    res = _tail_inputs(data, n_map, device, ingested)
+    j = _bhj(_fact(), _dd(), [col(0)], [col(0)])
+    cheap = Case(((BinaryOp("lt", col(3), lit(25)), col(4)),), lit(0.0))
+    pr = _project(j, (col(6), "y"), (cheap, "cheap"), (col(4), "price"))
+    plan = _agg2(pr, [(col(0), "y")], _aggs(("sum", col(1), "cheap_s"), ("sum", col(2), "all_s")))
+    out = _answer(_tasks(plan, res, len(res["fact"]), conf, device, stats),
+                  ["y", "cheap_s", "all_s"], [np.int32, np.float64, np.float64])
+    y, inv = _group(out["y"])
+    return {"y": y.astype(np.int32),
+            "cheap_s": np.bincount(inv, weights=out["cheap_s"], minlength=len(y)),
+            "all_s": np.bincount(inv, weights=out["all_s"], minlength=len(y))}
+
+
+def _with_dates(data: TpcdsData):
+    """(fact columns, the date row of each fact row, hit)."""
+    ss, dd = data.store_sales.columns, data.date_dim.columns
+    drow, dhit = _lookup(dd["d_date_sk"], ss["ss_sold_date_sk"])
+    return ss, drow, dhit
+
+
+def q48_class_oracle(data: TpcdsData) -> dict:
+    ss, drow, hit = _with_dates(data)
+    price = ss["ss_ext_sales_price"][hit]
+    cheap = np.where(ss["ss_quantity"][hit] < 25, price, 0.0)
+    y, _, all_s = _by(data.date_dim.columns["d_year"][drow[hit]], price)
+    _, _, cheap_s = _by(data.date_dim.columns["d_year"][drow[hit]], cheap)
+    return {"y": y.astype(np.int32), "cheap_s": cheap_s, "all_s": all_s}
+
+
+# ---- q99-class: multi-branch CASE banding -------------------------------
+
+
+def run_q99_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                  stats: dict | None = None, ingested: dict | None = None) -> dict:
+    """count(*) per (year, price band), the band a four-way CASE: {y, band,
+    n} sorted by (y, band)."""
+    res = _tail_inputs(data, 1, device, ingested)
+    j = _bhj(_fact(), _dd(), [col(0)], [col(0)])
+    band = Case(((BinaryOp("lt", col(4), lit(20.0)), lit(0)), (BinaryOp("lt", col(4), lit(60.0)), lit(1)),
+                 (BinaryOp("lt", col(4), lit(120.0)), lit(2))), lit(3))
+    pr = _project(j, (col(6), "y"), (band, "band"))
+    plan = _agg2(pr, [(col(0), "y"), (col(1), "band")], _aggs(("count_star", None, "n")),
+                 _aggs(("count", col(2), "n")))
+    out = _answer(_tasks(plan, res, 1, conf, device, stats), ["y", "band", "n"],
+                  [np.int32, np.int32, np.int64])
+    return _sorted_by(out, ["y", "band"])
+
+
+def q99_class_oracle(data: TpcdsData) -> dict:
+    ss, drow, hit = _with_dates(data)
+    p = ss["ss_ext_sales_price"][hit]
+    band = np.where(p < 20.0, 0, np.where(p < 60.0, 1, np.where(p < 120.0, 2, 3)))
+    year = data.date_dim.columns["d_year"][drow[hit]].astype(np.int64)
+    keys, n, _ = _by(year * 4 + band)
+    return {"y": (keys // 4).astype(np.int32), "band": (keys % 4).astype(np.int32), "n": n}
+
+
+# ---- q37-class: IN list, then a semi join --------------------------------
+
+
+def run_q37_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                  stats: dict | None = None, ingested: dict | None = None) -> dict:
+    """count(*), sum(price) of sales whose item's category IN (1, 2, 3): {c, s}."""
+    res = _tail_inputs(data, 1, device, ingested)
+    good = _filter(_item(), In(col(2), tuple(Literal(v, T.INT32) for v in (1, 2, 3))))
+    semi = _bhj(_fact(), good, [col(1)], [col(0)], "left_semi")
+    plan = _agg2(semi, [], _aggs(("count_star", None, "c"), ("sum", col(4), "s")))
+    return _answer(_tasks(plan, res, 1, conf, device, stats), ["c", "s"], [np.int64, np.float64])
+
+
+def q37_class_oracle(data: TpcdsData) -> dict:
+    it, ss = data.item.columns, data.store_sales.columns
+    keep = np.isin(ss["ss_item_sk"], it["i_item_sk"][np.isin(it["i_category_id"], (1, 2, 3))])
+    return {"c": np.array([keep.sum()], dtype=np.int64),
+            "s": np.array([ss["ss_ext_sales_price"][keep].sum()])}
+
+
+# ---- q6-class: a computed aggregate broadcast into a conditional join ----
+
+
+def run_q6_class(data: TpcdsData | None = None, n_partitions: int = 2, device="cuda",
+                 conf: dict | None = None, stats: dict | None = None,
+                 ingested: dict | None = None) -> dict:
+    """count(*) per year of sales priced above 1.2x their category's
+    average: stage A computes avg(price) by category (``n_partitions``
+    partial tasks, one final task), collected and broadcast into stage B's
+    join, whose residual condition is price > 1.2 * cat_avg. Cached builds
+    as in the JAX function. {d_year, cnt} sorted by d_year."""
+    res = _tail_inputs(data, n_partitions, device, ingested)
+    n = len(res["fact"])
+    pr = _project(_bhj(_fact(), _item(), [col(1)], [col(0)], cached_build_id="q6_itA_b"),
+                  (col(7), "cat"), (col(4), "price"))
+    keys, avg = [(col(0), "cat")], _aggs(("avg", col(1), "cat_avg"))
+    part = _partial(pr, keys, avg)
+    res["q6_inter"] = [_tasks(part, res, n, conf, device, stats)]
+    ca = _materialize(_final(_scan(part.schema, "q6_inter"), keys, avg), res, "q6_catavg", conf,
+                      device, stats, n)
+    j1 = _bhj(_fact(), _dd(), [col(0)], [col(0)], cached_build_id="q6_dd_b")
+    j2 = _bhj(j1, _item(), [col(1)], [col(0)], cached_build_id="q6_it_b")
+    # fact(5) + date(3) + item(5): price 4, d_year 6, i_category_id 10, cat_avg 14
+    j3 = _bhj(j2, _scan(ca, "q6_catavg"), [col(10)], [col(0)],
+              condition=BinaryOp("gt", col(4), BinaryOp("mul", lit(1.2), col(14))),
+              cached_build_id="q6_ca_b")
+    plan = _agg2(_project(j3, (col(6), "d_year")), [(col(0), "d_year")],
+                 _aggs(("count_star", None, "cnt")))
+    out = _answer(_tasks(plan, res, n, conf, device, stats), ["d_year", "cnt"],
+                  [np.int32, np.int64])
+    y, inv = _group(out["d_year"])
+    return {"d_year": y.astype(np.int32),
+            "cnt": np.bincount(inv, weights=out["cnt"], minlength=len(y)).astype(np.int64)}
+
+
+def _category_avg(ss: dict, it: dict):
+    """(category id of each fact row, hit, per-row average price of its category)."""
+    irow, ihit = _lookup(it["i_item_sk"], ss["ss_item_sk"])
+    cat = it["i_category_id"][irow].astype(np.int64)
+    cats, n, s = _by(cat[ihit], ss["ss_ext_sales_price"][ihit])
+    avg = np.zeros(int(cats.max(initial=0)) + 1)
+    avg[cats] = s / n
+    return cat, ihit, avg[np.where(ihit, cat, 0)]
+
+
+def q6_class_oracle(data: TpcdsData) -> dict:
+    ss, drow, dhit = _with_dates(data)
+    cat, ihit, cat_avg = _category_avg(ss, data.item.columns)
+    keep = dhit & ihit & (ss["ss_ext_sales_price"] > 1.2 * cat_avg)
+    y, n, _ = _by(data.date_dim.columns["d_year"][drow[keep]])
+    return {"d_year": y.astype(np.int32), "cnt": n}
+
+
+# ---- q85-class: a residual non-equi condition with a cast ----------------
+
+
+def run_q85_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                  stats: dict | None = None, ingested: dict | None = None) -> dict:
+    """fact JOIN item ON item_sk AND price > CAST(quantity AS DOUBLE) * 1.5,
+    counted per category id: {cat, n} sorted by cat."""
+    res = _tail_inputs(data, 1, device, ingested)
+    cond = BinaryOp("gt", col(4), BinaryOp("mul", Cast(col(3), T.FLOAT64), lit(1.5)))
+    j = _bhj(_fact(), _item(), [col(1)], [col(0)], condition=cond)
+    plan = _agg2(j, [(col(7), "cat")], _aggs(("count_star", None, "n")),
+                 _aggs(("count", col(8), "n")))
+    out = _answer(_tasks(plan, res, 1, conf, device, stats), ["cat", "n"], [np.int32, np.int64])
+    return _sorted_by(out, ["cat"])
+
+
+def q85_class_oracle(data: TpcdsData) -> dict:
+    ss, it = data.store_sales.columns, data.item.columns
+    irow, hit = _lookup(it["i_item_sk"], ss["ss_item_sk"])
+    keep = hit & (ss["ss_ext_sales_price"] > ss["ss_quantity"] * 1.5)
+    cat, n, _ = _by(it["i_category_id"][irow[keep]])
+    return {"cat": cat.astype(np.int32), "n": n}
+
+
+# ---- q1-class: a filtered broadcast join, global aggregate ---------------
+
+_Q1_AGGS = (("count_star", None, "cnt"), ("sum", col(0), "total"), ("avg", col(0), "mean"))
+
+
+def run_q1_class(data: TpcdsData | None = None, n_partitions: int = 4, year: int = 2000,
+                 device="cuda", conf: dict | None = None, stats: dict | None = None,
+                 ingested: dict | None = None) -> dict:
+    """count(*), sum(price), avg(price) of the sales of one year:
+    ``n_partitions`` partial tasks, their states merged by one final task.
+    {cnt, total, mean} (one row)."""
+    res = _tail_inputs(data, n_partitions, device, ingested)
+    j = _bhj(_fact(), _filter(_dd(), _year_is(year)), [col(0)], [col(0)],
+             cached_build_id="q1_dd_build")
+    part = _partial(_project(j, (col(4), "price")), [], _aggs(*_Q1_AGGS))
+    res["q1_inter"] = [_tasks(part, res, len(res["fact"]), conf, device, stats)]
+    plan = _final(_scan(part.schema, "q1_inter"), [], _aggs(*_Q1_AGGS))
+    return _answer(_tasks(plan, res, 1, conf, device, stats), ["cnt", "total", "mean"],
+                   [np.int64, np.float64, np.float64])
+
+
+def q1_class_oracle(data: TpcdsData, year: int = 2000) -> dict:
+    ss, drow, hit = _with_dates(data)
+    keep = hit & (data.date_dim.columns["d_year"][drow] == year)
+    p = ss["ss_ext_sales_price"][keep]
+    return {"cnt": np.array([len(p)], dtype=np.int64), "total": np.array([p.sum()]),
+            "mean": np.array([p.mean() if len(p) else np.nan])}
+
+
+# ---- q88-class: UNION of filtered scans ----------------------------------
+
+Q88_BANDS = ((0, 20), (20, 60), (60, 100))
+
+
+def run_q88_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                  stats: dict | None = None, ingested: dict | None = None) -> dict:
+    """count(*), sum(price) per quantity band [0, 20), [20, 60), [60, 100),
+    a UNION ALL of three filtered scans: {band, c, s} sorted by band."""
+    from auron_tpu_torch.exec.basic import UnionExec
+
+    res = _tail_inputs(data, 1, device, ingested)
+    branches = [_project(_filter(_fact(), BinaryOp("gteq", col(3), lit(lo)),
+                                 BinaryOp("lt", col(3), lit(hi))), (lit(bi), "band"), (col(4), "price"))
+                for bi, (lo, hi) in enumerate(Q88_BANDS)]
+    plan = _agg2(UnionExec(branches), [(col(0), "band")],
+                 _aggs(("count_star", None, "c"), ("sum", col(1), "s")))
+    out = _answer(_tasks(plan, res, 1, conf, device, stats), ["band", "c", "s"],
+                  [np.int32, np.int64, np.float64])
+    return _sorted_by(out, ["band"])
+
+
+
+def q88_class_oracle(data: TpcdsData) -> dict:
+    ss = data.store_sales.columns
+    q, p = ss["ss_quantity"], ss["ss_ext_sales_price"]
+    keep = [(q >= lo) & (q < hi) for lo, hi in Q88_BANDS]
+    return {"band": np.arange(3, dtype=np.int32),
+            "c": np.array([k.sum() for k in keep], dtype=np.int64),
+            "s": np.array([p[k].sum() for k in keep])}
+
+
+# ---- q14b-class: INTERSECT / EXCEPT as semi and anti joins ---------------
+
+
+def run_q14b_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                   stats: dict | None = None, ingested: dict | None = None) -> dict:
+    """Items sold in 1998 INTERSECT items sold in 1999 EXCEPT items sold in
+    2000 (distinct sets through left-semi and left-anti joins), counted with
+    their min and max: {c, lo, lo_valid, hi, hi_valid} (min and max are NULL
+    when no item is left)."""
+    res = _tail_inputs(data, 1, device, ingested)
+
+    def distinct_items(year: int):
+        j = _bhj(_fact(), _filter(_dd(), _year_is(year)), [col(0)], [col(0)],
+                 cached_build_id=f"q14b_dd_{year}")
+        return _agg2(_project(j, (col(1), "i")), [(col(0), "i")], [])
+
+    d98, d99, d00 = (distinct_items(y) for y in (1998, 1999, 2000))
+    exc = _bhj(_bhj(d98, d99, [col(0)], [col(0)], "left_semi"), d00, [col(0)], [col(0)],
+               "left_anti")
+    plan = _agg2(exc, [], _aggs(("count_star", None, "c"), ("min", col(0), "lo"),
+                                ("max", col(0), "hi")))
+    out = _concat([collect(_tasks(plan, res, 1, conf, device, stats), nulls=True)],
+                  ["c", "lo", "lo_valid", "hi", "hi_valid"],
+                  [np.int64, np.int64, bool, np.int64, bool])
+    for k in ("lo", "hi"):  # NULL (no item left) reads 0
+        out[k] = np.where(out[f"{k}_valid"], out[k], 0)
+    return out
+
+
+def _items_by_year(data: TpcdsData, year: int) -> np.ndarray:
+    ss, drow, hit = _with_dates(data)
+    yes = hit & (data.date_dim.columns["d_year"][drow] == year)
+    return np.unique(ss["ss_item_sk"][yes])
+
+
+def q14b_class_oracle(data: TpcdsData) -> dict:
+    a, b, c = (_items_by_year(data, y) for y in (1998, 1999, 2000))
+    keep = np.setdiff1d(np.intersect1d(a, b), c)
+    some = np.array([len(keep) > 0])
+    return {"c": np.array([len(keep)], dtype=np.int64),
+            "lo": np.array([keep.min() if len(keep) else 0], dtype=np.int64), "lo_valid": some,
+            "hi": np.array([keep.max() if len(keep) else 0], dtype=np.int64), "hi_valid": some}
+
+
+# ---- q2-class: a CTE read twice, self-joined month on month ---------------
+
+
+def run_q2_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                 stats: dict | None = None, ingested: dict | None = None) -> dict:
+    """Monthly revenue (a CTE materialized once) joined with itself shifted
+    by one month: ratio = next month's revenue over this month's.
+    {y, m, ratio} sorted by (y, m)."""
+    res = _tail_inputs(data, 1, device, ingested)
+    pr = _project(_bhj(_fact(), _dd(), [col(0)], [col(0)]), (col(6), "y"), (col(7), "m"),
+                  (col(4), "p"))
+    cte = _materialize(_agg2(pr, [(col(0), "y"), (col(1), "m")], _aggs(("sum", col(2), "rev"))),
+                       res, "q2_cte", conf, device, stats)
+    nxt = _project(_scan(cte, "q2_cte"), (col(0), "y"), (BinaryOp("sub", col(1), lit(1)), "m0"),
+                   (col(2), "rev_next"))
+    jj = _bhj(_scan(cte, "q2_cte"), nxt, [col(0), col(1)], [col(0), col(1)])
+    plan = _project(jj, (col(0), "y"), (col(1), "m"), (BinaryOp("div", col(5), col(2)), "ratio"))
+    out = _answer(_tasks(plan, res, 1, conf, device, stats), ["y", "m", "ratio"],
+                  [np.int32, np.int32, np.float64])
+    return _sorted_by(out, ["y", "m"])
+
+
+def q2_class_oracle(data: TpcdsData) -> dict:
+    ss, drow, hit = _with_dates(data)
+    dd = data.date_dim.columns
+    ym = dd["d_year"][drow[hit]].astype(np.int64) * 16 + dd["d_moy"][drow[hit]]
+    keys, _, rev = _by(ym, ss["ss_ext_sales_price"][hit])
+    pos, has_next = _lookup(keys, keys + 1)
+    return {"y": (keys[has_next] // 16).astype(np.int32),
+            "m": (keys[has_next] % 16).astype(np.int32),
+            "ratio": rev[pos[has_next]] / rev[has_next]}
+
+
+# ---- q4-class: a CTE chain: per-customer totals -> filter -> semi join ---
+
+
+def run_q4_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                 stats: dict | None = None, ingested: dict | None = None) -> dict:
+    """Rows per item of the customers whose total spend exceeds 300 (the
+    totals a CTE, the high spenders a filter over it, a semi join back to
+    the fact): {i, n} sorted by i."""
+    res = _tail_inputs(data, 1, device, ingested)
+    cte = _materialize(_agg2(_fact(), [(col(2), "c")], _aggs(("sum", col(4), "s"))), res,
+                       "q4_cte", conf, device, stats)
+    high = _filter(_scan(cte, "q4_cte"), BinaryOp("gt", col(1), lit(300.0)))
+    semi = _bhj(_fact(), high, [col(2)], [col(0)], "left_semi")
+    plan = _agg2(semi, [(col(1), "i")], _aggs(("count_star", None, "n")),
+                 _aggs(("count", col(2), "n")))
+    out = _answer(_tasks(plan, res, 1, conf, device, stats), ["i", "n"], [np.int64, np.int64])
+    return _sorted_by(out, ["i"])
+
+
+def _valid_customers(data: TpcdsData):
+    ss = data.store_sales
+    return ss.columns, ss.columns["ss_customer_sk"], ss.validity("ss_customer_sk")
+
+
+def q4_class_oracle(data: TpcdsData) -> dict:
+    ss, cust, valid = _valid_customers(data)
+    cs, _, tot = _by(cust[valid], ss["ss_ext_sales_price"][valid])
+    keep = valid & np.isin(cust, cs[tot > 300.0])
+    i, n, _ = _by(ss["ss_item_sk"][keep])
+    return {"i": i, "n": n}
+
+
+# ---- q11-class: year-over-year self-join of a CTE ------------------------
+
+
+def run_q11_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                  stats: dict | None = None, ingested: dict | None = None) -> dict:
+    """Per-(customer, year) revenue (a CTE), 1999 joined with 1998 on
+    customer where 1999 grew: {c, s99, s98} sorted by c."""
+    res = _tail_inputs(data, 1, device, ingested)
+    pr = _project(_bhj(_fact(), _dd(), [col(0)], [col(0)]), (col(2), "c"), (col(6), "y"),
+                  (col(4), "p"))
+    cte = _materialize(_agg2(pr, [(col(0), "c"), (col(1), "y")], _aggs(("sum", col(2), "s"))),
+                       res, "q11_cte", conf, device, stats)
+    y98 = _filter(_scan(cte, "q11_cte"), _year_is(1998))
+    y99 = _filter(_scan(cte, "q11_cte"), _year_is(1999))
+    growth = _filter(_bhj(y99, y98, [col(0)], [col(0)]), BinaryOp("gt", col(2), col(5)))
+    plan = _project(growth, (col(0), "c"), (col(2), "s99"), (col(5), "s98"))
+    out = _answer(_tasks(plan, res, 1, conf, device, stats), ["c", "s99", "s98"],
+                  [np.int64, np.float64, np.float64])
+    return _sorted_by(out, ["c"])
+
+
+def q11_class_oracle(data: TpcdsData) -> dict:
+    ss, drow, hit = _with_dates(data)
+    valid = hit & data.store_sales.validity("ss_customer_sk")
+    year = data.date_dim.columns["d_year"][drow]
+    sums = []
+    for y in (1999, 1998):
+        k = valid & (year == y)
+        sums.append(_by(ss["ss_customer_sk"][k], ss["ss_ext_sales_price"][k]))
+    (c99, _, s99), (c98, _, s98) = sums
+    pos, hit2 = _lookup(c98, c99)
+    keep = hit2 & (s99 > s98[pos])
+    return {"c": c99[keep], "s99": s99[keep], "s98": s98[pos[keep]]}
+
+
+# ---- q15-class: EXISTS as a semi join under a filter ---------------------
+
+
+def run_q15_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                  stats: dict | None = None, ingested: dict | None = None) -> dict:
+    """count(*), sum(price) of sales above 50 whose item is in category 3:
+    {n, s}."""
+    res = _tail_inputs(data, 1, device, ingested)
+    semi = _bhj(_filter(_fact(), BinaryOp("gt", col(4), lit(50.0))),
+                _filter(_item(), BinaryOp("eq", col(2), lit(3))), [col(1)], [col(0)], "left_semi")
+    plan = _agg2(semi, [], _aggs(("count_star", None, "n"), ("sum", col(4), "s")))
+    return _answer(_tasks(plan, res, 1, conf, device, stats), ["n", "s"], [np.int64, np.float64])
+
+
+def q15_class_oracle(data: TpcdsData) -> dict:
+    it, ss = data.item.columns, data.store_sales.columns
+    keep = (ss["ss_ext_sales_price"] > 50.0) & np.isin(
+        ss["ss_item_sk"], it["i_item_sk"][it["i_category_id"] == 3])
+    return {"n": np.array([keep.sum()], dtype=np.int64),
+            "s": np.array([ss["ss_ext_sales_price"][keep].sum()])}
+
+
+# ---- q31-class: a per-group average joined back ---------------------------
+
+
+def run_q31_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                  stats: dict | None = None, ingested: dict | None = None) -> dict:
+    """Sales priced above twice their category's average, counted per
+    category (the averages a broadcast subquery result): {cat, n} sorted."""
+    res = _tail_inputs(data, 1, device, ingested)
+    pr = _project(_bhj(_fact(), _item(), [col(1)], [col(0)]), (col(7), "cat"), (col(4), "p"))
+    avg = _materialize(_agg2(pr, [(col(0), "cat")], _aggs(("avg", col(1), "a"))), res,
+                       "q31_avg", conf, device, stats)
+    j2 = _bhj(_bhj(_fact(), _item(), [col(1)], [col(0)]), _scan(avg, "q31_avg"), [col(7)],
+              [col(0)])
+    hot = _filter(j2, BinaryOp("gt", col(4), BinaryOp("mul", lit(2.0), col(11))))
+    plan = _agg2(hot, [(col(7), "cat")], _aggs(("count_star", None, "n")),
+                 _aggs(("count", col(8), "n")))
+    out = _answer(_tasks(plan, res, 1, conf, device, stats), ["cat", "n"], [np.int32, np.int64])
+    return _sorted_by(out, ["cat"])
+
+
+def q31_class_oracle(data: TpcdsData) -> dict:
+    ss = data.store_sales.columns
+    cat, ihit, cat_avg = _category_avg(ss, data.item.columns)
+    keep = ihit & (ss["ss_ext_sales_price"] > 2.0 * cat_avg)
+    c, n, _ = _by(cat[keep])
+    return {"cat": c.astype(np.int32), "n": n}
+
+
+# ---- q34-class: GROUP BY ... HAVING count BETWEEN 3 AND 5 ----------------
+
+
+def run_q34_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                  stats: dict | None = None, ingested: dict | None = None) -> dict:
+    """Customers with 3 to 5 sales: {c, n} sorted by c."""
+    res = _tail_inputs(data, 1, device, ingested)
+    f = _agg2(_fact(), [(col(2), "c")], _aggs(("count_star", None, "n")),
+              _aggs(("count", col(3), "n")))
+    plan = _filter(f, BinaryOp("and", BinaryOp("gteq", col(1), lit(3)), BinaryOp("lteq", col(1), lit(5))))
+    out = _answer(_tasks(plan, res, 1, conf, device, stats), ["c", "n"], [np.int64, np.int64])
+    return _sorted_by(out, ["c"])
+
+
+def q34_class_oracle(data: TpcdsData) -> dict:
+    _, cust, valid = _valid_customers(data)
+    c, n, _ = _by(cust[valid])
+    keep = (n >= 3) & (n <= 5)
+    return {"c": c[keep], "n": n[keep]}
+
+
+# ---- q38-class: three-way INTERSECT ---------------------------------------
+
+
+def run_q38_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                  stats: dict | None = None, ingested: dict | None = None) -> dict:
+    """Customers active in 1998, 1999 and 2000 (distinct customer sets
+    chained through two semi joins), counted: {n}."""
+    res = _tail_inputs(data, 1, device, ingested)
+
+    def customers_of(year: int):
+        j = _bhj(_fact(), _filter(_dd(), _year_is(year)), [col(0)], [col(0)], "left_semi")
+        return _agg2(j, [(col(2), "c")], [])
+
+    inter = _bhj(_bhj(customers_of(1998), customers_of(1999), [col(0)], [col(0)], "left_semi"),
+                 customers_of(2000), [col(0)], [col(0)], "left_semi")
+    plan = _agg2(inter, [], _aggs(("count", col(0), "n")))
+    return _answer(_tasks(plan, res, 1, conf, device, stats), ["n"], [np.int64])
+
+
+def q38_class_oracle(data: TpcdsData) -> dict:
+    ss, drow, hit = _with_dates(data)
+    valid = hit & data.store_sales.validity("ss_customer_sk")
+    year = data.date_dim.columns["d_year"][drow]
+    sets = [np.unique(ss["ss_customer_sk"][valid & (year == y)]) for y in (1998, 1999, 2000)]
+    both = np.intersect1d(np.intersect1d(sets[0], sets[1]), sets[2])
+    return {"n": np.array([len(both)], dtype=np.int64)}
+
+
+# ---- q54-class: BETWEEN date-range join, global aggregate ----------------
+
+Q54_RANGE = (2_450_900, 2_451_300)
+
+
+def run_q54_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                  stats: dict | None = None, ingested: dict | None = None) -> dict:
+    """count(*), avg(price) of the sales on dates BETWEEN two date keys: {n, a}."""
+    res = _tail_inputs(data, 1, device, ingested)
+    lo, hi = Q54_RANGE
+    rng = _filter(_dd(), BinaryOp("and", BinaryOp("gteq", col(0), lit(lo)), BinaryOp("lteq", col(0), lit(hi))))
+    plan = _agg2(_bhj(_fact(), rng, [col(0)], [col(0)]), [],
+                 _aggs(("count_star", None, "n"), ("avg", col(4), "a")))
+    return _answer(_tasks(plan, res, 1, conf, device, stats), ["n", "a"], [np.int64, np.float64])
+
+
+def q54_class_oracle(data: TpcdsData) -> dict:
+    ss = data.store_sales.columns
+    d = ss["ss_sold_date_sk"]
+    keep = (d >= Q54_RANGE[0]) & (d <= Q54_RANGE[1])
+    return {"n": np.array([keep.sum()], dtype=np.int64),
+            "a": np.array([ss["ss_ext_sales_price"][keep].mean()])}
+
+
+# ---- q58-class: UNION of three year branches, re-aggregated --------------
+
+
+def run_q58_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                  stats: dict | None = None, ingested: dict | None = None) -> dict:
+    """sum(price) per item over the sales of 1998, 1999 and 2000, each year
+    a semi-join branch of a UNION ALL: {i, s} sorted by i."""
+    from auron_tpu_torch.exec.basic import UnionExec
+
+    res = _tail_inputs(data, 1, device, ingested)
+    branches = [_project(_bhj(_fact(), _filter(_dd(), _year_is(y)), [col(0)], [col(0)],
+                              "left_semi"), (col(1), "i"), (col(4), "p"))
+                for y in (1998, 1999, 2000)]
+    plan = _agg2(UnionExec(branches), [(col(0), "i")], _aggs(("sum", col(1), "s")))
+    out = _answer(_tasks(plan, res, 1, conf, device, stats), ["i", "s"], [np.int64, np.float64])
+    return _sorted_by(out, ["i"])
+
+
+def q58_class_oracle(data: TpcdsData) -> dict:
+    ss, drow, hit = _with_dates(data)
+    keep = hit & np.isin(data.date_dim.columns["d_year"][drow], (1998, 1999, 2000))
+    i, _, s = _by(ss["ss_item_sk"][keep], ss["ss_ext_sales_price"][keep])
+    return {"i": i, "s": s}
+
+
+# ---- q79-class: group-wise argmax joined back -----------------------------
+
+
+def run_q79_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                  stats: dict | None = None, ingested: dict | None = None) -> dict:
+    """Each customer's sales at their own maximum price, counted (the maxima
+    a broadcast subquery result): {c, n} sorted by c."""
+    res = _tail_inputs(data, 1, device, ingested)
+    mx = _materialize(_agg2(_fact(), [(col(2), "c")], _aggs(("max", col(4), "mx"))), res,
+                      "q79_max", conf, device, stats)
+    hit = _filter(_bhj(_fact(), _scan(mx, "q79_max"), [col(2)], [col(0)]),
+                  BinaryOp("eq", col(4), col(6)))
+    plan = _agg2(hit, [(col(2), "c")], _aggs(("count_star", None, "n")),
+                 _aggs(("count", col(3), "n")))
+    out = _answer(_tasks(plan, res, 1, conf, device, stats), ["c", "n"], [np.int64, np.int64])
+    return _sorted_by(out, ["c"])
+
+
+def q79_class_oracle(data: TpcdsData) -> dict:
+    ss, cust, valid = _valid_customers(data)
+    c, inv = _group(cust[valid])
+    price = ss["ss_ext_sales_price"][valid]
+    mx = np.full(len(c), -np.inf)
+    np.maximum.at(mx, inv, price)
+    keys, n, _ = _by(c[inv[price == mx[inv]]])
+    return {"c": keys, "n": n}
+
+
+# ---- q22-class: NOT IN as an anti join ------------------------------------
+
+
+def run_q22_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                  stats: dict | None = None, ingested: dict | None = None) -> dict:
+    """Items never sold below price 5 (item LEFT ANTI JOIN the cheap sales),
+    counted per category id: {cat, n} sorted by cat."""
+    res = _tail_inputs(data, 1, device, ingested)
+    cheap = _project(_filter(_fact(), BinaryOp("lt", col(4), lit(5.0))), (col(1), "i"))
+    anti = _bhj(_item(), cheap, [col(0)], [col(0)], "left_anti")
+    plan = _agg2(anti, [(col(2), "cat")], _aggs(("count_star", None, "n")),
+                 _aggs(("count", col(3), "n")))
+    out = _answer(_tasks(plan, res, 1, conf, device, stats), ["cat", "n"], [np.int32, np.int64])
+    return _sorted_by(out, ["cat"])
+
+
+def q22_class_oracle(data: TpcdsData) -> dict:
+    it, ss = data.item.columns, data.store_sales.columns
+    cheap = ss["ss_item_sk"][ss["ss_ext_sales_price"] < 5.0]
+    keep = ~np.isin(it["i_item_sk"], cheap)
+    cat, n, _ = _by(it["i_category_id"][keep])
+    return {"cat": cat.astype(np.int32), "n": n}

@@ -6,7 +6,8 @@ hash_agg, sort, hash_join, sort_merge_join, shuffle_writer with
 single/hash/round-robin partitioning, ipc_reader, mesh_exchange (a
 ``MeshExchangeExec`` stage boundary that
 ``parallel/mesh_driver.MeshQueryDriver`` resolves); column, literal, cast,
-binary, not, is_null, is_not_null, if_expr).
+binary, not, is_null, is_not_null, if_expr, case_expr, in_list, coalesce,
+like).
 Other variants raise ``NotImplementedError`` naming the variant.
 
 The exec tree is the JAX package's tree with whole-stage fusion off
@@ -79,6 +80,20 @@ def expr_from_proto(p) -> ir.Expr:
     if which == "if_expr":
         return ir.If(expr_from_proto(p.if_expr.cond), expr_from_proto(p.if_expr.then),
                      expr_from_proto(p.if_expr.orelse))
+    if which == "case_expr":
+        n = p.case_expr
+        return ir.Case(tuple((expr_from_proto(b.when), expr_from_proto(b.then))
+                             for b in n.branches),
+                       expr_from_proto(n.orelse) if n.HasField("orelse") else None)
+    if which == "in_list":
+        return ir.In(expr_from_proto(p.in_list.child),
+                     tuple(_literal_from_proto(i).value for i in p.in_list.items),
+                     p.in_list.negated)
+    if which == "coalesce":
+        return ir.Coalesce(tuple(expr_from_proto(a) for a in p.coalesce.args))
+    if which == "like":
+        return ir.Like(expr_from_proto(p.like.child), p.like.pattern, p.like.negated,
+                       p.like.escape or "\\")
     raise NotImplementedError(f"expression variant {which} is not in this slice of the port")
 
 

@@ -30,8 +30,9 @@ Phases, in order, none of them caught — any failure exits non-zero:
    INT32_MIN and INT32_MAX among the ids (also against numpy's bincount);
    time kernels, plain versions and library calls with CUDA events, and
    every bitonic launch's device time with torch.profiler (bitonic at
-   16384 x 8, 16384 x 11, 8192 x 11, 2^20 x 8, 2^23 x 8 and 2^24 x 8
-   planes, the last two q72's probe-side sorts; K1 at 2^20 rows,
+   16384 x 8, 16384 x 11, 8192 x 11, 2^20 x 8, 2^23 x 8, 2^24 x 8 and
+   2^25 x 5 planes, the 2^23 and 2^24 shapes q72's probe-side sorts, the
+   2^25 one q17's; K1 at 2^20 rows,
    4 partitions; K2 at a q93 map shard, 8,388,608 rows of which 5,760,000
    live, 4 partitions, ~89 % to one);
 4. generate the data once (all later phases share it) and drive the
@@ -87,8 +88,22 @@ Phases, in order, none of them caught — any failure exits non-zero:
    file transport with AQE skew-join splitting on and off: the hot
    partition must split (more than P skew tasks), and both answers equal
    the oracle. K2 must launch once per source shard of every exchange;
-10. print the kernel table as one JSON line (each kernel's launches summed
-   over the timed runs of phases 4-9, and per run), then the status line.
+10. the 22 expression-tail and join-tail classes (``tpcds.TAIL_CLASSES``:
+   CASE, IN, LIKE, residual join conditions, a three-way sort-merge join
+   chain, CTE reuse, set operations), each with the JAX function's
+   partition and task counts over the same data: a warm-up and a timed run,
+   each equal to its numpy oracle (keys, counts and order exact, float sums
+   and averages at rel 1e-9). The sorts recorded in the warm-up go through
+   K3/K4 and the plain network on the card once more, bit for bit (q17's
+   two probe-side sorts at 2^25 slots); the timed run's bitonic launches
+   equal ``sort_plan``'s for them; q17 must launch K3 and K4, q16 (a file
+   shuffle on the nullable INT64 customer) K1, and q41 with
+   ``exec.agg.incremental.fingerprint`` = off K3 (its full-word grouping
+   sort; by default a dictionary-keyed grouping sorts a fingerprint with
+   the library sort). Wall, top host timers, launches and peak device
+   memory are printed for each;
+11. print the kernel table as one JSON line (each kernel's launches summed
+   over the timed runs of phases 4-10, and per run), then the status line.
 
 Every launch count is set to 0 just before the timed run of a query and
 read just after it; launches made to compare kernels are not counted.
@@ -487,9 +502,12 @@ def _launches() -> dict:
 #: (P, NP) of the sorts timed in phase 3: q42's SortExec (16,384 x 8),
 #: q3-mesh's collect sort on the mesh (16,384 x 11) and file (8,192 x 11)
 #: transports, 2^20 x 8, past one cluster (the multi-stride merge path),
-#: and q72's probe-side SortExec under elision mode build (2^23 x 8 and
-#: 2^24 x 8: the reader's batches of ~5.76 M rows concatenate to either)
-SORT_SHAPES = ((16384, 8), (16384, 11), (8192, 11), (1 << 20, 8), (1 << 23, 8), (1 << 24, 8))
+#: q72's probe-side SortExec under elision mode build (2^23 x 8 and
+#: 2^24 x 8: the reader's batches of ~5.76 M rows concatenate to either),
+#: and q17's two probe-side SortExecs at SF 8 (2^25 x 5: 23.04 M rows on one
+#: int64 key each, live + null + two value planes + payload)
+SORT_SHAPES = ((16384, 8), (16384, 11), (8192, 11), (1 << 20, 8), (1 << 23, 8), (1 << 24, 8),
+               (1 << 25, 5))
 
 
 def _kernel_name(name: str) -> str:
@@ -898,53 +916,53 @@ def _assert_close(got, want) -> None:
 
 @contextlib.contextmanager
 def _recording_sorts(record: list):
-    """Record a copy of the operands of every ORDER BY sort
-    (``SortExec`` calls ``bitonic.ordered_sort``) made inside the block."""
+    """Record a copy of the operands of every kernel sort
+    (``bitonic.bitonic_sort`` with ``impl="pallas"`` on the card: the
+    ``SortExec`` sorts through ``ordered_sort`` and the full-word grouping
+    sorts of an aggregate) made inside the block."""
     from auron_tpu_torch.ops import bitonic
 
-    real = bitonic.ordered_sort
+    real = bitonic.bitonic_sort
 
-    def recording(operands, word_narrow=None, impl=None, conf=None):
-        record.append((tuple(o.clone() for o in operands), word_narrow))
-        return real(operands, word_narrow=word_narrow, impl=impl, conf=conf)
+    def recording(operands, *, impl="jnp", narrow=None, kinds=None):
+        if impl == "pallas" and operands[0].is_cuda:
+            record.append((tuple(o.clone() for o in operands), narrow, kinds))
+        return real(operands, impl=impl, narrow=narrow, kinds=kinds)
 
-    bitonic.ordered_sort = recording
+    bitonic.bitonic_sort = recording
     try:
         yield
     finally:
-        bitonic.ordered_sort = real
+        bitonic.bitonic_sort = real
 
 
 def check_sorts(label: str, record: list) -> list:
-    """K3/K4 at a main path's own sort shapes: each recorded operand tuple
-    that the main path sorted with the kernels, sorted by the CUDA kernels
-    and by the plain network on the card, bit for bit, and against the
-    library lexsort. Its launches are not counted."""
+    """K3/K4 at a main path's own sort shapes: each recorded operand tuple,
+    sorted by the CUDA kernels and by the plain network on the card, bit
+    for bit, and against the library lexsort. Its launches are not counted."""
     import torch
 
     from auron_tpu_torch.ops import bitonic
 
     saved = dict(bitonic.LAUNCHES)
     out = []
-    for ops, word_narrow in record:
-        if bitonic.sort_impl_for(len(ops) - 2, ops[0].shape[0], device=ops[0].device) != "pallas":
-            continue  # the main path took the library sort
-        n_words = len(ops) - 2
-        narrow = (True, *(word_narrow or (False,) * n_words), False)
+    for ops, narrow, kinds in record:
+        narrow = narrow if narrow is not None else (False,) * len(ops)
+        kinds = kinds if kinds is not None else tuple(bitonic._default_kind(o) for o in ops)
         before = dict(bitonic.LAUNCHES)
-        got = bitonic.bitonic_sort(ops, impl="pallas", narrow=narrow)
+        got = bitonic.bitonic_sort(ops, impl="pallas", narrow=narrow, kinds=kinds)
         launched = {k: bitonic.LAUNCHES[k] - before[k] for k in before}
         cap = ops[0].shape[0]
-        kinds = tuple(bitonic._default_kind(o) for o in ops)
         NP = len(bitonic._split_planes32(ops, narrow, kinds))
         P = max(bitonic._next_pow2(cap), 8 * bitonic._LANES)
-        ref = bitonic.bitonic_sort(ops, impl="jnp", narrow=narrow)
-        want = bitonic.lex_sorted(ops)
+        ref = bitonic.bitonic_sort(ops, impl="jnp", narrow=narrow, kinds=kinds)
+        want = bitonic.lex_sorted(ops, kinds)
         err = 0
         for g, r, w in zip(got, ref, want):
             assert g.dtype == r.dtype and torch.equal(g, r) and torch.equal(g, w), (
                 "main-path sort", label)
             err = max(err, int((g.to(torch.int64) - r.to(torch.int64)).abs().max()))
+        del got, ref, want
         shape = {"cap": cap, "P": P, "NP": NP, "launches": launched, "max_abs_err": err}
         assert launched == bitonic.sort_plan(NP, P).launch_counts(), (label, shape)
         out.append(shape)
@@ -1034,13 +1052,16 @@ GATE_RUNS = (
     ("q5", "q5", None, ("murmur3_pmod",)),
 )
 #: answer columns held at rel 1e-9 (float sums and averages); the others exactly
-FLOAT_SUMS = ("p_avg", "q_avg", "p_sum", "a", "s")
+FLOAT_SUMS = ("p_avg", "q_avg", "p_sum", "a", "s", "total", "mean", "cheap_s", "all_s",
+              "ratio", "s99", "s98")
 
 
-def _assert_answer(label: str, got: dict, want: dict) -> None:
+def _assert_answer(label: str, got: dict, want: dict, allow_empty: bool = False) -> None:
+    """``got`` equals the oracle ``want``; an empty oracle is refused unless
+    ``allow_empty`` (then ``got`` must be empty too)."""
     assert sorted(got) == sorted(want), (label, sorted(got), sorted(want))
     n = len(next(iter(want.values())))
-    assert n > 0, (label, "empty oracle")
+    assert n > 0 or allow_empty, (label, "empty oracle")
     for k, w in want.items():
         g = got[k]
         assert g.shape == w.shape, (label, k, g.shape, w.shape)
@@ -1113,6 +1134,93 @@ def run_gate_classes(data, fact, oracles: dict) -> dict:
         _print_timers(label, stats)
         out[label] = {"wall_s": wall, **stats, "launches": launches, "peak_bytes": peak,
                       "result_rows": rows, "sort_shapes": shapes, "sort_checks": sort_checks}
+    return out
+
+
+#: phase 10: the expression-tail and join-tail classes (tpcds.TAIL_CLASSES)
+#: with the JAX functions' partition and task counts, as (label, class, task
+#: conf, kernels its timed run must launch). q17's two probe-side SortExecs
+#: sort 23.04 M rows at 2^25 slots (K3 and K4); q16 file-shuffles on the
+#: nullable INT64 customer (K1). A dictionary-keyed aggregate (q17's and
+#: q41's group by i_category) segments by a fingerprint sort on a card by
+#: default (exec.agg.incremental.fingerprint = auto), which is the library
+#: sort; q41 runs a second time with the fingerprint off, so that its
+#: full-word grouping sort goes through K3
+TAIL_RUNS = (
+    ("q17", "q17", None, ("bitonic_sort", "bitonic_merge")),
+    ("q16", "q16", None, ("murmur3_pmod",)),
+    ("q41", "q41", None, ()),
+    ("q41 (fingerprint off)", "q41", {"exec.agg.incremental.fingerprint": "off"},
+     ("bitonic_sort",)),
+) + tuple((name, name, None, ()) for name in (
+    "q48", "q99", "q37", "q6", "q85", "q1", "q88", "q14b", "q2", "q4", "q11", "q15", "q31",
+    "q34", "q38", "q54", "q58", "q79", "q22"))
+#: the JAX functions' fact partitions (map tasks) per class; 1 otherwise
+TAIL_PARTITIONS = {"q1": 4, "q6": 2, "q48": 2, "q16": 2}
+
+
+def run_tail_classes(data, fact) -> dict:
+    """Phase 10: each of TAIL_RUNS at the phases' shared scale: a warm-up
+    (its kernel sorts recorded, then sorted once more by K3/K4 and by the
+    plain network on the card, bit for bit), then the timed run, whose
+    bitonic launches must equal ``sort_plan``'s for the recorded sorts.
+    Every answer equals its numpy oracle; a class whose oracle is empty at
+    this scale (no customer with 3 to 5 sales, no item never sold cheap)
+    must be empty too."""
+    import torch
+
+    from auron_tpu_torch.models import tpcds
+
+    assert {name for _, name, _, _ in TAIL_RUNS} == set(tpcds.TAIL_CLASSES)
+    t0 = time.perf_counter()
+    inputs = {n: tpcds.ingest_q3(data, n, device="cuda", fact=fact if n == 4 else None)
+              for n in sorted(set(TAIL_PARTITIONS.values()) | {1})}
+    torch.cuda.synchronize()
+    t_ingest = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oracles = {name: getattr(tpcds, f"{name}_class_oracle")(data)
+               for name in tpcds.TAIL_CLASSES}
+    print(f"tail classes: inputs on the card in {t_ingest:.2f} s, oracles in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    out = {}
+    for label, name, conf, must in TAIL_RUNS:
+        ingested = inputs[TAIL_PARTITIONS.get(name, 1)]
+        run = getattr(tpcds, f"run_{name}_class")
+        sorts: list = []
+        shapes: list = []
+        with _recording_sorts(sorts), _recording_kernel_sorts(shapes):
+            warm = run(device="cuda", conf=conf, ingested=ingested)
+        sort_checks = check_sorts(label, sorts)
+        del sorts
+        if sort_checks:  # the checks' large temporaries leave the allocator cold
+            torch.cuda.empty_cache()
+            run(device="cuda", conf=conf, ingested=ingested)
+        _reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        stats: dict = {}
+        t0 = time.perf_counter()
+        got = run(device="cuda", conf=conf, ingested=ingested, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        peak = torch.cuda.max_memory_allocated()
+        want = oracles[name]
+        for ans in (warm, got):
+            _assert_answer(label, ans, want, allow_empty=True)
+        _assert_planned_launches(label, shapes, launches, sorts="bitonic_sort" in must)
+        assert len(sort_checks) == len(shapes), (label, len(sort_checks), shapes)
+        _assert_must_launch(label, launches, must)
+        rows = len(next(iter(got.values())))
+        print(f"{label}-class: wall {wall:.4f} s, {rows} result rows, kernel sorts (NP, P) "
+              f"{shapes}, launches {launches}, peak device memory {peak / 2**30:.3f} GiB",
+              flush=True)
+        _print_timers(label, stats)
+        top = sorted(stats["timers"].items(), key=lambda kv: -kv[1])[:5]
+        out[label] = {"wall_s": wall, "launches": launches, "peak_bytes": peak,
+                      "result_rows": rows, "sort_shapes": shapes, "sort_checks": sort_checks,
+                      "top_timers_s": dict(top), **{k: v for k, v in stats.items()
+                                                    if k != "timers"}}
     return out
 
 
@@ -1364,24 +1472,36 @@ def main(argv=None) -> int:
             tpcds.run_skew_join(device="cuda", ingested=ing)))
         del ing
 
+    # 10. the expression-tail and join-tail classes at the same scale
+    tail = run_tail_classes(data, fact)
+    if args.profile:
+        for label, name, conf, _ in TAIL_RUNS:
+            ing = tpcds.ingest_q3(data, TAIL_PARTITIONS.get(name, 1), device="cuda",
+                                  fact=fact if TAIL_PARTITIONS.get(name) == 4 else None)
+            tail[label]["profile"] = profile_run(label, lambda: getattr(
+                tpcds, f"run_{name}_class")(device="cuda", conf=conf, ingested=ing))
+            del ing
+
     # every kernel sort of the main paths, held against the plain network
     # on the card at its own operands
     checks["main_path_sorts"] = {
         **{f"q3-mesh ({m})": q3_mesh[m]["sort_checks"] for m in q3_mesh},
         **{label: gate[label]["sort_checks"] for label in gate},
-        **{f"skew join ({k})": skew[k]["sort_checks"] for k in skew}}
+        **{f"skew join ({k})": skew[k]["sort_checks"] for k in skew},
+        **{label: tail[label]["sort_checks"] for label in tail}}
     sort_err = max(s["max_abs_err"] for v in checks["main_path_sorts"].values() for s in v)
     for name in ("bitonic_sort", "bitonic_merge"):
         checks["max_abs_err"][name] = max(checks["max_abs_err"][name], sort_err)
     # each kernel's launches in the timed run of every main path (counts set
     # to 0 just before each and read just after); K4 launches where a sort
-    # is past one cluster: q72 (build) and the skew plan
+    # is past one cluster: q72 (build), the skew plan and q17
     paths = {"q42": q42["launches"], "q93": q93["launches"], "q3": q3["launches"],
              **{f"q93-mesh ({m})": q93_mesh[m]["launches"] for m in q93_mesh},
              **{f"q3-mesh ({m})": q3_mesh[m]["launches"] for m in q3_mesh},
              **{label: gate[label]["launches"] for label in gate},
              **{f"q72-mesh ({m})": q72_mesh[m]["launches"] for m in q72_mesh},
-             **{f"skew join ({k})": skew[k]["launches"] for k in skew}}
+             **{f"skew join ({k})": skew[k]["launches"] for k in skew},
+             **{label: tail[label]["launches"] for label in tail}}
     kernels = []
     for name, source, replaces in (
         ("bitonic_sort", "auron_tpu_torch/csrc/bitonic.cu", "auron_tpu/ops/bitonic.py:145"),
@@ -1408,7 +1528,7 @@ def main(argv=None) -> int:
         json.dump({"device": kind, "nvidia_smi": smi, "build_s": build_s, "checks": checks,
                    "timing": timing, "q42": q42, "q93": q93, "q3": q3, "q93_mesh": q93_mesh,
                    "q3_mesh": q3_mesh, "gate": gate, "q72_mesh": q72_mesh, "skew": skew,
-                   "kernels": kernels},
+                   "tail": tail, "kernels": kernels},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
