@@ -10,10 +10,10 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass, field
-from typing import Iterator
+from typing import Iterable, Iterator
 
 from auron_tpu_torch import types as T
-from auron_tpu_torch.columnar.batch import Batch
+from auron_tpu_torch.columnar.batch import Batch, bucket_capacity, compact_batch, device_concat
 from auron_tpu_torch.exec.metrics import MetricNode
 from auron_tpu_torch.utils.config import BATCH_SIZE, METRICS_ROW_COUNTS, Configuration, active_conf
 
@@ -97,3 +97,27 @@ class ExecOperator:
         )
         child_ctx.metrics.name = self.children[i].name
         return self.children[i].execute(partition, child_ctx)
+
+
+def coalesce_stream(stream: Iterable[Batch], target_rows: int) -> Iterator[Batch]:
+    """Merge small batches toward ``target_rows`` live rows
+    (``auron_tpu/exec/base.py:145``): a batch already that large passes
+    through; otherwise batches gather until their live rows reach the
+    target and leave as one batch of their live rows, compacted. Empty
+    batches are dropped."""
+    pending: list[Batch] = []
+    pending_rows = 0
+    for b in stream:
+        n = b.num_rows()
+        if n == 0:
+            continue
+        if n >= target_rows and not pending:
+            yield b
+            continue
+        pending.append(b)
+        pending_rows += n
+        if pending_rows >= target_rows:
+            yield compact_batch(device_concat(pending), bucket_capacity(pending_rows))
+            pending, pending_rows = [], 0
+    if pending:
+        yield compact_batch(device_concat(pending), bucket_capacity(pending_rows))

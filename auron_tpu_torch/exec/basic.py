@@ -1,6 +1,8 @@
-"""Stateless streaming operators (port of ``auron_tpu/exec/basic.py``
-lines 36-208): memory scan, project, filter, limit, union. A filter refines
-the selection mask instead of compacting; a limit trims with a prefix mask."""
+"""Stateless streaming operators (port of ``auron_tpu/exec/basic.py``):
+memory scan, project, filter, limit, union, expand, rename, empty
+partitions, coalesce and debug. A filter refines the selection mask
+instead of compacting; a limit trims with a prefix mask; an expand emits
+one projected batch per projection per input batch (ROLLUP/CUBE)."""
 
 from __future__ import annotations
 
@@ -10,9 +12,30 @@ import torch
 
 from auron_tpu_torch import types as T
 from auron_tpu_torch.columnar.batch import Batch, DeviceBatch
-from auron_tpu_torch.exec.base import ExecOperator, ExecutionContext
+from auron_tpu_torch.exec.base import ExecOperator, ExecutionContext, coalesce_stream
 from auron_tpu_torch.exprs import ir
 from auron_tpu_torch.exprs.eval import ColumnVal, Evaluator
+
+
+def _uses_row_offset(e: ir.Expr) -> bool:
+    if isinstance(e, (ir.RowNum, ir.MonotonicId)):
+        return True
+    return any(_uses_row_offset(c) for c in e.children())
+
+
+def _evaluator(schema: T.Schema, ctx: ExecutionContext) -> Evaluator:
+    return Evaluator(schema, partition_id=ctx.partition_id, resources=ctx.resources)
+
+
+def _stream_with_offset(ev: Evaluator, exprs, stream) -> Iterator[Batch]:
+    """``stream`` as it is; after each batch ``ev.row_offset`` advances by
+    its live rows when an expression reads the offset (a host read per
+    batch, paid only then)."""
+    track = any(_uses_row_offset(e) for e in exprs)
+    for b in stream:
+        yield b
+        if track:
+            ev.row_offset += b.num_rows()
 
 
 def batch_from_columns(vals: Sequence[ColumnVal], names: Sequence[str],
@@ -65,8 +88,8 @@ class ProjectExec(ExecOperator):
         super().__init__([child], T.Schema(tuple(out)))
 
     def _execute(self, partition: int, ctx: ExecutionContext) -> Iterator[Batch]:
-        ev = Evaluator(self.children[0].schema)
-        for b in self.child_stream(0, partition, ctx):
+        ev = _evaluator(self.children[0].schema, ctx)
+        for b in _stream_with_offset(ev, self.exprs, self.child_stream(0, partition, ctx)):
             with ctx.metrics.timer("elapsed_compute"):
                 vals = ev.evaluate(b, self.exprs)
                 out = batch_from_columns(vals, self.names, b.device.sel)
@@ -79,7 +102,9 @@ class FilterExec(ExecOperator):
         self.predicates = predicates
 
     def _execute(self, partition: int, ctx: ExecutionContext) -> Iterator[Batch]:
-        ev = Evaluator(self.children[0].schema)
+        # as in the reference, a filter keeps row_offset at 0 (no host read
+        # per batch): only ProjectExec numbers rows across batches
+        ev = _evaluator(self.children[0].schema, ctx)
         for b in self.child_stream(0, partition, ctx):
             with ctx.metrics.timer("elapsed_compute"):
                 sel = b.device.sel
@@ -121,3 +146,70 @@ class UnionExec(ExecOperator):
     def _execute(self, partition: int, ctx: ExecutionContext) -> Iterator[Batch]:
         for i in range(len(self.children)):
             yield from self.child_stream(i, partition, ctx)
+
+
+class ExpandExec(ExecOperator):
+    """One batch per projection per input batch (ROLLUP/CUBE grouping sets)."""
+
+    def __init__(self, child: ExecOperator, projections: list[list[ir.Expr]], names: list[str]):
+        self.projections = projections
+        self.names = names
+        out = tuple(T.Field(n, e.dtype_of(child.schema), True)
+                    for n, e in zip(names, projections[0]))
+        super().__init__([child], T.Schema(out))
+
+    def _execute(self, partition: int, ctx: ExecutionContext) -> Iterator[Batch]:
+        ev = _evaluator(self.children[0].schema, ctx)
+        for b in self.child_stream(0, partition, ctx):
+            for proj in self.projections:
+                with ctx.metrics.timer("elapsed_compute"):
+                    out = batch_from_columns(ev.evaluate(b, proj), self.names, b.device.sel)
+                yield out
+
+
+class RenameColumnsExec(ExecOperator):
+    def __init__(self, child: ExecOperator, names: list[str]):
+        super().__init__([child], child.schema.rename(names))
+
+    def _execute(self, partition: int, ctx: ExecutionContext) -> Iterator[Batch]:
+        for b in self.child_stream(0, partition, ctx):
+            yield Batch(self.schema, b.device, b.dicts)
+
+
+class EmptyPartitionsExec(ExecOperator):
+    def __init__(self, schema: T.Schema, num_partitions: int):
+        super().__init__([], schema)
+        self.num_partitions = num_partitions
+
+    def _execute(self, partition: int, ctx: ExecutionContext) -> Iterator[Batch]:
+        return iter(())
+
+
+class CoalesceBatchesExec(ExecOperator):
+    """Small batches merged toward ``target_rows`` live rows (the task's
+    batch size by default)."""
+
+    def __init__(self, child: ExecOperator, target_rows: int | None = None):
+        super().__init__([child], child.schema)
+        self.target_rows = target_rows
+
+    def _execute(self, partition: int, ctx: ExecutionContext) -> Iterator[Batch]:
+        yield from coalesce_stream(self.child_stream(0, partition, ctx),
+                                   self.target_rows or ctx.batch_size())
+
+
+class DebugExec(ExecOperator):
+    """Logs each batch flowing through (partition, index, rows, capacity)."""
+
+    def __init__(self, child: ExecOperator, tag: str = "debug"):
+        super().__init__([child], child.schema)
+        self.tag = tag
+
+    def _execute(self, partition: int, ctx: ExecutionContext) -> Iterator[Batch]:
+        import logging
+
+        log = logging.getLogger("auron_tpu_torch")
+        for i, b in enumerate(self.child_stream(0, partition, ctx)):
+            log.info("[%s] partition=%d batch=%d rows=%d cap=%d", self.tag, partition, i,
+                     b.num_rows(), b.capacity)
+            yield b

@@ -4,7 +4,9 @@ Port of the ``auron_tpu/exprs/eval.py`` subset the ported slices use:
 Column, Literal, Cast (fixed-width types), BinaryOp (Kleene AND/OR,
 comparisons incl. dictionary-string equality/order, arithmetic), Not,
 IsNull, IsNotNull, If and Case (fixed-width or dictionary-string
-branches), Coalesce, In and Like — with Spark's null semantics:
+branches), Coalesce, In, Like and the task-context expressions
+(SparkPartitionId, MonotonicId, RowNum, ScalarSubquery) — with Spark's
+null semantics:
 arithmetic propagates NULLs, division and modulo by zero give NULL
 (non-ANSI), AND/OR are three-valued, a NULL CASE condition counts as
 false, and ``x IN (...)`` is NULL when x is NULL or when nothing matches
@@ -111,8 +113,16 @@ def _utf8_key(s):
 
 
 class Evaluator:
-    def __init__(self, schema: T.Schema):
+    """``partition_id`` and ``resources`` are the task's (operators pass
+    their ``ExecutionContext``'s); ``row_offset`` counts the live rows an
+    operator already emitted, for MonotonicId and RowNum."""
+
+    def __init__(self, schema: T.Schema, partition_id: int = 0, row_offset: int = 0,
+                 resources: dict | None = None):
         self.schema = schema
+        self.partition_id = partition_id
+        self.row_offset = row_offset
+        self.resources = resources if resources is not None else {}
 
     def evaluate(self, batch: Batch, exprs: list[ir.Expr]) -> list[ColumnVal]:
         memo: dict = {}
@@ -161,7 +171,30 @@ class Evaluator:
             return self._in(e, b, memo)
         if isinstance(e, ir.Like):
             return self._like(e, b, memo)
+        if isinstance(e, (ir.SparkPartitionId, ir.MonotonicId, ir.RowNum, ir.ScalarSubquery)):
+            return self._task_context(e, b)
         raise TypeError(f"unsupported expression {type(e).__name__}")
+
+    def _task_context(self, e: ir.Expr, b: Batch) -> ColumnVal:
+        """Expressions of the task rather than the row (``eval.py:128-153``):
+        the partition id, positions among the live rows after
+        ``row_offset``, and a scalar subquery's value broadcast as a
+        literal."""
+        cap, dev = b.capacity, b.torch_device
+        ones = torch.ones(cap, dtype=torch.bool, device=dev)
+        if isinstance(e, ir.SparkPartitionId):
+            return ColumnVal(torch.full((cap,), self.partition_id, dtype=torch.int32,
+                                        device=dev), ones, T.INT32)
+        if isinstance(e, ir.ScalarSubquery):
+            if e.resource_id not in self.resources:
+                raise KeyError(f"scalar subquery value '{e.resource_id}' is not in the task "
+                               "resource map (it must be set before the task runs)")
+            return self._literal(ir.Literal(self.resources[e.resource_id], e.dtype), cap, dev)
+        live = torch.cumsum(b.device.sel.to(torch.int64), 0)
+        if isinstance(e, ir.RowNum):
+            return ColumnVal(self.row_offset + live, ones, T.INT64)
+        base = (self.partition_id << 33) + self.row_offset
+        return ColumnVal(base + (live - 1).clamp(min=0), ones, T.INT64)
 
     # ---- conditionals ----
 

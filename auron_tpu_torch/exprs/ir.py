@@ -3,8 +3,8 @@
 Copied from ``auron_tpu/exprs/ir.py``: frozen, structurally hashable
 dataclasses with the same names and fields, and the same Spark result-type
 rules (``arith_result_type``). Nodes of the JAX IR that the port does not
-evaluate yet (scalar functions, UDFs, partition ids, subqueries) are not
-defined here, and the planner rejects them by name.
+evaluate yet (scalar functions, UDFs) are not defined here, and the
+planner rejects them by name.
 ``Literal(None, T.INT64)`` is a typed NULL. ``remap_columns`` re-binds an
 expression to a schema of only the columns it references.
 """
@@ -181,6 +181,44 @@ class Like(Expr):
 
     def children(self):
         return (self.child,)
+
+
+@dataclass(frozen=True)
+class SparkPartitionId(Expr):
+    """Current task partition id (Spark ``spark_partition_id()``)."""
+
+    def dtype_of(self, schema: T.Schema) -> T.DataType:
+        return T.INT32
+
+
+@dataclass(frozen=True)
+class MonotonicId(Expr):
+    """Spark ``monotonically_increasing_id()``: (partition id << 33) + the
+    row's index among the partition's live rows."""
+
+    def dtype_of(self, schema: T.Schema) -> T.DataType:
+        return T.INT64
+
+
+@dataclass(frozen=True)
+class RowNum(Expr):
+    """1-based row number within the task's output stream."""
+
+    def dtype_of(self, schema: T.Schema) -> T.DataType:
+        return T.INT64
+
+
+@dataclass(frozen=True)
+class ScalarSubquery(Expr):
+    """Value of an uncorrelated scalar subquery, computed before the task
+    runs and handed in as a Python scalar under ``resource_id`` in the task
+    resource map."""
+
+    resource_id: str
+    dtype: T.DataType
+
+    def dtype_of(self, schema: T.Schema) -> T.DataType:
+        return self.dtype
 
 
 # ---------------------------------------------------------------------------

@@ -283,15 +283,23 @@ def _shuffle_stage(plan, out_schema: T.Schema, key_cols: list[int], n_map: int, 
     return IpcReaderExec(out_schema, rid)
 
 
+#: operator counters ``add_timers`` also sums: batches folded into a dense
+#: aggregate table, the generic path's merges and partial-skip switches
+COUNTERS = ("elapsed_compute_n", "num_merges", "partial_agg_skipped")
+
+
 def add_timers(stats: dict, snapshot: dict) -> None:
     """Sum the metric tree's host timers (seconds) into ``stats["timers"]``,
-    keyed operator.timer; timers nest (a parent's span covers the
-    children it pulls from)."""
+    keyed operator.timer (timers nest: a parent's span covers the children
+    it pulls from), and the ``COUNTERS`` into ``stats["counters"]``."""
     timers = stats.setdefault("timers", {})
+    counters = stats.setdefault("counters", {})
     op = snapshot["name"].split(".")[0]
     for k, v in snapshot["values"].items():
         if k.endswith(("_time", "elapsed_compute")):
             timers[f"{op}.{k}"] = timers.get(f"{op}.{k}", 0.0) + v / 1e9
+        elif k in COUNTERS:
+            counters[f"{op}.{k}"] = counters.get(f"{op}.{k}", 0) + v
     for c in snapshot["children"]:
         add_timers(stats, c)
 
@@ -687,13 +695,40 @@ def _final(read, keys: list, aggs: list):
     return HashAggExec(read, [(col(i), n) for i, (_, n) in enumerate(keys)], aggs, "final")
 
 
+def _lex_order(keys: list[np.ndarray]) -> np.ndarray:
+    """``np.lexsort`` order of ``keys`` (primary first). Integer keys whose
+    ranges fit in 63 bits together pack into one int64 and take one stable
+    argsort (none when already sorted)."""
+    if keys and len(keys[0]) and all(k.dtype.kind in "biu" for k in keys):
+        spans = [(int(k.min()), int(k.max())) for k in keys]
+        bits = [max((hi - lo).bit_length(), 1) for lo, hi in spans]
+        if sum(bits) <= 63:
+            packed = np.zeros(len(keys[0]), np.int64)
+            for k, (lo, _), b in zip(keys, spans, bits):
+                packed = (packed << b) | (k.astype(np.int64) - lo)
+            if (packed[1:] >= packed[:-1]).all():
+                return np.arange(len(packed))
+            return np.argsort(packed, kind="stable")
+    return np.lexsort(tuple(reversed(keys)))
+
+
 def _sorted_by(got: dict, keys: list[str]) -> dict:
-    order = np.lexsort(tuple(got[k] for k in reversed(keys)))
+    order = _lex_order([got[k] for k in keys])
     return {k: v[order] for k, v in got.items()}
 
 
 def _group(keys: np.ndarray):
-    """(distinct keys ascending, inverse index) of an int64 key vector."""
+    """(distinct keys ascending, inverse index) of an integer key vector:
+    through a presence table where the key range is at most four times
+    the rows (linear), else a sort."""
+    if len(keys):
+        lo = int(keys.min())
+        span = int(keys.max()) - lo + 1
+        if span <= max(4 * len(keys), 1 << 16):
+            off = keys - lo
+            present = np.zeros(span, bool)
+            present[off] = True
+            return (np.flatnonzero(present) + lo).astype(keys.dtype), np.cumsum(present)[off] - 1
     uniq, inv = np.unique(keys, return_inverse=True)
     return uniq, inv.reshape(-1)
 
@@ -2000,3 +2035,446 @@ def q22_class_oracle(data: TpcdsData) -> dict:
     keep = ~np.isin(it["i_item_sk"], cheap)
     cat, n, _ = _by(it["i_category_id"][keep])
     return {"cat": cat.astype(np.int32), "n": n}
+
+
+# ---------------------------------------------------------------------------
+# the window, expand and scalar-subquery classes: each through the task
+# runtime with the JAX function's operator tree and task count, over the
+# whole fact table unless ``rows`` takes the JAX function's prefix
+# ---------------------------------------------------------------------------
+
+#: the classes of this section, in the order chip_smoke.py runs them
+WINDOW_CLASSES = ("windowed", "windowed2", "q51", "q23", "q46", "q67", "q67b", "q9")
+#: the fact prefix each JAX function takes (``store_sales.iloc[:n]``); the
+#: port's functions take it as ``rows`` (None: the whole table)
+WINDOW_PREFIX = {"windowed": 5000, "windowed2": 4000, "q51": 6000, "q67": 3000, "q67b": 2500}
+
+
+def _prefixed(data: TpcdsData, rows: int | None) -> TpcdsData:
+    if rows is None:
+        return data
+    ss = data.store_sales
+    return TpcdsData(Table(ss.schema, {k: v[:rows] for k, v in ss.columns.items()},
+                           {k: v[:rows] for k, v in ss.valid.items()}), data.date_dim, data.item)
+
+
+def _window_inputs(data, n: int, device, ingested, rows) -> dict:
+    """(fact in ``n`` partitions, dims) as resources, the fact cut to
+    ``rows`` where no ingested input is given."""
+    if ingested is None:
+        ingested = ingest_q3(_prefixed(data, rows), n, device)
+    return _tail_inputs(None, n, device, ingested)
+
+
+def _ordered(batches: list, keys: list[str], keep=None) -> list:
+    """The output batches as one batch whose live rows are ordered by the
+    integer columns ``keys`` (ascending, a NULL first), sorted with the
+    library sort where they live: the JAX functions' host ``sort_values``,
+    and their host row filters as the ``keep(batch)`` mask."""
+    import torch
+
+    from auron_tpu_torch.columnar.batch import DeviceBatch, device_concat, device_take
+    from auron_tpu_torch.ops.bitonic import lexsort
+
+    if not batches:
+        return []
+    big = device_concat(batches)
+    dev = big.device
+    sel = dev.sel if keep is None else dev.sel & keep(big)
+    ops = []
+    for k in keys:
+        i = big.schema.names.index(k)
+        m = dev.validity[i]
+        ops += [m.to(torch.int64), torch.where(m, dev.values[i], 0).to(torch.int64)]
+    perm = lexsort(tuple(ops), kinds=("i64",) * len(ops))
+    return [big.with_device(device_take(DeviceBatch(sel, dev.values, dev.validity), perm))]
+
+
+def _window(child, partition_by: list, order_by: list, funcs: list):
+    """WindowExec; ``funcs`` as (kind, agg, expr, offset, frame_whole, name)."""
+    from auron_tpu_torch.exec.window_exec import WindowExec, WindowFunc
+
+    return WindowExec(child, partition_by, order_by,
+                      [(WindowFunc(k, agg=a, expr=e, offset=o or 1, frame_whole=w), name)
+                       for k, a, e, o, w, name in funcs])
+
+
+def _cents(price: np.ndarray) -> np.ndarray:
+    """Prices are rounded to cents: their exact integer cents."""
+    return np.rint(price * 100).astype(np.int64)
+
+
+def _seg_starts(part: np.ndarray) -> np.ndarray:
+    """First index of each row's run of equal ``part`` values (sorted)."""
+    first = np.ones(len(part), bool)
+    first[1:] = part[1:] != part[:-1]
+    return np.maximum.accumulate(np.where(first, np.arange(len(part)), 0))
+
+
+def _running_cents(part: np.ndarray, cents: np.ndarray) -> np.ndarray:
+    """Exact running sum within each run of equal ``part`` values, in cents."""
+    cum = np.cumsum(cents)
+    start = _seg_starts(part)
+    return cum - np.where(start > 0, cum[start - 1], 0)
+
+
+def running_sum_bound(part: np.ndarray, want: np.ndarray) -> np.ndarray:
+    """Allowed |got - want| of a running float sum (non-negative inputs)
+    whose rows are sorted by the partition key ``part``: 1e-9 |want| +
+    16 eps G, G the global prefix sum up to the row, since the window
+    computes a global cumsum rebased at the partition start."""
+    start = _seg_starts(part)
+    last = np.ones(len(part), bool)
+    last[:-1] = part[1:] != part[:-1]
+    totals = np.where(last, want, 0.0)
+    before = np.cumsum(totals) - totals  # the totals of earlier partitions
+    g = want + before[start]
+    return 1e-9 * np.abs(want) + 16 * np.finfo(np.float64).eps * g
+
+
+def _rank_min(part: np.ndarray, key: np.ndarray) -> np.ndarray:
+    """rank() of rows sorted by (part, key DESC): 1 + the rows of the
+    partition before the row's peer group."""
+    n = len(part)
+    new_peer = np.ones(n, bool)
+    new_peer[1:] = (part[1:] != part[:-1]) | (key[1:] != key[:-1])
+    peer_start = np.maximum.accumulate(np.where(new_peer, np.arange(n), 0))
+    return (peer_start - _seg_starts(part) + 1).astype(np.int32)
+
+
+# ---- windowed: rank by revenue within a date --------------------------------
+
+
+def run_windowed_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                       stats: dict | None = None, ingested: dict | None = None,
+                       rows: int | None = None) -> dict:
+    """Revenue per (date, item) (partial + final aggregate), rank() by
+    revenue DESC within the date (WindowExec, one task over the fact's two
+    partitions), then rank <= 2 kept on the host: {d, item, rev, rk} sorted
+    by (d, rk, item)."""
+    res = _window_inputs(data, 2, device, ingested, rows)
+    res["fact"] = [[b for part in res["fact"] for b in part]]
+    agg = _agg2(_fact(), [(col(0), "d"), (col(1), "item")], _aggs(("sum", col(4), "rev")))
+    plan = _window(agg, [col(0)], [(col(2), SortSpec(asc=False))],
+                   [("rank", None, None, 1, False, "rk")])
+    batches = _ordered(_tasks(plan, res, 1, conf, device, stats), ["d", "rk", "item"],
+                       keep=lambda b: b.col_values(3) <= 2)
+    return _answer(batches, ["d", "item", "rev", "rk"], [np.int64, np.int64, np.float64, np.int32])
+
+
+def windowed_ranks(data: TpcdsData, rows: int | None = None) -> dict:
+    """Every (date, item) group with its exact revenue in cents and the
+    ranks its revenue can take: ``lo`` = 1 + the groups of the date with
+    more revenue, ``hi`` = ``lo`` + the other groups with the same revenue
+    (a tie the engine's float sums may split)."""
+    ss = _prefixed(data, rows).store_sales.columns
+    d, item = ss["ss_sold_date_sk"], ss["ss_item_sk"]
+    ni = int(item.max()) + 1
+    keys, inv = _group(d * ni + item)
+    cents = np.bincount(inv, weights=_cents(ss["ss_ext_sales_price"]),
+                        minlength=len(keys)).astype(np.int64)
+    gd, gi = keys // ni, keys % ni
+    order = _lex_order([gd, -cents, gi])
+    gd, gi, cents = gd[order], gi[order], cents[order]
+    lo = _rank_min(gd, cents)
+    n = len(gd)
+    last = np.ones(n, bool)
+    last[:-1] = (gd[1:] != gd[:-1]) | (cents[1:] != cents[:-1])
+    peer_last = np.minimum.accumulate(np.where(last, np.arange(n), n)[::-1])[::-1]
+    hi = (peer_last - _seg_starts(gd) + 1).astype(np.int32)  # my peer group's last position
+    return {"d": gd, "item": gi, "cents": cents, "lo": lo, "hi": hi}
+
+
+def windowed_class_oracle(data: TpcdsData, rows: int | None = None) -> dict:
+    """The groups of rank() <= 2 over exact revenues (ties share the lower
+    rank), sorted by (d, rk, item)."""
+    g = windowed_ranks(data, rows)
+    keep = g["lo"] <= 2
+    out = {"d": g["d"][keep], "item": g["item"][keep], "rev": g["cents"][keep] / 100.0,
+           "rk": g["lo"][keep]}
+    return _sorted_by(out, ["d", "rk", "item"])
+
+
+def windowed_mismatch(got: dict, ranks: dict) -> str | None:
+    """None when ``got`` is a right answer of the windowed class under the
+    tie rule, given its groups' ``windowed_ranks``: each kept group's rank
+    lies in its [lo, hi] span and is <= 2, its revenue is its exact revenue
+    at rel 1e-9, every group with hi <= 2 is kept, no group is kept twice,
+    and the rows are sorted by (d, rk, item). Without ties in cents this is
+    equality with the oracle."""
+    g = ranks
+    gk = g["d"] * (1 << 32) + g["item"]
+    order = np.argsort(gk)
+    k = got["d"].astype(np.int64) * (1 << 32) + got["item"]
+    pos = np.clip(np.searchsorted(gk[order], k), 0, len(gk) - 1)
+    row = order[pos]
+    if not np.array_equal(gk[row], k):
+        return "a kept (d, item) group does not exist"
+    if len(np.unique(k)) != len(k):
+        return "a group kept twice"
+    rk = got["rk"]
+    if not ((g["lo"][row] <= rk) & (rk <= g["hi"][row]) & (rk <= 2)).all():
+        return "a rank outside its tie span"
+    want = g["cents"][row] / 100.0
+    if not (np.abs(got["rev"] - want) <= 1e-9 * np.abs(want)).all():
+        return "a revenue off by more than rel 1e-9"
+    if not np.isin(gk[g["hi"] <= 2], k).all():
+        return "a group ranked <= 2 under every tie order is missing"
+    if not np.array_equal(_lex_order([got["d"], rk, got["item"]]), np.arange(len(k))):
+        return "rows not sorted by (d, rk, item)"
+    return None
+
+
+# ---- windowed2: lag and a running sum by item over date ---------------------
+
+
+def windowed2_fact(data: TpcdsData, rows: int | None = None) -> Table:
+    """The fact de-duplicated on (item, date), the first occurrence kept in
+    row order (the JAX function's ``drop_duplicates``)."""
+    ss = _prefixed(data, rows).store_sales
+    c = ss.columns
+    _, first = np.unique(c["ss_item_sk"] * (1 << 32) + c["ss_sold_date_sk"], return_index=True)
+    keep = np.sort(first)
+    return Table(ss.schema, {k: v[keep] for k, v in c.items()},
+                 {k: v[keep] for k, v in ss.valid.items()})
+
+
+def ingest_windowed2(data: TpcdsData, device="cuda", rows: int | None = None) -> dict:
+    return {"fact": to_batches(windowed2_fact(data, rows), 1, device=device)}
+
+
+def run_windowed2_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                        stats: dict | None = None, ingested: dict | None = None,
+                        rows: int | None = None) -> dict:
+    """lag(price) and the running sum(price) per item ordered by date over
+    the de-duplicated fact (one task): {ss_item_sk, ss_sold_date_sk,
+    prev_price (+ prev_price_valid), run_sum} sorted by (item, date)."""
+    if ingested is None:
+        ingested = ingest_windowed2(data, device, rows)
+    plan = _window(_fact(), [col(1)], [(col(0), SortSpec())],
+                   [("lag", None, col(4), 1, False, "prev_price"),
+                    ("agg", "sum", col(4), 1, False, "run_sum")])
+    batches = _tasks(plan, {"fact": ingested["fact"]}, 1, conf, device, stats)
+    out = collect(_ordered(batches, ["ss_item_sk", "ss_sold_date_sk"]), nulls=True)
+    return {"ss_item_sk": out["ss_item_sk"], "ss_sold_date_sk": out["ss_sold_date_sk"],
+            "prev_price": np.where(out["prev_price_valid"], out["prev_price"], 0.0),
+            "prev_price_valid": out["prev_price_valid"], "run_sum": out["run_sum"]}
+
+
+def windowed2_class_oracle(data: TpcdsData, rows: int | None = None) -> dict:
+    c = _prefixed(data, rows).store_sales.columns
+    keys, first = np.unique(c["ss_item_sk"] * (1 << 32) + c["ss_sold_date_sk"],
+                            return_index=True)  # sorted by (item, date)
+    item, date = keys >> 32, keys & 0xFFFFFFFF  # date_sk < 2^32
+    price = c["ss_ext_sales_price"][first]
+    first = _seg_starts(item) == np.arange(len(item))
+    prev = np.where(first, 0.0, np.roll(price, 1))
+    return {"ss_item_sk": item, "ss_sold_date_sk": date, "prev_price": prev,
+            "prev_price_valid": ~first, "run_sum": _running_cents(item, _cents(price)) / 100.0}
+
+
+# ---- q51: a running total over a join's aggregate --------------------------
+
+
+def run_q51_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                  stats: dict | None = None, ingested: dict | None = None,
+                  rows: int | None = None) -> dict:
+    """fact JOIN date_dim, revenue per (item, year), then the running sum
+    per item ordered by year (one task): {item, y, rev, run_rev} sorted by
+    (item, y)."""
+    res = _window_inputs(data, 1, device, ingested, rows)
+    pr = _project(_bhj(_fact(), _dd(), [col(0)], [col(0)]),
+                  (col(1), "item"), (col(6), "y"), (col(4), "price"))
+    agg = _agg2(pr, [(col(0), "item"), (col(1), "y")], _aggs(("sum", col(2), "rev")))
+    plan = _window(agg, [col(0)], [(col(1), SortSpec())],
+                   [("agg", "sum", col(2), 1, False, "run_rev")])
+    return _answer(_ordered(_tasks(plan, res, 1, conf, device, stats), ["item", "y"]),
+                   ["item", "y", "rev", "run_rev"], [np.int64, np.int32, np.float64, np.float64])
+
+
+def _item_year_cents(data: TpcdsData, rows: int | None = None):
+    """(item, year, exact revenue in cents) per group, sorted by (item, year)."""
+    ss, dd = _prefixed(data, rows).store_sales.columns, data.date_dim.columns
+    drow, hit = _lookup(dd["d_date_sk"], ss["ss_sold_date_sk"])
+    year = dd["d_year"][drow[hit]].astype(np.int64)
+    keys, inv = _group(ss["ss_item_sk"][hit] * 4096 + year)
+    cents = np.bincount(inv, weights=_cents(ss["ss_ext_sales_price"][hit]),
+                        minlength=len(keys)).astype(np.int64)
+    return keys // 4096, (keys % 4096).astype(np.int32), cents
+
+
+def q51_class_oracle(data: TpcdsData, rows: int | None = None) -> dict:
+    item, y, cents = _item_year_cents(data, rows)
+    return {"item": item, "y": y, "rev": cents / 100.0,
+            "run_rev": _running_cents(item, cents) / 100.0}
+
+
+# ---- q23: the top three brands by revenue within a category -----------------
+
+
+def run_q23_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                  stats: dict | None = None, ingested: dict | None = None,
+                  rows: int | None = None) -> dict:
+    """fact JOIN item, revenue per (category id, brand), rank() by
+    (revenue DESC, brand) within the category, rank <= 3 kept on the host:
+    {cat, brand, rev, rk} sorted by (cat, rk, brand)."""
+    res = _window_inputs(data, 1, device, ingested, rows)
+    pr = _project(_bhj(_fact(), _item(), [col(1)], [col(0)]),
+                  (col(7), "cat"), (col(6), "brand"), (col(4), "price"))
+    agg = _agg2(pr, [(col(0), "cat"), (col(1), "brand")], _aggs(("sum", col(2), "rev")))
+    plan = _window(agg, [col(0)], [(col(2), SortSpec(asc=False)), (col(1), SortSpec())],
+                   [("rank", None, None, 1, False, "rk")])
+    batches = _ordered(_tasks(plan, res, 1, conf, device, stats), ["cat", "rk", "brand"],
+                       keep=lambda b: b.col_values(3) <= 3)
+    return _answer(batches, ["cat", "brand", "rev", "rk"],
+                   [np.int32, np.int32, np.float64, np.int32])
+
+
+def _top_by_revenue(part: np.ndarray, key: np.ndarray, cents: np.ndarray, k: int):
+    """Rows ranked by (cents DESC, key) within ``part``, rank <= k kept:
+    (part, key, cents, rank) sorted by (part, rank)."""
+    order = _lex_order([part, -cents, key])
+    part, key, cents = part[order], key[order], cents[order]
+    rk = (np.arange(len(part)) - _seg_starts(part) + 1).astype(np.int32)
+    keep = rk <= k
+    return part[keep], key[keep], cents[keep], rk[keep]
+
+
+def q23_class_oracle(data: TpcdsData, rows: int | None = None) -> dict:
+    ss, it = _prefixed(data, rows).store_sales.columns, data.item.columns
+    irow, hit = _lookup(it["i_item_sk"], ss["ss_item_sk"])
+    cat = it["i_category_id"][irow[hit]].astype(np.int64)
+    brand = it["i_brand_id"][irow[hit]].astype(np.int64)
+    nb = int(brand.max()) + 1
+    keys, inv = _group(cat * nb + brand)
+    cents = np.bincount(inv, weights=_cents(ss["ss_ext_sales_price"][hit]),
+                        minlength=len(keys)).astype(np.int64)
+    c, b, s, rk = _top_by_revenue(keys // nb, keys % nb, cents, 3)
+    return {"cat": c.astype(np.int32), "brand": b.astype(np.int32), "rev": s / 100.0, "rk": rk}
+
+
+# ---- q46: rank items by revenue within a year, a plan filter rk <= 3 -------
+
+
+def run_q46_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                  stats: dict | None = None, ingested: dict | None = None,
+                  rows: int | None = None) -> dict:
+    """fact JOIN date_dim, revenue per (year, item), rank() by (revenue
+    DESC, item) within the year, FilterExec rk <= 3 (one task): {y, i, rev,
+    rk} sorted by (y, rk, i)."""
+    res = _window_inputs(data, 1, device, ingested, rows)
+    pr = _project(_bhj(_fact(), _dd(), [col(0)], [col(0)]),
+                  (col(6), "y"), (col(1), "i"), (col(4), "p"))
+    agg = _agg2(pr, [(col(0), "y"), (col(1), "i")], _aggs(("sum", col(2), "rev")))
+    w = _window(agg, [col(0)], [(col(2), SortSpec(asc=False)), (col(1), SortSpec())],
+                [("rank", None, None, 0, False, "rk")])
+    plan = _filter(w, BinaryOp("lteq", col(3), lit(3)))
+    return _answer(_ordered(_tasks(plan, res, 1, conf, device, stats), ["y", "rk", "i"]),
+                   ["y", "i", "rev", "rk"], [np.int32, np.int64, np.float64, np.int32])
+
+
+def q46_class_oracle(data: TpcdsData, rows: int | None = None) -> dict:
+    item, y, cents = _item_year_cents(data, rows)
+    yy, i, s, rk = _top_by_revenue(y.astype(np.int64), item, cents, 3)
+    return {"y": yy.astype(np.int32), "i": i, "rev": s / 100.0, "rk": rk}
+
+
+# ---- q67 / q67b: ROLLUP and CUBE through one ExpandExec --------------------
+
+#: (gid, keeps date, keeps item) of each grouping set
+_ROLLUP = ((0, True, True), (1, True, False), (3, False, False))
+_CUBE = ((0, True, True), (1, True, False), (2, False, True), (3, False, False))
+
+
+def _expand_tree(sets, aggs):
+    from auron_tpu_torch.exec.basic import ExpandExec
+
+    null = Literal(None, T.INT64)
+    ex = ExpandExec(_fact(), [[col(0) if d else null, col(1) if i else null, col(4), lit(gid)]
+                              for gid, d, i in sets], ["d", "i", "price", "gid"])
+    keys = [(col(0), "d"), (col(1), "i"), (col(3), "gid")]
+    return _agg2(ex, keys, aggs)
+
+
+def _grouping_sets_answer(batches, with_count: bool) -> dict:
+    out = collect(_ordered(batches, ["gid", "d", "i"]), nulls=True)
+    got = {"d": np.where(out["d_valid"], out["d"], 0), "d_valid": out["d_valid"],
+           "i": np.where(out["i_valid"], out["i"], 0), "i_valid": out["i_valid"],
+           "gid": out["gid"], "s": out["s"]}
+    if with_count:
+        got["c"] = out["c"]
+    return got
+
+
+def run_q67_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                  stats: dict | None = None, ingested: dict | None = None,
+                  rows: int | None = None) -> dict:
+    """GROUP BY ROLLUP(date, item): ExpandExec emits the three grouping
+    sets with a grouping id, one partial + final aggregate over the
+    expanded stream (one task): {d, i (+ _valid), gid, s} sorted by (gid,
+    d, i), NULLs first."""
+    res = _window_inputs(data, 1, device, ingested, rows)
+    plan = _expand_tree(_ROLLUP, _aggs(("sum", col(2), "s")))
+    return _grouping_sets_answer(_tasks(plan, res, 1, conf, device, stats), False)
+
+
+def run_q67b_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                   stats: dict | None = None, ingested: dict | None = None,
+                   rows: int | None = None) -> dict:
+    """GROUP BY CUBE(date, item): the four grouping sets through one
+    ExpandExec, sum and count(*) (one task): {d, i (+ _valid), gid, s, c}."""
+    res = _window_inputs(data, 1, device, ingested, rows)
+    plan = _expand_tree(_CUBE, _aggs(("sum", col(2), "s"), ("count_star", None, "c")))
+    return _grouping_sets_answer(_tasks(plan, res, 1, conf, device, stats), True)
+
+
+def _grouping_sets_oracle(data: TpcdsData, rows, sets, with_count: bool) -> dict:
+    ss = _prefixed(data, rows).store_sales.columns
+    d, item, price = ss["ss_sold_date_sk"], ss["ss_item_sk"], ss["ss_ext_sales_price"]
+    ni = int(item.max()) + 1
+    parts = []
+    for gid, keep_d, keep_i in sets:
+        kd, ki = (d if keep_d else np.zeros_like(d)), (item if keep_i else np.zeros_like(item))
+        keys, n, s = _by(kd * ni + ki, price)
+        m = len(keys)
+        parts.append({"d": keys // ni if keep_d else np.zeros(m, np.int64),
+                      "d_valid": np.full(m, keep_d), "i": keys % ni if keep_i
+                      else np.zeros(m, np.int64), "i_valid": np.full(m, keep_i),
+                      "gid": np.full(m, gid, np.int32), "s": s, "c": n})
+    out = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    if not with_count:
+        del out["c"]
+    return _sorted_by(out, ["gid", "d_valid", "d", "i_valid", "i"])
+
+
+def q67_class_oracle(data: TpcdsData, rows: int | None = None) -> dict:
+    return _grouping_sets_oracle(data, rows, _ROLLUP, False)
+
+
+def q67b_class_oracle(data: TpcdsData, rows: int | None = None) -> dict:
+    return _grouping_sets_oracle(data, rows, _CUBE, True)
+
+
+# ---- q9: a scalar subquery in a filter -------------------------------------
+
+
+def run_q9_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                 stats: dict | None = None, ingested: dict | None = None,
+                 rows: int | None = None) -> dict:
+    """Task 1: the global avg(price), read on the host; task 2: the rows
+    priced above ScalarSubquery("q9_avg"), counted and summed: {c, s}."""
+    from auron_tpu_torch.exprs.ir import ScalarSubquery
+
+    res = _window_inputs(data, 1, device, ingested, rows)
+    sub = _agg2(_fact(), [], _aggs(("avg", col(4), "a")))
+    res["q9_avg"] = float(_answer(_tasks(sub, res, 1, conf, device, stats), ["a"],
+                                  [np.float64])["a"][0])
+    flt = _filter(_fact(), BinaryOp("gt", col(4), ScalarSubquery("q9_avg", T.FLOAT64)))
+    plan = _agg2(flt, [], _aggs(("count_star", None, "c"), ("sum", col(4), "s")))
+    return _answer(_tasks(plan, res, 1, conf, device, stats), ["c", "s"], [np.int64, np.float64])
+
+
+def q9_class_oracle(data: TpcdsData, rows: int | None = None) -> dict:
+    price = _prefixed(data, rows).store_sales.columns["ss_ext_sales_price"]
+    keep = price[price > price.mean()]
+    return {"c": np.array([len(keep)], np.int64), "s": np.array([keep.sum()])}

@@ -178,3 +178,55 @@ def seg_min(vals, valid, seg_ids, cap):
 
 def seg_max(vals, valid, seg_ids, cap):
     return _seg_extreme(vals, valid, seg_ids, cap, "amax", min_identity(vals.dtype))
+
+
+# ---------------------------------------------------------------------------
+# running extremes (windows): an int64 order key and a segmented scan
+# ---------------------------------------------------------------------------
+
+_LOW63 = 0x7FFFFFFFFFFFFFFF
+_LOW31 = 0x7FFFFFFF
+
+
+def extreme_key(values: torch.Tensor) -> torch.Tensor:
+    """int64 key whose signed order is the values' order, invertible by
+    ``from_extreme_key``. Floats take their IEEE total order (a negative
+    pattern's low bits flipped): -0.0 sorts below 0.0, so min and max pick
+    the zero ``jnp.minimum``/``jnp.maximum`` pick; NaN is left to the
+    caller."""
+    if values.dtype == torch.float64:
+        b = values.view(torch.int64)
+        return torch.where(b < 0, b ^ _LOW63, b)
+    if values.dtype == torch.float32:
+        b = values.view(torch.int32)
+        return torch.where(b < 0, b ^ _LOW31, b).to(torch.int64)
+    return values.to(torch.int64)
+
+
+def from_extreme_key(key: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    if dtype == torch.float64:
+        return torch.where(key < 0, key ^ _LOW63, key).view(torch.float64)
+    if dtype == torch.float32:
+        k = key.to(torch.int32)
+        return torch.where(k < 0, k ^ _LOW31, k).view(torch.float32)
+    if dtype == torch.bool:
+        return key != 0
+    return key.to(dtype)
+
+
+def seg_running_extreme(keys: torch.Tensor, seg_start: torch.Tensor, reduce: str) -> torch.Tensor:
+    """Inclusive running min ('amin') or max ('amax') of ``keys`` from each
+    row's segment start (``seg_start``, sorted row index; rows past every
+    segment carry a start beyond the tensor): log2(n) doubling steps, each
+    combining a row with the row d before it when that row lies in its
+    segment. Plain torch on any device."""
+    op = torch.minimum if reduce == "amin" else torch.maximum
+    n = keys.shape[0]
+    iota = torch.arange(n, dtype=torch.int64, device=keys.device)
+    x = keys
+    d = 1
+    while d < n:
+        prev = torch.cat([x[:d], x[:-d]])
+        x = torch.where(iota - d >= seg_start, op(x, prev), x)
+        d <<= 1
+    return x

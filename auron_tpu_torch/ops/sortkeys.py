@@ -39,6 +39,17 @@ def _dict_rank(d: np.ndarray) -> np.ndarray:
     return rank
 
 
+def dict_rank_maps(d: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(rank, inv) of a vocabulary: ``rank[code]`` is the entry's UTF-8
+    byte-order rank and ``inv[rank]`` the code back. min/max over
+    dictionary codes run in rank space (codes are in first-occurrence
+    order)."""
+    rank = _dict_rank(d)
+    inv = np.empty_like(rank)
+    inv[rank] = np.arange(len(rank), dtype=np.int64)
+    return rank, inv
+
+
 def orderable_word(cv: ColumnVal) -> torch.Tensor:
     """uint64 carrier whose unsigned order == SQL ascending order."""
     dt = cv.dtype

@@ -509,17 +509,18 @@ def _collect_sources(op: ExecOperator) -> list[tuple[str, str]]:
 def _partition_scoped(op: ExecOperator) -> bool:
     """Operators whose output depends on seeing a whole partition: running a
     partition as several slices would change their result (a regrouping
-    aggregate, a limit, a per-partition top-k)."""
+    aggregate, a window, a limit, a per-partition top-k)."""
     if op.name == "HashAggExec":
         return op.mode != "partial"
     if op.name == "SortExec":
         return op.fetch is not None
-    return op.name == "LimitExec"
+    return op.name in ("WindowExec", "WindowGroupLimitExec", "LimitExec")
 
 
 #: operators allowed between the SMJ and its exchange leaf on a split side:
 #: per-row ones, or whole-input sorts feeding the join
-_SLICE_SAFE_BELOW = ("SortExec", "ProjectExec", "FilterExec", "IpcReaderExec")
+_SLICE_SAFE_BELOW = ("SortExec", "ProjectExec", "FilterExec", "IpcReaderExec",
+                     "RenameColumnsExec")
 
 
 def _slice_safe(op: ExecOperator) -> bool:

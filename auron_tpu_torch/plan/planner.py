@@ -2,12 +2,13 @@
 
 Port of ``auron_tpu/plan/planner.py`` for the node and expression variants
 the ported slices execute (memory_scan, project, filter, limit, union,
-hash_agg, sort, hash_join, sort_merge_join, shuffle_writer with
+expand, rename_columns, empty_partitions, coalesce_batches, debug,
+hash_agg, sort, window, hash_join, sort_merge_join, shuffle_writer with
 single/hash/round-robin partitioning, ipc_reader, mesh_exchange (a
 ``MeshExchangeExec`` stage boundary that
 ``parallel/mesh_driver.MeshQueryDriver`` resolves); column, literal, cast,
 binary, not, is_null, is_not_null, if_expr, case_expr, in_list, coalesce,
-like).
+like, spark_partition_id, monotonic_id, row_num, scalar_subquery).
 Other variants raise ``NotImplementedError`` naming the variant.
 
 The exec tree is the JAX package's tree with whole-stage fusion off
@@ -94,6 +95,15 @@ def expr_from_proto(p) -> ir.Expr:
     if which == "like":
         return ir.Like(expr_from_proto(p.like.child), p.like.pattern, p.like.negated,
                        p.like.escape or "\\")
+    if which == "spark_partition_id":
+        return ir.SparkPartitionId()
+    if which == "monotonic_id":
+        return ir.MonotonicId()
+    if which == "row_num":
+        return ir.RowNum()
+    if which == "scalar_subquery":
+        return ir.ScalarSubquery(p.scalar_subquery.resource_id,
+                                 dtype_from_proto(p.scalar_subquery.dtype))
     raise NotImplementedError(f"expression variant {which} is not in this slice of the port")
 
 
@@ -148,6 +158,35 @@ def plan_from_proto(p):
         return basic.LimitExec(plan_from_proto(p.limit.child), p.limit.limit)
     if which == "union":
         return basic.UnionExec([plan_from_proto(c) for c in p.union.children])
+    if which == "expand":
+        return basic.ExpandExec(plan_from_proto(p.expand.child),
+                                [[expr_from_proto(e) for e in proj.exprs]
+                                 for proj in p.expand.projections],
+                                list(p.expand.names))
+    if which == "rename_columns":
+        return basic.RenameColumnsExec(plan_from_proto(p.rename_columns.child),
+                                       list(p.rename_columns.names))
+    if which == "empty_partitions":
+        return basic.EmptyPartitionsExec(schema_from_proto(p.empty_partitions.schema),
+                                         p.empty_partitions.num_partitions)
+    if which == "coalesce_batches":
+        return basic.CoalesceBatchesExec(plan_from_proto(p.coalesce_batches.child),
+                                         p.coalesce_batches.target_rows or None)
+    if which == "debug":
+        return basic.DebugExec(plan_from_proto(p.debug.child), p.debug.tag)
+    if which == "window":
+        from auron_tpu_torch.exec.window_exec import WindowExec, WindowFunc
+
+        n = p.window
+        order_exprs, order_specs = _sort_fields(n.order_by)
+        return WindowExec(
+            plan_from_proto(n.child), [expr_from_proto(e) for e in n.partition_by],
+            list(zip(order_exprs, order_specs)),
+            [(WindowFunc(f.kind, agg=f.agg or None,
+                         expr=expr_from_proto(f.expr) if f.has_expr else None,
+                         offset=f.offset or 1, frame_whole=f.frame_whole), f.name)
+             for f in n.funcs],
+        )
     if which == "hash_agg":
         n = p.hash_agg
         return HashAggExec(

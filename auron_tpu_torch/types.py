@@ -215,6 +215,10 @@ class Schema:
     def names(self) -> list[str]:
         return [f.name for f in self.fields]
 
+    def rename(self, names: list[str]) -> "Schema":
+        assert len(names) == len(self.fields)
+        return Schema(tuple(Field(n, f.dtype, f.nullable) for n, f in zip(names, self.fields)))
+
     def to_arrow(self):
         import pyarrow as pa
 

@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # full run: every query class at SF 8
     python3 chip_smoke.py --sf 0.5   # smaller end-to-end phases
     python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of one run of each query
+    python3 chip_smoke.py --window-only  # phases 1, 2 and 11 only
 
 Phases, in order, none of them caught — any failure exits non-zero:
 
@@ -102,8 +103,29 @@ Phases, in order, none of them caught — any failure exits non-zero:
    sort; by default a dictionary-keyed grouping sorts a fingerprint with
    the library sort). Wall, top host timers, launches and peak device
    memory are printed for each;
-11. print the kernel table as one JSON line (each kernel's launches summed
-   over the timed runs of phases 4-10, and per run), then the status line.
+11. the eight window, expand and scalar-subquery classes
+   (``tpcds.WINDOW_CLASSES``) over the whole fact table with the JAX
+   functions' operator trees and task counts: windowed (an aggregate on
+   (date, item), rank() by revenue within the date), windowed2 (lag and a
+   running sum by item over date on the fact de-duplicated on (item,
+   date)), q51 (a running sum over a join's aggregate), q23 and q46 (rank
+   over a join's aggregate, top 3), q67 and q67b (ROLLUP and CUBE through
+   one ExpandExec: 3 and 4 x 23.04 M rows into the aggregate) and q9 (a
+   global-average subquery task, then a filter on ScalarSubquery). Each
+   gets a warm-up, whose kernel sorts go through K3/K4 and the plain
+   network on the card once more, bit for bit, then three timed runs,
+   whose bitonic launches each equal ``sort_plan``'s for those sorts;
+   every windowed class must launch K3, and K4 where a sort is past one
+   cluster. Each answer equals its numpy oracle (keys, counts, ranks, lag
+   values and order exactly, revenues and sums at rel 1e-9, running sums
+   within 1e-9 |want| + 16 eps of the global prefix, windowed's ranks under
+   its tie rule); walls, top host timers, launches, sort shapes, the
+   aggregate path, the running sums' largest error and peak device memory
+   are printed;
+12. print the kernel table as one JSON line (each kernel's launches summed
+   over the timed runs of phases 4-11, and per run), then the status line.
+
+Each phase prints its seconds.
 
 Every launch count is set to 0 just before the timed run of a query and
 read just after it; launches made to compare kernels are not counted.
@@ -697,6 +719,7 @@ def time_sorts_main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no result", file=sys.stderr)
         return 2
+    clock = [time.perf_counter()]
     from auron_tpu_torch.ops import cuda_build
 
     smi = subprocess.run(
@@ -1224,6 +1247,154 @@ def run_tail_classes(data, fact) -> dict:
     return out
 
 
+#: phase 11: timed runs of each window, expand and scalar-subquery class
+WINDOW_TIMED_RUNS = 3
+#: the classes whose WindowExec sorts (K3, and K4 where P > 32,768)
+WINDOWED = ("windowed", "windowed2", "q51", "q23", "q46")
+#: running float sums: (class, column, partition key column)
+WINDOW_RUNNING = (("windowed2", "run_sum", "ss_item_sk"), ("q51", "run_rev", "item"))
+
+
+def _window_inputs(data) -> dict:
+    """Each class's inputs on the card (set-up): the fact in one partition,
+    in two (windowed: one task over both), de-duplicated (windowed2)."""
+    from auron_tpu_torch.models import tpcds
+
+    one, two = (tpcds.ingest_q3(data, n, device="cuda") for n in (1, 2))
+    return {name: (two if name == "windowed" else tpcds.ingest_windowed2(data, "cuda")
+                   if name == "windowed2" else one)
+            for name in tpcds.WINDOW_CLASSES}
+
+
+def _assert_window_answer(name: str, got: dict, want: dict) -> dict:
+    """The class's answer against its oracle: keys, counts, ranks, lag
+    values and validity and the row order exactly, revenues and sums at
+    rel 1e-9, running sums within ``tpcds.running_sum_bound``; windowed,
+    which ranks by a float alone, under its tie rule (``want`` is then its
+    groups' ``windowed_ranks``). Returns the running sums' largest error."""
+    import numpy as np
+
+    from auron_tpu_torch.models import tpcds
+
+    if name == "windowed":
+        assert len(got["rk"]) > 0, name
+        bad = tpcds.windowed_mismatch(got, want)
+        assert bad is None, ("windowed", bad)
+        return {"ties": int(((want["lo"] <= 2) & (want["hi"] > want["lo"])).sum())}
+    assert sorted(got) == sorted(want) and len(next(iter(want.values()))) > 0, name
+    running = {col: part for cls, col, part in WINDOW_RUNNING if cls == name}
+    err = {}
+    for k, w in want.items():
+        g = got[k]
+        assert g.shape == w.shape and g.dtype == w.dtype, (name, k, g.shape, w.shape)
+        if k in running:
+            bound = tpcds.running_sum_bound(want[running[k]], w)
+            diff = np.abs(g - w)
+            assert (diff <= bound).all(), (name, k, float(diff.max()))
+            err[k] = {"max_abs_err": float(diff.max()),
+                      "max_err_over_bound": float((diff / bound).max()),
+                      "max_bound": float(bound.max())}
+        elif k in ("rev", "s"):
+            assert np.isfinite(g).all(), (name, k)
+            _assert_close(g, w)
+        else:
+            assert _np_equal(g, w), (name, k, g[:10], w[:10])
+    return err
+
+
+def run_window_classes(data) -> dict:
+    """Phase 11: each of tpcds.WINDOW_CLASSES over the whole fact table: a
+    warm-up (its kernel sorts recorded, then sorted once more by K3/K4 and
+    by the plain network on the card, bit for bit), then WINDOW_TIMED_RUNS
+    timed runs, whose bitonic launches must each equal ``sort_plan``'s for
+    the recorded sorts. A windowed class must launch K3, and K4 where a
+    sort is past one cluster; every answer equals its numpy oracle."""
+    import torch
+
+    from auron_tpu_torch.models import tpcds
+
+    t0 = time.perf_counter()
+    inputs = _window_inputs(data)
+    torch.cuda.synchronize()
+    t_ingest = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oracles = {name: (tpcds.windowed_ranks(data) if name == "windowed"
+                      else getattr(tpcds, f"{name}_class_oracle")(data))
+               for name in tpcds.WINDOW_CLASSES}
+    print(f"window classes: inputs on the card in {t_ingest:.2f} s, oracles in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    out = {}
+    for name in tpcds.WINDOW_CLASSES:
+        ingested = inputs[name]
+        run = getattr(tpcds, f"run_{name}_class")
+        sorts: list = []
+        shapes: list = []
+        with _recording_sorts(sorts), _recording_kernel_sorts(shapes):
+            warm = run(device="cuda", ingested=ingested)
+        sort_checks = check_sorts(name, sorts)
+        del sorts
+        if sort_checks:  # the checks' large temporaries leave the allocator cold
+            torch.cuda.empty_cache()
+            run(device="cuda", ingested=ingested)
+        walls, peaks, runs_launches = [], [], []
+        for k in range(WINDOW_TIMED_RUNS):
+            _reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            stats = {} if k == 0 else None
+            t0 = time.perf_counter()
+            got = run(device="cuda", ingested=ingested, stats=stats)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            runs_launches.append(_launches())
+            peaks.append(torch.cuda.max_memory_allocated())
+            if k == 0:
+                first, first_stats = got, stats
+            _assert_planned_launches(name, shapes, runs_launches[-1], sorts=name in WINDOWED)
+        # the running sums' largest error over the three answers held
+        # (windowed: the groups ranked <= 2 whose revenue ties another's)
+        err: dict = {}
+        for ans in (warm, first, got):
+            for col, e in _assert_window_answer(name, ans, oracles[name]).items():
+                if col == "ties" or e["max_abs_err"] >= err.get(col, {"max_abs_err": -1.0})[
+                        "max_abs_err"]:
+                    err[col] = e
+        assert len(sort_checks) == len(shapes), (name, len(sort_checks), shapes)
+        must = ("bitonic_sort",) if name in WINDOWED else ()
+        if any(s["P"] > 32768 for s in sort_checks):
+            must += ("bitonic_merge",)
+        for launches in runs_launches:
+            _assert_must_launch(name, launches, must)
+        rows = len(next(iter(got.values())))
+        counters = first_stats["counters"]
+        dense = counters.get("HashAggExec.elapsed_compute_n", 0)
+        print(f"{name}-class: walls {', '.join(f'{w:.4f}' for w in walls)} s, {rows} result "
+              f"rows, kernel sorts (NP, P) {shapes}, launches {runs_launches[0]}, peak device "
+              f"memory {max(peaks) / 2**30:.3f} GiB, aggregate batches folded in a dense "
+              f"table {dense}, generic merges {counters.get('HashAggExec.num_merges', 0)}"
+              + (f", tied groups at rank <= 2 {err['ties']}" if "ties" in err
+                 else f", running-sum error {err}" if err else ""), flush=True)
+        _print_timers(name, first_stats)
+        top = sorted(first_stats["timers"].items(), key=lambda kv: -kv[1])[:5]
+        out[name] = {"wall_s": walls[0], "walls_s": walls, "launches": runs_launches[0],
+                     "launches_per_run": runs_launches, "peak_bytes": max(peaks),
+                     "peaks_bytes": peaks, "result_rows": rows, "sort_shapes": shapes,
+                     "sort_checks": sort_checks, "top_timers_s": dict(top),
+                     "counters": counters, "running_sum_error": err}
+    del inputs
+    return out
+
+
+def profile_window_classes(data, window: dict) -> None:
+    """``--profile``: one more run of each window class under torch.profiler."""
+    from auron_tpu_torch.models import tpcds
+
+    inputs = _window_inputs(data)
+    for name in tpcds.WINDOW_CLASSES:
+        window[name]["profile"] = profile_run(name, lambda: getattr(
+            tpcds, f"run_{name}_class")(device="cuda", ingested=inputs[name]))
+
+
 def _fmt_s(walls: dict) -> str:
     return ", ".join(f"{k} {v:.4f} s" for k, v in walls.items())
 
@@ -1367,6 +1538,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--profile", action="store_true",
                     help="also profile one q42, q93 and q3 run (device busy share, top kernels)")
+    ap.add_argument("--window-only", action="store_true",
+                    help="run phases 1, 2 and 11 only (no kernel table, no status line)")
     ap.add_argument("--time-sorts", action="store_true",
                     help="only build and time the bitonic kernels at the sort shapes "
                          "(one JSON line, no status line)")
@@ -1379,6 +1552,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no result", file=sys.stderr)
         return 2
+    clock = [time.perf_counter()]
     from auron_tpu_torch.ops import cuda_build
 
     # 1. the card
@@ -1397,6 +1571,24 @@ def main(argv=None) -> int:
           f"(per source: {build_s})", flush=True)
     for name, log in cuda_build.BUILD_LOG.items():
         print(f"nvcc {name}:\n{log.strip()}", flush=True)
+    phase_s: dict = {}
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = now - clock[0]
+        clock[0] = now
+        print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
+
+    phase_done("1-2")
+    from auron_tpu_torch.models import tpcds
+
+    if args.window_only:
+        data = tpcds.generate(args.sf, args.seed)
+        window = run_window_classes(data)
+        phase_done("11")
+        if args.profile:
+            profile_window_classes(data, window)
+        return 0
 
     # 3. kernels against their plain versions
     checks = check_kernels(args.seed)
@@ -1405,10 +1597,9 @@ def main(argv=None) -> int:
     timing = time_kernels(args.seed)
     timing["murmur3_pmod"] = time_partition_kernel(args.seed)
     timing["partition_histogram"] = time_histogram_kernel(args.seed)
+    phase_done("3")
 
     # 4. the data, once; q42-class end to end
-    from auron_tpu_torch.models import tpcds
-
     t0 = time.perf_counter()
     data = tpcds.generate(args.sf, args.seed)
     t_gen = time.perf_counter() - t0
@@ -1416,6 +1607,7 @@ def main(argv=None) -> int:
     if args.profile:
         q42["profile"] = profile_q42(ingested)
     del ingested
+    phase_done("4")
 
     # 5-6. the two-stage queries over one 4-partition ingest of the fact table
     t0 = time.perf_counter()
@@ -1430,6 +1622,7 @@ def main(argv=None) -> int:
             device="cuda", ingested=tpcds.ingest_q93(data, 4, device="cuda", fact=fact)))
         q3["profile"] = profile_run("q3", lambda: tpcds.run_q3_class(
             device="cuda", ingested=tpcds.ingest_q3(data, 4, device="cuda", fact=fact)))
+    phase_done("5-6")
 
     # 7. the same queries through the planned-exchange driver, P = 4
     q93_mesh = run_mesh("q93", data, fact)
@@ -1443,6 +1636,7 @@ def main(argv=None) -> int:
             q3_mesh[mode]["profile"] = profile_run(f"q3-mesh ({mode})", lambda: (
                 tpcds.run_q3_mesh(device="cuda", conf=conf, ingested=tpcds.ingest_q3(
                     data, 4, device="cuda", fact=fact))))
+    phase_done("7")
 
     # 8. the six gate classes of this slice over the same fact partitions
     oracles = {name: getattr(tpcds, f"{name}_class_oracle")(data)
@@ -1453,6 +1647,7 @@ def main(argv=None) -> int:
             ing = _gate_inputs(name, data, fact)  # set-up, outside the profiled run
             gate[label]["profile"] = profile_run(label, lambda: getattr(
                 tpcds, f"run_{name}_class")(device="cuda", conf=conf, ingested=ing))
+    phase_done("8")
 
     # 9. sort-merge join stages through the planned-exchange driver
     q72_mesh = run_q72_mesh_phase(data, fact, oracles["q72"])
@@ -1471,6 +1666,7 @@ def main(argv=None) -> int:
         skew["on"]["profile"] = profile_run("skew join (split on)", lambda: (
             tpcds.run_skew_join(device="cuda", ingested=ing)))
         del ing
+    phase_done("9")
 
     # 10. the expression-tail and join-tail classes at the same scale
     tail = run_tail_classes(data, fact)
@@ -1481,27 +1677,38 @@ def main(argv=None) -> int:
             tail[label]["profile"] = profile_run(label, lambda: getattr(
                 tpcds, f"run_{name}_class")(device="cuda", conf=conf, ingested=ing))
             del ing
+    phase_done("10")
 
-    # every kernel sort of the main paths, held against the plain network
+    # 11. the window, expand and scalar-subquery classes over the whole fact
+    del fact
+    window = run_window_classes(data)
+    if args.profile:
+        profile_window_classes(data, window)
+    phase_done("11")
+
+    # 12. every kernel sort of the main paths, held against the plain network
     # on the card at its own operands
     checks["main_path_sorts"] = {
         **{f"q3-mesh ({m})": q3_mesh[m]["sort_checks"] for m in q3_mesh},
         **{label: gate[label]["sort_checks"] for label in gate},
         **{f"skew join ({k})": skew[k]["sort_checks"] for k in skew},
-        **{label: tail[label]["sort_checks"] for label in tail}}
+        **{label: tail[label]["sort_checks"] for label in tail},
+        **{name: window[name]["sort_checks"] for name in window}}
     sort_err = max(s["max_abs_err"] for v in checks["main_path_sorts"].values() for s in v)
     for name in ("bitonic_sort", "bitonic_merge"):
         checks["max_abs_err"][name] = max(checks["max_abs_err"][name], sort_err)
     # each kernel's launches in the timed run of every main path (counts set
     # to 0 just before each and read just after); K4 launches where a sort
-    # is past one cluster: q72 (build), the skew plan and q17
+    # is past one cluster: q72 (build), the skew plan, q17 and the window
+    # classes past 32,768 rows
     paths = {"q42": q42["launches"], "q93": q93["launches"], "q3": q3["launches"],
              **{f"q93-mesh ({m})": q93_mesh[m]["launches"] for m in q93_mesh},
              **{f"q3-mesh ({m})": q3_mesh[m]["launches"] for m in q3_mesh},
              **{label: gate[label]["launches"] for label in gate},
              **{f"q72-mesh ({m})": q72_mesh[m]["launches"] for m in q72_mesh},
              **{f"skew join ({k})": skew[k]["launches"] for k in skew},
-             **{label: tail[label]["launches"] for label in tail}}
+             **{label: tail[label]["launches"] for label in tail},
+             **{name: window[name]["launches"] for name in window}}
     kernels = []
     for name, source, replaces in (
         ("bitonic_sort", "auron_tpu_torch/csrc/bitonic.cu", "auron_tpu/ops/bitonic.py:145"),
@@ -1528,8 +1735,9 @@ def main(argv=None) -> int:
         json.dump({"device": kind, "nvidia_smi": smi, "build_s": build_s, "checks": checks,
                    "timing": timing, "q42": q42, "q93": q93, "q3": q3, "q93_mesh": q93_mesh,
                    "q3_mesh": q3_mesh, "gate": gate, "q72_mesh": q72_mesh, "skew": skew,
-                   "tail": tail, "kernels": kernels},
+                   "tail": tail, "window": window, "phase_s": phase_s, "kernels": kernels},
                   f, indent=1)
+    phase_done("12")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

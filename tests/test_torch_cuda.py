@@ -336,3 +336,53 @@ def test_smj_stages_on_card_through_the_driver():
     _assert_answer(got, tpcds.skew_join_oracle(fact, dim))
     assert len(st["exchanges"][0]["skew_tasks"]) > 4
     assert pb.LAUNCHES["bitonic_sort"] > before["bitonic_sort"]
+
+
+@pytest.mark.cuda
+def test_window_on_card_matches_its_cpu_run():
+    """A WindowExec over 5,000 rows (P = 8,192: the kernels' range) on the
+    card equals its CPU run: ranks, lag, counts and min/max exactly, the
+    running and whole sums at rel 1e-9 plus 16 eps of the global prefix;
+    its sort went through K3."""
+    _need_card()
+    from auron_tpu_torch import types as T
+    from auron_tpu_torch.columnar.batch import Batch
+    from auron_tpu_torch.exec.base import ExecutionContext
+    from auron_tpu_torch.exec.basic import MemoryScanExec
+    from auron_tpu_torch.exec.window_exec import WindowExec, WindowFunc
+    from auron_tpu_torch.exprs.ir import col
+    from auron_tpu_torch.ops.sortkeys import SortSpec
+
+    rng = np.random.default_rng(9)
+    n = 5000
+    cols = [rng.integers(0, 40, n).astype(np.int64), rng.integers(0, 300, n).astype(np.int32),
+            np.round(rng.gamma(2.0, 25.0, n), 2)]
+    valid = [None, None, rng.random(n) > 0.05]
+    schema = T.Schema((T.Field("g", T.INT64), T.Field("o", T.INT32), T.Field("v", T.FLOAT64)))
+    funcs = [(WindowFunc(k, agg=a, expr=None if c is None else col(c), offset=o,
+                         frame_whole=w), name)
+             for name, k, a, c, o, w in (
+                 ("rk", "rank", None, None, 1, False), ("dr", "dense_rank", None, None, 1, False),
+                 ("nt", "ntile", None, None, 4, False), ("lg", "lag", None, 2, 1, False),
+                 ("rs", "agg", "sum", 2, 1, False), ("rc", "agg", "count", 2, 1, False),
+                 ("rmin", "agg", "min", 2, 1, False), ("tmax", "agg", "max", 2, 1, True),
+                 ("ts", "agg", "sum", 2, 1, True))]
+    out = {}
+    before = dict(pb.LAUNCHES)
+    for dev in ("cpu", "cuda"):
+        b = Batch.from_numpy(cols, schema, valid, device=dev)
+        w = WindowExec(MemoryScanExec([[b]], schema), [col(0)],
+                       [(col(1), SortSpec(asc=False))], funcs)
+        got = list(w.execute(0, ExecutionContext(device=dev)))
+        out[dev] = {k: v for k, v in got[0].to_numpy().items()}
+    assert pb.LAUNCHES["bitonic_sort"] > before["bitonic_sort"]
+    g_prefix = np.cumsum(np.where(out["cpu"]["v"][1], out["cpu"]["v"][0], 0.0))
+    eps = np.finfo(np.float64).eps
+    for name, (want, want_ok) in out["cpu"].items():
+        got, got_ok = out["cuda"][name]
+        np.testing.assert_array_equal(got_ok, want_ok, err_msg=name)
+        if name in ("rs", "ts"):
+            bound = 1e-9 * np.abs(want) + 16 * eps * g_prefix[-1]
+            assert (np.abs(got - want)[want_ok] <= bound[want_ok]).all(), name
+        else:
+            np.testing.assert_array_equal(got[want_ok], want[want_ok], err_msg=name)

@@ -542,3 +542,75 @@ def test_mesh_cuda_entries_without_card_raise(tpcds_data):
         pt.run_q93_mesh(tpcds_data[1])
     with pytest.raises(RuntimeError, match="cuda"):
         pt.run_q3_mesh(tpcds_data[1])
+
+
+# ---- a window above a skew-splittable join is not sliced --------------------
+
+
+def _window_over_skew_join(l_schema, r_schema, order_col: int):
+    """The skew plan's join stage (two mesh exchanges, sorts, SMJ), then a
+    window per join key in the same stage: rank and dense_rank by
+    ``order_col``, the partition's count and sum."""
+    from auron_tpu.ops.sortkeys import SortSpec
+
+    def side(schema, rid, ex_id):
+        ex = B.mesh_exchange(B.memory_scan(schema, rid), B.hash_partitioning([jcol(0)], P),
+                             ex_id)
+        return B.sort(ex, [(jcol(0), SortSpec())])
+
+    j = B.sort_merge_join(side(l_schema, "skew_l", "skew_ex_l"),
+                          side(r_schema, "skew_r", "skew_ex_r"), [jcol(0)], [jcol(0)], "inner")
+    return B.window(j, [jcol(0)], [(jcol(order_col), SortSpec())],
+                    [("rank", None, None, 1, False, "rk"),
+                     ("dense_rank", None, None, 1, False, "dr"),
+                     ("agg", "count", jcol(1), 1, True, "n"),
+                     ("agg", "sum", jcol(3), 1, True, "tw")])
+
+
+@pytest.mark.parametrize("order_col", [1, 3])
+def test_window_above_a_skewed_join_is_not_split(jmesh, order_col):
+    """AQE skew splitting would run the hot partition as several slices,
+    and a window over a slice sees part of its partition: the driver must
+    leave such a stage whole (``_partition_scoped`` covers WindowExec). The
+    answer equals the JAX driver's and the port's own run with splitting
+    off, and the hot key's count is all of its rows."""
+    fact, dim = pt.skew_data(30000, 0.7)
+    fdf, ddf = pd.DataFrame(fact.columns), pd.DataFrame(dim.columns)
+    jres, pres = _both_partitioned(fdf, "skew_l")
+    jd_, pdim = _both_partitioned(ddf, "skew_r")
+    jres, pres = {**jres, **jd_}, {**pres, **pdim}
+    plan = _window_over_skew_join(_schema(fdf), _schema(ddf), order_col)
+    got, want, pdr, jd = _run_both(jmesh, plan, jres, pres, pt.SKEW_CONF)
+    assert [s.skew_tasks for s in pdr.stats] == [None, None]
+    assert [s.skew_tasks for s in jd.stats] == [None, None]
+    _assert_rows_equal(got, want)
+    off = MeshQueryDriver(make_mesh(P, device="cpu"), conf=PConf(
+        {**pt.SKEW_CONF, "exchange.skew.join.enable": False})).run(_port_proto(plan), pres)
+    assert canon(rows([b for p in got for b in p])) == canon(rows([b for p in off for b in p]))
+    hot = [r for r in rows([b for p in got for b in p]) if r[0] == 7]
+    assert {r[6] for r in hot} == {int((fact.columns["k"] == 7).sum())}
+
+
+def test_rename_columns_is_slice_safe_below_a_join():
+    """A RenameColumnsExec between the SMJ and its exchange leaf keeps the
+    stage splittable, as in the JAX driver."""
+    from auron_tpu_torch.exec.basic import RenameColumnsExec
+    from auron_tpu_torch.exec.window_exec import WindowExec
+    from auron_tpu_torch.parallel import mesh_driver as pmd
+
+    from auron_tpu_torch.exec.joins.smj import SortMergeJoinExec
+    from auron_tpu_torch.exec.shuffle.reader import IpcReaderExec
+    from auron_tpu_torch.exec.sort_exec import SortExec
+    from auron_tpu_torch.exprs.ir import col
+    from auron_tpu_torch.ops.sortkeys import SortSpec
+
+    def side(schema, rid, rename):
+        read = IpcReaderExec(schema, rid)  # an exchange leaf, as the driver resolves it
+        read = RenameColumnsExec(read, ["a", "b"]) if rename else read
+        return SortExec(read, [col(0)], [SortSpec()])
+
+    for rename in (False, True):
+        smj = SortMergeJoinExec(side(pt.SKEW_FACT_SCHEMA, "l", rename),
+                                side(pt.SKEW_DIM_SCHEMA, "r", False), [col(0)], [col(0)], "inner")
+        assert pmd._find_single_smj(smj) is smj
+        assert pmd._find_single_smj(WindowExec(smj, [col(0)], [], [])) is None
