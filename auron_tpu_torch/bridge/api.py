@@ -7,7 +7,9 @@ same bytes the JAX package's builders produce) and returns a handle;
 here; a port batch converts with ``Batch.to_arrow()`` when pyarrow is
 installed); ``finalize_native`` ends the task and returns its metric tree.
 Scan inputs arrive through ``put_resource`` as per-partition lists of port
-batches.
+batches. ``init_memory`` sets the process's device-memory budget at
+session setup (``MemManager.init``); every task unregisters its memory
+consumers on every path out (``runtime/task.py``).
 """
 
 from __future__ import annotations
@@ -17,12 +19,22 @@ import threading
 from typing import Any
 
 from auron_tpu_torch.columnar.batch import Batch
+from auron_tpu_torch.memory.memmgr import MemManager
 from auron_tpu_torch.runtime.task import TaskRuntime
+from auron_tpu_torch.utils.config import Configuration, conf_scope
 
 _lock = threading.Lock()
 _resources: dict[str, Any] = {}
 _runtimes: dict[int, TaskRuntime] = {}
 _next_handle = itertools.count(1)
+
+
+def init_memory(budget_bytes: int | None = None, conf: dict | None = None) -> MemManager:
+    """Session setup: a fresh process memory manager, its budget
+    ``budget_bytes`` (else ``memory.hbm.budget.bytes``, 0 = auto) times
+    ``memory.fraction``, with the other ``memory.*`` keys of ``conf``."""
+    with conf_scope(Configuration(conf or {})):
+        return MemManager.init(budget_bytes)
 
 
 def put_resource(key: str, value: Any) -> None:

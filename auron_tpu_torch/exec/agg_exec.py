@@ -16,14 +16,23 @@ slice runs:
   full-word sort otherwise — ops/segments.py), reduce to an intermediate
   batch, stage, and merge staged intermediates by the same reduction.
 
+Memory (reference ``agg_exec.py:381-689, 1451-1600``): the generic path's
+state is ``_AggTableConsumer``, registered with the memory manager, which
+``acquire``s each staged intermediate's bytes; under pressure it merges its
+state and parks it as an encoded run in host RAM (demoted to disk when the
+host ledger fills), and the end of the stream merges every parked run back
+on the device. Partial-agg skipping never engages once a run is parked.
+The dense table registers unspillable. Left out: the ``obs`` spill spans.
+
 Spark typing: sum(int*) -> long (wrapping), sum(float*) -> double,
 avg -> double, count -> long (never null). Decimal, wide-decimal, collect,
-first and UDAF aggregates, spill and the probe/scatter path wait for later
+first and UDAF aggregates and the probe/scatter path wait for later
 slices; the constructor rejects them.
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Iterator
 
@@ -35,8 +44,10 @@ from auron_tpu_torch.columnar.batch import (
 )
 from auron_tpu_torch.exec.base import ExecOperator, ExecutionContext
 from auron_tpu_torch.exec.basic import batch_from_columns
+from auron_tpu_torch.exec.sort_exec import batch_nbytes
 from auron_tpu_torch.exprs import ir
 from auron_tpu_torch.exprs.eval import ColumnVal, Evaluator
+from auron_tpu_torch.memory import memmgr
 from auron_tpu_torch.ops import bitonic
 from auron_tpu_torch.ops import segments as S
 from auron_tpu_torch.utils.config import (
@@ -183,15 +194,22 @@ class HashAggExec(ExecOperator):
         skip_ratio = conf.get(PARTIAL_AGG_SKIPPING_RATIO)
         skip_min_rows = conf.get(PARTIAL_AGG_SKIPPING_MIN_ROWS)
         merge_threshold = max(ctx.batch_size() * 4, 1 << 15)
-        state: list[Batch] = []
-        staged: list[Batch] = []
-        staged_rows = 0
         seen_rows = seen_groups = 0
         skipping = False
-        dense = _DenseAggState(self, conf) if self._dense_eligible() else None
+        table = _AggTableConsumer(self, ctx)
+        mm = memmgr.register(ctx, table)
+        # the dense table has a fixed footprint: registered unspillable, its
+        # bytes shrink the pool the spillable consumers share
+        dense = _DenseAggState(self, ctx) if self._dense_eligible() else None
+        if dense is not None:
+            memmgr.register(ctx, dense, spillable=False)
+
+        def stage(inter: Batch, g: int) -> None:
+            mm.acquire(table, batch_nbytes(inter))
+            table.add(inter, g)
 
         def process_generic(b):
-            nonlocal staged_rows, seen_rows, seen_groups, skipping, state, staged
+            nonlocal seen_rows, seen_groups, skipping
             n = b.num_rows()
             if n == 0:
                 return
@@ -206,50 +224,56 @@ class HashAggExec(ExecOperator):
             if skipping:
                 yield inter
                 return
+            # a parked run holds groups the stream has not seen again:
+            # skipping never engages once the table spilled
             if skipping_enabled and seen_rows >= skip_min_rows and \
-                    seen_groups >= skip_ratio * seen_rows:
+                    seen_groups >= skip_ratio * seen_rows and not table.parked:
                 ctx.metrics.add("partial_agg_skipped", 1)
                 skipping = True
-                yield from state + staged
-                state, staged = [], []
+                yield from table.drain()
                 yield inter
                 return
-            staged.append(inter)
-            staged_rows += g
-            state_cap = sum(s.capacity for s in state)
-            if staged_rows >= max(merge_threshold, state_cap):
+            stage(inter, g)
+            if table.staged_rows >= max(merge_threshold, table.state_capacity()):
                 with ctx.metrics.timer("merge_time"):
-                    merged = self._merge(state + staged, conf=conf)
-                state, staged, staged_rows = [merged], [], 0
+                    table.compact()
                 ctx.metrics.add("num_merges", 1)
 
         def drain_dense():
             sb = dense.state_batch()
             if sb is not None:
-                staged.append(sb)
+                stage(sb, 0)
 
-        for b in self.child_stream(0, partition, ctx):
-            ctx.check_cancelled()
-            if dense is not None:
-                with ctx.metrics.timer("elapsed_compute", count=True):
-                    r = dense.update(b)
-                    if r == "restart":
-                        drain_dense()
-                        dense.reset()
+        try:
+            for b in self.child_stream(0, partition, ctx):
+                ctx.check_cancelled()
+                if dense is not None:
+                    with ctx.metrics.timer("elapsed_compute", count=True):
                         r = dense.update(b)
-                if r is True:
-                    continue
-                # the union range can never fit: generic path from here on
+                        if r == "restart":
+                            drain_dense()
+                            dense.reset()
+                            r = dense.update(b)
+                    if r is True:
+                        continue
+                    # the union range can never fit: generic path from here on
+                    drain_dense()
+                    mm.unregister(dense)
+                    dense.release()
+                    dense = None
+                    skipping_enabled = False
+                yield from process_generic(b)
+            if dense is not None:
                 drain_dense()
-                dense = None
-                skipping_enabled = False
-            yield from process_generic(b)
-        if dense is not None:
-            drain_dense()
+        finally:
+            if dense is not None:
+                mm.unregister(dense)
+                dense.release()
+            mm.unregister(table)
         if skipping:
             return
         with ctx.metrics.timer("merge_time"):
-            out = self._merge(state + staged, final=self.mode == FINAL, conf=conf)
+            out = table.collect_state()
         if out is None:
             if self.n_keys == 0:
                 yield self._empty_global_agg(ctx.device)
@@ -391,6 +415,107 @@ class HashAggExec(ExecOperator):
         return Batch(schema, out.device, out.dicts)
 
 
+class _AggTableConsumer:
+    """The generic path's spillable state (reference ``agg_exec.py:1451``):
+    ``staged`` intermediates and the merged ``state`` on the device, and
+    ``parked`` runs the spills wrote to host RAM (demoted to disk under
+    ledger pressure), merged back at the end. The manager may spill it from
+    another task's thread; the lock order is manager, then this lock."""
+
+    def __init__(self, exec_: HashAggExec, ctx: ExecutionContext):
+        self.name = f"agg-{id(exec_):x}"
+        self.exec = exec_
+        self.ctx = ctx
+        self.state: Batch | None = None
+        self.staged: list[Batch] = []
+        self.staged_rows = 0
+        self._staged_bytes = 0
+        self._state_bytes = 0
+        #: (spill container, device, fingerprint-collision flag or None)
+        self.parked: list[tuple] = []
+        self._lock = threading.RLock()
+
+    def add(self, inter: Batch, groups: int) -> None:
+        with self._lock:
+            self.staged.append(inter)
+            self.staged_rows += groups
+            self._staged_bytes += batch_nbytes(inter)
+
+    def state_capacity(self) -> int:
+        with self._lock:
+            return self.state.capacity if self.state is not None else 0
+
+    def compact(self) -> None:
+        with self._lock:
+            parts = ([self.state] if self.state is not None else []) + self.staged
+            self.state = self.exec._merge(parts, conf=self.ctx.conf)
+            self.staged, self.staged_rows, self._staged_bytes = [], 0, 0
+            self._state_bytes = batch_nbytes(self.state) if self.state is not None else 0
+
+    def mem_used(self) -> int:
+        # kept incrementally: the manager polls every consumer on each acquire
+        with self._lock:
+            return self._staged_bytes + self._state_bytes
+
+    def spill(self) -> int:
+        """Merge everything into the state and park it as an encoded run."""
+        with self._lock:
+            freed = self.mem_used()
+            if freed == 0:
+                return 0
+            with self.ctx.metrics.timer("spill_time"):
+                self.compact()
+                if self.state is not None:
+                    ds = memmgr.make_spill(conf=self.ctx.conf)
+                    try:
+                        ds.write_batch(self.state)
+                    except BaseException:
+                        ds.release()  # a failed park must not strand ledger bytes
+                        raise
+                    self.parked.append((ds, self.state.torch_device,
+                                        getattr(self.state, "_fp_collision", None)))
+            self.ctx.metrics.add("spilled_aggs", 1)
+            self.state, self._state_bytes = None, 0
+            return freed
+
+    def _read_parked(self, parked: list[tuple]) -> Iterator[Batch]:
+        for ds, device, collided in parked:
+            for b in ds.read_batches(self.exec.inter_schema, device):
+                b._fp_collision = collided
+                yield b
+            ds.release()
+
+    def _take(self) -> tuple[list[Batch], list[tuple]]:
+        """State first (compact()'s part order), then staged; and the parked runs."""
+        with self._lock:
+            parts = ([self.state] if self.state is not None else []) + self.staged
+            parked = self.parked
+            self.staged, self.staged_rows, self.state, self.parked = [], 0, None, []
+            self._staged_bytes = self._state_bytes = 0
+        return parts, parked
+
+    def drain(self) -> Iterator[Batch]:
+        """Every part unmerged (the partial-skip path), parked runs read back."""
+        parts, parked = self._take()
+        yield from parts
+        yield from self._read_parked(parked)
+
+    def collect_state(self) -> Batch | None:
+        """State, staged and parked runs merged into the final state (a
+        FINAL merge dedups fingerprint collisions by the full-word sort)."""
+        parts, parked = self._take()
+        parts.extend(self._read_parked(parked))
+        if not parts:
+            return None
+        return self.exec._merge(parts, final=self.exec.mode == FINAL, conf=self.ctx.conf)
+
+    def release(self) -> None:
+        """Drop the state and release the parked runs (every path out)."""
+        _, parked = self._take()
+        for ds, _, _ in parked:
+            ds.release()
+
+
 def _slice_keep(b: Batch, cap: int) -> Batch:
     """prefix_slice carrying the fingerprint-collision flag."""
     out = prefix_slice(b, cap)
@@ -474,7 +599,8 @@ class _DenseAggState:
 
     LIMIT = 1 << 21  # max slots (product of per-key dims)
 
-    def __init__(self, exec_: HashAggExec, conf):
+    def __init__(self, exec_: HashAggExec, ctx: ExecutionContext):
+        self.name = f"dense-agg-{id(exec_):x}"
         self.exec = exec_
         self.bases: list[int] | None = None
         self.dims: tuple[int, ...] | None = None
@@ -484,6 +610,18 @@ class _DenseAggState:
         self.present = None
         self._hint: list | None = None
         self._raw = exec_.mode == PARTIAL
+
+    def mem_used(self) -> int:
+        if self.vals is None:
+            return 0
+        return (self.present.numel() * 4 + sum(v.numel() * v.element_size() for v in self.vals)
+                + sum(m.numel() * 4 for m in self.valids if m is not None))
+
+    def spill(self) -> int:
+        return 0  # unspillable (fixed footprint); drained at stream end
+
+    def release(self) -> None:
+        self.vals = self.valids = self.present = None
 
     def reset(self) -> None:
         """Forget the table after a drain; its covered range survives as a

@@ -36,6 +36,10 @@ class ExecutionContext:
     #: places outputs that have no input, e.g. a global aggregate of nothing)
     device: str = "cuda"
     _cancelled: threading.Event = field(default_factory=threading.Event)
+    #: (manager, consumer) pairs the task's operators registered
+    #: (memory/memmgr.py ``register``), shared by every context of a task
+    consumers: list = field(default_factory=list)
+    consumers_lock: threading.Lock = field(default_factory=threading.Lock)
 
     def cancel(self) -> None:
         self._cancelled.set()
@@ -94,6 +98,8 @@ class ExecOperator:
             shared=ctx.shared,
             device=ctx.device,
             _cancelled=ctx._cancelled,
+            consumers=ctx.consumers,
+            consumers_lock=ctx.consumers_lock,
         )
         child_ctx.metrics.name = self.children[i].name
         return self.children[i].execute(partition, child_ctx)

@@ -18,14 +18,23 @@ The commit is atomic per attempt (``writer.py:90-130``): data and index
 go to attempt temp files, the data file gets the 16-byte pair trailer, the
 index the same tag, and both are renamed into place.
 
-Not ported yet: staging spill through ``MemManager`` (``memory/memmgr.py``
-is long-tail work, so staged blocks stay in RAM until the commit), the RSS
-writer, and v1 (Arrow IPC) blocks.
+The staging is a spillable memory consumer (``writer.py:68-87,149-244``):
+the writer ``acquire``s each batch's staged bytes, and a spill encodes
+every partition's staged chunks, then parks all encoded blocks in one
+``.shuffle.spill`` temp file with per-partition spans. The commit writes a
+partition's spilled blocks first (oldest spill first), then its resident
+ones, so each partition's bytes stay contiguous. The files go on every
+path out of the task, and a released staging never spills again.
+
+Not ported yet: the RSS writer, v1 (Arrow IPC) blocks, and the ``obs``
+spill spans.
 """
 
 from __future__ import annotations
 
 import os
+import tempfile
+import threading
 import uuid
 from typing import Iterator
 
@@ -40,6 +49,7 @@ from auron_tpu_torch.exec.shuffle.format import (
     write_index,
 )
 from auron_tpu_torch.exec.shuffle.partitioning import Partitioning
+from auron_tpu_torch.memory import memmgr
 from auron_tpu_torch.utils.config import SHUFFLE_COMPRESSION_TARGET_BUF_SIZE
 
 
@@ -61,44 +71,59 @@ class ShuffleWriterExec(ExecOperator):
         warn_unavailable_codec(ctx.conf)
         n_out = self.partitioning.num_partitions
         staging = _ShuffleStaging(n_out, self.schema, ctx)
-        for parts in partitioned_stream(self.child_stream(0, partition, ctx),
-                                        self.partitioning, ctx):
-            staging.add_all(parts)
-        offsets = [0]
-        with ctx.metrics.timer("write_time"):
-            attempt = uuid.uuid4()
-            suffix = f".attempt-{attempt.hex[:8]}"
-            pair_tag = attempt.int & ((1 << 64) - 1)
-            tmp_data, tmp_index = self.data_file + suffix, self.index_file + suffix
-            committed = False
-            try:
-                with open(tmp_data, "wb") as f:
-                    for pid in range(n_out):
-                        for blk in staging.blocks_of(pid):
-                            f.write(blk)
-                        offsets.append(f.tell())
-                    f.write(data_trailer(pair_tag))
-                write_index(tmp_index, offsets, pair_tag=pair_tag)
-                os.replace(tmp_data, self.data_file)
-                os.replace(tmp_index, self.index_file)
-                committed = True
-            finally:
-                if not committed:
-                    for p in (tmp_data, tmp_index):
-                        try:
-                            os.unlink(p)
-                        except OSError:
-                            pass
+        mm = memmgr.register(ctx, staging)
+        try:
+            for parts in partitioned_stream(self.child_stream(0, partition, ctx),
+                                            self.partitioning, ctx):
+                mm.acquire(staging, sum(_chunk_bytes(cols) for _, cols in parts))
+                staging.add_all(parts)
+            offsets = [0]
+            with ctx.metrics.timer("write_time"):
+                attempt = uuid.uuid4()
+                suffix = f".attempt-{attempt.hex[:8]}"
+                pair_tag = attempt.int & ((1 << 64) - 1)
+                tmp_data, tmp_index = self.data_file + suffix, self.index_file + suffix
+                committed = False
+                try:
+                    with open(tmp_data, "wb") as f:
+                        for pid in range(n_out):
+                            for blk in staging.blocks_of(pid):
+                                f.write(blk)
+                            offsets.append(f.tell())
+                        f.write(data_trailer(pair_tag))
+                    write_index(tmp_index, offsets, pair_tag=pair_tag)
+                    os.replace(tmp_data, self.data_file)
+                    os.replace(tmp_index, self.index_file)
+                    committed = True
+                finally:
+                    if not committed:
+                        for p in (tmp_data, tmp_index):
+                            try:
+                                os.unlink(p)
+                            except OSError:
+                                pass
+        finally:
+            mm.unregister(staging)
+            staging.release()
         ctx.metrics.add("data_size", offsets[-1])
         return
         yield  # pragma: no cover — a generator with no items
 
 
+def _chunk_bytes(cols) -> int:
+    """Host bytes of one staged chunk: value planes plus packed validity."""
+    return sum(v.nbytes + (0 if m is None else (len(m) + 7) // 8) for v, m in cols)
+
+
 class _ShuffleStaging:
-    """Per-partition host staging: ``staged`` raw column chunks awaiting an
-    encode, ``regions`` encoded blocks awaiting the commit."""
+    """Per-partition host staging as a spillable memory consumer:
+    ``staged`` raw column chunks awaiting an encode, ``regions`` encoded
+    blocks in RAM, ``_spill_files`` (path, per-partition [(offset, length)])
+    blocks a spill parked on disk. The manager may spill it from another
+    task's thread; the lock order is manager, then this lock."""
 
     def __init__(self, n_out: int, schema: T.Schema, ctx: ExecutionContext):
+        self.name = f"shuffle-staging-{id(self):x}"
         self.n_out = n_out
         self.schema = schema
         self.ctx = ctx
@@ -106,16 +131,21 @@ class _ShuffleStaging:
         self.staged: list[list[list]] = [[] for _ in range(n_out)]
         self.staged_bytes = [0] * n_out
         self.regions: list[list[bytes]] = [[] for _ in range(n_out)]
+        self._region_bytes = 0
+        self._closed = False
+        self._spill_files: list[tuple[str, list[list[tuple[int, int]]]]] = []
+        self._lock = threading.RLock()
 
     def add_all(self, parts) -> None:
-        for pid, cols in parts:
-            self.staged[pid].append(cols)
-            self.staged_bytes[pid] += sum(
-                v.nbytes + (0 if m is None else (len(m) + 7) // 8) for v, m in cols)
-            if self.staged_bytes[pid] >= self.target:
-                self._flush(pid)
+        with self._lock:
+            for pid, cols in parts:
+                self.staged[pid].append(cols)
+                self.staged_bytes[pid] += _chunk_bytes(cols)
+                if self.staged_bytes[pid] >= self.target:
+                    self._flush(pid)
 
     def _flush(self, pid: int) -> None:
+        """Encode a partition's staged chunks into one block (lock held)."""
         chunks = self.staged[pid]
         if not chunks:
             return
@@ -136,12 +166,72 @@ class _ShuffleStaging:
         self.ctx.metrics.add("shuffle_bytes_raw", self.staged_bytes[pid])
         self.ctx.metrics.add("shuffle_bytes_written", len(blk))
         self.regions[pid].append(blk)
+        self._region_bytes += len(blk)
         self.staged[pid], self.staged_bytes[pid] = [], 0
 
+    def mem_used(self) -> int:
+        with self._lock:
+            return sum(self.staged_bytes) + self._region_bytes
+
+    def spill(self) -> int:
+        """Encode every staged chunk, park every resident block on disk."""
+        with self._lock:
+            # a released staging never spills: the file would outlive the task
+            if self._closed:
+                return 0
+            freed = self.mem_used()
+            if freed == 0:
+                return 0
+            with self.ctx.metrics.timer("spill_time"):
+                for pid in range(self.n_out):
+                    self._flush(pid)
+                fd, path = tempfile.mkstemp(suffix=".shuffle.spill")
+                spans: list[list[tuple[int, int]]] = []
+                try:
+                    with os.fdopen(fd, "wb") as f:
+                        for pid in range(self.n_out):
+                            pid_spans = []
+                            for blk in self.regions[pid]:
+                                pid_spans.append((f.tell(), len(blk)))
+                                f.write(blk)
+                            spans.append(pid_spans)
+                except BaseException:
+                    os.unlink(path)  # a failed write leaves no file; it raises
+                    raise
+                self._spill_files.append((path, spans))
+                memmgr.count_spill(disk_bytes=self._region_bytes)
+                self.regions = [[] for _ in range(self.n_out)]
+                self._region_bytes = 0
+            self.ctx.metrics.add("spilled_shuffle_runs", 1)
+            return freed
+
     def blocks_of(self, pid: int) -> list[bytes]:
-        """All of a partition's blocks, after a final flush of leftovers."""
-        self._flush(pid)
-        return self.regions[pid]
+        """A partition's blocks: spilled runs first (oldest first), then the
+        resident ones, after a final flush of its staged chunks."""
+        with self._lock:
+            self._flush(pid)
+            out: list[bytes] = []
+            for path, spans in self._spill_files:
+                with open(path, "rb") as f:
+                    for off, ln in spans[pid]:
+                        f.seek(off)
+                        out.append(f.read(ln))
+            out.extend(self.regions[pid])
+            return out
+
+    def release(self) -> None:
+        """Delete the spill files; no spill after this."""
+        with self._lock:
+            files, self._spill_files = self._spill_files, []
+            self._closed = True
+            self.staged = [[] for _ in range(self.n_out)]
+            self.regions = [[] for _ in range(self.n_out)]
+            self.staged_bytes, self._region_bytes = [0] * self.n_out, 0
+        for path, _ in files:
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
 
 
 # ---------------------------------------------------------------------------

@@ -43,6 +43,7 @@ Map tasks run one after another (the JAX package runs them on threads).
 
 from __future__ import annotations
 
+import contextlib
 import os
 import shutil
 import tempfile
@@ -55,7 +56,7 @@ from auron_tpu_torch import types as T
 from auron_tpu_torch.columnar.batch import Batch
 from auron_tpu_torch.exprs.ir import BinaryOp, Case, Cast, In, Like, Literal, col, lit
 from auron_tpu_torch.ops.sortkeys import SortSpec
-from auron_tpu_torch.utils.config import Configuration
+from auron_tpu_torch.utils.config import Configuration, conf_scope
 
 
 @dataclass
@@ -284,8 +285,41 @@ def _shuffle_stage(plan, out_schema: T.Schema, key_cols: list[int], n_map: int, 
 
 
 #: operator counters ``add_timers`` also sums: batches folded into a dense
-#: aggregate table, the generic path's merges and partial-skip switches
-COUNTERS = ("elapsed_compute_n", "num_merges", "partial_agg_skipped")
+#: aggregate table, the generic path's merges and partial-skip switches,
+#: and the spills: sort runs, aggregate states, shuffle staging runs
+COUNTERS = ("elapsed_compute_n", "num_merges", "partial_agg_skipped", "spilled_runs",
+            "spilled_aggs", "spilled_shuffle_runs")
+
+
+@contextlib.contextmanager
+def memory_scope(conf: Configuration, stats: dict | None):
+    """The run's memory manager: a fresh one built under ``conf`` when it
+    sets any ``memory.*`` key (the process manager comes back after the
+    run), else the process manager. ``stats["memory"]`` gets the run's
+    budget, the manager's spills and waits, and what the spill containers
+    parked (``memmgr.SPILL_STATS``: bytes on host and on disk, demotions)."""
+    from auron_tpu_torch.memory.memmgr import SPILL_STATS, MemManager
+
+    scoped = any(k.startswith("memory.") for k in conf.keys())
+    prev = MemManager._instance
+    if scoped:
+        with conf_scope(conf):
+            mm = MemManager.init()
+    else:
+        mm = MemManager.get()
+    spills, waits, parked = mm.num_spills, mm.num_waits, dict(SPILL_STATS)
+    try:
+        yield
+    finally:
+        if scoped:
+            MemManager._instance = prev
+        if stats is not None:
+            mem = stats.setdefault("memory", {"budget_bytes": mm.budget, "num_spills": 0,
+                                              "num_waits": 0, **dict.fromkeys(SPILL_STATS, 0)})
+            mem["num_spills"] += mm.num_spills - spills
+            mem["num_waits"] += mm.num_waits - waits
+            for k, v in SPILL_STATS.items():
+                mem[k] += v - parked[k]
 
 
 def add_timers(stats: dict, snapshot: dict) -> None:
@@ -319,27 +353,29 @@ def _run_stages(stages: list, reduce_plan_of, resources: dict, n_reduce: int, la
     stats = stats if stats is not None else {}
     rids = []
     try:
-        readers = []
-        stage_s = stats.setdefault("stage_s", {})
-        for sid, stage in enumerate(stages, 1):
-            t0 = time.perf_counter()
-            plan, schema, keys, n_map, rid = stage(readers)
-            rids.append(rid)
-            readers.append(_shuffle_stage(plan, schema, keys, n_map, n_reduce, work, rid,
-                                          resources, sid, conf, device, stats))
+        with memory_scope(conf, stats):
+            readers = []
+            stage_s = stats.setdefault("stage_s", {})
+            for sid, stage in enumerate(stages, 1):
+                t0 = time.perf_counter()
+                plan, schema, keys, n_map, rid = stage(readers)
+                rids.append(rid)
+                readers.append(_shuffle_stage(plan, schema, keys, n_map, n_reduce, work, rid,
+                                              resources, sid, conf, device, stats))
+                _sync(device)
+                stage_s[rid] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            reduce_plan = reduce_plan_of(*readers)
+            outs = []
+            for r in range(n_reduce):
+                batches, metrics = run_task(reduce_plan, resources, len(stages) + 1, r, conf,
+                                            device)
+                outs.append(collect(batches, nulls))
+                add_timers(stats, metrics)
             _sync(device)
-            stage_s[rid] = time.perf_counter() - t0
-        t1 = time.perf_counter()
-        reduce_plan = reduce_plan_of(*readers)
-        outs = []
-        for r in range(n_reduce):
-            batches, metrics = run_task(reduce_plan, resources, len(stages) + 1, r, conf, device)
-            outs.append(collect(batches, nulls))
-            add_timers(stats, metrics)
-        _sync(device)
-        stats["map_s"] = sum(stage_s[r] for r in rids)
-        stats["reduce_s"] = time.perf_counter() - t1
-        return outs
+            stats["map_s"] = sum(stage_s[r] for r in rids)
+            stats["reduce_s"] = time.perf_counter() - t1
+            return outs
     finally:
         for rid in rids:
             resources.pop(rid, None)
@@ -1310,16 +1346,18 @@ def _agg2(child, keys: list, aggs: list, final_aggs: list | None = None):
 
 def _tasks(plan, resources: dict, n_tasks: int, conf, device, stats, stage_id: int = 0):
     """Run partitions 0..n_tasks-1 of ``plan``: every task's output batches
-    in order; ``stats`` gets the metric trees' host timers."""
+    in order; ``stats`` gets the metric trees' host timers and the memory
+    manager's counters (``memory_scope``)."""
     from auron_tpu_torch.runtime.task import run_task
 
     out = []
-    for p in range(n_tasks):
-        batches, metrics = run_task(plan, resources, stage_id, p, Configuration(conf or {}),
-                                    device)
-        out += batches
-        if stats is not None:
-            add_timers(stats, metrics)
+    conf = Configuration(conf or {})
+    with memory_scope(conf, stats):
+        for p in range(n_tasks):
+            batches, metrics = run_task(plan, resources, stage_id, p, conf, device)
+            out += batches
+            if stats is not None:
+                add_timers(stats, metrics)
     return out
 
 

@@ -509,6 +509,44 @@ def bitonic_merge(stacked: torch.Tensor, impl: str = "pallas") -> torch.Tensor:
     return _run(stacked, P, impl, merge=True)
 
 
+def merge_sorted_planes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One bitonic merge of two ascending plane stacks ``(NP, na)`` and
+    ``(NP, nb)`` with distinct columns: ``a``, then padding that sorts
+    last, then ``b`` reversed is one bitonic sequence of P =
+    next_pow2(na + nb) (at least 1,024) elements, which the final stage
+    (k = P) sorts. On a CUDA tensor (int32 planes) that is K4,
+    ``kernel_merge_``; on a CPU tensor (int64 carriers) the plain
+    ``_merge_network``. Returns the first na + nb sorted columns."""
+    NP, na = a.shape
+    n = na + b.shape[1]
+    P = max(_next_pow2(n), 8 * _LANES)
+    if a.is_cuda:
+        x = torch.full((NP, P), -1, dtype=torch.int32, device=a.device)
+    elif a.device.type == "cpu":
+        x = torch.full((NP, P), MASK32, dtype=torch.int64)
+    else:
+        raise RuntimeError(f"bitonic merge: unsupported device {a.device}")
+    x[:, :na] = a
+    x[:, P - b.shape[1]:] = b.flip(1)
+    x = kernel_merge_(x) if a.is_cuda else _merge_network(x, P)
+    return x[:, :n]
+
+
+def merge_runs(runs: list[tuple], narrow: tuple, kinds: tuple) -> tuple:
+    """Merge ascending runs of one operand layout, whose last operand is
+    distinct across all runs, into one ascending operand tuple: the runs'
+    planes merge pairwise, in a tree, by ``merge_sorted_planes`` — K4 on
+    CUDA tensors (never the library sort), the plain network on CPU ones."""
+    cuda = runs[0][0].is_cuda
+    split = _split_planes32 if cuda else _split_planes
+    stacks = [torch.stack(split(r, narrow, kinds)) for r in runs]
+    while len(stacks) > 1:
+        merged = [merge_sorted_planes(stacks[i], stacks[i + 1])
+                  for i in range(0, len(stacks) - 1, 2)]
+        stacks = merged + stacks[2 * len(merged):]
+    return (_join_planes32 if cuda else _join_planes)(stacks[0], runs[0], narrow, kinds)
+
+
 def lexsort(operands: tuple, kinds: tuple | None = None) -> torch.Tensor:
     """Stable ascending order (int64 permutation) of an operand tuple,
     operands[0] primary: one stable torch.sort pass per operand, least

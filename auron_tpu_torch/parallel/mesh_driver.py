@@ -59,6 +59,7 @@ from auron_tpu_torch.columnar.batch import (
 )
 from auron_tpu_torch.exec.base import ExecOperator, ExecutionContext
 from auron_tpu_torch.exec.basic import ResourceScanExec
+from auron_tpu_torch.memory.memmgr import release_task_consumers
 from auron_tpu_torch.ops.partition_kernels import partition_histogram
 from auron_tpu_torch.parallel.exchange import pid_exchange_step
 from auron_tpu_torch.parallel.mesh import Mesh
@@ -222,8 +223,11 @@ class MeshQueryDriver:
 
     def _run_partition(self, op: ExecOperator, partition: int, resources: dict) -> list[Batch]:
         ctx = self._ctx(partition, resources)
-        with conf_scope(ctx.conf):
-            return list(op.execute(partition, ctx))
+        try:
+            with conf_scope(ctx.conf):
+                return list(op.execute(partition, ctx))
+        finally:
+            release_task_consumers(ctx)
 
     def _sync(self) -> None:
         if self.mesh.device.type == "cuda":
@@ -364,7 +368,10 @@ class MeshQueryDriver:
         for p in range(n_src):
             ctx = self._ctx(p, resources)
             with conf_scope(ctx.conf):
-                got = list(child.execute(p, ctx))
+                try:
+                    got = list(child.execute(p, ctx))
+                finally:
+                    release_task_consumers(ctx)
                 b = device_concat(got) if got else Batch.empty(schema, device=self.mesh.device)
                 shard_batches.append(b)
                 pids.append(part.partition_ids(b, ctx).to(torch.int32))

@@ -6,7 +6,11 @@ the verbatim ``plan_pb2`` copy) or an already-built exec tree. The runtime
 drives the root operator on a background thread into a bounded queue;
 the consumer pulls batches with ``next_batch``; an error anywhere in the
 operator stream is re-raised on the consumer side; ``finalize`` cancels,
-drains, joins the pump and returns the metric tree.
+drains, joins the pump and returns the metric tree. Whichever way the
+stream ends (its end, an error, a cancel), the pump unregisters every
+memory consumer the task's operators registered and releases their spill
+files (``memmgr.release_task_consumers``); ``finalize`` does so again in
+case the pump never got there.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from auron_tpu_torch.columnar.batch import Batch
 from auron_tpu_torch.device import resolve_device
 from auron_tpu_torch.exec.base import ExecOperator, ExecutionContext, TaskCancelled
 from auron_tpu_torch.exec.metrics import MetricNode
+from auron_tpu_torch.memory.memmgr import release_task_consumers
 from auron_tpu_torch.utils.config import TOKIO_EQUIV_PREFETCH_DEPTH, Configuration, conf_scope
 
 _END = object()
@@ -58,6 +63,7 @@ class TaskRuntime:
         except BaseException as e:  # noqa: BLE001 — relayed to the consumer
             self._error = e
         finally:
+            release_task_consumers(self.ctx)
             self._queue.put(_END)
 
     def _check_error(self) -> None:
@@ -94,6 +100,7 @@ class TaskRuntime:
                 pass
             self._thread.join(timeout=0.05)
             deadline -= 0.05
+        release_task_consumers(self.ctx)
         self._check_error()
         return self.ctx.metrics.snapshot()
 

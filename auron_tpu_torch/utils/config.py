@@ -84,6 +84,10 @@ class Configuration:
     def copy(self) -> "Configuration":
         return Configuration(self._values)
 
+    def keys(self) -> list[str]:
+        """The keys the session set (not defaults or env)."""
+        return list(self._values)
+
 
 _local = threading.local()
 _GLOBAL = Configuration()
@@ -169,10 +173,32 @@ METRICS_ROW_COUNTS = bool_conf(
 TOKIO_EQUIV_PREFETCH_DEPTH = int_conf(
     "runtime.prefetch.depth", 2, "runtime", "batches prefetched by the task pump",
 )
+MEMORY_FRACTION = float_conf(
+    "memory.fraction", 0.6, "memory", "fraction of HBM budget usable by consumers"
+)
+HBM_BUDGET_BYTES = int_conf(
+    "memory.hbm.budget.bytes", 0, "memory",
+    "total device bytes the memory manager may hand out (analog of native "
+    "memory = overhead * fraction, which the reference derives from the "
+    "executor's provisioned memory). 0 = auto: the card's own memory when "
+    "CUDA is available (torch.cuda.get_device_properties().total_memory, "
+    "80 GB on an H100, where the JAX package's auto takes its TPU's 8 GB), "
+    "half of physical RAM otherwise (CPU tensors ARE host memory)",
+)
 SPILL_COMPRESSION_CODEC = str_conf(
     "spill.compression.codec", "lz4", "memory",
     "codec for spill files and shuffle runs (zstd|lz4|none); the port has "
     "no general codec, so a name other than none degrades (warned once)",
+)
+HOST_SPILL_BUDGET_BYTES = int_conf(
+    "memory.host.spill.budget.bytes", 2 << 30, "memory",
+    "host-RAM bytes the spill ledger may keep resident before demoting the "
+    "coldest HostSpills to disk (the host tier of HBM -> RAM -> disk)",
+)
+MEM_WAIT_TIMEOUT_S = float_conf(
+    "memory.wait.timeout.seconds", 10.0, "memory",
+    "how long a below-fair-share consumer waits for siblings to release "
+    "memory before it is forced to spill (auron-memmgr lib.rs WAIT_TIME)",
 )
 SHUFFLE_COMPRESSION_TARGET_BUF_SIZE = int_conf(
     "shuffle.compression.target.buf.size", 4 << 20, "shuffle",

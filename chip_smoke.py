@@ -96,8 +96,9 @@ Phases, in order, none of them caught — any failure exits non-zero:
    each equal to its numpy oracle (keys, counts and order exact, float sums
    and averages at rel 1e-9). The sorts recorded in the warm-up go through
    K3/K4 and the plain network on the card once more, bit for bit (q17's
-   two probe-side sorts at 2^25 slots); the timed run's bitonic launches
-   equal ``sort_plan``'s for them; q17 must launch K3 and K4, q16 (a file
+   two probe-side sorts, in spilled runs of 2^23 rows, and the K4 merges
+   of those runs); the timed run's bitonic launches equal ``sort_plan``'s
+   for them; q17 must launch K3 and K4, q16 (a file
    shuffle on the nullable INT64 customer) K1, and q41 with
    ``exec.agg.incremental.fingerprint`` = off K3 (its full-word grouping
    sort; by default a dictionary-keyed grouping sorts a fingerprint with
@@ -122,8 +123,27 @@ Phases, in order, none of them caught — any failure exits non-zero:
    its tie rule); walls, top host timers, launches, sort shapes, the
    aggregate path, the running sums' largest error and peak device memory
    are printed;
-12. print the kernel table as one JSON line (each kernel's launches summed
-   over the timed runs of phases 4-11, and per run), then the status line.
+12. the spill paths (memory/memmgr.py and its consumers). Under the
+   default conf (the card's memory as the budget) a SortExec spills its
+   pending run at 2^23 live rows: phase 10's q17 sorts 23.04 M rows in
+   runs of 2^23, merged on the card by K4 (each run merge's planes held
+   against the plain network on the card, bit for bit, like the sorts;
+   phases 8-11 record both); phase 8's q72 (build) partitions stay under
+   the threshold. The phase prints their spilled runs, merge time, wall
+   and peak beside their numbers before the spill path. Then three
+   classes under a ``memory.hbm.budget.bytes`` each (SPILL_RUNS): q67
+   (its aggregate parks runs in host RAM, demoted to disk past a 128 MiB
+   host ledger), q72 (build) (its probe-side sort spills by memory) and
+   q93 (every map task's shuffle staging parks blocks in .shuffle.spill
+   files; K1 as often as unbudgeted), each with only its own inputs on
+   the card: a warm-up whose kernel sorts and run merges are checked on
+   the card, one timed run without the budget, then two under it, each
+   equal to the oracle and to the unbudgeted answer, with at least two
+   spills; wall, peak, spill and wait counts, spill counters and timers,
+   host-ledger demotions and the bytes parked on host and disk are
+   printed;
+13. print the kernel table as one JSON line (each kernel's launches summed
+   over the timed runs of phases 4-12, and per run), then the status line.
 
 Each phase prints its seconds.
 
@@ -149,6 +169,8 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 NON_TENSOR_OPS_PER_S = 67e12  # H100 SXM fp32 non-tensor peak (no int32 row in the table)
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+#: oracles of earlier phases, by class, that the spill phase reuses
+ORACLES: dict = {}
 
 
 def _event_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -784,27 +806,33 @@ def run_q42(data, sf: float, t_gen: float) -> dict:
 @contextlib.contextmanager
 def _recording_kernel_sorts(shapes: list):
     """Record the (NP, P) of every sort ``bitonic.kernel_sort_`` runs inside
-    the block."""
+    the block, and (NP, P, True) of every merge ``bitonic.kernel_merge_``
+    runs (the merges of a SortExec's spilled runs): ``sort_plan(*shape)``
+    lists either's launches."""
     from auron_tpu_torch.ops import bitonic
 
-    real = bitonic.kernel_sort_
+    real_sort, real_merge = bitonic.kernel_sort_, bitonic.kernel_merge_
 
-    def recording(x32):
+    def sorting(x32):
         shapes.append(tuple(x32.shape))
-        return real(x32)
+        return real_sort(x32)
 
-    bitonic.kernel_sort_ = recording
+    def merging(x32):
+        shapes.append((*x32.shape, True))
+        return real_merge(x32)
+
+    bitonic.kernel_sort_, bitonic.kernel_merge_ = sorting, merging
     try:
         yield
     finally:
-        bitonic.kernel_sort_ = real
+        bitonic.kernel_sort_, bitonic.kernel_merge_ = real_sort, real_merge
 
 
 def _assert_planned_launches(label: str, shapes: list, launches: dict,
                              sorts: bool = True) -> None:
     """The bitonic launches of a timed run equal what ``sort_plan`` lists
-    for the sorts its warm-up recorded, and there was a sort (none when
-    ``sorts`` is False)."""
+    for the sorts and run merges its warm-up recorded, and there was a
+    sort (none when ``sorts`` is False)."""
     from auron_tpu_torch.ops import bitonic
 
     assert bool(shapes) == sorts, f"{label}: kernel sorts {shapes}, expected any: {sorts}"
@@ -868,6 +896,7 @@ def run_q93(data, fact) -> dict:
     for out in (warm, got):
         _assert_q93(out, oracle)
     assert launches["murmur3_pmod"] > 0, f"q93 main path launched K1 no time: {launches}"
+    ORACLES["q93"] = oracle
     null_rows = stats["partition_rows"][stats["null_partition"]]
     rows = data.fact_rows()
     print(f"q93-class: {rows} fact rows, wall {wall:.4f} s (map stage {stats['map_s']:.4f} s, "
@@ -942,34 +971,75 @@ def _recording_sorts(record: list):
     """Record a copy of the operands of every kernel sort
     (``bitonic.bitonic_sort`` with ``impl="pallas"`` on the card: the
     ``SortExec`` sorts through ``ordered_sort`` and the full-word grouping
-    sorts of an aggregate) made inside the block."""
+    sorts of an aggregate) and of every merge of two sorted runs' planes
+    (``bitonic.merge_sorted_planes`` on the card: a SortExec's spilled runs)
+    made inside the block."""
     from auron_tpu_torch.ops import bitonic
 
-    real = bitonic.bitonic_sort
+    real_sort, real_merge = bitonic.bitonic_sort, bitonic.merge_sorted_planes
 
-    def recording(operands, *, impl="jnp", narrow=None, kinds=None):
+    def sorting(operands, *, impl="jnp", narrow=None, kinds=None):
         if impl == "pallas" and operands[0].is_cuda:
-            record.append((tuple(o.clone() for o in operands), narrow, kinds))
-        return real(operands, impl=impl, narrow=narrow, kinds=kinds)
+            record.append(("sort", tuple(o.clone() for o in operands), narrow, kinds))
+        return real_sort(operands, impl=impl, narrow=narrow, kinds=kinds)
 
-    bitonic.bitonic_sort = recording
+    def merging(a, b):
+        if a.is_cuda:
+            record.append(("merge", a.clone(), b.clone()))
+        return real_merge(a, b)
+
+    bitonic.bitonic_sort, bitonic.merge_sorted_planes = sorting, merging
     try:
         yield
     finally:
-        bitonic.bitonic_sort = real
+        bitonic.bitonic_sort, bitonic.merge_sorted_planes = real_sort, real_merge
+
+
+def _check_merge(label: str, a, b) -> dict:
+    """One recorded run merge once more: K4 (``merge_sorted_planes`` on the
+    int32 planes) against the plain network over the same bitonic sequence
+    on the card, bit for bit, and against the library lexsort."""
+    import torch
+
+    from auron_tpu_torch.ops import bitonic
+    from auron_tpu_torch.ops.uwords import MASK32, u32_of_i32
+
+    NP, n = a.shape[0], a.shape[1] + b.shape[1]
+    P = max(bitonic._next_pow2(n), 8 * bitonic._LANES)
+    before = dict(bitonic.LAUNCHES)
+    got = u32_of_i32(bitonic.merge_sorted_planes(a, b))
+    launched = {k: bitonic.LAUNCHES[k] - before[k] for k in before}
+    x = torch.full((NP, P), MASK32, dtype=torch.int64, device=a.device)
+    x[:, :a.shape[1]] = u32_of_i32(a)
+    x[:, P - b.shape[1]:] = u32_of_i32(b).flip(1)
+    ref = bitonic._merge_network(x, P)[:, :n]
+    cat = torch.cat([u32_of_i32(a), u32_of_i32(b)], dim=1)
+    want = torch.stack(bitonic.lex_sorted(tuple(cat), ("u32",) * NP))
+    assert torch.equal(got, ref) and torch.equal(got, want), ("main-path merge", label)
+    err = int((got - ref).abs().max())
+    shape = {"merge": True, "n": n, "P": P, "NP": NP, "launches": launched, "max_abs_err": err}
+    assert launched == bitonic.sort_plan(NP, P, merge=True).launch_counts(), (label, shape)
+    print(f"kernel check {label} run merge: {a.shape[1]} + {b.shape[1]} rows, P {P}, NP {NP}, "
+          f"kernel launches {launched}: bit-equal to plain and lexsort", flush=True)
+    return shape
 
 
 def check_sorts(label: str, record: list) -> list:
     """K3/K4 at a main path's own sort shapes: each recorded operand tuple,
     sorted by the CUDA kernels and by the plain network on the card, bit
-    for bit, and against the library lexsort. Its launches are not counted."""
+    for bit, and against the library lexsort; each recorded run merge
+    likewise (``_check_merge``). Its launches are not counted."""
     import torch
 
     from auron_tpu_torch.ops import bitonic
 
     saved = dict(bitonic.LAUNCHES)
     out = []
-    for ops, narrow, kinds in record:
+    for kind, *entry in record:
+        if kind == "merge":
+            out.append(_check_merge(label, *entry))
+            continue
+        ops, narrow, kinds = entry
         narrow = narrow if narrow is not None else (False,) * len(ops)
         kinds = kinds if kinds is not None else tuple(bitonic._default_kind(o) for o in ops)
         before = dict(bitonic.LAUNCHES)
@@ -1146,6 +1216,7 @@ def run_gate_classes(data, fact, oracles: dict) -> dict:
         peak = torch.cuda.max_memory_allocated()
         for ans in (warm, got):
             _assert_answer(label, ans, oracles[name])
+        ORACLES[name] = oracles[name]
         _assert_planned_launches(label, shapes, launches, sorts="bitonic_sort" in must)
         assert len(sort_checks) == len(shapes), (label, len(sort_checks), shapes)
         _assert_must_launch(label, launches, must)
@@ -1242,8 +1313,10 @@ def run_tail_classes(data, fact) -> dict:
         top = sorted(stats["timers"].items(), key=lambda kv: -kv[1])[:5]
         out[label] = {"wall_s": wall, "launches": launches, "peak_bytes": peak,
                       "result_rows": rows, "sort_shapes": shapes, "sort_checks": sort_checks,
-                      "top_timers_s": dict(top), **{k: v for k, v in stats.items()
-                                                    if k != "timers"}}
+                      "top_timers_s": dict(top),
+                      "sort_timers_s": {k: v for k, v in stats["timers"].items()
+                                        if k.startswith("SortExec.")},
+                      **{k: v for k, v in stats.items() if k != "timers"}}
     return out
 
 
@@ -1360,6 +1433,7 @@ def run_window_classes(data) -> dict:
                         "max_abs_err"]:
                     err[col] = e
         assert len(sort_checks) == len(shapes), (name, len(sort_checks), shapes)
+        ORACLES[name] = oracles[name]
         must = ("bitonic_sort",) if name in WINDOWED else ()
         if any(s["P"] > 32768 for s in sort_checks):
             must += ("bitonic_merge",)
@@ -1510,6 +1584,142 @@ def run_skew_phase(n: int, n_parts: int = 4) -> dict:
                                           "sort_shapes": shapes, "sort_checks": sort_checks}
     for k in answers[True]:
         assert _np_equal(answers[True][k], answers[False][k]), ("skew split on/off", k)
+    return out
+
+
+#: phase 12: the runs under a memory budget, as (label, class, conf, kernels
+#: the timed runs must launch, the operator counter that must show at least
+#: two spills). q67's partial aggregate parks its state in host RAM, and
+#: past a 128 MiB host ledger the coldest runs demote to disk; q72's
+#: probe-side SortExec (elision build) spills its pending run by memory,
+#: long before the 2^23-row threshold, and merges the runs with K4; each
+#: q93 map task's shuffle staging parks its blocks in .shuffle.spill files
+SPILL_RUNS = (
+    ("q67 (budget)", "q67", {"memory.hbm.budget.bytes": 384 << 20,
+                             "memory.host.spill.budget.bytes": 128 << 20},
+     (), "HashAggExec.spilled_aggs"),
+    ("q72 (build, budget)", "q72", {"auron.smj.elide.sorts": "build",
+                                    "memory.hbm.budget.bytes": 256 << 20},
+     ("murmur3_pmod", "bitonic_sort", "bitonic_merge"), "SortExec.spilled_runs"),
+    ("q93 (budget)", "q93", {"memory.hbm.budget.bytes": 16 << 20},
+     ("murmur3_pmod",), "ShuffleWriterExec.spilled_shuffle_runs"),
+)
+SPILL_TIMED_RUNS = 2
+#: the default-conf runs of phases 8 and 10 whose SortExecs the 2^23-row
+#: threshold may spill, with their numbers before the spill path (PERF.md,
+#: H100 80GB HBM3 at 700 W), printed beside this run's
+SPILL_DEFAULT = {"q72 (build)": "before: wall 6.7-8.1 s, peak 5.65 GiB, K3 4, K4 104",
+                 "q17": "before: wall 0.746-0.949 s, peak 7.507 GiB, K3 2, K4 64"}
+
+
+def _assert_spill_answer(label: str, name: str, got: dict, want: dict) -> None:
+    if name == "q93":
+        _assert_q93(got, want)
+    elif name == "q67":
+        _assert_window_answer(name, got, want)
+    else:
+        _assert_answer(label, got, want)
+
+
+def run_spill_phase(data, gate: dict, tail: dict, q93_k1: int) -> dict:
+    """Phase 12. First the default conf: q72 (build) and q17 from phases 8
+    and 10, their spilled runs, merge time, wall and peak. Then each of
+    SPILL_RUNS with only its own inputs on the card: a warm-up (its kernel
+    sorts and run merges recorded, then run once more by K3/K4 and by the
+    plain network on the card, bit for bit), one timed run without the
+    budget, then SPILL_TIMED_RUNS timed runs under it, each equal to the
+    oracle and to the unbudgeted answer, each with at least two spills,
+    its bitonic launches those ``sort_plan`` lists for the recorded sorts
+    and merges; q93 launches K1 as often as in phase 5."""
+    import torch
+
+    from auron_tpu_torch.models import tpcds
+
+    out: dict = {"default": {}}
+    for label, prev in SPILL_DEFAULT.items():
+        r = gate.get(label) or tail[label]
+        timers = r.get("timers") or r["sort_timers_s"]
+        spilled = r["counters"].get("SortExec.spilled_runs", 0)
+        merges = [s for s in r["sort_shapes"] if len(s) == 3]
+        assert spilled or not merges, (label, spilled, merges)  # runs merge only after a spill
+        d = {"spilled_runs": spilled, "merge_time_s": timers.get("SortExec.merge_time", 0.0),
+             "spill_time_s": timers.get("SortExec.spill_time", 0.0), "wall_s": r["wall_s"],
+             "peak_bytes": r["peak_bytes"], "run_merges": merges, "launches": r["launches"]}
+        out["default"][label] = d
+        print(f"spill (default conf) {label}: spilled runs {spilled}, run merges (NP, P) "
+              f"{[m[:2] for m in merges]}, merge_time {d['merge_time_s']:.4f} s, spill_time "
+              f"{d['spill_time_s']:.4f} s, wall {d['wall_s']:.4f} s, peak "
+              f"{d['peak_bytes'] / 2**30:.3f} GiB, launches {r['launches']} ({prev})", flush=True)
+    assert out["default"]["q17"]["spilled_runs"] >= 2, out["default"]["q17"]
+    for label, name, conf, must, counter in SPILL_RUNS:
+        t0 = time.perf_counter()
+        ingested = (tpcds.ingest_q3(data, 1, device="cuda") if name == "q67" else
+                    getattr(tpcds, f"ingest_{name}")(data, 4, device="cuda"))
+        torch.cuda.synchronize()
+        print(f"{label}: inputs on the card in {time.perf_counter() - t0:.2f} s", flush=True)
+        run = getattr(tpcds, f"run_{name}_class")
+        oracle = ORACLES[name]
+        sorts: list = []
+        shapes: list = []
+        with _recording_sorts(sorts), _recording_kernel_sorts(shapes):
+            warm = run(device="cuda", conf=conf, ingested=ingested)
+        sort_checks = check_sorts(label, sorts)
+        del sorts
+        torch.cuda.empty_cache()
+        runs = []
+        # the class without a budget, then the timed budgeted runs, in one
+        # allocator state and with only this class's inputs resident
+        for k in range(1 + SPILL_TIMED_RUNS):
+            run_conf = ({c: v for c, v in conf.items() if not c.startswith("memory.")}
+                        if k == 0 else conf)
+            _reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            stats: dict = {}
+            t0 = time.perf_counter()
+            got = run(device="cuda", conf=run_conf, ingested=ingested, stats=stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _launches()
+            peak = torch.cuda.max_memory_allocated()
+            mem, counters = stats["memory"], stats["counters"]
+            spill_counters = {c: v for c, v in counters.items() if "spill" in c}
+            if k == 0:
+                unbudgeted = got
+                for ans in (warm, got):
+                    _assert_spill_answer(label, name, ans, oracle)
+                free = {"wall_s": wall, "peak_bytes": peak, "launches": launches,
+                        "spill_counters": spill_counters}
+                print(f"{label} without a budget: wall {wall:.4f} s, peak device memory "
+                      f"{peak / 2**30:.3f} GiB, spill counters {spill_counters}, launches "
+                      f"{launches}", flush=True)
+                continue
+            _assert_spill_answer(label, name, got, oracle)
+            _assert_spill_answer(label, name, got, unbudgeted)
+            assert counters.get(counter, 0) >= 2 and mem["num_spills"] >= 2, (label, counters,
+                                                                               mem)
+            _assert_planned_launches(label, shapes, launches, sorts="bitonic_sort" in must)
+            _assert_must_launch(label, launches, must)
+            if name == "q93":
+                assert launches["murmur3_pmod"] == q93_k1, (label, launches, q93_k1)
+            spill_timers = {t: v for t, v in stats["timers"].items()
+                            if t.endswith(("spill_time", "merge_time"))}
+            runs.append({"wall_s": wall, "peak_bytes": peak, "launches": launches,
+                         "memory": mem, "spill_counters": spill_counters,
+                         "spill_timers_s": spill_timers})
+            print(f"{label}: budget {conf['memory.hbm.budget.bytes']} B (x memory.fraction: "
+                  f"{mem['budget_bytes']} B), wall {wall:.4f} s, peak device memory "
+                  f"{peak / 2**30:.3f} GiB, num_spills {mem['num_spills']}, num_waits "
+                  f"{mem['num_waits']}, spill counters {spill_counters}, spill/merge timers "
+                  f"{({t: round(v, 4) for t, v in spill_timers.items()})} s, host ledger "
+                  f"demotions {mem['demotions']} ({mem['demoted_bytes']} B), bytes parked on "
+                  f"host {mem['host_bytes']}, on disk {mem['disk_bytes']}, kernel sorts and "
+                  f"merges (NP, P[, merge]) {shapes}, launches {launches}", flush=True)
+        assert len(sort_checks) == len(shapes), (label, len(sort_checks), shapes)
+        out[label] = {"conf": conf, "runs": runs, "unbudgeted": free, "wall_s": runs[0]["wall_s"],
+                      "launches": runs[0]["launches"], "sort_shapes": shapes,
+                      "sort_checks": sort_checks}
+        del ingested, warm, got, unbudgeted
     return out
 
 
@@ -1686,14 +1896,20 @@ def main(argv=None) -> int:
         profile_window_classes(data, window)
     phase_done("11")
 
-    # 12. every kernel sort of the main paths, held against the plain network
-    # on the card at its own operands
+    # 12. the spill paths: the row threshold's spills under the default
+    # conf, then q67, q72 (build) and q93 under memory budgets
+    spill = run_spill_phase(data, gate, tail, q93["launches"]["murmur3_pmod"])
+    phase_done("12")
+
+    # 13. every kernel sort and run merge of the main paths, held against the
+    # plain network on the card at its own operands
     checks["main_path_sorts"] = {
         **{f"q3-mesh ({m})": q3_mesh[m]["sort_checks"] for m in q3_mesh},
         **{label: gate[label]["sort_checks"] for label in gate},
         **{f"skew join ({k})": skew[k]["sort_checks"] for k in skew},
         **{label: tail[label]["sort_checks"] for label in tail},
-        **{name: window[name]["sort_checks"] for name in window}}
+        **{name: window[name]["sort_checks"] for name in window},
+        **{label: spill[label]["sort_checks"] for label in spill if label != "default"}}
     sort_err = max(s["max_abs_err"] for v in checks["main_path_sorts"].values() for s in v)
     for name in ("bitonic_sort", "bitonic_merge"):
         checks["max_abs_err"][name] = max(checks["max_abs_err"][name], sort_err)
@@ -1708,7 +1924,8 @@ def main(argv=None) -> int:
              **{f"q72-mesh ({m})": q72_mesh[m]["launches"] for m in q72_mesh},
              **{f"skew join ({k})": skew[k]["launches"] for k in skew},
              **{label: tail[label]["launches"] for label in tail},
-             **{name: window[name]["launches"] for name in window}}
+             **{name: window[name]["launches"] for name in window},
+             **{label: spill[label]["launches"] for label in spill if label != "default"}}
     kernels = []
     for name, source, replaces in (
         ("bitonic_sort", "auron_tpu_torch/csrc/bitonic.cu", "auron_tpu/ops/bitonic.py:145"),
@@ -1735,9 +1952,9 @@ def main(argv=None) -> int:
         json.dump({"device": kind, "nvidia_smi": smi, "build_s": build_s, "checks": checks,
                    "timing": timing, "q42": q42, "q93": q93, "q3": q3, "q93_mesh": q93_mesh,
                    "q3_mesh": q3_mesh, "gate": gate, "q72_mesh": q72_mesh, "skew": skew,
-                   "tail": tail, "window": window, "phase_s": phase_s, "kernels": kernels},
-                  f, indent=1)
-    phase_done("12")
+                   "tail": tail, "window": window, "spill": spill, "phase_s": phase_s,
+                   "kernels": kernels}, f, indent=1)
+    phase_done("13")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -6,6 +6,10 @@ on a machine without JAX. There, skip the JAX-importing conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import contextlib
+import glob
+import tempfile
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +21,27 @@ from auron_tpu_torch.ops import partition_kernels as pk
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+
+
+@contextlib.contextmanager
+def _recording_kernel_shapes(shapes: list):
+    """(NP, P) of each kernel sort and (NP, P, True) of each kernel merge of
+    spilled runs inside the block: ``pb.sort_plan(*shape)`` lists its launches."""
+    real_sort, real_merge = pb.kernel_sort_, pb.kernel_merge_
+
+    def sorting(x32):
+        shapes.append(tuple(x32.shape))
+        return real_sort(x32)
+
+    def merging(x32):
+        shapes.append((*x32.shape, True))
+        return real_merge(x32)
+
+    pb.kernel_sort_, pb.kernel_merge_ = sorting, merging
+    try:
+        yield
+    finally:
+        pb.kernel_sort_, pb.kernel_merge_ = real_sort, real_merge
 
 
 def _planes(rng, NP, P, tie_range):
@@ -292,24 +317,16 @@ def test_gate_classes_on_card_go_through_the_kernels():
                        ("q95", None), ("q18", None), ("q14", None), ("q65", None),
                        ("q5", None)):
         shapes = []
-        real = pb.kernel_sort_
-
-        def recording(x32):
-            shapes.append(tuple(x32.shape))
-            return real(x32)
-
         before = {**pb.LAUNCHES, **pk.LAUNCHES}
-        pb.kernel_sort_ = recording
-        try:
+        with _recording_kernel_shapes(shapes):
             got = getattr(tpcds, f"run_{name}_class")(data, conf=conf)
-        finally:
-            pb.kernel_sort_ = real
         launched = {k: v - before[k] for k, v in {**pb.LAUNCHES, **pk.LAUNCHES}.items()}
         _assert_answer(got, getattr(tpcds, f"{name}_class_oracle")(data))
+        # the sorts' launches plus those of any merge of spilled runs
         planned = {k: sum(pb.sort_plan(*s).launch_counts()[k] for s in shapes)
                    for k in pb.LAUNCHES}
         assert {k: launched[k] for k in pb.LAUNCHES} == planned, (name, conf, shapes)
-        assert bool(shapes) == (conf is not None), (name, conf, shapes)
+        assert any(len(s) == 2 for s in shapes) == (conf is not None), (name, conf, shapes)
         assert (launched["murmur3_pmod"] > 0) == (name not in ("q18", "q14")), (name, launched)
 
 
@@ -386,3 +403,158 @@ def test_window_on_card_matches_its_cpu_run():
             assert (np.abs(got - want)[want_ok] <= bound[want_ok]).all(), name
         else:
             np.testing.assert_array_equal(got[want_ok], want[want_ok], err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# spills (memory/memmgr.py and its consumers)
+# ---------------------------------------------------------------------------
+
+
+def _spill_batches(device, n_batches=6, n=20_000, seed=5):
+    from auron_tpu_torch import types as T
+    from auron_tpu_torch.columnar.batch import Batch
+
+    rng = np.random.default_rng(seed)
+    schema = T.Schema((T.Field("k", T.INT64), T.Field("v", T.FLOAT64), T.Field("r", T.INT64)))
+    out = []
+    for i in range(n_batches):
+        cols = [rng.integers(0, 2000, n) * 1_000_003, np.round(rng.normal(size=n), 3),
+                np.arange(i * n, (i + 1) * n, dtype=np.int64)]
+        out.append(Batch.from_numpy(cols, schema, [None, rng.random(n) > 0.1, None],
+                                    device=device))
+    return schema, out
+
+
+@pytest.mark.cuda
+def test_spilled_sort_merges_runs_on_card():
+    """A SortExec whose runs spill (ties everywhere) gives its CPU run's rows
+    on the card; each run merge goes through K4, bit-equal to the plain
+    network on the same bitonic sequence, with sort_plan's launches."""
+    _need_card()
+    from auron_tpu_torch.exec.base import ExecutionContext
+    from auron_tpu_torch.exec.basic import MemoryScanExec
+    from auron_tpu_torch.exec.sort_exec import SortExec
+    from auron_tpu_torch.exprs.ir import col
+    from auron_tpu_torch.ops.sortkeys import SortSpec
+    from auron_tpu_torch.ops.uwords import MASK32, u32_of_i32
+
+    out, merges, shapes = {}, [], []
+    real = pb.merge_sorted_planes
+
+    def recording(a, b):
+        merges.append((a.clone(), b.clone()))
+        return real(a, b)
+
+    for dev in ("cpu", "cuda"):
+        schema, batches = _spill_batches(dev)
+        ctx = ExecutionContext(device=dev)
+        op = SortExec(MemoryScanExec([batches], schema), [col(0)], [SortSpec(asc=False)],
+                      spill_threshold_rows=30_000)
+        before = dict(pb.LAUNCHES)
+        pb.merge_sorted_planes = recording
+        try:
+            with _recording_kernel_shapes(shapes):
+                got = list(op.execute(0, ctx))
+        finally:
+            pb.merge_sorted_planes = real
+        out[dev] = [b.to_numpy() for b in got]
+        assert ctx.metrics.values["spilled_runs"] == 3
+        launched = {k: pb.LAUNCHES[k] - before[k] for k in before}
+    assert len(out["cpu"]) == len(out["cuda"])
+    for c, g in zip(out["cpu"], out["cuda"]):
+        for name in c:
+            np.testing.assert_array_equal(g[name][0], c[name][0], err_msg=name)
+            np.testing.assert_array_equal(g[name][1], c[name][1], err_msg=name)
+    assert [s for s in shapes if len(s) == 3], shapes  # run merges on the card
+    planned = {k: sum(pb.sort_plan(*s).launch_counts()[k] for s in shapes) for k in pb.LAUNCHES}
+    assert launched == planned, (shapes, launched)
+    cuda_merges = [(a, b) for a, b in merges if a.is_cuda]
+    assert len(cuda_merges) == 2
+    for a, b in cuda_merges:
+        n = a.shape[1] + b.shape[1]
+        P = max(pb._next_pow2(n), 1024)
+        x = torch.full((a.shape[0], P), MASK32, dtype=torch.int64, device="cuda")
+        x[:, :a.shape[1]] = u32_of_i32(a)
+        x[:, P - b.shape[1]:] = u32_of_i32(b).flip(1)
+        assert torch.equal(u32_of_i32(pb.merge_sorted_planes(a, b)),
+                           pb._merge_network(x, P)[:, :n])
+
+
+@pytest.mark.cuda
+def test_budgeted_aggregate_on_card_matches_its_cpu_run():
+    """A partial + final aggregate under a budget that parks several runs:
+    the card's groups equal the CPU run's under the same budget (keys and
+    counts exactly, sums at rel 1e-9), and both spilled."""
+    _need_card()
+    from auron_tpu_torch.exec.agg_exec import FINAL, PARTIAL, AggExpr, HashAggExec
+    from auron_tpu_torch.exec.basic import MemoryScanExec
+    from auron_tpu_torch.exprs.ir import col
+    from auron_tpu_torch.memory.memmgr import MemManager
+    from auron_tpu_torch.runtime.task import run_task
+
+    out = {}
+    try:
+        for dev in ("cpu", "cuda"):
+            MemManager.init(budget_bytes=200_000)
+            schema, batches = _spill_batches(dev)
+            aggs = [(AggExpr("sum", col(1)), "s"), (AggExpr("count_star"), "n")]
+            partial = HashAggExec(MemoryScanExec([batches], schema), [(col(0), "k")], aggs,
+                                  PARTIAL)
+            final = HashAggExec(partial, [(col(0), "k")],
+                                [(AggExpr("sum", col(1)), "s"), (AggExpr("count", col(2)), "n")],
+                                FINAL)
+            got, metrics = run_task(final, {}, device=dev)
+            assert metrics["children"][0]["values"]["spilled_aggs"] >= 2, metrics
+            cols = {}
+            for b in got:
+                for name, (v, m) in b.to_numpy().items():
+                    cols.setdefault(name, []).append(np.where(m, v, 0))
+            cols = {k: np.concatenate(v) for k, v in cols.items()}
+            order = np.argsort(cols["k"], kind="stable")
+            out[dev] = {k: v[order] for k, v in cols.items()}
+    finally:
+        MemManager.init()
+    np.testing.assert_array_equal(out["cuda"]["k"], out["cpu"]["k"])
+    np.testing.assert_array_equal(out["cuda"]["n"], out["cpu"]["n"])
+    np.testing.assert_allclose(out["cuda"]["s"], out["cpu"]["s"], rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_no_spill_file_outlives_its_task_on_card(tmp_path, monkeypatch):
+    """Budgeted tasks on the card whose sort, aggregate and shuffle staging
+    spill to disk, one of them cancelled mid-stream: no .spill or
+    .shuffle.spill file is left behind."""
+    _need_card()
+    from auron_tpu_torch.exec.agg_exec import PARTIAL, AggExpr, HashAggExec
+    from auron_tpu_torch.exec.basic import MemoryScanExec
+    from auron_tpu_torch.exec.shuffle.partitioning import HashPartitioning
+    from auron_tpu_torch.exec.shuffle.writer import ShuffleWriterExec
+    from auron_tpu_torch.exec.sort_exec import SortExec
+    from auron_tpu_torch.exprs.ir import col
+    from auron_tpu_torch.memory.memmgr import MemManager
+    from auron_tpu_torch.ops.sortkeys import SortSpec
+    from auron_tpu_torch.runtime.task import TaskRuntime, run_task
+    from auron_tpu_torch.utils.config import Configuration, conf_scope
+
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    conf = Configuration({"memory.host.spill.budget.bytes": 1})  # host spills demote to disk
+    schema, batches = _spill_batches("cuda")
+    scan = MemoryScanExec([batches], schema)
+    try:
+        with conf_scope(conf):
+            MemManager.init(budget_bytes=200_000)
+        _, m = run_task(HashAggExec(scan, [(col(0), "k")], [(AggExpr("sum", col(1)), "s")],
+                                    PARTIAL), {}, conf=conf, device="cuda")
+        assert m["values"]["spilled_aggs"] >= 1
+        _, m = run_task(SortExec(scan, [col(0)], [SortSpec()]), {}, conf=conf, device="cuda")
+        assert m["values"]["spilled_runs"] >= 2
+        writer = ShuffleWriterExec(scan, HashPartitioning([col(0)], 4),
+                                   str(tmp_path / "o.data"), str(tmp_path / "o.index"))
+        _, m = run_task(writer, {}, conf=conf, device="cuda")
+        assert m["values"]["spilled_shuffle_runs"] >= 2
+        rt = TaskRuntime(HashAggExec(scan, [(col(0), "k")], [(AggExpr("sum", col(1)), "s")],
+                                     PARTIAL), conf=conf, device="cuda")
+        rt.finalize()
+    finally:
+        MemManager.init()
+    assert sorted(glob.glob(str(tmp_path / "*spill*"))) == []
