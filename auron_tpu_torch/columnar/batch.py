@@ -357,24 +357,33 @@ def device_concat(batches: Sequence[Batch]) -> Batch:
     return Batch(schema, DeviceBatch(sel, tuple(values), tuple(validity)), tuple(dicts))
 
 
+def compaction_index(sel: torch.Tensor, out_cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(idx[out_cap], sel_out[out_cap]): positions of the live rows, in
+    order, by a cumsum and ``searchsorted`` (``auron_tpu/columnar/batch.py:
+    701``). Static size and no host read: live rows past ``out_cap`` are
+    dropped, and the caller that sized ``out_cap`` by a prediction checks
+    the live count later."""
+    cap = sel.shape[0]
+    pos = torch.cumsum(sel.to(torch.int64), 0)
+    want = torch.arange(1, out_cap + 1, dtype=torch.int64, device=sel.device)
+    idx = torch.searchsorted(pos, want).clamp_(0, max(cap - 1, 0))
+    sel_out = want <= pos[-1]
+    return idx, sel_out
+
+
 def compact_batch(batch: Batch, out_capacity: int) -> Batch:
     """Gather live rows into a dense prefix of ``out_capacity`` slots
-    (must be >= the live count)."""
+    (callers size it at the live count or more; rows past it are dropped)."""
     if out_capacity >= batch.capacity:
         return batch
     dev = batch.device
-    idx = torch.nonzero(dev.sel).flatten()
-    n = idx.shape[0]
-    assert n <= out_capacity, (n, out_capacity)
-    pad = torch.zeros(out_capacity, dtype=idx.dtype, device=idx.device)
-    pad[:n] = idx
-    sel_out = torch.arange(out_capacity, device=idx.device) < n
+    idx, sel_out = compaction_index(dev.sel, out_capacity)
     return Batch(
         batch.schema,
         DeviceBatch(
             sel_out,
-            tuple(v[pad] for v in dev.values),
-            tuple(m[pad] & sel_out for m in dev.validity),
+            tuple(v[idx] for v in dev.values),
+            tuple(m[idx] & sel_out for m in dev.validity),
         ),
         batch.dicts,
     )

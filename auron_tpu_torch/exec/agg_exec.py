@@ -24,6 +24,16 @@ host ledger fills), and the end of the stream merges every parked run back
 on the device. Partial-agg skipping never engages once a run is parked.
 The dense table registers unspillable. Left out: the ``obs`` spill spans.
 
+Host reads (reference ``agg_exec.py:559-660, 2247-2320``): a PARTIAL
+generic path defers each batch's (live, group) counts through the transfer
+window (``exec.agg.partial.defer``), compacting into the selectivity
+predictor's bucket and recomputing a batch whose bucket proved too small;
+the dense table checks each batch's key ranges on the device, folds all or
+nothing, and harvests the flag ``runtime.transfer.window.depth`` batches
+later (a false flag drains, re-anchors and folds the batch again). The
+window's and the pending folds' device state stays accounted to the
+memory manager.
+
 Spark typing: sum(int*) -> long (wrapping), sum(float*) -> double,
 avg -> double, count -> long (never null). Decimal, wide-decimal, collect,
 first and UDAF aggregates and the probe/scatter path wait for later
@@ -33,6 +43,7 @@ slices; the constructor rejects them.
 from __future__ import annotations
 
 import threading
+from collections import deque
 from dataclasses import dataclass
 from typing import Iterator
 
@@ -40,20 +51,24 @@ import torch
 
 from auron_tpu_torch import types as T
 from auron_tpu_torch.columnar.batch import (
-    Batch, bucket_capacity, compact_batch, device_concat, prefix_slice,
+    Batch, bucket_capacity, compact_batch, compaction_bucket, device_concat, prefix_slice,
 )
 from auron_tpu_torch.exec.base import ExecOperator, ExecutionContext
 from auron_tpu_torch.exec.basic import batch_from_columns
+from auron_tpu_torch.exec.selectivity import SelectivityPredictor, predictor_enabled
 from auron_tpu_torch.exec.sort_exec import batch_nbytes
 from auron_tpu_torch.exprs import ir
 from auron_tpu_torch.exprs.eval import ColumnVal, Evaluator
 from auron_tpu_torch.memory import memmgr
 from auron_tpu_torch.ops import bitonic
 from auron_tpu_torch.ops import segments as S
+from auron_tpu_torch.runtime.transfer import (
+    TransferWindow, WindowGuard, blocking_read, harvest, start_host_transfer,
+)
 from auron_tpu_torch.utils.config import (
     AGG_INCREMENTAL_ENABLE, AGG_INCREMENTAL_FINGERPRINT, AGG_INCREMENTAL_FP_BITS,
-    PARTIAL_AGG_SKIPPING_ENABLE, PARTIAL_AGG_SKIPPING_MIN_ROWS,
-    PARTIAL_AGG_SKIPPING_RATIO, active_conf, resolve_tri,
+    AGG_PARTIAL_DEFER, PARTIAL_AGG_SKIPPING_ENABLE, PARTIAL_AGG_SKIPPING_MIN_ROWS,
+    PARTIAL_AGG_SKIPPING_RATIO, TRANSFER_WINDOW_DEPTH, active_conf, resolve_tri,
 )
 
 PARTIAL = "partial"
@@ -190,6 +205,7 @@ class HashAggExec(ExecOperator):
 
     def _execute(self, partition: int, ctx: ExecutionContext) -> Iterator[Batch]:
         conf = ctx.conf
+        metrics = ctx.metrics
         skipping_enabled = self.mode == PARTIAL and conf.get(PARTIAL_AGG_SKIPPING_ENABLE)
         skip_ratio = conf.get(PARTIAL_AGG_SKIPPING_RATIO)
         skip_min_rows = conf.get(PARTIAL_AGG_SKIPPING_MIN_ROWS)
@@ -203,24 +219,22 @@ class HashAggExec(ExecOperator):
         dense = _DenseAggState(self, ctx) if self._dense_eligible() else None
         if dense is not None:
             memmgr.register(ctx, dense, spillable=False)
+        # deferred PARTIAL counts (exec.agg.partial.defer, reference
+        # agg_exec.py:559-660): the generic path's (live, group) read rides
+        # the transfer window, compaction buckets come from the selectivity
+        # predictor, and a truncating mispredict recomputes the reduce from
+        # the still-held batch
+        defer_win = defer_pred = win_guard = None
+        if self.mode == PARTIAL and resolve_tri(conf.get(AGG_PARTIAL_DEFER), True):
+            defer_win = TransferWindow(conf.get(TRANSFER_WINDOW_DEPTH), metrics)
+            defer_pred = SelectivityPredictor(conf) if predictor_enabled(conf) else None
+            win_guard = WindowGuard(f"agg-window-{id(self):x}", defer_win)
+            memmgr.register(ctx, win_guard, spillable=False)
 
-        def stage(inter: Batch, g: int) -> None:
-            mm.acquire(table, batch_nbytes(inter))
-            table.add(inter, g)
-
-        def process_generic(b):
-            nonlocal seen_rows, seen_groups, skipping
-            n = b.num_rows()
-            if n == 0:
-                return
-            if self.mode == PARTIAL and 4 * n <= b.capacity:
-                b = compact_batch(b, bucket_capacity(n))
-            with ctx.metrics.timer("elapsed_compute"):
-                inter = self._to_intermediate(b, conf)
-            g = inter.num_rows()
-            inter = _slice_keep(inter, bucket_capacity(max(g, 1)))
-            seen_rows += n
-            seen_groups += g
+        def stage(inter: Batch, g: int) -> Iterator[Batch]:
+            """Stage one exact-bucket intermediate of ``g`` groups (or pass
+            it through once partial skipping engaged)."""
+            nonlocal skipping
             if skipping:
                 yield inter
                 return
@@ -228,51 +242,150 @@ class HashAggExec(ExecOperator):
             # skipping never engages once the table spilled
             if skipping_enabled and seen_rows >= skip_min_rows and \
                     seen_groups >= skip_ratio * seen_rows and not table.parked:
-                ctx.metrics.add("partial_agg_skipped", 1)
+                metrics.add("partial_agg_skipped", 1)
                 skipping = True
                 yield from table.drain()
                 yield inter
                 return
-            stage(inter, g)
+            mm.acquire(table, batch_nbytes(inter))
+            table.add(inter, g)
             if table.staged_rows >= max(merge_threshold, table.state_capacity()):
-                with ctx.metrics.timer("merge_time"):
+                with metrics.timer("merge_time"):
                     table.compact()
-                ctx.metrics.add("num_merges", 1)
+                metrics.add("num_merges", 1)
+
+        def process_generic(b):
+            """The blocking protocol: the live count, then the group count."""
+            nonlocal seen_rows, seen_groups
+            (n,) = blocking_read(metrics, b.device.num_rows())
+            n = int(n)
+            if n == 0:
+                return
+            if self.mode == PARTIAL and 4 * n <= b.capacity:
+                b = compact_batch(b, bucket_capacity(n))
+            with metrics.timer("elapsed_compute"):
+                inter = self._to_intermediate(b, conf)
+            (g,) = blocking_read(metrics, inter.device.num_rows())
+            g = int(g)
+            seen_rows += n
+            seen_groups += g
+            yield from stage(_slice_keep(inter, bucket_capacity(max(g, 1))), g)
+
+        def dispatch_deferred(b):
+            """Device work only: predicted compaction and the grouped reduce;
+            the (live, group) counts ride the window."""
+            pred_cap = defer_pred.predict(b.capacity) if defer_pred is not None else None
+            used_cap = None
+            bb = b
+            if pred_cap is not None:
+                out_cap = compaction_bucket(pred_cap, b.capacity)
+                if out_cap is not None:
+                    # may drop live rows on a mispredict: resolve_deferred
+                    # sees n > used_cap and recomputes from ``b``
+                    bb = compact_batch(b, out_cap)
+                    used_cap = out_cap
+            with metrics.timer("elapsed_compute"):
+                inter = self._to_intermediate(bb, conf)
+            return ((b.device.num_rows(), inter.device.num_rows()), (b, inter, used_cap),
+                    batch_nbytes(b) + batch_nbytes(inter))
+
+        def resolve_deferred(resolved, state):
+            """Harvest half, k batches behind the dispatch."""
+            nonlocal seen_rows, seen_groups
+            b, inter, used_cap = state
+            n, g = int(resolved[0]), int(resolved[1])
+            if defer_pred is not None:
+                defer_pred.observe(n, predicted=used_cap)
+            if n == 0:
+                return
+            if used_cap is not None and n > used_cap:
+                metrics.add("sel_mispredicts", 1)
+                bb = compact_batch(b, bucket_capacity(n)) if 4 * n <= b.capacity else b
+                with metrics.timer("elapsed_compute"):
+                    inter = self._to_intermediate(bb, conf)
+                (g,) = blocking_read(metrics, inter.device.num_rows())
+                g = int(g)
+            seen_rows += n
+            seen_groups += g
+            yield from stage(_slice_keep(inter, bucket_capacity(max(g, 1))), g)
+
+        def feed_generic(b):
+            if defer_win is None:
+                yield from process_generic(b)
+                return
+            arrays, state, nbytes = dispatch_deferred(b)
+            for resolved, st in defer_win.push(arrays, state, nbytes):
+                yield from resolve_deferred(resolved, st)
 
         def drain_dense():
             sb = dense.state_batch()
             if sb is not None:
-                stage(sb, 0)
+                mm.acquire(table, batch_nbytes(sb))
+                table.add(sb, 0)
+
+        def fold_dense(nb, defer: bool = True) -> list | None:
+            """Fold one batch through the dense table, driving the drain /
+            re-anchor protocol: None when folded (or its fold is in flight),
+            else — after the permanent fallback — the batches the generic
+            path must take instead."""
+            nonlocal dense, skipping_enabled
+            todo = [nb]
+            while todo:
+                cur = todo.pop(0)
+                r = dense.update(cur, defer=defer)
+                if r == "restart":
+                    # ranges outgrew the anchored table: drain it into the
+                    # generic state, re-anchor on the failed batches' union
+                    drain_dense()
+                    todo = dense.reset_with_retry() + [cur] + todo
+                elif r is False:
+                    # the union range can never fit: generic path from here on
+                    drain_dense()
+                    left = dense.take_retry() + [cur] + todo
+                    mm.unregister(dense)
+                    dense.release()
+                    dense = None
+                    skipping_enabled = False
+                    return left
+            return None
 
         try:
             for b in self.child_stream(0, partition, ctx):
                 ctx.check_cancelled()
                 if dense is not None:
-                    with ctx.metrics.timer("elapsed_compute", count=True):
-                        r = dense.update(b)
-                        if r == "restart":
-                            drain_dense()
-                            dense.reset()
-                            r = dense.update(b)
-                    if r is True:
+                    with metrics.timer("elapsed_compute", count=True):
+                        leftovers = fold_dense(b)
+                    for gb in leftovers or ():
+                        yield from feed_generic(gb)
+                    continue
+                yield from feed_generic(b)
+            # end of stream: resolve the dense folds still in flight, then
+            # the deferred counts, in order
+            if dense is not None:
+                for nb in dense.finish_pending():
+                    if dense is None:  # an earlier retry fell back for good
+                        yield from feed_generic(nb)
                         continue
-                    # the union range can never fit: generic path from here on
-                    drain_dense()
-                    mm.unregister(dense)
-                    dense.release()
-                    dense = None
-                    skipping_enabled = False
-                yield from process_generic(b)
+                    with metrics.timer("elapsed_compute"):
+                        leftovers = fold_dense(nb, defer=False)
+                    for gb in leftovers or ():
+                        yield from feed_generic(gb)
             if dense is not None:
                 drain_dense()
+            if defer_win is not None:
+                for resolved, st in defer_win.drain():
+                    yield from resolve_deferred(resolved, st)
         finally:
+            if win_guard is not None:
+                defer_win.clear()
+                mm.unregister(win_guard)
             if dense is not None:
                 mm.unregister(dense)
                 dense.release()
             mm.unregister(table)
         if skipping:
             return
-        with ctx.metrics.timer("merge_time"):
+        with metrics.timer("merge_time"):
             out = table.collect_state()
         if out is None:
             if self.n_keys == 0:
@@ -595,13 +708,21 @@ class _DenseAggState:
     """Dense table for 1-3 packed integer keys. Slot layout: per key,
     offset 0 is its NULL lane and 1..dim-1 its values (base .. base+dim-2);
     slot = sum(offset_i * stride_i). One trailing slot swallows dead rows.
-    One key-range read per batch decides fold vs re-anchor."""
+
+    The anchored fold checks the batch's key ranges on the device and folds
+    all or nothing (reference ``agg_exec.py:2247-2320``): its in-range flag
+    rides the transfer window and is harvested ``depth`` batches later, so
+    the steady state makes no blocking read. A fold that turns out to have
+    been a no-op sends its batch back ("restart": drain, re-anchor on the
+    union range, fold again). The anchor reads the batch's ranges (the
+    first batch and each re-anchor)."""
 
     LIMIT = 1 << 21  # max slots (product of per-key dims)
 
     def __init__(self, exec_: HashAggExec, ctx: ExecutionContext):
         self.name = f"dense-agg-{id(exec_):x}"
         self.exec = exec_
+        self.metrics = ctx.metrics
         self.bases: list[int] | None = None
         self.dims: tuple[int, ...] | None = None
         self.size = 0
@@ -610,11 +731,19 @@ class _DenseAggState:
         self.present = None
         self._hint: list | None = None
         self._raw = exec_.mode == PARTIAL
+        self._depth = max(1, ctx.conf.get(TRANSFER_WINDOW_DEPTH))
+        #: (batch, transfer of its fold flag), oldest first
+        self._pending: deque = deque()
+        self._pending_bytes = 0
+        #: batches whose deferred fold was a no-op, to fold again
+        self._retry: list = []
 
     def mem_used(self) -> int:
+        held = self._pending_bytes
         if self.vals is None:
-            return 0
-        return (self.present.numel() * 4 + sum(v.numel() * v.element_size() for v in self.vals)
+            return held
+        return (held + self.present.numel() * 4
+                + sum(v.numel() * v.element_size() for v in self.vals)
                 + sum(m.numel() * 4 for m in self.valids if m is not None))
 
     def spill(self) -> int:
@@ -622,6 +751,9 @@ class _DenseAggState:
 
     def release(self) -> None:
         self.vals = self.valids = self.present = None
+        self._pending.clear()
+        self._pending_bytes = 0
+        self._retry = []
 
     def reset(self) -> None:
         """Forget the table after a drain; its covered range survives as a
@@ -632,6 +764,33 @@ class _DenseAggState:
         self.bases = self.dims = None
         self.size = 0
         self.vals = self.valids = self.present = None
+
+    def _pop_pending(self):
+        b, tr = self._pending.popleft()
+        self._pending_bytes -= batch_nbytes(b)
+        (ok,) = harvest(tr, self.metrics)
+        return b, bool(ok)
+
+    def finish_pending(self) -> list:
+        """Resolve every fold in flight; the batches that did not fold."""
+        failed = []
+        while self._pending:
+            b, ok = self._pop_pending()
+            if not ok:
+                failed.append(b)
+        return failed
+
+    def take_retry(self) -> list:
+        """The batches to fold again (after a drain and reset) or to route
+        to the generic path, the folds still in flight resolved first."""
+        self._retry.extend(self.finish_pending())
+        r, self._retry = self._retry, []
+        return r
+
+    def reset_with_retry(self) -> list:
+        r = self.take_retry()
+        self.reset()
+        return r
 
     def _anchor(self, mins, maxs) -> bool:
         """Verbatim policy of auron_tpu _DenseAggState._anchor_from_stats."""
@@ -683,34 +842,62 @@ class _DenseAggState:
                     if f.nullable else None)
         self.present = torch.zeros(self.size + 1, dtype=torch.int32, device=device)
 
-    def update(self, b: Batch):
-        """Fold one batch: True (folded), "restart" (outside the anchored
-        table: drain, reset, retry) or False (never fits: fall back)."""
+    def update(self, b: Batch, defer: bool = True):
+        """Fold one batch: True (folded, or its fold in flight), "restart"
+        (a fold fell outside the anchored table: the caller drains, resets
+        and folds ``take_retry()`` and this batch again) or False (the
+        union range can never fit: fall back for good)."""
+        if defer and len(self._pending) >= self._depth:
+            b0, ok0 = self._pop_pending()
+            if not ok0:
+                self._retry.append(b0)
+                return "restart"
+        elif not defer:
+            failed = self.finish_pending()
+            if failed:
+                self._retry.extend(failed)
+                return "restart"
         keys, per_agg = self.exec._keys_and_inputs(b)
         sel = b.device.sel
+        if self.bases is not None:
+            flag = self._fold(keys, per_agg, sel, guard=True)
+            if defer:
+                self._pending.append((b, start_host_transfer(flag)))
+                self._pending_bytes += batch_nbytes(b)
+                return True
+            (ok,) = blocking_read(self.metrics, flag)
+            # a no-op fold: the caller folds this batch again after the reset
+            return True if bool(ok) else "restart"
         imax, imin = torch.iinfo(torch.int64).max, torch.iinfo(torch.int64).min
         parts = [sel.sum()]
         for k in keys:
             ok = sel & k.validity
-            s = k.values.to(torch.int64)
-            parts += [torch.where(ok, s, torch.full_like(s, imax)).min(),
-                      torch.where(ok, s, torch.full_like(s, imin)).max()]
-        stats = torch.stack(parts).tolist()
+            v = k.values.to(torch.int64)
+            parts += [torch.where(ok, v, torch.full_like(v, imax)).min(),
+                      torch.where(ok, v, torch.full_like(v, imin)).max()]
+        (stats,) = blocking_read(self.metrics, torch.stack(parts))
+        stats = stats.tolist()
         if stats[0] == 0:
             return True
-        mins, maxs = stats[1::2], stats[2::2]
-        if self.bases is not None:
-            for mn, mx, base, d in zip(mins, maxs, self.bases, self.dims):
-                if mn <= mx and (d == 1 or mn < base or mx > base + d - 2):
-                    return "restart"
-        elif not self._anchor(mins, maxs):
+        if not self._anchor(stats[1::2], stats[2::2]):
             return False
-        else:
-            self._alloc(sel.device)
+        self._alloc(sel.device)
         self._fold(keys, per_agg, sel)
         return True
 
-    def _fold(self, keys, per_agg, sel) -> None:
+    def _fold(self, keys, per_agg, sel, guard: bool = False):
+        """Scatter one batch into the table. With ``guard`` the fold is all
+        or nothing: a live key outside the table makes it a no-op, and the
+        returned device flag says whether it folded."""
+        flag = None
+        if guard:
+            flag = torch.ones((), dtype=torch.bool, device=sel.device)
+            for k, base, d in zip(keys, self.bases, self.dims):
+                v = k.values.to(torch.int64)
+                hi = min(base + d - 2, (1 << 63) - 1)
+                outside = sel & k.validity & ((v < base) | (v > hi))
+                flag = flag & ~outside.any()
+            sel = sel & flag
         idx = torch.zeros(sel.shape, dtype=torch.int64, device=sel.device)
         stride = 1
         for k, base, d in zip(keys, self.bases, self.dims):
@@ -746,6 +933,7 @@ class _DenseAggState:
                 c = ok.to(torch.int64) if self._raw else ins[1].values.to(torch.int64)
                 self.vals[fi].index_add_(0, idx, torch.where(sel, c, torch.zeros_like(c)))
                 fi += 1
+        return flag
 
     def state_batch(self) -> Batch | None:
         """The table as an intermediate batch compacted to its group bucket."""
@@ -754,7 +942,8 @@ class _DenseAggState:
         ex = self.exec
         size = self.size
         present = self.present[:size] > 0
-        g = int(present.sum().item())
+        (g,) = blocking_read(self.metrics, present.sum())
+        g = int(g)
         if g == 0:
             return None
         slot = torch.arange(size, dtype=torch.int64, device=present.device)

@@ -1,7 +1,7 @@
-"""Equi-join core: build preparation, probes and pair expansion.
+"""Equi-join core: build preparation, probes, pair expansion and the
+build-side marks.
 
-Port of the inner, left-outer, left-semi and left-anti parts of
-``auron_tpu/exec/joins/core.py``:
+Port of ``auron_tpu/exec/joins/core.py`` (all seven join types):
 
 - several integer-like keys whose live ranges fit 63 bits together pack
   into one word (``core.py:266-320``): every later pass is single-word,
@@ -20,7 +20,16 @@ Port of the inner, left-outer, left-semi and left-anti parts of
   one count read per probe batch (core.py:695-860), or, for semi/anti,
   marks the probe rows whose range is not empty (core.py:720-775);
 - a residual join condition narrows each chunk of expanded pairs and
-  recomputes which probe rows matched (``condition_pairs``, core.py:809-823).
+  recomputes which probe rows matched (``condition_pairs``, core.py:809-823);
+- ``PreparedBuild.matched`` (one bool per build row, kept across probe
+  batches) feeds the build-outer and build-marking joins: a unique probe
+  folds its matched rows, a pair expansion its surviving pairs, and a
+  range probe ``[lo, lo + count)`` per matched row through a +1/-1
+  difference array and a cumsum (core.py:520-531, :720-831). Every fold
+  sends dead rows to a spare slot;
+- dictionary-encoded keys compare as codes of one joint vocabulary
+  (``unify_key_dicts``, core.py:123-156): the build's vocabulary comes
+  first, so its codes keep their sorted order.
 
 SQL null semantics: a NULL in any key never matches.
 """
@@ -33,7 +42,8 @@ import torch
 
 from auron_tpu_torch import types as T
 from auron_tpu_torch.columnar.batch import (
-    Batch, DeviceBatch, bucket_capacity, device_concat, device_take,
+    Batch, DeviceBatch, bucket_capacity, compaction_index, device_concat, device_take,
+    empty_dict, merge_vocab,
 )
 from auron_tpu_torch.exprs import ir
 from auron_tpu_torch.exprs.eval import ColumnVal, Evaluator
@@ -43,8 +53,13 @@ from auron_tpu_torch.ops.uwords import flip
 
 INNER = "inner"
 LEFT = "left"
+RIGHT = "right"
+FULL = "full"
 LEFT_SEMI = "left_semi"
 LEFT_ANTI = "left_anti"
+EXISTENCE = "existence"
+
+JOIN_TYPES = (INNER, LEFT, RIGHT, FULL, LEFT_SEMI, LEFT_ANTI, EXISTENCE)
 
 #: pair slots per emitted chunk (same as auron_tpu)
 _EXPAND_CHUNK = 1 << 20
@@ -54,11 +69,12 @@ _LUT_KINDS = (T.TypeKind.INT8, T.TypeKind.INT16, T.TypeKind.INT32, T.TypeKind.IN
 _PACKABLE_KINDS = _LUT_KINDS + (T.TypeKind.BOOL,)
 
 
-def join_output_schema(left: T.Schema, right: T.Schema, join_type: str) -> T.Schema:
+def join_output_schema(left: T.Schema, right: T.Schema, join_type: str,
+                       exists_col: str = "exists") -> T.Schema:
     if join_type in (LEFT_SEMI, LEFT_ANTI):
         return left
-    if join_type not in (INNER, LEFT):
-        raise NotImplementedError(f"{join_type} joins are not in this slice of the port")
+    if join_type == EXISTENCE:
+        return T.Schema(tuple(left.fields) + (T.Field(exists_col, T.BOOL, False),))
     lf = [T.Field(f.name, f.dtype, True) for f in left.fields]
     rf = [T.Field(f.name, f.dtype, True) for f in right.fields]
     return T.Schema(tuple(lf + rf))
@@ -76,6 +92,9 @@ class PreparedBuild:
     exists_lut: torch.Tensor | None = None
     # multi-key packing: ``words`` is one packed word; probes pack with it
     pack: "PackSpec | None" = None
+    # one bool per build row, updated across probe batches (build-outer
+    # and build-marking joins read it in ``finish``)
+    matched: torch.Tensor | None = None
 
 
 @dataclass(frozen=True)
@@ -162,10 +181,10 @@ def probe_words(build: PreparedBuild, vals: list[ColumnVal]):
 def prepare_build(batches: list[Batch], key_exprs: list[ir.Expr], schema: T.Schema,
                   device, need_pairs: bool = True) -> PreparedBuild:
     """``need_pairs=False`` (semi/anti probes that only test existence)
-    lets a duplicate-keyed build stay unsorted behind an existence table."""
-    if any(e.dtype_of(schema).is_dict_encoded for e in key_exprs):
-        raise NotImplementedError("dictionary-encoded join keys are not in this slice")
+    lets a duplicate-keyed build stay unsorted behind an existence table.
+    Dictionary-encoded keys build the sorted map over their codes."""
     big = device_concat(batches) if batches else Batch.empty(schema, device=device)
+    matched = torch.zeros(big.capacity, dtype=torch.bool, device=big.torch_device)
     vals = key_columns(big, key_exprs)
     words, valid = canon_words(vals)
     sel = big.device.sel & valid
@@ -191,10 +210,10 @@ def prepare_build(batches: list[Batch], key_exprs: list[ir.Expr], schema: T.Sche
                 lut = torch.full((size + 1,), -1, dtype=torch.int64, device=dev)
                 lut.scatter_(0, slot, torch.arange(cap, device=dev))
                 return PreparedBuild(big, [s], n_live, unique=True, lut=lut[:size],
-                                     lut_base=kmin, pack=pack)
+                                     lut_base=kmin, pack=pack, matched=matched)
             if not need_pairs:
                 return PreparedBuild(big, [s], n_live, exists_lut=counts[:size] > 0,
-                                     lut_base=kmin, pack=pack)
+                                     lut_base=kmin, pack=pack, matched=matched)
     # sorted map: cluster by (dead, *words) with a stable sort
     dead = torch.where(sel, 0, 1).to(torch.int64)
     order = bitonic.lexsort((dead, *words))
@@ -208,7 +227,8 @@ def prepare_build(batches: list[Batch], key_exprs: list[ir.Expr], schema: T.Sche
         for w in sorted_words:
             dup &= w[1:] == w[:-1]
         unique = not bool((dup & live[1:]).any())
-    return PreparedBuild(clustered, sorted_words, n_live, unique=unique, pack=pack)
+    return PreparedBuild(clustered, sorted_words, n_live, unique=unique, pack=pack,
+                         matched=matched)
 
 
 def _lex_search(build_words, probe_words, n: int, or_equal: bool) -> torch.Tensor:
@@ -259,17 +279,90 @@ def probe_ranges(build: PreparedBuild, probe_words, ok) -> tuple[torch.Tensor, t
     return lo, torch.where(ok, hi - lo, torch.zeros_like(lo))
 
 
-def probe_mark(build: PreparedBuild, probe_words, ok) -> torch.Tensor:
-    """Probe rows with at least one build match (semi/anti, no pairs):
-    one gather from the existence table, or a non-empty [lower, upper)
-    range in the sorted map (``_probe_exists_jit`` / ``_probe_mark_jit``)."""
+def probe_mark(build: PreparedBuild, probe_words, ok, fold: bool = False) -> torch.Tensor:
+    """Probe rows with at least one build match (semi/anti/existence, no
+    pairs): one gather from the existence table, or a non-empty [lower,
+    upper) range in the sorted map (``_probe_exists_jit`` /
+    ``_probe_mark_jit``); with ``fold`` the ranges of the matched rows
+    also mark their build rows."""
     if build.exists_lut is not None:
         size = build.exists_lut.shape[0]
         idx = probe_words[0] - build.lut_base
         in_range = (idx >= 0) & (idx < size)
         return ok & in_range & build.exists_lut[idx.clamp(0, size - 1)]
-    _, counts = probe_ranges(build, probe_words, ok)
+    lo, counts = probe_ranges(build, probe_words, ok)
+    if fold:
+        fold_ranges(build.matched, lo, counts)
     return counts > 0
+
+
+def fold_rows(matched: torch.Tensor, rows: torch.Tensor, ok: torch.Tensor) -> None:
+    """Mark build rows ``rows`` where ``ok`` (in place): counts by
+    ``index_add_``, dead rows sent to a spare slot past the end
+    (``matched.at[bi].max(ok, mode="drop")`` in the reference)."""
+    bcap = matched.shape[0]
+    slot = torch.where(ok, rows, torch.full_like(rows, bcap))
+    hits = torch.zeros(bcap + 1, dtype=torch.int32, device=matched.device)
+    hits.index_add_(0, slot, torch.ones_like(slot, dtype=torch.int32))
+    matched |= hits[:bcap] > 0
+
+
+def fold_ranges(matched: torch.Tensor, lo: torch.Tensor, counts: torch.Tensor) -> None:
+    """Mark build rows ``[lo, lo + count)`` of every probe row with a
+    non-empty range (in place): +1 at the start, -1 at the stop, a cumsum,
+    then ``> 0`` (``_covered_fold``, core.py:529)."""
+    bcap = matched.shape[0]
+    hit = counts > 0
+    starts = torch.where(hit, lo, torch.full_like(lo, bcap))
+    stops = torch.where(hit, lo + counts, torch.full_like(lo, bcap))
+    diff = torch.zeros(bcap + 1, dtype=torch.int32, device=matched.device)
+    one = torch.ones_like(starts, dtype=torch.int32)
+    diff.index_add_(0, starts, one)
+    diff.index_add_(0, stops, -one)
+    matched |= torch.cumsum(diff[:bcap], 0) > 0
+
+
+def unify_key_dicts(build_vals: list[ColumnVal], probe_vals: list[ColumnVal]
+                    ) -> tuple[list[ColumnVal], list[ColumnVal]]:
+    """Remap dictionary-encoded key pairs onto one joint vocabulary (the
+    build's entries first, then the probe's new ones) so that equal
+    strings get equal codes; other keys pass through."""
+    out_b, out_p = [], []
+    for bv, pv in zip(build_vals, probe_vals):
+        if not bv.dtype.is_dict_encoded:
+            out_b.append(bv)
+            out_p.append(pv)
+            continue
+        joint, (rb, rp) = merge_vocab([bv.dict, pv.dict])
+        codes = []
+        for cv, r in ((bv, rb), (pv, rp)):
+            remap = torch.from_numpy(r).to(cv.values.device)
+            codes.append(remap[cv.values.long().clamp(0, len(r) - 1)])
+        out_b.append(ColumnVal(codes[0], bv.validity, bv.dtype, joint))
+        out_p.append(ColumnVal(codes[1], pv.validity, pv.dtype, joint))
+    return out_b, out_p
+
+
+def null_columns(schema: T.Schema, cap: int, device) -> list[ColumnVal]:
+    """All-NULL columns of ``schema`` (the outer side of an unmatched row)."""
+    return [ColumnVal(torch.zeros(cap, dtype=f.dtype.physical_dtype(), device=device),
+                      torch.zeros(cap, dtype=torch.bool, device=device), f.dtype,
+                      empty_dict(f.dtype) if f.dtype.is_dict_encoded else None)
+            for f in schema]
+
+
+def predicted_take(probe_cols, bi, ok, build_cols, sel, out_cap: int):
+    """The unique join's compacted gather into a static bucket
+    (``_unique_compact_take_pred_jit``, core.py:646-672): the index comes
+    from ``sel`` on the device (no host read; live rows past ``out_cap``
+    are dropped, and the caller repairs a bucket that proves too small);
+    probe columns at ``idx``, build columns at ``bi[idx]``, each (values,
+    validity) narrowed to the live rows (and build columns to matched ones)."""
+    idx, new_sel = compaction_index(sel, out_cap)
+    c_bi = bi[idx]
+    c_ok = ok[idx] & new_sel
+    return ([(v[idx], m[idx] & new_sel) for v, m in probe_cols],
+            [(v[c_bi], m[c_bi] & c_ok) for v, m in build_cols], new_sel)
 
 
 def expand_pairs(pcap: int, bcap: int, lo: torch.Tensor, counts: torch.Tensor):

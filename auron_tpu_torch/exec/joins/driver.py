@@ -1,31 +1,47 @@
-"""Equi-join driver (port of the inner, left-outer, left-semi and
-left-anti paths of ``auron_tpu/exec/joins/driver.py``): runs one prepared
-build side against a stream of probe batches. Output columns are (left ++
-right), or the left side's alone for semi/anti, subset by the optional
-column-pruning ``projection``.
+"""Equi-join driver (port of ``auron_tpu/exec/joins/driver.py``): runs one
+prepared build side against a stream of probe batches, for every join type
+(inner, left, right, full, left_semi, left_anti, existence) with the build
+on either side. Output columns are (left ++ right), the left side's alone
+for semi/anti, and the left side's plus a non-null bool ``exists_col`` for
+existence, subset by the optional column-pruning ``projection``.
 
-A unique build emits one batch per probe batch with exact compaction: the
-live count is read once per batch, and when the output would fill less than
-a quarter of the probe capacity (``compaction_bucket``) the live rows are
-gathered into a smaller batch before the build columns are gathered
-(predicted compaction is a later slice). A duplicate-keyed build expands
-pair chunks. A LEFT join with the build on the right keeps every probe row
-(``probe_outer``, ``core.py:604-615``, ``:666-691``): NULL-keyed and
-unmatched rows stay live with NULL build columns.
+The type x side matrix (reference ``driver.py:105-120``): pairs are emitted
+for inner/left/right/full; the probe side keeps its unmatched rows
+(``probe_outer``) for full, for left with the probe on the left and for
+right with the probe on the right; the build side keeps them
+(``build_outer``) in the mirrored cases; semi/anti/existence mark the probe
+rows when the probe is the left input (``probe_mark``), else the build rows
+(``build_mark``). Build-side completions come from ``finish(build)`` after
+the probe stream, from ``PreparedBuild.matched``.
+
+A unique build emits one batch per probe batch. With compaction on
+(``join.compact.output``) and no residual condition, the output is
+compacted into a capacity bucket before the build columns are gathered:
+``UniqueProbePipeline`` (one per probe stream) predicts the bucket from an
+EWMA of earlier live counts (``exec/selectivity.py``) and compacts on the
+device (``compaction_index``); each batch's live count rides the transfer
+window (``runtime/transfer.py``) and is harvested k batches later, before
+the batch is emitted; a bucket that proves too small is re-taken from the
+still-held device state (``sel_mispredicts``). The first batch of a stream
+takes the one blocking seed read. Emissions lag dispatch by the window
+depth; the exec drains them with ``finish_probe``. A duplicate-keyed build
+expands pair chunks with one count read per probe batch.
 
 A residual ``condition`` (over the combined left ++ right schema) is
-evaluated over only the columns it references (``_reduced_condition``,
-driver.py:665): on the unique path over the probe rows and their one build
-match, otherwise over each chunk of expanded pairs (``core.condition_pairs``,
-core.py:809-823). A pair whose condition is false or NULL does not match:
-``probe_matched`` is recomputed from the filtered pairs, so a left join
-emits such probe rows with NULL build columns, a semi join drops and an
-anti join keeps them. A condition makes semi and anti joins enumerate
-pairs, so their build never hides behind an existence table.
+evaluated over only the columns it references (``_reduced_condition``): on
+the unique path over the probe rows and their one build match, otherwise
+over each chunk of expanded pairs (``core.condition_pairs``). A pair whose
+condition is false or NULL does not match, for the probe-side flags and
+for the build-side marks alike.
+
+Dictionary-encoded keys: every probe batch re-keys the build's and its own
+key codes onto one joint vocabulary (``core.unify_key_dicts``) and probes
+the sorted map by range, as the reference does (``driver.py:281-304``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Iterator
 
 import torch
@@ -34,44 +50,88 @@ from auron_tpu_torch import types as T
 from auron_tpu_torch.columnar.batch import Batch, compaction_bucket
 from auron_tpu_torch.exec.basic import batch_from_columns
 from auron_tpu_torch.exec.joins import core
+from auron_tpu_torch.exec.joins.core import (
+    EXISTENCE, FULL, INNER, LEFT, LEFT_ANTI, LEFT_SEMI, RIGHT,
+)
+from auron_tpu_torch.exec.selectivity import SelectivityPredictor, predictor_enabled
 from auron_tpu_torch.exprs import ir
 from auron_tpu_torch.exprs.eval import ColumnVal, Evaluator
-from auron_tpu_torch.utils.config import JOIN_COMPACT_OUTPUT, resolve_tri
+from auron_tpu_torch.runtime.transfer import TransferWindow, blocking_read, tensor_bytes
+from auron_tpu_torch.utils.config import JOIN_COMPACT_OUTPUT, TRANSFER_WINDOW_DEPTH, resolve_tri
+
+
+def compact_join_output(conf) -> bool:
+    """``join.compact.output``: auto = on (with the predictor, compaction
+    costs no host read per batch on the card either)."""
+    return resolve_tri(conf.get(JOIN_COMPACT_OUTPUT), True)
+
+
+class UniqueProbePipeline:
+    """Per-probe-stream state of the sync-free unique-join compaction
+    boundary: the selectivity predictor and the k-deep transfer window
+    (reference ``driver.py:42-64``). Owned by the exec (one per partition
+    stream), passed into ``probe_batch``; the exec calls ``finish_probe``
+    after the last probe batch and ``close`` on every path out. Reads are
+    counted in ``metrics``: ``unique_streams`` (streams that reached the
+    compaction boundary), ``blocking_reads`` (the seed read, and harvests
+    that had to wait), ``async_reads``, ``drain_waits`` and
+    ``sel_mispredicts``."""
+
+    def __init__(self, conf, metrics=None):
+        self.pred = SelectivityPredictor(conf) if predictor_enabled(conf) else None
+        self.window = TransferWindow(conf.get(TRANSFER_WINDOW_DEPTH), metrics)
+        self.metrics = metrics
+        self.started = False
+
+    def close(self) -> None:
+        """Drop every entry still in the window (a consumer stopped early)."""
+        self.window.clear()
 
 
 class EquiJoinDriver:
     def __init__(self, left_schema: T.Schema, right_schema: T.Schema,
                  left_keys: list[ir.Expr], right_keys: list[ir.Expr], join_type: str,
                  build_side: str, condition: ir.Expr | None = None,
-                 projection: list[int] | None = None):
-        assert build_side in ("left", "right")
-        if not (join_type == core.INNER
-                or (join_type in (core.LEFT, core.LEFT_SEMI, core.LEFT_ANTI)
-                    and build_side == "right")):
-            raise NotImplementedError(
-                f"{join_type} join with the build on the {build_side}: only inner "
-                "equi-joins, and left, left_semi and left_anti joins with the build on the "
-                "right, are in this slice")
+                 exists_col: str = "exists", projection: list[int] | None = None):
+        if join_type not in core.JOIN_TYPES:
+            raise ValueError(f"unknown join type {join_type!r}")
+        if build_side not in ("left", "right"):
+            raise ValueError(f"unknown build side {build_side!r}")
         self.left_schema, self.right_schema = left_schema, right_schema
         self.left_keys, self.right_keys = left_keys, right_keys
         self.join_type = join_type
         self.build_side = build_side
-        full = core.join_output_schema(left_schema, right_schema, join_type)
+        self.condition = condition
+        self.exists_col = exists_col
+        full = core.join_output_schema(left_schema, right_schema, join_type, exists_col)
         self.projection = list(projection) if projection is not None else None
         proj = self.projection if self.projection is not None else range(len(full))
         self.out_schema = T.Schema(tuple(full[i] for i in proj))
         self.probe_is_left = build_side == "right"
-        self.probe_outer = join_type == core.LEFT
-        self.probe_mark = join_type in (core.LEFT_SEMI, core.LEFT_ANTI)
+        jt, pl = join_type, self.probe_is_left
+        self.wants_pairs = jt in (INNER, LEFT, RIGHT, FULL)
+        self.probe_outer = jt == FULL or (jt == LEFT and pl) or (jt == RIGHT and not pl)
+        self.build_outer = jt == FULL or (jt == LEFT and not pl) or (jt == RIGHT and pl)
+        # semi/anti/existence are defined on the LEFT input
+        self.probe_mark = jt in (LEFT_SEMI, LEFT_ANTI, EXISTENCE) and pl
+        self.build_mark = jt in (LEFT_SEMI, LEFT_ANTI, EXISTENCE) and not pl
         self._cond = self._reduced_condition(condition) if condition is not None else None
 
     def prepare(self, build_batches: list[Batch], device) -> core.PreparedBuild:
         schema = self.left_schema if self.build_side == "left" else self.right_schema
         keys = self.left_keys if self.build_side == "left" else self.right_keys
-        # semi/anti probes without a condition only test existence: no
-        # pairs to enumerate
-        return core.prepare_build(build_batches, keys, schema, device,
-                                  need_pairs=not self.probe_mark or self._cond is not None)
+        # existence-only probes (probe-side semi/anti/existence with no
+        # condition) never enumerate pairs: a duplicate-keyed build may stay
+        # unsorted behind an existence table (reference driver.py:214-228)
+        need_pairs = (self.wants_pairs or self._cond is not None or self.build_mark
+                      or self.build_outer)
+        return core.prepare_build(build_batches, keys, schema, device, need_pairs=need_pairs)
+
+    @staticmethod
+    def fresh(build: core.PreparedBuild) -> core.PreparedBuild:
+        """The same prepared map with its own build-row marks (a cached
+        build shared by several tasks)."""
+        return dataclasses.replace(build, matched=torch.zeros_like(build.matched))
 
     def _reduced_condition(self, condition: ir.Expr):
         """(schema, expr, (on probe side, side column) per column) of the
@@ -99,29 +159,60 @@ class EquiJoinDriver:
         return ok & cv.validity & cv.values.to(torch.bool)
 
     def _out_cols(self):
-        """(output index, on probe side, side column index) per output column."""
+        """(on probe side, side column index) per output column of a pair."""
         nl = len(self.left_schema)
         full_n = nl + len(self.right_schema)
         for oi in (self.projection if self.projection is not None else range(full_n)):
             on_left = oi < nl
             yield on_left == self.probe_is_left, (oi if on_left else oi - nl)
 
-    def probe_batch(self, build: core.PreparedBuild, pb: Batch, conf) -> Iterator[Batch]:
+    # ------------------------------------------------------------------
+    # probe
+
+    def _probe_view(self, build: core.PreparedBuild, pb: Batch):
+        """(build to probe, probe words, all-keys-valid): with dictionary
+        keys, the build's words re-keyed with this batch onto one joint
+        vocabulary, as a general (range-probed) view sharing ``matched``."""
         probe_keys = self.left_keys if self.probe_is_left else self.right_keys
-        pwords, pvalid = core.probe_words(build, core.key_columns(pb, probe_keys))
+        pvals = core.key_columns(pb, probe_keys)
+        if any(v.dtype.is_dict_encoded for v in pvals):
+            build_keys = self.right_keys if self.probe_is_left else self.left_keys
+            bvals, pvals = core.unify_key_dicts(core.key_columns(build.batch, build_keys),
+                                                pvals)
+            bwords, _ = core.canon_words(bvals)
+            build = core.PreparedBuild(build.batch, bwords, build.n_live,
+                                       matched=build.matched)
+        pwords, pvalid = core.probe_words(build, pvals)
+        return build, pwords, pvalid
+
+    def probe_batch(self, build: core.PreparedBuild, pb: Batch, conf,
+                    pipe: UniqueProbePipeline | None = None) -> Iterator[Batch]:
+        """Probe one batch; updates ``build.matched`` in place. With a
+        ``pipe`` the unique-build compaction runs predicted and sync-free,
+        and its emissions lag by the window depth (``finish_probe``)."""
+        build, pwords, pvalid = self._probe_view(build, pb)
         ok_base = pb.device.sel & pvalid
         bb = build.batch
+        marks = self.build_mark or self.build_outer
         if build.unique:
             bi, ok = core.probe_unique(build, pwords, ok_base)
             if self._cond is not None:
                 ok = self._condition_holds(pb, bb, None, bi, ok)
-            if self.probe_mark:
+            if marks:
+                core.fold_rows(build.matched, bi, ok)
+            if self.wants_pairs:
+                if self._cond is None and compact_join_output(conf):
+                    yield from self._emit_unique_compacted(pb, bb, bi, ok, pipe)
+                else:
+                    yield self._emit(pb, bb, None, bi, ok, self._unique_sel(pb, ok))
+            elif self.probe_mark:
                 yield self._emit_probe_marked(pb, ok)
-            else:
-                yield self._emit_unique(pb, bb, bi, ok, conf)
             return
-        if self.probe_mark and self._cond is None:
-            yield self._emit_probe_marked(pb, core.probe_mark(build, pwords, ok_base))
+        if not self.wants_pairs and self._cond is None:
+            # existence only: no pairs to enumerate
+            matched = core.probe_mark(build, pwords, ok_base, fold=marks)
+            if self.probe_mark:
+                yield self._emit_probe_marked(pb, matched)
             return
         if build.n_live == 0:
             if self.probe_mark:
@@ -135,44 +226,162 @@ class EquiJoinDriver:
         if self._cond is not None:
             chunks, matched = core.condition_pairs(
                 chunks, lambda li, ri, ok: self._condition_holds(pb, bb, li, ri, ok), counts)
+        if marks:
+            for _, ri, ok in chunks:
+                core.fold_rows(build.matched, ri, ok)
         if self.probe_mark:
             yield self._emit_probe_marked(pb, matched)
+            return
+        if not self.wants_pairs:
             return
         for li, ri, ok in chunks:
             yield self._emit(pb, bb, li, ri, ok)
         if self.probe_outer:
             yield self._emit_unmatched(pb, bb, pb.device.sel & ~matched)
 
-    def _emit_unique(self, pb: Batch, bb: Batch, bi, ok, conf) -> Batch:
-        pidx = None
-        sel = pb.device.sel if self.probe_outer else ok
-        if resolve_tri(conf.get(JOIN_COMPACT_OUTPUT), True):
-            n_live = int(sel.sum().item())
-            out_cap = compaction_bucket(n_live, pb.capacity)
-            if out_cap is not None:
-                idx = torch.nonzero(sel).flatten()
-                pidx = torch.zeros(out_cap, dtype=torch.int64, device=ok.device)
-                pidx[:n_live] = idx
-                new_sel = torch.arange(out_cap, device=ok.device) < n_live
-                bi, ok, sel = bi[pidx], ok[pidx] & new_sel, new_sel
-        return self._emit(pb, bb, pidx, bi, ok, sel)
+    def _unique_sel(self, pb: Batch, ok):
+        """Live output rows of a unique probe: every probe row when the
+        probe side is outer, else the matched ones (``ok`` includes sel)."""
+        return pb.device.sel if self.probe_outer else ok
 
-    def _emit_probe_marked(self, pb: Batch, matched) -> Batch:
-        """Semi: the matched probe rows; anti: the others."""
-        sel = pb.device.sel & (matched if self.join_type == core.LEFT_SEMI else ~matched)
-        return self._emit_probe_only(pb, sel)
+    # ------------------------------------------------------------------
+    # the unique-join compaction boundary
 
-    def _emit_probe_only(self, pb: Batch, sel) -> Batch:
-        """The probe batch's columns (projected) with the selection ``sel``."""
-        cols = [ColumnVal(pb.col_values(i), pb.col_validity(i), f.dtype, pb.dicts[i])
-                for i, f in enumerate(pb.schema)]
+    @staticmethod
+    def _cols(b: Batch, ids):
+        return [(b.col_values(c), b.col_validity(c)) for c in ids]
+
+    def _side_ids(self):
+        """(probe column ids, build column ids) the output needs."""
+        pids, bids = [], []
+        for on_probe, ci in self._out_cols():
+            (pids if on_probe else bids).append(ci)
+        return sorted(set(pids)), sorted(set(bids))
+
+    def _emit_unique_compacted(self, pb: Batch, bb: Batch, bi, ok,
+                               pipe: UniqueProbePipeline | None) -> Iterator[Batch]:
+        sel_out = self._unique_sel(pb, ok)
+        metrics = pipe.metrics if pipe is not None else None
+        if pipe is not None and not pipe.started:
+            pipe.started = True
+            if metrics is not None:
+                metrics.add("unique_streams", 1)
+        pred = pipe.pred if pipe is not None else None
+        pred_cap = pred.predict(pb.capacity) if pred is not None else None
+        if pred_cap is None:
+            # seed (first batch of a stream) or predictor off: one blocking
+            # read of the live count, then an exact bucket
+            (n_live,) = blocking_read(metrics, sel_out.sum())
+            n_live = int(n_live)
+            if pred is not None:
+                pred.observe(n_live)
+            yield self._take_at(pb, bb, bi, ok, sel_out, compaction_bucket(n_live, pb.capacity))
+            return
+        # predicted: compaction index on the device at the predicted bucket
+        # (or dense where compaction would not pay), no host read; the live
+        # count rides the window and a too-small bucket is re-taken
+        out_cap = compaction_bucket(pred_cap, pb.capacity)
+        taken = self._take_at(pb, bb, bi, ok, sel_out, out_cap)
+        state = (pb, bb, bi, ok, sel_out, out_cap, taken)
+        for resolved, st in pipe.window.push((sel_out.sum(),), state,
+                                             tensor_bytes(bi, ok, taken.device)):
+            yield self._finish_unique_compacted(resolved, st, pipe)
+
+    def _take_at(self, pb: Batch, bb: Batch, bi, ok, sel_out, out_cap: int | None) -> Batch:
+        """The unique join's output batch: dense (probe columns in place,
+        build columns gathered at probe width) when ``out_cap`` is None, else
+        compacted into ``out_cap`` slots on the device."""
+        if out_cap is None:
+            return self._emit(pb, bb, None, bi, ok, sel_out)
+        pids, bids = self._side_ids()
+        pc, bc, new_sel = core.predicted_take(self._cols(pb, pids), bi, ok,
+                                              self._cols(bb, bids), sel_out, out_cap)
+        p_at = dict(zip(pids, pc))
+        b_at = dict(zip(bids, bc))
+        cols = []
+        for on_probe, ci in self._out_cols():
+            src, (v, m) = (pb, p_at[ci]) if on_probe else (bb, b_at[ci])
+            cols.append(ColumnVal(v, m, src.schema[ci].dtype, src.dicts[ci]))
+        out = batch_from_columns(cols, self.out_schema.names, new_sel)
+        return Batch(self.out_schema, out.device, out.dicts)
+
+    def finish_probe(self, pipe: UniqueProbePipeline | None) -> Iterator[Batch]:
+        """Drain the compaction window at the end of the probe stream."""
+        if pipe is None:
+            return
+        for resolved, st in pipe.window.drain():
+            yield self._finish_unique_compacted(resolved, st, pipe)
+
+    def _finish_unique_compacted(self, resolved, state, pipe: UniqueProbePipeline) -> Batch:
+        """Harvest half: observe the live count, re-take a too-small bucket
+        from the still-held device state (no extra read)."""
+        pb, bb, bi, ok, sel_out, out_cap, taken = state
+        n_live = int(resolved[0])
+        pipe.pred.observe(n_live, predicted=out_cap)
+        if out_cap is not None and n_live > out_cap:
+            if pipe.metrics is not None:
+                pipe.metrics.add("sel_mispredicts", 1)
+            taken = self._take_at(pb, bb, bi, ok, sel_out, compaction_bucket(n_live, pb.capacity))
+        return taken
+
+    # ------------------------------------------------------------------
+    # build-side completions
+
+    def finish(self, build: core.PreparedBuild) -> Iterator[Batch]:
+        """After the probe stream: the unmatched build rows (build-outer)
+        or the marked ones (build-side semi/anti/existence)."""
+        bb = build.batch
+        sel = bb.device.sel
+        if self.build_outer:
+            yield self._emit_build_extended(bb, sel & ~build.matched)
+        elif self.build_mark:
+            if self.join_type == LEFT_SEMI:
+                yield self._finish_batch(self._side_cols(bb), sel & build.matched)
+            elif self.join_type == LEFT_ANTI:
+                yield self._finish_batch(self._side_cols(bb), sel & ~build.matched)
+            else:  # existence: every build row and its flag
+                cols = self._side_cols(bb) + [self._flag(build.matched)]
+                yield self._finish_batch(cols, sel)
+
+    # ------------------------------------------------------------------
+    # emits
+
+    @staticmethod
+    def _side_cols(b: Batch) -> list[ColumnVal]:
+        return [ColumnVal(b.col_values(i), b.col_validity(i), f.dtype, b.dicts[i])
+                for i, f in enumerate(b.schema)]
+
+    @staticmethod
+    def _flag(matched) -> ColumnVal:
+        return ColumnVal(matched, torch.ones_like(matched), T.BOOL)
+
+    def _finish_batch(self, cols: list[ColumnVal], sel) -> Batch:
+        """``cols`` in full-output-schema order; the projection subsets them."""
         if self.projection is not None:
             cols = [cols[i] for i in self.projection]
         out = batch_from_columns(cols, self.out_schema.names, sel)
         return Batch(self.out_schema, out.device, out.dicts)
 
+    def _emit_probe_marked(self, pb: Batch, matched) -> Batch:
+        """Semi: the matched probe rows; anti: the others; existence: every
+        probe row and its flag."""
+        sel = pb.device.sel
+        if self.join_type == EXISTENCE:
+            return self._finish_batch(self._side_cols(pb) + [self._flag(matched & sel)], sel)
+        keep = matched if self.join_type == LEFT_SEMI else ~matched
+        return self._finish_batch(self._side_cols(pb), sel & keep)
+
+    def _emit_build_extended(self, bb: Batch, sel) -> Batch:
+        """Build rows ``sel`` with NULL probe-side columns (build-outer)."""
+        build_cols = [ColumnVal(c.values, c.validity & sel, c.dtype, c.dict)
+                      for c in self._side_cols(bb)]
+        other = self.left_schema if self.probe_is_left else self.right_schema
+        nulls = core.null_columns(other, bb.capacity, sel.device)
+        cols = nulls + build_cols if self.probe_is_left else build_cols + nulls
+        return self._finish_batch(cols, sel)
+
     def _emit_unmatched(self, pb: Batch, bb: Batch, sel) -> Batch:
-        """Probe rows ``sel`` with NULL build columns (left join)."""
+        """Probe rows ``sel`` with NULL build columns (probe-outer)."""
         ri = torch.zeros(pb.capacity, dtype=torch.int64, device=sel.device)
         return self._emit(pb, bb, None, ri, torch.zeros_like(sel), sel)
 

@@ -5,8 +5,10 @@ Per batch, on the batch's device: partition ids (``partitioning.py``; K1
 for a single int64 key), then ``cluster_rows``'s policy — a stable sort by
 pid with dead rows given pid ``n_out`` and sorted last, per-partition
 counts by bincount (``writer.py:269-283``; ``torch.sort(stable=True)``
-stands in for ``lax.sort``, which is no Pallas kernel). The live prefix of
-the clustered rows comes to the host with one copy per column plane, is
+stands in for ``lax.sort``, which is no Pallas kernel). The counts start
+their copy into pinned host memory when the batch is staged; the live
+prefix of the clustered rows then comes to the host, every column plane
+copied into pinned memory under one event (``runtime/transfer.py``), is
 sliced per partition and staged in host RAM (a dictionary column as codes
 beside its batch's vocabulary, merged onto one vocabulary per block); a
 partition whose staged bytes reach ``shuffle.compression.target.buf.size`` is encoded into one v2
@@ -50,6 +52,7 @@ from auron_tpu_torch.exec.shuffle.format import (
 )
 from auron_tpu_torch.exec.shuffle.partitioning import Partitioning
 from auron_tpu_torch.memory import memmgr
+from auron_tpu_torch.runtime.transfer import harvest, start_host_transfer
 from auron_tpu_torch.utils.config import SHUFFLE_COMPRESSION_TARGET_BUF_SIZE
 
 
@@ -249,28 +252,35 @@ def cluster_rows(sel: torch.Tensor, pids: torch.Tensor, n_out: int):
 
 def stage_partition_batch(b: Batch, partitioning: Partitioning, ctx: ExecutionContext):
     """Dispatch half: partition ids and the clustering order, enqueued on
-    the batch's device."""
+    the batch's device, and the copy of the counts into pinned host memory
+    started (``runtime/transfer.py``)."""
     pids = partitioning.partition_ids(b, ctx)
     order, counts = cluster_rows(b.device.sel, pids, partitioning.num_partitions)
-    return b, order, counts
+    return b, order, start_host_transfer(counts)
 
 
 def finish_partition_batch(staged, partitioning: Partitioning, ctx: ExecutionContext):
-    """Harvest half: the live prefix of the clustered rows, one host copy
-    per column plane, sliced into [(pid, [(values, validity or None)])]."""
-    b, order, counts = staged
+    """Harvest half: the counts (their copy started a batch ago), then the
+    live prefix of the clustered rows, every column plane copied into
+    pinned host memory under one event, sliced into [(pid, [(values,
+    validity or None)])]."""
+    b, order, counts_tr = staged
     n_out = partitioning.num_partitions
-    counts = counts.cpu().numpy()[:n_out]
+    (counts,) = harvest(counts_tr, ctx.metrics)
+    counts = counts[:n_out]
     total = int(counts.sum())
     if total == 0:
         return []
     live = order[:total]
+    planes = []
+    for i in range(len(b.schema)):
+        planes += [b.col_values(i)[live], b.col_validity(i)[live]]
+    host = harvest(start_host_transfer(*planes), ctx.metrics)
     cols = []
     for i, f in enumerate(b.schema):
-        vals = b.col_values(i)[live].cpu().numpy()
+        vals, valid = host[2 * i], host[2 * i + 1]
         if f.dtype.is_dict_encoded:
             vals = DictCodes(vals, b.dicts[i])
-        valid = b.col_validity(i)[live].cpu().numpy()
         cols.append((vals, None if valid.all() else valid))
     out, start = [], 0
     for pid in range(n_out):

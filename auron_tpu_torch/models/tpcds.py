@@ -286,9 +286,14 @@ def _shuffle_stage(plan, out_schema: T.Schema, key_cols: list[int], n_map: int, 
 
 #: operator counters ``add_timers`` also sums: batches folded into a dense
 #: aggregate table, the generic path's merges and partial-skip switches,
-#: and the spills: sort runs, aggregate states, shuffle staging runs
+#: the spills (sort runs, aggregate states, shuffle staging runs), and the
+#: host reads (``runtime/transfer.py``): probe streams that reached a
+#: unique-join compaction boundary, reads that blocked (seed, repair, a
+#: harvest that had to wait), reads that did not, end-of-stream harvests
+#: that waited, and predicted buckets that proved too small
 COUNTERS = ("elapsed_compute_n", "num_merges", "partial_agg_skipped", "spilled_runs",
-            "spilled_aggs", "spilled_shuffle_runs")
+            "spilled_aggs", "spilled_shuffle_runs", "unique_streams", "blocking_reads",
+            "async_reads", "drain_waits", "sel_mispredicts")
 
 
 @contextlib.contextmanager
@@ -2073,6 +2078,59 @@ def q22_class_oracle(data: TpcdsData) -> dict:
     keep = ~np.isin(it["i_item_sk"], cheap)
     cat, n, _ = _by(it["i_category_id"][keep])
     return {"cat": cat.astype(np.int32), "n": n}
+
+
+# ---------------------------------------------------------------------------
+# the join-tail classes: full, right and existence joins through the task
+# runtime with the JAX function's operator tree and task count
+# ---------------------------------------------------------------------------
+
+#: the classes of this section, in the order chip_smoke.py runs them
+JOIN_TAIL_CLASSES = ("q33",)
+
+
+def q33_tree():
+    """Two aggregate branches of the fact (quantity below 50, and 50 or
+    more: sum of the price by item) FULL OUTER joined on the item, with the
+    key coalesced from both sides (reference ``tpcds.py:2275-2298``)."""
+    from auron_tpu_torch.exprs.ir import Coalesce
+
+    def branch(pred, name):
+        return _agg2(_filter(_fact(), pred), [(col(1), "i")], _aggs(("sum", col(4), name)))
+
+    lo = branch(BinaryOp("lt", col(3), lit(50)), "lo")
+    hi = branch(BinaryOp("gteq", col(3), lit(50)), "hi")
+    full = _bhj(lo, hi, [col(0)], [col(0)], "full")
+    return _project(full, (Coalesce((col(0), col(2))), "i"), (col(1), "lo"), (col(3), "hi"))
+
+
+def run_q33_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                  stats: dict | None = None, ingested: dict | None = None) -> dict:
+    """Per item, the price sum of its low-quantity and of its high-quantity
+    sales, an item sold only one way keeping a NULL on the other:
+    {i, lo, lo_valid, hi, hi_valid} sorted by i (a NULL sum reads 0)."""
+    res = _tail_inputs(data, 1, device, ingested)
+    got = _concat([collect(_tasks(q33_tree(), res, 1, conf, device, stats), nulls=True)],
+                  ["i", "lo", "lo_valid", "hi", "hi_valid"],
+                  [np.int64, np.float64, bool, np.float64, bool])
+    for k in ("lo", "hi"):
+        got[k] = np.where(got[f"{k}_valid"], got[k], 0.0)
+    return _sorted_by(got, ["i"])
+
+
+def q33_class_oracle(data: TpcdsData) -> dict:
+    ss = data.store_sales.columns
+    item, price, qty = ss["ss_item_sk"], ss["ss_ext_sales_price"], ss["ss_quantity"]
+    items = np.unique(item.astype(np.int64))
+    out = {"i": items}
+    for k, rows in (("lo", qty < 50), ("hi", qty >= 50)):
+        keys, _, sums = _by(item[rows], price[rows])
+        at = np.searchsorted(items, keys)
+        out[k] = np.zeros(len(items))
+        out[k][at] = sums
+        out[f"{k}_valid"] = np.zeros(len(items), bool)
+        out[f"{k}_valid"][at] = True
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -211,6 +211,7 @@ def plan_from_proto(p):
             [expr_from_proto(e) for e in n.right_keys],
             _JOIN_TYPE[n.join_type],
             condition=expr_from_proto(n.condition) if n.has_condition else None,
+            exists_col=n.exists_col or "exists",
             projection=list(n.projection) if n.has_projection else None,
         )
     if which == "hash_join":
@@ -223,6 +224,7 @@ def plan_from_proto(p):
             build_side="left" if n.build_side == pb.BUILD_LEFT else "right",
             condition=expr_from_proto(n.condition) if n.has_condition else None,
             cached_build_id=n.cached_build_id or None,
+            exists_col=n.exists_col or "exists",
             projection=list(n.projection) if n.has_projection else None,
         )
     if which == "shuffle_writer":

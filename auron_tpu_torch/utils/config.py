@@ -132,8 +132,42 @@ BATCH_SIZE = int_conf(
 )
 JOIN_COMPACT_OUTPUT = str_conf(
     "join.compact.output", "auto", "join",
-    "compact sparse unique-join outputs before gathering build columns "
-    "(one count read per probe batch): on | off | auto = on",
+    "compact sparse unique-join outputs before gathering build columns: "
+    "on | off | auto = on. The bucket comes from the selectivity predictor "
+    "(exec.selectivity.predictor), so on CUDA the compaction costs no sync "
+    "per batch: one blocking read seeds each probe stream, later live counts "
+    "ride the transfer window (runtime.transfer.window.depth)",
+)
+SELECTIVITY_PREDICTOR_ENABLE = str_conf(
+    "exec.selectivity.predictor", "auto", "exec",
+    "predict the compacted-output capacity bucket from an EWMA of prior "
+    "batches' live counts instead of blocking on a per-batch device_get "
+    "(exec/selectivity.py; mispredicts repair via re-emit): on | off | "
+    "auto = on wherever compaction itself is on",
+)
+SELECTIVITY_EWMA_ALPHA = float_conf(
+    "exec.selectivity.ewma.alpha", 0.3, "exec",
+    "EWMA weight of the newest batch's live count in the selectivity "
+    "predictor (higher = faster tracking, more bucket churn)",
+)
+SELECTIVITY_HEADROOM = float_conf(
+    "exec.selectivity.headroom", 1.5, "exec",
+    "multiplier over the EWMA live count before bucketing the predicted "
+    "capacity — absorbs batch-to-batch selectivity noise without a "
+    "mispredict/repair cycle",
+)
+SELECTIVITY_SHRINK_PATIENCE = int_conf(
+    "exec.selectivity.shrink.patience", 4, "exec",
+    "consecutive batches the demand must sit at half the predicted bucket "
+    "(or less) before the predictor shrinks it — hysteresis so an "
+    "oscillating selectivity doesn't thrash buckets (and jit shapes)",
+)
+TRANSFER_WINDOW_DEPTH = int_conf(
+    "runtime.transfer.window.depth", 4, "runtime",
+    "depth k of the async device->host transfer window: residual scalar "
+    "reads (compaction live counts, dense-agg fold flags) are harvested k "
+    "batches after their transfer starts, overlapping device compute "
+    "(runtime/transfer.py). 1 = classic one-deep pipeline",
 )
 HOST_SORT_MODE = str_conf(
     "exec.host.sort", "auto", "exec",
@@ -253,4 +287,24 @@ EXCHANGE_SKEW_FACTOR = float_conf(
 EXCHANGE_SKEW_MIN_BYTES = int_conf(
     "exchange.skew.join.min.bytes", 64 << 20, "shuffle",
     "partitions below this never count as skewed",
+)
+AGG_PARTIAL_DEFER = str_conf(
+    "exec.agg.partial.defer", "auto", "agg",
+    "defer the PARTIAL generic path's per-batch (live count, group "
+    "count, collision flag) read through the k-deep async transfer "
+    "window (runtime.transfer.window.depth) instead of blocking one "
+    "device_get per batch: the upstream probe/stage pipeline dispatches "
+    "ahead while counts ride host-ward, compaction buckets are chosen "
+    "by the selectivity predictor and a truncating mispredict recomputes "
+    "the reduce from the still-held batch (row-exact and count-exact; "
+    "float accumulations may re-associate across the re-bucketed "
+    "reduces, the same class of difference as any merge-boundary "
+    "shift). Applies only "
+    "when no host-side aggregates and no sorted-state probe are active "
+    "(the probe path owns its own window and stream-order contract). "
+    "Up to k batches' intermediates stay accounted to the memory manager "
+    "(unspillable) while in flight. on | off | auto = on (the stall, not "
+    "the transfer, is the cost on every substrate — the q93-class 38s "
+    "drain at agg_exec.py:427). off restores the eager one-read-per-"
+    "batch protocol bit-identically",
 )

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --sf 0.5   # smaller end-to-end phases
     python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of one run of each query
     python3 chip_smoke.py --window-only  # phases 1, 2 and 11 only
+    python3 chip_smoke.py --join-tail-only  # phases 1, 2 and 13 only
 
 Phases, in order, none of them caught — any failure exits non-zero:
 
@@ -114,7 +115,7 @@ Phases, in order, none of them caught — any failure exits non-zero:
    one ExpandExec: 3 and 4 x 23.04 M rows into the aggregate) and q9 (a
    global-average subquery task, then a filter on ScalarSubquery). Each
    gets a warm-up, whose kernel sorts go through K3/K4 and the plain
-   network on the card once more, bit for bit, then three timed runs,
+   network on the card once more, bit for bit, then two timed runs,
    whose bitonic launches each equal ``sort_plan``'s for those sorts;
    every windowed class must launch K3, and K4 where a sort is past one
    cluster. Each answer equals its numpy oracle (keys, counts, ranks, lag
@@ -142,8 +143,23 @@ Phases, in order, none of them caught — any failure exits non-zero:
    spills; wall, peak, spill and wait counts, spill counters and timers,
    host-ledger demotions and the bytes parked on host and disk are
    printed;
-13. print the kernel table as one JSON line (each kernel's launches summed
-   over the timed runs of phases 4-12, and per run), then the status line.
+13. the join tail and the sync-free compaction boundary: q33 (two
+   aggregate branches of the whole fact FULL OUTER joined by item) in a
+   warm-up and three timed runs, each equal to its oracle; the join-tail
+   sweep: the fact's rows with ss_item_sk < 13,500 joined with build U (the
+   items with an even i_item_sk, 9,000 unique keys, those from 13,500 up
+   unmatched) and build D (U twice) by every join type, through the
+   broadcast hash join with the build on the right and on the left and
+   through the sort-merge join over SortExec inputs (K3/K4, their sorts
+   and run merges held against the plain network on the card for the
+   first case of each build), each held against a numpy oracle (rows,
+   NULL-extended rows on each side, key and value sums); the predictor A/B:
+   q42, q3, q6 and q18 with ``exec.selectivity.predictor`` on and off,
+   bit-identical under torch's deterministic algorithms, then two timed
+   runs of each mode equal to the oracle, where every unique-join probe
+   stream makes exactly one blocking read with the predictor on;
+14. print the kernel table as one JSON line (each kernel's launches summed
+   over the timed runs of phases 4-13, and per run), then the status line.
 
 Each phase prints its seconds.
 
@@ -1321,7 +1337,7 @@ def run_tail_classes(data, fact) -> dict:
 
 
 #: phase 11: timed runs of each window, expand and scalar-subquery class
-WINDOW_TIMED_RUNS = 3
+WINDOW_TIMED_RUNS = 2
 #: the classes whose WindowExec sorts (K3, and K4 where P > 32,768)
 WINDOWED = ("windowed", "windowed2", "q51", "q23", "q46")
 #: running float sums: (class, column, partition key column)
@@ -1742,6 +1758,387 @@ def profile_q42(ingested: dict) -> dict:
     return out
 
 
+#: phase 13: timed runs of q33; the join-tail sweep's probe (fact rows whose
+#: ss_item_sk is below the limit) and join types; the predictor A/B classes
+JOIN_TAIL_TIMED_RUNS = 3
+SWEEP_ITEM_LIMIT = 13_500
+SWEEP_TYPES = ("inner", "left", "right", "full", "left_semi", "left_anti", "existence")
+AB_CLASSES = ("q42", "q3", "q6", "q18")
+AB_TIMED_MODES = ("on", "off", "on", "off")
+
+
+def _assert_equal_or_close(label: str, got: dict, want: dict) -> None:
+    """Keys exactly equal, float columns at rel 1e-9, every other column exact."""
+    import numpy as np
+
+    assert sorted(got) == sorted(want), (label, sorted(got), sorted(want))
+    for k, w in want.items():
+        g = np.asarray(got[k])
+        w = np.asarray(w)
+        assert g.shape == w.shape, (label, k, g.shape, w.shape)
+        if w.dtype.kind == "f":
+            assert np.isfinite(g).all(), (label, k)
+            _assert_close(g, w)
+        else:
+            assert _np_equal(g, w), (label, k, g[:10], w[:10])
+
+
+def run_q33_phase(data, ingested) -> dict:
+    """q33 (two aggregate branches of the whole fact FULL OUTER joined by
+    item): a warm-up, then JOIN_TAIL_TIMED_RUNS timed runs, each equal to
+    its oracle."""
+    import torch
+
+    from auron_tpu_torch.models import tpcds
+
+    oracle = tpcds.q33_class_oracle(data)
+    _assert_equal_or_close("q33 (warm-up)", tpcds.run_q33_class(device="cuda",
+                                                                ingested=ingested), oracle)
+    walls, peaks, launches, stats = [], [], [], {}
+    for _ in range(JOIN_TAIL_TIMED_RUNS):
+        _reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        t0 = time.perf_counter()
+        got = tpcds.run_q33_class(device="cuda", ingested=ingested, stats=stats)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches.append(_launches())
+        peaks.append(torch.cuda.max_memory_allocated())
+        _assert_equal_or_close("q33", got, oracle)
+    n_lo, n_hi = int((~got["lo_valid"]).sum()), int((~got["hi_valid"]).sum())
+    print(f"q33-class: walls {[round(w, 4) for w in walls]} s, {len(got['i'])} items "
+          f"({n_lo} without a low-quantity sale, {n_hi} without a high one), launches "
+          f"{launches[-1]}, peak device memory {max(peaks) / 2**30:.3f} GiB, counters "
+          f"{stats.get('counters')}", flush=True)
+    _print_timers("q33", stats)
+    return {"walls_s": walls, "peak_bytes": max(peaks), "launches": launches[-1],
+            "launches_per_run": launches, "result_rows": len(got["i"]),
+            "null_lo": n_lo, "null_hi": n_hi, "counters": stats.get("counters", {})}
+
+
+def _sweep_inputs(data, fact) -> tuple[dict, dict]:
+    """(device resources, host arrays for the oracle): the fact in one
+    partition, build U (the items with an even i_item_sk: 9,000 unique keys
+    at SF 8, those from 13,500 up without a probe row) and build D (U twice:
+    every key twice)."""
+    import numpy as np
+
+    from auron_tpu_torch import types as T
+    from auron_tpu_torch.columnar.batch import Batch
+
+    it, ss = data.item.columns, data.store_sales.columns
+    for table, cols in ((data.item, ("i_item_sk", "i_brand_id")),
+                        (data.store_sales, ("ss_item_sk", "ss_ext_sales_price"))):
+        assert all(table.validity(c).all() for c in cols), "the sweep's oracle assumes no NULL"
+    even = it["i_item_sk"] % 2 == 0
+    uk, uv = it["i_item_sk"][even].astype(np.int64), it["i_brand_id"][even].astype(np.int32)
+    schema = T.Schema((T.Field("b_key", T.INT64), T.Field("b_val", T.INT32)))
+    keep = ss["ss_item_sk"] < SWEEP_ITEM_LIMIT
+    host = {"probe": (ss["ss_item_sk"][keep].astype(np.int64), ss["ss_ext_sales_price"][keep]),
+            "U": (uk, uv.astype(np.float64)),
+            "D": (np.concatenate([uk, uk]), np.concatenate([uv, uv]).astype(np.float64))}
+    res = {"sweep_fact": fact,
+           "sweep_U": [[Batch.from_numpy([uk, uv], schema, device="cuda")]],
+           "sweep_D": [[Batch.from_numpy([np.concatenate([uk, uk]), np.concatenate([uv, uv])],
+                                         schema, device="cuda")]]}
+    return res, host
+
+
+def _sweep_plan(kind: str, jt: str, side: str, build: str):
+    """The probe (the fact's rows below SWEEP_ITEM_LIMIT, as (key, price))
+    joined with build U or D: a broadcast hash join with the build on
+    ``side``, or a sort-merge join (build on the right) over two SortExecs."""
+    from auron_tpu_torch import types as T
+    from auron_tpu_torch.exec.basic import FilterExec, ProjectExec, ResourceScanExec
+    from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
+    from auron_tpu_torch.exec.joins.smj import SortMergeJoinExec
+    from auron_tpu_torch.exec.sort_exec import SortExec
+    from auron_tpu_torch.exprs.ir import BinaryOp, col, lit
+    from auron_tpu_torch.models import tpcds
+    from auron_tpu_torch.ops.sortkeys import SortSpec
+
+    probe = ProjectExec(
+        FilterExec(ResourceScanExec(tpcds.STORE_SALES_SCHEMA, "sweep_fact"),
+                   [BinaryOp("lt", col(1), lit(SWEEP_ITEM_LIMIT))]),
+        [col(1), col(4)], ["p_key", "p_val"])
+    bscan = ResourceScanExec(T.Schema((T.Field("b_key", T.INT64), T.Field("b_val", T.INT32))),
+                             f"sweep_{build}")
+    if kind == "smj":
+        return SortMergeJoinExec(SortExec(probe, [col(0)], [SortSpec()]),
+                                 SortExec(bscan, [col(0)], [SortSpec()]),
+                                 [col(0)], [col(0)], jt)
+    left, right = (probe, bscan) if side == "right" else (bscan, probe)
+    return BroadcastHashJoinExec(left, right, [col(0)], [col(0)], jt, build_side=side)
+
+
+def _sweep_stats(batches, jt: str) -> dict:
+    """Row count, rows whose left or right columns are NULL-extended, key
+    sums and value sums (each side's valid rows), and for existence the
+    true flags: reduced on the card batch by batch, one read at the end."""
+    import torch
+
+    ints = floats = None
+    for b in batches:
+        sel = b.device.sel
+        vals, valid = b.device.values, b.device.validity
+        n = len(vals)
+
+        def isum(x, m):
+            return torch.where(m, x.to(torch.int64), 0).sum()
+
+        def fsum(x, m):
+            return torch.where(m, x.to(torch.float64), 0.0).sum()
+
+        zero = torch.zeros((), dtype=torch.int64, device=sel.device)
+        lk_ok = sel & valid[0]
+        rk_ok = sel & valid[2] if n == 4 else sel & False
+        i = torch.stack([sel.sum(), (sel & ~valid[0]).sum(),
+                         (sel & ~valid[2]).sum() if n == 4 else zero,
+                         isum(vals[0], lk_ok), isum(vals[2], rk_ok) if n == 4 else zero,
+                         (sel & vals[2]).sum() if jt == "existence" else zero])
+        f = torch.stack([fsum(vals[1], sel & valid[1]),
+                         fsum(vals[3], sel & valid[3]) if n == 4 else
+                         torch.zeros((), dtype=torch.float64, device=sel.device)])
+        ints = i if ints is None else ints + i
+        floats = f if floats is None else floats + f
+    i, f = ints.tolist(), floats.tolist()
+    return {"rows": i[0], "l_null": i[1], "r_null": i[2], "l_key": i[3], "r_key": i[4],
+            "n_true": i[5], "l_val": f[0], "r_val": f[1]}
+
+
+def _sweep_oracle(jt: str, left, right) -> dict:
+    """``_sweep_stats`` of the join of (keys, values) ``left`` and ``right``,
+    from per-key counts (no key is NULL)."""
+    import numpy as np
+
+    (lk, lv), (rk, rv) = left, right
+    K = int(max(lk.max(initial=0), rk.max(initial=0))) + 1
+    cl, cr = np.bincount(lk, minlength=K), np.bincount(rk, minlength=K)
+    sl, sr = np.bincount(lk, lv, minlength=K), np.bincount(rk, rv, minlength=K)
+    keys = np.arange(K, dtype=np.int64)
+    out = dict.fromkeys(("rows", "l_null", "r_null", "l_key", "r_key", "n_true"), 0)
+    out.update(l_val=0.0, r_val=0.0)
+    lm, rm = cr[lk] > 0, cl[rk] > 0
+    if jt in ("left_semi", "left_anti", "existence"):
+        rows = lm if jt == "left_semi" else (~lm if jt == "left_anti" else np.ones_like(lm))
+        out.update(rows=int(rows.sum()), l_key=int(lk[rows].sum()), l_val=float(lv[rows].sum()),
+                   n_true=int(lm.sum()) if jt == "existence" else 0)
+        return out
+    pairs = cl * cr
+    out.update(rows=int(pairs.sum()), l_key=int((keys * pairs).sum()),
+               r_key=int((keys * pairs).sum()), l_val=float((sl * cr).sum()),
+               r_val=float((sr * cl).sum()))
+    if jt in ("left", "full"):  # left rows without a match, right side NULL
+        out["rows"] += int((~lm).sum())
+        out["r_null"] += int((~lm).sum())
+        out["l_key"] += int(lk[~lm].sum())
+        out["l_val"] += float(lv[~lm].sum())
+    if jt in ("right", "full"):
+        out["rows"] += int((~rm).sum())
+        out["l_null"] += int((~rm).sum())
+        out["r_key"] += int(rk[~rm].sum())
+        out["r_val"] += float(rv[~rm].sum())
+    return out
+
+
+def _sweep_run(kind, jt, side, build, res) -> dict:
+    """One sweep case through the task runtime: its ``_sweep_stats``."""
+    from auron_tpu_torch.runtime.task import TaskRuntime
+    from auron_tpu_torch.utils.config import Configuration
+
+    rt = TaskRuntime(_sweep_plan(kind, jt, side, build), resources=dict(res),
+                     conf=Configuration({}), device="cuda")
+    try:
+        return _sweep_stats(rt, jt)
+    finally:
+        rt.finalize()
+
+
+def _sweep_case(kind, jt, side, build, res, host, record_sorts: bool) -> dict:
+    import torch
+
+    label = f"sweep {kind} {jt} build {build}" + ("" if kind == "smj" else f" on the {side}")
+    sorts: list = []
+    shapes: list = []
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        if record_sorts:
+            stack.enter_context(_recording_sorts(sorts))
+        stack.enter_context(_recording_kernel_sorts(shapes))
+        got = _sweep_run(kind, jt, side, build, res)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    left, right = ((host["probe"], host[build]) if side == "right" or kind == "smj"
+                   else (host[build], host["probe"]))
+    want = _sweep_oracle(jt, left, right)
+    for k, w in want.items():
+        if isinstance(w, float):
+            assert math.isclose(got[k], w, rel_tol=1e-9, abs_tol=1e-6), (label, k, got[k], w)
+        else:
+            assert got[k] == w, (label, k, got[k], w)
+    assert want["rows"] > 0, (label, "empty oracle")
+    if kind == "smj":
+        _assert_planned_launches(label, shapes, launches)
+        _assert_must_launch(label, launches, ("bitonic_sort", "bitonic_merge"))
+    sort_checks = check_sorts(label, sorts) if record_sorts else []
+    print(f"{label}: wall {wall:.4f} s, rows {got['rows']} (left NULL {got['l_null']}, right "
+          f"NULL {got['r_null']}), launches {launches}", flush=True)
+    return {"wall_s": wall, "stats": got, "launches": launches, "sort_shapes": shapes,
+            "sort_checks": sort_checks}
+
+
+#: the sweep cases and A/B runs ``--profile`` traces: (kind, type, side, build)
+SWEEP_PROFILED = (("bhj", "full", "right", "U"), ("bhj", "full", "left", "D"),
+                  ("smj", "full", "right", "D"))
+
+
+def run_join_tail_sweep(data, fact, profile: bool = False) -> dict:
+    """Every join type x build side, BHJ over builds U and D, and SMJ (build
+    on the right) over SortExec inputs, each equal to its numpy oracle. The
+    first SMJ case of each build records its kernel sorts and run merges,
+    held against the plain network on the card."""
+    res, host = _sweep_inputs(data, fact)
+    out = {}
+    if profile:
+        out["profiles"] = {f"{k} {jt} {b} {side}": profile_run(
+            f"sweep {k} {jt} build {b} ({side})", lambda: _sweep_run(k, jt, side, b, res))
+            for k, jt, side, b in SWEEP_PROFILED}
+    for build in ("U", "D"):
+        for side in ("right", "left"):
+            for jt in SWEEP_TYPES:
+                r = _sweep_case("bhj", jt, side, build, res, host, False)
+                out[f"bhj {jt} {build} {side}"] = r
+        for i, jt in enumerate(SWEEP_TYPES):
+            r = _sweep_case("smj", jt, "right", build, res, host, record_sorts=i == 0)
+            out[f"smj {jt} {build}"] = r
+    return out
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """torch's deterministic algorithms (so that float ``index_add_`` folds
+    sum in one order), warnings of ops without one collected and printed."""
+    import warnings
+
+    import torch
+
+    prev, prev_warn = (torch.are_deterministic_algorithms_enabled(),
+                       torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            yield
+        msgs = sorted({str(w.message).split("\n")[0][:120] for w in seen})
+        if msgs:
+            print(f"deterministic mode: ops without a deterministic version: {msgs}",
+                  flush=True)
+    finally:
+        torch.use_deterministic_algorithms(prev, warn_only=prev_warn)
+
+
+def _ab_inputs(name: str, data, fact4) -> dict:
+    from auron_tpu_torch.models import tpcds
+
+    if name == "q42":
+        return tpcds.ingest_q42(data, device="cuda")
+    if name == "q6":
+        return tpcds.ingest_q3(data, TAIL_PARTITIONS["q6"], device="cuda")
+    return tpcds.ingest_q3(data, 4, device="cuda", fact=fact4)
+
+
+def _join_reads(counters: dict) -> dict:
+    """The join operators' read counters of one run."""
+    out = {}
+    for k, v in counters.items():
+        op, name = k.split(".", 1)
+        if op.endswith("JoinExec"):
+            out[name] = out.get(name, 0) + v
+    return out
+
+
+def run_predictor_ab(data, fact4, profile: bool = False) -> dict:
+    """q42, q3, q6 and q18 with ``exec.selectivity.predictor`` on and off:
+    once each under deterministic algorithms, bit-identical; then timed
+    runs (AB_TIMED_MODES), each equal to its oracle. With the predictor on,
+    every probe stream through a unique-join compaction boundary makes
+    exactly one blocking read (its seed). ``profile`` traces one run of
+    q42 and of q3 in each mode."""
+    import numpy as np
+    import torch
+
+    from auron_tpu_torch.models import tpcds
+
+    out = {}
+    for name in AB_CLASSES:
+        ingested = _ab_inputs(name, data, fact4)
+        run = getattr(tpcds, f"run_{name}_class")
+        oracle = getattr(tpcds, f"{name}_class_oracle")(data)
+
+        def once(mode, stats=None):
+            return run(device="cuda", conf={"exec.selectivity.predictor": mode},
+                       ingested=ingested, stats=stats)
+
+        with _deterministic():
+            a, b = once("on"), once("off")
+        assert sorted(a) == sorted(b), name
+        for k in a:
+            assert np.array_equal(a[k], b[k]), (name, k, "predictor on and off differ")
+        runs = []
+        for mode in AB_TIMED_MODES:
+            _reset_launches()
+            torch.cuda.synchronize()
+            stats: dict = {}
+            t0 = time.perf_counter()
+            got = once(mode, stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            _assert_equal_or_close(f"{name} (predictor {mode})", got, oracle)
+            reads = _join_reads(stats.get("counters", {}))
+            if mode == "on":
+                assert reads.get("unique_streams", 0) > 0, (name, reads)
+                assert reads.get("blocking_reads", 0) == reads["unique_streams"], (name, reads)
+            runs.append({"mode": mode, "wall_s": wall, "join_reads": reads,
+                         "launches": _launches(),
+                         "agg_blocking_reads": stats.get("counters", {}).get(
+                             "HashAggExec.blocking_reads", 0)})
+            print(f"{name} predictor {mode}: wall {wall:.4f} s, join reads {reads}", flush=True)
+        out[name] = runs
+        if profile and name in ("q42", "q3"):
+            out[f"{name} profiles"] = {mode: profile_run(
+                f"{name} (predictor {mode})", lambda: once(mode)) for mode in ("on", "off")}
+        del ingested
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_join_tail_phase(data, profile: bool = False) -> tuple[dict, dict, dict]:
+    """Phase 13: (q33, the sweep, the predictor A/B)."""
+    import torch
+
+    from auron_tpu_torch.models import tpcds
+
+    t0 = time.perf_counter()
+    tail_in = tpcds.ingest_q3(data, 1, device="cuda")
+    torch.cuda.synchronize()
+    print(f"join tail: the fact in one partition on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    q33 = run_q33_phase(data, tail_in)
+    if profile:
+        q33["profile"] = profile_run("q33", lambda: tpcds.run_q33_class(
+            device="cuda", ingested=tail_in))
+    sweep = run_join_tail_sweep(data, tail_in["fact"], profile)
+    del tail_in
+    ab = run_predictor_ab(data, tpcds.to_batches(data.store_sales, 4, device="cuda"), profile)
+    torch.cuda.empty_cache()
+    return q33, sweep, ab
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=8.0, help="scale factor (default 8)")
@@ -1750,6 +2147,9 @@ def main(argv=None) -> int:
                     help="also profile one q42, q93 and q3 run (device busy share, top kernels)")
     ap.add_argument("--window-only", action="store_true",
                     help="run phases 1, 2 and 11 only (no kernel table, no status line)")
+    ap.add_argument("--join-tail-only", action="store_true",
+                    help="run phases 1, 2 and 13 only (no kernel table, no status line; "
+                         "with --profile, traces of q33, three sweep cases, q42 and q3)")
     ap.add_argument("--time-sorts", action="store_true",
                     help="only build and time the bitonic kernels at the sort shapes "
                          "(one JSON line, no status line)")
@@ -1798,6 +2198,12 @@ def main(argv=None) -> int:
         phase_done("11")
         if args.profile:
             profile_window_classes(data, window)
+        return 0
+
+    if args.join_tail_only:
+        data = tpcds.generate(args.sf, args.seed)
+        run_join_tail_phase(data, args.profile)
+        phase_done("13")
         return 0
 
     # 3. kernels against their plain versions
@@ -1901,7 +2307,12 @@ def main(argv=None) -> int:
     spill = run_spill_phase(data, gate, tail, q93["launches"]["murmur3_pmod"])
     phase_done("12")
 
-    # 13. every kernel sort and run merge of the main paths, held against the
+    # 13. the join tail and the compaction boundary: q33 over the whole
+    # fact, the join-tail sweep, the predictor A/B
+    q33, sweep, ab = run_join_tail_phase(data, args.profile)
+    phase_done("13")
+
+    # 14. every kernel sort and run merge of the main paths, held against the
     # plain network on the card at its own operands
     checks["main_path_sorts"] = {
         **{f"q3-mesh ({m})": q3_mesh[m]["sort_checks"] for m in q3_mesh},
@@ -1909,7 +2320,9 @@ def main(argv=None) -> int:
         **{f"skew join ({k})": skew[k]["sort_checks"] for k in skew},
         **{label: tail[label]["sort_checks"] for label in tail},
         **{name: window[name]["sort_checks"] for name in window},
-        **{label: spill[label]["sort_checks"] for label in spill if label != "default"}}
+        **{label: spill[label]["sort_checks"] for label in spill if label != "default"},
+        **{label: r["sort_checks"] for label, r in sweep.items()
+           if label != "profiles" and r["sort_checks"]}}
     sort_err = max(s["max_abs_err"] for v in checks["main_path_sorts"].values() for s in v)
     for name in ("bitonic_sort", "bitonic_merge"):
         checks["max_abs_err"][name] = max(checks["max_abs_err"][name], sort_err)
@@ -1925,7 +2338,12 @@ def main(argv=None) -> int:
              **{f"skew join ({k})": skew[k]["launches"] for k in skew},
              **{label: tail[label]["launches"] for label in tail},
              **{name: window[name]["launches"] for name in window},
-             **{label: spill[label]["launches"] for label in spill if label != "default"}}
+             **{label: spill[label]["launches"] for label in spill if label != "default"},
+             "q33": q33["launches"],
+             **{f"sweep {label}": r["launches"] for label, r in sweep.items()
+                if label != "profiles"},
+             **{f"{name} (predictor {r['mode']}, run {i})": r["launches"]
+                for name in AB_CLASSES for i, r in enumerate(ab[name])}}
     kernels = []
     for name, source, replaces in (
         ("bitonic_sort", "auron_tpu_torch/csrc/bitonic.cu", "auron_tpu/ops/bitonic.py:145"),
@@ -1952,9 +2370,10 @@ def main(argv=None) -> int:
         json.dump({"device": kind, "nvidia_smi": smi, "build_s": build_s, "checks": checks,
                    "timing": timing, "q42": q42, "q93": q93, "q3": q3, "q93_mesh": q93_mesh,
                    "q3_mesh": q3_mesh, "gate": gate, "q72_mesh": q72_mesh, "skew": skew,
-                   "tail": tail, "window": window, "spill": spill, "phase_s": phase_s,
+                   "tail": tail, "window": window, "spill": spill, "q33": q33,
+                   "join_tail_sweep": sweep, "predictor_ab": ab, "phase_s": phase_s,
                    "kernels": kernels}, f, indent=1)
-    phase_done("13")
+    phase_done("14")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

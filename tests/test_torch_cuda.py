@@ -558,3 +558,69 @@ def test_no_spill_file_outlives_its_task_on_card(tmp_path, monkeypatch):
     finally:
         MemManager.init()
     assert sorted(glob.glob(str(tmp_path / "*spill*"))) == []
+
+
+@pytest.mark.cuda
+def test_transfer_window_on_card():
+    """CUDA tensors go through pinned host memory behind one event a push;
+    FIFO order and depth as on the CPU, every value right after its harvest."""
+    from auron_tpu_torch.exec.metrics import MetricNode
+    from auron_tpu_torch.runtime.transfer import TransferWindow, start_host_transfer
+
+    _need_card()
+    tr = start_host_transfer(torch.arange(5, device="cuda"), torch.tensor(3))
+    assert tr.host[0].is_pinned() and tr.event is not None
+    assert tr.host[1].device.type == "cpu"
+    m = MetricNode("w")
+    w = TransferWindow(3, m)
+    got = []
+    for i in range(40):
+        x = torch.full((1 << 20,), i, device="cuda").cumsum(0)  # device work behind the copy
+        for resolved, payload in w.push((x[-1], x[:4]), i):
+            got.append((int(resolved[0]), resolved[1].tolist(), payload))
+        assert len(w) == min(i + 1, 3)
+    got += [(int(r[0]), r[1].tolist(), p) for r, p in w.drain()]
+    assert got == [(i * (1 << 20), [i, 2 * i, 3 * i, 4 * i], i) for i in range(40)]
+    assert sum(m.values.values()) == 40
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,out_cap", [(128, 128), (1 << 20, 1 << 14), (1 << 20, 1 << 20),
+                                       (3000, 1024)])
+def test_compaction_index_on_card_matches_cpu(n, out_cap):
+    from auron_tpu_torch.columnar.batch import compaction_index
+
+    _need_card()
+    rng = np.random.default_rng(n + out_cap)
+    for share in (0.0, 0.001, 0.3, 1.0):
+        sel = torch.from_numpy(rng.random(n) < share)
+        idx_c, sel_c = compaction_index(sel, out_cap)
+        idx_g, sel_g = compaction_index(sel.cuda(), out_cap)
+        assert torch.equal(idx_g.cpu(), idx_c) and torch.equal(sel_g.cpu(), sel_c)
+        live = np.flatnonzero(sel.numpy())[:out_cap]
+        assert idx_c[:len(live)].tolist() == live.tolist()
+        assert int(sel_c.sum()) == len(live)
+
+
+@pytest.mark.cuda
+def test_predicted_joins_on_card_match_their_cpu_runs():
+    """q33 (a full join) and q3 (a fused chain) on the card equal their
+    oracles with the predictor on and off, and each unique-probe stream
+    makes one blocking read with it on."""
+    from auron_tpu_torch.models import tpcds
+
+    _need_card()
+    d = tpcds.generate(0.2, 42)
+    for name, kw in (("q33", {}), ("q3", {"n_map": 2, "n_reduce": 2})):
+        want = getattr(tpcds, f"{name}_class_oracle")(d)
+        for mode in ("on", "off"):
+            st: dict = {}
+            got = getattr(tpcds, f"run_{name}_class")(
+                d, device="cuda", conf={"exec.selectivity.predictor": mode}, stats=st, **kw)
+            for k, w in want.items():
+                np.testing.assert_allclose(np.asarray(got[k], dtype=np.float64),
+                                           np.asarray(w, dtype=np.float64), rtol=1e-9)
+            c = st["counters"]
+            if mode == "on":
+                assert c["BroadcastHashJoinExec.blocking_reads"] == \
+                    c["BroadcastHashJoinExec.unique_streams"], (name, c)
