@@ -9,8 +9,13 @@ set of dense tensors:
   refine ``sel`` instead of compacting;
 - capacities are powers of two (``bucket_capacity``), as in the JAX package,
   so operator code and results line up batch for batch;
-- dictionary-encoded columns (STRING/BINARY) carry int32 codes on the
-  device; the vocabulary is a numpy object array on the host.
+- dictionary-encoded columns (STRING/BINARY, wide decimals) carry int32
+  codes on the device; the vocabulary is a numpy object array on the host
+  (a wide decimal's holds ``decimal.Decimal`` values at the column's
+  scale);
+- a decimal64 column (precision <= 18) is an int64 plane of unscaled
+  values; a value outside int64 ingests as NULL (reference
+  ``columnar/batch.py:499-512``).
 
 ``DeviceBatch`` holds the tensors; ``Batch`` adds the schema and the host
 vocabularies. Arrow and pandas interop import their libraries lazily; the
@@ -64,7 +69,43 @@ class DeviceBatch(NamedTuple):
 
 def empty_dict(dtype: T.DataType) -> np.ndarray:
     """One-entry sentinel vocabulary (code 0 must always decode)."""
-    return np.array([b"" if dtype.kind == T.TypeKind.BINARY else ""], dtype=object)
+    out = np.empty(1, dtype=object)
+    if dtype.kind == T.TypeKind.BINARY:
+        out[0] = b""
+    elif dtype.kind == T.TypeKind.DECIMAL:
+        out[0] = T.decimal_from_unscaled(0, dtype.scale)
+    else:
+        out[0] = ""
+    return out
+
+
+def decimal64_plane(col: np.ndarray, valid: np.ndarray,
+                    scale: int) -> tuple[np.ndarray, np.ndarray]:
+    """(int64 unscaled values, validity) of a decimal64 host column given as
+    int64 unscaled values or as Decimal objects; a Decimal whose unscaled
+    value leaves int64 becomes NULL (Spark's non-ANSI overflow)."""
+    if col.dtype != object:
+        return col.astype(np.int64, copy=False), valid
+    vals = np.zeros(len(col), dtype=np.int64)
+    valid = valid.copy()
+    for j in np.flatnonzero(valid):
+        u = T.unscaled_int(col[j], scale)
+        if -(2**63) <= u < 2**63:
+            vals[j] = u
+        else:
+            valid[j] = False
+    return vals, valid
+
+
+def wide_decimal_vocab(col: np.ndarray, valid: np.ndarray, scale: int):
+    """(int32 codes, vocabulary of Decimals at ``scale``) of a wide-decimal
+    host column of Decimal objects (NULL rows code 0)."""
+    vals = np.empty(len(col), dtype=object)
+    vals[:] = [T.decimal_at_scale(x, scale) if ok else None for x, ok in zip(col, valid)]
+    codes, vocab = encode_values(vals, valid)
+    if not any(ok for ok in valid):
+        vocab = np.array([T.decimal_from_unscaled(0, scale)], dtype=object)
+    return codes, vocab
 
 
 def encode_values(vals: np.ndarray, valid: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -107,8 +148,10 @@ class Batch:
         device="cuda",
     ) -> "Batch":
         """Ingest host numpy columns (one per schema field). For a
-        dict-encoded field the column is either the raw values (strings;
-        encoded here) or, when ``dicts[i]`` is given, int32 codes into it."""
+        dict-encoded field the column is either the raw values (strings, or
+        Decimals of a wide decimal; encoded here) or, when ``dicts[i]`` is
+        given, int32 codes into it. A decimal64 column is int64 unscaled
+        values or Decimal objects."""
         dev = resolve_device(device)
         n = len(columns[0]) if columns else 0
         cap = capacity or bucket_capacity(n)
@@ -122,9 +165,13 @@ class Batch:
             if f.dtype.is_dict_encoded:
                 if dicts is not None and dicts[i] is not None:
                     codes, d = col.astype(np.int32), dicts[i]
+                elif f.dtype.is_wide_decimal:
+                    codes, d = wide_decimal_vocab(col, valid, f.dtype.scale)
                 else:
                     codes, d = encode_values(col, valid)
                 col = codes
+            elif f.dtype.kind == T.TypeKind.DECIMAL:
+                col, valid = decimal64_plane(col, valid, f.dtype.scale)
             phys = f.dtype.numpy_dtype()
             v = np.zeros(cap, dtype=phys)
             v[:n] = np.where(valid, col, 0) if not valid.all() else col
@@ -158,7 +205,12 @@ class Batch:
             if isinstance(arr, pa.ChunkedArray):
                 arr = arr.combine_chunks()
             valid = pc.is_valid(arr).to_numpy(zero_copy_only=False)
-            if f.dtype.is_dict_encoded:
+            if f.dtype.is_wide_decimal and not pa.types.is_dictionary(arr.type):
+                vals = np.empty(len(arr), dtype=object)
+                vals[:] = arr.cast(f.dtype.to_arrow()).to_pylist()
+                cols.append(vals)
+                dicts.append(None)
+            elif f.dtype.is_dict_encoded:
                 if pa.types.is_dictionary(arr.type):
                     codes = arr.indices.fill_null(0).to_numpy(zero_copy_only=False)
                     vocab = np.empty(len(arr.dictionary), dtype=object)
@@ -177,7 +229,12 @@ class Batch:
                 elif f.dtype.kind == T.TypeKind.DATE32:
                     arr = arr.cast(pa.int32())
                 elif f.dtype.kind == T.TypeKind.DECIMAL:
-                    raise TypeError("decimal ingest is not in this slice of the port")
+                    vals = np.empty(len(arr), dtype=object)
+                    vals[:] = arr.cast(pa.decimal128(38, f.dtype.scale)).to_pylist()
+                    cols.append(vals)
+                    dicts.append(None)
+                    masks.append(valid)
+                    continue
                 else:
                     arr = arr.cast(f.dtype.to_arrow())
                 if arr.null_count:
@@ -241,7 +298,8 @@ class Batch:
 
     def to_numpy(self) -> dict[str, tuple[np.ndarray, np.ndarray]]:
         """Live rows on the host: name -> (values, validity). Dict-encoded
-        columns decode to object arrays (None at NULL rows)."""
+        columns (wide decimals too) decode to object arrays (None at NULL
+        rows); a decimal64 column stays int64 unscaled values."""
         sel = self.device.sel.cpu().numpy()
         idx = np.flatnonzero(sel)
         out = {}
@@ -257,9 +315,13 @@ class Batch:
         return out
 
     def to_pydict(self) -> dict[str, list]:
+        """Live rows as Python lists, decimals as ``decimal.Decimal``."""
         out = {}
-        for name, (v, m) in self.to_numpy().items():
-            out[name] = [x if ok else None for x, ok in zip(v.tolist(), m.tolist())]
+        for f, (name, (v, m)) in zip(self.schema, self.to_numpy().items()):
+            vals = v.tolist()
+            if f.dtype.kind == T.TypeKind.DECIMAL and not f.dtype.is_wide_decimal:
+                vals = [T.decimal_from_unscaled(x, f.dtype.scale) for x in vals]
+            out[name] = [x if ok else None for x, ok in zip(vals, m.tolist())]
         return out
 
     def to_arrow(self):
@@ -270,6 +332,10 @@ class Batch:
         for f, (v, m) in zip(self.schema, self.to_numpy().values()):
             if f.dtype.is_dict_encoded:
                 arrays.append(pa.array(list(v), type=f.dtype.to_arrow()))
+            elif f.dtype.kind == T.TypeKind.DECIMAL:
+                arrays.append(pa.array([T.decimal_from_unscaled(x, f.dtype.scale) if ok
+                                        else None for x, ok in zip(v.tolist(), m.tolist())],
+                                       type=f.dtype.to_arrow()))
             else:
                 arrays.append(pa.array(v, mask=~m).cast(f.dtype.to_arrow()))
         return pa.RecordBatch.from_arrays(arrays, schema=self.schema.to_arrow())

@@ -35,9 +35,20 @@ window's and the pending folds' device state stays accounted to the
 memory manager.
 
 Spark typing: sum(int*) -> long (wrapping), sum(float*) -> double,
-avg -> double, count -> long (never null). Decimal, wide-decimal, collect,
-first and UDAF aggregates and the probe/scatter path wait for later
-slices; the constructor rejects them.
+avg -> double, count -> long (never null); sum(decimal(p,s)) ->
+decimal(p+10, s), avg(decimal(p,s)) -> decimal(p+4, s+4) (reference
+``agg_exec.py:86-100``). A decimal64 sum accumulates in int64 (wrapping,
+as the reference's) and the FINAL stage checks its precision (overflow ->
+NULL); an avg divides exactly by ``decimal_math.div``. A sum whose type is
+wider than 18 digits accumulates as base-1e9 int64 limbs on the device
+(``_reduce_wide_sum``; the input precision rides in the ``#sum0p{p}``
+field name so that a merge or final stage recovers the input type) and
+the FINAL stage rebuilds the exact sums on the host (``_final_wide``; past
+38 digits -> NULL). min/max over a dictionary column (strings, wide
+decimals) reduce in the vocabulary's rank space. ``first`` and
+``first_ignores_null`` keep a ``#value`` and a ``#seen`` lane. collect,
+UDAF aggregates and the probe/scatter path wait for later slices; the
+constructor rejects them.
 """
 
 from __future__ import annotations
@@ -47,21 +58,25 @@ from collections import deque
 from dataclasses import dataclass
 from typing import Iterator
 
+import numpy as np
 import torch
 
 from auron_tpu_torch import types as T
 from auron_tpu_torch.columnar.batch import (
-    Batch, bucket_capacity, compact_batch, compaction_bucket, device_concat, prefix_slice,
+    Batch, bucket_capacity, compact_batch, compaction_bucket, device_concat, empty_dict,
+    prefix_slice,
 )
 from auron_tpu_torch.exec.base import ExecOperator, ExecutionContext
 from auron_tpu_torch.exec.basic import batch_from_columns
 from auron_tpu_torch.exec.selectivity import SelectivityPredictor, predictor_enabled
 from auron_tpu_torch.exec.sort_exec import batch_nbytes
+from auron_tpu_torch.exprs import decimal_math as D
 from auron_tpu_torch.exprs import ir
 from auron_tpu_torch.exprs.eval import ColumnVal, Evaluator
 from auron_tpu_torch.memory import memmgr
 from auron_tpu_torch.ops import bitonic
 from auron_tpu_torch.ops import segments as S
+from auron_tpu_torch.ops.sortkeys import dict_rank_maps
 from auron_tpu_torch.runtime.transfer import (
     TransferWindow, WindowGuard, blocking_read, harvest, start_host_transfer,
 )
@@ -75,7 +90,9 @@ PARTIAL = "partial"
 PARTIAL_MERGE = "partial_merge"
 FINAL = "final"
 
-_FUNCS = ("sum", "count", "count_star", "avg", "min", "max")
+_FUNCS = ("sum", "count", "count_star", "avg", "min", "max", "first", "first_ignores_null")
+#: the aggregates the dense table folds
+_DENSE_FUNCS = ("sum", "avg", "count", "count_star", "min", "max")
 
 
 @dataclass(frozen=True)
@@ -86,16 +103,18 @@ class AggExpr:
 
 
 def sum_type(t: T.DataType) -> T.DataType:
+    if t.kind == T.TypeKind.DECIMAL:
+        return T.decimal(min(t.precision + 10, 38), t.scale)
     if t.is_float:
         return T.FLOAT64
     if t.is_integer:
         return T.INT64
-    raise TypeError(f"sum over {t} is not in this slice of the port")
+    raise TypeError(f"sum over {t}")
 
 
 def avg_type(t: T.DataType) -> T.DataType:
     if t.kind == T.TypeKind.DECIMAL:
-        raise TypeError("decimal avg is not in this slice of the port")
+        return T.decimal(min(t.precision + 4, 38), min(t.scale + 4, 37))
     return T.FLOAT64
 
 
@@ -106,19 +125,48 @@ def final_type(a: AggExpr, in_t: T.DataType | None) -> T.DataType:
         return sum_type(in_t)
     if a.func == "avg":
         return avg_type(in_t)
-    return in_t
+    return in_t  # min/max/first
+
+
+def is_wide_sum(in_t: T.DataType | None) -> bool:
+    """A decimal sum wider than 18 digits would wrap int64: it accumulates
+    as base-1e9 limbs instead (per-limb sums stay exact)."""
+    if in_t is None or in_t.kind != T.TypeKind.DECIMAL:
+        return False
+    return sum_type(in_t).precision > 18
+
+
+_LIMB_BASE = 1_000_000_000
+
+
+def _n_limbs(sum_precision: int) -> int:
+    """Base-1e9 limbs covering the sum's digits (<= 5 for p38)."""
+    return -(-sum_precision // 9)
+
+
+def _wide_sum_fields(in_t: T.DataType, prefix: str) -> list[T.Field]:
+    """Limb 0 carries the scale and, in its name, the exact input precision,
+    so merge and final stages rebuild the layout from the schema alone."""
+    k = _n_limbs(sum_type(in_t).precision)
+    return ([T.Field(f"{prefix}#sum0p{in_t.precision}", T.decimal(18, in_t.scale), True)]
+            + [T.Field(f"{prefix}#sum{i}", T.INT64, True) for i in range(1, k)])
 
 
 def intermediate_fields(a: AggExpr, in_t: T.DataType | None, prefix: str) -> list[T.Field]:
     if a.func in ("count", "count_star"):
         return [T.Field(f"{prefix}#count", T.INT64, False)]
-    if a.func == "sum":
-        return [T.Field(f"{prefix}#sum", sum_type(in_t), True)]
-    if a.func == "avg":
-        return [T.Field(f"{prefix}#sum", sum_type(in_t), True),
-                T.Field(f"{prefix}#count", T.INT64, False)]
+    if a.func in ("sum", "avg"):
+        if is_wide_sum(in_t):
+            fields = _wide_sum_fields(in_t, prefix)
+        else:
+            fields = [T.Field(f"{prefix}#sum", sum_type(in_t), True)]
+        if a.func == "avg":
+            fields.append(T.Field(f"{prefix}#count", T.INT64, False))
+        return fields
     if a.func in ("min", "max"):
         return [T.Field(f"{prefix}#{a.func}", in_t, True)]
+    if a.func in ("first", "first_ignores_null"):
+        return [T.Field(f"{prefix}#value", in_t, True), T.Field(f"{prefix}#seen", T.BOOL, False)]
     raise ValueError(a.func)
 
 
@@ -127,8 +175,12 @@ def _input_type_from_intermediate(a: AggExpr, first_field: T.Field) -> T.DataTyp
     if a.func in ("count", "count_star"):
         return None
     if a.func in ("sum", "avg"):
+        if "#sum0p" in first_field.name:
+            return T.decimal(int(first_field.name.rsplit("#sum0p", 1)[1]), t.scale)
+        if t.kind == T.TypeKind.DECIMAL:
+            return T.decimal(max(t.precision - 10, 1), t.scale)
         return T.INT64 if t.kind == T.TypeKind.INT64 else T.FLOAT64
-    return t
+    return t  # min/max/first carry the input type
 
 
 class HashAggExec(ExecOperator):
@@ -199,7 +251,12 @@ class HashAggExec(ExecOperator):
                 T.TypeKind.DATE32, T.TypeKind.TIMESTAMP, T.TypeKind.BOOL,
             ):
                 return False
-        return all(t is None or not t.is_dict_encoded for t in self._agg_input_types)
+        for (a, _), in_t in zip(self.aggs, self._agg_input_types):
+            if a.func not in _DENSE_FUNCS or (a.func in ("sum", "avg") and is_wide_sum(in_t)):
+                return False
+            if in_t is not None and in_t.is_dict_encoded:
+                return False
+        return True
 
     # ------------------------------------------------------------------
 
@@ -405,7 +462,8 @@ class HashAggExec(ExecOperator):
                 inputs.append([])
                 continue
             cv = ev.evaluate(b, [a.expr])[0]
-            if a.func in ("sum", "avg"):
+            if a.func in ("sum", "avg") and not is_wide_sum(in_t):
+                # a wide sum takes its input as it is (the limb machinery)
                 cv = ev._cast(cv, sum_type(in_t))
             inputs.append([cv])
         return keys, inputs
@@ -503,7 +561,7 @@ class HashAggExec(ExecOperator):
         names = [self.schema[i].name for i in range(self.n_keys)]
         for ((a, name), in_t), cols in zip(zip(self.aggs, self._agg_input_types),
                                            self._intermediate_groups(state)):
-            vals.append(_final_one(a, cols))
+            vals.append(_final_one(a, in_t, cols))
             names.append(name)
         out = batch_from_columns(vals, names, state.device.sel)
         return Batch(self.schema, out.device, out.dicts)
@@ -521,7 +579,8 @@ class HashAggExec(ExecOperator):
             valid = torch.zeros(cap, dtype=torch.bool, device=device)
             valid[0] = is_count
             vals.append(ColumnVal(torch.zeros(cap, dtype=f.dtype.physical_dtype(), device=device),
-                                  valid, f.dtype))
+                                  valid, f.dtype,
+                                  empty_dict(f.dtype) if f.dtype.is_dict_encoded else None))
         sel = torch.zeros(cap, dtype=torch.bool, device=device)
         sel[0] = True
         out = batch_from_columns(vals, schema.names, sel)
@@ -662,34 +721,193 @@ def _reduce_one(a: AggExpr, in_t, cols, seg: S.Segmentation, cap: int, raw: bool
         cnt = S.seg_count(m, ids, cap) if raw else S.seg_sum(v, m, ids, cap)[0]
         return [ColumnVal(cnt, group_valid, T.INT64)]
     if a.func in ("sum", "avg"):
-        v, m = sortg(cols[0])
-        sm, any_valid = S.seg_sum(v, m, ids, cap)
-        out = [ColumnVal(sm, any_valid & group_valid, sum_type(in_t))]
+        if is_wide_sum(in_t):
+            out = _reduce_wide_sum(in_t, cols, sortg, ids, cap, raw, group_valid)
+            m = sortg(cols[0])[1]
+        else:
+            v, m = sortg(cols[0])
+            sm, any_valid = S.seg_sum(v, m, ids, cap)
+            out = [ColumnVal(sm, any_valid & group_valid, sum_type(in_t))]
         if a.func == "avg":
             if raw:
                 cnt = S.seg_count(m, ids, cap)
             else:
-                cv, cm = sortg(cols[1])
+                cv, cm = sortg(cols[len(out)])  # the count rides after the sum
                 cnt, _ = S.seg_sum(cv, cm, ids, cap)
             out.append(ColumnVal(cnt, group_valid, T.INT64))
         return out
     if a.func in ("min", "max"):
         v, m = sortg(cols[0])
         fn = S.seg_min if a.func == "min" else S.seg_max
-        mv, any_valid = fn(v, m, ids, cap)
-        return [ColumnVal(mv, any_valid & group_valid, in_t)]
+        d = cols[0].dict
+        if d is not None and len(d) > 0:
+            # codes are in first-occurrence order: reduce in the
+            # vocabulary's rank space, then invert the winning rank
+            rank, inv = (torch.from_numpy(t).to(v.device) for t in dict_rank_maps(d))
+            mr, any_valid = fn(rank[v.long().clamp(0, len(rank) - 1)], m, ids, cap)
+            mv = inv[mr.clamp(0, len(inv) - 1)].to(v.dtype)
+        else:
+            mv, any_valid = fn(v, m, ids, cap)
+        return [ColumnVal(mv, any_valid & group_valid, in_t, d)]
+    if a.func in ("first", "first_ignores_null"):
+        v, m = sortg(cols[0])
+        if raw:
+            eligible = seg.sel_sorted & (m if a.func == "first_ignores_null"
+                                         else torch.ones_like(m))
+        else:
+            sv, _ = sortg(cols[1])
+            eligible = seg.sel_sorted & sv.to(torch.bool)
+        n = v.shape[0]
+        pos = torch.arange(n, dtype=torch.int64, device=v.device)
+        first_pos = torch.full((cap + 1,), n, dtype=torch.int64, device=v.device)
+        first_pos.scatter_reduce_(0, ids, torch.where(eligible, pos, torch.full_like(pos, n)),
+                                  "amin", include_self=True)
+        first_pos = first_pos[:cap]
+        hit = first_pos < n
+        safe = first_pos.clamp(0, n - 1)
+        return [ColumnVal(v[safe], m[safe] & hit & group_valid, in_t, cols[0].dict),
+                ColumnVal(hit & group_valid, group_valid, T.BOOL)]
     raise ValueError(a.func)
 
 
-def _final_one(a: AggExpr, cols: list[ColumnVal]) -> ColumnVal:
+def decimal_limb_tables(d, scale: int, k: int) -> list[np.ndarray]:
+    """k base-1e9 limb tables of a wide-decimal vocabulary (reference
+    ``agg_exec.py:1826``): entry e is sum(limb_i * 1e9^i) of its unscaled
+    value, floored (the top limb carries the sign)."""
+    tabs = [np.zeros(max(len(d), 1), dtype=np.int64) for _ in range(k)]
+    for i, e in enumerate(d):
+        if e is None:
+            continue
+        u = T.unscaled_int(e, scale)
+        for j in range(k - 1):
+            u, r = divmod(u, _LIMB_BASE)
+            tabs[j][i] = r
+        tabs[k - 1][i] = u
+    return tabs
+
+
+def limb_rows(cv: ColumnVal, valid: torch.Tensor, in_t: T.DataType, k: int) -> list:
+    """Per-row base-1e9 limbs of a decimal column: a wide vocabulary's from
+    host tables gathered by code, a decimal64's by floored div/mod on the
+    device (0 where not ``valid``)."""
+    if in_t.is_wide_decimal:
+        idx = cv.values.long().clamp(0, max(len(cv.dict), 1) - 1)
+        return [torch.from_numpy(t).to(idx.device)[idx]
+                for t in decimal_limb_tables(cv.dict, in_t.scale, k)]
+    v = cv.values.to(torch.int64)
+    cur = torch.where(valid, v, torch.zeros_like(v))
+    out = []
+    for _ in range(k - 1):
+        out.append(torch.remainder(cur, _LIMB_BASE))
+        cur = torch.div(cur, _LIMB_BASE, rounding_mode="floor")
+    out.append(cur)
+    return out
+
+
+def _reduce_wide_sum(in_t, cols, sortg, ids, cap, raw, group_valid) -> list[ColumnVal]:
+    """Base-1e9 limb sums of a wide decimal sum (reference ``agg_exec.py:
+    1853``): exact below ~9.2e9 rows a group."""
+    k = _n_limbs(sum_type(in_t).precision)
+    if raw:
+        v, m = sortg(cols[0])
+        limbs = limb_rows(ColumnVal(v, m, in_t, cols[0].dict), m, in_t, k)
+        masks = [m] * k
+    else:
+        limbs, masks = [], []
+        for i in range(k):
+            v, m = sortg(cols[i])
+            limbs.append(v.to(torch.int64))
+            masks.append(m)
+    out = []
+    any_valid = None
+    for i, (lv, m) in enumerate(zip(limbs, masks)):
+        sm, av = S.seg_sum(torch.where(m, lv, torch.zeros_like(lv)), m, ids, cap)
+        any_valid = av if any_valid is None else any_valid
+        out.append(ColumnVal(sm, any_valid & group_valid,
+                             T.decimal(18, in_t.scale) if i == 0 else T.INT64))
+    return out
+
+
+def _final_one(a: AggExpr, in_t, cols: list[ColumnVal]) -> ColumnVal:
     if a.func in ("count", "count_star"):
         return ColumnVal(cols[0].values, torch.ones_like(cols[0].validity), T.INT64)
+    if a.func in ("sum", "avg") and is_wide_sum(in_t):
+        return _final_wide(a, in_t, cols)
+    if a.func == "sum":
+        st = sum_type(in_t)
+        if st.kind == T.TypeKind.DECIMAL:
+            ok = D.precision_ok(cols[0].values, st.precision)
+            return ColumnVal(cols[0].values, cols[0].validity & ok, st)
+        return cols[0]
     if a.func == "avg":
         sm, cnt = cols
         nz = cnt.values > 0
+        at = avg_type(in_t)
+        if at.kind == T.TypeKind.DECIMAL:
+            v, ok = D.div(sm.values, sum_type(in_t).scale, cnt.values, 0, at.precision, at.scale)
+            return ColumnVal(v, sm.validity & nz & ok, at)
         v = sm.values.to(torch.float64) / torch.where(nz, cnt.values, torch.ones_like(cnt.values))
         return ColumnVal(v, sm.validity & nz, T.FLOAT64)
-    return cols[0]  # sum (non-decimal), min, max
+    return cols[0]  # min, max, first
+
+
+def rebuild_wide(limbs: list, ok: np.ndarray, cnt: np.ndarray | None, in_t: T.DataType,
+                 avg: bool) -> tuple[T.DataType, list]:
+    """Exact sums (or HALF_UP averages) from host limb sums: (result type,
+    per row the unscaled result or None). The host half of ``_final_wide``
+    and of the window's wide sums."""
+    import decimal as pydec
+
+    st = sum_type(in_t)
+    total = np.zeros(len(ok), dtype=object)
+    base = 1
+    for limb in limbs:
+        total = total + limb.astype(object) * base
+        base *= _LIMB_BASE
+    if not avg:
+        emit_t, unscaled = st, [int(u) for u in total]
+    else:
+        emit_t = avg_type(in_t)
+        ok = ok & (cnt > 0)
+        diff = emit_t.scale - st.scale
+        num_shift, den_shift = 10 ** max(diff, 0), 10 ** max(-diff, 0)
+        unscaled = [0] * len(ok)
+        with pydec.localcontext() as hp:
+            hp.prec = 100
+            for i in np.flatnonzero(ok):
+                unscaled[i] = int((pydec.Decimal(int(total[i]) * num_shift)
+                                   / pydec.Decimal(int(cnt[i]) * den_shift)).quantize(
+                                       pydec.Decimal(1), rounding=pydec.ROUND_HALF_UP))
+    bound = 10 ** (emit_t.precision if emit_t.is_wide_decimal else min(emit_t.precision, 18))
+    return emit_t, [u if o and -bound < u < bound else None for u, o in zip(unscaled, ok)]
+
+
+def emit_decimal(emit_t: T.DataType, unscaled: list, valid: torch.Tensor) -> ColumnVal:
+    """Host results as a column on ``valid``'s device: a wide type as a
+    vocabulary with identity codes, a decimal64 as int64 values."""
+    dev = valid.device
+    ok = torch.from_numpy(np.array([u is not None for u in unscaled], dtype=bool)).to(dev)
+    if emit_t.is_wide_decimal:
+        d = np.empty(max(len(unscaled), 1), dtype=object)
+        d[:] = [T.decimal_from_unscaled(u if u is not None else 0, emit_t.scale)
+                for u in unscaled] or [T.decimal_from_unscaled(0, emit_t.scale)]
+        codes = torch.arange(len(unscaled), dtype=torch.int32, device=dev)
+        return ColumnVal(codes, ok & valid, emit_t, d)
+    vals = np.array([u if u is not None else 0 for u in unscaled], dtype=np.int64)
+    return ColumnVal(torch.from_numpy(vals).to(dev), ok & valid, emit_t)
+
+
+def _final_wide(a: AggExpr, in_t, cols: list[ColumnVal]) -> ColumnVal:
+    """Exact wide sums (or averages) from the limb sums (reference
+    ``agg_exec.py:1346``): one host read of the limbs, Python ints there;
+    a wide result is a vocabulary with identity codes, a narrow one an
+    int64 plane, and a total past the result's precision is NULL."""
+    k = _n_limbs(sum_type(in_t).precision)
+    limbs = [c.values.cpu().numpy() for c in cols[:k]]
+    ok = cols[0].validity.cpu().numpy()
+    cnt = cols[k].values.cpu().numpy() if a.func == "avg" else None
+    emit_t, unscaled = rebuild_wide(limbs, ok, cnt, in_t, a.func == "avg")
+    return emit_decimal(emit_t, unscaled, cols[0].validity)
 
 
 # ---------------------------------------------------------------------------

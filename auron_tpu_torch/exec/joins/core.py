@@ -27,9 +27,11 @@ Port of ``auron_tpu/exec/joins/core.py`` (all seven join types):
   range probe ``[lo, lo + count)`` per matched row through a +1/-1
   difference array and a cumsum (core.py:520-531, :720-831). Every fold
   sends dead rows to a spare slot;
-- dictionary-encoded keys compare as codes of one joint vocabulary
-  (``unify_key_dicts``, core.py:123-156): the build's vocabulary comes
-  first, so its codes keep their sorted order.
+- dictionary-encoded keys (strings, and wide decimals: Decimal entries
+  merge by value, reference core.py:144) compare as codes of one joint
+  vocabulary (``unify_key_dicts``, core.py:123-156): the build's
+  vocabulary comes first, so its codes keep their sorted order; a
+  decimal64 key is its int64 word.
 
 SQL null semantics: a NULL in any key never matches.
 """

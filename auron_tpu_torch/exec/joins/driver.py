@@ -73,9 +73,9 @@ class UniqueProbePipeline:
     stream), passed into ``probe_batch``; the exec calls ``finish_probe``
     after the last probe batch and ``close`` on every path out. Reads are
     counted in ``metrics``: ``unique_streams`` (streams that reached the
-    compaction boundary), ``blocking_reads`` (the seed read, and harvests
-    that had to wait), ``async_reads``, ``drain_waits`` and
-    ``sel_mispredicts``."""
+    compaction boundary), ``blocking_reads`` (the seed read and repair
+    reads), ``async_reads``, ``waited_reads`` (harvests that had to wait
+    for the card), ``drain_waits`` and ``sel_mispredicts``."""
 
     def __init__(self, conf, metrics=None):
         self.pred = SelectivityPredictor(conf) if predictor_enabled(conf) else None

@@ -35,9 +35,18 @@ once per block as a single-column Arrow IPC stream, written and read here
 without pyarrow (``arrow_column_stream``, ``read_arrow_column_stream``),
 then the int32 codes as an int plane. Its host plane is a ``DictCodes``
 (codes + vocabulary); the chunks staged into one block are merged onto one
-vocabulary. ENC_CODEC, ENC_ARROW, ENC_DEC128 and v1 (Arrow IPC) blocks
-raise ``NotImplementedError`` naming the encoding: they are not on the
-port's paths yet.
+vocabulary. Every decimal column, decimal64 and wide alike, is an
+ENC_DEC128 column as the JAX writer writes Arrow decimal128 planes
+(``format.py:669-681``): the 128-bit unscaled values as a lo and a hi
+int64 sub-plane, each through the int-plane chooser, built here from the
+int64 values or a wide vocabulary's unscaled integers. Reading one back,
+a decimal64 keeps the lanes whose value fits int64 (the others turn NULL,
+reference ``reader.py:138-147``); a wide decimal becomes codes into a
+vocabulary of its distinct values. A wide-decimal ENC_DICT column (the
+JAX writer's form for a small dictionary) reads its Decimal128 vocabulary
+stream here too. ENC_CODEC, ENC_ARROW and v1 (Arrow IPC) blocks raise
+``NotImplementedError`` naming the encoding: they are not on the port's
+paths yet.
 """
 
 from __future__ import annotations
@@ -50,7 +59,7 @@ from typing import Iterator
 import numpy as np
 
 from auron_tpu_torch import types as T
-from auron_tpu_torch.columnar.batch import merge_vocab
+from auron_tpu_torch.columnar.batch import empty_dict, merge_vocab
 from auron_tpu_torch.utils.config import (
     SHUFFLE_ENCODING, SHUFFLE_ENCODING_FALLBACK, SPILL_COMPRESSION_CODEC, resolve_tri,
 )
@@ -353,7 +362,7 @@ def decode_float_plane(enc: int, payload: bytes, n: int, dtype: np.dtype) -> np.
 
 
 def _refuse(enc: int) -> None:
-    if enc in (ENC_CODEC, ENC_ARROW, ENC_DEC128):
+    if enc in (ENC_CODEC, ENC_ARROW):
         raise NotImplementedError(
             f"shuffle encoding {ENC_NAMES[enc]} ({enc}) is not in this slice of the port")
 
@@ -431,8 +440,68 @@ def _decode_dict_column(body: bytes, nrows: int, dtype: T.DataType) -> DictCodes
     start = 4 + dlen + 5
     codes = decode_int_plane(denc, body[start : start + dplen], nrows, np.dtype(np.int32))
     if len(vocab) == 0:
-        vocab = np.array([b"" if dtype.kind == T.TypeKind.BINARY else ""], dtype=object)
+        vocab = empty_dict(dtype)
     return DictCodes(codes, vocab)
+
+
+def _dec128_halves(u: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(lo, hi) int64 halves of 128-bit two's-complement integers (an
+    object array of Python ints)."""
+    lo = np.array([(int(x) & 0xFFFFFFFFFFFFFFFF) for x in u], dtype=np.uint64).view(np.int64)
+    hi = np.array([int(x) >> 64 for x in u], dtype=np.int64)
+    return lo, hi
+
+
+def _encode_dec128_column(vals, valid: np.ndarray | None,
+                          dtype: T.DataType) -> tuple[int, bytes | None, bytes]:
+    """ENC_DEC128: lo then hi int64 sub-planes, each ``u8 enc | u32 len |
+    payload``, NULL lanes zeroed (``format.py:669-681``)."""
+    if dtype.is_wide_decimal:
+        codes = np.clip(np.asarray(vals.codes, dtype=np.int64), 0, max(len(vals.vocab) - 1, 0))
+        u = np.empty(max(len(vals.vocab), 1), dtype=object)
+        u[:] = [T.unscaled_int(e, dtype.scale) if e is not None else 0 for e in vals.vocab] or [0]
+        tlo, thi = _dec128_halves(u)
+        lo, hi = tlo[codes], thi[codes]
+    else:
+        lo = np.ascontiguousarray(vals, dtype=np.int64)
+        hi = lo >> 63
+    if valid is not None and valid.all():
+        valid = None
+    vbytes = None
+    if valid is not None:
+        valid = np.ascontiguousarray(valid, dtype=bool)
+        vbytes = np.packbits(valid, bitorder="little").tobytes()
+        lo, hi = lo * valid, hi * valid
+    le, lp = encode_int_plane(np.ascontiguousarray(lo))
+    he, hp = encode_int_plane(np.ascontiguousarray(hi))
+    return ENC_DEC128, vbytes, (struct.pack("<BI", le, len(lp)) + lp
+                                + struct.pack("<BI", he, len(hp)) + hp)
+
+
+def decode_dec128(body: bytes, valid: np.ndarray | None, nrows: int, dtype: T.DataType):
+    """(plane, validity) of an ENC_DEC128 column: a decimal64 keeps the lanes
+    that fit int64 (the others turn NULL), a wide decimal becomes codes into
+    its distinct values (first-occurrence order)."""
+    if dtype.kind != T.TypeKind.DECIMAL:
+        raise ValueError(f"dec128 encoding on a {dtype} column")
+    le, lplen = struct.unpack_from("<BI", body, 0)
+    lo = decode_int_plane(le, body[5 : 5 + lplen], nrows, np.dtype(np.int64))
+    he, hplen = struct.unpack_from("<BI", body, 5 + lplen)
+    hi = decode_int_plane(he, body[10 + lplen : 10 + lplen + hplen], nrows, np.dtype(np.int64))
+    if not dtype.is_wide_decimal:
+        fits = hi == (lo >> 63)
+        vals = np.where(fits, lo, np.int64(0))
+        return vals, (fits if valid is None else valid & fits)
+    pairs = np.stack([hi, lo], axis=1)
+    uniq, first, inv = np.unique(pairs, axis=0, return_index=True, return_inverse=True)
+    order = np.argsort(first, kind="stable")
+    rank = np.empty(len(uniq), dtype=np.int32)
+    rank[order] = np.arange(len(uniq), dtype=np.int32)
+    vocab = np.empty(max(len(uniq), 1), dtype=object)
+    vocab[:] = [T.decimal_from_unscaled((int(h) << 64) | (int(l) & 0xFFFFFFFFFFFFFFFF),
+                                        dtype.scale) for h, l in uniq[order]] or [
+        T.decimal_from_unscaled(0, dtype.scale)]
+    return DictCodes(rank[inv.reshape(-1)], vocab), valid
 
 
 def encode_column(vals, valid: np.ndarray | None,
@@ -440,6 +509,8 @@ def encode_column(vals, valid: np.ndarray | None,
     """One column's (enc, packed validity or None, payload), with the JAX
     writer's rules (``format.py:_encode_column``). ``vals`` is a numpy
     plane, or a ``DictCodes`` for a dictionary-encoded column."""
+    if dtype.kind == T.TypeKind.DECIMAL:
+        return _encode_dec128_column(vals, valid, dtype)
     if dtype.is_dict_encoded:
         return _encode_dict_column(vals, valid, dtype)
     kind = plane_kind(dtype)
@@ -470,6 +541,8 @@ def decode_column(enc: int, body: bytes, valid: np.ndarray | None, nrows: int,
     """A column's host plane: numpy values, or ``DictCodes`` for ENC_DICT."""
     if enc == ENC_DICT:
         return _decode_dict_column(body, nrows, dtype)
+    if enc == ENC_DEC128:
+        raise ValueError("a dec128 column decodes through decode_dec128 (it sets validity)")
     kind = plane_kind(dtype)
     npdt = dtype.numpy_dtype()
     if enc == ENC_PACKBITS:
@@ -618,7 +691,7 @@ class _FlatTable:
 
 # Arrow flatbuffer enums (format/Schema.fbs, format/Message.fbs)
 _TYPE_INT, _TYPE_FLOAT, _TYPE_BINARY, _TYPE_UTF8 = 2, 3, 4, 5
-_TYPE_BOOL, _TYPE_DATE, _TYPE_TIMESTAMP = 6, 8, 10
+_TYPE_BOOL, _TYPE_DECIMAL, _TYPE_DATE, _TYPE_TIMESTAMP = 6, 7, 8, 10
 _HEADER_SCHEMA, _HEADER_RECORD_BATCH = 1, 3
 _METADATA_V5 = 4
 _CONTINUATION = 0xFFFFFFFF
@@ -642,6 +715,8 @@ def _arrow_type(dtype: T.DataType):
         return _TYPE_DATE, [("h", 0)]  # DateUnit.DAY
     if k == T.TypeKind.TIMESTAMP:
         return _TYPE_TIMESTAMP, [("h", 2), None]  # TimeUnit.MICROSECOND, no tz
+    if k == T.TypeKind.DECIMAL:
+        return _TYPE_DECIMAL, [("i", dtype.precision), ("i", dtype.scale), ("i", 128)]
     if k == T.TypeKind.STRING:
         return _TYPE_UTF8, []
     if k == T.TypeKind.BINARY:
@@ -669,11 +744,12 @@ def _message(header_type: int, header, body_len: int) -> bytes:
 def _schema_msg(schema: T.Schema, dictionaries: bool) -> bytes:
     """The schema message; with ``dictionaries`` each dictionary-encoded
     field carries a DictionaryEncoding (ids 0, 1, ... in field order,
-    int32 indices), as pyarrow writes a dictionary-typed schema."""
+    int32 indices), as pyarrow writes a dictionary-typed schema. A wide
+    decimal is written as plain decimal128 (its column is dec128 planes)."""
     dict_ids = {}
     if dictionaries:
         for i, f in enumerate(schema):
-            if f.dtype.is_dict_encoded:
+            if f.dtype.is_string_like:
                 dict_ids[i] = len(dict_ids)
 
     def encoding(dict_id: int):
@@ -742,7 +818,8 @@ def arrow_column_stream(vocab: np.ndarray, dtype: T.DataType) -> bytes:
 
 
 def read_arrow_column_stream(payload: bytes, dtype: T.DataType) -> np.ndarray:
-    """The values of a one-column string/binary Arrow IPC stream (as
+    """The values of a one-column string/binary (or decimal128: Decimals at
+    the column's scale) Arrow IPC stream (as
     ``arrow_column_stream`` or pyarrow writes it) as a numpy object array.
     Compressed bodies, NULL values and other layouts raise."""
     pos = 0
@@ -773,6 +850,12 @@ def read_arrow_column_stream(payload: bytes, dtype: T.DataType) -> np.ndarray:
         if n == 0:
             return np.empty(0, dtype=object)
         bufs = rb.structs(2, "qq")
+        if dtype.kind == T.TypeKind.DECIMAL:
+            raw = np.frombuffer(body, np.int64, count=2 * n, offset=bufs[1][0]).reshape(n, 2)
+            out = np.empty(n, dtype=object)
+            out[:] = [T.decimal_from_unscaled((int(h) << 64) | (int(l) & 0xFFFFFFFFFFFFFFFF),
+                                              dtype.scale) for l, h in raw.tolist()]
+            return out
         offsets = np.frombuffer(body, np.int32, count=n + 1, offset=bufs[1][0])
         data = body[bufs[2][0] : bufs[2][0] + bufs[2][1]]
         out = np.empty(n, dtype=object)
@@ -846,7 +929,10 @@ def decode_block(payload: bytes, schema: T.Schema) -> tuple[int, list]:
             if len(body) != plen:
                 raise ValueError("column payload truncated")
             pos += plen
-            cols.append((decode_column(enc, body, valid, nrows, f.dtype), valid))
+            if enc == ENC_DEC128:
+                cols.append(decode_dec128(body, valid, nrows, f.dtype))
+            else:
+                cols.append((decode_column(enc, body, valid, nrows, f.dtype), valid))
         return nrows, cols
     except (struct.error, IndexError, KeyError) as e:
         raise ValueError(f"corrupt v2 shuffle block: {e!r}") from e

@@ -17,8 +17,10 @@ function is O(n) segment arithmetic over the sorted rows:
   segment reductions gathered back.
 
 Output keeps the sorted row order and leaves in ``bucket_capacity(batch
-size)`` chunks. Decimal window sums and averages are not in this slice of
-the port.
+size)`` chunks. A decimal64 sum is an int64 prefix sum (an average divides
+by ``decimal_math.div``, HALF_UP); a sum wider than 18 digits runs the
+aggregate's base-1e9 limbs through the same frames and rebuilds each row's
+exact value on the host (reference ``window_exec.py:346-456``).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from auron_tpu_torch import types as T
 from auron_tpu_torch.columnar.batch import Batch, DeviceBatch, bucket_capacity, device_concat
 from auron_tpu_torch.exec.base import ExecOperator, ExecutionContext
 from auron_tpu_torch.exec.basic import batch_from_columns
+from auron_tpu_torch.exprs import decimal_math as D
 from auron_tpu_torch.exprs import ir
 from auron_tpu_torch.exprs.eval import ColumnVal, Evaluator
 from auron_tpu_torch.ops import bitonic
@@ -65,9 +68,6 @@ class WindowFunc:
 
             if self.agg == "count":
                 return T.INT64
-            if self.agg in ("sum", "avg") and in_dtype.kind == T.TypeKind.DECIMAL:
-                raise NotImplementedError(
-                    f"window {self.agg} over {in_dtype} is not in this slice of the port")
             if self.agg == "sum":
                 return sum_type(in_dtype)
             if self.agg == "avg":
@@ -276,7 +276,7 @@ class WindowExec(ExecOperator):
         return self._agg_sum(wf, cv, fr)
 
     def _agg_sum(self, wf: WindowFunc, cv: ColumnVal, fr: _Frame) -> ColumnVal:
-        from auron_tpu_torch.exec.agg_exec import avg_type, sum_type
+        from auron_tpu_torch.exec.agg_exec import avg_type, is_wide_sum, sum_type
 
         sel = fr.sel
         valid = cv.validity & sel
@@ -284,14 +284,37 @@ class WindowExec(ExecOperator):
         cnt = frame(valid.to(torch.int64))
         if wf.agg == "count":
             return ColumnVal(cnt, sel, T.INT64)
+        if is_wide_sum(cv.dtype):
+            return self._agg_wide(wf, cv, valid, cnt, frame, fr)
         in_sum_t = sum_type(cv.dtype)
         cvs = Evaluator(T.Schema())._cast(cv, in_sum_t)
         s = frame(torch.where(valid, cvs.values, torch.zeros_like(cvs.values)))
         any_valid = cnt > 0
         if wf.agg == "sum":
             return ColumnVal(s, any_valid & sel, in_sum_t)
+        at = avg_type(cv.dtype)
+        if at.kind == T.TypeKind.DECIMAL:
+            v, ok = D.div(s, in_sum_t.scale, cnt, 0, at.precision, at.scale)
+            return ColumnVal(v, any_valid & ok & sel, at)
         v = s.to(torch.float64) / torch.where(any_valid, cnt, torch.ones_like(cnt))
-        return ColumnVal(v, any_valid & sel, avg_type(cv.dtype))
+        return ColumnVal(v, any_valid & sel, at)
+
+    def _agg_wide(self, wf: WindowFunc, cv: ColumnVal, valid, cnt, frame, fr: _Frame):
+        """Exact windowed sum/avg of a wide decimal sum: the limbs' frame
+        sums on the device, one host read, each row's value rebuilt there
+        (windows emit a value per row)."""
+        from auron_tpu_torch.exec.agg_exec import (
+            _n_limbs, emit_decimal, limb_rows, rebuild_wide, sum_type,
+        )
+
+        k = _n_limbs(sum_type(cv.dtype).precision)
+        sums = [frame(torch.where(valid, lr, torch.zeros_like(lr)))
+                for lr in limb_rows(cv, valid, cv.dtype, k)]
+        host = torch.stack(sums + [cnt, fr.sel.to(torch.int64)]).cpu().numpy()
+        cnt_h = host[k]
+        ok = (cnt_h > 0) & (host[k + 1] > 0)
+        emit_t, unscaled = rebuild_wide(list(host[:k]), ok, cnt_h, cv.dtype, wf.agg == "avg")
+        return emit_decimal(emit_t, unscaled, fr.sel)
 
     def _agg_minmax(self, wf: WindowFunc, cv: ColumnVal, fr: _Frame) -> ColumnVal:
         """min/max in an order key of the value (``segments.extreme_key``:

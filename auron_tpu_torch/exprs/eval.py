@@ -1,12 +1,12 @@
 """Expression evaluator: IR trees -> eager torch programs.
 
 Port of the ``auron_tpu/exprs/eval.py`` subset the ported slices use:
-Column, Literal, Cast (fixed-width types), BinaryOp (Kleene AND/OR,
-comparisons incl. dictionary-string equality/order, arithmetic), Not,
-IsNull, IsNotNull, If and Case (fixed-width or dictionary-string
-branches), Coalesce, In, Like and the task-context expressions
-(SparkPartitionId, MonotonicId, RowNum, ScalarSubquery) — with Spark's
-null semantics:
+Column, Literal, Cast (``exprs/cast.py``: fixed-width, decimal, string
+vocabularies cast once per entry), BinaryOp (Kleene AND/OR, comparisons
+incl. dictionary-string equality/order, arithmetic), Not, IsNull,
+IsNotNull, If and Case (fixed-width or dictionary branches), Coalesce,
+In, Like and the task-context expressions (SparkPartitionId, MonotonicId,
+RowNum, ScalarSubquery) — with Spark's null semantics:
 arithmetic propagates NULLs, division and modulo by zero give NULL
 (non-ANSI), AND/OR are three-valued, a NULL CASE condition counts as
 false, and ``x IN (...)`` is NULL when x is NULL or when nothing matches
@@ -15,6 +15,19 @@ host vocabularies into one and remap the codes with one gather; IN and
 LIKE over a dictionary string test each vocabulary entry once on the host
 and gather the answer by code on the device.
 Common subexpressions evaluate once per batch (structural memo).
+
+Decimals (reference ``eval.py:172-569, 688-732, 814``): decimal64 is a
+scaled int64 and its comparisons and arithmetic run on the device through
+the checked kernels of ``decimal_math`` (overflow and division by zero
+give NULL, HALF_UP rounding). A wide decimal (precision > 18) is a
+dictionary of ``decimal.Decimal`` values: it compares exactly through
+base-1e13 words of the unscaled value (host tables gathered by code), and
+its arithmetic evaluates exactly once per vocabulary entry against a
+constant, or once per distinct (left, right) value pair on the host,
+regathered by code. A float operand makes either a float64 operation.
+An int64 operand of a decimal64 comparison or arithmetic enters at scale
+0 as it is (the reference casts it to decimal(20,0), a dictionary, and
+would compare its codes).
 """
 
 from __future__ import annotations
@@ -26,8 +39,10 @@ import numpy as np
 import torch
 
 from auron_tpu_torch import types as T
-from auron_tpu_torch.columnar.batch import Batch, merge_vocab
+from auron_tpu_torch.columnar.batch import Batch, empty_dict, merge_vocab
+from auron_tpu_torch.exprs import decimal_math as D
 from auron_tpu_torch.exprs import ir
+from auron_tpu_torch.exprs.cast import cast_scalar, cast_string_dict, cast_values
 
 
 @dataclass
@@ -36,60 +51,6 @@ class ColumnVal:
     validity: torch.Tensor
     dtype: T.DataType
     dict: np.ndarray | None = None  # host vocabulary iff dtype.is_dict_encoded
-
-
-_INT_BOUNDS = {
-    T.TypeKind.INT8: (-(2**7), 2**7 - 1),
-    T.TypeKind.INT16: (-(2**15), 2**15 - 1),
-    T.TypeKind.INT32: (-(2**31), 2**31 - 1),
-    T.TypeKind.INT64: (-(2**63), 2**63 - 1),
-}
-
-
-def cast_values(values: torch.Tensor, validity: torch.Tensor, src: T.DataType,
-                dst: T.DataType) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fixed-width device cast (``auron_tpu/exprs/cast.py:cast_values``
-    without the decimal branches): int->int wraps, float->int truncates
-    with NaN -> 0 and Java saturation, timestamp->long is seconds."""
-    if src == dst:
-        return values, validity
-    sk, dk = src.kind, dst.kind
-    if sk == T.TypeKind.DECIMAL or dk == T.TypeKind.DECIMAL:
-        raise TypeError("decimal casts are not in this slice of the port")
-    if sk == T.TypeKind.NULL:
-        return torch.zeros_like(values, dtype=dst.physical_dtype()), torch.zeros_like(validity)
-    if sk == T.TypeKind.BOOL:
-        return cast_values(values.to(torch.int64), validity, T.INT64, dst)
-    if dk == T.TypeKind.BOOL:
-        return values != 0, validity
-    us_per_day = 86_400_000_000
-    if sk == T.TypeKind.DATE32 and dk == T.TypeKind.TIMESTAMP:
-        return values.to(torch.int64) * us_per_day, validity
-    if sk == T.TypeKind.TIMESTAMP and dk == T.TypeKind.DATE32:
-        return torch.div(values, us_per_day, rounding_mode="floor").to(torch.int32), validity
-    if sk == T.TypeKind.DATE32 and dst.is_numeric:
-        return cast_values(values.to(torch.int32), validity, T.INT32, dst)
-    if sk == T.TypeKind.TIMESTAMP and dst.is_numeric:
-        secs = torch.div(values, 1_000_000, rounding_mode="floor")
-        return cast_values(secs, validity, T.INT64, dst)
-    if src.is_integer and dk == T.TypeKind.DATE32:
-        return values.to(torch.int32), validity
-    if src.is_integer and dk == T.TypeKind.TIMESTAMP:
-        return values.to(torch.int64) * 1_000_000, validity
-    if src.is_float and dst.is_integer:
-        lo, hi = _INT_BOUNDS[dk]
-        f = values.to(torch.float64)
-        t = torch.trunc(f)
-        if dk == T.TypeKind.INT64:
-            iv = t.clamp(-(2.0**63), float(2**63 - 1024)).to(torch.int64)
-            iv = torch.where(t >= 2.0**63, torch.full_like(iv, hi), iv)
-        else:
-            iv = t.clamp(float(lo), float(hi)).to(torch.int64)
-        iv = torch.where(torch.isnan(f), torch.zeros_like(iv), iv)
-        return iv.to(dst.physical_dtype()), validity
-    if (src.is_integer or src.is_float) and (dst.is_integer or dst.is_float):
-        return values.to(dst.physical_dtype()), validity
-    raise TypeError(f"unsupported device cast {src} -> {dst}")
 
 
 def _cmp_apply(op: str, l: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -228,15 +189,30 @@ class Evaluator:
     def _unify_vals(self, vals: list[ColumnVal]) -> list[ColumnVal]:
         """Make CASE/COALESCE branch values mergeable (``eval.py:_unify_vals``):
         dictionary branches get one vocabulary (first occurrence over the
-        branches in order) and their codes remapped; fixed-width branches
-        are cast to their numeric common type."""
+        branches in order) and their codes remapped; wide-decimal branches
+        first widen to Spark's branch type (the most integer digits and the
+        largest scale, bounded at 38) with HALF_UP; fixed-width branches are
+        cast to their numeric common type."""
         if any(v.dtype.is_dict_encoded for v in vals):
             if not all(v.dtype.is_dict_encoded for v in vals):
                 raise TypeError("mixed dictionary-encoded and fixed-width branches")
             first = vals[0].dtype
+            dicts = [v.dict for v in vals]
             if first.kind == T.TypeKind.DECIMAL:
-                raise TypeError("wide-decimal branches are not in this slice of the port")
-            unified, remaps = merge_vocab([v.dict for v in vals])
+                import decimal as pydec
+
+                s_max = max(v.dtype.scale for v in vals)
+                i_max = max(v.dtype.precision - v.dtype.scale for v in vals)
+                first = ir._bounded(i_max + s_max, s_max)
+                q = pydec.Decimal(1).scaleb(-first.scale)
+                with pydec.localcontext() as hp:
+                    hp.prec = 100
+                    dicts = [_vocab([e.quantize(q, rounding=pydec.ROUND_HALF_UP)
+                                     if e is not None else None for e in d], first)
+                             for d in dicts]
+            unified, remaps = merge_vocab(dicts)
+            if first.kind == T.TypeKind.DECIMAL and not any(len(d) for d in dicts):
+                unified = empty_dict(first)
             out = []
             for v, r in zip(vals, remaps):
                 table = torch.from_numpy(r).to(v.values.device)
@@ -289,28 +265,64 @@ class Evaluator:
         dt = e.dtype
         if e.value is None or dt.kind == T.TypeKind.NULL:
             phys = dt.physical_dtype() if dt.kind != T.TypeKind.NULL else torch.int8
-            d = np.array([""], dtype=object) if dt.is_dict_encoded else None
+            d = empty_dict(dt) if dt.is_dict_encoded else None
             return ColumnVal(torch.zeros(cap, dtype=phys, device=device),
                              torch.zeros(cap, dtype=torch.bool, device=device), dt, d)
         ones = torch.ones(cap, dtype=torch.bool, device=device)
         if dt.is_dict_encoded:
             d = np.empty(1, dtype=object)
-            d[0] = e.value
+            d[0] = T.decimal_at_scale(e.value, dt.scale) if dt.is_wide_decimal else e.value
             return ColumnVal(torch.zeros(cap, dtype=torch.int32, device=device), ones, dt, d)
         if dt.kind == T.TypeKind.DECIMAL:
-            raise TypeError("decimal literals are not in this slice of the port")
+            import decimal as pydec
+
+            u = int(pydec.Decimal(str(e.value)).scaleb(dt.scale).quantize(pydec.Decimal(1)))
+            return ColumnVal(torch.full((cap,), u, dtype=torch.int64, device=device), ones, dt)
         return ColumnVal(torch.full((cap,), e.value, dtype=dt.physical_dtype(), device=device),
                          ones, dt)
 
     def _cast(self, c: ColumnVal, to: T.DataType) -> ColumnVal:
         if c.dtype == to:
             return c
-        if c.dtype.is_string_like and to.is_string_like:
-            return ColumnVal(c.values, c.validity, to, c.dict)
-        if c.dtype.is_dict_encoded or to.is_dict_encoded:
-            raise TypeError(f"cast {c.dtype} -> {to} is not in this slice of the port")
+        if c.dtype.is_dict_encoded and to.is_dict_encoded:
+            return self._cast_dict_to_dict(c, to)
+        if c.dtype.is_dict_encoded:
+            if to.is_string_like:
+                return ColumnVal(c.values, c.validity, to, c.dict)
+            dvals, dok = cast_string_dict(c.dict, to)
+            return ColumnVal(_gather_table(dvals, c.values),
+                             c.validity & _gather_table(dok, c.values), to)
+        if to.is_dict_encoded:
+            return self._cast_plain_to_dict(c, to)
         v, m = cast_values(c.values, c.validity, c.dtype, to)
         return ColumnVal(v, m, to)
+
+    def _cast_dict_to_dict(self, c: ColumnVal, to: T.DataType) -> ColumnVal:
+        """Dictionary -> dictionary: cast the vocabulary on the host, keep the
+        codes; an entry that does not cast makes its rows NULL."""
+        if c.dtype.is_string_like and to.is_string_like:
+            return ColumnVal(c.values, c.validity, to, c.dict)
+        out = [cast_scalar(v, c.dtype, to) if v is not None else None for v in c.dict]
+        ok = np.array([r is not None for r in out], dtype=bool)
+        return ColumnVal(c.values, c.validity & _gather_table(ok, c.values), to,
+                         _vocab(out, to))
+
+    def _cast_plain_to_dict(self, c: ColumnVal, to: T.DataType) -> ColumnVal:
+        """Fixed-width -> string/binary/wide decimal: the one cast that builds
+        a vocabulary from data. One host read; the distinct values cast once
+        each (floats deduplicated on their bit pattern, so -0.0 and 0.0 stay
+        apart), the codes go back to the values' device."""
+        vals = c.values.cpu().numpy()
+        if vals.dtype.kind == "f":
+            bits = vals.view(np.int32 if vals.dtype == np.float32 else np.int64)
+            uniq_bits, inv = np.unique(bits, return_inverse=True)
+            uniq = uniq_bits.view(vals.dtype)
+        else:
+            uniq, inv = np.unique(vals, return_inverse=True)
+        ents = [cast_scalar(u.item(), c.dtype, to) for u in uniq]
+        ok = np.array([x is not None for x in ents], dtype=bool)
+        codes = torch.from_numpy(inv.reshape(-1).astype(np.int32)).to(c.values.device)
+        return ColumnVal(codes, c.validity & _gather_table(ok, codes), to, _vocab(ents, to))
 
     # ---- binary ops ----
 
@@ -328,11 +340,127 @@ class Evaluator:
         valid = l.validity & r.validity
         if l.dtype.is_string_like or r.dtype.is_string_like:
             return self._compare_strings(op, l, r)
+        if l.dtype.is_wide_decimal or r.dtype.is_wide_decimal:
+            return self._compare_wide_decimal(op, l, r)
         if l.dtype.kind == T.TypeKind.DECIMAL or r.dtype.kind == T.TypeKind.DECIMAL:
-            raise TypeError("decimal comparisons are not in this slice of the port")
+            if l.dtype.is_float or r.dtype.is_float:  # Spark: compares as double
+                return ColumnVal(_cmp_apply(op, self._wide_as_float(l), self._wide_as_float(r)),
+                                 valid, T.BOOL)
+            lv, rv, (bad, lf, rf) = self._align_decimals(l, r)
+            res = torch.where(bad, _cmp_apply(op, lf, rf), _cmp_apply(op, lv, rv))
+            return ColumnVal(res, valid, T.BOOL)
         common = ir.numeric_common_type(l.dtype, r.dtype) if l.dtype != r.dtype else l.dtype
         lc, rc = self._cast(l, common), self._cast(r, common)
         return ColumnVal(_cmp_apply(op, lc.values, rc.values), valid, T.BOOL)
+
+    def _decimal_side(self, cv: ColumnVal) -> tuple[torch.Tensor, int, torch.Tensor]:
+        """(scaled int64 values, scale, validity) of a decimal64 or integer
+        operand (an integer at scale 0, as it is)."""
+        if cv.dtype.kind == T.TypeKind.DECIMAL:
+            return cv.values, cv.dtype.scale, cv.validity
+        if cv.dtype.is_integer:
+            return cv.values.to(torch.int64), 0, cv.validity
+        raise TypeError(f"no decimal operation with a {cv.dtype} operand")
+
+    def _align_decimals(self, l: ColumnVal, r: ColumnVal):
+        """Both sides at their common scale; where aligning overflows int64
+        (enormous values) the comparison falls back to float64."""
+        lv0, ls, _ = self._decimal_side(l)
+        rv0, rs, _ = self._decimal_side(r)
+        s = max(ls, rs)
+        lv, lok = D.rescale(lv0, ls, s)
+        rv, rok = D.rescale(rv0, rs, s)
+        lf = lv0.to(torch.float64) * (10.0 ** (-ls))
+        rf = rv0.to(torch.float64) * (10.0 ** (-rs))
+        return lv, rv, (~(lok & rok), lf, rf)
+
+    #: 13-digit words: 5 cover any wide unscaled value after alignment
+    #: (<= 38 + 18 shift digits), each word int64-safe
+    _DEC_WORD_BASE = 10**13
+    _DEC_WORDS = 5
+
+    def _compare_wide_decimal(self, op: str, l: ColumnVal, r: ColumnVal) -> ColumnVal:
+        """Exact comparison when either side is a wide decimal: both sides as
+        base-1e13 words of the unscaled value at the common scale (wide via
+        host tables, narrow by exact device div/mod), compared from the top
+        word down. A float side compares through float64."""
+        valid = l.validity & r.validity
+        if l.dtype.is_float or r.dtype.is_float:
+            return ColumnVal(_cmp_apply(op, self._wide_as_float(l), self._wide_as_float(r)),
+                             valid, T.BOOL)
+        ls = l.dtype.scale if l.dtype.kind == T.TypeKind.DECIMAL else 0
+        rs = r.dtype.scale if r.dtype.kind == T.TypeKind.DECIMAL else 0
+        s = max(ls, rs)
+        # the word count from the actual scale spread (decimal(38,0) against
+        # decimal(38,38) aligns to 76 digits)
+        need_digits = 38 + max(s - ls, s - rs)
+        n_words = max(self._DEC_WORDS, -(-need_digits // 13) + 1)
+        lw = self._decimal_words(l, s, n_words)
+        rw = self._decimal_words(r, s, n_words)
+        lt = torch.zeros_like(valid)
+        eq = torch.ones_like(valid)
+        for j in reversed(range(n_words)):
+            lt = lt | (eq & (lw[j] < rw[j]))
+            eq = eq & (lw[j] == rw[j])
+        res = {"eq": eq, "neq": ~eq, "lt": lt, "lteq": lt | eq, "gt": ~lt & ~eq,
+               "gteq": ~lt}[op]
+        return ColumnVal(res, valid, T.BOOL)
+
+    def _wide_as_float(self, cv: ColumnVal) -> torch.Tensor:
+        if not cv.dtype.is_wide_decimal:
+            if cv.dtype.kind == T.TypeKind.DECIMAL:
+                return cv.values.to(torch.float64) * (10.0 ** -cv.dtype.scale)
+            return cv.values.to(torch.float64)
+        tab = np.zeros(max(len(cv.dict), 1), dtype=np.float64)
+        for i, e in enumerate(cv.dict):
+            if e is not None:
+                tab[i] = float(e)
+        return _gather_table(tab, cv.values)
+
+    def _decimal_words(self, cv: ColumnVal, s: int, n_words: int | None = None) -> list:
+        """Base-1e13 little-endian words of the unscaled value at scale ``s``
+        (floored decomposition: lower words in [0, 1e13), the top word
+        signed)."""
+        W, BASE = n_words or self._DEC_WORDS, self._DEC_WORD_BASE
+        if cv.dtype.is_wide_decimal:
+            n = max(len(cv.dict), 1)
+            tabs = np.zeros((W, n), dtype=np.int64)
+            shift = 10 ** (s - cv.dtype.scale)
+            for i, e in enumerate(cv.dict):
+                if e is None:
+                    continue
+                u = T.unscaled_int(e, cv.dtype.scale) * shift
+                for j in range(W - 1):
+                    u, rem = divmod(u, BASE)
+                    tabs[j, i] = rem
+                tabs[W - 1, i] = u
+            return [_gather_table(tabs[j], cv.values) for j in range(W)]
+        # narrow side: scaled int64 at its own scale (an integer at scale 0),
+        # shifted up by k = s - ns digits: word j = floor(v * 10^(k-13j)) mod
+        # 1e13, without overflow by exact div/mod identities
+        v = cv.values.to(torch.int64)
+        ns = cv.dtype.scale if cv.dtype.kind == T.TypeKind.DECIMAL else 0
+        k = s - ns
+        words = []
+        neg = v < 0
+        sign_lo = torch.where(neg, torch.full_like(v, BASE - 1), torch.zeros_like(v))
+        sign_top = torch.where(neg, torch.full_like(v, -1), torch.zeros_like(v))
+        for j in range(W):
+            e = k - 13 * j
+            if -e > 18:
+                # a shift past int64's 10^18: pure floored sign extension
+                words.append(sign_top if j == W - 1 else sign_lo)
+            elif j == W - 1:
+                words.append(torch.div(v, 10 ** (-e), rounding_mode="floor")
+                             if e < 0 else v * 10**e)
+            elif e >= 13:
+                words.append(torch.zeros_like(v))
+            elif e >= 0:
+                words.append(torch.remainder(v, 10 ** (13 - e)) * 10**e)
+            else:
+                words.append(torch.remainder(torch.div(v, 10 ** (-e), rounding_mode="floor"),
+                                             BASE))
+        return words
 
     def _compare_strings(self, op: str, l: ColumnVal, r: ColumnVal) -> ColumnVal:
         """Codes of both sides remapped onto one joint vocabulary; order
@@ -357,10 +485,21 @@ class Evaluator:
         return ColumnVal(_cmp_apply(op, rk[lu], rk[ru]), valid, T.BOOL)
 
     def _arith(self, op: str, l: ColumnVal, r: ColumnVal) -> ColumnVal:
+        if l.dtype.is_wide_decimal or r.dtype.is_wide_decimal:
+            if l.dtype.is_float or r.dtype.is_float:
+                # Spark: decimal (op) double computes in double
+                fv, fok = _float_arith(op, self._wide_as_float(l), self._wide_as_float(r))
+                return ColumnVal(fv, l.validity & r.validity & fok, T.FLOAT64)
+            out = self._wide_literal_arith(op, l, r)
+            return out if out is not None else self._wide_pair_arith(op, l, r)
         out = ir.arith_result_type(op, l.dtype, r.dtype)
-        if out.kind == T.TypeKind.DECIMAL:
-            raise TypeError("decimal arithmetic is not in this slice of the port")
         valid = l.validity & r.validity
+        if out.kind == T.TypeKind.DECIMAL:
+            lv, ls, lm = self._decimal_side(l)
+            rv, rs, rm = self._decimal_side(r)
+            fn = {"add": D.add, "sub": D.sub, "mul": D.mul, "div": D.div, "mod": D.mod}[op]
+            v, ok = fn(lv, ls, rv, rs, out.precision, out.scale)
+            return ColumnVal(v, valid & lm & rm & ok, out)
         lv, rv = self._cast(l, out).values, self._cast(r, out).values
         if op == "add":
             v = lv + rv
@@ -370,22 +509,176 @@ class Evaluator:
             v = lv * rv
         elif op in ("div", "mod"):
             zero = rv == 0
-            safe = torch.where(zero, torch.ones_like(rv), rv)
-            if op == "div":
-                v = lv / safe if out.is_float else torch.div(lv, safe, rounding_mode="trunc")
-            elif out.is_float:
-                v = lv - torch.trunc(lv / safe) * safe  # Java % keeps the dividend's sign
+            if out.is_float:
+                safe = torch.where(zero, torch.ones_like(rv), rv)
+                # Java % keeps the dividend's sign
+                v = lv / safe if op == "div" else lv - torch.trunc(lv / safe) * safe
             else:
-                v = torch.fmod(lv, safe)
+                safe, _ = D._safe_divisor(lv, rv)
+                v = D.tdiv(lv, safe) if op == "div" else torch.fmod(lv, safe)
             valid = valid & ~zero
         else:
             raise ValueError(op)
         return ColumnVal(v, valid, out)
 
+    def _wide_literal_arith(self, op: str, l: ColumnVal, r: ColumnVal) -> ColumnVal | None:
+        """Exact wide-decimal arithmetic against a constant (a one-entry
+        vocabulary, or a narrow side holding one value): the op evaluates
+        once per vocabulary entry with Python Decimals. None when neither
+        side is constant."""
+        import decimal as pydec
+
+        def const_of(cv: ColumnVal):
+            if cv.dtype.is_wide_decimal:
+                return cv.dict[0] if cv.dict is not None and len(cv.dict) == 1 else None
+            if cv.dtype.kind not in (T.TypeKind.DECIMAL, T.TypeKind.INT8, T.TypeKind.INT16,
+                                     T.TypeKind.INT32, T.TypeKind.INT64):
+                return None
+            host = cv.values.cpu().numpy()
+            if host.size == 0 or not (host == host.flat[0]).all():
+                return None
+            v = int(host.flat[0])
+            if cv.dtype.kind == T.TypeKind.DECIMAL:
+                return T.decimal_from_unscaled(v, cv.dtype.scale)
+            return pydec.Decimal(v)
+
+        wide, other, wide_is_left = (l, r, True) if l.dtype.is_wide_decimal else (r, l, False)
+        const = const_of(other)
+        if const is None or wide.dict is None:
+            return None
+        out_t = ir.arith_result_type(op, l.dtype, r.dtype)
+        q = pydec.Decimal(1).scaleb(-out_t.scale)
+        bound = pydec.Decimal(10) ** (out_t.precision - out_t.scale)
+        entries: list = []
+        ok_tab = np.zeros(max(len(wide.dict), 1), dtype=bool)
+        with pydec.localcontext() as hp:
+            hp.prec = 100
+            for i, e in enumerate(wide.dict):
+                v = None
+                if e is not None:
+                    a, b = (e, const) if wide_is_left else (const, e)
+                    v = _decimal_binop_exact(op, a, b, q, bound)
+                entries.append(pydec.Decimal(0) if v is None else v)
+                ok_tab[i] = v is not None
+        return _materialize_decimal_entries(entries, ok_tab, wide.values,
+                                            l.validity & r.validity, out_t)
+
+    def _wide_pair_arith(self, op: str, l: ColumnVal, r: ColumnVal) -> ColumnVal:
+        """Exact arithmetic over two columns, one of them wide: the result is
+        a function of the (left value, right value) pair, so both columns
+        come to the host once, the distinct pairs evaluate exactly with
+        Python Decimals, and the pair index gathers them back on the
+        device."""
+        import decimal as pydec
+
+        def host_side(cv: ColumnVal):
+            vals = cv.values.cpu().numpy().astype(np.int64)
+            if cv.dtype.is_wide_decimal:
+                entries = cv.dict
+                vals = np.clip(vals, 0, max(len(entries) - 1, 0))
+                return vals, lambda c: entries[int(c)]
+            if cv.dtype.kind == T.TypeKind.DECIMAL:
+                sc = cv.dtype.scale
+                return vals, lambda v: T.decimal_from_unscaled(int(v), sc)
+            return vals, lambda v: pydec.Decimal(int(v))
+
+        lv, lfn = host_side(l)
+        rv, rfn = host_side(r)
+        uniq, inv = np.unique(np.stack([lv, rv], axis=1), axis=0, return_inverse=True)
+        out_t = ir.arith_result_type(op, l.dtype, r.dtype)
+        q = pydec.Decimal(1).scaleb(-out_t.scale)
+        bound = pydec.Decimal(10) ** (out_t.precision - out_t.scale)
+        entries: list = []
+        ok_tab = np.zeros(max(len(uniq), 1), dtype=bool)
+        with pydec.localcontext() as hp:
+            hp.prec = 100
+            for i, (a_raw, b_raw) in enumerate(uniq):
+                a, b = lfn(a_raw), rfn(b_raw)
+                v = None if a is None or b is None else _decimal_binop_exact(op, a, b, q, bound)
+                entries.append(pydec.Decimal(0) if v is None else v)
+                ok_tab[i] = v is not None
+        codes = torch.from_numpy(inv.reshape(-1).astype(np.int32)).to(l.values.device)
+        return _materialize_decimal_entries(entries, ok_tab, codes, l.validity & r.validity,
+                                            out_t)
+
 
 def _null_like(proto: ColumnVal) -> ColumnVal:
     return ColumnVal(torch.zeros_like(proto.values), torch.zeros_like(proto.validity),
                      proto.dtype, proto.dict)
+
+
+def _vocab(entries: list, dtype: T.DataType) -> np.ndarray:
+    """A vocabulary (numpy object array) of cast or computed entries; an
+    entry that failed (None: its rows are NULL) holds the type's filler,
+    and a wide decimal's entries sit at its scale."""
+    if not entries:
+        return empty_dict(dtype)
+    filler = empty_dict(dtype)[0]
+    out = np.empty(len(entries), dtype=object)
+    if dtype.is_wide_decimal:
+        out[:] = [T.decimal_at_scale(e, dtype.scale) if e is not None else filler
+                  for e in entries]
+    else:
+        out[:] = [e if e is not None else filler for e in entries]
+    return out
+
+
+def _materialize_decimal_entries(entries, ok_tab, codes, valid, out_t) -> ColumnVal:
+    """Decimal entry table + per-entry ok mask + device codes -> ColumnVal:
+    a wide result keeps the codes against a fresh vocabulary, a narrow one
+    gathers scaled int64 values."""
+    valid = valid & _gather_table(ok_tab, codes)
+    if out_t.is_wide_decimal:
+        return ColumnVal(codes, valid, out_t, _vocab(entries, out_t))
+    tab = np.zeros(max(len(entries), 1), dtype=np.int64)
+    for i, v in enumerate(entries):
+        tab[i] = T.unscaled_int(v, out_t.scale)
+    return ColumnVal(_gather_table(tab, codes), valid, out_t)
+
+
+def _decimal_binop_exact(op: str, a, b, q, bound):
+    """One exact Spark-decimal op on Python Decimals: HALF_UP at the result
+    scale, overflow or division by zero -> None (NULL). Decimal % keeps the
+    dividend's sign, as Spark's."""
+    import decimal as pydec
+
+    try:
+        if op == "add":
+            v = a + b
+        elif op == "sub":
+            v = a - b
+        elif op == "mul":
+            v = a * b
+        elif op in ("div", "mod"):
+            if b == 0:
+                return None
+            v = a / b if op == "div" else a % b
+        else:
+            raise ValueError(op)
+        v = v.quantize(q, rounding=pydec.ROUND_HALF_UP)
+    except (pydec.InvalidOperation, ZeroDivisionError):
+        return None
+    if abs(v) >= bound:
+        return None
+    return v
+
+
+def _float_arith(op: str, lf: torch.Tensor, rf: torch.Tensor):
+    """float64 arithmetic with Spark's semantics: (values, ok)."""
+    ok = torch.ones_like(lf, dtype=torch.bool)
+    if op == "add":
+        return lf + rf, ok
+    if op == "sub":
+        return lf - rf, ok
+    if op == "mul":
+        return lf * rf, ok
+    zero = rf == 0
+    safe = torch.where(zero, torch.ones_like(rf), rf)
+    if op == "div":
+        return lf / safe, ok & ~zero
+    if op == "mod":
+        return lf - torch.trunc(lf / safe) * safe, ok & ~zero
+    raise ValueError(op)
 
 
 def _gather_table(table: np.ndarray, codes: torch.Tensor) -> torch.Tensor:

@@ -38,6 +38,17 @@
   with the JAX function's partition and task counts and its operator
   tree, with a numpy oracle.
 
+- the decimal paths (``DECIMAL_CLASSES``): ``run_q9b_class`` (the
+  reference's wide-decimal class: 20,000 decimal(38,4) amounts in 8 groups,
+  one of them past 38 digits), ``run_q3_decimal_class`` (q3 with the price
+  cast to TPC-DS's money type decimal(7,2): the partial sum is
+  decimal(17,2) and crosses the shuffle as DEC128 planes),
+  ``run_q42_decimal_class`` (q42 with ``sum(price * quantity)`` a wide
+  decimal(28,2) sum and ``avg(price)`` a decimal(11,6)) and
+  ``run_windowed_class(..., money=True)`` (the windowed class over
+  decimal(17,2) revenues), each with an exact oracle in int64 cents or
+  Python decimals.
+
 Map tasks run one after another (the JAX package runs them on threads).
 """
 
@@ -288,12 +299,15 @@ def _shuffle_stage(plan, out_schema: T.Schema, key_cols: list[int], n_map: int, 
 #: aggregate table, the generic path's merges and partial-skip switches,
 #: the spills (sort runs, aggregate states, shuffle staging runs), and the
 #: host reads (``runtime/transfer.py``): probe streams that reached a
-#: unique-join compaction boundary, reads that blocked (seed, repair, a
-#: harvest that had to wait), reads that did not, end-of-stream harvests
-#: that waited, and predicted buckets that proved too small
+#: unique-join compaction boundary, reads the code blocked on (seed,
+#: repair), harvests that found their copy done, in-stream harvests that
+#: had to wait for the card, end-of-stream harvests that waited, and
+#: predicted buckets that proved too small; and the shuffle writer's
+#: DEC128 (decimal) columns written
 COUNTERS = ("elapsed_compute_n", "num_merges", "partial_agg_skipped", "spilled_runs",
             "spilled_aggs", "spilled_shuffle_runs", "unique_streams", "blocking_reads",
-            "async_reads", "drain_waits", "sel_mispredicts")
+            "async_reads", "waited_reads", "drain_waits", "sel_mispredicts",
+            "shuffle_enc_dec128")
 
 
 @contextlib.contextmanager
@@ -506,12 +520,13 @@ def ingest_q3(data: TpcdsData, n_map: int, device="cuda", fact=None) -> dict:
             "item": to_batches(data.item, 1, device=device)[0]}
 
 
-def q3_map_tree(moy: int = 11, category_id: int = 1):
+def q3_map_tree(moy: int = 11, category_id: int = 1, money: bool = False):
     """store_sales JOIN date_dim (d_moy = moy) JOIN item (i_category_id =
     cat), partial sum(price) by (d_year, i_brand_id): the tree the planner
     builds from the pruned q3 map plan (the joins' projections keep
     (ss_item_sk, price, d_year), then (price, d_year, i_brand_id), and the
-    plan's projection reorders them)."""
+    plan's projection reorders them). ``money``: the price is
+    ``Cast(price AS decimal(7,2))``, TPC-DS's type for it."""
     from auron_tpu_torch.exec.agg_exec import AggExpr, HashAggExec
     from auron_tpu_torch.exec.basic import FilterExec, ProjectExec, ResourceScanExec
     from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
@@ -525,7 +540,8 @@ def q3_map_tree(moy: int = 11, category_id: int = 1):
                                cached_build_id="q3_dd_build", projection=[1, 4, 6])
     j2 = BroadcastHashJoinExec(j1, iscan, [col(0)], [col(0)], "inner", build_side="right",
                                cached_build_id="q3_it_build", projection=[1, 2, 4])
-    proj = ProjectExec(j2, [col(1), col(2), col(0)], ["d_year", "i_brand_id", "price"])
+    price = Cast(col(0), MONEY) if money else col(0)
+    proj = ProjectExec(j2, [col(1), col(2), price], ["d_year", "i_brand_id", "price"])
     return HashAggExec(proj, [(col(0), "d_year"), (col(1), "i_brand_id")],
                        [(AggExpr("sum", col(2)), "s")], "partial")
 
@@ -545,24 +561,41 @@ def _top_k(d_year, brand, s, limit: int) -> dict[str, np.ndarray]:
             "s": s[top]}
 
 
+def _q3_rows(data: TpcdsData, moy: int, category_id: int):
+    """(d_year, i_brand_id, fact row mask) of the q3 join's rows."""
+    ss, dd, it = data.store_sales.columns, data.date_dim.columns, data.item.columns
+    dm = dd["d_moy"] == moy
+    im = it["i_category_id"] == category_id
+    drow, dhit = _lookup(dd["d_date_sk"][dm], ss["ss_sold_date_sk"])
+    irow, ihit = _lookup(it["i_item_sk"][im], ss["ss_item_sk"])
+    hit = dhit & ihit
+    year = dd["d_year"][dm][drow[hit]].astype(np.int64)
+    brand = it["i_brand_id"][im][irow[hit]].astype(np.int64)
+    return year, brand, hit
+
+
 def run_q3_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 4,
                  moy: int = 11, category_id: int = 1, limit: int = 100,
                  work_dir: str | None = None, device="cuda", conf: dict | None = None,
-                 ingested: dict | None = None, stats: dict | None = None) -> dict:
+                 ingested: dict | None = None, stats: dict | None = None,
+                 money: bool = False) -> dict:
     """SELECT d_year, i_brand_id, sum(ss_ext_sales_price) s FROM store_sales
     JOIN date_dim ON ss_sold_date_sk = d_date_sk JOIN item ON ss_item_sk =
     i_item_sk WHERE d_moy = <moy> AND i_category_id = <cat> GROUP BY d_year,
-    i_brand_id ORDER BY d_year, s DESC LIMIT <k>, in two stages."""
+    i_brand_id ORDER BY d_year, s DESC LIMIT <k>, in two stages. With
+    ``money`` the price is decimal(7,2) and ``s`` the exact decimal(17,2)
+    sums as int64 cents."""
     if ingested is None:
         ingested = ingest_q3(data, n_map, device)
     n_map = len(ingested["fact"])
     resources = {"q3_fact": ingested["fact"], "q3_dd": [ingested["dd"]] * n_map,
                  "q3_item": [ingested["item"]] * n_map}
-    partial = q3_map_tree(moy, category_id)
+    partial = q3_map_tree(moy, category_id, money)
     outs = _run_two_stage(partial, partial.schema, [0, 1], q3_reduce_tree, resources, n_map,
                           n_reduce, "q3_blocks", work_dir, Configuration(conf or {}), device,
                           stats)
-    got = _concat(outs, ["d_year", "i_brand_id", "s"], [np.int32, np.int32, np.float64])
+    got = _concat(outs, ["d_year", "i_brand_id", "s"],
+                  [np.int32, np.int32, np.int64 if money else np.float64])
     return _top_k(got["d_year"], got["i_brand_id"], got["s"], limit)
 
 
@@ -577,14 +610,8 @@ def _lookup(keys: np.ndarray, probe: np.ndarray):
 
 def q3_class_oracle(data: TpcdsData, moy: int = 11, category_id: int = 1,
                     limit: int = 100) -> dict[str, np.ndarray]:
-    ss, dd, it = data.store_sales.columns, data.date_dim.columns, data.item.columns
-    dm = dd["d_moy"] == moy
-    im = it["i_category_id"] == category_id
-    drow, dhit = _lookup(dd["d_date_sk"][dm], ss["ss_sold_date_sk"])
-    irow, ihit = _lookup(it["i_item_sk"][im], ss["ss_item_sk"])
-    hit = dhit & ihit
-    year = dd["d_year"][dm][drow[hit]].astype(np.int64)
-    brand = it["i_brand_id"][im][irow[hit]].astype(np.int64)
+    ss = data.store_sales.columns
+    year, brand, hit = _q3_rows(data, moy, category_id)
     uniq, inv = np.unique(np.stack([year, brand], 1), axis=0, return_inverse=True)
     s = np.bincount(inv.reshape(-1), weights=ss["ss_ext_sales_price"][hit],
                     minlength=len(uniq))
@@ -2243,32 +2270,37 @@ def _rank_min(part: np.ndarray, key: np.ndarray) -> np.ndarray:
 
 def run_windowed_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
                        stats: dict | None = None, ingested: dict | None = None,
-                       rows: int | None = None) -> dict:
+                       rows: int | None = None, money: bool = False) -> dict:
     """Revenue per (date, item) (partial + final aggregate), rank() by
     revenue DESC within the date (WindowExec, one task over the fact's two
     partitions), then rank <= 2 kept on the host: {d, item, rev, rk} sorted
-    by (d, rk, item)."""
+    by (d, rk, item). With ``money`` the revenue is sum(Cast(price AS
+    decimal(7,2))), a decimal(17,2) in int64 cents: exact, so ties rank
+    alike."""
     res = _window_inputs(data, 2, device, ingested, rows)
     res["fact"] = [[b for part in res["fact"] for b in part]]
-    agg = _agg2(_fact(), [(col(0), "d"), (col(1), "item")], _aggs(("sum", col(4), "rev")))
+    price = Cast(col(4), MONEY) if money else col(4)
+    agg = _agg2(_fact(), [(col(0), "d"), (col(1), "item")], _aggs(("sum", price, "rev")))
     plan = _window(agg, [col(0)], [(col(2), SortSpec(asc=False))],
                    [("rank", None, None, 1, False, "rk")])
     batches = _ordered(_tasks(plan, res, 1, conf, device, stats), ["d", "rk", "item"],
                        keep=lambda b: b.col_values(3) <= 2)
-    return _answer(batches, ["d", "item", "rev", "rk"], [np.int64, np.int64, np.float64, np.int32])
+    return _answer(batches, ["d", "item", "rev", "rk"],
+                   [np.int64, np.int64, np.int64 if money else np.float64, np.int32])
 
 
-def windowed_ranks(data: TpcdsData, rows: int | None = None) -> dict:
+def windowed_ranks(data: TpcdsData, rows: int | None = None, money: bool = False) -> dict:
     """Every (date, item) group with its exact revenue in cents and the
     ranks its revenue can take: ``lo`` = 1 + the groups of the date with
     more revenue, ``hi`` = ``lo`` + the other groups with the same revenue
-    (a tie the engine's float sums may split)."""
+    (a tie the engine's float sums may split). ``money``: the cents of the
+    decimal(7,2) cast (``money_cents``)."""
     ss = _prefixed(data, rows).store_sales.columns
     d, item = ss["ss_sold_date_sk"], ss["ss_item_sk"]
     ni = int(item.max()) + 1
     keys, inv = _group(d * ni + item)
-    cents = np.bincount(inv, weights=_cents(ss["ss_ext_sales_price"]),
-                        minlength=len(keys)).astype(np.int64)
+    price = ss["ss_ext_sales_price"]
+    cents = int_sums(inv, money_cents(price) if money else _cents(price), len(keys))
     gd, gi = keys // ni, keys % ni
     order = _lex_order([gd, -cents, gi])
     gd, gi, cents = gd[order], gi[order], cents[order]
@@ -2281,12 +2313,14 @@ def windowed_ranks(data: TpcdsData, rows: int | None = None) -> dict:
     return {"d": gd, "item": gi, "cents": cents, "lo": lo, "hi": hi}
 
 
-def windowed_class_oracle(data: TpcdsData, rows: int | None = None) -> dict:
+def windowed_class_oracle(data: TpcdsData, rows: int | None = None,
+                          money: bool = False) -> dict:
     """The groups of rank() <= 2 over exact revenues (ties share the lower
-    rank), sorted by (d, rk, item)."""
-    g = windowed_ranks(data, rows)
+    rank), sorted by (d, rk, item); ``money``: revenues in int64 cents."""
+    g = windowed_ranks(data, rows, money)
     keep = g["lo"] <= 2
-    out = {"d": g["d"][keep], "item": g["item"][keep], "rev": g["cents"][keep] / 100.0,
+    rev = g["cents"][keep]
+    out = {"d": g["d"][keep], "item": g["item"][keep], "rev": rev if money else rev / 100.0,
            "rk": g["lo"][keep]}
     return _sorted_by(out, ["d", "rk", "item"])
 
@@ -2574,3 +2608,194 @@ def q9_class_oracle(data: TpcdsData, rows: int | None = None) -> dict:
     price = _prefixed(data, rows).store_sales.columns["ss_ext_sales_price"]
     keep = price[price > price.mean()]
     return {"c": np.array([len(keep)], np.int64), "s": np.array([keep.sum()])}
+
+
+# ---------------------------------------------------------------------------
+# decimal paths: the wide-decimal q9b class, and q3, q42 and windowed with
+# TPC-DS's money type decimal(7,2)
+# ---------------------------------------------------------------------------
+
+#: the classes of this section, in the order chip_smoke.py runs them
+DECIMAL_CLASSES = ("q9b", "q3_decimal", "q42_decimal", "windowed_decimal")
+#: TPC-DS's type of every money column
+MONEY = T.decimal(7, 2)
+Q9B_SCHEMA = T.Schema((T.Field("g", T.INT64, False), T.Field("amount", T.decimal(38, 4), True)))
+
+
+def money_cents(price: np.ndarray) -> np.ndarray:
+    """The int64 cents of ``Cast(price AS decimal(7,2))``: HALF_UP of
+    ``price * 100.0``, as the cast computes it (prices are >= 0)."""
+    return np.floor(price * 100.0 + 0.5).astype(np.int64)
+
+
+def int_sums(inv: np.ndarray, vals: np.ndarray, n: int) -> np.ndarray:
+    """Exact int64 sums of ``vals`` by group index ``inv`` (0..n-1): a
+    float64 ``bincount`` where every partial sum stays an integer below
+    2^52 (exact then), else a sort and ``np.add.reduceat``."""
+    vals = vals.astype(np.int64)
+    if np.abs(vals).sum(dtype=np.float64) < 2.0**52:
+        return np.bincount(inv, weights=vals, minlength=n).astype(np.int64)
+    out = np.zeros(n, np.int64)
+    if len(inv):
+        order = np.argsort(inv, kind="stable")
+        g = inv[order]
+        starts = np.flatnonzero(np.r_[True, g[1:] != g[:-1]])
+        out[g[starts]] = np.add.reduceat(vals[order], starts)
+    return out
+
+
+def q9b_amounts(n: int):
+    """The reference's ``_q9b_amounts``: group ids and decimal(38,4)
+    amounts (~1e30-1e31). Groups 0-6 mix signs (a third negative) so their
+    sums stay inside 38 digits; group 7 is all positive near the top
+    (9.9e30 each), so any 1,011 rows or more overflow."""
+    import decimal as pydec
+
+    rng = np.random.default_rng(99)
+    g = rng.integers(0, 8, n)
+    digits = rng.integers(10**14, 10**15, n)
+    amounts = []
+    for i in range(n):
+        base = 990_000_000_000_000 if g[i] == 7 else int(digits[i]) * (-1 if i % 3 == 0 else 1)
+        amounts.append(pydec.Decimal(base).scaleb(16))
+    return g, amounts
+
+
+def ingest_q9b(data: TpcdsData, device="cuda") -> dict:
+    """The q9b fact (min(fact rows, 20,000) amounts) as one batch."""
+    n = min(len(data.store_sales), 20_000)
+    g, amounts = q9b_amounts(n)
+    col_a = np.empty(n, dtype=object)
+    col_a[:] = amounts
+    return {"q9b_fact": [[Batch.from_numpy([g.astype(np.int64), col_a], Q9B_SCHEMA,
+                                           device=device)]]}
+
+
+def q9b_tree():
+    aggs = _aggs(("sum", col(1), "s"), ("min", col(1), "mn"), ("max", col(1), "mx"),
+                 ("count", col(1), "c"))
+    return _agg2(_scan(Q9B_SCHEMA, "q9b_fact"), [(col(0), "g")], aggs)
+
+
+def run_q9b_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                  stats: dict | None = None, ingested: dict | None = None) -> dict:
+    """Partial and final sum/min/max/count of decimal(38,4) amounts by group
+    in one task: {g, s, mn, mx, c} by g, the decimals as ``Decimal`` (the
+    overflowing group's ``s`` None)."""
+    res = dict(ingested) if ingested is not None else ingest_q9b(data, device)
+    out = collect(_tasks(q9b_tree(), res, 1, conf, device, stats))
+    order = np.argsort(out["g"], kind="stable")
+    return {k: out[k][order] for k in ("g", "s", "mn", "mx", "c")}
+
+
+def q9b_class_oracle(data: TpcdsData) -> dict:
+    """Exact Python-decimal sums (None past 38 digits), min, max, count."""
+    import decimal as pydec
+
+    n = min(len(data.store_sales), 20_000)
+    g, amounts = q9b_amounts(n)
+    acc: dict = {}
+    limit = pydec.Decimal(10) ** 34  # 38 digits at scale 4
+    with pydec.localcontext() as hp:
+        hp.prec = 80
+        for gi, a in zip(g.tolist(), amounts):
+            s, mn, mx, c = acc.get(gi, (pydec.Decimal(0), a, a, 0))
+            acc[gi] = (s + a, min(mn, a), max(mx, a), c + 1)
+    keys = sorted(acc)
+
+    def obj(vals):
+        out = np.empty(len(vals), dtype=object)
+        out[:] = vals
+        return out
+
+    return {"g": np.array(keys, np.int64),
+            "s": obj([acc[k][0] if abs(acc[k][0]) < limit else None for k in keys]),
+            "mn": obj([acc[k][1] for k in keys]), "mx": obj([acc[k][2] for k in keys]),
+            "c": np.array([acc[k][3] for k in keys], np.int64)}
+
+
+def run_q3_decimal_class(data: TpcdsData | None = None, **kw) -> dict:
+    """q3 with the money type: ``run_q3_class(..., money=True)``."""
+    return run_q3_class(data, money=True, **kw)
+
+
+def q3_decimal_class_oracle(data: TpcdsData, moy: int = 11, category_id: int = 1,
+                            limit: int = 100) -> dict:
+    """q3 over ``money_cents``: exact int64 sums (decimal(17,2) in cents)."""
+    year, brand, hit = _q3_rows(data, moy, category_id)
+    uniq, inv = np.unique(np.stack([year, brand], 1), axis=0, return_inverse=True)
+    s = int_sums(inv.reshape(-1), money_cents(data.store_sales.columns["ss_ext_sales_price"][hit]),
+                 len(uniq))
+    return _top_k(uniq[:, 0], uniq[:, 1], s, limit)
+
+
+def q42_decimal_exec_tree():
+    """q42's tree with SELECT i_brand_id brand, sum(price * ss_quantity)
+    rev, avg(price) avg_price, price = Cast(ss_ext_sales_price AS
+    decimal(7,2)): the product is decimal(18,2), its sum decimal(28,2)
+    (base-1e9 limbs), the avg decimal(11,6); ORDER BY rev DESC, brand
+    LIMIT 10 sorts the wide result by its vocabulary's rank (one K3
+    launch)."""
+    from auron_tpu_torch.exec.agg_exec import AggExpr, HashAggExec
+    from auron_tpu_torch.exec.basic import ProjectExec, ResourceScanExec
+    from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
+    from auron_tpu_torch.exec.sort_exec import SortExec
+
+    fact = ResourceScanExec(STORE_SALES_SCHEMA, "q42_fact")
+    item = ResourceScanExec(ITEM_SCHEMA, "q42_item")
+    j = BroadcastHashJoinExec(fact, item, [col(1)], [col(0)], "inner",
+                              build_side="right", projection=[3, 4, 6])
+    pr = ProjectExec(j, [col(2), Cast(col(1), MONEY), col(0)], ["brand", "p", "q"])
+    aggs = [(AggExpr("sum", BinaryOp("mul", col(1), col(2))), "rev"),
+            (AggExpr("avg", col(1)), "avg_price")]
+    p = HashAggExec(pr, [(col(0), "brand")], aggs, "partial")
+    f = HashAggExec(p, [(col(0), "brand")], [(AggExpr("sum", col(1)), "rev"),
+                                             (AggExpr("avg", col(1)), "avg_price")], "final")
+    return SortExec(f, [col(1), col(0)], [SortSpec(asc=False), SortSpec()], fetch=10)
+
+
+def run_q42_decimal_class(data: TpcdsData | None = None, device="cuda",
+                          conf: dict | None = None, ingested: dict | None = None,
+                          stats: dict | None = None) -> dict:
+    """The decimal q42 through the task runtime: {brand, rev (int64 cents),
+    avg_price (int64 millionths)}."""
+    from auron_tpu_torch.runtime.task import TaskRuntime
+
+    if ingested is None:
+        ingested = ingest_q42(data, device)
+    rt = TaskRuntime(q42_decimal_exec_tree(), resources=dict(ingested),
+                     conf=Configuration(conf or {}), device=device)
+    try:
+        out = collect(list(rt))
+    finally:
+        snapshot = rt.finalize()
+    if stats is not None:
+        add_timers(stats, snapshot)
+    rev = np.array([T.unscaled_int(x, 2) for x in out["rev"]], dtype=np.int64)
+    return {"brand": out["brand"], "rev": rev, "avg_price": out["avg_price"]}
+
+
+def q42_decimal_class_oracle(data: TpcdsData) -> dict:
+    """int64 cents: rev = sum(cents * quantity), avg_price = HALF_UP of
+    sum(cents) * 10^4 / count (decimal(11,6))."""
+    ss, it = data.store_sales.columns, data.item.columns
+    row, hit = _lookup(it["i_item_sk"], ss["ss_item_sk"])
+    brand = it["i_brand_id"][row[hit]].astype(np.int64)
+    cents = money_cents(ss["ss_ext_sales_price"][hit])
+    uniq, inv = _group(brand)
+    rev = int_sums(inv, cents * ss["ss_quantity"][hit].astype(np.int64), len(uniq))
+    tot = int_sums(inv, cents, len(uniq))
+    cnt = np.bincount(inv, minlength=len(uniq)).astype(np.int64)
+    q, r = np.divmod(tot * 10_000, cnt)
+    avg = q + (2 * r >= cnt)
+    top = np.lexsort((uniq, -rev))[:10]
+    return {"brand": uniq[top].astype(np.int32), "rev": rev[top], "avg_price": avg[top]}
+
+
+def run_windowed_decimal_class(data: TpcdsData | None = None, **kw) -> dict:
+    """The windowed class over money revenues (``money=True``)."""
+    return run_windowed_class(data, money=True, **kw)
+
+
+def windowed_decimal_class_oracle(data: TpcdsData, rows: int | None = None) -> dict:
+    return windowed_class_oracle(data, rows, money=True)

@@ -7,8 +7,12 @@ Spark's Murmur3Hash contract, so a reducer receives exactly the rows the
 host engine expects. A dictionary-encoded string/binary column hashes its
 rows' bytes: the vocabulary (small) becomes a zero-padded byte matrix on
 the batch's device and each row gathers its entry by code
-(``ops/bytesmat.py`` of the JAX package). Wide decimals and xxhash64 wait
-for a later slice.
+(``ops/bytesmat.py`` of the JAX package). A wide decimal hashes the
+minimal big-endian two's-complement bytes of its unscaled value (Java's
+``BigInteger.toByteArray``, what Spark hashes past precision 18; reference
+``ops/hash_dispatch.py:82-108``) through the same byte-matrix path; a
+decimal64 hashes as 16 little-endian bytes. xxhash64 waits for a later
+slice.
 """
 
 from __future__ import annotations
@@ -71,6 +75,20 @@ def byte_matrix(vocab, device) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.from_numpy(mat).to(device), torch.from_numpy(lens).to(device)
 
 
+def decimal_bytes(vocab, scale: int) -> list[bytes]:
+    """Per entry of a wide-decimal vocabulary: the minimal big-endian
+    two's-complement bytes of its unscaled value."""
+    rows = []
+    for e in vocab:
+        if e is None:
+            rows.append(b"\x00")
+            continue
+        u = T.unscaled_int(e, scale)
+        bl = u.bit_length() if u >= 0 else (-u - 1).bit_length()
+        rows.append(u.to_bytes(bl // 8 + 1, "big", signed=True))
+    return rows
+
+
 def _murmur3_dict(values: torch.Tensor, vocab, seed: torch.Tensor) -> torch.Tensor:
     mat, lens = byte_matrix(vocab, values.device)
     codes = values.to(torch.int64).clamp(0, mat.shape[0] - 1)
@@ -92,6 +110,9 @@ def hash_batch(batch: Batch, cols: list[int], algo: str = "murmur3",
             continue
         if dtype.is_string_like:
             hashed = _murmur3_dict(dev.values[ci], batch.dicts[ci], h)
+        elif dtype.is_wide_decimal:
+            hashed = _murmur3_dict(dev.values[ci], decimal_bytes(batch.dicts[ci], dtype.scale),
+                                   h)
         else:
             hashed = column_hash_fn(dtype)(dev.values[ci], h)
         h = torch.where(dev.validity[ci], hashed, h)

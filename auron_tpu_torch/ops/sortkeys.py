@@ -9,6 +9,8 @@ nulls first/last) ORDER BY:
 - floats: IEEE total-order trick (negative -> ~bits, positive -> bits|sign),
   placing NaN above +inf (Spark's NaN-greatest);
 - strings: rank through the host-sorted vocabulary (UTF-8 byte order);
+  wide decimals rank through their vocabulary's numeric order
+  (reference ``ops/sortkeys.py:76-80``); decimal64 sorts as its int64;
 - descending inverts the word; null placement is a leading 0/1 word per key.
 """
 
@@ -31,8 +33,13 @@ class SortSpec:
 
 
 def _dict_rank(d: np.ndarray) -> np.ndarray:
-    keyed = [(e.encode("utf-8") if isinstance(e, str) else (e if e is not None else b""))
-             for e in d]
+    import decimal as pydec
+
+    if any(isinstance(e, pydec.Decimal) for e in d):
+        keyed = [e if e is not None else pydec.Decimal(0) for e in d]
+    else:
+        keyed = [(e.encode("utf-8") if isinstance(e, str) else (e if e is not None else b""))
+                 for e in d]
     order = sorted(range(len(keyed)), key=lambda i: keyed[i])
     rank = np.empty(len(keyed), dtype=np.int64)
     rank[order] = np.arange(len(keyed))
@@ -41,7 +48,8 @@ def _dict_rank(d: np.ndarray) -> np.ndarray:
 
 def dict_rank_maps(d: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """(rank, inv) of a vocabulary: ``rank[code]`` is the entry's UTF-8
-    byte-order rank and ``inv[rank]`` the code back. min/max over
+    byte-order rank (numeric for a wide decimal's) and ``inv[rank]`` the
+    code back. min/max over
     dictionary codes run in rank space (codes are in first-occurrence
     order)."""
     rank = _dict_rank(d)

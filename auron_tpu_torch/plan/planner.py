@@ -60,6 +60,12 @@ def _literal_from_proto(p) -> ir.Literal:
     return ir.Literal(None, dt)
 
 
+def _in_item(lit: ir.Literal):
+    """An IN item: its value, or the Literal itself for a decimal, whose
+    type a bare Decimal value does not carry."""
+    return lit if lit.dtype.kind == T.TypeKind.DECIMAL and lit.value is not None else lit.value
+
+
 def expr_from_proto(p) -> ir.Expr:
     which = p.WhichOneof("expr")
     if which == "column":
@@ -88,7 +94,7 @@ def expr_from_proto(p) -> ir.Expr:
                        expr_from_proto(n.orelse) if n.HasField("orelse") else None)
     if which == "in_list":
         return ir.In(expr_from_proto(p.in_list.child),
-                     tuple(_literal_from_proto(i).value for i in p.in_list.items),
+                     tuple(_in_item(_literal_from_proto(i)) for i in p.in_list.items),
                      p.in_list.negated)
     if which == "coalesce":
         return ir.Coalesce(tuple(expr_from_proto(a) for a in p.coalesce.args))

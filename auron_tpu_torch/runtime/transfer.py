@@ -18,10 +18,12 @@ The window takes that stall off the critical path:
   return garbage.
 
 Reads are counted in the caller's metric node: ``async_reads`` (the event
-had completed, or the tensor lay on the CPU), ``blocking_reads`` (a
-harvest that had to wait inside the stream; the callers add their seed and
-repair reads to the same counter) and ``drain_waits`` (an end-of-stream
-harvest that had to wait for the stream's last batches).
+had completed, or the tensor lay on the CPU), ``waited_reads`` (a harvest
+inside the stream whose event had not completed: the card was more than
+the window behind the host, which a slower device or a busy host decides,
+not the code), ``drain_waits`` (an end-of-stream harvest that had to wait
+for the stream's last batches) and ``blocking_reads`` (the reads the code
+chose to block on: ``blocking_read``, the callers' seed and repair reads).
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ def start_host_transfer(*tensors: torch.Tensor) -> HostTransfer:
     return HostTransfer(tuple(host), event)
 
 
-def harvest(tr: HostTransfer, metrics=None, waited_counter: str = "blocking_reads"
+def harvest(tr: HostTransfer, metrics=None, waited_counter: str = "waited_reads"
             ) -> tuple[np.ndarray, ...]:
     """Resolve a started transfer to host numpy values. Counts one
     ``async_reads`` when its event had completed (or nothing was copied),
@@ -119,7 +121,7 @@ class TransferWindow:
         self.nbytes += nbytes
         out = []
         while len(self._q) > self.depth:
-            out.append(self._pop("blocking_reads"))
+            out.append(self._pop("waited_reads"))
         return out
 
     def _pop(self, waited_counter: str) -> tuple[tuple, Any]:

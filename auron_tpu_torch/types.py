@@ -5,9 +5,12 @@ physical mapping onto torch dtypes instead of jnp dtypes, and the Arrow
 conversions made lazy (pyarrow is imported only inside them):
 
 - fixed-width types map 1:1 onto dense torch tensors + a bool validity mask;
-- DECIMAL(p<=18) is a scaled int64; DECIMAL(19..38), STRING, BINARY and the
-  nested kinds are dictionary-encoded: int32 codes on the device, the
-  vocabulary on the host;
+- DECIMAL(p<=18) is a scaled int64 ("decimal64"); DECIMAL(19..38), STRING,
+  BINARY and the nested kinds are dictionary-encoded: int32 codes on the
+  device, the vocabulary a numpy object array on the host. A wide
+  decimal's vocabulary holds ``decimal.Decimal`` values at the column's
+  scale (what ``pa.Array.to_pylist`` gives for the JAX package's
+  Decimal128 dictionaries);
 - DATE is int32 days since epoch, TIMESTAMP int64 microseconds.
 """
 
@@ -187,6 +190,45 @@ BINARY = DataType(TypeKind.BINARY)
 
 def decimal(precision: int, scale: int) -> DataType:
     return DataType(TypeKind.DECIMAL, precision, scale)
+
+
+def unscaled_int(value, scale: int) -> int:
+    """Exact unscaled integer of a Decimal at the given scale (reference
+    ``types.py:241``). Never ``Decimal.scaleb``: it rounds at the context's
+    precision (28 digits by default) and corrupts decimal(38,x) values."""
+    sign, digits, exp = value.as_tuple()
+    u = int("".join(map(str, digits)))
+    shift = exp + scale
+    if shift >= 0:
+        u *= 10**shift
+    else:
+        q, r = divmod(u, 10 ** (-shift))
+        if r:
+            raise ValueError(f"{value} does not fit scale {scale}")
+        u = q
+    return -u if sign else u
+
+
+def decimal_from_unscaled(u: int, scale: int):
+    """Exact Decimal of an unscaled integer (string construction is the one
+    context-independent path)."""
+    import decimal as pydec
+
+    return pydec.Decimal(f"{int(u)}E-{scale}")
+
+
+def decimal_at_scale(value, scale: int):
+    """``value`` (a Decimal, int or str) as the Decimal a decimal(p, scale)
+    column holds: exponent -scale, as Arrow's decimal128 values read back."""
+    import decimal as pydec
+
+    if not isinstance(value, pydec.Decimal):
+        value = pydec.Decimal(str(value))
+    return decimal_from_unscaled(unscaled_int(value, scale), scale)
+
+
+#: Spark's default decimal for literals and sums
+DECIMAL_SYSTEM_DEFAULT = decimal(38, 18)
 
 
 @dataclass(frozen=True)

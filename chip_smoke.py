@@ -6,6 +6,7 @@
     python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of one run of each query
     python3 chip_smoke.py --window-only  # phases 1, 2 and 11 only
     python3 chip_smoke.py --join-tail-only  # phases 1, 2 and 13 only
+    python3 chip_smoke.py --decimal-only  # phases 1, 2 and 14 only
 
 Phases, in order, none of them caught — any failure exits non-zero:
 
@@ -158,8 +159,20 @@ Phases, in order, none of them caught — any failure exits non-zero:
    bit-identical under torch's deterministic algorithms, then two timed
    runs of each mode equal to the oracle, where every unique-join probe
    stream makes exactly one blocking read with the predictor on;
-14. print the kernel table as one JSON line (each kernel's launches summed
-   over the timed runs of phases 4-13, and per run), then the status line.
+14. the decimal paths (``tpcds.DECIMAL_CLASSES``) over the same data:
+   q9b (20,000 decimal(38,4) amounts, partial and final sum/min/max/count
+   in one task, the overflowing group NULL), q3 with TPC-DS's money type
+   (its decimal(17,2) partial sums cross the file shuffle as DEC128
+   planes) and q42 with a wide sum (``sum(price * quantity)``,
+   decimal(28,2) in base-1e9 limbs, and a decimal(11,6) avg; its top-10
+   sort one K3 launch), two timed runs each, and the windowed class over
+   decimal(17,2) revenues (K3 1, K4 27), one timed run; each after a
+   warm-up whose kernel sorts go through K3/K4 and the plain network on
+   the card once more, bit for bit. Every answer equals its exact oracle
+   (decimals compare exactly); walls, peaks, the K3/K4 launches and the
+   DEC128 columns written are printed;
+15. print the kernel table as one JSON line (each kernel's launches summed
+   over the timed runs of phases 4-14, and per run), then the status line.
 
 Each phase prints its seconds.
 
@@ -2139,6 +2152,102 @@ def run_join_tail_phase(data, profile: bool = False) -> tuple[dict, dict, dict]:
     return q33, sweep, ab
 
 
+#: phase 14: (class, timed runs, kernels its timed runs must launch)
+DECIMAL_RUNS = (("q9b", 1, ()), ("q3_decimal", 2, ()), ("q42_decimal", 2, ("bitonic_sort",)),
+                ("windowed_decimal", 1, ("bitonic_sort", "bitonic_merge")))
+
+
+def _decimal_inputs(data, name: str) -> dict:
+    """One decimal class's inputs on the card (set-up)."""
+    from auron_tpu_torch.models import tpcds
+
+    if name == "q9b":
+        return tpcds.ingest_q9b(data, "cuda")
+    if name == "q42_decimal":
+        return tpcds.ingest_q42(data, "cuda")
+    return tpcds.ingest_q3(data, 4 if name == "q3_decimal" else 2, device="cuda")
+
+
+def _assert_exact(label: str, got: dict, want: dict) -> None:
+    """Every column equal, element for element (Decimals by value, a NULL
+    as None), and the answer not empty."""
+    assert sorted(got) == sorted(want), (label, sorted(got), sorted(want))
+    for k, w in want.items():
+        assert len(w) > 0, (label, k)
+        assert got[k].tolist() == w.tolist(), (label, k, got[k][:5], w[:5])
+
+
+def run_decimal_classes(data, profile: bool = False) -> dict:
+    """Phase 14: each of DECIMAL_RUNS over the SF's data: a warm-up (its
+    kernel sorts recorded, then checked on the card against the plain
+    network), then its timed runs, whose bitonic launches equal
+    ``sort_plan``'s for the recorded sorts; every answer equals its exact
+    oracle."""
+    import torch
+
+    from auron_tpu_torch.models import tpcds
+
+    out = {}
+    for name, n_runs, must in DECIMAL_RUNS:
+        t0 = time.perf_counter()
+        ingested = _decimal_inputs(data, name)
+        torch.cuda.synchronize()
+        t_ingest = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = getattr(tpcds, f"{name}_class_oracle")(data)
+        t_oracle = time.perf_counter() - t0
+        run = getattr(tpcds, f"run_{name}_class")
+        sorts: list = []
+        shapes: list = []
+        with _recording_sorts(sorts), _recording_kernel_sorts(shapes):
+            warm = run(device="cuda", ingested=ingested)
+        _assert_exact(f"{name} warm-up", warm, want)
+        sort_checks = check_sorts(name, sorts)
+        del sorts
+        if sort_checks:
+            torch.cuda.empty_cache()
+            run(device="cuda", ingested=ingested)
+        walls, peaks, runs_launches = [], [], []
+        for k in range(n_runs):
+            _reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            stats: dict = {}
+            t0 = time.perf_counter()
+            got = run(device="cuda", ingested=ingested, stats=stats)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            runs_launches.append(_launches())
+            peaks.append(torch.cuda.max_memory_allocated())
+            _assert_exact(name, got, want)
+            _assert_planned_launches(name, shapes, runs_launches[-1], sorts=bool(must))
+            _assert_must_launch(name, runs_launches[-1], must)
+            if k == 0:
+                first_stats = stats
+        assert len(sort_checks) == len(shapes), (name, len(sort_checks), shapes)
+        counters = first_stats.get("counters", {})
+        dec128 = sum(v for c, v in counters.items() if c.endswith("shuffle_enc_dec128"))
+        if name == "q3_decimal":
+            assert dec128 > 0, "q3 (decimal): no DEC128 column written"
+        kernels = {k: runs_launches[0][k] for k in ("bitonic_sort", "bitonic_merge")}
+        print(f"{name}: walls {', '.join(f'{w:.4f}' for w in walls)} s, peak device memory "
+              f"{max(peaks) / 2**30:.3f} GiB, K3/K4 launches {kernels}, kernel sorts (NP, P) "
+              f"{shapes}, DEC128 columns written {dec128}, ingest {t_ingest:.2f} s, oracle "
+              f"{t_oracle:.2f} s, {len(next(iter(got.values())))} result rows; equal to the "
+              f"exact oracle", flush=True)
+        _print_timers(name, first_stats)
+        out[name] = {"wall_s": walls[0], "walls_s": walls, "launches": runs_launches[0],
+                     "launches_per_run": runs_launches, "peak_bytes": max(peaks),
+                     "peaks_bytes": peaks, "sort_shapes": shapes, "sort_checks": sort_checks,
+                     "dec128_columns": dec128, "counters": counters,
+                     "stage_s": first_stats.get("stage_s")}
+        if profile and name in ("q3_decimal", "q42_decimal"):
+            out[name]["profile"] = profile_run(name, lambda: run(device="cuda",
+                                                                 ingested=ingested))
+        del ingested
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=8.0, help="scale factor (default 8)")
@@ -2150,6 +2259,9 @@ def main(argv=None) -> int:
     ap.add_argument("--join-tail-only", action="store_true",
                     help="run phases 1, 2 and 13 only (no kernel table, no status line; "
                          "with --profile, traces of q33, three sweep cases, q42 and q3)")
+    ap.add_argument("--decimal-only", action="store_true",
+                    help="run phases 1, 2 and 14 only (no kernel table, no status line; "
+                         "with --profile, traces of the decimal q3 and q42)")
     ap.add_argument("--time-sorts", action="store_true",
                     help="only build and time the bitonic kernels at the sort shapes "
                          "(one JSON line, no status line)")
@@ -2204,6 +2316,12 @@ def main(argv=None) -> int:
         data = tpcds.generate(args.sf, args.seed)
         run_join_tail_phase(data, args.profile)
         phase_done("13")
+        return 0
+
+    if args.decimal_only:
+        data = tpcds.generate(args.sf, args.seed)
+        run_decimal_classes(data, args.profile)
+        phase_done("14")
         return 0
 
     # 3. kernels against their plain versions
@@ -2312,7 +2430,12 @@ def main(argv=None) -> int:
     q33, sweep, ab = run_join_tail_phase(data, args.profile)
     phase_done("13")
 
-    # 14. every kernel sort and run merge of the main paths, held against the
+    # 14. the decimal paths: q9b, q3 and q42 with the money type, windowed
+    # over decimal revenues
+    decimal = run_decimal_classes(data, args.profile)
+    phase_done("14")
+
+    # 15. every kernel sort and run merge of the main paths, held against the
     # plain network on the card at its own operands
     checks["main_path_sorts"] = {
         **{f"q3-mesh ({m})": q3_mesh[m]["sort_checks"] for m in q3_mesh},
@@ -2322,7 +2445,8 @@ def main(argv=None) -> int:
         **{name: window[name]["sort_checks"] for name in window},
         **{label: spill[label]["sort_checks"] for label in spill if label != "default"},
         **{label: r["sort_checks"] for label, r in sweep.items()
-           if label != "profiles" and r["sort_checks"]}}
+           if label != "profiles" and r["sort_checks"]},
+        **{name: r["sort_checks"] for name, r in decimal.items() if r["sort_checks"]}}
     sort_err = max(s["max_abs_err"] for v in checks["main_path_sorts"].values() for s in v)
     for name in ("bitonic_sort", "bitonic_merge"):
         checks["max_abs_err"][name] = max(checks["max_abs_err"][name], sort_err)
@@ -2343,7 +2467,8 @@ def main(argv=None) -> int:
              **{f"sweep {label}": r["launches"] for label, r in sweep.items()
                 if label != "profiles"},
              **{f"{name} (predictor {r['mode']}, run {i})": r["launches"]
-                for name in AB_CLASSES for i, r in enumerate(ab[name])}}
+                for name in AB_CLASSES for i, r in enumerate(ab[name])},
+             **{name: r["launches"] for name, r in decimal.items()}}
     kernels = []
     for name, source, replaces in (
         ("bitonic_sort", "auron_tpu_torch/csrc/bitonic.cu", "auron_tpu/ops/bitonic.py:145"),
@@ -2371,9 +2496,10 @@ def main(argv=None) -> int:
                    "timing": timing, "q42": q42, "q93": q93, "q3": q3, "q93_mesh": q93_mesh,
                    "q3_mesh": q3_mesh, "gate": gate, "q72_mesh": q72_mesh, "skew": skew,
                    "tail": tail, "window": window, "spill": spill, "q33": q33,
-                   "join_tail_sweep": sweep, "predictor_ab": ab, "phase_s": phase_s,
+                   "join_tail_sweep": sweep, "predictor_ab": ab, "decimal": decimal,
+                   "phase_s": phase_s,
                    "kernels": kernels}, f, indent=1)
-    phase_done("14")
+    phase_done("15")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

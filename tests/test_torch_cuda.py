@@ -624,3 +624,77 @@ def test_predicted_joins_on_card_match_their_cpu_runs():
             if mode == "on":
                 assert c["BroadcastHashJoinExec.blocking_reads"] == \
                     c["BroadcastHashJoinExec.unique_streams"], (name, c)
+
+
+def _decimal_batches(dev, n_batches: int = 3, n: int = 5000):
+    """(schema, batches): an int64 key, a decimal(9,2) price and a
+    decimal(38,4) amount, on ``dev``."""
+    import decimal as pydec
+
+    from auron_tpu_torch import types as T
+    from auron_tpu_torch.columnar.batch import Batch
+
+    schema = T.Schema((T.Field("k", T.INT64), T.Field("p", T.decimal(9, 2)),
+                       T.Field("w", T.decimal(38, 4))))
+    rng = np.random.default_rng(17)
+    out = []
+    for _ in range(n_batches):
+        k = rng.integers(0, 300, n) * 1_000_003
+        cents = rng.integers(-(10**8), 10**8, n)
+        wide = np.empty(n, dtype=object)
+        wide[:] = [pydec.Decimal(int(x)).scaleb(-4) * 10**20 for x in rng.integers(1, 10**9, n)]
+        valid = rng.random(n) > 0.1
+        out.append(Batch.from_numpy([k, cents, wide], schema, [None, valid, valid], device=dev))
+    return schema, out
+
+
+@pytest.mark.cuda
+def test_decimal_sums_on_card_match_their_cpu_run():
+    """decimal64 and wide sums (base-1e9 limbs folded on the card), a
+    decimal avg and wide min/max: the card's groups equal the CPU run's
+    exactly."""
+    _need_card()
+    from auron_tpu_torch.exec.agg_exec import FINAL, PARTIAL, AggExpr, HashAggExec
+    from auron_tpu_torch.exec.basic import MemoryScanExec
+    from auron_tpu_torch.exprs.ir import col
+    from auron_tpu_torch.runtime.task import run_task
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        schema, batches = _decimal_batches(dev)
+        aggs = [(AggExpr("sum", col(1)), "s"), (AggExpr("avg", col(1)), "a"),
+                (AggExpr("sum", col(2)), "ws"), (AggExpr("max", col(2)), "wmax")]
+        partial = HashAggExec(MemoryScanExec([batches], schema), [(col(0), "k")], aggs, PARTIAL)
+        final = HashAggExec(partial, [(col(0), "k")], aggs, FINAL)
+        got, _ = run_task(final, {}, device=dev)
+        assert all(b.torch_device.type == dev for b in got)
+        rows = sorted(r for b in got for r in zip(*b.to_pydict().values()))
+        out[dev] = rows
+    assert out["cuda"] == out["cpu"] and len(out["cpu"]) == 300
+
+
+@pytest.mark.cuda
+def test_dec128_shuffle_round_trip_from_card(tmp_path):
+    """A decimal64 and a wide column written from CUDA tensors as DEC128
+    planes read back with every row, on the card."""
+    _need_card()
+    from auron_tpu_torch.exec.base import ExecutionContext
+    from auron_tpu_torch.exec.basic import MemoryScanExec
+    from auron_tpu_torch.exec.shuffle.partitioning import HashPartitioning
+    from auron_tpu_torch.exec.shuffle.reader import IpcReaderExec, MultiMapBlockProvider
+    from auron_tpu_torch.exec.shuffle.writer import ShuffleWriterExec
+    from auron_tpu_torch.exprs.ir import col
+
+    schema, batches = _decimal_batches("cuda")
+    d, i = str(tmp_path / "m.data"), str(tmp_path / "m.index")
+    w = ShuffleWriterExec(MemoryScanExec([batches], schema), HashPartitioning([col(2)], 3), d, i)
+    list(w.execute(0, ExecutionContext(device="cuda")))
+    got = []
+    for p in range(3):
+        ctx = ExecutionContext(device="cuda", resources={"b": MultiMapBlockProvider([(d, i)])})
+        for b in IpcReaderExec(schema, "b").execute(p, ctx):
+            assert b.torch_device.type == "cuda"
+            got += list(zip(*b.to_pydict().values()))
+    want = [r for b in batches for r in zip(*b.to_pydict().values())]
+    key = lambda r: tuple((x is None, x if x is not None else 0) for x in r)  # noqa: E731
+    assert sorted(got, key=key) == sorted(want, key=key)

@@ -114,3 +114,36 @@ def test_harvest_and_blocking_read_count():
     (b,) = blocking_read(m, torch.tensor(7))
     assert int(b) == 7
     assert m.values == {"async_reads": 1, "blocking_reads": 1}
+
+
+def test_harvest_that_waits_counts_apart_from_blocking_reads(monkeypatch):
+    """A harvest whose copy is not done yet (the card is behind the host)
+    is a ``waited_reads`` (``drain_waits`` at the end of a stream), never a
+    ``blocking_reads``: that counter holds only the reads the code chose to
+    block on, so "one blocking read a probe stream" does not depend on how
+    far the card lags."""
+    from auron_tpu_torch.runtime import transfer
+    from auron_tpu_torch.runtime.transfer import HostTransfer
+
+    class _Pending:
+        def query(self):
+            return False
+
+        def synchronize(self):
+            pass
+
+    real = transfer.start_host_transfer
+
+    def pending(*tensors):
+        return HostTransfer(real(*tensors).host, _Pending())
+
+    monkeypatch.setattr(transfer, "start_host_transfer", pending)
+    m = MetricNode("r")
+    (a,) = harvest(pending(torch.tensor(5)), m)
+    assert int(a) == 5
+    w = TransferWindow(1, m)
+    assert w.push((torch.tensor(6),), "x") == []
+    ((r, p),) = w.push((torch.tensor(7),), "y")
+    assert (int(r[0]), p) == (6, "x")
+    assert [p for _, p in w.drain()] == ["y"]
+    assert m.values == {"waited_reads": 2, "drain_waits": 1}

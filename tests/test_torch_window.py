@@ -297,9 +297,30 @@ def test_chunked_emission_matches_reference():
 
 
 def test_decimal_window_sum_is_not_in_this_slice():
-    from auron_tpu_torch.exec.basic import MemoryScanExec
+    """Decimal window sums came with slice 10 (the refusal this test held
+    is gone): a decimal(10,2) sum is typed decimal(20,2) and its average
+    decimal(14,6), as the JAX WindowExec types them, and both compute the
+    JAX package's values."""
+    import decimal as pydec
 
-    schema = PT.Schema((PT.Field("g", PT.INT64), PT.Field("d", PT.decimal(10, 2))))
-    scan = MemoryScanExec([[]], schema)
-    with pytest.raises(NotImplementedError, match="DECIMAL|decimal"):
-        PWindow(scan, [pir.col(0)], [], [(PFunc("agg", agg="sum", expr=pir.col(1)), "s")])
+    from auron_tpu import types as JT
+    from auron_tpu.columnar import Batch as JBatch
+
+    from torch_carry import canon, carry, rows
+
+    jschema = JT.Schema.of(JT.Field("g", JT.INT64), JT.Field("d", JT.decimal(10, 2)))
+    jb = JBatch.from_pydict({"g": [1, 1, 2, 2, 2], "d": [pydec.Decimal("1.25"), None,
+                                                         pydec.Decimal("-3.10"),
+                                                         pydec.Decimal("0.05"),
+                                                         pydec.Decimal("99999999.99")]},
+                            schema=jschema)
+    funcs = [("agg", "sum", 1, "s"), ("agg", "avg", 1, "a")]
+    jw = JWindow(JScan([[jb]], jschema), [jir.col(0)], [],
+                 [(JFunc(k, agg=a, expr=jir.col(c)), n) for k, a, c, n in funcs])
+    pb = carry(jb)
+    pw = PWindow(PScan([[pb]], pb.schema), [pir.col(0)], [],
+                 [(PFunc(k, agg=a, expr=pir.col(c)), n) for k, a, c, n in funcs])
+    assert [repr(f.dtype) for f in pw.schema][2:] == ["decimal(20,2)", "decimal(14,6)"]
+    got = canon(rows(list(pw.execute(0, PCtx(device="cpu")))))
+    assert got == canon(rows(list(jw.execute(0, JCtx()))))
+    assert got[0][2:] == (pydec.Decimal("1.25"), pydec.Decimal("1.250000"))

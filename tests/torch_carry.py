@@ -83,11 +83,7 @@ def rows(batches, decode=True) -> list[tuple]:
     None, in emission order."""
     out = []
     for b in batches:
-        if isinstance(b, PBatch):
-            cols = [[x if ok else None for x, ok in zip(v.tolist(), m.tolist())]
-                    for v, m in b.to_numpy().values()]
-        else:
-            cols = list(b.to_pydict().values())
+        cols = list(b.to_pydict().values())
         out.extend(zip(*cols))
     return out
 
