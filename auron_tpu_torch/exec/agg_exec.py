@@ -46,15 +46,31 @@ field name so that a merge or final stage recovers the input type) and
 the FINAL stage rebuilds the exact sums on the host (``_final_wide``; past
 38 digits -> NULL). min/max over a dictionary column (strings, wide
 decimals) reduce in the vocabulary's rank space. ``first`` and
-``first_ignores_null`` keep a ``#value`` and a ``#seen`` lane. collect,
-UDAF aggregates and the probe/scatter path wait for later slices; the
-constructor rejects them.
+``first_ignores_null`` keep a ``#value`` and a ``#seen`` lane. collect and
+UDAF aggregates wait for later slices; the constructor rejects them.
+
+The incremental path (reference ``agg_exec.py:846-1090, 2810-3147``), on
+for CUDA tensors (``exec.agg.incremental.probe`` / ``.mergepath``, auto):
+every fingerprint-segmented reduce output carries ``_fp_order`` (its groups
+are in fingerprint order), ``_inc_fp`` (each group's fingerprint, dead
+slots ``segments.DEAD_FP``) and ``_fp_collision`` (a device flag, read once
+into ``_fp_collision_host``). Once a compact() has made such a state,
+``_ProbeScatter`` binary-searches every later batch into it and scatters
+the hit rows into its accumulators; the miss rows go to the generic path
+``depth`` batches later. ``_merge`` merges collision-free fingerprint-sorted
+parts pairwise by merge rank (``segments.segment_merged``, no sort), and
+re-sorts otherwise; a FINAL merge that saw a collision re-reduces by the
+full-word sort. A partial aggregate prefused into a stage
+(``plan/fusion.py``) gets its dense fold's planes from the stage program
+(``dense_fold_planes``; ``_DenseAggState`` publishes its anchor geometry
+as a tensor).
 """
 
 from __future__ import annotations
 
 import threading
 from collections import deque
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Iterator
 
@@ -74,7 +90,7 @@ from auron_tpu_torch.exprs import decimal_math as D
 from auron_tpu_torch.exprs import ir
 from auron_tpu_torch.exprs.eval import ColumnVal, Evaluator
 from auron_tpu_torch.memory import memmgr
-from auron_tpu_torch.ops import bitonic
+from auron_tpu_torch.ops import binsearch, bitonic, hashing
 from auron_tpu_torch.ops import segments as S
 from auron_tpu_torch.ops.sortkeys import dict_rank_maps
 from auron_tpu_torch.runtime.transfer import (
@@ -82,8 +98,9 @@ from auron_tpu_torch.runtime.transfer import (
 )
 from auron_tpu_torch.utils.config import (
     AGG_INCREMENTAL_ENABLE, AGG_INCREMENTAL_FINGERPRINT, AGG_INCREMENTAL_FP_BITS,
-    AGG_PARTIAL_DEFER, PARTIAL_AGG_SKIPPING_ENABLE, PARTIAL_AGG_SKIPPING_MIN_ROWS,
-    PARTIAL_AGG_SKIPPING_RATIO, TRANSFER_WINDOW_DEPTH, active_conf, resolve_tri,
+    AGG_INCREMENTAL_MERGEPATH, AGG_INCREMENTAL_PROBE, AGG_PARTIAL_DEFER,
+    PARTIAL_AGG_SKIPPING_ENABLE, PARTIAL_AGG_SKIPPING_MIN_ROWS, PARTIAL_AGG_SKIPPING_RATIO,
+    TRANSFER_WINDOW_DEPTH, active_conf, resolve_tri,
 )
 
 PARTIAL = "partial"
@@ -229,10 +246,8 @@ class HashAggExec(ExecOperator):
                     cap: int = 0) -> tuple:
         """(device_impl, fingerprint, fp_bits) from config."""
         conf = conf if conf is not None else active_conf()
-        fingerprint = (
-            not force_full_sort and self.n_keys >= 1 and conf.get(AGG_INCREMENTAL_ENABLE)
-            and resolve_tri(conf.get(AGG_INCREMENTAL_FINGERPRINT), device.type == "cuda")
-        )
+        fingerprint = not force_full_sort and self.n_keys >= 1 and \
+            self._fingerprint_on(conf, device)
         fp_bits = conf.get(AGG_INCREMENTAL_FP_BITS) if fingerprint else 64
         if fingerprint:
             return ("lax", True, fp_bits)
@@ -240,6 +255,43 @@ class HashAggExec(ExecOperator):
         n_narrow = 1 if 0 < self.n_keys <= 32 else 0
         impl = bitonic.sort_impl_for(n_words, cap, n_narrow, conf=conf, device=device)
         return (impl, False, 64)
+
+    @staticmethod
+    def _tri(opt, conf, device) -> bool:
+        """An on|off|auto incremental knob: auto = the task's tensors are on
+        CUDA (the reference's accelerators-only default). ``conf`` is the
+        task's, never ``active_conf()``: a spill can merge this state from
+        another task's thread."""
+        return resolve_tri(conf.get(opt), torch.device(device).type == "cuda")
+
+    def _fingerprint_on(self, conf, device) -> bool:
+        return bool(conf.get(AGG_INCREMENTAL_ENABLE)
+                    and self._tri(AGG_INCREMENTAL_FINGERPRINT, conf, device))
+
+    def _keys_dict_free(self) -> bool:
+        """No group key is dictionary-encoded: key fingerprints are then
+        stable across batches (codes index per-batch vocabularies), the
+        precondition for probing the sorted state and for merge-path."""
+        return all(not self.inter_schema[i].dtype.is_dict_encoded
+                   for i in range(self.n_keys))
+
+    def _mergepath_eligible(self, conf, device) -> bool:
+        return (self.n_keys >= 1 and self._keys_dict_free()
+                and self._fingerprint_on(conf, device)
+                and self._tri(AGG_INCREMENTAL_MERGEPATH, conf, device))
+
+    def _probe_eligible(self, conf, device) -> bool:
+        """Sorted-state probe/scatter (reference ``agg_exec.py:319-340``):
+        every aggregate has a scatter-update form and no column it touches
+        is dictionary-encoded (a narrow decimal input with a wide SUM type
+        keeps the limb path)."""
+        if self.n_keys < 1 or not self._keys_dict_free():
+            return False
+        if not (self._fingerprint_on(conf, device)
+                and self._tri(AGG_INCREMENTAL_PROBE, conf, device)):
+            return False
+        return all(a.func in _FUNCS and (in_t is None or not in_t.is_dict_encoded)
+                   for (a, _), in_t in zip(self.aggs, self._agg_input_types))
 
     def _dense_eligible(self) -> bool:
         if not (1 <= self.n_keys <= 3):
@@ -281,12 +333,24 @@ class HashAggExec(ExecOperator):
         # the transfer window, compaction buckets come from the selectivity
         # predictor, and a truncating mispredict recomputes the reduce from
         # the still-held batch
-        defer_win = defer_pred = win_guard = None
-        if self.mode == PARTIAL and resolve_tri(conf.get(AGG_PARTIAL_DEFER), True):
-            defer_win = TransferWindow(conf.get(TRANSFER_WINDOW_DEPTH), metrics)
-            defer_pred = SelectivityPredictor(conf) if predictor_enabled(conf) else None
-            win_guard = WindowGuard(f"agg-window-{id(self):x}", defer_win)
-            memmgr.register(ctx, win_guard, spillable=False)
+        probe = defer_win = defer_pred = win_guard = None
+
+        def arm(device):
+            """At the first batch, on its device: the sorted-state
+            probe/scatter (it engages once a compact() produced a
+            fingerprint-sorted state, the dense table out of the picture),
+            else the deferred PARTIAL counts. The two exclude each other:
+            the probe's direct state folds must not overtake window-pending
+            batches (first's stream order)."""
+            nonlocal probe, defer_win, defer_pred, win_guard
+            if self._probe_eligible(conf, device):
+                probe = _ProbeScatter(self, ctx, table)
+                memmgr.register(ctx, probe, spillable=False)
+            elif self.mode == PARTIAL and resolve_tri(conf.get(AGG_PARTIAL_DEFER), True):
+                defer_win = TransferWindow(conf.get(TRANSFER_WINDOW_DEPTH), metrics)
+                defer_pred = SelectivityPredictor(conf) if predictor_enabled(conf) else None
+                win_guard = WindowGuard(f"agg-window-{id(self):x}", defer_win)
+                memmgr.register(ctx, win_guard, spillable=False)
 
         def stage(inter: Batch, g: int) -> Iterator[Batch]:
             """Stage one exact-bucket intermediate of ``g`` groups (or pass
@@ -314,6 +378,7 @@ class HashAggExec(ExecOperator):
         def process_generic(b):
             """The blocking protocol: the live count, then the group count."""
             nonlocal seen_rows, seen_groups
+            metrics.add("generic_batches", 1)
             (n,) = blocking_read(metrics, b.device.num_rows())
             n = int(n)
             if n == 0:
@@ -326,11 +391,12 @@ class HashAggExec(ExecOperator):
             g = int(g)
             seen_rows += n
             seen_groups += g
-            yield from stage(_slice_keep(inter, bucket_capacity(max(g, 1))), g)
+            yield from stage(_prefix_slice_meta(inter, bucket_capacity(max(g, 1))), g)
 
         def dispatch_deferred(b):
             """Device work only: predicted compaction and the grouped reduce;
             the (live, group) counts ride the window."""
+            metrics.add("generic_batches", 1)
             pred_cap = defer_pred.predict(b.capacity) if defer_pred is not None else None
             used_cap = None
             bb = b
@@ -364,7 +430,7 @@ class HashAggExec(ExecOperator):
                 g = int(g)
             seen_rows += n
             seen_groups += g
-            yield from stage(_slice_keep(inter, bucket_capacity(max(g, 1))), g)
+            yield from stage(_prefix_slice_meta(inter, bucket_capacity(max(g, 1))), g)
 
         def feed_generic(b):
             if defer_win is None:
@@ -407,13 +473,32 @@ class HashAggExec(ExecOperator):
             return None
 
         try:
+            armed = False
             for b in self.child_stream(0, partition, ctx):
                 ctx.check_cancelled()
+                if not armed:
+                    arm(b.torch_device)
+                    armed = True
                 if dense is not None:
                     with metrics.timer("elapsed_compute", count=True):
                         leftovers = fold_dense(b)
+                    if leftovers is None:
+                        metrics.add("dense_batches", 1)
                     for gb in leftovers or ():
                         yield from feed_generic(gb)
+                    continue
+                if probe is not None and not skipping:
+                    with metrics.timer("elapsed_compute", count=True):
+                        folded, misses, hit_rows = probe.fold(b)
+                    # probed hits are rows with no new group: they keep
+                    # pulling the skip heuristic's cardinality ratio down
+                    seen_rows += hit_rows
+                    for mb in misses:
+                        yield from process_generic(mb)
+                    if folded:
+                        metrics.add("probe_batches", 1)
+                        continue
+                    yield from process_generic(b)
                     continue
                 yield from feed_generic(b)
             # end of stream: resolve the dense folds still in flight, then
@@ -429,6 +514,9 @@ class HashAggExec(ExecOperator):
                         yield from feed_generic(gb)
             if dense is not None:
                 drain_dense()
+            if probe is not None:
+                for mb in probe.finish():
+                    yield from process_generic(mb)
             if defer_win is not None:
                 for resolved, st in defer_win.drain():
                     yield from resolve_deferred(resolved, st)
@@ -436,6 +524,9 @@ class HashAggExec(ExecOperator):
             if win_guard is not None:
                 defer_win.clear()
                 mm.unregister(win_guard)
+            if probe is not None:
+                mm.unregister(probe)
+                probe.release()
             if dense is not None:
                 mm.unregister(dense)
                 dense.release()
@@ -499,7 +590,11 @@ class HashAggExec(ExecOperator):
     # sort-segmentation reduce
 
     def _group_reduce(self, sel, keys, agg_cols, raw: bool, force_full_sort: bool = False,
-                      conf=None) -> Batch:
+                      conf=None, merge_cap_a: int | None = None, fp=None) -> Batch:
+        """Group and reduce one batch. ``merge_cap_a`` segments two
+        back-to-back fingerprint-sorted runs by merge rank instead of a sort
+        (the merge-path form of ``_merge``; ``fp`` their cached
+        fingerprints); ``force_full_sort`` pins the full-word sort."""
         cap = int(sel.shape[0])
         dev = sel.device
         flags = self._sort_flags(dev, force_full_sort, conf, cap)
@@ -512,6 +607,9 @@ class HashAggExec(ExecOperator):
                 num_groups=sel.sum().clamp(max=1),
                 sel_sorted=sel,
             )
+        elif merge_cap_a is not None:
+            seg = S.segment_merged(S.key_words(keys), sel, merge_cap_a,
+                                   (conf or active_conf()).get(AGG_INCREMENTAL_FP_BITS), fp)
         else:
             seg = S.segment_by_keys(
                 S.key_words(keys), sel, device_impl=flags[0], n_key_cols=self.n_keys,
@@ -532,27 +630,90 @@ class HashAggExec(ExecOperator):
         b = batch_from_columns(out, self.inter_schema.names, group_valid)
         res = Batch(self.inter_schema, b.device, b.dicts)
         res._fp_collision = seg.collision
+        if seg.fp_sorted is not None:
+            # fingerprint provenance (reference ``_attach_fp_meta``): the
+            # groups came out in fingerprint order, and each group's
+            # fingerprint (dead slots DEAD_FP) is cached, so a probe or a
+            # pair merge never re-hashes the state's keys
+            res._fp_order = True
+            res._inc_fp = torch.where(group_valid, seg.fp_sorted[slot],
+                                      torch.full_like(seg.fp_sorted, S.DEAD_FP))
         return res
 
-    def _merge(self, parts: list[Batch], final: bool = False, conf=None) -> Batch | None:
-        """Merge prefix-packed group batches into one state batch. A FINAL
-        merge re-reduces with the full-word sort when any fingerprint
-        segmentation saw a collision (split groups must not reach output)."""
+    def _merge(self, parts: list[Batch], final: bool = False, conf=None,
+               metrics=None) -> Batch | None:
+        """Merge prefix-packed group batches into one state batch. Three
+        forms (reference ``agg_exec.py:846-1000``), picked from host
+        evidence: merge-path (every part a collision-free fingerprint-sorted
+        run: pairwise merge-rank merges, no sort); concat and re-sort (a
+        part without fingerprint order, e.g. a dense drain or a spilled run,
+        or a collision); and a FINAL merge that saw a collision re-reduces
+        with the full-word sort, so split groups never reach the output."""
         parts = [p for p in parts if p is not None]
         if not parts:
             return None
-        collided = _any_collision(parts)
+        conf = conf if conf is not None else active_conf()
+        collided = _resolve_fp_flags(parts, metrics)
         if len(parts) == 1 and not (final and collided):
             return parts[0]
+        dev = parts[0].torch_device
+        if (not collided and self._mergepath_eligible(conf, dev)
+                and all(getattr(p, "_fp_order", False) for p in parts)):
+            with metrics.timer("merge_path_s") if metrics is not None else nullcontext():
+                acc = self._merge_path(parts, metrics, conf)
+            if metrics is not None:
+                metrics.add("merge_path_merges", 1)
+            if final and acc._fp_collision_host:
+                acc = self._dedup_full_sort(acc, conf)
+            return acc
         big = device_concat(parts)
         merged = self._group_reduce(big.device.sel, self._state_keys(big),
                                     self._intermediate_groups(big), raw=False,
                                     force_full_sort=final and collided, conf=conf)
-        if final and not collided and _any_collision([merged]):
-            merged = self._group_reduce(merged.device.sel, self._state_keys(merged),
-                                        self._intermediate_groups(merged), raw=False,
-                                        force_full_sort=True, conf=conf)
-        return _slice_keep(merged, bucket_capacity(max(merged.num_rows(), 1)))
+        coll = merged._fp_collision
+        if coll is None:
+            return _prefix_slice_meta(merged, bucket_capacity(max(merged.num_rows(), 1)))
+        g, c = (int(x) for x in blocking_read(None, merged.device.num_rows(), coll))
+        _note_collision(merged, c, metrics)
+        out = _prefix_slice_meta(merged, bucket_capacity(max(g, 1)))
+        if final and c:
+            # the collision arose in this very merge: its output is the
+            # operator's answer, so dedup with the full-word sort now
+            out = self._dedup_full_sort(out, conf)
+        return out
+
+    def _dedup_full_sort(self, b: Batch, conf) -> Batch:
+        """Re-reduce a merged state with the full-word sort (the exactness
+        backstop of a FINAL merge whose layout holds a collision)."""
+        merged = self._group_reduce(b.device.sel, self._state_keys(b),
+                                    self._intermediate_groups(b), raw=False,
+                                    force_full_sort=True, conf=conf)
+        return prefix_slice(merged, bucket_capacity(max(merged.num_rows(), 1)))
+
+    def _merge_path(self, parts: list[Batch], metrics, conf) -> Batch:
+        """Sequential pairwise merge-rank merges (reference ``agg_exec.py:
+        921-972``): acc + part laid back to back, permuted by two binary
+        searches over their cached fingerprints and segment-reduced; one
+        read per pair merge (the group count and the collision flag)."""
+        acc = parts[0]
+        for p in parts[1:]:
+            big = device_concat([acc, p])
+            fp_a, fp_b = getattr(acc, "_inc_fp", None), getattr(p, "_inc_fp", None)
+            fp_cat = None
+            if fp_a is not None and fp_b is not None:
+                fp_cat = torch.cat([fp_a, fp_b])
+                pad = big.capacity - fp_cat.shape[0]
+                if pad:
+                    fp_cat = torch.cat([fp_cat, torch.full((pad,), S.DEAD_FP, dtype=fp_cat.dtype,
+                                                           device=fp_cat.device)])
+            merged = self._group_reduce(big.device.sel, self._state_keys(big),
+                                        self._intermediate_groups(big), raw=False, conf=conf,
+                                        merge_cap_a=acc.capacity, fp=fp_cat)
+            g, c = (int(x) for x in blocking_read(None, merged.device.num_rows(),
+                                                  merged._fp_collision))
+            _note_collision(merged, c, metrics)
+            acc = _prefix_slice_meta(merged, bucket_capacity(max(g, 1)))
+        return acc
 
     # ------------------------------------------------------------------
 
@@ -620,7 +781,7 @@ class _AggTableConsumer:
     def compact(self) -> None:
         with self._lock:
             parts = ([self.state] if self.state is not None else []) + self.staged
-            self.state = self.exec._merge(parts, conf=self.ctx.conf)
+            self.state = self.exec._merge(parts, conf=self.ctx.conf, metrics=self.ctx.metrics)
             self.staged, self.staged_rows, self._staged_bytes = [], 0, 0
             self._state_bytes = batch_nbytes(self.state) if self.state is not None else 0
 
@@ -679,7 +840,8 @@ class _AggTableConsumer:
         parts.extend(self._read_parked(parked))
         if not parts:
             return None
-        return self.exec._merge(parts, final=self.exec.mode == FINAL, conf=self.ctx.conf)
+        return self.exec._merge(parts, final=self.exec.mode == FINAL, conf=self.ctx.conf,
+                               metrics=self.ctx.metrics)
 
     def release(self) -> None:
         """Drop the state and release the parked runs (every path out)."""
@@ -688,18 +850,263 @@ class _AggTableConsumer:
             ds.release()
 
 
-def _slice_keep(b: Batch, cap: int) -> Batch:
-    """prefix_slice carrying the fingerprint-collision flag."""
+# ---------------------------------------------------------------------------
+# incremental sorted-state probe/scatter (exec.agg.incremental.probe)
+# ---------------------------------------------------------------------------
+
+
+def _state_fp(ex: HashAggExec, st: Batch, fp_bits: int) -> torch.Tensor:
+    """A state batch's per-row fingerprints (dead slots DEAD_FP): for a
+    state without the cached ``_inc_fp`` (a spilled run read back)."""
+    fp = hashing.fingerprint64(S.key_words(ex._state_keys(st)), fp_bits)
+    return torch.where(st.device.sel, fp, torch.full_like(fp, S.DEAD_FP))
+
+
+def _probe_scatter(ex: HashAggExec, st: Batch, state_fp, keys, sel, per_agg, raw: bool,
+                   fp_bits: int):
+    """Binary-search every row into the fingerprint-sorted state, verify the
+    key words at the found slot (a colliding fingerprint is a miss, never a
+    wrong fold) and scatter the hit rows into the state's accumulators
+    (reference ``_probe_scatter_jit``, ``agg_exec.py:2845-2995``). Returns
+    (new accumulator ColumnVals, miss mask, miss count, hit count)."""
+    s_cap = st.capacity
+    ssel = st.device.sel
+    swords = S.key_words(ex._state_keys(st))
+    bwords = S.key_words(keys)
+    fp = hashing.fingerprint64(bwords, fp_bits)
+    slot = binsearch.lower_bound_dyn([state_fp], [fp], s_cap).clamp(0, s_cap - 1)
+    hit = sel & ssel[slot] & (state_fp[slot] == fp)
+    for sw, bw in zip(swords, bwords):
+        hit = hit & (sw[slot] == bw)
+    idx = torch.where(hit, slot, torch.full_like(slot, s_cap))
+    acc = ex._intermediate_groups(st)
+
+    def ssum(v):
+        return S.seg_sum(v, hit, idx, s_cap)[0]
+
+    def sany(flags):
+        return S.seg_any(flags, idx, s_cap)
+
+    out: list[ColumnVal] = []
+    for (a, _), in_t, ins, cols in zip(ex.aggs, ex._agg_input_types, per_agg, acc):
+        f = a.func
+
+        def upd(i, contrib, valid=None):
+            c = cols[i]
+            out.append(ColumnVal(c.values + contrib.to(c.values.dtype),
+                                 c.validity if valid is None else c.validity | valid,
+                                 c.dtype, c.dict))
+
+        if f in ("count", "count_star"):
+            if not raw:
+                upd(0, ssum(ins[0].values.to(torch.int64)))
+            elif f == "count_star":
+                upd(0, ssum(torch.ones_like(idx)))
+            else:
+                upd(0, ssum(ins[0].validity.to(torch.int64)))
+            continue
+        if f in ("sum", "avg"):
+            if is_wide_sum(in_t):
+                k = _n_limbs(sum_type(in_t).precision)
+                if raw:
+                    ok = hit & ins[0].validity
+                    limbs = limb_rows(ins[0], ok, in_t, k)
+                    oks = [ok] * k
+                else:
+                    oks = [hit & ins[i].validity for i in range(k)]
+                    limbs = [ins[i].values.to(torch.int64) for i in range(k)]
+                for i, (lv, ok) in enumerate(zip(limbs, oks)):
+                    upd(i, ssum(torch.where(ok, lv, torch.zeros_like(lv))), sany(ok))
+            else:
+                k = 1
+                ok = hit & ins[0].validity
+                v = ins[0].values
+                upd(0, ssum(torch.where(ok, v, torch.zeros_like(v))), sany(ok))
+            if f == "avg":
+                c = (hit & ins[0].validity).to(torch.int64) if raw else \
+                    torch.where(hit, ins[k].values, torch.zeros_like(ins[k].values))
+                upd(k, ssum(c.to(torch.int64)))
+            continue
+        if f in ("min", "max"):
+            v = ins[0].values
+            ok = hit & ins[0].validity
+            fn = S.seg_min if f == "min" else S.seg_max
+            contrib, cv_valid = fn(v, ok, idx, s_cap)
+            old = cols[0]
+            both = (torch.minimum if f == "min" else torch.maximum)(old.values, contrib)
+            new_v = torch.where(old.validity & cv_valid, both,
+                                torch.where(cv_valid, contrib, old.values))
+            out.append(ColumnVal(new_v, old.validity | cv_valid, old.dtype, old.dict))
+            continue
+        # first / first_ignores_null
+        v, m = ins[0].values, ins[0].validity
+        if raw:
+            elig = hit & (m if f == "first_ignores_null" else torch.ones_like(m))
+        else:
+            elig = hit & ins[1].values.to(torch.bool)
+        n = v.shape[0]
+        pos = torch.arange(n, dtype=torch.int64, device=v.device)
+        first_pos = torch.full((s_cap + 1,), n, dtype=torch.int64, device=v.device)
+        first_pos.scatter_reduce_(0, idx, torch.where(elig, pos, torch.full_like(pos, n)),
+                                  "amin", include_self=True)
+        first_pos = first_pos[:s_cap]
+        has = first_pos < n
+        safe = first_pos.clamp(0, n - 1)
+        val, seen = cols
+        seen_old = seen.values.to(torch.bool)
+        take = has & ~seen_old
+        out.append(ColumnVal(torch.where(take, v[safe].to(val.values.dtype), val.values),
+                             torch.where(take, m[safe] & has, val.validity), val.dtype, val.dict))
+        out.append(ColumnVal(seen_old | has, seen.validity, seen.dtype))
+    miss = sel & ~hit
+    return out, miss, miss.sum(), hit.sum()
+
+
+class _ProbeScatter:
+    """Sorted-state probe/scatter driver (reference ``agg_exec.py:3003``).
+
+    Folds each batch into the table's fingerprint-sorted state under the
+    table lock (a cross-thread spill serialises against the in-place state
+    swap); a batch's miss and hit counts ride the transfer window and are
+    harvested ``runtime.transfer.window.depth`` batches later, when its miss
+    rows (if any) go to the generic path with their selection narrowed.
+    Registered unspillable for the in-flight batches it holds."""
+
+    def __init__(self, exec_: HashAggExec, ctx: ExecutionContext, table: "_AggTableConsumer"):
+        self.name = f"agg-probe-{id(exec_):x}"
+        self.exec = exec_
+        self.ctx = ctx
+        self.table = table
+        self._pending: deque = deque()
+        self._pending_lock = threading.Lock()
+        self._depth = max(1, ctx.conf.get(TRANSFER_WINDOW_DEPTH))
+        self._raw = exec_.mode == PARTIAL
+        self._fp_bits = ctx.conf.get(AGG_INCREMENTAL_FP_BITS)
+        self._harvested_hits = 0
+
+    def _ready(self) -> bool:
+        st = self.table.state
+        return st is not None and getattr(st, "_fp_order", False)
+
+    def fold(self, b: Batch) -> tuple[bool, list[Batch], int]:
+        """Probe one batch into the state: (folded, earlier batches whose
+        harvested miss count was nonzero — to the generic path with their
+        selection narrowed to the misses —, rows those earlier folds hit,
+        which the caller feeds to the partial-skip row counter)."""
+        self._harvested_hits = 0
+        out: list[Batch] = []
+        if len(self._pending) >= self._depth:
+            out += self._harvest_one()
+        with self.table._lock:
+            ready = self._ready()
+        if not ready:
+            # a spill parked the state: this batch goes generic at once, so
+            # every older batch's misses must stage first (stream order for
+            # first / first_ignores_null)
+            out += self.finish()
+            return False, out, self._harvested_hits
+        keys, per_agg = self.exec._keys_and_inputs(b)
+        ex = self.exec
+        with self.table._lock:
+            st = self.table.state
+            if st is None or not getattr(st, "_fp_order", False):
+                st = None
+            else:
+                state_fp = getattr(st, "_inc_fp", None)
+                if state_fp is None:
+                    state_fp = st._inc_fp = _state_fp(ex, st, self._fp_bits)
+                acc, miss, miss_n, hit_n = _probe_scatter(
+                    ex, st, state_fp, keys, b.device.sel, per_agg, self._raw, self._fp_bits)
+                cols = ex._state_keys(st) + acc
+                dev = st.device._replace(values=tuple(c.values for c in cols),
+                                         validity=tuple(c.validity for c in cols))
+                ns = Batch(st.schema, dev, st.dicts)
+                ns._inc_fp = state_fp
+                for attr in _FP_META:
+                    if hasattr(st, attr):
+                        setattr(ns, attr, getattr(st, attr))
+                # keys, sel, capacity and bytes unchanged: the table's
+                # memory accounting stands
+                self.table.state = ns
+        if st is None:
+            out += self.finish()
+            return False, out, self._harvested_hits
+        tr = start_host_transfer(miss_n, hit_n)
+        with self._pending_lock:
+            self._pending.append((b, miss, tr))
+        return True, out, self._harvested_hits
+
+    def _harvest_one(self) -> list[Batch]:
+        with self._pending_lock:
+            b, miss, tr = self._pending.popleft()
+        mn, hn = (int(x) for x in harvest(tr, self.ctx.metrics))
+        self.ctx.metrics.add("probe_hit_rows", hn)
+        self._harvested_hits += hn
+        if mn == 0:
+            return []
+        self.ctx.metrics.add("probe_miss_batches", 1)
+        return [b.with_device(b.device._replace(sel=miss))]
+
+    def finish(self) -> list[Batch]:
+        """Resolve every fold in flight (in order)."""
+        out: list[Batch] = []
+        while self._pending:
+            out += self._harvest_one()
+        return out
+
+    def mem_used(self) -> int:
+        with self._pending_lock:
+            return sum(batch_nbytes(pb) for pb, _, _ in self._pending)
+
+    def spill(self) -> int:
+        return 0  # in-flight batches only; resolved within the window depth
+
+    def release(self) -> None:
+        with self._pending_lock:
+            self._pending.clear()
+
+
+_FP_META = ("_fp_order", "_fp_collision", "_fp_collision_host")
+
+#: check-and-set guard of a batch's ``_fp_collision_host``: the operator's
+#: thread and a cross-thread spill's merge may resolve the same staged part
+_FP_FLAG_LOCK = threading.Lock()
+
+
+def _prefix_slice_meta(b: Batch, cap: int) -> Batch:
+    """prefix_slice carrying the fingerprint provenance (groups live in the
+    prefix, so the fingerprint order survives)."""
     out = prefix_slice(b, cap)
     if out is not b:
-        out._fp_collision = getattr(b, "_fp_collision", None)
+        for attr in _FP_META:
+            if hasattr(b, attr):
+                setattr(out, attr, getattr(b, attr))
+        if getattr(b, "_inc_fp", None) is not None:
+            out._inc_fp = b._inc_fp[:cap]
     return out
 
 
-def _any_collision(parts: list[Batch]) -> bool:
-    flags = [getattr(p, "_fp_collision", None) for p in parts]
-    flags = [f for f in flags if f is not None]
-    return bool(torch.stack(flags).any().item()) if flags else False
+def _note_collision(ref: Batch, coll: int, metrics) -> None:
+    """Record a read collision flag once per reduce output."""
+    with _FP_FLAG_LOCK:
+        if hasattr(ref, "_fp_collision_host"):
+            return
+        ref._fp_collision_host = bool(coll)
+    if coll and metrics is not None:
+        metrics.add("fp_collision_batches", 1)
+
+
+def _resolve_fp_flags(parts: list[Batch], metrics) -> bool:
+    """Read (once, in one batched read) the collision flags not read yet;
+    whether ANY part holds a collision. A part without a flag (a dense
+    drain, a full-word reduce) counts as clean."""
+    unread = [p for p in parts if getattr(p, "_fp_collision", None) is not None
+              and not hasattr(p, "_fp_collision_host")]
+    if unread:
+        (flags,) = blocking_read(None, torch.stack([p._fp_collision for p in unread]))
+        for p, f in zip(unread, flags):
+            _note_collision(p, int(f), metrics)
+    return any(getattr(p, "_fp_collision_host", False) for p in parts)
 
 
 def _reduce_one(a: AggExpr, in_t, cols, seg: S.Segmentation, cap: int, raw: bool,
@@ -922,6 +1329,54 @@ def _next_pow2(n: int) -> int:
     return p
 
 
+def dense_fold_planes(funcs: tuple, raw: bool, keys, per_agg, sel, geom, n_keys: int,
+                      guard: bool):
+    """The dense fold's per-batch arithmetic, before its scatters: (flag,
+    slot index, present plane, per-aggregate planes). ``geom`` is the
+    anchor's geometry tensor (``_DenseAggState._publish``). With ``guard``
+    a live key outside the table clears the 0-d ``flag`` and every row's
+    slot goes to the dead slot. A fused stage runs this same function in its
+    program (``plan/fusion.py``)."""
+    dev = sel.device
+    flag = torch.ones((), dtype=torch.bool, device=dev)
+    if guard:
+        for i, k in enumerate(keys):
+            v = k.values.to(torch.int64)
+            outside = sel & k.validity & ((v < geom[4 * i]) | (v > geom[4 * i + 1]))
+            flag = flag & ~outside.any()
+        sel = sel & flag
+    idx = torch.zeros(sel.shape, dtype=torch.int64, device=dev)
+    for i, k in enumerate(keys):
+        off = torch.minimum((k.values.to(torch.int64) - geom[4 * i] + 1).clamp(min=1),
+                            geom[4 * i + 2])
+        idx = idx + torch.where(k.validity, off, torch.zeros_like(off)) * geom[4 * i + 3]
+    size = geom[4 * n_keys]
+    idx = torch.where(sel, torch.minimum(idx.clamp(min=0), size - 1), size)
+    planes = []
+    for f, ins in zip(funcs, per_agg):
+        if f in ("count", "count_star"):
+            if not raw:
+                c = ins[0].values.to(torch.int64)
+            elif f == "count_star":
+                c = torch.ones_like(idx)
+            else:
+                c = ins[0].validity.to(torch.int64)
+            planes.append(torch.where(sel, c, torch.zeros_like(c)))
+            continue
+        v, m = ins[0].values, ins[0].validity
+        ok = m & sel
+        if f in ("sum", "avg"):
+            planes.append(torch.where(ok, v, torch.zeros_like(v)))
+        else:
+            ident = (S.max_identity if f == "min" else S.min_identity)(v.dtype)
+            planes.append(torch.where(ok, v, torch.full_like(v, ident)))
+        planes.append(ok.to(torch.int32))
+        if f == "avg":
+            c = ok.to(torch.int64) if raw else ins[1].values.to(torch.int64)
+            planes.append(torch.where(sel, c, torch.zeros_like(c)))
+    return flag, idx, sel.to(torch.int32), planes
+
+
 class _DenseAggState:
     """Dense table for 1-3 packed integer keys. Slot layout: per key,
     offset 0 is its NULL lane and 1..dim-1 its values (base .. base+dim-2);
@@ -955,6 +1410,11 @@ class _DenseAggState:
         self._pending_bytes = 0
         #: batches whose deferred fold was a no-op, to fold again
         self._retry: list = []
+        self.geom = None
+        #: anchors published so far; a stage-prepped batch carries the
+        #: epoch its planes were computed under
+        self.epoch = 0
+        self._link = getattr(exec_, "_dense_prep_link", None)
 
     def mem_used(self) -> int:
         held = self._pending_bytes
@@ -969,6 +1429,8 @@ class _DenseAggState:
 
     def release(self) -> None:
         self.vals = self.valids = self.present = None
+        if self._link is not None:
+            self._link.clear()
         self._pending.clear()
         self._pending_bytes = 0
         self._retry = []
@@ -979,9 +1441,11 @@ class _DenseAggState:
         if self.bases is not None:
             self._hint = [((b, b + d - 2) if d > 1 else None)
                           for b, d in zip(self.bases, self.dims)]
-        self.bases = self.dims = None
+        self.bases = self.dims = self.geom = None
         self.size = 0
         self.vals = self.valids = self.present = None
+        if self._link is not None:
+            self._link.clear()
 
     def _pop_pending(self):
         b, tr = self._pending.popleft()
@@ -1042,6 +1506,21 @@ class _DenseAggState:
         self.size = bucket_capacity(product(pads))
         return True
 
+    def _publish(self, device) -> None:
+        """The anchor's geometry as one int64 tensor (per key: base, highest
+        value, last offset, stride; then the table size), published to the
+        fused stage feeding this aggregate (``plan/fusion.DensePrepLink``):
+        its program takes the geometry as an input, so a re-anchor needs no
+        new capture."""
+        geom, stride = [], 1
+        for base, d in zip(self.bases, self.dims):
+            geom += [base, min(base + d - 2, (1 << 63) - 1), max(d - 1, 1), stride]
+            stride *= d
+        self.geom = torch.tensor(geom + [self.size], dtype=torch.int64, device=device)
+        self.epoch += 1
+        if self._link is not None:
+            self._link.publish(epoch=self.epoch, geom=self.geom)
+
     def _alloc(self, device) -> None:
         ex = self.exec
         self.vals, self.valids = [], []
@@ -1075,10 +1554,17 @@ class _DenseAggState:
             if failed:
                 self._retry.extend(failed)
                 return "restart"
-        keys, per_agg = self.exec._keys_and_inputs(b)
         sel = b.device.sel
-        if self.bases is not None:
+        prep = getattr(b, "_dense_prep", None)
+        if self.bases is not None and prep is not None and prep.epoch == self.epoch:
+            # the stage program computed this fold's planes under the
+            # current anchor: only the scatters are left
+            self._scatter(prep.idx, prep.present, prep.planes)
+            flag = prep.flag
+        elif self.bases is not None:
+            keys, per_agg = self.exec._keys_and_inputs(b)
             flag = self._fold(keys, per_agg, sel, guard=True)
+        if self.bases is not None:
             if defer:
                 self._pending.append((b, start_host_transfer(flag)))
                 self._pending_bytes += batch_nbytes(b)
@@ -1086,6 +1572,7 @@ class _DenseAggState:
             (ok,) = blocking_read(self.metrics, flag)
             # a no-op fold: the caller folds this batch again after the reset
             return True if bool(ok) else "restart"
+        keys, per_agg = self.exec._keys_and_inputs(b)
         imax, imin = torch.iinfo(torch.int64).max, torch.iinfo(torch.int64).min
         parts = [sel.sum()]
         for k in keys:
@@ -1100,6 +1587,7 @@ class _DenseAggState:
         if not self._anchor(stats[1::2], stats[2::2]):
             return False
         self._alloc(sel.device)
+        self._publish(sel.device)
         self._fold(keys, per_agg, sel)
         return True
 
@@ -1107,51 +1595,31 @@ class _DenseAggState:
         """Scatter one batch into the table. With ``guard`` the fold is all
         or nothing: a live key outside the table makes it a no-op, and the
         returned device flag says whether it folded."""
-        flag = None
-        if guard:
-            flag = torch.ones((), dtype=torch.bool, device=sel.device)
-            for k, base, d in zip(keys, self.bases, self.dims):
-                v = k.values.to(torch.int64)
-                hi = min(base + d - 2, (1 << 63) - 1)
-                outside = sel & k.validity & ((v < base) | (v > hi))
-                flag = flag & ~outside.any()
-            sel = sel & flag
-        idx = torch.zeros(sel.shape, dtype=torch.int64, device=sel.device)
-        stride = 1
-        for k, base, d in zip(keys, self.bases, self.dims):
-            off = (k.values.to(torch.int64) - base + 1).clamp(1, max(d - 1, 1))
-            idx += torch.where(k.validity, off, torch.zeros_like(off)) * stride
-            stride *= d
-        idx = torch.where(sel, idx.clamp(0, self.size - 1), torch.full_like(idx, self.size))
-        self.present.scatter_reduce_(0, idx, sel.to(torch.int32), "amax")
-        fi = 0
-        for (a, _), ins in zip(self.exec.aggs, per_agg):
+        flag, idx, present, planes = dense_fold_planes(
+            tuple(a.func for a, _ in self.exec.aggs), self._raw, keys, per_agg, sel, self.geom,
+            self.exec.n_keys, guard)
+        self._scatter(idx, present, planes)
+        return flag
+
+    def _scatter(self, idx, present, planes) -> None:
+        """The fold's scatter reductions of ``dense_fold_planes``' planes."""
+        self.present.scatter_reduce_(0, idx, present, "amax")
+        fi = pi = 0
+        for a, _ in self.exec.aggs:
             f = a.func
             if f in ("count", "count_star"):
-                if not self._raw:
-                    c = ins[0].values.to(torch.int64)
-                elif f == "count_star":
-                    c = torch.ones_like(idx)
-                else:
-                    c = ins[0].validity.to(torch.int64)
-                self.vals[fi].index_add_(0, idx, torch.where(sel, c, torch.zeros_like(c)))
-                fi += 1
+                self.vals[fi].index_add_(0, idx, planes[pi])
+                fi, pi = fi + 1, pi + 1
                 continue
-            v, m = ins[0].values, ins[0].validity
-            ok = m & sel
             if f in ("sum", "avg"):
-                self.vals[fi].index_add_(0, idx, torch.where(ok, v, torch.zeros_like(v)))
+                self.vals[fi].index_add_(0, idx, planes[pi])
             else:
-                ident = (S.max_identity if f == "min" else S.min_identity)(v.dtype)
-                self.vals[fi].scatter_reduce_(0, idx, torch.where(ok, v, torch.full_like(v, ident)),
-                                              "amin" if f == "min" else "amax")
-            self.valids[fi].scatter_reduce_(0, idx, ok.to(torch.int32), "amax")
-            fi += 1
+                self.vals[fi].scatter_reduce_(0, idx, planes[pi], "amin" if f == "min" else "amax")
+            self.valids[fi].scatter_reduce_(0, idx, planes[pi + 1], "amax")
+            fi, pi = fi + 1, pi + 2
             if f == "avg":
-                c = ok.to(torch.int64) if self._raw else ins[1].values.to(torch.int64)
-                self.vals[fi].index_add_(0, idx, torch.where(sel, c, torch.zeros_like(c)))
-                fi += 1
-        return flag
+                self.vals[fi].index_add_(0, idx, planes[pi])
+                fi, pi = fi + 1, pi + 1
 
     def state_batch(self) -> Batch | None:
         """The table as an intermediate batch compacted to its group bucket."""

@@ -15,6 +15,7 @@ from auron_tpu_torch.columnar.batch import Batch, DeviceBatch
 from auron_tpu_torch.exec.base import ExecOperator, ExecutionContext, coalesce_stream
 from auron_tpu_torch.exprs import ir
 from auron_tpu_torch.exprs.eval import ColumnVal, Evaluator
+from auron_tpu_torch.utils.config import FILTER_FUSE
 
 
 def _uses_row_offset(e: ir.Expr) -> bool:
@@ -97,19 +98,38 @@ class ProjectExec(ExecOperator):
 
 
 class FilterExec(ExecOperator):
+    """Refines ``sel`` by its predicates. With ``exec.filter.fuse`` (on by
+    default) a capture-safe predicate chain runs as one program per
+    (schema, predicates, capacity bucket) (``plan/fusion.filter_sel``: a
+    CUDA graph replayed per batch on the card), for filters outside a fused
+    segment."""
+
     def __init__(self, child: ExecOperator, predicates: list[ir.Expr]):
+        from auron_tpu_torch.plan.fusion import expr_capture_safe
+
         super().__init__([child], child.schema)
         self.predicates = predicates
+        self._fusable = all(expr_capture_safe(p, child.schema) for p in predicates)
 
     def _execute(self, partition: int, ctx: ExecutionContext) -> Iterator[Batch]:
+        from auron_tpu_torch.plan.fusion import filter_sel
+
         # as in the reference, a filter keeps row_offset at 0 (no host read
         # per batch): only ProjectExec numbers rows across batches
-        ev = _evaluator(self.children[0].schema, ctx)
+        schema = self.children[0].schema
+        ev = _evaluator(schema, ctx)
+        fuse = self._fusable and ctx.conf.get(FILTER_FUSE)
+        preds = tuple(self.predicates)
+        reads = tuple(sorted({c.index for p in preds for c in ir.walk(p)
+                              if isinstance(c, ir.Column)}))
         for b in self.child_stream(0, partition, ctx):
             with ctx.metrics.timer("elapsed_compute"):
-                sel = b.device.sel
-                for cv in ev.evaluate(b, self.predicates):
-                    sel = sel & cv.validity & cv.values.to(torch.bool)
+                if fuse:
+                    sel = filter_sel(b, schema, preds, reads, ctx.metrics)
+                else:
+                    sel = b.device.sel
+                    for cv in ev.evaluate(b, self.predicates):
+                        sel = sel & cv.validity & cv.values.to(torch.bool)
                 yield b.with_device(DeviceBatch(sel, b.device.values, b.device.validity))
 
 

@@ -93,6 +93,11 @@ class BroadcastHashJoinExec(ExecOperator):
             pipe = UniqueProbePipeline(ctx.conf, ctx.metrics)
             guard = _BuildMemGuard(self, [build], (pipe.window,))
             mm = memmgr.register(ctx, guard, spillable=False)
+            # a fused probe stage (plan/fusion.py) below carries our link:
+            # publishing the prepared build arms its probe prologue
+            link = getattr(self, "_probe_prep_link", None)
+            if link is not None:
+                self.driver.publish_probe_prep(link, build, pipe, ctx.conf)
             probe_child = 1 if self.build_side == "left" else 0
             for pb in self.child_stream(probe_child, partition, ctx):
                 ctx.check_cancelled()
@@ -102,6 +107,9 @@ class BroadcastHashJoinExec(ExecOperator):
                 yield from self.driver.finish_probe(pipe)
             yield from self.driver.finish(build)
         finally:
+            link = getattr(self, "_probe_prep_link", None)
+            if link is not None:
+                link.clear()
             if pipe is not None:
                 pipe.close()
             if guard is not None:

@@ -185,26 +185,68 @@ class EquiJoinDriver:
         pwords, pvalid = core.probe_words(build, pvals)
         return build, pwords, pvalid
 
+    def publish_probe_prep(self, link, build: core.PreparedBuild, pipe, conf) -> bool:
+        """Publish the probe anchor to a fused stage's ``ProbePrepLink``
+        (``plan/fusion.py``; reference ``driver.py:153-200``). False, with
+        the link cleared, when this build's shape cannot run off
+        stage-prepped probes (dictionary keys, a residual condition, a
+        duplicate-keyed build probed for pairs): the stage then runs its
+        plain program and the eager prologue runs here."""
+        probe_keys = self.left_keys if self.probe_is_left else self.right_keys
+        key_schema = self.left_schema if self.probe_is_left else self.right_schema
+        if self._cond is not None or any(k.dtype_of(key_schema).is_dict_encoded
+                                         for k in probe_keys):
+            link.clear()
+            return False
+        if build.unique:
+            link.publish(build=build, kind="unique", pipe=pipe,
+                         compact=self.wants_pairs and compact_join_output(conf))
+            return True
+        if build.exists_lut is not None and not (self.wants_pairs or self.build_mark
+                                                 or self.build_outer):
+            link.publish(build=build, kind="exists", pipe=pipe, compact=False)
+            return True
+        link.clear()
+        return False
+
     def probe_batch(self, build: core.PreparedBuild, pb: Batch, conf,
                     pipe: UniqueProbePipeline | None = None) -> Iterator[Batch]:
         """Probe one batch; updates ``build.matched`` in place. With a
         ``pipe`` the unique-build compaction runs predicted and sync-free,
-        and its emissions lag by the window depth (``finish_probe``)."""
-        build, pwords, pvalid = self._probe_view(build, pb)
-        ok_base = pb.device.sel & pvalid
-        bb = build.batch
+        and its emissions lag by the window depth (``finish_probe``). A
+        batch from a fused probe stage carries a ``_probe_prep`` payload:
+        its prologue already ran in the stage program under THIS build (a
+        payload of any other build is ignored)."""
+        prep = getattr(pb, "_probe_prep", None)
+        if prep is not None and prep.build is not build:
+            prep = None
+        if prep is not None and pipe is not None and pipe.metrics is not None:
+            pipe.metrics.add("probe_prep_batches", 1)
         marks = self.build_mark or self.build_outer
+        if prep is not None and prep.kind == "exists":
+            if self.probe_mark:
+                yield self._emit_probe_marked(pb, prep.probe_matched)
+            return
+        if prep is not None:
+            bi, ok = prep.bi, prep.ok
+            bb = build.batch
+        else:
+            build, pwords, pvalid = self._probe_view(build, pb)
+            ok_base = pb.device.sel & pvalid
+            bb = build.batch
         if build.unique:
-            bi, ok = core.probe_unique(build, pwords, ok_base)
+            if prep is None:
+                bi, ok = core.probe_unique(build, pwords, ok_base)
             if self._cond is not None:
                 ok = self._condition_holds(pb, bb, None, bi, ok)
             if marks:
                 core.fold_rows(build.matched, bi, ok)
             if self.wants_pairs:
                 if self._cond is None and compact_join_output(conf):
-                    yield from self._emit_unique_compacted(pb, bb, bi, ok, pipe)
+                    yield from self._emit_unique_compacted(pb, bb, bi, ok, pipe, prep)
                 else:
-                    yield self._emit(pb, bb, None, bi, ok, self._unique_sel(pb, ok))
+                    yield self._emit(pb, bb, None, bi, ok, self._unique_sel(pb, ok),
+                                     bcols=prep.bcols if prep is not None else None)
             elif self.probe_mark:
                 yield self._emit_probe_marked(pb, ok)
             return
@@ -259,7 +301,7 @@ class EquiJoinDriver:
         return sorted(set(pids)), sorted(set(bids))
 
     def _emit_unique_compacted(self, pb: Batch, bb: Batch, bi, ok,
-                               pipe: UniqueProbePipeline | None) -> Iterator[Batch]:
+                               pipe: UniqueProbePipeline | None, prep=None) -> Iterator[Batch]:
         sel_out = self._unique_sel(pb, ok)
         metrics = pipe.metrics if pipe is not None else None
         if pipe is not None and not pipe.started:
@@ -267,7 +309,10 @@ class EquiJoinDriver:
             if metrics is not None:
                 metrics.add("unique_streams", 1)
         pred = pipe.pred if pipe is not None else None
-        pred_cap = pred.predict(pb.capacity) if pred is not None else None
+        if prep is not None and prep.take != "probe":
+            pred_cap = prep.pred_cap  # the stage made this same predict call
+        else:
+            pred_cap = pred.predict(pb.capacity) if pred is not None else None
         if pred_cap is None:
             # seed (first batch of a stream) or predictor off: one blocking
             # read of the live count, then an exact bucket
@@ -281,7 +326,12 @@ class EquiJoinDriver:
         # (or dense where compaction would not pay), no host read; the live
         # count rides the window and a too-small bucket is re-taken
         out_cap = compaction_bucket(pred_cap, pb.capacity)
-        taken = self._take_at(pb, bb, bi, ok, sel_out, out_cap)
+        if prep is not None and prep.take == "compact" and prep.out_cap == out_cap:
+            taken = self._assemble_taken(pb, bb, *prep.taken)
+        elif prep is not None and prep.take == "gather" and out_cap is None:
+            taken = self._emit(pb, bb, None, bi, ok, sel_out, bcols=prep.bcols)
+        else:
+            taken = self._take_at(pb, bb, bi, ok, sel_out, out_cap)
         state = (pb, bb, bi, ok, sel_out, out_cap, taken)
         for resolved, st in pipe.window.push((sel_out.sum(),), state,
                                              tensor_bytes(bi, ok, taken.device)):
@@ -294,8 +344,12 @@ class EquiJoinDriver:
         if out_cap is None:
             return self._emit(pb, bb, None, bi, ok, sel_out)
         pids, bids = self._side_ids()
-        pc, bc, new_sel = core.predicted_take(self._cols(pb, pids), bi, ok,
-                                              self._cols(bb, bids), sel_out, out_cap)
+        return self._assemble_taken(pb, bb, *core.predicted_take(
+            self._cols(pb, pids), bi, ok, self._cols(bb, bids), sel_out, out_cap))
+
+    def _assemble_taken(self, pb: Batch, bb: Batch, pc, bc, new_sel) -> Batch:
+        """The compacted output batch from ``core.predicted_take``'s columns."""
+        pids, bids = self._side_ids()
         p_at = dict(zip(pids, pc))
         b_at = dict(zip(bids, bc))
         cols = []
@@ -385,17 +439,21 @@ class EquiJoinDriver:
         ri = torch.zeros(pb.capacity, dtype=torch.int64, device=sel.device)
         return self._emit(pb, bb, None, ri, torch.zeros_like(sel), sel)
 
-    def _emit(self, pb: Batch, bb: Batch, li, ri, ok, sel=None) -> Batch:
+    def _emit(self, pb: Batch, bb: Batch, li, ri, ok, sel=None, bcols=None) -> Batch:
         """Gather output columns: probe rows at ``li`` (None = in place),
-        build rows at ``ri``; rows ``sel`` (default ``ok``) are live, build
-        columns are valid only where ``ok`` (matched)."""
+        build rows at ``ri`` (or taken from ``bcols``, build column ->
+        (values, validity) already gathered at ``ri``); rows ``sel``
+        (default ``ok``) are live, build columns are valid only where ``ok``
+        (matched)."""
         sel = ok if sel is None else sel
         cols = []
         for on_probe, ci in self._out_cols():
             src = pb if on_probe else bb
             idx = li if on_probe else ri
             v, m = src.col_values(ci), src.col_validity(ci)
-            if idx is not None:
+            if bcols is not None and not on_probe:
+                v, m = bcols[ci]
+            elif idx is not None:
                 v, m = v[idx], m[idx]
             cols.append(ColumnVal(v, m & (sel if on_probe else ok), src.schema[ci].dtype,
                                   src.dicts[ci]))

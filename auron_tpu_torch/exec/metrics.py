@@ -1,6 +1,9 @@
 """Per-operator metric tree (port of ``auron_tpu/exec/metrics.py``):
 every operator owns a node with named counters and nanosecond timers; the
-tree mirrors the plan and is handed back at task finalize."""
+tree mirrors the plan and is handed back at task finalize. A fused stage
+(``plan/fusion.py``) splits its program's wall back into one child node per
+constituent operator (``add_split``), so the timers keep naming FilterExec,
+ProjectExec, HashAggExec, the join and the writer."""
 
 from __future__ import annotations
 
@@ -33,6 +36,16 @@ class MetricNode:
             self.add(metric, time.perf_counter_ns() - t0)
             if count:
                 self.add(metric + "_n", 1)
+
+    def add_split(self, metric: str, nanos: int, shares: list[tuple["MetricNode", int]]) -> None:
+        """Add ``nanos`` to ``metric`` of the (node, weight) pairs, in
+        proportion to the weights; the last node takes the rounding rest."""
+        total_w = sum(w for _, w in shares) or 1
+        spent = 0
+        for i, (node, w) in enumerate(shares):
+            part = nanos - spent if i == len(shares) - 1 else nanos * w // total_w
+            spent += part
+            node.add(metric, part)
 
     def snapshot(self) -> dict:
         return {

@@ -6,10 +6,13 @@ the host engine expects), RoundRobin (per-task cursor) and Single. The
 eager ``_hash_pids`` policy is the JAX package's: a single non-dictionary
 int64 key runs the partition-id kernel K1 (``ops/partition_kernels.py``)
 with NULL keys blended to ``pmod(42, n)``; every other key list runs the
-chained murmur3 of ``ops/hash_dispatch.py``. The port has no whole-stage
-fusion, so its eager writer is its only writer and K1 serves every
-single-int64-key hash shuffle. ``RangePartitioning`` and ``fuse_spec``
-wait for a later slice.
+chained murmur3 of ``ops/hash_dispatch.py``.
+
+``fuse_spec`` is the static description a whole-stage fused writer stage
+carries (``plan/fusion.py``); ``partition_ids_of`` computes the ids from it
+inside the stage program with the SAME policy, K1 included (its wrapper
+launches on torch's current stream, so a CUDA-graph capture records it).
+``RangePartitioning`` waits for a later slice.
 """
 
 from __future__ import annotations
@@ -34,6 +37,34 @@ class Partitioning:
     def partition_ids(self, batch: Batch, ctx) -> torch.Tensor:
         raise NotImplementedError
 
+    def fuse_spec(self, schema: T.Schema) -> tuple | None:
+        """Hashable description for a fused writer stage, or None when this
+        partitioning cannot ride a stage program."""
+        return None
+
+
+#: key kinds a fused stage may hash (fixed-width, no vocabulary)
+_FUSE_HASHABLE = (T.TypeKind.BOOL, T.TypeKind.INT8, T.TypeKind.INT16, T.TypeKind.INT32,
+                  T.TypeKind.INT64, T.TypeKind.FLOAT32, T.TypeKind.FLOAT64, T.TypeKind.DATE32,
+                  T.TypeKind.TIMESTAMP, T.TypeKind.DECIMAL)
+
+
+def _roundrobin_pids(sel: torch.Tensor, start, n_out: int) -> torch.Tensor:
+    ordinal = torch.cumsum(sel.to(torch.int32), 0) - 1
+    return torch.remainder(ordinal + start, n_out).to(torch.int32)
+
+
+def partition_ids_of(spec: tuple, batch: Batch, n_out: int, rr_start=None) -> torch.Tensor:
+    """The ids a ``fuse_spec`` describes, by the eager policy (a stage
+    program's twin of ``partition_ids``): ``rr_start`` is a device scalar,
+    so one program serves every task partition."""
+    if spec[0] == "single":
+        return torch.zeros(batch.capacity, dtype=torch.int32, device=batch.torch_device)
+    if spec[0] == "roundrobin":
+        return _roundrobin_pids(batch.device.sel, rr_start, n_out)
+    vals = Evaluator(batch.schema).evaluate(batch, list(spec[1]))
+    return _hash_pids(vals, batch.device.sel, n_out)
+
 
 def _hash_pids(vals: list[ColumnVal], sel: torch.Tensor, n_out: int) -> torch.Tensor:
     if len(vals) == 1 and vals[0].dict is None and vals[0].dtype.kind in _K1_KINDS:
@@ -51,6 +82,9 @@ class SinglePartitioning(Partitioning):
     def partition_ids(self, batch: Batch, ctx) -> torch.Tensor:
         return torch.zeros(batch.capacity, dtype=torch.int32, device=batch.torch_device)
 
+    def fuse_spec(self, schema: T.Schema) -> tuple | None:
+        return ("single",)
+
 
 @dataclass
 class HashPartitioning(Partitioning):
@@ -61,6 +95,13 @@ class HashPartitioning(Partitioning):
         vals = Evaluator(batch.schema).evaluate(batch, self.exprs)
         return _hash_pids(vals, batch.device.sel, self.num_partitions)
 
+    def fuse_spec(self, schema: T.Schema) -> tuple | None:
+        for e in self.exprs:
+            dt = e.dtype_of(schema)
+            if dt.is_dict_encoded or dt.kind not in _FUSE_HASHABLE:
+                return None
+        return ("hash", tuple(self.exprs))
+
 
 @dataclass
 class RoundRobinPartitioning(Partitioning):
@@ -69,5 +110,7 @@ class RoundRobinPartitioning(Partitioning):
     def partition_ids(self, batch: Batch, ctx) -> torch.Tensor:
         # deterministic start per task partition (shuffle/mod.rs RoundRobin)
         start = (ctx.partition_id if ctx is not None else 0) % self.num_partitions
-        ordinal = torch.cumsum(batch.device.sel.to(torch.int32), 0) - 1
-        return torch.remainder(ordinal + start, self.num_partitions).to(torch.int32)
+        return _roundrobin_pids(batch.device.sel, start, self.num_partitions)
+
+    def fuse_spec(self, schema: T.Schema) -> tuple | None:
+        return ("roundrobin",)

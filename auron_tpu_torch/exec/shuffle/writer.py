@@ -4,8 +4,10 @@ the local-file ``ShuffleWriterExec``).
 Per batch, on the batch's device: partition ids (``partitioning.py``; K1
 for a single int64 key), then ``cluster_rows``'s policy — a stable sort by
 pid with dead rows given pid ``n_out`` and sorted last, per-partition
-counts by bincount (``writer.py:269-283``; ``torch.sort(stable=True)``
-stands in for ``lax.sort``, which is no Pallas kernel). The counts start
+counts by a scatter-add (``writer.py:269-283``; ``torch.sort(stable=True)``
+stands in for ``lax.sort``, which is no Pallas kernel). A batch from a
+fused writer stage (``plan/fusion.py``) carries both in its
+``_shuffle_prep`` payload, computed in the stage's program. The counts start
 their copy into pinned host memory when the batch is staged; the live
 prefix of the clustered rows then comes to the host, every column plane
 copied into pinned memory under one event (``runtime/transfer.py``), is
@@ -244,18 +246,27 @@ class _ShuffleStaging:
 
 def cluster_rows(sel: torch.Tensor, pids: torch.Tensor, n_out: int):
     """(row order, counts[n_out + 1]): a stable sort by pid, dead rows with
-    pid ``n_out`` last, counts by bincount."""
+    pid ``n_out`` last, counts by a scatter-add (``torch.bincount`` sizes
+    its output from a host read, which a CUDA-graph capture refuses)."""
     sort_pid = torch.where(sel, pids.to(torch.int32), n_out).to(torch.int32)
     s_pid, order = torch.sort(sort_pid, stable=True)
-    return order, torch.bincount(s_pid, minlength=n_out + 1)
+    counts = torch.zeros(n_out + 1, dtype=torch.int64, device=sel.device)
+    counts.index_add_(0, s_pid.to(torch.int64), torch.ones_like(s_pid, dtype=torch.int64))
+    return order, counts
 
 
 def stage_partition_batch(b: Batch, partitioning: Partitioning, ctx: ExecutionContext):
     """Dispatch half: partition ids and the clustering order, enqueued on
-    the batch's device, and the copy of the counts into pinned host memory
-    started (``runtime/transfer.py``)."""
-    pids = partitioning.partition_ids(b, ctx)
-    order, counts = cluster_rows(b.device.sel, pids, partitioning.num_partitions)
+    the batch's device (or taken from the ``_shuffle_prep`` payload of a
+    fused writer stage, which computed them in its program), and the copy of
+    the counts into pinned host memory started (``runtime/transfer.py``)."""
+    n_out = partitioning.num_partitions
+    prep = getattr(b, "_shuffle_prep", None)
+    if prep is not None and prep.n_out == n_out:
+        order, counts = prep.order, prep.counts
+    else:
+        pids = partitioning.partition_ids(b, ctx)
+        order, counts = cluster_rows(b.device.sel, pids, n_out)
     return b, order, start_host_transfer(counts)
 
 

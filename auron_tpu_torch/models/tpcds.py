@@ -48,6 +48,15 @@
   ``run_windowed_class(..., money=True)`` (the windowed class over
   decimal(17,2) revenues), each with an exact oracle in int64 cents or
   Python decimals.
+- the probe class (``run_probe_agg_class``): a generic aggregate of the
+  fact by (item, date) whose keys repeat across batches, the workload of
+  the incremental aggregate's sorted-state probe; no reference class has
+  it at SF 8.
+
+Every run's ``stats`` (``add_timers``) gets the host timers, the
+``COUNTERS`` (with each aggregate's dense / probe / generic batches) and
+``fusion`` (segments fused and left eager by reason, CUDA-graph captures,
+replays and graph bytes).
 
 Map tasks run one after another (the JAX package runs them on threads).
 """
@@ -307,7 +316,14 @@ def _shuffle_stage(plan, out_schema: T.Schema, key_cols: list[int], n_map: int, 
 COUNTERS = ("elapsed_compute_n", "num_merges", "partial_agg_skipped", "spilled_runs",
             "spilled_aggs", "spilled_shuffle_runs", "unique_streams", "blocking_reads",
             "async_reads", "waited_reads", "drain_waits", "sel_mispredicts",
-            "shuffle_enc_dec128")
+            "shuffle_enc_dec128", "dense_batches", "probe_batches", "probe_miss_batches",
+            "generic_batches", "probe_hit_rows", "merge_path_merges", "fp_collision_batches",
+            "fused_batches", "stage_captures", "stage_replays")
+
+#: the counters ``stats["fusion"]`` sums over every operator: the fused
+#: stages' (and standalone fused filters') CUDA-graph captures and replays
+_FUSION_COUNTERS = {"stage_captures": "captures", "stage_replays": "replays",
+                    "fused_batches": "fused_batches"}
 
 
 @contextlib.contextmanager
@@ -344,15 +360,32 @@ def memory_scope(conf: Configuration, stats: dict | None):
 def add_timers(stats: dict, snapshot: dict) -> None:
     """Sum the metric tree's host timers (seconds) into ``stats["timers"]``,
     keyed operator.timer (timers nest: a parent's span covers the children
-    it pulls from), and the ``COUNTERS`` into ``stats["counters"]``."""
+    it pulls from), and the ``COUNTERS`` into ``stats["counters"]``
+    (per HashAggExec: the batches that folded into the dense table, took
+    the probe or the generic path, the probe's hit rows and harvested miss
+    batches, merge-path merges and collision batches). ``stats["fusion"]``
+    gets the task's fused segments and the segments left eager by reason
+    (plan time), its CUDA-graph captures and replays, and the bytes of
+    the graphs the process-wide cache holds after it (``pool_bytes``)."""
     timers = stats.setdefault("timers", {})
     counters = stats.setdefault("counters", {})
+    fusion = stats.setdefault("fusion", {"segments": 0, "eager": {}, "captures": 0,
+                                         "replays": 0, "fused_batches": 0})
+    if "fusion" in snapshot:
+        from auron_tpu_torch.plan.fusion import fusion_stats
+
+        fusion["pool_bytes"] = fusion_stats()["pool_bytes"]  # the cache's, now
+        fusion["segments"] += snapshot["fusion"]["segments"]
+        for r, n in snapshot["fusion"]["eager"].items():
+            fusion["eager"][r] = fusion["eager"].get(r, 0) + n
     op = snapshot["name"].split(".")[0]
     for k, v in snapshot["values"].items():
-        if k.endswith(("_time", "elapsed_compute")):
+        if k.endswith(("_time", "elapsed_compute", "merge_path_s")):
             timers[f"{op}.{k}"] = timers.get(f"{op}.{k}", 0.0) + v / 1e9
         elif k in COUNTERS:
             counters[f"{op}.{k}"] = counters.get(f"{op}.{k}", 0) + v
+        if k in _FUSION_COUNTERS:
+            fusion[_FUSION_COUNTERS[k]] += v
     for c in snapshot["children"]:
         add_timers(stats, c)
 
@@ -2799,3 +2832,70 @@ def run_windowed_decimal_class(data: TpcdsData | None = None, **kw) -> dict:
 
 def windowed_decimal_class_oracle(data: TpcdsData, rows: int | None = None) -> dict:
     return windowed_class_oracle(data, rows, money=True)
+
+
+# ---------------------------------------------------------------------------
+# the probe class: a generic aggregate whose keys repeat across batches
+# ---------------------------------------------------------------------------
+
+
+def probe_agg_exec_tree():
+    """SELECT ss_item_sk, ss_sold_date_sk, sum(ss_ext_sales_price),
+    count(ss_customer_sk), min(ss_quantity), max(ss_quantity),
+    first(ss_quantity) FROM store_sales GROUP BY ss_item_sk,
+    ss_sold_date_sk: 18,000 items x 1,825 dates = 32.85 M slots at SF >= 0.1,
+    beyond the dense table's 2^21 (``agg_exec._DenseAggState.LIMIT``), so
+    the generic path runs, and a key of a later batch has often been seen
+    before: the sorted-state probe's workload
+    (``exec.agg.incremental.probe``)."""
+    from auron_tpu_torch.exec.agg_exec import AggExpr, HashAggExec
+    from auron_tpu_torch.exec.basic import ResourceScanExec
+
+    keys = [(col(1), "item"), (col(0), "date")]
+    p = HashAggExec(ResourceScanExec(STORE_SALES_SCHEMA, "probe_fact"), keys,
+                    [(AggExpr("sum", col(4)), "s"), (AggExpr("count", col(2)), "c"),
+                     (AggExpr("min", col(3)), "lo"), (AggExpr("max", col(3)), "hi"),
+                     (AggExpr("first", col(3)), "f")], "partial")
+    return HashAggExec(p, [(col(0), "item"), (col(1), "date")],
+                       [(AggExpr("sum", col(2)), "s"), (AggExpr("count", col(3)), "c"),
+                        (AggExpr("min", col(4)), "lo"), (AggExpr("max", col(5)), "hi"),
+                        (AggExpr("first", col(6)), "f")], "final")
+
+
+def run_probe_agg_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                        ingested: dict | None = None, stats: dict | None = None) -> dict:
+    """The probe class through the task runtime, sorted by (item, date);
+    ``ingested`` = {"probe_fact": partitions} (default: the fact in
+    ``1 << 20``-row batches)."""
+    from auron_tpu_torch.runtime.task import TaskRuntime
+
+    if ingested is None:
+        ingested = {"probe_fact": to_batches(data.store_sales, 1, device=device)}
+    rt = TaskRuntime(probe_agg_exec_tree(), resources=dict(ingested),
+                     conf=Configuration(conf or {}), device=device)
+    try:
+        out = collect(list(rt))
+    finally:
+        snapshot = rt.finalize()
+    if stats is not None:
+        add_timers(stats, snapshot)
+    order = np.lexsort((out["date"], out["item"]))
+    return {k: v[order] for k, v in out.items()}
+
+
+def probe_agg_class_oracle(data: TpcdsData) -> dict:
+    """The same groups in numpy: ``first`` is each group's first row in
+    stream order (the fact's row order)."""
+    ss = data.store_sales.columns
+    item, date = ss["ss_item_sk"], ss["ss_sold_date_sk"]
+    order = np.argsort(item * 4096 + (date - date.min()), kind="stable")
+    key = (item * 4096 + (date - date.min()))[order]
+    starts = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+    first = order[starts]  # stable: each group's first row in stream order
+    q = ss["ss_quantity"][order]
+    valid = data.store_sales.validity("ss_customer_sk")[order]
+    return {"item": item[first], "date": date[first],
+            "s": np.add.reduceat(ss["ss_ext_sales_price"][order], starts),
+            "c": np.add.reduceat(valid.astype(np.int64), starts),
+            "lo": np.minimum.reduceat(q, starts), "hi": np.maximum.reduceat(q, starts),
+            "f": ss["ss_quantity"][first]}

@@ -11,6 +11,10 @@ Port of ``auron_tpu/ops/segments.py``:
 3. boundaries come from adjacent FULL-word compares (exact under
    fingerprint collisions, which are flagged), segment ids are a cumsum,
    and every aggregate is a scatter reduction into ``cap`` segments.
+
+Two fingerprint-sorted runs merge without a sort (``segment_merged``, the
+merge-path half of the incremental aggregate): two binary searches
+(``ops/binsearch.py``) give the stable merge permutation.
 """
 
 from __future__ import annotations
@@ -21,8 +25,11 @@ import torch
 
 from auron_tpu_torch import types as T
 from auron_tpu_torch.exprs.eval import ColumnVal
-from auron_tpu_torch.ops import bitonic, hashing
+from auron_tpu_torch.ops import binsearch, bitonic, hashing
 from auron_tpu_torch.ops.uwords import MASK32, i64
+
+#: the dead-slot fingerprint of sorted runs: UINT64_MAX, -1 as an int64
+DEAD_FP = -1
 
 _I32_MAX = 2**31 - 1
 
@@ -123,6 +130,43 @@ def segment_by_keys(words: list[torch.Tensor], sel: torch.Tensor, fp=None, *,
         sorted_ops = bitonic.lex_sorted(operands)
     order = sorted_ops[-1].long()
     return _finish_segmentation(order, sorted_ops[1:-1], sorted_ops[0] == 0, cap)
+
+
+def merge_rank_order(fp: torch.Tensor, cap_a: int) -> torch.Tensor:
+    """Merge-path permutation of TWO fingerprint-sorted runs laid out back to
+    back (A = [0, cap_a), B = [cap_a, cap)), each sorted ascending in the
+    unsigned order with its dead slots at ``DEAD_FP`` (reference
+    ``segments.py:286``): the stable merge (A before B on ties, so equal
+    fingerprints of the two runs come out adjacent) from two binary
+    searches, dead slots after every live row. No sort."""
+    cap = fp.shape[0]
+    cap_b = cap - cap_a
+    fp_a, fp_b = fp[:cap_a], fp[cap_a:]
+    dev = fp.device
+    ia = torch.arange(cap_a, dtype=torch.int64, device=dev)
+    ib = torch.arange(cap_b, dtype=torch.int64, device=dev)
+    pos_a = ia + binsearch.lower_bound_dyn([fp_b], [fp_a], cap_b)
+    pos_b = ib + binsearch.upper_bound_dyn([fp_a], [fp_b], cap_a)
+    order = torch.zeros(cap, dtype=torch.int64, device=dev)
+    order[pos_a] = ia
+    order[pos_b] = cap_a + ib
+    return order
+
+
+def segment_merged(words: list[torch.Tensor], sel: torch.Tensor, cap_a: int,
+                   fp_bits: int = 64, fp: torch.Tensor | None = None) -> Segmentation:
+    """Segmentation of two back-to-back fingerprint-sorted runs without a
+    sort (reference ``segments.py:316``): merge-rank the fingerprints, then
+    the word-exact segmentation tail, whose collision flag reports any
+    fingerprint run holding more than one key (across the two runs too).
+    ``fp``: the runs' cached dead-masked fingerprints laid out like the
+    columns, so a pair merge does not re-hash its keys."""
+    if fp is None:
+        fp = hashing.fingerprint64(words, fp_bits)
+        fp = torch.where(sel, fp, torch.full_like(fp, DEAD_FP))
+    order = merge_rank_order(fp, cap_a)
+    return _finish_segmentation(order, tuple(w[order] for w in words), sel[order],
+                                sel.shape[0], fp_sorted=fp[order])
 
 
 # ---------------------------------------------------------------------------

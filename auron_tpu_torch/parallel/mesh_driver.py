@@ -63,6 +63,7 @@ from auron_tpu_torch.memory.memmgr import release_task_consumers
 from auron_tpu_torch.ops.partition_kernels import partition_histogram
 from auron_tpu_torch.parallel.exchange import pid_exchange_step
 from auron_tpu_torch.parallel.mesh import Mesh
+from auron_tpu_torch.plan.fusion import fuse_exec_tree
 from auron_tpu_torch.utils.config import (
     EXCHANGE_COALESCE_ENABLE, EXCHANGE_COALESCE_TARGET_BYTES, EXCHANGE_MESH_MAX_BYTES,
     EXCHANGE_MODE, EXCHANGE_SKEW_ENABLE, EXCHANGE_SKEW_FACTOR, EXCHANGE_SKEW_MIN_BYTES,
@@ -202,6 +203,7 @@ class MeshQueryDriver:
             n_reduce = self._maybe_coalesce_inputs(resolved, resources)
             if n_reduce == self.n_parts:
                 n_reduce = self._maybe_split_skew(resolved, resources)
+            resolved = fuse_exec_tree(resolved, self.conf, str(self.mesh.device))
             outs = [self._run_partition(resolved, p, resources) for p in range(n_reduce)]
             self._sync()
             self.walls["reduce_s"] = time.perf_counter() - t0
@@ -363,6 +365,7 @@ class MeshQueryDriver:
         if n_src == self.n_parts:
             n_src = self._maybe_split_skew(child, resources)
         schema = child.schema
+        child = fuse_exec_tree(child, self.conf, str(self.mesh.device))
         shard_batches: list[Batch] = []
         pids: list[torch.Tensor] = []
         for p in range(n_src):

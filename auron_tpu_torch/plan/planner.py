@@ -253,11 +253,14 @@ def plan_from_proto(p):
     raise NotImplementedError(f"plan variant {which} is not in this slice of the port")
 
 
-def task_from_proto(task):
+def task_from_proto(task, device: str = "cuda"):
     """(root exec, stage_id, partition_id, Configuration) of a decoded
     TaskDefinition. As in auron_tpu, the SMJ input sorts are elided in the
     mode the task conf's ``auron.smj.elide.sorts`` names (default build),
-    then column pruning runs on every task."""
+    column pruning runs on every task, and whole-stage fusion rewrites the
+    exec tree for the task's ``device`` (``plan/fusion.py``; the protos are
+    untouched)."""
+    from auron_tpu_torch.plan.fusion import fuse_exec_tree
     from auron_tpu_torch.plan.optimizer import (
         SMJ_ELIDE_SORTS_KEY, elide_smj_input_sorts, prune_columns,
     )
@@ -265,7 +268,7 @@ def task_from_proto(task):
     conf = Configuration(dict(task.conf))
     mode = dict(task.conf).get(SMJ_ELIDE_SORTS_KEY, "build")
     plan = plan_from_proto(prune_columns(elide_smj_input_sorts(task.plan, mode=mode)))
-    return plan, task.stage_id, task.partition_id, conf
+    return fuse_exec_tree(plan, conf, device), task.stage_id, task.partition_id, conf
 
 
 def decode_task(task_bytes: bytes):

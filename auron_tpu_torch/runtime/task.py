@@ -2,8 +2,10 @@
 ``auron_tpu/runtime/task.py:TaskRuntime``).
 
 A task is either serialized ``TaskDefinition`` bytes (decoded lazily with
-the verbatim ``plan_pb2`` copy) or an already-built exec tree. The runtime
-drives the root operator on a background thread into a bounded queue;
+the verbatim ``plan_pb2`` copy) or an already-built exec tree; either way
+the tree runs whole-stage fused for the task's device (``plan/fusion.py``).
+The runtime drives the root operator on a background thread into a bounded
+queue;
 the consumer pulls batches with ``next_batch``; an error anywhere in the
 operator stream is re-raised on the consumer side; ``finalize`` cancels,
 drains, joins the pump and returns the metric tree. Whichever way the
@@ -33,19 +35,23 @@ class TaskRuntime:
     def __init__(self, task, resources: dict | None = None, shared: dict | None = None,
                  stage_id: int = 0, partition_id: int = 0,
                  conf: Configuration | None = None, device: str = "cuda"):
+        device = str(resolve_device(device))
         if isinstance(task, ExecOperator):
-            plan, conf = task, conf or Configuration()
+            from auron_tpu_torch.plan.fusion import fuse_exec_tree
+
+            conf = conf or Configuration()
+            plan = fuse_exec_tree(task, conf, device)
         else:
             from auron_tpu_torch.plan.planner import decode_task, task_from_proto
 
             if isinstance(task, (bytes, bytearray)):
                 task = decode_task(task)
-            plan, stage_id, partition_id, conf = task_from_proto(task)
+            plan, stage_id, partition_id, conf = task_from_proto(task, device)
         self.plan = plan
         self.ctx = ExecutionContext(
             stage_id=stage_id, partition_id=partition_id, conf=conf,
             metrics=MetricNode(plan.name), resources=resources or {}, shared=shared,
-            device=str(resolve_device(device)),
+            device=device,
         )
         self._queue: queue.Queue = queue.Queue(maxsize=max(conf.get(TOKIO_EQUIV_PREFETCH_DEPTH), 1))
         self._error: BaseException | None = None
@@ -102,7 +108,11 @@ class TaskRuntime:
             deadline -= 0.05
         release_task_consumers(self.ctx)
         self._check_error()
-        return self.ctx.metrics.snapshot()
+        snap = self.ctx.metrics.snapshot()
+        fused = getattr(self.plan, "_fusion_plan", None)
+        if fused is not None:
+            snap["fusion"] = fused  # plan-time: segments fused, left eager by reason
+        return snap
 
 
 def run_task(plan: ExecOperator, resources: dict, stage_id: int = 0, partition_id: int = 0,

@@ -196,9 +196,70 @@ AGG_INCREMENTAL_FINGERPRINT = str_conf(
     "sort (dead, fingerprint64, iota) instead of every key word: "
     "on | off | auto = on for CUDA tensors, off for CPU tensors",
 )
+AGG_INCREMENTAL_PROBE = str_conf(
+    "exec.agg.incremental.probe", "auto", "agg",
+    "binary-search each incoming row into the fingerprint-sorted state "
+    "batch and scatter-add rows whose group already exists straight into "
+    "the state accumulators (exec/agg_exec.py _ProbeScatter); only miss "
+    "rows flow to sort-segmentation. on | off | auto = CUDA tensors only "
+    "(the reference's accelerators-only default)",
+)
+AGG_INCREMENTAL_MERGEPATH = str_conf(
+    "exec.agg.incremental.mergepath", "auto", "agg",
+    "merge fingerprint-sorted state and staged runs with a binsearch "
+    "merge-rank permutation instead of concat-and-re-sort; the full "
+    "re-sort stays whenever a run is not confirmed collision-free. "
+    "on | off | auto = CUDA tensors only",
+)
 AGG_INCREMENTAL_FP_BITS = int_conf(
     "exec.agg.incremental.fp.bits", 64, "agg",
     "fingerprint width; < 64 truncates (a test hook forcing collisions)",
+)
+FILTER_FUSE = bool_conf(
+    "exec.filter.fuse", True, "exec",
+    "run a capture-safe FilterExec's predicate chain as ONE program per "
+    "(schema, predicates, capacity bucket): a CUDA graph replayed per batch "
+    "on the card, the same function eagerly on the CPU. Subsumed by "
+    "exec.fuse.* when the filter sits inside a fused segment",
+)
+FUSE_ENABLE = str_conf(
+    "exec.fuse.enable", "auto", "fusion",
+    "whole-stage fusion (plan/fusion.py): each maximal scan->filter->"
+    "project->partial-agg-input segment between blocking boundaries runs "
+    "as ONE program per (schema, segment signature, capacity bucket), "
+    "captured once as a CUDA graph and replayed. on | off | auto = fuse "
+    "every capture-safe segment on CUDA, and on the CPU only segments whose "
+    "estimated eager-dispatch count reaches exec.fuse.min.ops. Results are "
+    "bit-identical either way",
+)
+FUSE_MIN_OPS = int_conf(
+    "exec.fuse.min.ops", 2, "fusion",
+    "cost-model threshold on the CPU under exec.fuse.enable=auto: a segment "
+    "fuses only when the eager path would cost at least this many per-batch "
+    "dispatches (expression DAG nodes + one per constituent operator)",
+)
+FUSE_AGG_INPUTS = bool_conf(
+    "exec.fuse.agg.inputs", True, "fusion",
+    "extend fused segments THROUGH a partial-mode HashAggExec's input "
+    "evaluation: grouping and aggregate argument expressions run in the "
+    "segment program and the aggregate consumes bare column refs (gated by "
+    "the same cost model)",
+)
+FUSE_PROBE = str_conf(
+    "exec.fuse.probe", "auto", "fusion",
+    "extend the fused stage feeding a hash join's probe side THROUGH the "
+    "probe prologue: key evaluation, canonical words, the unique/existence "
+    "lookup and the build-row gather or predicted compact-take run in the "
+    "SAME stage program. The mispredict-repair protocol and finish_probe "
+    "are unchanged. on | off | auto = CUDA always, CPU when the segment "
+    "cost model fuses",
+)
+FUSE_SHUFFLE = str_conf(
+    "exec.fuse.shuffle", "auto", "fusion",
+    "extend the fused stage feeding a ShuffleWriterExec THROUGH the "
+    "repartition prologue: partition ids (K1 for a single int64 key) and "
+    "the pid clustering ride the stage program. on | off | auto = same "
+    "cost-model split as exec.fuse.enable",
 )
 METRICS_ROW_COUNTS = bool_conf(
     "metrics.row.counts", False, "runtime",

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --window-only  # phases 1, 2 and 11 only
     python3 chip_smoke.py --join-tail-only  # phases 1, 2 and 13 only
     python3 chip_smoke.py --decimal-only  # phases 1, 2 and 14 only
+    python3 chip_smoke.py --fusion-only  # phases 1, 2 and 15 only
 
 Phases, in order, none of them caught — any failure exits non-zero:
 
@@ -171,13 +172,32 @@ Phases, in order, none of them caught — any failure exits non-zero:
    the card once more, bit for bit. Every answer equals its exact oracle
    (decimals compare exactly); walls, peaks, the K3/K4 launches and the
    DEC128 columns written are printed;
-15. print the kernel table as one JSON line (each kernel's launches summed
-   over the timed runs of phases 4-14, and per run), then the status line.
+15. slice 11's A/B: q42, q3, q93, q18, q33, q5, the decimal q42 and
+   q3-mesh (FUSION_PATHS) with the defaults (whole-stage fusion as CUDA
+   graphs, the incremental probe and merge-path, as auto resolves on the
+   card) and with every key of the slice off (FUSION_OFF): per mode a
+   warm-up, two timed runs and, for q42, q3 and the decimal q42 (every path
+   with ``--profile``), one profiled run, every answer equal to the
+   oracle and the two modes' answers equal to each other (exact types bit
+   for bit, float sums at rel 1e-9); the second timed run captures no
+   graph, q42 and q3 replay fused stages; walls, captures, replays,
+   segments left eager by reason, graph bytes, peak memory, device idle
+   share and each aggregate's paths (dense, probe, generic batches, probe
+   hit rows, merge-path merges) are printed, and the decimal q42's cub
+   sorts. Then the probe class (``tpcds.run_probe_agg_class``: a generic
+   aggregate of the whole fact by (item, date), 32.85 M slots) both ways,
+   equal to its numpy oracle, whose final aggregate must hit its sorted
+   state;
+16. print the kernel table as one JSON line (each kernel's launches summed
+   over the timed runs of phases 4-15, and per run), then the status line.
 
 Each phase prints its seconds.
 
 Every launch count is set to 0 just before the timed run of a query and
-read just after it; launches made to compare kernels are not counted.
+read just after it; launches made to compare kernels are not counted. A
+kernel launched inside a captured CUDA graph (K1 in a fused writer stage)
+counts once per replay (``plan/fusion.py``: each graph keeps the launches
+its capture recorded and adds them at every replay).
 
 Needs no network, no pyarrow, no pandas and no protobuf; imports nothing
 of the JAX package. Exits with code 2 when no CUDA device is visible.
@@ -876,6 +896,11 @@ def _print_timers(query: str, stats: dict) -> None:
         print(f"  {query} host timer {v * 1e3:9.3f} ms  {k}", flush=True)
 
 
+def _is_cub_sort(kernel: str) -> bool:
+    k = kernel.lower()
+    return "cub" in k and "sort" in k
+
+
 def profile_run(query: str, fn) -> dict:
     """One more run under torch.profiler: device busy time (sum of the
     device-side events, one stream) against the wall, and the top kernels.
@@ -898,7 +923,9 @@ def profile_run(query: str, fn) -> dict:
     busy_ms = sum(k[1] for k in kernels)
     out = {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
            "device_idle_share": max(0.0, 1 - busy_ms / (wall * 1e3)),
-           "top_kernels": [{"name": n, "ms": ms, "count": c} for n, ms, c in kernels[:12]]}
+           "top_kernels": [{"name": n, "ms": ms, "count": c} for n, ms, c in kernels[:12]],
+           "cub_sorts": {"calls": sum(c for n, _, c in kernels if _is_cub_sort(n)),
+                         "ms": sum(ms for n, ms, _ in kernels if _is_cub_sort(n))}}
     print(f"{query} profile: wall {out['wall_ms']:.3f} ms (profiled), device busy "
           f"{busy_ms:.3f} ms, idle share {out['device_idle_share']:.3f}", flush=True)
     for n, ms, c in kernels[:8]:
@@ -2248,6 +2275,220 @@ def run_decimal_classes(data, profile: bool = False) -> dict:
     return out
 
 
+#: phase 15: the A/B paths, run with the defaults (this slice's fusion and
+#: incremental keys on, as auto resolves on the card) and with every key of
+#: the slice off (the behaviour before this slice)
+FUSION_PATHS = ("q42", "q3", "q93", "q18", "q33", "q5", "q42_decimal", "q3-mesh")
+FUSION_OFF = {"exec.fuse.enable": "off", "exec.filter.fuse": "false",
+              "exec.fuse.agg.inputs": "false", "exec.fuse.probe": "off",
+              "exec.fuse.shuffle": "off", "exec.agg.incremental.probe": "off",
+              "exec.agg.incremental.mergepath": "off"}
+FUSION_TIMED_RUNS = 2
+#: the A/B paths profiled each way without --profile (q42 and q3: host
+#: dispatch; the decimal q42: its cub sorts)
+FUSION_PROFILED = ("q42", "q3", "q42_decimal")
+#: the aggregate path counters phase 15 prints per path
+AGG_PATH_COUNTERS = ("dense_batches", "probe_batches", "probe_miss_batches",
+                     "generic_batches", "probe_hit_rows", "merge_path_merges",
+                     "fp_collision_batches", "partial_agg_skipped", "num_merges")
+
+
+def _fusion_inputs(name: str, data, fact4) -> dict:
+    from auron_tpu_torch.models import tpcds
+
+    if name in ("q42", "q42_decimal"):
+        return tpcds.ingest_q42(data, device="cuda")
+    if name == "q93":
+        return tpcds.ingest_q93(data, 4, device="cuda", fact=fact4)
+    if name == "q33":
+        return tpcds.ingest_q3(data, 1, device="cuda")
+    if name == "q5":
+        return {"fact": fact4}
+    return tpcds.ingest_q3(data, 4, device="cuda", fact=fact4)
+
+
+def _fusion_runner(name: str, ingested: dict):
+    from auron_tpu_torch.models import tpcds
+
+    if name == "q3-mesh":
+        return lambda conf, stats=None: tpcds.run_q3_mesh(
+            n_parts=4, device="cuda", conf=conf, ingested=ingested, stats=stats)
+    run = getattr(tpcds, f"run_{name}_class")
+    return lambda conf, stats=None: run(device="cuda", conf=conf, ingested=ingested,
+                                        stats=stats)
+
+
+def _agg_paths(stats: dict) -> dict:
+    """The aggregates' path counters of a run (those that are not 0) and
+    their merge timers."""
+    counters = stats.get("counters", {})
+    out = {c: counters[f"HashAggExec.{c}"] for c in AGG_PATH_COUNTERS
+           if counters.get(f"HashAggExec.{c}")}
+    timers = stats.get("timers", {})
+    out["merge_time_s"] = timers.get("HashAggExec.merge_time", 0.0)
+    out["merge_path_s"] = timers.get("HashAggExec.merge_path_s", 0.0)
+    return out
+
+
+def _fusion_ab_path(name: str, data, fact4, profile: bool) -> dict:
+    """One A/B path: per mode a warm-up, FUSION_TIMED_RUNS timed runs (each
+    equal to the oracle, the modes equal to each other) and, for
+    FUSION_PROFILED (every path with ``profile``), one profiled run; the
+    walls, the fusion counters (captures, replays, eager segments by
+    reason, graph-pool bytes), peak memory and the aggregate paths."""
+    import torch
+
+    from auron_tpu_torch.models import tpcds
+    from auron_tpu_torch.plan import fusion
+
+    t0 = time.perf_counter()
+    ingested = _fusion_inputs(name, data, fact4)
+    torch.cuda.synchronize()
+    t_ingest = time.perf_counter() - t0
+    oracle_name = "q3" if name == "q3-mesh" else name
+    want = ORACLES.get(oracle_name)
+    if want is None:
+        want = ORACLES[oracle_name] = getattr(tpcds, f"{oracle_name}_class_oracle")(data)
+    run = _fusion_runner(name, ingested)
+    check = _assert_exact if name == "q42_decimal" else (
+        lambda label, got, w: _assert_equal_or_close(label, got, w))
+    out = {"ingest_s": t_ingest}
+    answers = {}
+    for mode, conf in (("on", {}), ("off", dict(FUSION_OFF))):
+        warm = run(conf)
+        check(f"{name} fusion {mode} warm-up", warm, want)
+        runs = []
+        for i in range(FUSION_TIMED_RUNS):
+            _reset_launches()
+            fusion.reset_fusion_stats()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            stats: dict = {}
+            t0 = time.perf_counter()
+            got = run(conf, stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            fs = fusion.fusion_stats()
+            check(f"{name} fusion {mode} run {i}", got, want)
+            answers.setdefault(mode, got)
+            runs.append({"wall_s": wall, "launches": _launches(),
+                         "peak_bytes": torch.cuda.max_memory_allocated(),
+                         "captures": fs["captures"], "replays": fs["replays"],
+                         "segments": fs["segments"], "eager": fs["eager"],
+                         "pool_bytes": fs["pool_bytes"], "evictions": fs["evictions"],
+                         "agg": _agg_paths(stats)})
+        if mode == "on":
+            assert runs[-1]["captures"] == 0, (name, "the second timed run captured", runs)
+            if name in ("q42", "q3"):
+                assert all(r["replays"] > 0 for r in runs), (name, "no fused stage replayed")
+        else:
+            assert all(r["replays"] == 0 and r["segments"] == 0 for r in runs), (name, runs)
+        prof = None
+        if profile or name in FUSION_PROFILED:
+            prof = profile_run(f"{name} (fusion {mode})", lambda: run(conf))
+        out[mode] = {"runs": runs, "profile": prof}
+        r = runs[-1]
+        walls = ", ".join("%.4f" % x["wall_s"] for x in runs)
+        idle = "" if prof is None else f", idle share {prof['device_idle_share']:.3f}"
+        print(f"{name} fusion {mode}: walls {walls} s, captures "
+              f"{[x['captures'] for x in runs]}, replays {[x['replays'] for x in runs]}, "
+              f"segments {r['segments']}, eager {r['eager']}, graph cache "
+              f"{r['pool_bytes'] / 2**20:.1f} MiB, evictions "
+              f"{[x['evictions'] for x in runs]}, peak "
+              f"{max(x['peak_bytes'] for x in runs) / 2**30:.3f} GiB{idle}, aggregate paths "
+              f"{r['agg']}", flush=True)
+        if name == "q42_decimal":
+            print(f"{name} fusion {mode}: cub sorts {prof['cub_sorts']}", flush=True)
+    _assert_equal_or_close(f"{name}: defaults against every key off", answers["on"],
+                           answers["off"])
+    if name == "q42_decimal":
+        _assert_exact(f"{name}: defaults against every key off", answers["on"],
+                      answers["off"])
+    return out
+
+
+def _fusion_probe_plan(data) -> dict:
+    """The probe class over the whole fact (``tpcds.run_probe_agg_class``):
+    a generic aggregate by (item, date), 32.85 M slots at SF 8, whose final
+    aggregate probes its sorted state with every later batch. Defaults and
+    every key off, a warm-up and a timed run each, equal to the numpy oracle
+    and to each other (no warm-up: the plan captures no graph, its stages
+    are pure column passthroughs); the probe's hit rows, merge-path merges
+    and merge time both ways."""
+    import numpy as np
+    import torch
+
+    from auron_tpu_torch.models import tpcds
+
+    t0 = time.perf_counter()
+    ingested = {"probe_fact": tpcds.to_batches(data.store_sales, 1, device="cuda")}
+    want = tpcds.probe_agg_class_oracle(data)
+    t_setup = time.perf_counter() - t0
+    out = {"setup_s": t_setup, "groups": int(len(want["item"]))}
+    answers = {}
+    for mode, conf in (("on", {}), ("off", dict(FUSION_OFF))):
+        _reset_launches()
+        torch.cuda.synchronize()
+        stats: dict = {}
+        t0 = time.perf_counter()
+        got = tpcds.run_probe_agg_class(device="cuda", conf=conf, ingested=ingested,
+                                        stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for k, w in want.items():
+            if k == "s":
+                _assert_close(got[k], w)
+            else:
+                assert np.array_equal(got[k], w), ("probe class", mode, k)
+        answers[mode] = got
+        agg = _agg_paths(stats)
+        out[mode] = {"wall_s": wall, "agg": agg, "launches": _launches()}
+        print(f"probe class ({mode}): wall {wall:.4f} s, {out['groups']} groups, aggregate "
+              f"paths (partial + final) {agg}", flush=True)
+    assert out["on"]["agg"].get("probe_hit_rows", 0) > 0, ("the probe class never hit", out["on"])
+    assert "probe_batches" not in out["off"]["agg"], out["off"]
+    for k in want:
+        if k != "s":
+            assert np.array_equal(answers["on"][k], answers["off"][k]), k
+    _assert_close(answers["on"]["s"], answers["off"]["s"])
+    return out
+
+
+def run_fusion_phase(data, profile: bool = False) -> dict:
+    """Phase 15: the A/B of this slice's keys over FUSION_PATHS, then the
+    probe at full width (the probe class)."""
+    import torch
+
+    from auron_tpu_torch.models import tpcds
+
+    t0 = time.perf_counter()
+    fact4 = tpcds.to_batches(data.store_sales, 4, device="cuda")
+    torch.cuda.synchronize()
+    print(f"fusion A/B: the fact in 4 partitions on the card in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    out = {name: _fusion_ab_path(name, data, fact4, profile) for name in FUSION_PATHS}
+    del fact4
+    torch.cuda.empty_cache()
+    out["probe class"] = _fusion_probe_plan(data)
+    torch.cuda.empty_cache()
+    return out
+
+
+def report_graph_cache() -> None:
+    """Print the CUDA-graph cache's resident bytes, graphs and evictions
+    over the script, and fail if it holds more than its cap (a quarter of
+    the memory manager's budget)."""
+    from auron_tpu_torch.memory.memmgr import MemManager
+    from auron_tpu_torch.plan import fusion
+
+    cache = fusion._GRAPHS
+    cap = MemManager.get().budget // fusion.GRAPH_BUDGET_SHARE
+    print(f"graph cache at the end: {cache.pool_bytes() / 2**20:.1f} MiB in "
+          f"{len(cache._graphs)} graphs (cap {cap / 2**20:.1f} MiB), "
+          f"{cache.evictions} evictions over the script", flush=True)
+    assert cache.pool_bytes() <= cap, "the graph cache passed its cap"
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=8.0, help="scale factor (default 8)")
@@ -2262,6 +2503,9 @@ def main(argv=None) -> int:
     ap.add_argument("--decimal-only", action="store_true",
                     help="run phases 1, 2 and 14 only (no kernel table, no status line; "
                          "with --profile, traces of the decimal q3 and q42)")
+    ap.add_argument("--fusion-only", action="store_true",
+                    help="run phases 1, 2 and 15 only (no kernel table, no status line; "
+                         "with --profile, every A/B path profiled each way)")
     ap.add_argument("--time-sorts", action="store_true",
                     help="only build and time the bitonic kernels at the sort shapes "
                          "(one JSON line, no status line)")
@@ -2322,6 +2566,17 @@ def main(argv=None) -> int:
         data = tpcds.generate(args.sf, args.seed)
         run_decimal_classes(data, args.profile)
         phase_done("14")
+        return 0
+
+    if args.fusion_only:
+        data = tpcds.generate(args.sf, args.seed)
+        fused = run_fusion_phase(data, args.profile)
+        phase_done("15")
+        report_graph_cache()
+        os.makedirs(os.path.join(REPO_DIR, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(REPO_DIR, "chiprun_out", "chip_smoke_fusion.json"), "w") as f:
+            json.dump({"device": kind, "nvidia_smi": smi, "fusion": fused, "phase_s": phase_s},
+                      f, indent=1)
         return 0
 
     # 3. kernels against their plain versions
@@ -2435,7 +2690,12 @@ def main(argv=None) -> int:
     decimal = run_decimal_classes(data, args.profile)
     phase_done("14")
 
-    # 15. every kernel sort and run merge of the main paths, held against the
+    # 15. this slice's A/B (fusion and the incremental aggregate, defaults
+    # against every key off) and the probe at full width
+    fused = run_fusion_phase(data, args.profile)
+    phase_done("15")
+
+    # 16. every kernel sort and run merge of the main paths, held against the
     # plain network on the card at its own operands
     checks["main_path_sorts"] = {
         **{f"q3-mesh ({m})": q3_mesh[m]["sort_checks"] for m in q3_mesh},
@@ -2468,7 +2728,12 @@ def main(argv=None) -> int:
                 if label != "profiles"},
              **{f"{name} (predictor {r['mode']}, run {i})": r["launches"]
                 for name in AB_CLASSES for i, r in enumerate(ab[name])},
-             **{name: r["launches"] for name, r in decimal.items()}}
+             **{name: r["launches"] for name, r in decimal.items()},
+             **{f"{name} (fusion {m}, run {i})": r["launches"]
+                for name in FUSION_PATHS for m in ("on", "off")
+                for i, r in enumerate(fused[name][m]["runs"])},
+             **{f"probe class ({m})": fused["probe class"][m]["launches"]
+                for m in ("on", "off")}}
     kernels = []
     for name, source, replaces in (
         ("bitonic_sort", "auron_tpu_torch/csrc/bitonic.cu", "auron_tpu/ops/bitonic.py:145"),
@@ -2497,9 +2762,10 @@ def main(argv=None) -> int:
                    "q3_mesh": q3_mesh, "gate": gate, "q72_mesh": q72_mesh, "skew": skew,
                    "tail": tail, "window": window, "spill": spill, "q33": q33,
                    "join_tail_sweep": sweep, "predictor_ab": ab, "decimal": decimal,
-                   "phase_s": phase_s,
+                   "fusion": fused, "phase_s": phase_s,
                    "kernels": kernels}, f, indent=1)
-    phase_done("15")
+    phase_done("16")
+    report_graph_cache()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -698,3 +698,262 @@ def test_dec128_shuffle_round_trip_from_card(tmp_path):
     want = [r for b in batches for r in zip(*b.to_pydict().values())]
     key = lambda r: tuple((x is None, x if x is not None else 0) for x in r)  # noqa: E731
     assert sorted(got, key=key) == sorted(want, key=key)
+
+
+# ---------------------------------------------------------------------------
+# whole-stage fusion on the card: captured CUDA graphs (plan/fusion.py)
+# ---------------------------------------------------------------------------
+
+
+def _fusion_frames(n_batches: int, rows: int, seed: int, device="cuda"):
+    from auron_tpu_torch import types as T
+    from auron_tpu_torch.columnar.batch import Batch
+
+    schema = T.Schema((T.Field("k", T.INT64, True), T.Field("v", T.FLOAT64, True),
+                       T.Field("q", T.INT32, True)))
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_batches):
+        k = rng.integers(0, 5000, rows).astype(np.int64)
+        v = rng.integers(-4096, 4096, rows) / 256.0
+        q = rng.integers(0, 100, rows).astype(np.int32)
+        valid = [np.arange(rows) % 7 != 0, np.arange(rows) % 5 != 0, None]
+        out.append(Batch.from_numpy([k, v, q], schema, valid, device=device))
+    return schema, out
+
+
+def _stage_tree(schema, batches, tag: float):
+    """filter -> project over the batches; ``tag`` (a literal) keeps each
+    test's program key its own in the process-wide graph cache."""
+    from auron_tpu_torch import types as T
+    from auron_tpu_torch.exec.basic import FilterExec, MemoryScanExec, ProjectExec
+    from auron_tpu_torch.exprs import ir
+
+    f = FilterExec(MemoryScanExec([list(batches)], schema),
+                   [ir.BinaryOp("gt", ir.Column(1, "v"), ir.Literal(tag, T.FLOAT64))])
+    return ProjectExec(f, [ir.BinaryOp("add", ir.Column(0, "k"), ir.Literal(1, T.INT64)),
+                           ir.BinaryOp("mul", ir.Column(1, "v"), ir.Literal(2.0, T.FLOAT64)),
+                           ir.Column(2, "q")], ["k1", "v2", "q"])
+
+
+def _run_tree(tree, conf: dict, fuse: bool):
+    from auron_tpu_torch.exec.base import ExecutionContext
+    from auron_tpu_torch.plan.fusion import fuse_exec_tree
+    from auron_tpu_torch.utils.config import Configuration
+
+    c = Configuration(conf)
+    if fuse:
+        tree = fuse_exec_tree(tree, c, "cuda")
+    ctx = ExecutionContext(conf=c, device="cuda")
+    out = list(tree.execute(0, ctx))
+    torch.cuda.synchronize()
+    return tree, out, ctx.metrics.snapshot()["values"]
+
+
+def _same_batches(a, b) -> None:
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert torch.equal(x.device.sel, y.device.sel)
+        for vx, vy, mx, my in zip(x.device.values, y.device.values, x.device.validity,
+                                  y.device.validity):
+            assert torch.equal(vx, vy) and torch.equal(mx, my)
+
+
+@pytest.mark.cuda
+def test_captured_stage_replays_equal_eager_on_card():
+    """A filter/project stage captured once and replayed for every later
+    batch (several capacities) equals its eager run bit for bit; a second
+    pass replays only, capturing nothing."""
+    from auron_tpu_torch.plan.fusion import FusedStageExec
+
+    _need_card()
+    schema, batches = _fusion_frames(6, 1 << 16, 1)
+    _, small = _fusion_frames(3, 1000, 2)
+    batches = batches[:3] + small + batches[3:]
+    tag = -0.390625
+    _, eager, _ = _run_tree(_stage_tree(schema, batches, tag), {"exec.fuse.enable": "off",
+                                                                "exec.filter.fuse": "false"},
+                            False)
+    tree, fused, m1 = _run_tree(_stage_tree(schema, batches, tag), {}, True)
+    assert isinstance(tree, FusedStageExec)
+    _same_batches(fused, eager)
+    assert m1["stage_captures"] == 2 and m1["stage_replays"] == len(batches) - 2, m1
+    _, again, m2 = _run_tree(_stage_tree(schema, batches, tag), {}, True)
+    _same_batches(again, eager)
+    assert "stage_captures" not in m2 and m2["stage_replays"] == len(batches), m2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 3])
+def test_held_batches_survive_later_replays_on_card(depth):
+    """Batches held downstream (every output of the stream here, and a join's
+    transfer window of depth k over a fused probe prologue) keep their rows
+    while later batches replay the same graph."""
+    from auron_tpu_torch import types as T
+    from auron_tpu_torch.columnar.batch import Batch
+    from auron_tpu_torch.exec.basic import MemoryScanExec
+    from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
+    from auron_tpu_torch.exprs import ir
+
+    _need_card()
+    schema, batches = _fusion_frames(8, 1 << 15, 3)
+    tag = -1.0 - depth / 8
+    _, eager, _ = _run_tree(_stage_tree(schema, batches, tag), {"exec.fuse.enable": "off",
+                                                                "exec.filter.fuse": "false"},
+                            False)
+    _, held, _ = _run_tree(_stage_tree(schema, batches, tag), {}, True)
+    _same_batches(held, eager)  # all eight held until the stream ended
+
+    dim_schema = T.Schema((T.Field("id", T.INT64, True), T.Field("w", T.FLOAT64, True)))
+    dim = Batch.from_numpy([np.arange(1, 4001, dtype=np.int64), np.arange(4000) * 0.5],
+                           dim_schema, device="cuda")
+
+    def join():
+        return BroadcastHashJoinExec(_stage_tree(schema, batches, tag),
+                                     MemoryScanExec([[dim]], dim_schema),
+                                     [ir.Column(0, "k1")], [ir.Column(0, "id")], "inner",
+                                     build_side="right")
+
+    conf = {"runtime.transfer.window.depth": str(depth), "join.compact.output": "on"}
+    _, want, _ = _run_tree(join(), {**conf, "exec.fuse.enable": "off",
+                                    "exec.filter.fuse": "false"}, False)
+    _, got, m = _run_tree(join(), conf, True)
+    assert m.get("probe_prep_batches", 0) > 0, m
+    _same_batches(got, want)
+
+
+@pytest.mark.cuda
+def test_k1_inside_a_captured_shuffle_stage_on_card(tmp_path):
+    """A single-int64-key writer stage launches K1 inside its graph: the
+    files equal the eager writer's, and K1 counts one launch per batch
+    either way (a replay adds its graph's launches)."""
+    import os
+
+    from auron_tpu_torch.exec.shuffle.partitioning import HashPartitioning
+    from auron_tpu_torch.exec.shuffle.writer import ShuffleWriterExec
+    from auron_tpu_torch.exprs import ir
+
+    _need_card()
+    schema, batches = _fusion_frames(5, 1 << 16, 4)
+
+    def run(conf, fuse, d):
+        os.makedirs(d, exist_ok=True)
+        w = ShuffleWriterExec(_stage_tree(schema, batches, -2.5),
+                              HashPartitioning([ir.Column(0, "k1")], 4),
+                              os.path.join(d, "x.data"), os.path.join(d, "x.index"))
+        before = pk.LAUNCHES["murmur3_pmod"]
+        _, _, m = _run_tree(w, conf, fuse)
+        with open(os.path.join(d, "x.data"), "rb") as f:
+            data = f.read()
+        return data, pk.LAUNCHES["murmur3_pmod"] - before, m
+
+    from auron_tpu_torch.plan.fusion import fusion_stats
+
+    off, k_off, _ = run({"exec.fuse.enable": "off", "exec.filter.fuse": "false"}, False,
+                        str(tmp_path / "off"))
+    on, k_on, _ = run({}, True, str(tmp_path / "on"))
+    captures = fusion_stats()["captures"]
+    on2, k_on2, _ = run({}, True, str(tmp_path / "on2"))
+    assert on[:-16] == off[:-16] and on2[:-16] == off[:-16]  # the tail is a random tag
+    assert k_off == k_on == k_on2 == len(batches), (k_off, k_on, k_on2)
+    assert fusion_stats()["captures"] == captures  # the second pass replays only
+
+
+@pytest.mark.cuda
+def test_graph_cache_stays_bounded_over_distinct_builds_on_card():
+    """Joins over eight builds of their own (each LUT base differs, so each
+    captures its own probe graph) under a memory budget whose graph share
+    (a quarter) holds about two graphs: the cached graphs' bytes never pass
+    it, the least recently used go, every answer equals the eager join,
+    and a spill drops every graph and gives its pool back to the
+    allocator."""
+    from auron_tpu_torch import types as T
+    from auron_tpu_torch.columnar.batch import Batch
+    from auron_tpu_torch.exec.basic import MemoryScanExec
+    from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
+    from auron_tpu_torch.exprs import ir
+    from auron_tpu_torch.memory.memmgr import MemManager
+    from auron_tpu_torch.plan import fusion
+
+    _need_card()
+    schema, batches = _fusion_frames(3, 1 << 15, 5)
+    dim_schema = T.Schema((T.Field("id", T.INT64, True), T.Field("w", T.FLOAT64, True)))
+
+    def join(base: int):
+        dim = Batch.from_numpy([np.arange(base, base + 4000, dtype=np.int64),
+                                np.arange(4000) * 0.5], dim_schema, device="cuda")
+        return BroadcastHashJoinExec(_stage_tree(schema, batches, -1.75),
+                                     MemoryScanExec([[dim]], dim_schema),
+                                     [ir.Column(0, "k1")], [ir.Column(0, "id")], "inner",
+                                     build_side="right")
+
+    off = {"exec.fuse.enable": "off", "exec.filter.fuse": "false"}
+    before = fusion.fusion_stats()
+    _, want, _ = _run_tree(join(1), off, False)
+    _, got, m = _run_tree(join(1), {}, True)
+    _same_batches(got, want)
+    assert m.get("probe_prep_batches", 0) > 0, m
+    assert fusion.fusion_stats()["captures"] > before["captures"]
+    one = fusion.fusion_stats()["pool_bytes"] - before["pool_bytes"]
+    assert one > 0
+    fusion._GRAPHS.spill()  # earlier tests' graphs would not fit the small budget
+    try:
+        mm = MemManager.init(budget_bytes=int(2.5 * one * fusion.GRAPH_BUDGET_SHARE / 0.6))
+        cap = mm.budget // fusion.GRAPH_BUDGET_SHARE
+        evicted = fusion.fusion_stats()["evictions"]
+        for base in range(100, 900, 100):
+            _, want, _ = _run_tree(join(base), off, False)
+            captures = fusion.fusion_stats()["captures"]
+            _, got, _ = _run_tree(join(base), {}, True)
+            _same_batches(got, want)
+            # a build of its own (its LUT base) captures a graph of its own
+            assert fusion.fusion_stats()["captures"] > captures
+            assert 0 < fusion.fusion_stats()["pool_bytes"] <= cap
+            assert mm.total_used() >= fusion.fusion_stats()["pool_bytes"]  # counted
+    finally:
+        MemManager.init()
+    assert fusion.fusion_stats()["evictions"] - evicted >= 6
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    held = fusion.fusion_stats()["pool_bytes"]
+    assert fusion._GRAPHS.spill() == held > 0
+    assert fusion.fusion_stats()["pool_bytes"] == 0 and not fusion._GRAPHS._graphs
+    torch.cuda.empty_cache()  # dropped private pools go back to the device
+    assert reserved - torch.cuda.memory_reserved() >= held // 2, (reserved, held)
+
+
+@pytest.mark.cuda
+def test_fused_classes_equal_eager_on_card():
+    """q42 (dense prep in the stage program, a fused probe prologue), q93
+    (a writer stage with K1) and the probe class (the sorted-state probe and
+    merge-path) with this slice's keys on and off: equal answers."""
+    from auron_tpu_torch.models import tpcds
+
+    _need_card()
+    d = tpcds.generate(0.5, 42)
+    off = {"exec.fuse.enable": "off", "exec.filter.fuse": "false",
+           "exec.agg.incremental.probe": "off", "exec.agg.incremental.mergepath": "off"}
+    for name in ("q42", "q93", "q42_decimal"):
+        run = getattr(tpcds, f"run_{name}_class")
+        a, b = run(d, device="cuda"), run(d, device="cuda", conf=off)
+        want = getattr(tpcds, f"{name}_class_oracle")(d)
+        for k in want:
+            for got in (a, b):
+                g, w = np.asarray(got[k]), np.asarray(want[k])
+                if g.dtype.kind == "f":
+                    np.testing.assert_allclose(g, w, rtol=1e-9, atol=0)
+                else:
+                    assert g.tolist() == w.tolist(), (name, k)
+    ing = {"probe_fact": tpcds.to_batches(d.store_sales, 1, 1 << 17, "cuda")}
+    st: dict = {}
+    a = tpcds.run_probe_agg_class(d, device="cuda", ingested=ing, stats=st)
+    b = tpcds.run_probe_agg_class(d, device="cuda", conf=off, ingested=ing)
+    want = tpcds.probe_agg_class_oracle(d)
+    for k in want:
+        for got in (a, b):
+            if k == "s":
+                np.testing.assert_allclose(got[k], want[k], rtol=1e-9, atol=0)
+            else:
+                assert np.array_equal(got[k], want[k]), k
+    assert st["counters"].get("HashAggExec.probe_hit_rows", 0) > 0, st["counters"]

@@ -268,7 +268,11 @@ def test_task_from_proto_elides_by_the_task_conf(mode, sorts):
     ptask = pplanner._pb().TaskDefinition.FromString(task.SerializeToString())
     root, stage, part, pconf = pplanner.task_from_proto(ptask)
     assert (stage, part) == (1, 0) and _sort_count(root) == sorts
-    assert type(root.children[0]).__name__ == "SortMergeJoinExec"
+    # whole-stage fusion (plan/fusion.py) puts the aggregate's input stage
+    # between the aggregate and the join
+    below = root.children[0]
+    assert type(below).__name__ == "FusedStageExec"
+    assert type(below.children[0]).__name__ == "SortMergeJoinExec"
 
 
 @pytest.mark.parametrize("which", ["agg", "limited", "union"])
