@@ -9,10 +9,14 @@ set of dense tensors:
   refine ``sel`` instead of compacting;
 - capacities are powers of two (``bucket_capacity``), as in the JAX package,
   so operator code and results line up batch for batch;
-- dictionary-encoded columns (STRING/BINARY, wide decimals) carry int32
-  codes on the device; the vocabulary is a numpy object array on the host
-  (a wide decimal's holds ``decimal.Decimal`` values at the column's
-  scale);
+- dictionary-encoded columns (STRING/BINARY, wide decimals, LIST) carry
+  int32 codes on the device; the vocabulary is a numpy object array on the
+  host (a wide decimal's holds ``decimal.Decimal`` values at the column's
+  scale, a LIST's one Python list per entry). A LIST column ingests as
+  identity codes into a per-batch vocabulary (reference
+  ``columnar/batch.py:469-475``): lists cannot be ordered or hashed, so
+  vocabularies of lists merge by ``vocab_key`` (lists as tuples) and are
+  always filled entry by entry (``object_array``);
 - a decimal64 column (precision <= 18) is an int64 plane of unscaled
   values; a value outside int64 ingests as NULL (reference
   ``columnar/batch.py:499-512``).
@@ -67,10 +71,39 @@ class DeviceBatch(NamedTuple):
         return self.sel.sum()
 
 
+def object_array(entries: Sequence) -> np.ndarray:
+    """A numpy object array holding ``entries`` one per slot. Filled entry by
+    entry: ``out[:] = entries`` broadcasts (or raises) when the entries are
+    lists of equal length."""
+    out = np.empty(len(entries), dtype=object)
+    for i, e in enumerate(entries):
+        out[i] = e
+    return out
+
+
+def vocab_key(v):
+    """Hashable key of a vocabulary entry: lists (at any depth) become
+    tuples (reference ``columnar/batch.py:_vocab_key``)."""
+    if isinstance(v, list):
+        return tuple(vocab_key(x) for x in v)
+    return v
+
+
+def list_vocab(col, valid: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(identity int32 codes, per-batch vocabulary) of a host LIST column: a
+    NULL row keeps its code with an empty list behind it."""
+    n = len(col)
+    vocab = object_array([list(e) if ok and e is not None else []
+                          for e, ok in zip(col, valid)]) if n else object_array([[]])
+    return np.arange(n, dtype=np.int32), vocab
+
+
 def empty_dict(dtype: T.DataType) -> np.ndarray:
     """One-entry sentinel vocabulary (code 0 must always decode)."""
     out = np.empty(1, dtype=object)
-    if dtype.kind == T.TypeKind.BINARY:
+    if dtype.kind == T.TypeKind.LIST:
+        out[0] = []
+    elif dtype.kind == T.TypeKind.BINARY:
         out[0] = b""
     elif dtype.kind == T.TypeKind.DECIMAL:
         out[0] = T.decimal_from_unscaled(0, dtype.scale)
@@ -148,23 +181,25 @@ class Batch:
         device="cuda",
     ) -> "Batch":
         """Ingest host numpy columns (one per schema field). For a
-        dict-encoded field the column is either the raw values (strings, or
-        Decimals of a wide decimal; encoded here) or, when ``dicts[i]`` is
-        given, int32 codes into it. A decimal64 column is int64 unscaled
-        values or Decimal objects."""
+        dict-encoded field the column is either the raw values (strings,
+        Decimals of a wide decimal, or a sequence of Python lists of a LIST;
+        encoded here) or, when ``dicts[i]`` is given, int32 codes into it. A
+        decimal64 column is int64 unscaled values or Decimal objects."""
         dev = resolve_device(device)
         n = len(columns[0]) if columns else 0
         cap = capacity or bucket_capacity(n)
         assert cap >= n, (cap, n)
         vals, masks, out_dicts = [], [], []
         for i, f in enumerate(schema):
-            col = np.asarray(columns[i])
+            col = columns[i] if f.dtype.kind == T.TypeKind.LIST else np.asarray(columns[i])
             valid = None if validity is None else validity[i]
             valid = np.ones(n, bool) if valid is None else np.asarray(valid, bool)
             d = None
             if f.dtype.is_dict_encoded:
                 if dicts is not None and dicts[i] is not None:
-                    codes, d = col.astype(np.int32), dicts[i]
+                    codes, d = np.asarray(col).astype(np.int32), dicts[i]
+                elif f.dtype.kind == T.TypeKind.LIST:
+                    codes, d = list_vocab(col, valid)
                 elif f.dtype.is_wide_decimal:
                     codes, d = wide_decimal_vocab(col, valid, f.dtype.scale)
                 else:
@@ -205,7 +240,10 @@ class Batch:
             if isinstance(arr, pa.ChunkedArray):
                 arr = arr.combine_chunks()
             valid = pc.is_valid(arr).to_numpy(zero_copy_only=False)
-            if f.dtype.is_wide_decimal and not pa.types.is_dictionary(arr.type):
+            if f.dtype.kind == T.TypeKind.LIST:
+                cols.append(arr.to_pylist())
+                dicts.append(None)
+            elif f.dtype.is_wide_decimal and not pa.types.is_dictionary(arr.type):
                 vals = np.empty(len(arr), dtype=object)
                 vals[:] = arr.cast(f.dtype.to_arrow()).to_pylist()
                 cols.append(vals)
@@ -308,9 +346,12 @@ class Batch:
             m = self.device.validity[i].cpu().numpy()[idx]
             if f.dtype.is_dict_encoded:
                 d = self.dicts[i]
-                dec = np.empty(len(idx), dtype=object)
-                dec[:] = [d[c] if ok else None for c, ok in zip(v.tolist(), m.tolist())]
-                v = dec
+                dec = [d[c] if ok else None for c, ok in zip(v.tolist(), m.tolist())]
+                if f.dtype.kind == T.TypeKind.LIST:
+                    v = object_array(dec)
+                else:
+                    v = np.empty(len(dec), dtype=object)
+                    v[:] = dec
             out[f.name] = (v, m)
         return out
 
@@ -356,23 +397,23 @@ def device_take(dev: DeviceBatch, order: torch.Tensor) -> DeviceBatch:
 
 
 def merge_vocab(entry_lists: Sequence) -> tuple[np.ndarray, list[np.ndarray]]:
-    """Merge per-source vocabularies into ONE (first-occurrence order);
-    returns (unified, per-source remap tables new = remaps[src][old])."""
+    """Merge per-source vocabularies into ONE (first-occurrence order, equal
+    entries by ``vocab_key``); returns (unified, per-source remap tables
+    new = remaps[src][old])."""
     vocab: dict = {}
     values: list = []
     remaps: list[np.ndarray] = []
     for entries in entry_lists:
         r = np.empty(len(entries), dtype=np.int32)
         for i, s in enumerate(entries):
-            if s in vocab:
-                r[i] = vocab[s]
+            k = vocab_key(s) if type(s) is list else s
+            if k in vocab:
+                r[i] = vocab[k]
             else:
-                r[i] = vocab[s] = len(values)
+                r[i] = vocab[k] = len(values)
                 values.append(s)
         remaps.append(r)
-    out = np.empty(max(len(values), 1), dtype=object)
-    out[:] = values or [""]
-    return out, remaps
+    return object_array(values or [""]), remaps
 
 
 def unify_dict(batches: Sequence[Batch], col: int) -> tuple[np.ndarray, list[np.ndarray]]:
@@ -469,3 +510,84 @@ def prefix_slice(batch: Batch, new_capacity: int) -> Batch:
         ),
         batch.dicts,
     )
+
+
+# ---------------------------------------------------------------------------
+# host rows of columns (the host-evaluation contracts: row-wise functions,
+# list construction) without Arrow
+# ---------------------------------------------------------------------------
+
+
+def _python_value(v, dtype: T.DataType, d):
+    """One physical value as the Python value Arrow's ``to_pylist`` gives:
+    a vocabulary entry, a Decimal, a ``datetime.date`` or a naive
+    ``datetime.datetime``, else the number."""
+    import datetime as _dt
+
+    k = dtype.kind
+    if dtype.is_dict_encoded:
+        return d[min(max(int(v), 0), len(d) - 1)]
+    if k == T.TypeKind.DECIMAL:
+        return T.decimal_from_unscaled(int(v), dtype.scale)
+    if k == T.TypeKind.DATE32:
+        return _dt.date(1970, 1, 1) + _dt.timedelta(days=int(v))
+    if k == T.TypeKind.TIMESTAMP:
+        return _dt.datetime(1970, 1, 1) + _dt.timedelta(microseconds=int(v))
+    if k == T.TypeKind.NULL:
+        return None
+    return v.item() if hasattr(v, "item") else v
+
+
+def host_pylists(cvs, metrics=None) -> list[list]:
+    """Every row of each column (``.values``/``.validity``/``.dtype``/
+    ``.dict``) as a Python list, NULL rows None: ONE batched device->host
+    read for all columns (``runtime/transfer.py``: one event behind every
+    copy)."""
+    from auron_tpu_torch.runtime.transfer import harvest, start_host_transfer
+
+    tensors = []
+    for cv in cvs:
+        tensors += [cv.values, cv.validity]
+    host = harvest(start_host_transfer(*tensors), metrics, "blocking_reads")
+    out = []
+    for j, cv in enumerate(cvs):
+        vals, mask = host[2 * j], host[2 * j + 1]
+        out.append([_python_value(v, cv.dtype, cv.dict) if ok else None
+                    for v, ok in zip(vals, mask.tolist())])
+    return out
+
+
+def _physical_of(x, dtype: T.DataType):
+    """A Python value (as ``_python_value`` gives it) as the physical value of
+    a fixed-width column."""
+    import datetime as _dt
+
+    if dtype.kind == T.TypeKind.DATE32 and isinstance(x, _dt.date):
+        return (x - _dt.date(1970, 1, 1)).days
+    if dtype.kind == T.TypeKind.TIMESTAMP and isinstance(x, _dt.datetime):
+        delta = x.replace(tzinfo=None) - _dt.datetime(1970, 1, 1)
+        return (delta.days * 86_400 + delta.seconds) * 1_000_000 + delta.microseconds
+    return x
+
+
+def column_from_pylist(values: list, dtype: T.DataType, cap: int, device):
+    """(values tensor[cap], validity[cap], vocabulary or None) of a host column
+    given as Python values (None = NULL), through the port's own encoders
+    (``Batch.from_numpy``): strings dictionary-encoded, lists as identity
+    codes, decimals at the type's scale."""
+    n = len(values)
+    valid = np.array([x is not None for x in values], dtype=bool)
+    if dtype.kind == T.TypeKind.NULL:
+        return (torch.zeros(cap, dtype=torch.int8, device=resolve_device(device)),
+                torch.zeros(cap, dtype=torch.bool, device=resolve_device(device)), None)
+    if dtype.is_dict_encoded or dtype.kind == T.TypeKind.DECIMAL:
+        col = values if dtype.kind == T.TypeKind.LIST else object_array(values)
+        if dtype.kind == T.TypeKind.DECIMAL and not dtype.is_wide_decimal:
+            col = object_array([x if x is not None else 0 for x in values])
+    else:
+        zero = False if dtype.kind == T.TypeKind.BOOL else 0
+        col = np.array([_physical_of(x, dtype) if x is not None else zero for x in values],
+                       dtype=dtype.numpy_dtype()) if n else np.zeros(0, dtype.numpy_dtype())
+    b = Batch.from_numpy([col], T.Schema((T.Field("c", dtype, True),)), [valid],
+                         capacity=cap, device=device)
+    return b.device.values[0], b.device.validity[0], b.dicts[0]

@@ -5,8 +5,10 @@ Column, Literal, Cast (``exprs/cast.py``: fixed-width, decimal, string
 vocabularies cast once per entry), BinaryOp (Kleene AND/OR, comparisons
 incl. dictionary-string equality/order, arithmetic), Not, IsNull,
 IsNotNull, If and Case (fixed-width or dictionary branches), Coalesce,
-In, Like and the task-context expressions (SparkPartitionId, MonotonicId,
-RowNum, ScalarSubquery) — with Spark's null semantics:
+In, Like, ScalarFunc (dispatched through ``functions/registry.py``,
+reference ``eval.py:121-125``) and the task-context expressions
+(SparkPartitionId, MonotonicId, RowNum, ScalarSubquery) — with Spark's
+null semantics:
 arithmetic propagates NULLs, division and modulo by zero give NULL
 (non-ANSI), AND/OR are three-valued, a NULL CASE condition counts as
 false, and ``x IN (...)`` is NULL when x is NULL or when nothing matches
@@ -39,7 +41,7 @@ import numpy as np
 import torch
 
 from auron_tpu_torch import types as T
-from auron_tpu_torch.columnar.batch import Batch, empty_dict, merge_vocab
+from auron_tpu_torch.columnar.batch import Batch, empty_dict, merge_vocab, object_array
 from auron_tpu_torch.exprs import decimal_math as D
 from auron_tpu_torch.exprs import ir
 from auron_tpu_torch.exprs.cast import cast_scalar, cast_string_dict, cast_values
@@ -51,6 +53,9 @@ class ColumnVal:
     validity: torch.Tensor
     dtype: T.DataType
     dict: np.ndarray | None = None  # host vocabulary iff dtype.is_dict_encoded
+    #: a non-NULL literal's value on the host (what row 0 decodes to), so a
+    #: function reading a constant argument does not read the device
+    const: object = None
 
 
 def _cmp_apply(op: str, l: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -134,6 +139,11 @@ class Evaluator:
             return self._like(e, b, memo)
         if isinstance(e, (ir.SparkPartitionId, ir.MonotonicId, ir.RowNum, ir.ScalarSubquery)):
             return self._task_context(e, b)
+        if isinstance(e, ir.ScalarFunc):
+            from auron_tpu_torch.functions import registry
+
+            args = [self._eval(a, b, memo) for a in e.args]
+            return registry.dispatch(e.name, args, b.capacity, b.torch_device)
         raise TypeError(f"unsupported expression {type(e).__name__}")
 
     def _task_context(self, e: ir.Expr, b: Batch) -> ColumnVal:
@@ -272,14 +282,16 @@ class Evaluator:
         if dt.is_dict_encoded:
             d = np.empty(1, dtype=object)
             d[0] = T.decimal_at_scale(e.value, dt.scale) if dt.is_wide_decimal else e.value
-            return ColumnVal(torch.zeros(cap, dtype=torch.int32, device=device), ones, dt, d)
+            return ColumnVal(torch.zeros(cap, dtype=torch.int32, device=device), ones, dt, d,
+                             d[0] if dt.is_string_like else None)
         if dt.kind == T.TypeKind.DECIMAL:
             import decimal as pydec
 
             u = int(pydec.Decimal(str(e.value)).scaleb(dt.scale).quantize(pydec.Decimal(1)))
-            return ColumnVal(torch.full((cap,), u, dtype=torch.int64, device=device), ones, dt)
+            return ColumnVal(torch.full((cap,), u, dtype=torch.int64, device=device), ones, dt,
+                             const=u)
         return ColumnVal(torch.full((cap,), e.value, dtype=dt.physical_dtype(), device=device),
-                         ones, dt)
+                         ones, dt, const=np.array(e.value, dtype=dt.numpy_dtype()).item())
 
     def _cast(self, c: ColumnVal, to: T.DataType) -> ColumnVal:
         if c.dtype == to:
@@ -614,6 +626,8 @@ def _vocab(entries: list, dtype: T.DataType) -> np.ndarray:
     if not entries:
         return empty_dict(dtype)
     filler = empty_dict(dtype)[0]
+    if dtype.kind == T.TypeKind.LIST:  # lists of one length would broadcast in a slice fill
+        return object_array([e if e is not None else filler for e in entries])
     out = np.empty(len(entries), dtype=object)
     if dtype.is_wide_decimal:
         out[:] = [T.decimal_at_scale(e, dtype.scale) if e is not None else filler

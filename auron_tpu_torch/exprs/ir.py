@@ -3,8 +3,8 @@
 Copied from ``auron_tpu/exprs/ir.py``: frozen, structurally hashable
 dataclasses with the same names and fields, and the same Spark result-type
 rules (``arith_result_type``). Nodes of the JAX IR that the port does not
-evaluate yet (scalar functions, UDFs) are not defined here, and the
-planner rejects them by name.
+evaluate yet (host UDFs) are not defined here, and the planner rejects
+them by name.
 ``Literal(None, T.INT64)`` is a typed NULL. ``remap_columns`` re-binds an
 expression to a schema of only the columns it references.
 """
@@ -219,6 +219,26 @@ class ScalarSubquery(Expr):
 
     def dtype_of(self, schema: T.Schema) -> T.DataType:
         return self.dtype
+
+
+@dataclass(frozen=True)
+class ScalarFunc(Expr):
+    """Named scalar function dispatched through the function registry
+    (reference ``exprs/ir.py:257-270``; ``functions/registry.py``)."""
+
+    name: str
+    args: tuple[Expr, ...]
+    out_dtype: T.DataType | None = None  # override; else the registry infers
+
+    def dtype_of(self, schema: T.Schema) -> T.DataType:
+        if self.out_dtype is not None:
+            return self.out_dtype
+        from auron_tpu_torch.functions import registry
+
+        return registry.infer_dtype(self.name, [a.dtype_of(schema) for a in self.args])
+
+    def children(self):
+        return self.args
 
 
 # ---------------------------------------------------------------------------

@@ -52,6 +52,11 @@
   fact by (item, date) whose keys repeat across batches, the workload of
   the incremental aggregate's sorted-state probe; no reference class has
   it at SF 8.
+- the generate classes (``GENERATE_CLASSES``): ``run_generate_class``
+  (the reference's 42nd class: ``explode(split(i_tags, ','))`` over item,
+  count by tag) and ``run_tag_revenue_class`` (the same explode over the
+  whole fact after a broadcast join with item, count and price sum by
+  tag), with numpy oracles; ``exploded_rows`` counts what each explodes.
 
 Every run's ``stats`` (``add_timers``) gets the host timers, the
 ``COUNTERS`` (with each aggregate's dense / probe / generic batches) and
@@ -311,14 +316,16 @@ def _shuffle_stage(plan, out_schema: T.Schema, key_cols: list[int], n_map: int, 
 #: unique-join compaction boundary, reads the code blocked on (seed,
 #: repair), harvests that found their copy done, in-stream harvests that
 #: had to wait for the card, end-of-stream harvests that waited, and
-#: predicted buckets that proved too small; and the shuffle writer's
-#: DEC128 (decimal) columns written
+#: predicted buckets that proved too small; the shuffle writer's DEC128
+#: (decimal) columns written; and a GenerateExec's input batches, output
+#: chunks and exploded rows
 COUNTERS = ("elapsed_compute_n", "num_merges", "partial_agg_skipped", "spilled_runs",
             "spilled_aggs", "spilled_shuffle_runs", "unique_streams", "blocking_reads",
             "async_reads", "waited_reads", "drain_waits", "sel_mispredicts",
             "shuffle_enc_dec128", "dense_batches", "probe_batches", "probe_miss_batches",
             "generic_batches", "probe_hit_rows", "merge_path_merges", "fp_collision_batches",
-            "fused_batches", "stage_captures", "stage_replays")
+            "fused_batches", "stage_captures", "stage_replays", "generate_batches",
+            "generate_chunks", "exploded_rows")
 
 #: the counters ``stats["fusion"]`` sums over every operator: the fused
 #: stages' (and standalone fused filters') CUDA-graph captures and replays
@@ -2899,3 +2906,112 @@ def probe_agg_class_oracle(data: TpcdsData) -> dict:
             "c": np.add.reduceat(valid.astype(np.int64), starts),
             "lo": np.minimum.reduceat(q, starts), "hi": np.maximum.reduceat(q, starts),
             "f": ss["ss_quantity"][first]}
+
+
+# ---------------------------------------------------------------------------
+# the generate classes: split + explode + aggregate (reference
+# ``models/tpcds.py:805-830``), and the same operators over the whole fact
+# ---------------------------------------------------------------------------
+
+#: the classes of this section, in the order chip_smoke.py runs them
+GENERATE_CLASSES = ("generate", "tag_revenue")
+
+
+def _split_tags(i_tags_col: int):
+    from auron_tpu_torch.exprs.ir import ScalarFunc
+
+    return ScalarFunc("split", (col(i_tags_col), lit(",")))
+
+
+def generate_exec_tree():
+    """SELECT tag, count(*) FROM item LATERAL VIEW explode(split(i_tags, ','))
+    GROUP BY tag: the tree ``task_from_proto`` builds from the reference's
+    ``run_generate_class`` plan (a barrier for column pruning)."""
+    from auron_tpu_torch.exec.generate_exec import GenerateExec
+
+    gen = GenerateExec(_scan(ITEM_SCHEMA, "qg_item"), "explode", _split_tags(4), [0],
+                       elem_name="tag")
+    return _agg2(gen, [(col(1), "tag")], _aggs(("count_star", None, "cnt")))
+
+
+def run_generate_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                       stats: dict | None = None, ingested: dict | None = None) -> dict:
+    """The 42nd class: {tag, cnt} sorted by tag; ``ingested`` = {"qg_item":
+    partitions} (default: the item table as one batch)."""
+    res = dict(ingested) if ingested is not None else {
+        "qg_item": to_batches(data.item, 1, device=device)}
+    out = collect(_tasks(generate_exec_tree(), res, 1, conf, device, stats))
+    order = np.argsort(out["tag"].astype(str), kind="stable")
+    return {"tag": out["tag"][order], "cnt": out["cnt"][order]}
+
+
+def _item_tags(data: TpcdsData) -> tuple[np.ndarray, np.ndarray]:
+    """(the distinct tags ascending, an [items, tags] membership matrix)."""
+    lists = [s.split(",") for s in data.item.columns["i_tags"]]
+    tags = np.array(sorted({t for ts in lists for t in ts}), dtype=object)
+    pos = {t: i for i, t in enumerate(tags)}
+    member = np.zeros((len(lists), len(tags)), dtype=np.int64)
+    for r, ts in enumerate(lists):
+        for t in ts:
+            member[r, pos[t]] += 1
+    return tags, member
+
+
+def generate_class_oracle(data: TpcdsData) -> dict:
+    tags, member = _item_tags(data)
+    return {"tag": tags, "cnt": member.sum(axis=0)}
+
+
+def tag_revenue_exec_tree():
+    """SELECT tag, count(*), sum(ss_ext_sales_price) FROM store_sales JOIN
+    item ON ss_item_sk = i_item_sk LATERAL VIEW explode(split(i_tags, ','))
+    GROUP BY tag: a broadcast hash join of the fact with item, the explode
+    of each joined row's tags (keeping the price), and partial and final
+    aggregates by tag. The generate is a pruning barrier, so the join keeps
+    all ten columns (i_tags at 9)."""
+    from auron_tpu_torch.exec.generate_exec import GenerateExec
+
+    j = _bhj(_fact(), _item(), [col(1)], [col(0)])
+    gen = GenerateExec(j, "explode", _split_tags(9), [4], elem_name="tag")
+    return _agg2(gen, [(col(1), "tag")],
+                 _aggs(("count_star", None, "cnt"), ("sum", col(0), "rev")))
+
+
+def run_tag_revenue_class(data: TpcdsData | None = None, device="cuda",
+                          conf: dict | None = None, stats: dict | None = None,
+                          ingested: dict | None = None) -> dict:
+    """The explode over the whole fact: {tag, cnt, rev} sorted by tag;
+    ``ingested`` as ``ingest_q3(data, 1)`` gives it (the fact in ``1 << 20``-row
+    batches)."""
+    res = _tail_inputs(data, 1, device, ingested)
+    out = collect(_tasks(tag_revenue_exec_tree(), res, 1, conf, device, stats))
+    order = np.argsort(out["tag"].astype(str), kind="stable")
+    return {k: out[k][order] for k in ("tag", "cnt", "rev")}
+
+
+def tag_revenue_class_oracle(data: TpcdsData) -> dict:
+    """Each fact row counts once for each of its item's tags."""
+    tags, member = _item_tags(data)
+    ss, it = data.store_sales.columns, data.item.columns
+    order = np.argsort(it["i_item_sk"], kind="stable")
+    keys = it["i_item_sk"][order]
+    pos = np.clip(np.searchsorted(keys, ss["ss_item_sk"]), 0, len(keys) - 1)
+    hit = keys[pos] == ss["ss_item_sk"]
+    rows = order[pos[hit]]
+    price = ss["ss_ext_sales_price"][hit]
+    per_item_n = np.bincount(rows, minlength=len(order))
+    per_item_rev = np.bincount(rows, weights=price, minlength=len(order))
+    return {"tag": tags, "cnt": per_item_n @ member, "rev": per_item_rev @ member}
+
+
+def exploded_rows(data: TpcdsData) -> dict:
+    """The rows each generate class's explode emits, from the data: the
+    item's tag count, and each fact row's item's tag count summed."""
+    lists = [len(s.split(",")) for s in data.item.columns["i_tags"]]
+    n_tags = np.array(lists, dtype=np.int64)
+    ss_item = data.store_sales.columns["ss_item_sk"]
+    order = np.argsort(data.item.columns["i_item_sk"], kind="stable")
+    keys = data.item.columns["i_item_sk"][order]
+    pos = np.clip(np.searchsorted(keys, ss_item), 0, len(keys) - 1)
+    hit = keys[pos] == ss_item
+    return {"generate": int(n_tags.sum()), "tag_revenue": int(n_tags[order[pos[hit]]].sum())}

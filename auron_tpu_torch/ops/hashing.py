@@ -1,7 +1,8 @@
 """Bit-exact Spark hashes and group-key fingerprints as torch functions.
 
-Port of ``auron_tpu/ops/hashing.py`` (murmur3_x86_32 Spark variant,
-xxhash64, ``fingerprint64``, ``pmod``) on the carrier convention of
+Port of ``auron_tpu/ops/hashing.py`` (murmur3_x86_32 Spark variant and
+xxhash64 of 4- and 8-byte values, floats, decimals and byte strings,
+``fingerprint64``, ``pmod``) on the carrier convention of
 ``ops/uwords.py``: uint32 lanes ride as int64 values in [0, 2^32) with
 products masked to 32 bits; uint64 lanes ride as int64 bit patterns,
 whose add/mul wrap mod 2^64 exactly like uint64.
@@ -57,6 +58,23 @@ def murmur3_i32(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
 
 def murmur3_i64(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     u = v.to(torch.int64)
+    return murmur3_words([lo32(u), hi32(u)], seed)
+
+
+def murmur3_i128_from_i64(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """Spark hash of a decimal128: 16 LE bytes of the unscaled value,
+    sign-extended from the decimal64 plane."""
+    u = v.to(torch.int64)
+    ext = torch.where(u < 0, MASK32, 0)
+    return murmur3_words([lo32(u), hi32(u), ext, ext], seed)
+
+
+def murmur3_f32(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    return murmur3_words([u32_of_i32(v.to(torch.float32).view(torch.int32))], seed)
+
+
+def murmur3_f64(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    u = v.to(torch.float64).view(torch.int64)
     return murmur3_words([lo32(u), hi32(u)], seed)
 
 
@@ -127,8 +145,92 @@ def xxhash64_u64s(lanes: list[torch.Tensor], seed: torch.Tensor) -> torch.Tensor
     return _xx_fmix(acc)
 
 
+def xxhash64_i32(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """4-byte values hash as Spark hashes them: sign-extended longs."""
+    return xxhash64_u64s([v.to(torch.int32).to(torch.int64)], seed)
+
+
 def xxhash64_i64(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     return xxhash64_u64s([v.to(torch.int64)], seed)
+
+
+def xxhash64_i128_from_i64(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    u = v.to(torch.int64)
+    return xxhash64_u64s([u, torch.where(u < 0, -1, 0)], seed)
+
+
+def xxhash64_f32(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """The float's 32-bit pattern, zero-extended to one 8-byte lane."""
+    return xxhash64_u64s([u32_of_i32(v.to(torch.float32).view(torch.int32))], seed)
+
+
+def xxhash64_f64(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    return xxhash64_u64s([v.to(torch.float64).view(torch.int64)], seed)
+
+
+def _xx_merge(acc, lane_acc):
+    return (acc ^ _xx_round(torch.zeros_like(acc), lane_acc)) * _P1 + _P4
+
+
+def xxhash64_bytes(bytes_u8: torch.Tensor, lengths: torch.Tensor,
+                   seed: torch.Tensor) -> torch.Tensor:
+    """Standard xxHash64 of per-row byte strings (a zero-padded ``[n, W]``
+    uint8 matrix, W a multiple of 4, and the lengths): the four-accumulator
+    path over 32-byte stripes for rows of 32 bytes or more, then the 8-byte
+    lanes, one 4-byte word and the single trailing bytes, each round masked
+    past the row's length so one fixed loop serves every row (reference
+    ``ops/hashing.py:177-264``)."""
+    n, width = bytes_u8.shape
+    lengths = lengths.to(torch.int64)
+    seed = seed.to(torch.int64).expand(n)
+    pad = (-width) % 32
+    if pad:
+        bytes_u8 = torch.cat([bytes_u8, bytes_u8.new_zeros((n, pad))], dim=1)
+        width += pad
+    b = bytes_u8.to(torch.int64)
+    n_lanes = width // 8
+    b8 = b.reshape(n, n_lanes, 8)
+    lanes = b8[:, :, 0]
+    for k in range(1, 8):
+        lanes = lanes | (b8[:, :, k] << (8 * k))
+    b4 = b.reshape(n, width // 4, 4)
+    words = b4[:, :, 0] | (b4[:, :, 1] << 8) | (b4[:, :, 2] << 16) | (b4[:, :, 3] << 24)
+
+    total_stripes = lengths // 32
+    v1 = seed + i64(_P1 + _P2)
+    v2 = seed + _P2
+    v3 = seed
+    v4 = seed - _P1
+    for s in range(width // 32):
+        m = s < total_stripes
+        v1 = torch.where(m, _xx_round(v1, lanes[:, 4 * s]), v1)
+        v2 = torch.where(m, _xx_round(v2, lanes[:, 4 * s + 1]), v2)
+        v3 = torch.where(m, _xx_round(v3, lanes[:, 4 * s + 2]), v3)
+        v4 = torch.where(m, _xx_round(v4, lanes[:, 4 * s + 3]), v4)
+    merged = rotl64(v1, 1) + rotl64(v2, 7) + rotl64(v3, 12) + rotl64(v4, 18)
+    for v in (v1, v2, v3, v4):
+        merged = _xx_merge(merged, v)
+    acc = torch.where(lengths >= 32, merged, seed + _P5) + lengths
+
+    consumed_lanes = total_stripes * 4
+    total_lanes = lengths // 8
+    for i in range(3):
+        lane_idx = (consumed_lanes + i).clamp(max=n_lanes - 1)
+        lane = lanes.gather(1, lane_idx[:, None])[:, 0]
+        stepped = rotl64(acc ^ _xx_round(torch.zeros_like(acc), lane), 27) * _P1 + _P4
+        acc = torch.where(consumed_lanes + i < total_lanes, stepped, acc)
+
+    consumed = total_lanes * 8
+    word = words.gather(1, (consumed // 4).clamp(max=width // 4 - 1)[:, None])[:, 0]
+    has_word = consumed + 4 <= lengths
+    acc = torch.where(has_word, rotl64(acc ^ (word * _P1), 23) * _P2 + _P3, acc)
+    consumed = torch.where(has_word, consumed + 4, consumed)
+    for t in range(7):
+        pos = (consumed + t).clamp(max=width - 1)
+        byte = b.gather(1, pos[:, None])[:, 0]
+        stepped = rotl64(acc ^ (byte * _P5), 11) * _P1
+        acc = torch.where(consumed + t < lengths, stepped, acc)
+    return _xx_fmix(acc)
 
 
 _FP_SEED = 42

@@ -16,6 +16,10 @@ extension, capacity bucket, input shapes) into a ``torch.cuda.CUDAGraph``
 CPU the same function runs eagerly. Results are bit-identical with the
 pass off (``exec.fuse.enable=off``).
 
+- **Segments.** A ``GenerateExec`` is not a row stage, so it ends a
+  segment: its per-batch total is a host read and its output chunks are
+  made on the host's schedule, which a replayed graph cannot repeat. A
+  stage may read its chunks (a partial aggregate's input projection).
 - **Capture safety** (``expr_capture_safe``): the reference's
   ``expr_trace_safe`` rule over the port's evaluator, whose non-dictionary
   paths are device-only tensor ops (no ``.item()``, no ``nonzero``, no
@@ -72,7 +76,9 @@ from auron_tpu_torch.utils.config import (
 # ---------------------------------------------------------------------------
 
 #: expression nodes whose evaluation is a pure tensor program over
-#: dictionary-free operands (reference ``fusion.py:80``)
+#: dictionary-free operands (reference ``fusion.py:80``). ``ScalarFunc`` is
+#: not one: its dictionary kernels and host paths read vocabularies and
+#: rows on the host, and LIST values are nested (dictionary) values
 _FUSABLE_NODES = (
     ir.Literal, ir.Cast, ir.BinaryOp, ir.Not, ir.IsNull, ir.IsNotNull,
     ir.If, ir.Case, ir.Coalesce, ir.In,

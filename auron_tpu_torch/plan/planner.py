@@ -3,12 +3,13 @@
 Port of ``auron_tpu/plan/planner.py`` for the node and expression variants
 the ported slices execute (memory_scan, project, filter, limit, union,
 expand, rename_columns, empty_partitions, coalesce_batches, debug,
-hash_agg, sort, window, hash_join, sort_merge_join, shuffle_writer with
+hash_agg, sort, window, generate, hash_join, sort_merge_join, shuffle_writer with
 single/hash/round-robin partitioning, ipc_reader, mesh_exchange (a
 ``MeshExchangeExec`` stage boundary that
 ``parallel/mesh_driver.MeshQueryDriver`` resolves); column, literal, cast,
 binary, not, is_null, is_not_null, if_expr, case_expr, in_list, coalesce,
-like, spark_partition_id, monotonic_id, row_num, scalar_subquery).
+like, scalar_func, spark_partition_id, monotonic_id, row_num,
+scalar_subquery).
 Other variants raise ``NotImplementedError`` naming the variant.
 
 The exec tree is the JAX package's tree with whole-stage fusion off
@@ -101,6 +102,10 @@ def expr_from_proto(p) -> ir.Expr:
     if which == "like":
         return ir.Like(expr_from_proto(p.like.child), p.like.pattern, p.like.negated,
                        p.like.escape or "\\")
+    if which == "scalar_func":
+        n = p.scalar_func
+        return ir.ScalarFunc(n.name, tuple(expr_from_proto(a) for a in n.args),
+                             dtype_from_proto(n.out_dtype) if n.has_out_dtype else None)
     if which == "spark_partition_id":
         return ir.SparkPartitionId()
     if which == "monotonic_id":
@@ -193,6 +198,14 @@ def plan_from_proto(p):
                          offset=f.offset or 1, frame_whole=f.frame_whole), f.name)
              for f in n.funcs],
         )
+    if which == "generate":
+        from auron_tpu_torch.exec.generate_exec import GenerateExec
+
+        n = p.generate
+        return GenerateExec(plan_from_proto(n.child), n.generator, expr_from_proto(n.gen_expr),
+                            list(n.required_cols), outer=n.outer,
+                            json_fields=list(n.json_fields), elem_name=n.elem_name or "col",
+                            pos_name=n.pos_name or "pos", udtf=n.udtf or None)
     if which == "hash_agg":
         n = p.hash_agg
         return HashAggExec(

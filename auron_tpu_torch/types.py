@@ -11,7 +11,9 @@ conversions made lazy (pyarrow is imported only inside them):
   decimal's vocabulary holds ``decimal.Decimal`` values at the column's
   scale (what ``pa.Array.to_pylist`` gives for the JAX package's
   Decimal128 dictionaries);
-- DATE is int32 days since epoch, TIMESTAMP int64 microseconds.
+- DATE is int32 days since epoch, TIMESTAMP int64 microseconds;
+- a LIST column's vocabulary holds one Python list per entry (the values
+  Arrow's ``to_pylist`` gives), a NULL element as None.
 """
 
 from __future__ import annotations
@@ -130,6 +132,8 @@ class DataType:
         }
         if k == TypeKind.DECIMAL:
             return pa.decimal128(self.precision, self.scale)
+        if k == TypeKind.LIST:
+            return pa.list_(self.inner[0].to_arrow())
         if k in m:
             return m[k]
         raise TypeError(f"no arrow type for {self} in this slice")
@@ -166,6 +170,8 @@ class DataType:
             return BINARY
         if isinstance(t, pa.DictionaryType):
             return DataType.from_arrow(t.value_type)
+        if pa.types.is_list(t) or pa.types.is_large_list(t):
+            return DataType(TypeKind.LIST, inner=(DataType.from_arrow(t.value_type),))
         raise TypeError(f"unsupported arrow type {t}")
 
     def __repr__(self) -> str:

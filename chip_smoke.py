@@ -8,6 +8,7 @@
     python3 chip_smoke.py --join-tail-only  # phases 1, 2 and 13 only
     python3 chip_smoke.py --decimal-only  # phases 1, 2 and 14 only
     python3 chip_smoke.py --fusion-only  # phases 1, 2 and 15 only
+    python3 chip_smoke.py --generate-only  # phases 1, 2 and 16 only
 
 Phases, in order, none of them caught — any failure exits non-zero:
 
@@ -188,8 +189,19 @@ Phases, in order, none of them caught — any failure exits non-zero:
    aggregate of the whole fact by (item, date), 32.85 M slots) both ways,
    equal to its numpy oracle, whose final aggregate must hit its sorted
    state;
-16. print the kernel table as one JSON line (each kernel's launches summed
-   over the timed runs of phases 4-15, and per run), then the status line.
+16. the generate classes (``tpcds.GENERATE_CLASSES``): the reference's
+   42nd class (``explode(split(i_tags, ','))`` over item, count by tag)
+   and the same explode over the whole fact after a broadcast join with
+   item (23.04 M fact rows in 22 input batches, ~46 M exploded rows in
+   ~700 chunks of 65,536, count and price sum by tag): a warm-up, then two
+   timed runs each, equal to the numpy oracle, exploding exactly the rows
+   the data holds with one blocking read of the GenerateExec per input
+   batch; walls, input batches, output chunks, exploded rows, the blocking
+   reads, peak device memory and the top host timers are printed (with
+   ``--profile``, device busy and the idle share). No kernel of the
+   TPU package is on this path;
+17. print the kernel table as one JSON line (each kernel's launches summed
+   over the timed runs of phases 4-16, and per run), then the status line.
 
 Each phase prints its seconds.
 
@@ -2474,6 +2486,89 @@ def run_fusion_phase(data, profile: bool = False) -> dict:
     return out
 
 
+#: phase 16: warm-up, then this many timed runs of each generate class
+GENERATE_TIMED_RUNS = 2
+
+
+def _generate_inputs(name: str, data) -> dict:
+    """One generate class's inputs on the card (set-up): the item table, or
+    the fact in 1 << 20-row batches with the dimensions."""
+    from auron_tpu_torch.models import tpcds
+
+    if name == "generate":
+        return {"qg_item": tpcds.to_batches(data.item, 1, device="cuda")}
+    return tpcds.ingest_q3(data, 1, device="cuda")
+
+
+def run_generate_phase(data, profile: bool = False) -> dict:
+    """Phase 16: the 42nd class (explode(split(i_tags, ',')) over item, count
+    by tag) and the same explode over the whole fact after a broadcast join
+    with item (count and price sum by tag): each a warm-up, then
+    GENERATE_TIMED_RUNS timed runs equal to the numpy oracle (tags and counts
+    exact, sums at rel 1e-9), exploding exactly the rows the data holds in
+    at least ceil(rows / 65,536) chunks with ONE blocking read of the
+    GenerateExec per input batch."""
+    import torch
+
+    from auron_tpu_torch.models import tpcds
+
+    exploded = tpcds.exploded_rows(data)
+    out = {}
+    for name in tpcds.GENERATE_CLASSES:
+        t0 = time.perf_counter()
+        ingested = _generate_inputs(name, data)
+        torch.cuda.synchronize()
+        t_ingest = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = getattr(tpcds, f"{name}_class_oracle")(data)
+        t_oracle = time.perf_counter() - t0
+        run = getattr(tpcds, f"run_{name}_class")
+        _assert_equal_or_close(f"{name} warm-up", run(device="cuda", ingested=ingested), want)
+        walls, peaks, runs_launches, counts = [], [], [], []
+        for k in range(GENERATE_TIMED_RUNS):
+            _reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            stats: dict = {}
+            t0 = time.perf_counter()
+            got = run(device="cuda", ingested=ingested, stats=stats)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            runs_launches.append(_launches())
+            peaks.append(torch.cuda.max_memory_allocated())
+            _assert_equal_or_close(name, got, want)
+            c = stats["counters"]
+            n = {"input_batches": c["GenerateExec.generate_batches"],
+                 "output_chunks": c["GenerateExec.generate_chunks"],
+                 "exploded_rows": c["GenerateExec.exploded_rows"],
+                 "blocking_reads": c["GenerateExec.blocking_reads"]}
+            counts.append(n)
+            assert n["exploded_rows"] == exploded[name], (name, n, exploded[name])
+            assert n["blocking_reads"] == n["input_batches"], (name, n)  # one a batch
+            assert n["output_chunks"] >= -(-n["exploded_rows"] // (1 << 16)), (name, n)
+            if k == 0:
+                first_stats = stats
+        fusion = first_stats["fusion"]
+        print(f"{name}: walls {', '.join(f'{w:.4f}' for w in walls)} s, input batches "
+              f"{counts[0]['input_batches']}, output chunks {counts[0]['output_chunks']}, "
+              f"exploded rows {counts[0]['exploded_rows']:,}, GenerateExec blocking reads "
+              f"{counts[0]['blocking_reads']}, peak device memory {max(peaks) / 2**30:.3f} GiB, "
+              f"fusion replays {fusion['replays']} captures {fusion['captures']}, ingest "
+              f"{t_ingest:.2f} s, oracle {t_oracle:.2f} s, {len(got['tag'])} tags; equal to "
+              f"the oracle", flush=True)
+        _print_timers(name, first_stats)
+        out[name] = {"wall_s": walls[0], "walls_s": walls, "launches": runs_launches[0],
+                     "launches_per_run": runs_launches, "peak_bytes": max(peaks),
+                     "peaks_bytes": peaks, "counts": counts, "fusion": fusion,
+                     "counters": first_stats["counters"], "timers": first_stats["timers"]}
+        if profile:
+            out[name]["profile"] = profile_run(name, lambda: run(device="cuda",
+                                                                 ingested=ingested))
+        del ingested
+        torch.cuda.empty_cache()
+    return out
+
+
 def report_graph_cache() -> None:
     """Print the CUDA-graph cache's resident bytes, graphs and evictions
     over the script, and fail if it holds more than its cap (a quarter of
@@ -2506,6 +2601,9 @@ def main(argv=None) -> int:
     ap.add_argument("--fusion-only", action="store_true",
                     help="run phases 1, 2 and 15 only (no kernel table, no status line; "
                          "with --profile, every A/B path profiled each way)")
+    ap.add_argument("--generate-only", action="store_true",
+                    help="run phases 1, 2 and 16 only (no kernel table, no status line; "
+                         "with --profile, both generate classes profiled)")
     ap.add_argument("--time-sorts", action="store_true",
                     help="only build and time the bitonic kernels at the sort shapes "
                          "(one JSON line, no status line)")
@@ -2576,6 +2674,16 @@ def main(argv=None) -> int:
         os.makedirs(os.path.join(REPO_DIR, "chiprun_out"), exist_ok=True)
         with open(os.path.join(REPO_DIR, "chiprun_out", "chip_smoke_fusion.json"), "w") as f:
             json.dump({"device": kind, "nvidia_smi": smi, "fusion": fused, "phase_s": phase_s},
+                      f, indent=1)
+        return 0
+
+    if args.generate_only:
+        data = tpcds.generate(args.sf, args.seed)
+        gen = run_generate_phase(data, args.profile)
+        phase_done("16")
+        os.makedirs(os.path.join(REPO_DIR, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(REPO_DIR, "chiprun_out", "chip_smoke_generate.json"), "w") as f:
+            json.dump({"device": kind, "nvidia_smi": smi, "generate": gen, "phase_s": phase_s},
                       f, indent=1)
         return 0
 
@@ -2695,7 +2803,12 @@ def main(argv=None) -> int:
     fused = run_fusion_phase(data, args.profile)
     phase_done("15")
 
-    # 16. every kernel sort and run merge of the main paths, held against the
+    # 16. the generate classes: the 42nd class and the explode over the
+    # whole fact
+    gen = run_generate_phase(data, args.profile)
+    phase_done("16")
+
+    # 17. every kernel sort and run merge of the main paths, held against the
     # plain network on the card at its own operands
     checks["main_path_sorts"] = {
         **{f"q3-mesh ({m})": q3_mesh[m]["sort_checks"] for m in q3_mesh},
@@ -2733,7 +2846,9 @@ def main(argv=None) -> int:
                 for name in FUSION_PATHS for m in ("on", "off")
                 for i, r in enumerate(fused[name][m]["runs"])},
              **{f"probe class ({m})": fused["probe class"][m]["launches"]
-                for m in ("on", "off")}}
+                for m in ("on", "off")},
+             **{f"{name} (run {i})": launches for name, r in gen.items()
+                for i, launches in enumerate(r["launches_per_run"])}}
     kernels = []
     for name, source, replaces in (
         ("bitonic_sort", "auron_tpu_torch/csrc/bitonic.cu", "auron_tpu/ops/bitonic.py:145"),
@@ -2762,9 +2877,9 @@ def main(argv=None) -> int:
                    "q3_mesh": q3_mesh, "gate": gate, "q72_mesh": q72_mesh, "skew": skew,
                    "tail": tail, "window": window, "spill": spill, "q33": q33,
                    "join_tail_sweep": sweep, "predictor_ab": ab, "decimal": decimal,
-                   "fusion": fused, "phase_s": phase_s,
+                   "fusion": fused, "generate": gen, "phase_s": phase_s,
                    "kernels": kernels}, f, indent=1)
-    phase_done("16")
+    phase_done("17")
     report_graph_cache()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

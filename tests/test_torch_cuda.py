@@ -957,3 +957,130 @@ def test_fused_classes_equal_eager_on_card():
             else:
                 assert np.array_equal(got[k], want[k]), k
     assert st["counters"].get("HashAggExec.probe_hit_rows", 0) > 0, st["counters"]
+
+
+# ---------------------------------------------------------------------------
+# slice 12: the function registry, GenerateExec and xxhash64 on the card
+# ---------------------------------------------------------------------------
+
+#: float functions whose CUDA libm result may differ from the CPU's in the
+#: last bits: compared at rel 1e-12
+_CARD_RTOL_FNS = frozenset({"sqrt", "exp", "ln", "log10", "log2", "sin", "cos", "tan", "asin",
+                            "acos", "atan", "sinh", "cosh", "tanh", "cbrt", "pow", "atan2"})
+
+
+def _function_names():
+    from auron_tpu_torch.functions import registry
+
+    return registry.names()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _function_names())
+def test_registry_function_on_card_equals_cpu(name):
+    """Every ported scalar function once on the card (its device kernel or
+    its host path with the result put back on the card) against the same
+    call on the CPU."""
+    import torch_function_cases as C
+
+    from auron_tpu_torch import types as PT
+    from auron_tpu_torch.exprs import ir as pir
+    from auron_tpu_torch.exprs.eval import Evaluator
+    from auron_tpu_torch.ops.bloom import SparkBloomFilter
+
+    _need_card()
+    bf = SparkBloomFilter.create(200, 0.05)
+    bf.put_long(torch.from_numpy(C.bloom_values()))
+    frame = C.host_frame()
+    cpu, card = C.port_batch(frame, "cpu"), C.port_batch(frame, "cuda")
+    for args in C.cases(pir, PT, bf.serialize())[name]:
+        e = pir.ScalarFunc(name, tuple(args))
+        want = Evaluator(cpu.schema).evaluate(cpu, [e])[0]
+        got = Evaluator(card.schema).evaluate(card, [e])[0]
+        assert got.values.device.type == "cuda", name
+        assert got.dtype == want.dtype, (name, got.dtype, want.dtype)
+        gv, gm, ge = C.host_result(got)
+        wv, wm, we = C.host_result(want)
+        np.testing.assert_array_equal(gm, wm, err_msg=name)
+        if we is not None:
+            assert C.decoded(gv, gm, ge) == C.decoded(wv, wm, we), name
+        elif gv.dtype.kind == "f":
+            g, w = gv[gm], wv[wm]
+            np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=name)
+            ok = ~np.isnan(w)
+            if name in _CARD_RTOL_FNS:
+                np.testing.assert_allclose(g[ok], w[ok], rtol=1e-12,
+                                           atol=np.finfo(np.float64).tiny, err_msg=name)
+            else:
+                np.testing.assert_array_equal(g[ok], w[ok], err_msg=name)
+        else:
+            np.testing.assert_array_equal(gv[gm], wv[wm], err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gen", ["explode", "explode_outer", "pos_explode", "pos_explode_outer",
+                                 "json_tuple"])
+def test_generate_on_card_equals_cpu(gen):
+    """GenerateExec on ``cuda`` emits the CPU's rows and chunk capacities
+    (over 65,536 rows: two chunks), with one blocking read a batch."""
+    import torch_function_cases as C
+
+    from auron_tpu_torch.exec.base import ExecutionContext
+    from auron_tpu_torch.exec.basic import MemoryScanExec
+    from auron_tpu_torch.exec.generate_exec import GenerateExec
+    from auron_tpu_torch.exprs import ir as pir
+
+    _need_card()
+    rng = np.random.default_rng(21)
+    frame = C.host_frame()
+    n = 30_000  # ~75,000 exploded rows of li plus the empty and NULL rows
+    idx = rng.integers(0, C.N, n)
+    big = {k: (([v[i] for i in idx] if isinstance(v, list) else v[idx]), m[idx])
+           for k, (v, m) in frame.items()}
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        b = C.port_batch(big, dev)
+        scan = MemoryScanExec([[b, C.port_batch(frame, dev)]], b.schema)
+        if gen == "json_tuple":
+            op = GenerateExec(scan, "json_tuple", pir.col(C.COL["js"]), [0],
+                              json_fields=["a", "b", "c"])
+        else:
+            op = GenerateExec(scan, gen.replace("_outer", ""), pir.col(C.COL["li"]),
+                              [0, C.COL["s"]], outer=gen.endswith("outer"))
+        ctx = ExecutionContext(device=dev)
+        batches = list(op.execute(0, ctx))
+        outs[dev] = ([x.capacity for x in batches], collect_rows(batches), ctx.metrics.values)
+    assert outs["cuda"][:2] == outs["cpu"][:2]
+    if gen != "json_tuple":
+        assert outs["cuda"][2]["blocking_reads"] == 2
+        assert outs["cuda"][0][0] == 1 << 16
+
+
+def collect_rows(batches) -> list:
+    out = []
+    for b in batches:
+        out.extend(zip(*b.to_pydict().values()))
+    return out
+
+
+@pytest.mark.cuda
+def test_hash_batch_xxhash64_on_card_equals_cpu():
+    import torch_function_cases as C
+
+    from auron_tpu_torch.ops.hash_dispatch import hash_batch
+
+    _need_card()
+    frame = C.host_frame()
+    cols = [C.COL[k] for k in ("i32", "i64", "f64", "f32", "s", "d", "ts", "dec", "b", "num")]
+    cpu, card = C.port_batch(frame, "cpu"), C.port_batch(frame, "cuda")
+    for algo in ("xxhash64", "murmur3"):
+        got = hash_batch(card, cols, algo, seed=42)
+        assert got.device.type == "cuda"
+        np.testing.assert_array_equal(got.cpu().numpy(), hash_batch(cpu, cols, algo).numpy())
+    long = C.port_batch({**frame, "s": (["x" * (i % 97) for i in range(C.N)], frame["s"][1])},
+                        "cuda")
+    np.testing.assert_array_equal(
+        hash_batch(long, [C.COL["s"]], "xxhash64").cpu().numpy(),
+        hash_batch(C.port_batch({**frame, "s": (["x" * (i % 97) for i in range(C.N)],
+                                                frame["s"][1])}, "cpu"),
+                   [C.COL["s"]], "xxhash64").numpy())

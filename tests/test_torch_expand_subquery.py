@@ -244,7 +244,12 @@ def test_window_variant_matches_reference():
 
 
 def test_generate_variant_still_raises():
+    """The generate variant decodes since slice 12 (tests/test_torch_generate.py);
+    an explode of a column that is not a LIST still raises when the plan is
+    decoded, in both packages."""
     plan = B.generate(_scan(), "explode", jir.col(0), [0])
-    with pytest.raises(NotImplementedError, match="generate"):
+    with pytest.raises(AssertionError, match="LIST"):
+        jplanner.plan_from_proto(plan)
+    with pytest.raises(TypeError, match="LIST"):
         pplanner.plan_from_proto(
             pplanner._pb().PhysicalPlanNode.FromString(plan.SerializeToString()))

@@ -353,7 +353,32 @@ def _safety_corpus(m):
         (ir.Case(((ir.IsNull(c(0, "k")), ir.Literal("x", T.STRING)),), c(3, "s")), True),
         (ir.If(ir.Not(ir.IsNull(c(1, "v"))), c(1, "v"), ir.Literal(None, T.FLOAT64)), False),
         (ir.Literal(None, T.NULL), False),
+        # scalar functions (not among the reference's fusable nodes) and the
+        # LIST values they make
+        (ir.ScalarFunc("abs", (c(0, "k"),)), False),
+        (ir.ScalarFunc("abs", (c(0, "k"),)), True),
+        (ir.ScalarFunc("upper", (c(3, "s"),)), True),
+        (ir.ScalarFunc("split", (c(3, "s"), ir.Literal(",", T.STRING))), True),
+        (ir.IsNull(ir.ScalarFunc("split", (c(3, "s"), ir.Literal(",", T.STRING)))), False),
+        (ir.BinaryOp("gt", ir.ScalarFunc("xxhash64", (c(0, "k"),)), ir.Literal(0, T.INT64)),
+         False),
+        (ir.Coalesce((ir.ScalarFunc("year", (c(2, "q"),)), ir.Literal(1, T.INT32))), False),
     ]
+
+
+def _list_schema(m):
+    T = m.T
+    return T.Schema((T.Field("k", T.INT64), T.Field("l", T.DataType(T.TypeKind.LIST,
+                                                                     inner=(T.STRING,)))))
+
+
+def _list_corpus(m):
+    """Bare LIST columns and expressions over them."""
+    ir = m.ir
+    lcol = ir.Column(1, "l")
+    return [(lcol, False), (lcol, True), (ir.IsNull(lcol), False), (ir.IsNotNull(lcol), True),
+            (ir.ScalarFunc("array_size", (lcol,)), False),
+            (ir.ScalarFunc("array_reverse", (lcol,)), True)]
 
 
 def test_safety_rules_equal_the_reference():
@@ -367,6 +392,11 @@ def test_safety_rules_equal_the_reference():
     for (je, jdo), (pe, pdo) in zip(_safety_corpus(J), _safety_corpus(P)):
         want = jfusion.expr_trace_safe(je, jschema, allow_dict_out=jdo)
         assert pfusion.expr_capture_safe(pe, pschema, allow_dict_out=pdo) == want, pe
+    jls, pls = _list_schema(J), _list_schema(P)
+    for (je, jdo), (pe, pdo) in zip(_list_corpus(J), _list_corpus(P)):
+        want = jfusion.expr_trace_safe(je, jls, allow_dict_out=jdo)
+        assert pfusion.expr_capture_safe(pe, pls, allow_dict_out=pdo) == want, pe
+    assert not pfusion.expr_capture_safe(pir.ScalarFunc("abs", (pir.Column(0, "k"),)), pschema)
     assert not pfusion.expr_capture_safe(pir.Column(3, "s"), pschema)
     assert pfusion.expr_capture_safe(pir.IsNull(pir.Column(3, "s")), pschema)
 

@@ -228,15 +228,20 @@ def test_wide_decimal_outer_join_null_side():
 
 
 def test_wide_decimal_scalar_fn_fails_loudly():
-    """Scalar functions are not in the port: a plan holding one is refused
-    by name when it is decoded (the reference refuses wide-decimal abs)."""
+    """A scalar function over a wide decimal (its values are dictionary
+    codes) is refused when it runs, by both packages' registries: abs of a
+    decimal(38,2) raises naming the wide decimal."""
     from auron_tpu.exprs.ir import ScalarFunc
 
     s = JT.Schema.of(JT.Field("a", JT.decimal(38, 2)))
+    b = JBatch.from_pydict({"a": [pydec.Decimal("1.50"), None]}, schema=s)
     plan = B.project(B.memory_scan(s, "w"), [(ScalarFunc("abs", (col(0),)), "r")])
+    with pytest.raises(NotImplementedError, match="decimal"):
+        run_both(plan, {"w": [b]})
     port_proto = pplanner._pb().PhysicalPlanNode.FromString(plan.SerializeToString())
-    with pytest.raises(NotImplementedError, match="scalar"):
-        pplanner.plan_from_proto(port_proto)
+    op = pplanner.plan_from_proto(port_proto)
+    with pytest.raises(NotImplementedError, match="decimal"):
+        list(op.execute(0, PCtx(device="cpu", resources={"w": [[carry(b)]]})))
 
 
 def test_wide_decimal_vs_int_compare():

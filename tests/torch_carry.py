@@ -31,7 +31,8 @@ class HostRef:
 
 
 def port_dtype(t: JT.DataType) -> PT.DataType:
-    return PT.DataType(PT.TypeKind(t.kind.value), t.precision, t.scale)
+    return PT.DataType(PT.TypeKind(t.kind.value), t.precision, t.scale,
+                       tuple(port_dtype(i) for i in t.inner), tuple(t.struct_names))
 
 
 def port_schema(s: JT.Schema) -> PT.Schema:
@@ -68,7 +69,8 @@ def carry(jb: JBatch, device="cpu") -> PBatch:
             dicts.append(None)
         else:
             arr = np.empty(len(d), dtype=object)
-            arr[:] = d.to_pylist()
+            for i, e in enumerate(d.to_pylist()):  # entry by entry: lists of equal length
+                arr[i] = e
             dicts.append(arr)
     return PBatch(
         port_schema(jb.schema),
