@@ -2,22 +2,39 @@
 Python entries of ``auron_tpu/bridge/api.py``).
 
 ``call_native`` starts a task from serialized ``TaskDefinition`` bytes (the
-same bytes the JAX package's builders produce) and returns a handle;
-``next_batch`` pulls the next device ``Batch`` (the JAX package hands Arrow
-here; a port batch converts with ``Batch.to_arrow()`` when pyarrow is
-installed); ``finalize_native`` ends the task and returns its metric tree.
-Scan inputs arrive through ``put_resource`` as per-partition lists of port
-batches. ``init_memory`` sets the process's device-memory budget at
-session setup (``MemManager.init``); every task unregisters its memory
-consumers on every path out (``runtime/task.py``).
+same bytes the JAX package's builders produce) or from an exec tree (a host
+without protobuf, as the machine with the card) and returns a handle;
+``next_batch`` pulls the next device ``Batch``; ``finalize_native`` ends
+the task and returns its metric tree. ``init_memory`` sets the process's
+device-memory budget at session setup (``MemManager.init``); every task
+unregisters its memory consumers on every path out (``runtime/task.py``).
+
+The C ABI's functions (``native/auron_bridge.h``) cross the boundary as
+Arrow, without pyarrow (``columnar/arrow_c.py``, ``columnar/arrow_ipc.py``):
+
+- ``put_resource_ipc`` (``auron_put_resource``): an Arrow IPC stream,
+  registered as a list of host batches for an ``ffi_reader``;
+- ``put_resource_c_stream`` (``auron_put_resource_arrow``): an
+  ``ArrowArrayStream*``, imported by pointer (no serialization, no copy)
+  as a one-shot reader;
+- ``next_batch_c`` (``auron_next_batch_arrow``): the next batch exported
+  into host-allocated ``ArrowArray*`` / ``ArrowSchema*`` structs;
+- ``next_batch_ipc`` (``auron_next_batch``): the next batch as IPC bytes;
+- ``finalize_native_json``, ``set_metrics_sink`` and ``on_exit``.
+
+Not ported yet: ``put_resource_shuffle`` and ``convert_plan_json`` (they
+need ``convert/``, ROADMAP Queue 1 items 5 and 6), ``install_udf_callback``
+(``bridge/udf.py``, item 6), and the C ABI's own build for the port.
 """
 
 from __future__ import annotations
 
 import itertools
+import json
 import threading
 from typing import Any
 
+from auron_tpu_torch.columnar import arrow_c, arrow_ipc
 from auron_tpu_torch.columnar.batch import Batch
 from auron_tpu_torch.memory.memmgr import MemManager
 from auron_tpu_torch.runtime.task import TaskRuntime
@@ -37,9 +54,29 @@ def init_memory(budget_bytes: int | None = None, conf: dict | None = None) -> Me
         return MemManager.init(budget_bytes)
 
 
+# ---- resource map (JniBridge.putResource/getResource analog) ----
+
+
 def put_resource(key: str, value: Any) -> None:
     with _lock:
         _resources[key] = value
+
+
+def put_resource_ipc(key: str, payload: bytes) -> None:
+    """C-ABI batch-resource entry: the payload MUST be an Arrow IPC stream;
+    it registers as a list of host batches (consumable by ``ffi_reader``).
+    Raw opaque payloads go through plain ``put_resource`` instead — an
+    explicit type split, no content sniffing."""
+    put_resource(key, arrow_ipc.read_stream(bytes(payload)))
+
+
+def put_resource_c_stream(key: str, stream_ptr: int) -> None:
+    """Arrow C-FFI batch-resource entry (auron_put_resource_arrow): the host
+    hands an ``ArrowArrayStream*`` and batches cross the boundary by
+    POINTER — no IPC serialization, no copy. The stream is moved into the
+    port and its schema read now; the registered reader is one-shot, like a
+    host engine's per-task scan handoff."""
+    put_resource(key, arrow_c.import_stream(int(stream_ptr)))
 
 
 def remove_resource(key: str) -> None:
@@ -47,24 +84,41 @@ def remove_resource(key: str) -> None:
         _resources.pop(key, None)
 
 
-def call_native(task_bytes: bytes, extra_resources: dict | None = None,
-                device: str = "cuda") -> int:
-    """Start a task; returns a handle. ``device`` places outputs that have
-    no input batch (operators otherwise follow their inputs' device)."""
+# ---- task entry points ----
+
+
+def call_native(task, extra_resources: dict | None = None, device: str = "cuda",
+                conf: dict | None = None, stage_id: int = 0, partition_id: int = 0) -> int:
+    """Start a task; returns a handle. ``task`` is serialized
+    ``TaskDefinition`` bytes, or an exec tree, which takes ``conf``,
+    ``stage_id`` and ``partition_id`` here (the bytes carry their own).
+    ``extra_resources`` overlay the process map for this task only.
+    ``device`` places outputs that have no input batch (operators otherwise
+    follow their inputs' device)."""
     with _lock:
         resources = dict(_resources)
     if extra_resources:
         resources.update(extra_resources)
-    rt = TaskRuntime(task_bytes, resources=resources, shared=_resources, device=device)
-    h = next(_next_handle)
-    with _lock:
-        _runtimes[h] = rt
+    rt = TaskRuntime(task, resources=resources, shared=_resources, stage_id=stage_id,
+                     partition_id=partition_id, conf=Configuration(conf or {}), device=device)
+    try:
+        h = next(_next_handle)
+        with _lock:
+            _runtimes[h] = rt
+    except BaseException:
+        # the runtime's pump thread is already running: a failure before
+        # the handle is published must cancel and join it, or it leaks
+        try:
+            rt.finalize()
+        except Exception:  # noqa: BLE001 — the original failure is the error
+            pass
+        raise
     return h
 
 
 class _NativeTask:
-    def __init__(self, task_bytes: bytes, extra_resources: dict | None, device: str):
-        self._args = (task_bytes, extra_resources, device)
+    def __init__(self, task, extra_resources: dict | None, device: str):
+        self._args = (task, extra_resources, device)
         self.handle: int | None = None
 
     def __enter__(self) -> int:
@@ -84,17 +138,79 @@ class _NativeTask:
         return False
 
 
-def native_task(task_bytes: bytes, extra_resources: dict | None = None, device: str = "cuda"):
+def native_task(task, extra_resources: dict | None = None, device: str = "cuda"):
     """Context manager: ``call_native`` on entry, ``finalize_native`` on
     every exit."""
-    return _NativeTask(task_bytes, extra_resources, device)
+    return _NativeTask(task, extra_resources, device)
 
 
 def next_batch(handle: int) -> Batch | None:
+    """The next device batch (``Batch.to_arrow()`` gives pyarrow where it is
+    installed; the C-ABI functions below give Arrow without it)."""
     return _runtimes[handle].next_batch()
+
+
+def next_batch_c(handle: int, array_ptr: int, schema_ptr: int) -> int:
+    """Arrow C-FFI batch export (auron_next_batch_arrow): writes the next
+    batch into host-allocated ``ArrowArray*`` / ``ArrowSchema*`` structs
+    (release callbacks transfer ownership per the C data interface spec).
+    Returns 1 on a batch, 0 at end of stream."""
+    hb = _runtimes[handle].next_arrow()
+    if hb is None:
+        return 0
+    arrow_c.export_batch(hb, int(array_ptr), int(schema_ptr))
+    return 1
+
+
+def next_batch_ipc(handle: int) -> bytes | None:
+    """IPC-serialized variant for out-of-process hosts: one schema message,
+    the batch, end-of-stream."""
+    hb = _runtimes[handle].next_arrow()
+    return None if hb is None else arrow_ipc.write_stream([hb])
+
+
+_metrics_sink = None
+
+
+def set_metrics_sink(fn) -> None:
+    """Install a callable receiving every finalized task's metric-tree
+    snapshot (the reference pushes each task's metric tree into Spark's
+    SQLMetric registry at finalize). Pass None to uninstall."""
+    global _metrics_sink
+    _metrics_sink = fn
 
 
 def finalize_native(handle: int) -> dict:
     with _lock:
         rt = _runtimes.pop(handle, None)
-    return {} if rt is None else rt.finalize()
+    if rt is None:
+        return {}
+    snap = rt.finalize()
+    sink = _metrics_sink
+    if sink is not None:
+        try:
+            sink(snap)
+        except Exception:  # noqa: BLE001 — a broken metrics consumer must not fail the task
+            pass
+    return snap
+
+
+def finalize_native_json(handle: int) -> bytes:
+    """C-ABI variant: the metric tree serialized as JSON bytes."""
+    return json.dumps(finalize_native(handle)).encode("utf-8")
+
+
+def on_exit() -> None:
+    """Finalize every live task (the host's exit hook). A task whose
+    finalize fails does not keep the others alive; the first failure is
+    raised once all are finalized."""
+    with _lock:
+        handles = list(_runtimes)
+    first: Exception | None = None
+    for h in handles:
+        try:
+            finalize_native(h)
+        except Exception as e:  # noqa: BLE001 — finalize the rest, then raise
+            first = first or e
+    if first is not None:
+        raise first

@@ -24,10 +24,24 @@ set of dense tensors:
 ``DeviceBatch`` holds the tensors; ``Batch`` adds the schema and the host
 vocabularies. Arrow and pandas interop import their libraries lazily; the
 device path needs neither (``from_numpy``/``to_numpy``).
+
+The host boundary needs no pyarrow either: ``from_host_arrow`` ingests a
+``HostBatch`` (Arrow arrays on the host, imported through the C data
+interface or read from IPC, ``columnar/arrow_c.py``) and ``to_host_arrow``
+gives one back (reference ``columnar/batch.py:158-172``, ``:440-560``).
+Host planes cross through pinned staging buffers and ``non_blocking``
+copies, validity bitmaps cross packed and are unpacked on the device, and
+``exec.scan.zerocopy`` decides whether a plane that is a view of the
+producer's buffer goes straight to its staging copy or is first copied
+into an owned array (one host copy or two). ``ingest_stats()`` counts the
+planes each way, the bytes copied to the device and the host seconds
+spent. ``from_arrow`` is the same ingest, through pyarrow's C export.
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from dataclasses import dataclass
 from typing import NamedTuple, Sequence
 
@@ -35,7 +49,9 @@ import numpy as np
 import torch
 
 from auron_tpu_torch import types as T
+from auron_tpu_torch.columnar.arrow_c import HostArray, HostBatch, array_from_numpy, micros
 from auron_tpu_torch.device import resolve_device
+from auron_tpu_torch.utils.config import SCAN_ZEROCOPY, active_conf, resolve_tri
 
 MIN_CAPACITY = 128
 
@@ -229,58 +245,16 @@ class Batch:
 
     @staticmethod
     def from_arrow(rb, capacity: int | None = None, device="cuda") -> "Batch":
-        """Arrow RecordBatch ingest (imports pyarrow)."""
-        import pyarrow as pa
-        import pyarrow.compute as pc
+        """Arrow RecordBatch (or Table, its chunks combined) ingest through
+        pyarrow's C export and ``from_host_arrow`` (imports pyarrow)."""
+        from auron_tpu_torch.columnar.arrow_c import import_from
 
-        schema = T.Schema.from_arrow(rb.schema)
-        cols, masks, dicts = [], [], []
-        for i, f in enumerate(schema):
-            arr = rb.column(i)
-            if isinstance(arr, pa.ChunkedArray):
-                arr = arr.combine_chunks()
-            valid = pc.is_valid(arr).to_numpy(zero_copy_only=False)
-            if f.dtype.kind == T.TypeKind.LIST:
-                cols.append(arr.to_pylist())
-                dicts.append(None)
-            elif f.dtype.is_wide_decimal and not pa.types.is_dictionary(arr.type):
-                vals = np.empty(len(arr), dtype=object)
-                vals[:] = arr.cast(f.dtype.to_arrow()).to_pylist()
-                cols.append(vals)
-                dicts.append(None)
-            elif f.dtype.is_dict_encoded:
-                if pa.types.is_dictionary(arr.type):
-                    codes = arr.indices.fill_null(0).to_numpy(zero_copy_only=False)
-                    vocab = np.empty(len(arr.dictionary), dtype=object)
-                    vocab[:] = arr.dictionary.to_pylist()
-                    cols.append(codes.astype(np.int32))
-                    dicts.append(vocab if len(vocab) else empty_dict(f.dtype))
-                else:
-                    vals = np.empty(len(arr), dtype=object)
-                    vals[:] = arr.to_pylist()
-                    codes, vocab = encode_values(vals, valid)
-                    cols.append(codes)
-                    dicts.append(vocab)
-            else:
-                if f.dtype.kind == T.TypeKind.TIMESTAMP:
-                    arr = arr.cast(pa.timestamp("us")).cast(pa.int64())
-                elif f.dtype.kind == T.TypeKind.DATE32:
-                    arr = arr.cast(pa.int32())
-                elif f.dtype.kind == T.TypeKind.DECIMAL:
-                    vals = np.empty(len(arr), dtype=object)
-                    vals[:] = arr.cast(pa.decimal128(38, f.dtype.scale)).to_pylist()
-                    cols.append(vals)
-                    dicts.append(None)
-                    masks.append(valid)
-                    continue
-                else:
-                    arr = arr.cast(f.dtype.to_arrow())
-                if arr.null_count:
-                    arr = arr.fill_null(False if f.dtype.kind == T.TypeKind.BOOL else 0)
-                cols.append(arr.to_numpy(zero_copy_only=False))
-                dicts.append(None)
-            masks.append(valid)
-        return Batch.from_numpy(cols, schema, masks, dicts, capacity, device)
+        if not hasattr(rb, "_export_to_c"):  # a Table: one batch of its combined chunks
+            import pyarrow as pa
+
+            rb = pa.RecordBatch.from_arrays([c.combine_chunks() for c in rb.columns],
+                                            schema=rb.schema)
+        return Batch.from_host_arrow(import_from(rb), capacity=capacity, device=device)
 
     @staticmethod
     def from_pandas(df, schema: T.Schema | None = None, capacity: int | None = None,
@@ -306,6 +280,59 @@ class Batch:
             ),
             tuple(empty_dict(f.dtype) if f.dtype.is_dict_encoded else None for f in schema),
         )
+
+    @staticmethod
+    def from_host_arrow(hb: HostBatch, capacity: int | None = None, device="cuda",
+                        conf=None) -> "Batch":
+        """Ingest a host Arrow batch (imported C arrays or an IPC batch) onto
+        ``device`` (``capacity`` slots, by default ``bucket_capacity``):
+        strings and binaries dictionary-encoded into the per-batch
+        vocabulary, decimal128 at p <= 18 into the decimal64 plane (a value
+        outside int64 as NULL), wider ones into the wide vocabulary, LIST as
+        identity codes. Every host plane crosses through its own pinned
+        staging buffer (``_to_device``); a column with NULLs crosses its
+        validity bitmap packed, unpacked and its NULL lanes zeroed on the
+        device."""
+        t0 = time.perf_counter()
+        dev = resolve_device(device)
+        n = hb.length
+        cap = capacity or bucket_capacity(n)
+        assert cap >= n, (cap, n)
+        zc = zero_copy_enabled(conf)
+        counts = {"zerocopy_planes": 0, "copied_planes": 0, "ingest_bytes": 0}
+        live = torch.arange(cap, device=dev) < n
+        vals, masks, dicts = [], [], []
+        for f, arr in zip(hb.schema, hb.columns):
+            plane, is_view, validity, vocab = host_plane(arr, f.dtype)
+            if plane is None:  # the NULL type
+                vals.append(torch.zeros(cap, dtype=torch.int8, device=dev))
+                masks.append(torch.zeros(cap, dtype=torch.bool, device=dev))
+                dicts.append(None)
+                continue
+            if is_view and zc:
+                counts["zerocopy_planes"] += 1
+            else:
+                if is_view:
+                    plane = np.array(plane)  # the owned copy the key's off setting makes
+                counts["copied_planes"] += 1
+            v = _to_device(plane, cap, dev)
+            counts["ingest_bytes"] += v.numel() * v.element_size()
+            if validity is None:
+                m = live
+            else:
+                if isinstance(validity, tuple):
+                    packed, bit_off = validity
+                    m = _unpack_bits(_to_device(packed, len(packed), dev), bit_off, n, cap)
+                    counts["ingest_bytes"] += len(packed)
+                else:
+                    m = _to_device(validity, cap, dev)
+                    counts["ingest_bytes"] += cap
+                v = torch.where(m, v, torch.zeros((), dtype=v.dtype, device=dev))
+            vals.append(v)
+            masks.append(m)
+            dicts.append(vocab)
+        _count_ingest(counts, time.perf_counter() - t0)
+        return Batch(hb.schema, DeviceBatch(live, tuple(vals), tuple(masks)), tuple(dicts))
 
     # ---- accessors ----
 
@@ -365,6 +392,43 @@ class Batch:
             out[name] = [x if ok else None for x, ok in zip(vals, m.tolist())]
         return out
 
+    def prefetch_host(self) -> None:
+        """Start the device->host copies of every plane now
+        (``runtime/transfer.start_host_transfer``); ``to_host_arrow``
+        harvests them."""
+        from auron_tpu_torch.runtime.transfer import start_host_transfer
+
+        d = self.device
+        self._host_transfer = start_host_transfer(d.sel, *d.values, *d.validity)
+
+    def live_host_planes(self, metrics=None) -> tuple[int, list]:
+        """(live rows, [(values, validity)] of each column's live rows) on the
+        host: every plane copied through ``runtime/transfer.py`` (pinned,
+        under one event; the copies ``prefetch_host`` started, when it ran)."""
+        from auron_tpu_torch.runtime.transfer import harvest, start_host_transfer
+
+        tr = getattr(self, "_host_transfer", None)
+        self._host_transfer = None
+        if tr is None:
+            d = self.device
+            tr = start_host_transfer(d.sel, *d.values, *d.validity)
+        host = harvest(tr, metrics)
+        k = len(self.schema)
+        idx = np.flatnonzero(host[0])
+        return len(idx), [(host[1 + i][idx], host[1 + k + i][idx]) for i in range(k)]
+
+    def to_host_arrow(self, metrics=None) -> HostBatch:
+        """Live rows as a host Arrow batch: vocabularies expanded, validity
+        packed, decimals as decimal128 (``live_host_planes``)."""
+        n, planes = self.live_host_planes(metrics)
+        cols = []
+        for i, (f, (v, m)) in enumerate(zip(self.schema, planes)):
+            if f.dtype.is_dict_encoded:
+                d = self.dicts[i]
+                v = object_array([d[c] if ok else None for c, ok in zip(v.tolist(), m.tolist())])
+            cols.append(array_from_numpy(v, f.dtype, m))
+        return HostBatch(self.schema, n, tuple(cols))
+
     def to_arrow(self):
         """Live rows as an Arrow RecordBatch (imports pyarrow)."""
         import pyarrow as pa
@@ -380,6 +444,134 @@ class Batch:
             else:
                 arrays.append(pa.array(v, mask=~m).cast(f.dtype.to_arrow()))
         return pa.RecordBatch.from_arrays(arrays, schema=self.schema.to_arrow())
+
+
+# ---------------------------------------------------------------------------
+# host Arrow ingest: zero-copy planes, pinned staging, the counters
+# (reference columnar/batch.py:55-100, 440-560)
+# ---------------------------------------------------------------------------
+
+_ingest_lock = threading.Lock()
+_INGEST_STATS = {"zerocopy_planes": 0, "copied_planes": 0, "ingest_bytes": 0, "ingest_s": 0.0}
+
+
+def zero_copy_enabled(conf=None) -> bool:
+    """Resolve the exec.scan.zerocopy tri-state (auto = on)."""
+    c = conf if conf is not None else active_conf()
+    return resolve_tri(c.get(SCAN_ZEROCOPY), True)
+
+
+def _count_ingest(counts: dict, seconds: float) -> None:
+    with _ingest_lock:
+        for k, v in counts.items():
+            _INGEST_STATS[k] += v
+        _INGEST_STATS["ingest_s"] += seconds
+
+
+def ingest_stats() -> dict:
+    """Snapshot of the ingest counters: value planes staged straight from
+    the producer's buffer (``zerocopy_planes``, one host copy) or from an
+    array the host made first (``copied_planes``: the key's owned copy or a
+    conversion), bytes copied to the device (``ingest_bytes``) and host
+    seconds in ``from_host_arrow`` (``ingest_s``)."""
+    with _ingest_lock:
+        return dict(_INGEST_STATS)
+
+
+def reset_ingest_stats() -> None:
+    with _ingest_lock:
+        for k in _INGEST_STATS:
+            _INGEST_STATS[k] = 0
+
+
+_TORCH_DTYPE = {np.dtype(d): t for d, t in (
+    (np.bool_, torch.bool), (np.int8, torch.int8), (np.uint8, torch.uint8),
+    (np.int16, torch.int16), (np.int32, torch.int32), (np.int64, torch.int64),
+    (np.float32, torch.float32), (np.float64, torch.float64))}
+
+
+def _to_device(plane: np.ndarray, cap: int, dev: torch.device) -> torch.Tensor:
+    """A ``cap``-slot tensor on ``dev`` holding ``plane`` then zeros; on the
+    card through a pinned staging buffer and a ``non_blocking`` copy. The
+    buffer is freed when this returns, under its copy: PyTorch's caching
+    host allocator records an event on a pinned block that a
+    ``non_blocking`` copy reads and reuses the block only once that event
+    has completed, so a staging buffer is never overwritten under a running
+    copy. On the CPU the staging buffer is the batch's own tensor."""
+    n = len(plane)
+    if dev.type != "cuda":
+        out = np.zeros(cap, plane.dtype)
+        out[:n] = plane
+        return torch.from_numpy(out)
+    st = torch.empty(cap, dtype=_TORCH_DTYPE[plane.dtype], pin_memory=True)
+    h = st.numpy()
+    h[:n] = plane
+    h[n:] = 0
+    return st.to(dev, non_blocking=True)
+
+
+def _unpack_bits(packed: torch.Tensor, bit_off: int, n: int, cap: int) -> torch.Tensor:
+    """bool[cap]: rows ``bit_off .. bit_off + n`` of a little-endian packed
+    bitmap, unpacked on its device, then False."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    bits = ((packed[:, None] >> shifts) & 1).reshape(-1)[bit_off: bit_off + n].to(torch.bool)
+    out = torch.zeros(cap, dtype=torch.bool, device=packed.device)
+    out[:n] = bits
+    return out
+
+
+#: Arrow fixed-width formats whose values buffer is the physical plane as is
+_VIEW_FORMATS = {"c": np.int8, "s": np.int16, "i": np.int32, "l": np.int64, "f": np.float32,
+                 "g": np.float64, "tdD": np.int32, "tsu": np.int64}
+_WIDEN = {"C": np.uint8, "S": np.uint16, "I": np.uint32, "L": np.uint64}
+
+
+def host_plane(arr: HostArray, dtype: T.DataType):
+    """(values plane of ``arr.length`` rows or None for the NULL type,
+    whether it is a view of the producer's buffer, validity, vocabulary).
+    Validity is None (no NULLs), (packed bitmap bytes, bit offset) or a
+    bool array (when the host had to decide it: a decimal that leaves
+    int64 turns NULL)."""
+    n = arr.length
+    k = dtype.kind
+    if k == T.TypeKind.NULL:
+        return None, False, None, None
+    if arr.dictionary is not None and (k == T.TypeKind.LIST or not dtype.is_dict_encoded):
+        arr = arr.normalized()  # a dictionary of lists or of fixed-width values: decoded
+    validity = arr.validity_bits() if arr.nulls() else None
+    fmt = arr.fmt if arr.fmt[:2] != "ts" else arr.fmt[:3]
+    if arr.dictionary is not None:
+        codes = arr.typed(1, np.dtype(_VIEW_FORMATS.get(fmt) or _WIDEN[fmt]), n, arr.offset)
+        vocab = object_array(arr.dictionary.to_pylist())
+        is_view = codes.dtype == np.int32
+        return (codes if is_view else codes.astype(np.int32), is_view, validity,
+                vocab if len(vocab) else empty_dict(dtype))
+    if k == T.TypeKind.BOOL:
+        return arr.bool_values(), False, validity, None
+    if fmt in _VIEW_FORMATS:
+        return arr.typed(1, _VIEW_FORMATS[fmt], n, arr.offset), True, validity, None
+    if fmt[:2] == "ts":  # seconds, milliseconds or nanoseconds
+        return micros(arr.typed(1, np.int64, n, arr.offset), fmt), False, validity, None
+    if fmt in _WIDEN:
+        raw = arr.typed(1, _WIDEN[fmt], n, arr.offset)
+        if fmt == "L" and (raw[arr.valid_mask()] > np.iinfo(np.int64).max).any():
+            raise ValueError("a uint64 value does not fit int64")
+        return raw.astype(dtype.numpy_dtype()), False, validity, None
+    if k == T.TypeKind.DECIMAL and not dtype.is_wide_decimal:
+        words = arr.decimal_words()
+        lo, hi = np.ascontiguousarray(words[:, 0]), words[:, 1]
+        fits = hi == (lo >> 63)
+        if not fits.all():
+            validity = arr.valid_mask() & fits
+        return lo, False, validity, None
+    valid = arr.valid_mask()
+    if k == T.TypeKind.LIST:
+        codes, vocab = list_vocab(arr.to_pylist(), valid)
+    elif dtype.is_wide_decimal:
+        codes, vocab = wide_decimal_vocab(object_array(arr.to_pylist()), valid, dtype.scale)
+    else:
+        codes, vocab = encode_values(object_array(arr.to_pylist()), valid)
+    return codes, False, validity, vocab
 
 
 # ---------------------------------------------------------------------------

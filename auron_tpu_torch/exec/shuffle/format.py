@@ -44,9 +44,11 @@ a decimal64 keeps the lanes whose value fits int64 (the others turn NULL,
 reference ``reader.py:138-147``); a wide decimal becomes codes into a
 vocabulary of its distinct values. A wide-decimal ENC_DICT column (the
 JAX writer's form for a small dictionary) reads its Decimal128 vocabulary
-stream here too. ENC_CODEC, ENC_ARROW and v1 (Arrow IPC) blocks raise
-``NotImplementedError`` naming the encoding: they are not on the port's
-paths yet.
+stream here too. A v1 block (an Arrow IPC stream, what the reference's
+``IpcWriterExec`` writes) decodes through ``columnar/arrow_ipc.py`` when
+it is uncompressed. ENC_CODEC, ENC_ARROW and compressed v1 blocks raise
+``NotImplementedError`` naming the encoding or codec: they are not on the
+port's paths yet.
 """
 
 from __future__ import annotations
@@ -59,6 +61,8 @@ from typing import Iterator
 import numpy as np
 
 from auron_tpu_torch import types as T
+from auron_tpu_torch.columnar import arrow_ipc
+from auron_tpu_torch.columnar.arrow_c import HostBatch, array_from_pylist
 from auron_tpu_torch.columnar.batch import empty_dict, merge_vocab
 from auron_tpu_torch.utils.config import (
     SHUFFLE_ENCODING, SHUFFLE_ENCODING_FALLBACK, SPILL_COMPRESSION_CODEC, resolve_tri,
@@ -571,297 +575,44 @@ def decode_column(enc: int, body: bytes, valid: np.ndarray | None, nrows: int,
 
 
 # ---------------------------------------------------------------------------
-# the schema section: a minimal Arrow IPC schema message, without pyarrow
+# the schema section and the vocabularies: Arrow IPC without pyarrow
+# (columnar/arrow_ipc.py)
 # ---------------------------------------------------------------------------
-
-
-class _Flat:
-    """A forward flatbuffer writer: each table is laid out before the
-    objects it points to, so every uoffset is positive; scalars sit at
-    their natural alignment from the buffer start."""
-
-    def __init__(self):
-        self.buf = bytearray(4)  # root uoffset, patched by finish()
-
-    def _pad(self, align: int) -> None:
-        self.buf.extend(b"\0" * (-len(self.buf) % align))
-
-    def table(self, fields: list) -> int:
-        """``fields[i]`` is None (absent), (struct format, value) or
-        ("off", writer) where writer(self) returns the child's position."""
-        layout, pos = [], 4
-        present = sorted((i for i, f in enumerate(fields) if f is not None),
-                         key=lambda i: -self._size(fields[i][0]))
-        for fid in present:
-            sz = self._size(fields[fid][0])
-            pos += -pos % sz
-            layout.append((fid, pos, sz))
-            pos += sz
-        at = {fid: p for fid, p, _ in layout}
-        self._pad(2)
-        vt_pos = len(self.buf)
-        self.buf += struct.pack(f"<HH{len(fields)}H", 4 + 2 * len(fields), pos,
-                                *(at.get(i, 0) for i in range(len(fields))))
-        self._pad(max([4] + [sz for _, _, sz in layout]))
-        t_pos = len(self.buf)
-        body = bytearray(pos)
-        struct.pack_into("<i", body, 0, t_pos - vt_pos)
-        children = []
-        for fid, p, _ in layout:
-            fmt, val = fields[fid]
-            if fmt == "off":
-                children.append((t_pos + p, val))
-            else:
-                struct.pack_into("<" + fmt, body, p, val)
-        self.buf += body
-        for ref, writer in children:
-            struct.pack_into("<I", self.buf, ref, writer(self) - ref)
-        return t_pos
-
-    @staticmethod
-    def _size(fmt: str) -> int:
-        return 4 if fmt == "off" else struct.calcsize("<" + fmt)
-
-    def string(self, s: str) -> int:
-        self._pad(4)
-        pos = len(self.buf)
-        b = s.encode("utf-8")
-        self.buf += struct.pack("<I", len(b)) + b + b"\0"
-        return pos
-
-    def tables(self, writers: list) -> int:
-        self._pad(4)
-        pos = len(self.buf)
-        self.buf += struct.pack("<I", len(writers)) + bytes(4 * len(writers))
-        for i, writer in enumerate(writers):
-            ref = pos + 4 + 4 * i
-            struct.pack_into("<I", self.buf, ref, writer(self) - ref)
-        return pos
-
-    def finish(self, root) -> bytes:
-        struct.pack_into("<I", self.buf, 0, root(self))
-        return bytes(self.buf)
-
-    def structs(self, fmt: str, items: list) -> int:
-        """A vector of 8-byte-aligned structs (``fmt`` per item)."""
-        self.buf.extend(b"\0" * (-(len(self.buf) + 4) % 8))
-        pos = len(self.buf)
-        self.buf += struct.pack("<I", len(items))
-        for item in items:
-            self.buf += struct.pack("<" + fmt, *item)
-        return pos
-
-
-class _FlatTable:
-    """Read access to one flatbuffer table of ``buf`` at ``pos``."""
-
-    def __init__(self, buf: bytes, pos: int):
-        self.buf, self.pos = buf, pos
-        vt = pos - struct.unpack_from("<i", buf, pos)[0]
-        vt_len = struct.unpack_from("<H", buf, vt)[0]
-        self.slots = struct.unpack_from(f"<{(vt_len - 4) // 2}H", buf, vt + 4)
-
-    def _at(self, field: int) -> int:
-        return self.slots[field] if field < len(self.slots) else 0
-
-    def scalar(self, field: int, fmt: str, default=0):
-        off = self._at(field)
-        return struct.unpack_from("<" + fmt, self.buf, self.pos + off)[0] if off else default
-
-    def ref(self, field: int) -> int | None:
-        """Position of the object a uoffset field points to (None: absent)."""
-        off = self._at(field)
-        if not off:
-            return None
-        p = self.pos + off
-        return p + struct.unpack_from("<I", self.buf, p)[0]
-
-    def table(self, field: int) -> "_FlatTable | None":
-        p = self.ref(field)
-        return None if p is None else _FlatTable(self.buf, p)
-
-    def structs(self, field: int, fmt: str) -> list[tuple]:
-        p = self.ref(field)
-        if p is None:
-            return []
-        (n,) = struct.unpack_from("<I", self.buf, p)
-        size = struct.calcsize("<" + fmt)
-        return [struct.unpack_from("<" + fmt, self.buf, p + 4 + i * size) for i in range(n)]
-
-
-# Arrow flatbuffer enums (format/Schema.fbs, format/Message.fbs)
-_TYPE_INT, _TYPE_FLOAT, _TYPE_BINARY, _TYPE_UTF8 = 2, 3, 4, 5
-_TYPE_BOOL, _TYPE_DECIMAL, _TYPE_DATE, _TYPE_TIMESTAMP = 6, 7, 8, 10
-_HEADER_SCHEMA, _HEADER_RECORD_BATCH = 1, 3
-_METADATA_V5 = 4
-_CONTINUATION = 0xFFFFFFFF
-_EOS = struct.pack("<Ii", _CONTINUATION, 0)
-_INT_BITS = {T.TypeKind.INT8: 8, T.TypeKind.INT16: 16, T.TypeKind.INT32: 32,
-             T.TypeKind.INT64: 64}
-
-
-def _arrow_type(dtype: T.DataType):
-    """(Type union id, fields of its table) of a fixed-width type."""
-    k = dtype.kind
-    if k in _INT_BITS:
-        return _TYPE_INT, [("i", _INT_BITS[k]), ("B", 1)]  # bitWidth, is_signed
-    if k == T.TypeKind.FLOAT32:
-        return _TYPE_FLOAT, [("h", 1)]  # Precision.SINGLE
-    if k == T.TypeKind.FLOAT64:
-        return _TYPE_FLOAT, [("h", 2)]  # Precision.DOUBLE
-    if k == T.TypeKind.BOOL:
-        return _TYPE_BOOL, []
-    if k == T.TypeKind.DATE32:
-        return _TYPE_DATE, [("h", 0)]  # DateUnit.DAY
-    if k == T.TypeKind.TIMESTAMP:
-        return _TYPE_TIMESTAMP, [("h", 2), None]  # TimeUnit.MICROSECOND, no tz
-    if k == T.TypeKind.DECIMAL:
-        return _TYPE_DECIMAL, [("i", dtype.precision), ("i", dtype.scale), ("i", 128)]
-    if k == T.TypeKind.STRING:
-        return _TYPE_UTF8, []
-    if k == T.TypeKind.BINARY:
-        return _TYPE_BINARY, []
-    raise NotImplementedError(f"arrow schema of {dtype} is not in this slice of the port")
-
-
-def _message(header_type: int, header, body_len: int) -> bytes:
-    """One encapsulated IPC message: continuation, metadata length, the
-    Message{version V5, header, bodyLength} flatbuffer padded to 8 bytes."""
-
-    def message(fb: _Flat) -> int:
-        return fb.table([
-            ("h", _METADATA_V5),                               # version
-            ("B", header_type),                                # header_type
-            ("off", header),                                   # header
-            ("q", body_len),                                   # bodyLength
-        ])
-
-    meta = _Flat().finish(message)
-    meta += bytes(-len(meta) % 8)
-    return struct.pack("<Ii", _CONTINUATION, len(meta)) + meta
-
-
-def _schema_msg(schema: T.Schema, dictionaries: bool) -> bytes:
-    """The schema message; with ``dictionaries`` each dictionary-encoded
-    field carries a DictionaryEncoding (ids 0, 1, ... in field order,
-    int32 indices), as pyarrow writes a dictionary-typed schema. A wide
-    decimal is written as plain decimal128 (its column is dec128 planes)."""
-    dict_ids = {}
-    if dictionaries:
-        for i, f in enumerate(schema):
-            if f.dtype.is_string_like:
-                dict_ids[i] = len(dict_ids)
-
-    def encoding(dict_id: int):
-        return ("off", lambda fb: fb.table([
-            ("q", dict_id),                                    # id
-            ("off", lambda fb: fb.table([("i", 32), ("B", 1)])),  # indexType Int32
-            ("B", 0),                                          # isOrdered
-            ("h", 0),                                          # DictionaryKind.DenseArray
-        ]))
-
-    def field(i: int, f: T.Field):
-        type_id, type_fields = _arrow_type(f.dtype)
-        return lambda fb: fb.table([
-            ("off", lambda fb: fb.string(f.name)),            # name
-            ("B", 1 if f.nullable else 0),                     # nullable
-            ("B", type_id),                                    # type_type
-            ("off", lambda fb: fb.table(type_fields)),         # type
-            encoding(dict_ids[i]) if i in dict_ids else None,  # dictionary
-            ("off", lambda fb: fb.tables([])),                 # children
-        ])
-
-    def schema_table(fb: _Flat) -> int:
-        return fb.table([
-            ("h", 0),                                          # endianness Little
-            ("off", lambda fb: fb.tables([field(i, f) for i, f in enumerate(schema)])),
-        ])
-
-    return _message(_HEADER_SCHEMA, schema_table, 0)
 
 
 def arrow_schema_message(schema: T.Schema) -> bytes:
     """The IPC stream ``pa.ipc.new_stream(sink, schema).close()`` would
-    write for the schema (one schema message, then end-of-stream), built
-    from the Arrow flatbuffer layout: Message{version V5, header Schema{
-    endianness Little, fields}, bodyLength 0}."""
-    return _schema_msg(schema, dictionaries=True) + _EOS
-
-
-def _pad8(b: bytes) -> bytes:
-    return b + bytes(-len(b) % 8)
+    write for the schema (one schema message, then end-of-stream). Each
+    dictionary-encoded string/binary field carries a DictionaryEncoding
+    (ids 0, 1, ... in field order, int32 indices), as pyarrow writes a
+    dictionary-typed schema; a wide decimal is plain decimal128 (its column
+    is dec128 planes)."""
+    ids = {}
+    for i, f in enumerate(schema):
+        if f.dtype.is_string_like:
+            ids[i] = len(ids)
+    return arrow_ipc.schema_message(schema, ids) + arrow_ipc.EOS
 
 
 def arrow_column_stream(vocab: np.ndarray, dtype: T.DataType) -> bytes:
     """A one-column Arrow IPC stream of a string/binary vocabulary (no
-    NULLs): schema message, one record batch with buffers validity (absent),
-    int32 offsets and data, each 8-byte aligned in the body, then EOS."""
-    raw = [v.encode("utf-8") if isinstance(v, str) else bytes(v) for v in vocab]
-    n = len(raw)
-    offsets = np.zeros(n + 1, dtype=np.int32)
-    np.cumsum([len(r) for r in raw], out=offsets[1:])
-    off_b = _pad8(offsets.tobytes())
-    data = b"".join(raw)
-    body = off_b + _pad8(data)
-
-    def record_batch(fb: _Flat) -> int:
-        return fb.table([
-            ("q", n),                                          # length
-            ("off", lambda fb: fb.structs("qq", [(n, 0)])),    # nodes: (length, null_count)
-            ("off", lambda fb: fb.structs("qq", [(0, 0), (0, (n + 1) * 4),
-                                                 (len(off_b), len(data))])),  # buffers
-        ])
-
+    NULLs): schema, one record batch, end-of-stream."""
+    col = array_from_pylist(list(vocab), dtype)
     schema = T.Schema((T.Field("", dtype, False),))
-    return (_schema_msg(schema, dictionaries=False)
-            + _message(_HEADER_RECORD_BATCH, record_batch, len(body)) + body + _EOS)
+    return arrow_ipc.write_stream([HostBatch(schema, len(vocab), (col,))])
 
 
 def read_arrow_column_stream(payload: bytes, dtype: T.DataType) -> np.ndarray:
     """The values of a one-column string/binary (or decimal128: Decimals at
-    the column's scale) Arrow IPC stream (as
-    ``arrow_column_stream`` or pyarrow writes it) as a numpy object array.
-    Compressed bodies, NULL values and other layouts raise."""
-    pos = 0
-    while pos + 8 <= len(payload):
-        marker, mlen = struct.unpack_from("<Ii", payload, pos)
-        if marker != _CONTINUATION:
-            raise ValueError("Arrow IPC message without continuation marker")
-        pos += 8
-        if mlen == 0:
-            break
-        meta = payload[pos : pos + mlen]
-        pos += mlen
-        msg = _FlatTable(meta, struct.unpack_from("<I", meta, 0)[0])
-        header_type = msg.scalar(1, "B")
-        body_len = msg.scalar(3, "q")
-        body = payload[pos : pos + body_len]
-        pos += body_len
-        if header_type == _HEADER_SCHEMA:
-            continue
-        if header_type != _HEADER_RECORD_BATCH:
-            raise NotImplementedError(f"Arrow IPC message type {header_type} in a vocabulary")
-        rb = msg.table(2)
-        if rb.ref(3) is not None:
-            raise NotImplementedError("compressed Arrow IPC vocabulary")
-        (n, nulls), = rb.structs(1, "qq")
-        if nulls:
+    the column's scale) Arrow IPC stream (as ``arrow_column_stream`` or
+    pyarrow writes it) as a numpy object array. Compressed bodies and NULL
+    values raise."""
+    for hb in arrow_ipc.iter_stream(payload):
+        (col,) = hb.columns
+        if col.nulls():
             raise ValueError("a dictionary vocabulary holds NULL values")
-        if n == 0:
-            return np.empty(0, dtype=object)
-        bufs = rb.structs(2, "qq")
-        if dtype.kind == T.TypeKind.DECIMAL:
-            raw = np.frombuffer(body, np.int64, count=2 * n, offset=bufs[1][0]).reshape(n, 2)
-            out = np.empty(n, dtype=object)
-            out[:] = [T.decimal_from_unscaled((int(h) << 64) | (int(l) & 0xFFFFFFFFFFFFFFFF),
-                                              dtype.scale) for l, h in raw.tolist()]
-            return out
-        offsets = np.frombuffer(body, np.int32, count=n + 1, offset=bufs[1][0])
-        data = body[bufs[2][0] : bufs[2][0] + bufs[2][1]]
-        out = np.empty(n, dtype=object)
-        text = dtype.kind != T.TypeKind.BINARY
-        out[:] = [data[a:b].decode("utf-8") if text else data[a:b]
-                  for a, b in zip(offsets[:-1].tolist(), offsets[1:].tolist())]
+        out = np.empty(hb.length, dtype=object)
+        out[:] = col.to_pylist()
         return out
     raise ValueError("Arrow IPC stream without a record batch")
 
@@ -869,6 +620,19 @@ def read_arrow_column_stream(payload: bytes, dtype: T.DataType) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
+
+
+def host_planes(batch, metrics=None) -> tuple[int, list]:
+    """(live rows, [(values, validity or None)]) of a device batch
+    (``Batch.live_host_planes``), a dictionary-encoded column as
+    ``DictCodes`` into its vocabulary: what ``encode_block`` takes."""
+    n, planes = batch.live_host_planes(metrics)
+    cols = []
+    for i, (f, (vals, valid)) in enumerate(zip(batch.schema, planes)):
+        if f.dtype.is_dict_encoded:
+            vals = DictCodes(vals, batch.dicts[i])
+        cols.append((vals, None if valid.all() else valid))
+    return n, cols
 
 
 def encode_block(schema: T.Schema, cols: list, metrics=None) -> bytes:
@@ -896,13 +660,55 @@ def is_v2_payload(payload: bytes) -> bool:
     return payload[:4] == V2_MAGIC
 
 
+def _decode_v1(payload: bytes, schema: T.Schema) -> tuple[int, list]:
+    """A v1 block: an Arrow IPC stream (``columnar/arrow_ipc.py``), its
+    record batches' planes in the port's host form. A compressed stream
+    (the reference's default codec, lz4) raises naming the codec."""
+    from auron_tpu_torch.columnar.batch import host_plane
+
+    try:
+        batches = arrow_ipc.read_stream(payload)
+    except NotImplementedError as e:
+        raise NotImplementedError(f"v1 (Arrow IPC) shuffle block: {e}") from e
+    parts: list[list] = [[] for _ in schema]
+    for hb in batches:
+        if len(hb.columns) != len(schema):
+            raise ValueError(f"block has {len(hb.columns)} columns, the plan schema "
+                             f"{len(schema)}")
+        for i, (f, arr) in enumerate(zip(schema, hb.columns)):
+            plane, _, validity, vocab = host_plane(arr, f.dtype)
+            if plane is None:  # the NULL type
+                plane, validity = np.zeros(hb.length, np.int8), np.zeros(hb.length, bool)
+            elif isinstance(validity, tuple):
+                packed, off = validity
+                validity = np.unpackbits(packed, bitorder="little")[off: off + hb.length] \
+                    .astype(bool)
+            if vocab is not None:
+                plane = DictCodes(np.asarray(plane, np.int32), vocab)
+            elif validity is not None:
+                plane = np.where(validity, plane, plane.dtype.type(0))
+            parts[i].append((plane, np.ones(hb.length, bool) if validity is None else validity))
+    nrows = sum(hb.length for hb in batches)
+    cols = []
+    for f, ps in zip(schema, parts):
+        if not ps:
+            cols.append((np.zeros(0, f.dtype.numpy_dtype()), None))
+            continue
+        vals = (DictCodes.concat([p for p, _ in ps]) if isinstance(ps[0][0], DictCodes)
+                else np.concatenate([p for p, _ in ps]))
+        valid = np.concatenate([m for _, m in ps])
+        cols.append((vals, None if valid.all() else valid))
+    return nrows, cols
+
+
 def decode_block(payload: bytes, schema: T.Schema) -> tuple[int, list]:
-    """(nrows, [(values, validity or None)]) of one v2 payload, column types
-    from ``schema``. Corrupt blocks raise ValueError; encodings outside
-    this slice raise NotImplementedError."""
+    """(nrows, [(values, validity or None)]) of one payload, column types
+    from ``schema``: a v2 block, or a v1 block (an uncompressed Arrow IPC
+    stream, as the reference's ``IpcWriterExec`` writes with
+    ``spill.compression.codec=none``). Corrupt blocks raise ValueError;
+    encodings outside this slice raise NotImplementedError."""
     if not is_v2_payload(payload):
-        raise NotImplementedError(
-            "v1 (Arrow IPC) shuffle blocks are not in this slice of the port")
+        return _decode_v1(payload, schema)
     try:
         ver, _, ncols, nrows, slen = struct.unpack_from("<BBHII", payload, 4)
         if ver != 2:

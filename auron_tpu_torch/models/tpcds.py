@@ -191,18 +191,32 @@ def to_batches(table: Table, n_partitions: int, batch_rows: int = 1 << 20,
 # ---------------------------------------------------------------------------
 
 
-def q42_exec_tree():
+def _resource_scan(schema: T.Schema, rid: str):
+    from auron_tpu_torch.exec.basic import ResourceScanExec
+
+    return ResourceScanExec(schema, rid)
+
+
+def _ffi_reader(schema: T.Schema, rid: str):
+    from auron_tpu_torch.exec.scan import FFIReaderExec
+
+    return FFIReaderExec(schema, rid)
+
+
+def q42_exec_tree(scan=_resource_scan):
     """SELECT i_brand_id brand, sum(ss_ext_sales_price) rev FROM store_sales
     JOIN item ON ss_item_sk = i_item_sk GROUP BY brand ORDER BY rev DESC,
     brand LIMIT 10 — the tree the planner builds from the q42-class plan
-    proto after column pruning (join projection [price, brand])."""
+    proto after column pruning (join projection [price, brand]). ``scan``
+    builds the leaves from (schema, resource id): ``memory_scan`` leaves, or
+    ``ffi_reader`` ones (``_ffi_reader``) for host Arrow inputs."""
     from auron_tpu_torch.exec.agg_exec import AggExpr, HashAggExec
-    from auron_tpu_torch.exec.basic import ProjectExec, ResourceScanExec
+    from auron_tpu_torch.exec.basic import ProjectExec
     from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
     from auron_tpu_torch.exec.sort_exec import SortExec
 
-    fact = ResourceScanExec(STORE_SALES_SCHEMA, "q42_fact")
-    item = ResourceScanExec(ITEM_SCHEMA, "q42_item")
+    fact = scan(STORE_SALES_SCHEMA, "q42_fact")
+    item = scan(ITEM_SCHEMA, "q42_item")
     j = BroadcastHashJoinExec(fact, item, [col(1)], [col(0)], "inner",
                               build_side="right", projection=[4, 6])
     pr = ProjectExec(j, [col(1), col(0)], ["brand", "p"])
@@ -472,26 +486,24 @@ def ingest_q93(data: TpcdsData, n_map: int, device="cuda", fact=None) -> dict:
             "cust": to_batches(cust, 1, device=device)[0]}
 
 
-def q93_map_tree():
+def q93_map_tree(scan=_resource_scan):
     """SELECT CASE WHEN ss_quantity < 85 THEN NULL ELSE ss_customer_sk END k,
     ss_ext_sales_price price FROM store_sales: ~85 % of the keys are NULL."""
-    from auron_tpu_torch.exec.basic import ProjectExec, ResourceScanExec
+    from auron_tpu_torch.exec.basic import ProjectExec
     from auron_tpu_torch.exprs.ir import If
 
     key = If(BinaryOp("lt", col(3), Literal(85, T.INT32)), Literal(None, T.INT64), col(2))
-    return ProjectExec(ResourceScanExec(STORE_SALES_SCHEMA, "q93_fact"), [key, col(4)],
-                       ["k", "price"])
+    return ProjectExec(scan(STORE_SALES_SCHEMA, "q93_fact"), [key, col(4)], ["k", "price"])
 
 
-def q93_reduce_tree(read):
+def q93_reduce_tree(read, scan=_resource_scan):
     """read LEFT JOIN customer ON k = c_customer_sk, grouped by k IS NULL:
     count(*) rows, count(c_customer_sk) matched, sum(price) s."""
     from auron_tpu_torch.exec.agg_exec import AggExpr, HashAggExec
-    from auron_tpu_torch.exec.basic import ResourceScanExec
     from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
     from auron_tpu_torch.exprs.ir import IsNull
 
-    j = BroadcastHashJoinExec(read, ResourceScanExec(CUSTOMER_SCHEMA, "q93_cust"), [col(0)],
+    j = BroadcastHashJoinExec(read, scan(CUSTOMER_SCHEMA, "q93_cust"), [col(0)],
                               [col(0)], "left", build_side="right", projection=[0, 1, 2])
     p = HashAggExec(j, [(IsNull(col(0)), "k_null")],
                     [(AggExpr("count_star"), "rows"), (AggExpr("count", col(2)), "matched"),
@@ -544,6 +556,216 @@ def q93_class_oracle(data: TpcdsData) -> dict:
             "matched": np.array([np.count_nonzero(matched & (~k_valid == k)) for k in keys],
                                 np.int64),
             "s": np.array([price[~k_valid == k].sum() for k in keys], np.float64)}
+
+
+# ---------------------------------------------------------------------------
+# the host boundary: q42 and q93 from host Arrow batches to host answers
+# ---------------------------------------------------------------------------
+
+
+def host_batches(table: Table, n_partitions: int, batch_rows: int = 1 << 20) -> list[list]:
+    """Per-partition host Arrow batches (``arrow_c.HostBatch``) of a table,
+    split as ``to_batches`` splits it: what a host engine holds before it
+    hands a scan over. Fixed-width columns are views of the table's arrays;
+    validity is packed."""
+    from auron_tpu_torch.columnar.arrow_c import HostBatch
+
+    parts: list[list] = []
+    n = len(table)
+    per = (n + n_partitions - 1) // n_partitions
+    names = table.schema.names
+    for p in range(n_partitions):
+        lo, hi = min(p * per, n), min((p + 1) * per, n)
+        parts.append([
+            HostBatch.from_numpy(
+                [table.columns[c][s:min(s + batch_rows, hi)] for c in names], table.schema,
+                [table.valid[c][s:min(s + batch_rows, hi)] if c in table.valid else None
+                 for c in names])
+            for s in (list(range(lo, hi, batch_rows)) or [lo])
+        ])
+    return parts
+
+
+def _hand_over(rid: str, batches: list, schema: T.Schema) -> None:
+    """Export ``batches`` as an ``ArrowArrayStream`` and hand its pointer to
+    the bridge (``api.put_resource_c_stream``), as a JVM calls
+    ``auron_put_resource_arrow``."""
+    import ctypes
+
+    from auron_tpu_torch.bridge import api
+    from auron_tpu_torch.columnar.arrow_c import ArrowArrayStream, export_stream
+
+    s = ArrowArrayStream()
+    export_stream(batches, ctypes.addressof(s), schema)
+    api.put_resource_c_stream(rid, ctypes.addressof(s))
+
+
+def _boundary_stats(stats: dict, before: dict, egress_s: float) -> None:
+    """``stats`` gets the run's ingest counters (``batch.ingest_stats``
+    deltas: ``ingest_s``, ``ingest_bytes``, ``zerocopy_planes``,
+    ``copied_planes``) and ``egress_s``."""
+    from auron_tpu_torch.columnar.batch import ingest_stats
+
+    after = ingest_stats()
+    for k, v in after.items():
+        stats[k] = stats.get(k, 0) + v - before[k]
+    stats["egress_s"] = stats.get("egress_s", 0.0) + egress_s
+
+
+def host_q42(data: TpcdsData, batch_rows: int = 1 << 20) -> dict:
+    """The q42 task's inputs as host Arrow batches (resource id -> batches)."""
+    return {"q42_fact": host_batches(data.store_sales, 1, batch_rows)[0],
+            "q42_item": host_batches(data.item, 1, batch_rows)[0]}
+
+
+def run_q42_bridge(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                   host: dict | None = None, stats: dict | None = None) -> dict[str, np.ndarray]:
+    """The q42-class query through the host boundary: its ``memory_scan``
+    leaves are ``ffi_reader``s fed by Arrow C streams over host batches
+    (``host_q42``), the task starts through ``bridge.api.call_native`` and
+    the answer leaves through an ``ipc_writer`` as blocks the host decodes.
+    Returns {brand, rev}. ``stats`` gets the host timers, the ingest
+    counters, ``egress_s`` (the writer's ``egress_time`` and the host's
+    decode) and ``stage_s`` (the task's wall)."""
+    from auron_tpu_torch.bridge import api
+    from auron_tpu_torch.columnar.batch import ingest_stats
+    from auron_tpu_torch.exec.shuffle.format import decode_block, iter_block_payloads
+    from auron_tpu_torch.exec.sink import IpcWriterExec
+
+    host = host if host is not None else host_q42(data)
+    tree = IpcWriterExec(q42_exec_tree(_ffi_reader), "q42_out")
+    schemas = {"q42_fact": STORE_SALES_SCHEMA, "q42_item": ITEM_SCHEMA}
+    before = ingest_stats()
+    channel: list = []
+    t0 = time.perf_counter()
+    try:
+        for rid, batches in host.items():
+            _hand_over(rid, batches, schemas[rid])
+        h = api.call_native(tree, {"q42_out": channel}, device=device, conf=conf)
+        try:
+            while api.next_batch(h) is not None:
+                pass
+        finally:
+            snapshot = api.finalize_native(h)
+    finally:
+        for rid in host:
+            api.remove_resource(rid)
+    t1 = time.perf_counter()
+    brand, rev = [np.empty(0, np.int32)], [np.empty(0, np.float64)]
+    for blk in channel:
+        for payload in iter_block_payloads(blk):
+            _, ((b, _), (r, _)) = decode_block(payload, tree.schema)
+            brand.append(b)
+            rev.append(r)
+    decode_s = time.perf_counter() - t1
+    if stats is not None:
+        add_timers(stats, snapshot)
+        _boundary_stats(stats, before, snapshot["values"].get("egress_time", 0) / 1e9 + decode_s)
+        stats.setdefault("stage_s", {})["q42"] = t1 - t0
+    return {"brand": np.concatenate(brand), "rev": np.concatenate(rev)}
+
+
+def host_q93(data: TpcdsData, n_map: int, batch_rows: int = 1 << 20) -> dict:
+    """The q93 inputs as host Arrow batches: the fact in ``n_map``
+    partitions and the 5,000-row customer dimension."""
+    sk = np.arange(1, 5001, dtype=np.int64)
+    cust = Table(CUSTOMER_SCHEMA, {"c_customer_sk": sk, "c_band": sk % 5}, {})
+    return {"fact": host_batches(data.store_sales, n_map, batch_rows),
+            "cust": host_batches(cust, 1)[0]}
+
+
+def run_q93_bridge(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 4,
+                   work_dir: str | None = None, device="cuda", conf: dict | None = None,
+                   host: dict | None = None, stats: dict | None = None) -> dict:
+    """The q93-class query through the host boundary: each map task's
+    ``ffi_reader`` takes its partition's Arrow C stream (``q93_fact.<p>``),
+    the reduce tasks' customer leaf a callable exporter, every task starts
+    through ``bridge.api.call_native``, and the reduce answers leave through
+    ``next_batch_c`` into C structs the host imports. Returns {k_null, rows,
+    matched, s} as ``run_q93_class`` does. ``stats`` gets map_s, reduce_s,
+    ``stage_s``, shuffle bytes, host timers, the ingest counters and
+    ``egress_s`` (``next_arrow``'s ``egress_time`` and the host's import)."""
+    import ctypes
+
+    from auron_tpu_torch.bridge import api
+    from auron_tpu_torch.columnar.arrow_c import ArrowArray, ArrowSchema, import_batch
+    from auron_tpu_torch.columnar.batch import ingest_stats
+    from auron_tpu_torch.exec.shuffle.partitioning import HashPartitioning
+    from auron_tpu_torch.exec.shuffle.reader import IpcReaderExec, MultiMapBlockProvider
+    from auron_tpu_torch.exec.shuffle.writer import ShuffleWriterExec
+
+    host = host if host is not None else host_q93(data, n_map)
+    n_map = len(host["fact"])
+    stats = stats if stats is not None else {}
+    work = work_dir or tempfile.mkdtemp(prefix="auron_q93_bridge_")
+    os.makedirs(work, exist_ok=True)
+    names, dtypes = ["k_null", "rows", "matched", "s"], [bool, np.int64, np.int64, np.float64]
+    before = ingest_stats()
+    keys: list[str] = []
+    outs: list[dict] = []
+    egress_s = 0.0
+    try:
+        with memory_scope(Configuration(conf or {}), stats):
+            t0 = time.perf_counter()
+            for p in range(n_map):
+                keys.append(f"q93_fact.{p}")
+                _hand_over(keys[-1], host["fact"][p], STORE_SALES_SCHEMA)
+            keys.append("q93_cust")
+            api.put_resource("q93_cust", lambda _partition: host["cust"])
+            part = HashPartitioning([col(0)], n_reduce)
+            map_tree = q93_map_tree(_ffi_reader)
+            pairs = []
+            for p in range(n_map):
+                d, i = os.path.join(work, f"q93_m{p}.data"), os.path.join(work, f"q93_m{p}.index")
+                h = api.call_native(ShuffleWriterExec(map_tree, part, d, i), device=device,
+                                    conf=conf, stage_id=1, partition_id=p)
+                try:
+                    while api.next_batch(h) is not None:
+                        pass
+                finally:
+                    metrics = api.finalize_native(h)
+                stats["shuffle_bytes"] = stats.get("shuffle_bytes", 0) + \
+                    metrics["values"]["data_size"]
+                add_timers(stats, metrics)
+                pairs.append((d, i))
+            _sync(device)
+            t1 = time.perf_counter()
+            keys.append("q93_ex0")
+            api.put_resource("q93_ex0", MultiMapBlockProvider(pairs))
+            reduce_tree = q93_reduce_tree(IpcReaderExec(Q93_INTER_SCHEMA, "q93_ex0"), _ffi_reader)
+            for r in range(n_reduce):
+                h = api.call_native(reduce_tree, device=device, conf=conf, stage_id=2,
+                                    partition_id=r)
+                rows: dict = {n: [] for n in names}
+                try:
+                    while True:
+                        arr, sch = ArrowArray(), ArrowSchema()
+                        if not api.next_batch_c(h, ctypes.addressof(arr), ctypes.addressof(sch)):
+                            break
+                        te = time.perf_counter()
+                        for n, vals in import_batch(ctypes.addressof(arr),
+                                                    ctypes.addressof(sch)).to_pydict().items():
+                            rows[n] += vals
+                        egress_s += time.perf_counter() - te
+                finally:
+                    metrics = api.finalize_native(h)
+                egress_s += metrics["values"].get("egress_time", 0) / 1e9
+                add_timers(stats, metrics)
+                outs.append({n: np.array(rows[n], dt) for n, dt in zip(names, dtypes)}
+                            if rows["k_null"] else {})
+            _sync(device)
+            t2 = time.perf_counter()
+    finally:
+        for k in keys:
+            api.remove_resource(k)
+        if work_dir is None:
+            shutil.rmtree(work, ignore_errors=True)
+    stats["map_s"], stats["reduce_s"] = t1 - t0, t2 - t1
+    stats.setdefault("stage_s", {}).update({"map": t1 - t0, "reduce": t2 - t1})
+    stats["null_partition"] = 42 % n_reduce
+    stats["partition_rows"] = [int(o["rows"].sum()) if o else 0 for o in outs]
+    _boundary_stats(stats, before, egress_s)
+    return _q93_by_key(outs)
 
 
 # ---------------------------------------------------------------------------

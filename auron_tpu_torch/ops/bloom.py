@@ -20,6 +20,7 @@ import struct
 import numpy as np
 import torch
 
+from auron_tpu_torch.device import resolve_device
 from auron_tpu_torch.ops import hashing as H
 from auron_tpu_torch.ops.uwords import MASK32, i32_of_u32
 
@@ -33,15 +34,19 @@ def optimal_num_hashes(n_items: int, n_bits: int) -> int:
 
 
 class SparkBloomFilter:
+    """``device`` places a new filter's words (``device.resolve_device``: the
+    card unless the caller asks for the CPU); given ``words`` keep theirs."""
+
     def __init__(self, num_bits: int, num_hashes: int, words: torch.Tensor | None = None,
-                 device="cpu"):
+                 device=None):
         self.num_bits = (num_bits + 31) & ~31
         self.num_hashes = num_hashes
         self.words = (words if words is not None
-                      else torch.zeros(self.num_bits // 32, dtype=torch.int64, device=device))
+                      else torch.zeros(self.num_bits // 32, dtype=torch.int64,
+                                       device=resolve_device(device)))
 
     @staticmethod
-    def create(expected_items: int, fpp: float = 0.03, device="cpu") -> "SparkBloomFilter":
+    def create(expected_items: int, fpp: float = 0.03, device=None) -> "SparkBloomFilter":
         bits = optimal_num_bits(expected_items, fpp)
         return SparkBloomFilter(bits, optimal_num_hashes(expected_items, bits), device=device)
 
@@ -83,9 +88,9 @@ class SparkBloomFilter:
         return struct.pack("<III", 1, self.num_hashes, self.num_bits) + w
 
     @staticmethod
-    def deserialize(data: bytes, device="cpu") -> "SparkBloomFilter":
+    def deserialize(data: bytes, device=None) -> "SparkBloomFilter":
         version, k, num_bits = struct.unpack_from("<III", data, 0)
         if version != 1:
             raise ValueError(f"bloom filter version {version} is not supported")
         words = np.frombuffer(bytes(data[12:]), dtype="<u4").astype(np.int64)
-        return SparkBloomFilter(num_bits, k, torch.from_numpy(words).to(device))
+        return SparkBloomFilter(num_bits, k, torch.from_numpy(words).to(resolve_device(device)))

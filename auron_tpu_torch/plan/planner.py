@@ -1,7 +1,8 @@
 """Physical planner: plan proto -> executable operator tree.
 
 Port of ``auron_tpu/plan/planner.py`` for the node and expression variants
-the ported slices execute (memory_scan, project, filter, limit, union,
+the ported slices execute (memory_scan, ffi_reader, ipc_writer, project,
+filter, limit, union,
 expand, rename_columns, empty_partitions, coalesce_batches, debug,
 hash_agg, sort, window, generate, hash_join, sort_merge_join, shuffle_writer with
 single/hash/round-robin partitioning, ipc_reader, mesh_exchange (a
@@ -158,6 +159,14 @@ def plan_from_proto(p):
     if which == "memory_scan":
         return basic.ResourceScanExec(schema_from_proto(p.memory_scan.schema),
                                       p.memory_scan.resource_id)
+    if which == "ffi_reader":
+        from auron_tpu_torch.exec.scan import FFIReaderExec
+
+        return FFIReaderExec(schema_from_proto(p.ffi_reader.schema), p.ffi_reader.resource_id)
+    if which == "ipc_writer":
+        from auron_tpu_torch.exec.sink import IpcWriterExec
+
+        return IpcWriterExec(plan_from_proto(p.ipc_writer.child), p.ipc_writer.resource_id)
     if which == "project":
         return basic.ProjectExec(plan_from_proto(p.project.child),
                                  [expr_from_proto(e.expr) for e in p.project.exprs],

@@ -6,7 +6,8 @@ the verbatim ``plan_pb2`` copy) or an already-built exec tree; either way
 the tree runs whole-stage fused for the task's device (``plan/fusion.py``).
 The runtime drives the root operator on a background thread into a bounded
 queue;
-the consumer pulls batches with ``next_batch``; an error anywhere in the
+the consumer pulls batches with ``next_batch`` (or host Arrow batches with
+``next_arrow``, reference ``task.py:147-153``); an error anywhere in the
 operator stream is re-raised on the consumer side; ``finalize`` cancels,
 drains, joins the pump and returns the metric tree. Whichever way the
 stream ends (its end, an error, a cancel), the pump unregisters every
@@ -21,6 +22,7 @@ import queue
 import threading
 from typing import Iterator
 
+from auron_tpu_torch.columnar.arrow_c import HostBatch
 from auron_tpu_torch.columnar.batch import Batch
 from auron_tpu_torch.device import resolve_device
 from auron_tpu_torch.exec.base import ExecOperator, ExecutionContext, TaskCancelled
@@ -56,6 +58,7 @@ class TaskRuntime:
         self._queue: queue.Queue = queue.Queue(maxsize=max(conf.get(TOKIO_EQUIV_PREFETCH_DEPTH), 1))
         self._error: BaseException | None = None
         self._finalized = False
+        self._host_prefetch = False
         self._thread = threading.Thread(target=self._pump, daemon=True, name="auron-torch-pump")
         self._thread.start()
 
@@ -63,6 +66,8 @@ class TaskRuntime:
         try:
             with conf_scope(self.ctx.conf):
                 for batch in self.plan.execute(self.ctx.partition_id, self.ctx):
+                    if self._host_prefetch:
+                        batch.prefetch_host()
                     self._queue.put(batch)
         except TaskCancelled:
             pass
@@ -88,6 +93,20 @@ class TaskRuntime:
             self._check_error()
             return None
         return item
+
+    def next_arrow(self) -> HostBatch | None:
+        """Next batch as a host Arrow batch (``Batch.to_host_arrow``), or None
+        at end of stream: the host boundary. The first call switches the
+        pump to start every later batch's device->host copy as it queues the
+        batch, so the copy of batch n+1 overlaps the consumer's work on
+        batch n. The root metric node's ``egress_time`` sums the time spent
+        here turning batches into host Arrow."""
+        self._host_prefetch = True
+        b = self.next_batch()
+        if b is None:
+            return None
+        with self.ctx.metrics.timer("egress_time"):
+            return b.to_host_arrow()
 
     def __iter__(self) -> Iterator[Batch]:
         while (b := self.next_batch()) is not None:

@@ -130,6 +130,28 @@ class conf_scope:
 BATCH_SIZE = int_conf(
     "batch.size", 131072, "exec", "target rows per columnar device batch",
 )
+SCAN_ZEROCOPY = str_conf(
+    "exec.scan.zerocopy", "auto", "scan",
+    "zero-copy ingestion (docs/shuffle.md): validity-clean fixed-width "
+    "Arrow/numpy column buffers upload by 64-byte-aligned buffer ALIAS "
+    "instead of a host->device copy (XLA:CPU device_put aliases aligned "
+    "host memory; accelerators still DMA but skip the intermediate numpy "
+    "materialization), validity/selection planes of full clean batches "
+    "come from shared cached all-true planes, and dictionary pages pass "
+    "through by reference. The engine relies on Arrow/ingest buffers "
+    "staying immutable while device arrays reference them (Arrow buffers "
+    "are immutable by contract; Batch.from_pandas documents the same "
+    "contract for user frames). on | off | auto = on. off restores the "
+    "copying ingest path exactly (bit-identical results either way). "
+    "In the port (Batch.from_host_arrow) every plane still crosses one host "
+    "copy, into its pinned staging buffer; the key only chooses between "
+    "one host copy and two. On, a fixed-width plane whose Arrow layout is "
+    "the device plane's is a view of the producer's buffer that goes "
+    "straight to that staging copy (NULL lanes and padding are zeroed on "
+    "the device, so neither NULLs nor a partial batch need a copy of their "
+    "own); off first copies every plane into an owned array. Counted as "
+    "zerocopy_planes / copied_planes",
+)
 JOIN_COMPACT_OUTPUT = str_conf(
     "join.compact.output", "auto", "join",
     "compact sparse unique-join outputs before gathering build columns: "

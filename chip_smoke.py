@@ -9,6 +9,7 @@
     python3 chip_smoke.py --decimal-only  # phases 1, 2 and 14 only
     python3 chip_smoke.py --fusion-only  # phases 1, 2 and 15 only
     python3 chip_smoke.py --generate-only  # phases 1, 2 and 16 only
+    python3 chip_smoke.py --bridge-only  # phases 1, 2 and 17 only
 
 Phases, in order, none of them caught — any failure exits non-zero:
 
@@ -200,8 +201,21 @@ Phases, in order, none of them caught — any failure exits non-zero:
    reads, peak device memory and the top host timers are printed (with
    ``--profile``, device busy and the idle share). No kernel of the
    TPU package is on this path;
-17. print the kernel table as one JSON line (each kernel's launches summed
-   over the timed runs of phases 4-16, and per run), then the status line.
+17. the host boundary: q42 and q93 (4 x 4) with their inputs on the card
+   (the device runners, ingest as set-up) and through the boundary
+   (``tpcds.run_q42_bridge`` / ``run_q93_bridge``: the fact and the
+   dimensions as host Arrow batches handed over as Arrow C streams, taken
+   in by ``ffi_reader``s through pinned staging, q42's answer out as
+   ``ipc_writer`` blocks, q93's reduce answers through ``next_batch_c``; a
+   host clock around all of it; q42 also with ``exec.scan.zerocopy`` off,
+   which copies every plane into an owned array before its staging copy):
+   a warm-up each way, then two timed runs each, every answer equal to its
+   oracle, each boundary run launching K1 and K3 as its card run does. Walls, ingest seconds and bytes and GB/s,
+   the zero-copy and copied planes, egress, K1/K3 launches, stage walls and
+   peak device memory are printed (with ``--profile``, one profiled run of
+   each through the boundary: device busy and the idle share);
+18. print the kernel table as one JSON line (each kernel's launches summed
+   over the timed runs of phases 4-17, and per run), then the status line.
 
 Each phase prints its seconds.
 
@@ -2569,6 +2583,118 @@ def run_generate_phase(data, profile: bool = False) -> dict:
     return out
 
 
+#: phase 17: warm-up, then this many timed runs of each query each way
+BRIDGE_TIMED_RUNS = 2
+
+
+def _bridge_runners(name: str, data, host: dict):
+    """(answer check, the boundary runner, a function that puts the inputs on
+    the card (set-up) and returns the card runner) of q42 or q93; the
+    runners take a stats dict, the boundary runner also a conf."""
+    import numpy as np
+
+    from auron_tpu_torch.models import tpcds
+
+    if name == "q42":
+        want = tpcds.q42_class_oracle(data)
+
+        def check(got):
+            assert got["brand"].shape == (10,) and np.isfinite(got["rev"]).all(), got
+            assert np.array_equal(got["brand"], want["brand"]), (got["brand"], want["brand"])
+            _assert_close(got["rev"], want["rev"])
+
+        def on_card():
+            ingested = tpcds.ingest_q42(data, device="cuda")
+            return lambda st: tpcds.run_q42_class(device="cuda", ingested=ingested, stats=st)
+
+        return check, lambda st, conf=None: tpcds.run_q42_bridge(
+            device="cuda", host=host, conf=conf, stats=st), on_card
+    want = tpcds.q93_class_oracle(data)
+
+    def on_card():
+        ingested = tpcds.ingest_q93(data, 4, device="cuda")
+        return lambda st: tpcds.run_q93_class(device="cuda", ingested=ingested, stats=st)
+
+    return (lambda got: _assert_q93(got, want),
+            lambda st, conf=None: tpcds.run_q93_bridge(device="cuda", host=host, conf=conf,
+                                                       stats=st), on_card)
+
+
+def run_bridge_phase(data, profile: bool = False) -> dict:
+    """Phase 17: q42 and q93 (4 map x 4 reduce) through the host boundary
+    (``run_q42_bridge`` / ``run_q93_bridge``: host Arrow batches handed over
+    as C streams, ingested by the ffi_readers, answers out through
+    ipc_writer blocks or next_batch_c; a host clock around all of it), then
+    with their inputs on the card (the device runners; ingest is set-up): a
+    warm-up each way, then BRIDGE_TIMED_RUNS timed runs each, every answer
+    equal to its oracle, and each boundary run launching K1/K3 exactly as
+    its card run (the same batches). The boundary runs come first, so their
+    peak device memory holds no resident inputs."""
+    import torch
+
+    from auron_tpu_torch.models import tpcds
+
+    out = {}
+    t0 = time.perf_counter()
+    hosts = {"q42": tpcds.host_q42(data), "q93": tpcds.host_q93(data, 4)}
+    host_bytes = {k: sum(sum(b.nbytes for c in hb.columns for b in c.buffers if b is not None)
+                         for part in ([v["q42_fact"], v["q42_item"]] if k == "q42"
+                                      else v["fact"] + [v["cust"]]) for hb in part)
+                  for k, v in hosts.items()}
+    print(f"host Arrow batches of q42 and q93 (set-up) in {time.perf_counter() - t0:.2f} s: "
+          f"{host_bytes['q42'] / 1e6:.1f} MB and {host_bytes['q93'] / 1e6:.1f} MB of buffers",
+          flush=True)
+    for name in ("q42", "q93"):
+        check, bridge, on_card = _bridge_runners(name, data, hosts[name])
+        res = {"host_bytes": host_bytes[name]}
+        modes = {"bridge": bridge, "card": None}
+        if name == "q42":  # the key's off setting: one more host copy of every plane
+            modes = {"bridge": bridge, "bridge_zerocopy_off":
+                     lambda st: bridge(st, {"exec.scan.zerocopy": "off"}), "card": None}
+        for mode, run in modes.items():
+            run = run or on_card()
+            torch.cuda.synchronize()
+            check(run({}))  # warm-up
+            runs = []
+            for _ in range(BRIDGE_TIMED_RUNS):
+                _reset_launches()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                st: dict = {}
+                t0 = time.perf_counter()
+                got = run(st)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = _launches()
+                check(got)
+                r = {"wall_s": wall, "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "launches": launches, "stage_s": st.get("stage_s", {})}
+                line = (f"{name} ({mode}): wall {wall:.4f} s, K1 {launches['murmur3_pmod']} "
+                        f"K3 {launches['bitonic_sort']}, peak "
+                        f"{r['peak_bytes'] / 2**30:.3f} GiB")
+                if mode != "card":
+                    r.update({k: st[k] for k in ("ingest_s", "ingest_bytes", "zerocopy_planes",
+                                                 "copied_planes", "egress_s")})
+                    r["ingest_gb_per_s"] = st["ingest_bytes"] / st["ingest_s"] / 1e9
+                    line += (f", ingest {st['ingest_s']:.4f} s for {st['ingest_bytes']:,} B "
+                             f"({r['ingest_gb_per_s']:.2f} GB/s), planes zero-copy "
+                             f"{st['zerocopy_planes']} copied {st['copied_planes']}, egress "
+                             f"{st['egress_s'] * 1e3:.3f} ms, stages {_fmt_s(r['stage_s'])}")
+                print(line + "; equal to the oracle", flush=True)
+                runs.append(r)
+            res[mode] = {"runs": runs}
+            if mode == "bridge" and profile:
+                res["profile"] = profile_run(f"{name} (bridge)", lambda: bridge({}))
+            del run
+        for k in ("murmur3_pmod", "bitonic_sort"):
+            card_n = {r["launches"][k] for r in res["card"]["runs"]}
+            bridge_n = {r["launches"][k] for r in res["bridge"]["runs"]}
+            assert card_n == bridge_n, (name, k, card_n, bridge_n)
+        out[name] = res
+        torch.cuda.empty_cache()
+    return out
+
+
 def report_graph_cache() -> None:
     """Print the CUDA-graph cache's resident bytes, graphs and evictions
     over the script, and fail if it holds more than its cap (a quarter of
@@ -2604,6 +2730,9 @@ def main(argv=None) -> int:
     ap.add_argument("--generate-only", action="store_true",
                     help="run phases 1, 2 and 16 only (no kernel table, no status line; "
                          "with --profile, both generate classes profiled)")
+    ap.add_argument("--bridge-only", action="store_true",
+                    help="run phases 1, 2 and 17 only (no kernel table, no status line; "
+                         "with --profile, q42 and q93 through the boundary profiled)")
     ap.add_argument("--time-sorts", action="store_true",
                     help="only build and time the bitonic kernels at the sort shapes "
                          "(one JSON line, no status line)")
@@ -2684,6 +2813,16 @@ def main(argv=None) -> int:
         os.makedirs(os.path.join(REPO_DIR, "chiprun_out"), exist_ok=True)
         with open(os.path.join(REPO_DIR, "chiprun_out", "chip_smoke_generate.json"), "w") as f:
             json.dump({"device": kind, "nvidia_smi": smi, "generate": gen, "phase_s": phase_s},
+                      f, indent=1)
+        return 0
+
+    if args.bridge_only:
+        data = tpcds.generate(args.sf, args.seed)
+        bridge = run_bridge_phase(data, args.profile)
+        phase_done("17")
+        os.makedirs(os.path.join(REPO_DIR, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(REPO_DIR, "chiprun_out", "chip_smoke_bridge.json"), "w") as f:
+            json.dump({"device": kind, "nvidia_smi": smi, "bridge": bridge, "phase_s": phase_s},
                       f, indent=1)
         return 0
 
@@ -2808,7 +2947,12 @@ def main(argv=None) -> int:
     gen = run_generate_phase(data, args.profile)
     phase_done("16")
 
-    # 17. every kernel sort and run merge of the main paths, held against the
+    # 17. the host boundary: q42 and q93 with inputs on the card and from
+    # host Arrow batches to host answers
+    bridge = run_bridge_phase(data, args.profile)
+    phase_done("17")
+
+    # 18. every kernel sort and run merge of the main paths, held against the
     # plain network on the card at its own operands
     checks["main_path_sorts"] = {
         **{f"q3-mesh ({m})": q3_mesh[m]["sort_checks"] for m in q3_mesh},
@@ -2848,7 +2992,10 @@ def main(argv=None) -> int:
              **{f"probe class ({m})": fused["probe class"][m]["launches"]
                 for m in ("on", "off")},
              **{f"{name} (run {i})": launches for name, r in gen.items()
-                for i, launches in enumerate(r["launches_per_run"])}}
+                for i, launches in enumerate(r["launches_per_run"])},
+             **{f"{name} ({mode}, run {i})": run["launches"] for name, r in bridge.items()
+                for mode in r if mode not in ("host_bytes", "profile")
+                for i, run in enumerate(r[mode]["runs"])}}
     kernels = []
     for name, source, replaces in (
         ("bitonic_sort", "auron_tpu_torch/csrc/bitonic.cu", "auron_tpu/ops/bitonic.py:145"),
@@ -2877,9 +3024,9 @@ def main(argv=None) -> int:
                    "q3_mesh": q3_mesh, "gate": gate, "q72_mesh": q72_mesh, "skew": skew,
                    "tail": tail, "window": window, "spill": spill, "q33": q33,
                    "join_tail_sweep": sweep, "predictor_ab": ab, "decimal": decimal,
-                   "fusion": fused, "generate": gen, "phase_s": phase_s,
+                   "fusion": fused, "generate": gen, "bridge": bridge, "phase_s": phase_s,
                    "kernels": kernels}, f, indent=1)
-    phase_done("17")
+    phase_done("18")
     report_graph_cache()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

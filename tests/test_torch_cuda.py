@@ -976,6 +976,25 @@ def _function_names():
 
 
 @pytest.mark.cuda
+def test_bloom_filter_defaults_to_the_card():
+    """Without a device a new or read filter lands on the card and answers
+    as the same filter on the CPU (exact)."""
+    from auron_tpu_torch.ops.bloom import SparkBloomFilter
+
+    _need_card()
+    items = torch.from_numpy(np.random.default_rng(5).integers(-2**40, 2**40, 2000))
+    card = SparkBloomFilter.create(2000, 0.03)
+    cpu = SparkBloomFilter.create(2000, 0.03, device="cpu")
+    assert card.words.device.type == "cuda"
+    card.put_long(items.cuda())
+    cpu.put_long(items)
+    assert card.serialize() == cpu.serialize()
+    back = SparkBloomFilter.deserialize(cpu.serialize())
+    assert back.words.device.type == "cuda"
+    assert torch.equal(back.might_contain_long(items.cuda()).cpu(), cpu.might_contain_long(items))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", _function_names())
 def test_registry_function_on_card_equals_cpu(name):
     """Every ported scalar function once on the card (its device kernel or
@@ -989,7 +1008,7 @@ def test_registry_function_on_card_equals_cpu(name):
     from auron_tpu_torch.ops.bloom import SparkBloomFilter
 
     _need_card()
-    bf = SparkBloomFilter.create(200, 0.05)
+    bf = SparkBloomFilter.create(200, 0.05, device="cpu")
     bf.put_long(torch.from_numpy(C.bloom_values()))
     frame = C.host_frame()
     cpu, card = C.port_batch(frame, "cpu"), C.port_batch(frame, "cuda")
@@ -1084,3 +1103,157 @@ def test_hash_batch_xxhash64_on_card_equals_cpu():
         hash_batch(C.port_batch({**frame, "s": (["x" * (i % 97) for i in range(C.N)],
                                                 frame["s"][1])}, "cpu"),
                    [C.COL["s"]], "xxhash64").numpy())
+
+
+# ---------------------------------------------------------------------------
+# the host boundary on the card (no pyarrow: the port's own producer)
+# ---------------------------------------------------------------------------
+
+
+def _boundary_columns(n: int = 1024, seed: int = 5) -> dict:
+    """name -> (type, host column, validity): one per type of the port's
+    Arrow format list, made by the port's producer (``HostBatch.from_numpy``
+    and raw ``HostArray``s for the unsigned and dictionary formats)."""
+    import decimal
+
+    from auron_tpu_torch import types as PT
+
+    rng = np.random.default_rng(seed)
+    valid = rng.random(n) > 0.2
+    dec = rng.integers(-10**12, 10**12, n)
+    return {
+        "i8": (PT.INT8, rng.integers(-128, 127, n).astype(np.int8), valid),
+        "i16": (PT.INT16, rng.integers(-2**15, 2**15, n).astype(np.int16), valid),
+        "i32": (PT.INT32, rng.integers(-2**31, 2**31, n).astype(np.int32), None),
+        "i64": (PT.INT64, rng.integers(-2**62, 2**62, n), valid),
+        "f32": (PT.FLOAT32, rng.normal(size=n).astype(np.float32), valid),
+        "f64": (PT.FLOAT64, rng.normal(size=n), None),
+        "b": (PT.BOOL, rng.random(n) < 0.5, valid),
+        "d": (PT.DATE32, rng.integers(-10**5, 10**5, n).astype(np.int32), valid),
+        "ts": (PT.TIMESTAMP, rng.integers(-10**15, 10**15, n), valid),
+        "dec64": (PT.decimal(18, 2), dec, valid),
+        "dec128": (PT.decimal(38, 4), np.array([decimal.Decimal(int(x) * 10**15).scaleb(-4)
+                                                for x in dec], dtype=object), valid),
+        "s": (PT.STRING, np.array([f"v{x % 13}é" for x in dec], dtype=object), valid),
+        "bin": (PT.BINARY, np.array([bytes([x % 7]) for x in dec], dtype=object), None),
+        "lst": (PT.DataType(PT.TypeKind.LIST, inner=(PT.INT64,)),
+                [[int(y) for y in range(x % 4)] for x in dec], valid),
+        "nul": (PT.NULL, np.zeros(n, np.int8), np.zeros(n, bool)),
+    }
+
+
+def _boundary_batch(name: str):
+    from auron_tpu_torch import types as PT
+    from auron_tpu_torch.columnar import arrow_c
+
+    dtype, col, valid = _boundary_columns()[name]
+    schema = PT.Schema((PT.Field(name, dtype),))
+    return arrow_c.HostBatch.from_numpy([col], schema, [valid])
+
+
+def _extra_formats():
+    """Unsigned and dictionary-encoded arrays (formats the port reads but does
+    not write), built as raw host arrays."""
+    from auron_tpu_torch import types as PT
+    from auron_tpu_torch.columnar import arrow_c
+
+    n = 1024
+    rng = np.random.default_rng(6)
+    out = {}
+    for fmt, npdt, dtype in (("C", np.uint8, PT.INT16), ("S", np.uint16, PT.INT32),
+                             ("I", np.uint32, PT.INT64), ("L", np.uint64, PT.INT64)):
+        vals = rng.integers(0, np.iinfo(npdt).max // 2, n).astype(npdt)
+        arr = arrow_c.HostArray(fmt, dtype, n, 0, 0, (None, vals.view(np.uint8)))
+        out[fmt] = arrow_c.HostBatch(PT.Schema((PT.Field(fmt, dtype),)), n, (arr,))
+    codes = rng.integers(0, 3, n).astype(np.int8)
+    valid = rng.random(n) > 0.3
+    arr = arrow_c.HostArray("c", PT.STRING, n, int((~valid).sum()), 0,
+                            (np.packbits(valid, bitorder="little"), codes.view(np.uint8)), (),
+                            arrow_c.array_from_pylist(["x", "yy", "zzz"], PT.STRING))
+    out["dict"] = arrow_c.HostBatch(PT.Schema((PT.Field("dict", PT.STRING),)), n, (arr,))
+    return out
+
+
+_BOUNDARY = ["i8", "i16", "i32", "i64", "f32", "f64", "b", "d", "ts", "dec64", "dec128", "s",
+             "bin", "lst", "nul", "C", "S", "I", "L", "dict"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _BOUNDARY)
+def test_host_arrow_ingest_on_card_equals_cpu(name):
+    """The port's C stream producer, its importer, then a ``cuda`` batch:
+    equal to the CPU ingest of the same imported arrays (values, validity,
+    selection, vocabularies), whole, sliced at an odd offset, with the
+    zero-copy key on and off; ``to_host_arrow`` from the card gives the rows
+    back."""
+    _need_card()
+    from auron_tpu_torch.columnar import arrow_c
+    from auron_tpu_torch.columnar.batch import Batch
+    from auron_tpu_torch.utils.config import Configuration
+
+    extra = name in ("C", "S", "I", "L", "dict")
+    hb = _extra_formats()[name] if extra else _boundary_batch(name)
+    for part in (hb, hb.slice(13, 700)):
+        (imported,) = list(arrow_c.stream_of([part]))
+        cpu = Batch.from_host_arrow(imported, device="cpu")
+        for zc in ("on", "off"):
+            card = Batch.from_host_arrow(imported, device="cuda",
+                                         conf=Configuration({"exec.scan.zerocopy": zc}))
+            assert card.torch_device.type == "cuda"
+            assert torch.equal(card.device.sel.cpu(), cpu.device.sel)
+            assert torch.equal(card.device.validity[0].cpu(), cpu.device.validity[0])
+            assert torch.equal(card.device.values[0].cpu(), cpu.device.values[0])
+            assert (card.dicts[0] is None) == (cpu.dicts[0] is None)
+            if cpu.dicts[0] is not None:
+                assert list(card.dicts[0]) == list(cpu.dicts[0])
+            assert card.to_host_arrow().to_pydict() == cpu.to_host_arrow().to_pydict()
+        if not extra:  # the others come back in the port's canonical formats
+            assert cpu.to_host_arrow().to_pydict() == part.to_pydict()
+
+
+@pytest.mark.cuda
+def test_ffi_reader_of_a_cuda_task_refuses_cpu_batches():
+    _need_card()
+    from auron_tpu_torch import types as PT
+    from auron_tpu_torch.columnar.batch import Batch
+    from auron_tpu_torch.exec.base import ExecutionContext
+    from auron_tpu_torch.exec.scan import FFIReaderExec
+
+    schema = PT.Schema((PT.Field("x", PT.INT64),))
+    b = Batch.from_numpy([np.arange(5)], schema, device="cpu")
+    op = FFIReaderExec(schema, "src")
+    ctx = ExecutionContext(device="cuda", resources={"src": [b]})
+    with pytest.raises(RuntimeError, match="yielded a batch on cpu"):
+        list(op.execute(0, ctx))
+
+
+@pytest.mark.cuda
+def test_bridge_queries_on_card_equal_their_oracles():
+    """q42 and q93 through the host boundary on cuda (C streams in, IPC
+    blocks and C arrays out) equal their numpy oracles; q93's map tasks
+    launch K1 as the device runner's do; the zero-copy key moves planes
+    between the two counters and nothing else."""
+    _need_card()
+    from auron_tpu_torch.models import tpcds
+
+    data = tpcds.generate(0.05, 42)
+    # 144,000 fact rows in batches of 65,536: two full, one padded
+    host42, host93 = tpcds.host_q42(data, batch_rows=1 << 16), tpcds.host_q93(data, 4)
+    for zc, zero_copy in (("on", 18), ("off", 0)):
+        st: dict = {}
+        got = tpcds.run_q42_bridge(device="cuda", conf={"exec.scan.zerocopy": zc},
+                                   host=host42, stats=st)
+        want = tpcds.q42_class_oracle(data)
+        np.testing.assert_array_equal(got["brand"], want["brand"])
+        np.testing.assert_allclose(got["rev"], want["rev"], rtol=1e-9, atol=0)
+        # 3 x 5 fact planes and 5 item planes; with the key on every one
+        # but the item's two strings (encoded on the host) is a view
+        assert st["zerocopy_planes"] + st["copied_planes"] == 20
+        assert st["zerocopy_planes"] == zero_copy
+    before = pk.LAUNCHES["murmur3_pmod"]
+    got = tpcds.run_q93_bridge(device="cuda", host=host93)
+    assert pk.LAUNCHES["murmur3_pmod"] - before == 4
+    want = tpcds.q93_class_oracle(data)
+    np.testing.assert_array_equal(got["rows"], want["rows"])
+    np.testing.assert_array_equal(got["matched"], want["matched"])
+    np.testing.assert_allclose(got["s"], want["s"], rtol=1e-9, atol=0)

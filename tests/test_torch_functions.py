@@ -303,7 +303,7 @@ def test_bloom_filter_bytes_read_both_ways():
     probes = np.concatenate([items[:500], rng.integers(-(2**50), 2**50, 4000, dtype=np.int64)])
     jb = JBloom.create(3000, 0.03)
     jb.put_long(jnp.asarray(items))
-    pb = PBloom.create(3000, 0.03)
+    pb = PBloom.create(3000, 0.03, device="cpu")
     pb.put_long(torch.from_numpy(items))
     assert (pb.num_bits, pb.num_hashes) == (jb.num_bits, jb.num_hashes)
     # the same bytes from either package
@@ -311,19 +311,38 @@ def test_bloom_filter_bytes_read_both_ways():
     want = np.asarray(jb.might_contain_long(jnp.asarray(probes)))
     assert want[:500].all()  # no false negatives
     # the reference's bytes read by the port, the port's read by the reference
-    got = PBloom.deserialize(jb.serialize()).might_contain_long(torch.from_numpy(probes))
+    got = PBloom.deserialize(jb.serialize(), device="cpu").might_contain_long(torch.from_numpy(probes))
     np.testing.assert_array_equal(got.numpy(), want)
     back = JBloom.deserialize(pb.serialize()).might_contain_long(jnp.asarray(probes))
     np.testing.assert_array_equal(np.asarray(back), want)
 
 
+def test_bloom_filter_defaults_to_the_card():
+    """Without a device a new or read filter goes to the card: on a box
+    without one it raises as ``resolve_device`` does; ``device="cpu"`` is
+    the caller's explicit choice. With a card present the default is held
+    in ``tests/test_torch_cuda.py``."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-card contract is exercised elsewhere")
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        PBloom.create(1000, 0.03)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        PBloom(4096, 3)
+    cpu = PBloom.create(1000, 0.03, device="cpu")
+    assert cpu.words.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        PBloom.deserialize(cpu.serialize())
+    back = PBloom.deserialize(cpu.serialize(), device="cpu")
+    assert back.serialize() == cpu.serialize()
+
+
 def test_bloom_put_skips_invalid_rows_and_merges():
     items = torch.arange(0, 1000, dtype=torch.int64) * 7919
     valid = torch.arange(1000) % 3 != 0
-    a = PBloom(4096, 3)
+    a = PBloom(4096, 3, device="cpu")
     a.put_long(items, valid)
     hit = a.might_contain_long(items)
     assert hit[valid].all()
-    b = PBloom(4096, 3)
+    b = PBloom(4096, 3, device="cpu")
     b.put_long(items[~valid])
     assert a.merge(b).might_contain_long(items).all()
