@@ -8,15 +8,18 @@ with the sort network hand-written in CUDA C++ for ``sm_90a``
 Layout mirrors ``auron_tpu``: ``types`` -> ``columnar/`` -> ``exprs/`` ->
 ``ops/`` (word helpers, hashing, sort keys, the bitonic kernels,
 segmentation) -> ``exec/`` (scan, project, filter, limit, broadcast hash
-join, hash aggregate, sort) -> ``plan/`` + ``runtime/`` + ``bridge/`` ->
-``models/`` (TPC-DS-class data and the q42-class pipeline).
+join, hash aggregate, sort) -> ``proto/`` + ``plan/`` + ``runtime/`` +
+``bridge/`` (with the C ABI in ``csrc/``) -> ``convert/`` -> ``models/``
+(TPC-DS-class data and pipelines).
 
 Rules of the package:
 
-- it imports ``torch`` and ``numpy``; never ``jax`` and nothing of
-  ``auron_tpu`` (what it needs from there is copied, with a pointer);
-- ``pyarrow``, ``pandas`` and ``google.protobuf`` are imported only inside
-  the functions that need them (Arrow/pandas interop, proto decoding);
+- it imports ``torch`` and ``numpy``; never ``jax``, nothing of
+  ``auron_tpu`` (what it needs from there is copied, with a pointer) and
+  never ``google.protobuf`` (plan messages come from its own proto3 codec,
+  ``proto/``);
+- ``pyarrow`` and ``pandas`` are imported only inside the functions that
+  need them (Arrow/pandas interop);
 - every entry point takes an explicit ``device`` defaulting to ``"cuda"``;
   asking for CUDA without a card raises — nothing falls back to the CPU.
 """

@@ -1,41 +1,57 @@
 """Host-engine bridge: the task entry points + resource map (port of the
 Python entries of ``auron_tpu/bridge/api.py``).
 
-``call_native`` starts a task from serialized ``TaskDefinition`` bytes (the
-same bytes the JAX package's builders produce) or from an exec tree (a host
-without protobuf, as the machine with the card) and returns a handle;
-``next_batch`` pulls the next device ``Batch``; ``finalize_native`` ends
-the task and returns its metric tree. ``init_memory`` sets the process's
-device-memory budget at session setup (``MemManager.init``); every task
-unregisters its memory consumers on every path out (``runtime/task.py``).
+``call_native`` starts a task from serialized ``TaskDefinition`` bytes
+(decoded by the port's own proto3 codec, ``auron_tpu_torch.proto``: the
+same bytes the reference's builders and ``plan/builders.py`` produce) or
+from an exec tree, and returns a handle; ``next_batch`` pulls the next
+device ``Batch``; ``finalize_native`` ends the task and returns its metric
+tree. ``init_memory`` sets the process's device-memory budget at session
+setup (``MemManager.init``); every task unregisters its memory consumers on
+every path out (``runtime/task.py``).
 
-The C ABI's functions (``native/auron_bridge.h``) cross the boundary as
-Arrow, without pyarrow (``columnar/arrow_c.py``, ``columnar/arrow_ipc.py``):
+The C ABI (``csrc/auron_bridge.h``, built by ``ops/cuda_build.py``) calls
+the functions below; batches cross it as Arrow, without pyarrow
+(``columnar/arrow_c.py``, ``columnar/arrow_ipc.py``):
 
+- ``call_native_c`` (``auron_call_native``): a task from bytes on the
+  device ``init_c_abi`` chose when the bridge started: ``cuda``, or the
+  CPU when the host set ``AURON_TORCH_DEVICE=cpu`` (a CUDA task raises
+  without a card; nothing falls back);
 - ``put_resource_ipc`` (``auron_put_resource``): an Arrow IPC stream,
   registered as a list of host batches for an ``ffi_reader``;
+- ``put_resource`` (``auron_put_resource_bytes``): opaque bytes;
 - ``put_resource_c_stream`` (``auron_put_resource_arrow``): an
   ``ArrowArrayStream*``, imported by pointer (no serialization, no copy)
   as a one-shot reader;
+- ``put_resource_shuffle`` (``auron_put_resource_shuffle``): a JSON
+  manifest of committed map outputs, registered as a reduce-side block
+  provider (``convert/stages.provider_from_manifest``);
 - ``next_batch_c`` (``auron_next_batch_arrow``): the next batch exported
   into host-allocated ``ArrowArray*`` / ``ArrowSchema*`` structs;
 - ``next_batch_ipc`` (``auron_next_batch``): the next batch as IPC bytes;
-- ``finalize_native_json``, ``set_metrics_sink`` and ``on_exit``.
+- ``finalize_native_json``, ``remove_resource``, ``set_metrics_sink`` and
+  ``on_exit``.
 
-Not ported yet: ``put_resource_shuffle`` and ``convert_plan_json`` (they
-need ``convert/``, ROADMAP Queue 1 items 5 and 6), ``install_udf_callback``
-(``bridge/udf.py``, item 6), and the C ABI's own build for the port.
+``convert_plan_json`` (the host-plan converters of ``convert/``) and
+``install_udf_callback`` (``bridge/udf.py``) raise ``NotImplementedError``
+naming their ROADMAP item; the C bridge relays it through
+``auron_last_error``.
 """
 
 from __future__ import annotations
 
 import itertools
 import json
+import os
 import threading
 from typing import Any
 
+import torch
+
 from auron_tpu_torch.columnar import arrow_c, arrow_ipc
 from auron_tpu_torch.columnar.batch import Batch
+from auron_tpu_torch.device import resolve_device
 from auron_tpu_torch.memory.memmgr import MemManager
 from auron_tpu_torch.runtime.task import TaskRuntime
 from auron_tpu_torch.utils.config import Configuration, conf_scope
@@ -79,9 +95,31 @@ def put_resource_c_stream(key: str, stream_ptr: int) -> None:
     put_resource(key, arrow_c.import_stream(int(stream_ptr)))
 
 
+def put_resource_shuffle(key: str, manifest: bytes) -> None:
+    """C-ABI shuffle-fetch entry: the payload is a JSON manifest of committed
+    map outputs (``[{"data": path, "index": path}, ...]``); it registers as
+    the block provider a reduce task's ``ipc_reader`` with this key reads."""
+    from auron_tpu_torch.convert.stages import provider_from_manifest
+
+    put_resource(key, provider_from_manifest(manifest))
+
+
 def remove_resource(key: str) -> None:
     with _lock:
         _resources.pop(key, None)
+
+
+def convert_plan_json(payload: bytes) -> bytes:
+    """C-ABI conversion entry (``auron_convert_plan``): not ported yet."""
+    raise NotImplementedError("convert_plan_json needs the host-plan converters of convert/ "
+                              "(hostplan, strategy, exprs, converters, service), not ported "
+                              "yet: ROADMAP Queue 1 item 6")
+
+
+def install_udf_callback(fn_ptr: int) -> None:
+    """C-ABI host-UDF entry (``auron_register_udf_callback``): not ported yet."""
+    raise NotImplementedError("host UDF callbacks need bridge/udf.py, not ported yet: "
+                              "ROADMAP Queue 1 item 6")
 
 
 # ---- task entry points ----
@@ -116,10 +154,37 @@ def call_native(task, extra_resources: dict | None = None, device: str = "cuda",
     return h
 
 
+#: the device of the tasks the C ABI starts; set by ``init_c_abi``
+_c_device = "cuda"
+
+
+def init_c_abi() -> None:
+    """The C bridge's init (``csrc/auron_bridge.cpp``): its tasks run on
+    ``cuda`` unless the host process asks for the CPU with
+    ``AURON_TORCH_DEVICE=cpu``. On ``cuda`` the card's context is made now
+    (the host's start-up, not its first task), and without a card this
+    raises, so every C call then fails with that error."""
+    global _c_device
+    device = os.environ.get("AURON_TORCH_DEVICE", "cuda")
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"AURON_TORCH_DEVICE must be cuda or cpu, not {device!r}")
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.empty(1, device=dev)
+    _c_device = device
+
+
+def call_native_c(task_bytes: bytes) -> int:
+    """C-ABI task entry (``auron_call_native``): ``call_native`` of the bytes
+    on the device ``init_c_abi`` chose."""
+    return call_native(bytes(task_bytes), device=_c_device)
+
+
 class _NativeTask:
     def __init__(self, task, extra_resources: dict | None, device: str):
         self._args = (task, extra_resources, device)
         self.handle: int | None = None
+        self.metrics: dict | None = None  # the finalized task's metric tree
 
     def __enter__(self) -> int:
         self.handle = call_native(*self._args)
@@ -129,7 +194,7 @@ class _NativeTask:
         if self.handle is None:
             return False
         if exc_type is None:
-            finalize_native(self.handle)
+            self.metrics = finalize_native(self.handle)
         else:
             try:
                 finalize_native(self.handle)
@@ -140,7 +205,7 @@ class _NativeTask:
 
 def native_task(task, extra_resources: dict | None = None, device: str = "cuda"):
     """Context manager: ``call_native`` on entry, ``finalize_native`` on
-    every exit."""
+    every exit; after a clean exit its ``metrics`` hold the metric tree."""
     return _NativeTask(task, extra_resources, device)
 
 
@@ -196,8 +261,15 @@ def finalize_native(handle: int) -> dict:
 
 
 def finalize_native_json(handle: int) -> bytes:
-    """C-ABI variant: the metric tree serialized as JSON bytes."""
-    return json.dumps(finalize_native(handle)).encode("utf-8")
+    """C-ABI variant: the metric tree serialized as JSON bytes, with the
+    process's kernel launches so far (``"kernel_launches"``: the
+    ``LAUNCHES`` counts of ``ops/bitonic.py`` and ``ops/partition_kernels.py``;
+    a host process that runs one task reads that task's)."""
+    from auron_tpu_torch.ops import bitonic, partition_kernels
+
+    snap = finalize_native(handle)
+    snap["kernel_launches"] = {**bitonic.LAUNCHES, **partition_kernels.LAUNCHES}
+    return json.dumps(snap).encode("utf-8")
 
 
 def on_exit() -> None:

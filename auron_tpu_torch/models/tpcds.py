@@ -7,10 +7,16 @@
   pandas);
 - ``to_batches``: per-partition device batch lists (``1 << 20`` rows per
   batch by default, as in the JAX package);
-- ``q42_exec_tree``: the operator tree ``planner.task_from_proto`` builds
-  for the q42-class plan after column pruning, built without protobuf;
+- ``q42_plan``, ``q93_map_plan``/``q93_reduce_plan`` and
+  ``q3_map_plan``/``q3_reduce_plan``: the reference's plans of those
+  classes, made by the port's builders (``plan/builders.py``); each
+  ``*_tree`` of them is the planner's tree of its plan
+  (``planner.tree_from_plan``: elision, pruning, planning);
 - ``run_q42_class``: star join + group-by + ORDER BY revenue DESC LIMIT 10
-  (TakeOrdered), through the task runtime;
+  (TakeOrdered), started from ``TaskDefinition`` bytes through
+  ``bridge.api.call_native``, as every task of ``run_q93_class`` and
+  ``run_q3_class`` is; ``run_q42_c_abi`` and ``run_q93_c_abi`` run the
+  same plans from a C host through the port's C ABI (``csrc/``);
 - ``q42_class_oracle``: the same answer in plain numpy;
 - ``run_q93_class``: the null-skew left join across a file hash shuffle on
   one nullable int64 key (the partition-id kernel K1's main user), and
@@ -79,8 +85,11 @@ import numpy as np
 
 from auron_tpu_torch import types as T
 from auron_tpu_torch.columnar.batch import Batch
-from auron_tpu_torch.exprs.ir import BinaryOp, Case, Cast, In, Like, Literal, col, lit
+from auron_tpu_torch.exec.base import ExecOperator
+from auron_tpu_torch.exprs.ir import BinaryOp, Case, Cast, If, In, IsNull, Like, Literal, col, lit
 from auron_tpu_torch.ops.sortkeys import SortSpec
+from auron_tpu_torch.plan import builders as B
+from auron_tpu_torch.plan.planner import tree_from_plan
 from auron_tpu_torch.utils.config import Configuration, conf_scope
 
 
@@ -191,39 +200,30 @@ def to_batches(table: Table, n_partitions: int, batch_rows: int = 1 << 20,
 # ---------------------------------------------------------------------------
 
 
-def _resource_scan(schema: T.Schema, rid: str):
-    from auron_tpu_torch.exec.basic import ResourceScanExec
+#: the leaf builders of the plans below, from (schema, resource id): device
+#: batches (``memory_scan``) or host Arrow batches (``ffi_reader``)
+_resource_scan = B.memory_scan
+_ffi_reader = B.ffi_reader
 
-    return ResourceScanExec(schema, rid)
 
-
-def _ffi_reader(schema: T.Schema, rid: str):
-    from auron_tpu_torch.exec.scan import FFIReaderExec
-
-    return FFIReaderExec(schema, rid)
+def q42_plan(scan=_resource_scan):
+    """SELECT i_brand_id brand, sum(ss_ext_sales_price) rev FROM store_sales
+    JOIN item ON ss_item_sk = i_item_sk GROUP BY brand ORDER BY rev DESC,
+    brand LIMIT 10: the reference's plan (``auron_tpu/models/tpcds.py``
+    ``run_q42_class``). ``scan`` builds the leaves."""
+    fact = scan(STORE_SALES_SCHEMA, "q42_fact")
+    item = scan(ITEM_SCHEMA, "q42_item")
+    j = B.hash_join(fact, item, [col(1)], [col(0)], "inner", build_side="right")
+    pr = B.project(j, [(col(6), "brand"), (col(4), "p")])
+    p = B.hash_agg(pr, [(col(0), "brand")], [("sum", col(1), "rev")], "partial")
+    f = B.hash_agg(p, [(col(0), "brand")], [("sum", col(1), "rev")], "final")
+    return B.sort(f, [(col(1), SortSpec(asc=False)), (col(0), SortSpec())], fetch=10)
 
 
 def q42_exec_tree(scan=_resource_scan):
-    """SELECT i_brand_id brand, sum(ss_ext_sales_price) rev FROM store_sales
-    JOIN item ON ss_item_sk = i_item_sk GROUP BY brand ORDER BY rev DESC,
-    brand LIMIT 10 — the tree the planner builds from the q42-class plan
-    proto after column pruning (join projection [price, brand]). ``scan``
-    builds the leaves from (schema, resource id): ``memory_scan`` leaves, or
-    ``ffi_reader`` ones (``_ffi_reader``) for host Arrow inputs."""
-    from auron_tpu_torch.exec.agg_exec import AggExpr, HashAggExec
-    from auron_tpu_torch.exec.basic import ProjectExec
-    from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
-    from auron_tpu_torch.exec.sort_exec import SortExec
-
-    fact = scan(STORE_SALES_SCHEMA, "q42_fact")
-    item = scan(ITEM_SCHEMA, "q42_item")
-    j = BroadcastHashJoinExec(fact, item, [col(1)], [col(0)], "inner",
-                              build_side="right", projection=[4, 6])
-    pr = ProjectExec(j, [col(1), col(0)], ["brand", "p"])
-    agg = [(AggExpr("sum", col(1)), "rev")]
-    p = HashAggExec(pr, [(col(0), "brand")], agg, "partial")
-    f = HashAggExec(p, [(col(0), "brand")], agg, "final")
-    return SortExec(f, [col(1), col(0)], [SortSpec(asc=False), SortSpec()], fetch=10)
+    """The planner's tree of ``q42_plan(scan)`` (the join's projection keeps
+    [price, brand])."""
+    return tree_from_plan(q42_plan(scan))
 
 
 def ingest_q42(data: TpcdsData, device="cuda", batch_rows: int = 1 << 20) -> dict:
@@ -255,21 +255,31 @@ def collect(batches: list[Batch], nulls: bool = False) -> dict[str, np.ndarray]:
 
 def run_q42_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
                   ingested: dict | None = None, stats: dict | None = None) -> dict[str, np.ndarray]:
-    """The q42-class query through the task runtime; returns {brand, rev}.
-    ``stats`` gets the metric tree's host timers (``add_timers``)."""
-    from auron_tpu_torch.runtime.task import TaskRuntime
-
+    """The q42-class query, started from its ``TaskDefinition`` bytes through
+    ``bridge.api.call_native``; returns {brand, rev}. ``stats`` gets the
+    metric tree's host timers (``add_timers``), ``task_bytes``,
+    ``decode_s`` and ``plan_s``."""
     if ingested is None:
         ingested = ingest_q42(data, device)
-    rt = TaskRuntime(q42_exec_tree(), resources=dict(ingested),
-                     conf=Configuration(conf or {}), device=device)
-    try:
-        out = collect(list(rt))
-    finally:
-        snapshot = rt.finalize()
+    out, snapshot = run_task_bytes(B.task(q42_plan(), conf=conf).SerializeToString(),
+                                   dict(ingested), device)
     if stats is not None:
         add_timers(stats, snapshot)
+    out = collect(out)
     return {"brand": out["brand"], "rev": out["rev"]}
+
+
+def run_task_bytes(task: bytes, resources: dict, device) -> tuple[list[Batch], dict]:
+    """One task from serialized ``TaskDefinition`` bytes through
+    ``bridge.api.call_native`` (``resources`` overlay the bridge's map for
+    this task), drained: (output batches, metric snapshot, whose ``"task"``
+    holds the bytes, decode and planning seconds)."""
+    from auron_tpu_torch.bridge import api
+
+    run = api.native_task(task, resources, device)
+    with run as h:
+        out = list(iter(lambda: api.next_batch(h), None))
+    return out, run.metrics
 
 
 def q42_class_oracle(data: TpcdsData) -> dict[str, np.ndarray]:
@@ -303,24 +313,36 @@ def _shuffle_stage(plan, out_schema: T.Schema, key_cols: list[int], n_map: int, 
                    conf: Configuration | None = None, device="cuda", stats: dict | None = None):
     """Run ``plan`` as ``n_map`` map tasks hash-shuffled on ``key_cols``
     into files under ``work``; registers the exchange's block provider as
-    ``resources[rid]`` and returns the reduce side's reader node."""
+    ``resources[rid]`` and returns the reduce side's reader. A plan proto's
+    tasks start from ``TaskDefinition`` bytes (``run_task_bytes``) and its
+    reader is an ``ipc_reader`` node; an exec tree's (the classes not moved
+    to the plan IR yet) run through ``run_task`` and its reader is an
+    ``IpcReaderExec``."""
     from auron_tpu_torch.exec.shuffle.partitioning import HashPartitioning
     from auron_tpu_torch.exec.shuffle.reader import IpcReaderExec, MultiMapBlockProvider
     from auron_tpu_torch.exec.shuffle.writer import ShuffleWriterExec
     from auron_tpu_torch.runtime.task import run_task
 
-    part = HashPartitioning([col(c) for c in key_cols], n_reduce)
     pairs = []
     for p in range(n_map):
         d, i = os.path.join(work, f"{rid}_m{p}.data"), os.path.join(work, f"{rid}_m{p}.index")
-        _, metrics = run_task(ShuffleWriterExec(plan, part, d, i), resources, stage_id, p,
-                              conf, device)
+        if isinstance(plan, ExecOperator):
+            part = HashPartitioning([col(c) for c in key_cols], n_reduce)
+            _, metrics = run_task(ShuffleWriterExec(plan, part, d, i), resources, stage_id, p,
+                                  conf, device)
+        else:
+            w = B.shuffle_writer(plan, B.hash_partitioning([col(c) for c in key_cols], n_reduce),
+                                 d, i)
+            task = B.task(w, stage_id, p, dict((conf or Configuration()).items()))
+            _, metrics = run_task_bytes(task.SerializeToString(), resources, device)
         if stats is not None:
             stats["shuffle_bytes"] = stats.get("shuffle_bytes", 0) + metrics["values"]["data_size"]
             add_timers(stats, metrics)
         pairs.append((d, i))
     resources[rid] = MultiMapBlockProvider(pairs)
-    return IpcReaderExec(out_schema, rid)
+    if isinstance(plan, ExecOperator):
+        return IpcReaderExec(out_schema, rid)
+    return B.ipc_reader(out_schema, rid)
 
 
 #: operator counters ``add_timers`` also sums: batches folded into a dense
@@ -387,7 +409,11 @@ def add_timers(stats: dict, snapshot: dict) -> None:
     batches, merge-path merges and collision batches). ``stats["fusion"]``
     gets the task's fused segments and the segments left eager by reason
     (plan time), its CUDA-graph captures and replays, and the bytes of
-    the graphs the process-wide cache holds after it (``pool_bytes``)."""
+    the graphs the process-wide cache holds after it (``pool_bytes``). A
+    task started from bytes adds its ``task_bytes``, ``decode_s`` and
+    ``plan_s`` (``runtime/task.py``), summed over the run's tasks."""
+    for k, v in snapshot.get("task", {}).items():
+        stats[k] = stats.get(k, 0) + v
     timers = stats.setdefault("timers", {})
     counters = stats.setdefault("counters", {})
     fusion = stats.setdefault("fusion", {"segments": 0, "eager": {}, "captures": 0,
@@ -417,8 +443,10 @@ def _run_stages(stages: list, reduce_plan_of, resources: dict, n_reduce: int, la
     reduce task per partition over ``reduce_plan_of(*readers)``; returns the
     reduce tasks' outputs as host columns. A stage is a callable taking the
     readers of the stages before it and returning (map plan, output schema,
-    key columns, map tasks, resource id). ``stats`` gets each stage's wall
-    (``stage_s``), their sum ``map_s``, ``reduce_s`` and the shuffle bytes."""
+    key columns, map tasks, resource id); plans are plan protos (each task
+    from ``TaskDefinition`` bytes) or exec trees (``_shuffle_stage``).
+    ``stats`` gets each stage's wall (``stage_s``), their sum ``map_s``,
+    ``reduce_s`` and the shuffle bytes."""
     from auron_tpu_torch.runtime.task import run_task
 
     work = work_dir or tempfile.mkdtemp(prefix=f"auron_{label}_")
@@ -441,8 +469,13 @@ def _run_stages(stages: list, reduce_plan_of, resources: dict, n_reduce: int, la
             reduce_plan = reduce_plan_of(*readers)
             outs = []
             for r in range(n_reduce):
-                batches, metrics = run_task(reduce_plan, resources, len(stages) + 1, r, conf,
-                                            device)
+                if isinstance(reduce_plan, ExecOperator):
+                    batches, metrics = run_task(reduce_plan, resources, len(stages) + 1, r,
+                                                conf, device)
+                else:
+                    task = B.task(reduce_plan, len(stages) + 1, r, dict(conf.items()))
+                    batches, metrics = run_task_bytes(task.SerializeToString(), resources,
+                                                      device)
                 outs.append(collect(batches, nulls))
                 add_timers(stats, metrics)
             _sync(device)
@@ -486,45 +519,54 @@ def ingest_q93(data: TpcdsData, n_map: int, device="cuda", fact=None) -> dict:
             "cust": to_batches(cust, 1, device=device)[0]}
 
 
-def q93_map_tree(scan=_resource_scan):
+def q93_map_plan(scan=_resource_scan):
     """SELECT CASE WHEN ss_quantity < 85 THEN NULL ELSE ss_customer_sk END k,
-    ss_ext_sales_price price FROM store_sales: ~85 % of the keys are NULL."""
-    from auron_tpu_torch.exec.basic import ProjectExec
-    from auron_tpu_torch.exprs.ir import If
-
+    ss_ext_sales_price price FROM store_sales: ~85 % of the keys are NULL.
+    The map side of the reference's plan (``auron_tpu/models/tpcds.py``
+    ``run_q93_class``); ``scan`` builds the leaf."""
     key = If(BinaryOp("lt", col(3), Literal(85, T.INT32)), Literal(None, T.INT64), col(2))
-    return ProjectExec(scan(STORE_SALES_SCHEMA, "q93_fact"), [key, col(4)], ["k", "price"])
+    return B.project(scan(STORE_SALES_SCHEMA, "q93_fact"), [(key, "k"), (col(4), "price")])
+
+
+def q93_reduce_plan(read, scan=_resource_scan):
+    """``read`` (an ipc_reader or mesh_exchange node) LEFT JOIN customer ON
+    k = c_customer_sk, grouped by k IS NULL: count(*) rows,
+    count(c_customer_sk) matched, sum(price) s."""
+    j = B.hash_join(read, scan(CUSTOMER_SCHEMA, "q93_cust"), [col(0)], [col(0)], "left",
+                    build_side="right")
+    p = B.hash_agg(j, [(IsNull(col(0)), "k_null")],
+                   [("count_star", None, "rows"), ("count", col(2), "matched"),
+                    ("sum", col(1), "s")], "partial")
+    return B.hash_agg(p, [(col(0), "k_null")],
+                      [("count_star", None, "rows"), ("count", col(1), "matched"),
+                       ("sum", col(2), "s")], "final")
+
+
+def q93_map_tree(scan=_resource_scan):
+    """The planner's tree of ``q93_map_plan(scan)``."""
+    return tree_from_plan(q93_map_plan(scan))
 
 
 def q93_reduce_tree(read, scan=_resource_scan):
-    """read LEFT JOIN customer ON k = c_customer_sk, grouped by k IS NULL:
-    count(*) rows, count(c_customer_sk) matched, sum(price) s."""
-    from auron_tpu_torch.exec.agg_exec import AggExpr, HashAggExec
-    from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
-    from auron_tpu_torch.exprs.ir import IsNull
-
-    j = BroadcastHashJoinExec(read, scan(CUSTOMER_SCHEMA, "q93_cust"), [col(0)],
-                              [col(0)], "left", build_side="right", projection=[0, 1, 2])
-    p = HashAggExec(j, [(IsNull(col(0)), "k_null")],
-                    [(AggExpr("count_star"), "rows"), (AggExpr("count", col(2)), "matched"),
-                     (AggExpr("sum", col(1)), "s")], "partial")
-    return HashAggExec(p, [(col(0), "k_null")],
-                       [(AggExpr("count_star"), "rows"), (AggExpr("count", col(1)), "matched"),
-                        (AggExpr("sum", col(2)), "s")], "final")
+    """The planner's tree of ``q93_reduce_plan(read, scan)`` (the join keeps
+    k, price and c_customer_sk)."""
+    return tree_from_plan(q93_reduce_plan(read, scan))
 
 
 def run_q93_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 4,
                   work_dir: str | None = None, device="cuda", conf: dict | None = None,
                   ingested: dict | None = None, stats: dict | None = None) -> dict:
-    """The q93-class query in two stages; returns {k_null, rows, matched, s}
-    sorted by k_null. ``stats`` (optional) gets map_s, reduce_s,
-    shuffle_bytes, the NULL keys' partition and rows per reduce partition."""
+    """The q93-class query in two stages, every task from its
+    ``TaskDefinition`` bytes; returns {k_null, rows, matched, s} sorted by
+    k_null. ``stats`` (optional) gets map_s, reduce_s, shuffle_bytes, the
+    NULL keys' partition, rows per reduce partition, and the tasks'
+    ``task_bytes``, ``decode_s`` and ``plan_s``."""
     if ingested is None:
         ingested = ingest_q93(data, n_map, device)
     n_map = len(ingested["fact"])
     resources = {"q93_fact": ingested["fact"], "q93_cust": [ingested["cust"]] * n_reduce}
     stats = stats if stats is not None else {}
-    outs = _run_two_stage(q93_map_tree(), Q93_INTER_SCHEMA, [0], q93_reduce_tree, resources,
+    outs = _run_two_stage(q93_map_plan(), Q93_INTER_SCHEMA, [0], q93_reduce_plan, resources,
                           n_map, n_reduce, "q93_ex0", work_dir, Configuration(conf or {}),
                           device, stats)
     stats["null_partition"] = 42 % n_reduce
@@ -691,7 +733,7 @@ def run_q93_bridge(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int 
     from auron_tpu_torch.columnar.arrow_c import ArrowArray, ArrowSchema, import_batch
     from auron_tpu_torch.columnar.batch import ingest_stats
     from auron_tpu_torch.exec.shuffle.partitioning import HashPartitioning
-    from auron_tpu_torch.exec.shuffle.reader import IpcReaderExec, MultiMapBlockProvider
+    from auron_tpu_torch.exec.shuffle.reader import MultiMapBlockProvider
     from auron_tpu_torch.exec.shuffle.writer import ShuffleWriterExec
 
     host = host if host is not None else host_q93(data, n_map)
@@ -732,7 +774,7 @@ def run_q93_bridge(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int 
             t1 = time.perf_counter()
             keys.append("q93_ex0")
             api.put_resource("q93_ex0", MultiMapBlockProvider(pairs))
-            reduce_tree = q93_reduce_tree(IpcReaderExec(Q93_INTER_SCHEMA, "q93_ex0"), _ffi_reader)
+            reduce_tree = q93_reduce_tree(B.ipc_reader(Q93_INTER_SCHEMA, "q93_ex0"), _ffi_reader)
             for r in range(n_reduce):
                 h = api.call_native(reduce_tree, device=device, conf=conf, stage_id=2,
                                     partition_id=r)
@@ -769,6 +811,158 @@ def run_q93_bridge(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int 
 
 
 # ---------------------------------------------------------------------------
+# the C host: q42 and q93 through the port's C ABI (csrc/auron_bridge.cpp)
+# ---------------------------------------------------------------------------
+
+
+def _c_abi_stats(stats: dict, runs: list) -> None:
+    """Per harness process of a C-host run: its wall, the engine's start
+    inside it, the resource registrations and the task (``processes``), the
+    bytes it took as resources (``resource_bytes``) and the kernel launches
+    it counted (``launches``)."""
+    stats.setdefault("processes", []).extend(
+        {"process_s": r.process_s, "init_s": r.init_s, "resources_s": r.resources_s,
+         "task_s": r.task_s} for r in runs)
+    stats["resource_bytes"] = stats.get("resource_bytes", 0) + sum(r.resource_bytes for r in runs)
+    launches = stats.setdefault("launches", {})
+    for r in runs:
+        for k, v in r.metrics["kernel_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+
+
+def run_q42_c_abi(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                  host: dict | None = None, work_dir: str | None = None,
+                  stats: dict | None = None) -> dict[str, np.ndarray]:
+    """The q42-class query from a C host: ``q42_plan`` over ``ffi_reader``
+    leaves, its ``TaskDefinition`` bytes and its inputs (``host_q42``) as
+    Arrow IPC streams run through ``bridge_harness``, a separate C process
+    that embeds the engine through the port's ``libauron_bridge``; the
+    answer comes back as the harness's IPC batches. Returns {brand, rev}.
+    ``stats`` gets the task's host timers, ``task_bytes``, ``decode_s`` and
+    ``plan_s`` (``add_timers``) and what ``_c_abi_stats`` lists."""
+    from auron_tpu_torch.bridge.host import run_harnesses
+    from auron_tpu_torch.columnar import arrow_ipc
+
+    host = host if host is not None else host_q42(data)
+    task = B.task(q42_plan(_ffi_reader), conf=conf).SerializeToString()
+    resources = {"q42_fact": arrow_ipc.write_stream(host["q42_fact"], STORE_SALES_SCHEMA),
+                 "q42_item": arrow_ipc.write_stream(host["q42_item"], ITEM_SCHEMA)}
+    work = work_dir or tempfile.mkdtemp(prefix="auron_q42_c_abi_")
+    try:
+        (run,) = run_harnesses([(task, resources)], work, device, "q42")
+    finally:
+        if work_dir is None:
+            shutil.rmtree(work, ignore_errors=True)
+    if stats is not None:
+        add_timers(stats, run.metrics)
+        _c_abi_stats(stats, [run])
+    brand, rev = [], []
+    for hb in run.batches:
+        d = hb.to_pydict()
+        brand += d["brand"]
+        rev += d["rev"]
+    return {"brand": np.array(brand, np.int32), "rev": np.array(rev, np.float64)}
+
+
+def run_q93_c_abi(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 4,
+                  device="cuda", conf: dict | None = None, host: dict | None = None,
+                  work_dir: str | None = None, via: str = "process",
+                  stats: dict | None = None) -> dict:
+    """The q93-class query from a C host through the port's C ABI: each map
+    task (``q93_map_plan`` over an ``ffi_reader``, its partition's host
+    batches as an Arrow IPC stream) writes shuffle files; the host commits
+    them (``convert/stages.ShuffleManager``) and each reduce task reads them
+    through a ``shuffle:q93_ex0`` JSON manifest, the customer dimension as
+    IPC. ``via`` "process": every task in its own ``bridge_harness``
+    process, the map tasks at once, then the reduce tasks; "library":
+    ``libauron_bridge`` loaded into this process with ``ctypes``
+    (``bridge/host.CLibrary``), tasks one after another. Returns {k_null,
+    rows, matched, s} as ``run_q93_class``; ``stats`` gets ``map_s``,
+    ``reduce_s`` and what ``_c_abi_stats`` lists (no per-process figures
+    or ``launches`` with ``via="library"``: this process counts them)."""
+    from auron_tpu_torch.bridge.host import CLibrary, run_harnesses
+    from auron_tpu_torch.columnar import arrow_ipc
+    from auron_tpu_torch.convert.stages import ShuffleManager
+
+    host = host if host is not None else host_q93(data, n_map)
+    n_map = len(host["fact"])
+    stats = stats if stats is not None else {}
+    work = work_dir or tempfile.mkdtemp(prefix="auron_q93_c_abi_")
+    os.makedirs(work, exist_ok=True)
+    part = B.hash_partitioning([col(0)], n_reduce)
+    shuffle = ShuffleManager()
+    map_tasks, fact, files = [], [], []
+    for p in range(n_map):
+        files.append((os.path.join(work, f"q93_m{p}.data"),
+                      os.path.join(work, f"q93_m{p}.index")))
+        w = B.shuffle_writer(q93_map_plan(_ffi_reader), part, *files[-1])
+        map_tasks.append(B.task(w, 1, p, conf).SerializeToString())
+        fact.append(arrow_ipc.write_stream(host["fact"][p], STORE_SALES_SCHEMA))
+    cust = arrow_ipc.write_stream(host["cust"], CUSTOMER_SCHEMA)
+    reduce_plan = q93_reduce_plan(B.ipc_reader(Q93_INTER_SCHEMA, "q93_ex0"), _ffi_reader)
+    reduce_tasks = [B.task(reduce_plan, 2, r, conf).SerializeToString() for r in range(n_reduce)]
+    keys: list[str] = []
+    try:
+        t0 = time.perf_counter()
+        if via == "process":
+            runs = run_harnesses([(t, {"q93_fact": f}) for t, f in zip(map_tasks, fact)], work,
+                                 device, "map")
+            maps = [r.metrics for r in runs]
+            t1 = time.perf_counter()
+            for p, (d, i) in enumerate(files):  # the host commits the map outputs
+                shuffle.register_map_output("q93_ex0", p, d, i)
+            manifest = shuffle.manifest("q93_ex0")
+            rruns = run_harnesses([(t, {"shuffle:q93_ex0": manifest, "q93_cust": cust})
+                                   for t in reduce_tasks], work, device, "reduce")
+            answers, reduces = [r.batches for r in rruns], [r.metrics for r in rruns]
+            _c_abi_stats(stats, runs + rruns)
+        elif via == "library":
+            lib = CLibrary(device)
+            for p, f in enumerate(fact):
+                keys.append(f"q93_fact.{p}")
+                lib.put_resource(keys[-1], f)
+            maps = [lib.run(t)[1] for t in map_tasks]
+            t1 = time.perf_counter()
+            for p, (d, i) in enumerate(files):
+                shuffle.register_map_output("q93_ex0", p, d, i)
+            keys += ["q93_ex0", "q93_cust"]
+            lib.put_resource_shuffle("q93_ex0", shuffle.manifest("q93_ex0"))
+            lib.put_resource("q93_cust", cust)
+            answers, reduces = zip(*(lib.run(t) for t in reduce_tasks))
+            for k in keys:
+                lib.remove_resource(k)
+            keys = []
+            stats["resource_bytes"] = stats.get("resource_bytes", 0) + sum(map(len, fact)) + \
+                len(cust) + len(shuffle.manifest("q93_ex0"))
+        else:
+            raise ValueError(f"via must be process or library, not {via!r}")
+        t2 = time.perf_counter()
+    finally:
+        if keys:
+            from auron_tpu_torch.bridge import api
+
+            for k in keys:
+                api.remove_resource(k)
+        if work_dir is None:
+            shutil.rmtree(work, ignore_errors=True)
+    for m in [*maps, *reduces]:
+        add_timers(stats, m)
+    stats["shuffle_bytes"] = sum(m["values"]["data_size"] for m in maps)
+    stats["map_s"], stats["reduce_s"] = t1 - t0, t2 - t1
+    names, dtypes = ["k_null", "rows", "matched", "s"], [bool, np.int64, np.int64, np.float64]
+    outs = []
+    for batches in answers:
+        rows: dict = {n: [] for n in names}
+        for hb in batches:
+            for n, vals in hb.to_pydict().items():
+                rows[n] += vals
+        outs.append({n: np.array(rows[n], dt) for n, dt in zip(names, dtypes)}
+                    if rows["k_null"] else {})
+    stats["partition_rows"] = [int(o["rows"].sum()) if o else 0 for o in outs]
+    return _q93_by_key(outs)
+
+
+# ---------------------------------------------------------------------------
 # q3-class: the flagship join + shuffle + agg + top-k pipeline
 # ---------------------------------------------------------------------------
 
@@ -782,37 +976,48 @@ def ingest_q3(data: TpcdsData, n_map: int, device="cuda", fact=None) -> dict:
             "item": to_batches(data.item, 1, device=device)[0]}
 
 
-def q3_map_tree(moy: int = 11, category_id: int = 1, money: bool = False):
+def q3_map_plan(moy: int = 11, category_id: int = 1, money: bool = False):
     """store_sales JOIN date_dim (d_moy = moy) JOIN item (i_category_id =
-    cat), partial sum(price) by (d_year, i_brand_id): the tree the planner
-    builds from the pruned q3 map plan (the joins' projections keep
-    (ss_item_sk, price, d_year), then (price, d_year, i_brand_id), and the
-    plan's projection reorders them). ``money``: the price is
+    cat), partial sum(price) by (d_year, i_brand_id): the map side of the
+    reference's plan (``auron_tpu/models/tpcds.py`` ``run_q3_class``), the
+    dimension builds cached per executor. ``money``: the price is
     ``Cast(price AS decimal(7,2))``, TPC-DS's type for it."""
-    from auron_tpu_torch.exec.agg_exec import AggExpr, HashAggExec
-    from auron_tpu_torch.exec.basic import FilterExec, ProjectExec, ResourceScanExec
-    from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
+    scan = B.memory_scan(STORE_SALES_SCHEMA, "q3_fact")
+    dscan = B.filter_(B.memory_scan(DATE_DIM_SCHEMA, "q3_dd"), [BinaryOp("eq", col(2), lit(moy))])
+    iscan = B.filter_(B.memory_scan(ITEM_SCHEMA, "q3_item"),
+                      [BinaryOp("eq", col(2), lit(category_id))])
+    j1 = B.hash_join(scan, dscan, [col(0)], [col(0)], "inner", build_side="right",
+                     cached_build_id="q3_dd_build")
+    # fact (5 columns) + date_dim (3): ss_item_sk at 1, price 4, d_year 6
+    j2 = B.hash_join(j1, iscan, [col(1)], [col(0)], "inner", build_side="right",
+                     cached_build_id="q3_it_build")
+    # + item (4): i_brand_id at 9
+    price = Cast(col(4), MONEY) if money else col(4)
+    proj = B.project(j2, [(col(6), "d_year"), (col(9), "i_brand_id"), (price, "price")])
+    return B.hash_agg(proj, [(col(0), "d_year"), (col(1), "i_brand_id")],
+                      [("sum", col(2), "s")], "partial")
 
-    scan = ResourceScanExec(STORE_SALES_SCHEMA, "q3_fact")
-    dscan = FilterExec(ResourceScanExec(DATE_DIM_SCHEMA, "q3_dd"),
-                       [BinaryOp("eq", col(2), lit(moy))])
-    iscan = FilterExec(ResourceScanExec(ITEM_SCHEMA, "q3_item"),
-                       [BinaryOp("eq", col(2), lit(category_id))])
-    j1 = BroadcastHashJoinExec(scan, dscan, [col(0)], [col(0)], "inner", build_side="right",
-                               cached_build_id="q3_dd_build", projection=[1, 4, 6])
-    j2 = BroadcastHashJoinExec(j1, iscan, [col(0)], [col(0)], "inner", build_side="right",
-                               cached_build_id="q3_it_build", projection=[1, 2, 4])
-    price = Cast(col(0), MONEY) if money else col(0)
-    proj = ProjectExec(j2, [col(1), col(2), price], ["d_year", "i_brand_id", "price"])
-    return HashAggExec(proj, [(col(0), "d_year"), (col(1), "i_brand_id")],
-                       [(AggExpr("sum", col(2)), "s")], "partial")
+
+def q3_reduce_plan(read):
+    """The final sum by (d_year, i_brand_id) over ``read`` (an ipc_reader or
+    mesh_exchange node)."""
+    return B.hash_agg(read, [(col(0), "d_year"), (col(1), "i_brand_id")],
+                      [("sum", col(2), "s")], "final")
+
+
+#: the dimension builds ``q3_map_plan``'s joins cache in the bridge's map
+_Q3_BUILDS = ("q3_dd_build", "q3_it_build")
+
+
+def q3_map_tree(moy: int = 11, category_id: int = 1, money: bool = False):
+    """The planner's tree of ``q3_map_plan`` (the joins' projections keep
+    (ss_item_sk, price, d_year), then (price, d_year, i_brand_id))."""
+    return tree_from_plan(q3_map_plan(moy, category_id, money))
 
 
 def q3_reduce_tree(read):
-    from auron_tpu_torch.exec.agg_exec import AggExpr, HashAggExec
-
-    return HashAggExec(read, [(col(0), "d_year"), (col(1), "i_brand_id")],
-                       [(AggExpr("sum", col(2)), "s")], "final")
+    """The planner's tree of ``q3_reduce_plan(read)``."""
+    return tree_from_plan(q3_reduce_plan(read))
 
 
 def _top_k(d_year, brand, s, limit: int) -> dict[str, np.ndarray]:
@@ -844,18 +1049,24 @@ def run_q3_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 
     """SELECT d_year, i_brand_id, sum(ss_ext_sales_price) s FROM store_sales
     JOIN date_dim ON ss_sold_date_sk = d_date_sk JOIN item ON ss_item_sk =
     i_item_sk WHERE d_moy = <moy> AND i_category_id = <cat> GROUP BY d_year,
-    i_brand_id ORDER BY d_year, s DESC LIMIT <k>, in two stages. With
-    ``money`` the price is decimal(7,2) and ``s`` the exact decimal(17,2)
-    sums as int64 cents."""
+    i_brand_id ORDER BY d_year, s DESC LIMIT <k>, in two stages, every task
+    from its ``TaskDefinition`` bytes. With ``money`` the price is
+    decimal(7,2) and ``s`` the exact decimal(17,2) sums as int64 cents."""
+    from auron_tpu_torch.bridge import api
+
     if ingested is None:
         ingested = ingest_q3(data, n_map, device)
     n_map = len(ingested["fact"])
     resources = {"q3_fact": ingested["fact"], "q3_dd": [ingested["dd"]] * n_map,
                  "q3_item": [ingested["item"]] * n_map}
-    partial = q3_map_tree(moy, category_id, money)
-    outs = _run_two_stage(partial, partial.schema, [0, 1], q3_reduce_tree, resources, n_map,
-                          n_reduce, "q3_blocks", work_dir, Configuration(conf or {}), device,
-                          stats)
+    partial = q3_map_plan(moy, category_id, money)
+    try:
+        outs = _run_two_stage(partial, tree_from_plan(partial).schema, [0, 1], q3_reduce_plan,
+                              resources, n_map, n_reduce, "q3_blocks", work_dir,
+                              Configuration(conf or {}), device, stats)
+    finally:
+        for k in _Q3_BUILDS:  # the bridge's map caches them for the run's tasks
+            api.remove_resource(k)
     got = _concat(outs, ["d_year", "i_brand_id", "s"],
                   [np.int32, np.int32, np.int64 if money else np.float64])
     return _top_k(got["d_year"], got["i_brand_id"], got["s"], limit)
@@ -887,25 +1098,18 @@ def q3_class_oracle(data: TpcdsData, moy: int = 11, category_id: int = 1,
 
 
 def q93_mesh_tree(n_parts: int = 4):
-    """q93's map tree -> mesh exchange hashed on k -> q93's reduce tree: the
-    tree ``plan_from_proto(prune_columns(proto))`` builds from the q93 plan
-    with a ``mesh_exchange`` node."""
-    from auron_tpu_torch.exec.shuffle.partitioning import HashPartitioning
-    from auron_tpu_torch.parallel.mesh_driver import MeshExchangeExec
-
-    ex = MeshExchangeExec(q93_map_tree(), HashPartitioning([col(0)], n_parts), "q93_ex0")
-    return q93_reduce_tree(ex)
+    """The planner's tree of the q93 plan with a ``mesh_exchange`` hashed on
+    k between its map and reduce sides."""
+    ex = B.mesh_exchange(q93_map_plan(), B.hash_partitioning([col(0)], n_parts), "q93_ex0")
+    return tree_from_plan(q93_reduce_plan(ex))
 
 
 def q3_mesh_tree(n_parts: int = 4, moy: int = 11, category_id: int = 1):
-    """q3's partial aggregate -> mesh exchange hashed on (d_year,
-    i_brand_id) -> final aggregate."""
-    from auron_tpu_torch.exec.shuffle.partitioning import HashPartitioning
-    from auron_tpu_torch.parallel.mesh_driver import MeshExchangeExec
-
-    ex = MeshExchangeExec(q3_map_tree(moy, category_id),
-                          HashPartitioning([col(0), col(1)], n_parts), "q3_ex0")
-    return q3_reduce_tree(ex)
+    """The planner's tree of q3's partial aggregate -> mesh exchange hashed
+    on (d_year, i_brand_id) -> final aggregate."""
+    ex = B.mesh_exchange(q3_map_plan(moy, category_id),
+                         B.hash_partitioning([col(0), col(1)], n_parts), "q3_ex0")
+    return tree_from_plan(q3_reduce_plan(ex))
 
 
 def q3_collect_tree(schema: T.Schema, limit: int = 100):

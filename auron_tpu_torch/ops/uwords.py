@@ -92,5 +92,6 @@ def u64_numpy(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy().view(np.uint64)
 
 
-def from_u64_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
+def from_u64_numpy(a: np.ndarray, device) -> torch.Tensor:
+    """An int64 carrier of uint64 values on ``device``."""
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint64).view(np.int64)).to(device)

@@ -8,17 +8,19 @@
   join (``optimizer.py:335-394``), which clusters its build side itself and
   probes in any order.
 
-Imports ``plan_pb2`` (and with it google.protobuf) lazily."""
+The rewrites build the port's own plan messages (``auron_tpu_torch.proto``)."""
 
 from __future__ import annotations
+
+from auron_tpu_torch.plan.protowalk import child_nodes
 
 _PASSTHROUGH = ("limit", "coalesce_batches", "debug")
 
 
 def _pb():
-    from auron_tpu_torch.proto import plan_pb2
+    from auron_tpu_torch import proto
 
-    return plan_pb2
+    return proto
 
 
 def prune_columns(plan):
@@ -27,8 +29,8 @@ def prune_columns(plan):
 
 
 def _walk_columns(msg, fn) -> None:
-    pb = _pb()
-    if isinstance(msg, pb.PhysicalExprNode) and msg.WhichOneof("expr") == "column":
+    if msg.DESCRIPTOR.full_name == "auron_tpu.PhysicalExprNode" and \
+            msg.WhichOneof("expr") == "column":
         fn(msg.column)
         return
     for fd, val in msg.ListFields():
@@ -296,22 +298,6 @@ def elide_smj_input_sorts(plan, mode: str = "build"):
     return new
 
 
-def _child_nodes(node):
-    """The direct child plan nodes (``child``, ``left``/``right``, or a
-    union's ``children``), as mutable references."""
-    inner = getattr(node, node.WhichOneof("plan"))
-    if hasattr(inner, "children"):
-        yield from inner.children
-        return
-    for f in ("child", "left", "right"):
-        try:
-            present = inner.HasField(f)
-        except ValueError:
-            continue
-        if present:
-            yield getattr(inner, f)
-
-
 def _elide(node, order_sensitive: bool, full: bool) -> None:
     which = node.WhichOneof("plan")
     sensitive = order_sensitive or which in _ORDER_SENSITIVE
@@ -323,5 +309,5 @@ def _elide(node, order_sensitive: bool, full: bool) -> None:
                 grand = _pb().PhysicalPlanNode()
                 grand.CopyFrom(child.sort.child)
                 getattr(j, side).CopyFrom(grand)
-    for c in _child_nodes(node):
+    for c in child_nodes(node):
         _elide(c, sensitive, full)

@@ -15,8 +15,9 @@ Other variants raise ``NotImplementedError`` naming the variant.
 
 The exec tree is the JAX package's tree with whole-stage fusion off
 (``exec.fuse.enable=off``), which the JAX package guarantees gives
-bit-identical results (plan/fusion.py:1200-1206). ``plan_pb2`` (and with
-it google.protobuf) is imported only by the functions that decode protos.
+bit-identical results (plan/fusion.py:1200-1206). Plan protos are the
+port's own codec's messages (``auron_tpu_torch.proto``); a message of
+another implementation with the same schema reads the same.
 """
 
 from __future__ import annotations
@@ -28,9 +29,10 @@ from auron_tpu_torch.utils.config import Configuration
 
 
 def _pb():
-    from auron_tpu_torch.proto import plan_pb2
+    """The plan IR's message classes (``auron_tpu_torch.proto``)."""
+    from auron_tpu_torch import proto
 
-    return plan_pb2
+    return proto
 
 
 def dtype_from_proto(p) -> T.DataType:
@@ -43,9 +45,28 @@ def dtype_from_proto(p) -> T.DataType:
     return T.DataType(kind, p.precision, p.scale)
 
 
+def dtype_to_proto(t: T.DataType):
+    pb = _pb()
+    p = pb.DataType(kind=pb.DataType.Kind.Value(t.kind.name), precision=t.precision,
+                    scale=t.scale)
+    if t.kind == T.TypeKind.LIST:
+        p.inner.CopyFrom(dtype_to_proto(t.inner[0]))
+    elif t.kind in (T.TypeKind.MAP, T.TypeKind.STRUCT):
+        p.inners.extend(dtype_to_proto(i) for i in t.inner)
+        if t.struct_names:
+            p.struct_names.extend(t.struct_names)
+    return p
+
+
 def schema_from_proto(p) -> T.Schema:
     return T.Schema(tuple(T.Field(f.name, dtype_from_proto(f.dtype), f.nullable)
                           for f in p.fields))
+
+
+def schema_to_proto(s: T.Schema):
+    pb = _pb()
+    return pb.Schema(fields=[pb.Field(name=f.name, dtype=dtype_to_proto(f.dtype),
+                                      nullable=f.nullable) for f in s.fields])
 
 
 def _literal_from_proto(p) -> ir.Literal:
@@ -275,25 +296,58 @@ def plan_from_proto(p):
     raise NotImplementedError(f"plan variant {which} is not in this slice of the port")
 
 
+def tree_from_plan(plan, mode: str = "build"):
+    """The exec tree of a plan proto before fusion: SMJ input sorts elided
+    in ``mode`` (``elide_smj_input_sorts``), columns pruned, operators
+    planned. ``task_from_proto`` fuses it for the task's device."""
+    from auron_tpu_torch.plan.optimizer import elide_smj_input_sorts, prune_columns
+
+    return plan_from_proto(prune_columns(elide_smj_input_sorts(plan, mode=mode)))
+
+
 def task_from_proto(task, device: str = "cuda"):
     """(root exec, stage_id, partition_id, Configuration) of a decoded
-    TaskDefinition. As in auron_tpu, the SMJ input sorts are elided in the
-    mode the task conf's ``auron.smj.elide.sorts`` names (default build),
-    column pruning runs on every task, and whole-stage fusion rewrites the
-    exec tree for the task's ``device`` (``plan/fusion.py``; the protos are
-    untouched)."""
+    TaskDefinition. As in auron_tpu, shuffle-writer path templates are
+    filled from the task (``resolve_shuffle_templates``), the SMJ input
+    sorts are elided in the mode the task conf's ``auron.smj.elide.sorts``
+    names (default build), column pruning runs on every task, and
+    whole-stage fusion rewrites the exec tree for the task's ``device``
+    (``plan/fusion.py``; the protos are untouched)."""
     from auron_tpu_torch.plan.fusion import fuse_exec_tree
-    from auron_tpu_torch.plan.optimizer import (
-        SMJ_ELIDE_SORTS_KEY, elide_smj_input_sorts, prune_columns,
-    )
+    from auron_tpu_torch.plan.optimizer import SMJ_ELIDE_SORTS_KEY
 
+    resolve_shuffle_templates(task)
     conf = Configuration(dict(task.conf))
-    mode = dict(task.conf).get(SMJ_ELIDE_SORTS_KEY, "build")
-    plan = plan_from_proto(prune_columns(elide_smj_input_sorts(task.plan, mode=mode)))
+    plan = tree_from_plan(task.plan, dict(task.conf).get(SMJ_ELIDE_SORTS_KEY, "build"))
     return fuse_exec_tree(plan, conf, device), task.stage_id, task.partition_id, conf
 
 
+def resolve_shuffle_templates(task) -> None:
+    """Fill the ``{work_dir}`` and ``{partition}`` placeholders of the
+    task's shuffle-writer paths from its conf's ``auron.work_dir`` and its
+    partition id (reference ``planner.py:538-567``): a host ships a stage's
+    plan template and sets only the partition and the conf."""
+    from auron_tpu_torch.plan.protowalk import child_nodes
+
+    work_dir = task.conf.get("auron.work_dir", "")
+
+    def rec(node) -> None:
+        if node.WhichOneof("plan") == "shuffle_writer":
+            w = node.shuffle_writer
+            for attr in ("output_data_file", "output_index_file"):
+                v = getattr(w, attr)
+                if "{work_dir}" in v or "{partition}" in v:
+                    if "{work_dir}" in v and not work_dir:
+                        raise ValueError("shuffle path template needs task conf auron.work_dir")
+                    setattr(w, attr, v.replace("{work_dir}", work_dir)
+                            .replace("{partition}", str(task.partition_id)))
+        for c in child_nodes(node):
+            rec(c)
+
+    rec(task.plan)
+
+
 def decode_task(task_bytes: bytes):
-    t = _pb().TaskDefinition()
-    t.ParseFromString(bytes(task_bytes))
-    return t
+    """A ``TaskDefinition`` message of serialized bytes (``ValueError`` on
+    malformed bytes)."""
+    return _pb().TaskDefinition.FromString(bytes(task_bytes))

@@ -1,9 +1,13 @@
 """Per-task execution runtime: the batch pump (port of
 ``auron_tpu/runtime/task.py:TaskRuntime``).
 
-A task is either serialized ``TaskDefinition`` bytes (decoded lazily with
-the verbatim ``plan_pb2`` copy) or an already-built exec tree; either way
-the tree runs whole-stage fused for the task's device (``plan/fusion.py``).
+A task is serialized ``TaskDefinition`` bytes (decoded by the port's own
+proto3 codec, ``auron_tpu_torch.proto``), a decoded ``TaskDefinition``, or
+an already-built exec tree; either way the tree runs whole-stage fused for
+the task's device (``plan/fusion.py``). ``plan_info`` holds the task's
+bytes, the seconds its decode took (bytes to message) and the seconds
+``task_from_proto`` took (elision, pruning, planning, fusion), and the
+metric snapshot of ``finalize`` carries it as ``"task"``.
 The runtime drives the root operator on a background thread into a bounded
 queue;
 the consumer pulls batches with ``next_batch`` (or host Arrow batches with
@@ -20,6 +24,7 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Iterator
 
 from auron_tpu_torch.columnar.arrow_c import HostBatch
@@ -38,6 +43,7 @@ class TaskRuntime:
                  stage_id: int = 0, partition_id: int = 0,
                  conf: Configuration | None = None, device: str = "cuda"):
         device = str(resolve_device(device))
+        self.plan_info: dict | None = None
         if isinstance(task, ExecOperator):
             from auron_tpu_torch.plan.fusion import fuse_exec_tree
 
@@ -46,9 +52,16 @@ class TaskRuntime:
         else:
             from auron_tpu_torch.plan.planner import decode_task, task_from_proto
 
-            if isinstance(task, (bytes, bytearray)):
+            t0 = time.perf_counter()
+            info = {"task_bytes": 0, "decode_s": 0.0}
+            if isinstance(task, (bytes, bytearray, memoryview)):
+                info["task_bytes"] = len(task)
                 task = decode_task(task)
+                info["decode_s"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
             plan, stage_id, partition_id, conf = task_from_proto(task, device)
+            info["plan_s"] = time.perf_counter() - t1
+            self.plan_info = info
         self.plan = plan
         self.ctx = ExecutionContext(
             stage_id=stage_id, partition_id=partition_id, conf=conf,
@@ -131,6 +144,8 @@ class TaskRuntime:
         fused = getattr(self.plan, "_fusion_plan", None)
         if fused is not None:
             snap["fusion"] = fused  # plan-time: segments fused, left eager by reason
+        if self.plan_info is not None:
+            snap["task"] = dict(self.plan_info)  # bytes, decode and planning seconds
         return snap
 
 

@@ -88,6 +88,10 @@ class Configuration:
         """The keys the session set (not defaults or env)."""
         return list(self._values)
 
+    def items(self) -> list[tuple[str, Any]]:
+        """The (key, value) pairs the session set (not defaults or env)."""
+        return list(self._values.items())
+
 
 _local = threading.local()
 _GLOBAL = Configuration()

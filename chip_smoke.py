@@ -10,6 +10,7 @@
     python3 chip_smoke.py --fusion-only  # phases 1, 2 and 15 only
     python3 chip_smoke.py --generate-only  # phases 1, 2 and 16 only
     python3 chip_smoke.py --bridge-only  # phases 1, 2 and 17 only
+    python3 chip_smoke.py --plan-ir-only  # phases 1, 2 and 18 only
 
 Phases, in order, none of them caught — any failure exits non-zero:
 
@@ -43,9 +44,10 @@ Phases, in order, none of them caught — any failure exits non-zero:
    live, 4 partitions, ~89 % to one);
 4. generate the data once (all later phases share it) and drive the
    q42-class query (scan -> broadcast hash join -> partial and final hash
-   aggregate -> SortExec with fetch 10) end to end on ``cuda`` through the
-   task runtime, check it against the numpy oracle (brand and order exact,
-   revenue at rel 1e-9), and require that the SortExec launched exactly
+   aggregate -> SortExec with fetch 10) end to end on ``cuda`` from its
+   TaskDefinition bytes (as phases 5 and 6 start every task), check it
+   against the numpy oracle (brand and order exact, revenue at rel 1e-9),
+   and require that the SortExec launched exactly
    the bitonic kernels that ``sort_plan`` lists for the sort shapes the
    warm-up recorded (one cluster launch of K3 at 16,384 x 8); print its
    ``SortExec.sort_time`` host timer;
@@ -214,8 +216,28 @@ Phases, in order, none of them caught — any failure exits non-zero:
    the zero-copy and copied planes, egress, K1/K3 launches, stage walls and
    peak device memory are printed (with ``--profile``, one profiled run of
    each through the boundary: device busy and the idle share);
-18. print the kernel table as one JSON line (each kernel's launches summed
-   over the timed runs of phases 4-17, and per run), then the status line.
+18. the plan IR without google.protobuf and the C host: q42, q93 (4 x 4)
+   and q3 (4 x 4) from their TaskDefinition bytes through
+   ``bridge.api.call_native`` in this process (phases 4-6 start the same
+   way now): a warm-up, then two timed runs each, q42 also from its
+   prebuilt exec tree in turns with the bytes; every answer equal to its
+   oracle, K3 1 (q42), K1 24 (q93), none for q3, q42's kernel sorts held
+   against the plain network at their own operands. Then the port's C ABI
+   (``csrc/auron_bridge.cpp`` with g++, ``csrc/bridge_harness.c`` with
+   cc): q42 twice through a separate ``bridge_harness`` process (its
+   inputs as Arrow IPC resources, its answer as the harness's IPC batches;
+   K3 1 by the process's counts), q93 through the library loaded into
+   this process with ctypes (map tasks write shuffle files, reduce tasks
+   read them through a ``shuffle:`` manifest; warm-up and two timed runs,
+   K1 24) and once through eight harness processes (the four map tasks at
+   once, then the four reduce tasks; K1 24 by their counts), each equal to
+   its oracle. Every TaskDefinition the phase made
+   decodes and re-encodes to the same bytes in the port's codec, and
+   google.protobuf is not loaded. Walls, task bytes, decode and planning
+   seconds, the harness process's start (imports, CUDA init) against its
+   task, resource bytes and launches are printed;
+19. print the kernel table as one JSON line (each kernel's launches summed
+   over the timed runs of phases 4-18, and per run), then the status line.
 
 Each phase prints its seconds.
 
@@ -225,8 +247,9 @@ kernel launched inside a captured CUDA graph (K1 in a fused writer stage)
 counts once per replay (``plan/fusion.py``: each graph keeps the launches
 its capture recorded and adds them at every replay).
 
-Needs no network, no pyarrow, no pandas and no protobuf; imports nothing
-of the JAX package. Exits with code 2 when no CUDA device is visible.
+Needs no network, no pyarrow, no pandas and no protobuf (phase 18 fails if
+google.protobuf was loaded); imports nothing of the JAX package. Exits with
+code 2 when no CUDA device is visible.
 Detailed results also go to chiprun_out/chip_smoke.json.
 """
 
@@ -2695,6 +2718,236 @@ def run_bridge_phase(data, profile: bool = False) -> dict:
     return out
 
 
+#: phase 18: warm-up, then this many timed runs of each query from bytes
+PLAN_IR_TIMED_RUNS = 2
+#: phase 18: the (K1, K3) launches of each query's timed run
+PLAN_IR_LAUNCHES = {"q42": (0, 1), "q93": (24, 0), "q3": (0, 0)}
+
+
+@contextlib.contextmanager
+def _recording_tasks(record: list):
+    """Record every ``TaskDefinition`` message ``plan/builders.task`` makes
+    inside the block (the runners build their tasks through it)."""
+    from auron_tpu_torch.plan import builders
+
+    real = builders.task
+
+    def task(*args, **kwargs):
+        record.append(real(*args, **kwargs))
+        return record[-1]
+
+    builders.task = task
+    try:
+        yield
+    finally:
+        builders.task = real
+
+
+def _plan_ir_line(name: str, mode: str, wall: float, st: dict, launches: dict) -> str:
+    return (f"{name} ({mode}): wall {wall:.4f} s, task_bytes {st['task_bytes']:,} in "
+            f"{st['n_tasks']} task(s), decode_s {st['decode_s'] * 1e3:.3f} ms, plan_s "
+            f"{st['plan_s'] * 1e3:.3f} ms, K1 {launches['murmur3_pmod']} K3 "
+            f"{launches['bitonic_sort']}")
+
+
+def _run_plan_ir_bytes(data, fact) -> dict:
+    """Phase 18 (2): q42, q93 and q3 from TaskDefinition bytes through
+    ``call_native`` in this process; q42 also from its prebuilt exec tree
+    (the planner's tree, planned outside the timed run) in turns, so the
+    bytes' decode and planning show against the same tree."""
+    import torch
+
+    from auron_tpu_torch.models import tpcds
+    from auron_tpu_torch.runtime.task import run_task
+
+    q42_in = tpcds.ingest_q42(data, device="cuda")
+    q42_want = tpcds.q42_class_oracle(data)
+
+    def q42_check(got):
+        assert got["brand"].shape == (10,) and all(math.isfinite(x) for x in got["rev"]), got
+        assert _np_equal(got["brand"], q42_want["brand"]), (got["brand"], q42_want["brand"])
+        _assert_close(got["rev"], q42_want["rev"])
+
+    def q42_tree(st):
+        batches, snap = run_task(tree, dict(q42_in), device="cuda")
+        tpcds.add_timers(st, snap)
+        out = tpcds.collect(batches)
+        return {"brand": out["brand"], "rev": out["rev"]}
+
+    tree = tpcds.q42_exec_tree()
+    q93_in = tpcds.ingest_q93(data, 4, device="cuda", fact=fact)
+    q3_in = tpcds.ingest_q3(data, 4, device="cuda", fact=fact)
+    q93_want, q3_want = ORACLES.get("q93") or tpcds.q93_class_oracle(data), \
+        tpcds.q3_class_oracle(data)
+    paths = {
+        ("q42", "bytes"): (lambda st: tpcds.run_q42_class(device="cuda", ingested=q42_in,
+                                                          stats=st), q42_check),
+        ("q42", "tree"): (q42_tree, q42_check),
+        ("q93", "bytes"): (lambda st: tpcds.run_q93_class(device="cuda", ingested=q93_in,
+                                                          stats=st),
+                           lambda got: _assert_q93(got, q93_want)),
+        ("q3", "bytes"): (lambda st: tpcds.run_q3_class(device="cuda", ingested=q3_in,
+                                                        stats=st),
+                          lambda got: _assert_q3(got, q3_want)),
+    }
+    out: dict = {}
+    record: list = []
+    for (name, mode), (run, check) in paths.items():
+        if name == "q42" and mode == "bytes":
+            with _recording_sorts(record):
+                check(run({}))  # warm-up; its kernel sorts are checked below
+        else:
+            check(run({}))
+    order = [("q42", "tree"), ("q42", "bytes"), ("q42", "bytes"), ("q42", "tree"),
+             ("q93", "bytes"), ("q93", "bytes"), ("q3", "bytes"), ("q3", "bytes")]
+    for name, mode in order:
+        run, check = paths[(name, mode)]
+        _reset_launches()
+        torch.cuda.synchronize()
+        st: dict = {}
+        t0 = time.perf_counter()
+        got = run(st)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        check(got)
+        st.setdefault("task_bytes", 0)
+        st.setdefault("decode_s", 0.0)
+        st.setdefault("plan_s", 0.0)
+        st["n_tasks"] = {"q42": 1, "q93": 8, "q3": 8}[name] if mode == "bytes" else 0
+        r = {"wall_s": wall, "launches": launches, **{k: st[k] for k in (
+            "task_bytes", "decode_s", "plan_s", "n_tasks")}}
+        want = PLAN_IR_LAUNCHES[name]
+        assert (launches["murmur3_pmod"], launches["bitonic_sort"]) == want, (name, launches)
+        print(_plan_ir_line(name, mode, wall, st, launches) + "; equal to the oracle",
+              flush=True)
+        out.setdefault(f"{name} ({mode})", {"runs": []})["runs"].append(r)
+    out["sort_checks"] = check_sorts("q42 (plan IR)", record)
+    return out
+
+
+def _run_c_host(data) -> dict:
+    """Phase 18 (3): the port's C ABI built from csrc/, then q42 through one
+    bridge_harness process per run, q93 (4 x 4) through the library loaded
+    in this process with ctypes (warm-up, timed runs), and q93 once with
+    each task in its own harness process."""
+    import torch
+
+    from auron_tpu_torch.models import tpcds
+    from auron_tpu_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    so, harness = cuda_build.build_bridge()
+    build_s = time.perf_counter() - t0
+    print(f"built the C ABI ({os.path.basename(so)}, {os.path.basename(harness)}) in "
+          f"{build_s:.2f} s", flush=True)
+    out: dict = {"build_s": build_s}
+    host42, host93 = tpcds.host_q42(data), tpcds.host_q93(data, 4)
+    want42, want93 = tpcds.q42_class_oracle(data), ORACLES.get("q93") or \
+        tpcds.q93_class_oracle(data)
+    for i in range(PLAN_IR_TIMED_RUNS):
+        st: dict = {}
+        t0 = time.perf_counter()
+        got = tpcds.run_q42_c_abi(device="cuda", host=host42, stats=st)
+        wall = time.perf_counter() - t0
+        assert _np_equal(got["brand"], want42["brand"]), (got, want42)
+        _assert_close(got["rev"], want42["rev"])
+        (proc,) = st["processes"]
+        assert (st["launches"]["murmur3_pmod"], st["launches"]["bitonic_sort"]) == \
+            PLAN_IR_LAUNCHES["q42"], st["launches"]
+        print(f"q42 (C host, process {i}): wall {wall:.4f} s, harness process "
+              f"{proc['process_s']:.4f} s = start with imports and CUDA init "
+              f"{proc['init_s']:.4f} s + resources {proc['resources_s']:.4f} s + task "
+              f"{proc['task_s']:.4f} s (+ exec and exit "
+              f"{proc['process_s'] - proc['init_s'] - proc['resources_s'] - proc['task_s']:.4f}"
+              f" s), IPC resources {st['resource_bytes']:,} B, task_bytes {st['task_bytes']}, "
+              f"decode_s {st['decode_s'] * 1e3:.3f} ms, plan_s {st['plan_s'] * 1e3:.3f} ms, "
+              f"K1 {st['launches']['murmur3_pmod']} K3 {st['launches']['bitonic_sort']} (the "
+              f"process's counts); equal to the oracle", flush=True)
+        out.setdefault("q42 (C host)", {"runs": []})["runs"].append(
+            {"wall_s": wall, **proc, "resource_bytes": st["resource_bytes"],
+             "launches": st["launches"], **{k: st[k] for k in ("task_bytes", "decode_s",
+                                                                "plan_s")}})
+    torch.cuda.synchronize()
+    for i in range(1 + PLAN_IR_TIMED_RUNS):
+        _reset_launches()
+        torch.cuda.synchronize()
+        st = {}
+        t0 = time.perf_counter()
+        got = tpcds.run_q93_c_abi(device="cuda", host=host93, via="library", stats=st)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        _assert_q93(got, want93)
+        assert (launches["murmur3_pmod"], launches["bitonic_sort"]) == \
+            PLAN_IR_LAUNCHES["q93"], launches
+        label = "warm-up" if i == 0 else f"run {i - 1}"
+        print(f"q93 (C host, library, {label}): wall {wall:.4f} s (map {st['map_s']:.4f} s, "
+              f"reduce {st['reduce_s']:.4f} s), IPC and manifest resources "
+              f"{st['resource_bytes']:,} B, task_bytes {st['task_bytes']:,} in 8 tasks, "
+              f"decode_s {st['decode_s'] * 1e3:.3f} ms, plan_s {st['plan_s'] * 1e3:.3f} ms, "
+              f"K1 {launches['murmur3_pmod']} K3 {launches['bitonic_sort']}; equal to the "
+              f"oracle", flush=True)
+        if i:
+            out.setdefault("q93 (C host, library)", {"runs": []})["runs"].append(
+                {"wall_s": wall, "launches": launches, **{k: st[k] for k in (
+                    "map_s", "reduce_s", "resource_bytes", "task_bytes", "decode_s",
+                    "plan_s")}})
+    # q93 once more with every task in its own harness process: the map
+    # tasks at once, then the reduce tasks through shuffle:q93_ex0 manifests
+    st = {}
+    t0 = time.perf_counter()
+    got = tpcds.run_q93_c_abi(device="cuda", host=host93, via="process", stats=st)
+    wall = time.perf_counter() - t0
+    _assert_q93(got, want93)
+    assert (st["launches"]["murmur3_pmod"], st["launches"]["bitonic_sort"]) == \
+        PLAN_IR_LAUNCHES["q93"], st["launches"]
+    procs = st["processes"]
+    print(f"q93 (C host, processes): wall {wall:.4f} s (map {st['map_s']:.4f} s, reduce "
+          f"{st['reduce_s']:.4f} s), {len(procs)} harness processes "
+          f"{min(p['process_s'] for p in procs):.4f}-{max(p['process_s'] for p in procs):.4f} s "
+          f"each, start with imports and CUDA init "
+          f"{min(p['init_s'] for p in procs):.4f}-{max(p['init_s'] for p in procs):.4f} s, tasks "
+          f"{min(p['task_s'] for p in procs):.4f}-{max(p['task_s'] for p in procs):.4f} s, "
+          f"IPC and manifest resources {st['resource_bytes']:,} B, K1 "
+          f"{st['launches']['murmur3_pmod']} K3 {st['launches']['bitonic_sort']} (the "
+          f"processes' counts); equal to the oracle", flush=True)
+    out["q93 (C host, processes)"] = {"runs": [
+        {"wall_s": wall, "launches": st["launches"], "processes": procs, **{k: st[k] for k in (
+            "map_s", "reduce_s", "resource_bytes", "task_bytes", "decode_s", "plan_s")}}]}
+    return out
+
+
+def run_plan_ir_phase(data, fact, seed: int, kernels_checked: bool) -> dict:
+    """Phase 18: the plan IR without google.protobuf and the C host. (1)
+    every TaskDefinition the phase makes decodes and re-encodes to the same
+    bytes in the port's codec; (2) q42, q93 and q3 from bytes in this
+    process (``_run_plan_ir_bytes``); (3) the C host (``_run_c_host``);
+    at the end google.protobuf is not loaded. Without phase 3
+    (``kernels_checked`` False) K1 is held against its plain version here,
+    as phase 3 does."""
+    from auron_tpu_torch import proto as pb
+
+    if not kernels_checked:
+        check_partition_kernel(seed)
+    tasks: list = []
+    with _recording_tasks(tasks):
+        out = _run_plan_ir_bytes(data, fact)
+        out["c_host"] = _run_c_host(data)
+    t0 = time.perf_counter()
+    for t in tasks:
+        b = t.SerializeToString()
+        assert pb.TaskDefinition.FromString(b).SerializeToString() == b, "codec round trip"
+    print(f"codec: {len(tasks)} TaskDefinitions decode and re-encode to the same bytes "
+          f"({sum(len(t.SerializeToString()) for t in tasks):,} B, "
+          f"{time.perf_counter() - t0:.3f} s)", flush=True)
+    loaded = sorted(m for m in sys.modules if m.startswith("google.protobuf"))
+    assert not loaded, f"google.protobuf was imported: {loaded}"
+    print("google.protobuf is not in sys.modules", flush=True)
+    out["codec_tasks"] = len(tasks)
+    return out
+
+
 def report_graph_cache() -> None:
     """Print the CUDA-graph cache's resident bytes, graphs and evictions
     over the script, and fail if it holds more than its cap (a quarter of
@@ -2733,6 +2986,8 @@ def main(argv=None) -> int:
     ap.add_argument("--bridge-only", action="store_true",
                     help="run phases 1, 2 and 17 only (no kernel table, no status line; "
                          "with --profile, q42 and q93 through the boundary profiled)")
+    ap.add_argument("--plan-ir-only", action="store_true",
+                    help="run phases 1, 2 and 18 only (no kernel table, no status line)")
     ap.add_argument("--time-sorts", action="store_true",
                     help="only build and time the bitonic kernels at the sort shapes "
                          "(one JSON line, no status line)")
@@ -2824,6 +3079,17 @@ def main(argv=None) -> int:
         with open(os.path.join(REPO_DIR, "chiprun_out", "chip_smoke_bridge.json"), "w") as f:
             json.dump({"device": kind, "nvidia_smi": smi, "bridge": bridge, "phase_s": phase_s},
                       f, indent=1)
+        return 0
+
+    if args.plan_ir_only:
+        data = tpcds.generate(args.sf, args.seed)
+        fact = tpcds.to_batches(data.store_sales, 4, device="cuda")
+        plan_ir = run_plan_ir_phase(data, fact, args.seed, kernels_checked=False)
+        phase_done("18")
+        os.makedirs(os.path.join(REPO_DIR, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(REPO_DIR, "chiprun_out", "chip_smoke_plan_ir.json"), "w") as f:
+            json.dump({"device": kind, "nvidia_smi": smi, "plan_ir": plan_ir,
+                       "phase_s": phase_s}, f, indent=1)
         return 0
 
     # 3. kernels against their plain versions
@@ -2952,7 +3218,14 @@ def main(argv=None) -> int:
     bridge = run_bridge_phase(data, args.profile)
     phase_done("17")
 
-    # 18. every kernel sort and run merge of the main paths, held against the
+    # 18. the plan IR without google.protobuf: q42, q93 and q3 from bytes,
+    # then the C host
+    fact = tpcds.to_batches(data.store_sales, 4, device="cuda")
+    plan_ir = run_plan_ir_phase(data, fact, args.seed, kernels_checked=True)
+    del fact
+    phase_done("18")
+
+    # 19. every kernel sort and run merge of the main paths, held against the
     # plain network on the card at its own operands
     checks["main_path_sorts"] = {
         **{f"q3-mesh ({m})": q3_mesh[m]["sort_checks"] for m in q3_mesh},
@@ -2963,7 +3236,8 @@ def main(argv=None) -> int:
         **{label: spill[label]["sort_checks"] for label in spill if label != "default"},
         **{label: r["sort_checks"] for label, r in sweep.items()
            if label != "profiles" and r["sort_checks"]},
-        **{name: r["sort_checks"] for name, r in decimal.items() if r["sort_checks"]}}
+        **{name: r["sort_checks"] for name, r in decimal.items() if r["sort_checks"]},
+        "q42 (plan IR)": plan_ir["sort_checks"]}
     sort_err = max(s["max_abs_err"] for v in checks["main_path_sorts"].values() for s in v)
     for name in ("bitonic_sort", "bitonic_merge"):
         checks["max_abs_err"][name] = max(checks["max_abs_err"][name], sort_err)
@@ -2995,7 +3269,10 @@ def main(argv=None) -> int:
                 for i, launches in enumerate(r["launches_per_run"])},
              **{f"{name} ({mode}, run {i})": run["launches"] for name, r in bridge.items()
                 for mode in r if mode not in ("host_bytes", "profile")
-                for i, run in enumerate(r[mode]["runs"])}}
+                for i, run in enumerate(r[mode]["runs"])},
+             **{f"{label} run {i}": run["launches"]
+                for src in (plan_ir, plan_ir["c_host"]) for label, r in src.items()
+                if isinstance(r, dict) and "runs" in r for i, run in enumerate(r["runs"])}}
     kernels = []
     for name, source, replaces in (
         ("bitonic_sort", "auron_tpu_torch/csrc/bitonic.cu", "auron_tpu/ops/bitonic.py:145"),
@@ -3024,9 +3301,9 @@ def main(argv=None) -> int:
                    "q3_mesh": q3_mesh, "gate": gate, "q72_mesh": q72_mesh, "skew": skew,
                    "tail": tail, "window": window, "spill": spill, "q33": q33,
                    "join_tail_sweep": sweep, "predictor_ab": ab, "decimal": decimal,
-                   "fusion": fused, "generate": gen, "bridge": bridge, "phase_s": phase_s,
-                   "kernels": kernels}, f, indent=1)
-    phase_done("18")
+                   "fusion": fused, "generate": gen, "bridge": bridge, "plan_ir": plan_ir,
+                   "phase_s": phase_s, "kernels": kernels}, f, indent=1)
+    phase_done("19")
     report_graph_cache()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

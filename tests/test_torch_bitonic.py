@@ -115,7 +115,7 @@ def test_bitonic_sort_matches_reference(impl, cap, n_words, n_distinct, dead_fra
     jops = (*[jnp.asarray(w) for w in words], jnp.asarray(iota))
     want = lax.sort(jops, num_keys=len(jops) - 1)
     want_j = jb.bitonic_sort(jops, impl="jnp")
-    got = pb.bitonic_sort((*[U.from_u64_numpy(w) for w in words], torch.from_numpy(iota)),
+    got = pb.bitonic_sort((*[U.from_u64_numpy(w, "cpu") for w in words], torch.from_numpy(iota)),
                           impl=impl)
     for w, wj, g in zip(want, want_j, got):
         gn = U.u64_numpy(g) if g.dtype == torch.int64 else g.numpy()
@@ -135,8 +135,8 @@ def test_signed_and_narrow_operands(impl):
     jops = (jnp.asarray(d), jnp.asarray(k), jnp.asarray(v), jnp.asarray(w), jnp.asarray(iota))
     want = lax.sort(jops, num_keys=4)
     got = pb.bitonic_sort(
-        (U.from_u64_numpy(d), torch.from_numpy(k), torch.from_numpy(v), U.from_u64_numpy(w),
-         torch.from_numpy(iota)),
+        (U.from_u64_numpy(d, "cpu"), torch.from_numpy(k), torch.from_numpy(v),
+         U.from_u64_numpy(w, "cpu"), torch.from_numpy(iota)),
         impl=impl, narrow=(True, False, False, True, False),
         kinds=("u64", "i64", "i32", "u64", "i32"),
     )
@@ -159,7 +159,7 @@ def test_ordered_sort_matches_reference(impl):
     want = jb.ordered_sort(jops, word_narrow=(True, False),
                            conf=JConf().set(J_IMPL, "lax" if impl == "lax" else "jnp"))
     got = pb.ordered_sort(
-        (U.from_u64_numpy(live), U.from_u64_numpy(nul), U.from_u64_numpy(val),
+        (U.from_u64_numpy(live, "cpu"), U.from_u64_numpy(nul, "cpu"), U.from_u64_numpy(val, "cpu"),
          torch.from_numpy(iota)),
         word_narrow=(True, False), conf=PConf().set("exec.device.sort.impl", impl))
     for w, g in zip(want, got):

@@ -1257,3 +1257,28 @@ def test_bridge_queries_on_card_equal_their_oracles():
     np.testing.assert_array_equal(got["rows"], want["rows"])
     np.testing.assert_array_equal(got["matched"], want["matched"])
     np.testing.assert_allclose(got["s"], want["s"], rtol=1e-9, atol=0)
+
+
+@pytest.mark.cuda
+def test_q42_from_task_bytes_on_card_without_protobuf():
+    """q42 from its TaskDefinition bytes (``run_q42_class``: the port's own
+    builders encode the plan, its codec decodes it in ``call_native``) on
+    cuda equals its oracle, launches K3 once (SF 0.1 has SF 8's 18,000
+    items: the top-10 sort is 16,384 x 8), and no google.protobuf is
+    loaded."""
+    _need_card()
+    import sys
+
+    from auron_tpu_torch.models import tpcds
+
+    data = tpcds.generate(0.1, 42)
+    ingested = tpcds.ingest_q42(data, device="cuda")
+    before = dict(pb.LAUNCHES)
+    st: dict = {}
+    got = tpcds.run_q42_class(device="cuda", ingested=ingested, stats=st)
+    assert pb.LAUNCHES["bitonic_sort"] - before["bitonic_sort"] == 1
+    want = tpcds.q42_class_oracle(data)
+    np.testing.assert_array_equal(got["brand"], want["brand"])
+    np.testing.assert_allclose(got["rev"], want["rev"], rtol=1e-9, atol=0)
+    assert st["task_bytes"] > 0 and st["decode_s"] > 0 and st["plan_s"] > 0
+    assert not [m for m in sys.modules if m.startswith("google.protobuf")]

@@ -155,16 +155,26 @@ def test_q42_exec_tree_matches_planner():
 
 
 def test_port_imports_no_jax_pandas_arrow_or_protobuf():
+    """Every module of the port imports, and q42 and q93 run from their
+    TaskDefinition bytes (the port's codec decodes them), with no JAX,
+    pandas, pyarrow or google.protobuf loaded."""
     script = textwrap.dedent("""
         import pkgutil, sys
+        import numpy as np
         import auron_tpu_torch
         for m in pkgutil.walk_packages(auron_tpu_torch.__path__, "auron_tpu_torch."):
-            if m.name != "auron_tpu_torch.proto.plan_pb2":
-                __import__(m.name)
+            __import__(m.name)
         import chip_smoke
         from auron_tpu_torch.models import tpcds
-        got = tpcds.run_q42_class(tpcds.generate(0.002, 3), device="cpu")
+        d = tpcds.generate(0.002, 3)
+        st = {}
+        got = tpcds.run_q42_class(d, device="cpu", stats=st)
         assert got["brand"].shape == (10,), got
+        assert st["task_bytes"] > 0 and st["decode_s"] > 0, st
+        st = {}
+        q93 = tpcds.run_q93_class(d, n_map=2, n_reduce=2, device="cpu", stats=st)
+        assert np.array_equal(q93["rows"], tpcds.q93_class_oracle(d)["rows"]), q93
+        assert st["task_bytes"] > 0, st
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "auron_tpu", "pandas", "pyarrow")
                      or m.startswith("google.protobuf"))

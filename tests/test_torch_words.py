@@ -32,7 +32,7 @@ def _u64(seed):
 
 
 def _t(a):
-    return U.from_u64_numpy(a)
+    return U.from_u64_numpy(a, "cpu")
 
 
 @pytest.mark.parametrize("r", [1, 13, 31, 32, 33, 63])
