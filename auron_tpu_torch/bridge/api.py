@@ -33,9 +33,11 @@ the functions below; batches cross it as Arrow, without pyarrow
 - ``finalize_native_json``, ``remove_resource``, ``set_metrics_sink`` and
   ``on_exit``.
 
-``convert_plan_json`` (the host-plan converters of ``convert/``) and
-``install_udf_callback`` (``bridge/udf.py``) raise ``NotImplementedError``
-naming their ROADMAP item; the C bridge relays it through
+- ``convert_plan_json`` (``auron_convert_plan``): host-plan JSON to the
+  segmentation response of ``convert/service.py``.
+
+``install_udf_callback`` (``bridge/udf.py``) raises ``NotImplementedError``
+naming its ROADMAP item; the C bridge relays it through
 ``auron_last_error``.
 """
 
@@ -110,10 +112,12 @@ def remove_resource(key: str) -> None:
 
 
 def convert_plan_json(payload: bytes) -> bytes:
-    """C-ABI conversion entry (``auron_convert_plan``): not ported yet."""
-    raise NotImplementedError("convert_plan_json needs the host-plan converters of convert/ "
-                              "(hostplan, strategy, exprs, converters, service), not ported "
-                              "yet: ROADMAP Queue 1 item 6")
+    """C-ABI conversion entry (``auron_convert_plan``): host-plan JSON in,
+    segmentation response JSON out (``convert/service.py``); an error comes
+    back as ``{"converted": false, "error": ...}``, never as a raise."""
+    from auron_tpu_torch.convert.service import convert_host_plan_json
+
+    return convert_host_plan_json(bytes(payload))
 
 
 def install_udf_callback(fn_ptr: int) -> None:

@@ -139,6 +139,10 @@ class Evaluator:
             return self._like(e, b, memo)
         if isinstance(e, (ir.SparkPartitionId, ir.MonotonicId, ir.RowNum, ir.ScalarSubquery)):
             return self._task_context(e, b)
+        if isinstance(e, ir.HostUDF):
+            raise NotImplementedError(
+                f"host_udf '{e.name}' needs bridge/udf.py's UDF callback, which waits for "
+                "ROADMAP Queue 1 item 6 (the host-side tail)")
         if isinstance(e, ir.ScalarFunc):
             from auron_tpu_torch.functions import registry
 

@@ -2,9 +2,9 @@
 
 Copied from ``auron_tpu/exprs/ir.py``: frozen, structurally hashable
 dataclasses with the same names and fields, and the same Spark result-type
-rules (``arith_result_type``). Nodes of the JAX IR that the port does not
-evaluate yet (host UDFs) are not defined here, and the planner rejects
-them by name.
+rules (``arith_result_type``). ``HostUDF`` is defined, lowered and
+decoded as in the reference; evaluating it waits for ``bridge/udf.py``
+(``exprs/eval.py`` raises naming ROADMAP Queue 1 item 6).
 ``Literal(None, T.INT64)`` is a typed NULL. ``remap_columns`` re-binds an
 expression to a schema of only the columns it references.
 """
@@ -219,6 +219,23 @@ class ScalarSubquery(Expr):
 
     def dtype_of(self, schema: T.Schema) -> T.DataType:
         return self.dtype
+
+
+@dataclass(frozen=True)
+class HostUDF(Expr):
+    """Host-callback expression (reference ``exprs/ir.py:237``): the
+    fallback for a function the engine cannot evaluate, called through the
+    bridge's UDF callback (``bridge/udf.py``, not ported yet)."""
+
+    name: str
+    args: tuple[Expr, ...]
+    out_dtype: T.DataType
+
+    def dtype_of(self, schema: T.Schema) -> T.DataType:
+        return self.out_dtype
+
+    def children(self):
+        return self.args
 
 
 @dataclass(frozen=True)

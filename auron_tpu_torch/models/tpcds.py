@@ -949,15 +949,7 @@ def run_q93_c_abi(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int =
         add_timers(stats, m)
     stats["shuffle_bytes"] = sum(m["values"]["data_size"] for m in maps)
     stats["map_s"], stats["reduce_s"] = t1 - t0, t2 - t1
-    names, dtypes = ["k_null", "rows", "matched", "s"], [bool, np.int64, np.int64, np.float64]
-    outs = []
-    for batches in answers:
-        rows: dict = {n: [] for n in names}
-        for hb in batches:
-            for n, vals in hb.to_pydict().items():
-                rows[n] += vals
-        outs.append({n: np.array(rows[n], dt) for n, dt in zip(names, dtypes)}
-                    if rows["k_null"] else {})
+    outs = [_host_columns(batches) for batches in answers]
     stats["partition_rows"] = [int(o["rows"].sum()) if o else 0 for o in outs]
     return _q93_by_key(outs)
 
@@ -3441,3 +3433,502 @@ def exploded_rows(data: TpcdsData) -> dict:
     pos = np.clip(np.searchsorted(keys, ss_item), 0, len(keys) - 1)
     hit = keys[pos] == ss_item
     return {"generate": int(n_tags.sum()), "tag_revenue": int(n_tags[order[pos[hit]]].sum())}
+
+
+# ---------------------------------------------------------------------------
+# converted host plans: the host-plan JSON a Spark shim sends
+# (HostPlanSerializer), converted by bridge.api.convert_plan_json and run as
+# the response's stages, as the JVM's NativeSegmentExec runs them
+# ---------------------------------------------------------------------------
+
+
+def _hattr(i: int, name: str = "") -> dict:
+    return {"kind": "attr", "index": i, "name": name}
+
+
+def _hlit(value, type_name: str) -> dict:
+    return {"kind": "lit", "value": value, "type": type_name}
+
+
+def _hcall(name: str, *children, **extra) -> dict:
+    return {"kind": "call", "name": name, "children": list(children), **extra}
+
+
+def _hschema(schema: T.Schema) -> list:
+    from auron_tpu_torch.convert.service import _type_name
+
+    return [[f.name, _type_name(f.dtype), f.nullable] for f in schema]
+
+
+def _hnode(op: str, schema, args: dict | None = None, *children) -> dict:
+    if isinstance(schema, T.Schema):
+        schema = _hschema(schema)
+    return {"op": op, "schema": schema, "args": args or {}, "children": list(children)}
+
+
+def _hscan(schema: T.Schema, rid: str) -> dict:
+    return _hnode("LocalTableScanExec", schema, {"resource_id": rid})
+
+
+def _hbroadcast(child: dict) -> dict:
+    return _hnode("BroadcastExchangeExec", child["schema"], {}, child)
+
+
+def _hbhj(left: dict, right: dict, lkey: int, rkey: int, join_type: str = "inner") -> dict:
+    """A broadcast hash join with the build on the right, as the serializer
+    writes it (``joinArgs``)."""
+    return _hnode("BroadcastHashJoinExec", left["schema"] + right["schema"],
+                  {"left_keys": [_hattr(lkey)], "right_keys": [_hattr(rkey)],
+                   "join_type": join_type, "condition": None, "build_side": "right"},
+                  left, _hbroadcast(right))
+
+
+def _hagg(child: dict, mode: str, schema: list, groupings: list, aggs: list) -> dict:
+    """A HashAggregateExec: ``groupings`` (expr, name) pairs, ``aggs``
+    (fn, expr or None, name) triples."""
+    return _hnode("HashAggregateExec", schema,
+                  {"mode": mode, "groupings": [{"expr": e, "name": n} for e, n in groupings],
+                   "aggs": [{"fn": f, "expr": e, "name": n} for f, e, n in aggs]}, child)
+
+
+def _hexchange(child: dict, partitioning: dict) -> dict:
+    return _hnode("ShuffleExchangeExec", child["schema"], {"partitioning": partitioning}, child)
+
+
+def _horder(*fields) -> list:
+    """Sort fields from (column, ascending, nulls first) triples."""
+    return [{"expr": _hattr(c), "asc": asc, "nulls_first": nf} for c, asc, nf in fields]
+
+
+def q42_host_plan() -> dict:
+    """q42-class as a Spark shim serializes it: TakeOrderedAndProject(10,
+    rev DESC, brand) <- final <- partial HashAggregate(brand, sum(price)) <-
+    Project <- BroadcastHashJoin(fact, BroadcastExchange(item))."""
+    j = _hbhj(_hscan(STORE_SALES_SCHEMA, "q42_fact"), _hscan(ITEM_SCHEMA, "q42_item"), 1, 0)
+    pr = _hnode("ProjectExec", [["brand", "int", True], ["p", "double", True]],
+                {"projections": [_hattr(6, "i_brand_id"), _hattr(4, "ss_ext_sales_price")]}, j)
+    out = [["brand", "int", True], ["rev", "double", True]]
+    p = _hagg(pr, "partial", out, [(_hattr(0), "brand")], [("sum", _hattr(1), "rev")])
+    f = _hagg(p, "final", out, [(_hattr(0), "brand")], [("sum", _hattr(1), "rev")])
+    return _hnode("TakeOrderedAndProjectExec", out,
+                  {"limit": 10, "order": _horder((1, False, False), (0, True, True)),
+                   "projections": [_hattr(0, "brand"), _hattr(1, "rev")]}, f)
+
+
+def q93_host_plan(n_reduce: int = 4) -> dict:
+    """q93-class: final <- partial HashAggregate(k IS NULL) <- left
+    BroadcastHashJoin(customer) <- ShuffleExchange(hash k, n_reduce) <-
+    Project(CASE WHEN ss_quantity < 85 THEN NULL ELSE ss_customer_sk END k,
+    price) <- the fact."""
+    key = _hcall("if", _hcall("lessthan", _hattr(3), _hlit(85, "int")), _hlit(None, "long"),
+                 _hattr(2, "ss_customer_sk"))
+    pr = _hnode("ProjectExec", Q93_INTER_SCHEMA,
+                {"projections": [key, _hattr(4, "ss_ext_sales_price")]},
+                _hscan(STORE_SALES_SCHEMA, "q93_fact"))
+    ex = _hexchange(pr, {"kind": "hash", "num_partitions": n_reduce, "exprs": [_hattr(0, "k")]})
+    j = _hbhj(ex, _hscan(CUSTOMER_SCHEMA, "q93_cust"), 0, 0, "left")
+    out = [["k_null", "boolean", False], ["rows", "long", False], ["matched", "long", False],
+           ["s", "double", True]]
+    p = _hagg(j, "partial", out, [(_hcall("isnull", _hattr(0)), "k_null")],
+              [("count_star", None, "rows"), ("count", _hattr(2), "matched"),
+               ("sum", _hattr(1), "s")])
+    return _hagg(p, "final", out, [(_hattr(0), "k_null")],
+                 [("count_star", None, "rows"), ("count", _hattr(1), "matched"),
+                  ("sum", _hattr(2), "s")])
+
+
+def q3_host_plan(n_reduce: int = 4, moy: int = 11, category_id: int = 1) -> dict:
+    """q3-class: final HashAggregate(d_year, i_brand_id) <- ShuffleExchange
+    (hash, n_reduce) <- partial <- Project <- the fact joined with the
+    filtered date_dim and item (the driver takes the top-k)."""
+    dd = _hnode("FilterExec", DATE_DIM_SCHEMA,
+                {"predicates": [_hcall("equalto", _hattr(2), _hlit(moy, "int"))]},
+                _hscan(DATE_DIM_SCHEMA, "q3_dd"))
+    it = _hnode("FilterExec", ITEM_SCHEMA,
+                {"predicates": [_hcall("equalto", _hattr(2), _hlit(category_id, "int"))]},
+                _hscan(ITEM_SCHEMA, "q3_item"))
+    j2 = _hbhj(_hbhj(_hscan(STORE_SALES_SCHEMA, "q3_fact"), dd, 0, 0), it, 1, 0)
+    pr = _hnode("ProjectExec", [["d_year", "int", True], ["i_brand_id", "int", True],
+                                ["price", "double", True]],
+                {"projections": [_hattr(6, "d_year"), _hattr(9, "i_brand_id"),
+                                 _hattr(4, "ss_ext_sales_price")]}, j2)
+    out = [["d_year", "int", True], ["i_brand_id", "int", True], ["s", "double", True]]
+    keys = [(_hattr(0), "d_year"), (_hattr(1), "i_brand_id")]
+    p = _hagg(pr, "partial", out, keys, [("sum", _hattr(2), "s")])
+    ex = _hexchange(p, {"kind": "hash", "num_partitions": n_reduce,
+                        "exprs": [_hattr(0), _hattr(1)]})
+    return _hagg(ex, "final", out, keys, [("sum", _hattr(2), "s")])
+
+
+#: the range sort's projection of the fact and its ORDER BY: ss_sold_date_sk
+#: ascending with NULLs first, then ss_item_sk descending with NULLs last
+RANGE_SORT_COLUMNS = ("ss_sold_date_sk", "ss_item_sk", "ss_customer_sk", "ss_ext_sales_price")
+RANGE_SORT_ORDER = ((0, True, True), (1, False, False))
+
+
+def range_sort_bounds(data: TpcdsData, n_reduce: int = 4) -> list[tuple[int, int]]:
+    """The range exchange's bounds as the shim's ``RangeBoundsSampler``
+    makes them: max(100, 20 n) rows of the fact's prefix (random, as the
+    generator is), sorted by the ordering; bound i is the row at
+    min(len - 1, i * len / n)."""
+    m = min(max(100, 20 * n_reduce), len(data.store_sales))
+    date = data.store_sales.columns["ss_sold_date_sk"][:m]
+    item = data.store_sales.columns["ss_item_sk"][:m]
+    order = np.lexsort((-item, date))
+    return [(int(date[order[r]]), int(item[order[r]]))
+            for r in (min(m - 1, i * m // n_reduce) for i in range(1, n_reduce))]
+
+
+def range_sort_host_plan(data: TpcdsData, n_reduce: int = 4) -> dict:
+    """A global ORDER BY without a limit (``df.orderBy(...).write``):
+    SortExec(global) <- ShuffleExchange(range, n_reduce, sampled bounds) <-
+    Project(the four columns) <- the fact."""
+    cols = [STORE_SALES_SCHEMA.names.index(c) for c in RANGE_SORT_COLUMNS]
+    fact = _hschema(STORE_SALES_SCHEMA)
+    pr = _hnode("ProjectExec", [fact[i] for i in cols],
+                {"projections": [_hattr(i, fact[i][0]) for i in cols]},
+                _hscan(STORE_SALES_SCHEMA, "rs_fact"))
+    order = _horder(*RANGE_SORT_ORDER)
+    # the shim's typed literal rows: {"value": v, "type": t} per sort key
+    bounds = [[{"value": d, "type": "long"}, {"value": i, "type": "long"}]
+              for d, i in range_sort_bounds(data, n_reduce)]
+    ex = _hexchange(pr, {"kind": "range", "num_partitions": n_reduce, "order": order,
+                         "bounds": bounds})
+    return _hnode("SortExec", pr["schema"], {"order": order, "global": True}, ex)
+
+
+def convert_host_plan(host_plan: dict, stats: dict | None = None) -> dict:
+    """The segmentation response of ``bridge.api.convert_plan_json`` for a
+    host plan; ``stats`` gets ``convert_s`` and ``response_bytes``. Raises
+    unless the whole plan converted into one native segment."""
+    import json
+
+    from auron_tpu_torch.bridge import api
+
+    payload = json.dumps(host_plan).encode()
+    t0 = time.perf_counter()
+    raw = api.convert_plan_json(payload)
+    convert_s = time.perf_counter() - t0
+    resp = json.loads(raw)
+    if stats is not None:
+        stats["convert_s"] = stats.get("convert_s", 0.0) + convert_s
+        stats["response_bytes"] = len(raw)
+    root = resp.get("root") or {}
+    if not resp.get("converted") or root.get("kind") != "segment" or root.get("inputs"):
+        raise ValueError(f"the host plan did not convert whole: {resp.get('error')} "
+                         f"{resp.get('tags')}")
+    return resp
+
+
+def namespace_free(raw: bytes) -> dict:
+    """A segmentation response with its stage namespace (the converting
+    process's pid and conversion counter, ``convert/service._namespace``)
+    replaced by ``cNS_``, in the JSON and inside the plans (shuffle-writer
+    paths, ipc_reader resource ids): two conversions of one host plan,
+    in two processes, compare equal."""
+    import base64
+    import json
+    import re
+
+    from auron_tpu_torch.plan.protowalk import child_nodes
+
+    ns = re.compile(r"c\d+_\d+_")
+
+    def fix(node):
+        which = node.WhichOneof("plan")
+        if which == "shuffle_writer":
+            w = node.shuffle_writer
+            w.output_data_file = ns.sub("cNS_", w.output_data_file)
+            w.output_index_file = ns.sub("cNS_", w.output_index_file)
+        elif which == "ipc_reader":
+            node.ipc_reader.resource_id = ns.sub("cNS_", node.ipc_reader.resource_id)
+        for c in child_nodes(node):
+            fix(c)
+
+    def walk(v):
+        if isinstance(v, dict):
+            out = {}
+            for k, x in v.items():
+                if k == "plan_b64":
+                    node = _plan_of(x)
+                    fix(node)
+                    x = base64.b64encode(node.SerializeToString()).decode()
+                out[k] = walk(x)
+            return out
+        if isinstance(v, list):
+            return [walk(x) for x in v]
+        return ns.sub("cNS_", v) if isinstance(v, str) else v
+
+    return walk(json.loads(raw))
+
+
+def _plan_of(b64: str):
+    import base64
+
+    from auron_tpu_torch import proto as pb
+
+    return pb.PhysicalPlanNode.FromString(base64.b64decode(b64))
+
+
+def _host_columns(batches: list) -> dict:
+    """Host Arrow batches (``arrow_c.HostBatch``) as numpy columns; {} when
+    they hold no row."""
+    cols: dict = {}
+    for hb in batches:
+        for name, vals in hb.to_pydict().items():
+            cols.setdefault(name, []).extend(vals)
+    return {k: np.array(v) for k, v in cols.items()} if any(cols.values()) else {}
+
+
+def run_converted(host_plan: dict, resources: dict, n_map: int, device="cuda",
+                  conf: dict | None = None, stats: dict | None = None,
+                  work_dir: str | None = None, nulls: bool = False,
+                  response: dict | None = None, via: str = "bridge") -> list[dict]:
+    """Run a host plan as the JVM runs a segmentation response: convert it
+    (``convert_host_plan``, or take ``response``), then take each stage in
+    order; each task partition's ``TaskDefinition`` (``stage_task``) runs
+    from its bytes. A stage fed by no exchange runs ``n_map`` tasks, one fed
+    by exchanges their reduce width. Map outputs are committed to a
+    ``ShuffleManager`` and handed over as manifests (``put_resource_shuffle``
+    under the exchange id, which the next stage's ``ipc_reader`` names).
+    ``via`` "bridge": tasks through ``bridge.api`` in this process, with
+    ``resources`` overlaid per task; "library": through ``libauron_bridge``
+    loaded into this process (``bridge/host.CLibrary``: tasks, manifests and
+    answers cross the C ABI; ``resources`` go into the process's map for
+    the run; no ``nulls``). Returns the final stage's tasks' answers as host
+    columns. ``stats`` gets ``convert_s``, ``response_bytes``, ``stages``,
+    each task's ``decode_s``/``plan_s``/wall (``tasks``), the stage walls
+    (``stage_s``), ``shuffle_bytes``, the final answers' host read
+    (``collect_s``), the rows per final partition (``partition_rows``)
+    and the metric trees' timers (``add_timers``)."""
+    from auron_tpu_torch.bridge import api
+    from auron_tpu_torch.convert.stages import ShuffleManager, StageSpec, stage_task
+
+    if via not in ("bridge", "library") or (via == "library" and nulls):
+        raise ValueError(f"via must be bridge or library (without nulls), not {via!r}")
+    stats = stats if stats is not None else {}
+    resp = response if response is not None else convert_host_plan(host_plan, stats)
+    specs = [StageSpec(i, _plan_of(s["plan_b64"]), s["exchange_id"],
+                       s["num_output_partitions"], list(s["input_exchange_ids"]))
+             for i, s in enumerate(resp["root"]["stages"])]
+    stats["stages"] = len(specs)
+    conf = dict(conf or {})
+    work = work_dir or tempfile.mkdtemp(prefix="auron_converted_")
+    os.makedirs(work, exist_ok=True)
+    shuffle, width, keys = ShuffleManager(), {}, []
+    stage_s, tasks = stats.setdefault("stage_s", []), stats.setdefault("tasks", [])
+    if via == "library":
+        from auron_tpu_torch.bridge.host import CLibrary
+
+        lib = CLibrary(device)
+        for k, v in resources.items():
+            api.put_resource(k, v)
+            keys.append(k)
+    try:
+        with memory_scope(Configuration(conf), stats):
+            for spec in specs:
+                t0 = time.perf_counter()
+                n_tasks = (width[spec.input_exchange_ids[0]] if spec.input_exchange_ids
+                           else n_map)
+                outs = []
+                for p in range(n_tasks):
+                    task = stage_task(spec, p, work, conf).SerializeToString()
+                    t1 = time.perf_counter()
+                    if via == "library":
+                        batches, metrics = lib.run(task)
+                    else:
+                        batches, metrics = run_task_bytes(task, resources, device)
+                    if spec.is_final:
+                        t2 = time.perf_counter()
+                        outs.append(_host_columns(batches) if via == "library"
+                                    else collect(batches, nulls))
+                        stats["collect_s"] = stats.get("collect_s", 0.0) + \
+                            time.perf_counter() - t2
+                    else:
+                        stats["shuffle_bytes"] = stats.get("shuffle_bytes", 0) + \
+                            metrics["values"]["data_size"]
+                        shuffle.register_map_output(
+                            spec.exchange_id, p,
+                            spec.data_template.format(work_dir=work, partition=p),
+                            spec.index_template.format(work_dir=work, partition=p))
+                    tasks.append({"stage": spec.stage_id, "partition": p,
+                                  "wall_s": time.perf_counter() - t1, **metrics["task"]})
+                    add_timers(stats, metrics)
+                if not spec.is_final:
+                    width[spec.exchange_id] = spec.num_output_partitions
+                    hand_over = lib.put_resource_shuffle if via == "library" else \
+                        api.put_resource_shuffle
+                    hand_over(spec.exchange_id, shuffle.manifest(spec.exchange_id))
+                    keys.append(spec.exchange_id)
+                _sync(device)
+                stage_s.append(time.perf_counter() - t0)
+        stats["partition_rows"] = [len(next(iter(o.values()))) if o else 0 for o in outs]
+        return outs
+    finally:
+        for k in keys:
+            api.remove_resource(k)
+        if work_dir is None:
+            shutil.rmtree(work, ignore_errors=True)
+
+
+def run_converted_mesh(host_plan: dict, resources: dict, n_parts: int = 4, device="cuda",
+                       conf: dict | None = None, stats: dict | None = None) -> list:
+    """The converted segment's plan (its ``mesh_exchange`` nodes inside) as
+    one plan through the planned-exchange driver at P = ``n_parts``;
+    returns each partition's output batches. ``stats`` gets ``convert_s``,
+    ``response_bytes`` and what ``_run_mesh`` adds."""
+    resp = convert_host_plan(host_plan, stats)
+    return _run_mesh(_plan_of(resp["root"]["plan_b64"]), resources, n_parts, device, conf, stats)
+
+
+def run_q42_converted(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
+                      ingested: dict | None = None, stats: dict | None = None) -> dict:
+    """q42-class from its host plan through the conversion; {brand, rev}."""
+    if ingested is None:
+        ingested = ingest_q42(data, device)
+    (out,) = run_converted(q42_host_plan(), dict(ingested), 1, device, conf, stats)
+    return {"brand": out["brand"], "rev": out["rev"]}
+
+
+def _q93_resources(ingested: dict, n_reduce: int) -> dict:
+    return {"q93_fact": ingested["fact"], "q93_cust": [ingested["cust"]] * n_reduce}
+
+
+def run_q93_converted(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 4,
+                      device="cuda", conf: dict | None = None, ingested: dict | None = None,
+                      stats: dict | None = None, work_dir: str | None = None,
+                      response: dict | None = None, via: str = "bridge") -> dict:
+    """q93-class from its host plan through the conversion (or from a
+    ``response`` of it made elsewhere, e.g. by ``bridge_harness --convert``),
+    as ``run_q93_class`` answers it; ``via`` as in ``run_converted``.
+    ``stats["partition_rows"]`` counts the fact rows each reduce partition
+    aggregated."""
+    if ingested is None:
+        ingested = ingest_q93(data, n_map, device)
+    stats = stats if stats is not None else {}
+    outs = run_converted(q93_host_plan(n_reduce), _q93_resources(ingested, n_reduce),
+                         len(ingested["fact"]), device, conf, stats, work_dir,
+                         response=response, via=via)
+    stats["partition_rows"] = [int(o["rows"].sum()) if o else 0 for o in outs]
+    return _q93_by_key(outs)
+
+
+def run_q93_converted_mesh(data: TpcdsData | None = None, n_parts: int = 4, device="cuda",
+                           conf: dict | None = None, ingested: dict | None = None,
+                           stats: dict | None = None) -> dict:
+    """The converted q93 segment as one plan under ``MeshQueryDriver``."""
+    if ingested is None:
+        ingested = ingest_q93(data, n_parts, device)
+    outs = run_converted_mesh(q93_host_plan(n_parts), _q93_resources(ingested, n_parts),
+                              n_parts, device, conf, stats)
+    return _q93_by_key([collect(o) for o in outs])
+
+
+def run_q3_converted(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 4,
+                     device="cuda", conf: dict | None = None, ingested: dict | None = None,
+                     stats: dict | None = None, limit: int = 100) -> dict:
+    """q3-class from its host plan through the conversion; the driver takes
+    the top-k, as in ``run_q3_class``."""
+    if ingested is None:
+        ingested = ingest_q3(data, n_map, device)
+    n_map = len(ingested["fact"])
+    resources = {"q3_fact": ingested["fact"], "q3_dd": [ingested["dd"]] * n_map,
+                 "q3_item": [ingested["item"]] * n_map}
+    outs = run_converted(q3_host_plan(n_reduce), resources, n_map, device, conf, stats)
+    got = _concat(outs, ["d_year", "i_brand_id", "s"], [np.int32, np.int32, np.float64])
+    return _top_k(got["d_year"], got["i_brand_id"], got["s"], limit)
+
+
+def ingest_range_sort(data: TpcdsData, n_map: int, device="cuda", fact=None) -> dict:
+    return {"rs_fact": fact if fact is not None else to_batches(data.store_sales, n_map,
+                                                                 device=device)}
+
+
+def run_range_sort_converted(data: TpcdsData, n_map: int = 4, n_reduce: int = 4,
+                             device="cuda", conf: dict | None = None,
+                             ingested: dict | None = None, stats: dict | None = None,
+                             work_dir: str | None = None) -> list[dict]:
+    """The range-partitioned global sort from its host plan: map tasks
+    route the projected fact by the sampled bounds, each reduce task sorts
+    its partition. Returns the reduce partitions in order, each the four
+    columns and their ``<name>_valid`` masks."""
+    if ingested is None:
+        ingested = ingest_range_sort(data, n_map, device)
+    return run_converted(range_sort_host_plan(data, n_reduce), dict(ingested),
+                         len(ingested["rs_fact"]), device, conf, stats, work_dir, nulls=True)
+
+
+def _range_key(date: np.ndarray, item: np.ndarray) -> np.ndarray:
+    """One int64 per row whose order is the range sort's: date ascending,
+    then item descending (both non-negative and below 2^31 here)."""
+    return (date.astype(np.int64) << 32) - item.astype(np.int64)
+
+
+#: the full lexsort of the range sort's rows, most significant first
+_RANGE_ROW_ORDER = ("ss_sold_date_sk", "ss_item_sk", "ss_customer_sk", "ss_customer_sk_valid",
+                    "ss_ext_sales_price")
+
+
+def _lexsorted(cols: dict, keys: tuple, device) -> dict:
+    """``cols`` in the lexicographic order of ``keys`` (most significant
+    first): stable library sorts from the least significant key up, on
+    ``device`` (a check of the answer, independent of the port's sorts)."""
+    import torch
+
+    from auron_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    n = len(cols[keys[0]])
+    order = torch.arange(n, device=dev)
+    for k in reversed(keys):
+        t = torch.from_numpy(np.ascontiguousarray(cols[k])).to(dev)[order]
+        order = order[torch.sort(t.to(torch.int8) if t.dtype == torch.bool else t,
+                                 stable=True).indices]
+    order = order.cpu().numpy()
+    return {k: v[order] for k, v in cols.items()}
+
+
+def range_sort_oracle(data: TpcdsData, n_reduce: int = 4, device="cpu") -> dict:
+    """What the range sort must give: its bounds (as order keys) and the
+    fact's four columns (with validity) in a full lexsort of all four."""
+    ss = data.store_sales
+    cols = {c: ss.columns[c] for c in RANGE_SORT_COLUMNS}
+    cols["ss_customer_sk_valid"] = ss.validity("ss_customer_sk")
+    bounds = range_sort_bounds(data, n_reduce)
+    return {"bounds": np.array([_range_key(np.array([d]), np.array([i]))[0]
+                                for d, i in bounds], np.int64),
+            "rows": _lexsorted(cols, _RANGE_ROW_ORDER, device)}
+
+
+def range_sort_mismatch(parts: list[dict], want: dict, device="cpu") -> str | None:
+    """None when the reduce partitions are a right range sort: each ordered
+    by (date asc, item desc), every row of partition i above bound i-1 and
+    at or below bound i (Spark's rule: the number of bounds strictly below
+    the row), and all of them together exactly the fact's rows (both sides
+    in a full lexsort of the four columns, on ``device``); else what is
+    wrong."""
+    bounds = want["bounds"]
+    if len(parts) != len(bounds) + 1:
+        return f"{len(parts)} partitions for {len(bounds)} bounds"
+    for i, p in enumerate(parts):
+        if not p:
+            continue
+        if not (p["ss_sold_date_sk_valid"].all() and p["ss_item_sk_valid"].all()):
+            return f"partition {i}: a NULL sort key"
+        key = _range_key(p["ss_sold_date_sk"], p["ss_item_sk"])
+        if np.any(np.diff(key) < 0):
+            return f"partition {i} is not ordered"
+        if i > 0 and key.min() <= bounds[i - 1]:
+            return f"partition {i} holds a row at or below bound {i - 1}"
+        if i < len(bounds) and key.max() > bounds[i]:
+            return f"partition {i} holds a row above bound {i}"
+    got = {c: np.concatenate([p[c] for p in parts if p]) for c in _RANGE_ROW_ORDER}
+    got["ss_customer_sk"] = np.where(got["ss_customer_sk_valid"], got["ss_customer_sk"], 0)
+    rows = want["rows"]
+    if len(got["ss_item_sk"]) != len(rows["ss_item_sk"]):
+        return f"{len(got['ss_item_sk'])} rows, the fact has {len(rows['ss_item_sk'])}"
+    got = _lexsorted(got, _RANGE_ROW_ORDER, device)
+    for c, v in rows.items():
+        if not np.array_equal(got[c], v):
+            return f"column {c} differs from the fact's rows"
+    return None

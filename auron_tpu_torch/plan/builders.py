@@ -7,7 +7,8 @@ planner (``plan/planner.py``) turns back into exec trees: the wire
 contract a Spark front end speaks. For the same arguments the bytes equal
 the reference builders'. Plans the port's planner does not run yet
 (``parquet_scan``, ``parquet_sink``, ``rss_shuffle_writer``,
-``kafka_scan``, range partitioning) still build.
+``kafka_scan``) still build, as does a ``host_udf`` expression, which the
+planner decodes and evaluation refuses.
 """
 
 from __future__ import annotations
@@ -103,6 +104,11 @@ def expr_to_proto(e: ir.Expr):
         if e.out_dtype is not None:
             n.scalar_func.out_dtype.CopyFrom(dtype_to_proto(e.out_dtype))
             n.scalar_func.has_out_dtype = True
+    elif isinstance(e, ir.HostUDF):
+        n.host_udf.name = e.name
+        for a in e.args:
+            n.host_udf.args.add().CopyFrom(expr_to_proto(a))
+        n.host_udf.out_dtype.CopyFrom(dtype_to_proto(e.out_dtype))
     elif isinstance(e, ir.SparkPartitionId):
         n.spark_partition_id.SetInParent()
     elif isinstance(e, ir.MonotonicId):

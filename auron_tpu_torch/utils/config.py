@@ -395,3 +395,7 @@ AGG_PARTIAL_DEFER = str_conf(
     "drain at agg_exec.py:427). off restores the eager one-read-per-"
     "batch protocol bit-identically",
 )
+UDF_FALLBACK_ENABLE = bool_conf(
+    "udf.fallback.enable", True, "expr",
+    "evaluate unconvertible expressions via host callback (SparkUDFWrapper analog)",
+)

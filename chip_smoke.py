@@ -11,6 +11,7 @@
     python3 chip_smoke.py --generate-only  # phases 1, 2 and 16 only
     python3 chip_smoke.py --bridge-only  # phases 1, 2 and 17 only
     python3 chip_smoke.py --plan-ir-only  # phases 1, 2 and 18 only
+    python3 chip_smoke.py --convert-only  # phases 1, 2 and 19 only
 
 Phases, in order, none of them caught — any failure exits non-zero:
 
@@ -236,8 +237,30 @@ Phases, in order, none of them caught — any failure exits non-zero:
    google.protobuf is not loaded. Walls, task bytes, decode and planning
    seconds, the harness process's start (imports, CUDA init) against its
    task, resource bytes and launches are printed;
-19. print the kernel table as one JSON line (each kernel's launches summed
-   over the timed runs of phases 4-18, and per run), then the status line.
+19. the host-plan converters (``convert/``, ``bridge.api.convert_plan_json``):
+   q42, q93 (4 x 4) and q3 (4 x 4) from the host-plan JSON a Spark shim
+   sends, converted, then the response's stages run task by task from
+   their TaskDefinition bytes (map outputs committed to a ShuffleManager
+   and handed over as manifests); the converted q93 segment under the
+   planned-exchange driver (mode mesh, P = 4); the range-partitioned
+   global sort of the projected fact (23.04 M rows, 4 x 4, bounds sampled
+   as the shim's RangeBoundsSampler samples them; each reduce partition
+   sorted through K3/K4); q93's host plan through one ``bridge_harness
+   --convert`` process (its response equal to the in-process one, the
+   stage namespace replaced) and that response's stages through the
+   library loaded in this process. Each a warm-up, then two timed runs;
+   every answer equal to its oracle (the range sort: each partition
+   ordered, every row between its bounds by Spark's rule, the four columns
+   together the fact's rows after a full lexsort by library sorts on the
+   card), K3 1 (q42), K1 24 (q93), K1 4 and K2 4 (q93-mesh), the range
+   sort's K3/K4 as ``sort_plan`` lists for its sorts, which (and q42's)
+   go through the plain network on the card once more, bit for bit.
+   convert_s, response bytes, walls, stage walls, each task's decode and
+   planning seconds, rows per partition, the range sort's sort, compress
+   and decode timers and peak memory are printed; the phase fails if
+   google.protobuf or pyarrow was loaded;
+20. print the kernel table as one JSON line (each kernel's launches summed
+   over the timed runs of phases 4-19, and per run), then the status line.
 
 Each phase prints its seconds.
 
@@ -247,8 +270,9 @@ kernel launched inside a captured CUDA graph (K1 in a fused writer stage)
 counts once per replay (``plan/fusion.py``: each graph keeps the launches
 its capture recorded and adds them at every replay).
 
-Needs no network, no pyarrow, no pandas and no protobuf (phase 18 fails if
-google.protobuf was loaded); imports nothing of the JAX package. Exits with
+Needs no network, no pyarrow, no pandas and no protobuf (phases 18 and 19
+fail if google.protobuf was loaded, 19 also if pyarrow was); imports
+nothing of the JAX package. Exits with
 code 2 when no CUDA device is visible.
 Detailed results also go to chiprun_out/chip_smoke.json.
 """
@@ -2948,6 +2972,240 @@ def run_plan_ir_phase(data, fact, seed: int, kernels_checked: bool) -> dict:
     return out
 
 
+CONVERT_TIMED_RUNS = 2
+#: (K1, K2, K3) launches of a converted run, as phase 18's runs from bytes
+#: (q42 K3 once, q93 K1 24: 6 batches x 4 map tasks) and q93-mesh (K1 and K2
+#: once per source shard)
+CONVERT_LAUNCHES = {"q42": (0, 0, 1), "q93": (24, 0, 0), "q3": (0, 0, 0),
+                    "q93-mesh": (4, 4, 0)}
+
+
+def _task_summary(st: dict) -> str:
+    tasks = st.get("tasks", [])
+    dec = [t["decode_s"] * 1e3 for t in tasks]
+    pln = [t["plan_s"] * 1e3 for t in tasks]
+    return (f"{len(tasks)} task(s), decode_s {min(dec):.3f}-{max(dec):.3f} ms, plan_s "
+            f"{min(pln):.3f}-{max(pln):.3f} ms") if tasks else "no task"
+
+
+def _convert_record(wall: float, st: dict, launches: dict) -> dict:
+    return {"wall_s": wall, "launches": launches, "convert_s": st.get("convert_s"),
+            "response_bytes": st.get("response_bytes"), "stages": st.get("stages"),
+            "stage_s": st.get("stage_s"), "partition_rows": st.get("partition_rows"),
+            "tasks": [{k: t[k] for k in ("stage", "partition", "wall_s", "decode_s", "plan_s",
+                                         "task_bytes")} for t in st.get("tasks", [])]}
+
+
+def _run_convert_classes(data, fact) -> dict:
+    """Phase 19 (1-2): q42, q93 (4 x 4) and q3 (4 x 4) from their host-plan
+    JSON through ``convert_plan_json`` and the response's stages, and the
+    converted q93 segment under ``MeshQueryDriver`` (mode mesh, P = 4)."""
+    import torch
+
+    from auron_tpu_torch.models import tpcds
+
+    q42_in = tpcds.ingest_q42(data, device="cuda")
+    q93_in = tpcds.ingest_q93(data, 4, device="cuda", fact=fact)
+    q3_in = tpcds.ingest_q3(data, 4, device="cuda", fact=fact)
+    q42_want, q3_want = tpcds.q42_class_oracle(data), tpcds.q3_class_oracle(data)
+    q93_want = ORACLES.get("q93") or tpcds.q93_class_oracle(data)
+
+    def q42_check(got):
+        assert got["brand"].shape == (10,) and all(math.isfinite(x) for x in got["rev"]), got
+        assert _np_equal(got["brand"], q42_want["brand"]), (got["brand"], q42_want["brand"])
+        _assert_close(got["rev"], q42_want["rev"])
+
+    paths = {
+        "q42": (lambda st: tpcds.run_q42_converted(device="cuda", ingested=q42_in, stats=st),
+                q42_check),
+        "q93": (lambda st: tpcds.run_q93_converted(device="cuda", ingested=q93_in, stats=st),
+                lambda got: _assert_q93(got, q93_want)),
+        "q3": (lambda st: tpcds.run_q3_converted(device="cuda", ingested=q3_in, stats=st),
+               lambda got: _assert_q3(got, q3_want)),
+        "q93-mesh": (lambda st: tpcds.run_q93_converted_mesh(
+            device="cuda", conf={"exchange.mode": "mesh"}, ingested=q93_in, stats=st),
+            lambda got: _assert_q93(got, q93_want)),
+    }
+    out: dict = {"sort_checks": []}
+    for name, (run, check) in paths.items():
+        shapes: list = []
+        record: list = []
+        with _recording_kernel_sorts(shapes), _recording_sorts(record):
+            check(run({}))  # warm-up; its kernel sorts are checked here
+        out["sort_checks"] += check_sorts(f"{name} (converted)", record)
+        del record
+        for i in range(CONVERT_TIMED_RUNS):
+            _reset_launches()
+            torch.cuda.synchronize()
+            st: dict = {}
+            t0 = time.perf_counter()
+            got = run(st)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _launches()
+            check(got)
+            assert (launches["murmur3_pmod"], launches["partition_histogram"],
+                    launches["bitonic_sort"]) == CONVERT_LAUNCHES[name], (name, launches)
+            _assert_planned_launches(f"{name} (converted)", shapes, launches,
+                                     sorts=name == "q42")
+            if name == "q93-mesh":
+                assert st["mode"] == "mesh", st["mode"]
+                detail = (f"map {st['map_s']:.4f} s, exchange {st['exchange_s']:.4f} s, "
+                          f"reduce {st['reduce_s']:.4f} s, routing {st['routing']}")
+            else:
+                detail = (f"stages {st['stages']} ({', '.join(f'{w:.4f}' for w in st['stage_s'])}"
+                          f" s), {_task_summary(st)}")
+            print(f"{name} (converted, run {i}): wall {wall:.4f} s, convert_s "
+                  f"{st['convert_s'] * 1e3:.3f} ms, response {st['response_bytes']:,} B, "
+                  f"{detail}, K1 {launches['murmur3_pmod']} K2 "
+                  f"{launches['partition_histogram']} K3 {launches['bitonic_sort']} K4 "
+                  f"{launches['bitonic_merge']}; equal to the oracle", flush=True)
+            out.setdefault(f"{name} (converted)", {"runs": []})["runs"].append(
+                _convert_record(wall, st, launches))
+    assert out["sort_checks"], "q42's sort was not checked"
+    return out
+
+
+def _run_range_sort(data, fact) -> dict:
+    """Phase 19 (3): the range-partitioned global sort of the projected fact
+    (4 map x 4 reduce) from its host plan; the warm-up's kernel sorts held
+    against the plain network on the card, bit for bit."""
+    import torch
+
+    from auron_tpu_torch.models import tpcds
+
+    ingested = tpcds.ingest_range_sort(data, 4, device="cuda", fact=fact)
+    t0 = time.perf_counter()
+    want = tpcds.range_sort_oracle(data, 4, device="cuda")
+    print(f"range sort oracle (the fact's 4 columns lexsorted on the card by library "
+          f"sorts) in {time.perf_counter() - t0:.2f} s; bounds "
+          f"{tpcds.range_sort_bounds(data, 4)}", flush=True)
+
+    def check(parts):
+        t0 = time.perf_counter()
+        bad = tpcds.range_sort_mismatch(parts, want, device="cuda")
+        assert bad is None, bad
+        return time.perf_counter() - t0
+
+    record: list = []
+    shapes: list = []
+    with _recording_sorts(record), _recording_kernel_sorts(shapes):
+        check(tpcds.run_range_sort_converted(data, device="cuda", ingested=ingested))
+    # the recorded operands are checked and freed before the timed runs,
+    # whose peak they would otherwise join
+    out: dict = {"sort_shapes": [list(s) for s in shapes],
+                 "sort_checks": check_sorts("range sort (converted)", record)}
+    del record
+    for i in range(CONVERT_TIMED_RUNS):
+        _reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        st: dict = {}
+        t0 = time.perf_counter()
+        parts = tpcds.run_range_sort_converted(data, device="cuda", ingested=ingested, stats=st)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        peak = torch.cuda.max_memory_allocated()
+        check_s = check(parts)
+        del parts
+        assert launches["murmur3_pmod"] == 0 and launches["bitonic_sort"] > 0, launches
+        _assert_planned_launches("range sort (converted)", shapes, launches)
+        timers = st["timers"]
+        pick = {k: v for k, v in timers.items()
+                if k.endswith(("sort_time", "compress_time", "decode_time"))}
+        print(f"range sort (converted, run {i}): wall {wall:.4f} s (map stage "
+              f"{st['stage_s'][0]:.4f} s, reduce stage {st['stage_s'][1]:.4f} s, of it the "
+              f"answer's host read {st['collect_s']:.4f} s), convert_s "
+              f"{st['convert_s'] * 1e3:.3f} ms, response {st['response_bytes']:,} B, rows per "
+              f"partition {st['partition_rows']}, shuffle {st['shuffle_bytes']:,} B, "
+              f"{_task_summary(st)}, peak {peak / 2**30:.2f} GiB, K3 "
+              f"{launches['bitonic_sort']} K4 {launches['bitonic_merge']}, timers "
+              f"{ {k: round(v, 4) for k, v in sorted(pick.items())} }; passes its oracle "
+              f"(checked in {check_s:.2f} s)", flush=True)
+        out.setdefault("runs", []).append({**_convert_record(wall, st, launches),
+                                           "peak_bytes": peak, "timers": pick,
+                                           "shuffle_bytes": st["shuffle_bytes"],
+                                           "collect_s": st["collect_s"]})
+    return out
+
+
+def _run_convert_c_host(data, fact) -> dict:
+    """Phase 19 (4): q93's host plan through one ``bridge_harness --convert``
+    process (its response equals the in-process one, namespace replaced),
+    then that response's stages through ``libauron_bridge`` loaded in this
+    process."""
+    import torch
+
+    from auron_tpu_torch.bridge import api
+    from auron_tpu_torch.bridge.host import harness_env
+    from auron_tpu_torch.models import tpcds
+    from auron_tpu_torch.ops import cuda_build
+
+    _, harness = cuda_build.build_bridge()
+    os.makedirs(os.path.join(REPO_DIR, "chiprun_out"), exist_ok=True)
+    plan_path = os.path.join(REPO_DIR, "chiprun_out", "q93_host_plan.json")
+    resp_path = os.path.join(REPO_DIR, "chiprun_out", "q93_response.json")
+    payload = json.dumps(tpcds.q93_host_plan(4)).encode()
+    with open(plan_path, "wb") as f:
+        f.write(payload)
+    t0 = time.perf_counter()
+    # the conversion is host work: the process asks for the CPU, no CUDA init
+    r = subprocess.run([harness, "--convert", plan_path, resp_path], env=harness_env("cpu"),
+                       capture_output=True, text=True, timeout=300)
+    proc_s = time.perf_counter() - t0
+    assert r.returncode == 0, r.stderr[-3000:]
+    with open(resp_path, "rb") as f:
+        resp = f.read()
+    mine = api.convert_plan_json(payload)
+    assert tpcds.namespace_free(resp) == tpcds.namespace_free(mine), "harness response"
+    print(f"q93 (C host): bridge_harness --convert process {proc_s:.3f} s, response "
+          f"{len(resp):,} B, equal to the in-process response (namespace replaced)", flush=True)
+    want = ORACLES.get("q93") or tpcds.q93_class_oracle(data)
+    q93_in = tpcds.ingest_q93(data, 4, device="cuda", fact=fact)
+    out: dict = {"convert_process_s": proc_s, "response_bytes": len(resp)}
+    for i in range(1 + CONVERT_TIMED_RUNS):
+        _reset_launches()
+        torch.cuda.synchronize()
+        st: dict = {}
+        t0 = time.perf_counter()
+        got = tpcds.run_q93_converted(device="cuda", ingested=q93_in, stats=st,
+                                      response=json.loads(resp), via="library")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        _assert_q93(got, want)
+        assert (launches["murmur3_pmod"], launches["bitonic_sort"]) == (24, 0), launches
+        label = "warm-up" if i == 0 else f"run {i - 1}"
+        print(f"q93 (converted, C library, {label}): wall {wall:.4f} s, stages "
+              f"{', '.join(f'{w:.4f}' for w in st['stage_s'])} s, {_task_summary(st)}, K1 "
+              f"{launches['murmur3_pmod']}; equal to the oracle", flush=True)
+        if i:
+            out.setdefault("runs", []).append(_convert_record(wall, st, launches))
+    return out
+
+
+def run_convert_phase(data, fact, seed: int, kernels_checked: bool) -> dict:
+    """Phase 19: the host-plan converters. (1-2) q42, q93 and q3 from
+    host-plan JSON through ``convert_plan_json`` and the response's stages,
+    and the converted q93 segment on the mesh; (3) the range sort; (4) the C
+    host's conversion and the library's run of its response. Fails if
+    google.protobuf or pyarrow was loaded. Without phase 3
+    (``kernels_checked`` False) K1 and K2 are held against their plain
+    versions here (K3/K4 at the phase's own sorts)."""
+    if not kernels_checked:
+        check_partition_kernel(seed)
+        check_histogram_kernel(seed)
+    out = _run_convert_classes(data, fact)
+    out["range sort (converted)"] = _run_range_sort(data, fact)
+    out["c_host"] = _run_convert_c_host(data, fact)
+    loaded = sorted(m for m in sys.modules
+                    if m.startswith("google.protobuf") or m.split(".")[0] == "pyarrow")
+    assert not loaded, f"the conversion path loaded {loaded}"
+    print("neither google.protobuf nor pyarrow is in sys.modules", flush=True)
+    return out
+
+
 def report_graph_cache() -> None:
     """Print the CUDA-graph cache's resident bytes, graphs and evictions
     over the script, and fail if it holds more than its cap (a quarter of
@@ -2988,6 +3246,8 @@ def main(argv=None) -> int:
                          "with --profile, q42 and q93 through the boundary profiled)")
     ap.add_argument("--plan-ir-only", action="store_true",
                     help="run phases 1, 2 and 18 only (no kernel table, no status line)")
+    ap.add_argument("--convert-only", action="store_true",
+                    help="run phases 1, 2 and 19 only (no kernel table, no status line)")
     ap.add_argument("--time-sorts", action="store_true",
                     help="only build and time the bitonic kernels at the sort shapes "
                          "(one JSON line, no status line)")
@@ -3089,6 +3349,17 @@ def main(argv=None) -> int:
         os.makedirs(os.path.join(REPO_DIR, "chiprun_out"), exist_ok=True)
         with open(os.path.join(REPO_DIR, "chiprun_out", "chip_smoke_plan_ir.json"), "w") as f:
             json.dump({"device": kind, "nvidia_smi": smi, "plan_ir": plan_ir,
+                       "phase_s": phase_s}, f, indent=1)
+        return 0
+
+    if args.convert_only:
+        data = tpcds.generate(args.sf, args.seed)
+        fact = tpcds.to_batches(data.store_sales, 4, device="cuda")
+        convert = run_convert_phase(data, fact, args.seed, kernels_checked=False)
+        phase_done("19")
+        os.makedirs(os.path.join(REPO_DIR, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(REPO_DIR, "chiprun_out", "chip_smoke_convert.json"), "w") as f:
+            json.dump({"device": kind, "nvidia_smi": smi, "convert": convert,
                        "phase_s": phase_s}, f, indent=1)
         return 0
 
@@ -3222,10 +3493,15 @@ def main(argv=None) -> int:
     # then the C host
     fact = tpcds.to_batches(data.store_sales, 4, device="cuda")
     plan_ir = run_plan_ir_phase(data, fact, args.seed, kernels_checked=True)
-    del fact
     phase_done("18")
 
-    # 19. every kernel sort and run merge of the main paths, held against the
+    # 19. the host-plan converters: q42, q93, q3 and the range sort from
+    # host-plan JSON, the converted q93 on the mesh and from the C host
+    convert = run_convert_phase(data, fact, args.seed, kernels_checked=True)
+    del fact
+    phase_done("19")
+
+    # 20. every kernel sort and run merge of the main paths, held against the
     # plain network on the card at its own operands
     checks["main_path_sorts"] = {
         **{f"q3-mesh ({m})": q3_mesh[m]["sort_checks"] for m in q3_mesh},
@@ -3237,7 +3513,9 @@ def main(argv=None) -> int:
         **{label: r["sort_checks"] for label, r in sweep.items()
            if label != "profiles" and r["sort_checks"]},
         **{name: r["sort_checks"] for name, r in decimal.items() if r["sort_checks"]},
-        "q42 (plan IR)": plan_ir["sort_checks"]}
+        "q42 (plan IR)": plan_ir["sort_checks"],
+        "q42 (converted)": convert["sort_checks"],
+        "range sort (converted)": convert["range sort (converted)"]["sort_checks"]}
     sort_err = max(s["max_abs_err"] for v in checks["main_path_sorts"].values() for s in v)
     for name in ("bitonic_sort", "bitonic_merge"):
         checks["max_abs_err"][name] = max(checks["max_abs_err"][name], sort_err)
@@ -3272,6 +3550,9 @@ def main(argv=None) -> int:
                 for i, run in enumerate(r[mode]["runs"])},
              **{f"{label} run {i}": run["launches"]
                 for src in (plan_ir, plan_ir["c_host"]) for label, r in src.items()
+                if isinstance(r, dict) and "runs" in r for i, run in enumerate(r["runs"])},
+             **{f"{'q93 (converted, C library)' if label == 'c_host' else label} run {i}":
+                run["launches"] for label, r in convert.items()
                 if isinstance(r, dict) and "runs" in r for i, run in enumerate(r["runs"])}}
     kernels = []
     for name, source, replaces in (
@@ -3302,8 +3583,8 @@ def main(argv=None) -> int:
                    "tail": tail, "window": window, "spill": spill, "q33": q33,
                    "join_tail_sweep": sweep, "predictor_ab": ab, "decimal": decimal,
                    "fusion": fused, "generate": gen, "bridge": bridge, "plan_ir": plan_ir,
-                   "phase_s": phase_s, "kernels": kernels}, f, indent=1)
-    phase_done("19")
+                   "convert": convert, "phase_s": phase_s, "kernels": kernels}, f, indent=1)
+    phase_done("20")
     report_graph_cache()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -11,11 +11,16 @@
 - q93 with its reduce tasks reading ``shuffle:<id>`` manifests, through
   harness processes and through the library loaded in-process, equal to its
   oracle;
-- ``convert_plan_json`` and ``install_udf_callback`` relay their
-  ``NotImplementedError`` through ``auron_last_error``.
+- ``bridge_harness --convert`` with the CPU asked for returns the port's
+  in-process segmentation response for q93's host plan (the stage
+  namespace replaced), and for ``{}`` the reference's error response with
+  rc 0;
+- ``install_udf_callback`` relays its ``NotImplementedError`` through
+  ``auron_last_error``.
 """
 
 import ctypes
+import json
 import os
 import subprocess
 import sys
@@ -120,15 +125,59 @@ def test_the_harness_without_the_cpu_request_needs_a_card(data, tmp_path):
         phost.run_harnesses([(task, resources)], str(tmp_path), "cuda", "q42")
 
 
-def test_convert_plan_relays_not_implemented(tmp_path):
+def _harness_convert(tmp_path, payload: bytes):
     _, harness = cuda_build.build_bridge()
-    (tmp_path / "plan.json").write_bytes(b"{}")
+    (tmp_path / "plan.json").write_bytes(payload)
     r = subprocess.run([harness, "--convert", str(tmp_path / "plan.json"),
                         str(tmp_path / "resp.json")], env=phost.harness_env("cpu"),
                        capture_output=True, text=True, timeout=300)
-    assert r.returncode == 7
-    assert "convert_plan failed: convert_plan_json needs the host-plan converters" in r.stderr
-    assert "ROADMAP Queue 1 item 6" in r.stderr
+    return r, (tmp_path / "resp.json").read_bytes() if r.returncode == 0 else None
+
+
+def test_convert_plan_relays_not_implemented(tmp_path):
+    """The conversion entry relays a failed conversion as the reference's
+    service does: ``{}`` comes back as an error response, rc 0, where it
+    raised NotImplementedError before the converters were ported."""
+    r, resp = _harness_convert(tmp_path, b"{}")
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert json.loads(resp) == {"converted": False, "error": "KeyError: 'op'"}
+    from auron_tpu.convert.service import convert_host_plan_json
+
+    assert resp == convert_host_plan_json(b"{}")
+
+
+def test_convert_plan_through_the_harness_equals_the_in_process_response(tmp_path):
+    """q93's host plan through ``bridge_harness --convert`` (the CPU asked
+    for) gives the port's in-process response, once the stage namespace
+    (pid and conversion counter) is replaced."""
+    from auron_tpu_torch.bridge import api
+
+    plan = json.dumps(pt.q93_host_plan(4)).encode()
+    r, resp = _harness_convert(tmp_path, plan)
+    assert r.returncode == 0, r.stderr[-2000:]
+    mine = api.convert_plan_json(plan)
+    assert json.loads(resp)["converted"] is True
+    assert pt.namespace_free(resp) == pt.namespace_free(mine)
+    assert pt.namespace_free(resp) != json.loads(resp)  # the namespace was there
+    assert len(json.loads(resp)["root"]["stages"]) == 2
+
+
+def test_q93_stages_of_the_harness_response_through_the_library(data, tmp_path,
+                                                                monkeypatch):
+    """The harness's response, its stages run through ``libauron_bridge``
+    loaded in this process (tasks, manifests and answers across the C ABI),
+    equals the oracle."""
+    monkeypatch.setenv("AURON_TORCH_DEVICE", "cpu")
+    r, resp = _harness_convert(tmp_path, json.dumps(pt.q93_host_plan(2)).encode())
+    assert r.returncode == 0, r.stderr[-2000:]
+    st: dict = {}
+    got = pt.run_q93_converted(data, n_map=3, n_reduce=2, device="cpu",
+                               response=json.loads(resp), via="library", stats=st)
+    want = pt.q93_class_oracle(data)
+    np.testing.assert_array_equal(got["rows"], want["rows"])
+    np.testing.assert_array_equal(got["matched"], want["matched"])
+    np.testing.assert_allclose(got["s"], want["s"], rtol=1e-9, atol=0)
+    assert st["stages"] == 2 and len(st["tasks"]) == 5 and "convert_s" not in st
 
 
 def test_q93_shuffle_manifests_through_harness_processes(data, tmp_path):

@@ -1282,3 +1282,50 @@ def test_q42_from_task_bytes_on_card_without_protobuf():
     np.testing.assert_allclose(got["rev"], want["rev"], rtol=1e-9, atol=0)
     assert st["task_bytes"] > 0 and st["decode_s"] > 0 and st["plan_s"] > 0
     assert not [m for m in sys.modules if m.startswith("google.protobuf")]
+
+
+@pytest.mark.cuda
+def test_range_partition_ids_on_card_equal_cpu():
+    """``RangePartitioning.partition_ids`` on the card equals its CPU run on
+    the same seeded batch (int64 and float64 keys with NULLs, NaN and
+    signed zeros; both directions, both NULL placements)."""
+    _need_card()
+    from auron_tpu_torch import types as T
+    from auron_tpu_torch.columnar.batch import Batch
+    from auron_tpu_torch.exec.shuffle.partitioning import RangePartitioning, make_range_bounds
+    from auron_tpu_torch.exprs.ir import col
+    from auron_tpu_torch.ops.sortkeys import SortSpec
+
+    rng = np.random.default_rng(7)
+    n = 100_003
+    a = rng.integers(-500, 500, n)
+    f = np.where(rng.random(n) < 0.1, rng.choice([np.nan, -0.0, 0.0], n), rng.normal(0, 9, n))
+    schema = T.Schema((T.Field("a", T.INT64, True), T.Field("f", T.FLOAT64, True)))
+    valid = [rng.random(n) > 0.1, rng.random(n) > 0.1]
+    specs = [SortSpec(asc=False, nulls_first=False), SortSpec(asc=True, nulls_first=True)]
+    cpu = Batch.from_numpy([a, f], schema, valid, device="cpu")
+    card = Batch.from_numpy([a, f], schema, valid, device="cuda")
+    bounds = make_range_bounds(cpu, [col(0), col(1)], specs, 7)
+    assert np.array_equal(bounds, make_range_bounds(card, [col(0), col(1)], specs, 7))
+    part = RangePartitioning([col(0), col(1)], specs, 7, bounds)
+    want = part.partition_ids(cpu, None)
+    got = part.partition_ids(card, None)
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert len(np.unique(want.numpy()[:n])) == 7
+
+
+@pytest.mark.cuda
+def test_converted_q42_on_card_equals_its_oracle():
+    """q42 from its host-plan JSON through ``convert_plan_json`` and the
+    response's one stage on cuda (SF 0.02) equals its oracle."""
+    _need_card()
+    from auron_tpu_torch.models import tpcds
+
+    data = tpcds.generate(0.02, 42)
+    st: dict = {}
+    got = tpcds.run_q42_converted(data, device="cuda", stats=st)
+    want = tpcds.q42_class_oracle(data)
+    np.testing.assert_array_equal(got["brand"], want["brand"])
+    np.testing.assert_allclose(got["rev"], want["rev"], rtol=1e-9, atol=0)
+    assert st["stages"] == 1 and st["convert_s"] > 0 and st["response_bytes"] > 0

@@ -150,8 +150,11 @@ def test_q93_through_serialized_tasks(data, tmp_path):
 
 def test_planner_partitionings():
     from auron_tpu_torch.exec.shuffle.partitioning import (
-        HashPartitioning, RoundRobinPartitioning, SinglePartitioning,
+        HashPartitioning, RangePartitioning, RoundRobinPartitioning, SinglePartitioning,
     )
+    from auron_tpu_torch.exprs.ir import col as pcol
+    from auron_tpu_torch.ops.sortkeys import SortSpec
+    from auron_tpu_torch.plan import builders as PB
 
     pb = pplanner._pb()
 
@@ -164,8 +167,12 @@ def test_planner_partitionings():
     rr = conv(pb.Partitioning(kind=pb.Partitioning.ROUND_ROBIN, num_partitions=5))
     assert isinstance(rr, RoundRobinPartitioning) and rr.num_partitions == 5
     assert isinstance(conv(pb.Partitioning(kind=pb.Partitioning.SINGLE)), SinglePartitioning)
-    with pytest.raises(NotImplementedError, match="RANGE"):
-        conv(pb.Partitioning(kind=pb.Partitioning.RANGE, num_partitions=2))
+    rg = pb.Partitioning(kind=pb.Partitioning.RANGE, num_partitions=3, range_words_per_bound=2,
+                         range_bound_words=[1, 2**63 + 5, 0, 7])
+    rg.range_fields.add().CopyFrom(PB.sort_field(pcol(0), SortSpec(asc=False)))
+    r = conv(rg)
+    assert isinstance(r, RangePartitioning) and r.num_partitions == 3
+    assert r.bound_words.tolist() == [[1, 2**63 + 5], [0, 7]] and not r.specs[0].asc
 
 
 def test_two_stage_queries_run_without_jax_arrow_pandas_or_protobuf():
