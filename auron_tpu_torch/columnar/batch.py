@@ -49,7 +49,9 @@ import numpy as np
 import torch
 
 from auron_tpu_torch import types as T
-from auron_tpu_torch.columnar.arrow_c import HostArray, HostBatch, array_from_numpy, micros
+from auron_tpu_torch.columnar.arrow_c import (
+    ArrowArray, ArrowSchema, HostArray, HostBatch, array_from_numpy, export_batch, micros,
+)
 from auron_tpu_torch.device import resolve_device
 from auron_tpu_torch.utils.config import SCAN_ZEROCOPY, active_conf, resolve_tri
 
@@ -244,9 +246,10 @@ class Batch:
         )
 
     @staticmethod
-    def from_arrow(rb, capacity: int | None = None, device="cuda") -> "Batch":
+    def from_arrow(rb, capacity: int | None = None, device="cuda", conf=None) -> "Batch":
         """Arrow RecordBatch (or Table, its chunks combined) ingest through
-        pyarrow's C export and ``from_host_arrow`` (imports pyarrow)."""
+        pyarrow's C export and ``from_host_arrow`` (imports pyarrow; ``conf``
+        resolves ``exec.scan.zerocopy``)."""
         from auron_tpu_torch.columnar.arrow_c import import_from
 
         if not hasattr(rb, "_export_to_c"):  # a Table: one batch of its combined chunks
@@ -254,7 +257,8 @@ class Batch:
 
             rb = pa.RecordBatch.from_arrays([c.combine_chunks() for c in rb.columns],
                                             schema=rb.schema)
-        return Batch.from_host_arrow(import_from(rb), capacity=capacity, device=device)
+        return Batch.from_host_arrow(import_from(rb), capacity=capacity, device=device,
+                                     conf=conf)
 
     @staticmethod
     def from_pandas(df, schema: T.Schema | None = None, capacity: int | None = None,
@@ -429,21 +433,18 @@ class Batch:
             cols.append(array_from_numpy(v, f.dtype, m))
         return HostBatch(self.schema, n, tuple(cols))
 
-    def to_arrow(self):
-        """Live rows as an Arrow RecordBatch (imports pyarrow)."""
+    def to_arrow(self, metrics=None):
+        """Live rows as a pyarrow RecordBatch (imports pyarrow): the host
+        Arrow batch of ``to_host_arrow`` (pinned copies) exported through the
+        C data interface (``arrow_c.export_batch``) and imported by pyarrow,
+        with no pyarrow conversion of each column."""
+        import ctypes
+
         import pyarrow as pa
 
-        arrays = []
-        for f, (v, m) in zip(self.schema, self.to_numpy().values()):
-            if f.dtype.is_dict_encoded:
-                arrays.append(pa.array(list(v), type=f.dtype.to_arrow()))
-            elif f.dtype.kind == T.TypeKind.DECIMAL:
-                arrays.append(pa.array([T.decimal_from_unscaled(x, f.dtype.scale) if ok
-                                        else None for x, ok in zip(v.tolist(), m.tolist())],
-                                       type=f.dtype.to_arrow()))
-            else:
-                arrays.append(pa.array(v, mask=~m).cast(f.dtype.to_arrow()))
-        return pa.RecordBatch.from_arrays(arrays, schema=self.schema.to_arrow())
+        arr, sch = ArrowArray(), ArrowSchema()
+        export_batch(self.to_host_arrow(metrics), ctypes.addressof(arr), ctypes.addressof(sch))
+        return pa.RecordBatch._import_from_c(ctypes.addressof(arr), ctypes.addressof(sch))
 
 
 # ---------------------------------------------------------------------------

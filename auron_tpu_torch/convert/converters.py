@@ -10,8 +10,8 @@ nodes: a converted multi-stage plan runs under ``MeshQueryDriver``, or
 splits into host-scheduled stages (``convert/stages.py``).
 
 Parquet/ORC scans and sinks and the Kafka source convert as in the
-reference; the port's planner does not run them yet (ROADMAP Queue 1
-item 6).
+reference; the planner runs the file scans and sinks, and refuses the
+Kafka source (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations

@@ -16,8 +16,7 @@ host shim ships that metadata as a neutral descriptor:
 
 and this provider lowers it to a ParquetScanNode over the files whose
 partition values can satisfy the filters, with the predicates pushed into
-the scan's row-group pruning. (The port's planner does not run a Parquet
-scan yet: ROADMAP Queue 1 item 6.)
+the scan's row-group pruning, which the planner runs as ``ParquetScanExec``.
 """
 
 from __future__ import annotations

@@ -361,7 +361,10 @@ COUNTERS = ("elapsed_compute_n", "num_merges", "partial_agg_skipped", "spilled_r
             "shuffle_enc_dec128", "dense_batches", "probe_batches", "probe_miss_batches",
             "generic_batches", "probe_hit_rows", "merge_path_merges", "fp_collision_batches",
             "fused_batches", "stage_captures", "stage_replays", "generate_batches",
-            "generate_chunks", "exploded_rows")
+            "generate_chunks", "exploded_rows", "row_groups_total", "row_groups_pruned",
+            "row_groups_pruned_late", "stripes_pruned_late", "corrupted_files_skipped",
+            "bytes_scanned", "fs_raw_reads", "fs_bytes_fetched", "rows_written",
+            "partitions_written")
 
 #: the counters ``stats["fusion"]`` sums over every operator: the fused
 #: stages' (and standalone fused filters') CUDA-graph captures and replays
@@ -509,14 +512,18 @@ CUSTOMER_SCHEMA = _schema(("c_customer_sk", T.INT64), ("c_band", T.INT64))
 Q93_INTER_SCHEMA = _schema(("k", T.INT64), ("price", T.FLOAT64))
 
 
+def customer_table() -> Table:
+    """q93's 5,000-row customer dimension."""
+    sk = np.arange(1, 5001, dtype=np.int64)
+    return Table(CUSTOMER_SCHEMA, {"c_customer_sk": sk, "c_band": sk % 5}, {})
+
+
 def ingest_q93(data: TpcdsData, n_map: int, device="cuda", fact=None) -> dict:
     """Device-resident inputs: the fact table in ``n_map`` partitions and
     the 5,000-row customer dimension."""
-    sk = np.arange(1, 5001, dtype=np.int64)
-    cust = Table(CUSTOMER_SCHEMA, {"c_customer_sk": sk, "c_band": sk % 5}, {})
     return {"fact": fact if fact is not None else to_batches(data.store_sales, n_map,
                                                               device=device),
-            "cust": to_batches(cust, 1, device=device)[0]}
+            "cust": to_batches(customer_table(), 1, device=device)[0]}
 
 
 def q93_map_plan(scan=_resource_scan):
@@ -710,10 +717,8 @@ def run_q42_bridge(data: TpcdsData | None = None, device="cuda", conf: dict | No
 def host_q93(data: TpcdsData, n_map: int, batch_rows: int = 1 << 20) -> dict:
     """The q93 inputs as host Arrow batches: the fact in ``n_map``
     partitions and the 5,000-row customer dimension."""
-    sk = np.arange(1, 5001, dtype=np.int64)
-    cust = Table(CUSTOMER_SCHEMA, {"c_customer_sk": sk, "c_band": sk % 5}, {})
     return {"fact": host_batches(data.store_sales, n_map, batch_rows),
-            "cust": host_batches(cust, 1)[0]}
+            "cust": host_batches(customer_table(), 1)[0]}
 
 
 def run_q93_bridge(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 4,
@@ -3500,11 +3505,20 @@ def _horder(*fields) -> list:
     return [{"expr": _hattr(c), "asc": asc, "nulls_first": nf} for c, asc, nf in fields]
 
 
-def q42_host_plan() -> dict:
+def _leaf(scans: dict | None, schema: T.Schema, rid: str) -> dict:
+    """The host plan's leaf for ``rid``: ``scans[rid]`` (e.g. a
+    ``FileSourceScanExec``, ``file_scan``) where given, else the in-memory
+    ``LocalTableScanExec`` of that resource."""
+    return scans[rid] if scans and rid in scans else _hscan(schema, rid)
+
+
+def q42_host_plan(scans: dict | None = None) -> dict:
     """q42-class as a Spark shim serializes it: TakeOrderedAndProject(10,
     rev DESC, brand) <- final <- partial HashAggregate(brand, sum(price)) <-
-    Project <- BroadcastHashJoin(fact, BroadcastExchange(item))."""
-    j = _hbhj(_hscan(STORE_SALES_SCHEMA, "q42_fact"), _hscan(ITEM_SCHEMA, "q42_item"), 1, 0)
+    Project <- BroadcastHashJoin(fact, BroadcastExchange(item)). ``scans``
+    replaces leaves by resource id (``_leaf``)."""
+    j = _hbhj(_leaf(scans, STORE_SALES_SCHEMA, "q42_fact"),
+              _leaf(scans, ITEM_SCHEMA, "q42_item"), 1, 0)
     pr = _hnode("ProjectExec", [["brand", "int", True], ["p", "double", True]],
                 {"projections": [_hattr(6, "i_brand_id"), _hattr(4, "ss_ext_sales_price")]}, j)
     out = [["brand", "int", True], ["rev", "double", True]]
@@ -3515,18 +3529,18 @@ def q42_host_plan() -> dict:
                    "projections": [_hattr(0, "brand"), _hattr(1, "rev")]}, f)
 
 
-def q93_host_plan(n_reduce: int = 4) -> dict:
+def q93_host_plan(n_reduce: int = 4, scans: dict | None = None) -> dict:
     """q93-class: final <- partial HashAggregate(k IS NULL) <- left
     BroadcastHashJoin(customer) <- ShuffleExchange(hash k, n_reduce) <-
     Project(CASE WHEN ss_quantity < 85 THEN NULL ELSE ss_customer_sk END k,
-    price) <- the fact."""
+    price) <- the fact. ``scans`` as in ``q42_host_plan``."""
     key = _hcall("if", _hcall("lessthan", _hattr(3), _hlit(85, "int")), _hlit(None, "long"),
                  _hattr(2, "ss_customer_sk"))
     pr = _hnode("ProjectExec", Q93_INTER_SCHEMA,
                 {"projections": [key, _hattr(4, "ss_ext_sales_price")]},
-                _hscan(STORE_SALES_SCHEMA, "q93_fact"))
+                _leaf(scans, STORE_SALES_SCHEMA, "q93_fact"))
     ex = _hexchange(pr, {"kind": "hash", "num_partitions": n_reduce, "exprs": [_hattr(0, "k")]})
-    j = _hbhj(ex, _hscan(CUSTOMER_SCHEMA, "q93_cust"), 0, 0, "left")
+    j = _hbhj(ex, _leaf(scans, CUSTOMER_SCHEMA, "q93_cust"), 0, 0, "left")
     out = [["k_null", "boolean", False], ["rows", "long", False], ["matched", "long", False],
            ["s", "double", True]]
     p = _hagg(j, "partial", out, [(_hcall("isnull", _hattr(0)), "k_null")],
@@ -3537,21 +3551,29 @@ def q93_host_plan(n_reduce: int = 4) -> dict:
                   ("sum", _hattr(2), "s")])
 
 
-def q3_host_plan(n_reduce: int = 4, moy: int = 11, category_id: int = 1) -> dict:
+def q3_host_plan(n_reduce: int = 4, moy: int = 11, category_id: int = 1,
+                 scans: dict | None = None) -> dict:
     """q3-class: final HashAggregate(d_year, i_brand_id) <- ShuffleExchange
     (hash, n_reduce) <- partial <- Project <- the fact joined with the
-    filtered date_dim and item (the driver takes the top-k)."""
+    filtered date_dim and item (the top-k is taken on the host). ``scans``
+    as in ``q42_host_plan``; the fact's leaf may hold any of its columns that
+    include date, item and price (the sorted files' four)."""
     dd = _hnode("FilterExec", DATE_DIM_SCHEMA,
                 {"predicates": [_hcall("equalto", _hattr(2), _hlit(moy, "int"))]},
-                _hscan(DATE_DIM_SCHEMA, "q3_dd"))
+                _leaf(scans, DATE_DIM_SCHEMA, "q3_dd"))
     it = _hnode("FilterExec", ITEM_SCHEMA,
                 {"predicates": [_hcall("equalto", _hattr(2), _hlit(category_id, "int"))]},
-                _hscan(ITEM_SCHEMA, "q3_item"))
-    j2 = _hbhj(_hbhj(_hscan(STORE_SALES_SCHEMA, "q3_fact"), dd, 0, 0), it, 1, 0)
+                _leaf(scans, ITEM_SCHEMA, "q3_item"))
+    fact = _leaf(scans, STORE_SALES_SCHEMA, "q3_fact")
+    names = [f[0] for f in fact["schema"]]
+    w = len(names)
+    j2 = _hbhj(_hbhj(fact, dd, names.index("ss_sold_date_sk"), 0), it,
+               names.index("ss_item_sk"), 0)
     pr = _hnode("ProjectExec", [["d_year", "int", True], ["i_brand_id", "int", True],
                                 ["price", "double", True]],
-                {"projections": [_hattr(6, "d_year"), _hattr(9, "i_brand_id"),
-                                 _hattr(4, "ss_ext_sales_price")]}, j2)
+                {"projections": [_hattr(w + 1, "d_year"), _hattr(w + 4, "i_brand_id"),
+                                 _hattr(names.index("ss_ext_sales_price"),
+                                        "ss_ext_sales_price")]}, j2)
     out = [["d_year", "int", True], ["i_brand_id", "int", True], ["s", "double", True]]
     keys = [(_hattr(0), "d_year"), (_hattr(1), "i_brand_id")]
     p = _hagg(pr, "partial", out, keys, [("sum", _hattr(2), "s")])
@@ -3687,9 +3709,10 @@ def run_converted(host_plan: dict, resources: dict, n_map: int, device="cuda",
     """Run a host plan as the JVM runs a segmentation response: convert it
     (``convert_host_plan``, or take ``response``), then take each stage in
     order; each task partition's ``TaskDefinition`` (``stage_task``) runs
-    from its bytes. A stage fed by no exchange runs ``n_map`` tasks, one fed
-    by exchanges their reduce width. Map outputs are committed to a
-    ``ShuffleManager`` and handed over as manifests (``put_resource_shuffle``
+    from its bytes. A stage fed by no exchange runs as many tasks as the
+    response pins (``task_partitions``: a file scan's groups), else
+    ``n_map``; one fed by exchanges runs their reduce width. Map outputs
+    are committed to a ``ShuffleManager`` and handed over as manifests (``put_resource_shuffle``
     under the exchange id, which the next stage's ``ipc_reader`` names).
     ``via`` "bridge": tasks through ``bridge.api`` in this process, with
     ``resources`` overlaid per task; "library": through ``libauron_bridge``
@@ -3711,6 +3734,8 @@ def run_converted(host_plan: dict, resources: dict, n_map: int, device="cuda",
     specs = [StageSpec(i, _plan_of(s["plan_b64"]), s["exchange_id"],
                        s["num_output_partitions"], list(s["input_exchange_ids"]))
              for i, s in enumerate(resp["root"]["stages"])]
+    # a stage over host-decided file groups runs exactly that many tasks
+    pinned = [s.get("task_partitions") for s in resp["root"]["stages"]]
     stats["stages"] = len(specs)
     conf = dict(conf or {})
     work = work_dir or tempfile.mkdtemp(prefix="auron_converted_")
@@ -3729,7 +3754,7 @@ def run_converted(host_plan: dict, resources: dict, n_map: int, device="cuda",
             for spec in specs:
                 t0 = time.perf_counter()
                 n_tasks = (width[spec.input_exchange_ids[0]] if spec.input_exchange_ids
-                           else n_map)
+                           else pinned[spec.stage_id] or n_map)
                 outs = []
                 for p in range(n_tasks):
                     task = stage_task(spec, p, work, conf).SerializeToString()
@@ -3931,4 +3956,200 @@ def range_sort_mismatch(parts: list[dict], want: dict, device="cpu") -> str | No
     for c, v in rows.items():
         if not np.array_equal(got[c], v):
             return f"column {c} differs from the fact's rows"
+    return None
+
+
+# ---------------------------------------------------------------------------
+# file-backed host plans: the tables written by converted
+# DataWritingCommandExec plans, read back through FileSourceScanExec leaves
+# ---------------------------------------------------------------------------
+
+#: the file paths' task conf: a scan cuts its row groups into batches of
+#: 1 << 20 rows, as ``to_batches`` cuts the in-memory tables
+FILE_CONF = {"batch.size": str(1 << 20)}
+#: the columns of the range sort's output, and so of the sorted files
+RANGE_SORT_SCHEMA = T.Schema(tuple(STORE_SALES_SCHEMA[STORE_SALES_SCHEMA.names.index(c)]
+                                   for c in RANGE_SORT_COLUMNS))
+
+
+def file_scan(schema, files: list[str], fmt: str = "parquet",
+              groups: list[list[str]] | None = None, filters: list | None = None) -> dict:
+    """A ``FileSourceScanExec`` host node over ``files``; ``groups`` holds
+    one file group per task (the response then pins the task count),
+    ``filters`` the pushed filters (host expressions)."""
+    args: dict = {"format": fmt, "files": list(files)}
+    if groups is not None:
+        args["partitions"] = [list(g) for g in groups]
+    if filters:
+        args["filters"] = list(filters)
+    return _hnode("FileSourceScanExec", schema, args)
+
+
+def write_host_plan(child: dict, path: str, fmt: str = "parquet",
+                    partition_by: list[str] | None = None) -> dict:
+    """``df.write.format(fmt).partitionBy(...).save(path)`` as the shim
+    serializes it: a ``DataWritingCommandExec`` over ``child``."""
+    return _hnode("DataWritingCommandExec", [],
+                  {"format": fmt, "path": path, "partition_by": list(partition_by or []),
+                   "props": {}}, child)
+
+
+def part_files(path: str, fmt: str = "parquet") -> list[str]:
+    """The part files a sink wrote directly under ``path``, in task order."""
+    return sorted(os.path.join(path, f) for f in os.listdir(path) if f.endswith("." + fmt))
+
+
+def dir_bytes(path: str) -> int:
+    """Bytes of every file under ``path``."""
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def file_tables(data: TpcdsData) -> dict:
+    """The tables the file paths read, by name: the fact, item, date_dim and
+    q93's customer."""
+    return {"store_sales": data.store_sales, "item": data.item, "date_dim": data.date_dim,
+            "customer": customer_table()}
+
+
+def write_table(table: Table, path: str, device="cuda", fmt: str = "parquet",
+                partition_by: list[str] | None = None, batches: list | None = None,
+                n_parts: int = 1, conf: dict | None = None, stats: dict | None = None) -> str:
+    """Write ``table`` under ``path`` through its converted
+    ``DataWritingCommandExec`` plan over an in-memory scan: one task per
+    partition of ``batches`` (default: the table in ``n_parts`` partitions
+    on ``device``), each writing ``part-<task>.<fmt>`` (Hive directories
+    with ``partition_by``). ``stats`` gets what ``run_converted`` adds;
+    returns ``path``."""
+    if batches is None:
+        batches = to_batches(table, n_parts, device=device)
+    plan = write_host_plan(_hscan(table.schema, "w_table"), path, fmt, partition_by)
+    run_converted(plan, {"w_table": batches}, len(batches), device, conf, stats)
+    return path
+
+
+def write_tables(data: TpcdsData, root: str, device="cuda", fact: list | None = None,
+                 conf: dict | None = None, stats: dict | None = None) -> dict:
+    """``file_tables`` as Parquet under ``root``: the fact from 4 map tasks
+    (4 part files; ``fact``: its partitions on the card), each dimension
+    from one. Returns {name: directory}; ``stats[name]`` gets the write's
+    ``wall_s``, ``bytes`` and ``run_converted``'s stats."""
+    paths = {}
+    for name, table in file_tables(data).items():
+        st: dict = {}
+        t0 = time.perf_counter()
+        paths[name] = write_table(table, os.path.join(root, name), device,
+                                  batches=fact if name == "store_sales" else None,
+                                  n_parts=4 if name == "store_sales" else 1, conf=conf, stats=st)
+        st["wall_s"] = time.perf_counter() - t0
+        st["bytes"] = dir_bytes(paths[name])
+        if stats is not None:
+            stats[name] = st
+    return paths
+
+
+def run_sorted_write(data: TpcdsData, path: str, n_map: int = 4, n_reduce: int = 4,
+                     device="cuda", conf: dict | None = None, ingested: dict | None = None,
+                     stats: dict | None = None, work_dir: str | None = None) -> list[str]:
+    """``df.orderBy(date, item).write.parquet(path)``: the range sort's host
+    plan under a ``DataWritingCommandExec``; each reduce task sorts its
+    range and writes one date-ordered part file. Returns the files."""
+    if ingested is None:
+        ingested = ingest_range_sort(data, n_map, device)
+    run_converted(write_host_plan(range_sort_host_plan(data, n_reduce), path), dict(ingested),
+                  len(ingested["rs_fact"]), device, {**FILE_CONF, **(conf or {})}, stats,
+                  work_dir)
+    return part_files(path)
+
+
+def _fact_files_scan(schema: T.Schema, path: str, n_groups: int, fmt: str = "parquet",
+               filters: list | None = None) -> dict:
+    """The fact's scan over its part files in ``n_groups`` contiguous file
+    groups, one a task."""
+    files = part_files(path, fmt)
+    per = -(-len(files) // n_groups)
+    return file_scan(schema, files, fmt, [files[i:i + per] for i in range(0, len(files), per)],
+                     filters)
+
+
+def run_q42_files(paths: dict, device="cuda", conf: dict | None = None,
+                  stats: dict | None = None, fact_fmt: str = "parquet") -> dict:
+    """q42-class from files (``paths``: directories by table name, the fact
+    in ``fact_fmt``): one task reads every fact file; {brand, rev}."""
+    scans = {"q42_fact": _fact_files_scan(STORE_SALES_SCHEMA, paths["store_sales"], 1,
+                                          fact_fmt),
+             "q42_item": file_scan(ITEM_SCHEMA, part_files(paths["item"]))}
+    (out,) = run_converted(q42_host_plan(scans), {}, 1, device,
+                           {**FILE_CONF, **(conf or {})}, stats)
+    return {"brand": out["brand"], "rev": out["rev"]}
+
+
+def run_q93_files(paths: dict, n_map: int = 4, n_reduce: int = 4, device="cuda",
+                  conf: dict | None = None, stats: dict | None = None,
+                  work_dir: str | None = None) -> dict:
+    """q93-class from Parquet files: a map task per fact file group, each
+    reduce task reads the customer file for its broadcast."""
+    stats = stats if stats is not None else {}
+    scans = {"q93_fact": _fact_files_scan(STORE_SALES_SCHEMA, paths["store_sales"], n_map),
+             "q93_cust": file_scan(CUSTOMER_SCHEMA, part_files(paths["customer"]))}
+    outs = run_converted(q93_host_plan(n_reduce, scans), {}, n_map, device,
+                         {**FILE_CONF, **(conf or {})}, stats, work_dir)
+    stats["partition_rows"] = [int(o["rows"].sum()) if o else 0 for o in outs]
+    return _q93_by_key(outs)
+
+
+def month_filter(data: TpcdsData, moy: int = 11) -> dict:
+    """A pushed filter on ``ss_sold_date_sk`` (column 0 of the sorted files)
+    that holds exactly the dates of month ``moy``: an OR of one closed
+    date_sk range per year."""
+    dd = data.date_dim.columns
+    ranges = []
+    for year in np.unique(dd["d_year"]):
+        sk = dd["d_date_sk"][(dd["d_year"] == year) & (dd["d_moy"] == moy)]
+        if len(sk):
+            assert sk.max() - sk.min() + 1 == len(sk), "the month's dates are not contiguous"
+            ranges.append(_hcall("and",
+                                 _hcall("greaterthanorequal", _hattr(0, "ss_sold_date_sk"),
+                                        _hlit(int(sk.min()), "long")),
+                                 _hcall("lessthanorequal", _hattr(0, "ss_sold_date_sk"),
+                                        _hlit(int(sk.max()), "long"))))
+    out = ranges[0]
+    for r in ranges[1:]:
+        out = _hcall("or", out, r)
+    return out
+
+
+def run_q3_files(paths: dict, n_map: int = 4, n_reduce: int = 4, device="cuda",
+                 conf: dict | None = None, stats: dict | None = None, limit: int = 100,
+                 fact_schema: T.Schema = STORE_SALES_SCHEMA,
+                 fact_filters: list | None = None) -> dict:
+    """q3-class from Parquet files, as ``run_q3_converted`` answers it; the
+    fact's files may hold any columns of it with date, item and price (the
+    sorted files: ``RANGE_SORT_SCHEMA``), under ``fact_filters``."""
+    scans = {"q3_fact": _fact_files_scan(fact_schema, paths["store_sales"], n_map,
+                                   filters=fact_filters),
+             "q3_dd": file_scan(DATE_DIM_SCHEMA, part_files(paths["date_dim"])),
+             "q3_item": file_scan(ITEM_SCHEMA, part_files(paths["item"]))}
+    outs = run_converted(q3_host_plan(n_reduce, scans=scans), {}, n_map, device,
+                         {**FILE_CONF, **(conf or {})}, stats)
+    got = _concat(outs, ["d_year", "i_brand_id", "s"], [np.int32, np.int32, np.float64])
+    return _top_k(got["d_year"], got["i_brand_id"], got["s"], limit)
+
+
+def table_mismatch(got, table: Table, drop: tuple = ()) -> str | None:
+    """None when the pyarrow table ``got`` holds ``table``'s rows in order
+    (its columns but ``drop``; NULLs where ``table`` has them), else what
+    differs."""
+    names = [n for n in table.schema.names if n not in drop]
+    if got.column_names != names:
+        return f"columns {got.column_names}, want {names}"
+    if got.num_rows != len(table):
+        return f"{got.num_rows} rows, want {len(table)}"
+    for n in names:
+        c = got.column(n)
+        valid = table.validity(n)
+        if not np.array_equal(c.is_valid().to_numpy(zero_copy_only=False), valid):
+            return f"column {n}: NULLs differ"
+        v = c.to_numpy(zero_copy_only=False)
+        if not np.array_equal(v[valid], np.asarray(table.columns[n])[valid]):
+            return f"column {n}: values differ"
     return None

@@ -1,7 +1,8 @@
 """Physical planner: plan proto -> executable operator tree.
 
 Port of ``auron_tpu/plan/planner.py`` for the node and expression variants
-the ported slices execute (memory_scan, ffi_reader, ipc_writer, project,
+the ported slices execute (memory_scan, ffi_reader, parquet_scan,
+orc_scan, parquet_sink, orc_sink, ipc_writer, project,
 filter, limit, union,
 expand, rename_columns, empty_partitions, coalesce_batches, debug,
 hash_agg, sort, window, generate, hash_join, sort_merge_join, shuffle_writer with
@@ -203,6 +204,25 @@ def plan_from_proto(p):
         from auron_tpu_torch.exec.scan import FFIReaderExec
 
         return FFIReaderExec(schema_from_proto(p.ffi_reader.schema), p.ffi_reader.resource_id)
+    if which in ("parquet_scan", "orc_scan"):
+        from auron_tpu_torch.exec.scan import OrcScanExec, ParquetScanExec
+
+        n = getattr(p, which)
+        return (ParquetScanExec if which == "parquet_scan" else OrcScanExec)(
+            schema_from_proto(n.schema), list(n.file_paths),
+            [expr_from_proto(e) for e in n.pruning_predicates], n.fs_resource_id or None,
+            partitions=[list(fp.paths) for fp in n.partitions] or None)
+    if which == "parquet_sink":
+        from auron_tpu_torch.exec.sink import ParquetSinkExec
+
+        n = p.parquet_sink
+        return ParquetSinkExec(plan_from_proto(n.child), n.output_path, dict(n.props),
+                               partition_by=list(n.partition_by) or None)
+    if which == "orc_sink":
+        from auron_tpu_torch.exec.sink import OrcSinkExec
+
+        n = p.orc_sink
+        return OrcSinkExec(plan_from_proto(n.child), n.output_path, dict(n.props))
     if which == "ipc_writer":
         from auron_tpu_torch.exec.sink import IpcWriterExec
 
@@ -319,11 +339,7 @@ def plan_from_proto(p):
 
 
 #: the plan variants the converters emit that the planner does not run yet
-_WAITING = {"parquet_scan": "item 6 (the Parquet and ORC scans)",
-            "orc_scan": "item 6 (the Parquet and ORC scans)",
-            "parquet_sink": "item 6 (the Parquet and ORC sinks)",
-            "orc_sink": "item 6 (the Parquet and ORC sinks)",
-            "kafka_scan": "item 6 (exec/streaming.py and the Kafka source)",
+_WAITING = {"kafka_scan": "item 6 (exec/streaming.py and the Kafka source)",
             "rss_shuffle_writer": "item 4 (exec/shuffle/rss.py)"}
 
 

@@ -399,3 +399,15 @@ UDF_FALLBACK_ENABLE = bool_conf(
     "udf.fallback.enable", True, "expr",
     "evaluate unconvertible expressions via host callback (SparkUDFWrapper analog)",
 )
+IGNORE_CORRUPTED_FILES = bool_conf(
+    "files.ignore.corrupted", False, "scan", "tolerate unreadable input files (conf.rs:37)"
+)
+PARQUET_MAX_OVER_READ_SIZE = int_conf(
+    "parquet.max.over.read.size", 16 << 20, "scan",
+    "read coalescing window for remote-FS parquet reads (conf.rs:44)",
+)
+PARQUET_LATE_MATERIALIZATION = bool_conf(
+    "parquet.late.materialization", True, "scan",
+    "decode predicate columns first and skip the wide decode for row "
+    "groups with zero matches (page/dictionary-check analog)",
+)

@@ -12,6 +12,7 @@
     python3 chip_smoke.py --bridge-only  # phases 1, 2 and 17 only
     python3 chip_smoke.py --plan-ir-only  # phases 1, 2 and 18 only
     python3 chip_smoke.py --convert-only  # phases 1, 2 and 19 only
+    python3 chip_smoke.py --files-only  # phases 1, 2 and 20 only
 
 Phases, in order, none of them caught — any failure exits non-zero:
 
@@ -259,8 +260,31 @@ Phases, in order, none of them caught — any failure exits non-zero:
    planning seconds, rows per partition, the range sort's sort, compress
    and decode timers and peak memory are printed; the phase fails if
    google.protobuf or pyarrow was loaded;
-20. print the kernel table as one JSON line (each kernel's launches summed
-   over the timed runs of phases 4-19, and per run), then the status line.
+20. the Parquet and ORC sinks and scans (``exec/sink.py``,
+   ``exec/scan.py``), into a temporary directory on local disk that the
+   phase removes: first the sinks' egress (``Batch.to_arrow``) against a
+   pyarrow build of each column (``tests/torch_arrow.pyarrow_egress``)
+   over the fact's batches, in turns, every batch equal; then the fact (4
+   map tasks, 4 files), item, date_dim and customer written as Parquet,
+   the fact as ORC and item Hive-partitioned by i_category, each through
+   its converted ``DataWritingCommandExec`` host plan over the tables on
+   the card and each read back with pyarrow against the numpy tables (the
+   Hive directory names by the reference's escaping, the rows per
+   directory numpy's); the sorted write (``df.orderBy(date, item).write``:
+   the range sort under a ``DataWritingCommandExec``, 4 date-ordered
+   files, its K3/K4 sorts held against the plain network on the card bit
+   for bit, its launches as ``sort_plan`` lists, the files equal to the
+   range sort's oracle); then q42, q93 and q3 from the Parquet files, q42
+   from the ORC fact and q3 over the sorted files with a pushed filter of
+   the five Novembers' ``ss_sold_date_sk`` ranges (``row_groups_pruned``
+   above 0), each through its ``FileSourceScanExec`` host plan: a warm-up,
+   then two timed runs, every answer equal to its oracle, K3 1 (q42), K1
+   24 (q93). Walls against phase 19's in-memory walls, write walls, bytes
+   written, the scans' ``io_time``/``upload_time``, the ingest and pruning
+   counters and peak memory are printed; a missing ``pyarrow.orc`` fails
+   the phase;
+21. print the kernel table as one JSON line (each kernel's launches summed
+   over the timed runs of phases 4-20, and per run), then the status line.
 
 Each phase prints its seconds.
 
@@ -270,8 +294,9 @@ kernel launched inside a captured CUDA graph (K1 in a fused writer stage)
 counts once per replay (``plan/fusion.py``: each graph keeps the launches
 its capture recorded and adds them at every replay).
 
-Needs no network, no pyarrow, no pandas and no protobuf (phases 18 and 19
-fail if google.protobuf was loaded, 19 also if pyarrow was); imports
+Needs no network, no pandas and no protobuf (phases 18 and 19 fail if
+google.protobuf was loaded, 19 also if pyarrow was); phase 20 needs
+pyarrow (with ``pyarrow.orc``), and phases 1-19 run without it; imports
 nothing of the JAX package. Exits with
 code 2 when no CUDA device is visible.
 Detailed results also go to chiprun_out/chip_smoke.json.
@@ -3076,7 +3101,7 @@ def _run_range_sort(data, fact) -> dict:
 
     ingested = tpcds.ingest_range_sort(data, 4, device="cuda", fact=fact)
     t0 = time.perf_counter()
-    want = tpcds.range_sort_oracle(data, 4, device="cuda")
+    want = ORACLES["range sort"] = tpcds.range_sort_oracle(data, 4, device="cuda")
     print(f"range sort oracle (the fact's 4 columns lexsorted on the card by library "
           f"sorts) in {time.perf_counter() - t0:.2f} s; bounds "
           f"{tpcds.range_sort_bounds(data, 4)}", flush=True)
@@ -3206,6 +3231,308 @@ def run_convert_phase(data, fact, seed: int, kernels_checked: bool) -> dict:
     return out
 
 
+#: phase 20: warm-up, then this many timed runs of each read from files
+FILES_TIMED_RUNS = 2
+#: phase 20: (K1, K3) launches of a timed read, as phase 19's converted runs
+#: (q93: 6 row groups of 1 << 20 rows in each of 4 map tasks' files)
+FILES_LAUNCHES = {"q42": (0, 1), "q93": (24, 0), "q3": (0, 0), "q42 (orc)": (0, 1),
+                  "q3 (sorted)": (0, 0)}
+#: phase 20: the converted path of phase 19 each read is compared with
+FILES_IN_MEMORY = {"q42": "q42", "q93": "q93", "q3": "q3", "q42 (orc)": "q42",
+                   "q3 (sorted)": "q3"}
+
+
+def _read_back(files: list, fmt: str = "parquet"):
+    """The part files as one pyarrow table, in task order."""
+    import pyarrow as pa
+
+    if fmt == "orc":
+        import pyarrow.orc as orc
+
+        return pa.concat_tables([orc.ORCFile(f).read() for f in files])
+    import pyarrow.parquet as pq
+
+    # one file each, read as it is (read_table may add a Hive directory's key)
+    return pa.concat_tables([pq.ParquetFile(f).read() for f in files])
+
+
+def _check_written(label: str, got, table, drop: tuple = ()) -> None:
+    from auron_tpu_torch.models import tpcds
+
+    bad = tpcds.table_mismatch(got, table, drop)
+    assert bad is None, f"{label}: {bad}"
+
+
+def _egress_ab(fact) -> dict:
+    """The sinks' egress (``Batch.to_arrow``: pinned copies and the C data
+    interface) against a pyarrow build of each column from ``to_numpy``
+    (``tests/torch_arrow.pyarrow_egress``, the tests' reference) over the
+    fact's batches on the card, in turns (pyarrow, to_arrow, to_arrow,
+    pyarrow), each batch equal both ways."""
+    import torch
+
+    sys.path.insert(0, os.path.join(REPO_DIR, "tests"))
+    from torch_arrow import pyarrow_egress
+
+    ways = {"pyarrow": pyarrow_egress, "to_arrow": lambda b: b.to_arrow()}
+    walls: dict = {k: [] for k in ways}
+    for way in ways.values():  # warm-up: imports, first copies
+        way(fact[0][0])
+    for way in ("pyarrow", "to_arrow", "to_arrow", "pyarrow"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = [ways[way](b) for part in fact for b in part]
+        walls[way].append(time.perf_counter() - t0)
+        if way == "to_arrow" and len(walls[way]) == 1:
+            assert all(g.equals(pyarrow_egress(b)) for g, b in
+                       zip(got, (b for part in fact for b in part))), "egress differs"
+        del got
+    print(f"egress of the fact's {sum(len(p) for p in fact)} batches: pyarrow per column "
+          f"{', '.join(f'{w:.4f}' for w in walls['pyarrow'])} s, Batch.to_arrow (the sinks') "
+          f"{', '.join(f'{w:.4f}' for w in walls['to_arrow'])} s; equal batches", flush=True)
+    return walls
+
+
+def _run_file_writes(data, root: str, fact) -> dict:
+    """Phase 20 (1): the four tables as Parquet (the fact from 4 map tasks),
+    the fact as ORC, item Hive-partitioned by i_category, each through its
+    converted DataWritingCommandExec plan over scans of batches on the card,
+    and each read back with pyarrow against the numpy tables."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from auron_tpu_torch.exec.sink import _hive_escape
+    from auron_tpu_torch.models import tpcds
+
+    out: dict = {"parquet": {}, "egress": _egress_ab(fact)}
+    torch.cuda.synchronize()
+    paths = tpcds.write_tables(data, os.path.join(root, "parquet"), device="cuda", fact=fact,
+                               stats=out["parquet"])
+    for name, table in tpcds.file_tables(data).items():
+        st = out["parquet"][name]
+        t0 = time.perf_counter()
+        _check_written(f"{name} (parquet)", _read_back(tpcds.part_files(paths[name])), table)
+        print(f"write {name} (parquet): wall {st['wall_s']:.4f} s, {len(table):,} rows in "
+              f"{len(tpcds.part_files(paths[name]))} file(s), {st['bytes']:,} B, timers "
+              f"{ {k: round(v, 4) for k, v in st['timers'].items() if 'Sink' in k} }; read back "
+              f"equal to the numpy table in {time.perf_counter() - t0:.2f} s", flush=True)
+    st: dict = {}
+    t0 = time.perf_counter()
+    orc_dir = tpcds.write_table(data.store_sales, os.path.join(root, "orc"), "cuda", fmt="orc",
+                                batches=fact, stats=st)
+    st["wall_s"], st["bytes"] = time.perf_counter() - t0, tpcds.dir_bytes(orc_dir)
+    _check_written("store_sales (orc)", _read_back(tpcds.part_files(orc_dir, "orc"), "orc"),
+                   data.store_sales)
+    print(f"write store_sales (orc): wall {st['wall_s']:.4f} s, {st['bytes']:,} B; read back "
+          f"equal to the numpy table", flush=True)
+    out["orc"] = st
+    st = {}
+    t0 = time.perf_counter()
+    hive = tpcds.write_table(data.item, os.path.join(root, "item_hive"), "cuda",
+                             partition_by=["i_category"], stats=st)
+    st["wall_s"] = time.perf_counter() - t0
+    cats, counts = np.unique(data.item.columns["i_category"].astype(str), return_counts=True)
+    want_dirs = {f"i_category={_hive_escape(c)}": (c, n) for c, n in zip(cats, counts)}
+    assert sorted(os.listdir(hive)) == sorted(want_dirs), (os.listdir(hive), want_dirs)
+    for d, (c, n) in want_dirs.items():
+        mask = data.item.columns["i_category"] == c
+        sub = tpcds.Table(data.item.schema, {k: v[mask] for k, v in data.item.columns.items()},
+                          {k: v[mask] for k, v in data.item.valid.items()})
+        got = _read_back(tpcds.part_files(os.path.join(hive, d)))
+        assert got.num_rows == n, (d, got.num_rows, n)
+        _check_written(f"item ({d})", got, sub, drop=("i_category",))
+    assert st["counters"]["ParquetSinkExec.partitions_written"] == len(want_dirs), st
+    print(f"write item (hive by i_category): wall {st['wall_s']:.4f} s, directories "
+          f"{sorted(want_dirs)}, rows {counts.tolist()}, equal to numpy's", flush=True)
+    out["item_hive"] = {"wall_s": st["wall_s"], "dirs": sorted(want_dirs),
+                        "rows": counts.tolist()}
+    out["paths"] = paths
+    out["orc_dir"] = orc_dir
+    return out
+
+
+def _run_sorted_write(data, root: str, fact) -> dict:
+    """Phase 20 (2): ``df.orderBy(date, item).write.parquet``, the range
+    sort under a DataWritingCommandExec (4 map x 4 reduce); its kernel
+    sorts held against the plain network on the card, bit for bit, and its
+    launches against ``sort_plan``; the files read back against the range
+    sort's oracle."""
+    import os
+
+    import torch
+
+    from auron_tpu_torch.models import tpcds
+
+    ingested = tpcds.ingest_range_sort(data, 4, device="cuda", fact=fact)
+    path = os.path.join(root, "sorted")
+    record: list = []
+    shapes: list = []
+    _reset_launches()
+    torch.cuda.synchronize()
+    st: dict = {}
+    t0 = time.perf_counter()
+    with _recording_sorts(record), _recording_kernel_sorts(shapes):
+        files = tpcds.run_sorted_write(data, path, device="cuda", ingested=ingested, stats=st)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    _assert_planned_launches("sorted write", shapes, launches)
+    assert launches["bitonic_sort"] == 4, launches
+    checks = check_sorts("sorted write", record)
+    del record
+    import pyarrow.parquet as pq
+
+    row_groups = [pq.ParquetFile(f).metadata.num_row_groups for f in files]
+    want = ORACLES.get("range sort") or tpcds.range_sort_oracle(data, 4, device="cuda")
+    parts = []
+    for f in files:
+        t = pq.ParquetFile(f).read()
+        part = {}
+        for n in t.column_names:
+            c = t.column(n)
+            part[f"{n}_valid"] = c.is_valid().to_numpy(zero_copy_only=False)
+            part[n] = c.fill_null(0).to_numpy()
+        parts.append(part)
+    bad = tpcds.range_sort_mismatch(parts, want, device="cuda")
+    assert bad is None, f"sorted write: {bad}"
+    print(f"sorted write: wall {wall:.4f} s (its sort operands recorded; stages "
+          f"{', '.join(f'{w:.4f}' for w in st['stage_s'])} s), {len(files)} files of row groups "
+          f"{row_groups}, {tpcds.dir_bytes(path):,} B, K3 {launches['bitonic_sort']} K4 "
+          f"{launches['bitonic_merge']} as sort_plan lists, read back equal to the range sort's "
+          f"oracle", flush=True)
+    return {"wall_s": wall, "stage_s": st["stage_s"], "row_groups": row_groups,
+            "bytes": tpcds.dir_bytes(path), "launches": launches, "sort_checks": checks,
+            "sort_shapes": [list(s) for s in shapes], "path": path}
+
+
+def _run_file_reads(data, written: dict, sorted_path: str, sorted_groups: int,
+                    convert: dict | None) -> dict:
+    """Phase 20 (3): q42, q93 and q3 from the Parquet files, q42 from the
+    ORC fact, q3 over the sorted files under its pushed November filter;
+    each a warm-up, then timed runs, every answer equal to its oracle."""
+    import torch
+
+    from auron_tpu_torch.columnar import batch as batch_mod
+    from auron_tpu_torch.models import tpcds
+
+    paths = written["paths"]
+    orc_paths = {**paths, "store_sales": written["orc_dir"]}
+    sorted_paths = {**paths, "store_sales": sorted_path}
+    nov = [tpcds.month_filter(data)]
+    q42_want, q3_want = tpcds.q42_class_oracle(data), tpcds.q3_class_oracle(data)
+    q93_want = ORACLES.get("q93") or tpcds.q93_class_oracle(data)
+
+    def q42_check(got):
+        assert got["brand"].shape == (10,) and all(math.isfinite(x) for x in got["rev"]), got
+        assert _np_equal(got["brand"], q42_want["brand"]), (got["brand"], q42_want["brand"])
+        _assert_close(got["rev"], q42_want["rev"])
+
+    reads = {
+        "q42": (lambda st: tpcds.run_q42_files(paths, "cuda", stats=st), q42_check),
+        "q93": (lambda st: tpcds.run_q93_files(paths, device="cuda", stats=st),
+                lambda got: _assert_q93(got, q93_want)),
+        "q3": (lambda st: tpcds.run_q3_files(paths, device="cuda", stats=st),
+               lambda got: _assert_q3(got, q3_want)),
+        "q42 (orc)": (lambda st: tpcds.run_q42_files(orc_paths, "cuda", stats=st,
+                                                     fact_fmt="orc"), q42_check),
+        "q3 (sorted)": (lambda st: tpcds.run_q3_files(
+            sorted_paths, device="cuda", stats=st, fact_schema=tpcds.RANGE_SORT_SCHEMA,
+            fact_filters=nov), lambda got: _assert_q3(got, q3_want)),
+    }
+    out: dict = {"sort_checks": []}
+    for name, (run, check) in reads.items():
+        record: list = []
+        with _recording_sorts(record):
+            check(run({}))  # warm-up; its kernel sorts are checked here
+        out["sort_checks"] += check_sorts(f"{name} (files)", record)
+        del record
+        mem = (convert or {}).get(f"{FILES_IN_MEMORY[name]} (converted)")
+        mem_walls = [r["wall_s"] for r in mem["runs"]] if mem else None
+        mem_txt = ("not run" if mem_walls is None
+                   else ", ".join(f"{w:.4f}" for w in mem_walls) + " s")
+        for i in range(FILES_TIMED_RUNS):
+            _reset_launches()
+            batch_mod.reset_ingest_stats()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            st: dict = {}
+            t0 = time.perf_counter()
+            got = run(st)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _launches()
+            peak = torch.cuda.max_memory_allocated()
+            ingest = batch_mod.ingest_stats()
+            check(got)
+            assert (launches["murmur3_pmod"], launches["bitonic_sort"]) == \
+                FILES_LAUNCHES[name], (name, launches)
+            scan = {k.split(".", 1)[1]: v for k, v in st["counters"].items()
+                    if k.split(".")[0] in ("ParquetScanExec", "OrcScanExec")}
+            timers = {k: v for k, v in st["timers"].items()
+                      if k.split(".")[0] in ("ParquetScanExec", "OrcScanExec")}
+            pruned = ""
+            if name == "q3 (sorted)":
+                assert scan.get("row_groups_pruned", 0) > 0, scan
+                pruned = (f", {scan['row_groups_pruned']} of the sorted files' "
+                          f"{sorted_groups} row groups pruned by their statistics")
+            print(f"{name} (files, run {i}): wall {wall:.4f} s (in memory, phase 19: "
+                  f"{mem_txt}){pruned}, stages "
+                  f"{', '.join(f'{w:.4f}' for w in st['stage_s'])} s, scan timers "
+                  f"{ {k: round(v, 4) for k, v in sorted(timers.items())} }, scan counters "
+                  f"{scan}, ingest {ingest['ingest_bytes']:,} B in {ingest['ingest_s']:.4f} s "
+                  f"({ingest['zerocopy_planes']} zero-copy, {ingest['copied_planes']} copied "
+                  f"planes), peak {peak / 2**30:.2f} GiB, K1 {launches['murmur3_pmod']} K3 "
+                  f"{launches['bitonic_sort']} K4 {launches['bitonic_merge']}; equal to the "
+                  f"oracle", flush=True)
+            out.setdefault(name, {"runs": [], "in_memory_wall_s": mem_walls})["runs"].append(
+                {"wall_s": wall, "launches": launches, "stage_s": st["stage_s"],
+                 "scan_timers": timers, "scan_counters": scan, "ingest": ingest,
+                 "peak_bytes": peak})
+    assert out["sort_checks"], "q42's sort was not checked"
+    return out
+
+
+def run_files_phase(data, seed: int, kernels_checked: bool, convert: dict | None) -> dict:
+    """Phase 20: the Parquet and ORC scans and sinks. Writes the tables into
+    a temporary directory on local disk (removed at the end), then reads
+    them through Spark-shaped FileSourceScanExec host plans. Needs pyarrow
+    with pyarrow.orc. Without phase 3 (``kernels_checked`` False) K1 and K2
+    are held against their plain versions here."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    try:
+        import pyarrow.orc  # noqa: F401
+    except ImportError as e:
+        raise RuntimeError(f"phase 20 needs pyarrow.orc (the ORC sink and scan): {e}") from e
+    from auron_tpu_torch.models import tpcds
+
+    if not kernels_checked:
+        check_partition_kernel(seed)
+        check_histogram_kernel(seed)
+    root = tempfile.mkdtemp(prefix="auron_files_")
+    try:
+        t0 = time.perf_counter()
+        fact = tpcds.to_batches(data.store_sales, 4, device="cuda")
+        torch.cuda.synchronize()
+        print(f"fact table in 4 partitions on the card in {time.perf_counter() - t0:.2f} s; "
+              f"files under {root}", flush=True)
+        out = {"writes": _run_file_writes(data, root, fact)}
+        out["sorted write"] = _run_sorted_write(data, root, fact)
+        del fact
+        out["reads"] = _run_file_reads(data, out["writes"], out["sorted write"]["path"],
+                                       sum(out["sorted write"]["row_groups"]), convert)
+        out["bytes_written"] = tpcds.dir_bytes(root)
+        print(f"phase 20 wrote {out['bytes_written']:,} B of files", flush=True)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def report_graph_cache() -> None:
     """Print the CUDA-graph cache's resident bytes, graphs and evictions
     over the script, and fail if it holds more than its cap (a quarter of
@@ -3248,6 +3575,8 @@ def main(argv=None) -> int:
                     help="run phases 1, 2 and 18 only (no kernel table, no status line)")
     ap.add_argument("--convert-only", action="store_true",
                     help="run phases 1, 2 and 19 only (no kernel table, no status line)")
+    ap.add_argument("--files-only", action="store_true",
+                    help="run phases 1, 2 and 20 only (no kernel table, no status line)")
     ap.add_argument("--time-sorts", action="store_true",
                     help="only build and time the bitonic kernels at the sort shapes "
                          "(one JSON line, no status line)")
@@ -3361,6 +3690,16 @@ def main(argv=None) -> int:
         with open(os.path.join(REPO_DIR, "chiprun_out", "chip_smoke_convert.json"), "w") as f:
             json.dump({"device": kind, "nvidia_smi": smi, "convert": convert,
                        "phase_s": phase_s}, f, indent=1)
+        return 0
+
+    if args.files_only:
+        data = tpcds.generate(args.sf, args.seed)
+        files = run_files_phase(data, args.seed, kernels_checked=False, convert=None)
+        phase_done("20")
+        os.makedirs(os.path.join(REPO_DIR, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(REPO_DIR, "chiprun_out", "chip_smoke_files.json"), "w") as f:
+            json.dump({"device": kind, "nvidia_smi": smi, "files": files, "phase_s": phase_s},
+                      f, indent=1)
         return 0
 
     # 3. kernels against their plain versions
@@ -3501,7 +3840,13 @@ def main(argv=None) -> int:
     del fact
     phase_done("19")
 
-    # 20. every kernel sort and run merge of the main paths, held against the
+    # 20. the Parquet and ORC sinks and scans: the tables written by
+    # converted plans, then q42, q93 and q3 read from those files (after
+    # phase 19, which fails if pyarrow was loaded)
+    files = run_files_phase(data, args.seed, kernels_checked=True, convert=convert)
+    phase_done("20")
+
+    # 21. every kernel sort and run merge of the main paths, held against the
     # plain network on the card at its own operands
     checks["main_path_sorts"] = {
         **{f"q3-mesh ({m})": q3_mesh[m]["sort_checks"] for m in q3_mesh},
@@ -3515,7 +3860,9 @@ def main(argv=None) -> int:
         **{name: r["sort_checks"] for name, r in decimal.items() if r["sort_checks"]},
         "q42 (plan IR)": plan_ir["sort_checks"],
         "q42 (converted)": convert["sort_checks"],
-        "range sort (converted)": convert["range sort (converted)"]["sort_checks"]}
+        "range sort (converted)": convert["range sort (converted)"]["sort_checks"],
+        "reads (files)": files["reads"]["sort_checks"],
+        "sorted write": files["sorted write"]["sort_checks"]}
     sort_err = max(s["max_abs_err"] for v in checks["main_path_sorts"].values() for s in v)
     for name in ("bitonic_sort", "bitonic_merge"):
         checks["max_abs_err"][name] = max(checks["max_abs_err"][name], sort_err)
@@ -3553,7 +3900,11 @@ def main(argv=None) -> int:
                 if isinstance(r, dict) and "runs" in r for i, run in enumerate(r["runs"])},
              **{f"{'q93 (converted, C library)' if label == 'c_host' else label} run {i}":
                 run["launches"] for label, r in convert.items()
-                if isinstance(r, dict) and "runs" in r for i, run in enumerate(r["runs"])}}
+                if isinstance(r, dict) and "runs" in r for i, run in enumerate(r["runs"])},
+             **{f"{name} (files) run {i}": run["launches"]
+                for name, r in files["reads"].items() if name != "sort_checks"
+                for i, run in enumerate(r["runs"])},
+             "sorted write": files["sorted write"]["launches"]}
     kernels = []
     for name, source, replaces in (
         ("bitonic_sort", "auron_tpu_torch/csrc/bitonic.cu", "auron_tpu/ops/bitonic.py:145"),
@@ -3583,8 +3934,9 @@ def main(argv=None) -> int:
                    "tail": tail, "window": window, "spill": spill, "q33": q33,
                    "join_tail_sweep": sweep, "predictor_ab": ab, "decimal": decimal,
                    "fusion": fused, "generate": gen, "bridge": bridge, "plan_ir": plan_ir,
-                   "convert": convert, "phase_s": phase_s, "kernels": kernels}, f, indent=1)
-    phase_done("20")
+                   "convert": convert, "files": files, "phase_s": phase_s, "kernels": kernels},
+                  f, indent=1)
+    phase_done("21")
     report_graph_cache()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,8 +7,10 @@ pyarrow's exported arrays and streams import into the port (and
 decodes with pyarrow and encodes with ``Batch.from_numpy``
 (``torch_arrow.pyarrow_ingest``; exactly: the same codes, vocabularies,
 values and validity), under ``exec.scan.zerocopy`` on and off; the port's
-exports read back in pyarrow equal to ``Batch.to_arrow`` (exactly); every
-release callback runs exactly once. Inputs come from a seeded numpy generator."""
+exports (``Batch.to_arrow``) read back in pyarrow equal to a reference
+egress that builds each column with pyarrow (``torch_arrow.pyarrow_egress``;
+exactly); every release callback runs exactly once. Inputs come from a
+seeded numpy generator."""
 
 import ctypes
 import datetime
@@ -25,7 +27,8 @@ from auron_tpu_torch.columnar import batch as PB
 from auron_tpu_torch.columnar.batch import Batch
 from auron_tpu_torch.utils.config import Configuration
 from torch_arrow import (
-    COLUMNS, SLICES, assert_batches_equal, columns, export, pyarrow_ingest, record_batch,
+    COLUMNS, SLICES, assert_batches_equal, columns, export, pyarrow_egress, pyarrow_ingest,
+    record_batch,
 )
 
 @pytest.mark.parametrize("sl", SLICES, ids=["whole", "sliced", "empty"])
@@ -45,13 +48,15 @@ def test_pyarrow_array_imports_equal_to_from_arrow(name, sl):
 @pytest.mark.parametrize("name", COLUMNS)
 def test_port_export_reads_in_pyarrow(name, sl):
     """A port batch's ``to_host_arrow`` exported through C structs reads in
-    ``pa.RecordBatch._import_from_c`` equal to ``Batch.to_arrow`` (exact)."""
+    ``pa.RecordBatch._import_from_c`` equal to the reference egress (exact),
+    and ``Batch.to_arrow`` gives the same batch."""
     b = Batch.from_arrow(record_batch(name, sl), device="cpu")
     arr, sch = C.ArrowArray(), C.ArrowSchema()
     C.export_batch(b.to_host_arrow(), ctypes.addressof(arr), ctypes.addressof(sch))
     got = pa.RecordBatch._import_from_c(ctypes.addressof(arr), ctypes.addressof(sch))
-    assert got.to_pylist() == b.to_arrow().to_pylist()
+    assert got.to_pylist() == pyarrow_egress(b).to_pylist()
     assert got.schema.equals(b.schema.to_arrow())
+    assert b.to_arrow().equals(got)
 
 
 def test_whole_record_batch_round_trips_through_the_port():

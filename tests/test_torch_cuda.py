@@ -1329,3 +1329,39 @@ def test_converted_q42_on_card_equals_its_oracle():
     np.testing.assert_array_equal(got["brand"], want["brand"])
     np.testing.assert_allclose(got["rev"], want["rev"], rtol=1e-9, atol=0)
     assert st["stages"] == 1 and st["convert_s"] > 0 and st["response_bytes"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("late", ["true", "false"])
+def test_parquet_scan_on_card_equals_the_cpu_scan(tmp_path, late):
+    """A ``cuda`` task's Parquet scan yields batches on the card, equal to
+    the same scan on the CPU (statistics pruning and late materialization
+    on a pushed predicate)."""
+    _need_card()
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from auron_tpu_torch import types as T
+    from auron_tpu_torch.exec.base import ExecutionContext
+    from auron_tpu_torch.exec.scan import ParquetScanExec
+    from auron_tpu_torch.exprs.ir import BinaryOp, col, lit
+
+    rng = np.random.default_rng(3)
+    n = 20_000
+    path = str(tmp_path / "t.parquet")
+    pq.write_table(pa.table({"k": pa.array(np.arange(n, dtype=np.int64)),
+                             "s": pa.array([None if i % 13 == 0 else f"s{i % 40}"
+                                            for i in range(n)]),
+                             "f": pa.array(rng.normal(size=n))}), path, row_group_size=4096)
+    schema = T.Schema((T.Field("k", T.INT64, True), T.Field("s", T.STRING, True),
+                       T.Field("f", T.FLOAT64, True)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ctx = ExecutionContext(device=dev)
+        ctx.conf.set("parquet.late.materialization", late)
+        op = ParquetScanExec(schema, [path], [BinaryOp("gteq", col(0), lit(9000))])
+        batches = list(op.execute(0, ctx))
+        assert all(b.torch_device.type == dev for b in batches)
+        out[dev] = ([r for b in batches for r in b.to_arrow().to_pylist()],
+                    ctx.metrics.snapshot()["values"]["row_groups_pruned"])
+    assert out["cuda"] == out["cpu"] and out["cpu"][1] == 2 and len(out["cpu"][0]) == n - 9000

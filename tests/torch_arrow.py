@@ -3,7 +3,9 @@ test_torch_arrow_ipc.py, test_torch_bridge.py): one pyarrow array per
 Arrow format of the port's list, made from a seeded numpy generator, a
 reference ingest that decodes each column with pyarrow and builds the port
 batch with ``Batch.from_numpy`` (independent of the C import and of
-``from_host_arrow``), and an exact comparison of two port batches."""
+``from_host_arrow``), a reference egress that builds each column with
+pyarrow from ``Batch.to_numpy`` (independent of the C export and of
+``to_host_arrow``), and an exact comparison of two port batches."""
 
 import ctypes
 import decimal
@@ -120,6 +122,22 @@ def pyarrow_ingest(rb: pa.RecordBatch, device="cpu") -> Batch:
             dicts.append(None)
         masks.append(valid)
     return Batch.from_numpy(cols, schema, masks, dicts, None, device)
+
+
+def pyarrow_egress(b: Batch) -> pa.RecordBatch:
+    """The live rows of ``b`` as a RecordBatch with every column built by
+    pyarrow from ``Batch.to_numpy``."""
+    arrays = []
+    for f, (v, m) in zip(b.schema, b.to_numpy().values()):
+        if f.dtype.is_dict_encoded:
+            arrays.append(pa.array(list(v), type=f.dtype.to_arrow()))
+        elif f.dtype.kind == T.TypeKind.DECIMAL:
+            arrays.append(pa.array([T.decimal_from_unscaled(x, f.dtype.scale) if ok
+                                    else None for x, ok in zip(v.tolist(), m.tolist())],
+                                   type=f.dtype.to_arrow()))
+        else:
+            arrays.append(pa.array(v, mask=~m).cast(f.dtype.to_arrow()))
+    return pa.RecordBatch.from_arrays(arrays, schema=b.schema.to_arrow())
 
 
 def assert_batches_equal(got: Batch, want: Batch) -> None:
