@@ -15,7 +15,9 @@ with numpy arrays as buffers. The IPC reader and writer
 
 - Import (``import_batch``, ``import_stream``): every format of the types
   ``types.py`` holds — ``n b c s i l C S I L f g tdD tss: tsm: tsu: tsn:
-  d:p,s u U z Z +l +L`` (timestamps to microseconds) — and dictionary
+  d:p,s u U z Z +l +L +m +s`` (timestamps to microseconds; a map's
+  ``entries`` struct holds its key and value children, and its
+  keys-sorted flag is read and not needed) — and dictionary
   arrays (``ArrowSchema.dictionary``), with ``offset`` != 0,
   ``null_count`` = -1 and a NULL validity buffer.
   Buffers come out as read-only numpy views of the producer's memory: no
@@ -27,8 +29,8 @@ with numpy arrays as buffers. The IPC reader and writer
   host batches. The structs' release callbacks keep every buffer alive until
   the consumer releases the struct (a child moved out by the consumer is
   released on its own), as the specification requires.
-- MAP and STRUCT columns raise ``NotImplementedError`` naming ROADMAP
-  Queue 1 item 2.
+- A struct array's offset applies to its children, as the specification
+  says: ``HostArray`` keeps both offsets as they came.
 
 ``stats()`` counts imported and released arrays and exported structs still
 alive, so a test can hold each release to exactly once.
@@ -87,7 +89,6 @@ _STREAM_RELEASE = ctypes.CFUNCTYPE(None, ctypes.POINTER(ArrowArrayStream))
 
 _EIO = 5
 _MASK64 = (1 << 64) - 1
-_DEFERRED = "MAP and STRUCT columns are ROADMAP Queue 1 item 2 of the port"
 
 _lock = threading.Lock()
 _STATS = {"arrays_imported": 0, "arrays_released": 0, "struct_releases": 0}
@@ -123,7 +124,8 @@ def micros(raw: np.ndarray, unit: str) -> np.ndarray:
     return raw * mul if div == 1 else raw // div
 _STRINGS = {"u": (np.int32, T.STRING), "U": (np.int64, T.STRING),
             "z": (np.int32, T.BINARY), "Z": (np.int64, T.BINARY)}
-_LISTS = {"+l": np.int32, "+L": np.int64}
+#: formats with an offsets buffer and one child: lists and maps
+_LISTS = {"+l": np.int32, "+L": np.int64, "+m": np.int32}
 
 
 def _decimal_of(fmt: str) -> T.DataType:
@@ -133,9 +135,9 @@ def _decimal_of(fmt: str) -> T.DataType:
     return T.decimal(int(parts[0]), int(parts[1]))
 
 
-def dtype_of(fmt: str, children: Sequence = ()) -> T.DataType:
+def dtype_of(fmt: str, children: Sequence = (), names: Sequence = ()) -> T.DataType:
     """Logical type of an Arrow format string (``children``: the child
-    fields' types, for a list)."""
+    fields' types, ``names`` their names, for a list, map or struct)."""
     if fmt == "n":
         return T.NULL
     if fmt == "b":
@@ -148,10 +150,12 @@ def dtype_of(fmt: str, children: Sequence = ()) -> T.DataType:
         return _decimal_of(fmt)
     if fmt in _STRINGS:
         return _STRINGS[fmt][1]
+    if fmt == "+m":  # one child: the entries struct of (key, value)
+        return T.DataType(T.TypeKind.MAP, inner=tuple(children[0].inner[:2]))
     if fmt in _LISTS:
         return T.DataType(T.TypeKind.LIST, inner=(children[0],))
-    if fmt in ("+m", "+s"):
-        raise NotImplementedError(f"Arrow format {fmt!r}: {_DEFERRED}")
+    if fmt == "+s":
+        return T.DataType(T.TypeKind.STRUCT, inner=tuple(children), struct_names=tuple(names))
     raise NotImplementedError(f"Arrow format {fmt!r} is not in the port's types")
 
 
@@ -162,12 +166,17 @@ def format_of(dtype: T.DataType) -> str:
              T.TypeKind.INT16: "s", T.TypeKind.INT32: "i", T.TypeKind.INT64: "l",
              T.TypeKind.FLOAT32: "f", T.TypeKind.FLOAT64: "g", T.TypeKind.DATE32: "tdD",
              T.TypeKind.TIMESTAMP: "tsu:", T.TypeKind.STRING: "u", T.TypeKind.BINARY: "z",
-             T.TypeKind.LIST: "+l"}
+             T.TypeKind.LIST: "+l", T.TypeKind.MAP: "+m", T.TypeKind.STRUCT: "+s"}
     if k == T.TypeKind.DECIMAL:
         return f"d:{dtype.precision},{dtype.scale}"
     if k in canon:
         return canon[k]
-    raise NotImplementedError(f"Arrow format of {dtype}: {_DEFERRED}")
+    raise NotImplementedError(f"Arrow format of {dtype} is not in the port's types")
+
+
+def entries_dtype(map_type: T.DataType) -> T.DataType:
+    """The STRUCT type of a MAP's ``entries`` child."""
+    return T.DataType(T.TypeKind.STRUCT, inner=map_type.inner, struct_names=("key", "value"))
 
 
 # ---------------------------------------------------------------------------
@@ -248,14 +257,17 @@ class HostArray:
     def to_pylist(self) -> list:
         """Python values as pyarrow's ``to_pylist`` gives them (ints, floats,
         bools, str, bytes, Decimal, datetime.date, naive datetime.datetime,
-        lists), NULL rows None."""
+        lists, maps as lists of (key, value) tuples, structs as dicts), NULL
+        rows None."""
         if self.dictionary is not None:
             idx = self.typed(1, _FIXED[self.fmt][0], self.length, self.offset)
             entries = self.dictionary.to_pylist()
             return [entries[int(i)] if ok else None
                     for i, ok in zip(idx.tolist(), self.valid_mask().tolist())]
-        valid = self.valid_mask().tolist()
-        return [v if ok else None for v, ok in zip(self._values(), valid)]
+        vals = self._values()
+        if not self.nulls():
+            return vals
+        return [v if ok else None for v, ok in zip(vals, self.valid_mask().tolist())]
 
     def _values(self) -> list:
         f, n = self.fmt, self.length
@@ -288,7 +300,13 @@ class HostArray:
         if f in _LISTS:
             offs = self.offsets().tolist()
             items = self.children[0].to_pylist()
-            return [items[a:b] for a, b in zip(offs[:-1], offs[1:])]
+            if f == "+m":  # the entries struct's (key, value) rows
+                items = [tuple(e.values()) for e in items]
+            return list(map(items.__getitem__, map(slice, offs[:-1], offs[1:])))
+        if f == "+s":
+            cols = [_slice(c, self.offset, n).to_pylist() for c in self.children]
+            return [dict(zip(self.dtype.struct_names, row)) for row in zip(*cols)] \
+                if cols else [{} for _ in range(n)]
         raise NotImplementedError(f"Arrow format {f!r} is not in the port's types")
 
     def normalized(self) -> "HostArray":
@@ -327,6 +345,9 @@ class HostArray:
             child = _slice(self.children[0], int(offs[0]), int(offs[-1] - offs[0]))
             return HostArray(f, self.dtype, n, nulls, 0, (validity, _bytes(offs - offs[0])),
                              (child.normalized(),))
+        if f == "+s":
+            return HostArray(f, self.dtype, n, nulls, 0, (validity,),
+                             tuple(_slice(c, self.offset, n).normalized() for c in self.children))
         raise NotImplementedError(f"Arrow format {f!r} is not in the port's types")
 
 
@@ -408,6 +429,13 @@ def array_from_pylist(values: Sequence, dtype: T.DataType) -> HostArray:
     """An Arrow array of Python values (None = NULL), in the canonical format
     of ``dtype`` (``format_of``)."""
     n = len(values)
+    if dtype.is_integer or dtype.is_float:  # no NULL: one conversion
+        try:
+            plane = np.fromiter(values, dtype.numpy_dtype(), n)
+        except TypeError:  # a None among the values
+            pass
+        else:
+            return HostArray(format_of(dtype), dtype, n, 0, 0, (None, _bytes(plane)))
     valid = np.fromiter((v is not None for v in values), bool, n)
     nulls = n - int(np.count_nonzero(valid))
     validity = _pack(valid) if nulls else None
@@ -428,13 +456,30 @@ def array_from_pylist(values: Sequence, dtype: T.DataType) -> HostArray:
         words = np.array([(x & _MASK64, (x >> 64) & _MASK64) for x in u],
                          dtype=np.uint64).reshape(n, 2)
         return HostArray(fmt, dtype, n, nulls, 0, (validity, _bytes(words)))
-    if k == T.TypeKind.LIST:
-        lens = [len(v) if v is not None else 0 for v in values]
+    if k in (T.TypeKind.LIST, T.TypeKind.MAP):
+        present = [v for v in values if v is not None] if nulls else values
+        lens = np.fromiter(map(len, present), np.int64, len(present))
         offs = np.zeros(n + 1, np.int32)
+        if nulls:
+            full = np.zeros(n, np.int64)
+            full[valid] = lens
+            lens = full
         np.cumsum(lens, out=offs[1:])
-        child = array_from_pylist([x for v in values if v is not None for x in v],
-                                  dtype.inner[0])
+        items = list(itertools.chain.from_iterable(present))
+        if k == T.TypeKind.LIST:
+            child = array_from_pylist(items, dtype.inner[0])
+        else:  # the entries struct: keys never NULL
+            keys = [e[0] for e in items]
+            if any(x is None for x in keys):
+                raise ValueError("Invalid Map: key field cannot contain null values")
+            child = HostArray("+s", entries_dtype(dtype), len(items), 0, 0, (None,),
+                              (array_from_pylist(keys, dtype.inner[0]),
+                               array_from_pylist([e[1] for e in items], dtype.inner[1])))
         return HostArray(fmt, dtype, n, nulls, 0, (validity, _bytes(offs)), (child,))
+    if k == T.TypeKind.STRUCT:
+        kids = tuple(array_from_pylist([v.get(name) if v is not None else None for v in values], t)
+                     for name, t in zip(dtype.struct_names, dtype.inner))
+        return HostArray(fmt, dtype, n, nulls, 0, (validity,), kids)
     if k == T.TypeKind.BOOL:
         return HostArray(fmt, dtype, n, nulls, 0,
                          (validity, _pack([bool(v) if v is not None else False for v in values])))
@@ -443,7 +488,8 @@ def array_from_pylist(values: Sequence, dtype: T.DataType) -> HostArray:
         values = [(v - epoch).days if isinstance(v, _dt.date) else v for v in values]
     elif k == T.TypeKind.TIMESTAMP:
         values = [_micros(v) if isinstance(v, _dt.datetime) else v for v in values]
-    plane = np.array([v if v is not None else 0 for v in values], dtype=dtype.numpy_dtype())
+    plane = np.array(values if not nulls else [v if v is not None else 0 for v in values],
+                     dtype=dtype.numpy_dtype())
     return HostArray(fmt, dtype, n, nulls, 0, (validity, _bytes(plane)))
 
 
@@ -469,7 +515,8 @@ class _Field:
     def dtype(self) -> T.DataType:
         if self.dictionary is not None:
             return self.dictionary.dtype
-        return dtype_of(self.fmt, [c.dtype for c in self.children])
+        return dtype_of(self.fmt, [c.dtype for c in self.children],
+                        [c.name for c in self.children])
 
 
 def _cstr(addr) -> str:
@@ -610,6 +657,11 @@ def _host_array(a: ArrowArray, field: _Field, owner: _Owner, extra_offset: int =
         buffers = (validity, _view(owner, ptr[1], (end + 1) * odt.itemsize))
         kids = ctypes.cast(a.children, ctypes.POINTER(ctypes.POINTER(ArrowArray)))
         children = (_host_array(kids[0].contents, field.children[0], owner),)
+    elif fmt == "+s":  # its offset applies to the children, which keep theirs
+        buffers = (validity,)
+        kids = ctypes.cast(a.children, ctypes.POINTER(ctypes.POINTER(ArrowArray)))
+        children = tuple(_host_array(kids[i].contents, c, owner)
+                         for i, c in enumerate(field.children))
     else:
         dtype_of(fmt)  # raises naming the format
         raise NotImplementedError(f"Arrow format {fmt!r}")
@@ -808,25 +860,42 @@ def _fill_schema(s: ArrowSchema, fmt: str, name: str, nullable: bool, children: 
     s.release = _SCHEMA_RELEASE_PTR
 
 
-def _field_spec(a_fmt: str, dtype: T.DataType, name: str, nullable: bool, dictionary=None):
+def child_fields(dtype: T.DataType, entries: bool = False) -> list[T.Field]:
+    """The child fields Arrow gives a nested type: a list's ``item``, a
+    map's non-nullable ``entries`` struct, a struct's fields (``entries``:
+    the struct is a map's, whose ``key`` is non-nullable)."""
+    k = dtype.kind
+    if k == T.TypeKind.LIST:
+        return [T.Field("item", dtype.inner[0], True)]
+    if k == T.TypeKind.MAP:
+        return [T.Field("entries", entries_dtype(dtype), False)]
+    if k == T.TypeKind.STRUCT:
+        return [T.Field(n, t, not (entries and n == "key"))
+                for n, t in zip(dtype.struct_names, dtype.inner)]
+    return []
+
+
+def _field_spec(a_fmt: str, dtype: T.DataType, name: str, nullable: bool, dictionary=None,
+                entries: bool = False):
     children = []
-    if dtype.kind == T.TypeKind.LIST and dictionary is None:
-        inner = dtype.inner[0]
-        children = [_field_spec(format_of(inner), inner, "item", True)]
+    if dictionary is None:
+        children = [_field_spec(format_of(c.dtype), c.dtype, c.name, c.nullable,
+                                entries=dtype.kind == T.TypeKind.MAP)
+                    for c in child_fields(dtype, entries)]
     return (a_fmt, name, nullable, children, dictionary)
 
 
-def _column_spec(f: T.Field, col: HostArray | None):
+def _column_spec(f: T.Field, col: HostArray | None, entries: bool = False):
     if col is None:
-        return _field_spec(format_of(f.dtype), f.dtype, f.name, f.nullable)
+        return _field_spec(format_of(f.dtype), f.dtype, f.name, f.nullable, entries=entries)
     if col.dictionary is not None:
         d = col.dictionary
         return (col.fmt, f.name, f.nullable, [], _field_spec(d.fmt, d.dtype, "", True))
-    spec = _field_spec(col.fmt, f.dtype, f.name, f.nullable)
-    if col.fmt in _LISTS:  # the child's own format
-        c = col.children[0]
-        spec = (col.fmt, f.name, f.nullable, [_column_spec(T.Field("item", c.dtype), c)], None)
-    return spec
+    if col.children:  # the children's own formats
+        kids = [_column_spec(cf, c, entries=f.dtype.kind == T.TypeKind.MAP)
+                for cf, c in zip(child_fields(f.dtype, entries), col.children)]
+        return (col.fmt, f.name, f.nullable, kids, None)
+    return _field_spec(col.fmt, f.dtype, f.name, f.nullable)
 
 
 def _fill_array(a: ArrowArray, col: HostArray, keep: list, count: list) -> None:

@@ -20,7 +20,7 @@ arrays of ``columnar/arrow_c.py``:
 
 The types are those of ``arrow_c``: null, bool, signed and unsigned ints,
 floats, date32, timestamps (s, ms, us), decimal128, utf8/binary (and their
-large forms), list (and large list).
+large forms), list (and large list), struct and map, nested in each other.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ import numpy as np
 
 from auron_tpu_torch import types as T
 from auron_tpu_torch.columnar.arrow_c import (
-    HostArray, HostBatch, array_from_pylist, dtype_of, format_of,
+    HostArray, HostBatch, child_fields, array_from_pylist, dtype_of, format_of,
 )
 
 # ---------------------------------------------------------------------------
@@ -189,7 +189,8 @@ _INT_FMT = {(8, True): "c", (16, True): "s", (32, True): "i", (64, True): "l",
 _PLAIN = {"n": (_TYPE_NULL, []), "b": (_TYPE_BOOL, []), "f": (_TYPE_FLOAT, [("h", 1)]),
           "g": (_TYPE_FLOAT, [("h", 2)]), "tdD": (_TYPE_DATE, [("h", 0)]),
           "u": (_TYPE_UTF8, []), "U": (_TYPE_LARGE_UTF8, []), "z": (_TYPE_BINARY, []),
-          "Z": (_TYPE_LARGE_BINARY, []), "+l": (_TYPE_LIST, []), "+L": (_TYPE_LARGE_LIST, [])}
+          "Z": (_TYPE_LARGE_BINARY, []), "+l": (_TYPE_LIST, []), "+L": (_TYPE_LARGE_LIST, []),
+          "+s": (_TYPE_STRUCT, []), "+m": (_TYPE_MAP, [("B", 0)])}  # Map: keysSorted false
 
 
 def _pad8(b: bytes) -> bytes:
@@ -242,12 +243,15 @@ class _FieldSpec:
     dict_id: int | None = None  # dictionary-encoded (int32 indices)
 
 
-def _spec_of(f: T.Field, col: HostArray | None, dict_id: int | None = None) -> _FieldSpec:
-    fmt = col.fmt if col is not None and col.dictionary is None else format_of(f.dtype)
-    children = ()
-    if f.dtype.kind == T.TypeKind.LIST:
-        inner = col.children[0] if col is not None and col.dictionary is None else None
-        children = (_spec_of(T.Field("item", f.dtype.inner[0], True), inner),)
+def _spec_of(f: T.Field, col: HostArray | None, dict_id: int | None = None,
+             entries: bool = False) -> _FieldSpec:
+    """A field's spec; a dictionary-encoded one describes its value type
+    (with that type's children), as IPC writes dictionary fields."""
+    plain = col is not None and col.dictionary is None
+    fmt = col.fmt if plain else format_of(f.dtype)
+    kids = col.children if plain else [None] * len(child_fields(f.dtype))
+    children = tuple(_spec_of(cf, c, entries=f.dtype.kind == T.TypeKind.MAP)
+                     for cf, c in zip(child_fields(f.dtype, entries), kids))
     return _FieldSpec(f.name, f.nullable, fmt, children, dict_id)
 
 
@@ -361,7 +365,8 @@ class _Field:
 
     @property
     def dtype(self) -> T.DataType:
-        return dtype_of(self.fmt, [c.dtype for c in self.children])
+        return dtype_of(self.fmt, [c.dtype for c in self.children],
+                        [c.name for c in self.children])
 
 
 def _fmt_of(type_id: int, t: _FlatTable | None, children: tuple) -> str:
@@ -389,8 +394,6 @@ def _fmt_of(type_id: int, t: _FlatTable | None, children: tuple) -> str:
     for fmt, (tid, _) in _PLAIN.items():
         if tid == type_id and fmt not in ("f", "g", "tdD"):
             return fmt
-    if type_id in (_TYPE_MAP, _TYPE_STRUCT):
-        dtype_of("+m" if type_id == _TYPE_MAP else "+s")  # raises naming ROADMAP item 2
     raise NotImplementedError(f"Arrow IPC type {type_id} is not in the port's types")
 
 
@@ -436,6 +439,9 @@ def _read_array(field: _Field, nodes: Iterator, bufs: Iterator, body, dictionari
         offsets, data = _buffer(body, next(bufs)), _buffer(body, next(bufs))
         return HostArray(fmt, field.dtype, length, nulls, 0,
                          (validity, offsets, data if data is not None else np.zeros(0, np.uint8)))
+    if fmt == "+s":  # the validity buffer alone, then the children
+        children = tuple(_read_array(c, nodes, bufs, body, dictionaries) for c in field.children)
+        return HostArray(fmt, field.dtype, length, nulls, 0, (validity,), children)
     values = _buffer(body, next(bufs))
     children = tuple(_read_array(c, nodes, bufs, body, dictionaries) for c in field.children)
     return HostArray(fmt, field.dtype, length, nulls, 0, (validity, values), children)

@@ -9,14 +9,17 @@ set of dense tensors:
   refine ``sel`` instead of compacting;
 - capacities are powers of two (``bucket_capacity``), as in the JAX package,
   so operator code and results line up batch for batch;
-- dictionary-encoded columns (STRING/BINARY, wide decimals, LIST) carry
-  int32 codes on the device; the vocabulary is a numpy object array on the
-  host (a wide decimal's holds ``decimal.Decimal`` values at the column's
-  scale, a LIST's one Python list per entry). A LIST column ingests as
+- dictionary-encoded columns (STRING/BINARY, wide decimals, LIST, MAP,
+  STRUCT) carry int32 codes on the device; the vocabulary is a numpy object
+  array on the host (a wide decimal's holds ``decimal.Decimal`` values at
+  the column's scale, a nested one the values pyarrow's ``to_pylist``
+  gives: a LIST entry a list, a MAP entry a list of ``(key, value)``
+  tuples, a STRUCT entry a dict of every field). A nested column ingests as
   identity codes into a per-batch vocabulary (reference
-  ``columnar/batch.py:469-475``): lists cannot be ordered or hashed, so
-  vocabularies of lists merge by ``vocab_key`` (lists as tuples) and are
-  always filled entry by entry (``object_array``);
+  ``columnar/batch.py:469-475``): its values cannot be ordered or hashed,
+  so such vocabularies merge by ``vocab_key`` (lists and pairs as tuples,
+  dicts as sorted tuples) or, in ``device_concat``, are laid end to end,
+  and are always filled entry by entry (``object_array``);
 - a decimal64 column (precision <= 18) is an int64 plane of unscaled
   values; a value outside int64 ingests as NULL (reference
   ``columnar/batch.py:499-512``).
@@ -40,6 +43,7 @@ spent. ``from_arrow`` is the same ingest, through pyarrow's C export.
 
 from __future__ import annotations
 
+import functools
 import threading
 import time
 from dataclasses import dataclass
@@ -100,33 +104,99 @@ def object_array(entries: Sequence) -> np.ndarray:
 
 
 def vocab_key(v):
-    """Hashable key of a vocabulary entry: lists (at any depth) become
-    tuples (reference ``columnar/batch.py:_vocab_key``)."""
-    if isinstance(v, list):
+    """Hashable key of a vocabulary entry: lists and tuples (at any depth)
+    become tuples, dicts sorted tuples of their items (reference
+    ``columnar/batch.py:_vocab_key``)."""
+    if isinstance(v, (list, tuple)):
         return tuple(vocab_key(x) for x in v)
+    if isinstance(v, dict):
+        return tuple(sorted((k, vocab_key(x)) for k, x in v.items()))
     return v
 
 
-def list_vocab(col, valid: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """(identity int32 codes, per-batch vocabulary) of a host LIST column: a
-    NULL row keeps its code with an empty list behind it."""
+def empty_entry(dtype: T.DataType):
+    """The filler a vocabulary holds behind a NULL row or a failed entry
+    (reference ``columnar/batch.py:350-364``): an empty list or map, a
+    struct of NULL fields, zero, an empty string or bytes."""
+    k = dtype.kind
+    if k in (T.TypeKind.LIST, T.TypeKind.MAP):
+        return []
+    if k == T.TypeKind.STRUCT:
+        return dict.fromkeys(dtype.struct_names)
+    if k == T.TypeKind.BINARY:
+        return b""
+    if k == T.TypeKind.DECIMAL:
+        return T.decimal_from_unscaled(0, dtype.scale)
+    return ""
+
+
+def _as_list(v) -> list:
+    return v if type(v) is list else list(v)
+
+
+@functools.lru_cache(maxsize=None)
+def nested_normalizer(dtype: T.DataType):
+    """The function that puts a non-NULL ``dtype`` value in the port's
+    Python form, the form pyarrow's ``to_pylist`` gives and ``pa.array``
+    takes: a LIST a list, a MAP a list of ``(key, value)`` tuples (given as
+    pairs, as ``{"key", "value"}`` dicts or as a mapping), a STRUCT a dict
+    of every field (given as a dict or a sequence in field order). A NULL
+    map key raises ``ValueError`` as Arrow's conversion does; a value
+    already in the port's form comes back as it is (the same list). Built
+    once per type."""
+    k = dtype.kind
+    if not dtype.is_nested:
+        return lambda v: v
+
+    def inner(t):
+        return nested_normalizer(t) if t.is_nested else None
+
+    if k == T.TypeKind.LIST:
+        el = inner(dtype.inner[0])
+        return (lambda v: [x if x is None else el(x) for x in v]) if el else _as_list
+    if k == T.TypeKind.MAP:
+        kf, vf = (inner(t) for t in dtype.inner)
+
+        def norm_map(v):
+            if not (kf or vf) and type(v) is list and all(
+                    type(e) is tuple and len(e) == 2 and e[0] is not None for e in v):
+                return v
+            out = []
+            for e in (v.items() if isinstance(v, dict) else v):
+                key, val = (e["key"], e["value"]) if isinstance(e, dict) else e
+                if key is None:
+                    raise ValueError("Invalid Map: key field cannot contain null values")
+                out.append((kf(key) if kf else key,
+                            vf(val) if vf and val is not None else val))
+            return out
+        return norm_map
+    names = dtype.struct_names
+    fns = [inner(t) for t in dtype.inner]
+
+    def norm_struct(v):
+        vals = ([v.get(n) for n in names] if isinstance(v, dict)
+                else list(v) + [None] * (len(names) - len(v)))
+        return {n: f(x) if f and x is not None else x for n, x, f in zip(names, vals, fns)}
+    return norm_struct
+
+
+def nested_vocab(col, valid: np.ndarray, dtype: T.DataType) -> tuple[np.ndarray, np.ndarray]:
+    """(identity int32 codes, per-batch vocabulary) of a host LIST, MAP or
+    STRUCT column (``nested_normalizer`` of each row): a NULL row keeps its
+    code with ``empty_entry`` behind it."""
     n = len(col)
-    vocab = object_array([list(e) if ok and e is not None else []
-                          for e, ok in zip(col, valid)]) if n else object_array([[]])
-    return np.arange(n, dtype=np.int32), vocab
+    if not n:
+        return np.zeros(0, np.int32), empty_dict(dtype)
+    norm = nested_normalizer(dtype)
+    entries = [norm(e) if ok and e is not None else empty_entry(dtype)
+               for e, ok in zip(col, valid)]
+    return np.arange(n, dtype=np.int32), object_array(entries)
 
 
 def empty_dict(dtype: T.DataType) -> np.ndarray:
     """One-entry sentinel vocabulary (code 0 must always decode)."""
     out = np.empty(1, dtype=object)
-    if dtype.kind == T.TypeKind.LIST:
-        out[0] = []
-    elif dtype.kind == T.TypeKind.BINARY:
-        out[0] = b""
-    elif dtype.kind == T.TypeKind.DECIMAL:
-        out[0] = T.decimal_from_unscaled(0, dtype.scale)
-    else:
-        out[0] = ""
+    out[0] = empty_entry(dtype)
     return out
 
 
@@ -200,8 +270,9 @@ class Batch:
     ) -> "Batch":
         """Ingest host numpy columns (one per schema field). For a
         dict-encoded field the column is either the raw values (strings,
-        Decimals of a wide decimal, or a sequence of Python lists of a LIST;
-        encoded here) or, when ``dicts[i]`` is given, int32 codes into it. A
+        Decimals of a wide decimal, or a sequence of the Python values of a
+        LIST, MAP or STRUCT, in any form ``nested_normalizer`` takes; encoded
+        here) or, when ``dicts[i]`` is given, int32 codes into it. A
         decimal64 column is int64 unscaled values or Decimal objects."""
         dev = resolve_device(device)
         n = len(columns[0]) if columns else 0
@@ -209,15 +280,15 @@ class Batch:
         assert cap >= n, (cap, n)
         vals, masks, out_dicts = [], [], []
         for i, f in enumerate(schema):
-            col = columns[i] if f.dtype.kind == T.TypeKind.LIST else np.asarray(columns[i])
+            col = columns[i] if f.dtype.is_nested else np.asarray(columns[i])
             valid = None if validity is None else validity[i]
             valid = np.ones(n, bool) if valid is None else np.asarray(valid, bool)
             d = None
             if f.dtype.is_dict_encoded:
                 if dicts is not None and dicts[i] is not None:
                     codes, d = np.asarray(col).astype(np.int32), dicts[i]
-                elif f.dtype.kind == T.TypeKind.LIST:
-                    codes, d = list_vocab(col, valid)
+                elif f.dtype.is_nested:
+                    codes, d = nested_vocab(col, valid, f.dtype)
                 elif f.dtype.is_wide_decimal:
                     codes, d = wide_decimal_vocab(col, valid, f.dtype.scale)
                 else:
@@ -292,11 +363,11 @@ class Batch:
         ``device`` (``capacity`` slots, by default ``bucket_capacity``):
         strings and binaries dictionary-encoded into the per-batch
         vocabulary, decimal128 at p <= 18 into the decimal64 plane (a value
-        outside int64 as NULL), wider ones into the wide vocabulary, LIST as
-        identity codes. Every host plane crosses through its own pinned
-        staging buffer (``_to_device``); a column with NULLs crosses its
-        validity bitmap packed, unpacked and its NULL lanes zeroed on the
-        device."""
+        outside int64 as NULL), wider ones into the wide vocabulary, LIST,
+        MAP and STRUCT as identity codes. Every host plane crosses through
+        its own pinned staging buffer (``_to_device``); a column with NULLs
+        crosses its validity bitmap packed, unpacked and its NULL lanes
+        zeroed on the device."""
         t0 = time.perf_counter()
         dev = resolve_device(device)
         n = hb.length
@@ -378,7 +449,7 @@ class Batch:
             if f.dtype.is_dict_encoded:
                 d = self.dicts[i]
                 dec = [d[c] if ok else None for c, ok in zip(v.tolist(), m.tolist())]
-                if f.dtype.kind == T.TypeKind.LIST:
+                if f.dtype.is_nested:
                     v = object_array(dec)
                 else:
                     v = np.empty(len(dec), dtype=object)
@@ -537,8 +608,8 @@ def host_plane(arr: HostArray, dtype: T.DataType):
     k = dtype.kind
     if k == T.TypeKind.NULL:
         return None, False, None, None
-    if arr.dictionary is not None and (k == T.TypeKind.LIST or not dtype.is_dict_encoded):
-        arr = arr.normalized()  # a dictionary of lists or of fixed-width values: decoded
+    if arr.dictionary is not None and (dtype.is_nested or not dtype.is_dict_encoded):
+        arr = arr.normalized()  # a dictionary of nested or fixed-width values: decoded
     validity = arr.validity_bits() if arr.nulls() else None
     fmt = arr.fmt if arr.fmt[:2] != "ts" else arr.fmt[:3]
     if arr.dictionary is not None:
@@ -566,8 +637,8 @@ def host_plane(arr: HostArray, dtype: T.DataType):
             validity = arr.valid_mask() & fits
         return lo, False, validity, None
     valid = arr.valid_mask()
-    if k == T.TypeKind.LIST:
-        codes, vocab = list_vocab(arr.to_pylist(), valid)
+    if dtype.is_nested:
+        codes, vocab = nested_vocab(arr.to_pylist(), valid, dtype)
     elif dtype.is_wide_decimal:
         codes, vocab = wide_decimal_vocab(object_array(arr.to_pylist()), valid, dtype.scale)
     else:
@@ -599,7 +670,7 @@ def merge_vocab(entry_lists: Sequence) -> tuple[np.ndarray, list[np.ndarray]]:
     for entries in entry_lists:
         r = np.empty(len(entries), dtype=np.int32)
         for i, s in enumerate(entries):
-            k = vocab_key(s) if type(s) is list else s
+            k = vocab_key(s) if isinstance(s, (list, dict, tuple)) else s
             if k in vocab:
                 r[i] = vocab[k]
             else:
@@ -624,7 +695,9 @@ def unify_dict(batches: Sequence[Batch], col: int) -> tuple[np.ndarray, list[np.
 def device_concat(batches: Sequence[Batch]) -> Batch:
     """Concatenate batches on the device. Output capacity is the bucket of
     the summed input capacities (dead rows keep sel=0); dictionary columns
-    are unified on the host and their codes remapped with one gather."""
+    are unified on the host and their codes remapped with one gather, and
+    a nested column's vocabularies (identity-coded, one entry per row) are
+    laid end to end, each batch's codes shifted by the entries before it."""
     assert batches
     if len(batches) == 1:
         return batches[0]
@@ -644,7 +717,12 @@ def device_concat(batches: Sequence[Batch]) -> Batch:
     for ci, f in enumerate(schema):
         vs = [b.col_values(ci) for b in batches]
         d = None
-        if f.dtype.is_dict_encoded:
+        if f.dtype.is_nested:
+            sizes = [len(b.dicts[ci]) for b in batches]
+            d = np.concatenate([b.dicts[ci] for b in batches])
+            starts = np.cumsum([0] + sizes[:-1]).tolist()
+            vs = [v.clamp(0, n - 1) + s for v, n, s in zip(vs, sizes, starts)]
+        elif f.dtype.is_dict_encoded:
             d, remaps = merge_vocab([b.dicts[ci] for b in batches])
             vs = [
                 torch.from_numpy(r).to(dev)[v.clamp(0, len(r) - 1).long()]
@@ -745,8 +823,17 @@ def host_pylists(cvs, metrics=None) -> list[list]:
     out = []
     for j, cv in enumerate(cvs):
         vals, mask = host[2 * j], host[2 * j + 1]
-        out.append([_python_value(v, cv.dtype, cv.dict) if ok else None
-                    for v, ok in zip(vals, mask.tolist())])
+        dt = cv.dtype
+        if dt.is_dict_encoded:  # the vocabulary's entries, gathered by code
+            d = cv.dict
+            col = d[np.clip(vals, 0, len(d) - 1)].tolist()
+        elif dt.is_integer or dt.is_float or dt.kind == T.TypeKind.BOOL:
+            col = vals.tolist()
+        else:
+            col = [_python_value(v, dt, None) for v in vals]
+        for i in np.flatnonzero(~mask).tolist():
+            col[i] = None
+        out.append(col)
     return out
 
 
@@ -766,15 +853,15 @@ def _physical_of(x, dtype: T.DataType):
 def column_from_pylist(values: list, dtype: T.DataType, cap: int, device):
     """(values tensor[cap], validity[cap], vocabulary or None) of a host column
     given as Python values (None = NULL), through the port's own encoders
-    (``Batch.from_numpy``): strings dictionary-encoded, lists as identity
-    codes, decimals at the type's scale."""
+    (``Batch.from_numpy``): strings dictionary-encoded, nested values as
+    identity codes, decimals at the type's scale."""
     n = len(values)
     valid = np.array([x is not None for x in values], dtype=bool)
     if dtype.kind == T.TypeKind.NULL:
         return (torch.zeros(cap, dtype=torch.int8, device=resolve_device(device)),
                 torch.zeros(cap, dtype=torch.bool, device=resolve_device(device)), None)
     if dtype.is_dict_encoded or dtype.kind == T.TypeKind.DECIMAL:
-        col = values if dtype.kind == T.TypeKind.LIST else object_array(values)
+        col = values if dtype.is_nested else object_array(values)
         if dtype.kind == T.TypeKind.DECIMAL and not dtype.is_wide_decimal:
             col = object_array([x if x is not None else 0 for x in values])
     else:

@@ -4,9 +4,7 @@ of ``auron_tpu/convert/exprs.py``).
 Every host expression either translates to a native ``ir.Expr``, or — when
 ``udf.fallback.enable`` is on and the host registered the function — is
 wrapped as a ``HostUDF`` evaluated through the bridge callback. Otherwise
-the failure propagates and marks the owning operator unconvertible. A
-MAP/STRUCT function of ``functions/registry.DEFERRED`` converts as in the
-reference; only its execution raises.
+the failure propagates and marks the owning operator unconvertible.
 """
 
 from __future__ import annotations
@@ -19,7 +17,6 @@ from auron_tpu_torch.convert.hostplan import parse_type
 from auron_tpu_torch.exprs import cast as cast_kernels
 from auron_tpu_torch.exprs import ir
 from auron_tpu_torch.functions import registry  # loads the full function registry
-from auron_tpu_torch.functions.registry import DEFERRED
 from auron_tpu_torch.ops.sortkeys import SortSpec
 from auron_tpu_torch.utils.config import UDF_FALLBACK_ENABLE, Configuration
 
@@ -67,7 +64,7 @@ def convert_expr(e: dict, conf: Configuration, udf_registry: dict | None = None)
 
 
 def _known_function(name: str) -> bool:
-    return registry.lookup(name) is not None or name in DEFERRED
+    return registry.lookup(name) is not None
 
 
 def _convert_expr(e: dict, conf: Configuration, udf_registry: dict | None = None) -> ir.Expr:

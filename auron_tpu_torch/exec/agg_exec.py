@@ -1,8 +1,8 @@
 """Hash-aggregate exec: partial / partial-merge / final modes.
 
 Port of ``auron_tpu/exec/agg_exec.py`` for sum / count / count_star / avg /
-min / max over fixed-width keys and inputs, with the two grouping paths the
-slice runs:
+min / max / first / collect_list / collect_set, with the two grouping
+paths the slice runs:
 
 - the DENSE direct-address table (``_DenseAggState``, agg_exec.py:2118;
   the fold of ``_dense_update_jit``, :1959): up to three small-range
@@ -46,8 +46,12 @@ field name so that a merge or final stage recovers the input type) and
 the FINAL stage rebuilds the exact sums on the host (``_final_wide``; past
 38 digits -> NULL). min/max over a dictionary column (strings, wide
 decimals) reduce in the vocabulary's rank space. ``first`` and
-``first_ignores_null`` keep a ``#value`` and a ``#seen`` lane. collect and
-UDAF aggregates wait for later slices; the constructor rejects them.
+``first_ignores_null`` keep a ``#value`` and a ``#seen`` lane.
+``collect_list`` and ``collect_set`` keep an ``#items`` LIST state: each
+group's values as one vocabulary entry (``_reduce_collect``); as in the
+reference, an aggregate with one takes the generic path alone (no dense
+table, probe, merge-path or deferred counts). ``host_udaf`` waits for
+ROADMAP Queue 1 item 6b; the constructor rejects it.
 
 The incremental path (reference ``agg_exec.py:846-1090, 2810-3147``), on
 for CUDA tensors (``exec.agg.incremental.probe`` / ``.mergepath``, auto):
@@ -68,6 +72,7 @@ as a tensor).
 
 from __future__ import annotations
 
+import itertools
 import threading
 from collections import deque
 from contextlib import nullcontext
@@ -79,8 +84,8 @@ import torch
 
 from auron_tpu_torch import types as T
 from auron_tpu_torch.columnar.batch import (
-    Batch, bucket_capacity, compact_batch, compaction_bucket, device_concat, empty_dict,
-    prefix_slice,
+    Batch, _python_value, bucket_capacity, column_from_pylist, compact_batch, compaction_bucket,
+    device_concat, empty_dict, object_array, prefix_slice, vocab_key,
 )
 from auron_tpu_torch.exec.base import ExecOperator, ExecutionContext
 from auron_tpu_torch.exec.basic import batch_from_columns
@@ -107,7 +112,16 @@ PARTIAL = "partial"
 PARTIAL_MERGE = "partial_merge"
 FINAL = "final"
 
-_FUNCS = ("sum", "count", "count_star", "avg", "min", "max", "first", "first_ignores_null")
+#: the aggregates reduced on the host: each group's values become one entry
+#: of a LIST vocabulary (reference ``_has_host_aggs``)
+_HOST_FUNCS = ("collect_list", "collect_set")
+#: a PARTIAL aggregate with a host aggregate reduces its input batches
+#: coalesced up to this many rows (or an eighth of the memory budget): each
+#: reduce builds one Python list a group, so a group seen in several batches
+#: costs one list instead of one a batch plus a merge
+HOST_AGG_COALESCE_ROWS = 1 << 23
+_FUNCS = ("sum", "count", "count_star", "avg", "min", "max", "first",
+          "first_ignores_null") + _HOST_FUNCS
 #: the aggregates the dense table folds
 _DENSE_FUNCS = ("sum", "avg", "count", "count_star", "min", "max")
 
@@ -142,6 +156,8 @@ def final_type(a: AggExpr, in_t: T.DataType | None) -> T.DataType:
         return sum_type(in_t)
     if a.func == "avg":
         return avg_type(in_t)
+    if a.func in _HOST_FUNCS:
+        return T.DataType(T.TypeKind.LIST, inner=(in_t,))
     return in_t  # min/max/first
 
 
@@ -184,6 +200,8 @@ def intermediate_fields(a: AggExpr, in_t: T.DataType | None, prefix: str) -> lis
         return [T.Field(f"{prefix}#{a.func}", in_t, True)]
     if a.func in ("first", "first_ignores_null"):
         return [T.Field(f"{prefix}#value", in_t, True), T.Field(f"{prefix}#seen", T.BOOL, False)]
+    if a.func in _HOST_FUNCS:
+        return [T.Field(f"{prefix}#items", T.DataType(T.TypeKind.LIST, inner=(in_t,)), True)]
     raise ValueError(a.func)
 
 
@@ -191,6 +209,8 @@ def _input_type_from_intermediate(a: AggExpr, first_field: T.Field) -> T.DataTyp
     t = first_field.dtype
     if a.func in ("count", "count_star"):
         return None
+    if a.func in _HOST_FUNCS:
+        return t.inner[0]
     if a.func in ("sum", "avg"):
         if "#sum0p" in first_field.name:
             return T.decimal(int(first_field.name.rsplit("#sum0p", 1)[1]), t.scale)
@@ -238,6 +258,7 @@ class HashAggExec(ExecOperator):
         super().__init__([child], T.Schema(tuple(out_fields)))
         self.n_keys = len(key_fields)
         self.inter_schema = T.Schema(tuple(key_fields + inter_fields))
+        self._has_host_aggs = any(a.func in _HOST_FUNCS for a, _ in aggs)
 
     # ------------------------------------------------------------------
     # policy
@@ -276,7 +297,7 @@ class HashAggExec(ExecOperator):
                    for i in range(self.n_keys))
 
     def _mergepath_eligible(self, conf, device) -> bool:
-        return (self.n_keys >= 1 and self._keys_dict_free()
+        return (self.n_keys >= 1 and self._keys_dict_free() and not self._has_host_aggs
                 and self._fingerprint_on(conf, device)
                 and self._tri(AGG_INCREMENTAL_MERGEPATH, conf, device))
 
@@ -285,7 +306,7 @@ class HashAggExec(ExecOperator):
         every aggregate has a scatter-update form and no column it touches
         is dictionary-encoded (a narrow decimal input with a wide SUM type
         keeps the limb path)."""
-        if self.n_keys < 1 or not self._keys_dict_free():
+        if self.n_keys < 1 or self._has_host_aggs or not self._keys_dict_free():
             return False
         if not (self._fingerprint_on(conf, device)
                 and self._tri(AGG_INCREMENTAL_PROBE, conf, device)):
@@ -334,6 +355,17 @@ class HashAggExec(ExecOperator):
         # predictor, and a truncating mispredict recomputes the reduce from
         # the still-held batch
         probe = defer_win = defer_pred = win_guard = None
+        coalesce = self.mode == PARTIAL and self._has_host_aggs
+        pending: list = []
+        pending_rows = pending_bytes = 0
+
+        def flush_pending():
+            """Reduce the coalesced raw batches as one (input order kept)."""
+            nonlocal pending, pending_rows, pending_bytes
+            if pending:
+                big = device_concat(pending)
+                pending, pending_rows, pending_bytes = [], 0, 0
+                yield from feed_generic(big)
 
         def arm(device):
             """At the first batch, on its device: the sorted-state
@@ -346,7 +378,8 @@ class HashAggExec(ExecOperator):
             if self._probe_eligible(conf, device):
                 probe = _ProbeScatter(self, ctx, table)
                 memmgr.register(ctx, probe, spillable=False)
-            elif self.mode == PARTIAL and resolve_tri(conf.get(AGG_PARTIAL_DEFER), True):
+            elif (self.mode == PARTIAL and not self._has_host_aggs
+                  and resolve_tri(conf.get(AGG_PARTIAL_DEFER), True)):
                 defer_win = TransferWindow(conf.get(TRANSFER_WINDOW_DEPTH), metrics)
                 defer_pred = SelectivityPredictor(conf) if predictor_enabled(conf) else None
                 win_guard = WindowGuard(f"agg-window-{id(self):x}", defer_win)
@@ -487,6 +520,14 @@ class HashAggExec(ExecOperator):
                     for gb in leftovers or ():
                         yield from feed_generic(gb)
                     continue
+                if coalesce:
+                    pending.append(b)
+                    pending_rows += b.capacity
+                    pending_bytes += batch_nbytes(b)
+                    if pending_rows >= HOST_AGG_COALESCE_ROWS or \
+                            8 * pending_bytes >= mm.budget:
+                        yield from flush_pending()
+                    continue
                 if probe is not None and not skipping:
                     with metrics.timer("elapsed_compute", count=True):
                         folded, misses, hit_rows = probe.fold(b)
@@ -501,8 +542,9 @@ class HashAggExec(ExecOperator):
                     yield from process_generic(b)
                     continue
                 yield from feed_generic(b)
-            # end of stream: resolve the dense folds still in flight, then
-            # the deferred counts, in order
+            # end of stream: the coalesced batches, the dense folds still in
+            # flight, then the deferred counts, in order
+            yield from flush_pending()
             if dense is not None:
                 for nb in dense.finish_pending():
                     if dense is None:  # an earlier retry fell back for good
@@ -1156,6 +1198,8 @@ def _reduce_one(a: AggExpr, in_t, cols, seg: S.Segmentation, cap: int, raw: bool
         else:
             mv, any_valid = fn(v, m, ids, cap)
         return [ColumnVal(mv, any_valid & group_valid, in_t, d)]
+    if a.func in _HOST_FUNCS:
+        return [_reduce_collect(a.func, in_t, cols[0], seg, cap, raw, group_valid)]
     if a.func in ("first", "first_ignores_null"):
         v, m = sortg(cols[0])
         if raw:
@@ -1175,6 +1219,122 @@ def _reduce_one(a: AggExpr, in_t, cols, seg: S.Segmentation, cap: int, raw: bool
         return [ColumnVal(v[safe], m[safe] & hit & group_valid, in_t, cols[0].dict),
                 ColumnVal(hit & group_valid, group_valid, T.BOOL)]
     raise ValueError(a.func)
+
+
+def _reduce_collect(func: str, in_t: T.DataType, cv: ColumnVal, seg: S.Segmentation, cap: int,
+                    raw: bool, group_valid) -> ColumnVal:
+    """collect_list / collect_set (reference ``agg_exec.py:1204-1253``): each
+    group's values as one entry of a LIST vocabulary, the codes
+    ``arange(cap) % groups`` over it. A raw batch collects its non-NULL
+    values; a merge input's groups extend the lists of their partial states,
+    laid end to end in row order (``_merge_input``).
+
+    Each row's group goes back to the row's input position, so one stable
+    sort by group keeps the input order within a group: the reference's
+    segment order, whatever order the segmentation left equal keys in.
+    collect_set orders on the device too (``_set_order``): the repeats of a
+    value within a group dropped, the first kept, and each set ordered by
+    the text of its values, the reference's ``sorted(set(l), key=str)``.
+    One read brings the grouped values to the host, where numpy splits them
+    at the group boundaries."""
+    dev = cv.values.device
+    pos_gid = torch.full((cap,), cap, dtype=torch.int64, device=dev)
+    pos_gid[seg.order] = seg.seg_ids  # each input row's group; dead rows cap
+    if raw:
+        gid, vals, keep, d = pos_gid, cv.values, cv.validity & (pos_gid < cap), cv.dict
+        n_groups = seg.num_groups
+    else:
+        gid, vals, keep, d, n_groups = _merge_input(cv, pos_gid, seg.num_groups, cap, in_t)
+    key = torch.where(keep, gid, torch.full_like(gid, cap))
+    if func == "collect_set":
+        order, kept = _set_order(key, vals, d, in_t, cap)
+    else:
+        order = torch.sort(key, stable=True).indices
+        kept = key[order] < cap
+    g, v, k, ng = harvest(start_host_transfer(key[order], vals[order], kept,
+                                              torch.as_tensor(n_groups)))
+    ng = int(ng)
+    g, flat = g[k], _py_values(v[k], in_t, d).tolist()
+    bounds = np.concatenate(([0], np.cumsum(np.bincount(g, minlength=ng)[:ng]))).tolist()
+    lists = list(map(flat.__getitem__, map(slice, bounds[:-1], bounds[1:]))) or [[]]
+    codes = torch.remainder(torch.arange(cap, dtype=torch.int32, device=dev), max(ng, 1))
+    return ColumnVal(codes, group_valid, T.DataType(T.TypeKind.LIST, inner=(in_t,)),
+                     object_array(lists))
+
+
+def _merge_input(cv: ColumnVal, pos_gid, n_groups, cap: int, in_t: T.DataType):
+    """A merge input's partial lists as flat values on its device, in row
+    order then list order: (group of each value, values, keep, vocabulary
+    of dictionary values or None, the group count read)."""
+    gid_h, codes, ok, ng = harvest(start_host_transfer(
+        pos_gid, cv.values, cv.validity & (pos_gid < cap), torch.as_tensor(n_groups)))
+    rows = np.flatnonzero(ok)
+    sub = cv.dict[np.clip(codes[rows], 0, len(cv.dict) - 1)]
+    lens = np.fromiter(map(len, sub), dtype=np.int64, count=len(sub))
+    total = int(lens.sum())
+    items = itertools.chain.from_iterable(sub)
+    dev = cv.values.device
+    if in_t.is_integer or in_t.is_float or in_t.kind == T.TypeKind.BOOL:
+        vals, d = torch.from_numpy(np.fromiter(items, dtype=in_t.numpy_dtype(), count=total)), None
+    else:
+        vals, _, d = column_from_pylist(list(items), in_t, total, "cpu")
+    gid = torch.from_numpy(np.repeat(gid_h[rows], lens))
+    return (gid.to(dev), vals.to(dev), torch.ones(total, dtype=torch.bool, device=dev), d,
+            int(ng))
+
+
+def _set_order(key, vals, d, in_t: T.DataType, cap: int):
+    """(order, kept) of collect_set: the repeats of a value within a group
+    dropped, the first kept (stable sorts by value, then by group: a row is
+    kept where its (group, value) differs from the row before), then each
+    group's values ordered by the text of their Python values (a rank table
+    over the distinct values, made on the host). Values compare as the
+    reference's Python set compares them: -0.0 equals 0.0, a NaN equals no
+    NaN, dictionary entries by value. ``key`` is each row's group, ``cap``
+    for the rows left out."""
+    dev = vals.device
+    if d is not None:
+        first: dict = {}
+        canon = np.array([first.setdefault(vocab_key(e), i) for i, e in enumerate(d)] or [0],
+                         dtype=np.int64)
+        eq = torch.from_numpy(canon).to(dev)[vals.long().clamp(0, len(canon) - 1)]
+    elif in_t.is_float:
+        eq = vals + 0.0  # -0.0 and 0.0 one value
+    else:
+        eq = vals.to(torch.int64)
+    by_value = torch.sort(eq, stable=True).indices
+    order = by_value[torch.sort(key[by_value], stable=True).indices]
+    g, e = key[order], eq[order]
+    kept = g < cap
+    kept[1:] &= (g[1:] != g[:-1]) | (e[1:] != e[:-1])  # NaN != NaN: every NaN kept
+    # floats ranked by their bits (-0.0 and 0.0 print apart), codes by entry
+    v = vals[order]
+    bits = v.view(torch.int32 if v.element_size() == 4 else torch.int64) if in_t.is_float \
+        else v.to(torch.int64)
+    uniq = torch.unique(bits[kept])
+    if not len(uniq):
+        return order, kept
+    u = uniq.cpu().numpy()
+    pv = _py_values(u.view(in_t.numpy_dtype()) if in_t.is_float else u, in_t, d)
+    texts = [str(x) for x in pv]
+    rank = np.empty(len(texts), dtype=np.int64)
+    rank[sorted(range(len(texts)), key=texts.__getitem__)] = np.arange(len(texts))
+    r = torch.from_numpy(rank).to(dev)[torch.searchsorted(uniq, bits).clamp(max=len(uniq) - 1)]
+    by_text = torch.sort(torch.where(kept, g * len(uniq) + r,
+                                     torch.full_like(g, torch.iinfo(torch.int64).max)),
+                         stable=True).indices
+    return order[by_text], kept[by_text]
+
+
+def _py_values(v: np.ndarray, in_t: T.DataType, d) -> np.ndarray:
+    """Host values (a physical plane, or codes into ``d``) as the Python
+    values Arrow's ``to_pylist`` gives, in an object array."""
+    if d is not None:
+        return d[np.clip(v, 0, len(d) - 1)]
+    if in_t.is_integer or in_t.is_float or in_t.kind == T.TypeKind.BOOL:
+        return v.astype(object)
+    uniq, inv = np.unique(v, return_inverse=True)
+    return object_array([_python_value(u, in_t, None) for u in uniq])[inv.reshape(-1)]
 
 
 def decimal_limb_tables(d, scale: int, k: int) -> list[np.ndarray]:

@@ -29,13 +29,18 @@ light-weight encodings and warns once (``format.py:247-269``).
 The schema section is a minimal Arrow IPC schema message written without
 pyarrow (``pa.ipc.read_schema`` reads it, so the JAX reader reads the
 port's files); the port's reader skips it and takes the column types from
-its plan schema. A dictionary-encoded string/binary column is an ENC_DICT
-column as in the JAX writer (``format.py:618-638``): the vocabulary rides
-once per block as a single-column Arrow IPC stream, written and read here
-without pyarrow (``arrow_column_stream``, ``read_arrow_column_stream``),
-then the int32 codes as an int plane. Its host plane is a ``DictCodes``
-(codes + vocabulary); the chunks staged into one block are merged onto one
-vocabulary. Every decimal column, decimal64 and wide alike, is an
+its plan schema. A dictionary-encoded string, binary, LIST, MAP or STRUCT
+column is an ENC_DICT column as in the JAX writer (``format.py:618-638``):
+the vocabulary rides once per block as a single-column Arrow IPC stream,
+written and read here without pyarrow (``arrow_column_stream``,
+``read_arrow_column_stream``), then the int32 codes as an int plane. Its
+host plane is a ``DictCodes`` (codes + vocabulary); the chunks staged into
+one block are merged onto one vocabulary (a nested one laid end to end, and
+pruned to the entries the block's rows use when it is written). The JAX
+block format holds a dictionary-typed nested column as ENC_DICT while its
+vocabulary has at most ``exec.shuffle.encoding.dict.max`` entries; the JAX
+shuffle writer materializes nested columns, so its blocks carry them as
+ENC_ARROW. Every decimal column, decimal64 and wide alike, is an
 ENC_DEC128 column as the JAX writer writes Arrow decimal128 planes
 (``format.py:669-681``): the 128-bit unscaled values as a lo and a hi
 int64 sub-plane, each through the int-plane chooser, built here from the
@@ -47,8 +52,8 @@ JAX writer's form for a small dictionary) reads its Decimal128 vocabulary
 stream here too. A v1 block (an Arrow IPC stream, what the reference's
 ``IpcWriterExec`` writes) decodes through ``columnar/arrow_ipc.py`` when
 it is uncompressed. ENC_CODEC, ENC_ARROW and compressed v1 blocks raise
-``NotImplementedError`` naming the encoding or codec: they are not on the
-port's paths yet.
+``NotImplementedError`` naming the encoding or codec (the codecs are ROADMAP
+Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -63,7 +68,7 @@ import numpy as np
 from auron_tpu_torch import types as T
 from auron_tpu_torch.columnar import arrow_ipc
 from auron_tpu_torch.columnar.arrow_c import HostBatch, array_from_pylist
-from auron_tpu_torch.columnar.batch import empty_dict, merge_vocab
+from auron_tpu_torch.columnar.batch import empty_dict, empty_entry, merge_vocab, object_array
 from auron_tpu_torch.utils.config import (
     SHUFFLE_ENCODING, SHUFFLE_ENCODING_FALLBACK, SPILL_COMPRESSION_CODEC, resolve_tri,
 )
@@ -368,7 +373,8 @@ def decode_float_plane(enc: int, payload: bytes, n: int, dtype: np.dtype) -> np.
 def _refuse(enc: int) -> None:
     if enc in (ENC_CODEC, ENC_ARROW):
         raise NotImplementedError(
-            f"shuffle encoding {ENC_NAMES[enc]} ({enc}) is not in this slice of the port")
+            f"shuffle encoding {ENC_NAMES[enc]} ({enc}) needs the codecs of ROADMAP Queue 1 "
+            "item 4 of the port")
 
 
 # ---------------------------------------------------------------------------
@@ -410,8 +416,15 @@ class DictCodes:
         return self.codes.nbytes
 
     @staticmethod
-    def concat(parts: list["DictCodes"]) -> "DictCodes":
-        """One plane over one merged vocabulary (first-occurrence order)."""
+    def concat(parts: list["DictCodes"], nested: bool = False) -> "DictCodes":
+        """One plane over one merged vocabulary (first-occurrence order); a
+        ``nested`` column's vocabularies are laid end to end instead, each
+        part's codes shifted by the entries before it."""
+        if nested:
+            starts = np.cumsum([0] + [len(p.vocab) for p in parts[:-1]])
+            return DictCodes(np.concatenate([np.clip(p.codes, 0, len(p.vocab) - 1) + s
+                                             for p, s in zip(parts, starts)]).astype(np.int32),
+                             np.concatenate([p.vocab for p in parts]))
         vocab, remaps = merge_vocab([p.vocab for p in parts])
         return DictCodes(np.concatenate([r[np.clip(p.codes, 0, len(r) - 1)]
                                          for p, r in zip(parts, remaps)]).astype(np.int32),
@@ -421,11 +434,14 @@ class DictCodes:
 def _encode_dict_column(vals: DictCodes, valid: np.ndarray | None,
                         dtype: T.DataType) -> tuple[int, bytes | None, bytes]:
     """ENC_DICT: the vocabulary as one Arrow IPC stream, then the codes
-    (null lanes zeroed) as an int plane (``format.py:618-638``)."""
-    if not dtype.is_string_like:
-        raise NotImplementedError(
-            f"shuffle columns of type {dtype} are not in this slice of the port")
+    (null lanes zeroed) as an int plane (``format.py:618-638``). A nested
+    column writes only the entries its rows use (its vocabulary holds one
+    entry per row of the batches it came from)."""
     codes = np.ascontiguousarray(vals.codes, dtype=np.int32)
+    if dtype.is_nested:
+        used, inv = np.unique(np.clip(codes, 0, len(vals.vocab) - 1), return_inverse=True)
+        vals = DictCodes(inv.reshape(-1).astype(np.int32), vals.vocab[used])
+        codes = vals.codes
     vbytes = None
     if valid is not None and not valid.all():
         valid = np.ascontiguousarray(valid, dtype=bool)
@@ -437,7 +453,11 @@ def _encode_dict_column(vals: DictCodes, valid: np.ndarray | None,
                               + struct.pack("<BI", denc, len(dpayload)) + dpayload)
 
 
-def _decode_dict_column(body: bytes, nrows: int, dtype: T.DataType) -> DictCodes:
+def decode_dict(body: bytes, valid: np.ndarray | None, nrows: int,
+                dtype: T.DataType) -> tuple[DictCodes, np.ndarray | None]:
+    """(plane, validity) of an ENC_DICT column. A row whose code points at
+    a NULL entry of a nested vocabulary (the JAX writer's keeps its NULL
+    rows' entries) is NULL, its entry an ``empty_entry`` filler."""
     (dlen,) = struct.unpack_from("<I", body, 0)
     vocab = read_arrow_column_stream(body[4 : 4 + dlen], dtype)
     denc, dplen = struct.unpack_from("<BI", body, 4 + dlen)
@@ -445,7 +465,12 @@ def _decode_dict_column(body: bytes, nrows: int, dtype: T.DataType) -> DictCodes
     codes = decode_int_plane(denc, body[start : start + dplen], nrows, np.dtype(np.int32))
     if len(vocab) == 0:
         vocab = empty_dict(dtype)
-    return DictCodes(codes, vocab)
+    null_entry = np.equal(vocab, None)
+    if null_entry.any():
+        hit = null_entry[np.clip(codes, 0, len(vocab) - 1)]
+        valid = ~hit if valid is None else valid & ~hit
+        vocab = object_array([e if e is not None else empty_entry(dtype) for e in vocab])
+    return DictCodes(codes, vocab), valid
 
 
 def _dec128_halves(u: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -542,11 +567,11 @@ def encode_column(vals, valid: np.ndarray | None,
 
 def decode_column(enc: int, body: bytes, valid: np.ndarray | None, nrows: int,
                   dtype: T.DataType):
-    """A column's host plane: numpy values, or ``DictCodes`` for ENC_DICT."""
-    if enc == ENC_DICT:
-        return _decode_dict_column(body, nrows, dtype)
-    if enc == ENC_DEC128:
-        raise ValueError("a dec128 column decodes through decode_dec128 (it sets validity)")
+    """A fixed-width column's host plane (numpy values)."""
+    _refuse(enc)
+    if enc in (ENC_DICT, ENC_DEC128):
+        raise ValueError(f"a {ENC_NAMES[enc]} column decodes through decode_{ENC_NAMES[enc]} "
+                         "(it sets validity)")
     kind = plane_kind(dtype)
     npdt = dtype.numpy_dtype()
     if enc == ENC_PACKBITS:
@@ -570,7 +595,6 @@ def decode_column(enc: int, body: bytes, valid: np.ndarray | None, nrows: int,
         return decode_int_plane(enc, body, nrows, npdt)
     if kind == "float":
         return decode_float_plane(enc, body, nrows, npdt)
-    _refuse(enc)
     raise ValueError(f"encoding {enc} on a {dtype} column")
 
 
@@ -585,18 +609,19 @@ def arrow_schema_message(schema: T.Schema) -> bytes:
     write for the schema (one schema message, then end-of-stream). Each
     dictionary-encoded string/binary field carries a DictionaryEncoding
     (ids 0, 1, ... in field order, int32 indices), as pyarrow writes a
-    dictionary-typed schema; a wide decimal is plain decimal128 (its column
-    is dec128 planes)."""
+    dictionary-typed schema (a nested field's value type with its
+    children); a wide decimal is plain decimal128 (its column is dec128
+    planes)."""
     ids = {}
     for i, f in enumerate(schema):
-        if f.dtype.is_string_like:
+        if f.dtype.is_string_like or f.dtype.is_nested:
             ids[i] = len(ids)
     return arrow_ipc.schema_message(schema, ids) + arrow_ipc.EOS
 
 
 def arrow_column_stream(vocab: np.ndarray, dtype: T.DataType) -> bytes:
-    """A one-column Arrow IPC stream of a string/binary vocabulary (no
-    NULLs): schema, one record batch, end-of-stream."""
+    """A one-column Arrow IPC stream of a string, binary or nested
+    vocabulary (no NULLs): schema, one record batch, end-of-stream."""
     col = array_from_pylist(list(vocab), dtype)
     schema = T.Schema((T.Field("", dtype, False),))
     return arrow_ipc.write_stream([HostBatch(schema, len(vocab), (col,))])
@@ -604,11 +629,14 @@ def arrow_column_stream(vocab: np.ndarray, dtype: T.DataType) -> bytes:
 
 def read_arrow_column_stream(payload: bytes, dtype: T.DataType) -> np.ndarray:
     """The values of a one-column string/binary (or decimal128: Decimals at
-    the column's scale) Arrow IPC stream (as ``arrow_column_stream`` or
-    pyarrow writes it) as a numpy object array. Compressed bodies and NULL
-    values raise."""
+    the column's scale, or nested) Arrow IPC stream (as
+    ``arrow_column_stream`` or pyarrow writes it) as a numpy object array.
+    Compressed bodies raise, and so do NULL values, except in a nested
+    vocabulary (None entries: the JAX writer's holds its NULL rows')."""
     for hb in arrow_ipc.iter_stream(payload):
         (col,) = hb.columns
+        if dtype.is_nested:
+            return object_array(col.to_pylist())
         if col.nulls():
             raise ValueError("a dictionary vocabulary holds NULL values")
         out = np.empty(hb.length, dtype=object)
@@ -694,7 +722,8 @@ def _decode_v1(payload: bytes, schema: T.Schema) -> tuple[int, list]:
         if not ps:
             cols.append((np.zeros(0, f.dtype.numpy_dtype()), None))
             continue
-        vals = (DictCodes.concat([p for p, _ in ps]) if isinstance(ps[0][0], DictCodes)
+        vals = (DictCodes.concat([p for p, _ in ps], f.dtype.is_nested)
+                if isinstance(ps[0][0], DictCodes)
                 else np.concatenate([p for p, _ in ps]))
         valid = np.concatenate([m for _, m in ps])
         cols.append((vals, None if valid.all() else valid))
@@ -737,6 +766,8 @@ def decode_block(payload: bytes, schema: T.Schema) -> tuple[int, list]:
             pos += plen
             if enc == ENC_DEC128:
                 cols.append(decode_dec128(body, valid, nrows, f.dtype))
+            elif enc == ENC_DICT:
+                cols.append(decode_dict(body, valid, nrows, f.dtype))
             else:
                 cols.append((decode_column(enc, body, valid, nrows, f.dtype), valid))
         return nrows, cols

@@ -79,7 +79,7 @@ class _BucketAssembler:
             out_m = np.zeros(cap, dtype=bool)
             vocab = None
             if f.dtype.is_dict_encoded:  # one vocabulary for the batch
-                merged = DictCodes.concat([vals for vals, _ in chunks])
+                merged = DictCodes.concat([vals for vals, _ in chunks], f.dtype.is_nested)
                 out[:rows], vocab = merged.codes, merged.vocab
             pos = 0
             for vals, valid in chunks:

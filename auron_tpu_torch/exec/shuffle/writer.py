@@ -158,7 +158,7 @@ class _ShuffleStaging:
             cols = []
             for ci, f in enumerate(self.schema):
                 planes = [c[ci][0] for c in chunks]
-                vals = (DictCodes.concat(planes) if f.dtype.is_dict_encoded
+                vals = (DictCodes.concat(planes, f.dtype.is_nested) if f.dtype.is_dict_encoded
                         else np.concatenate(planes))
                 masks = [c[ci][1] for c in chunks]
                 if all(m is None for m in masks):

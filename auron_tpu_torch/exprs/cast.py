@@ -607,8 +607,23 @@ def cast_scalar(v, src: T.DataType, dst: T.DataType):
         return None
     if dk == T.TypeKind.STRING:
         return format_scalar(v, src)
-    if sk in _NESTED or dk in _NESTED:
-        raise NotImplementedError(f"cast {src} -> {dst}: nested casts are not in the port yet")
+    # nested -> nested of the same shape (reference ``exprs/cast.py:653-673``)
+    if sk == T.TypeKind.LIST and dk == T.TypeKind.LIST:
+        return [cast_scalar(e, src.inner[0], dst.inner[0]) for e in v]
+    if sk == T.TypeKind.MAP and dk == T.TypeKind.MAP:
+        out = []
+        for a, b in (v.items() if isinstance(v, dict) else v):
+            ck = cast_scalar(a, src.inner[0], dst.inner[0])
+            if ck is None:
+                return None  # a map key cannot be NULL
+            out.append((ck, cast_scalar(b, src.inner[1], dst.inner[1])))
+        return out
+    if sk == T.TypeKind.STRUCT and dk == T.TypeKind.STRUCT:
+        vals = [v.get(n) for n in src.struct_names] if isinstance(v, dict) else list(v)
+        if len(vals) != len(dst.inner):
+            return None
+        return {n: cast_scalar(e, st, dt_)
+                for n, e, st, dt_ in zip(dst.struct_names, vals, src.inner, dst.inner)}
 
     if sk in (T.TypeKind.STRING, T.TypeKind.BINARY):
         s = v if isinstance(v, str) else v.decode("utf-8", "replace")

@@ -630,7 +630,7 @@ def _vocab(entries: list, dtype: T.DataType) -> np.ndarray:
     if not entries:
         return empty_dict(dtype)
     filler = empty_dict(dtype)[0]
-    if dtype.kind == T.TypeKind.LIST:  # lists of one length would broadcast in a slice fill
+    if dtype.is_nested:  # lists of one length would broadcast in a slice fill
         return object_array([e if e is not None else filler for e in entries])
     out = np.empty(len(entries), dtype=object)
     if dtype.is_wide_decimal:

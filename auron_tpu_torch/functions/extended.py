@@ -1,18 +1,18 @@
 """Extended scalar functions (reference checklist:
 datafusion-ext-functions/src/lib.rs).
 
-Port of ``auron_tpu/functions/extended.py`` without the MAP and STRUCT
-functions (``registry.DEFERRED``, ROADMAP Queue 1 item 2). Three execution
-styles:
+Port of ``auron_tpu/functions/extended.py``. Three execution styles:
 - device kernels (timestamps, decimal plumbing, bround, least/greatest,
   the hashes);
-- dictionary transforms (value-dependent string/list functions: O(|vocab|)
-  host work, device gathers);
+- dictionary transforms (value-dependent string, LIST, MAP and STRUCT
+  functions: O(|vocab|) host work, device gathers);
 - host row-wise evaluation (row-dependent builders like concat/make_array,
   ``_host_rowwise``): the argument columns come to the host in one batched
   read, the Python function runs per row, and the port's own encoder
   (``columnar.batch.column_from_pylist``) puts the result back on the
-  device; no Arrow.
+  device; no Arrow. A MAP result is checked as Arrow's conversion checks
+  it in the reference (a NULL key raises ``ValueError``); a duplicate key
+  stays, as there.
 """
 
 from __future__ import annotations
@@ -26,11 +26,13 @@ import numpy as np
 import torch
 
 from auron_tpu_torch import types as T
-from auron_tpu_torch.columnar.batch import column_from_pylist, host_pylists, object_array
+from auron_tpu_torch.columnar.batch import (
+    _physical_of, column_from_pylist, empty_entry, host_pylists, object_array,
+)
 from auron_tpu_torch.exprs import decimal_math as D
 from auron_tpu_torch.functions.registry import (
-    _cv, _dict_transform, _scalar_arg, civil_from_days, date_arg, days_from_civil, deferred,
-    dict_apply, fdiv, gather_table, last_dom_days, registry, true_div,
+    _cv, _dict_transform, _scalar_arg, civil_from_days, date_arg, days_from_civil, dict_apply,
+    fdiv, gather_table, last_dom_days, registry, true_div,
 )
 from auron_tpu_torch.ops.uwords import lt_u64
 
@@ -406,8 +408,8 @@ def _make_array(args, cap, device):
 
 
 # ---------------------------------------------------------------------------
-# nested (LIST) value transforms — reference: spark_make_array.rs,
-# get_indexed_field exprs
+# nested (LIST/MAP/STRUCT) value transforms — reference: spark_map.rs,
+# spark_make_array.rs, get_map_value / get_indexed_field exprs
 # ---------------------------------------------------------------------------
 
 
@@ -419,10 +421,10 @@ def _entry_table(a, new: list, out_dt: T.DataType):
     idx = a.values.clamp(0, max(len(new) - 1, 0))
     valid = a.validity & gather_table(ok, a.values)
     if out_dt.is_dict_encoded:
-        filler = [] if out_dt.kind in (T.TypeKind.LIST, T.TypeKind.MAP) else ""
         return _cv(idx.to(torch.int32), valid, out_dt,
-                   object_array([v if v is not None else filler for v in new]))
+                   object_array([v if v is not None else empty_entry(out_dt) for v in new]))
     vals = np.zeros(len(new), dtype=out_dt.numpy_dtype())
+    temporal = out_dt.kind in (T.TypeKind.DATE32, T.TypeKind.TIMESTAMP)
     for i, v in enumerate(new):
         if v is not None:
             if out_dt.kind == T.TypeKind.DECIMAL:
@@ -430,14 +432,14 @@ def _entry_table(a, new: list, out_dt: T.DataType):
 
                 vals[i] = int(pydec.Decimal(str(v)).scaleb(out_dt.scale))
             else:
-                vals[i] = v
+                vals[i] = _physical_of(v, out_dt) if temporal else v
     return _cv(gather_table(vals, a.values), valid, out_dt)
 
 
 def _dict_value_transform(name: str, py_fn, out_dtype_fn):
-    """Like ``_dict_transform`` for any dictionary-encoded input (LIST or
-    STRING): transforms the vocabulary entries on the host; the result is a
-    dictionary or a gathered fixed-width column."""
+    """Like ``_dict_transform`` for any dictionary-encoded input (LIST, MAP,
+    STRUCT or STRING): transforms the vocabulary entries on the host; the
+    result is a dictionary or a gathered fixed-width column."""
 
     @registry.register(name, out_dtype_fn)
     def _f(args, cap, device, py_fn=py_fn, out_dtype_fn=out_dtype_fn):
@@ -464,14 +466,93 @@ def _element_at_list(e, idx):
     lambda dts: dts[0].inner[1] if dts[0].kind == T.TypeKind.MAP else dts[0].inner[0],
 )
 def _element_at_fn(args, cap, device):
-    """element_at(array, 1-based index); element_at(map, key) waits for the
-    MAP columns of ROADMAP Queue 1 item 2."""
+    """element_at(map, key) / element_at(array, 1-based index): dispatch on
+    the column type (an empty map is an empty list by value)."""
     a = args[0]
-    if a.dtype.kind == T.TypeKind.MAP:
-        raise deferred("element_at over a MAP")
     key = _scalar_arg(args[1])
+    if a.dtype.kind == T.TypeKind.MAP:
+        return _entry_table(a, [_map_get(e, key) if e is not None else None for e in a.dict],
+                            a.dtype.inner[1])
     return _entry_table(a, [_element_at_list(e, key) if e is not None else None
                             for e in a.dict], a.dtype.inner[0])
+
+
+def _map_get(m, key):
+    """The value of the first entry of ``m`` whose key equals ``key``."""
+    return next((v for k, v in m if k == key), None)
+
+
+_dict_value_transform("map_keys", lambda m: [k for k, _ in m],
+                      lambda dts: T.DataType(T.TypeKind.LIST, inner=(dts[0].inner[0],)))
+_dict_value_transform("map_values", lambda m: [v for _, v in m],
+                      lambda dts: T.DataType(T.TypeKind.LIST, inner=(dts[0].inner[1],)))
+_dict_value_transform("get_map_value", _map_get, lambda dts: dts[0].inner[1])
+_dict_value_transform(
+    "str_to_map",
+    # Spark's defaults: pairs split on ',', key and value on ':'; a pair
+    # without the key delimiter maps its key to NULL
+    lambda s, pd_=",", kd=":": [tuple((kv.split(kd, 1) + [None])[:2]) for kv in s.split(pd_)]
+    if s else [],
+    lambda dts: T.DataType(T.TypeKind.MAP, inner=(T.STRING, T.STRING)),
+)
+_host_rowwise(
+    "map_concat",
+    # a later map's key wins, as in the reference (a Python dict merge)
+    lambda a, b: list({**dict(a or []), **dict(b or [])}.items()),
+    lambda dts: dts[0],
+)
+_host_rowwise(
+    "map_from_arrays",
+    lambda ks, vs: list(zip(ks or [], vs or [])),
+    lambda dts: T.DataType(T.TypeKind.MAP, inner=(dts[0].inner[0], dts[1].inner[0])),
+)
+
+
+def _entry_kv(e):
+    if e is None:
+        # Spark 3.x: a runtime error, not a silent NULL
+        raise ValueError("map_from_entries does not allow null entries")
+    if isinstance(e, (list, tuple)):
+        return {"key": e[0], "value": e[1]}
+    return {"key": e["key"], "value": e["value"]}
+
+
+_host_rowwise(
+    "map_from_entries",
+    lambda entries: None if entries is None else [_entry_kv(e) for e in entries],
+    lambda dts: T.DataType(
+        T.TypeKind.MAP,
+        inner=(dts[0].inner[0].inner[0] if dts and dts[0].inner else T.STRING,
+               dts[0].inner[0].inner[1] if dts and dts[0].inner else T.STRING),
+    ),
+)
+
+
+@registry.register("named_struct")
+def _named_struct(args, cap, device):
+    """named_struct(name1, col1, name2, col2, ...) with literal names: the
+    rows assembled on the host into the STRUCT vocabulary; never NULL."""
+    names = [_scalar_arg(args[i]) for i in range(0, len(args), 2)]
+    val_cvs = [args[i] for i in range(1, len(args), 2)]
+    out_dt = T.DataType(T.TypeKind.STRUCT, inner=tuple(cv.dtype for cv in val_cvs),
+                        struct_names=tuple(names))
+    # each row's dict, its field values already in the port's form: the
+    # vocabulary directly, identity codes
+    rows = [dict(zip(names, vals)) for vals in zip(*host_pylists(val_cvs))] if val_cvs \
+        else [{} for _ in range(cap)]
+    codes = torch.arange(cap, dtype=torch.int32, device=device)
+    return _cv(codes, torch.ones(cap, dtype=torch.bool, device=device), out_dt,
+               object_array(rows))
+
+
+@registry.register("get_struct_field")
+def _get_struct_field(args, cap, device):
+    a = args[0]
+    name = str(_scalar_arg(args[1]))
+    assert a.dtype.kind == T.TypeKind.STRUCT
+    out_dt = a.dtype.inner[a.dtype.struct_names.index(name)]
+    return _entry_table(a, [e.get(name) if isinstance(e, dict) else None for e in a.dict],
+                        out_dt)
 
 
 _dict_value_transform("array_size", lambda e: len(e), T.INT32)

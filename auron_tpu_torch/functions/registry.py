@@ -35,18 +35,6 @@ from auron_tpu_torch.exprs import decimal_math as D
 from auron_tpu_torch.exprs.eval import ColumnVal
 from auron_tpu_torch.exprs.eval import _gather_table as gather_table
 
-#: MAP and STRUCT functions of the reference that wait for ROADMAP Queue 1
-#: item 2 (MAP and STRUCT columns); dispatching one raises
-DEFERRED = ("get_map_value", "map_concat", "map_from_arrays", "map_from_entries", "map_keys",
-            "map_values", "str_to_map", "named_struct", "get_struct_field")
-
-
-def deferred(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} needs MAP/STRUCT columns, which wait for ROADMAP Queue 1 item 2 "
-        "(MAP and STRUCT, and the nested tail)")
-
-
 class Registry:
     def __init__(self):
         self._fns: dict[str, Callable] = {}
@@ -76,8 +64,6 @@ class Registry:
 
     def dispatch(self, name: str, args: list, cap: int, device=None):
         if name not in self._fns:
-            if name in DEFERRED:
-                raise deferred(f"scalar function '{name}'")
             raise KeyError(f"scalar function '{name}' not registered")
         if name not in self._WIDE_DECIMAL_SAFE and any(a.dtype.is_wide_decimal for a in args):
             raise NotImplementedError(

@@ -86,7 +86,9 @@ import numpy as np
 from auron_tpu_torch import types as T
 from auron_tpu_torch.columnar.batch import Batch
 from auron_tpu_torch.exec.base import ExecOperator
-from auron_tpu_torch.exprs.ir import BinaryOp, Case, Cast, If, In, IsNull, Like, Literal, col, lit
+from auron_tpu_torch.exprs.ir import (
+    BinaryOp, Case, Cast, If, In, IsNull, Like, Literal, ScalarFunc, col, lit,
+)
 from auron_tpu_torch.ops.sortkeys import SortSpec
 from auron_tpu_torch.plan import builders as B
 from auron_tpu_torch.plan.planner import tree_from_plan
@@ -4152,4 +4154,189 @@ def table_mismatch(got, table: Table, drop: tuple = ()) -> str | None:
         v = c.to_numpy(zero_copy_only=False)
         if not np.array_equal(v[valid], np.asarray(table.columns[n])[valid]):
             return f"column {n}: values differ"
+    return None
+
+
+# ---------------------------------------------------------------------------
+# the customer-basket class: collect_set / collect_list, STRUCT and MAP
+# ---------------------------------------------------------------------------
+
+_LIST_I32 = T.DataType(T.TypeKind.LIST, inner=(T.INT32,))
+#: named_struct('years', years, 'cats', cats)
+BASKET_PROFILE = T.DataType(T.TypeKind.STRUCT, inner=(_LIST_I32, _LIST_I32),
+                            struct_names=("years", "cats"))
+_BASKET_AGGS = (("collect_set", "years"), ("collect_set", "cats"), ("collect_list", "singles"))
+#: the dimension builds ``basket_map_plan``'s joins cache in the bridge's map
+_BASKET_BUILDS = ("basket_dd_build", "basket_it_build")
+
+
+def _fn(name: str, *args, out_dtype=None) -> ScalarFunc:
+    return ScalarFunc(name, tuple(args), out_dtype)
+
+
+def basket_map_plan():
+    """Spark's profile-per-user pattern over the star schema, map side:
+    store_sales JOIN date_dim JOIN item, partial collect_set(d_year) years,
+    collect_set(i_category_id) cats, collect_list(CASE WHEN ss_quantity = 1
+    THEN ss_item_sk END) singles by ss_customer_sk (the NULL customer one
+    group), the dimension builds cached per executor."""
+    scan = B.memory_scan(STORE_SALES_SCHEMA, "basket_fact")
+    j1 = B.hash_join(scan, B.memory_scan(DATE_DIM_SCHEMA, "basket_dd"), [col(0)], [col(0)],
+                     "inner", build_side="right", cached_build_id="basket_dd_build")
+    # fact (5 columns) + date_dim (3): d_year at 6; + item (5): i_category_id at 10
+    j2 = B.hash_join(j1, B.memory_scan(ITEM_SCHEMA, "basket_item"), [col(1)], [col(0)],
+                     "inner", build_side="right", cached_build_id="basket_it_build")
+    single = Case(((BinaryOp("eq", col(3), lit(1)), col(1)),), None)
+    proj = B.project(j2, [(col(2), "ss_customer_sk"), (col(6), "d_year"),
+                          (col(10), "i_category_id"), (single, "single")])
+    return B.hash_agg(proj, [(col(0), "ss_customer_sk")],
+                      [(f, col(i + 1), n) for i, (f, n) in enumerate(_BASKET_AGGS)], "partial")
+
+
+def _basket_order():
+    """ORDER BY element_at(sizes, 'singles') DESC, ss_customer_sk (NULL
+    first), over the projected columns (key, profile, sizes, singles)."""
+    return [(_fn("element_at", col(2), lit("singles")), SortSpec(asc=False)), (col(0), SortSpec())]
+
+
+def basket_reduce_plan(read, limit: int = 100):
+    """The final collects by ss_customer_sk over ``read``, then
+    named_struct('years', years, 'cats', cats) profile,
+    map_from_arrays(make_array('years', 'cats', 'singles'),
+    make_array(array_size(years), array_size(cats), array_size(singles)))
+    sizes and singles, each reduce task's top ``limit`` by ``_basket_order``
+    (a SortExec with fetch)."""
+    f = B.hash_agg(read, [(col(0), "ss_customer_sk")],
+                   [(fn, col(i + 1), n) for i, (fn, n) in enumerate(_BASKET_AGGS)], "final")
+    profile = _fn("named_struct", lit("years"), col(1), lit("cats"), col(2),
+                  out_dtype=BASKET_PROFILE)
+    sizes = _fn("map_from_arrays", _fn("make_array", lit("years"), lit("cats"), lit("singles")),
+                _fn("make_array", *(_fn("array_size", col(i)) for i in (1, 2, 3))))
+    proj = B.project(f, [(col(0), "ss_customer_sk"), (profile, "profile"), (sizes, "sizes"),
+                         (col(3), "singles")])
+    return B.sort(proj, _basket_order(), fetch=limit)
+
+
+def basket_top_plan(schema: T.Schema, limit: int = 100):
+    """The final merge of the reduce tasks' tops: one task, a SortExec with
+    fetch over their batches (resource ``basket_top``)."""
+    return B.sort(B.memory_scan(schema, "basket_top"), _basket_order(), fetch=limit)
+
+
+def run_basket_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 4,
+                     limit: int = 100, work_dir: str | None = None, device="cuda",
+                     conf: dict | None = None, ingested: dict | None = None,
+                     stats: dict | None = None):
+    """The customer-basket class in two stages (``basket_map_plan`` over a
+    file hash shuffle on ss_customer_sk, ``basket_reduce_plan`` per
+    partition), then ``basket_top_plan`` over the reduce tasks' batches,
+    every task from its ``TaskDefinition`` bytes. Returns the answer as a
+    host Arrow batch (``Batch.to_host_arrow``: the C data interface's
+    layout, STRUCT, MAP and LIST columns as ``+s``, ``+m``, ``+l``; its
+    ``to_pydict()`` the rows). ``stats`` gets map_s, reduce_s, top_s,
+    egress_s, shuffle_bytes and the tasks' timers (``add_timers``)."""
+    from auron_tpu_torch.bridge import api
+    from auron_tpu_torch.columnar.batch import device_concat
+
+    if ingested is None:
+        ingested = ingest_q3(data, n_map, device)
+    n_map = len(ingested["fact"])
+    resources = {"basket_fact": ingested["fact"], "basket_dd": [ingested["dd"]] * n_map,
+                 "basket_item": [ingested["item"]] * n_map}
+    cfg = Configuration(conf or {})
+    stats = stats if stats is not None else {}
+    work = work_dir or tempfile.mkdtemp(prefix="auron_basket_")
+    os.makedirs(work, exist_ok=True)
+    try:
+        with memory_scope(cfg, stats):
+            t0 = time.perf_counter()
+            m = basket_map_plan()
+            read = _shuffle_stage(m, tree_from_plan(m).schema, [0], n_map, n_reduce, work,
+                                  "basket_ex0", resources, 1, cfg, device, stats)
+            _sync(device)
+            t1 = time.perf_counter()
+            reduce_plan = basket_reduce_plan(read, limit)
+            tops = []
+            for r in range(n_reduce):
+                task = B.task(reduce_plan, 2, r, dict(cfg.items()))
+                batches, metrics = run_task_bytes(task.SerializeToString(), resources, device)
+                tops += batches
+                add_timers(stats, metrics)
+            _sync(device)
+            t2 = time.perf_counter()
+            schema = tree_from_plan(reduce_plan).schema
+            task = B.task(basket_top_plan(schema, limit), 3, 0, dict(cfg.items()))
+            out, metrics = run_task_bytes(task.SerializeToString(), {"basket_top": [tops]},
+                                          device)
+            add_timers(stats, metrics)
+            t3 = time.perf_counter()
+            answer = device_concat(out).to_host_arrow() if out else None
+            t4 = time.perf_counter()
+    finally:
+        resources.pop("basket_ex0", None)
+        for k in _BASKET_BUILDS:  # the bridge's map caches them for the run's tasks
+            api.remove_resource(k)
+        if work_dir is None:
+            shutil.rmtree(work, ignore_errors=True)
+    stats.update(map_s=t1 - t0, reduce_s=t2 - t1, top_s=t3 - t2, egress_s=t4 - t3)
+    return answer
+
+
+def basket_class_oracle(data: TpcdsData, limit: int = 100) -> dict:
+    """The basket class's answer in numpy on the host: groups by customer
+    slot (key + 1; slot 0 the NULL customer), each set as the (customer,
+    value) pairs present, ordered by the text of the values as the
+    reference orders a collect_set, each list in input order, the top
+    ``limit`` by (singles DESC, customer NULL first). {column: list}."""
+    ss, dd, it = data.store_sales.columns, data.date_dim.columns, data.item.columns
+    drow, dhit = _lookup(dd["d_date_sk"], ss["ss_sold_date_sk"])
+    irow, ihit = _lookup(it["i_item_sk"], ss["ss_item_sk"])
+    hit = dhit & ihit
+    valid = data.store_sales.validity("ss_customer_sk")[hit]
+    slot = np.where(valid, ss["ss_customer_sk"][hit] + 1, 0)
+    n_slots = int(slot.max()) + 1 if len(slot) else 1
+    present = np.bincount(slot, minlength=n_slots) > 0
+
+    def presence(values):
+        uniq, idx = np.unique(values, return_inverse=True)
+        pres = np.zeros((n_slots, len(uniq)), dtype=bool)
+        pres[slot, idx.reshape(-1)] = True
+        return uniq, pres
+
+    years, pres_y = presence(dd["d_year"][drow[hit]])
+    cats, pres_c = presence(it["i_category_id"][irow[hit]])
+    one = ss["ss_quantity"][hit] == 1
+    s_slot, s_item = slot[one], ss["ss_item_sk"][hit][one]
+    n_singles = np.bincount(s_slot, minlength=n_slots)
+    groups = np.flatnonzero(present)
+    top = groups[np.lexsort((groups, -n_singles[groups]))][:limit]
+    by_slot = np.argsort(s_slot, kind="stable")
+    starts = np.searchsorted(s_slot[by_slot], top)
+    out: dict = {"ss_customer_sk": [], "profile": [], "sizes": [], "singles": []}
+    for s, a in zip(top.tolist(), starts.tolist()):
+        ys = sorted(years[pres_y[s]].tolist(), key=str)
+        cs = sorted(cats[pres_c[s]].tolist(), key=str)
+        singles = s_item[by_slot[a: a + n_singles[s]]].tolist()
+        out["ss_customer_sk"].append(s - 1 if s else None)
+        out["profile"].append({"years": ys, "cats": cs})
+        out["sizes"].append([("years", len(ys)), ("cats", len(cs)), ("singles", len(singles))])
+        out["singles"].append(singles)
+    return out
+
+
+def basket_mismatch(got: dict, want: dict) -> str | None:
+    """None when the basket answer ``got`` ({column: rows}) equals the
+    oracle's: keys, struct fields, map entries and every collect_set
+    exactly, in order; every collect_list as a multiset (the reference
+    pins no order across a shuffle); else what differs."""
+    if list(got) != list(want):
+        return f"columns {list(got)}, want {list(want)}"
+    for name in ("ss_customer_sk", "profile", "sizes"):
+        if got[name] != want[name]:
+            bad = next(i for i, (g, w) in enumerate(zip(got[name], want[name])) if g != w) \
+                if len(got[name]) == len(want[name]) else None
+            return f"{name} differs (row {bad}, {len(got[name])} rows, want {len(want[name])})"
+    for i, (g, w) in enumerate(zip(got["singles"], want["singles"])):
+        if sorted(g) != sorted(w):
+            return f"singles of row {i} differ as multisets"
     return None

@@ -13,7 +13,8 @@ conversions made lazy (pyarrow is imported only inside them):
   Decimal128 dictionaries);
 - DATE is int32 days since epoch, TIMESTAMP int64 microseconds;
 - a LIST column's vocabulary holds one Python list per entry (the values
-  Arrow's ``to_pylist`` gives), a NULL element as None.
+  Arrow's ``to_pylist`` gives), a NULL element as None; a MAP entry is a
+  list of ``(key, value)`` pairs and a STRUCT entry a dict, as there.
 """
 
 from __future__ import annotations
@@ -98,12 +99,12 @@ class DataType:
         return self.kind == TypeKind.DECIMAL and self.precision > 18
 
     @property
+    def is_nested(self) -> bool:
+        return self.kind in (TypeKind.LIST, TypeKind.MAP, TypeKind.STRUCT)
+
+    @property
     def is_dict_encoded(self) -> bool:
-        return (
-            self.is_string_like
-            or self.is_wide_decimal
-            or self.kind in (TypeKind.LIST, TypeKind.MAP, TypeKind.STRUCT)
-        )
+        return self.is_string_like or self.is_wide_decimal or self.is_nested
 
     def physical_dtype(self) -> torch.dtype:
         """torch dtype of the device value tensor for this logical type."""
@@ -134,9 +135,15 @@ class DataType:
             return pa.decimal128(self.precision, self.scale)
         if k == TypeKind.LIST:
             return pa.list_(self.inner[0].to_arrow())
+        if k == TypeKind.MAP:
+            return pa.map_(self.inner[0].to_arrow(), self.inner[1].to_arrow())
+        if k == TypeKind.STRUCT:
+            return pa.struct(
+                [pa.field(n, t.to_arrow()) for n, t in zip(self.struct_names, self.inner)]
+            )
         if k in m:
             return m[k]
-        raise TypeError(f"no arrow type for {self} in this slice")
+        raise TypeError(f"no arrow type for {self}")
 
     @staticmethod
     def from_arrow(t) -> "DataType":
@@ -172,6 +179,17 @@ class DataType:
             return DataType.from_arrow(t.value_type)
         if pa.types.is_list(t) or pa.types.is_large_list(t):
             return DataType(TypeKind.LIST, inner=(DataType.from_arrow(t.value_type),))
+        if pa.types.is_map(t):
+            return DataType(
+                TypeKind.MAP,
+                inner=(DataType.from_arrow(t.key_type), DataType.from_arrow(t.item_type)),
+            )
+        if pa.types.is_struct(t):
+            return DataType(
+                TypeKind.STRUCT,
+                inner=tuple(DataType.from_arrow(t.field(i).type) for i in range(t.num_fields)),
+                struct_names=tuple(t.field(i).name for i in range(t.num_fields)),
+            )
         raise TypeError(f"unsupported arrow type {t}")
 
     def __repr__(self) -> str:

@@ -13,6 +13,7 @@
     python3 chip_smoke.py --plan-ir-only  # phases 1, 2 and 18 only
     python3 chip_smoke.py --convert-only  # phases 1, 2 and 19 only
     python3 chip_smoke.py --files-only  # phases 1, 2 and 20 only
+    python3 chip_smoke.py --collect-only  # phases 1, 2 and 21 only
 
 Phases, in order, none of them caught — any failure exits non-zero:
 
@@ -226,14 +227,14 @@ Phases, in order, none of them caught — any failure exits non-zero:
    oracle, K3 1 (q42), K1 24 (q93), none for q3, q42's kernel sorts held
    against the plain network at their own operands. Then the port's C ABI
    (``csrc/auron_bridge.cpp`` with g++, ``csrc/bridge_harness.c`` with
-   cc): q42 twice through a separate ``bridge_harness`` process (its
+   cc): q42 once through a separate ``bridge_harness`` process (its
    inputs as Arrow IPC resources, its answer as the harness's IPC batches;
    K3 1 by the process's counts), q93 through the library loaded into
    this process with ctypes (map tasks write shuffle files, reduce tasks
-   read them through a ``shuffle:`` manifest; warm-up and two timed runs,
-   K1 24) and once through eight harness processes (the four map tasks at
-   once, then the four reduce tasks; K1 24 by their counts), each equal to
-   its oracle. Every TaskDefinition the phase made
+   read them through a ``shuffle:`` manifest; warm-up and a timed run,
+   K1 24) and once through four harness processes (the two map tasks at
+   once, then the two reduce tasks; K1 once a fact batch, 22, by their
+   counts), each equal to its oracle. Every TaskDefinition the phase made
    decodes and re-encodes to the same bytes in the port's codec, and
    google.protobuf is not loaded. Walls, task bytes, decode and planning
    seconds, the harness process's start (imports, CUDA init) against its
@@ -283,8 +284,22 @@ Phases, in order, none of them caught — any failure exits non-zero:
    written, the scans' ``io_time``/``upload_time``, the ingest and pruning
    counters and peak memory are printed; a missing ``pyarrow.orc`` fails
    the phase;
-21. print the kernel table as one JSON line (each kernel's launches summed
-   over the timed runs of phases 4-20, and per run), then the status line.
+21. the customer-basket class (collect_set of d_year and i_category_id,
+   collect_list of the single-quantity items by ss_customer_sk, the NULL
+   customer a group; a named_struct, a map_from_arrays and the top 100 by a
+   MAP lookup), 4 map x 4 reduce over the file shuffle of the LIST states,
+   then one task's SortExec over the reduce tasks' tops, every task from
+   its TaskDefinition bytes: a warm-up (its kernel sorts held against the
+   plain network on the card, bit for bit), then two timed runs, each
+   answer equal to the numpy oracle (keys, struct fields, map entries and
+   every set exactly, every list as a multiset), K1 and K3 launched as
+   ``sort_plan`` lists for the recorded sorts; the answer's STRUCT, MAP and
+   LIST columns exported through the C data interface and read back in
+   pyarrow equal to the oracle. Walls, the aggregate's ``elapsed_compute``,
+   the shuffle's bytes, ``compress_time`` and ``decode_time`` and the peak
+   memory are printed;
+22. print the kernel table as one JSON line (each kernel's launches summed
+   over the timed runs of phases 4-21, and per run), then the status line.
 
 Each phase prints its seconds.
 
@@ -296,7 +311,8 @@ its capture recorded and adds them at every replay).
 
 Needs no network, no pandas and no protobuf (phases 18 and 19 fail if
 google.protobuf was loaded, 19 also if pyarrow was); phase 20 needs
-pyarrow (with ``pyarrow.orc``), and phases 1-19 run without it; imports
+pyarrow (with ``pyarrow.orc``), phase 21 pyarrow for its read-back, and
+phases 1-19 run without it; imports
 nothing of the JAX package. Exits with
 code 2 when no CUDA device is visible.
 Detailed results also go to chiprun_out/chip_smoke.json.
@@ -318,6 +334,27 @@ NON_TENSOR_OPS_PER_S = 67e12  # H100 SXM fp32 non-tensor peak (no int32 row in t
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 #: oracles of earlier phases, by class, that the spill phase reuses
 ORACLES: dict = {}
+
+
+def _oracle(name: str, data):
+    """``tpcds.<name>_class_oracle(data)``, computed once a run: the q42,
+    q93, q3, q33 and the A/B classes' oracles serve several phases."""
+    if name not in ORACLES:
+        from auron_tpu_torch.models import tpcds
+
+        ORACLES[name] = getattr(tpcds, f"{name}_class_oracle")(data)
+    return ORACLES[name]
+
+
+def _oracles(fns: dict) -> dict:
+    """{name: fn()} with the host oracles computed in threads, before any
+    timed run (numpy releases the interpreter lock in its sorts, gathers
+    and reductions)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=max(1, min(4, len(fns)))) as pool:
+        futures = {name: pool.submit(fn) for name, fn in fns.items()}
+        return {name: f.result() for name, f in futures.items()}
 
 
 def _event_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -919,7 +956,7 @@ def run_q42(data, sf: float, t_gen: float) -> dict:
     ingested = tpcds.ingest_q42(data, device="cuda")
     torch.cuda.synchronize()
     t_ingest = time.perf_counter() - t0
-    oracle = tpcds.q42_class_oracle(data)
+    oracle = _oracle("q42", data)
     # warm-up run (first launches, allocator), checked like the timed one;
     # it records the shape of every sort the kernels run
     shapes: list = []
@@ -1038,7 +1075,7 @@ def run_q93(data, fact) -> dict:
     from auron_tpu_torch.models import tpcds
 
     ingested = tpcds.ingest_q93(data, 4, device="cuda", fact=fact)
-    oracle = tpcds.q93_class_oracle(data)
+    oracle = _oracle("q93", data)
     warm = tpcds.run_q93_class(device="cuda", ingested=ingested)
     _reset_launches()
     torch.cuda.synchronize()
@@ -1071,7 +1108,7 @@ def run_q3(data, fact) -> dict:
     from auron_tpu_torch.models import tpcds
 
     ingested = tpcds.ingest_q3(data, 4, device="cuda", fact=fact)
-    oracle = tpcds.q3_class_oracle(data)
+    oracle = _oracle("q3", data)
     warm = tpcds.run_q3_class(device="cuda", ingested=ingested)
     _reset_launches()
     torch.cuda.synchronize()
@@ -1229,10 +1266,10 @@ def run_mesh(query: str, data, fact, n_parts: int = 4) -> dict:
 
     if query == "q93":
         ingested = tpcds.ingest_q93(data, n_parts, device="cuda", fact=fact)
-        run, oracle, check = tpcds.run_q93_mesh, tpcds.q93_class_oracle(data), _assert_q93
+        run, oracle, check = tpcds.run_q93_mesh, _oracle("q93", data), _assert_q93
     else:
         ingested = tpcds.ingest_q3(data, n_parts, device="cuda", fact=fact)
-        run, oracle, check = tpcds.run_q3_mesh, tpcds.q3_class_oracle(data), _assert_q3
+        run, oracle, check = tpcds.run_q3_mesh, _oracle("q3", data), _assert_q3
     out = {}
     answers = {}
     for mode in ("mesh", "file"):
@@ -1426,8 +1463,7 @@ def run_tail_classes(data, fact) -> dict:
     torch.cuda.synchronize()
     t_ingest = time.perf_counter() - t0
     t0 = time.perf_counter()
-    oracles = {name: getattr(tpcds, f"{name}_class_oracle")(data)
-               for name in tpcds.TAIL_CLASSES}
+    oracles = _oracles({name: (lambda n=name: _oracle(n, data)) for name in tpcds.TAIL_CLASSES})
     print(f"tail classes: inputs on the card in {t_ingest:.2f} s, oracles in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     out = {}
@@ -1545,9 +1581,9 @@ def run_window_classes(data) -> dict:
     torch.cuda.synchronize()
     t_ingest = time.perf_counter() - t0
     t0 = time.perf_counter()
-    oracles = {name: (tpcds.windowed_ranks(data) if name == "windowed"
-                      else getattr(tpcds, f"{name}_class_oracle")(data))
-               for name in tpcds.WINDOW_CLASSES}
+    oracles = _oracles({name: (lambda n=name: tpcds.windowed_ranks(data) if n == "windowed"
+                               else getattr(tpcds, f"{n}_class_oracle")(data))
+                        for name in tpcds.WINDOW_CLASSES})
     print(f"window classes: inputs on the card in {t_ingest:.2f} s, oracles in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     out = {}
@@ -1929,7 +1965,7 @@ def run_q33_phase(data, ingested) -> dict:
 
     from auron_tpu_torch.models import tpcds
 
-    oracle = tpcds.q33_class_oracle(data)
+    oracle = _oracle("q33", data)
     _assert_equal_or_close("q33 (warm-up)", tpcds.run_q33_class(device="cuda",
                                                                 ingested=ingested), oracle)
     walls, peaks, launches, stats = [], [], [], {}
@@ -2216,7 +2252,7 @@ def run_predictor_ab(data, fact4, profile: bool = False) -> dict:
     for name in AB_CLASSES:
         ingested = _ab_inputs(name, data, fact4)
         run = getattr(tpcds, f"run_{name}_class")
-        oracle = getattr(tpcds, f"{name}_class_oracle")(data)
+        oracle = _oracle(name, data)
 
         def once(mode, stats=None):
             return run(device="cuda", conf={"exec.selectivity.predictor": mode},
@@ -2668,7 +2704,7 @@ def _bridge_runners(name: str, data, host: dict):
     from auron_tpu_torch.models import tpcds
 
     if name == "q42":
-        want = tpcds.q42_class_oracle(data)
+        want = _oracle("q42", data)
 
         def check(got):
             assert got["brand"].shape == (10,) and np.isfinite(got["rev"]).all(), got
@@ -2681,7 +2717,7 @@ def _bridge_runners(name: str, data, host: dict):
 
         return check, lambda st, conf=None: tpcds.run_q42_bridge(
             device="cuda", host=host, conf=conf, stats=st), on_card
-    want = tpcds.q93_class_oracle(data)
+    want = _oracle("q93", data)
 
     def on_card():
         ingested = tpcds.ingest_q93(data, 4, device="cuda")
@@ -2810,7 +2846,7 @@ def _run_plan_ir_bytes(data, fact) -> dict:
     from auron_tpu_torch.runtime.task import run_task
 
     q42_in = tpcds.ingest_q42(data, device="cuda")
-    q42_want = tpcds.q42_class_oracle(data)
+    q42_want = _oracle("q42", data)
 
     def q42_check(got):
         assert got["brand"].shape == (10,) and all(math.isfinite(x) for x in got["rev"]), got
@@ -2826,8 +2862,7 @@ def _run_plan_ir_bytes(data, fact) -> dict:
     tree = tpcds.q42_exec_tree()
     q93_in = tpcds.ingest_q93(data, 4, device="cuda", fact=fact)
     q3_in = tpcds.ingest_q3(data, 4, device="cuda", fact=fact)
-    q93_want, q3_want = ORACLES.get("q93") or tpcds.q93_class_oracle(data), \
-        tpcds.q3_class_oracle(data)
+    q93_want, q3_want = _oracle("q93", data), _oracle("q3", data)
     paths = {
         ("q42", "bytes"): (lambda st: tpcds.run_q42_class(device="cuda", ingested=q42_in,
                                                           stats=st), q42_check),
@@ -2875,11 +2910,20 @@ def _run_plan_ir_bytes(data, fact) -> dict:
     return out
 
 
+#: phase 18's C host: q42 through one harness process, q93 through the
+#: library (a warm-up, then timed runs), q93 with each task in its own
+#: process at 2 x 2 (every process pays the engine's start)
+C_HOST_PROCESS_RUNS = 1
+C_HOST_LIBRARY_RUNS = 1
+C_HOST_PROCESS_TASKS = 2
+
+
 def _run_c_host(data) -> dict:
     """Phase 18 (3): the port's C ABI built from csrc/, then q42 through one
     bridge_harness process per run, q93 (4 x 4) through the library loaded
     in this process with ctypes (warm-up, timed runs), and q93 once with
-    each task in its own harness process."""
+    each task in its own harness process (C_HOST_PROCESS_TASKS map and as
+    many reduce tasks)."""
     import torch
 
     from auron_tpu_torch.models import tpcds
@@ -2892,9 +2936,8 @@ def _run_c_host(data) -> dict:
           f"{build_s:.2f} s", flush=True)
     out: dict = {"build_s": build_s}
     host42, host93 = tpcds.host_q42(data), tpcds.host_q93(data, 4)
-    want42, want93 = tpcds.q42_class_oracle(data), ORACLES.get("q93") or \
-        tpcds.q93_class_oracle(data)
-    for i in range(PLAN_IR_TIMED_RUNS):
+    want42, want93 = _oracle("q42", data), _oracle("q93", data)
+    for i in range(C_HOST_PROCESS_RUNS):
         st: dict = {}
         t0 = time.perf_counter()
         got = tpcds.run_q42_c_abi(device="cuda", host=host42, stats=st)
@@ -2918,7 +2961,7 @@ def _run_c_host(data) -> dict:
              "launches": st["launches"], **{k: st[k] for k in ("task_bytes", "decode_s",
                                                                 "plan_s")}})
     torch.cuda.synchronize()
-    for i in range(1 + PLAN_IR_TIMED_RUNS):
+    for i in range(1 + C_HOST_LIBRARY_RUNS):
         _reset_launches()
         torch.cuda.synchronize()
         st = {}
@@ -2944,13 +2987,17 @@ def _run_c_host(data) -> dict:
                     "plan_s")}})
     # q93 once more with every task in its own harness process: the map
     # tasks at once, then the reduce tasks through shuffle:q93_ex0 manifests
+    n = C_HOST_PROCESS_TASKS
+    host = tpcds.host_q93(data, n)
     st = {}
     t0 = time.perf_counter()
-    got = tpcds.run_q93_c_abi(device="cuda", host=host93, via="process", stats=st)
+    got = tpcds.run_q93_c_abi(device="cuda", host=host, n_map=n, n_reduce=n, via="process",
+                              stats=st)
     wall = time.perf_counter() - t0
     _assert_q93(got, want93)
+    # K1 once a fact batch (22 batches in 2 partitions at SF 8)
     assert (st["launches"]["murmur3_pmod"], st["launches"]["bitonic_sort"]) == \
-        PLAN_IR_LAUNCHES["q93"], st["launches"]
+        (sum(len(p) for p in host["fact"]), 0), st["launches"]
     procs = st["processes"]
     print(f"q93 (C host, processes): wall {wall:.4f} s (map {st['map_s']:.4f} s, reduce "
           f"{st['reduce_s']:.4f} s), {len(procs)} harness processes "
@@ -3032,8 +3079,8 @@ def _run_convert_classes(data, fact) -> dict:
     q42_in = tpcds.ingest_q42(data, device="cuda")
     q93_in = tpcds.ingest_q93(data, 4, device="cuda", fact=fact)
     q3_in = tpcds.ingest_q3(data, 4, device="cuda", fact=fact)
-    q42_want, q3_want = tpcds.q42_class_oracle(data), tpcds.q3_class_oracle(data)
-    q93_want = ORACLES.get("q93") or tpcds.q93_class_oracle(data)
+    q42_want, q3_want = _oracle("q42", data), _oracle("q3", data)
+    q93_want = _oracle("q93", data)
 
     def q42_check(got):
         assert got["brand"].shape == (10,) and all(math.isfinite(x) for x in got["rev"]), got
@@ -3186,7 +3233,7 @@ def _run_convert_c_host(data, fact) -> dict:
     assert tpcds.namespace_free(resp) == tpcds.namespace_free(mine), "harness response"
     print(f"q93 (C host): bridge_harness --convert process {proc_s:.3f} s, response "
           f"{len(resp):,} B, equal to the in-process response (namespace replaced)", flush=True)
-    want = ORACLES.get("q93") or tpcds.q93_class_oracle(data)
+    want = _oracle("q93", data)
     q93_in = tpcds.ingest_q93(data, 4, device="cuda", fact=fact)
     out: dict = {"convert_process_s": proc_s, "response_bytes": len(resp)}
     for i in range(1 + CONVERT_TIMED_RUNS):
@@ -3421,8 +3468,8 @@ def _run_file_reads(data, written: dict, sorted_path: str, sorted_groups: int,
     orc_paths = {**paths, "store_sales": written["orc_dir"]}
     sorted_paths = {**paths, "store_sales": sorted_path}
     nov = [tpcds.month_filter(data)]
-    q42_want, q3_want = tpcds.q42_class_oracle(data), tpcds.q3_class_oracle(data)
-    q93_want = ORACLES.get("q93") or tpcds.q93_class_oracle(data)
+    q42_want, q3_want = _oracle("q42", data), _oracle("q3", data)
+    q93_want = _oracle("q93", data)
 
     def q42_check(got):
         assert got["brand"].shape == (10,) and all(math.isfinite(x) for x in got["rev"]), got
@@ -3533,6 +3580,108 @@ def run_files_phase(data, seed: int, kernels_checked: bool, convert: dict | None
         shutil.rmtree(root, ignore_errors=True)
 
 
+#: phase 21: timed runs of the customer-basket class
+BASKET_TIMED_RUNS = 2
+
+
+def _pyarrow_of(hb):
+    """A host Arrow batch read by pyarrow through the C data interface."""
+    import ctypes
+
+    import pyarrow as pa
+
+    from auron_tpu_torch.columnar import arrow_c
+
+    arr, sch = arrow_c.ArrowArray(), arrow_c.ArrowSchema()
+    arrow_c.export_batch(hb, ctypes.addressof(arr), ctypes.addressof(sch))
+    return pa.RecordBatch._import_from_c(ctypes.addressof(arr), ctypes.addressof(sch))
+
+
+def run_collect_phase(data, seed: int, kernels_checked: bool) -> dict:
+    """Phase 21: the customer-basket class at the phases' scale, 4 map x 4
+    reduce: a warm-up (its kernel sorts recorded and held against the plain
+    network on the card), then BASKET_TIMED_RUNS timed runs, each answer
+    equal to the oracle, K1 and K3 launched (K4 too where a reduce task's
+    sort passes one cluster) as ``sort_plan`` lists; the answer through the
+    C data interface into pyarrow. Without phase 3 (``kernels_checked``
+    False) K1 is held against its plain version here."""
+    import torch
+
+    from auron_tpu_torch.models import tpcds
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    if not kernels_checked:
+        check_partition_kernel(seed)
+
+    def oracle():
+        t0 = time.perf_counter()
+        return tpcds.basket_class_oracle(data), time.perf_counter() - t0
+
+    # the host oracle in a thread beside the set-up and the warm-up (no
+    # timed run overlaps it)
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        pending = pool.submit(oracle)
+        t0 = time.perf_counter()
+        ingested = tpcds.ingest_q3(data, 4, device="cuda")
+        torch.cuda.synchronize()
+        t_ingest = time.perf_counter() - t0
+        sorts: list = []
+        shapes: list = []
+        t0 = time.perf_counter()
+        with _recording_sorts(sorts), _recording_kernel_sorts(shapes):
+            answers = [tpcds.run_basket_class(device="cuda", ingested=ingested)]
+        t_warm = time.perf_counter() - t0
+        sort_checks = check_sorts("basket", sorts)
+        del sorts
+        want, t_oracle = pending.result()
+    print(f"basket class: inputs on the card in {t_ingest:.2f} s, oracle in {t_oracle:.2f} s, "
+          f"warm-up {t_warm:.2f} s", flush=True)
+    runs = []
+    for i in range(BASKET_TIMED_RUNS):
+        _reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        st: dict = {}
+        t0 = time.perf_counter()
+        answers.append(tpcds.run_basket_class(device="cuda", ingested=ingested, stats=st))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        peak = torch.cuda.max_memory_allocated()
+        _assert_planned_launches("basket", shapes, launches)
+        _assert_must_launch("basket", launches, ("murmur3_pmod", "bitonic_sort"))
+        timers = st["timers"]
+        picked = {k: timers.get(k, 0.0) for k in (
+            "HashAggExec.elapsed_compute", "ShuffleWriterExec.compress_time",
+            "IpcReaderExec.decode_time", "SortExec.sort_time")}
+        print(f"basket (run {i}): wall {wall:.4f} s (map {st['map_s']:.4f} s, reduce "
+              f"{st['reduce_s']:.4f} s, top {st['top_s']:.4f} s, egress {st['egress_s']:.4f} "
+              f"s), shuffle bytes written {st['shuffle_bytes']:,}, "
+              + ", ".join(f"{k} {v:.4f} s" for k, v in picked.items())
+              + f", kernel sorts (NP, P) {shapes}, launches {launches}, peak device memory "
+              f"{peak / 2**30:.3f} GiB", flush=True)
+        _print_timers(f"basket (run {i})", st)
+        runs.append({"wall_s": wall, "launches": launches, "peak_bytes": peak,
+                     **{k: st[k] for k in ("map_s", "reduce_s", "top_s", "egress_s",
+                                           "shuffle_bytes")},
+                     "timers_s": picked, "counters": st["counters"]})
+    for hb in answers:
+        bad = tpcds.basket_mismatch(hb.to_pydict(), want)
+        assert bad is None, ("basket", bad)
+    rb = _pyarrow_of(answers[-1])
+    assert [c.fmt for c in answers[-1].columns] == ["l", "+s", "+m", "+l"], \
+        [c.fmt for c in answers[-1].columns]
+    bad = tpcds.basket_mismatch(rb.to_pydict(), want)
+    assert bad is None, ("basket through pyarrow", bad)
+    print(f"basket: {len(want['ss_customer_sk'])} rows equal to the oracle in every run "
+          f"(first key {want['ss_customer_sk'][0]}, its sizes {want['sizes'][0]}); read back "
+          f"in pyarrow as {rb.schema.types}", flush=True)
+    del ingested
+    return {"runs": runs, "sort_shapes": shapes, "sort_checks": sort_checks,
+            "ingest_s": t_ingest, "oracle_s": t_oracle, "warm_s": t_warm}
+
+
 def report_graph_cache() -> None:
     """Print the CUDA-graph cache's resident bytes, graphs and evictions
     over the script, and fail if it holds more than its cap (a quarter of
@@ -3577,6 +3726,8 @@ def main(argv=None) -> int:
                     help="run phases 1, 2 and 19 only (no kernel table, no status line)")
     ap.add_argument("--files-only", action="store_true",
                     help="run phases 1, 2 and 20 only (no kernel table, no status line)")
+    ap.add_argument("--collect-only", action="store_true",
+                    help="run phases 1, 2 and 21 only (no kernel table, no status line)")
     ap.add_argument("--time-sorts", action="store_true",
                     help="only build and time the bitonic kernels at the sort shapes "
                          "(one JSON line, no status line)")
@@ -3702,6 +3853,16 @@ def main(argv=None) -> int:
                       f, indent=1)
         return 0
 
+    if args.collect_only:
+        data = tpcds.generate(args.sf, args.seed)
+        basket = run_collect_phase(data, args.seed, kernels_checked=False)
+        phase_done("21")
+        os.makedirs(os.path.join(REPO_DIR, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(REPO_DIR, "chiprun_out", "chip_smoke_collect.json"), "w") as f:
+            json.dump({"device": kind, "nvidia_smi": smi, "basket": basket,
+                       "phase_s": phase_s}, f, indent=1)
+        return 0
+
     # 3. kernels against their plain versions
     checks = check_kernels(args.seed)
     checks["murmur3_pmod"] = check_partition_kernel(args.seed)
@@ -3751,8 +3912,8 @@ def main(argv=None) -> int:
     phase_done("7")
 
     # 8. the six gate classes of this slice over the same fact partitions
-    oracles = {name: getattr(tpcds, f"{name}_class_oracle")(data)
-               for name in dict.fromkeys(name for _, name, _, _ in GATE_RUNS)}
+    oracles = _oracles({name: (lambda n=name: _oracle(n, data))
+                        for name in dict.fromkeys(name for _, name, _, _ in GATE_RUNS)})
     gate = run_gate_classes(data, fact, oracles)
     if args.profile:
         for label, name, conf, _ in GATE_RUNS:
@@ -3846,7 +4007,12 @@ def main(argv=None) -> int:
     files = run_files_phase(data, args.seed, kernels_checked=True, convert=convert)
     phase_done("20")
 
-    # 21. every kernel sort and run merge of the main paths, held against the
+    # 21. the customer-basket class: collect_set / collect_list states
+    # through the file shuffle, STRUCT and MAP columns out of the card
+    basket = run_collect_phase(data, args.seed, kernels_checked=True)
+    phase_done("21")
+
+    # 22. every kernel sort and run merge of the main paths, held against the
     # plain network on the card at its own operands
     checks["main_path_sorts"] = {
         **{f"q3-mesh ({m})": q3_mesh[m]["sort_checks"] for m in q3_mesh},
@@ -3862,7 +4028,8 @@ def main(argv=None) -> int:
         "q42 (converted)": convert["sort_checks"],
         "range sort (converted)": convert["range sort (converted)"]["sort_checks"],
         "reads (files)": files["reads"]["sort_checks"],
-        "sorted write": files["sorted write"]["sort_checks"]}
+        "sorted write": files["sorted write"]["sort_checks"],
+        "basket": basket["sort_checks"]}
     sort_err = max(s["max_abs_err"] for v in checks["main_path_sorts"].values() for s in v)
     for name in ("bitonic_sort", "bitonic_merge"):
         checks["max_abs_err"][name] = max(checks["max_abs_err"][name], sort_err)
@@ -3904,7 +4071,8 @@ def main(argv=None) -> int:
              **{f"{name} (files) run {i}": run["launches"]
                 for name, r in files["reads"].items() if name != "sort_checks"
                 for i, run in enumerate(r["runs"])},
-             "sorted write": files["sorted write"]["launches"]}
+             "sorted write": files["sorted write"]["launches"],
+             **{f"basket run {i}": r["launches"] for i, r in enumerate(basket["runs"])}}
     kernels = []
     for name, source, replaces in (
         ("bitonic_sort", "auron_tpu_torch/csrc/bitonic.cu", "auron_tpu/ops/bitonic.py:145"),
@@ -3934,9 +4102,10 @@ def main(argv=None) -> int:
                    "tail": tail, "window": window, "spill": spill, "q33": q33,
                    "join_tail_sweep": sweep, "predictor_ab": ab, "decimal": decimal,
                    "fusion": fused, "generate": gen, "bridge": bridge, "plan_ir": plan_ir,
-                   "convert": convert, "files": files, "phase_s": phase_s, "kernels": kernels},
+                   "convert": convert, "files": files, "basket": basket, "phase_s": phase_s,
+                   "kernels": kernels},
                   f, indent=1)
-    phase_done("21")
+    phase_done("22")
     report_graph_cache()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

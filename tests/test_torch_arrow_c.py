@@ -163,10 +163,12 @@ def test_null_type_imports_as_all_null():
     pa.array([[("k", 1)]], pa.map_(pa.string(), pa.int64())),
 ], ids=["struct", "map"])
 def test_map_and_struct_raise_naming_the_roadmap_item(arr):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        export(pa.RecordBatch.from_arrays([arr], ["m"]))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        C.format_of(T.DataType(T.TypeKind.MAP, inner=(T.STRING, T.INT64)))
+    """MAP and STRUCT columns (ROADMAP Queue 1 item 2) import through the C
+    structs and ingest: the rows come back as pyarrow gives them."""
+    hb = export(pa.RecordBatch.from_arrays([arr], ["m"]))
+    assert hb.columns[0].to_pylist() == arr.to_pylist()
+    assert Batch.from_host_arrow(hb, device="cpu").to_pydict() == {"m": arr.to_pylist()}
+    assert C.format_of(T.DataType(T.TypeKind.MAP, inner=(T.STRING, T.INT64))) == "+m"
 
 
 def test_each_release_runs_exactly_once():

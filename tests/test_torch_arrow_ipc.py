@@ -127,10 +127,12 @@ def test_compressed_stream_raises_naming_the_codec(codec):
 
 
 def test_map_and_struct_streams_raise_naming_the_roadmap_item():
+    """A STRUCT stream (ROADMAP Queue 1 item 2) reads: the rows pyarrow
+    wrote."""
     rb = pa.RecordBatch.from_arrays([pa.array([{"a": 1}], pa.struct([("a", pa.int64())]))],
                                     ["st"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        I.read_stream(_pa_stream([rb], rb.schema))
+    (hb,) = I.read_stream(_pa_stream([rb], rb.schema))
+    assert hb.columns[0].to_pylist() == [{"a": 1}]
 
 
 def _jax_blocks(codec: str) -> tuple[list, pa.RecordBatch]:

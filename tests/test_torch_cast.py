@@ -198,9 +198,27 @@ def test_can_cast_lattice():
 
 
 def test_nested_scalar_casts_name_the_type():
-    lst = PT.DataType(PT.TypeKind.LIST, inner=(PT.INT64,))
-    with pytest.raises(NotImplementedError, match="list"):
-        PC.cast_scalar([1], lst, PT.DataType(PT.TypeKind.LIST, inner=(PT.STRING,)))
+    """Nested casts (ROADMAP Queue 1 item 2) run as the reference's
+    ``cast_scalar``: element by element, a MAP with a NULL key NULL, a
+    STRUCT field by field under the target's names."""
+    lst = (PT.DataType(PT.TypeKind.LIST, inner=(PT.INT64,)),
+           JT.DataType(JT.TypeKind.LIST, inner=(JT.INT64,)))
+    lst_s = (PT.DataType(PT.TypeKind.LIST, inner=(PT.STRING,)),
+             JT.DataType(JT.TypeKind.LIST, inner=(JT.STRING,)))
+    mp = (PT.DataType(PT.TypeKind.MAP, inner=(PT.STRING, PT.INT64)),
+          JT.DataType(JT.TypeKind.MAP, inner=(JT.STRING, JT.INT64)))
+    mp_i = (PT.DataType(PT.TypeKind.MAP, inner=(PT.INT32, PT.STRING)),
+            JT.DataType(JT.TypeKind.MAP, inner=(JT.INT32, JT.STRING)))
+    st = (PT.DataType(PT.TypeKind.STRUCT, inner=(PT.INT64, PT.STRING), struct_names=("a", "b")),
+          JT.DataType(JT.TypeKind.STRUCT, inner=(JT.INT64, JT.STRING), struct_names=("a", "b")))
+    st2 = (PT.DataType(PT.TypeKind.STRUCT, inner=(PT.STRING, PT.INT64), struct_names=("x", "y")),
+           JT.DataType(JT.TypeKind.STRUCT, inner=(JT.STRING, JT.INT64), struct_names=("x", "y")))
+    for v, src, dst in (([1, None, -3], lst, lst_s), ([("1", 5), ("b", None)], mp, mp_i),
+                        ([("7", 5)], mp, mp_i), ({"a": 4, "b": "12"}, st, st2),
+                        ([1, 2], lst, (PT.STRING, JT.STRING)), ({"a": None, "b": "q"}, st,
+                                                                 (PT.STRING, JT.STRING))):
+        assert PC.cast_scalar(v, src[0], dst[0]) == JC.cast_scalar(v, src[1], dst[1])
+    assert PC.cast_scalar([("b", 1)], mp[0], mp_i[0]) is None
 
 
 # ---------------------------------------------------------------------------

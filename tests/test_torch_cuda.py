@@ -970,9 +970,50 @@ _CARD_RTOL_FNS = frozenset({"sqrt", "exp", "ln", "log10", "log2", "sin", "cos", 
 
 
 def _function_names():
+    """The registry's names but the MAP/STRUCT ones (their cases:
+    ``test_nested_function_on_card_equals_cpu``)."""
+    import torch_function_cases as C
+
     from auron_tpu_torch.functions import registry
 
-    return registry.names()
+    return [n for n in registry.names() if n not in C.NESTED_FUNCTIONS]
+
+
+def _nested_cases():
+    import torch_function_cases as C
+
+    return list(C.NESTED_CASES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _nested_cases())
+def test_nested_function_on_card_equals_cpu(case):
+    """Each MAP/STRUCT function case on the card against the same call on
+    the CPU (the vocabularies on the host, the codes and the validity on
+    the card); a case that raises on the CPU raises on the card."""
+    import torch_function_cases as C
+
+    from auron_tpu_torch.exprs import ir as pir
+    from auron_tpu_torch.exprs.eval import Evaluator
+
+    _need_card()
+    cpu, card = C.nested_port_batch("cpu"), C.nested_port_batch("cuda")
+    e = C.nested_expr(pir, case)
+    if case in C.NESTED_RAISES:
+        for b in (cpu, card):
+            with pytest.raises(ValueError):
+                Evaluator(b.schema).evaluate(b, [e])
+        return
+    want = Evaluator(cpu.schema).evaluate(cpu, [e])[0]
+    got = Evaluator(card.schema).evaluate(card, [e])[0]
+    assert got.values.device.type == "cuda" and got.dtype == want.dtype, case
+    gv, gm, ge = C.host_result(got)
+    wv, wm, we = C.host_result(want)
+    np.testing.assert_array_equal(gm, wm, err_msg=case)
+    if we is not None:
+        assert C.decoded(gv, gm, ge) == C.decoded(wv, wm, we), case
+    else:
+        np.testing.assert_array_equal(gv[gm], wv[wm], err_msg=case)
 
 
 @pytest.mark.cuda
@@ -1365,3 +1406,33 @@ def test_parquet_scan_on_card_equals_the_cpu_scan(tmp_path, late):
         out[dev] = ([r for b in batches for r in b.to_arrow().to_pylist()],
                     ctx.metrics.snapshot()["values"]["row_groups_pruned"])
     assert out["cuda"] == out["cpu"] and out["cpu"][1] == 2 and len(out["cpu"][0]) == n - 9000
+
+
+@pytest.mark.cuda
+def test_basket_class_on_card_equals_its_oracle_and_launches_k1_and_k3():
+    """The customer-basket class (collect_set, collect_list, named_struct,
+    map_from_arrays; LIST states through the file shuffle) on cuda at SF
+    0.05 equals its numpy oracle and its CPU run; the map tasks launch K1
+    (once a map task: its one state batch) and the reduce tasks'
+    SortExecs K3 as ``sort_plan`` lists for the sorts they ran."""
+    _need_card()
+    from auron_tpu_torch.models import tpcds
+
+    data = tpcds.generate(0.05, 42)
+    ingested = tpcds.ingest_q3(data, 4, device="cuda")
+    want = tpcds.basket_class_oracle(data)
+    tpcds.run_basket_class(device="cuda", ingested=ingested)  # warm-up
+    shapes: list = []
+    before = {**pb.LAUNCHES, **pk.LAUNCHES}
+    with _recording_kernel_shapes(shapes):
+        got = tpcds.run_basket_class(device="cuda", ingested=ingested).to_pydict()
+    launched = {k: v - before[k] for k, v in {**pb.LAUNCHES, **pk.LAUNCHES}.items()}
+    assert tpcds.basket_mismatch(got, want) is None
+    cpu = tpcds.run_basket_class(data, device="cpu").to_pydict()
+    assert tpcds.basket_mismatch(cpu, want) is None and cpu["profile"] == got["profile"]
+    assert launched["murmur3_pmod"] == 4  # one state batch a map task
+    # each reduce task's SortExec (~19,000 groups: 32,768 slots); the
+    # final task's 400-row top is below the kernel's 2,048-slot threshold
+    assert len(shapes) == launched["bitonic_sort"] == 4
+    planned = {k: sum(pb.sort_plan(*s).launch_counts()[k] for s in shapes) for k in pb.LAUNCHES}
+    assert {k: launched[k] for k in pb.LAUNCHES} == planned

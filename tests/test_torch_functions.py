@@ -12,8 +12,9 @@ the correctly rounded value, which XLA and CUDA give), and XLA flushes
 subnormal results to zero (``exp(-710)``), which torch and Spark do not
 (ROADMAP Queue 3).
 
-Also: the names (the reference's minus the MAP/STRUCT ones of ROADMAP
-Queue 1 item 2, which raise), the Spark hash vectors of
+Also: the names (the reference's; the MAP/STRUCT ones have their parity
+cases in tests/test_torch_nested.py, which run since ROADMAP Queue 1 item
+2), the Spark hash vectors of
 tests/test_hashing.py through ``hash``/``xxhash64`` and the port's
 ``hash_batch``, the hash kernels at every fixed type against the
 reference's, and bloom filters serialized by one package and read by the
@@ -39,7 +40,6 @@ from auron_tpu_torch import types as PT
 from auron_tpu_torch.exprs import ir as pir
 from auron_tpu_torch.exprs.eval import Evaluator as PEval
 from auron_tpu_torch.functions import registry as preg
-from auron_tpu_torch.functions.registry import DEFERRED
 from auron_tpu_torch.ops import hashing as ph
 from auron_tpu_torch.ops.bloom import SparkBloomFilter as PBloom
 from auron_tpu_torch.ops.hash_dispatch import hash_batch as phash_batch
@@ -145,27 +145,56 @@ def test_the_frame_ingests_alike_in_both_packages():
 
 
 def test_names_are_the_reference_minus_map_and_struct():
+    """Every name of the reference is registered; the MAP and STRUCT ones
+    have their parity cases in tests/test_torch_nested.py, every other
+    name a case below."""
     ref = set(jreg.names())
     assert len(ref) == 124
-    assert set(DEFERRED) <= ref and len(DEFERRED) == 9
-    assert set(preg.names()) == ref - set(DEFERRED)
-    assert sorted(preg.names()) == PORTED  # every ported name has a parity case below
+    assert set(C.NESTED_FUNCTIONS) <= ref and len(C.NESTED_FUNCTIONS) == 9
+    assert set(preg.names()) == ref
+    assert sorted(set(preg.names()) - set(C.NESTED_FUNCTIONS)) == PORTED
 
 
-@pytest.mark.parametrize("name", DEFERRED)
+_MAP = PT.DataType(PT.TypeKind.MAP, inner=(PT.STRING, PT.INT64))
+_JMAP = JT.DataType(JT.TypeKind.MAP, inner=(JT.STRING, JT.INT64))
+
+
+def _nested_arg_types(T, m):
+    """Argument types of a call of each MAP/STRUCT function."""
+    lst = lambda t: T.DataType(T.TypeKind.LIST, inner=(t,))  # noqa: E731
+    entry = T.DataType(T.TypeKind.STRUCT, inner=(T.STRING, T.INT64), struct_names=("key", "value"))
+    st = T.DataType(T.TypeKind.STRUCT, inner=(T.INT64, T.STRING), struct_names=("x", "s"))
+    return {"get_map_value": [m, T.STRING], "map_concat": [m, m],
+            "map_from_arrays": [lst(T.STRING), lst(T.INT64)], "map_from_entries": [lst(entry)],
+            "map_keys": [m], "map_values": [m], "str_to_map": [T.STRING],
+            "named_struct": [T.STRING, T.INT64], "get_struct_field": [st, T.STRING]}
+
+
+@pytest.mark.parametrize("name", C.NESTED_FUNCTIONS)
 def test_map_and_struct_functions_raise_naming_their_item(name):
-    with pytest.raises(NotImplementedError, match="item 2"):
-        preg.dispatch(name, [], 8, "cpu")
+    """Each MAP/STRUCT function (ROADMAP Queue 1 item 2) is registered, no
+    longer raises at dispatch, and its planner type is the reference's."""
+    assert preg.lookup(name) is not None
+    got = preg.infer_dtype(name, _nested_arg_types(PT, _MAP)[name])
+    want = jreg.infer_dtype(name, _nested_arg_types(JT, _JMAP)[name])
+    assert _dtype_sig(got) == _dtype_sig(want)
 
 
 def test_element_at_over_a_map_raises_naming_its_item():
+    """element_at over a MAP (ROADMAP Queue 1 item 2) runs: the value of
+    the key, NULL where the map lacks it or the row is NULL."""
     from auron_tpu_torch.exprs.eval import ColumnVal
 
-    m = PT.DataType(PT.TypeKind.MAP, inner=(PT.STRING, PT.INT32))
-    cv = ColumnVal(torch.zeros(4, dtype=torch.int32), torch.ones(4, dtype=torch.bool), m,
-                   np.array([[]], dtype=object))
-    with pytest.raises(NotImplementedError, match="item 2"):
-        preg.dispatch("element_at", [cv, cv], 4, "cpu")
+    vocab = np.empty(3, dtype=object)
+    vocab[:] = [[("a", 1), ("b", 2)], [("b", 3)], []]
+    cv = ColumnVal(torch.tensor([0, 1, 2, 0], dtype=torch.int32),
+                   torch.tensor([True, True, True, False]), _MAP, vocab)
+    key = ColumnVal(torch.zeros(4, dtype=torch.int32), torch.ones(4, dtype=torch.bool),
+                    PT.STRING, np.array(["b"], dtype=object), const="b")
+    out = preg.dispatch("element_at", [cv, key], 4, "cpu")
+    assert out.dtype == PT.INT64
+    assert out.values[out.validity].tolist() == [2, 3]
+    assert out.validity.tolist() == [True, True, False, False]
 
 
 @pytest.mark.parametrize("name", PORTED)

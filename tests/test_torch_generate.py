@@ -85,7 +85,9 @@ def test_list_round_trip_with_equal_length_lists_nulls_and_empties():
     assert back.schema == b.schema and back.to_pydict() == b.to_pydict()
     both = device_concat([b, back])
     assert both.to_pydict()["l"] == ls + ls
-    assert len(both.dicts[1]) == len({tuple(x) for x in ls if x is not None} | {()})
+    # nested vocabularies are laid end to end, one entry per row: a merge by
+    # Python equality would take [0.0] for [-0.0] (ROADMAP Queue 3)
+    assert len(both.dicts[1]) == len(b.dicts[1]) + len(back.dicts[1]) == 2 * len(ls)
     # the reference's batch of the same Arrow data carries over entry for entry
     jb = JBatch.from_arrow(rb)
     assert rows([carry(jb)]) == rows([b]) == rows([jb])
@@ -375,7 +377,7 @@ def test_generate_classes_run_without_jax_arrow_pandas_or_protobuf():
                 else:
                     assert got[k].tolist() == w.tolist(), (name, k)
         from auron_tpu_torch.functions import registry
-        assert len(registry.names()) == 115
+        assert len(registry.names()) == 124
         bad = sorted(m for m in sys.modules if sys.modules[m] is not None and
                      m.split(".")[0] in ("jax", "jaxlib", "auron_tpu", "pandas", "pyarrow"))
         assert not bad, bad

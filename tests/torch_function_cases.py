@@ -229,3 +229,122 @@ def host_result(cv):
 
 def decoded(vals, mask, ents) -> list:
     return [ents[min(max(int(x), 0), len(ents) - 1)] for x in vals[mask]]
+
+
+
+# ---------------------------------------------------------------------------
+# the MAP and STRUCT functions: a nested frame and its cases
+# (tests/test_torch_nested.py holds them against the reference on the CPU,
+# tests/test_torch_cuda.py runs them on the card)
+# ---------------------------------------------------------------------------
+
+#: the reference's MAP and STRUCT functions (with ``element_at`` over a MAP
+#: they have the cases of ``NESTED_CASES``)
+NESTED_FUNCTIONS = ("get_map_value", "map_concat", "map_from_arrays", "map_from_entries",
+                    "map_keys", "map_values", "str_to_map", "named_struct", "get_struct_field")
+
+MAPS = [[("a", 1), ("b", None)], [], None, [("a", 5)], [("x", 2), ("y", 3), ("z", 4)],
+        [("b", 7), ("a", 8)]]
+STRUCTS = [{"x": 1, "s": "p", "l": [1, 2]}, None, {"x": None, "s": None, "l": None},
+           {"x": 5, "s": "", "l": []}, {"x": -2, "s": "q,r", "l": [None, 3]}]
+
+
+def nested_columns(T) -> dict:
+    """name -> (type of module ``T``, the pool its rows are drawn from)."""
+    lst = lambda t: T.DataType(T.TypeKind.LIST, inner=(t,))  # noqa: E731
+    m = T.DataType(T.TypeKind.MAP, inner=(T.STRING, T.INT64))
+    st = T.DataType(T.TypeKind.STRUCT, inner=(T.INT64, T.STRING, lst(T.INT32)),
+                    struct_names=("x", "s", "l"))
+    entry = T.DataType(T.TypeKind.STRUCT, inner=(T.STRING, T.INT64),
+                       struct_names=("key", "value"))
+    nested = [{"m": mp, "ls": None if mp is None else [STRUCTS[0], None]} for mp in MAPS]
+    return {
+        "m": (m, MAPS), "m2": (m, MAPS), "st": (st, STRUCTS),
+        "nst": (T.DataType(T.TypeKind.STRUCT, inner=(m, lst(st)), struct_names=("m", "ls")),
+                nested + [None]),
+        "lm": (lst(m), [[x for x in MAPS if x is not None][:i] for i in range(4)] + [None]),
+        "i": (T.INT64, [1, -3, None, 40, 0]),
+        "s": (T.STRING, ["a:1,b:2", "k", "", None, "x:1:2,y", "a=1;b=2"]),
+        "ks": (lst(T.STRING), [["a", "b"], [], ["x"], None, ["c", "c"]]),
+        "vs": (lst(T.INT64), [[1, 2], [3], [], [None, 5], None]),
+        "ksn": (lst(T.STRING), [["a", None], ["b"]]),
+        "ent": (lst(entry), [[{"key": "a", "value": 1}, {"key": "b", "value": None}], [], None,
+                             [{"key": "a", "value": 3}, {"key": "a", "value": 4}]]),
+        "entn": (lst(entry), [[{"key": "a", "value": 1}, None]]),
+        "entk": (lst(entry), [[{"key": None, "value": 1}]]),
+    }
+
+
+def nested_rows(T, n: int = 40) -> dict:
+    """name -> (type, n rows drawn from its pool, seeded by its position)."""
+    out = {}
+    for seed, (name, (dt, pool)) in enumerate(nested_columns(T).items(), 1):
+        rng = np.random.default_rng(seed)
+        out[name] = (dt, [pool[int(i)] for i in rng.integers(0, len(pool), n)])
+    return out
+
+
+def nested_port_batch(device: str, n: int = 40):
+    """The nested frame as one auron_tpu_torch batch."""
+    from auron_tpu_torch import types as PT
+    from auron_tpu_torch.columnar.batch import Batch
+
+    rows = nested_rows(PT, n)
+    schema = PT.Schema(tuple(PT.Field(name, dt) for name, (dt, _) in rows.items()))
+    cols, valid = [], []
+    for dt, vals in rows.values():
+        ok = np.array([v is not None for v in vals])
+        if dt.is_dict_encoded:
+            cols.append(vals if dt.is_nested else np.array([v or "" for v in vals], object))
+        else:
+            cols.append(np.array([v if v is not None else 0 for v in vals], dt.numpy_dtype()))
+        valid.append(ok)
+    return Batch.from_numpy(cols, schema, valid, device=device)
+
+
+#: case -> (function, arguments: frame columns by name, string literals as
+#: "'<text>", int literals)
+NESTED_CASES = {
+    "get_map_value": ("get_map_value", "m", "'a"),
+    "get_map_value_missing": ("get_map_value", "m", "'zz"),
+    "map_keys": ("map_keys", "m"),
+    "map_values": ("map_values", "m"),
+    "map_concat": ("map_concat", "m", "m2"),
+    "map_from_arrays": ("map_from_arrays", "ks", "vs"),
+    "map_from_arrays_null_key": ("map_from_arrays", "ksn", "vs"),
+    "map_from_entries": ("map_from_entries", "ent"),
+    "map_from_entries_null_entry": ("map_from_entries", "entn"),
+    "map_from_entries_null_key": ("map_from_entries", "entk"),
+    "str_to_map": ("str_to_map", "s"),
+    "str_to_map_delimiters": ("str_to_map", "s", "';", "'="),
+    "named_struct": ("named_struct", "'a", "i", "'b", "s"),
+    "named_struct_nested": ("named_struct", "'m", "m", "'st", "st", "'l", "ks"),
+    "get_struct_field": ("get_struct_field", "st", "'x"),
+    "get_struct_field_string": ("get_struct_field", "st", "'s"),
+    "get_struct_field_list": ("get_struct_field", "st", "'l"),
+    "get_struct_field_map": ("get_struct_field", "nst", "'m"),
+    "element_at_map": ("element_at", "m", "'b"),
+    "element_at_list_of_maps": ("element_at", "lm", 1),
+}
+#: the cases where the reference raises (Arrow refuses a NULL map key; Spark
+#: a NULL map entry)
+NESTED_RAISES = {"map_from_arrays_null_key", "map_from_entries_null_entry",
+                 "map_from_entries_null_key"}
+
+
+#: the nested frame's columns, in ``nested_columns`` order
+NESTED_NAMES = ("m", "m2", "st", "nst", "lm", "i", "s", "ks", "vs", "ksn", "ent", "entn", "entk")
+
+
+def nested_expr(ir, case: str):
+    """The case's ``ScalarFunc`` (expressions of module ``ir``) over the
+    nested frame's columns."""
+    fn, *args = NESTED_CASES[case]
+    index = {name: i for i, name in enumerate(NESTED_NAMES)}
+
+    def arg(a):
+        if isinstance(a, int):
+            return ir.lit(a)
+        return ir.col(index[a]) if a in index else ir.lit(a[1:])
+
+    return ir.ScalarFunc(fn, tuple(arg(a) for a in args))
