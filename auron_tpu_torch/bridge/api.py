@@ -36,9 +36,8 @@ the functions below; batches cross it as Arrow, without pyarrow
 - ``convert_plan_json`` (``auron_convert_plan``): host-plan JSON to the
   segmentation response of ``convert/service.py``.
 
-``install_udf_callback`` (``bridge/udf.py``) raises ``NotImplementedError``
-naming its ROADMAP item; the C bridge relays it through
-``auron_last_error``.
+- ``install_udf_callback`` (``auron_register_udf_callback``): the host's
+  evaluator for ``__hive:<blob>`` UDFs (``bridge/udf.py``).
 """
 
 from __future__ import annotations
@@ -121,9 +120,11 @@ def convert_plan_json(payload: bytes) -> bytes:
 
 
 def install_udf_callback(fn_ptr: int) -> None:
-    """C-ABI host-UDF entry (``auron_register_udf_callback``): not ported yet."""
-    raise NotImplementedError("host UDF callbacks need bridge/udf.py, not ported yet: "
-                              "ROADMAP Queue 1 item 6")
+    """C-ABI host-UDF entry (``auron_register_udf_callback``): install the
+    host's evaluator; ``__hive:<blob>`` expressions route through it."""
+    from auron_tpu_torch.bridge import udf
+
+    udf.install_c_callback(int(fn_ptr or 0))
 
 
 # ---- task entry points ----

@@ -12,9 +12,12 @@ arrays of ``columnar/arrow_c.py``:
 - ``read_stream`` / ``iter_stream``: a stream as pyarrow (or any Arrow
   writer) writes it: schema, dictionary batches (delta dictionaries
   append), record batches; the legacy framing without the continuation
-  marker too. Buffers are numpy views of the payload. A compressed body
-  raises ``NotImplementedError`` naming its codec (the codecs are ROADMAP
-  Queue 1 item 4).
+  marker too. Buffers are numpy views of the payload; a compressed body
+  (LZ4_FRAME or ZSTD, each buffer prefixed by its uncompressed length,
+  -1 for a buffer stored raw) decompresses buffer by buffer through
+  ``columnar/codecs.py``.
+- ``write_stream(..., codec="lz4" | "zstd")`` compresses each body buffer
+  the same way (the reference's v1 shuffle blocks and ENC_ARROW columns).
 - ``schema_message``: the schema message alone (the shuffle block's
   schema section, ``exec/shuffle/format.py``).
 
@@ -182,7 +185,8 @@ HEADER_SCHEMA, HEADER_DICTIONARY, HEADER_RECORD_BATCH = 1, 2, 3
 _METADATA_V5 = 4
 _CONTINUATION = 0xFFFFFFFF
 EOS = struct.pack("<Ii", _CONTINUATION, 0)
-_CODECS = {0: "lz4_frame", 1: "zstd"}
+_CODECS = {0: "lz4", 1: "zstd"}  # CompressionType: LZ4_FRAME, ZSTD
+_CODEC_TYPE = {v: k for k, v in _CODECS.items()}
 _TS_UNIT_FMT = {0: "tss", 1: "tsm", 2: "tsu", 3: "tsn"}
 _INT_FMT = {(8, True): "c", (16, True): "s", (32, True): "i", (64, True): "l",
             (8, False): "C", (16, False): "S", (32, False): "I", (64, False): "L"}
@@ -308,7 +312,9 @@ def _flatten(arr: HostArray, nodes: list, bufs: list) -> None:
         _flatten(c, nodes, bufs)
 
 
-def _record_batch(length: int, columns: Sequence[HostArray]) -> bytes:
+def _record_batch(length: int, columns: Sequence[HostArray], codec: str | None = None) -> bytes:
+    from auron_tpu_torch.columnar import codecs
+
     nodes: list = []
     bufs: list = []
     for c in columns:
@@ -316,24 +322,34 @@ def _record_batch(length: int, columns: Sequence[HostArray]) -> bytes:
     body, spans, pos = [], [], 0
     for b in bufs:
         raw = b"" if b is None else np.ascontiguousarray(b).tobytes()
+        if codec is not None and raw:  # uncompressed length, then the codec's frame
+            raw = struct.pack("<q", len(raw)) + codecs.compress(codec, raw)
         spans.append((pos, len(raw)))
         raw = _pad8(raw)
         body.append(raw)
         pos += len(raw)
+
+    def compression(fb: _Flat) -> int:
+        return fb.table([("b", _CODEC_TYPE[codec])])           # codec; method BUFFER
 
     def rb(fb: _Flat) -> int:
         return fb.table([
             ("q", length),                                     # length
             ("off", lambda fb: fb.structs("qq", nodes)),       # nodes: (length, null_count)
             ("off", lambda fb: fb.structs("qq", spans)),       # buffers: (offset, length)
+            ("off", compression) if codec is not None else None,  # compression
         ])
 
     return _message(HEADER_RECORD_BATCH, rb, pos) + b"".join(body)
 
 
-def write_stream(batches: Sequence[HostBatch], schema: T.Schema | None = None) -> bytes:
+def write_stream(batches: Sequence[HostBatch], schema: T.Schema | None = None,
+                 codec: str | None = None) -> bytes:
     """An IPC stream: the schema (``schema`` or the first batch's), one record
-    batch message per batch, end-of-stream."""
+    batch message per batch (each body buffer compressed with ``codec``,
+    "lz4" or "zstd", when one is given), end-of-stream."""
+    if codec is not None and codec not in _CODEC_TYPE:
+        raise ValueError(f"Arrow IPC body codec must be lz4 or zstd, got {codec!r}")
     if schema is None:
         if not len(batches):
             raise ValueError("an empty stream needs its schema")
@@ -344,7 +360,7 @@ def write_stream(batches: Sequence[HostBatch], schema: T.Schema | None = None) -
     for b, cols in zip(batches, norm):
         if len(cols) != len(schema):
             raise ValueError(f"batch has {len(cols)} columns, the stream's schema {len(schema)}")
-        out.append(_record_batch(b.length, cols))
+        out.append(_record_batch(b.length, cols, codec))
     out.append(EOS)
     return b"".join(out)
 
@@ -420,6 +436,22 @@ def _buffer(body, span) -> np.ndarray | None:
     return np.frombuffer(body, np.uint8, count=length, offset=off)
 
 
+def _decompressed(body, span, codec: str) -> np.ndarray | None:
+    """One buffer of a compressed body: its int64 uncompressed length, then
+    the codec's frame (or, for -1, the bytes stored raw)."""
+    from auron_tpu_torch.columnar import codecs
+
+    raw = _buffer(body, span)
+    if raw is None:
+        return None
+    (size,) = struct.unpack_from("<q", raw, 0)
+    if size == -1:
+        return raw[8:]
+    if size == 0:
+        return None
+    return np.frombuffer(codecs.decompress(codec, raw[8:], size), np.uint8)
+
+
 def _read_array(field: _Field, nodes: Iterator, bufs: Iterator, body, dictionaries: dict,
                 as_values: bool = False) -> HostArray:
     """The next array of a record batch body; a dictionary-encoded field's
@@ -428,21 +460,21 @@ def _read_array(field: _Field, nodes: Iterator, bufs: Iterator, body, dictionari
     fmt = field.fmt
     if fmt == "n":
         return HostArray(fmt, T.NULL, length, length, 0, ())
-    validity = _buffer(body, next(bufs))
+    validity = next(bufs)
     if field.dict_id is not None and not as_values:
-        values = _buffer(body, next(bufs))
+        values = next(bufs)
         if field.dict_id not in dictionaries:
             raise ValueError(f"Arrow IPC record batch before dictionary {field.dict_id}")
         return HostArray(field.index_fmt, field.dtype, length, nulls, 0, (validity, values),
                          (), dictionaries[field.dict_id])
     if fmt in ("u", "U", "z", "Z"):
-        offsets, data = _buffer(body, next(bufs)), _buffer(body, next(bufs))
+        offsets, data = next(bufs), next(bufs)
         return HostArray(fmt, field.dtype, length, nulls, 0,
                          (validity, offsets, data if data is not None else np.zeros(0, np.uint8)))
     if fmt == "+s":  # the validity buffer alone, then the children
         children = tuple(_read_array(c, nodes, bufs, body, dictionaries) for c in field.children)
         return HostArray(fmt, field.dtype, length, nulls, 0, (validity,), children)
-    values = _buffer(body, next(bufs))
+    values = next(bufs)
     children = tuple(_read_array(c, nodes, bufs, body, dictionaries) for c in field.children)
     return HostArray(fmt, field.dtype, length, nulls, 0, (validity, values), children)
 
@@ -450,13 +482,15 @@ def _read_array(field: _Field, nodes: Iterator, bufs: Iterator, body, dictionari
 def _batch_arrays(rb: _FlatTable, body, fields: Sequence[_Field], dictionaries: dict,
                   as_values: bool = False) -> tuple[int, list[HostArray]]:
     comp = rb.table(3)
-    if comp is not None:
-        codec = _CODECS.get(comp.scalar(0, "b"), f"codec {comp.scalar(0, 'b')}")
-        raise NotImplementedError(
-            f"Arrow IPC body compressed with {codec}: the port reads uncompressed streams "
-            "(the codecs are ROADMAP Queue 1 item 4)")
+    spans = rb.structs(2, "qq")
+    if comp is None:
+        bufs = iter([_buffer(body, sp) for sp in spans])
+    else:
+        cid = comp.scalar(0, "b")
+        if cid not in _CODECS:
+            raise NotImplementedError(f"Arrow IPC body compression type {cid}")
+        bufs = iter([_decompressed(body, sp, _CODECS[cid]) for sp in spans])
     nodes = iter(rb.structs(1, "qq"))
-    bufs = iter(rb.structs(2, "qq"))
     cols = [_read_array(f, nodes, bufs, body, dictionaries, as_values) for f in fields]
     return rb.scalar(0, "q"), cols
 

@@ -837,6 +837,27 @@ def host_pylists(cvs, metrics=None) -> list[list]:
     return out
 
 
+def host_arrays(cvs, metrics=None) -> list[HostArray]:
+    """Every slot of each column (``.values``/``.validity``/``.dtype``/
+    ``.dict``) as a host Arrow array, NULL slots NULL and vocabularies
+    expanded: ONE batched device->host read for all columns (the host
+    callbacks' argument columns, ``bridge/udf.py``)."""
+    from auron_tpu_torch.runtime.transfer import harvest, start_host_transfer
+
+    tensors = []
+    for cv in cvs:
+        tensors += [cv.values, cv.validity]
+    host = harvest(start_host_transfer(*tensors), metrics, "blocking_reads")
+    out = []
+    for j, cv in enumerate(cvs):
+        vals, mask = host[2 * j], host[2 * j + 1]
+        if cv.dtype.is_dict_encoded:
+            d = cv.dict
+            vals = d[np.clip(vals, 0, len(d) - 1)] if len(d) else object_array([None] * len(vals))
+        out.append(array_from_numpy(vals, cv.dtype, mask))
+    return out
+
+
 def _physical_of(x, dtype: T.DataType):
     """A Python value (as ``_python_value`` gives it) as the physical value of
     a fixed-width column."""

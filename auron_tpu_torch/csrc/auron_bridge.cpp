@@ -388,8 +388,7 @@ int auron_register_udf_callback(auron_udf_eval_fn fn) {
   if (!ensure_init()) return -1;
   PyGILState_STATE st = PyGILState_Ensure();
   int rc = -1;
-  /* hand the raw pointer to the engine (install_udf_callback; not ported
-   * yet, so this relays its NotImplementedError) */
+  /* hand the raw pointer to the engine (bridge/udf.py install_c_callback) */
   PyObject* res = PyObject_CallMethod(
       g_api, "install_udf_callback", "K",
       static_cast<unsigned long long>(reinterpret_cast<uintptr_t>(fn)));

@@ -48,10 +48,13 @@ the FINAL stage rebuilds the exact sums on the host (``_final_wide``; past
 decimals) reduce in the vocabulary's rank space. ``first`` and
 ``first_ignores_null`` keep a ``#value`` and a ``#seen`` lane.
 ``collect_list`` and ``collect_set`` keep an ``#items`` LIST state: each
-group's values as one vocabulary entry (``_reduce_collect``); as in the
-reference, an aggregate with one takes the generic path alone (no dense
-table, probe, merge-path or deferred counts). ``host_udaf`` waits for
-ROADMAP Queue 1 item 6b; the constructor rejects it.
+group's values as one vocabulary entry (``_reduce_collect``). ``host_udaf``
+keeps a ``#state`` BINARY state: each group's accumulator (``bridge/udf.py``
+``UdafSpec``) pickled into one vocabulary entry (``_reduce_udaf_state``,
+``_final_udaf``; reference ``agg_exec.py:1145-1167, 1251-1263``). As in the
+reference, an aggregate with either takes the generic path alone (no dense
+table, probe, merge-path or deferred counts), and its state batches spill
+like any other.
 
 The incremental path (reference ``agg_exec.py:846-1090, 2810-3147``), on
 for CUDA tensors (``exec.agg.incremental.probe`` / ``.mergepath``, auto):
@@ -114,7 +117,7 @@ FINAL = "final"
 
 #: the aggregates reduced on the host: each group's values become one entry
 #: of a LIST vocabulary (reference ``_has_host_aggs``)
-_HOST_FUNCS = ("collect_list", "collect_set")
+_HOST_FUNCS = ("collect_list", "collect_set", "host_udaf")
 #: a PARTIAL aggregate with a host aggregate reduces its input batches
 #: coalesced up to this many rows (or an eighth of the memory budget): each
 #: reduce builds one Python list a group, so a group seen in several batches
@@ -156,6 +159,10 @@ def final_type(a: AggExpr, in_t: T.DataType | None) -> T.DataType:
         return sum_type(in_t)
     if a.func == "avg":
         return avg_type(in_t)
+    if a.func == "host_udaf":
+        from auron_tpu_torch.bridge.udf import lookup_udaf
+
+        return lookup_udaf(a.udaf).out_dtype
     if a.func in _HOST_FUNCS:
         return T.DataType(T.TypeKind.LIST, inner=(in_t,))
     return in_t  # min/max/first
@@ -200,6 +207,9 @@ def intermediate_fields(a: AggExpr, in_t: T.DataType | None, prefix: str) -> lis
         return [T.Field(f"{prefix}#{a.func}", in_t, True)]
     if a.func in ("first", "first_ignores_null"):
         return [T.Field(f"{prefix}#value", in_t, True), T.Field(f"{prefix}#seen", T.BOOL, False)]
+    if a.func == "host_udaf":
+        # the pickled accumulator of each group: bounded by the state's size
+        return [T.Field(f"{prefix}#state", T.BINARY, True)]
     if a.func in _HOST_FUNCS:
         return [T.Field(f"{prefix}#items", T.DataType(T.TypeKind.LIST, inner=(in_t,)), True)]
     raise ValueError(a.func)
@@ -207,8 +217,8 @@ def intermediate_fields(a: AggExpr, in_t: T.DataType | None, prefix: str) -> lis
 
 def _input_type_from_intermediate(a: AggExpr, first_field: T.Field) -> T.DataType | None:
     t = first_field.dtype
-    if a.func in ("count", "count_star"):
-        return None
+    if a.func in ("count", "count_star", "host_udaf"):
+        return None  # a UDAF's state column carries no input type
     if a.func in _HOST_FUNCS:
         return t.inner[0]
     if a.func in ("sum", "avg"):
@@ -1198,6 +1208,8 @@ def _reduce_one(a: AggExpr, in_t, cols, seg: S.Segmentation, cap: int, raw: bool
         else:
             mv, any_valid = fn(v, m, ids, cap)
         return [ColumnVal(mv, any_valid & group_valid, in_t, d)]
+    if a.func == "host_udaf":
+        return [_reduce_udaf_state(a.udaf, in_t, cols[0], seg, cap, raw, group_valid)]
     if a.func in _HOST_FUNCS:
         return [_reduce_collect(a.func, in_t, cols[0], seg, cap, raw, group_valid)]
     if a.func in ("first", "first_ignores_null"):
@@ -1260,6 +1272,62 @@ def _reduce_collect(func: str, in_t: T.DataType, cv: ColumnVal, seg: S.Segmentat
     codes = torch.remainder(torch.arange(cap, dtype=torch.int32, device=dev), max(ng, 1))
     return ColumnVal(codes, group_valid, T.DataType(T.TypeKind.LIST, inner=(in_t,)),
                      object_array(lists))
+
+
+def _reduce_udaf_state(udaf: str, in_t, cv: ColumnVal, seg: S.Segmentation, cap: int,
+                       raw: bool, group_valid) -> ColumnVal:
+    """A host UDAF's accumulation (reference ``agg_exec.py:1152-1202``): a
+    raw batch folds each group's values into a fresh state (``update``), a
+    merge input merges the partial states of its groups (``merge``). One
+    batched read brings the group ids and the values to the host; each
+    group's state goes back pickled, one BINARY vocabulary entry a group,
+    the codes ``arange(cap) % groups`` over it."""
+    import pickle
+
+    from auron_tpu_torch.bridge.udf import lookup_udaf
+
+    spec = lookup_udaf(udaf)
+    dev = cv.values.device
+    g, v, k, ng = harvest(start_host_transfer(
+        seg.seg_ids, cv.values[seg.order], cv.validity[seg.order] & seg.sel_sorted,
+        torch.as_tensor(seg.num_groups)))
+    n_groups = int(ng)
+    states: list = [None] * max(n_groups, 1)
+    rows = np.flatnonzero(k & (g >= 0) & (g < n_groups))
+    if raw:
+        for gid, val in zip(g[rows].tolist(), _py_values(v[rows], in_t, cv.dict).tolist()):
+            st = states[gid]
+            states[gid] = spec.update(spec.init() if st is None else st, val)
+    else:
+        d = cv.dict
+        for gid, code in zip(g[rows].tolist(), v[rows].tolist()):
+            blob = d[code] if 0 <= code < len(d) else None
+            if not blob:
+                continue
+            other = pickle.loads(blob)
+            states[gid] = other if states[gid] is None else spec.merge(states[gid], other)
+    blobs = object_array([pickle.dumps(st if st is not None else spec.init()) for st in states])
+    codes = torch.remainder(torch.arange(cap, dtype=torch.int32, device=dev), max(n_groups, 1))
+    return ColumnVal(codes, group_valid, T.BINARY, blobs)
+
+
+def _final_udaf(udaf: str, state: ColumnVal) -> ColumnVal:
+    """``finish`` of each group's state (reference ``agg_exec.py:1251-1263``):
+    one batched read of the codes, the results back as one column."""
+    import pickle
+
+    from auron_tpu_torch.bridge.udf import lookup_udaf
+
+    spec = lookup_udaf(udaf)
+    cap = int(state.values.shape[0])
+    codes, valid = harvest(start_host_transfer(state.values, state.validity))
+    d = state.dict
+    out = []
+    for code, ok in zip(codes.tolist(), valid.tolist()):
+        blob = d[code] if ok and 0 <= code < len(d) else None
+        out.append(spec.finish(pickle.loads(blob)) if blob else None)
+    v, m, vocab = column_from_pylist(out, spec.out_dtype, cap, state.values.device)
+    return ColumnVal(v, m & state.validity, spec.out_dtype, vocab)
 
 
 def _merge_input(cv: ColumnVal, pos_gid, n_groups, cap: int, in_t: T.DataType):
@@ -1396,6 +1464,8 @@ def _reduce_wide_sum(in_t, cols, sortg, ids, cap, raw, group_valid) -> list[Colu
 
 
 def _final_one(a: AggExpr, in_t, cols: list[ColumnVal]) -> ColumnVal:
+    if a.func == "host_udaf":
+        return _final_udaf(a.udaf, cols[0])
     if a.func in ("count", "count_star"):
         return ColumnVal(cols[0].values, torch.ones_like(cols[0].validity), T.INT64)
     if a.func in ("sum", "avg") and is_wide_sum(in_t):
@@ -1577,12 +1647,15 @@ class _DenseAggState:
         self._link = getattr(exec_, "_dense_prep_link", None)
 
     def mem_used(self) -> int:
+        # the manager polls from other tasks' threads while this one resets
+        # or allocates the table: one read of each attribute
         held = self._pending_bytes
-        if self.vals is None:
+        vals, valids, present = self.vals, self.valids, self.present
+        if vals is None or valids is None or present is None:
             return held
-        return (held + self.present.numel() * 4
-                + sum(v.numel() * v.element_size() for v in self.vals)
-                + sum(m.numel() * 4 for m in self.valids if m is not None))
+        return (held + present.numel() * 4
+                + sum(v.numel() * v.element_size() for v in list(vals))
+                + sum(m.numel() * 4 for m in list(valids) if m is not None))
 
     def spill(self) -> int:
         return 0  # unspillable (fixed footprint); drained at stream end

@@ -2,9 +2,11 @@
 
 Port of ``auron_tpu/exec/generate_exec.py`` (the reference's
 generate_exec.rs + generate/{explode,json_tuple}.rs): ``explode`` and
-``pos_explode`` (with ``outer``) and ``json_tuple``. ``host_udtf`` needs the
-bridge's UDTF registry (``bridge/udf.py``, ROADMAP Queue 1 item 6) and
-raises until then.
+``pos_explode`` (with ``outer``), ``json_tuple`` and ``host_udtf``, a table
+function registered with the bridge (``bridge/udf.py``): one batched read
+brings the generator argument to the host, the callback expands each live
+row, and the required columns repeat per generated row by a gather on the
+device (reference ``generate_exec.py:149-187``).
 
 A LIST column is dictionary-encoded: int32 codes on the device, one Python
 list per vocabulary entry on the host. The vocabulary gives the flattened
@@ -54,10 +56,6 @@ class GenerateExec(ExecOperator):
     ):
         if generator not in GENERATORS:
             raise ValueError(f"unknown generator {generator}")
-        if generator == "host_udtf":
-            raise NotImplementedError(
-                "GenerateExec host_udtf needs bridge/udf.py's UDTF registry, which waits for "
-                "ROADMAP Queue 1 item 6 (the host-side tail)")
         self.generator = generator
         self.gen_expr = gen_expr
         self.required_cols = required_cols
@@ -65,8 +63,13 @@ class GenerateExec(ExecOperator):
         self.json_fields = json_fields or []
         fields = [child.schema[i] for i in required_cols]
         gen_dtype = gen_expr.dtype_of(child.schema)
+        self.udtf = udtf
         if generator == "json_tuple":
             fields += [T.Field(f, T.STRING, True) for f in self.json_fields]
+        elif generator == "host_udtf":
+            from auron_tpu_torch.bridge.udf import lookup_udtf
+
+            fields += list(lookup_udtf(udtf)[1].fields)
         else:
             if gen_dtype.kind != T.TypeKind.LIST:
                 raise TypeError(f"{generator} requires a LIST input, not {gen_dtype}")
@@ -88,6 +91,8 @@ class GenerateExec(ExecOperator):
                     out = self._json_tuple(b, cv)
                 ctx.metrics.add("generate_chunks", 1)
                 yield out
+            elif self.generator == "host_udtf":
+                yield from self._host_udtf(b, cv, ctx)
             else:
                 yield from self._explode(b, cv, ctx)
 
@@ -152,6 +157,51 @@ class GenerateExec(ExecOperator):
                 cols.append(ColumnVal(ev_vals[eidx], ev_mask[eidx] & real_elem, elem_dtype,
                                       ev_dict))
                 names.append(self.schema[-1].name)
+                out = batch_from_columns(cols, names, ok)
+            ctx.metrics.add("generate_chunks", 1)
+            yield Batch(self.schema, out.device, out.dicts)
+
+    def _host_udtf(self, b: Batch, cv: ColumnVal, ctx) -> Iterator[Batch]:
+        """A bridge-registered table function over the live rows: their
+        generator values in one batched read, the callback per row (an
+        ``outer`` row that generates nothing gives one row of NULLs), the
+        generated columns up to the device and the required columns
+        gathered by input row, in chunks of ``_CHUNK`` rows."""
+        from auron_tpu_torch.bridge.udf import lookup_udtf
+        from auron_tpu_torch.columnar.batch import host_pylists
+
+        fn, out_schema = lookup_udtf(self.udtf)
+        dev = b.torch_device
+        sel = ColumnVal(b.device.sel, torch.ones_like(b.device.sel), T.BOOL)
+        with ctx.metrics.timer("elapsed_compute"):
+            vals, live = host_pylists([cv, sel], ctx.metrics)
+            src, gen = [], []
+            width = len(out_schema)
+            for i, v in enumerate(vals):
+                if not live[i]:
+                    continue
+                rows = fn(v) if v is not None else []
+                if not rows and self.outer:
+                    rows = [(None,) * width]
+                src += [i] * len(rows)
+                gen += rows
+        total = len(src)
+        if total == 0:
+            return
+        ctx.metrics.add("exploded_rows", total)
+        for cstart in range(0, total, _CHUNK):
+            with ctx.metrics.timer("elapsed_compute"):
+                k = min(_CHUNK, total - cstart)
+                ccap = bucket_capacity(k)
+                li = torch.zeros(ccap, dtype=torch.int64)
+                li[:k] = torch.as_tensor(src[cstart:cstart + k], dtype=torch.int64)
+                ok = torch.arange(ccap, device=dev) < k
+                cols, names = self._required(b, li.to(dev), ok)
+                chunk = gen[cstart:cstart + k]
+                for gi, f in enumerate(out_schema):
+                    v, m, d = column_from_pylist([r[gi] for r in chunk], f.dtype, ccap, dev)
+                    cols.append(ColumnVal(v, m & ok, f.dtype, d))
+                    names.append(f.name)
                 out = batch_from_columns(cols, names, ok)
             ctx.metrics.add("generate_chunks", 1)
             yield Batch(self.schema, out.device, out.dicts)

@@ -20,6 +20,8 @@ from __future__ import annotations
 import threading
 from typing import Iterator
 
+import torch
+
 from auron_tpu_torch.columnar.batch import Batch
 from auron_tpu_torch.device import resolve_device
 from auron_tpu_torch.exec.base import ExecOperator, ExecutionContext
@@ -75,6 +77,10 @@ class BroadcastHashJoinExec(ExecOperator):
             device = None if batches else resolve_device(ctx.device)
             built = self.driver.prepare(batches, device)
         if key is not None:
+            if device is None and batches and batches[0].torch_device.type == "cuda":
+                # tasks on other streams probe the shared build: it is
+                # complete before it is published
+                torch.cuda.current_stream(batches[0].torch_device).synchronize()
             with _build_lock:
                 built = store.setdefault(key, built)
             built = self.driver.fresh(built)

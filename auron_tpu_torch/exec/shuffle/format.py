@@ -22,9 +22,15 @@ BITPACK, RLE, PACKBITS, SPARSE and SCALED and their deterministic chooser
 same bytes as the JAX package's native kernels). The writer's rules that
 decide the bytes carry over: no validity section when a column has no
 NULLs, NULL lanes zeroed before encoding, a plane at least half NULL takes
-SPARSE. The port has no general codec (no pyarrow on the card): as in the
-JAX package when a codec is unavailable, the writer degrades to the
-light-weight encodings and warns once (``format.py:247-269``).
+SPARSE. The general codec (``fallback_codec``: ``exec.shuffle.encoding.
+fallback.codec``, auto = ``spill.compression.codec``, lz4 by default)
+compresses, through ``columnar/codecs.py`` (``pa.Codec``), a raw int plane
+or a float plane no light-weight encoding fits once it holds at least
+1,024 bytes and the frame saves more than its 9-byte header: ENC_CODEC,
+``u8 codec id | u64 raw length | frame`` (``format.py:465-533, 685-692``).
+A codec the process cannot have (pyarrow missing, or a build without it)
+degrades to the light-weight encodings with one stderr warning per name
+(``format.py:247-269``).
 
 The schema section is a minimal Arrow IPC schema message written without
 pyarrow (``pa.ipc.read_schema`` reads it, so the JAX reader reads the
@@ -49,11 +55,14 @@ a decimal64 keeps the lanes whose value fits int64 (the others turn NULL,
 reference ``reader.py:138-147``); a wide decimal becomes codes into a
 vocabulary of its distinct values. A wide-decimal ENC_DICT column (the
 JAX writer's form for a small dictionary) reads its Decimal128 vocabulary
-stream here too. A v1 block (an Arrow IPC stream, what the reference's
-``IpcWriterExec`` writes) decodes through ``columnar/arrow_ipc.py`` when
-it is uncompressed. ENC_CODEC, ENC_ARROW and compressed v1 blocks raise
-``NotImplementedError`` naming the encoding or codec (the codecs are ROADMAP
-Queue 1 item 4).
+stream here too. A dictionary column whose vocabulary exceeds
+``exec.shuffle.encoding.dict.max`` entries is an ENC_ARROW column: its
+values materialized as a single-column Arrow IPC stream under the codec
+(``format.py:602-644, 782``, written by ``columnar/arrow_ipc.py``); the
+reader reads ENC_ARROW columns of every type, the JAX writer's nested
+columns among them. A v1 block (an Arrow IPC stream, compressed or not:
+what the reference's writers write with ``exec.shuffle.encoding=off``,
+``encode_v1_block`` here) decodes through ``columnar/arrow_ipc.py``.
 """
 
 from __future__ import annotations
@@ -67,8 +76,9 @@ import numpy as np
 
 from auron_tpu_torch import types as T
 from auron_tpu_torch.columnar import arrow_ipc
-from auron_tpu_torch.columnar.arrow_c import HostBatch, array_from_pylist
+from auron_tpu_torch.columnar.arrow_c import HostBatch, array_from_numpy, array_from_pylist
 from auron_tpu_torch.columnar.batch import empty_dict, empty_entry, merge_vocab, object_array
+from auron_tpu_torch.columnar import codecs
 from auron_tpu_torch.utils.config import (
     SHUFFLE_ENCODING, SHUFFLE_ENCODING_FALLBACK, SPILL_COMPRESSION_CODEC, resolve_tri,
 )
@@ -164,23 +174,53 @@ def shuffle_encoding_enabled(conf) -> bool:
     return resolve_tri(conf.get(SHUFFLE_ENCODING), True)
 
 
-def warn_unavailable_codec(conf) -> None:
-    """The JAX writer's general codec for planes no light-weight encoding
-    fits (``format.py:_fallback_codec``). The port has none, so a named
-    codec degrades with one stderr warning per name, the JAX package's rule
-    for an unavailable codec."""
+def fallback_codec(conf) -> str | None:
+    """The general codec for planes no light-weight encoding fits
+    (``format.py:_fallback_codec``): the named one, else lz4, else None. A
+    name the process cannot have degrades with one stderr warning per
+    name."""
     name = conf.get(SHUFFLE_ENCODING_FALLBACK)
     if name == "auto":
         name = conf.get(SPILL_COMPRESSION_CODEC)
     if name in (None, "none"):
-        return
+        return None
     for candidate in (name, "lz4"):
+        if codecs.available(candidate):
+            return candidate
         with _codec_warn_lock:
             if candidate not in _codec_warned:
                 _codec_warned.add(candidate)
                 sys.stderr.write(
                     f"auron-tpu: shuffle encoding fallback codec '{candidate}' "
                     "unavailable; degrading to light-weight encodings only\n")
+    return None
+
+
+def v1_codec(conf) -> str | None:
+    """The codec of a v1 block (``format.py:_codec``): ``spill.compression.
+    codec``, None for none."""
+    c = conf.get(SPILL_COMPRESSION_CODEC)
+    return None if c in (None, "none") else c
+
+
+_CODEC_MIN_BYTES = 1024
+
+
+def _codec_plane(codec: str | None, raw: bytes) -> bytes | None:
+    """An ENC_CODEC payload of ``raw`` when it pays (>= 1,024 bytes, and the
+    frame saves more than the 9-byte header), else None."""
+    if codec is None or len(raw) < _CODEC_MIN_BYTES:
+        return None
+    comp = codecs.compress(codec, raw)
+    if len(comp) + 9 >= len(raw):
+        return None
+    return struct.pack("<BQ", codecs.CODEC_IDS[codec], len(raw)) + comp
+
+
+def _decode_codec(payload: bytes, n: int, dtype: np.dtype) -> np.ndarray:
+    cid, raw_len = struct.unpack_from("<BQ", payload, 0)
+    raw = codecs.decompress(codecs.CODEC_BY_ID[cid], payload[9:], raw_len)
+    return np.frombuffer(raw, dtype, count=n)
 
 
 def _for_width(lo: int, hi: int) -> int:
@@ -284,7 +324,8 @@ def decode_int_plane(enc: int, payload: bytes, n: int, dtype: np.dtype) -> np.nd
         pos += lbytes
         vals = _unpack_for(payload[pos:], nruns, dtype)
         return np.repeat(vals, lengths)
-    _refuse(enc)
+    if enc == ENC_CODEC:
+        return _decode_codec(payload, n, dtype)
     raise ValueError(f"bad int plane encoding {enc}")
 
 
@@ -327,9 +368,9 @@ def _scaled_pack(a: np.ndarray, e: int) -> bytes | None:
     return struct.pack("<BB", e, ENC_BITPACK) + payload
 
 
-def encode_float_plane(a: np.ndarray) -> tuple[int, bytes]:
+def encode_float_plane(a: np.ndarray, codec: str | None = None) -> tuple[int, bytes]:
     """Floats: SCALED when the plane is decimal-in-float, RLE when runs
-    dominate (bit-pattern equality), else raw (no general codec)."""
+    dominate (bit-pattern equality), else the general codec, else raw."""
     n = len(a)
     if n:
         e = _scaled_exponent(a)
@@ -346,6 +387,9 @@ def encode_float_plane(a: np.ndarray) -> tuple[int, bytes]:
             lengths = np.diff(np.concatenate((starts, [n])))
             lpart = _pack_for(lengths, 0, _for_width(0, int(lengths.max())))
             return ENC_RLE, struct.pack("<I", nruns) + lpart + a[starts].tobytes()
+    comp = _codec_plane(codec, raw)
+    if comp is not None:
+        return ENC_CODEC, comp
     return ENC_RAW, raw
 
 
@@ -366,15 +410,9 @@ def decode_float_plane(enc: int, payload: bytes, n: int, dtype: np.dtype) -> np.
         pos += lbytes
         vals = np.frombuffer(payload, dtype, count=nruns, offset=pos)
         return np.repeat(vals, lengths)
-    _refuse(enc)
+    if enc == ENC_CODEC:
+        return _decode_codec(payload, n, dtype)
     raise ValueError(f"bad float plane encoding {enc}")
-
-
-def _refuse(enc: int) -> None:
-    if enc in (ENC_CODEC, ENC_ARROW):
-        raise NotImplementedError(
-            f"shuffle encoding {ENC_NAMES[enc]} ({enc}) needs the codecs of ROADMAP Queue 1 "
-            "item 4 of the port")
 
 
 # ---------------------------------------------------------------------------
@@ -533,14 +571,46 @@ def decode_dec128(body: bytes, valid: np.ndarray | None, nrows: int, dtype: T.Da
     return DictCodes(rank[inv.reshape(-1)], vocab), valid
 
 
-def encode_column(vals, valid: np.ndarray | None,
-                  dtype: T.DataType) -> tuple[int, bytes | None, bytes]:
+def _encode_arrow_column(vals: DictCodes, valid: np.ndarray | None, dtype: T.DataType,
+                         codec: str | None) -> tuple[int, bytes | None, bytes]:
+    """ENC_ARROW: the column's values (vocabulary entries by code, NULL rows
+    NULL) as a self-describing single-column Arrow IPC stream under the
+    codec; no validity section (``format.py:782``)."""
+    vocab = vals.vocab
+    ent = vocab[np.clip(np.asarray(vals.codes, np.int64), 0, max(len(vocab) - 1, 0))] \
+        if len(vocab) else object_array([None] * len(vals))
+    col = ent.tolist()
+    if valid is not None:
+        for i in np.flatnonzero(~valid).tolist():
+            col[i] = None
+    schema = T.Schema((T.Field("", dtype, True),))
+    hb = HostBatch(schema, len(col), (array_from_pylist(col, dtype),))
+    return ENC_ARROW, None, arrow_ipc.write_stream([hb], codec=codec)
+
+
+def decode_arrow(body: bytes, nrows: int, dtype: T.DataType):
+    """(plane, validity) of an ENC_ARROW column (a single-column Arrow IPC
+    stream, compressed or not, from either package's writer)."""
+    n, cols = _host_columns(arrow_ipc.read_stream(body), T.Schema((T.Field("", dtype, True),)))
+    if n != nrows:
+        raise ValueError(f"arrow column holds {n} rows, the block {nrows}")
+    return cols[0]
+
+
+def encode_column(vals, valid: np.ndarray | None, dtype: T.DataType, codec: str | None = None,
+                  dict_max: int | None = None) -> tuple[int, bytes | None, bytes]:
     """One column's (enc, packed validity or None, payload), with the JAX
     writer's rules (``format.py:_encode_column``). ``vals`` is a numpy
-    plane, or a ``DictCodes`` for a dictionary-encoded column."""
+    plane, or a ``DictCodes`` for a dictionary-encoded column; a vocabulary
+    past ``dict_max`` entries (a nested one's used entries) is ENC_ARROW."""
     if dtype.kind == T.TypeKind.DECIMAL:
         return _encode_dec128_column(vals, valid, dtype)
     if dtype.is_dict_encoded:
+        if dict_max is not None and len(vals.vocab) > dict_max:
+            used = np.unique(np.clip(vals.codes, 0, len(vals.vocab) - 1)) if dtype.is_nested \
+                else vals.vocab
+            if len(used) > dict_max:
+                return _encode_arrow_column(vals, valid, dtype, codec)
         return _encode_dict_column(vals, valid, dtype)
     kind = plane_kind(dtype)
     n = len(vals)
@@ -554,22 +624,28 @@ def encode_column(vals, valid: np.ndarray | None,
         if kind != "bool" and 2 * (n - int(np.count_nonzero(valid))) >= n:
             # null-dominated plane: only the valid lanes' values
             sub = np.ascontiguousarray(vals[valid])
-            se, sp = encode_int_plane(sub) if kind == "int" else encode_float_plane(sub)
+            se, sp = encode_int_plane(sub) if kind == "int" else encode_float_plane(sub, codec)
             return ENC_SPARSE, vbytes, struct.pack("<IBI", len(sub), se, len(sp)) + sp
     if kind == "bool":
         bits = vals if valid is None else (vals & valid)
         return ENC_PACKBITS, vbytes, np.packbits(bits, bitorder="little").tobytes()
     if valid is not None:  # null lanes zeroed: deterministic bytes
         vals = vals * valid if kind == "int" else np.where(valid, vals, vals.dtype.type(0))
-    enc, payload = encode_int_plane(vals) if kind == "int" else encode_float_plane(vals)
+    if kind == "float":
+        enc, payload = encode_float_plane(vals, codec)
+        return enc, vbytes, payload
+    enc, payload = encode_int_plane(vals)
+    if enc == ENC_RAW:
+        comp = _codec_plane(codec, payload)
+        if comp is not None:
+            return ENC_CODEC, vbytes, comp
     return enc, vbytes, payload
 
 
 def decode_column(enc: int, body: bytes, valid: np.ndarray | None, nrows: int,
                   dtype: T.DataType):
     """A fixed-width column's host plane (numpy values)."""
-    _refuse(enc)
-    if enc in (ENC_DICT, ENC_DEC128):
+    if enc in (ENC_DICT, ENC_DEC128, ENC_ARROW):
         raise ValueError(f"a {ENC_NAMES[enc]} column decodes through decode_{ENC_NAMES[enc]} "
                          "(it sets validity)")
     kind = plane_kind(dtype)
@@ -663,15 +739,17 @@ def host_planes(batch, metrics=None) -> tuple[int, list]:
     return n, cols
 
 
-def encode_block(schema: T.Schema, cols: list, metrics=None) -> bytes:
+def encode_block(schema: T.Schema, cols: list, metrics=None, codec: str | None = None,
+                 dict_max: int | None = None) -> bytes:
     """One length-prefixed v2 block from host planes ``cols[i] = (values,
-    validity or None)``, all of one length. Deterministic: the same rows
-    give the same bytes."""
+    validity or None)``, all of one length, with the general ``codec``
+    (``fallback_codec``) and the ``dict_max`` of ENC_DICT. Deterministic:
+    the same rows give the same bytes."""
     nrows = len(cols[0][0]) if cols else 0
     sbytes = arrow_schema_message(schema)
     out = [V2_MAGIC, struct.pack("<BBHII", 2, 0, len(schema), nrows, len(sbytes)), sbytes]
     for f, (vals, valid) in zip(schema, cols):
-        enc, vbytes, payload = encode_column(vals, valid, f.dtype)
+        enc, vbytes, payload = encode_column(vals, valid, f.dtype, codec, dict_max)
         if metrics is not None:
             metrics.add(f"shuffle_enc_{ENC_NAMES[enc]}", 1)
         out.append(struct.pack("<BB", enc, 1 if vbytes is not None else 0))
@@ -688,16 +766,34 @@ def is_v2_payload(payload: bytes) -> bool:
     return payload[:4] == V2_MAGIC
 
 
+def encode_v1_block(schema: T.Schema, cols: list, codec: str | None = None) -> bytes:
+    """One length-prefixed v1 block (``format.py:encode_block``): the host
+    planes as one Arrow IPC stream, each body buffer compressed with
+    ``codec`` (``v1_codec``), written by ``columnar/arrow_ipc.py``."""
+    nrows = len(cols[0][0]) if cols else 0
+    arrays = []
+    for f, (vals, valid) in zip(schema, cols):
+        if isinstance(vals, DictCodes):
+            d = vals.vocab
+            vals = d[np.clip(np.asarray(vals.codes, np.int64), 0, max(len(d) - 1, 0))] \
+                if len(d) else object_array([None] * len(vals))
+        arrays.append(array_from_numpy(vals, f.dtype, valid))
+    payload = arrow_ipc.write_stream([HostBatch(schema, nrows, tuple(arrays))], codec=codec)
+    return struct.pack("<Q", len(payload)) + payload
+
+
 def _decode_v1(payload: bytes, schema: T.Schema) -> tuple[int, list]:
-    """A v1 block: an Arrow IPC stream (``columnar/arrow_ipc.py``), its
-    record batches' planes in the port's host form. A compressed stream
-    (the reference's default codec, lz4) raises naming the codec."""
+    """A v1 block: an Arrow IPC stream (``columnar/arrow_ipc.py``; a
+    compressed body through the codecs), its record batches' planes in the
+    port's host form."""
+    return _host_columns(arrow_ipc.read_stream(payload), schema)
+
+
+def _host_columns(batches: list, schema: T.Schema) -> tuple[int, list]:
+    """(rows, [(values, validity or None)]) of host Arrow batches in the
+    port's host plane form, column types from ``schema``."""
     from auron_tpu_torch.columnar.batch import host_plane
 
-    try:
-        batches = arrow_ipc.read_stream(payload)
-    except NotImplementedError as e:
-        raise NotImplementedError(f"v1 (Arrow IPC) shuffle block: {e}") from e
     parts: list[list] = [[] for _ in schema]
     for hb in batches:
         if len(hb.columns) != len(schema):
@@ -732,10 +828,8 @@ def _decode_v1(payload: bytes, schema: T.Schema) -> tuple[int, list]:
 
 def decode_block(payload: bytes, schema: T.Schema) -> tuple[int, list]:
     """(nrows, [(values, validity or None)]) of one payload, column types
-    from ``schema``: a v2 block, or a v1 block (an uncompressed Arrow IPC
-    stream, as the reference's ``IpcWriterExec`` writes with
-    ``spill.compression.codec=none``). Corrupt blocks raise ValueError;
-    encodings outside this slice raise NotImplementedError."""
+    from ``schema``: a v2 block, or a v1 block (an Arrow IPC stream, its
+    body compressed or not). Corrupt blocks raise ValueError."""
     if not is_v2_payload(payload):
         return _decode_v1(payload, schema)
     try:
@@ -768,6 +862,8 @@ def decode_block(payload: bytes, schema: T.Schema) -> tuple[int, list]:
                 cols.append(decode_dec128(body, valid, nrows, f.dtype))
             elif enc == ENC_DICT:
                 cols.append(decode_dict(body, valid, nrows, f.dtype))
+            elif enc == ENC_ARROW:
+                cols.append(decode_arrow(body, nrows, f.dtype))
             else:
                 cols.append((decode_column(enc, body, valid, nrows, f.dtype), valid))
         return nrows, cols

@@ -1,5 +1,6 @@
-"""Shuffle writer exec (port of ``auron_tpu/exec/shuffle/writer.py``,
-the local-file ``ShuffleWriterExec``).
+"""Shuffle writer execs (port of ``auron_tpu/exec/shuffle/writer.py``):
+the local-file ``ShuffleWriterExec`` and the push-style
+``RssShuffleWriterExec``.
 
 Per batch, on the batch's device: partition ids (``partitioning.py``; K1
 for a single int64 key), then ``cluster_rows``'s policy — a stable sort by
@@ -13,8 +14,11 @@ prefix of the clustered rows then comes to the host, every column plane
 copied into pinned memory under one event (``runtime/transfer.py``), is
 sliced per partition and staged in host RAM (a dictionary column as codes
 beside its batch's vocabulary, merged onto one vocabulary per block); a
-partition whose staged bytes reach ``shuffle.compression.target.buf.size`` is encoded into one v2
-block (``format.py``). ``partitioned_stream`` keeps the JAX package's
+partition whose staged bytes reach ``shuffle.compression.target.buf.size`` is encoded into one
+block by ``block_encoder`` (``writer.py:40-49``): a v2 block under
+``exec.shuffle.encoding`` (auto = on), its planes' general codec the
+``fallback_codec``, or with ``=off`` a v1 block, an Arrow IPC stream
+compressed with ``spill.compression.codec`` (``format.py``). ``partitioned_stream`` keeps the JAX package's
 one-deep stage/finish loop (``writer.py:473-492``): batch i's host copies
 are taken after batch i+1's device work was enqueued.
 
@@ -30,8 +34,14 @@ partition's spilled blocks first (oldest spill first), then its resident
 ones, so each partition's bytes stay contiguous. The files go on every
 path out of the task, and a released staging never spills again.
 
-Not ported yet: the RSS writer, v1 (Arrow IPC) blocks, and the ``obs``
-spill spans.
+``RssShuffleWriterExec`` (``writer.py:313-360``) stages the same way but
+pushes each encoded block to a partition writer from the task resource map
+(``writer(pid, block)`` or ``writer.write``; ``flush`` commits, ``abort``
+drops the attempt on any failure): ``exec/shuffle/rss.py`` and
+``rss_net.py`` give the in-process and the TCP service's clients. It counts
+``push_time``, ``compress_time`` and the bytes.
+
+Not ported: the ``obs`` spill spans.
 """
 
 from __future__ import annotations
@@ -49,13 +59,45 @@ from auron_tpu_torch import types as T
 from auron_tpu_torch.columnar.batch import Batch
 from auron_tpu_torch.exec.base import ExecOperator, ExecutionContext
 from auron_tpu_torch.exec.shuffle.format import (
-    DictCodes, data_trailer, encode_block, shuffle_encoding_enabled, warn_unavailable_codec,
-    write_index,
+    DictCodes, data_trailer, encode_block, encode_v1_block, fallback_codec,
+    shuffle_encoding_enabled, v1_codec, write_index,
 )
 from auron_tpu_torch.exec.shuffle.partitioning import Partitioning
 from auron_tpu_torch.memory import memmgr
 from auron_tpu_torch.runtime.transfer import harvest, start_host_transfer
-from auron_tpu_torch.utils.config import SHUFFLE_COMPRESSION_TARGET_BUF_SIZE
+from auron_tpu_torch.utils.config import (
+    SHUFFLE_COMPRESSION_TARGET_BUF_SIZE, SHUFFLE_ENCODING_DICT_MAX,
+)
+
+
+def block_encoder(schema: T.Schema, conf, metrics=None):
+    """THE writer-side block encoder (``writer.py:encode_shuffle_block``):
+    ``cols -> block bytes``, a v2 block under ``exec.shuffle.encoding``
+    (its general codec resolved once, warning once per unavailable name),
+    a compressed v1 Arrow IPC block with ``=off``."""
+    if shuffle_encoding_enabled(conf):
+        codec, dict_max = fallback_codec(conf), conf.get(SHUFFLE_ENCODING_DICT_MAX)
+        return lambda cols: encode_block(schema, cols, metrics, codec, dict_max)
+    codec = v1_codec(conf)
+    return lambda cols: encode_v1_block(schema, cols, codec)
+
+
+def concat_chunks(schema: T.Schema, chunks: list) -> list:
+    """One (values, validity or None) per column over staged chunks (a
+    dictionary column's onto one vocabulary)."""
+    cols = []
+    for ci, f in enumerate(schema):
+        planes = [c[ci][0] for c in chunks]
+        vals = (DictCodes.concat(planes, f.dtype.is_nested) if f.dtype.is_dict_encoded
+                else np.concatenate(planes))
+        masks = [c[ci][1] for c in chunks]
+        if all(m is None for m in masks):
+            valid = None
+        else:
+            valid = np.concatenate([np.ones(len(c[ci][0]), bool) if m is None else m
+                                    for c, m in zip(chunks, masks)])
+        cols.append((vals, valid))
+    return cols
 
 
 class ShuffleWriterExec(ExecOperator):
@@ -70,10 +112,6 @@ class ShuffleWriterExec(ExecOperator):
         self.index_file = index_file
 
     def _execute(self, partition: int, ctx: ExecutionContext) -> Iterator[Batch]:
-        if not shuffle_encoding_enabled(ctx.conf):
-            raise NotImplementedError(
-                "exec.shuffle.encoding=off (v1 Arrow IPC blocks) is not in this slice of the port")
-        warn_unavailable_codec(ctx.conf)
         n_out = self.partitioning.num_partitions
         staging = _ShuffleStaging(n_out, self.schema, ctx)
         mm = memmgr.register(ctx, staging)
@@ -133,6 +171,7 @@ class _ShuffleStaging:
         self.schema = schema
         self.ctx = ctx
         self.target = ctx.conf.get(SHUFFLE_COMPRESSION_TARGET_BUF_SIZE)
+        self.encode = block_encoder(schema, ctx.conf, ctx.metrics)
         self.staged: list[list[list]] = [[] for _ in range(n_out)]
         self.staged_bytes = [0] * n_out
         self.regions: list[list[bytes]] = [[] for _ in range(n_out)]
@@ -155,19 +194,7 @@ class _ShuffleStaging:
         if not chunks:
             return
         with self.ctx.metrics.timer("compress_time"):
-            cols = []
-            for ci, f in enumerate(self.schema):
-                planes = [c[ci][0] for c in chunks]
-                vals = (DictCodes.concat(planes, f.dtype.is_nested) if f.dtype.is_dict_encoded
-                        else np.concatenate(planes))
-                masks = [c[ci][1] for c in chunks]
-                if all(m is None for m in masks):
-                    valid = None
-                else:
-                    valid = np.concatenate([np.ones(len(c[ci][0]), bool) if m is None else m
-                                            for c, m in zip(chunks, masks)])
-                cols.append((vals, valid))
-            blk = encode_block(self.schema, cols, metrics=self.ctx.metrics)
+            blk = self.encode(concat_chunks(self.schema, chunks))
         self.ctx.metrics.add("shuffle_bytes_raw", self.staged_bytes[pid])
         self.ctx.metrics.add("shuffle_bytes_written", len(blk))
         self.regions[pid].append(blk)
@@ -237,6 +264,62 @@ class _ShuffleStaging:
                 os.unlink(path)
             except OSError:
                 pass
+
+
+class RssShuffleWriterExec(ExecOperator):
+    """Push-style shuffle writer for a remote shuffle service (reference
+    ``writer.py:313-360``): blocks go to the partition writer registered
+    under ``rss_resource_id`` instead of local files; yields nothing."""
+
+    def __init__(self, child: ExecOperator, partitioning: Partitioning, rss_resource_id: str):
+        super().__init__([child], child.schema)
+        self.partitioning = partitioning
+        self.rss_resource_id = rss_resource_id
+
+    def _execute(self, partition: int, ctx: ExecutionContext) -> Iterator[Batch]:
+        writer = ctx.resources[self.rss_resource_id]
+        push = writer if callable(writer) else writer.write
+        n_out = self.partitioning.num_partitions
+        staged: list[list] = [[] for _ in range(n_out)]
+        staged_bytes = [0] * n_out
+        target = ctx.conf.get(SHUFFLE_COMPRESSION_TARGET_BUF_SIZE)
+        encode = block_encoder(self.schema, ctx.conf, ctx.metrics)
+
+        def flush(pid: int) -> None:
+            if not staged[pid]:
+                return
+            with ctx.metrics.timer("compress_time"):
+                blk = encode(concat_chunks(self.schema, staged[pid]))
+            ctx.metrics.add("shuffle_bytes_raw", staged_bytes[pid])
+            ctx.metrics.add("shuffle_bytes_written", len(blk))
+            with ctx.metrics.timer("push_time"):
+                push(pid, blk)
+            ctx.metrics.add("data_size", len(blk))
+            staged[pid], staged_bytes[pid] = [], 0
+
+        try:
+            for parts in partitioned_stream(self.child_stream(0, partition, ctx),
+                                            self.partitioning, ctx):
+                for pid, cols in parts:
+                    staged[pid].append(cols)
+                    staged_bytes[pid] += _chunk_bytes(cols)
+                    if staged_bytes[pid] >= target:
+                        flush(pid)
+            for pid in range(n_out):
+                flush(pid)
+        except BaseException:
+            # a failed map attempt aborts, so the service drops what it
+            # pushed (a retry then starts from a clean slate)
+            if hasattr(writer, "abort"):
+                try:
+                    writer.abort()
+                except Exception:  # noqa: BLE001 — the stream's error is the one raised
+                    pass
+            raise
+        if hasattr(writer, "flush"):
+            writer.flush()
+        return
+        yield  # pragma: no cover — a generator with no items
 
 
 # ---------------------------------------------------------------------------

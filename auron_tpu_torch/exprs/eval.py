@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from auron_tpu_torch import types as T
+from auron_tpu_torch.columnar.arrow_c import HostBatch
 from auron_tpu_torch.columnar.batch import Batch, empty_dict, merge_vocab, object_array
 from auron_tpu_torch.exprs import decimal_math as D
 from auron_tpu_torch.exprs import ir
@@ -140,15 +141,30 @@ class Evaluator:
         if isinstance(e, (ir.SparkPartitionId, ir.MonotonicId, ir.RowNum, ir.ScalarSubquery)):
             return self._task_context(e, b)
         if isinstance(e, ir.HostUDF):
-            raise NotImplementedError(
-                f"host_udf '{e.name}' needs bridge/udf.py's UDF callback, which waits for "
-                "ROADMAP Queue 1 item 6 (the host-side tail)")
+            return self._host_udf(e, b, memo)
         if isinstance(e, ir.ScalarFunc):
             from auron_tpu_torch.functions import registry
 
             args = [self._eval(a, b, memo) for a in e.args]
             return registry.dispatch(e.name, args, b.capacity, b.torch_device)
         raise TypeError(f"unsupported expression {type(e).__name__}")
+
+    def _host_udf(self, e: ir.HostUDF, b: Batch, memo: dict) -> ColumnVal:
+        """A host callback (``bridge/udf.py``, reference ``eval.py:155-166``):
+        the argument columns leave the card in one batched read, the
+        callback sees every slot (padding included) and its result comes
+        back as one column; the batch's selection mask is kept."""
+        from auron_tpu_torch.bridge.udf import evaluate_udf
+        from auron_tpu_torch.columnar.batch import host_arrays
+
+        args = [self._eval(a, b, memo) for a in e.args]
+        cap = b.capacity
+        schema = T.Schema(tuple(T.Field(f"a{i}", a.dtype, True) for i, a in enumerate(args)))
+        result = evaluate_udf(e.name, HostBatch(schema, cap, tuple(host_arrays(args))), cap)
+        out = Batch.from_host_arrow(
+            HostBatch(T.Schema((T.Field("r", e.out_dtype, True),)), cap, (result,)),
+            capacity=cap, device=b.torch_device)
+        return ColumnVal(out.col_values(0), out.col_validity(0), e.out_dtype, out.dicts[0])
 
     def _task_context(self, e: ir.Expr, b: Batch) -> ColumnVal:
         """Expressions of the task rather than the row (``eval.py:128-153``):

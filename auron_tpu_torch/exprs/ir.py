@@ -2,9 +2,8 @@
 
 Copied from ``auron_tpu/exprs/ir.py``: frozen, structurally hashable
 dataclasses with the same names and fields, and the same Spark result-type
-rules (``arith_result_type``). ``HostUDF`` is defined, lowered and
-decoded as in the reference; evaluating it waits for ``bridge/udf.py``
-(``exprs/eval.py`` raises naming ROADMAP Queue 1 item 6).
+rules (``arith_result_type``). ``HostUDF`` is evaluated through the
+bridge's callback registry (``bridge/udf.py``).
 ``Literal(None, T.INT64)`` is a typed NULL. ``remap_columns`` re-binds an
 expression to a schema of only the columns it references.
 """
@@ -225,7 +224,7 @@ class ScalarSubquery(Expr):
 class HostUDF(Expr):
     """Host-callback expression (reference ``exprs/ir.py:237``): the
     fallback for a function the engine cannot evaluate, called through the
-    bridge's UDF callback (``bridge/udf.py``, not ported yet)."""
+    bridge's UDF callback (``bridge/udf.py``)."""
 
     name: str
     args: tuple[Expr, ...]

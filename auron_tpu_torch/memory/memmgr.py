@@ -22,9 +22,10 @@ kept in RAM, demoted to disk when the process ledger passes
 ``memory.host.spill.budget.bytes``) -> local disk (``DiskSpill``). A
 container holds batches in the shuffle's v2 block format
 (``exec/shuffle/format.py`` ``encode_block`` / ``decode_block``, dictionary
-strings as ENC_DICT): the machine with the card has no pyarrow, so Arrow
-IPC is out. The port has no general codec; a configured one degrades with
-the shuffle writer's single warning.
+strings as ENC_DICT), with the shuffle writer's general codec
+(``fallback_codec``: auto = ``spill.compression.codec``, lz4), so spills
+compress as the reference's do (``memmgr.py:320-332``); an unavailable
+codec degrades with the shuffle writer's single warning.
 
 Left out against the JAX package: the ``obs`` spans and spill notes
 (``note_spill``, ``_conf_trace_id``), since ``obs/`` is not ported.
@@ -221,10 +222,24 @@ class MemManager:
                 break
             if gone or c.mem_used() == 0:
                 continue
+            if c is not consumer:
+                _settle_streams()
             if c.spill():
                 with self._lock:
                     self.num_spills += 1
         self.notify_released()
+
+
+def _settle_streams() -> None:
+    """Before a consumer of another task spills: that task's tensors may
+    still be written on its own stream (concurrent task slots,
+    ``models/tpcds.run_tasks_parallel``), and the spill reads them on this
+    thread's, so every stream finishes first."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        from auron_tpu_torch.plan.fusion import _GRAPH_LOCK
+
+        with _GRAPH_LOCK:  # no stage is being captured meanwhile
+            torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------
@@ -262,11 +277,12 @@ def release_task_consumers(ctx) -> None:
 
 
 def encode_batch(b, conf) -> bytes:
-    """The live rows of ``b`` as one length-prefixed v2 block."""
-    from auron_tpu_torch.exec.shuffle.format import DictCodes, encode_block, warn_unavailable_codec
+    """The live rows of ``b`` as one length-prefixed v2 block, its planes
+    under the owning task's general codec (``conf``: a spill runs on
+    whichever thread the manager dispatches it from)."""
+    from auron_tpu_torch.exec.shuffle.format import DictCodes, encode_block, fallback_codec
 
-    if conf is not None:
-        warn_unavailable_codec(conf)
+    codec = fallback_codec(conf) if conf is not None else None
     idx = torch.nonzero(b.device.sel).flatten()
     cols = []
     for i, f in enumerate(b.schema):
@@ -275,7 +291,7 @@ def encode_batch(b, conf) -> bytes:
         if f.dtype.is_dict_encoded:
             vals = DictCodes(vals, b.dicts[i])
         cols.append((vals, None if valid.all() else valid))
-    return encode_block(b.schema, cols)
+    return encode_block(b.schema, cols, codec=codec)
 
 
 def decode_batches(data: bytes, schema, device) -> Iterator:

@@ -69,7 +69,11 @@ Every run's ``stats`` (``add_timers``) gets the host timers, the
 ``fusion`` (segments fused and left eager by reason, CUDA-graph captures,
 replays and graph bytes).
 
-Map tasks run one after another (the JAX package runs them on threads).
+A stage's tasks run on ``runtime.task.slots`` concurrent slots
+(``run_tasks_parallel``: a thread each, and on the card a CUDA stream
+each; the JAX package runs them on threads), one after another by default;
+the two-stage classes take ``parallel`` and q93 and q72 ``transport="rss"``
+(an in-process remote shuffle service over TCP, ``RssTransport``).
 """
 
 from __future__ import annotations
@@ -310,38 +314,119 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
+def run_tasks_parallel(fns: list, device="cpu", slots: int | None = None) -> list:
+    """Run task closures on concurrent slots (Spark's task slots; reference
+    ``tpcds.py:943-955``): a thread each, at most ``slots`` at once (all of
+    them by default), and on the card a CUDA stream each, ordered after the
+    caller's stream (the inputs it made) and finished before the slot
+    returns. Results in input order; the first error propagates. One task
+    or one slot runs them one after another on the caller's thread."""
+    import concurrent.futures as cf
+
+    slots = len(fns) if slots is None else slots
+    if len(fns) <= 1 or slots <= 1:
+        return [fn() for fn in fns]
+    if not str(device).startswith("cuda"):
+        def run(fn):
+            return fn()
+    else:
+        import torch
+
+        from auron_tpu_torch.device import resolve_device
+
+        dev = resolve_device(device)
+        base = torch.cuda.current_stream(dev)
+
+        def run(fn):
+            stream = torch.cuda.Stream(dev)
+            stream.wait_stream(base)
+            with torch.cuda.stream(stream):
+                out = fn()
+            stream.synchronize()
+            return out
+
+    with cf.ThreadPoolExecutor(max_workers=min(len(fns), slots)) as ex:
+        return list(ex.map(run, fns))
+
+
+def _slots(conf: Configuration) -> int:
+    from auron_tpu_torch.utils.config import TASK_SLOTS
+
+    return conf.get(TASK_SLOTS)
+
+
+class RssTransport:
+    """A stage's shuffle through a remote shuffle service: an in-process
+    ``RssNetServer`` on 127.0.0.1 over a ``LocalRssService`` with
+    ``replicas`` replicas, one client for the run's tasks (map tasks push
+    through ``RemotePartitionWriter``, reduce tasks fetch through
+    ``RemoteBlockProvider``). ``close`` stops both."""
+
+    def __init__(self, replicas: int = 2, replica: int = 0):
+        from auron_tpu_torch.exec.shuffle.rss import LocalRssService
+        from auron_tpu_torch.exec.shuffle.rss_net import RssNetClient, RssNetServer
+
+        self.server = RssNetServer(LocalRssService(num_replicas=replicas))
+        self.client = RssNetClient(self.server.addr)
+        self.replica = replica
+
+    def writer(self, shuffle_id: str, map_id: int):
+        from auron_tpu_torch.exec.shuffle.rss_net import RemotePartitionWriter
+
+        return RemotePartitionWriter(self.client, shuffle_id, map_id)
+
+    def provider(self, shuffle_id: str):
+        from auron_tpu_torch.exec.shuffle.rss_net import RemoteBlockProvider
+
+        return RemoteBlockProvider(self.client, shuffle_id, self.replica)
+
+    def close(self) -> None:
+        self.client.close()
+        self.server.close()
+
+
 def _shuffle_stage(plan, out_schema: T.Schema, key_cols: list[int], n_map: int, n_reduce: int,
                    work: str, rid: str, resources: dict, stage_id: int = 1,
-                   conf: Configuration | None = None, device="cuda", stats: dict | None = None):
+                   conf: Configuration | None = None, device="cuda", stats: dict | None = None,
+                   rss: RssTransport | None = None):
     """Run ``plan`` as ``n_map`` map tasks hash-shuffled on ``key_cols``
-    into files under ``work``; registers the exchange's block provider as
-    ``resources[rid]`` and returns the reduce side's reader. A plan proto's
-    tasks start from ``TaskDefinition`` bytes (``run_task_bytes``) and its
-    reader is an ``ipc_reader`` node; an exec tree's (the classes not moved
-    to the plan IR yet) run through ``run_task`` and its reader is an
-    ``IpcReaderExec``."""
+    into files under ``work`` (or pushed to ``rss``), on
+    ``runtime.task.slots`` concurrent slots; registers the exchange's block
+    provider as ``resources[rid]`` and returns the reduce side's reader. A
+    plan proto's tasks start from ``TaskDefinition`` bytes
+    (``run_task_bytes``) and its reader is an ``ipc_reader`` node; an exec
+    tree's (the classes not moved to the plan IR yet) run through
+    ``run_task`` and its reader is an ``IpcReaderExec``."""
     from auron_tpu_torch.exec.shuffle.partitioning import HashPartitioning
     from auron_tpu_torch.exec.shuffle.reader import IpcReaderExec, MultiMapBlockProvider
-    from auron_tpu_torch.exec.shuffle.writer import ShuffleWriterExec
+    from auron_tpu_torch.exec.shuffle.writer import RssShuffleWriterExec, ShuffleWriterExec
     from auron_tpu_torch.runtime.task import run_task
 
-    pairs = []
-    for p in range(n_map):
-        d, i = os.path.join(work, f"{rid}_m{p}.data"), os.path.join(work, f"{rid}_m{p}.index")
+    conf = conf or Configuration()
+    pairs = [(os.path.join(work, f"{rid}_m{p}.data"), os.path.join(work, f"{rid}_m{p}.index"))
+             for p in range(n_map)]
+    wkey = f"{rid}_rss_writer"
+
+    def map_task(p: int):
+        d, i = pairs[p]
+        res = resources if rss is None else {**resources, wkey: rss.writer(rid, p)}
         if isinstance(plan, ExecOperator):
             part = HashPartitioning([col(c) for c in key_cols], n_reduce)
-            _, metrics = run_task(ShuffleWriterExec(plan, part, d, i), resources, stage_id, p,
-                                  conf, device)
-        else:
-            w = B.shuffle_writer(plan, B.hash_partitioning([col(c) for c in key_cols], n_reduce),
-                                 d, i)
-            task = B.task(w, stage_id, p, dict((conf or Configuration()).items()))
-            _, metrics = run_task_bytes(task.SerializeToString(), resources, device)
+            w = (ShuffleWriterExec(plan, part, d, i) if rss is None
+                 else RssShuffleWriterExec(plan, part, wkey))
+            return run_task(w, res, stage_id, p, conf, device)[1]
+        part = B.hash_partitioning([col(c) for c in key_cols], n_reduce)
+        w = (B.shuffle_writer(plan, part, d, i) if rss is None
+             else B.rss_shuffle_writer(plan, part, wkey))
+        task = B.task(w, stage_id, p, dict(conf.items()))
+        return run_task_bytes(task.SerializeToString(), res, device)[1]
+
+    for metrics in run_tasks_parallel([(lambda p=p: map_task(p)) for p in range(n_map)],
+                                      device, _slots(conf)):
         if stats is not None:
             stats["shuffle_bytes"] = stats.get("shuffle_bytes", 0) + metrics["values"]["data_size"]
             add_timers(stats, metrics)
-        pairs.append((d, i))
-    resources[rid] = MultiMapBlockProvider(pairs)
+    resources[rid] = MultiMapBlockProvider(pairs) if rss is None else rss.provider(rid)
     if isinstance(plan, ExecOperator):
         return IpcReaderExec(out_schema, rid)
     return B.ipc_reader(out_schema, rid)
@@ -366,7 +451,8 @@ COUNTERS = ("elapsed_compute_n", "num_merges", "partial_agg_skipped", "spilled_r
             "generate_chunks", "exploded_rows", "row_groups_total", "row_groups_pruned",
             "row_groups_pruned_late", "stripes_pruned_late", "corrupted_files_skipped",
             "bytes_scanned", "fs_raw_reads", "fs_bytes_fetched", "rows_written",
-            "partitions_written")
+            "partitions_written", "shuffle_bytes_raw", "shuffle_bytes_written",
+            "shuffle_bytes_read", "shuffle_enc_codec", "shuffle_enc_arrow", "shuffle_enc_dict")
 
 #: the counters ``stats["fusion"]`` sums over every operator: the fused
 #: stages' (and standalone fused filters') CUDA-graph captures and replays
@@ -443,20 +529,28 @@ def add_timers(stats: dict, snapshot: dict) -> None:
 
 
 def _run_stages(stages: list, reduce_plan_of, resources: dict, n_reduce: int, label: str,
-                work_dir, conf, device, stats, nulls: bool = False) -> list[dict]:
-    """Map stages hash-shuffled into files one after another, then one
-    reduce task per partition over ``reduce_plan_of(*readers)``; returns the
-    reduce tasks' outputs as host columns. A stage is a callable taking the
-    readers of the stages before it and returning (map plan, output schema,
-    key columns, map tasks, resource id); plans are plan protos (each task
-    from ``TaskDefinition`` bytes) or exec trees (``_shuffle_stage``).
-    ``stats`` gets each stage's wall (``stage_s``), their sum ``map_s``,
-    ``reduce_s`` and the shuffle bytes."""
+                work_dir, conf, device, stats, nulls: bool = False,
+                transport: str = "file") -> list[dict]:
+    """Map stages hash-shuffled into files (or, with ``transport="rss"``,
+    pushed to an in-process remote shuffle service over TCP:
+    ``RssTransport``) one after another, then one reduce task per partition
+    over ``reduce_plan_of(*readers)``; the tasks of a stage run on
+    ``runtime.task.slots`` concurrent slots (``run_tasks_parallel``).
+    Returns the reduce tasks' outputs as host columns. A stage is a
+    callable taking the readers of the stages before it and returning (map
+    plan, output schema, key columns, map tasks, resource id); plans are
+    plan protos (each task from ``TaskDefinition`` bytes) or exec trees
+    (``_shuffle_stage``). ``stats`` gets each stage's wall (``stage_s``),
+    their sum ``map_s``, ``reduce_s``, the shuffle bytes and the slots."""
     from auron_tpu_torch.runtime.task import run_task
 
     work = work_dir or tempfile.mkdtemp(prefix=f"auron_{label}_")
     os.makedirs(work, exist_ok=True)
     stats = stats if stats is not None else {}
+    if transport not in ("file", "rss"):
+        raise ValueError(f"transport must be file or rss, got {transport!r}")
+    rss = RssTransport() if transport == "rss" else None
+    stats["slots"] = _slots(conf)
     rids = []
     try:
         with memory_scope(conf, stats):
@@ -467,13 +561,13 @@ def _run_stages(stages: list, reduce_plan_of, resources: dict, n_reduce: int, la
                 plan, schema, keys, n_map, rid = stage(readers)
                 rids.append(rid)
                 readers.append(_shuffle_stage(plan, schema, keys, n_map, n_reduce, work, rid,
-                                              resources, sid, conf, device, stats))
+                                              resources, sid, conf, device, stats, rss))
                 _sync(device)
                 stage_s[rid] = time.perf_counter() - t0
             t1 = time.perf_counter()
             reduce_plan = reduce_plan_of(*readers)
-            outs = []
-            for r in range(n_reduce):
+
+            def reduce_task(r: int):
                 if isinstance(reduce_plan, ExecOperator):
                     batches, metrics = run_task(reduce_plan, resources, len(stages) + 1, r,
                                                 conf, device)
@@ -481,7 +575,13 @@ def _run_stages(stages: list, reduce_plan_of, resources: dict, n_reduce: int, la
                     task = B.task(reduce_plan, len(stages) + 1, r, dict(conf.items()))
                     batches, metrics = run_task_bytes(task.SerializeToString(), resources,
                                                       device)
-                outs.append(collect(batches, nulls))
+                return collect(batches, nulls), metrics
+
+            outs = []
+            for out, metrics in run_tasks_parallel(
+                    [(lambda r=r: reduce_task(r)) for r in range(n_reduce)], device,
+                    _slots(conf)):
+                outs.append(out)
                 add_timers(stats, metrics)
             _sync(device)
             stats["map_s"] = sum(stage_s[r] for r in rids)
@@ -490,15 +590,18 @@ def _run_stages(stages: list, reduce_plan_of, resources: dict, n_reduce: int, la
     finally:
         for rid in rids:
             resources.pop(rid, None)
+        if rss is not None:
+            rss.close()
         if work_dir is None:
             shutil.rmtree(work, ignore_errors=True)
 
 
 def _run_two_stage(map_plan, out_schema, key_cols, reduce_plan_of, resources, n_map, n_reduce,
-                   rid, work_dir, conf, device, stats) -> list[dict]:
+                   rid, work_dir, conf, device, stats, transport: str = "file") -> list[dict]:
     """One map stage, then one reduce task per partition."""
     return _run_stages([lambda _: (map_plan, out_schema, key_cols, n_map, rid)],
-                       reduce_plan_of, resources, n_reduce, rid, work_dir, conf, device, stats)
+                       reduce_plan_of, resources, n_reduce, rid, work_dir, conf, device, stats,
+                       transport=transport)
 
 
 def _concat(outs: list[dict], names: list[str], dtypes: list) -> dict[str, np.ndarray]:
@@ -562,22 +665,38 @@ def q93_reduce_tree(read, scan=_resource_scan):
     return tree_from_plan(q93_reduce_plan(read, scan))
 
 
+def with_slots(conf: dict | None, parallel: bool | int, n_tasks: int) -> Configuration:
+    """``conf`` with ``runtime.task.slots``: ``parallel`` True gives a slot
+    per task, an int that many slots, False (or a slots key in ``conf``)
+    leaves it."""
+    from auron_tpu_torch.utils.config import TASK_SLOTS
+
+    c = Configuration(conf or {})
+    if parallel:
+        c.set(TASK_SLOTS, n_tasks if parallel is True else int(parallel))
+    return c
+
+
 def run_q93_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 4,
                   work_dir: str | None = None, device="cuda", conf: dict | None = None,
-                  ingested: dict | None = None, stats: dict | None = None) -> dict:
+                  ingested: dict | None = None, stats: dict | None = None,
+                  transport: str = "file", parallel: bool | int = False) -> dict:
     """The q93-class query in two stages, every task from its
     ``TaskDefinition`` bytes; returns {k_null, rows, matched, s} sorted by
-    k_null. ``stats`` (optional) gets map_s, reduce_s, shuffle_bytes, the
-    NULL keys' partition, rows per reduce partition, and the tasks'
-    ``task_bytes``, ``decode_s`` and ``plan_s``."""
+    k_null. ``transport="rss"`` shuffles through a remote shuffle service
+    (``RssTransport``); ``parallel`` runs each stage's tasks on concurrent
+    slots (``with_slots``). ``stats`` (optional) gets map_s, reduce_s,
+    shuffle_bytes, the NULL keys' partition, rows per reduce partition, and
+    the tasks' ``task_bytes``, ``decode_s`` and ``plan_s``."""
     if ingested is None:
         ingested = ingest_q93(data, n_map, device)
     n_map = len(ingested["fact"])
     resources = {"q93_fact": ingested["fact"], "q93_cust": [ingested["cust"]] * n_reduce}
     stats = stats if stats is not None else {}
     outs = _run_two_stage(q93_map_plan(), Q93_INTER_SCHEMA, [0], q93_reduce_plan, resources,
-                          n_map, n_reduce, "q93_ex0", work_dir, Configuration(conf or {}),
-                          device, stats)
+                          n_map, n_reduce, "q93_ex0", work_dir,
+                          with_slots(conf, parallel, max(n_map, n_reduce)), device, stats,
+                          transport)
     stats["null_partition"] = 42 % n_reduce
     stats["partition_rows"] = [int(o["rows"].sum()) if o else 0 for o in outs]
     return _q93_by_key(outs)
@@ -1044,13 +1163,14 @@ def run_q3_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 
                  moy: int = 11, category_id: int = 1, limit: int = 100,
                  work_dir: str | None = None, device="cuda", conf: dict | None = None,
                  ingested: dict | None = None, stats: dict | None = None,
-                 money: bool = False) -> dict:
+                 money: bool = False, parallel: bool | int = False) -> dict:
     """SELECT d_year, i_brand_id, sum(ss_ext_sales_price) s FROM store_sales
     JOIN date_dim ON ss_sold_date_sk = d_date_sk JOIN item ON ss_item_sk =
     i_item_sk WHERE d_moy = <moy> AND i_category_id = <cat> GROUP BY d_year,
     i_brand_id ORDER BY d_year, s DESC LIMIT <k>, in two stages, every task
-    from its ``TaskDefinition`` bytes. With ``money`` the price is
-    decimal(7,2) and ``s`` the exact decimal(17,2) sums as int64 cents."""
+    from its ``TaskDefinition`` bytes (``parallel`` as ``run_q93_class``).
+    With ``money`` the price is decimal(7,2) and ``s`` the exact
+    decimal(17,2) sums as int64 cents."""
     from auron_tpu_torch.bridge import api
 
     if ingested is None:
@@ -1062,7 +1182,7 @@ def run_q3_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 
     try:
         outs = _run_two_stage(partial, tree_from_plan(partial).schema, [0, 1], q3_reduce_plan,
                               resources, n_map, n_reduce, "q3_blocks", work_dir,
-                              Configuration(conf or {}), device, stats)
+                              with_slots(conf, parallel, max(n_map, n_reduce)), device, stats)
     finally:
         for k in _Q3_BUILDS:  # the bridge's map caches them for the run's tasks
             api.remove_resource(k)
@@ -1342,14 +1462,16 @@ def q72_reduce_tree(lread, rread, mode: str = Q72_ELIDE_SORTS):
 
 def run_q72_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 4,
                   work_dir: str | None = None, device="cuda", conf: dict | None = None,
-                  ingested: dict | None = None, stats: dict | None = None) -> dict:
+                  ingested: dict | None = None, stats: dict | None = None,
+                  transport: str = "file", parallel: bool | int = False) -> dict:
     """SELECT ss.ss_item_sk item, count(*) cnt, sum(ss.ss_quantity) qty,
     avg(sr.ss_ext_sales_price) p_avg FROM store_sales ss JOIN store_sales2 sr
     ON ss.ss_item_sk = sr.ss_item_sk AND ss.ss_sold_date_sk =
     sr.ss_sold_date_sk GROUP BY item: both sides shuffled on item, each
     reduce task sort-merge joins its co-partitioned slices and aggregates.
     ``conf`` may set ``auron.smj.elide.sorts`` (default full, as the JAX
-    function's tasks). Returns {item, cnt, qty, p_avg} sorted by item."""
+    function's tasks); ``transport`` and ``parallel`` as ``run_q93_class``.
+    Returns {item, cnt, qty, p_avg} sorted by item."""
     if ingested is None:
         ingested = ingest_q72(data, n_map, device)
     mode = _elide_mode(conf)
@@ -1359,7 +1481,8 @@ def run_q72_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int =
         [_shuffle_one(_fact_scan("q72_l"), [1], n_map, "q72_lb"),
          _shuffle_one(_fact_scan("q72_r"), [1], n_map, "q72_rb")],
         lambda lr, rr: q72_reduce_tree(lr, rr, mode), resources, n_reduce, "q72",
-        work_dir, Configuration(conf or {}), device, stats)
+        work_dir, with_slots(conf, parallel, max(n_map, n_reduce)), device, stats,
+        transport=transport)
     got = _concat(outs, ["item", "cnt", "qty", "p_avg"],
                   [np.int64, np.int64, np.int64, np.float64])
     return _sorted_by(got, ["item"])
@@ -1848,10 +1971,11 @@ def _tasks(plan, resources: dict, n_tasks: int, conf, device, stats, stage_id: i
     from auron_tpu_torch.runtime.task import run_task
 
     out = []
-    conf = Configuration(conf or {})
+    conf = conf if isinstance(conf, Configuration) else Configuration(conf or {})
     with memory_scope(conf, stats):
-        for p in range(n_tasks):
-            batches, metrics = run_task(plan, resources, stage_id, p, conf, device)
+        for batches, metrics in run_tasks_parallel(
+                [(lambda p=p: run_task(plan, resources, stage_id, p, conf, device))
+                 for p in range(n_tasks)], device, _slots(conf)):
             out += batches
             if stats is not None:
                 add_timers(stats, metrics)
@@ -4339,4 +4463,283 @@ def basket_mismatch(got: dict, want: dict) -> str | None:
     for i, (g, w) in enumerate(zip(got["singles"], want["singles"])):
         if sorted(g) != sorted(w):
             return f"singles of row {i} differ as multisets"
+    return None
+
+
+# ---------------------------------------------------------------------------
+# the host-callback class: Spark plans with UDF, UDAF and UDTF fallbacks
+# ---------------------------------------------------------------------------
+
+#: the names ``run_udf_class`` registers with the bridge (``bridge/udf.py``)
+UDF_NET = "udf_class_net_price"  # scalar UDF: 0.9 x price, through pyarrow.compute
+UDF_GEO = "udf_class_geomean"  # UDAF accumulator: the geometric mean
+UDF_NGRAMS = "udf_class_brand_ngrams"  # UDTF: the digit bigrams of a brand id
+#: the Hive UDF's serialized function: the brand's thousands ("brand-1003")
+HIVE_BLOB = b"brand-thousands"
+UDF_MOY = 11  # q42's month filter
+
+
+def _net_price(args, n):
+    import pyarrow.compute as pc
+
+    return pc.multiply(args[0], 0.9)
+
+
+def _geo_init():
+    return (0.0, 0)
+
+
+def _geo_update(st, v):
+    import math
+
+    return (st[0] + math.log(v), st[1] + 1)
+
+
+def _geo_merge(a, b):
+    return (a[0] + b[0], a[1] + b[1])
+
+
+def _geo_finish(st):
+    import math
+
+    return math.exp(st[0] / st[1]) if st[1] else None
+
+
+def _bigrams(v):
+    s = str(v)
+    return [(s[i:i + 2],) for i in range(len(s) - 1)]
+
+
+def register_udf_class() -> None:
+    """Register the class's UDF, UDAF and UDTF with the port's bridge."""
+    from auron_tpu_torch.bridge import udf
+
+    udf.register_udf(UDF_NET, _net_price)
+    udf.register_udaf_accumulator(UDF_GEO, init=_geo_init, update=_geo_update,
+                                  merge=_geo_merge, finish=_geo_finish, out_dtype=T.FLOAT64)
+    udf.register_udtf(UDF_NGRAMS, _bigrams, T.Schema((T.Field("gram", T.STRING, True),)))
+
+
+_HIVE_KEEP: dict = {}  # the evaluator and its last result stay alive for the C caller
+
+
+def hive_evaluator():
+    """The host's Hive-UDF evaluator, an ``auron_udf_eval_fn`` (a ctypes
+    callback): it reads the argument columns and writes the result column
+    with the port's own Arrow IPC (no pyarrow), evaluating the blob's
+    function, ``brand-<id // 1000>`` of an int brand id."""
+    import ctypes
+
+    from auron_tpu_torch.bridge.udf import _EVAL_FN
+    from auron_tpu_torch.columnar import arrow_ipc
+    from auron_tpu_torch.columnar.arrow_c import HostBatch, array_from_pylist
+
+    if "fn" in _HIVE_KEEP:
+        return _HIVE_KEEP["fn"]
+
+    def evaluate(blob_ptr, blob_len, args_ptr, args_len, out_ptr, out_len):
+        if ctypes.string_at(blob_ptr, blob_len) != HIVE_BLOB:
+            return 2
+        (hb,) = arrow_ipc.read_stream(ctypes.string_at(args_ptr, args_len))
+        vals = [None if v is None else f"brand-{v // 1000}" for v in hb.columns[0].to_pylist()]
+        out = arrow_ipc.write_stream([HostBatch(T.Schema((T.Field("r", T.STRING, True),)),
+                                                len(vals), (array_from_pylist(vals, T.STRING),))])
+        buf = (ctypes.c_uint8 * len(out)).from_buffer_copy(out)
+        _HIVE_KEEP["buf"] = buf
+        out_ptr[0] = ctypes.cast(buf, ctypes.POINTER(ctypes.c_uint8))
+        out_len[0] = len(out)
+        return 0
+
+    _HIVE_KEEP["fn"] = _EVAL_FN(evaluate)
+    return _HIVE_KEEP["fn"]
+
+
+def install_hive_evaluator(device="cuda", via: str = "library") -> int:
+    """Install ``hive_evaluator`` as the host's UDF callback: through the
+    port's C library (``auron_register_udf_callback``, which answers 0) or
+    straight through ``bridge.api``. Returns the C entry's answer (0)."""
+    import ctypes
+
+    ptr = ctypes.cast(hive_evaluator(), ctypes.c_void_p).value
+    if via == "library":
+        from auron_tpu_torch.bridge.host import CLibrary
+
+        lib = CLibrary(device)._lib
+        lib.auron_register_udf_callback.argtypes = [ctypes.c_void_p]
+        rc = lib.auron_register_udf_callback(ptr)
+        if rc != 0:
+            raise RuntimeError(f"auron_register_udf_callback answered {rc}")
+        return rc
+    from auron_tpu_torch.bridge import api
+
+    api.install_udf_callback(ptr)
+    return 0
+
+
+def udf_q42_host_plan() -> dict:
+    """q42's host plan with its price column through the registered Python
+    UDF (``UDF_NET``): the converter wraps the call as ``host_udf``."""
+    j = _hbhj(_hscan(STORE_SALES_SCHEMA, "q42_fact"), _hscan(ITEM_SCHEMA, "q42_item"), 1, 0)
+    pr = _hnode("ProjectExec", [["brand", "int", True], ["p", "double", True]],
+                {"projections": [_hattr(6, "i_brand_id"),
+                                 _hcall(UDF_NET, _hattr(4, "ss_ext_sales_price"),
+                                        type="double")]}, j)
+    out = [["brand", "int", True], ["rev", "double", True]]
+    p = _hagg(pr, "partial", out, [(_hattr(0), "brand")], [("sum", _hattr(1), "rev")])
+    f = _hagg(p, "final", out, [(_hattr(0), "brand")], [("sum", _hattr(1), "rev")])
+    return _hnode("TakeOrderedAndProjectExec", out,
+                  {"limit": 10, "order": _horder((1, False, False), (0, True, True)),
+                   "projections": [_hattr(0, "brand"), _hattr(1, "rev")]}, f)
+
+
+def hive_brand_host_plan() -> dict:
+    """SELECT hive_brand(i_brand_id) label, count(*) n FROM item GROUP BY
+    label: a Hive UDF (``__hive_udf__``, its function serialized in the
+    plan) the converter wraps as ``host_udf``."""
+    import base64
+
+    pr = _hnode("ProjectExec", [["label", "string", True]],
+                {"projections": [_hcall("__hive_udf__", _hattr(1, "i_brand_id"), type="string",
+                                        udf_blob=base64.b64encode(HIVE_BLOB).decode())]},
+                _hscan(ITEM_SCHEMA, "udf_item"))
+    out = [["label", "string", True], ["n", "long", False]]
+    p = _hagg(pr, "partial", out, [(_hattr(0), "label")], [("count_star", None, "n")])
+    return _hagg(p, "final", out, [(_hattr(0), "label")], [("count_star", None, "n")])
+
+
+def udf_geo_map_tree():
+    """fact JOIN date_dim (d_moy = 11) JOIN item, the partial geometric-mean
+    UDAF of the price by i_category (pickled accumulator states)."""
+    from auron_tpu_torch.exec.agg_exec import AggExpr
+
+    dd = _filter(_dd(), BinaryOp("eq", col(2), lit(UDF_MOY)))
+    j = _bhj(_bhj(_fact(), dd, [col(0)], [col(0)]), _item(), [col(1)], [col(0)])
+    pr = _project(j, (col(11), "i_category"), (col(4), "price"))
+    return _partial(pr, [(col(0), "i_category")],
+                    [(AggExpr("host_udaf", col(1), udaf=UDF_GEO), "g")])
+
+
+def udf_ngram_tree():
+    """The bigram UDTF over item's brand ids, counted by gram."""
+    from auron_tpu_torch.exec.generate_exec import GenerateExec
+
+    g = GenerateExec(_scan(ITEM_SCHEMA, "udf_item"), "host_udtf", col(1), [], udtf=UDF_NGRAMS)
+    return _agg2(g, [(col(0), "gram")], _aggs(("count_star", None, "n")))
+
+
+def run_udf_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 4,
+                  device="cuda", conf: dict | None = None, ingested: dict | None = None,
+                  stats: dict | None = None, install: str = "library",
+                  work_dir: str | None = None) -> dict:
+    """The four host-callback paths, each from the entry points a Spark host
+    uses: ``net_q42`` (q42's converted host plan with ``UDF_NET`` in its
+    projection: {brand, rev}); ``hive`` (a Hive UDF over the brand ids
+    through the C callback, ``install_hive_evaluator(device, install)``:
+    {label, n}); ``geo`` (the geometric-mean UDAF by i_category over q42's
+    month, ``n_map`` x ``n_reduce`` over the file shuffle of its pickled
+    states: {i_category, g}); ``ngrams`` (the bigram UDTF over the brand
+    ids: {gram, n}). ``stats`` gets each path's wall (``walls``), the host
+    callbacks' calls, rows and seconds (``udf``), the C entry's answer
+    (``register_rc``), and under each path's name its runner's stats (the
+    timers and counters of ``add_timers``)."""
+    from auron_tpu_torch.bridge import udf
+
+    register_udf_class()
+    stats = stats if stats is not None else {}
+    conf = dict(conf or {})
+    if ingested is None:
+        ingested = ingest_q3(data, n_map, device)
+    before = udf.stats()
+    walls = stats.setdefault("walls", {})
+    out = {}
+
+    t0 = time.perf_counter()
+    from auron_tpu_torch.convert.converters import convert_plan
+    from auron_tpu_torch.convert.service import _response
+
+    resp = _response(convert_plan(udf_q42_host_plan(), udf_registry={UDF_NET: _net_price}))
+    (q42,) = run_converted(None, {"q42_fact": [sum(ingested["fact"], [])],
+                                  "q42_item": [ingested["item"]]}, 1, device, conf,
+                           stats.setdefault("net_q42", {}), response=resp)
+    out["net_q42"] = {"brand": q42["brand"], "rev": q42["rev"]}
+    walls["net_q42"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    stats["register_rc"] = install_hive_evaluator(device, install)
+    (hive,) = run_converted(hive_brand_host_plan(), {"udf_item": [ingested["item"]]}, 1,
+                            device, conf, stats.setdefault("hive", {}))
+    out["hive"] = _sorted_by({"label": np.asarray(hive["label"]).astype(str), "n": hive["n"]},
+                             ["label"])
+    walls["hive"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    k = len(ingested["fact"])
+    resources = {"fact": ingested["fact"], "dd": [ingested["dd"]] * k,
+                 "item": [ingested["item"]] * k}
+    tree = udf_geo_map_tree()
+    keys = [(col(0), "i_category")]
+    from auron_tpu_torch.exec.agg_exec import AggExpr
+
+    outs = _run_stages([_shuffle_one(tree, [0], k, "udf_geo")],
+                       lambda r: _final(r, keys, [(AggExpr("host_udaf", col(1), udaf=UDF_GEO),
+                                                   "g")]),
+                       resources, n_reduce, "udf_geo", work_dir, Configuration(conf), device,
+                       stats.setdefault("geo", {}))
+    geo = _concat(outs, ["i_category", "g"], [object, np.float64])
+    geo["i_category"] = geo["i_category"].astype(str)
+    out["geo"] = _sorted_by(geo, ["i_category"])
+    walls["geo"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ng = _answer(_tasks(udf_ngram_tree(), {"udf_item": [ingested["item"]]}, 1, conf, device,
+                        stats.setdefault("ngrams", {})), ["gram", "n"], [object, np.int64])
+    ng["gram"] = ng["gram"].astype(str)
+    out["ngrams"] = _sorted_by(ng, ["gram"])
+    walls["ngrams"] = time.perf_counter() - t0
+
+    after = udf.stats()
+    stats["udf"] = {k_: after[k_] - before[k_] for k_ in after}
+    return out
+
+
+def udf_class_oracle(data: TpcdsData) -> dict:
+    """The four answers of ``run_udf_class`` in numpy."""
+    ss, it, dd = data.store_sales.columns, data.item.columns, data.date_dim.columns
+    row, hit = _lookup(it["i_item_sk"], ss["ss_item_sk"])
+    brand = it["i_brand_id"][row[hit]]
+    uniq, inv = np.unique(brand, return_inverse=True)
+    rev = np.bincount(inv.reshape(-1), weights=ss["ss_ext_sales_price"][hit] * 0.9,
+                      minlength=len(uniq))
+    top = np.lexsort((uniq, -rev))[:10]
+    labels = np.array([f"brand-{b // 1000}" for b in it["i_brand_id"].tolist()], dtype=object)
+    lu, ln = np.unique(labels, return_counts=True)
+    drow, dhit = _lookup(dd["d_date_sk"], ss["ss_sold_date_sk"])
+    sel = hit & dhit
+    sel[sel] = dd["d_moy"][drow[sel]] == UDF_MOY
+    cats = it["i_category"][row[sel]]
+    logs = np.log(ss["ss_ext_sales_price"][sel])
+    cu, cinv = np.unique(cats.astype(str), return_inverse=True)
+    g = np.exp(np.bincount(cinv, weights=logs, minlength=len(cu))
+               / np.bincount(cinv, minlength=len(cu)))
+    grams = [s[i:i + 2] for s in map(str, it["i_brand_id"].tolist()) for i in range(len(s) - 1)]
+    gu, gn = np.unique(np.array(grams, dtype=str), return_counts=True)
+    return {"net_q42": {"brand": uniq[top].astype(np.int32), "rev": rev[top]},
+            "hive": {"label": lu.astype(str), "n": ln.astype(np.int64)},
+            "geo": {"i_category": cu.astype(str), "g": g},
+            "ngrams": {"gram": gu.astype(str), "n": gn.astype(np.int64)}}
+
+
+def udf_mismatch(got: dict, want: dict) -> str | None:
+    """None when ``run_udf_class``'s answers equal the oracle's: keys and
+    counts exact, revenues and geometric means at rel 1e-9."""
+    for part, cols in want.items():
+        for name, w in cols.items():
+            g = np.asarray(got[part][name])
+            if len(g) != len(w):
+                return f"{part}.{name}: {len(g)} rows, want {len(w)}"
+            if w.dtype.kind == "f":
+                if not np.allclose(g.astype(np.float64), w, rtol=1e-9, atol=0):
+                    return f"{part}.{name} differs beyond rel 1e-9"
+            elif g.tolist() != w.tolist():
+                return f"{part}.{name} differs"
     return None

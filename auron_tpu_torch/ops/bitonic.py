@@ -46,6 +46,7 @@ from dataclasses import dataclass
 
 import torch
 
+from auron_tpu_torch.ops import launch_count
 from auron_tpu_torch.ops.uwords import MASK32, flip, hi32, i32_of_u32, join32, lo32, u32_of_i32
 from auron_tpu_torch.utils.config import DEVICE_SORT_IMPL, active_conf
 
@@ -441,9 +442,9 @@ def _run_plan(x32: torch.Tensor, merge: bool) -> torch.Tensor:
         _check(_lib().auron_bitonic_run(
             ctypes.c_void_p(x32.data_ptr()), plan.NP, plan.P, plan.tile, plan.cluster,
             plan.per_thread, desc, len(plan.launches), ctypes.c_void_p(stream)))
-    with _launch_lock:
-        for name, n in plan.launch_counts().items():
-            LAUNCHES[name] += n
+    for name, n in plan.launch_counts().items():
+        if n:
+            launch_count.add(LAUNCHES, _launch_lock, name, n)
     return x32
 
 

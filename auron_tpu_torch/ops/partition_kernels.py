@@ -41,6 +41,7 @@ import threading
 
 import torch
 
+from auron_tpu_torch.ops import launch_count
 from auron_tpu_torch.ops.hashing import murmur3_i64, pmod, spark_hash_i32
 
 SEED = 42
@@ -114,8 +115,7 @@ def _launched(name: str, rc: int) -> None:
     if rc != 0:
         msg = _lib().auron_partition_error_string(rc).decode()
         raise RuntimeError(f"{name} CUDA kernel failed: error {rc} ({msg})")
-    with _launch_lock:
-        LAUNCHES[name] += 1
+    launch_count.add(LAUNCHES, _launch_lock, name)
 
 
 def partition_ids(values: torch.Tensor, validity: torch.Tensor, n_parts: int,

@@ -66,6 +66,7 @@ from auron_tpu_torch.columnar.batch import Batch, DeviceBatch, compaction_bucket
 from auron_tpu_torch.exec.base import ExecOperator, ExecutionContext
 from auron_tpu_torch.exprs import ir
 from auron_tpu_torch.exprs.eval import ColumnVal, Evaluator
+from auron_tpu_torch.ops import launch_count
 from auron_tpu_torch.utils.config import (
     FUSE_AGG_INPUTS, FUSE_ENABLE, FUSE_MIN_OPS, FUSE_PROBE, FUSE_SHUFFLE, Configuration,
     resolve_tri,
@@ -195,9 +196,15 @@ def _kernel_locks() -> list:
 
 class _Graph:
     __slots__ = ("graph", "static_in", "static_side", "side_src", "static_out", "tally", "label",
-                 "nbytes")
+                 "nbytes", "done")
 
     def replay(self, batch_in: tuple, side_in: tuple) -> tuple:
+        stream = torch.cuda.current_stream(batch_in[0].device)
+        if self.done is not None:
+            # the last replay may have run on another task's stream: its
+            # output copies must finish before this one overwrites the
+            # static inputs
+            stream.wait_event(self.done)
         for s, t in zip(self.static_in, batch_in):
             s.copy_(t)
         # side sources are held weakly: a graph never keeps a finished
@@ -212,11 +219,12 @@ class _Graph:
         except Exception as e:  # noqa: BLE001 — re-raised, naming the step
             raise StageCaptureError(f"replay of fused stage {self.label} failed: {e}") from e
         for counts, lock, tally in zip(_kernel_counters(), _kernel_locks(), self.tally):
-            if tally:
-                with lock:
-                    for k, n in tally.items():
-                        counts[k] += n
-        return tuple(o.clone() for o in self.static_out)
+            for k, n in tally.items():
+                launch_count.add(counts, lock, k, n)
+        out = tuple(o.clone() for o in self.static_out)
+        self.done = torch.cuda.Event()
+        self.done.record(stream)
+        return out
 
 
 def _pool_segment_bytes(pool) -> int:
@@ -260,6 +268,10 @@ class _GraphCache:
     def _evict(self, n: int) -> None:
         for _ in range(n):
             _, g = self._graphs.popitem(last=False)
+            if g.done is not None:
+                # its last replay may still run on another task's stream:
+                # its pool stays allocated until that replay is done
+                g.done.synchronize()
             self._bytes -= g.nbytes
         self.evictions += n
         with _FUSE_LOCK:
@@ -319,20 +331,18 @@ class _GraphCache:
         g.side_src = tuple(weakref.ref(t) for t in side_in)
         torch.cuda.synchronize(dev)
         pool = torch.cuda.graph_pool_handle()
-        before = [dict(c) for c in _kernel_counters()]
         g.graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(g.graph, pool=pool, capture_error_mode="thread_local"):
-                g.static_out = tuple(fn(g.static_in, g.static_side))
-        except Exception as e:  # noqa: BLE001 — re-raised, naming the step
-            raise StageCaptureError(f"capture of fused stage {label} failed: {e}") from e
-        finally:
-            # the capture recorded launches without running them
-            g.tally = []
-            for counts, lock, b in zip(_kernel_counters(), _kernel_locks(), before):
-                with lock:
-                    g.tally.append({k: counts[k] - b[k] for k in b if counts[k] != b[k]})
-                    counts.update(b)
+        # the capture records launches without running them: this thread's
+        # counts go to the graph's tally (a replay adds it), other task
+        # threads' launches keep counting
+        with launch_count.diverted() as tally:
+            try:
+                with torch.cuda.graph(g.graph, pool=pool, capture_error_mode="thread_local"):
+                    g.static_out = tuple(fn(g.static_in, g.static_side))
+            except Exception as e:  # noqa: BLE001 — re-raised, naming the step
+                raise StageCaptureError(f"capture of fused stage {label} failed: {e}") from e
+        g.tally = [tally.get(id(c), {}) for c in _kernel_counters()]
+        g.done = None
         static = sum(t.numel() * t.element_size() for t in g.static_in + g.static_side)
         g.nbytes = _pool_segment_bytes(pool) + static
         _count("captures")

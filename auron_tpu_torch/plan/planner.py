@@ -5,12 +5,13 @@ the ported slices execute (memory_scan, ffi_reader, parquet_scan,
 orc_scan, parquet_sink, orc_sink, ipc_writer, project,
 filter, limit, union,
 expand, rename_columns, empty_partitions, coalesce_batches, debug,
-hash_agg, sort, window, generate, hash_join, sort_merge_join, shuffle_writer with
-single/hash/round-robin/range partitioning, ipc_reader, mesh_exchange (a
+hash_agg, sort, window, generate, hash_join, sort_merge_join, shuffle_writer and
+rss_shuffle_writer with single/hash/round-robin/range partitioning, ipc_reader,
+mesh_exchange (a
 ``MeshExchangeExec`` stage boundary that
 ``parallel/mesh_driver.MeshQueryDriver`` resolves); column, literal, cast,
 binary, not, is_null, is_not_null, if_expr, case_expr, in_list, coalesce,
-like, scalar_func, host_udf (decoded; evaluating it raises), spark_partition_id,
+like, scalar_func, host_udf (through ``bridge/udf.py``), spark_partition_id,
 monotonic_id, row_num, scalar_subquery).
 Other variants raise ``NotImplementedError`` naming the variant and the
 ROADMAP item it waits for.
@@ -322,6 +323,12 @@ def plan_from_proto(p):
         return ShuffleWriterExec(plan_from_proto(n.child),
                                  partitioning_from_proto(n.partitioning),
                                  n.output_data_file, n.output_index_file)
+    if which == "rss_shuffle_writer":
+        from auron_tpu_torch.exec.shuffle.writer import RssShuffleWriterExec
+
+        n = p.rss_shuffle_writer
+        return RssShuffleWriterExec(plan_from_proto(n.child),
+                                    partitioning_from_proto(n.partitioning), n.rss_resource_id)
     if which == "ipc_reader":
         from auron_tpu_torch.exec.shuffle.reader import IpcReaderExec
 
@@ -339,8 +346,7 @@ def plan_from_proto(p):
 
 
 #: the plan variants the converters emit that the planner does not run yet
-_WAITING = {"kafka_scan": "item 6 (exec/streaming.py and the Kafka source)",
-            "rss_shuffle_writer": "item 4 (exec/shuffle/rss.py)"}
+_WAITING = {"kafka_scan": "item 6c (exec/streaming.py and the Kafka source)"}
 
 
 def tree_from_plan(plan, mode: str = "build"):

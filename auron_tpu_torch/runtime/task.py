@@ -9,7 +9,8 @@ bytes, the seconds its decode took (bytes to message) and the seconds
 ``task_from_proto`` took (elision, pruning, planning, fusion), and the
 metric snapshot of ``finalize`` carries it as ``"task"``.
 The runtime drives the root operator on a background thread into a bounded
-queue;
+queue, on the CUDA stream that was current where the task started (a task
+slot's own stream when tasks run concurrently);
 the consumer pulls batches with ``next_batch`` (or host Arrow batches with
 ``next_arrow``, reference ``task.py:147-153``); an error anywhere in the
 operator stream is re-raised on the consumer side; ``finalize`` cancels,
@@ -22,10 +23,13 @@ case the pump never got there.
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
 from typing import Iterator
+
+import torch
 
 from auron_tpu_torch.columnar.arrow_c import HostBatch
 from auron_tpu_torch.columnar.batch import Batch
@@ -72,12 +76,19 @@ class TaskRuntime:
         self._error: BaseException | None = None
         self._finalized = False
         self._host_prefetch = False
+        # the pump launches on the stream current where the task started: a
+        # task slot's own stream (models/tpcds.run_tasks_parallel), else the
+        # default stream
+        self._stream = (torch.cuda.current_stream(torch.device(device))
+                        if device.startswith("cuda") else None)
         self._thread = threading.Thread(target=self._pump, daemon=True, name="auron-torch-pump")
         self._thread.start()
 
     def _pump(self) -> None:
         try:
-            with conf_scope(self.ctx.conf):
+            with conf_scope(self.ctx.conf), (torch.cuda.stream(self._stream)
+                                             if self._stream is not None
+                                             else contextlib.nullcontext()):
                 for batch in self.plan.execute(self.ctx.partition_id, self.ctx):
                     if self._host_prefetch:
                         batch.prefetch_host()

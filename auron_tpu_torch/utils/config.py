@@ -294,6 +294,11 @@ METRICS_ROW_COUNTS = bool_conf(
 TOKIO_EQUIV_PREFETCH_DEPTH = int_conf(
     "runtime.prefetch.depth", 2, "runtime", "batches prefetched by the task pump",
 )
+TASK_SLOTS = int_conf(
+    "runtime.task.slots", 1, "runtime",
+    "concurrent task slots a stage's tasks run on (models/tpcds.run_tasks_parallel: "
+    "a thread each, and on the card a CUDA stream each); 1 runs them one after another",
+)
 MEMORY_FRACTION = float_conf(
     "memory.fraction", 0.6, "memory", "fraction of HBM budget usable by consumers"
 )
@@ -308,8 +313,8 @@ HBM_BUDGET_BYTES = int_conf(
 )
 SPILL_COMPRESSION_CODEC = str_conf(
     "spill.compression.codec", "lz4", "memory",
-    "codec for spill files and shuffle runs (zstd|lz4|none); the port has "
-    "no general codec, so a name other than none degrades (warned once)",
+    "codec for spill files and shuffle runs (zstd|lz4|none), through "
+    "pa.Codec; an unavailable one degrades (warned once)",
 )
 HOST_SPILL_BUDGET_BYTES = int_conf(
     "memory.host.spill.budget.bytes", 2 << 30, "memory",
@@ -328,7 +333,7 @@ SHUFFLE_COMPRESSION_TARGET_BUF_SIZE = int_conf(
 SHUFFLE_ENCODING = str_conf(
     "exec.shuffle.encoding", "auto", "shuffle",
     "shuffle block format v2 (per-column light-weight encodings): on | off | "
-    "auto = on. The port writes v2 blocks only; off raises in its writer",
+    "auto = on; off writes v1 blocks (Arrow IPC under spill.compression.codec)",
 )
 SHUFFLE_ENCODING_DICT_MAX = int_conf(
     "exec.shuffle.encoding.dict.max", 4096, "shuffle",

@@ -14,6 +14,7 @@
     python3 chip_smoke.py --convert-only  # phases 1, 2 and 19 only
     python3 chip_smoke.py --files-only  # phases 1, 2 and 20 only
     python3 chip_smoke.py --collect-only  # phases 1, 2 and 21 only
+    python3 chip_smoke.py --udf-shuffle-only  # phases 1, 2 and 22 only
 
 Phases, in order, none of them caught — any failure exits non-zero:
 
@@ -236,7 +237,9 @@ Phases, in order, none of them caught — any failure exits non-zero:
    once, then the two reduce tasks; K1 once a fact batch, 22, by their
    counts), each equal to its oracle. Every TaskDefinition the phase made
    decodes and re-encodes to the same bytes in the port's codec, and
-   google.protobuf is not loaded. Walls, task bytes, decode and planning
+   google.protobuf is not loaded (the phase runs with the shuffle's
+   general codec off and pyarrow blocked, ``_without_pyarrow``, as phase
+   19). Walls, task bytes, decode and planning
    seconds, the harness process's start (imports, CUDA init) against its
    task, resource bytes and launches are printed;
 19. the host-plan converters (``convert/``, ``bridge.api.convert_plan_json``):
@@ -260,7 +263,10 @@ Phases, in order, none of them caught — any failure exits non-zero:
    convert_s, response bytes, walls, stage walls, each task's decode and
    planning seconds, rows per partition, the range sort's sort, compress
    and decode timers and peak memory are printed; the phase fails if
-   google.protobuf or pyarrow was loaded;
+   google.protobuf or pyarrow was loaded. It runs with
+   ``exec.shuffle.encoding.fallback.codec`` = none (the codec is
+   ``pa.Codec``'s) and, where an earlier phase's lz4 shuffle loaded
+   pyarrow, with pyarrow blocked in ``sys.modules``;
 20. the Parquet and ORC sinks and scans (``exec/sink.py``,
    ``exec/scan.py``), into a temporary directory on local disk that the
    phase removes: first the sinks' egress (``Batch.to_arrow``) against a
@@ -298,8 +304,30 @@ Phases, in order, none of them caught — any failure exits non-zero:
    pyarrow equal to the oracle. Walls, the aggregate's ``elapsed_compute``,
    the shuffle's bytes, ``compress_time`` and ``decode_time`` and the peak
    memory are printed;
-22. print the kernel table as one JSON line (each kernel's launches summed
-   over the timed runs of phases 4-21, and per run), then the status line.
+22. the host callbacks and the shuffle tail (``bridge/udf.py``, the codecs,
+   ``exec/shuffle/rss*.py``, concurrent task slots), after phases 19-21
+   because it loads pyarrow: (a) q93 and q72 (full) at the reference's
+   default shuffle conf (the lz4 fallback codec) and without the codec,
+   q93 under zstd, and q5 both ways (its raw float planes are the runs'
+   codec planes: q93's and q72's all fit light-weight encodings); (b) q93
+   with ``exec.shuffle.encoding=off`` (v1 lz4 Arrow IPC blocks); (c) q93
+   through ``RssShuffleWriterExec`` to an ``RssNetServer`` on 127.0.0.1
+   with 2 replicas, read through ``RemoteBlockProvider``; (d) q93 and q72
+   with their map and reduce tasks on 4 slots (a CUDA stream each) against
+   one after another, the same K1 counts, then q93 on 4 slots under a
+   memory budget that makes each map task spill; (e) ``run_udf_class``: a
+   Python UDF in q42's converted host plan, a Hive UDF through the port's C
+   library (``auron_register_udf_callback`` answers 0), the geometric-mean
+   UDAF over a 4 x 4 file shuffle of pickled states, the bigram UDTF. A
+   warm-up per class, then timed runs, each equal to its oracle with its
+   K1 and K3 launches checked (K1 24 q93, 36 q72, 8 q5; K3 as
+   ``sort_plan`` lists for the UDF class's q42 sort); walls, shuffle bytes
+   against the codec-free runs, ``compress_time``, ``decode_time``,
+   ``push_time``, the codec and arrow column counts, spill counts, the
+   host callbacks' seconds and the device reads are printed; the phase
+   fails if no codec plane was written or a codec was unavailable;
+23. print the kernel table as one JSON line (each kernel's launches summed
+   over the timed runs of phases 4-22, and per run), then the status line.
 
 Each phase prints its seconds.
 
@@ -310,10 +338,11 @@ counts once per replay (``plan/fusion.py``: each graph keeps the launches
 its capture recorded and adds them at every replay).
 
 Needs no network, no pandas and no protobuf (phases 18 and 19 fail if
-google.protobuf was loaded, 19 also if pyarrow was); phase 20 needs
-pyarrow (with ``pyarrow.orc``), phase 21 pyarrow for its read-back, and
-phases 1-19 run without it; imports
-nothing of the JAX package. Exits with
+google.protobuf was loaded, 19 also if pyarrow was); the file shuffles'
+default lz4 codec (phases 5, 8, 10, 12, 20, 21 and 22) is pyarrow's
+``pa.Codec``, phase 20 needs pyarrow (with ``pyarrow.orc``), phase 21
+pyarrow for its read-back; phases 18 and 19 run with the codec off and
+pyarrow blocked; imports nothing of the JAX package. Exits with
 code 2 when no CUDA device is visible.
 Detailed results also go to chiprun_out/chip_smoke.json.
 """
@@ -3014,6 +3043,42 @@ def _run_c_host(data) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _without_pyarrow():
+    """Phases 18 and 19 prove that their paths need no pyarrow: the
+    shuffle's general codec is ``pa.Codec``'s, so they run with
+    ``exec.shuffle.encoding.fallback.codec`` = none (by its environment key,
+    which every Configuration and every harness process reads). Where an
+    earlier phase's lz4 shuffle has loaded pyarrow, the phase runs with it
+    blocked in ``sys.modules``: any import of it raises, so the proof holds
+    in the whole script too."""
+    from auron_tpu_torch.utils.config import SHUFFLE_ENCODING_FALLBACK, env_key_for
+
+    key = env_key_for(SHUFFLE_ENCODING_FALLBACK.key)
+    prev = os.environ.get(key)
+    os.environ[key] = "none"
+    held = {m: mod for m, mod in sys.modules.items()
+            if mod is not None and m.split(".")[0] == "pyarrow"}
+    sys.modules.update(dict.fromkeys(held))
+    if held:
+        print(f"pyarrow ({len(held)} modules, loaded by an earlier phase) blocked for the "
+              "phase", flush=True)
+    try:
+        yield
+    finally:
+        sys.modules.update(held)
+        if prev is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = prev
+
+
+def _loaded(*prefixes) -> list:
+    """The modules under ``prefixes`` that are loaded (not blocked)."""
+    return sorted(m for m, mod in sys.modules.items()
+                  if mod is not None and any(m == p or m.startswith(p + ".") for p in prefixes))
+
+
 def run_plan_ir_phase(data, fact, seed: int, kernels_checked: bool) -> dict:
     """Phase 18: the plan IR without google.protobuf and the C host. (1)
     every TaskDefinition the phase makes decodes and re-encodes to the same
@@ -3027,7 +3092,7 @@ def run_plan_ir_phase(data, fact, seed: int, kernels_checked: bool) -> dict:
     if not kernels_checked:
         check_partition_kernel(seed)
     tasks: list = []
-    with _recording_tasks(tasks):
+    with _recording_tasks(tasks), _without_pyarrow():
         out = _run_plan_ir_bytes(data, fact)
         out["c_host"] = _run_c_host(data)
     t0 = time.perf_counter()
@@ -3037,7 +3102,7 @@ def run_plan_ir_phase(data, fact, seed: int, kernels_checked: bool) -> dict:
     print(f"codec: {len(tasks)} TaskDefinitions decode and re-encode to the same bytes "
           f"({sum(len(t.SerializeToString()) for t in tasks):,} B, "
           f"{time.perf_counter() - t0:.3f} s)", flush=True)
-    loaded = sorted(m for m in sys.modules if m.startswith("google.protobuf"))
+    loaded = _loaded("google.protobuf")
     assert not loaded, f"google.protobuf was imported: {loaded}"
     print("google.protobuf is not in sys.modules", flush=True)
     out["codec_tasks"] = len(tasks)
@@ -3268,13 +3333,14 @@ def run_convert_phase(data, fact, seed: int, kernels_checked: bool) -> dict:
     if not kernels_checked:
         check_partition_kernel(seed)
         check_histogram_kernel(seed)
-    out = _run_convert_classes(data, fact)
-    out["range sort (converted)"] = _run_range_sort(data, fact)
-    out["c_host"] = _run_convert_c_host(data, fact)
-    loaded = sorted(m for m in sys.modules
-                    if m.startswith("google.protobuf") or m.split(".")[0] == "pyarrow")
+    with _without_pyarrow():
+        out = _run_convert_classes(data, fact)
+        out["range sort (converted)"] = _run_range_sort(data, fact)
+        out["c_host"] = _run_convert_c_host(data, fact)
+        loaded = _loaded("google.protobuf", "pyarrow")
     assert not loaded, f"the conversion path loaded {loaded}"
-    print("neither google.protobuf nor pyarrow is in sys.modules", flush=True)
+    print("neither google.protobuf nor pyarrow is in sys.modules (pyarrow blocked where an "
+          "earlier phase loaded it)", flush=True)
     return out
 
 
@@ -3682,6 +3748,205 @@ def run_collect_phase(data, seed: int, kernels_checked: bool) -> dict:
             "ingest_s": t_ingest, "oracle_s": t_oracle, "warm_s": t_warm}
 
 
+#: phase 22: (label, class, conf, K1 launches of a timed run) of the codec
+#: runs: q93 and q72 (full) at the reference's default shuffle conf (the
+#: lz4 fallback codec), without the codec (the bytes it saves), q93 under
+#: zstd; q5 (phase 8's class whose partial sums are raw float planes) as
+#: the runs' codec witness: q93's and q72's planes all fit light-weight
+#: encodings (bitpack, scaled, sparse), so the reference's chooser gives
+#: them no codec plane either
+CODEC_RUNS = (
+    ("q93 (lz4)", "q93", None, 24),
+    ("q93 (none)", "q93", {"exec.shuffle.encoding.fallback.codec": "none"}, 24),
+    ("q93 (zstd)", "q93", {"exec.shuffle.encoding.fallback.codec": "zstd"}, 24),
+    ("q72 (lz4)", "q72", {"auron.smj.elide.sorts": "full"}, 36),
+    ("q72 (none)", "q72", {"auron.smj.elide.sorts": "full",
+                           "exec.shuffle.encoding.fallback.codec": "none"}, 36),
+    ("q5 (lz4)", "q5", None, 8),
+    ("q5 (none)", "q5", {"exec.shuffle.encoding.fallback.codec": "none"}, 8),
+)
+#: phase 22: the memory budget of q93 on four slots: a map task's staged
+#: batch (1 << 20 rows of 16 bytes) is larger than the manager's share of
+#: it, so every map task spills from its second batch on, whatever the
+#: threads' timing
+SLOTS_SPILL_BUDGET = 8 << 20
+
+
+def _shuffle_record(stats: dict) -> dict:
+    """The shuffle counters and timers of a run's stats (any writer)."""
+    c, t = stats.get("counters", {}), stats.get("timers", {})
+
+    def total(d, suffix):
+        return sum(v for k, v in d.items() if k.endswith(suffix))
+
+    return {"shuffle_bytes_written": total(c, ".shuffle_bytes_written"),
+            "shuffle_bytes_raw": total(c, ".shuffle_bytes_raw"),
+            "shuffle_bytes_read": total(c, ".shuffle_bytes_read"),
+            "enc_codec": total(c, ".shuffle_enc_codec"), "enc_arrow": total(c, ".shuffle_enc_arrow"),
+            "compress_s": total(t, ".compress_time"), "decode_s": total(t, ".decode_time"),
+            "push_s": total(t, ".push_time")}
+
+
+def _timed(label: str, fn, want: dict, k1: int | None, stats: dict | None = None,
+           check=None) -> dict:
+    """One timed run of ``fn(stats)``: counts set to 0 just before and read
+    just after, the answer held to ``want`` (or by ``check``), K1 as
+    ``k1`` (when given) and no bitonic launch unless ``check`` allows."""
+    import torch
+
+    _reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st = stats if stats is not None else {}
+    t0 = time.perf_counter()
+    got = fn(st)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    if check is not None:
+        check(got, launches)
+    else:
+        _assert_answer(label, got, want)
+        assert launches["bitonic_sort"] == launches["bitonic_merge"] == 0, (label, launches)
+    if k1 is not None:
+        assert launches["murmur3_pmod"] == k1, (label, launches)
+    rec = {"wall_s": wall, "launches": launches, "peak_bytes": peak, **_shuffle_record(st)}
+    print(f"{label}: wall {wall:.4f} s, shuffle bytes written {rec['shuffle_bytes_written']:,} "
+          f"(raw {rec['shuffle_bytes_raw']:,}), read {rec['shuffle_bytes_read']:,}, "
+          f"compress_time {rec['compress_s']:.4f} s, decode_time {rec['decode_s']:.4f} s, "
+          f"push_time {rec['push_s']:.4f} s, shuffle_enc_codec {rec['enc_codec']}, "
+          f"shuffle_enc_arrow {rec['enc_arrow']}, launches {launches}, peak "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+    return rec
+
+
+def run_udf_shuffle_phase(data, seed: int, kernels_checked: bool) -> dict:
+    """Phase 22: the host callbacks and the shuffle tail at the phases'
+    scale. (a) CODEC_RUNS, each class after a warm-up: walls, bytes against
+    the same class without the codec, ``compress_time``, ``decode_time``,
+    the codec and arrow column counts; fails if no codec plane was written
+    or a codec was unavailable. (b) q93 with ``exec.shuffle.encoding=off``
+    (v1 lz4 IPC blocks). (c) q93 through ``RssShuffleWriterExec`` to an
+    ``RssNetServer`` on 127.0.0.1 with 2 replicas, read through
+    ``RemoteBlockProvider``. (d) q93 and q72 (full) with map and reduce
+    tasks on 4 slots (a CUDA stream each) against one after another, equal
+    K1 counts; q93 on 4 slots under SLOTS_SPILL_BUDGET: spills certain.
+    (e) ``run_udf_class``: its Hive UDF installed through the port's C
+    library (``auron_register_udf_callback`` answers 0). Every answer equals
+    its oracle. Without phase 3 (``kernels_checked`` False) K1 is held
+    against its plain version here."""
+    import torch
+
+    from auron_tpu_torch.columnar import codecs
+    from auron_tpu_torch.exec.shuffle import format as shuffle_format
+    from auron_tpu_torch.models import tpcds
+
+    if not kernels_checked:
+        check_partition_kernel(seed)
+    for name in ("lz4", "zstd"):
+        assert codecs.available(name), f"the {name} codec is unavailable on this machine"
+    shuffle_format._codec_warned.clear()
+    t0 = time.perf_counter()
+    fact = tpcds.to_batches(data.store_sales, 4, device="cuda")
+    inputs = {"q93": tpcds.ingest_q93(data, 4, device="cuda", fact=fact),
+              "q72": tpcds.ingest_q72(data, 4, device="cuda", fact=fact),
+              "q5": {"fact": fact}, "udf": tpcds.ingest_q3(data, 4, device="cuda", fact=fact)}
+    torch.cuda.synchronize()
+    t_ingest = time.perf_counter() - t0
+    oracles = _oracles({"q93": lambda: _oracle("q93", data), "q72": lambda: _oracle("q72", data),
+                        "q5": lambda: _oracle("q5", data),
+                        "udf": lambda: tpcds.udf_class_oracle(data)})
+    print(f"phase 22: inputs on the card in {t_ingest:.2f} s", flush=True)
+    out: dict = {}
+
+    def run(name, conf=None, **kw):
+        return lambda st: getattr(tpcds, f"run_{name}_class")(
+            device="cuda", conf=conf, ingested=inputs[name], stats=st, **kw)
+
+    # (a) the codecs
+    warmed: set = set()
+    for label, name, conf, k1 in CODEC_RUNS:
+        if name not in warmed:
+            _assert_answer(f"{label} warm-up", run(name, conf)({}), oracles[name])
+            warmed.add(name)
+        out[label] = _timed(label, run(name, conf), oracles[name], k1)
+    for name, lz4 in (("q93", "q93 (lz4)"), ("q72", "q72 (lz4)"), ("q5", "q5 (lz4)")):
+        none = out[f"{name} (none)"]
+        print(f"{name}: lz4 writes {out[lz4]['shuffle_bytes_written']:,} B against "
+              f"{none['shuffle_bytes_written']:,} B without the codec "
+              f"({out[lz4]['shuffle_bytes_written'] / max(none['shuffle_bytes_written'], 1):.4f}"
+              f"), wall {out[lz4]['wall_s']:.4f} s against {none['wall_s']:.4f} s", flush=True)
+    codec_planes = sum(r["enc_codec"] for label, r in out.items() if "none" not in label)
+    assert codec_planes > 0, "no codec plane was written"
+    # (b) v1 blocks
+    out["q93 (encoding off)"] = _timed("q93 (encoding off)",
+                                       run("q93", {"exec.shuffle.encoding": "off"}),
+                                       oracles["q93"], 24)
+    # (c) the remote shuffle service over TCP
+    _assert_answer("q93 (rss) warm-up", run("q93", transport="rss")({}), oracles["q93"])
+    out["q93 (rss)"] = rss = _timed("q93 (rss)", run("q93", transport="rss"), oracles["q93"], 24)
+    assert rss["push_s"] > 0 and rss["shuffle_bytes_read"] > 0, rss
+    # (d) concurrent task slots
+    for name, conf, k1 in (("q93", None, 24), ("q72", {"auron.smj.elide.sorts": "full"}, 36)):
+        seq = out[f"{name} (lz4)"]
+        _assert_answer(f"{name} (4 slots) warm-up", run(name, conf, parallel=True)({}),
+                       oracles[name])
+        par = out[f"{name} (4 slots)"] = _timed(f"{name} (4 slots)",
+                                                run(name, conf, parallel=True),
+                                                oracles[name], k1)
+        assert par["launches"] == seq["launches"], (name, par["launches"], seq["launches"])
+        print(f"{name}: 4 slots {par['wall_s']:.4f} s against one after another "
+              f"{seq['wall_s']:.4f} s ({seq['wall_s'] / par['wall_s']:.3f}x), K1 "
+              f"{par['launches']['murmur3_pmod']} both ways", flush=True)
+    st: dict = {}
+    rec = out["q93 (4 slots, budget)"] = _timed(
+        "q93 (4 slots, budget)",
+        run("q93", {"memory.hbm.budget.bytes": SLOTS_SPILL_BUDGET}, parallel=True),
+        oracles["q93"], 24, st)
+    spilled = st["counters"].get("ShuffleWriterExec.spilled_shuffle_runs", 0)
+    rec.update(num_spills=st["memory"]["num_spills"], spilled_shuffle_runs=spilled,
+               disk_bytes=st["memory"]["disk_bytes"])
+    assert spilled >= 4 and st["memory"]["num_spills"] >= 4, (st["memory"], spilled)
+    print(f"q93 (4 slots, budget {SLOTS_SPILL_BUDGET:,} B): {st['memory']['num_spills']} spills, "
+          f"{spilled} spilled shuffle runs, {st['memory']['disk_bytes']:,} B on disk; equal "
+          f"to the oracle", flush=True)
+    # (e) the host callbacks
+    shapes: list = []
+    with _recording_kernel_sorts(shapes):
+        warm = tpcds.run_udf_class(device="cuda", ingested=inputs["udf"], install="library")
+    assert tpcds.udf_mismatch(warm, oracles["udf"]) is None
+
+    def udf_check(got, launches):
+        bad = tpcds.udf_mismatch(got, oracles["udf"])
+        assert bad is None, ("udf class", bad)
+        _assert_planned_launches("udf class", shapes, launches)
+        # the UDAF shuffles on i_category, a string: the generic hash, no K1
+        assert launches["murmur3_pmod"] == 0, launches
+
+    st = {}
+    rec = out["udf class"] = _timed(
+        "udf class", lambda s: tpcds.run_udf_class(device="cuda", ingested=inputs["udf"],
+                                                   stats=s, install="library"),
+        None, None, st, check=udf_check)
+    reads = {path: sum(v for k, v in st[path].get("counters", {}).items()
+                       if k.endswith(".blocking_reads")) for path in st["walls"]}
+    rec.update(walls=st["walls"], udf=st["udf"], register_rc=st["register_rc"],
+               blocking_reads=reads, sort_shapes=shapes, geo_shuffle=_shuffle_record(st["geo"]))
+    assert st["register_rc"] == 0
+    print(f"udf class: auron_register_udf_callback answered {st['register_rc']}; walls "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in st["walls"].items())
+          + f"; host UDF callbacks {st['udf']['calls']} calls over {st['udf']['rows']:,} "
+          f"slots in {st['udf']['seconds']:.4f} s; device reads (blocking) {reads}; the "
+          f"UDAF's pickled states {rec['geo_shuffle']['shuffle_bytes_written']:,} B of shuffle; "
+          f"kernel sorts (NP, P) {shapes}", flush=True)
+    assert not shuffle_format._codec_warned, \
+        f"unavailable-codec warnings: {sorted(shuffle_format._codec_warned)}"
+    print(f"phase 22: {codec_planes} codec planes written, no codec unavailable", flush=True)
+    del inputs, fact
+    return out
+
+
 def report_graph_cache() -> None:
     """Print the CUDA-graph cache's resident bytes, graphs and evictions
     over the script, and fail if it holds more than its cap (a quarter of
@@ -3728,6 +3993,8 @@ def main(argv=None) -> int:
                     help="run phases 1, 2 and 20 only (no kernel table, no status line)")
     ap.add_argument("--collect-only", action="store_true",
                     help="run phases 1, 2 and 21 only (no kernel table, no status line)")
+    ap.add_argument("--udf-shuffle-only", action="store_true",
+                    help="run phases 1, 2 and 22 only (no kernel table, no status line)")
     ap.add_argument("--time-sorts", action="store_true",
                     help="only build and time the bitonic kernels at the sort shapes "
                          "(one JSON line, no status line)")
@@ -3860,6 +4127,17 @@ def main(argv=None) -> int:
         os.makedirs(os.path.join(REPO_DIR, "chiprun_out"), exist_ok=True)
         with open(os.path.join(REPO_DIR, "chiprun_out", "chip_smoke_collect.json"), "w") as f:
             json.dump({"device": kind, "nvidia_smi": smi, "basket": basket,
+                       "phase_s": phase_s}, f, indent=1)
+        return 0
+
+    if args.udf_shuffle_only:
+        data = tpcds.generate(args.sf, args.seed)
+        udf_shuffle = run_udf_shuffle_phase(data, args.seed, kernels_checked=False)
+        phase_done("22")
+        os.makedirs(os.path.join(REPO_DIR, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(REPO_DIR, "chiprun_out", "chip_smoke_udf_shuffle.json"),
+                  "w") as f:
+            json.dump({"device": kind, "nvidia_smi": smi, "udf_shuffle": udf_shuffle,
                        "phase_s": phase_s}, f, indent=1)
         return 0
 
@@ -4012,7 +4290,13 @@ def main(argv=None) -> int:
     basket = run_collect_phase(data, args.seed, kernels_checked=True)
     phase_done("21")
 
-    # 22. every kernel sort and run merge of the main paths, held against the
+    # 22. the host callbacks and the shuffle tail: the codecs, v1 blocks, the
+    # remote shuffle service, concurrent task slots, the UDF class (after
+    # phases 19-21: it loads pyarrow)
+    udf_shuffle = run_udf_shuffle_phase(data, args.seed, kernels_checked=True)
+    phase_done("22")
+
+    # 23. every kernel sort and run merge of the main paths, held against the
     # plain network on the card at its own operands
     checks["main_path_sorts"] = {
         **{f"q3-mesh ({m})": q3_mesh[m]["sort_checks"] for m in q3_mesh},
@@ -4072,7 +4356,8 @@ def main(argv=None) -> int:
                 for name, r in files["reads"].items() if name != "sort_checks"
                 for i, run in enumerate(r["runs"])},
              "sorted write": files["sorted write"]["launches"],
-             **{f"basket run {i}": r["launches"] for i, r in enumerate(basket["runs"])}}
+             **{f"basket run {i}": r["launches"] for i, r in enumerate(basket["runs"])},
+             **{label: r["launches"] for label, r in udf_shuffle.items()}}
     kernels = []
     for name, source, replaces in (
         ("bitonic_sort", "auron_tpu_torch/csrc/bitonic.cu", "auron_tpu/ops/bitonic.py:145"),
@@ -4102,10 +4387,10 @@ def main(argv=None) -> int:
                    "tail": tail, "window": window, "spill": spill, "q33": q33,
                    "join_tail_sweep": sweep, "predictor_ab": ab, "decimal": decimal,
                    "fusion": fused, "generate": gen, "bridge": bridge, "plan_ir": plan_ir,
-                   "convert": convert, "files": files, "basket": basket, "phase_s": phase_s,
-                   "kernels": kernels},
+                   "convert": convert, "files": files, "basket": basket,
+                   "udf_shuffle": udf_shuffle, "phase_s": phase_s, "kernels": kernels},
                   f, indent=1)
-    phase_done("22")
+    phase_done("23")
     report_graph_cache()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,8 +1,8 @@
 """Arrow IPC streams of the port (``columnar/arrow_ipc.py``) against
 ``pa.ipc``, both ways, over every type of the port's format list with
 NULLs, sliced inputs and zero-length batches; dictionary batches and delta
-dictionaries; the legacy framing; compressed bodies refused by codec name;
-the v1 (IPC) shuffle blocks of the JAX package's ``IpcWriterExec`` read by
+dictionaries; the legacy framing; compressed bodies (lz4 frame, zstd) both
+ways; the v1 (IPC) shuffle blocks of the JAX package's ``IpcWriterExec`` read by
 the port's ``decode_block``. Comparisons are exact (equal rows and values).
 Inputs come from a seeded numpy generator."""
 
@@ -119,11 +119,19 @@ def test_legacy_framing_and_zero_batches():
 
 
 @pytest.mark.parametrize("codec", ["lz4", "zstd"])
-def test_compressed_stream_raises_naming_the_codec(codec):
-    rb = pa.RecordBatch.from_pydict({"x": pa.array(np.arange(1000))})
+def test_compressed_stream_reads_and_writes(codec):
+    """pyarrow's compressed stream reads in the port (a buffer stored raw,
+    length -1, too), and the port's reads in pyarrow, to the same rows."""
+    rb = pa.RecordBatch.from_pydict({"x": pa.array(np.arange(1000)),
+                                     "s": pa.array([f"v{i % 13}" if i % 7 else None
+                                                    for i in range(1000)]),
+                                     "e": pa.array([None] * 1000, pa.int64())})
     payload = _pa_stream([rb], rb.schema, compression=codec)
-    with pytest.raises(NotImplementedError, match=codec):
-        I.read_stream(payload)
+    assert I.read_stream(payload)[0].to_pydict() == rb.to_pydict()
+    port = I.write_stream([C.import_from(rb)], codec=codec)
+    assert len(port) < rb.nbytes
+    with pa.ipc.open_stream(port) as r:
+        assert r.read_all().to_batches()[0].equals(rb)
 
 
 def test_map_and_struct_streams_raise_naming_the_roadmap_item():
@@ -148,28 +156,25 @@ def _jax_blocks(codec: str) -> tuple[list, pa.RecordBatch]:
 
 
 def test_reference_v1_blocks_decode_in_the_port():
-    """Uncompressed v1 blocks decode to the same rows; the reference's
-    default codec (lz4) is refused naming it and the block version."""
-    blocks, rb = _jax_blocks("none")
-    schema = T.Schema.from_arrow(rb.schema)
-    keys, valid, strs, vals = [], [], [], []
-    for blk in blocks:
-        for payload in pf.iter_block_payloads(blk):
-            n, ((k, m), (s, _), (v, _)) = pf.decode_block(payload, schema)
-            keys.append(k)
-            valid.append(np.ones(n, bool) if m is None else m)
-            strs += [s.vocab[c] for c in s.codes]
-            vals.append(v)
-    want = rb.to_pydict()
-    k, m = np.concatenate(keys), np.concatenate(valid)
-    assert [int(x) if ok else None for x, ok in zip(k, m)] == want["k"]
-    assert not k[~m].any()  # NULL lanes zeroed
-    assert strs == want["s"]
-    assert np.concatenate(vals).tolist() == want["v"]
-    lz4, _ = _jax_blocks("lz4")
-    (payload,) = pf.iter_block_payloads(lz4[0])
-    with pytest.raises(NotImplementedError, match="v1.*lz4"):
-        pf.decode_block(payload, schema)
+    """v1 blocks, uncompressed and under the reference's default codec
+    (lz4) and zstd, decode to the same rows."""
+    for codec in ("none", "lz4", "zstd"):
+        blocks, rb = _jax_blocks(codec)
+        schema = T.Schema.from_arrow(rb.schema)
+        keys, valid, strs, vals = [], [], [], []
+        for blk in blocks:
+            for payload in pf.iter_block_payloads(blk):
+                n, ((k, m), (s, _), (v, _)) = pf.decode_block(payload, schema)
+                keys.append(k)
+                valid.append(np.ones(n, bool) if m is None else m)
+                strs += [s.vocab[c] for c in s.codes]
+                vals.append(v)
+        want = rb.to_pydict()
+        k, m = np.concatenate(keys), np.concatenate(valid)
+        assert [int(x) if ok else None for x, ok in zip(k, m)] == want["k"], codec
+        assert not k[~m].any()  # NULL lanes zeroed
+        assert strs == want["s"]
+        assert np.concatenate(vals).tolist() == want["v"]
 
 
 def test_vocabulary_streams_write_through_the_ipc_writer():

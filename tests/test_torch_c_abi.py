@@ -15,8 +15,8 @@
   in-process segmentation response for q93's host plan (the stage
   namespace replaced), and for ``{}`` the reference's error response with
   rc 0;
-- ``install_udf_callback`` relays its ``NotImplementedError`` through
-  ``auron_last_error``.
+- ``auron_register_udf_callback`` installs a host evaluator (answers 0)
+  and removes it again given NULL.
 """
 
 import ctypes
@@ -195,7 +195,7 @@ def test_q93_shuffle_manifests_through_harness_processes(data, tmp_path):
 
 def test_q93_through_the_library_in_process(data, tmp_path, monkeypatch):
     """The library loaded into this process with ctypes: q93 with a shuffle
-    manifest, then the UDF entry's error relay."""
+    manifest, then the UDF entry installing and removing an evaluator."""
     monkeypatch.setenv("AURON_TORCH_DEVICE", "cpu")
     got = pt.run_q93_c_abi(data, n_map=3, n_reduce=2, device="cpu", via="library",
                            work_dir=str(tmp_path))
@@ -203,9 +203,14 @@ def test_q93_through_the_library_in_process(data, tmp_path, monkeypatch):
     np.testing.assert_array_equal(got["rows"], want["rows"])
     np.testing.assert_array_equal(got["matched"], want["matched"])
     np.testing.assert_allclose(got["s"], want["s"], rtol=1e-9, atol=0)
+    from auron_tpu_torch.bridge import udf
+
     lib = phost.CLibrary("cpu")._lib
     lib.auron_register_udf_callback.argtypes = [ctypes.c_void_p]
-    assert lib.auron_register_udf_callback(None) == -1
-    assert b"ROADMAP Queue 1 item 6" in lib.auron_last_error()
+    evaluator = ctypes.CFUNCTYPE(ctypes.c_int)(lambda: 0)
+    assert lib.auron_register_udf_callback(ctypes.cast(evaluator, ctypes.c_void_p).value) == 0
+    assert udf.host_callback_installed()
+    assert lib.auron_register_udf_callback(None) == 0
+    assert not udf.host_callback_installed()
     with pytest.raises(RuntimeError, match="shuffle files"):
         phost.CLibrary("cpu").put_resource_shuffle("x", b'[{"data": "/nope", "index": "/no"}]')

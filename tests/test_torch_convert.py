@@ -204,7 +204,7 @@ def test_the_bridge_entry_is_the_service():
     assert papi.convert_plan_json(plan) == pservice.convert_host_plan_json(plan)
 
 
-def test_host_udf_decodes_and_its_evaluation_names_the_roadmap_item():
+def test_host_udf_decodes_and_evaluates_through_the_registry():
     import numpy as np
 
     from auron_tpu_torch import proto as pb
@@ -227,8 +227,17 @@ def test_host_udf_decodes_and_its_evaluation_names_the_roadmap_item():
     assert back == e
     schema = T.Schema((T.Field("x", T.INT64, True),))
     b = Batch.from_numpy([np.arange(4)], schema, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        Evaluator(schema).evaluate(b, [back])
+    from auron_tpu_torch.bridge import udf
+
+    def half(args, n):
+        import pyarrow.compute as pc
+
+        return pc.divide(pc.cast(args[0], "double"), 2.0)
+
+    udf.register_udf("my_fn", half)
+    (cv,) = Evaluator(schema).evaluate(b, [back])
+    assert cv.dtype == T.FLOAT64
+    assert cv.values[:4].tolist() == [0.0, 0.5, 1.0, 1.5] and cv.validity[:4].all()
 
 
 def test_the_conversion_path_needs_no_pyarrow_pandas_protobuf_or_jax():

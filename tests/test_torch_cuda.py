@@ -1436,3 +1436,81 @@ def test_basket_class_on_card_equals_its_oracle_and_launches_k1_and_k3():
     assert len(shapes) == launched["bitonic_sort"] == 4
     planned = {k: sum(pb.sort_plan(*s).launch_counts()[k] for s in shapes) for k in pb.LAUNCHES}
     assert {k: launched[k] for k in pb.LAUNCHES} == planned
+
+
+@pytest.mark.cuda
+def test_q93_and_q72_on_slots_on_card_equal_sequential_with_the_same_k1():
+    """q93 and q72 with their map and reduce tasks on 4 slots, each a CUDA
+    stream of its own, equal their sequential runs and their oracles, and
+    launch K1 as often (q93: one fact batch a map task at SF 0.1)."""
+    _need_card()
+    from auron_tpu_torch.models import tpcds
+
+    data = tpcds.generate(0.1, 42)
+    fact = tpcds.to_batches(data.store_sales, 4, device="cuda")
+    for name, ing in (("q93", tpcds.ingest_q93(data, 4, device="cuda", fact=fact)),
+                      ("q72", tpcds.ingest_q72(data, 4, device="cuda", fact=fact))):
+        run = getattr(tpcds, f"run_{name}_class")
+        want = getattr(tpcds, f"{name}_class_oracle")(data)
+        got = {}
+        for parallel in (False, True, False, True):
+            before = pk.LAUNCHES["murmur3_pmod"]
+            ans = run(device="cuda", ingested=ing, parallel=parallel)
+            got.setdefault(parallel, []).append((ans, pk.LAUNCHES["murmur3_pmod"] - before))
+        for runs in got.values():
+            for ans, k1 in runs:
+                assert k1 == got[False][0][1] > 0, (name, k1)
+                for k, w in want.items():
+                    if np.asarray(w).dtype.kind == "f":
+                        np.testing.assert_allclose(ans[k], w, rtol=1e-9, atol=0)
+                    else:
+                        np.testing.assert_array_equal(ans[k], w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["lz4", "zstd", "encoding off", "rss"])
+def test_q93_shuffle_variants_on_card_equal_the_oracle(variant):
+    """q93's shuffle at the reference's default codec (lz4), zstd, v1 blocks
+    and through the remote shuffle service over TCP equals its oracle and
+    launches K1 as the default run does."""
+    _need_card()
+    from auron_tpu_torch.exec.shuffle import format as pf
+    from auron_tpu_torch.models import tpcds
+
+    data = tpcds.generate(0.1, 42)
+    ing = tpcds.ingest_q93(data, 4, device="cuda")
+    conf = {"zstd": {"exec.shuffle.encoding.fallback.codec": "zstd"},
+            "encoding off": {"exec.shuffle.encoding": "off"}}.get(variant)
+    pf._codec_warned.clear()
+    before = pk.LAUNCHES["murmur3_pmod"]
+    st: dict = {}
+    got = tpcds.run_q93_class(device="cuda", ingested=ing, conf=conf, stats=st,
+                              transport="rss" if variant == "rss" else "file")
+    assert pk.LAUNCHES["murmur3_pmod"] - before == 4
+    want = tpcds.q93_class_oracle(data)
+    np.testing.assert_array_equal(got["rows"], want["rows"])
+    np.testing.assert_allclose(got["s"], want["s"], rtol=1e-9, atol=0)
+    assert not pf._codec_warned
+    if variant == "rss":
+        assert st["timers"]["RssShuffleWriterExec.push_time"] > 0
+
+
+@pytest.mark.cuda
+def test_udf_class_on_card_equals_its_oracle():
+    """The host-callback class on cuda (a UDF in q42's converted plan, a Hive
+    UDF through the C callback, the UDAF over a file shuffle of pickled
+    states, the UDTF) equals its oracle; q42's top sort launches K3 as
+    ``sort_plan`` lists."""
+    _need_card()
+    from auron_tpu_torch.models import tpcds
+
+    data = tpcds.generate(0.1, 42)
+    ing = tpcds.ingest_q3(data, 4, device="cuda")
+    shapes: list = []
+    before = dict(pb.LAUNCHES)
+    with _recording_kernel_shapes(shapes):
+        got = tpcds.run_udf_class(device="cuda", ingested=ing, install="api")
+    assert tpcds.udf_mismatch(got, tpcds.udf_class_oracle(data)) is None
+    launched = {k: pb.LAUNCHES[k] - before[k] for k in pb.LAUNCHES}
+    planned = {k: sum(pb.sort_plan(*s).launch_counts()[k] for s in shapes) for k in pb.LAUNCHES}
+    assert shapes and launched == planned

@@ -2,8 +2,8 @@
 
 - ``parquet_scan``, ``orc_scan``, ``parquet_sink`` and ``orc_sink`` plan
   from protos built as ``plan/builders.py`` and the converters build them;
-  ``kafka_scan`` and ``rss_shuffle_writer`` still raise, naming their
-  ROADMAP items;
+  ``kafka_scan`` still raises naming its ROADMAP item, and
+  ``rss_shuffle_writer`` plans and pushes to the service;
 - the tables written through converted ``DataWritingCommandExec`` plans
   read back equal to the numpy tables; q42, q93 and q3 from file-backed
   ``FileSourceScanExec`` host plans equal their oracles, q42 also from the
@@ -99,11 +99,36 @@ def test_the_file_variants_plan(name):
 @pytest.mark.parametrize("which,item", [
     ("kafka_scan", "item 6"), ("rss_shuffle_writer", "item 4")])
 def test_the_remaining_refusals_name_their_items(which, item):
+    """``kafka_scan`` still raises naming its item; ``rss_shuffle_writer``
+    (item 4) now plans and pushes its blocks to the service."""
     leaf = B.memory_scan(KV, "m")
     node = (B.kafka_scan(KV, "t", "src") if which == "kafka_scan" else
             B.rss_shuffle_writer(leaf, B.hash_partitioning([ir.col(0)], 2), "rss"))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        plan_from_proto(pb.PhysicalPlanNode.FromString(node.SerializeToString()))
+    proto = pb.PhysicalPlanNode.FromString(node.SerializeToString())
+    if which == "kafka_scan":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
+            plan_from_proto(proto)
+        return
+    from auron_tpu_torch.columnar.batch import Batch
+    from auron_tpu_torch.exec.base import ExecutionContext
+    from auron_tpu_torch.exec.shuffle.reader import IpcReaderExec
+    from auron_tpu_torch.exec.shuffle.rss import (
+        LocalRssService, RssBlockProvider, RssPartitionWriterClient,
+    )
+    from auron_tpu_torch.exec.shuffle.writer import RssShuffleWriterExec
+
+    op = plan_from_proto(proto)
+    assert isinstance(op, RssShuffleWriterExec)
+    svc = LocalRssService()
+    b = Batch.from_numpy([np.arange(50, dtype=np.int64),
+                          np.array([f"s{i}" for i in range(50)], dtype=object)], KV, device="cpu")
+    ctx = ExecutionContext(device="cpu", resources={"m": [[b]],
+                                                    "rss": RssPartitionWriterClient(svc, "s", 0)})
+    assert list(op.execute(0, ctx)) == []
+    got = sorted(r for p in range(2) for bb in IpcReaderExec(KV, "r").execute(
+        p, ExecutionContext(device="cpu", resources={"r": RssBlockProvider(svc, "s")}))
+        for r in zip(*bb.to_pydict().values()))
+    assert got == [(i, f"s{i}") for i in range(50)]
 
 
 @pytest.fixture(scope="module")

@@ -357,6 +357,11 @@ def _safety_corpus(m):
         # LIST values they make
         (ir.ScalarFunc("abs", (c(0, "k"),)), False),
         (ir.ScalarFunc("abs", (c(0, "k"),)), True),
+        # host callbacks (bridge/udf.py): a host UDF never enters a stage
+        (ir.HostUDF("f", (c(0, "k"),), T.INT64), False),
+        (ir.HostUDF("f", (c(3, "s"),), T.STRING), True),
+        (ir.BinaryOp("add", ir.HostUDF("f", (c(0, "k"),), T.INT64), c(0, "k")), False),
+        (ir.IsNotNull(ir.HostUDF("f", (c(1, "v"),), T.FLOAT64)), False),
         (ir.ScalarFunc("upper", (c(3, "s"),)), True),
         (ir.ScalarFunc("split", (c(3, "s"), ir.Literal(",", T.STRING))), True),
         (ir.IsNull(ir.ScalarFunc("split", (c(3, "s"), ir.Literal(",", T.STRING)))), False),
@@ -733,9 +738,20 @@ def _stub_cuda(monkeypatch, fail: bool):
         return ([{"segment_pool_id": (0, 0), "total_size": 1 << 30}]  # the general pool
                 + [{"segment_pool_id": p, "total_size": _FAKE_POOL_BYTES} for p in pools])
 
+    class _Stream:  # replays order themselves by an event on the current stream
+        waited = []
+
+        def wait_event(self, e):
+            self.waited.append(e)
+
+    class _Event:
+        def record(self, stream=None):
+            pass
+
     for name, fn in (("synchronize", lambda *a: None), ("memory_snapshot", snapshot),
                      ("graph_pool_handle", lambda: (0, next(ids))),
-                     ("CUDAGraph", _FakeGraph), ("graph", graph)):
+                     ("CUDAGraph", _FakeGraph), ("graph", graph),
+                     ("current_stream", lambda *a: _Stream()), ("Event", _Event)):
         monkeypatch.setattr(torch.cuda, name, fn)
     return pools
 
@@ -751,8 +767,11 @@ def test_capture_counts_launches_per_replay_and_raises_on_failure(monkeypatch, f
     _stub_cuda(monkeypatch, fail)
     before = dict(pk.LAUNCHES)
 
+    from auron_tpu_torch.ops import launch_count
+
     def fn(batch_in, side_in):
-        pk.LAUNCHES["murmur3_pmod"] += 1  # what the K1 wrapper does at a launch
+        # what the K1 wrapper does at a launch
+        launch_count.add(pk.LAUNCHES, pk._launch_lock, "murmur3_pmod")
         return (batch_in[0] + side_in[0],)
 
     x, side = torch.arange(4), torch.tensor([10])

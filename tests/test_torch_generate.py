@@ -11,7 +11,8 @@ port against the JAX package, on the CPU.
   same capacity), also past one 65,536-row chunk; the explode makes one
   blocking read per input batch;
 - the reference's ``B.generate`` and ``scalar_func`` protos decode in both
-  planners to the same answers, and ``host_udtf`` raises naming its item;
+  planners to the same answers, and ``host_udtf`` takes its generated
+  columns from the UDTF registry;
 - ``run_generate_class`` (the reference's 42nd class) equals the JAX
   function and the numpy oracle; ``run_tag_revenue_class`` (the explode
   over the whole fact) equals the JAX run of the same plan proto, the
@@ -194,8 +195,15 @@ def test_generate_schema_and_refusals():
                                                       ("e", PT.STRING)]
     with pytest.raises(TypeError, match="LIST"):
         PGen(scan, "explode", pir.col(0), [0])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        PGen(scan, "host_udtf", pir.col(1), [0], udtf="f")
+    with pytest.raises(KeyError, match="not registered"):
+        PGen(scan, "host_udtf", pir.col(1), [0], udtf="no_such_udtf")
+    from auron_tpu_torch.bridge import udf
+
+    udf.register_udtf("pairs", lambda s: [(s, 1)], PT.Schema((PT.Field("w", PT.STRING),
+                                                              PT.Field("n", PT.INT32))))
+    g = PGen(scan, "host_udtf", pir.col(1), [0], udtf="pairs")
+    assert [(f.name, f.dtype) for f in g.schema] == [("id", PT.INT64), ("w", PT.STRING),
+                                                      ("n", PT.INT32)]
 
 
 # ---------------------------------------------------------------------------

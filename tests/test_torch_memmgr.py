@@ -228,7 +228,7 @@ def test_host_ledger_demotes_coldest_first(tmp_path):
     as clear the shortfall; the ledger forgets their bytes."""
     before = PM._host_ledger.resident_bytes()
     b = _batch(3, 5000)
-    one = len(PM.encode_batch(b, None))
+    one = len(PM.encode_batch(b, PConf({})))  # a block as the spills write it: default codec
     conf = PConf({"memory.host.spill.budget.bytes": before + 3 * one + one // 2})
     spills = [PM.make_spill(str(tmp_path), conf=conf) for _ in range(3)]
     stats0 = dict(PM.SPILL_STATS)

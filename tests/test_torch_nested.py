@@ -4,8 +4,8 @@ with pyarrow's, nested in LIST and in each other, sliced) and Arrow IPC;
 the nested casts; the MAP and STRUCT functions, each case through both
 packages' ``Evaluator`` (the cases where the reference raises raise in the
 port too); and LIST, MAP and STRUCT columns through shuffle files written
-by one package and read by the other, with the JAX writer's ENC_ARROW form
-of a large nested column refused by name."""
+by one package and read by the other, the JAX writer's ENC_ARROW form of
+a nested column (with and without its codec) among them."""
 
 import ctypes
 import io
@@ -310,16 +310,22 @@ def _column_encodings(pl, ncols) -> list:
     return out
 
 
-def test_reference_writer_nested_columns_in_enc_arrow_are_refused_by_name(tmp_path):
+@pytest.mark.parametrize("codec", ["none", "lz4"])
+def test_reference_writer_nested_columns_in_enc_arrow_read_in_the_port(tmp_path, codec):
     """The reference's ``ShuffleWriterExec`` materializes nested columns
     (``columnar/batch.py:569-572``) and writes them as ENC_ARROW, a
     single-column Arrow IPC stream under its codec: the port's reader
-    refuses them naming the encoding (the codecs are ROADMAP item 4)."""
+    reads the JAX reader's rows, in order."""
     batches = _shuffle_batches(n=100, n_batches=1)
-    pairs = _write("jax", batches, tmp_path, 2, "jax")
-    assert pf.ENC_ARROW in _encodings(pairs, 0)
-    with pytest.raises(NotImplementedError, match="arrow"):
-        _read("port", pairs, batches[0].schema, 0)
+    d, i = str(tmp_path / "jax.data"), str(tmp_path / "jax.index")
+    conf = {**_CONF, "exec.shuffle.encoding.fallback.codec": codec}
+    w = JWriter(JScan([batches], batches[0].schema), JHash([jir.col(0)], 2), d, i)
+    list(w.execute(0, JCtx(conf=JConf(conf))))
+    pairs = [(d, i)]
+    for p in range(2):
+        assert pf.ENC_ARROW in _encodings(pairs, p)
+        want = _read("jax", pairs, batches[0].schema, p)
+        assert _read("port", pairs, batches[0].schema, p) == want and want
 
 
 def test_nested_vocabulary_stream_round_trips_through_pyarrow():

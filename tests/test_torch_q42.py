@@ -157,7 +157,8 @@ def test_q42_exec_tree_matches_planner():
 def test_port_imports_no_jax_pandas_arrow_or_protobuf():
     """Every module of the port imports, and q42 and q93 run from their
     TaskDefinition bytes (the port's codec decodes them), with no JAX,
-    pandas, pyarrow or google.protobuf loaded."""
+    pandas, pyarrow or google.protobuf loaded (q93's shuffle without its
+    general codec, which is pyarrow's)."""
     script = textwrap.dedent("""
         import pkgutil, sys
         import numpy as np
@@ -172,7 +173,10 @@ def test_port_imports_no_jax_pandas_arrow_or_protobuf():
         assert got["brand"].shape == (10,), got
         assert st["task_bytes"] > 0 and st["decode_s"] > 0, st
         st = {}
-        q93 = tpcds.run_q93_class(d, n_map=2, n_reduce=2, device="cpu", stats=st)
+        # the shuffle's general codec (lz4 by default) is pa.Codec's: none
+        # keeps the shuffle free of pyarrow
+        q93 = tpcds.run_q93_class(d, n_map=2, n_reduce=2, device="cpu", stats=st,
+                                  conf={"exec.shuffle.encoding.fallback.codec": "none"})
         assert np.array_equal(q93["rows"], tpcds.q93_class_oracle(d)["rows"]), q93
         assert st["task_bytes"] > 0, st
         bad = sorted(m for m in sys.modules

@@ -271,42 +271,71 @@ def test_corrupt_blocks_raise_value_error():
         pf.decode_block(payload, T.Schema((T.Field("a", T.INT64),)))
 
 
-def test_encodings_outside_the_slice_raise_not_implemented():
-    """A JAX block with an lz4 plane (ENC_CODEC), a string column
-    (ENC_ARROW) and a v1 IPC block are refused by name."""
+def test_reference_codec_arrow_and_v1_blocks_decode_in_the_port():
+    """A JAX block with an lz4 plane (ENC_CODEC), one with a string column
+    (ENC_ARROW) and a v1 IPC block, compressed and not, decode in the port
+    to the JAX reader's values."""
     rng = np.random.default_rng(1)
     vals = rng.choice(np.sqrt(np.arange(2, 18)), 4096)
     rb = pa.RecordBatch.from_arrays([pa.array(vals)], names=["x"])
     blk = jf.encode_block_v2([rb], conf=JConf({"exec.shuffle.encoding.fallback.codec": "lz4"}))
     (payload,) = pf.iter_block_payloads(blk)
-    with pytest.raises(NotImplementedError, match="codec"):
-        pf.decode_block(payload, T.Schema((T.Field("x", T.FLOAT64),)))
-    rb = pa.RecordBatch.from_arrays([pa.array(["a", "b"])], names=["s"])
+    assert payload[16 + struct.unpack_from("<I", payload, 12)[0]] == pf.ENC_CODEC
+    n, [(got, valid)] = pf.decode_block(payload, T.Schema((T.Field("x", T.FLOAT64),)))
+    assert n == 4096 and valid is None
+    np.testing.assert_array_equal(got, vals)
+    rb = pa.RecordBatch.from_arrays([pa.array(["a", None, "b"])], names=["s"])
     (payload,) = pf.iter_block_payloads(jf.encode_block_v2([rb], conf=JConf({})))
-    with pytest.raises(NotImplementedError, match="arrow"):
-        pf.decode_block(payload, T.Schema((T.Field("s", T.INT64),)))
-    (payload,) = pf.iter_block_payloads(jf.encode_block(rb))
-    with pytest.raises(NotImplementedError, match="v1"):
-        pf.decode_block(payload, T.Schema((T.Field("s", T.INT64),)))
+    assert payload[16 + struct.unpack_from("<I", payload, 12)[0]] == pf.ENC_ARROW
+    n, [(codes, valid)] = pf.decode_block(payload, T.Schema((T.Field("s", T.STRING),)))
+    assert [codes.vocab[c] if ok else None for c, ok in zip(codes.codes, valid)] == \
+        ["a", None, "b"]
+    for codec in ("none", "lz4", "zstd"):
+        (payload,) = pf.iter_block_payloads(
+            jf.encode_block(rb, conf=JConf({"spill.compression.codec": codec})))
+        n, [(codes, valid)] = pf.decode_block(payload, T.Schema((T.Field("s", T.STRING),)))
+        assert [codes.vocab[c] if ok else None for c, ok in zip(codes.codes, valid)] == \
+            ["a", None, "b"], codec
 
 
-def test_writer_counts_and_fallback_codec_warns_once(tmp_path, capsys):
-    """The default fallback codec (lz4) is unavailable to the port: the
-    writer degrades with one warning and writes no codec planes."""
-    pf._codec_warned.clear()
-    batches = [carry(b) for b in _inputs(n_batches=2, n=500)]
-    for m in range(2):
-        ctx = PCtx(conf=PConf({}), device="cpu")
+def test_writer_counts_and_fallback_codec_warns_once(tmp_path, capsys, monkeypatch):
+    """The default fallback codec (lz4) writes codec planes; a codec the
+    process cannot have degrades with one warning per name and writes none;
+    ``exec.shuffle.encoding=off`` writes v1 blocks both readers read."""
+    from auron_tpu_torch.columnar import codecs
+
+    rng = np.random.default_rng(8)
+    jbs = [jax_batch({"k": rng.integers(1, 100_000, 4000, dtype=np.int64),
+                      "x": rng.choice(np.sqrt(np.arange(2, 18)), 4000)}) for _ in range(2)]
+    batches = [carry(b) for b in jbs]
+    schema = port_schema(jbs[0].schema)
+
+    def write(m, conf):
+        ctx = PCtx(conf=PConf(conf), device="cpu")
         w = PWriter(PScan([batches], batches[0].schema), PHash([pcol(0)], 3),
                     str(tmp_path / f"m{m}.data"), str(tmp_path / f"m{m}.index"))
         list(w.execute(0, ctx))
         assert ctx.metrics.values["data_size"] == os.path.getsize(tmp_path / f"m{m}.data") - 16
-        assert "shuffle_enc_codec" not in ctx.metrics.values
-    assert capsys.readouterr().err.count("unavailable") == 1  # once per process
-    with pytest.raises(NotImplementedError, match="off"):
-        list(PWriter(PScan([batches], batches[0].schema), PHash([pcol(0)], 3),
-                     str(tmp_path / "x.data"), str(tmp_path / "x.index"))
-             .execute(0, PCtx(conf=PConf({"exec.shuffle.encoding": "off"}), device="cpu")))
+        return ctx.metrics.values
+
+    assert write(0, {}).get("shuffle_enc_codec", 0) > 0
+    pf._codec_warned.clear()
+    monkeypatch.setattr(codecs, "available", lambda name: False)
+    for m in (1, 2):
+        assert "shuffle_enc_codec" not in write(m, {})
+    assert capsys.readouterr().err.count("unavailable") == 1  # lz4: once per process
+    monkeypatch.undo()
+    write(3, {"exec.shuffle.encoding": "off"})
+    want = [r for p in range(3) for r in rows(list(PReader(schema, "b").execute(
+        p, PCtx(device="cpu", resources={"b": MultiMapBlockProvider(
+            [(str(tmp_path / "m0.data"), str(tmp_path / "m0.index"))])}))))]
+    pairs = [(str(tmp_path / "m3.data"), str(tmp_path / "m3.index"))]
+    assert not pf.is_v2_payload(next(LocalFileBlockProvider(*pairs[0]).iter_payloads(0)))
+    got = [r for p in range(3) for r in rows(list(PReader(schema, "b").execute(
+        p, PCtx(device="cpu", resources={"b": MultiMapBlockProvider(pairs)}))))]
+    jgot = [r for p in range(3) for r in rows(list(JReader(jbs[0].schema, "b").execute(
+        p, JCtx(resources={"b": JProvider(pairs)}))))]
+    assert got == want == jgot and len(got) == 8000
 
 
 def test_reader_honours_batch_size_and_places_on_device(tmp_path):
