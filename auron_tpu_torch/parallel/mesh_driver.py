@@ -38,7 +38,8 @@ transport's writers reuse the ids the driver computed for the routing
 counts instead of hashing each shard again; the AQE rules walk operator
 trees where the JAX driver walks protos; ``collect`` returns host numpy
 columns. ``ExchangeStats`` adds the mesh transport's ``slot_cap``, and
-``walls`` holds each stage's wall clock.
+``walls`` holds each stage's wall clock, and ``routed_bytes`` the rows
+each exchange routed times their device width.
 """
 
 from __future__ import annotations
@@ -83,6 +84,8 @@ class ExchangeStats:
     slot_cap: int | None = None  # rows per (src, dst) slot of a mesh exchange
     #: AQE skew-split task table, if applied: [(pid, map_lo, map_hi | None)]
     skew_tasks: list | None = None
+    #: live rows routed times the row's device width (values + validity)
+    routed_bytes: int = 0
 
     def partition_sizes(self) -> np.ndarray:
         return self.rows.sum(axis=0)
@@ -396,7 +399,8 @@ class MeshQueryDriver:
             # the mesh transport is square (P src = P dst); a coalesced map
             # stage routes through the file transport
             mode = "file"
-        stats = ExchangeStats(ex_id, mode, counts, est_shard_bytes)
+        stats = ExchangeStats(ex_id, mode, counts, est_shard_bytes,
+                              routed_bytes=int(counts.sum()) * _row_width_bytes(schema))
         self.stats.append(stats)
         if mode == "file":
             node = self._file_exchange(_ShardPids(part.num_partitions, pids), schema,

@@ -416,3 +416,21 @@ PARQUET_LATE_MATERIALIZATION = bool_conf(
     "decode predicate columns first and skip the wide decode for row "
     "groups with zero matches (page/dictionary-check analog)",
 )
+CASE_SENSITIVE = bool_conf("case.sensitive", False, "sql", "identifier resolution")
+SQL_SHUFFLE_PARTITIONS = int_conf(
+    "sql.shuffle.partitions", 2, "sql",
+    "mesh width of SQL-frontend plans: partition count of every "
+    "mesh_exchange the lowering emits and of the partitioned probe scan "
+    "(spark.sql.shuffle.partitions analog; the driver's AQE may coalesce "
+    "below it at runtime)",
+)
+SQL_GATE_SF = float_conf(
+    "sql.gate.sf", 4.0, "sql",
+    "scale factor of the real-text differential gate (make sqlgate); the "
+    "tier-1 run overrides this to a toy scale",
+)
+SQL_GATE_FLOAT_REL = float_conf(
+    "sql.gate.float.rel", 1e-6, "sql",
+    "relative float tolerance of the SQL gate's row comparator "
+    "(models/compare.py; the ULP term is fixed at 4)",
+)

@@ -15,6 +15,7 @@
     python3 chip_smoke.py --files-only  # phases 1, 2 and 20 only
     python3 chip_smoke.py --collect-only  # phases 1, 2 and 21 only
     python3 chip_smoke.py --udf-shuffle-only  # phases 1, 2 and 22 only
+    python3 chip_smoke.py --sql-only  # phases 1, 2 and 23 only
 
 Phases, in order, none of them caught — any failure exits non-zero:
 
@@ -326,8 +327,25 @@ Phases, in order, none of them caught — any failure exits non-zero:
    ``push_time``, the codec and arrow column counts, spill counts, the
    host callbacks' seconds and the device reads are printed; the phase
    fails if no codec plane was written or a codec was unavailable;
-23. print the kernel table as one JSON line (each kernel's launches summed
-   over the timed runs of phases 4-22, and per run), then the status line.
+23. the SQL front end (``auron_tpu_torch/sql/``, ``models/sqlgate.py``):
+   the gate's catalog tables built from the phases' data (the fact widened
+   to the 19 columns the TPC-DS texts read, seven more dimensions; timed)
+   and their pandas frames for the oracles; the 11 unsupported texts each
+   raise SqlUnsupported with the reference's construct and a line >= 1;
+   each of the 24 corpus texts (15 verbatim dsdgen store-channel texts, 9
+   adaptations) compiled to plan IR, its plan text equal to the reference's
+   golden (``tests/goldens/sql/<name>.txt``), a warm-up on the card while
+   the pandas oracles run in four threads, then, with every oracle done,
+   two timed runs: the distributed stage through the planned-exchange
+   driver at P = ``sql.shuffle.partitions`` = 2 and the collect task from
+   TaskDefinition bytes; every answer equal to its oracle, K2 once per
+   source shard of every exchange (21 plans hold one), the bitonic
+   launches as ``sort_plan`` lists for the warm-up's kernel sorts, which go
+   through the plain network on the card once more, bit for bit. One line
+   a query: compile, engine and oracle seconds, rows, shuffle bytes (rows
+   routed times their width), peak device memory, K1-K4 launches;
+24. print the kernel table as one JSON line (each kernel's launches summed
+   over the timed runs of phases 4-23, and per run), then the status line.
 
 Each phase prints its seconds.
 
@@ -337,11 +355,12 @@ kernel launched inside a captured CUDA graph (K1 in a fused writer stage)
 counts once per replay (``plan/fusion.py``: each graph keeps the launches
 its capture recorded and adds them at every replay).
 
-Needs no network, no pandas and no protobuf (phases 18 and 19 fail if
+Needs no network and no protobuf (phases 18 and 19 fail if
 google.protobuf was loaded, 19 also if pyarrow was); the file shuffles'
 default lz4 codec (phases 5, 8, 10, 12, 20, 21 and 22) is pyarrow's
 ``pa.Codec``, phase 20 needs pyarrow (with ``pyarrow.orc``), phase 21
-pyarrow for its read-back; phases 18 and 19 run with the codec off and
+pyarrow for its read-back, phase 23 pandas for its oracles and pyarrow for
+the answers' frames; phases 18 and 19 run with the codec off and
 pyarrow blocked; imports nothing of the JAX package. Exits with
 code 2 when no CUDA device is visible.
 Detailed results also go to chiprun_out/chip_smoke.json.
@@ -3947,6 +3966,111 @@ def run_udf_shuffle_phase(data, seed: int, kernels_checked: bool) -> dict:
     return out
 
 
+#: phase 23: timed runs of each SQL corpus query after its warm-up
+SQL_TIMED_RUNS = 2
+
+
+def _sql_line(name: str, rec: dict) -> str:
+    runs = rec["runs"]
+    return (f"sql {name}: compile {rec['compile_s']:.4f} s, engine "
+            + " / ".join(f"{s:.4f}" for s in rec["engine_s"])
+            + f" s, oracle {rec['oracle_s']:.4f} s, rows {rec['rows']}, shuffle bytes "
+            f"{runs[-1]['shuffle_bytes']:,} (mode "
+            f"{','.join(ex['mode'] for ex in runs[-1]['exchanges']) or 'none'}), peak "
+            f"{max(r['peak_bytes'] or 0 for r in runs) / 2**30:.3f} GiB, launches "
+            + " / ".join(str({k: v for k, v in r["launches"].items() if v}) for r in runs))
+
+
+def run_sql_phase(data, seed: int, kernels_checked: bool) -> dict:
+    """Phase 23: the SQL gate (``models/sqlgate.py``) at the phases' scale.
+    The catalog's tables from the phases' data (timed), their pandas frames
+    for the oracles; the 11 unsupported texts must raise SqlUnsupported
+    with the reference's construct at a line >= 1. Then every corpus text:
+    compiled, its plan text equal to ``tests/goldens/sql/<name>.txt``, one
+    warm-up on the card (its kernel sorts recorded and held against the
+    plain network on the card, bit for bit) while the pandas oracles run
+    in threads beside the warm-ups; then, with every oracle done,
+    SQL_TIMED_RUNS timed runs, the counts set to 0 just before and read
+    just after. Every answer (warm-up and timed) equals its oracle; each
+    timed run launches K2 once per source shard of each exchange and the
+    bitonic kernels as ``sort_plan`` lists for the sorts the warm-up
+    recorded. Without phase 3 (``kernels_checked`` False) K1 and K2 are
+    held against their plain versions here."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from auron_tpu_torch.models import sqlgate
+    from auron_tpu_torch.sql.catalog import build_tables, frames_of
+
+    if not kernels_checked:
+        check_partition_kernel(seed)
+        check_histogram_kernel(seed)
+    t0 = time.perf_counter()
+    tables = build_tables(data, seed=seed)
+    t_tables = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frames = frames_of(tables)
+    t_frames = time.perf_counter() - t0
+    catalog = sqlgate.gate_catalog()
+    unsupported = sqlgate.run_unsupported(catalog)
+    bad = [r for r in unsupported if not r["ok"]]
+    assert len(unsupported) == 11 and not bad, bad
+    print(f"phase 23: catalog tables in {t_tables:.2f} s ({len(tables['store_sales']):,} "
+          f"fact rows), pandas frames in {t_frames:.2f} s; the 11 unsupported texts raise "
+          + ", ".join(f"{r['query']} {r['construct']!r} @{r['line']}:{r['col']}"
+                      for r in unsupported), flush=True)
+    names = [c.name for c in sqlgate.CASES]
+    cache: dict = {}
+    out: dict = {"tables_s": t_tables, "frames_s": t_frames, "unsupported": unsupported,
+                 "queries": {}}
+    warm: dict = {}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        pending = {n: pool.submit(sqlgate.oracle_answer, sqlgate.case_by_name(n), frames)
+                   for n in names}
+        for name in names:
+            sorts: list = []
+            shapes: list = []
+            with _recording_sorts(sorts), _recording_kernel_sorts(shapes):
+                rec, = sqlgate.run_gate(names=[name], device="cuda", tables=tables,
+                                        frames=frames, cache=cache, runs=0, warmup=True,
+                                        oracles={name: pending[name].result})
+            assert rec["ok"], (name, rec["error"])
+            warm[name] = {"rec": rec, "shapes": shapes,
+                          "sort_checks": check_sorts(f"sql {name}", sorts)}
+            del sorts
+        oracles = {n: f.result() for n, f in pending.items()}
+    t_warm = time.perf_counter() - t0
+    # a replicated view is one upload shared by every partition
+    slots = {id(b): b.capacity for v in cache.values() for p in v for b in p}
+    print(f"phase 23: warm-ups and oracles in {t_warm:.2f} s (oracles "
+          f"{sum(s for _, s in oracles.values()):.2f} s summed over 4 threads); the tables on "
+          f"the card: {sum(slots.values()):,} batch slots under {sorted(r for r, _ in cache)}",
+          flush=True)
+    for name in names:
+        _reset_launches()
+        rec, = sqlgate.run_gate(names=[name], device="cuda", tables=tables, frames=frames,
+                                cache=cache, runs=SQL_TIMED_RUNS,
+                                oracles={name: lambda n=name: oracles[n]})
+        launches = _launches()
+        assert rec["ok"], (name, rec["error"])
+        summed = {k: sum(r["launches"][k] for r in rec["runs"]) for k in launches}
+        assert summed == launches, (name, summed, launches)
+        for run in rec["runs"]:
+            shards = sum(len(ex["routing"]) for ex in run["exchanges"])
+            assert run["launches"]["partition_histogram"] == shards, (name, run["launches"])
+            _assert_planned_launches(f"sql {name}", warm[name]["shapes"], run["launches"],
+                                     sorts=bool(warm[name]["shapes"]))
+        print(_sql_line(name, rec) + f"; warm-up {warm[name]['rec']['warm']['engine_s']:.4f} s, "
+              f"kernel sorts (NP, P) {warm[name]['shapes']}", flush=True)
+        out["queries"][name] = {**rec, "warm": warm[name]["rec"]["warm"],
+                                "sort_shapes": warm[name]["shapes"],
+                                "sort_checks": warm[name]["sort_checks"]}
+    k2 = [n for n, r in out["queries"].items() if r["runs"][-1]["launches"]["partition_histogram"]]
+    assert len(k2) == 21, f"K2 launched on {len(k2)} of the SQL plans, not 21: {k2}"
+    del cache
+    return out
+
+
 def report_graph_cache() -> None:
     """Print the CUDA-graph cache's resident bytes, graphs and evictions
     over the script, and fail if it holds more than its cap (a quarter of
@@ -3995,6 +4119,8 @@ def main(argv=None) -> int:
                     help="run phases 1, 2 and 21 only (no kernel table, no status line)")
     ap.add_argument("--udf-shuffle-only", action="store_true",
                     help="run phases 1, 2 and 22 only (no kernel table, no status line)")
+    ap.add_argument("--sql-only", action="store_true",
+                    help="run phases 1, 2 and 23 only (no kernel table, no status line)")
     ap.add_argument("--time-sorts", action="store_true",
                     help="only build and time the bitonic kernels at the sort shapes "
                          "(one JSON line, no status line)")
@@ -4139,6 +4265,16 @@ def main(argv=None) -> int:
                   "w") as f:
             json.dump({"device": kind, "nvidia_smi": smi, "udf_shuffle": udf_shuffle,
                        "phase_s": phase_s}, f, indent=1)
+        return 0
+
+    if args.sql_only:
+        data = tpcds.generate(args.sf, args.seed)
+        sql = run_sql_phase(data, args.seed, kernels_checked=False)
+        phase_done("23")
+        os.makedirs(os.path.join(REPO_DIR, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(REPO_DIR, "chiprun_out", "chip_smoke_sql.json"), "w") as f:
+            json.dump({"device": kind, "nvidia_smi": smi, "sql": sql, "phase_s": phase_s},
+                      f, indent=1, default=str)
         return 0
 
     # 3. kernels against their plain versions
@@ -4296,7 +4432,12 @@ def main(argv=None) -> int:
     udf_shuffle = run_udf_shuffle_phase(data, args.seed, kernels_checked=True)
     phase_done("22")
 
-    # 23. every kernel sort and run merge of the main paths, held against the
+    # 23. the SQL front end: the gate's 24 TPC-DS texts compiled to plan IR
+    # and run through the planned-exchange driver and a collect task
+    sql = run_sql_phase(data, args.seed, kernels_checked=True)
+    phase_done("23")
+
+    # 24. every kernel sort and run merge of the main paths, held against the
     # plain network on the card at its own operands
     checks["main_path_sorts"] = {
         **{f"q3-mesh ({m})": q3_mesh[m]["sort_checks"] for m in q3_mesh},
@@ -4313,7 +4454,9 @@ def main(argv=None) -> int:
         "range sort (converted)": convert["range sort (converted)"]["sort_checks"],
         "reads (files)": files["reads"]["sort_checks"],
         "sorted write": files["sorted write"]["sort_checks"],
-        "basket": basket["sort_checks"]}
+        "basket": basket["sort_checks"],
+        **{f"sql {name}": r["sort_checks"] for name, r in sql["queries"].items()
+           if r["sort_checks"]}}
     sort_err = max(s["max_abs_err"] for v in checks["main_path_sorts"].values() for s in v)
     for name in ("bitonic_sort", "bitonic_merge"):
         checks["max_abs_err"][name] = max(checks["max_abs_err"][name], sort_err)
@@ -4357,7 +4500,8 @@ def main(argv=None) -> int:
                 for i, run in enumerate(r["runs"])},
              "sorted write": files["sorted write"]["launches"],
              **{f"basket run {i}": r["launches"] for i, r in enumerate(basket["runs"])},
-             **{label: r["launches"] for label, r in udf_shuffle.items()}}
+             **{label: r["launches"] for label, r in udf_shuffle.items()},
+             **{f"sql {name}": r["runs"][-1]["launches"] for name, r in sql["queries"].items()}}
     kernels = []
     for name, source, replaces in (
         ("bitonic_sort", "auron_tpu_torch/csrc/bitonic.cu", "auron_tpu/ops/bitonic.py:145"),
@@ -4388,9 +4532,9 @@ def main(argv=None) -> int:
                    "join_tail_sweep": sweep, "predictor_ab": ab, "decimal": decimal,
                    "fusion": fused, "generate": gen, "bridge": bridge, "plan_ir": plan_ir,
                    "convert": convert, "files": files, "basket": basket,
-                   "udf_shuffle": udf_shuffle, "phase_s": phase_s, "kernels": kernels},
-                  f, indent=1)
-    phase_done("23")
+                   "udf_shuffle": udf_shuffle, "sql": sql, "phase_s": phase_s,
+                   "kernels": kernels}, f, indent=1, default=str)
+    phase_done("24")
     report_graph_cache()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

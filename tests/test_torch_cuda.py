@@ -1514,3 +1514,21 @@ def test_udf_class_on_card_equals_its_oracle():
     launched = {k: pb.LAUNCHES[k] - before[k] for k in pb.LAUNCHES}
     planned = {k: sum(pb.sort_plan(*s).launch_counts()[k] for s in shapes) for k in pb.LAUNCHES}
     assert shapes and launched == planned
+
+
+@pytest.mark.cuda
+def test_sql_gate_on_card_equals_its_oracles_and_launches_k2():
+    """q3 and q93a from their SQL texts through the gate on cuda at SF 0.05:
+    each equals its pandas oracle, and the driver launches K2 once per
+    source shard of its one exchange (P = 2)."""
+    _need_card()
+    from auron_tpu_torch.models import sqlgate
+
+    tables = sqlgate.gate_tables(0.05)
+    recs = sqlgate.run_gate(0.05, names=["q3", "q93a"], device="cuda", tables=tables,
+                            runs=1, warmup=True)
+    for rec in recs:
+        assert rec["ok"], (rec["query"], rec["error"])
+        run, = rec["runs"]
+        assert run["launches"]["partition_histogram"] == 2, (rec["query"], run["launches"])
+        assert run["peak_bytes"] > 0 and run["walls"]["reduce_s"] > 0
