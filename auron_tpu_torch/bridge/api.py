@@ -38,6 +38,10 @@ the functions below; batches cross it as Arrow, without pyarrow
 
 - ``install_udf_callback`` (``auron_register_udf_callback``): the host's
   evaluator for ``__hive:<blob>`` UDFs (``bridge/udf.py``).
+
+At task entry the task's session-set ``obs.*`` knobs apply
+(``runtime/task.py``) and, when its conf sets ``http.service.enable``, the
+observability service starts (``utils/httpsvc.maybe_start_from_conf``).
 """
 
 from __future__ import annotations
@@ -142,9 +146,14 @@ def call_native(task, extra_resources: dict | None = None, device: str = "cuda",
         resources = dict(_resources)
     if extra_resources:
         resources.update(extra_resources)
+    # session-set obs knobs apply inside TaskRuntime.__init__, before its
+    # pump starts; only the conf-gated HTTP service starts lazily here
     rt = TaskRuntime(task, resources=resources, shared=_resources, stage_id=stage_id,
                      partition_id=partition_id, conf=Configuration(conf or {}), device=device)
     try:
+        from auron_tpu_torch.utils.httpsvc import maybe_start_from_conf
+
+        maybe_start_from_conf(rt.ctx.conf)
         h = next(_next_handle)
         with _lock:
             _runtimes[h] = rt

@@ -22,7 +22,8 @@ state is ``_AggTableConsumer``, registered with the memory manager, which
 state and parks it as an encoded run in host RAM (demoted to disk when the
 host ledger fills), and the end of the stream merges every parked run back
 on the device. Partial-agg skipping never engages once a run is parked.
-The dense table registers unspillable. Left out: the ``obs`` spill spans.
+The dense table registers unspillable. Its spills note their spans
+through the memory manager and the spill containers (``memory/memmgr.py``).
 
 Host reads (reference ``agg_exec.py:559-660, 2247-2320``): a PARTIAL
 generic path defers each batch's (live, group) counts through the transfer
@@ -1841,17 +1842,17 @@ class _DenseAggState:
         for a, _ in self.exec.aggs:
             f = a.func
             if f in ("count", "count_star"):
-                self.vals[fi].index_add_(0, idx, planes[pi])
+                S.add_at_(self.vals[fi], idx, planes[pi])
                 fi, pi = fi + 1, pi + 1
                 continue
             if f in ("sum", "avg"):
-                self.vals[fi].index_add_(0, idx, planes[pi])
+                S.add_at_(self.vals[fi], idx, planes[pi])
             else:
                 self.vals[fi].scatter_reduce_(0, idx, planes[pi], "amin" if f == "min" else "amax")
             self.valids[fi].scatter_reduce_(0, idx, planes[pi + 1], "amax")
             fi, pi = fi + 1, pi + 2
             if f == "avg":
-                self.vals[fi].index_add_(0, idx, planes[pi])
+                S.add_at_(self.vals[fi], idx, planes[pi])
                 fi, pi = fi + 1, pi + 1
 
     def state_batch(self) -> Batch | None:

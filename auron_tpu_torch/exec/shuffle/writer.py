@@ -41,7 +41,8 @@ drops the attempt on any failure): ``exec/shuffle/rss.py`` and
 ``rss_net.py`` give the in-process and the TCP service's clients. It counts
 ``push_time``, ``compress_time`` and the bytes.
 
-Not ported: the ``obs`` spill spans.
+Its spills note their spans through the memory manager and the spill
+containers (``memory/memmgr.py``).
 """
 
 from __future__ import annotations

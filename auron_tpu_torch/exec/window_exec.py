@@ -151,7 +151,7 @@ class _Frame:
     def whole(self, vals: torch.Tensor) -> torch.Tensor:
         """Sum of ``vals`` over the row's partition."""
         tot = torch.zeros(self.cap + 1, dtype=vals.dtype, device=vals.device)
-        tot.index_add_(0, self.seg_ids, vals)
+        S.add_at_(tot, self.seg_ids, vals)
         return tot[self.clip(self.seg_ids)]
 
 

@@ -27,9 +27,12 @@ strings as ENC_DICT), with the shuffle writer's general codec
 compress as the reference's do (``memmgr.py:320-332``); an unavailable
 codec degrades with the shuffle writer's single warning.
 
-Left out against the JAX package: the ``obs`` spans and spill notes
-(``note_spill``, ``_conf_trace_id``), since ``obs/`` is not ported.
-``SPILL_STATS`` counts what the spills park instead.
+Observability as in the JAX package (``memmgr.py:133-207``, ``:300-306``,
+``:330-470``): a consumer's owning span is captured at ``register`` and a
+spill runs under it (``_dispatch_spill``), so a spill another task's
+thread dispatches lands in the owner's trace; the containers' writes and
+demotions note ``obs.note_spill`` with the trace id their conf carries
+(``_conf_trace_id``). ``SPILL_STATS`` counts what the spills park.
 """
 
 from __future__ import annotations
@@ -37,11 +40,13 @@ from __future__ import annotations
 import os
 import tempfile
 import threading
+import time
 from typing import Iterator, Protocol
 
 import numpy as np
 import torch
 
+from auron_tpu_torch import obs
 from auron_tpu_torch.utils.config import (
     HBM_BUDGET_BYTES, HOST_SPILL_BUDGET_BYTES, MEM_WAIT_TIMEOUT_S, MEMORY_FRACTION, active_conf,
 )
@@ -100,6 +105,10 @@ class MemManager:
         self._released = threading.Condition(self._lock)
         self._consumers: list[MemConsumer] = []
         self._spillable: dict[int, bool] = {}
+        # owning span captured at register(): registration happens on the
+        # owning task's thread, so a spill dispatched later by a foreign
+        # thread still attributes to the owner's trace
+        self._owner_spans: dict[int, object] = {}
         self.num_spills = 0
         self.num_waits = 0
         self._wait_timeout = float(conf.get(MEM_WAIT_TIMEOUT_S))
@@ -123,12 +132,14 @@ class MemManager:
         with self._lock:
             self._consumers.append(consumer)
             self._spillable[id(consumer)] = spillable
+            self._owner_spans[id(consumer)] = obs.current_span()
 
     def unregister(self, consumer: MemConsumer) -> None:
         with self._lock:
             if consumer in self._consumers:
                 self._consumers.remove(consumer)
             self._spillable.pop(id(consumer), None)
+            self._owner_spans.pop(id(consumer), None)
             # freed capacity: wake waiters blocked on the managed pool
             self._released.notify_all()
 
@@ -172,6 +183,21 @@ class MemManager:
             _, managed, n = self._pool_state()
             return consumer.mem_used() / max(managed / n, 1)
 
+    def _dispatch_spill(self, consumer: MemConsumer) -> int:
+        """``consumer.spill()`` under the OWNING task's span (captured at
+        register()), never the executing thread's ambient one; an
+        owner-less consumer records untraced."""
+        if obs.core._mode == obs.MODE_OFF:  # keep the no-obs path bare
+            return consumer.spill()
+        sp = self._owner_spans.get(id(consumer))
+        t0 = time.perf_counter_ns()
+        with obs.use_span(sp):
+            freed = consumer.spill()
+        if freed:
+            # freed == 0 attempts are not spills (num_spills skips them too)
+            obs.note_spill(consumer.name, "spill", time.perf_counter_ns() - t0, freed, sp=sp)
+        return freed
+
     def update_mem_used(self, consumer: MemConsumer, old_used: int, new_used: int) -> None:
         """Fair-share growth: past the managed pool or its share a
         spillable consumer spills itself; under its min share (or
@@ -195,7 +221,7 @@ class MemManager:
                 if ok or not spillable:
                     return
         # the spill runs outside the manager lock (it takes the consumer's)
-        if consumer.spill():
+        if self._dispatch_spill(consumer):
             with self._lock:
                 self.num_spills += 1
             self.notify_released()
@@ -224,7 +250,7 @@ class MemManager:
                 continue
             if c is not consumer:
                 _settle_streams()
-            if c.spill():
+            if self._dispatch_spill(c):
                 with self._lock:
                     self.num_spills += 1
         self.notify_released()
@@ -318,6 +344,17 @@ def decode_batches(data: bytes, schema, device) -> Iterator:
         yield Batch(schema, DeviceBatch(sel, tuple(values), tuple(validity)), tuple(dicts))
 
 
+def _conf_trace_id(conf) -> int:
+    """The owning trace id a spill container's conf carries
+    (``obs.trace.id``): the executing thread may be a foreign task's."""
+    if conf is None:
+        return 0
+    try:
+        return int(conf.get(obs.OBS_TRACE_ID))
+    except Exception:  # noqa: BLE001 — a malformed id attributes to no trace
+        return 0
+
+
 class DiskSpill:
     """Disk tier: v2 blocks appended to a ``.spill`` temp file.
 
@@ -336,7 +373,13 @@ class DiskSpill:
         count_spill(disk_bytes=len(blk))
 
     def write_batch(self, b) -> None:
-        self.write_block(encode_batch(b, self._conf))
+        obs_on = obs.core._mode != obs.MODE_OFF
+        t0 = time.perf_counter_ns() if obs_on else 0
+        blk = encode_batch(b, self._conf)
+        self.write_block(blk)
+        if obs_on:
+            obs.note_spill("DiskSpill", "write", time.perf_counter_ns() - t0, len(blk),
+                           trace_id=_conf_trace_id(self._conf))
 
     def read_batches(self, schema, device) -> Iterator:
         with open(self.path, "rb") as f:
@@ -405,22 +448,30 @@ class HostSpill:
         self._lock = threading.Lock()
 
     def write_batch(self, b) -> None:
+        obs_on = obs.core._mode != obs.MODE_OFF
+        t0 = time.perf_counter_ns() if obs_on else 0
         blk = encode_batch(b, self._conf)
         with self._lock:
             if self._disk is not None:
                 self._disk.write_block(blk)
-                return
-            self._blocks.append(blk)
-            self._admitted += len(blk)
-            count_spill(host_bytes=len(blk))
-            # admission under OUR lock: a concurrent demotion of this spill
-            # takes it first, so it always forgets exactly _admitted
-            victims = _host_ledger.admit(self, len(blk), conf=self._conf)
+                victims = []
+            else:
+                self._blocks.append(blk)
+                self._admitted += len(blk)
+                count_spill(host_bytes=len(blk))
+                # admission under OUR lock: a concurrent demotion of this
+                # spill takes it first, so it always forgets exactly _admitted
+                victims = _host_ledger.admit(self, len(blk), conf=self._conf)
+        if obs_on:
+            obs.note_spill("HostSpill", "write", time.perf_counter_ns() - t0, len(blk),
+                           trace_id=_conf_trace_id(self._conf))
         for v in victims:  # outside our lock (lock order spill -> ledger)
             v._demote()
 
     def _demote(self) -> None:
         """Move the resident blocks to disk (ledger pressure)."""
+        obs_on = obs.core._mode != obs.MODE_OFF
+        t0 = time.perf_counter_ns() if obs_on else 0
         with self._lock:
             if self._disk is not None or self._blocks is None:
                 return
@@ -438,6 +489,9 @@ class HostSpill:
             self._disk = disk
         _host_ledger.forget(self, freed)
         count_spill(demotions=1, demoted_bytes=freed)
+        if obs_on:
+            obs.note_spill("HostSpill", "demote", time.perf_counter_ns() - t0, freed,
+                           trace_id=_conf_trace_id(self._conf))
 
     @property
     def demoted(self) -> bool:

@@ -32,8 +32,9 @@ imported at first use only. ``run_gate`` can run a warm-up and several
 timed runs of each query and records, per run, the wall, the driver's
 stage walls and exchange statistics, the rows the exchanges routed, peak
 device memory and the kernels' launches. It writes a golden only when
-asked to update (a missing golden is drift), and records no
-``obs.query_trace`` (``obs/`` is not ported yet).
+asked to update (a missing golden is drift). Each case runs as its own
+``obs.query_trace`` (its spans and events attribute to it, its summary
+lands in the ``/queries`` ring), and the record carries its trace id.
 
 Run ``python -m auron_tpu_torch.models.sqlgate`` for the gate at
 ``sql.gate.sf`` on the card (``AURON_SQL_GATE_DEVICE=cpu`` for the CPU).
@@ -314,21 +315,35 @@ def run_case(case: SqlCase, tables: dict, frames: dict, mesh, catalog, n_parts: 
            "error": None, "rows": None, "compile_s": None, "engine_s": None,
            "oracle_s": None, "warm": None, "runs": []}
     try:
-        t0 = time.perf_counter()
-        lq = compile_text(case.sql, catalog, n_parts=n_parts)
-        rec["compile_s"] = time.perf_counter() - t0
-        drift = check_golden(case.name, plan_text(lq), update=update_goldens)
-        if drift:
-            rec["error"] = drift
-            return rec
-        answers = []
-        if warmup:
-            got, rec["warm"] = _timed_run(lq, tables, mesh, conf, cache)
-            answers.append(got)
-        for _ in range(runs):
-            got, st = _timed_run(lq, tables, mesh, conf, cache)
-            answers.append(got)
-            rec["runs"].append(st)
+        from auron_tpu_torch import obs
+
+        # each corpus query runs as its own query trace: parse/bind/lower
+        # spans + the execution's task/op/read events attribute to it
+        with obs.query_trace(f"sql.{case.name}", conf=Configuration(conf or {})) as qt:
+            run_conf = qt.conf.as_dict() if qt.conf is not None else conf
+            t0 = time.perf_counter()
+            lq = compile_text(case.sql, catalog, n_parts=n_parts)
+            rec["compile_s"] = time.perf_counter() - t0
+            drift = check_golden(case.name, plan_text(lq), update=update_goldens)
+            if drift:
+                rec["error"] = drift
+                # never ran: keep the aborted trace out of /queries
+                qt.keep = False
+                return rec
+            answers = []
+            if warmup:
+                got, rec["warm"] = _timed_run(lq, tables, mesh, run_conf, cache)
+                answers.append(got)
+            for _ in range(runs):
+                got, st = _timed_run(lq, tables, mesh, run_conf, cache)
+                answers.append(got)
+                rec["runs"].append(st)
+        if qt.summary is not None:
+            rec["obs"] = {"trace_id": qt.summary["trace_id"]}
+            if obs.mode() == obs.MODE_TRACE:
+                # event counters only accumulate under full trace mode
+                rec["obs"].update({k: qt.summary[k] for k in
+                                   ("host_syncs", "compiles", "spills")})
         rec["engine_s"] = [st["engine_s"] for st in rec["runs"]]
         want, rec["oracle_s"] = oracle() if oracle is not None else oracle_answer(case, frames)
         rec["rows"] = len(want)

@@ -6,7 +6,9 @@ arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`` into
 directory git ignores). The file name carries a hash of the source and the
 flags, so a changed source rebuilds and an unchanged one loads as is.
 Sources build at first use, or all at once (one nvcc each, started
-together) through ``build_all``. Nothing here runs at import time.
+together) through ``build_all``. Nothing here runs at import time. Each
+nvcc build counts as one ``compiles`` of ``utils/profiling.EngineCounters``
+(its seconds from the build's start, so parallel builds overlap).
 
 ``build_bridge`` builds the C ABI (``csrc/auron_bridge.cpp`` with ``g++``
 into ``libauron_bridge-<sha>.so``) and its stand-in host
@@ -78,6 +80,8 @@ def _finish(name: str, started) -> None:
     if started is None:
         BUILD_SECONDS.setdefault(name, 0.0)
         return
+    from auron_tpu_torch.utils.profiling import note_compile
+
     proc, tmp, out, t0 = started
     log, _ = proc.communicate()
     BUILD_LOG[name] = log
@@ -85,6 +89,8 @@ def _finish(name: str, started) -> None:
         raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{log}")
     os.replace(tmp, out)
     BUILD_SECONDS[name] = time.perf_counter() - t0
+    # a build is one compile of the engine counters (utils/profiling.py)
+    note_compile(BUILD_SECONDS[name], "nvcc_build")
 
 
 def build_all() -> dict[str, float]:

@@ -195,9 +195,34 @@ def seg_any(flags: torch.Tensor, seg_ids: torch.Tensor, cap: int) -> torch.Tenso
     return out.scatter_reduce_(0, seg_ids, flags.to(torch.int32), "amax")[:cap] > 0
 
 
+def fixed_order_sums(idx: torch.Tensor, vals: torch.Tensor, n: int) -> torch.Tensor:
+    """Sums of ``vals`` by index over ``[0, n)``, each index's values added
+    in their order in ``vals``: a stable sort groups equal indices and a
+    segmented reduction adds each group (no atomics, no host read)."""
+    order = torch.argsort(idx, stable=True)
+    lengths = torch.zeros(n, dtype=torch.int64, device=idx.device).index_add_(
+        0, idx, torch.ones_like(idx))
+    return torch.segment_reduce(vals[order], "sum", lengths=lengths, unsafe=True, initial=0)
+
+
+def add_at_(out: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``out[idx] += vals`` in a fixed order, so a query's answer repeats bit
+    for bit (a served query replays against its first answer,
+    ``models/servegate.py``). A float ``index_add_`` on CUDA adds with
+    atomics in no fixed order, so two runs differ in the last bits of a
+    double; floats on the card add ``fixed_order_sums`` instead (the CPU's
+    ``index_add_`` is sequential, and integers add exactly in any order).
+    ``index_put_(..., accumulate=True)`` is deterministic too, but adds
+    each index's run of values in one warp, which serializes a few groups
+    of many rows (a global sum)."""
+    if out.is_cuda and out.dtype.is_floating_point:
+        return out.add_(fixed_order_sums(idx, vals, out.shape[0]))
+    return out.index_add_(0, idx, vals)
+
+
 def seg_sum(vals, valid, seg_ids, cap):
     s = torch.zeros(cap + 1, dtype=vals.dtype, device=vals.device)
-    s.index_add_(0, seg_ids, torch.where(valid, vals, torch.zeros_like(vals)))
+    add_at_(s, seg_ids, torch.where(valid, vals, torch.zeros_like(vals)))
     return s[:cap], seg_any(valid, seg_ids, cap)
 
 

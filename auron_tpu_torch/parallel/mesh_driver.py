@@ -182,7 +182,7 @@ class MeshQueryDriver:
         self.work_dir = work_dir
         self.stats: list[ExchangeStats] = []
         #: wall seconds: "<exchange id>.map_s", "<exchange id>.exchange_s",
-        #: "reduce_s" (each ends in a device synchronize)
+        #: "reduce_s" (each ends in a synchronize of the current stream)
         self.walls: dict[str, float] = {}
         self._exchange_seq = 0
         self._tmp_dirs: list[str] = []
@@ -235,8 +235,11 @@ class MeshQueryDriver:
             release_task_consumers(ctx)
 
     def _sync(self) -> None:
+        """Wait for this run's work: the current stream's, not the whole
+        device's (a query served beside others runs on a stream of its own,
+        ``serve/server.py``, and must not wait for theirs)."""
         if self.mesh.device.type == "cuda":
-            torch.cuda.synchronize(self.mesh.device)
+            torch.cuda.current_stream(self.mesh.device).synchronize()
 
     def _cleanup_tmp(self) -> None:
         for d in self._tmp_dirs:

@@ -61,6 +61,7 @@ from typing import Iterator
 
 import torch
 
+from auron_tpu_torch import obs
 from auron_tpu_torch import types as T
 from auron_tpu_torch.columnar.batch import Batch, DeviceBatch, compaction_bucket
 from auron_tpu_torch.exec.base import ExecOperator, ExecutionContext
@@ -323,6 +324,11 @@ class _GraphCache:
         self._evict(n)
 
     def _capture(self, label: str, fn, batch_in: tuple, side_in: tuple) -> _Graph:
+        """Capture ``fn`` into a new graph: one ``compiles`` of the engine
+        counters and one ``compile`` event of the span timeline."""
+        from auron_tpu_torch.utils.profiling import note_compile
+
+        t0 = time.perf_counter()
         g = _Graph()
         g.label = label
         dev = batch_in[0].device
@@ -346,6 +352,7 @@ class _GraphCache:
         static = sum(t.numel() * t.element_size() for t in g.static_in + g.static_side)
         g.nbytes = _pool_segment_bytes(pool) + static
         _count("captures")
+        note_compile(time.perf_counter() - t0, "graph_capture")
         return g
 
 
@@ -853,9 +860,13 @@ class FusedStageExec(ExecOperator):
             nb = self._emit(b, sel, values, validity)
             if attach is not None:
                 setattr(nb, *attach(rest))
+            # the residual (re-wrap, anchor snapshot, payload) stays on the
+            # stage node; the split and the residual go to the span
+            # timeline with the same nanos (exec/metrics.py)
             total = time.perf_counter_ns() - t_all
             node.add("stage_wall", total)
             node.add("elapsed_compute", max(total - dt, 0))
+            obs.note_op(node.name or "FusedStageExec", "elapsed_compute", max(total - dt, 0))
             yield nb
 
 

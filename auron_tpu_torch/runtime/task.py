@@ -19,6 +19,14 @@ stream ends (its end, an error, a cancel), the pump unregisters every
 memory consumer the task's operators registered and releases their spill
 files (``memmgr.release_task_consumers``); ``finalize`` does so again in
 case the pump never got there.
+
+Observability (reference ``task.py:54-115``): the task's session-set obs
+knobs apply before the pump starts (``obs.apply_conf``); the pump runs
+under a task span whose parent is the caller's span and whose trace is
+the one the conf's ``obs.trace.id`` names (the hand-off that keeps a task
+started from another thread attributed to its query); each batch notes
+``note_pump_batch``; ``finalize`` folds the metric tree into that trace.
+The pump's log lines carry the task (``utils/logging.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from typing import Iterator
 
 import torch
 
+from auron_tpu_torch import obs
 from auron_tpu_torch.columnar.arrow_c import HostBatch
 from auron_tpu_torch.columnar.batch import Batch
 from auron_tpu_torch.device import resolve_device
@@ -72,6 +81,14 @@ class TaskRuntime:
             metrics=MetricNode(plan.name), resources=resources or {}, shared=shared,
             device=device,
         )
+        # session-set obs knobs apply BEFORE the pump starts (a task that
+        # carries obs.mode=trace would otherwise race its own mode switch);
+        # the caller's span and the conf-threaded trace follow the pump
+        obs.apply_conf(conf)
+        self._obs_parent = obs.current_span()
+        self._obs_trace = obs.get_trace(conf.get(obs.OBS_TRACE_ID))
+        if self._obs_trace is None and self._obs_parent is not None:
+            self._obs_trace = self._obs_parent.trace
         self._queue: queue.Queue = queue.Queue(maxsize=max(conf.get(TOKIO_EQUIV_PREFETCH_DEPTH), 1))
         self._error: BaseException | None = None
         self._finalized = False
@@ -85,11 +102,22 @@ class TaskRuntime:
         self._thread.start()
 
     def _pump(self) -> None:
+        from auron_tpu_torch.utils.logging import clear_task_context, set_task_context
+        from auron_tpu_torch.utils.profiling import EngineCounters
+
         try:
+            set_task_context(self.ctx.stage_id, self.ctx.partition_id)
             with conf_scope(self.ctx.conf), (torch.cuda.stream(self._stream)
                                              if self._stream is not None
-                                             else contextlib.nullcontext()):
+                                             else contextlib.nullcontext()), obs.span(
+                    f"task s{self.ctx.stage_id}p{self.ctx.partition_id}", cat="task",
+                    parent=self._obs_parent, trace=self._obs_trace,
+                    arg={"stage": self.ctx.stage_id, "partition": self.ctx.partition_id}):
+                counters = EngineCounters._installed
                 for batch in self.plan.execute(self.ctx.partition_id, self.ctx):
+                    if counters is not None:
+                        counters.note_batch()
+                    obs.note_pump_batch()
                     if self._host_prefetch:
                         batch.prefetch_host()
                     self._queue.put(batch)
@@ -98,6 +126,7 @@ class TaskRuntime:
         except BaseException as e:  # noqa: BLE001 — relayed to the consumer
             self._error = e
         finally:
+            clear_task_context()
             release_task_consumers(self.ctx)
             self._queue.put(_END)
 
@@ -157,6 +186,9 @@ class TaskRuntime:
             snap["fusion"] = fused  # plan-time: segments fused, left eager by reason
         if self.plan_info is not None:
             snap["task"] = dict(self.plan_info)  # bytes, decode and planning seconds
+        if self._obs_trace is not None:
+            # the metric half of the span-vs-metrics cross-check
+            self._obs_trace.add_task_metrics(snap)
         return snap
 
 

@@ -24,15 +24,26 @@ the window behind the host, which a slower device or a busy host decides,
 not the code), ``drain_waits`` (an end-of-stream harvest that had to wait
 for the stream's last batches) and ``blocking_reads`` (the reads the code
 chose to block on: ``blocking_read``, the callers' seed and repair reads).
+
+These are the port's read points for ``utils/profiling.EngineCounters``
+and the span timeline: a blocking read and a harvest that waited are host
+syncs, a harvest that did not wait an async read. ``push`` captures the
+pushing thread's span and a harvest installs it, so a harvest run on
+another thread (a drain on a spill thread) attributes to the owning
+task's trace (``obs.note_transfer_start``, ``note_harvest``).
 """
 
 from __future__ import annotations
 
+import time
 from collections import deque
 from typing import Any, Iterator
 
 import numpy as np
 import torch
+
+from auron_tpu_torch import obs
+from auron_tpu_torch.utils.profiling import note_read
 
 
 class HostTransfer:
@@ -48,6 +59,7 @@ class HostTransfer:
 def start_host_transfer(*tensors: torch.Tensor) -> HostTransfer:
     """Start non-blocking copies of the CUDA tensors into pinned host
     memory, under one event; CPU tensors pass through uncopied."""
+    obs.note_transfer_start(len(tensors))
     cuda = [t for t in tensors if t.device.type == "cuda"]
     if not cuda:
         return HostTransfer(tuple(tensors), None)
@@ -69,20 +81,28 @@ def harvest(tr: HostTransfer, metrics=None, waited_counter: str = "waited_reads"
     """Resolve a started transfer to host numpy values. Counts one
     ``async_reads`` when its event had completed (or nothing was copied),
     else one ``waited_counter`` after waiting on the event."""
+    t0 = time.perf_counter_ns()
     waited = tr.event is not None and not tr.event.query()
     if waited:
         tr.event.synchronize()
     if metrics is not None:
         metrics.add(waited_counter if waited else "async_reads", 1)
-    return tuple(h.numpy() for h in tr.host)
+    out = tuple(h.numpy() for h in tr.host)
+    dt = time.perf_counter_ns() - t0
+    note_read(dt / 1e9, is_async=not waited)
+    obs.note_harvest(len(out), dt)
+    return out
 
 
 def blocking_read(metrics, *tensors: torch.Tensor) -> tuple[np.ndarray, ...]:
     """A read that the caller waits for at once (a seed or a repair read):
-    counted in ``blocking_reads``."""
+    counted in ``blocking_reads``, and a host sync of the engine counters."""
     if metrics is not None:
         metrics.add("blocking_reads", 1)
-    return tuple(t.cpu().numpy() for t in tensors)
+    t0 = time.perf_counter()
+    out = tuple(t.cpu().numpy() for t in tensors)
+    note_read(time.perf_counter() - t0, is_async=False)
+    return out
 
 
 def tensor_bytes(*items) -> int:
@@ -117,7 +137,10 @@ class TransferWindow:
         return len(self._q)
 
     def push(self, tensors: tuple, payload: Any, nbytes: int = 0) -> list[tuple[tuple, Any]]:
-        self._q.append((start_host_transfer(*tensors), payload, nbytes))
+        # the pushing thread's span (mode off keeps this path bare): the
+        # harvest may run on whichever thread drains
+        sp = obs.current_span() if obs.core._mode != obs.MODE_OFF else None
+        self._q.append((start_host_transfer(*tensors), payload, nbytes, sp))
         self.nbytes += nbytes
         out = []
         while len(self._q) > self.depth:
@@ -125,9 +148,12 @@ class TransferWindow:
         return out
 
     def _pop(self, waited_counter: str) -> tuple[tuple, Any]:
-        tr, payload, nbytes = self._q.popleft()
+        tr, payload, nbytes, sp = self._q.popleft()
         self.nbytes -= nbytes
-        return harvest(tr, self.metrics, waited_counter), payload
+        if obs.core._mode == obs.MODE_OFF:
+            return harvest(tr, self.metrics, waited_counter), payload
+        with obs.use_span(sp):
+            return harvest(tr, self.metrics, waited_counter), payload
 
     def drain(self) -> Iterator[tuple[tuple, Any]]:
         while self._q:

@@ -40,8 +40,11 @@ def compile_text(sql: str, catalog: Catalog | None = None,
     """Parse + bind + lower one SQL text. Diagnostics carry the text."""
     from auron_tpu_torch.sql.diagnostics import SqlDiagnostic as _D
 
+    from auron_tpu_torch import obs
+
     cat = catalog if catalog is not None else tpcds_catalog()
-    ast = parse(sql)
+    with obs.span("sql.parse", cat="sql"):
+        ast = parse(sql)
     try:
         return lower(ast, cat, n_parts=n_parts)
     except _D as e:

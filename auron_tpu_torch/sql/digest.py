@@ -26,7 +26,7 @@ and PYTHONHASHSEED values (sha256 over the canonical byte string, no
 dict iteration anywhere).
 
 Copied from ``auron_tpu/sql/digest.py`` over the port's config options;
-only the imports differ. The serving layer it names is not ported yet.
+only the imports differ. The serving layer it names is ``serve/``.
 """
 
 from __future__ import annotations

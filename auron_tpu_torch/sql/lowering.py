@@ -40,9 +40,8 @@ functions of position.
 Port of ``auron_tpu/sql/lowering.py``: the plans are the port's own
 builders' messages (``plan/builders.py`` over ``proto/wire.py``, no
 ``google.protobuf``), and ``_inter_schema`` builds the aggregate through
-the port's planner, which allocates nothing on a device. The reference's
-``obs.span`` around binding and lowering is left out: ``obs/`` is not
-ported yet (ROADMAP item 6c), as in ``memory/memmgr.py``.
+the port's planner, which allocates nothing on a device. Binding and
+lowering run under the ``sql.bind`` and ``sql.lower`` spans.
 """
 
 from __future__ import annotations
@@ -107,7 +106,10 @@ class LoweredQuery:
 def lower(query: A.Query, catalog: Catalog, n_parts: int = 2) -> LoweredQuery:
     """Lower one parsed query against a catalog. Raises SqlUnsupported /
     SqlAnalysisError (both positioned) instead of approximating."""
-    return _Lowering(catalog, n_parts).lower_top(query)
+    from auron_tpu_torch import obs
+
+    with obs.span("sql.lower", cat="sql"):
+        return _Lowering(catalog, n_parts).lower_top(query)
 
 
 # ---------------------------------------------------------------------------
@@ -454,16 +456,19 @@ class _Lowering:
         if not sel.from_:
             raise SqlUnsupported("select without FROM",
                                  "constant queries", sel.pos)
+        from auron_tpu_torch import obs
+
         scope = Scope(outer=outer)
         elems: list[_Elem] = []
         items: list[list[_Elem]] = []  # per top-level FROM item
-        for item_ref in sel.from_:
-            group: list[_Elem] = []
-            for rel, kind, on in self._flatten_ref(item_ref):
-                e = self._register(rel, kind, on, scope, len(elems), ctes)
-                elems.append(e)
-                group.append(e)
-            items.append(group)
+        with obs.span("sql.bind", cat="sql"):
+            for item_ref in sel.from_:
+                group: list[_Elem] = []
+                for rel, kind, on in self._flatten_ref(item_ref):
+                    e = self._register(rel, kind, on, scope, len(elems), ctes)
+                    elems.append(e)
+                    group.append(e)
+                items.append(group)
         if est_out is not None:
             est_out[0] = max([est_out[0]] + [e.est for e in elems])
 

@@ -81,8 +81,22 @@ class Configuration:
             return opt.parse(os.environ[env_key])
         return opt.default
 
+    def has(self, opt: ConfigOption[T] | str, include_env: bool = True) -> bool:
+        """True when the option is set explicitly: in the session, or in
+        the env unless ``include_env=False`` (per-task appliers of
+        process-wide state, ``obs.apply_conf``: an env value took effect
+        at import, and re-asserting it per task would clobber a later
+        programmatic change)."""
+        key = opt if isinstance(opt, str) else opt.key
+        if key in self._values:
+            return True
+        return include_env and env_key_for(key) in os.environ
+
     def copy(self) -> "Configuration":
         return Configuration(self._values)
+
+    def as_dict(self) -> dict[str, Any]:
+        return dict(self._values)
 
     def keys(self) -> list[str]:
         """The keys the session set (not defaults or env)."""
@@ -434,3 +448,43 @@ SQL_GATE_FLOAT_REL = float_conf(
     "relative float tolerance of the SQL gate's row comparator "
     "(models/compare.py; the ULP term is fixed at 4)",
 )
+SERVE_MAX_CONCURRENT = int_conf(
+    "serve.admission.max.concurrent", 4, "serve",
+    "queries the SQL server executes simultaneously; arrivals beyond it "
+    "QUEUE (admission control) instead of piling onto the executor pool. "
+    "On the card each admitted query runs on its own CUDA stream, so the "
+    "limit shapes memory pressure and host-thread contention",
+)
+SERVE_QUEUE_TIMEOUT_S = float_conf(
+    "serve.admission.queue.timeout.seconds", 60.0, "serve",
+    "longest a query waits in the admission queue (for a concurrency "
+    "slot or for memory headroom) before the server answers busy — the "
+    "queue-don't-die escape hatch's bound",
+)
+SERVE_ADMIT_MEM_FRACTION = float_conf(
+    "serve.admission.memory.fraction", 0.9, "serve",
+    "memory-manager-aware backpressure: a query waits in the admission "
+    "queue while consumer usage exceeds this fraction of the manager's "
+    "budget. Admitted queries past the threshold still run — the memory "
+    "manager degrades them to spilling per its per-query fair shares — "
+    "but new work queues instead of deepening the overcommit",
+)
+SERVE_PLAN_CACHE_ENTRIES = int_conf(
+    "serve.plan.cache.entries", 256, "serve",
+    "bounded size of the plan-digest-keyed compiled-plan cache "
+    "(serve/cache.py): a hit skips parse->bind->lower and re-enters the "
+    "fusion stage cache with zero new graph captures; least-recently-used "
+    "entries evict past the bound",
+)
+SERVE_GATE_SF = float_conf(
+    "serve.gate.sf", 1.0, "serve",
+    "scale factor of the concurrency differential gate "
+    "(models/servegate.py). tier-1 overrides it to a toy scale (the tests "
+    "gate bit-identity and zero-capture replay, not throughput)",
+)
+SERVE_GATE_CLIENTS = int_conf(
+    "serve.gate.clients", 8, "serve",
+    "concurrent clients the differential gate replays the corpus with "
+    "(each client replays every corpus query once)",
+)
+NATIVE_LOG_LEVEL = str_conf("log.level", "info", "runtime", "engine log level (conf.rs:64)")

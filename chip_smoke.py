@@ -16,6 +16,7 @@
     python3 chip_smoke.py --collect-only  # phases 1, 2 and 21 only
     python3 chip_smoke.py --udf-shuffle-only  # phases 1, 2 and 22 only
     python3 chip_smoke.py --sql-only  # phases 1, 2 and 23 only
+    python3 chip_smoke.py --serve-only  # phases 1, 2 and 24 only
 
 Phases, in order, none of them caught — any failure exits non-zero:
 
@@ -344,8 +345,32 @@ Phases, in order, none of them caught — any failure exits non-zero:
    through the plain network on the card once more, bit for bit. One line
    a query: compile, engine and oracle seconds, rows, shuffle bytes (rows
    routed times their width), peak device memory, K1-K4 launches;
-24. print the kernel table as one JSON line (each kernel's launches summed
-   over the timed runs of phases 4-23, and per run), then the status line.
+24. serving (``auron_tpu_torch/serve/``, ``obs/``, ``utils/httpsvc.py``,
+   ``models/servegate.py``): a ``SqlServer`` on the card at P = 2 with the
+   reference's admission defaults (4 queries at once, each on a CUDA
+   stream of its own) over phase 23's tables, and the HTTP service on a
+   loopback port. The concurrency gate's three legs over the 24 texts:
+   warm, serial replay, clients at rotated offsets (2 in the whole
+   script, so that it ends inside its limit; 8 on 4 slots, the
+   reference's default, under ``--serve-only``); every warm answer equal
+   to phase 23's oracle, every later
+   answer bit-identical to the warm one, no graph capture or kernel build
+   in legs 2-3, a distinct trace id per query, each query's K1-K4
+   launches in the serial leg equal to phase 23's timed run and the
+   concurrent leg's total the clients times the serial pass's. Then over one
+   keep-alive connection POST /sql of q3, q46 and q65 (rows equal to the
+   served answers) and of q53 and a denied conf key (400 each), while a
+   client serves queries: /healthz, /metrics, /metrics.prom, /trace?last=5,
+   /queries and /serve answer 200 with parseable bodies. Then one serial
+   corpus pass with ``obs.mode`` off and one with the recorder, twice,
+   alternating (walls printed, no gate). Printed: each leg's seconds,
+   queries/s, p50 and p99, the concurrent/serial ratio beside the
+   reference's 2.0, admission and plan-cache stats, the engine counters,
+   peak device memory, the launches and the trace events recorded.
+   ``--serve-only`` builds the tables, frames, oracles and phase 23's
+   per-query launches (one warm-up and one timed run each) itself;
+25. print the kernel table as one JSON line (each kernel's launches summed
+   over the timed runs of phases 4-24, and per run), then the status line.
 
 Each phase prints its seconds.
 
@@ -359,8 +384,8 @@ Needs no network and no protobuf (phases 18 and 19 fail if
 google.protobuf was loaded, 19 also if pyarrow was); the file shuffles'
 default lz4 codec (phases 5, 8, 10, 12, 20, 21 and 22) is pyarrow's
 ``pa.Codec``, phase 20 needs pyarrow (with ``pyarrow.orc``), phase 21
-pyarrow for its read-back, phase 23 pandas for its oracles and pyarrow for
-the answers' frames; phases 18 and 19 run with the codec off and
+pyarrow for its read-back, phases 23 and 24 pandas for their oracles and
+pyarrow for the answers' frames; phases 18 and 19 run with the codec off and
 pyarrow blocked; imports nothing of the JAX package. Exits with
 code 2 when no CUDA device is visible.
 Detailed results also go to chiprun_out/chip_smoke.json.
@@ -4068,6 +4093,254 @@ def run_sql_phase(data, seed: int, kernels_checked: bool) -> dict:
     k2 = [n for n, r in out["queries"].items() if r["runs"][-1]["launches"]["partition_histogram"]]
     assert len(k2) == 21, f"K2 launched on {len(k2)} of the SQL plans, not 21: {k2}"
     del cache
+    return out, {"tables": tables, "frames": frames, "oracles": oracles}
+
+
+#: phase 24 under ``--serve-only``: the gate's concurrent clients (the
+#: reference's ``serve.gate.clients`` default: 8 clients queue on 4
+#: admission slots)
+SERVE_CLIENTS = 8
+#: phase 24 in the whole script: fewer clients, every one replaying all 24
+#: queries, so the script ends inside its time limit (8 clients took 198 s
+#: of concurrent leg on an H100, PERF.md §6)
+SERVE_CLIENTS_IN_SCRIPT = 2
+#: phase 24: the queries POST /sql sends over one keep-alive connection
+SERVE_HTTP_QUERIES = ("q3", "q46", "q65")
+
+
+def _sql_reference(data, seed: int) -> tuple[dict, dict]:
+    """``--serve-only``: phase 23's inputs and per-query launches without
+    phase 23: the tables, frames and oracles (four threads beside the
+    warm-ups), then one timed run of each query after its warm-up."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from auron_tpu_torch.models import sqlgate
+    from auron_tpu_torch.sql.catalog import build_tables, frames_of
+
+    check_partition_kernel(seed)
+    check_histogram_kernel(seed)
+    tables = build_tables(data, seed=seed)
+    frames = frames_of(tables)
+    names = [c.name for c in sqlgate.CASES]
+    cache: dict = {}
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        pending = {n: pool.submit(sqlgate.oracle_answer, sqlgate.case_by_name(n), frames)
+                   for n in names}
+        for name in names:
+            rec, = sqlgate.run_gate(names=[name], device="cuda", tables=tables, frames=frames,
+                                    cache=cache, runs=0, warmup=True,
+                                    oracles={name: pending[name].result})
+            assert rec["ok"], (name, rec["error"])
+        oracles = {n: f.result() for n, f in pending.items()}
+    queries = {}
+    for name in names:
+        rec, = sqlgate.run_gate(names=[name], device="cuda", tables=tables, frames=frames,
+                                cache=cache, runs=1,
+                                oracles={name: lambda n=name: oracles[n]})
+        assert rec["ok"], (name, rec["error"])
+        queries[name] = rec
+    del cache
+    return {"queries": queries}, {"tables": tables, "frames": frames, "oracles": oracles}
+
+
+def _http(conn, method: str, path: str, body=None) -> tuple[int, bytes]:
+    conn.request(method, path, body=None if body is None else json.dumps(body),
+                 headers={"Content-Type": "application/json"} if body is not None else {})
+    r = conn.getresponse()
+    return r.status, r.read()
+
+
+def _serve_http_leg(port: int, answers: dict, text53: str) -> dict:
+    """POST /sql over one keep-alive connection: q3, q46 and q65 (rows equal
+    to the served answers, which equal their oracles), q53 and a denied conf
+    key (400 each); then, while a client serves queries over another
+    connection, every observability endpoint answers 200 with a parseable
+    body."""
+    import http.client
+    import threading
+
+    from auron_tpu_torch.models import sqlgate
+    from auron_tpu_torch.serve.server import _json_rows
+
+    out: dict = {"sql": {}}
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        for name in SERVE_HTTP_QUERIES:
+            t0 = time.perf_counter()
+            code, body = _http(conn, "POST", "/sql", {"sql": sqlgate.case_by_name(name).sql,
+                                                      "tenant": "http"})
+            wall = time.perf_counter() - t0
+            assert code == 200, (name, code, body[:300])
+            resp = json.loads(body)
+            assert resp["cache_hit"], name
+            assert resp["columns"] == list(answers[name].columns), name
+            assert resp["rows"] == _json_rows(answers[name]), f"POST /sql {name}: rows differ"
+            out["sql"][name] = {"wall_s": wall, "rows": len(resp["rows"]),
+                                "trace_id": resp["trace_id"]}
+        sock = conn.sock
+        code, body = _http(conn, "POST", "/sql", {"sql": text53})
+        assert code == 400 and "error" in json.loads(body), (code, body[:300])
+        code, body = _http(conn, "POST", "/sql", {"sql": sqlgate.case_by_name("q3").sql,
+                                                  "conf": {"obs.mode": "off"}})
+        assert code == 400 and "not session-settable" in json.loads(body)["error"], body
+        assert conn.sock is sock, "the keep-alive connection was not reused"
+    finally:
+        conn.close()
+
+    stop = threading.Event()
+    served: list = []
+    errors: list = []
+
+    def client():
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            i = 0
+            while not stop.is_set():
+                name = SERVE_HTTP_QUERIES[i % len(SERVE_HTTP_QUERIES)]
+                code, body = _http(c, "POST", "/sql", {"sql": sqlgate.case_by_name(name).sql,
+                                                       "tenant": "background"})
+                if code != 200:
+                    errors.append((name, code, body[:300]))
+                served.append(name)
+                i += 1
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+        finally:
+            c.close()
+
+    t = threading.Thread(target=client, daemon=True)
+    t.start()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    gets = {}
+    try:
+        while not served and t.is_alive():  # a query is in flight from here on
+            time.sleep(0.01)
+        for path in ("/healthz", "/metrics", "/metrics.prom", "/trace?last=5", "/queries",
+                     "/serve"):
+            t0 = time.perf_counter()
+            code, body = _http(conn, "GET", path)
+            assert code == 200, (path, code, body[:300])
+            if path == "/healthz":
+                assert body == b"ok\n"
+            elif path == "/metrics.prom":
+                text = body.decode()
+                assert "auron_engine_compiles_total" in text and "# TYPE" in text, text[:300]
+            else:
+                payload = json.loads(body)
+                if path.startswith("/trace"):
+                    assert payload["traceEvents"], "no recent trace events"
+            gets[path] = {"wall_s": time.perf_counter() - t0, "bytes": len(body)}
+    finally:
+        conn.close()
+        stop.set()
+        t.join(600)
+    assert not errors, errors
+    out["gets"] = gets
+    out["background_queries"] = len(served)
+    return out
+
+
+def _serial_pass_s(server, names: list) -> float:
+    from auron_tpu_torch.models import sqlgate
+
+    t0 = time.perf_counter()
+    for name in names:
+        server.submit(sqlgate.case_by_name(name).sql, tenant="ab")
+    return time.perf_counter() - t0
+
+
+def run_serve_phase(data, sf: float, seed: int, clients: int, sql: dict | None = None,
+                    shared: dict | None = None) -> dict:
+    """Phase 24: the SQL corpus served (``serve/``, ``models/servegate.py``)
+    over phase 23's tables (``sql``/``shared``; else built here, with one
+    warm-up and one timed run of each query for the launches). A
+    ``SqlServer`` on the card at P = 2 with the admission defaults and the
+    HTTP service on loopback; the gate's three legs with ``clients``
+    clients and no speedup floor; the HTTP leg; the recorder A/B."""
+    import torch
+
+    from auron_tpu_torch import obs
+    from auron_tpu_torch.models import servegate, sqlgate
+    from auron_tpu_torch.models.compare import compare_frames
+    from auron_tpu_torch.obs import core as obs_core
+    from auron_tpu_torch.serve import SqlServer
+    from auron_tpu_torch.utils import httpsvc
+    from auron_tpu_torch.utils.profiling import EngineCounters
+
+    if sql is None:
+        sql, shared = _sql_reference(data, seed)
+    names = [c.name for c in sqlgate.CASES]
+    counters = EngineCounters.install()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = SqlServer(sqlgate.gate_catalog(), shared["tables"], n_parts=2, device="cuda")
+    port = httpsvc.start(0)
+    httpsvc.install_sql_server(server)
+    print(f"phase 24: SqlServer on {server.device} at P = {server.n_parts}, admission "
+          f"{server.admission.max_concurrent} at once, HTTP service on 127.0.0.1:{port} "
+          f"(obs mode {obs.mode_name()})", flush=True)
+    out: dict = {"clients": clients}
+    try:
+        answers: dict = {}
+        rec = servegate.run_gate(sf=sf, clients=clients, names=names, server=server,
+                                 min_speedup=0.0, answers=answers)
+        out["gate"] = rec
+        assert rec["ok"], rec["failures"]
+        assert rec["queries"] == 24 and rec["trace_ids"] == 24 * (1 + clients), rec
+        for name in names:
+            want = shared["oracles"][name][0]
+            err = compare_frames(answers[name], want, 1e-6, sorted_rows=True)
+            assert err is None, (name, err)
+            got, ref = rec["launches"]["serial"][name], sql["queries"][name]["runs"][-1]["launches"]
+            assert got == ref, f"serve {name}: serial-leg launches {got} != phase 23's {ref}"
+        serial_total = {k: sum(q[k] for q in rec["launches"]["serial"].values())
+                        for k in rec["launches"]["concurrent"]}
+        assert rec["launches"]["concurrent"] == {k: clients * v
+                                                 for k, v in serial_total.items()}, \
+            (rec["launches"]["concurrent"], serial_total)
+        reached = rec["speedup"] >= 2.0
+        for leg in ("serial", "concurrent"):
+            print(f"serve {leg}: {rec[leg + '_s']:.3f} s, {rec[leg + '_qps']:.3f} queries/s, "
+                  f"p50 {rec[leg]['p50_ms']} ms, p99 {rec[leg]['p99_ms']} ms", flush=True)
+        print(f"serve warm: {rec['warm_s']:.3f} s for 24 queries; concurrent/serial "
+              f"{rec['speedup']:.3f}x against the reference's 2.0x: "
+              f"{'met' if reached else 'not met'} (not a gate here)", flush=True)
+        print(f"serve launches: serial pass {serial_total}, {clients} clients "
+              f"{rec['launches']['concurrent']}; compiles in legs 2-3: "
+              f"{rec['replay_compiles']} / {rec['concurrent_compiles']}", flush=True)
+        out["http"] = _serve_http_leg(port, answers, sqlgate.UNSUPPORTED["q53"][0])
+        print(f"serve http: POST /sql "
+              + ", ".join(f"{n} {v['wall_s']:.4f} s ({v['rows']} rows)"
+                          for n, v in out["http"]["sql"].items())
+              + "; q53 and obs.mode 400; GETs "
+              + ", ".join(f"{p} {v['wall_s']:.4f} s ({v['bytes']:,} B)"
+                          for p, v in out["http"]["gets"].items())
+              + f" while {out['http']['background_queries']} queries were served", flush=True)
+        prev = obs.mode_name()
+        ab = {"off": [], "recorder": []}
+        try:
+            for mode in ("off", "recorder", "off", "recorder"):
+                obs.set_mode(mode)
+                ab[mode].append(_serial_pass_s(server, names))
+        finally:
+            obs.set_mode(prev)
+        out["recorder_ab"] = ab
+        print(f"serve recorder A/B (serial corpus passes, alternating): off "
+              f"{ab['off'][0]:.4f} / {ab['off'][1]:.4f} s, recorder {ab['recorder'][0]:.4f} / "
+              f"{ab['recorder'][1]:.4f} s", flush=True)
+    finally:
+        httpsvc.stop()
+    out["stats"] = server.stats()
+    out["counters"] = counters.snapshot()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["trace_events"] = sum(len(evs) for _, evs in obs_core.snapshot_events())
+    out["launches"] = rec["launches"]
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"serve stats: {json.dumps(out['stats'])}", flush=True)
+    print(f"serve engine counters: {json.dumps(out['counters'])}", flush=True)
+    print(f"serve peak device memory {out['peak_bytes'] / 2**30:.3f} GiB, "
+          f"{out['trace_events']:,} trace events in the recorder's rings", flush=True)
     return out
 
 
@@ -4121,6 +4394,8 @@ def main(argv=None) -> int:
                     help="run phases 1, 2 and 22 only (no kernel table, no status line)")
     ap.add_argument("--sql-only", action="store_true",
                     help="run phases 1, 2 and 23 only (no kernel table, no status line)")
+    ap.add_argument("--serve-only", action="store_true",
+                    help="run phases 1, 2 and 24 only (no kernel table, no status line)")
     ap.add_argument("--time-sorts", action="store_true",
                     help="only build and time the bitonic kernels at the sort shapes "
                          "(one JSON line, no status line)")
@@ -4269,11 +4544,21 @@ def main(argv=None) -> int:
 
     if args.sql_only:
         data = tpcds.generate(args.sf, args.seed)
-        sql = run_sql_phase(data, args.seed, kernels_checked=False)
+        sql, _ = run_sql_phase(data, args.seed, kernels_checked=False)
         phase_done("23")
         os.makedirs(os.path.join(REPO_DIR, "chiprun_out"), exist_ok=True)
         with open(os.path.join(REPO_DIR, "chiprun_out", "chip_smoke_sql.json"), "w") as f:
             json.dump({"device": kind, "nvidia_smi": smi, "sql": sql, "phase_s": phase_s},
+                      f, indent=1, default=str)
+        return 0
+
+    if args.serve_only:
+        data = tpcds.generate(args.sf, args.seed)
+        serve = run_serve_phase(data, args.sf, args.seed, SERVE_CLIENTS)
+        phase_done("24")
+        os.makedirs(os.path.join(REPO_DIR, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(REPO_DIR, "chiprun_out", "chip_smoke_serve.json"), "w") as f:
+            json.dump({"device": kind, "nvidia_smi": smi, "serve": serve, "phase_s": phase_s},
                       f, indent=1, default=str)
         return 0
 
@@ -4434,8 +4719,15 @@ def main(argv=None) -> int:
 
     # 23. the SQL front end: the gate's 24 TPC-DS texts compiled to plan IR
     # and run through the planned-exchange driver and a collect task
-    sql = run_sql_phase(data, args.seed, kernels_checked=True)
+    sql, sql_shared = run_sql_phase(data, args.seed, kernels_checked=True)
     phase_done("23")
+
+    # 24. serving: the 24 corpus texts served to concurrent clients and
+    # over POST /sql, each query under its own trace
+    serve = run_serve_phase(data, args.sf, args.seed, SERVE_CLIENTS_IN_SCRIPT, sql=sql,
+                            shared=sql_shared)
+    del sql_shared
+    phase_done("24")
 
     # 24. every kernel sort and run merge of the main paths, held against the
     # plain network on the card at its own operands
@@ -4501,7 +4793,9 @@ def main(argv=None) -> int:
              "sorted write": files["sorted write"]["launches"],
              **{f"basket run {i}": r["launches"] for i, r in enumerate(basket["runs"])},
              **{label: r["launches"] for label, r in udf_shuffle.items()},
-             **{f"sql {name}": r["runs"][-1]["launches"] for name, r in sql["queries"].items()}}
+             **{f"sql {name}": r["runs"][-1]["launches"] for name, r in sql["queries"].items()},
+             **{f"serve {name} (serial)": v for name, v in serve["launches"]["serial"].items()},
+             f"serve ({serve['clients']} clients)": serve["launches"]["concurrent"]}
     kernels = []
     for name, source, replaces in (
         ("bitonic_sort", "auron_tpu_torch/csrc/bitonic.cu", "auron_tpu/ops/bitonic.py:145"),
@@ -4532,9 +4826,9 @@ def main(argv=None) -> int:
                    "join_tail_sweep": sweep, "predictor_ab": ab, "decimal": decimal,
                    "fusion": fused, "generate": gen, "bridge": bridge, "plan_ir": plan_ir,
                    "convert": convert, "files": files, "basket": basket,
-                   "udf_shuffle": udf_shuffle, "sql": sql, "phase_s": phase_s,
+                   "udf_shuffle": udf_shuffle, "sql": sql, "serve": serve, "phase_s": phase_s,
                    "kernels": kernels}, f, indent=1, default=str)
-    phase_done("24")
+    phase_done("25")
     report_graph_cache()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1532,3 +1532,77 @@ def test_sql_gate_on_card_equals_its_oracles_and_launches_k2():
         run, = rec["runs"]
         assert run["launches"]["partition_histogram"] == 2, (rec["query"], run["launches"])
         assert run["peak_bytes"] > 0 and run["walls"]["reduce_s"] > 0
+
+
+@pytest.mark.cuda
+def test_sql_server_on_card_answers_twice_bit_identically_without_new_compiles():
+    """A SqlServer on cuda answers q3 and q65 twice: each answer equals its
+    oracle, the second is bit-identical to the first with zero new graph
+    captures or kernel builds (a plan-cache hit), and the K1 and K2
+    launches of the two runs match."""
+    _need_card()
+    from auron_tpu_torch.models import servegate, sqlgate
+    from auron_tpu_torch.models.compare import compare_frames
+    from auron_tpu_torch.serve import SqlServer
+    from auron_tpu_torch.sql.catalog import frames_of
+    from auron_tpu_torch.utils.profiling import EngineCounters
+
+    counters = EngineCounters.install()
+    tables = sqlgate.gate_tables(0.05)
+    frames = frames_of(tables)
+    srv = SqlServer(sqlgate.gate_catalog(), tables, n_parts=2, device="cuda")
+    for name in ("q3", "q65"):
+        case = sqlgate.case_by_name(name)
+        runs = []
+        for _ in range(2):
+            before, compiles = sqlgate._launches(), counters.compiles
+            df, rec = srv.submit(case.sql, tenant="cuda")
+            launches = {k: v - before[k] for k, v in sqlgate._launches().items()}
+            runs.append((df, rec, launches, counters.compiles - compiles))
+        (df1, rec1, l1, _), (df2, rec2, l2, new) = runs
+        want, _ = sqlgate.oracle_answer(case, frames)
+        assert compare_frames(df1, want, 1e-6, sorted_rows=True) is None, name
+        assert not rec1["cache_hit"] and rec2["cache_hit"]
+        assert servegate._frames_identical(df1, df2), name
+        assert new == 0, (name, new)
+        assert l2["partition_histogram"] > 0, (name, l2)
+        assert [l1[k] for k in ("murmur3_pmod", "partition_histogram")] == \
+            [l2[k] for k in ("murmur3_pmod", "partition_histogram")], (name, l1, l2)
+
+
+@pytest.mark.cuda
+def test_servegate_on_card_toy_bit_identity_and_zero_compiles():
+    """The three legs on cuda at SF 0.05 with 3 clients on 4 slots (a
+    stream each): every answer bit-identical to the warm leg, no compile
+    in legs 2-3, distinct trace ids."""
+    _need_card()
+    from auron_tpu_torch.models import servegate, sqlgate
+
+    rec = servegate.run_gate(sf=0.05, clients=3, tables=sqlgate.gate_tables(0.05),
+                             names=["q3", "q96", "q5a", "q65"], min_speedup=0.0,
+                             device="cuda")
+    assert rec["ok"], rec["failures"]
+    assert rec["replay_compiles"] == 0 and rec["concurrent_compiles"] == 0
+    serial = {k: sum(q[k] for q in rec["launches"]["serial"].values())
+              for k in rec["launches"]["concurrent"]}
+    assert rec["launches"]["concurrent"] == {k: 3 * v for k, v in serial.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, 50, 100_000])
+def test_fixed_order_float_sums_repeat_bit_for_bit_on_card(groups):
+    """``segments.add_at_`` on the card: five runs of a float sum by index
+    are bit-identical, within rounding of the float64 sum."""
+    _need_card()
+    from auron_tpu_torch.ops import segments as S
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(groups)
+    n = 1 << 20
+    idx = torch.randint(0, groups, (n,), device="cuda", generator=g)
+    vals = torch.rand(n, device="cuda", dtype=torch.float32, generator=g).double() * 200
+    outs = [S.add_at_(torch.zeros(groups, dtype=torch.float64, device="cuda"), idx, vals)
+            for _ in range(5)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    want = torch.zeros(groups, dtype=torch.float64).index_add_(0, idx.cpu(), vals.cpu())
+    torch.testing.assert_close(outs[0].cpu(), want, rtol=1e-12, atol=1e-6)
