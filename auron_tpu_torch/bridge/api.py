@@ -30,8 +30,9 @@ the functions below; batches cross it as Arrow, without pyarrow
 - ``next_batch_c`` (``auron_next_batch_arrow``): the next batch exported
   into host-allocated ``ArrowArray*`` / ``ArrowSchema*`` structs;
 - ``next_batch_ipc`` (``auron_next_batch``): the next batch as IPC bytes;
-- ``finalize_native_json``, ``remove_resource``, ``set_metrics_sink`` and
-  ``on_exit``.
+- ``finalize_native_json``, ``remove_resource`` (which closes a wire
+  client cached against the resource), ``set_metrics_sink`` and
+  ``on_exit``; ``get_resource`` reads the map.
 
 - ``convert_plan_json`` (``auron_convert_plan``): host-plan JSON to the
   segmentation response of ``convert/service.py``.
@@ -109,9 +110,22 @@ def put_resource_shuffle(key: str, manifest: bytes) -> None:
     put_resource(key, provider_from_manifest(manifest))
 
 
+def get_resource(key: str) -> Any:
+    with _lock:
+        return _resources.get(key)
+
+
 def remove_resource(key: str) -> None:
+    """Drop a resource; an engine-built client cached against it (the
+    kafka wire client under ``<key>.client``) is closed with it."""
     with _lock:
         _resources.pop(key, None)
+        client = _resources.pop(f"{key}.client", None)
+    if client is not None and hasattr(client, "close"):
+        try:
+            client.close()
+        except Exception:  # noqa: BLE001 — removal must not raise
+            pass
 
 
 def convert_plan_json(payload: bytes) -> bytes:

@@ -511,8 +511,9 @@ class Batch:
         with no pyarrow conversion of each column."""
         import ctypes
 
-        import pyarrow as pa
+        from auron_tpu_torch.utils.arrowlib import pyarrow
 
+        pa = pyarrow()
         arr, sch = ArrowArray(), ArrowSchema()
         export_batch(self.to_host_arrow(metrics), ctypes.addressof(arr), ctypes.addressof(sch))
         return pa.RecordBatch._import_from_c(ctypes.addressof(arr), ctypes.addressof(sch))

@@ -1,6 +1,7 @@
 """The general codecs, lz4 (frame format) and zstd, through pyarrow's
 ``pa.Codec`` (the reference's codec layer, ``exec/shuffle/format.py``):
-pyarrow is imported inside each function, so a module of the port imports
+pyarrow is imported inside each function (``utils/arrowlib.pyarrow``: on
+a thread that outlives the task pumps), so a module of the port imports
 nothing of it until a compressed byte is written or read.
 
 Used by the shuffle block format (ENC_CODEC planes, ENC_ARROW columns, v1
@@ -8,6 +9,8 @@ blocks) and by ``columnar/arrow_ipc.py`` for compressed IPC bodies.
 """
 
 from __future__ import annotations
+
+from auron_tpu_torch.utils.arrowlib import pyarrow
 
 #: the shuffle format's codec ids (ENC_CODEC payloads)
 CODEC_IDS = {"lz4": 1, "zstd": 2}
@@ -21,20 +24,14 @@ def available(name: str) -> bool:
     if name not in CODEC_IDS:
         return False
     try:
-        import pyarrow as pa
-
-        return bool(pa.Codec.is_available(name))
+        return bool(pyarrow().Codec.is_available(name))
     except Exception:  # noqa: BLE001 — an unprobeable codec is unavailable
         return False
 
 
 def compress(name: str, raw) -> bytes:
-    import pyarrow as pa
-
-    return pa.Codec(name).compress(raw, asbytes=True)
+    return pyarrow().Codec(name).compress(raw, asbytes=True)
 
 
 def decompress(name: str, data, size: int) -> bytes:
-    import pyarrow as pa
-
-    return pa.Codec(name).decompress(data, decompressed_size=size, asbytes=True)
+    return pyarrow().Codec(name).decompress(data, decompressed_size=size, asbytes=True)

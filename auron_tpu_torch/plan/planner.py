@@ -7,14 +7,13 @@ filter, limit, union,
 expand, rename_columns, empty_partitions, coalesce_batches, debug,
 hash_agg, sort, window, generate, hash_join, sort_merge_join, shuffle_writer and
 rss_shuffle_writer with single/hash/round-robin/range partitioning, ipc_reader,
-mesh_exchange (a
+kafka_scan (``exec/streaming.KafkaScanExec``), mesh_exchange (a
 ``MeshExchangeExec`` stage boundary that
 ``parallel/mesh_driver.MeshQueryDriver`` resolves); column, literal, cast,
 binary, not, is_null, is_not_null, if_expr, case_expr, in_list, coalesce,
 like, scalar_func, host_udf (through ``bridge/udf.py``), spark_partition_id,
 monotonic_id, row_num, scalar_subquery).
-Other variants raise ``NotImplementedError`` naming the variant and the
-ROADMAP item it waits for.
+Other variants raise ``NotImplementedError`` naming the variant.
 
 The exec tree is the JAX package's tree with whole-stage fusion off
 (``exec.fuse.enable=off``), which the JAX package guarantees gives
@@ -339,14 +338,21 @@ def plan_from_proto(p):
         n = p.mesh_exchange
         return MeshExchangeExec(plan_from_proto(n.child), partitioning_from_proto(n.partitioning),
                                 n.exchange_id)
-    if which in _WAITING:
-        raise NotImplementedError(f"plan variant {which} is not in this slice of the port: "
-                                  f"it waits for ROADMAP Queue 1 {_WAITING[which]}")
+    if which == "kafka_scan":
+        from auron_tpu_torch.exec.streaming import KafkaScanExec
+
+        n = p.kafka_scan
+        return KafkaScanExec(
+            schema_from_proto(n.schema), n.topic, n.source_resource_id,
+            startup_mode=n.startup_mode or "earliest",
+            start_offsets={int(k): int(v) for k, v in n.start_offsets.items()},
+            data_format=n.format or "json",
+            on_error=n.on_error or "skip",
+            pb_field_ids=list(n.pb_field_ids) or None,
+            max_batch_records=n.max_batch_records or 8192,
+            zigzag_cols=set(n.zigzag_cols) or None,
+        )
     raise NotImplementedError(f"plan variant {which} is not in this slice of the port")
-
-
-#: the plan variants the converters emit that the planner does not run yet
-_WAITING = {"kafka_scan": "item 6c (exec/streaming.py and the Kafka source)"}
 
 
 def tree_from_plan(plan, mode: str = "build"):

@@ -27,6 +27,12 @@ the one the conf's ``obs.trace.id`` names (the hand-off that keeps a task
 started from another thread attributed to its query); each batch notes
 ``note_pump_batch``; ``finalize`` folds the metric tree into that trace.
 The pump's log lines carry the task (``utils/logging.py``).
+
+``StreamTaskRuntime`` (reference ``task.py:184``) pumps a continuous
+pipeline (``auron_tpu_torch/stream``) instead: ``pipeline.step()`` until
+stopped or exhausted, under one ``stream.<view>`` query trace, on a CUDA
+stream of its own on the card; ``status()`` and ``stop(drain=)`` are its
+surface (``serve/streams.py``).
 """
 
 from __future__ import annotations
@@ -190,6 +196,91 @@ class TaskRuntime:
             # the metric half of the span-vs-metrics cross-check
             self._obs_trace.add_task_metrics(snap)
         return snap
+
+
+class StreamTaskRuntime:
+    """Long-running pump of a continuous pipeline (``auron_tpu_torch/stream``;
+    reference ``auron_tpu/runtime/task.py:184``): TaskRuntime's shape — one
+    daemon thread owning the engine work, conf-scoped, its error relayed to
+    the owner — but the loop is ``pipeline.step()`` until stopped or
+    exhausted, and the surface is ``status()``/``stop()`` (emissions leave
+    through the pipeline's sink).
+
+    The whole stream runs under ONE query trace named ``stream.<view>``:
+    the pipeline's emission and checkpoint spans attribute to it, and its
+    summary lands on /queries when the stream ends. On the card the pump
+    runs on a CUDA stream of its own, as a served query does; two pumps
+    whose Calc chains share a graph key never capture it at once (the
+    fusion graph cache captures and replays under one lock).
+
+    ``_error``/``exhausted`` are written by the pump while it lives and by
+    ``stop()`` only after joining it; ``status()`` readers never write.
+    """
+
+    def __init__(self, pipeline, name: str | None = None):
+        self.pipeline = pipeline
+        self.name = name or pipeline.plan.name
+        obs.apply_conf(pipeline.conf)
+        self._stop = threading.Event()
+        self._error: BaseException | None = None
+        self.exhausted = False
+        dev = torch.device(pipeline.device)
+        self._stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        self._thread = threading.Thread(target=self._pump_stream, daemon=True,
+                                        name=f"auron-torch-stream-{self.name}")
+        self._thread.start()
+
+    def _pump_stream(self) -> None:
+        try:
+            with conf_scope(self.pipeline.conf), (
+                    torch.cuda.stream(self._stream) if self._stream is not None
+                    else contextlib.nullcontext()), obs.query_trace(
+                        f"stream.{self.name}", conf=self.pipeline.conf):
+                while not self._stop.is_set():
+                    if not self.pipeline.step():
+                        self.exhausted = True
+                        return
+        except BaseException as e:  # noqa: BLE001 — relayed via status()/stop()
+            self._error = e
+        finally:
+            if self._stream is not None:
+                self._stream.synchronize()
+
+    def status(self) -> dict:
+        """Live stream state for /stream inspect: progress counters,
+        watermark, and the error (if the pump died)."""
+        p = self.pipeline
+        return {
+            "name": self.name,
+            "alive": self._thread.is_alive(),
+            "exhausted": self.exhausted,
+            "steps": p.steps,
+            "emit_seq": p.emit_seq,
+            "watermark_ms": p.tracker.watermark_ms,
+            "open_groups": len(p.store),
+            "checkpoints": p.ckpt_seq,
+            "metrics": dict(p.metrics),
+            "error": repr(self._error) if self._error is not None else None,
+        }
+
+    def stop(self, timeout: float = 30.0, drain: bool = False) -> dict:
+        """Stop the pump, close the pipeline, return the final status.
+        ``drain=True`` force-closes all open windows first (finite sources,
+        an orderly shutdown)."""
+        self._stop.set()
+        self._thread.join(timeout=timeout)
+        if drain and self._error is None and not self._thread.is_alive():
+            self.pipeline.drain()
+        try:
+            self.pipeline.close()
+        except BaseException as e:  # noqa: BLE001 — the pump's error takes precedence
+            if self._error is None:
+                self._error = e
+        st = self.status()
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError(f"stream {self.name} failed") from err
+        return st
 
 
 def run_task(plan: ExecOperator, resources: dict, stage_id: int = 0, partition_id: int = 0,

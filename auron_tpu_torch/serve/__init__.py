@@ -6,8 +6,8 @@ session conf and CUDA stream — with a plan-digest-keyed compiled-plan
 cache above the fusion stage cache (serve/cache.py) and an admission layer
 with memory-manager-aware backpressure (serve/admission.py).
 ``utils/httpsvc`` exposes it at ``POST /sql``; ``models/servegate.py`` is
-the concurrency differential gate. The reference's stream server
-(``serve/streams.py``) comes with the port of ``stream/``.
+the concurrency differential gate. ``serve/streams.py``'s
+``StreamServer`` runs continuous queries behind ``POST /stream``.
 """
 
 from auron_tpu_torch.serve.admission import AdmissionController, AdmissionTimeout

@@ -487,4 +487,44 @@ SERVE_GATE_CLIENTS = int_conf(
     "concurrent clients the differential gate replays the corpus with "
     "(each client replays every corpus query once)",
 )
+STREAM_CALC_FUSE = str_conf(
+    "stream.calc.fuse", "auto", "stream",
+    "streaming Calc chains (exec/streaming.py) ride whole-stage fused "
+    "programs: the per-micro-batch filter+project chain is built as an "
+    "exec tree and passed through plan/fusion.py, so a long-running "
+    "stream captures once per (schema, segment signature, capacity "
+    "bucket) and every subsequent event batch costs ONE graph replay. "
+    "on | off | auto = on (the exec.fuse.* cost model still decides "
+    "per segment). off restores the eager per-op dispatch loop "
+    "bit-identically — the A/B leg of models/streamgate.py",
+)
+STREAM_POLL_MAX_RECORDS = int_conf(
+    "stream.poll.max.records", 8192, "stream",
+    "records per source poll = the micro-batch ceiling of a continuous "
+    "pipeline (auron_tpu_torch/stream). Determinism-relevant: resumed runs "
+    "must re-poll the same micro-batch boundaries, so the checkpoint "
+    "manifest records the value it ran with and the restore path "
+    "refuses a mismatch instead of silently re-batching differently",
+)
+STREAM_CHECKPOINT_INTERVAL = int_conf(
+    "stream.checkpoint.interval.batches", 8, "stream",
+    "checkpoint barrier cadence of a continuous pipeline, in micro-"
+    "batches: every N-th micro-batch the coordinator atomically "
+    "snapshots {source offsets, window/agg state, watermark, emission "
+    "seq} (temp + os.replace), the unit of exactly-once crash-resume",
+)
+STREAM_CHECKPOINT_KEEP = int_conf(
+    "stream.checkpoint.keep", 2, "stream",
+    "completed checkpoints retained per stream; older snapshot files "
+    "are pruned after each successful barrier (the latest one is what "
+    "a restore loads, the extras are crash insurance while the newest "
+    "is being replaced)",
+)
+STREAM_SERVE_MAX_STREAMS = int_conf(
+    "stream.serve.max.streams", 4, "stream",
+    "continuous queries one server process will run concurrently "
+    "(POST /stream register); registrations past the bound are refused "
+    "loudly with 429 — long-running pipelines hold their executor "
+    "threads, so admission is a hard count, not a queue",
+)
 NATIVE_LOG_LEVEL = str_conf("log.level", "info", "runtime", "engine log level (conf.rs:64)")

@@ -30,10 +30,15 @@ query front door:
 - /serve        — server stats: plan-cache hit/miss/eviction counts,
                   admission occupancy/queue, per-server query counters.
 
-- POST /stream  — 404: the port has no stream server yet. The
-                  reference's ``install_stream_server`` and its
-                  continuous queries come with the port of ``stream/``
-                  and ``serve/streams.py``.
+With a stream server installed (install_stream_server) the service
+also fronts continuous queries:
+
+- POST /stream  — {"action": "register"|"cancel"|"inspect"|"list",
+                  ...}: register a CREATE STREAMING VIEW, cancel or
+                  inspect a running stream. 400 on bad requests, 429
+                  when stream.serve.max.streams streams already run
+                  (streams never finish on their own, so the admission
+                  bound refuses instead of queueing).
 
 Gated by ``http.service.enable`` (off by default, like the reference's
 feature flag); the bridge starts it lazily on the first task when
@@ -75,6 +80,9 @@ _conf = None
 #: installed SqlServer (serve/server.py); POST /sql and /serve 404 until
 #: a host installs one — observability endpoints never depend on it
 _sql_server = None
+#: installed StreamServer (serve/streams.py); POST /stream 404s until
+#: a host installs one
+_stream_server = None
 
 
 def install_sql_server(server) -> None:
@@ -82,6 +90,14 @@ def install_sql_server(server) -> None:
     global _sql_server
     with _lock:
         _sql_server = server
+
+
+def install_stream_server(server) -> None:
+    """Install (or with None, uninstall) the StreamServer behind
+    POST /stream."""
+    global _stream_server
+    with _lock:
+        _stream_server = server
 
 
 def _metrics_payload() -> dict:
@@ -225,6 +241,9 @@ class _Handler(BaseHTTPRequestHandler):
                 return
             raw = self.rfile.read(n)
             path = self.path.split("?", 1)[0]
+            if path == "/stream":
+                self._post_stream(raw)
+                return
             if path != "/sql":
                 self._send(b"not found\n", "text/plain", 404)
                 return
@@ -265,6 +284,30 @@ class _Handler(BaseHTTPRequestHandler):
             self.close_connection = True
             self._send(f"error: {e}\n".encode(), "text/plain", 500)
 
+    def _post_stream(self, raw: bytes) -> None:
+        srv = _stream_server
+        if srv is None:
+            self._send(b"no stream server installed\n", "text/plain", 404)
+            return
+        from auron_tpu_torch.serve.streams import StreamBusy, StreamError
+
+        try:
+            body = json.loads(raw or b"{}")
+        except (ValueError, TypeError) as e:
+            self._send(f"bad request body: {e}\n".encode(), "text/plain", 400)
+            return
+        try:
+            payload = srv.execute_json(body)
+        except StreamError as e:
+            self._send(json.dumps({"error": str(e)}).encode(), "application/json", 400)
+            return
+        except StreamBusy as e:
+            # the stream admission bound: refuse, never queue — a stream
+            # would hold its queue slot forever
+            self._send(json.dumps({"error": str(e)}).encode(), "application/json", 429)
+            return
+        self._send(json.dumps(payload).encode(), "application/json")
+
 
 def start(port: int = 0, conf=None) -> int:
     """Start (or return) the service; returns the bound port. ``conf`` is
@@ -289,7 +332,7 @@ def start(port: int = 0, conf=None) -> int:
 
 
 def stop() -> None:
-    global _server, _port, _conf, _sql_server
+    global _server, _port, _conf, _sql_server, _stream_server
     with _lock:
         if _server is not None:
             _server.shutdown()
@@ -300,6 +343,7 @@ def stop() -> None:
         # full teardown regardless of whether the service was running: a
         # stale installed server must not resurface on the next start()
         _sql_server = None
+        _stream_server = None
 
 
 def maybe_start_from_conf(conf) -> int | None:

@@ -1,5 +1,5 @@
-"""Socket framing helpers of the RSS client and server (port of
-``auron_tpu/utils/netio.py``)."""
+"""Socket framing helpers of the RSS and Kafka wire clients and of their
+in-process servers (port of ``auron_tpu/utils/netio.py``)."""
 
 from __future__ import annotations
 

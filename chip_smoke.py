@@ -17,6 +17,7 @@
     python3 chip_smoke.py --udf-shuffle-only  # phases 1, 2 and 22 only
     python3 chip_smoke.py --sql-only  # phases 1, 2 and 23 only
     python3 chip_smoke.py --serve-only  # phases 1, 2 and 24 only
+    python3 chip_smoke.py --stream-only  # phases 1, 2 and 25 only
 
 Phases, in order, none of them caught — any failure exits non-zero:
 
@@ -127,8 +128,9 @@ Phases, in order, none of them caught — any failure exits non-zero:
    one ExpandExec: 3 and 4 x 23.04 M rows into the aggregate) and q9 (a
    global-average subquery task, then a filter on ScalarSubquery). Each
    gets a warm-up, whose kernel sorts go through K3/K4 and the plain
-   network on the card once more, bit for bit, then two timed runs,
-   whose bitonic launches each equal ``sort_plan``'s for those sorts;
+   network on the card once more, bit for bit, then a timed run (two
+   under ``--window-only``), whose bitonic launches equal ``sort_plan``'s
+   for those sorts;
    every windowed class must launch K3, and K4 where a sort is past one
    cluster. Each answer equals its numpy oracle (keys, counts, ranks, lag
    values and order exactly, revenues and sums at rel 1e-9, running sums
@@ -150,7 +152,7 @@ Phases, in order, none of them caught — any failure exits non-zero:
    q93 (every map task's shuffle staging parks blocks in .shuffle.spill
    files; K1 as often as unbudgeted), each with only its own inputs on
    the card: a warm-up whose kernel sorts and run merges are checked on
-   the card, one timed run without the budget, then two under it, each
+   the card, one timed run without the budget, then one under it, each
    equal to the oracle and to the unbudgeted answer, with at least two
    spills; wall, peak, spill and wait counts, spill counters and timers,
    host-ledger demotions and the bytes parked on host and disk are
@@ -362,15 +364,41 @@ Phases, in order, none of them caught — any failure exits non-zero:
    served answers) and of q53 and a denied conf key (400 each), while a
    client serves queries: /healthz, /metrics, /metrics.prom, /trace?last=5,
    /queries and /serve answer 200 with parseable bodies. Then one serial
-   corpus pass with ``obs.mode`` off and one with the recorder, twice,
-   alternating (walls printed, no gate). Printed: each leg's seconds,
+   corpus pass with ``obs.mode`` off and one with the recorder (twice,
+   alternating, under ``--serve-only``; walls printed, no gate). Printed: each leg's seconds,
    queries/s, p50 and p99, the concurrent/serial ratio beside the
    reference's 2.0, admission and plan-cache stats, the engine counters,
    peak device memory, the launches and the trace events recorded.
    ``--serve-only`` builds the tables, frames, oracles and phase 23's
    per-query launches (one warm-up and one timed run each) itself;
-25. print the kernel table as one JSON line (each kernel's launches summed
-   over the timed runs of phases 4-24, and per run), then the status line.
+25. streaming (``exec/streaming.py``, ``exec/kafka_wire.py``, ``stream/``,
+   ``StreamTaskRuntime``, ``serve/streams.py``, ``POST /stream``,
+   ``models/streamgate.py``, ``models/kafka_exchange.py``) on the card:
+   (a) the stream gate at the reference's defaults (60,000 events, 3 reps,
+   poll 512; 1,000,000 events under ``--stream-only``): fused and eager
+   emissions and the crash-resumed log bit-identical, no graph capture or
+   kernel build in the timed fused reps, every emission equal to the
+   numpy oracle of the view (keys, bounds and counts exact, floats at rel
+   1e-9); fused/eager events/s printed beside the reference's 1.05 (not a
+   gate here); (b) a ``StreamServer`` with two topics and two views (the
+   gate's and a 2 s / 1 s HOP view) registered through POST /stream on a
+   loopback port, inspected while they run, the 429 at
+   ``stream.serve.max.streams``, cancelled with drain: each stream's
+   emissions bit-identical to its view run alone, each under its own
+   ``stream.<view>`` trace in /queries; (c) planned ``kafka_scan`` tasks
+   with a keyed exchange: 1,000,000 JSON events (4,000,000 under
+   ``--stream-only``) of 200,000 users in 2 topic partitions, a map task
+   per partition (filter, project, partial aggregate, hash shuffle on the
+   user) and 4 reduce tasks (final aggregate, SortExec by total DESC, user
+   ASC), every task from bytes: a warm-up (its kernel sorts held against
+   the plain network on the card, bit for bit), then a timed run equal to
+   the pandas group-by (counts exact, totals at rel 1e-9, order exact),
+   the ``kafka_offset_p*`` metrics the topic's ends, K1 once a map task
+   (the partial aggregate hands the writer one batch), K3/K4 as
+   ``sort_plan`` lists; walls, micro-batches, deserialize seconds,
+   shuffle bytes and launches printed;
+26. print the kernel table as one JSON line (each kernel's launches summed
+   over the timed runs of phases 4-25, and per run), then the status line.
 
 Each phase prints its seconds.
 
@@ -1585,6 +1613,9 @@ def run_tail_classes(data, fact) -> dict:
 
 #: phase 11: timed runs of each window, expand and scalar-subquery class
 WINDOW_TIMED_RUNS = 2
+#: the whole script's timed runs of each window class: one, so that the
+#: script ends inside its time limit (``--window-only`` keeps two)
+WINDOW_TIMED_RUNS_IN_SCRIPT = 1
 #: the classes whose WindowExec sorts (K3, and K4 where P > 32,768)
 WINDOWED = ("windowed", "windowed2", "q51", "q23", "q46")
 #: running float sums: (class, column, partition key column)
@@ -1638,10 +1669,10 @@ def _assert_window_answer(name: str, got: dict, want: dict) -> dict:
     return err
 
 
-def run_window_classes(data) -> dict:
+def run_window_classes(data, timed_runs: int = WINDOW_TIMED_RUNS) -> dict:
     """Phase 11: each of tpcds.WINDOW_CLASSES over the whole fact table: a
     warm-up (its kernel sorts recorded, then sorted once more by K3/K4 and
-    by the plain network on the card, bit for bit), then WINDOW_TIMED_RUNS
+    by the plain network on the card, bit for bit), then ``timed_runs``
     timed runs, whose bitonic launches must each equal ``sort_plan``'s for
     the recorded sorts. A windowed class must launch K3, and K4 where a
     sort is past one cluster; every answer equals its numpy oracle."""
@@ -1673,7 +1704,7 @@ def run_window_classes(data) -> dict:
             torch.cuda.empty_cache()
             run(device="cuda", ingested=ingested)
         walls, peaks, runs_launches = [], [], []
-        for k in range(WINDOW_TIMED_RUNS):
+        for k in range(timed_runs):
             _reset_launches()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -1867,7 +1898,9 @@ SPILL_RUNS = (
     ("q93 (budget)", "q93", {"memory.hbm.budget.bytes": 16 << 20},
      ("murmur3_pmod",), "ShuffleWriterExec.spilled_shuffle_runs"),
 )
-SPILL_TIMED_RUNS = 2
+#: one timed run under each budget, so that the whole script ends inside
+#: its time limit
+SPILL_TIMED_RUNS = 1
 #: the default-conf runs of phases 8 and 10 whose SortExecs the 2^23-row
 #: threshold may spill, with their numbers before the spill path (PERF.md,
 #: H100 80GB HBM3 at 700 W), printed beside this run's
@@ -4104,6 +4137,10 @@ SERVE_CLIENTS = 8
 #: queries, so the script ends inside its time limit (8 clients took 198 s
 #: of concurrent leg on an H100, PERF.md §6)
 SERVE_CLIENTS_IN_SCRIPT = 2
+#: phase 24: the serial corpus passes of the recorder A/B, alternating;
+#: the whole script runs one a mode, so that it ends inside its time limit
+SERVE_AB_MODES = ("off", "recorder", "off", "recorder")
+SERVE_AB_MODES_IN_SCRIPT = ("off", "recorder")
 #: phase 24: the queries POST /sql sends over one keep-alive connection
 SERVE_HTTP_QUERIES = ("q3", "q46", "q65")
 
@@ -4250,7 +4287,7 @@ def _serial_pass_s(server, names: list) -> float:
 
 
 def run_serve_phase(data, sf: float, seed: int, clients: int, sql: dict | None = None,
-                    shared: dict | None = None) -> dict:
+                    shared: dict | None = None, ab_modes=SERVE_AB_MODES) -> dict:
     """Phase 24: the SQL corpus served (``serve/``, ``models/servegate.py``)
     over phase 23's tables (``sql``/``shared``; else built here, with one
     warm-up and one timed run of each query for the launches). A
@@ -4320,15 +4357,15 @@ def run_serve_phase(data, sf: float, seed: int, clients: int, sql: dict | None =
         prev = obs.mode_name()
         ab = {"off": [], "recorder": []}
         try:
-            for mode in ("off", "recorder", "off", "recorder"):
+            for mode in ab_modes:
                 obs.set_mode(mode)
                 ab[mode].append(_serial_pass_s(server, names))
         finally:
             obs.set_mode(prev)
         out["recorder_ab"] = ab
         print(f"serve recorder A/B (serial corpus passes, alternating): off "
-              f"{ab['off'][0]:.4f} / {ab['off'][1]:.4f} s, recorder {ab['recorder'][0]:.4f} / "
-              f"{ab['recorder'][1]:.4f} s", flush=True)
+              + " / ".join(f"{x:.4f}" for x in ab["off"]) + " s, recorder "
+              + " / ".join(f"{x:.4f}" for x in ab["recorder"]) + " s", flush=True)
     finally:
         httpsvc.stop()
     out["stats"] = server.stats()
@@ -4341,6 +4378,229 @@ def run_serve_phase(data, sf: float, seed: int, clients: int, sql: dict | None =
     print(f"serve engine counters: {json.dumps(out['counters'])}", flush=True)
     print(f"serve peak device memory {out['peak_bytes'] / 2**30:.3f} GiB, "
           f"{out['trace_events']:,} trace events in the recorder's rings", flush=True)
+    return out
+
+
+#: phase 25 (a): the stream gate's events, reps and poll (the reference's
+#: defaults) in the whole script; ``--stream-only`` runs 1,000,000 events
+STREAM_GATE_EVENTS = 60_000
+STREAM_GATE_EVENTS_ONLY = 1_000_000
+STREAM_GATE_REPS = 3
+STREAM_POLL = 512
+#: phase 25 (b): the served streams' second view, over a second topic
+STREAM_HOP_VIEW = """
+CREATE STREAMING VIEW clicks_hop
+  WATERMARK FOR ts AS ts - INTERVAL '1' SECOND
+AS SELECT k, window_start, window_end, SUM(v) AS total, COUNT(*) AS n,
+          MAX(v) AS hi
+   FROM clicks
+   GROUP BY k, HOP(ts, INTERVAL '1' SECOND, INTERVAL '2' SECOND)
+"""
+#: phase 25 (c): the keyed exchange's events (``--stream-only``: 4,000,000),
+#: users and reduce partitions
+EXCHANGE_EVENTS = 1_000_000
+EXCHANGE_EVENTS_ONLY = 4_000_000
+EXCHANGE_USERS = 200_000
+EXCHANGE_REDUCE = 4
+
+
+def _stream_gate_leg(events: int) -> dict:
+    """Phase 25 (a): the stream gate on the card, its emissions against the
+    numpy oracle of the view."""
+    from auron_tpu_torch.models import streamgate
+
+    ems: list = []
+    _reset_launches()
+    t0 = time.perf_counter()
+    rec = streamgate.run_gate(events=events, reps=STREAM_GATE_REPS, poll=STREAM_POLL,
+                              min_fused_speedup=0.0, device="cuda", emissions=ems)
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["launches"] = _launches()
+    assert rec["ok"], rec["failures"]
+    assert rec["replay_compiles"] == 0, rec
+    t0 = time.perf_counter()
+    err = streamgate.oracle_mismatch(ems, streamgate.view_oracle(streamgate._corpus(events),
+                                                                 STREAM_POLL))
+    rec["oracle_s"] = time.perf_counter() - t0
+    assert err is None, err
+    met = rec["speedup"] >= 1.05
+    print(f"stream gate: {events:,} events, poll {STREAM_POLL}, {rec['steps']} steps a run, "
+          f"{rec['emissions']} emissions (each equal to the numpy oracle: keys, bounds and "
+          f"counts exact, floats at rel 1e-9), {rec['checkpoints']} checkpoints in the "
+          f"resumed run; fused, eager and crash-resumed logs bit-identical", flush=True)
+    print(f"stream gate: fused {rec['fused_events_s']:,.1f} events/s, eager "
+          f"{rec['eager_events_s']:,.1f} events/s, fused/eager {rec['speedup']:.3f}x against "
+          f"the reference's 1.05x: {'met' if met else 'not met'} (not a gate here); graph "
+          f"captures and builds {rec['warm_compiles']} in the warm run, "
+          f"{rec['replay_compiles']} in the timed reps; {rec['host_reads_per_step']} host "
+          f"reads a step; peak device memory {rec['peak_bytes'] / 2**20:.1f} MiB; "
+          f"{rec['wall_s']:.2f} s, launches {rec['launches']}", flush=True)
+    return rec
+
+
+def _stream_serve_leg(events: int) -> dict:
+    """Phase 25 (b): two views served on the card through POST /stream."""
+    import http.client
+
+    from auron_tpu_torch import obs
+    from auron_tpu_torch.exec.streaming import JsonRowDeserializer, MockKafkaSource
+    from auron_tpu_torch.models import streamgate
+    from auron_tpu_torch.serve.streams import StreamServer
+    from auron_tpu_torch.stream import CollectSink, StreamPipeline, lower_streaming_view
+    from auron_tpu_torch.utils import httpsvc
+    from auron_tpu_torch.utils.config import (
+        STREAM_CHECKPOINT_INTERVAL, STREAM_POLL_MAX_RECORDS, STREAM_SERVE_MAX_STREAMS,
+        Configuration,
+    )
+
+    topics = {"events": streamgate._corpus(events), "clicks": streamgate._corpus(events, 8)}
+    views = {"streamgate_1s": (streamgate.VIEW, "events"),
+             "clicks_hop": (STREAM_HOP_VIEW, "clicks")}
+    conf = Configuration({STREAM_POLL_MAX_RECORDS.key: STREAM_POLL,
+                          STREAM_CHECKPOINT_INTERVAL.key: 8,
+                          STREAM_SERVE_MAX_STREAMS.key: len(views)})
+    server = StreamServer(conf=conf, device="cuda")
+    for name, parts in topics.items():
+        server.register_topic(name, streamgate.SCHEMA, lambda mode, off, parts=parts:
+                              MockKafkaSource(parts, startup_mode=mode, start_offsets=off))
+    prev_mode = obs.mode_name()
+    obs.set_mode("recorder")
+    port = httpsvc.start(0)
+    httpsvc.install_stream_server(server)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    out: dict = {"events": events}
+    t0 = time.perf_counter()
+    try:
+        sinks = {}
+        for name, (sql, _) in views.items():
+            code, body = _http(conn, "POST", "/stream", {"action": "register", "sql": sql})
+            assert code == 200 and json.loads(body)["status"] == "running", (code, body)
+            sinks[name] = server._get(name)["sink"]
+        live = {}
+        deadline = time.monotonic() + 120
+        for name in views:
+            while True:  # inspect until the stream has stepped
+                code, body = _http(conn, "POST", "/stream", {"action": "inspect",
+                                                             "stream": name})
+                assert code == 200 and json.loads(body)["error"] is None, (code, body)
+                live[name] = json.loads(body)["steps"]
+                if live[name] or time.monotonic() > deadline:
+                    break
+                time.sleep(0.01)
+            assert live[name] > 0, (name, body)
+        code, body = _http(conn, "POST", "/stream", {
+            "action": "register", "sql": streamgate.VIEW.replace("streamgate_1s", "third")})
+        assert code == 429 and "max.streams" in json.loads(body)["error"], (code, body)
+        deadline = time.monotonic() + 300
+        while not all(server.inspect(n)["exhausted"] for n in views):
+            assert time.monotonic() < deadline, "served streams did not drain their topics"
+            time.sleep(0.01)
+        code, body = _http(conn, "POST", "/stream", {"action": "list"})
+        assert code == 200 and sorted(s["stream"] for s in json.loads(body)["streams"]) == \
+            sorted(views), body
+        finals = {}
+        for name in views:
+            code, body = _http(conn, "POST", "/stream",
+                               {"action": "cancel", "stream": name, "drain": True})
+            assert code == 200, (code, body)
+            finals[name] = json.loads(body)["final"]
+        out["served_s"] = time.perf_counter() - t0
+        code, body = _http(conn, "GET", "/queries")
+        traces = {q["name"]: q["trace_id"] for q in json.loads(body)}
+        for name in views:
+            assert f"stream.{name}" in traces, (name, sorted(traces))
+        assert len({traces[f"stream.{n}"] for n in views}) == len(views), traces
+    finally:
+        conn.close()
+        httpsvc.stop()
+        server.shutdown()
+        obs.set_mode(prev_mode)
+    t1 = time.perf_counter()
+    for name, (sql, topic) in views.items():
+        sink = CollectSink()
+        p = StreamPipeline(lower_streaming_view(sql, streamgate.SCHEMA),
+                           MockKafkaSource(topics[topic]), JsonRowDeserializer(streamgate.SCHEMA),
+                           sink, conf=conf.copy(), device="cuda")
+        p.run(drain=True)
+        p.close()
+        got = [e.to_json() for e in sinks[name].emissions]
+        assert got == [e.to_json() for e in sink.emissions], f"served {name} != alone"
+        out[name] = {"emissions": len(got), "steps": finals[name]["steps"],
+                     "inspected_steps": live[name], "checkpoints": finals[name]["checkpoints"]}
+    out["alone_s"] = time.perf_counter() - t1
+    print(f"stream serve: POST /stream registered {sorted(views)} on 127.0.0.1:{port}, "
+          f"inspected them running (steps {live}), the third registration 429 at "
+          f"stream.serve.max.streams={len(views)}, cancelled with drain after "
+          f"{out['served_s']:.2f} s; "
+          + ", ".join(f"{n} {out[n]['emissions']} emissions in {out[n]['steps']} steps"
+                      for n in views)
+          + f", each bit-identical to its view run alone ({out['alone_s']:.2f} s for both) and "
+          f"under its own stream.<view> trace in /queries", flush=True)
+    return out
+
+
+def _stream_exchange_leg(events: int) -> dict:
+    """Phase 25 (c): planned kafka_scan map tasks, a keyed file exchange
+    and sorted reduce tasks, from TaskDefinition bytes on the card."""
+    import torch
+
+    from auron_tpu_torch.models import kafka_exchange as KX
+
+    t0 = time.perf_counter()
+    parts = KX.corpus(events, EXCHANGE_USERS)
+    out: dict = {"events": events, "users": EXCHANGE_USERS, "corpus_s": time.perf_counter() - t0}
+    batches = KX.micro_batches(parts)
+    # prediction: the partial aggregate folds every micro-batch into its
+    # dense table and hands the writer one state batch at the end of its
+    # input, so K1 launches once a map task, not once a micro-batch
+    k1_predicted = len(parts)
+    record: list = []
+    shapes: list = []
+    with _recording_sorts(record), _recording_kernel_sorts(shapes):
+        KX.run(parts, EXCHANGE_REDUCE, device="cuda")  # warm-up: builds, captures
+    out["sort_checks"] = check_sorts("stream exchange", record)
+    del record
+    t0 = time.perf_counter()
+    want = KX.oracle(parts)
+    out["oracle_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    st: dict = {}
+    outs = KX.run(parts, EXCHANGE_REDUCE, device="cuda", stats=st)
+    launches = _launches()
+    out.update(stats=st, launches=launches, micro_batches=batches, k1_predicted=k1_predicted,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    err = KX.mismatch(outs, want)
+    assert err is None, err
+    ends = {p: len(part) for p, part in enumerate(parts)}
+    assert st["offsets"] == ends, (st["offsets"], ends)
+    assert st["stream_batches"] == batches, (st["stream_batches"], batches)
+    assert launches["murmur3_pmod"] == k1_predicted, (launches, k1_predicted)
+    _assert_planned_launches("stream exchange", shapes, launches)
+    print(f"stream exchange: {events:,} events of {EXCHANGE_USERS:,} users in "
+          f"{len(parts)} topic partitions ({out['corpus_s']:.2f} s to make), "
+          f"{len(parts)} map x {EXCHANGE_REDUCE} reduce tasks from bytes: wall "
+          f"{st['wall_s']:.3f} s (map {st['map_s']:.3f}, reduce {st['reduce_s']:.3f}), "
+          f"{st['stream_batches']} micro-batches, deserialize {st['deserialize_s']:.3f} s, "
+          f"shuffle {st['shuffle_bytes']:,} B, rows per partition {st['rows']}; equal to the "
+          f"pandas group-by ({out['oracle_s']:.2f} s; counts exact, totals at rel 1e-9, "
+          f"order exact); kafka_offset_p* {st['offsets']} = the topic's ends; launches "
+          f"{launches} (K1 predicted {k1_predicted}: one a map task; K3/K4 as sort_plan "
+          f"lists for {shapes}); peak {out['peak_bytes'] / 2**20:.1f} MiB", flush=True)
+    return out
+
+
+def run_stream_phase(gate_events: int, exchange_events: int) -> dict:
+    """Phase 25: streaming (``exec/streaming.py``, ``exec/kafka_wire.py``,
+    ``stream/``, ``StreamTaskRuntime``, ``serve/streams.py``, ``POST
+    /stream``, ``models/streamgate.py``) on the card: (a) the stream gate,
+    (b) two views served through POST /stream, (c) planned kafka_scan
+    tasks with a keyed exchange."""
+    out = {"gate": _stream_gate_leg(gate_events), "serve": _stream_serve_leg(STREAM_GATE_EVENTS)}
+    out["exchange"] = _stream_exchange_leg(exchange_events)
+    out["launches"] = {"stream gate": out["gate"]["launches"],
+                       "stream exchange": out["exchange"]["launches"]}
     return out
 
 
@@ -4396,6 +4656,9 @@ def main(argv=None) -> int:
                     help="run phases 1, 2 and 23 only (no kernel table, no status line)")
     ap.add_argument("--serve-only", action="store_true",
                     help="run phases 1, 2 and 24 only (no kernel table, no status line)")
+    ap.add_argument("--stream-only", action="store_true",
+                    help="phases 1, 2 and 25 (streaming) only, at 1,000,000 gate events and "
+                         "4,000,000 exchange events")
     ap.add_argument("--time-sorts", action="store_true",
                     help="only build and time the bitonic kernels at the sort shapes "
                          "(one JSON line, no status line)")
@@ -4562,6 +4825,16 @@ def main(argv=None) -> int:
                       f, indent=1, default=str)
         return 0
 
+    if args.stream_only:
+        check_partition_kernel(args.seed)
+        stream = run_stream_phase(STREAM_GATE_EVENTS_ONLY, EXCHANGE_EVENTS_ONLY)
+        phase_done("25")
+        os.makedirs(os.path.join(REPO_DIR, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(REPO_DIR, "chiprun_out", "chip_smoke_stream.json"), "w") as f:
+            json.dump({"device": kind, "nvidia_smi": smi, "stream": stream, "phase_s": phase_s},
+                      f, indent=1, default=str)
+        return 0
+
     # 3. kernels against their plain versions
     checks = check_kernels(args.seed)
     checks["murmur3_pmod"] = check_partition_kernel(args.seed)
@@ -4653,7 +4926,7 @@ def main(argv=None) -> int:
 
     # 11. the window, expand and scalar-subquery classes over the whole fact
     del fact
-    window = run_window_classes(data)
+    window = run_window_classes(data, WINDOW_TIMED_RUNS_IN_SCRIPT)
     if args.profile:
         profile_window_classes(data, window)
     phase_done("11")
@@ -4725,11 +4998,16 @@ def main(argv=None) -> int:
     # 24. serving: the 24 corpus texts served to concurrent clients and
     # over POST /sql, each query under its own trace
     serve = run_serve_phase(data, args.sf, args.seed, SERVE_CLIENTS_IN_SCRIPT, sql=sql,
-                            shared=sql_shared)
+                            shared=sql_shared, ab_modes=SERVE_AB_MODES_IN_SCRIPT)
     del sql_shared
     phase_done("24")
 
-    # 24. every kernel sort and run merge of the main paths, held against the
+    # 25. streaming: the stream gate, two views served through POST /stream,
+    # planned kafka_scan tasks with a keyed exchange
+    stream = run_stream_phase(STREAM_GATE_EVENTS, EXCHANGE_EVENTS)
+    phase_done("25")
+
+    # 26. every kernel sort and run merge of the main paths, held against the
     # plain network on the card at its own operands
     checks["main_path_sorts"] = {
         **{f"q3-mesh ({m})": q3_mesh[m]["sort_checks"] for m in q3_mesh},
@@ -4748,7 +5026,8 @@ def main(argv=None) -> int:
         "sorted write": files["sorted write"]["sort_checks"],
         "basket": basket["sort_checks"],
         **{f"sql {name}": r["sort_checks"] for name, r in sql["queries"].items()
-           if r["sort_checks"]}}
+           if r["sort_checks"]},
+        "stream exchange": stream["exchange"]["sort_checks"]}
     sort_err = max(s["max_abs_err"] for v in checks["main_path_sorts"].values() for s in v)
     for name in ("bitonic_sort", "bitonic_merge"):
         checks["max_abs_err"][name] = max(checks["max_abs_err"][name], sort_err)
@@ -4795,7 +5074,8 @@ def main(argv=None) -> int:
              **{label: r["launches"] for label, r in udf_shuffle.items()},
              **{f"sql {name}": r["runs"][-1]["launches"] for name, r in sql["queries"].items()},
              **{f"serve {name} (serial)": v for name, v in serve["launches"]["serial"].items()},
-             f"serve ({serve['clients']} clients)": serve["launches"]["concurrent"]}
+             f"serve ({serve['clients']} clients)": serve["launches"]["concurrent"],
+             **stream["launches"]}
     kernels = []
     for name, source, replaces in (
         ("bitonic_sort", "auron_tpu_torch/csrc/bitonic.cu", "auron_tpu/ops/bitonic.py:145"),
@@ -4826,9 +5106,9 @@ def main(argv=None) -> int:
                    "join_tail_sweep": sweep, "predictor_ab": ab, "decimal": decimal,
                    "fusion": fused, "generate": gen, "bridge": bridge, "plan_ir": plan_ir,
                    "convert": convert, "files": files, "basket": basket,
-                   "udf_shuffle": udf_shuffle, "sql": sql, "serve": serve, "phase_s": phase_s,
-                   "kernels": kernels}, f, indent=1, default=str)
-    phase_done("25")
+                   "udf_shuffle": udf_shuffle, "sql": sql, "serve": serve, "stream": stream,
+                   "phase_s": phase_s, "kernels": kernels}, f, indent=1, default=str)
+    phase_done("26")
     report_graph_cache()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1606,3 +1606,89 @@ def test_fixed_order_float_sums_repeat_bit_for_bit_on_card(groups):
     assert all(torch.equal(outs[0], o) for o in outs[1:])
     want = torch.zeros(groups, dtype=torch.float64).index_add_(0, idx.cpu(), vals.cpu())
     torch.testing.assert_close(outs[0].cpu(), want, rtol=1e-12, atol=1e-6)
+
+
+def _gate_emissions(fuse: str, device: str) -> list[str]:
+    from auron_tpu_torch.exec.streaming import JsonRowDeserializer, MockKafkaSource
+    from auron_tpu_torch.models import streamgate
+    from auron_tpu_torch.stream import CollectSink, StreamPipeline, lower_streaming_view
+
+    sink = CollectSink()
+    conf = streamgate._conf(fuse == "on", 512)
+    p = StreamPipeline(lower_streaming_view(streamgate.VIEW, streamgate.SCHEMA),
+                       MockKafkaSource(streamgate._corpus(5000)),
+                       JsonRowDeserializer(streamgate.SCHEMA), sink, conf=conf, device=device)
+    p.run(drain=True)
+    p.close()
+    return [e.to_json() for e in sink.emissions]
+
+
+@pytest.mark.cuda
+def test_stream_gate_view_fused_and_eager_on_card_equal_and_replay_without_captures():
+    """The gate's view on cuda: the fused chain (captured graphs) and the
+    eager chain emit the same JSON, which is the CPU's; a second fused
+    run captures and builds nothing."""
+    _need_card()
+    from auron_tpu_torch.models import streamgate
+    from auron_tpu_torch.utils.profiling import EngineCounters
+
+    counters = EngineCounters.install()
+    fused = _gate_emissions("on", "cuda")
+    before = counters.compiles
+    again = _gate_emissions("on", "cuda")
+    assert counters.compiles == before
+    assert again == fused == _gate_emissions("off", "cuda") == _gate_emissions("on", "cpu")
+    assert streamgate.oracle_mismatch(fused, streamgate.view_oracle(streamgate._corpus(5000))) \
+        is None
+
+
+@pytest.mark.cuda
+def test_planned_keyed_exchange_on_card_equals_cpu_and_launches_k1():
+    """The planned kafka_scan map tasks and sorted reduce tasks at 20,000
+    events on cuda: the CPU's answer, K1 once a map task."""
+    _need_card()
+    from auron_tpu_torch.models import kafka_exchange as KX
+
+    parts = KX.corpus(20_000, users=5_000)
+    want = KX.run(parts, device="cpu")
+    before = pk.LAUNCHES["murmur3_pmod"]
+    got = KX.run(parts, device="cuda")
+    assert pk.LAUNCHES["murmur3_pmod"] - before == len(parts)
+    for g, w in zip(got, want):
+        for k in ("user", "total", "n"):
+            assert np.array_equal(g[k], w[k]), k
+    assert KX.mismatch(got, KX.oracle(parts)) is None
+
+
+@pytest.mark.cuda
+def test_two_served_streams_sharing_graph_keys_on_card_equal_a_run_alone():
+    """Two served copies of the gate's view (the same Calc chain, so the
+    same graph keys) pump at once, each on its own CUDA stream: each one's
+    emissions are those of the view run alone."""
+    _need_card()
+    import time
+
+    from auron_tpu_torch.exec.streaming import MockKafkaSource
+    from auron_tpu_torch.models import streamgate
+    from auron_tpu_torch.serve.streams import StreamServer
+
+    parts = streamgate._corpus(5000)
+    srv = StreamServer(conf=streamgate._conf(True, 512), device="cuda")
+    srv.register_topic("events", streamgate.SCHEMA, lambda mode, off: MockKafkaSource(
+        parts, startup_mode=mode, start_offsets=off))
+    names = ("streamgate_1s", "streamgate_twin")
+    try:
+        for name in names:
+            srv.register(streamgate.VIEW.replace("streamgate_1s", name))
+        deadline = time.monotonic() + 120
+        while not all(srv.inspect(n)["exhausted"] for n in names):
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        sinks = {n: srv._get(n)["sink"] for n in names}
+        for n in names:
+            srv.cancel(n, drain=True)
+    finally:
+        srv.shutdown()
+    alone = _gate_emissions("on", "cuda")
+    for n in names:
+        assert [e.to_json() for e in sinks[n].emissions] == alone, n

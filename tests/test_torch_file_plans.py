@@ -2,8 +2,9 @@
 
 - ``parquet_scan``, ``orc_scan``, ``parquet_sink`` and ``orc_sink`` plan
   from protos built as ``plan/builders.py`` and the converters build them;
-  ``kafka_scan`` still raises naming its ROADMAP item, and
-  ``rss_shuffle_writer`` plans and pushes to the service;
+  ``kafka_scan`` (ROADMAP Queue 1 item 6c's streaming half) plans a
+  ``KafkaScanExec`` with the node's topic, startup mode and offsets, and
+  ``rss_shuffle_writer`` (item 4) plans and pushes to the service;
 - the tables written through converted ``DataWritingCommandExec`` plans
   read back equal to the numpy tables; q42, q93 and q3 from file-backed
   ``FileSourceScanExec`` host plans equal their oracles, q42 also from the
@@ -99,15 +100,24 @@ def test_the_file_variants_plan(name):
 @pytest.mark.parametrize("which,item", [
     ("kafka_scan", "item 6"), ("rss_shuffle_writer", "item 4")])
 def test_the_remaining_refusals_name_their_items(which, item):
-    """``kafka_scan`` still raises naming its item; ``rss_shuffle_writer``
-    (item 4) now plans and pushes its blocks to the service."""
+    """Both variants that once waited for their ROADMAP items now plan:
+    ``kafka_scan`` (item 6c) as a ``KafkaScanExec`` carrying the node's
+    topic, startup mode and offsets; ``rss_shuffle_writer`` (item 4) plans
+    and pushes its blocks to the service."""
     leaf = B.memory_scan(KV, "m")
-    node = (B.kafka_scan(KV, "t", "src") if which == "kafka_scan" else
+    node = (B.kafka_scan(KV, "t", "src", startup_mode="offsets", start_offsets={0: 5, 1: 7},
+                         max_batch_records=64)
+            if which == "kafka_scan" else
             B.rss_shuffle_writer(leaf, B.hash_partitioning([ir.col(0)], 2), "rss"))
     proto = pb.PhysicalPlanNode.FromString(node.SerializeToString())
     if which == "kafka_scan":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-            plan_from_proto(proto)
+        from auron_tpu_torch.exec.streaming import KafkaScanExec
+
+        op = plan_from_proto(proto)
+        assert isinstance(op, KafkaScanExec) and op.schema == KV
+        assert (op.topic, op.source_resource_id, op.startup_mode) == ("t", "src", "offsets")
+        assert op.start_offsets == {0: 5, 1: 7} and op.max_batch_records == 64
+        assert (op.data_format, op.on_error) == ("json", "skip")
         return
     from auron_tpu_torch.columnar.batch import Batch
     from auron_tpu_torch.exec.base import ExecutionContext

@@ -2,7 +2,7 @@
 on an ephemeral loopback port, on the CPU.
 
 Every case of ``tests/test_httpsvc.py`` on the port's task runtimes, plus:
-``POST /stream`` answers 404 (the port has no stream server yet), and a
+``POST /stream`` answers 404 while no stream server is installed, and a
 subprocess imports ``auron_tpu_torch.serve``, ``.obs``, ``.utils.httpsvc``
 and ``.utils.profiling`` and serves ``/healthz``, ``/metrics``,
 ``/metrics.prom``, ``/trace`` and ``/queries`` around a live task with
@@ -300,10 +300,12 @@ def test_keepalive_post_sql_drains_body_on_early_return_paths(svc):
 
 
 def test_post_stream_404s_without_a_stream_server(svc):
-    """The port has no stream server: POST /stream answers 404 and drains
-    its body (the connection stays usable)."""
+    """With no stream server installed (``install_stream_server(None)``)
+    POST /stream answers 404 and drains its body (the connection stays
+    usable)."""
     import http.client
 
+    httpsvc.install_stream_server(None)
     conn = http.client.HTTPConnection("127.0.0.1", svc, timeout=10)
     try:
         conn.request("POST", "/stream", body=json.dumps({"action": "list"}))
@@ -317,7 +319,6 @@ def test_post_stream_404s_without_a_stream_server(svc):
         assert conn.sock is sock
     finally:
         conn.close()
-    assert not hasattr(httpsvc, "install_stream_server")
 
 
 def test_keepalive_unacceptable_content_length_400s_and_closes(svc):
