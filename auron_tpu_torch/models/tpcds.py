@@ -180,13 +180,18 @@ def generate(sf: float = 0.01, seed: int = 42) -> TpcdsData:
 
 
 def to_batches(table: Table, n_partitions: int, batch_rows: int = 1 << 20,
-               device="cuda") -> list[list[Batch]]:
-    """Split a table into per-partition device batch lists."""
+               device="cuda", only=None) -> list[list[Batch]]:
+    """Split a table into per-partition device batch lists; with ``only``
+    (partition ids) the other partitions' lists stay empty (a process of a
+    multi-process mesh ingests its own partitions)."""
     parts: list[list[Batch]] = []
     n = len(table)
     per = (n + n_partitions - 1) // n_partitions
     names = table.schema.names
     for p in range(n_partitions):
+        if only is not None and p not in only:
+            parts.append([])
+            continue
         lo, hi = min(p * per, n), min((p + 1) * per, n)
         starts = list(range(lo, hi, batch_rows)) or [lo]
         parts.append([
@@ -314,27 +319,29 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def run_tasks_parallel(fns: list, device="cpu", slots: int | None = None) -> list:
+def run_tasks_parallel(fns: list, device=None, slots: int | None = None) -> list:
     """Run task closures on concurrent slots (Spark's task slots; reference
     ``tpcds.py:943-955``): a thread each, at most ``slots`` at once (all of
     them by default), and on the card a CUDA stream each, ordered after the
     caller's stream (the inputs it made) and finished before the slot
     returns. Results in input order; the first error propagates. One task
-    or one slot runs them one after another on the caller's thread."""
+    or one slot runs them one after another on the caller's thread.
+    ``device`` defaults to the package's (``cuda``, which raises without a
+    card)."""
     import concurrent.futures as cf
 
+    from auron_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
     slots = len(fns) if slots is None else slots
     if len(fns) <= 1 or slots <= 1:
         return [fn() for fn in fns]
-    if not str(device).startswith("cuda"):
+    if dev.type != "cuda":
         def run(fn):
             return fn()
     else:
         import torch
 
-        from auron_tpu_torch.device import resolve_device
-
-        dev = resolve_device(device)
         base = torch.cuda.current_stream(dev)
 
         def run(fn):
@@ -623,11 +630,12 @@ def customer_table() -> Table:
     return Table(CUSTOMER_SCHEMA, {"c_customer_sk": sk, "c_band": sk % 5}, {})
 
 
-def ingest_q93(data: TpcdsData, n_map: int, device="cuda", fact=None) -> dict:
-    """Device-resident inputs: the fact table in ``n_map`` partitions and
-    the 5,000-row customer dimension."""
+def ingest_q93(data: TpcdsData, n_map: int, device="cuda", fact=None, only=None) -> dict:
+    """Device-resident inputs: the fact table in ``n_map`` partitions (with
+    ``only``, just those partitions: ``to_batches``) and the 5,000-row
+    customer dimension."""
     return {"fact": fact if fact is not None else to_batches(data.store_sales, n_map,
-                                                              device=device),
+                                                              device=device, only=only),
             "cust": to_batches(customer_table(), 1, device=device)[0]}
 
 
@@ -1242,22 +1250,25 @@ def q3_collect_tree(schema: T.Schema, limit: int = 100):
     return LimitExec(sort, limit)
 
 
-def _run_mesh(tree, resources: dict, n_parts: int, device, conf, stats: dict | None):
-    """One driver run over fresh per-run resources; ``stats`` gets the
-    exchange's statistics, stage walls, kernel launches and peak device
-    memory."""
+def _run_mesh(tree, resources: dict, n_parts: int, device, conf, stats: dict | None,
+              mesh=None, work_dir: str | None = None):
+    """One driver run over fresh per-run resources, on ``mesh`` (default a
+    one-process mesh of ``n_parts`` on ``device``; a multi-process mesh
+    runs the SPMD driver); ``stats`` gets the exchange's statistics, stage
+    walls, kernel launches and peak device memory of this process."""
     import torch
 
     from auron_tpu_torch.ops import partition_kernels
     from auron_tpu_torch.parallel.mesh import make_mesh
     from auron_tpu_torch.parallel.mesh_driver import MeshQueryDriver
 
-    mesh = make_mesh(n_parts, device)
+    mesh = mesh if mesh is not None else make_mesh(n_parts, device)
     if mesh.device.type == "cuda":
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize(mesh.device)
+        torch.cuda.reset_peak_memory_stats(mesh.device)
     before = dict(partition_kernels.LAUNCHES)
-    driver = MeshQueryDriver(mesh, Configuration(conf or {}))
+    driver = MeshQueryDriver(mesh, Configuration(conf or {}), work_dir=work_dir,
+                             spmd=mesh.process_count > 1)
     outs = driver.run(tree, resources)
     if stats is not None:
         exchanges = [{
@@ -1273,22 +1284,41 @@ def _run_mesh(tree, resources: dict, n_parts: int, device, conf, stats: dict | N
             "exchanges": exchanges,
             "reduce_s": driver.walls["reduce_s"],
             "launches": {k: v - before[k] for k, v in partition_kernels.LAUNCHES.items()},
-            "peak_bytes": (torch.cuda.max_memory_allocated()
+            "peak_bytes": (torch.cuda.max_memory_allocated(mesh.device)
                            if mesh.device.type == "cuda" else None),
+            "local_parts": list(driver.local_parts),
         })
     return outs
 
 
 def run_q93_mesh(data: TpcdsData | None = None, n_parts: int = 4, device="cuda",
                  conf: dict | None = None, stats: dict | None = None,
-                 ingested: dict | None = None) -> dict:
+                 ingested: dict | None = None, mesh=None, work_dir: str | None = None):
     """The q93-class query through the planned-exchange driver; returns
-    {k_null, rows, matched, s} sorted by k_null, as ``run_q93_class``."""
+    {k_null, rows, matched, s} sorted by k_null, as ``run_q93_class``. On a
+    multi-process ``mesh`` (``multihost.global_mesh``; ``n_parts`` and
+    ``device`` are the mesh's) it returns this process's answer pieces,
+    {partition: host columns} for its partitions, which
+    ``q93_mesh_answer`` combines across processes."""
+    if mesh is not None:
+        n_parts, device = mesh.n_parts, mesh.device
     if ingested is None:
-        ingested = ingest_q93(data, n_parts, device)
+        only = mesh.local_parts if mesh is not None else None
+        ingested = ingest_q93(data, n_parts, device, only=only)
     resources = {"q93_fact": ingested["fact"], "q93_cust": [ingested["cust"]] * n_parts}
-    outs = _run_mesh(q93_mesh_tree(n_parts), resources, n_parts, device, conf, stats)
-    return _q93_by_key([collect(o) for o in outs])
+    outs = _run_mesh(q93_mesh_tree(n_parts), resources, n_parts, device, conf, stats, mesh,
+                     work_dir)
+    pieces = {p: collect(outs[p]) for p in range(n_parts)}
+    if mesh is not None and mesh.process_count > 1:
+        return {p: pieces[p] for p in mesh.local_parts}
+    return q93_mesh_answer(pieces)
+
+
+def q93_mesh_answer(pieces: dict) -> dict:
+    """The q93 answer from every partition's piece ({partition: host
+    columns}, e.g. the union of each process's ``run_q93_mesh`` pieces),
+    summed in partition order as one process sums them."""
+    return _q93_by_key([pieces[p] for p in sorted(pieces)])
 
 
 def run_q3_mesh(data: TpcdsData | None = None, n_parts: int = 4, device="cuda",

@@ -1,6 +1,6 @@
 """Planned-query execution over the logical partition mesh.
 
-Port of ``auron_tpu/parallel/mesh_driver.py`` (single process). A plan
+Port of ``auron_tpu/parallel/mesh_driver.py``. A plan
 carries ``MeshExchangeExec`` stage boundaries (the ``mesh_exchange`` node of
 the plan IR); ``MeshQueryDriver.run`` resolves them bottom-up:
 
@@ -30,16 +30,36 @@ the plan IR); ``MeshQueryDriver.run`` resolves them bottom-up:
    tree is never changed, so a warm-up and a timed run can share it.
 
 The driver takes an operator tree or a plan proto (pruned with the port's
-``prune_columns``, then planned). Differences from the JAX driver: the P
-partitions share one device (no SPMD across processes: ``spmd=True``
-raises); stages run eager (the port has no whole-stage fusion; the JAX
-package guarantees fused and eager results are bit-identical); the file
-transport's writers reuse the ids the driver computed for the routing
-counts instead of hashing each shard again; the AQE rules walk operator
-trees where the JAX driver walks protos; ``collect`` returns host numpy
-columns. ``ExchangeStats`` adds the mesh transport's ``slot_cap``, and
-``walls`` holds each stage's wall clock, and ``routed_bytes`` the rows
-each exchange routed times their device width.
+``prune_columns``, then planned), and fuses every stage it runs
+(``plan/fusion.fuse_exec_tree``) as ``task_from_proto`` does.
+
+SPMD (``spmd=True`` on a mesh of several processes,
+``multihost.global_mesh``; port of ``mesh_driver.py:138-225, 415-820``):
+every process runs the same driver over the same plan and resources and
+executes only the partitions it owns (``mesh.local_parts``). Per exchange,
+each rank counts its own shards' routing with K2 and one control-plane
+allgather gives every rank the global ``[P, P]`` matrix and the agreed
+stacking capacity; dictionary columns are unified across processes with
+two allgathers (the vocabularies merged in rank order, so every rank
+builds the same one and codes match the one-process driver's); the mesh
+transport's rows cross processes in one ``all_to_all_single`` on the data
+plane; the file transport needs a work_dir every rank sees (a token write,
+a barrier and an allgather that ANDs the answers probe it once): each rank
+writes its own map outputs under global shard names, then a barrier, then
+every rank reads all P maps. AQE coalescing and skew splitting stay off
+under SPMD (each rank owns a fixed set of partitions). In one process
+``spmd=True`` runs the one-process driver, as the JAX package ignores it;
+a mesh of several processes without ``spmd=True`` raises.
+Every rank walks the same collective sequence; a rank that raises leaves
+its peers to fail at the groups' timeout.
+
+Differences from the JAX driver: the file transport's writers reuse the
+ids the driver computed for the routing counts instead of hashing each
+shard again; the AQE rules walk operator trees where the JAX driver walks
+protos; ``collect`` returns host numpy columns. ``ExchangeStats`` adds
+the mesh transport's ``slot_cap``, ``walls`` holds
+each stage's wall clock, and ``routed_bytes`` the rows each exchange
+routed times their device width.
 """
 
 from __future__ import annotations
@@ -172,12 +192,28 @@ class MeshQueryDriver:
 
     def __init__(self, mesh: Mesh, conf: Configuration | None = None,
                  work_dir: str | None = None, spmd: bool = False):
-        if spmd:
-            raise NotImplementedError(
-                "spmd=True needs partitions owned by several processes across cards "
-                "(torch.distributed / NCCL), which the port does not have yet")
         self.mesh = mesh
         self.n_parts = mesh.n_parts
+        if mesh.process_count > 1 and not spmd:
+            raise ValueError(
+                f"a mesh of {mesh.process_count} processes needs spmd=True: each "
+                "process holds only its own partitions")
+        #: SPMD across processes: every process runs this same driver over
+        #: the global mesh and executes only the partitions it owns; one
+        #: process ignores the flag
+        self.spmd = bool(spmd) and mesh.process_count > 1
+        self.local_parts = list(mesh.local_parts) if self.spmd else list(range(self.n_parts))
+        if self.spmd:
+            lp = self.local_parts
+            assert lp, (
+                "SPMD driver: this process owns no device of the mesh — "
+                "every participating process must contribute devices")
+            assert len(lp) * mesh.process_count == self.n_parts, (
+                "SPMD driver needs an equal device count per process "
+                f"(local {len(lp)} x {mesh.process_count} != {self.n_parts})")
+            assert lp == list(range(lp[0], lp[0] + len(lp))), (
+                "SPMD driver needs process-contiguous mesh device order")
+        self._workdir_shared: bool | None = None  # SPMD probe, cached
         self.conf = conf or Configuration()
         self.work_dir = work_dir
         self.stats: list[ExchangeStats] = []
@@ -195,7 +231,8 @@ class MeshQueryDriver:
 
     def run(self, plan, resources: dict) -> list[list[Batch]]:
         """Resolve exchanges, then run the residual plan on every partition.
-        Returns per-partition batch lists (the reduce-stage outputs)."""
+        Returns per-partition batch lists (the reduce-stage outputs; under
+        SPMD only this process's partitions are filled)."""
         try:
             self.stats = []
             self.walls = {}
@@ -204,10 +241,14 @@ class MeshQueryDriver:
             resolved = self._rewrite(_as_tree(plan), resources)
             t0 = time.perf_counter()
             n_reduce = self._maybe_coalesce_inputs(resolved, resources)
-            if n_reduce == self.n_parts:
+            if n_reduce == self.n_parts and not self.spmd:
                 n_reduce = self._maybe_split_skew(resolved, resources)
             resolved = fuse_exec_tree(resolved, self.conf, str(self.mesh.device))
-            outs = [self._run_partition(resolved, p, resources) for p in range(n_reduce)]
+            # SPMD: only this process's partitions run (the others stay empty)
+            parts = self.local_parts if self.spmd else range(n_reduce)
+            outs: list[list[Batch]] = [[] for _ in range(n_reduce)]
+            for p in parts:
+                outs[p] = self._run_partition(resolved, p, resources)
             self._sync()
             self.walls["reduce_s"] = time.perf_counter() - t0
             return outs
@@ -365,16 +406,17 @@ class MeshQueryDriver:
         self._exchange_seq += 1
 
         # ---- map stage: the child sub-plan per shard (AQE may have
-        # coalesced this stage's shuffle inputs, shrinking its width)
+        # coalesced this stage's shuffle inputs, shrinking its width); SPMD:
+        # only this process's shards run here, its peers run theirs
         t0 = time.perf_counter()
         n_src = self._maybe_coalesce_inputs(child, resources)
-        if n_src == self.n_parts:
+        if n_src == self.n_parts and not self.spmd:
             n_src = self._maybe_split_skew(child, resources)
         schema = child.schema
         child = fuse_exec_tree(child, self.conf, str(self.mesh.device))
         shard_batches: list[Batch] = []
         pids: list[torch.Tensor] = []
-        for p in range(n_src):
+        for p in (self.local_parts if self.spmd else range(n_src)):
             ctx = self._ctx(p, resources)
             with conf_scope(ctx.conf):
                 try:
@@ -389,6 +431,10 @@ class MeshQueryDriver:
 
         # ---- statistics + transport decision
         counts = self._routing_counts(shard_batches, pids)
+        spmd_cap = None
+        if self.spmd:
+            local_cap = max((b.capacity for b in shard_batches), default=1)
+            counts, spmd_cap = self._allgather_counts(counts, local_cap)
         # the hot receiving shard bounds device residency, not the mean
         max_shard_rows = int(counts.sum(axis=0).max()) if counts.size else 0
         est_shard_bytes = max_shard_rows * _row_width_bytes(schema)
@@ -402,6 +448,22 @@ class MeshQueryDriver:
             # the mesh transport is square (P src = P dst); a coalesced map
             # stage routes through the file transport
             mode = "file"
+        if self.spmd and mode == "file" and not self._workdir_is_shared():
+            # the file transport needs every process to see every map output
+            if self.conf.get(EXCHANGE_MODE) == "file":
+                raise RuntimeError(
+                    "exchange.mode=file in SPMD mode requires a SHARED "
+                    "auron.work_dir (capability probe failed: peers cannot "
+                    "see this process's files). Point work_dir at shared "
+                    "storage or use exchange.mode=mesh.")
+            # auto routed to file (payload over exchange.mesh.max.bytes) but
+            # no shared storage: stay on the collective and say so
+            import logging
+
+            logging.getLogger("auron_tpu_torch").warning(
+                "SPMD exchange %s: est %d bytes/shard exceeds exchange.mesh.max.bytes and "
+                "work_dir is not shared; riding all_to_all anyway", ex_id, est_shard_bytes)
+            mode = "mesh"
         stats = ExchangeStats(ex_id, mode, counts, est_shard_bytes,
                               routed_bytes=int(counts.sum()) * _row_width_bytes(schema))
         self.stats.append(stats)
@@ -409,7 +471,7 @@ class MeshQueryDriver:
             node = self._file_exchange(_ShardPids(part.num_partitions, pids), schema,
                                        shard_batches, ex_id, resources)
         else:
-            node = self._mesh_exchange(schema, shard_batches, pids, stats, resources)
+            node = self._mesh_exchange(schema, shard_batches, pids, stats, resources, spmd_cap)
         self._sync()
         self.walls[f"{ex_id}.map_s"] = t1 - t0
         self.walls[f"{ex_id}.exchange_s"] = time.perf_counter() - t1
@@ -422,23 +484,75 @@ class MeshQueryDriver:
                  for b, pid in zip(batches, pids)]
         return torch.stack(hists).cpu().numpy().astype(np.int64)
 
+    def _allgather_counts(self, local: np.ndarray, local_cap: int) -> tuple[np.ndarray, int]:
+        """SPMD: each process's ``[L, P]`` routing counts merged into the
+        global ``[P, P]`` matrix, and the global stacking capacity agreed:
+        one control-plane allgather per exchange (the partition ids and the
+        capacity ride as extra columns)."""
+        from auron_tpu_torch.parallel import multihost
+
+        payload = np.concatenate([
+            np.asarray(self.local_parts, dtype=np.int64)[:, None],
+            local.reshape(len(self.local_parts), self.n_parts),
+            np.full((len(self.local_parts), 1), local_cap, dtype=np.int64),
+        ], axis=1)
+        rows = multihost.allgather_array(payload).reshape(-1, payload.shape[1])
+        full = np.zeros((self.n_parts, self.n_parts), dtype=np.int64)
+        for r in rows:
+            full[int(r[0])] = r[1:-1]
+        return full, int(rows[:, -1].max())
+
+    def _unify_dicts_global(self, batches: list[Batch], dict_cols: list[int]) -> dict:
+        """SPMD cross-process dictionary unification: each process unifies
+        its local shards per column, the local vocabularies cross in two
+        control-plane allgathers (lengths, then padded pickled payloads)
+        whatever the column count, and every process merges them in rank
+        order with the same ``merge_vocab``, so all build the same
+        vocabulary, the one-process driver's. Returns {column: (unified,
+        [local code -> global code table per local shard])}."""
+        import pickle
+
+        from auron_tpu_torch.columnar.batch import merge_vocab
+        from auron_tpu_torch.parallel import multihost
+
+        local_vocab, local_remaps = {}, {}
+        for ci in dict_cols:
+            unified, remaps = unify_dict(batches, ci)
+            # no placeholder entry for a process whose shards hold none
+            local_vocab[ci] = list(unified) if any(len(r) for r in remaps) else []
+            local_remaps[ci] = remaps
+        per_proc = [pickle.loads(b) for b in
+                    multihost.allgather_bytes(pickle.dumps(local_vocab, protocol=4))]
+        out = {}
+        for ci in dict_cols:
+            unified, proc_remaps = merge_vocab([pv.get(ci, []) for pv in per_proc])
+            mine = proc_remaps[self.mesh.process_index]
+            # compose: local batch codes -> local unified -> global
+            out[ci] = (unified, [mine[r] for r in local_remaps[ci]])
+        return out
+
     # ---- device-resident transport ------------------------------------
 
     def _mesh_exchange(self, schema: T.Schema, batches: list[Batch],
                        pids: list[torch.Tensor], stats: ExchangeStats,
-                       resources: dict) -> ExecOperator:
+                       resources: dict, spmd_cap: int | None = None) -> ExecOperator:
         ncols = len(schema)
-        # unify dictionaries so codes mean the same in every shard
+        # unify dictionaries so codes mean the same in every shard (SPMD:
+        # in every process)
         dicts: list = [None] * ncols
         values = [[b.col_values(ci) for b in batches] for ci in range(ncols)]
-        for ci, f in enumerate(schema):
-            if f.dtype.is_dict_encoded:
-                unified, remaps = unify_dict(batches, ci)
-                dicts[ci] = unified
-                values[ci] = [torch.from_numpy(r).to(v.device)[v.clamp(0, len(r) - 1).long()]
-                              for v, r in zip(values[ci], remaps)]
-        cap = max(b.capacity for b in batches)
-        dev = batches[0].torch_device
+        dict_cols = [ci for ci, f in enumerate(schema) if f.dtype.is_dict_encoded]
+        if self.spmd and dict_cols:
+            unified_remaps = self._unify_dicts_global(batches, dict_cols)
+        else:
+            unified_remaps = {ci: unify_dict(batches, ci) for ci in dict_cols}
+        for ci, (unified, remaps) in unified_remaps.items():
+            dicts[ci] = unified
+            values[ci] = [torch.from_numpy(r).to(v.device)[v.clamp(0, len(r) - 1).long()]
+                          for v, r in zip(values[ci], remaps)]
+        # SPMD: the capacity agreed in the counts allgather
+        cap = spmd_cap if spmd_cap is not None else max(b.capacity for b in batches)
+        dev = self.mesh.device
 
         def stacked(parts: list[torch.Tensor]) -> torch.Tensor:
             out = torch.zeros((len(parts), cap), dtype=parts[0].dtype, device=dev)
@@ -459,14 +573,36 @@ class MeshQueryDriver:
                                "rows from slots sized by the exact routing counts")
         stats.slot_cap = slot_cap
         rvals, rmasks = recv[:ncols], recv[ncols:]
+        # the partitions this process holds, keyed by global id (SPMD: local
+        # receive row i is partition local_parts[i])
         resources[stats.exchange_id] = {
-            p: [Batch(schema, DeviceBatch(rsel[p], tuple(v[p] for v in rvals),
-                                          tuple(m[p] for m in rmasks)), tuple(dicts))]
-            for p in range(self.n_parts)
+            p: [Batch(schema, DeviceBatch(rsel[i], tuple(v[i] for v in rvals),
+                                          tuple(m[i] for m in rmasks)), tuple(dicts))]
+            for i, p in enumerate(self.local_parts)
         }
         return ResourceScanExec(schema, stats.exchange_id)
 
     # ---- durable file transport ---------------------------------------
+
+    def _workdir_is_shared(self) -> bool:
+        """SPMD capability probe (once per driver): process 0 writes a token
+        under work_dir, a control-plane barrier lands, every process checks
+        that it sees the token, and an allgather ANDs the answers."""
+        if self._workdir_shared is not None:
+            return self._workdir_shared
+        from auron_tpu_torch.parallel import multihost
+
+        # every process walks the same collective sequence even without a
+        # work_dir of its own: an early return would leave its peers waiting
+        token = os.path.join(self.work_dir, ".auron_shared_probe") if self.work_dir else None
+        if token and self.mesh.process_index == 0:
+            os.makedirs(self.work_dir, exist_ok=True)
+            with open(token, "w") as f:
+                f.write("probe")
+        multihost.barrier()
+        saw = np.array([1 if token and os.path.exists(token) else 0], dtype=np.int64)
+        self._workdir_shared = bool(multihost.allgather_array(saw).min() == 1)
+        return self._workdir_shared
 
     def _file_exchange(self, part, schema: T.Schema, batches: list[Batch], ex_id: str,
                        resources: dict) -> ExecOperator:
@@ -481,19 +617,30 @@ class MeshQueryDriver:
             self._tmp_dirs.append(work)  # removed after the residual run
         src_id = ex_id + "__src"
         resources[src_id] = [[b] for b in batches]
-        pairs = []
+        # SPMD: this process writes only its own shards' map outputs, named
+        # by global shard id; a barrier then makes every peer's files
+        # visible before any read
+        map_ids = self.local_parts if self.spmd else list(range(len(batches)))
+        pairs = [(os.path.join(work, f"{ex_id}_map{p}.data"),
+                  os.path.join(work, f"{ex_id}_map{p}.index"))
+                 for p in (range(self.n_parts) if self.spmd else map_ids)]
         try:
-            for p in range(len(batches)):
-                data_f = os.path.join(work, f"{ex_id}_map{p}.data")
-                index_f = os.path.join(work, f"{ex_id}_map{p}.index")
+            for local_i, p in enumerate(map_ids):
+                data_f, index_f = pairs[p]
                 w = ShuffleWriterExec(ResourceScanExec(schema, src_id), part, data_f, index_f)
-                for _ in self._run_partition(w, p, resources):
+                for _ in self._run_partition(w, local_i, resources):
                     pass
-                pairs.append((data_f, index_f))
         finally:
             resources.pop(src_id, None)
+        if self.spmd:
+            from auron_tpu_torch.parallel import multihost
+
+            multihost.barrier()
         provider = MultiMapBlockProvider(pairs)
-        if self.conf.get(EXCHANGE_COALESCE_ENABLE) or self.conf.get(EXCHANGE_SKEW_ENABLE):
+        # SPMD: coalescing and skew splitting would resize the reduce stage,
+        # but every process owns a fixed set of partitions
+        if not self.spmd and (self.conf.get(EXCHANGE_COALESCE_ENABLE)
+                              or self.conf.get(EXCHANGE_SKEW_ENABLE)):
             from auron_tpu_torch.parallel.broadcast import map_output_sizes
 
             # coalescing reads the per-partition totals, skew splitting the

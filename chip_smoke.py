@@ -18,6 +18,7 @@
     python3 chip_smoke.py --sql-only  # phases 1, 2 and 23 only
     python3 chip_smoke.py --serve-only  # phases 1, 2 and 24 only
     python3 chip_smoke.py --stream-only  # phases 1, 2 and 25 only
+    python3 chip_smoke.py --spmd-only  # phases 1, 2 and 26 only
 
 Phases, in order, none of them caught — any failure exits non-zero:
 
@@ -42,7 +43,9 @@ Phases, in order, none of them caught — any failure exits non-zero:
    23,040,000} x n_parts in {1, 2, 4, 8, 200, 4096, one past its
    shared-memory branch} x 0 %, 50 % and 100 % live rows, with -1, n_parts,
    INT32_MIN and INT32_MAX among the ids (also against numpy's bincount);
-   time kernels, plain versions and library calls with CUDA events, and
+   first ("3 (timing)", with the card to this process alone, before the
+   second process below starts), time kernels, plain versions and library
+   calls with CUDA events, and
    every bitonic launch's device time with torch.profiler (bitonic at
    16384 x 8, 16384 x 11, 8192 x 11, 2^20 x 8, 2^23 x 8, 2^24 x 8 and
    2^25 x 5 planes, the 2^23 and 2^24 shapes q72's probe-side sorts, the
@@ -169,8 +172,8 @@ Phases, in order, none of them caught — any failure exits non-zero:
    first case of each build), each held against a numpy oracle (rows,
    NULL-extended rows on each side, key and value sums); the predictor A/B:
    q42, q3, q6 and q18 with ``exec.selectivity.predictor`` on and off,
-   bit-identical under torch's deterministic algorithms, then two timed
-   runs of each mode equal to the oracle, where every unique-join probe
+   bit-identical under torch's deterministic algorithms, then a timed
+   run of each mode equal to the oracle, where every unique-join probe
    stream makes exactly one blocking read with the predictor on;
 14. the decimal paths (``tpcds.DECIMAL_CLASSES``) over the same data:
    q9b (20,000 decimal(38,4) amounts, partial and final sum/min/max/count
@@ -188,10 +191,10 @@ Phases, in order, none of them caught — any failure exits non-zero:
    q3-mesh (FUSION_PATHS) with the defaults (whole-stage fusion as CUDA
    graphs, the incremental probe and merge-path, as auto resolves on the
    card) and with every key of the slice off (FUSION_OFF): per mode a
-   warm-up, two timed runs and, for q42, q3 and the decimal q42 (every path
+   warm-up, a timed run and, for q42, q3 and the decimal q42 (every path
    with ``--profile``), one profiled run, every answer equal to the
    oracle and the two modes' answers equal to each other (exact types bit
-   for bit, float sums at rel 1e-9); the second timed run captures no
+   for bit, float sums at rel 1e-9); the timed run captures no
    graph, q42 and q3 replay fused stages; walls, captures, replays,
    segments left eager by reason, graph bytes, peak memory, device idle
    share and each aggregate's paths (dense, probe, generic batches, probe
@@ -204,8 +207,8 @@ Phases, in order, none of them caught — any failure exits non-zero:
    42nd class (``explode(split(i_tags, ','))`` over item, count by tag)
    and the same explode over the whole fact after a broadcast join with
    item (23.04 M fact rows in 22 input batches, ~46 M exploded rows in
-   ~700 chunks of 65,536, count and price sum by tag): a warm-up, then two
-   timed runs each, equal to the numpy oracle, exploding exactly the rows
+   ~700 chunks of 65,536, count and price sum by tag): a warm-up, then a
+   timed run each, equal to the numpy oracle, exploding exactly the rows
    the data holds with one blocking read of the GenerateExec per input
    batch; walls, input batches, output chunks, exploded rows, the blocking
    reads, peak device memory and the top host timers are printed (with
@@ -219,7 +222,7 @@ Phases, in order, none of them caught — any failure exits non-zero:
    ``ipc_writer`` blocks, q93's reduce answers through ``next_batch_c``; a
    host clock around all of it; q42 also with ``exec.scan.zerocopy`` off,
    which copies every plane into an owned array before its staging copy):
-   a warm-up each way, then two timed runs each, every answer equal to its
+   a warm-up each way, then a timed run each, every answer equal to its
    oracle, each boundary run launching K1 and K3 as its card run does. Walls, ingest seconds and bytes and GB/s,
    the zero-copy and copied planes, egress, K1/K3 launches, stage walls and
    peak device memory are printed (with ``--profile``, one profiled run of
@@ -257,7 +260,7 @@ Phases, in order, none of them caught — any failure exits non-zero:
    sorted through K3/K4); q93's host plan through one ``bridge_harness
    --convert`` process (its response equal to the in-process one, the
    stage namespace replaced) and that response's stages through the
-   library loaded in this process. Each a warm-up, then two timed runs;
+   library loaded in this process. Each a warm-up, then a timed run;
    every answer equal to its oracle (the range sort: each partition
    ordered, every row between its bounds by Spark's rule, the four columns
    together the fact's rows after a full lexsort by library sorts on the
@@ -289,7 +292,7 @@ Phases, in order, none of them caught — any failure exits non-zero:
    from the ORC fact and q3 over the sorted files with a pushed filter of
    the five Novembers' ``ss_sold_date_sk`` ranges (``row_groups_pruned``
    above 0), each through its ``FileSourceScanExec`` host plan: a warm-up,
-   then two timed runs, every answer equal to its oracle, K3 1 (q42), K1
+   then a timed run, every answer equal to its oracle, K3 1 (q42), K1
    24 (q93). Walls against phase 19's in-memory walls, write walls, bytes
    written, the scans' ``io_time``/``upload_time``, the ingest and pruning
    counters and peak memory are printed; a missing ``pyarrow.orc`` fails
@@ -300,7 +303,7 @@ Phases, in order, none of them caught — any failure exits non-zero:
    MAP lookup), 4 map x 4 reduce over the file shuffle of the LIST states,
    then one task's SortExec over the reduce tasks' tops, every task from
    its TaskDefinition bytes: a warm-up (its kernel sorts held against the
-   plain network on the card, bit for bit), then two timed runs, each
+   plain network on the card, bit for bit), then a timed run, each
    answer equal to the numpy oracle (keys, struct fields, map entries and
    every set exactly, every list as a multiset), K1 and K3 launched as
    ``sort_plan`` lists for the recorded sorts; the answer's STRUCT, MAP and
@@ -338,8 +341,8 @@ Phases, in order, none of them caught — any failure exits non-zero:
    each of the 24 corpus texts (15 verbatim dsdgen store-channel texts, 9
    adaptations) compiled to plan IR, its plan text equal to the reference's
    golden (``tests/goldens/sql/<name>.txt``), a warm-up on the card while
-   the pandas oracles run in four threads, then, with every oracle done,
-   two timed runs: the distributed stage through the planned-exchange
+   the pandas oracles run in threads (ORACLE_THREADS), then, with every
+   oracle done, a timed run: the distributed stage through the planned-exchange
    driver at P = ``sql.shuffle.partitions`` = 2 and the collect task from
    TaskDefinition bytes; every answer equal to its oracle, K2 once per
    source shard of every exchange (21 plans hold one), the bitonic
@@ -363,9 +366,10 @@ Phases, in order, none of them caught — any failure exits non-zero:
    keep-alive connection POST /sql of q3, q46 and q65 (rows equal to the
    served answers) and of q53 and a denied conf key (400 each), while a
    client serves queries: /healthz, /metrics, /metrics.prom, /trace?last=5,
-   /queries and /serve answer 200 with parseable bodies. Then one serial
-   corpus pass with ``obs.mode`` off and one with the recorder (twice,
-   alternating, under ``--serve-only``; walls printed, no gate). Printed: each leg's seconds,
+   /queries and /serve answer 200 with parseable bodies. Under
+   ``--serve-only``, then two serial corpus passes with ``obs.mode`` off
+   and two with the recorder, alternating (walls printed, no gate; the
+   whole script leaves them out to keep inside its time limit). Printed: each leg's seconds,
    queries/s, p50 and p99, the concurrent/serial ratio beside the
    reference's 2.0, admission and plan-cache stats, the engine counters,
    peak device memory, the launches and the trace events recorded.
@@ -397,10 +401,43 @@ Phases, in order, none of them caught — any failure exits non-zero:
    (the partial aggregate hands the writer one batch), K3/K4 as
    ``sort_plan`` lists; walls, micro-batches, deserialize seconds,
    shuffle bytes and launches printed;
-26. print the kernel table as one JSON line (each kernel's launches summed
-   over the timed runs of phases 4-25, and per run), then the status line.
+26. multi-process SPMD (``parallel/multihost.py``, ``MeshQueryDriver(spmd=
+   True)``, the cross-process exchange, ``sharded_agg_exchange_step``): the
+   one-process runs on the card first, then two worker processes (this
+   script with ``--spmd-worker``, the kernels already built) on the
+   card over a gloo data plane (NCCL refuses two ranks on one card), each
+   owning 2 of P = 4 partitions, reading the fact table from the phase's
+   files: (a) q93-mesh on the file transport (a warm-up and a timed run),
+   then on the mesh transport (one run, no warm-up: the file runs already
+   ran its map stage and loaded the kernels), AQE coalescing off on both
+   sides (SPMD cannot regroup partitions), the union of the ranks' answer
+   pieces equal to the one-process run bit for bit and to the oracle, K1
+   and K2 launched once a local shard in each worker; (b) the reference's SPMD
+   STRING group-by over 23.04 M rows whose shards code into different
+   subsets of the vocabulary, equal bit for bit and to the numpy oracle;
+   (c) ``sharded_agg_exchange_step`` on [2, 2^22] rows a rank against the
+   one-process step on [4, 2^22] (sha256 of every output block); then (d)
+   rank 0 runs ``all_to_all_rows`` through a world-1 NCCL group of its own
+   over [4, 2^22] rows of four columns, bit for bit the one-process
+   relayout, overflow included. Every worker wait has a
+   timeout. Per leg and rank: map_s, exchange_s, reduce_s,
+   K1/K2 launches, peak device memory, beside the one-process walls;
+27. print the kernel table as one JSON line (each kernel's launches summed
+   over the timed runs of phases 4-26 in both processes, and per run),
+   then the status line.
 
 Each phase prints its seconds.
+
+The whole script runs in two processes on the one card, to end inside its
+time limit: once the kernels are built and timed, a second process (this
+script with ``--late-phases``) makes the data from the same seed and runs
+phases 18-26 while this one runs phases 3-17; this one then prints the
+second process's output, takes its results (``late.pkl`` in its work
+directory) and goes on with phase 27. The second process's
+session is killed if this one fails, and it ends itself when this one
+ends. The walls of phases 3-26 in the whole script are therefore taken
+with the other process on the card and the host; the kernel timing and
+the ``--*-only`` runs take theirs alone.
 
 Every launch count is set to 0 just before the timed run of a query and
 read just after it; launches made to compare kernels are not counted. A
@@ -447,13 +484,17 @@ def _oracle(name: str, data):
     return ORACLES[name]
 
 
+#: threads computing host oracles: one a core, up to 8 (numpy and pandas
+#: release the interpreter lock in their sorts, gathers and reductions)
+ORACLE_THREADS = max(4, min(8, os.cpu_count() or 4))
+
+
 def _oracles(fns: dict) -> dict:
     """{name: fn()} with the host oracles computed in threads, before any
-    timed run (numpy releases the interpreter lock in its sorts, gathers
-    and reductions)."""
+    timed run."""
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(max_workers=max(1, min(4, len(fns)))) as pool:
+    with ThreadPoolExecutor(max_workers=max(1, min(ORACLE_THREADS, len(fns)))) as pool:
         futures = {name: pool.submit(fn) for name, fn in fns.items()}
         return {name: f.result() for name, f in futures.items()}
 
@@ -2044,7 +2085,7 @@ JOIN_TAIL_TIMED_RUNS = 3
 SWEEP_ITEM_LIMIT = 13_500
 SWEEP_TYPES = ("inner", "left", "right", "full", "left_semi", "left_anti", "existence")
 AB_CLASSES = ("q42", "q3", "q6", "q18")
-AB_TIMED_MODES = ("on", "off", "on", "off")
+AB_TIMED_MODES = ("on", "off")
 
 
 def _assert_equal_or_close(label: str, got: dict, want: dict) -> None:
@@ -2523,7 +2564,7 @@ FUSION_OFF = {"exec.fuse.enable": "off", "exec.filter.fuse": "false",
               "exec.fuse.agg.inputs": "false", "exec.fuse.probe": "off",
               "exec.fuse.shuffle": "off", "exec.agg.incremental.probe": "off",
               "exec.agg.incremental.mergepath": "off"}
-FUSION_TIMED_RUNS = 2
+FUSION_TIMED_RUNS = 1  # one: the whole script keeps inside its time limit
 #: the A/B paths profiled each way without --profile (q42 and q3: host
 #: dispatch; the decimal q42: its cub sorts)
 FUSION_PROFILED = ("q42", "q3", "q42_decimal")
@@ -2618,7 +2659,7 @@ def _fusion_ab_path(name: str, data, fact4, profile: bool) -> dict:
                          "pool_bytes": fs["pool_bytes"], "evictions": fs["evictions"],
                          "agg": _agg_paths(stats)})
         if mode == "on":
-            assert runs[-1]["captures"] == 0, (name, "the second timed run captured", runs)
+            assert runs[-1]["captures"] == 0, (name, "the timed run captured", runs)
             if name in ("q42", "q3"):
                 assert all(r["replays"] > 0 for r in runs), (name, "no fused stage replayed")
         else:
@@ -2715,7 +2756,7 @@ def run_fusion_phase(data, profile: bool = False) -> dict:
 
 
 #: phase 16: warm-up, then this many timed runs of each generate class
-GENERATE_TIMED_RUNS = 2
+GENERATE_TIMED_RUNS = 1  # one: the whole script keeps inside its time limit
 
 
 def _generate_inputs(name: str, data) -> dict:
@@ -2798,7 +2839,7 @@ def run_generate_phase(data, profile: bool = False) -> dict:
 
 
 #: phase 17: warm-up, then this many timed runs of each query each way
-BRIDGE_TIMED_RUNS = 2
+BRIDGE_TIMED_RUNS = 1  # one: the whole script keeps inside its time limit
 
 
 def _bridge_runners(name: str, data, host: dict):
@@ -3186,7 +3227,7 @@ def run_plan_ir_phase(data, fact, seed: int, kernels_checked: bool) -> dict:
     return out
 
 
-CONVERT_TIMED_RUNS = 2
+CONVERT_TIMED_RUNS = 1  # one: the whole script keeps inside its time limit
 #: (K1, K2, K3) launches of a converted run, as phase 18's runs from bytes
 #: (q42 K3 once, q93 K1 24: 6 batches x 4 map tasks) and q93-mesh (K1 and K2
 #: once per source shard)
@@ -3422,7 +3463,7 @@ def run_convert_phase(data, fact, seed: int, kernels_checked: bool) -> dict:
 
 
 #: phase 20: warm-up, then this many timed runs of each read from files
-FILES_TIMED_RUNS = 2
+FILES_TIMED_RUNS = 1  # one: the whole script keeps inside its time limit
 #: phase 20: (K1, K3) launches of a timed read, as phase 19's converted runs
 #: (q93: 6 row groups of 1 << 20 rows in each of 4 map tasks' files)
 FILES_LAUNCHES = {"q42": (0, 1), "q93": (24, 0), "q3": (0, 0), "q42 (orc)": (0, 1),
@@ -3724,7 +3765,7 @@ def run_files_phase(data, seed: int, kernels_checked: bool, convert: dict | None
 
 
 #: phase 21: timed runs of the customer-basket class
-BASKET_TIMED_RUNS = 2
+BASKET_TIMED_RUNS = 1  # one: the whole script keeps inside its time limit
 
 
 def _pyarrow_of(hb):
@@ -4025,7 +4066,7 @@ def run_udf_shuffle_phase(data, seed: int, kernels_checked: bool) -> dict:
 
 
 #: phase 23: timed runs of each SQL corpus query after its warm-up
-SQL_TIMED_RUNS = 2
+SQL_TIMED_RUNS = 1  # one: the whole script keeps inside its time limit
 
 
 def _sql_line(name: str, rec: dict) -> str:
@@ -4082,7 +4123,7 @@ def run_sql_phase(data, seed: int, kernels_checked: bool) -> dict:
                  "queries": {}}
     warm: dict = {}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=ORACLE_THREADS) as pool:
         pending = {n: pool.submit(sqlgate.oracle_answer, sqlgate.case_by_name(n), frames)
                    for n in names}
         for name in names:
@@ -4101,7 +4142,8 @@ def run_sql_phase(data, seed: int, kernels_checked: bool) -> dict:
     # a replicated view is one upload shared by every partition
     slots = {id(b): b.capacity for v in cache.values() for p in v for b in p}
     print(f"phase 23: warm-ups and oracles in {t_warm:.2f} s (oracles "
-          f"{sum(s for _, s in oracles.values()):.2f} s summed over 4 threads); the tables on "
+          f"{sum(s for _, s in oracles.values()):.2f} s summed over {ORACLE_THREADS} threads); "
+          f"the tables on "
           f"the card: {sum(slots.values()):,} batch slots under {sorted(r for r, _ in cache)}",
           flush=True)
     for name in names:
@@ -4140,14 +4182,14 @@ SERVE_CLIENTS_IN_SCRIPT = 2
 #: phase 24: the serial corpus passes of the recorder A/B, alternating;
 #: the whole script runs one a mode, so that it ends inside its time limit
 SERVE_AB_MODES = ("off", "recorder", "off", "recorder")
-SERVE_AB_MODES_IN_SCRIPT = ("off", "recorder")
+SERVE_AB_MODES_IN_SCRIPT = ()  # the whole script keeps inside its time limit
 #: phase 24: the queries POST /sql sends over one keep-alive connection
 SERVE_HTTP_QUERIES = ("q3", "q46", "q65")
 
 
 def _sql_reference(data, seed: int) -> tuple[dict, dict]:
     """``--serve-only``: phase 23's inputs and per-query launches without
-    phase 23: the tables, frames and oracles (four threads beside the
+    phase 23: the tables, frames and oracles (threads beside the
     warm-ups), then one timed run of each query after its warm-up."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -4160,7 +4202,7 @@ def _sql_reference(data, seed: int) -> tuple[dict, dict]:
     frames = frames_of(tables)
     names = [c.name for c in sqlgate.CASES]
     cache: dict = {}
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=ORACLE_THREADS) as pool:
         pending = {n: pool.submit(sqlgate.oracle_answer, sqlgate.case_by_name(n), frames)
                    for n in names}
         for name in names:
@@ -4363,9 +4405,10 @@ def run_serve_phase(data, sf: float, seed: int, clients: int, sql: dict | None =
         finally:
             obs.set_mode(prev)
         out["recorder_ab"] = ab
-        print(f"serve recorder A/B (serial corpus passes, alternating): off "
-              + " / ".join(f"{x:.4f}" for x in ab["off"]) + " s, recorder "
-              + " / ".join(f"{x:.4f}" for x in ab["recorder"]) + " s", flush=True)
+        if ab_modes:
+            print(f"serve recorder A/B (serial corpus passes, alternating): off "
+                  + " / ".join(f"{x:.4f}" for x in ab["off"]) + " s, recorder "
+                  + " / ".join(f"{x:.4f}" for x in ab["recorder"]) + " s", flush=True)
     finally:
         httpsvc.stop()
     out["stats"] = server.stats()
@@ -4604,6 +4647,636 @@ def run_stream_phase(gate_events: int, exchange_events: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 26: multi-process SPMD (parallel/multihost.py, the SPMD driver, the
+# cross-process exchange, the step functions)
+# ---------------------------------------------------------------------------
+
+#: logical partitions of phase 26 and the worker processes owning them: two
+#: ranks share the one card, so their data plane is gloo (NCCL refuses two
+#: ranks on one device)
+SPMD_PARTS = 4
+SPMD_RANKS = 2
+#: leg (c): rows a partition of sharded_agg_exchange_step, keys drawn from
+#: [0, 2^20), slots of 2^19 groups a (source, destination) pair
+SPMD_AGG_ROWS = 1 << 22
+SPMD_AGG_KEYS = 1 << 20
+SPMD_AGG_SLOT_CAP = 1 << 19
+#: leg (d): rows a partition through the world-1 NCCL group; half the ids
+#: bunched on partition 0 overflow its 2^20 slots
+SPMD_NCCL_ROWS = 1 << 22
+SPMD_NCCL_SLOT_CAP = 1 << 20
+SPMD_WORKER_TIMEOUT_S = 300
+SPMD_CATS = ("Books", "Home", "Electronics", "Music", "Sports", "Garden", "Toys")
+SPMD_Q93_CONF = {"exchange.coalesce.enable": "false"}
+#: leg (a)'s transports in order: the file runs (a warm-up and a timed run)
+#: go first, so the mesh transport's one run finds the map stage warm
+SPMD_Q93_MODES = ("file", "mesh")
+
+
+def _spmd_dict_plan(n_parts: int):
+    """Leg (b): the reference's SPMD STRING group-by (``tests/test_multihost.py``
+    ``_SPMD_DICT_WORKER``): partial hash_agg on the dict-encoded key ->
+    mesh_exchange on it -> final hash_agg."""
+    from auron_tpu_torch import types as T
+    from auron_tpu_torch.exprs.ir import col
+    from auron_tpu_torch.plan import builders as B
+
+    schema = T.Schema((T.Field("cat", T.STRING, False), T.Field("v", T.INT64, False)))
+    scan = B.memory_scan(schema, "fact")
+    partial = B.hash_agg(scan, [(col(0), "cat")], [("sum", col(1), "s"),
+                                                   ("count_star", None, "c")], "partial")
+    ex = B.mesh_exchange(partial, B.hash_partitioning([col(0)], n_parts), "ex0")
+    return schema, B.hash_agg(ex, [(col(0), "cat")], [("sum", col(1), "s"),
+                                                      ("count", col(2), "c")], "final")
+
+
+def _spmd_dict_parts(n_rows: int, n_parts: int, seed: int, device, only=None):
+    """Leg (b)'s input: ``n_rows`` rows in ``n_parts`` partitions; partition p
+    codes into its own dictionary, 4 of the 7 categories from p on (mod 7)
+    in a rotated order, so every shard (and process) sees a different subset
+    of the vocabulary. Returns (per-partition batch lists, empty outside
+    ``only``; the numpy oracle {category: (sum, count)})."""
+    import numpy as np
+
+    from auron_tpu_torch.columnar.batch import Batch, object_array
+
+    schema, _ = _spmd_dict_plan(n_parts)
+    rng = np.random.default_rng(seed)
+    per = n_rows // n_parts
+    parts, sums, counts = [], np.zeros(len(SPMD_CATS)), np.zeros(len(SPMD_CATS), np.int64)
+    for p in range(n_parts):
+        codes = rng.integers(0, 4, per).astype(np.int32)
+        v = rng.integers(-300, 300, per).astype(np.int64)
+        ids = np.array([(p + j) % len(SPMD_CATS) for j in (3, 1, 0, 2)])
+        sums += np.bincount(ids[codes], weights=v, minlength=len(SPMD_CATS))
+        counts += np.bincount(ids[codes], minlength=len(SPMD_CATS))
+        parts.append([] if only is not None and p not in only else [Batch.from_numpy(
+            [codes, v], schema, dicts=[object_array([SPMD_CATS[i] for i in ids]), None],
+            device=device)])
+    oracle = {c: (int(s), int(n)) for c, s, n in zip(SPMD_CATS, sums, counts) if n}
+    return parts, oracle
+
+
+def _spmd_agg_inputs(seed: int):
+    """Leg (c)'s stacked [P, 2^22] keys, values and liveness (numpy)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shape = (SPMD_PARTS, SPMD_AGG_ROWS)
+    return (rng.integers(0, SPMD_AGG_KEYS, shape).astype(np.int64), rng.normal(size=shape),
+            rng.random(shape) < 0.9)
+
+
+def _spmd_nccl_inputs(seed: int):
+    """Leg (d)'s stacked [P, 2^22] columns (int64, float64, int32, bool),
+    liveness and ids (half bunched on partition 0), as numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shape = (SPMD_PARTS, SPMD_NCCL_ROWS)
+    pid = np.where(rng.random(shape) < 0.5, 0, rng.integers(0, SPMD_PARTS, shape))
+    return ([rng.integers(-2**62, 2**62, shape).astype(np.int64), rng.normal(size=shape),
+             rng.integers(-1000, 1000, shape).astype(np.int32), rng.random(shape) < 0.5],
+            rng.random(shape) < 0.8, pid.astype(np.int32))
+
+
+def _digests(tensors) -> list:
+    """sha256 of each tensor's bytes (moved to the host)."""
+    import hashlib
+
+    return [hashlib.sha256(t.detach().contiguous().cpu().view(-1).numpy().view("u1")
+                           .tobytes()).hexdigest() for t in tensors]
+
+
+def _spmd_mesh_record(wall: float, st: dict, launches: dict) -> dict:
+    return {"wall_s": wall, "map_s": st["map_s"], "exchange_s": st["exchange_s"],
+            "reduce_s": st["reduce_s"],
+            "routing": st["routing"], "slot_cap": st["slot_cap"], "mode": st["mode"],
+            "peak_bytes": st["peak_bytes"], "launches": launches}
+
+
+def _spmd_line(label: str, rec: dict) -> str:
+    return (f"{label}: wall {rec['wall_s']:.4f} s (map {rec['map_s']:.4f} s, exchange "
+            f"{rec['exchange_s']:.4f} s, reduce {rec['reduce_s']:.4f} s), slot_cap "
+            f"{rec['slot_cap']}, K1 "
+            f"{rec['launches']['murmur3_pmod']}, K2 {rec['launches']['partition_histogram']}, "
+            f"peak device memory {rec['peak_bytes'] / 2**30:.3f} GiB")
+
+
+def _timed_spmd(run, barrier=None, warmup: bool = True):
+    """A warm-up (unless ``warmup`` is False), then one timed run with the
+    launch counts set to 0 just before it (and every rank starting
+    together); (answer, wall, stats, launches)."""
+    import torch
+
+    if warmup:
+        run({})
+    if barrier is not None:
+        barrier()
+    _reset_launches()
+    torch.cuda.synchronize()
+    st: dict = {}
+    t0 = time.perf_counter()
+    got = run(st)
+    torch.cuda.synchronize()
+    return got, time.perf_counter() - t0, st, _launches()
+
+
+def spmd_worker_main(work: str, seed: int) -> int:
+    """One worker process of phase 26 (``--spmd-worker``), joined through the
+    ``AURON_*`` environment: rank r of two on cuda:0 over a gloo data plane
+    runs (a) q93-mesh on both transports, (b) the STRING group-by and (c)
+    ``sharded_agg_exchange_step`` on its partitions; then rank 0 runs (d)
+    through a world-1 NCCL group. Writes ``rank<r>.pkl`` under ``work``."""
+    import pickle
+    import types
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from auron_tpu_torch.models import tpcds
+    from auron_tpu_torch.parallel import exchange, multihost
+
+    assert multihost.initialize_from_env(device="cuda")
+    rank, world = multihost.process_info()
+    # the ranks share the host's cores: oversubscribed intra-op pools stall
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    res: dict = {"rank": rank, "world": world, "backend": multihost.backend()}
+    mesh = multihost.global_mesh(SPMD_PARTS // world, device="cuda:0")
+    res["local_parts"] = mesh.local_parts
+    # (a) q93-mesh: the fact table from the parent's files
+    t0 = time.perf_counter()
+    names = tpcds.STORE_SALES_SCHEMA.names
+    cols = {n: np.load(os.path.join(work, f"fact_{n}.npy"), mmap_mode="r") for n in names}
+    valid = {n: np.load(os.path.join(work, f"fact_{n}.valid.npy"), mmap_mode="r")
+             for n in names if os.path.exists(os.path.join(work, f"fact_{n}.valid.npy"))}
+    data = types.SimpleNamespace(store_sales=tpcds.Table(tpcds.STORE_SALES_SCHEMA, cols,
+                                                         valid))
+    ingested = tpcds.ingest_q93(data, SPMD_PARTS, mesh.device, only=mesh.local_parts)
+    torch.cuda.synchronize()
+    res["ingest_s"] = time.perf_counter() - t0
+    res["q93"] = {}
+    for mode in SPMD_Q93_MODES:
+        runs = iter(range(2))
+
+        def run(st, mode=mode, runs=runs):
+            wd = os.path.join(work, f"q93_{mode}_{next(runs)}") if mode == "file" else None
+            return tpcds.run_q93_mesh(conf={**SPMD_Q93_CONF, "exchange.mode": mode},
+                                      stats=st, ingested=ingested, mesh=mesh, work_dir=wd)
+
+        got, wall, st, launches = _timed_spmd(run, multihost.barrier, mode == "file")
+        res["q93"][mode] = {"pieces": got, **_spmd_mesh_record(wall, st, launches)}
+    del ingested
+    # (b) the STRING group-by over as many rows as the fact
+    n_rows = len(cols[names[0]])
+    parts, _ = _spmd_dict_parts(n_rows, SPMD_PARTS, seed, mesh.device, mesh.local_parts)
+    _, plan = _spmd_dict_plan(SPMD_PARTS)
+
+    def run_dict(st):
+        outs = tpcds._run_mesh(plan, {"fact": parts}, SPMD_PARTS, mesh.device,
+                               {"exchange.mode": "mesh"}, st, mesh)
+        return {p: tpcds.collect(outs[p]) for p in mesh.local_parts}
+
+    got, wall, st, launches = _timed_spmd(run_dict, multihost.barrier)
+    res["dict"] = {"pieces": got, **_spmd_mesh_record(wall, st, launches)}
+    del parts
+    # (c) sharded_agg_exchange_step on this rank's [L, 2^22] rows
+    lo, hi = mesh.local_parts[0], mesh.local_parts[-1] + 1
+    args = [torch.from_numpy(np.ascontiguousarray(a[lo:hi])).to(mesh.device)
+            for a in _spmd_agg_inputs(seed)]
+    step = exchange.sharded_agg_exchange_step(mesh, SPMD_AGG_SLOT_CAP)
+    out, wall, _, launches = _timed_spmd(lambda st: step(*args), multihost.barrier)
+    res["agg"] = {"digests": _digests(out[:4]), "overflow": int(out[4]), "wall_s": wall,
+                  "launches": launches,
+                  "peak_bytes": torch.cuda.max_memory_allocated(mesh.device)}
+    del args, out
+    # (d) the data plane over NCCL with one rank: a world-1 NCCL group of
+    # rank 0 (every rank takes part in making it; the only NCCL code one
+    # card can run)
+    nccl1 = dist.new_group(ranks=[0], backend="nccl")
+    if rank == 0:
+        arrays, sel, pid = _spmd_nccl_inputs(seed)
+        args = ([torch.from_numpy(a).to(mesh.device) for a in arrays],
+                torch.from_numpy(sel).to(mesh.device), torch.from_numpy(pid).to(mesh.device))
+        run = (lambda: exchange.all_to_all_rows(*args, SPMD_PARTS, SPMD_NCCL_SLOT_CAP, nccl1))
+        ms = _event_ms(run, 3, warmup=1)
+        recv, rsel, overflow = run()
+        res["nccl"] = {"digests": _digests([*recv, rsel]), "overflow": int(overflow),
+                       "ms": ms, "backend": dist.get_backend(nccl1),
+                       "world": dist.get_world_size(nccl1)}
+        del args, recv, rsel
+        dist.destroy_process_group(nccl1)
+    multihost.barrier()
+    multihost.shutdown()
+    res["foreign_modules"] = sorted(m for m in sys.modules
+                                    if m.split(".")[0] in ("jax", "jaxlib", "auron_tpu"))
+    with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    assert not res["foreign_modules"], res["foreign_modules"]
+    return 0
+
+
+def _spawn_workers(world: int, work: str, seed: int) -> list:
+    """Run ``world`` workers (this script with --spmd-worker, a gloo data
+    plane) to their end, each waited on with a timeout (then every one
+    killed); fail if any fails. Returns their pickled results in rank
+    order."""
+    import pickle
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, AURON_COORDINATOR=f"127.0.0.1:{port}",
+                   AURON_NUM_PROCS=str(world), AURON_PROC_ID=str(r),
+                   AURON_DIST_BACKEND="gloo", PYTHONUNBUFFERED="1")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--spmd-worker", "--spmd-dir", work,
+             "--seed", str(seed)], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=SPMD_WORKER_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise AssertionError(f"phase 26: workers hung past {SPMD_WORKER_TIMEOUT_S} s; "
+                             f"output so far: {logs}")
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        tail = "\n".join(log.strip().splitlines()[-40:])
+        print(f"  worker rank {r} (exit {p.returncode}):" + (f"\n{tail}" if tail else ""),
+              flush=True)
+        assert p.returncode == 0, f"phase 26: worker rank {r} failed"
+    out = []
+    for r in range(world):
+        with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _bits_equal(a, b) -> bool:
+    import numpy as np
+
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype.kind == "f":
+        return a.dtype == b.dtype and a.shape == b.shape and \
+            a.tobytes() == np.ascontiguousarray(b).tobytes()
+    return bool(np.array_equal(a, b))
+
+
+def run_spmd_phase(data, fact, seed: int, smi: str) -> dict:
+    """Phase 26: multi-process SPMD (``parallel/multihost.py``, the SPMD
+    ``MeshQueryDriver``, the cross-process exchange, the step functions):
+    the one-process runs on the card here, then two worker processes on the
+    card (gloo data plane, 2 of P = 4 partitions each) for legs (a)-(c) and
+    rank 0 over a world-1 NCCL group for (d); every leg equal to its
+    one-process run bit for bit and to its oracle."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from auron_tpu_torch.models import tpcds
+    from auron_tpu_torch.parallel import exchange
+    from auron_tpu_torch.parallel.mesh import make_mesh
+
+    print(f"phase 26 on {smi}", flush=True)
+    work = tempfile.mkdtemp(prefix="auron_spmd_")
+    out: dict = {"one_process": {}}
+    try:
+        # the fact table for the workers (they read it; they do not generate)
+        t0 = time.perf_counter()
+        ss = data.store_sales
+        for n in ss.schema.names:
+            np.save(os.path.join(work, f"fact_{n}.npy"), ss.columns[n])
+            if n in ss.valid:
+                np.save(os.path.join(work, f"fact_{n}.valid.npy"), ss.valid[n])
+        out["files_s"] = time.perf_counter() - t0
+        # (a) one process: q93-mesh at P = 4 on both transports
+        ingested = tpcds.ingest_q93(data, SPMD_PARTS, device="cuda", fact=fact)
+        want93 = _oracle("q93", data)
+        for mode in SPMD_Q93_MODES:
+            conf = {**SPMD_Q93_CONF, "exchange.mode": mode}
+            got, wall, st, launches = _timed_spmd(lambda s, conf=conf: tpcds.run_q93_mesh(
+                n_parts=SPMD_PARTS, device="cuda", conf=conf, stats=s, ingested=ingested),
+                warmup=mode == "file")
+            _assert_q93(got, want93)
+            out["one_process"][f"q93 ({mode})"] = {"answer": got,
+                                                   **_spmd_mesh_record(wall, st, launches)}
+        del ingested
+        # (b) one process: the STRING group-by
+        parts, dict_oracle = _spmd_dict_parts(data.fact_rows(), SPMD_PARTS, seed, "cuda")
+        _, plan = _spmd_dict_plan(SPMD_PARTS)
+
+        def run_dict(st):
+            outs = tpcds._run_mesh(plan, {"fact": parts}, SPMD_PARTS, "cuda",
+                                   {"exchange.mode": "mesh"}, st)
+            return {p: tpcds.collect(outs[p]) for p in range(SPMD_PARTS)}
+
+        dict_pieces, wall, st, launches = _timed_spmd(run_dict)
+        out["one_process"]["dict"] = _spmd_mesh_record(wall, st, launches)
+        del parts
+        # (c) one process: the stacked [4, 2^22] step
+        args = [torch.from_numpy(a).cuda() for a in _spmd_agg_inputs(seed)]
+        step = exchange.sharded_agg_exchange_step(make_mesh(SPMD_PARTS, "cuda"),
+                                                  SPMD_AGG_SLOT_CAP)
+        agg, wall, _, launches = _timed_spmd(lambda st: step(*args))
+        L = SPMD_PARTS // SPMD_RANKS
+        agg_want = [_digests([t[r * L:(r + 1) * L] for t in agg[:4]]) for r in range(SPMD_RANKS)]
+        out["one_process"]["agg"] = {"wall_s": wall, "launches": launches,
+                                     "overflow": int(agg[4])}
+        del args, agg
+        # (d) one process: the relayout of the stacked [4, 2^22] rows
+        arrays, sel, pid = _spmd_nccl_inputs(seed)
+        dargs = ([torch.from_numpy(a).cuda() for a in arrays], torch.from_numpy(sel).cuda(),
+                 torch.from_numpy(pid).cuda())
+        relayout = (lambda: exchange.all_to_all_rows(*dargs, SPMD_PARTS, SPMD_NCCL_SLOT_CAP))
+        relayout_ms = _event_ms(relayout, 3)
+        recv, rsel, d_overflow = relayout()
+        d_want = _digests([*recv, rsel])
+        out["one_process"]["relayout"] = {"ms": relayout_ms, "overflow": int(d_overflow)}
+        del dargs, recv, rsel
+        torch.cuda.empty_cache()
+        for label, rec in out["one_process"].items():
+            if "map_s" in rec:
+                print("  " + _spmd_line(f"one process {label}", rec), flush=True)
+
+        # (a)-(c) across two worker processes on the card
+        t0 = time.perf_counter()
+        ranks = _spawn_workers(SPMD_RANKS, work, seed)
+        out["pair_s"] = time.perf_counter() - t0
+        print(f"  two workers from start to results {out['pair_s']:.1f} s (fact files written "
+              f"in {out['files_s']:.2f} s, read back in {ranks[0]['ingest_s']:.2f} and "
+              f"{ranks[1]['ingest_s']:.2f} s)", flush=True)
+        for res in ranks:
+            assert res["backend"] == "gloo" and res["foreign_modules"] == [], res
+        for mode in SPMD_Q93_MODES:
+            pieces = {}
+            for res in ranks:
+                rec = res["q93"][mode]
+                assert rec["mode"] == mode, rec["mode"]
+                pieces.update(rec["pieces"])
+                print("  " + _spmd_line(f"rank {res['rank']} q93-mesh ({mode})", rec), flush=True)
+            got = tpcds.q93_mesh_answer(pieces)
+            want = out["one_process"][f"q93 ({mode})"]["answer"]
+            assert sorted(pieces) == list(range(SPMD_PARTS)), sorted(pieces)
+            for k in want:
+                assert _bits_equal(got[k], want[k]), (f"q93-mesh ({mode}) {k}", got, want)
+            _assert_q93(got, want93)
+            for res in ranks:  # K1 and K2 once a local map shard
+                launched = res["q93"][mode]["launches"]
+                assert launched["murmur3_pmod"] == launched["partition_histogram"] == \
+                    SPMD_PARTS // SPMD_RANKS, (mode, res["rank"], launched)
+        got_dict = {}
+        for res in ranks:
+            got_dict.update(res["dict"]["pieces"])
+            print("  " + _spmd_line(f"rank {res['rank']} STRING group-by", res["dict"]),
+                  flush=True)
+            assert res["dict"]["launches"]["partition_histogram"] == SPMD_PARTS // SPMD_RANKS
+        for p in range(SPMD_PARTS):
+            for k in dict_pieces[p]:
+                assert _bits_equal(got_dict[p][k], dict_pieces[p][k]), ("dict", p, k)
+        combined = {c: (int(s), int(n)) for p in range(SPMD_PARTS)
+                    for c, s, n in zip(*(got_dict[p][k] for k in ("cat", "s", "c")))}
+        assert len(combined) == sum(len(got_dict[p]["cat"]) for p in range(SPMD_PARTS))
+        assert combined == dict_oracle, (combined, dict_oracle)
+        for res in ranks:
+            rec = res["agg"]
+            assert rec["digests"] == agg_want[res["rank"]], f"agg rank {res['rank']} differs"
+            assert rec["overflow"] == out["one_process"]["agg"]["overflow"] == 0
+            # one K1 launch routes the groups of every local shard
+            assert rec["launches"]["murmur3_pmod"] == 1, rec["launches"]
+            print(f"  rank {res['rank']} sharded_agg_exchange_step [{L}, {SPMD_AGG_ROWS}]: "
+                  f"wall {rec['wall_s']:.4f} s (one process [{SPMD_PARTS}, {SPMD_AGG_ROWS}]: "
+                  f"{out['one_process']['agg']['wall_s']:.4f} s), K1 "
+                  f"{rec['launches']['murmur3_pmod']}, overflow {rec['overflow']}, peak "
+                  f"{rec['peak_bytes'] / 2**30:.3f} GiB", flush=True)
+        for res in ranks:  # the answers stay here; the records keep the figures
+            res["dict"].pop("pieces")
+            for rec in res["q93"].values():
+                rec.pop("pieces")
+        out["ranks"] = ranks
+        # (d) the data plane over NCCL, one rank
+        rec = ranks[0]["nccl"]
+        assert (rec["backend"], rec["world"]) == ("nccl", 1), rec
+        assert rec["digests"] == d_want and rec["overflow"] == int(d_overflow) > 0, rec
+        print(f"  world-1 NCCL all_to_all_rows [{SPMD_PARTS}, {SPMD_NCCL_ROWS}] x 4 columns: "
+              f"{rec['ms']:.3f} ms against the one-process relayout's {relayout_ms:.3f} ms, "
+              f"bit for bit, overflow {rec['overflow']}", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = {
+        **{f"spmd q93-mesh ({m}) rank {r['rank']}": r["q93"][m]["launches"]
+           for r in ranks for m in SPMD_Q93_MODES},
+        **{f"spmd STRING group-by rank {r['rank']}": r["dict"]["launches"] for r in ranks},
+        **{f"spmd sharded_agg_exchange_step rank {r['rank']}": r["agg"]["launches"]
+           for r in ranks}}
+    for rec in out["one_process"].values():
+        rec.pop("answer", None)
+    return out
+
+
+#: what the second process hands back, in phase order
+LATE_RESULTS = ("plan_ir", "convert", "files", "basket", "udf_shuffle", "sql", "serve", "stream",
+                "spmd")
+#: how long the parent waits for the second process past its own phases
+LATE_TIMEOUT_S = 900
+
+
+def run_late_phases(data, sf: float, seed: int, smi: str, phase_done) -> dict:
+    """Phases 18-26 over ``data``; {name: result} for LATE_RESULTS."""
+    from auron_tpu_torch.models import tpcds
+
+    # 18. the plan IR without google.protobuf: q42, q93 and q3 from bytes,
+    # then the C host
+    fact = tpcds.to_batches(data.store_sales, 4, device="cuda")
+    plan_ir = run_plan_ir_phase(data, fact, seed, kernels_checked=True)
+    phase_done("18")
+
+    # 19. the host-plan converters: q42, q93, q3 and the range sort from
+    # host-plan JSON, the converted q93 on the mesh and from the C host
+    convert = run_convert_phase(data, fact, seed, kernels_checked=True)
+    del fact
+    phase_done("19")
+
+    # 20. the Parquet and ORC sinks and scans: the tables written by
+    # converted plans, then q42, q93 and q3 read from those files (after
+    # phase 19, which fails if pyarrow was loaded)
+    files = run_files_phase(data, seed, kernels_checked=True, convert=convert)
+    phase_done("20")
+
+    # 21. the customer-basket class: collect_set / collect_list states
+    # through the file shuffle, STRUCT and MAP columns out of the card
+    basket = run_collect_phase(data, seed, kernels_checked=True)
+    phase_done("21")
+
+    # 22. the host callbacks and the shuffle tail: the codecs, v1 blocks, the
+    # remote shuffle service, concurrent task slots, the UDF class (after
+    # phases 19-21: it loads pyarrow)
+    udf_shuffle = run_udf_shuffle_phase(data, seed, kernels_checked=True)
+    phase_done("22")
+
+    # 23. the SQL front end: the gate's 24 TPC-DS texts compiled to plan IR
+    # and run through the planned-exchange driver and a collect task
+    sql, sql_shared = run_sql_phase(data, seed, kernels_checked=True)
+    phase_done("23")
+
+    # 24. serving: the 24 corpus texts served to concurrent clients and
+    # over POST /sql, each query under its own trace
+    serve = run_serve_phase(data, sf, seed, SERVE_CLIENTS_IN_SCRIPT, sql=sql,
+                            shared=sql_shared, ab_modes=SERVE_AB_MODES_IN_SCRIPT)
+    del sql_shared
+    phase_done("24")
+
+    # 25. streaming: the stream gate, two views served through POST /stream,
+    # planned kafka_scan tasks with a keyed exchange
+    stream = run_stream_phase(STREAM_GATE_EVENTS, EXCHANGE_EVENTS)
+    phase_done("25")
+
+    # 26. multi-process SPMD: q93-mesh, a STRING group-by and the sharded
+    # aggregation step across two worker processes on the card, the NCCL
+    # data plane with one rank
+    fact = tpcds.to_batches(data.store_sales, SPMD_PARTS, device="cuda")
+    spmd = run_spmd_phase(data, fact, seed, smi)
+    del fact
+    phase_done("26")
+
+    return dict(zip(LATE_RESULTS, (plan_ir, convert, files, basket, udf_shuffle, sql, serve,
+                                   stream, spmd)))
+
+
+def _start_late(sf: float, seed: int) -> dict:
+    """Start phases 18-26 in a second process (this script with
+    --late-phases, the kernels already built), its output to files in a
+    work directory of its own, in a session of its own so that
+    ``_stop_late`` stops its worker processes too."""
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="auron_smoke_late_")
+    out = open(os.path.join(work, "late.log"), "w")
+    err = open(os.path.join(work, "late.err"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--late-phases", "--late-dir", work,
+         "--sf", repr(sf), "--seed", str(seed), "--parent-pid", str(os.getpid())],
+        env=dict(os.environ, PYTHONUNBUFFERED="1"), stdout=out, stderr=err,
+        start_new_session=True)
+    out.close()
+    err.close()
+    print(f"phases 18-26 started in a second process (pid {proc.pid}) beside phases 3-17",
+          flush=True)
+    return {"proc": proc, "work": work, "t0": time.perf_counter()}
+
+
+def _stop_late(late: dict) -> None:
+    """Kill the second process's session if it still runs, and remove its
+    work directory."""
+    import shutil
+    import signal
+
+    proc = late["proc"]
+    if proc.poll() is None:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    shutil.rmtree(late["work"], ignore_errors=True)
+
+
+def _join_late(late: dict) -> dict:
+    """Wait (at most LATE_TIMEOUT_S) for the second process, print its
+    output, and fail unless it exited 0; returns what it handed back."""
+    import pickle
+
+    proc, work = late["proc"], late["work"]
+    t_wait = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=LATE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    with open(os.path.join(work, "late.log")) as f:
+        log = f.read()
+    print(f"--- phases 18-26 (second process, {time.perf_counter() - late['t0']:.1f} s from "
+          f"start to exit, {time.perf_counter() - t_wait:.1f} s waited for after phase 17):",
+          flush=True)
+    print(log.rstrip("\n"), flush=True)
+    print("--- end of the second process's output", flush=True)
+    if rc != 0:
+        with open(os.path.join(work, "late.err")) as f:
+            tail = "\n".join(f.read().strip().splitlines()[-60:])
+        raise AssertionError(f"phases 18-26: the second process "
+                             f"{'hung past %d s' % LATE_TIMEOUT_S if rc is None else 'exited %d' % rc}"
+                             f"; its standard error ends:\n{tail}")
+    with open(os.path.join(work, "late.pkl"), "rb") as f:
+        return pickle.load(f)
+
+
+def _follow_parent(parent_pid: int) -> None:
+    """End this process's session when the parent ends: the kernel sends
+    SIGTERM when the parent exits (PR_SET_PDEATHSIG), and the handler kills
+    the session (this process and the phases' own worker processes)."""
+    import ctypes
+    import signal
+
+    signal.signal(signal.SIGTERM, lambda *_: os.killpg(os.getpgrp(), signal.SIGKILL))
+    ctypes.CDLL(None).prctl(1, signal.SIGTERM)  # 1 = PR_SET_PDEATHSIG
+    if os.getppid() != parent_pid:  # the parent ended before the call above
+        os.killpg(os.getpgrp(), signal.SIGKILL)
+
+
+def late_main(work: str, sf: float, seed: int, parent_pid: int) -> int:
+    """``chip_smoke.py --late-phases``: phases 18-26 as the whole script's
+    second process. The parent built the kernels; this process loads them,
+    makes the data from the same seed, runs the phases and hands their
+    results (with its phase seconds) back in ``late.pkl``."""
+    import pickle
+
+    import torch
+
+    _follow_parent(parent_pid)
+    assert torch.cuda.is_available(), "the second process sees no card"
+    from auron_tpu_torch.models import tpcds
+    from auron_tpu_torch.ops import cuda_build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    clock = [time.perf_counter()]
+    phase_s: dict = {}
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = now - clock[0]
+        clock[0] = now
+        print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
+
+    cuda_build.build_all()
+    data = tpcds.generate(sf, seed)
+    phase_done("18-26 set-up (kernels loaded, the data made)")
+    results = run_late_phases(data, sf, seed, smi, phase_done)
+    report_graph_cache()
+    try:
+        blob = pickle.dumps({"results": results, "phase_s": phase_s})
+    except (pickle.PicklingError, TypeError, AttributeError):
+        # what chip_smoke.json keeps of them: numbers, strings, lists, dicts
+        plain = json.loads(json.dumps(results, default=_jsonable))
+        blob = pickle.dumps({"results": plain, "phase_s": phase_s})
+    with open(os.path.join(work, "late.pkl"), "wb") as f:
+        f.write(blob)
+    return 0
+
+
+def _jsonable(o):
+    """numpy scalars as Python numbers, anything else as its text."""
+    return o.item() if type(o).__module__ == "numpy" and getattr(o, "ndim", None) == 0 else str(o)
+
+
 def report_graph_cache() -> None:
     """Print the CUDA-graph cache's resident bytes, graphs and evictions
     over the script, and fail if it holds more than its cap (a quarter of
@@ -4659,12 +5332,26 @@ def main(argv=None) -> int:
     ap.add_argument("--stream-only", action="store_true",
                     help="phases 1, 2 and 25 (streaming) only, at 1,000,000 gate events and "
                          "4,000,000 exchange events")
+    ap.add_argument("--spmd-only", action="store_true",
+                    help="phases 1, 2 and 26 (multi-process SPMD) only")
+    ap.add_argument("--spmd-worker", action="store_true",
+                    help="run as one worker process of phase 26 (the parent starts them)")
+    ap.add_argument("--spmd-dir", help="phase 26's work directory (with --spmd-worker)")
+    ap.add_argument("--late-phases", action="store_true",
+                    help="run phases 18-26 as the whole script's second process "
+                         "(the parent starts it)")
+    ap.add_argument("--late-dir", help="the second process's work directory")
+    ap.add_argument("--parent-pid", type=int, help="the parent's pid (with --late-phases)")
     ap.add_argument("--time-sorts", action="store_true",
                     help="only build and time the bitonic kernels at the sort shapes "
                          "(one JSON line, no status line)")
     args = ap.parse_args(argv)
     if args.time_sorts:
         return time_sorts_main()
+    if args.spmd_worker:
+        return spmd_worker_main(args.spmd_dir, args.seed)
+    if args.late_phases:
+        return late_main(args.late_dir, args.sf, args.seed, args.parent_pid)
 
     import torch
 
@@ -4825,6 +5512,19 @@ def main(argv=None) -> int:
                       f, indent=1, default=str)
         return 0
 
+    if args.spmd_only:
+        check_partition_kernel(args.seed)
+        check_histogram_kernel(args.seed)
+        data = tpcds.generate(args.sf, args.seed)
+        fact = tpcds.to_batches(data.store_sales, SPMD_PARTS, device="cuda")
+        spmd = run_spmd_phase(data, fact, args.seed, smi)
+        phase_done("26")
+        os.makedirs(os.path.join(REPO_DIR, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(REPO_DIR, "chiprun_out", "chip_smoke_spmd.json"), "w") as f:
+            json.dump({"device": kind, "nvidia_smi": smi, "spmd": spmd, "phase_s": phase_s},
+                      f, indent=1, default=str)
+        return 0
+
     if args.stream_only:
         check_partition_kernel(args.seed)
         stream = run_stream_phase(STREAM_GATE_EVENTS_ONLY, EXCHANGE_EVENTS_ONLY)
@@ -4835,13 +5535,35 @@ def main(argv=None) -> int:
                       f, indent=1, default=str)
         return 0
 
+    # 3 (timing). the kernels, plain versions and library calls timed with
+    # the card to this process alone, before the second process starts
+    timing = time_kernels(args.seed)
+    timing["murmur3_pmod"] = time_partition_kernel(args.seed)
+    timing["partition_histogram"] = time_histogram_kernel(args.seed)
+    phase_done("3 (timing)")
+
+    # 18-26 start in a second process (this script with --late-phases) and
+    # run beside phases 3-17 on the same card
+    late_proc = _start_late(args.sf, args.seed)
+    try:
+        return _early_phases_and_report(args, kind, smi, build_s, timing, phase_s, phase_done,
+                                        late_proc)
+    finally:
+        _stop_late(late_proc)
+
+
+def _early_phases_and_report(args, kind, smi, build_s, timing, phase_s, phase_done,
+                             late_proc) -> int:
+    """The whole script after its build and the kernel timing: phases 3-17
+    here, 18-26 from the second process, phase 27 and the status line."""
+    import torch
+
+    from auron_tpu_torch.models import tpcds
+
     # 3. kernels against their plain versions
     checks = check_kernels(args.seed)
     checks["murmur3_pmod"] = check_partition_kernel(args.seed)
     checks["partition_histogram"] = check_histogram_kernel(args.seed)
-    timing = time_kernels(args.seed)
-    timing["murmur3_pmod"] = time_partition_kernel(args.seed)
-    timing["partition_histogram"] = time_histogram_kernel(args.seed)
     phase_done("3")
 
     # 4. the data, once; q42-class end to end
@@ -4961,53 +5683,14 @@ def main(argv=None) -> int:
     bridge = run_bridge_phase(data, args.profile)
     phase_done("17")
 
-    # 18. the plan IR without google.protobuf: q42, q93 and q3 from bytes,
-    # then the C host
-    fact = tpcds.to_batches(data.store_sales, 4, device="cuda")
-    plan_ir = run_plan_ir_phase(data, fact, args.seed, kernels_checked=True)
-    phase_done("18")
+    # 18-26 ran in the second process beside phases 3-17: its log, its results
+    late = _join_late(late_proc)
+    phase_done("18-26 (waited for after 17)")
+    phase_s.update(late["phase_s"])
+    (plan_ir, convert, files, basket, udf_shuffle, sql, serve, stream,
+     spmd) = (late["results"][k] for k in LATE_RESULTS)
 
-    # 19. the host-plan converters: q42, q93, q3 and the range sort from
-    # host-plan JSON, the converted q93 on the mesh and from the C host
-    convert = run_convert_phase(data, fact, args.seed, kernels_checked=True)
-    del fact
-    phase_done("19")
-
-    # 20. the Parquet and ORC sinks and scans: the tables written by
-    # converted plans, then q42, q93 and q3 read from those files (after
-    # phase 19, which fails if pyarrow was loaded)
-    files = run_files_phase(data, args.seed, kernels_checked=True, convert=convert)
-    phase_done("20")
-
-    # 21. the customer-basket class: collect_set / collect_list states
-    # through the file shuffle, STRUCT and MAP columns out of the card
-    basket = run_collect_phase(data, args.seed, kernels_checked=True)
-    phase_done("21")
-
-    # 22. the host callbacks and the shuffle tail: the codecs, v1 blocks, the
-    # remote shuffle service, concurrent task slots, the UDF class (after
-    # phases 19-21: it loads pyarrow)
-    udf_shuffle = run_udf_shuffle_phase(data, args.seed, kernels_checked=True)
-    phase_done("22")
-
-    # 23. the SQL front end: the gate's 24 TPC-DS texts compiled to plan IR
-    # and run through the planned-exchange driver and a collect task
-    sql, sql_shared = run_sql_phase(data, args.seed, kernels_checked=True)
-    phase_done("23")
-
-    # 24. serving: the 24 corpus texts served to concurrent clients and
-    # over POST /sql, each query under its own trace
-    serve = run_serve_phase(data, args.sf, args.seed, SERVE_CLIENTS_IN_SCRIPT, sql=sql,
-                            shared=sql_shared, ab_modes=SERVE_AB_MODES_IN_SCRIPT)
-    del sql_shared
-    phase_done("24")
-
-    # 25. streaming: the stream gate, two views served through POST /stream,
-    # planned kafka_scan tasks with a keyed exchange
-    stream = run_stream_phase(STREAM_GATE_EVENTS, EXCHANGE_EVENTS)
-    phase_done("25")
-
-    # 26. every kernel sort and run merge of the main paths, held against the
+    # 27. every kernel sort and run merge of the main paths, held against the
     # plain network on the card at its own operands
     checks["main_path_sorts"] = {
         **{f"q3-mesh ({m})": q3_mesh[m]["sort_checks"] for m in q3_mesh},
@@ -5075,7 +5758,7 @@ def main(argv=None) -> int:
              **{f"sql {name}": r["runs"][-1]["launches"] for name, r in sql["queries"].items()},
              **{f"serve {name} (serial)": v for name, v in serve["launches"]["serial"].items()},
              f"serve ({serve['clients']} clients)": serve["launches"]["concurrent"],
-             **stream["launches"]}
+             **stream["launches"], **spmd["launches"]}
     kernels = []
     for name, source, replaces in (
         ("bitonic_sort", "auron_tpu_torch/csrc/bitonic.cu", "auron_tpu/ops/bitonic.py:145"),
@@ -5107,8 +5790,9 @@ def main(argv=None) -> int:
                    "fusion": fused, "generate": gen, "bridge": bridge, "plan_ir": plan_ir,
                    "convert": convert, "files": files, "basket": basket,
                    "udf_shuffle": udf_shuffle, "sql": sql, "serve": serve, "stream": stream,
-                   "phase_s": phase_s, "kernels": kernels}, f, indent=1, default=str)
-    phase_done("26")
+                   "spmd": spmd, "phase_s": phase_s, "kernels": kernels}, f, indent=1,
+                  default=str)
+    phase_done("27")
     report_graph_cache()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1692,3 +1692,83 @@ def test_two_served_streams_sharing_graph_keys_on_card_equal_a_run_alone():
     alone = _gate_emissions("on", "cuda")
     for n in names:
         assert [e.to_json() for e in sinks[n].emissions] == alone, n
+
+
+_NCCL_WORLD1 = r"""
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+from auron_tpu_torch.parallel import exchange, multihost
+
+assert multihost.initialize_from_env(device="cuda")
+assert multihost.backend() == "nccl" and multihost.process_info() == (0, 1)
+mesh = multihost.global_mesh(4)
+assert mesh.process_count == 1 and mesh.local_parts == [0, 1, 2, 3]
+rng = np.random.default_rng(5)
+shape = (4, 1 << 16)
+cols = [torch.from_numpy(a).cuda() for a in (
+    rng.integers(-2**62, 2**62, shape).astype(np.int64), rng.normal(size=shape),
+    rng.integers(-9, 9, shape).astype(np.int32), rng.random(shape) < 0.5)]
+sel = torch.from_numpy(rng.random(shape) < 0.8).cuda()
+pid = torch.from_numpy(np.where(rng.random(shape) < 0.5, 0,
+                                rng.integers(0, 4, shape)).astype(np.int32)).cuda()
+got = exchange.all_to_all_rows(cols, sel, pid, 4, 1 << 14, multihost.data_group())
+want = exchange.all_to_all_rows(cols, sel, pid, 4, 1 << 14)
+assert int(got[2]) == int(want[2]) > 0
+for g, w in zip([*got[0], got[1]], [*want[0], want[1]]):
+    assert g.dtype == w.dtype and torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+multihost.shutdown()
+print("nccl world-1 ok")
+"""
+
+
+@pytest.mark.cuda
+def test_nccl_data_plane_with_one_rank_equals_the_one_process_relayout():
+    """The only NCCL code one card can run: ``all_to_all_rows`` through a
+    world-1 NCCL group (``AURON_DIST_BACKEND=nccl``) equals the one-process
+    relayout bit for bit, zero slots and dropped rows included."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    _need_card()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, AURON_COORDINATOR=f"127.0.0.1:{port}", AURON_NUM_PROCS="1",
+               AURON_PROC_ID="0", AURON_DIST_BACKEND="nccl")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.run([sys.executable, "-c", _NCCL_WORLD1, root], env=env,
+                       capture_output=True, text=True, timeout=180)
+    assert p.returncode == 0 and "nccl world-1 ok" in p.stdout, p.stdout + p.stderr
+
+
+@pytest.mark.cuda
+def test_exchange_steps_on_card_equal_cpu_and_launch_k1():
+    """``sharded_agg_exchange_step`` and the one-key ``batch_exchange_step``
+    route by K1 on the card and equal their CPU runs bit for bit
+    (integer-valued float sums)."""
+    from auron_tpu_torch.parallel.exchange import batch_exchange_step, sharded_agg_exchange_step
+    from auron_tpu_torch.parallel.mesh import make_mesh
+
+    _need_card()
+    rng = np.random.default_rng(8)
+    shape = (4, 1 << 15)
+    keys = rng.integers(-5000, 5000, shape).astype(np.int64)
+    vals = rng.integers(-10**6, 10**6, shape).astype(np.float64)
+    sel = rng.random(shape) < 0.9
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        args = [torch.from_numpy(a).to(dev) for a in (keys, vals, sel)]
+        before = pk.LAUNCHES["murmur3_pmod"]
+        agg = sharded_agg_exchange_step(make_mesh(4, dev), 1 << 13)(*args)
+        (rk,), pay, bsel, bov = batch_exchange_step(make_mesh(4, dev), 1 << 15)(
+            (args[0],), {"v": args[1]}, args[2])
+        outs[dev] = ([t.cpu() for t in (*agg[:4], rk, pay["v"], bsel)],
+                     (int(agg[4]), int(bov)), pk.LAUNCHES["murmur3_pmod"] - before)
+    assert outs["cuda"][1] == outs["cpu"][1] == (0, 0)
+    assert outs["cuda"][2] == 2 and outs["cpu"][2] == 0
+    for g, w in zip(outs["cuda"][0], outs["cpu"][0]):
+        assert torch.equal(g.view(torch.uint8), w.view(torch.uint8))

@@ -421,8 +421,11 @@ def test_driver_keeps_the_callers_tree_and_rejects_misuse(tpcds_data):
         list(ex.execute(0, ExecutionContext(resources=res, device="cpu")))
     with pytest.raises(ValueError, match="4 partitions on a 2-partition mesh"):
         MeshQueryDriver(make_mesh(2, device="cpu")).run(pt.q93_mesh_tree(P), dict(res))
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        MeshQueryDriver(make_mesh(P, device="cpu"), spmd=True)
+    # one process ignores spmd=True, as the JAX driver does
+    spmd = MeshQueryDriver(make_mesh(P, device="cpu"), spmd=True)
+    assert not spmd.spmd and spmd.local_parts == list(range(P))
+    assert rows([b for p in spmd.run(tree, dict(res)) for b in p]) == \
+        rows([b for p in first for b in p])
     with pytest.raises(ValueError, match="exchange.mode"):
         MeshQueryDriver(make_mesh(P, device="cpu"), PConf({"exchange.mode": "ici"})).run(
             pt.q93_mesh_tree(P), dict(res))

@@ -426,6 +426,7 @@ def test_chrome_trace_events_have_the_reference_keys_and_phases():
     from auron_tpu.obs import export as rexport
 
     prev = robs.mode()
+    saved = {c: list(c._rings) for c in (core, rcore)}
     views = []
     try:
         for o, c, ex in ((obs, core, export), (robs, rcore, rexport)):
@@ -451,6 +452,12 @@ def test_chrome_trace_events_have_the_reference_keys_and_phases():
             views.append(ex.chrome_trace(trace_id=box[0]))
     finally:
         robs.set_mode(prev)
+        # reset_for_tests on the helper thread drops every ring from the
+        # registry, live threads' too: put those back, or a later test of
+        # this process would record into a ring no export reads
+        for c, rings in saved.items():
+            with c._reg_lock:
+                c._rings[:0] = [r for r in rings if r not in c._rings]
     port, ref = views
     # op, sync, async, transfer start, harvest, pump batch, the span, the root
     assert len([e for e in port["traceEvents"] if e["ph"] == "X"]) == 8

@@ -17,6 +17,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 from auron_tpu.models import tpcds as jt
 
@@ -109,6 +110,16 @@ def test_run_tasks_parallel_order_errors_and_one_slot():
 
     with pytest.raises(ValueError, match="task 2"):
         pt.run_tasks_parallel([lambda: 1, boom, lambda: 3], "cpu")
+
+
+def test_run_tasks_parallel_defaults_to_the_package_device():
+    """Like every entry point, the default device is ``cuda``: without a
+    card it raises instead of running the tasks on the CPU."""
+    if torch.cuda.is_available():
+        assert pt.run_tasks_parallel([lambda: 1, lambda: 2]) == [1, 2]
+    else:
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            pt.run_tasks_parallel([lambda: 1, lambda: 2])
 
 
 def test_capture_tally_keeps_other_threads_launches():
