@@ -332,6 +332,21 @@ class Batch:
                                      conf=conf)
 
     @staticmethod
+    def from_pydict(data: dict, schema: T.Schema | None = None, capacity: int | None = None,
+                    device="cuda") -> "Batch":
+        """Python columns ({name: list}) through Arrow, typed by ``schema``
+        where given, else as pyarrow infers them (imports pyarrow;
+        reference ``columnar/batch.py:255``)."""
+        import pyarrow as pa
+
+        if schema is not None:
+            rb = pa.record_batch([pa.array(data[f.name], type=f.dtype.to_arrow())
+                                  for f in schema], names=[f.name for f in schema])
+        else:
+            rb = pa.RecordBatch.from_pydict(data)
+        return Batch.from_arrow(rb, capacity, device)
+
+    @staticmethod
     def from_pandas(df, schema: T.Schema | None = None, capacity: int | None = None,
                     device="cuda") -> "Batch":
         """pandas ingest through Arrow (imports pandas/pyarrow)."""
@@ -466,6 +481,11 @@ class Batch:
                 vals = [T.decimal_from_unscaled(x, f.dtype.scale) for x in vals]
             out[name] = [x if ok else None for x, ok in zip(vals, m.tolist())]
         return out
+
+    def to_pandas(self):
+        """Live rows as a pandas frame through Arrow (imports pyarrow and
+        pandas; reference ``columnar/batch.py:341``)."""
+        return self.to_arrow().to_pandas()
 
     def prefetch_host(self) -> None:
         """Start the device->host copies of every plane now

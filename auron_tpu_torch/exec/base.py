@@ -104,6 +104,22 @@ class ExecOperator:
         child_ctx.metrics.name = self.children[i].name
         return self.children[i].execute(partition, child_ctx)
 
+    # -- conveniences for tests and host consumers (reference exec/base.py:133-142) --
+
+    def collect(self, partition: int = 0, ctx: ExecutionContext | None = None) -> Batch:
+        """Partition ``partition``'s output as one batch (an empty batch on
+        ``ctx.device`` when nothing comes out)."""
+        ctx = ctx or ExecutionContext()
+        ctx.metrics.name = self.name
+        batches = list(self.execute(partition, ctx))
+        if not batches:
+            return Batch.empty(self.schema, device=ctx.device)
+        return device_concat(batches)
+
+    def collect_pydict(self, partition: int = 0, ctx: ExecutionContext | None = None) -> dict:
+        """``collect``'s live rows as Python lists."""
+        return self.collect(partition, ctx).to_pydict()
+
 
 def coalesce_stream(stream: Iterable[Batch], target_rows: int) -> Iterator[Batch]:
     """Merge small batches toward ``target_rows`` live rows

@@ -123,3 +123,13 @@ class BroadcastHashJoinExec(ExecOperator):
             # fallback memos scope to this attempt: entries for operators
             # never reached must not outlive the chain top
             clear_chain_memos(self, partition, ctx)
+
+
+class ShuffledHashJoinExec(BroadcastHashJoinExec):
+    """The same join with its build side fed by a shuffle instead of a
+    broadcast (reference ``exec/joins/bhj.py:183``): no build is cached
+    across tasks, since each task builds its own partition's rows."""
+
+    def __init__(self, *args, **kwargs):
+        kwargs.pop("cached_build_id", None)
+        super().__init__(*args, cached_build_id=None, **kwargs)

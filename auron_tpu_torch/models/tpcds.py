@@ -7,10 +7,13 @@
   pandas);
 - ``to_batches``: per-partition device batch lists (``1 << 20`` rows per
   batch by default, as in the JAX package);
-- ``q42_plan``, ``q93_map_plan``/``q93_reduce_plan`` and
-  ``q3_map_plan``/``q3_reduce_plan``: the reference's plans of those
-  classes, made by the port's builders (``plan/builders.py``); each
-  ``*_tree`` of them is the planner's tree of its plan
+- every class is the reference function's plan made by the port's
+  builders (``plan/builders.py``: ``q42_plan``, ``q93_map_plan`` /
+  ``q93_reduce_plan``, ``q3_map_plan`` / ``q3_reduce_plan``,
+  ``q72_reduce_plan``, ``q17_plan``, ...), with the reference's resource
+  ids, stage ids and task counts, and every task starts from its
+  ``TaskDefinition`` bytes (``run_task_bytes``, ``_tasks``,
+  ``_shuffle_stage``); a ``*_tree`` is the planner's tree of its plan
   (``planner.tree_from_plan``: elision, pruning, planning);
 - ``run_q42_class``: star join + group-by + ORDER BY revenue DESC LIMIT 10
   (TakeOrdered), started from ``TaskDefinition`` bytes through
@@ -35,14 +38,15 @@
   exchanges, a left-anti join above), ``run_q18_class``,
   ``run_q14_class`` (two chained exchanges), ``run_q65_class`` and
   ``run_q5_class`` (a union of two exchanges);
-- ``run_q72_mesh`` (q72 as one plan through the planned-exchange driver)
-  and ``run_skew_join`` (a hot-key join stage that AQE skew-join
-  splitting widens);
+- ``run_q72_mesh`` (``q72_mesh_plan`` through the planned-exchange
+  driver) and ``run_skew_join`` (``skew_join_plan``: a hot-key join stage
+  that AQE skew-join splitting widens), each a plan proto;
 - the 22 classes of ``TAIL_CLASSES`` (CASE, IN, LIKE, residual join
   conditions, a three-way sort-merge join chain, CTEs read twice,
-  INTERSECT/EXCEPT as semi/anti joins, ...), each through the task runtime
-  with the JAX function's partition and task counts and its operator
-  tree, with a numpy oracle.
+  INTERSECT/EXCEPT as semi/anti joins, ...), each with a numpy oracle.
+- ``run_gate``: the reference's class gate, its 42 cases in its order
+  (``GATE_CASES``), each against its oracle through
+  ``compare.compare_frames``.
 
 - the decimal paths (``DECIMAL_CLASSES``): ``run_q9b_class`` (the
   reference's wide-decimal class: 20,000 decimal(38,4) amounts in 8 groups,
@@ -89,7 +93,6 @@ import numpy as np
 
 from auron_tpu_torch import types as T
 from auron_tpu_torch.columnar.batch import Batch
-from auron_tpu_torch.exec.base import ExecOperator
 from auron_tpu_torch.exprs.ir import (
     BinaryOp, Case, Cast, If, In, IsNull, Like, Literal, ScalarFunc, col, lit,
 )
@@ -392,51 +395,55 @@ class RssTransport:
         self.server.close()
 
 
-def _shuffle_stage(plan, out_schema: T.Schema, key_cols: list[int], n_map: int, n_reduce: int,
-                   work: str, rid: str, resources: dict, stage_id: int = 1,
+@dataclass
+class Stage:
+    """A map stage of ``_run_stages``: its plan, the rows' schema, the key
+    columns they are hash-shuffled on, its map tasks, the exchange's
+    resource id, the tasks' stage id, and the names of its shuffle files
+    under the work directory (``<prefix><partition>.data`` / ``.index``;
+    by default ``<rid>_m``, as the reference's ``_shuffle_stage``)."""
+
+    plan: object
+    schema: T.Schema
+    keys: list
+    n_map: int
+    rid: str
+    stage_id: int
+    prefix: str | None = None
+
+
+def _shuffle_stage(stage: Stage, n_reduce: int, work: str, resources: dict,
                    conf: Configuration | None = None, device="cuda", stats: dict | None = None,
                    rss: RssTransport | None = None):
-    """Run ``plan`` as ``n_map`` map tasks hash-shuffled on ``key_cols``
-    into files under ``work`` (or pushed to ``rss``), on
-    ``runtime.task.slots`` concurrent slots; registers the exchange's block
-    provider as ``resources[rid]`` and returns the reduce side's reader. A
-    plan proto's tasks start from ``TaskDefinition`` bytes
-    (``run_task_bytes``) and its reader is an ``ipc_reader`` node; an exec
-    tree's (the classes not moved to the plan IR yet) run through
-    ``run_task`` and its reader is an ``IpcReaderExec``."""
-    from auron_tpu_torch.exec.shuffle.partitioning import HashPartitioning
-    from auron_tpu_torch.exec.shuffle.reader import IpcReaderExec, MultiMapBlockProvider
-    from auron_tpu_torch.exec.shuffle.writer import RssShuffleWriterExec, ShuffleWriterExec
-    from auron_tpu_torch.runtime.task import run_task
+    """Run ``stage``'s plan as its map tasks hash-shuffled into files under
+    ``work`` (or pushed to ``rss``), on ``runtime.task.slots`` concurrent
+    slots, every task from its ``TaskDefinition`` bytes
+    (``run_task_bytes``); registers the exchange's block provider as
+    ``resources[stage.rid]`` and returns the reduce side's ``ipc_reader``."""
+    from auron_tpu_torch.exec.shuffle.reader import MultiMapBlockProvider
 
     conf = conf or Configuration()
-    pairs = [(os.path.join(work, f"{rid}_m{p}.data"), os.path.join(work, f"{rid}_m{p}.index"))
-             for p in range(n_map)]
-    wkey = f"{rid}_rss_writer"
+    prefix = f"{stage.rid}_m" if stage.prefix is None else stage.prefix
+    pairs = [(os.path.join(work, f"{prefix}{p}.data"), os.path.join(work, f"{prefix}{p}.index"))
+             for p in range(stage.n_map)]
+    wkey = f"{stage.rid}_rss_writer"
+    part = B.hash_partitioning([col(c) for c in stage.keys], n_reduce)
 
     def map_task(p: int):
-        d, i = pairs[p]
-        res = resources if rss is None else {**resources, wkey: rss.writer(rid, p)}
-        if isinstance(plan, ExecOperator):
-            part = HashPartitioning([col(c) for c in key_cols], n_reduce)
-            w = (ShuffleWriterExec(plan, part, d, i) if rss is None
-                 else RssShuffleWriterExec(plan, part, wkey))
-            return run_task(w, res, stage_id, p, conf, device)[1]
-        part = B.hash_partitioning([col(c) for c in key_cols], n_reduce)
-        w = (B.shuffle_writer(plan, part, d, i) if rss is None
-             else B.rss_shuffle_writer(plan, part, wkey))
-        task = B.task(w, stage_id, p, dict(conf.items()))
+        res = resources if rss is None else {**resources, wkey: rss.writer(stage.rid, p)}
+        w = (B.shuffle_writer(stage.plan, part, *pairs[p]) if rss is None
+             else B.rss_shuffle_writer(stage.plan, part, wkey))
+        task = B.task(w, stage.stage_id, p, dict(conf.items()))
         return run_task_bytes(task.SerializeToString(), res, device)[1]
 
-    for metrics in run_tasks_parallel([(lambda p=p: map_task(p)) for p in range(n_map)],
+    for metrics in run_tasks_parallel([(lambda p=p: map_task(p)) for p in range(stage.n_map)],
                                       device, _slots(conf)):
         if stats is not None:
             stats["shuffle_bytes"] = stats.get("shuffle_bytes", 0) + metrics["values"]["data_size"]
             add_timers(stats, metrics)
-    resources[rid] = MultiMapBlockProvider(pairs) if rss is None else rss.provider(rid)
-    if isinstance(plan, ExecOperator):
-        return IpcReaderExec(out_schema, rid)
-    return B.ipc_reader(out_schema, rid)
+    resources[stage.rid] = (MultiMapBlockProvider(pairs) if rss is None
+                            else rss.provider(stage.rid))
+    return B.ipc_reader(stage.schema, stage.rid)
 
 
 #: operator counters ``add_timers`` also sums: batches folded into a dense
@@ -537,20 +544,19 @@ def add_timers(stats: dict, snapshot: dict) -> None:
 
 def _run_stages(stages: list, reduce_plan_of, resources: dict, n_reduce: int, label: str,
                 work_dir, conf, device, stats, nulls: bool = False,
-                transport: str = "file") -> list[dict]:
+                transport: str = "file", reduce_stage: int | None = None,
+                reduce_conf: dict | None = None) -> list[dict]:
     """Map stages hash-shuffled into files (or, with ``transport="rss"``,
     pushed to an in-process remote shuffle service over TCP:
     ``RssTransport``) one after another, then one reduce task per partition
-    over ``reduce_plan_of(*readers)``; the tasks of a stage run on
-    ``runtime.task.slots`` concurrent slots (``run_tasks_parallel``).
+    over ``reduce_plan_of(*readers)`` (stage id ``reduce_stage``, default
+    one past the map stages; its tasks' conf also holds ``reduce_conf``);
+    the tasks of a stage run on ``runtime.task.slots`` concurrent slots
+    (``run_tasks_parallel``), each from its ``TaskDefinition`` bytes.
     Returns the reduce tasks' outputs as host columns. A stage is a
-    callable taking the readers of the stages before it and returning (map
-    plan, output schema, key columns, map tasks, resource id); plans are
-    plan protos (each task from ``TaskDefinition`` bytes) or exec trees
-    (``_shuffle_stage``). ``stats`` gets each stage's wall (``stage_s``),
-    their sum ``map_s``, ``reduce_s``, the shuffle bytes and the slots."""
-    from auron_tpu_torch.runtime.task import run_task
-
+    callable taking the readers of the stages before it and returning its
+    ``Stage``. ``stats`` gets each stage's wall (``stage_s``), their sum
+    ``map_s``, ``reduce_s``, the shuffle bytes and the slots."""
     work = work_dir or tempfile.mkdtemp(prefix=f"auron_{label}_")
     os.makedirs(work, exist_ok=True)
     stats = stats if stats is not None else {}
@@ -563,25 +569,22 @@ def _run_stages(stages: list, reduce_plan_of, resources: dict, n_reduce: int, la
         with memory_scope(conf, stats):
             readers = []
             stage_s = stats.setdefault("stage_s", {})
-            for sid, stage in enumerate(stages, 1):
+            for make in stages:
                 t0 = time.perf_counter()
-                plan, schema, keys, n_map, rid = stage(readers)
-                rids.append(rid)
-                readers.append(_shuffle_stage(plan, schema, keys, n_map, n_reduce, work, rid,
-                                              resources, sid, conf, device, stats, rss))
+                stage = make(readers)
+                rids.append(stage.rid)
+                readers.append(_shuffle_stage(stage, n_reduce, work, resources, conf, device,
+                                              stats, rss))
                 _sync(device)
-                stage_s[rid] = time.perf_counter() - t0
+                stage_s[stage.rid] = time.perf_counter() - t0
             t1 = time.perf_counter()
             reduce_plan = reduce_plan_of(*readers)
+            sid = len(stages) + 1 if reduce_stage is None else reduce_stage
+            task_conf = {**dict(conf.items()), **(reduce_conf or {})}
 
             def reduce_task(r: int):
-                if isinstance(reduce_plan, ExecOperator):
-                    batches, metrics = run_task(reduce_plan, resources, len(stages) + 1, r,
-                                                conf, device)
-                else:
-                    task = B.task(reduce_plan, len(stages) + 1, r, dict(conf.items()))
-                    batches, metrics = run_task_bytes(task.SerializeToString(), resources,
-                                                      device)
+                task = B.task(reduce_plan, sid, r, task_conf)
+                batches, metrics = run_task_bytes(task.SerializeToString(), resources, device)
                 return collect(batches, nulls), metrics
 
             outs = []
@@ -603,12 +606,38 @@ def _run_stages(stages: list, reduce_plan_of, resources: dict, n_reduce: int, la
             shutil.rmtree(work, ignore_errors=True)
 
 
-def _run_two_stage(map_plan, out_schema, key_cols, reduce_plan_of, resources, n_map, n_reduce,
-                   rid, work_dir, conf, device, stats, transport: str = "file") -> list[dict]:
-    """One map stage, then one reduce task per partition."""
-    return _run_stages([lambda _: (map_plan, out_schema, key_cols, n_map, rid)],
-                       reduce_plan_of, resources, n_reduce, rid, work_dir, conf, device, stats,
-                       transport=transport)
+def _shuffle_one(plan, schema: T.Schema, key_cols: list[int], n_map: int, rid: str,
+                 stage_id: int, prefix: str | None = None):
+    """A map stage whose plan does not depend on earlier stages."""
+    return lambda _readers: Stage(plan, schema, key_cols, n_map, rid, stage_id, prefix)
+
+
+@contextlib.contextmanager
+def _cached_builds(*ids: str):
+    """Remove the broadcast builds a run's joins cached in the bridge's map
+    under ``ids`` (``cached_build_id``) when the run ends, as the
+    reference's runners remove them."""
+    from auron_tpu_torch.bridge import api
+
+    try:
+        yield
+    finally:
+        for k in ids:
+            api.remove_resource(k)
+
+
+def _agg_inter_schema(plan) -> T.Schema:
+    """The rows a partial aggregate plan node emits (its ``inter_schema``)."""
+    from auron_tpu_torch.plan.planner import plan_from_proto
+
+    return plan_from_proto(plan).inter_schema
+
+
+def _schema_of(plan) -> T.Schema:
+    """The output schema of a plan node."""
+    from auron_tpu_torch.plan.planner import plan_from_proto
+
+    return plan_from_proto(plan).schema
 
 
 def _concat(outs: list[dict], names: list[str], dtypes: list) -> dict[str, np.ndarray]:
@@ -662,17 +691,6 @@ def q93_reduce_plan(read, scan=_resource_scan):
                        ("sum", col(2), "s")], "final")
 
 
-def q93_map_tree(scan=_resource_scan):
-    """The planner's tree of ``q93_map_plan(scan)``."""
-    return tree_from_plan(q93_map_plan(scan))
-
-
-def q93_reduce_tree(read, scan=_resource_scan):
-    """The planner's tree of ``q93_reduce_plan(read, scan)`` (the join keeps
-    k, price and c_customer_sk)."""
-    return tree_from_plan(q93_reduce_plan(read, scan))
-
-
 def with_slots(conf: dict | None, parallel: bool | int, n_tasks: int) -> Configuration:
     """``conf`` with ``runtime.task.slots``: ``parallel`` True gives a slot
     per task, an int that many slots, False (or a slots key in ``conf``)
@@ -701,10 +719,10 @@ def run_q93_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int =
     n_map = len(ingested["fact"])
     resources = {"q93_fact": ingested["fact"], "q93_cust": [ingested["cust"]] * n_reduce}
     stats = stats if stats is not None else {}
-    outs = _run_two_stage(q93_map_plan(), Q93_INTER_SCHEMA, [0], q93_reduce_plan, resources,
-                          n_map, n_reduce, "q93_ex0", work_dir,
-                          with_slots(conf, parallel, max(n_map, n_reduce)), device, stats,
-                          transport)
+    outs = _run_stages([_shuffle_one(q93_map_plan(), Q93_INTER_SCHEMA, [0], n_map, "q93_ex0", 1)],
+                       q93_reduce_plan, resources, n_reduce, "q93", work_dir,
+                       with_slots(conf, parallel, max(n_map, n_reduce)), device, stats,
+                       transport=transport)
     stats["null_partition"] = 42 % n_reduce
     stats["partition_rows"] = [int(o["rows"].sum()) if o else 0 for o in outs]
     return _q93_by_key(outs)
@@ -800,18 +818,19 @@ def run_q42_bridge(data: TpcdsData | None = None, device="cuda", conf: dict | No
                    host: dict | None = None, stats: dict | None = None) -> dict[str, np.ndarray]:
     """The q42-class query through the host boundary: its ``memory_scan``
     leaves are ``ffi_reader``s fed by Arrow C streams over host batches
-    (``host_q42``), the task starts through ``bridge.api.call_native`` and
-    the answer leaves through an ``ipc_writer`` as blocks the host decodes.
+    (``host_q42``), the task starts from its ``TaskDefinition`` bytes through
+    ``bridge.api.call_native`` and the answer leaves through an
+    ``ipc_writer`` as blocks the host decodes.
     Returns {brand, rev}. ``stats`` gets the host timers, the ingest
     counters, ``egress_s`` (the writer's ``egress_time`` and the host's
     decode) and ``stage_s`` (the task's wall)."""
     from auron_tpu_torch.bridge import api
     from auron_tpu_torch.columnar.batch import ingest_stats
     from auron_tpu_torch.exec.shuffle.format import decode_block, iter_block_payloads
-    from auron_tpu_torch.exec.sink import IpcWriterExec
 
     host = host if host is not None else host_q42(data)
-    tree = IpcWriterExec(q42_exec_tree(_ffi_reader), "q42_out")
+    plan = B.ipc_writer(q42_plan(_ffi_reader), "q42_out")
+    out_schema = _schema_of(plan)
     schemas = {"q42_fact": STORE_SALES_SCHEMA, "q42_item": ITEM_SCHEMA}
     before = ingest_stats()
     channel: list = []
@@ -819,7 +838,8 @@ def run_q42_bridge(data: TpcdsData | None = None, device="cuda", conf: dict | No
     try:
         for rid, batches in host.items():
             _hand_over(rid, batches, schemas[rid])
-        h = api.call_native(tree, {"q42_out": channel}, device=device, conf=conf)
+        h = api.call_native(B.task(plan, conf=conf).SerializeToString(), {"q42_out": channel},
+                            device=device)
         try:
             while api.next_batch(h) is not None:
                 pass
@@ -832,7 +852,7 @@ def run_q42_bridge(data: TpcdsData | None = None, device="cuda", conf: dict | No
     brand, rev = [np.empty(0, np.int32)], [np.empty(0, np.float64)]
     for blk in channel:
         for payload in iter_block_payloads(blk):
-            _, ((b, _), (r, _)) = decode_block(payload, tree.schema)
+            _, ((b, _), (r, _)) = decode_block(payload, out_schema)
             brand.append(b)
             rev.append(r)
     decode_s = time.perf_counter() - t1
@@ -866,9 +886,7 @@ def run_q93_bridge(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int 
     from auron_tpu_torch.bridge import api
     from auron_tpu_torch.columnar.arrow_c import ArrowArray, ArrowSchema, import_batch
     from auron_tpu_torch.columnar.batch import ingest_stats
-    from auron_tpu_torch.exec.shuffle.partitioning import HashPartitioning
     from auron_tpu_torch.exec.shuffle.reader import MultiMapBlockProvider
-    from auron_tpu_torch.exec.shuffle.writer import ShuffleWriterExec
 
     host = host if host is not None else host_q93(data, n_map)
     n_map = len(host["fact"])
@@ -888,13 +906,12 @@ def run_q93_bridge(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int 
                 _hand_over(keys[-1], host["fact"][p], STORE_SALES_SCHEMA)
             keys.append("q93_cust")
             api.put_resource("q93_cust", lambda _partition: host["cust"])
-            part = HashPartitioning([col(0)], n_reduce)
-            map_tree = q93_map_tree(_ffi_reader)
+            part = B.hash_partitioning([col(0)], n_reduce)
             pairs = []
             for p in range(n_map):
                 d, i = os.path.join(work, f"q93_m{p}.data"), os.path.join(work, f"q93_m{p}.index")
-                h = api.call_native(ShuffleWriterExec(map_tree, part, d, i), device=device,
-                                    conf=conf, stage_id=1, partition_id=p)
+                w = B.shuffle_writer(q93_map_plan(_ffi_reader), part, d, i)
+                h = api.call_native(B.task(w, 1, p, conf).SerializeToString(), device=device)
                 try:
                     while api.next_batch(h) is not None:
                         pass
@@ -908,10 +925,10 @@ def run_q93_bridge(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int 
             t1 = time.perf_counter()
             keys.append("q93_ex0")
             api.put_resource("q93_ex0", MultiMapBlockProvider(pairs))
-            reduce_tree = q93_reduce_tree(B.ipc_reader(Q93_INTER_SCHEMA, "q93_ex0"), _ffi_reader)
+            reduce_plan = q93_reduce_plan(B.ipc_reader(Q93_INTER_SCHEMA, "q93_ex0"), _ffi_reader)
             for r in range(n_reduce):
-                h = api.call_native(reduce_tree, device=device, conf=conf, stage_id=2,
-                                    partition_id=r)
+                h = api.call_native(B.task(reduce_plan, 2, r, conf).SerializeToString(),
+                                    device=device)
                 rows: dict = {n: [] for n in names}
                 try:
                     while True:
@@ -1135,17 +1152,6 @@ def q3_reduce_plan(read):
 _Q3_BUILDS = ("q3_dd_build", "q3_it_build")
 
 
-def q3_map_tree(moy: int = 11, category_id: int = 1, money: bool = False):
-    """The planner's tree of ``q3_map_plan`` (the joins' projections keep
-    (ss_item_sk, price, d_year), then (price, d_year, i_brand_id))."""
-    return tree_from_plan(q3_map_plan(moy, category_id, money))
-
-
-def q3_reduce_tree(read):
-    """The planner's tree of ``q3_reduce_plan(read)``."""
-    return tree_from_plan(q3_reduce_plan(read))
-
-
 def _top_k(d_year, brand, s, limit: int) -> dict[str, np.ndarray]:
     """ORDER BY d_year, s DESC LIMIT k (ties by brand), the driver's
     takeOrdered."""
@@ -1179,21 +1185,17 @@ def run_q3_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 
     from its ``TaskDefinition`` bytes (``parallel`` as ``run_q93_class``).
     With ``money`` the price is decimal(7,2) and ``s`` the exact
     decimal(17,2) sums as int64 cents."""
-    from auron_tpu_torch.bridge import api
-
     if ingested is None:
         ingested = ingest_q3(data, n_map, device)
     n_map = len(ingested["fact"])
     resources = {"q3_fact": ingested["fact"], "q3_dd": [ingested["dd"]] * n_map,
                  "q3_item": [ingested["item"]] * n_map}
     partial = q3_map_plan(moy, category_id, money)
-    try:
-        outs = _run_two_stage(partial, tree_from_plan(partial).schema, [0, 1], q3_reduce_plan,
-                              resources, n_map, n_reduce, "q3_blocks", work_dir,
-                              with_slots(conf, parallel, max(n_map, n_reduce)), device, stats)
-    finally:
-        for k in _Q3_BUILDS:  # the bridge's map caches them for the run's tasks
-            api.remove_resource(k)
+    with _cached_builds(*_Q3_BUILDS):
+        outs = _run_stages([_shuffle_one(partial, _agg_inter_schema(partial), [0, 1], n_map,
+                                         "q3_blocks", 1, "map")],
+                           q3_reduce_plan, resources, n_reduce, "q3", work_dir,
+                           with_slots(conf, parallel, max(n_map, n_reduce)), device, stats)
     got = _concat(outs, ["d_year", "i_brand_id", "s"],
                   [np.int32, np.int32, np.int64 if money else np.float64])
     return _top_k(got["d_year"], got["i_brand_id"], got["s"], limit)
@@ -1224,35 +1226,43 @@ def q3_class_oracle(data: TpcdsData, moy: int = 11, category_id: int = 1,
 # ---------------------------------------------------------------------------
 
 
-def q93_mesh_tree(n_parts: int = 4):
-    """The planner's tree of the q93 plan with a ``mesh_exchange`` hashed on
-    k between its map and reduce sides."""
+def q93_mesh_plan(n_parts: int = 4):
+    """The q93 plan with a ``mesh_exchange`` hashed on k between its map
+    and reduce sides."""
     ex = B.mesh_exchange(q93_map_plan(), B.hash_partitioning([col(0)], n_parts), "q93_ex0")
-    return tree_from_plan(q93_reduce_plan(ex))
+    return q93_reduce_plan(ex)
+
+
+def q93_mesh_tree(n_parts: int = 4):
+    """The planner's tree of ``q93_mesh_plan``."""
+    return tree_from_plan(q93_mesh_plan(n_parts))
+
+
+def q3_mesh_plan(n_parts: int = 4, moy: int = 11, category_id: int = 1):
+    """q3's partial aggregate -> mesh exchange hashed on (d_year,
+    i_brand_id) -> final aggregate."""
+    ex = B.mesh_exchange(q3_map_plan(moy, category_id),
+                         B.hash_partitioning([col(0), col(1)], n_parts), "q3_ex0")
+    return q3_reduce_plan(ex)
 
 
 def q3_mesh_tree(n_parts: int = 4, moy: int = 11, category_id: int = 1):
-    """The planner's tree of q3's partial aggregate -> mesh exchange hashed
-    on (d_year, i_brand_id) -> final aggregate."""
-    ex = B.mesh_exchange(q3_map_plan(moy, category_id),
-                         B.hash_partitioning([col(0), col(1)], n_parts), "q3_ex0")
-    return tree_from_plan(q3_reduce_plan(ex))
+    """The planner's tree of ``q3_mesh_plan``."""
+    return tree_from_plan(q3_mesh_plan(n_parts, moy, category_id))
 
 
-def q3_collect_tree(schema: T.Schema, limit: int = 100):
+def q3_collect_plan(schema: T.Schema, limit: int = 100):
     """The single-task collect stage of the lowered SQL q3: ORDER BY d_year,
-    s DESC, i_brand_id with fetch, then LIMIT, over the gathered output."""
-    from auron_tpu_torch.exec.basic import LimitExec, ResourceScanExec
-    from auron_tpu_torch.exec.sort_exec import SortExec
-
-    sort = SortExec(ResourceScanExec(schema, "q3_stage"), [col(0), col(2), col(1)],
-                    [SortSpec(), SortSpec(asc=False), SortSpec()], fetch=limit)
-    return LimitExec(sort, limit)
+    s DESC, i_brand_id with fetch, then LIMIT, over the gathered output
+    (resource ``q3_stage``)."""
+    return B.limit(B.sort(B.memory_scan(schema, "q3_stage"),
+                          [(col(0), SortSpec()), (col(2), SortSpec(asc=False)),
+                           (col(1), SortSpec())], fetch=limit), limit)
 
 
-def _run_mesh(tree, resources: dict, n_parts: int, device, conf, stats: dict | None,
+def _run_mesh(plan, resources: dict, n_parts: int, device, conf, stats: dict | None,
               mesh=None, work_dir: str | None = None):
-    """One driver run over fresh per-run resources, on ``mesh`` (default a
+    """One driver run of a plan proto over fresh per-run resources, on ``mesh`` (default a
     one-process mesh of ``n_parts`` on ``device``; a multi-process mesh
     runs the SPMD driver); ``stats`` gets the exchange's statistics, stage
     walls, kernel launches and peak device memory of this process."""
@@ -1269,7 +1279,7 @@ def _run_mesh(tree, resources: dict, n_parts: int, device, conf, stats: dict | N
     before = dict(partition_kernels.LAUNCHES)
     driver = MeshQueryDriver(mesh, Configuration(conf or {}), work_dir=work_dir,
                              spmd=mesh.process_count > 1)
-    outs = driver.run(tree, resources)
+    outs = driver.run(plan, resources)
     if stats is not None:
         exchanges = [{
             "id": ex.exchange_id, "mode": ex.mode, "routing": ex.rows.tolist(),
@@ -1306,7 +1316,7 @@ def run_q93_mesh(data: TpcdsData | None = None, n_parts: int = 4, device="cuda",
         only = mesh.local_parts if mesh is not None else None
         ingested = ingest_q93(data, n_parts, device, only=only)
     resources = {"q93_fact": ingested["fact"], "q93_cust": [ingested["cust"]] * n_parts}
-    outs = _run_mesh(q93_mesh_tree(n_parts), resources, n_parts, device, conf, stats, mesh,
+    outs = _run_mesh(q93_mesh_plan(n_parts), resources, n_parts, device, conf, stats, mesh,
                      work_dir)
     pieces = {p: collect(outs[p]) for p in range(n_parts)}
     if mesh is not None and mesh.process_count > 1:
@@ -1326,18 +1336,16 @@ def run_q3_mesh(data: TpcdsData | None = None, n_parts: int = 4, device="cuda",
                 category_id: int = 1, limit: int = 100, ingested: dict | None = None) -> dict:
     """The q3-class query through the planned-exchange driver, then its
     single-task collect stage; returns {d_year, i_brand_id, s}."""
-    from auron_tpu_torch.runtime.task import run_task
-
     if ingested is None:
         ingested = ingest_q3(data, n_parts, device)
     resources = {"q3_fact": ingested["fact"], "q3_dd": [ingested["dd"]] * n_parts,
                  "q3_item": [ingested["item"]] * n_parts}
-    tree = q3_mesh_tree(n_parts, moy, category_id)
-    outs = _run_mesh(tree, resources, n_parts, device, conf, stats)
+    plan = q3_mesh_plan(n_parts, moy, category_id)
+    outs = _run_mesh(plan, resources, n_parts, device, conf, stats)
     gathered = [b for part in outs for b in part]
     t0 = time.perf_counter()
-    batches, _ = run_task(q3_collect_tree(tree.schema, limit), {"q3_stage": [gathered]},
-                          conf=Configuration(conf or {}), device=device)
+    task = B.task(q3_collect_plan(_schema_of(plan), limit), conf=conf)
+    batches, _ = run_task_bytes(task.SerializeToString(), {"q3_stage": [gathered]}, device)
     out = collect(batches)
     _sync(device)
     if stats is not None:
@@ -1352,30 +1360,19 @@ def run_q3_mesh(data: TpcdsData | None = None, n_parts: int = 4, device="cuda",
 # ---------------------------------------------------------------------------
 
 
-def _fact_scan(rid: str):
-    from auron_tpu_torch.exec.basic import ResourceScanExec
-
-    return ResourceScanExec(STORE_SALES_SCHEMA, rid)
-
-
-def _aggs(*specs) -> list:
-    from auron_tpu_torch.exec.agg_exec import AggExpr
-
-    return [(AggExpr(func, expr), name) for func, expr, name in specs]
+def _hash_agg2(child, groupings: list, aggs: list, final_groupings: list | None = None,
+               final_aggs: list | None = None):
+    """A partial then a final ``hash_agg`` in one plan (the reference's pair
+    of ``B.hash_agg`` calls); the final side takes the partial's groupings
+    and aggregates unless ``final_groupings`` / ``final_aggs`` name its own,
+    as the reference writes them."""
+    p = B.hash_agg(child, groupings, aggs, "partial")
+    return B.hash_agg(p, final_groupings or groupings, final_aggs or aggs, "final")
 
 
-def _partial(child, keys: list, aggs: list):
-    from auron_tpu_torch.exec.agg_exec import HashAggExec
-
-    return HashAggExec(child, keys, aggs, "partial")
-
-
-def _final(read, keys: list, aggs: list):
-    """The final aggregate of ``_partial(child, keys, aggs)``'s rows (its
-    key and aggregate expressions are positional)."""
-    from auron_tpu_torch.exec.agg_exec import HashAggExec
-
-    return HashAggExec(read, [(col(i), n) for i, (_, n) in enumerate(keys)], aggs, "final")
+def _bhj(left, right, lkeys: list, rkeys: list, join_type: str = "inner", **kw):
+    """A broadcast hash join with the build on the right."""
+    return B.hash_join(left, right, lkeys, rkeys, join_type, build_side="right", **kw)
 
 
 def _lex_order(keys: list[np.ndarray]) -> np.ndarray:
@@ -1416,11 +1413,6 @@ def _group(keys: np.ndarray):
     return uniq, inv.reshape(-1)
 
 
-def _shuffle_one(plan, key_cols: list[int], n_map: int, rid: str):
-    """A map stage whose plan does not depend on earlier stages."""
-    return lambda _readers: (plan, plan.schema, key_cols, n_map, rid)
-
-
 # ---- q72-class: both facts shuffled on item, sort-merge join, aggregate ----
 
 #: q72's default SMJ input-sort elision (the JAX function's task conf)
@@ -1456,38 +1448,20 @@ def _elide_mode(conf: dict | None) -> str:
     return mode
 
 
-def _smj_side(child, keys: list, mode: str, side: str):
-    """``child``, or a SortExec on ``keys`` over it unless the elision mode
-    drops this side's sort (build: the right side's; full: both)."""
-    from auron_tpu_torch.exec.sort_exec import SortExec
-
-    if mode == "full" or (mode == "build" and side == "right"):
-        return child
-    return SortExec(child, keys, [SortSpec() for _ in keys])
+_Q72_AGGS = [("count_star", None, "cnt"), ("sum", col(1), "qty"), ("avg", col(2), "p_avg")]
 
 
-def q72_join_tree(lread, rread, mode: str = Q72_ELIDE_SORTS):
-    """Both facts' shuffled rows, each sorted on (item, date) unless
-    elided, sort-merge joined on (item, date), then the partial aggregate
-    by item: the pruned tree of the JAX q72 reduce plan (join projection
-    [item, qty, right price])."""
-    from auron_tpu_torch.exec.basic import ProjectExec
-    from auron_tpu_torch.exec.joins.smj import SortMergeJoinExec
-
-    keys = [col(1), col(0)]
-    smj = SortMergeJoinExec(_smj_side(lread, keys, mode, "left"),
-                            _smj_side(rread, keys, mode, "right"), keys, [col(1), col(0)],
-                            "inner", projection=[1, 3, 9])
-    proj = ProjectExec(smj, [col(0), col(1), col(2)], ["item", "qty", "price"])
-    return _partial(proj, [(col(0), "item")], _q72_aggs())
-
-
-def _q72_aggs() -> list:
-    return _aggs(("count_star", None, "cnt"), ("sum", col(1), "qty"), ("avg", col(2), "p_avg"))
-
-
-def q72_reduce_tree(lread, rread, mode: str = Q72_ELIDE_SORTS):
-    return _final(q72_join_tree(lread, rread, mode), [(col(0), "item")], _q72_aggs())
+def q72_reduce_plan(lread, rread):
+    """Both facts' shuffled rows, each sorted on (item, date), sort-merge
+    joined on (item, date), [item, qty, right price], then the partial and
+    final aggregate by item (reference ``tpcds.py:394-410``); the task conf's
+    ``auron.smj.elide.sorts`` decides which input sorts run."""
+    specs = [(col(1), SortSpec()), (col(0), SortSpec())]
+    smj = B.sort_merge_join(B.sort(lread, specs), B.sort(rread, specs), [col(1), col(0)],
+                            [col(1), col(0)], "inner")
+    # left columns 0-4, right 5-9: quantity at 3, the right price at 9
+    proj = B.project(smj, [(col(1), "item"), (col(3), "qty"), (col(9), "price")])
+    return _hash_agg2(proj, [(col(0), "item")], _Q72_AGGS)
 
 
 def run_q72_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 4,
@@ -1497,22 +1471,27 @@ def run_q72_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int =
     """SELECT ss.ss_item_sk item, count(*) cnt, sum(ss.ss_quantity) qty,
     avg(sr.ss_ext_sales_price) p_avg FROM store_sales ss JOIN store_sales2 sr
     ON ss.ss_item_sk = sr.ss_item_sk AND ss.ss_sold_date_sk =
-    sr.ss_sold_date_sk GROUP BY item: both sides shuffled on item, each
-    reduce task sort-merge joins its co-partitioned slices and aggregates.
-    ``conf`` may set ``auron.smj.elide.sorts`` (default full, as the JAX
-    function's tasks); ``transport`` and ``parallel`` as ``run_q93_class``.
-    Returns {item, cnt, qty, p_avg} sorted by item."""
+    sr.ss_sold_date_sk GROUP BY item: both sides shuffled on item (map
+    tasks of stage 1 each), each reduce task (stage 2) sort-merge joins its
+    co-partitioned slices and aggregates. The reduce tasks' conf holds
+    ``auron.smj.elide.sorts`` (``conf``'s, default full, as the reference's
+    tasks); ``transport`` and ``parallel`` as ``run_q93_class``. Returns
+    {item, cnt, qty, p_avg} sorted by item."""
+    from auron_tpu_torch.plan.optimizer import SMJ_ELIDE_SORTS_KEY
+
     if ingested is None:
         ingested = ingest_q72(data, n_map, device)
     mode = _elide_mode(conf)
     n_map = len(ingested["fact"])
     resources = {"q72_l": ingested["fact"], "q72_r": ingested["fact2"]}
     outs = _run_stages(
-        [_shuffle_one(_fact_scan("q72_l"), [1], n_map, "q72_lb"),
-         _shuffle_one(_fact_scan("q72_r"), [1], n_map, "q72_rb")],
-        lambda lr, rr: q72_reduce_tree(lr, rr, mode), resources, n_reduce, "q72",
-        work_dir, with_slots(conf, parallel, max(n_map, n_reduce)), device, stats,
-        transport=transport)
+        [_shuffle_one(B.memory_scan(STORE_SALES_SCHEMA, "q72_l"), STORE_SALES_SCHEMA, [1], n_map,
+                      "q72_lb", 1, "l"),
+         _shuffle_one(B.memory_scan(STORE_SALES_SCHEMA, "q72_r"), STORE_SALES_SCHEMA, [1], n_map,
+                      "q72_rb", 1, "r")],
+        q72_reduce_plan, resources, n_reduce, "q72", work_dir,
+        with_slots(conf, parallel, max(n_map, n_reduce)), device, stats, transport=transport,
+        reduce_stage=2, reduce_conf={SMJ_ELIDE_SORTS_KEY: mode})
     got = _concat(outs, ["item", "cnt", "qty", "p_avg"],
                   [np.int64, np.int64, np.int64, np.float64])
     return _sorted_by(got, ["item"])
@@ -1551,56 +1530,45 @@ def ingest_q95(data: TpcdsData, n_map: int, device="cuda", fact=None) -> dict:
             "item": to_batches(data.item, 1, device=device)[0]}
 
 
-def q95_map_trees():
+def q95_map_plans():
     """(fact rows whose item is in category 1, customers of fact rows whose
     item is in category 2): left semi broadcast joins below the customer
-    exchange, as the host engine plans them."""
-    from auron_tpu_torch.exec.basic import FilterExec, ProjectExec, ResourceScanExec
-    from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
-
-    def category(c: int):
-        return FilterExec(ResourceScanExec(ITEM_SCHEMA, "q95_item"),
-                          [BinaryOp("eq", col(2), lit(c))])
-
-    semi = BroadcastHashJoinExec(_fact_scan("q95_fact"), category(1), [col(1)], [col(0)],
-                                 "left_semi", build_side="right",
-                                 cached_build_id="q95_cat1_build")
-    bad = ProjectExec(
-        BroadcastHashJoinExec(_fact_scan("q95_fact"), category(2), [col(1)], [col(0)],
-                              "left_semi", build_side="right",
-                              cached_build_id="q95_cat2_build", projection=[2]),
-        [col(0)], ["c"])
+    exchange, as the host engine plans them (reference ``tpcds.py:480-495``)."""
+    scan = B.memory_scan(STORE_SALES_SCHEMA, "q95_fact")
+    cat1 = B.filter_(B.memory_scan(ITEM_SCHEMA, "q95_item"), [BinaryOp("eq", col(2), lit(1))])
+    cat2 = B.filter_(B.memory_scan(ITEM_SCHEMA, "q95_item"), [BinaryOp("eq", col(2), lit(2))])
+    semi = _bhj(scan, cat1, [col(1)], [col(0)], "left_semi", cached_build_id="q95_cat1_build")
+    bad = B.project(_bhj(scan, cat2, [col(1)], [col(0)], "left_semi",
+                         cached_build_id="q95_cat2_build"), [(col(2), "c")])
     return semi, bad
 
 
-def q95_reduce_tree(read, bad):
+def q95_reduce_plan(read, bad):
     """read LEFT ANTI JOIN bad customers ON customer, counted per customer
     (a NULL customer never matches, so its rows stay)."""
-    from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
-
-    anti = BroadcastHashJoinExec(read, bad, [col(2)], [col(0)], "left_anti",
-                                 build_side="right", projection=[2])
-    keys, aggs = [(col(0), "customer")], _aggs(("count_star", None, "cnt"))
-    return _final(_partial(anti, keys, aggs), keys, aggs)
+    anti = _bhj(read, bad, [col(2)], [col(0)], "left_anti")
+    return _hash_agg2(anti, [(col(2), "customer")], [("count_star", None, "cnt")])
 
 
 def run_q95_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 4,
                   work_dir: str | None = None, device="cuda", conf: dict | None = None,
                   ingested: dict | None = None, stats: dict | None = None) -> dict:
     """EXISTS / NOT EXISTS (q95-class): rows of customers who bought an item
-    of category 1 and never one of category 2, counted per customer.
-    Returns {customer, customer_valid, cnt}, NULL customer last."""
+    of category 1 and never one of category 2, counted per customer (map
+    stages 1 and 2, the reduce tasks stage 2, as the reference numbers
+    them). Returns {customer, customer_valid, cnt}, NULL customer last."""
     if ingested is None:
         ingested = ingest_q95(data, n_map, device)
     n_map = len(ingested["fact"])
     resources = {"q95_fact": ingested["fact"],
                  "q95_item": [ingested["item"]] * max(n_map, n_reduce)}
-    semi, bad = q95_map_trees()
-    outs = _run_stages(
-        [_shuffle_one(semi, [2], n_map, "q95_blocks"),
-         _shuffle_one(bad, [0], n_map, "q95_bad")],
-        q95_reduce_tree, resources, n_reduce, "q95", work_dir, Configuration(conf or {}),
-        device, stats, nulls=True)
+    semi, bad = q95_map_plans()
+    with _cached_builds("q95_cat1_build", "q95_cat2_build"):
+        outs = _run_stages(
+            [_shuffle_one(semi, STORE_SALES_SCHEMA, [2], n_map, "q95_blocks", 1),
+             _shuffle_one(bad, Q95_BAD_SCHEMA, [0], n_map, "q95_bad", 2)],
+            q95_reduce_plan, resources, n_reduce, "q95", work_dir, Configuration(conf or {}),
+            device, stats, nulls=True, reduce_stage=2)
     got = _concat(outs, ["customer", "customer_valid", "cnt"], [np.int64, bool, np.int64])
     got["customer"] = np.where(got["customer_valid"], got["customer"], 0)
     return _q95_order(got)
@@ -1628,29 +1596,23 @@ def q95_class_oracle(data: TpcdsData) -> dict:
 # ---- q18-class: agg-heavy, two joins, shuffle on two int32 keys ----------
 
 
-def q18_map_tree():
-    """fact JOIN date_dim JOIN item -> (cat, d_year, qty, price) -> partial
-    avg(qty), avg(price), sum(price), count(*) by (cat, d_year): the pruned
-    tree of the JAX q18 map plan."""
-    from auron_tpu_torch.exec.basic import ProjectExec, ResourceScanExec
-    from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
-
-    j1 = BroadcastHashJoinExec(_fact_scan("q18_fact"), ResourceScanExec(DATE_DIM_SCHEMA, "q18_dd"),
-                               [col(0)], [col(0)], "inner", build_side="right",
-                               cached_build_id="q18_dd_b", projection=[1, 3, 4, 6])
-    j2 = BroadcastHashJoinExec(j1, ResourceScanExec(ITEM_SCHEMA, "q18_item"), [col(0)],
-                               [col(0)], "inner", build_side="right",
-                               cached_build_id="q18_it_b", projection=[1, 2, 3, 6])
-    proj = ProjectExec(j2, [col(3), col(2), col(0), col(1)], ["cat", "d_year", "qty", "price"])
-    return _partial(proj, _Q18_KEYS, _q18_aggs())
-
-
 _Q18_KEYS = [(col(0), "cat"), (col(1), "d_year")]
+_Q18_AGGS = [("avg", col(2), "q_avg"), ("avg", col(3), "p_avg"), ("sum", col(3), "p_sum"),
+             ("count_star", None, "cnt")]
 
 
-def _q18_aggs() -> list:
-    return _aggs(("avg", col(2), "q_avg"), ("avg", col(3), "p_avg"), ("sum", col(3), "p_sum"),
-                 ("count_star", None, "cnt"))
+def q18_map_plan():
+    """fact JOIN date_dim JOIN item -> (cat, d_year, qty, price) -> partial
+    avg(qty), avg(price), sum(price), count(*) by (cat, d_year), the
+    dimension builds cached (reference ``tpcds.py:734-746``)."""
+    j1 = _bhj(B.memory_scan(STORE_SALES_SCHEMA, "q18_fact"),
+              B.memory_scan(DATE_DIM_SCHEMA, "q18_dd"), [col(0)], [col(0)],
+              cached_build_id="q18_dd_b")
+    j2 = _bhj(j1, B.memory_scan(ITEM_SCHEMA, "q18_item"), [col(1)], [col(0)],
+              cached_build_id="q18_it_b")
+    proj = B.project(j2, [(col(10), "cat"), (col(6), "d_year"), (col(3), "qty"),
+                          (col(4), "price")])
+    return B.hash_agg(proj, _Q18_KEYS, _Q18_AGGS, "partial")
 
 
 def run_q18_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 4,
@@ -1665,9 +1627,13 @@ def run_q18_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int =
     n_map = len(ingested["fact"])
     resources = {"q18_fact": ingested["fact"], "q18_dd": [ingested["dd"]] * n_map,
                  "q18_item": [ingested["item"]] * n_map}
-    outs = _run_stages([_shuffle_one(q18_map_tree(), [0, 1], n_map, "q18_blocks")],
-                       lambda r: _final(r, _Q18_KEYS, _q18_aggs()), resources, n_reduce, "q18",
-                       work_dir, Configuration(conf or {}), device, stats)
+    partial = q18_map_plan()
+    with _cached_builds("q18_dd_b", "q18_it_b"):
+        outs = _run_stages(
+            [_shuffle_one(partial, _agg_inter_schema(partial), [0, 1], n_map, "q18_blocks", 1,
+                          "q18_")],
+            lambda r: B.hash_agg(r, _Q18_KEYS, _Q18_AGGS, "final"), resources, n_reduce, "q18",
+            work_dir, Configuration(conf or {}), device, stats)
     got = _concat(outs, ["cat", "d_year", "q_avg", "p_avg", "p_sum", "cnt"],
                   [np.int32, np.int32, np.float64, np.float64, np.float64, np.int64])
     return _sorted_by(got, ["cat", "d_year"])
@@ -1695,22 +1661,18 @@ _Q14_KEYS1 = [(col(0), "y"), (col(1), "i")]
 _Q14_KEYS2 = [(col(0), "y")]
 
 
-def q14_map_tree():
+def q14_map_plan():
     """fact JOIN date_dim -> (y, i) -> partial count(*) by (y, i)."""
-    from auron_tpu_torch.exec.basic import ProjectExec, ResourceScanExec
-    from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
-
-    j = BroadcastHashJoinExec(_fact_scan("q14_fact"), ResourceScanExec(DATE_DIM_SCHEMA, "q14_dd"),
-                              [col(0)], [col(0)], "inner", build_side="right",
-                              projection=[1, 6])
-    proj = ProjectExec(j, [col(1), col(0)], ["y", "i"])
-    return _partial(proj, _Q14_KEYS1, _aggs(("count_star", None, "c")))
+    j = _bhj(B.memory_scan(STORE_SALES_SCHEMA, "q14_fact"),
+             B.memory_scan(DATE_DIM_SCHEMA, "q14_dd"), [col(0)], [col(0)])
+    proj = B.project(j, [(col(6), "y"), (col(1), "i")])
+    return B.hash_agg(proj, _Q14_KEYS1, [("count_star", None, "c")], "partial")
 
 
-def q14_regroup_tree(read1):
+def q14_regroup_plan(read1):
     """final count by (y, i), then partial count of its rows by y."""
-    f1 = _final(read1, _Q14_KEYS1, _aggs(("count_star", None, "c")))
-    return _partial(f1, _Q14_KEYS2, _aggs(("count_star", None, "d_items")))
+    f1 = B.hash_agg(read1, _Q14_KEYS1, [("count_star", None, "c")], "final")
+    return B.hash_agg(f1, _Q14_KEYS2, [("count_star", None, "d_items")], "partial")
 
 
 def run_q14_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 4,
@@ -1724,13 +1686,15 @@ def run_q14_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int =
         ingested = ingest_q3(data, n_map, device)
     n_map = len(ingested["fact"])
     resources = {"q14_fact": ingested["fact"], "q14_dd": [ingested["dd"]] * max(n_map, n_reduce)}
+    p1 = q14_map_plan()
+
     def regroup(readers):
-        plan = q14_regroup_tree(readers[0])
-        return plan, plan.schema, [0], n_reduce, "q14_ex1"
+        p2 = q14_regroup_plan(readers[0])
+        return Stage(p2, _agg_inter_schema(p2), [0], n_reduce, "q14_ex1", 2)
 
     outs = _run_stages(
-        [_shuffle_one(q14_map_tree(), [0, 1], n_map, "q14_ex0"), regroup],
-        lambda _r1, r2: _final(r2, _Q14_KEYS2, _aggs(("count_star", None, "d_items"))),
+        [_shuffle_one(p1, _agg_inter_schema(p1), [0, 1], n_map, "q14_ex0", 1), regroup],
+        lambda _r1, r2: B.hash_agg(r2, _Q14_KEYS2, [("count_star", None, "d_items")], "final"),
         resources, n_reduce, "q14", work_dir, Configuration(conf or {}), device, stats)
     got = _concat(outs, ["y", "d_items"], [np.int32, np.int64])
     return _sorted_by(got, ["y"])
@@ -1748,23 +1712,19 @@ def q14_class_oracle(data: TpcdsData) -> dict:
 # ---- q65-class: two aggregated subqueries over two shuffles, joined ------
 
 
-def q65_map_trees():
+def q65_map_plans():
     """(partial avg(price) by item, partial max(price) by item)."""
-    keys = [(col(1), "i")]
-    return (_partial(_fact_scan("q65_fact"), keys, _aggs(("avg", col(4), "a"))),
-            _partial(_fact_scan("q65_fact"), keys, _aggs(("max", col(4), "m"))))
+    scan = B.memory_scan(STORE_SALES_SCHEMA, "q65_fact")
+    return (B.hash_agg(scan, [(col(1), "i")], [("avg", col(4), "a")], "partial"),
+            B.hash_agg(scan, [(col(1), "i")], [("max", col(4), "m")], "partial"))
 
 
-def q65_reduce_tree(read_a, read_b):
+def q65_reduce_plan(read_a, read_b):
     """final avg JOIN final max ON item, WHERE m > 2 a."""
-    from auron_tpu_torch.exec.basic import FilterExec
-    from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
-
-    keys = [(col(0), "i")]
-    j = BroadcastHashJoinExec(_final(read_a, keys, _aggs(("avg", col(4), "a"))),
-                              _final(read_b, keys, _aggs(("max", col(4), "m"))),
-                              [col(0)], [col(0)], "inner", build_side="right")
-    return FilterExec(j, [BinaryOp("gt", col(3), BinaryOp("mul", col(1), lit(2.0)))])
+    j = _bhj(B.hash_agg(read_a, [(col(0), "i")], [("avg", col(4), "a")], "final"),
+             B.hash_agg(read_b, [(col(0), "i")], [("max", col(4), "m")], "final"),
+             [col(0)], [col(0)])
+    return B.filter_(j, [BinaryOp("gt", col(3), BinaryOp("mul", col(1), lit(2.0)))])
 
 
 def run_q65_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 4,
@@ -1777,10 +1737,11 @@ def run_q65_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int =
         ingested = {"fact": to_batches(data.store_sales, n_map, device=device)}
     n_map = len(ingested["fact"])
     resources = {"q65_fact": ingested["fact"]}
-    pa_avg, pa_max = q65_map_trees()
+    pa_avg, pa_max = q65_map_plans()
     outs = _run_stages(
-        [_shuffle_one(pa_avg, [0], n_map, "q65_exA"), _shuffle_one(pa_max, [0], n_map, "q65_exB")],
-        q65_reduce_tree, resources, n_reduce, "q65", work_dir, Configuration(conf or {}), device,
+        [_shuffle_one(pa_avg, _agg_inter_schema(pa_avg), [0], n_map, "q65_exA", 1),
+         _shuffle_one(pa_max, _agg_inter_schema(pa_max), [0], n_map, "q65_exB", 2)],
+        q65_reduce_plan, resources, n_reduce, "q65", work_dir, Configuration(conf or {}), device,
         stats)
     got = _concat(outs, ["i", "a", "m"], [np.int64, np.float64, np.float64])
     return _sorted_by(got, ["i"])
@@ -1800,27 +1761,21 @@ def q65_class_oracle(data: TpcdsData) -> dict:
 
 # ---- q5-class: UNION of two separately shuffled streams, re-aggregated ---
 
-_Q5_KEYS = [(col(1), "i")]
+_Q5_AGGS = [("count_star", None, "c"), ("sum", col(4), "s")]
 
 
-def _q5_aggs() -> list:
-    return _aggs(("count_star", None, "c"), ("sum", col(4), "s"))
-
-
-def q5_map_trees():
+def q5_map_plans():
     """(partial count, sum(price) by item of the cheap rows, the same of
     the others): the partial aggregates sit below the exchanges."""
-    from auron_tpu_torch.exec.basic import FilterExec
+    scan = B.memory_scan(STORE_SALES_SCHEMA, "q5_fact")
+    cheap = B.filter_(scan, [BinaryOp("lteq", col(4), lit(50.0))])
+    pricey = B.filter_(scan, [BinaryOp("gt", col(4), lit(50.0))])
+    return (B.hash_agg(cheap, [(col(1), "i")], _Q5_AGGS, "partial"),
+            B.hash_agg(pricey, [(col(1), "i")], _Q5_AGGS, "partial"))
 
-    cheap = FilterExec(_fact_scan("q5_fact"), [BinaryOp("lteq", col(4), lit(50.0))])
-    pricey = FilterExec(_fact_scan("q5_fact"), [BinaryOp("gt", col(4), lit(50.0))])
-    return _partial(cheap, _Q5_KEYS, _q5_aggs()), _partial(pricey, _Q5_KEYS, _q5_aggs())
 
-
-def q5_reduce_tree(read_a, read_b):
-    from auron_tpu_torch.exec.basic import UnionExec
-
-    return _final(UnionExec([read_a, read_b]), _Q5_KEYS, _q5_aggs())
+def q5_reduce_plan(read_a, read_b):
+    return B.hash_agg(B.union([read_a, read_b]), [(col(0), "i")], _Q5_AGGS, "final")
 
 
 def run_q5_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 4,
@@ -1833,10 +1788,12 @@ def run_q5_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 
         ingested = {"fact": to_batches(data.store_sales, n_map, device=device)}
     n_map = len(ingested["fact"])
     resources = {"q5_fact": ingested["fact"]}
-    p_a, p_b = q5_map_trees()
+    p_a, p_b = q5_map_plans()
+    inter = _agg_inter_schema(p_a)
     outs = _run_stages(
-        [_shuffle_one(p_a, [0], n_map, "q5_exA"), _shuffle_one(p_b, [0], n_map, "q5_exB")],
-        q5_reduce_tree, resources, n_reduce, "q5", work_dir, Configuration(conf or {}), device,
+        [_shuffle_one(p_a, inter, [0], n_map, "q5_exA", 1),
+         _shuffle_one(p_b, inter, [0], n_map, "q5_exB", 2)],
+        q5_reduce_plan, resources, n_reduce, "q5", work_dir, Configuration(conf or {}), device,
         stats)
     got = _concat(outs, ["i", "c", "s"], [np.int64, np.int64, np.float64])
     return _sorted_by(got, ["i"])
@@ -1855,31 +1812,38 @@ def q5_class_oracle(data: TpcdsData) -> dict:
 
 
 def _exchange(child, key_cols: list[int], n_parts: int, ex_id: str):
-    from auron_tpu_torch.exec.shuffle.partitioning import HashPartitioning
-    from auron_tpu_torch.parallel.mesh_driver import MeshExchangeExec
-
-    return MeshExchangeExec(child, HashPartitioning([col(c) for c in key_cols], n_parts), ex_id)
+    return B.mesh_exchange(child, B.hash_partitioning([col(c) for c in key_cols], n_parts), ex_id)
 
 
-def q72_mesh_tree(n_parts: int = 4, mode: str = Q72_ELIDE_SORTS):
+def q72_mesh_plan(n_parts: int = 4):
     """q72 as one plan: both facts through a mesh exchange on item into the
     SMJ stage, its partial aggregate through a third exchange on item, then
-    the final aggregate."""
-    join = q72_join_tree(_exchange(_fact_scan("q72_l"), [1], n_parts, "q72_ex_l"),
-                         _exchange(_fact_scan("q72_r"), [1], n_parts, "q72_ex_r"), mode)
-    return _final(_exchange(join, [0], n_parts, "q72_ex2"), [(col(0), "item")], _q72_aggs())
+    the final aggregate (the reference driver's q72 plan)."""
+    specs = [(col(1), SortSpec()), (col(0), SortSpec())]
+    lex = _exchange(B.memory_scan(STORE_SALES_SCHEMA, "q72_l"), [1], n_parts, "q72_ex_l")
+    rex = _exchange(B.memory_scan(STORE_SALES_SCHEMA, "q72_r"), [1], n_parts, "q72_ex_r")
+    smj = B.sort_merge_join(B.sort(lex, specs), B.sort(rex, specs), [col(1), col(0)],
+                            [col(1), col(0)], "inner")
+    proj = B.project(smj, [(col(1), "item"), (col(3), "qty"), (col(9), "price")])
+    partial = B.hash_agg(proj, [(col(0), "item")], _Q72_AGGS, "partial")
+    return B.hash_agg(_exchange(partial, [0], n_parts, "q72_ex2"), [(col(0), "item")], _Q72_AGGS,
+                      "final")
 
 
 def run_q72_mesh(data: TpcdsData | None = None, n_parts: int = 4, device="cuda",
                  conf: dict | None = None, stats: dict | None = None,
                  ingested: dict | None = None) -> dict:
-    """The q72-class query through the planned-exchange driver; returns
-    {item, cnt, qty, p_avg} sorted by item, as ``run_q72_class``."""
+    """The q72-class query through the planned-exchange driver, its SMJ
+    input sorts elided as ``conf``'s ``auron.smj.elide.sorts`` says (default
+    full, as ``run_q72_class``); returns {item, cnt, qty, p_avg} sorted by
+    item."""
     if ingested is None:
         ingested = ingest_q72(data, n_parts, device)
     resources = {"q72_l": ingested["fact"], "q72_r": ingested["fact2"]}
-    outs = _run_mesh(q72_mesh_tree(n_parts, _elide_mode(conf)), resources, n_parts, device,
-                     conf, stats)
+    from auron_tpu_torch.plan.optimizer import elide_smj_input_sorts
+
+    plan = elide_smj_input_sorts(q72_mesh_plan(n_parts), _elide_mode(conf))
+    outs = _run_mesh(plan, resources, n_parts, device, conf, stats)
     got = _concat([collect(o) for o in outs], ["item", "cnt", "qty", "p_avg"],
                   [np.int64, np.int64, np.int64, np.float64])
     return _sorted_by(got, ["item"])
@@ -1906,24 +1870,22 @@ def skew_data(n: int = 30000, hot_frac: float = 0.7) -> tuple[Table, Table]:
     return fact, dim
 
 
-def skew_join_tree(n_parts: int = 4):
+def skew_join_plan(n_parts: int = 4):
     """fact JOIN dim over two planned exchanges and sorts on the key, the
     partial count(*), sum(w) by key through a third exchange, then the
-    final aggregate: the join stage is skew-splittable."""
-    from auron_tpu_torch.exec.basic import ResourceScanExec
-    from auron_tpu_torch.exec.joins.smj import SortMergeJoinExec
-    from auron_tpu_torch.exec.sort_exec import SortExec
-
+    final aggregate: the join stage is skew-splittable (the reference
+    driver's skew plan)."""
     def side(schema, rid, ex_id):
-        ex = _exchange(ResourceScanExec(schema, rid), [0], n_parts, ex_id)
-        return SortExec(ex, [col(0)], [SortSpec()])
+        return B.sort(_exchange(B.memory_scan(schema, rid), [0], n_parts, ex_id),
+                      [(col(0), SortSpec())])
 
-    j = SortMergeJoinExec(side(SKEW_FACT_SCHEMA, "skew_l", "skew_ex_l"),
+    j = B.sort_merge_join(side(SKEW_FACT_SCHEMA, "skew_l", "skew_ex_l"),
                           side(SKEW_DIM_SCHEMA, "skew_r", "skew_ex_r"), [col(0)], [col(0)],
-                          "inner", projection=[0, 3])
-    keys = [(col(0), "k")]
-    aggs = _aggs(("count_star", None, "c"), ("sum", col(1), "w"))
-    return _final(_exchange(_partial(j, keys, aggs), [0], n_parts, "skew_ex2"), keys, aggs)
+                          "inner")
+    p = B.hash_agg(j, [(col(0), "k")], [("count_star", None, "c"), ("sum", col(3), "w")],
+                   "partial")
+    return B.hash_agg(_exchange(p, [0], n_parts, "skew_ex2"), [(col(0), "k")],
+                      [("count_star", None, "c"), ("sum", col(1), "w")], "final")
 
 
 def run_skew_join(fact: Table | None = None, dim: Table | None = None, n_parts: int = 4,
@@ -1935,7 +1897,7 @@ def run_skew_join(fact: Table | None = None, dim: Table | None = None, n_parts: 
         per = max((len(fact) + n_parts - 1) // n_parts, 1)
         ingested = {"skew_l": to_batches(fact, n_parts, per, device),
                     "skew_r": to_batches(dim, n_parts, per, device)}
-    outs = _run_mesh(skew_join_tree(n_parts), dict(ingested), n_parts, device,
+    outs = _run_mesh(skew_join_plan(n_parts), dict(ingested), n_parts, device,
                      {**SKEW_CONF, **(conf or {})}, stats)
     got = _concat([collect(o) for o in outs], ["k", "c", "w"], [np.int64, np.int64, np.int64])
     return _sorted_by(got, ["k"])
@@ -1952,9 +1914,9 @@ def skew_join_oracle(fact: Table, dim: Table) -> dict:
 
 # ---------------------------------------------------------------------------
 # the expression-tail and join-tail classes: CASE, IN, LIKE, residual join
-# conditions, SMJ chains, CTE reuse, set operations — each through the task
-# runtime with the JAX function's partition and task counts, and a numpy
-# oracle
+# conditions, SMJ chains, CTE reuse, set operations — each the reference
+# function's plan, resource ids and task counts, every task from its
+# TaskDefinition bytes, with a numpy oracle
 # ---------------------------------------------------------------------------
 
 #: the classes of this section, in the order chip_smoke.py runs them
@@ -1962,50 +1924,24 @@ TAIL_CLASSES = ("q17", "q16", "q41", "q48", "q99", "q37", "q6", "q85", "q1", "q8
                 "q2", "q4", "q11", "q15", "q31", "q34", "q38", "q54", "q58", "q79", "q22")
 
 
-def _scan(schema: T.Schema, rid: str):
-    from auron_tpu_torch.exec.basic import ResourceScanExec
-
-    return ResourceScanExec(schema, rid)
-
-
-def _bhj(left, right, lkeys: list, rkeys: list, join_type: str = "inner", **kw):
-    """A broadcast hash join with the build on the right."""
-    from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
-
-    return BroadcastHashJoinExec(left, right, lkeys, rkeys, join_type, build_side="right", **kw)
-
-
-def _filter(child, *predicates):
-    from auron_tpu_torch.exec.basic import FilterExec
-
-    return FilterExec(child, list(predicates))
-
-
-def _project(child, *named):
-    from auron_tpu_torch.exec.basic import ProjectExec
-
-    return ProjectExec(child, [e for e, _ in named], [n for _, n in named])
-
-
-def _agg2(child, keys: list, aggs: list, final_aggs: list | None = None):
-    """Partial then final aggregate in one task (the JAX functions' hash_agg
-    pair); ``final_aggs`` names the final side where it differs (a final
-    ``count`` over a partial ``count_star``)."""
-    return _final(_partial(child, keys, aggs), keys, final_aggs or aggs)
-
-
 def _tasks(plan, resources: dict, n_tasks: int, conf, device, stats, stage_id: int = 0):
-    """Run partitions 0..n_tasks-1 of ``plan``: every task's output batches
-    in order; ``stats`` gets the metric trees' host timers and the memory
+    """Run partitions 0..n_tasks-1 of ``plan``, each task from its
+    ``TaskDefinition`` bytes (``run_task_bytes``; the caller's conf rides
+    in the task), on ``runtime.task.slots`` concurrent slots: every task's
+    output batches in order. ``stats`` gets the metric trees' host timers,
+    the tasks' ``task_bytes``, ``decode_s`` and ``plan_s``, and the memory
     manager's counters (``memory_scope``)."""
-    from auron_tpu_torch.runtime.task import run_task
+    conf = conf if isinstance(conf, Configuration) else Configuration(conf or {})
+    task_conf = dict(conf.items())
+
+    def task(p: int):
+        return run_task_bytes(B.task(plan, stage_id, p, task_conf).SerializeToString(),
+                              resources, device)
 
     out = []
-    conf = conf if isinstance(conf, Configuration) else Configuration(conf or {})
     with memory_scope(conf, stats):
-        for batches, metrics in run_tasks_parallel(
-                [(lambda p=p: run_task(plan, resources, stage_id, p, conf, device))
-                 for p in range(n_tasks)], device, _slots(conf)):
+        for batches, metrics in run_tasks_parallel([(lambda p=p: task(p)) for p in range(n_tasks)],
+                                                   device, _slots(conf)):
             out += batches
             if stats is not None:
                 add_timers(stats, metrics)
@@ -2016,31 +1952,32 @@ def _answer(batches, names: list[str], dtypes: list) -> dict:
     return _concat([collect(batches)], names, dtypes)
 
 
-def _tail_inputs(data, n: int, device, ingested) -> dict:
-    """(fact in ``n`` partitions, dims broadcast to each) as resources."""
+def _tail_inputs(data, n: int, device, ingested, name: str) -> dict:
+    """(fact in ``n`` partitions, dims broadcast to each) as the resources
+    ``<name>_fact``, ``<name>_dd`` and ``<name>_item``, the reference's ids."""
     ing = ingested if ingested is not None else ingest_q3(data, n, device)
     k = len(ing["fact"])
-    return {"fact": ing["fact"], "dd": [ing["dd"]] * k, "item": [ing["item"]] * k}
+    return {f"{name}_fact": ing["fact"], f"{name}_dd": [ing["dd"]] * k,
+            f"{name}_item": [ing["item"]] * k}
 
 
-def _materialize(plan, resources: dict, rid: str, conf, device, stats, n: int = 1) -> T.Schema:
+def _materialize(plan, resources: dict, rid: str, conf, device, stats, n: int = 1) -> None:
     """Run ``plan`` (one task) and register its output batches as the
     ``n``-partition resource ``rid`` (a CTE or a broadcast subquery result,
-    collected once and read by every later task); returns its schema."""
+    collected once and read by every later task)."""
     resources[rid] = [_tasks(plan, resources, 1, conf, device, stats)] * n
-    return plan.schema
 
 
-def _fact():
-    return _fact_scan("fact")
+def _fact(name: str):
+    return B.memory_scan(STORE_SALES_SCHEMA, f"{name}_fact")
 
 
-def _dd():
-    return _scan(DATE_DIM_SCHEMA, "dd")
+def _dd(name: str):
+    return B.memory_scan(DATE_DIM_SCHEMA, f"{name}_dd")
 
 
-def _item():
-    return _scan(ITEM_SCHEMA, "item")
+def _item(name: str):
+    return B.memory_scan(ITEM_SCHEMA, f"{name}_item")
 
 
 def _year_is(y: int):
@@ -2058,35 +1995,27 @@ def _by(keys: np.ndarray, weights: np.ndarray | None = None):
 # ---- q17-class: three-way sort-merge join chain --------------------------
 
 
-def q17_tree(mode: str = "build"):
-    """fact SMJ item SMJ date_dim by (d_year, i_category), the pruned tree
-    of the JAX plan: the probe sides sorted (the fact by item, the first
-    join's output by date), the build sides' sorts elided under
-    ``auron.smj.elide.sorts`` = build (the task default)."""
-    from auron_tpu_torch.exec.joins.smj import SortMergeJoinExec
-
-    fact = _project(_fact(), (col(0), "d"), (col(1), "i"), (col(4), "p"))
-    item = _project(_item(), (col(0), "i_item_sk"), (col(3), "i_category"))
-    dd = _project(_dd(), (col(0), "d_date_sk"), (col(1), "d_year"))
-    j1 = SortMergeJoinExec(_smj_side(fact, [col(1)], mode, "left"),
-                           _smj_side(item, [col(0)], mode, "right"), [col(1)], [col(0)],
-                           "inner", projection=[0, 2, 4])
-    j2 = SortMergeJoinExec(_smj_side(j1, [col(0)], mode, "left"),
-                           _smj_side(dd, [col(0)], mode, "right"), [col(0)], [col(0)],
-                           "inner", projection=[1, 2, 4])
-    pr = _project(j2, (col(2), "y"), (col(1), "cat"), (col(0), "p"))
-    return _agg2(pr, [(col(0), "y"), (col(1), "cat")], _aggs(("sum", col(2), "s")))
+def q17_plan():
+    """fact SMJ item SMJ date_dim by (d_year, i_category), each input
+    sorted on its join key (reference ``tpcds.py:1857-1876``); the task
+    conf's ``auron.smj.elide.sorts`` (default build) decides which sorts
+    run."""
+    s1 = B.sort(_fact("q17"), [(col(1), SortSpec())])
+    s2 = B.sort(_item("q17"), [(col(0), SortSpec())])
+    j1 = B.sort_merge_join(s1, s2, [col(1)], [col(0)], "inner")
+    s3 = B.sort(j1, [(col(0), SortSpec())])
+    s4 = B.sort(_dd("q17"), [(col(0), SortSpec())])
+    j2 = B.sort_merge_join(s3, s4, [col(0)], [col(0)], "inner")
+    pr = B.project(j2, [(col(11), "y"), (col(8), "cat"), (col(4), "p")])
+    return _hash_agg2(pr, [(col(0), "y"), (col(1), "cat")], [("sum", col(2), "s")])
 
 
 def run_q17_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
                   stats: dict | None = None, ingested: dict | None = None) -> dict:
     """SELECT d_year y, i_category cat, sum(price) s FROM fact SMJ item SMJ
     date_dim GROUP BY y, cat (one task): {y, cat, s} sorted by (y, cat)."""
-    from auron_tpu_torch.plan.optimizer import SMJ_ELIDE_SORTS_KEY
-
-    res = _tail_inputs(data, 1, device, ingested)
-    mode = (conf or {}).get(SMJ_ELIDE_SORTS_KEY, "build")
-    out = _answer(_tasks(q17_tree(mode), res, 1, conf, device, stats), ["y", "cat", "s"],
+    res = _tail_inputs(data, 1, device, ingested, "q17")
+    out = _answer(_tasks(q17_plan(), res, 1, conf, device, stats), ["y", "cat", "s"],
                   [np.int32, object, np.float64])
     return _sorted_by(out, ["y", "cat"])
 
@@ -2106,6 +2035,14 @@ def q17_class_oracle(data: TpcdsData) -> dict:
 # ---- q16-class: anti join after a shuffle on customer --------------------
 
 
+def q16_reduce_plan(read):
+    """The shuffled rows LEFT ANTI JOIN the customers of their own rows
+    priced above 400, counted."""
+    high_c = B.project(B.filter_(read, [BinaryOp("gt", col(4), lit(400.0))]), [(col(2), "hc")])
+    anti = _bhj(read, high_c, [col(2)], [col(0)], "left_anti")
+    return _hash_agg2(anti, [], [("count_star", None, "c")])
+
+
 def run_q16_class(data: TpcdsData | None = None, n_map: int = 2, n_reduce: int = 2,
                   work_dir: str | None = None, device="cuda", conf: dict | None = None,
                   stats: dict | None = None, ingested: dict | None = None) -> dict:
@@ -2113,18 +2050,10 @@ def run_q16_class(data: TpcdsData | None = None, n_map: int = 2, n_reduce: int =
     file-shuffled on the nullable INT64 customer (K1 on a card), then in
     each reduce task the shuffled rows LEFT ANTI JOIN the customers of
     their own high-value rows, counted. {c} (one row)."""
-    from auron_tpu_torch.exec.shuffle.reader import IpcReaderExec
-
     ing = ingested if ingested is not None else ingest_q3(data, n_map, device)
-    resources = {"fact": ing["fact"]}
-
-    def reduce_tree(read):
-        high = _project(_filter(IpcReaderExec(read.schema, read.resource_id),
-                                BinaryOp("gt", col(4), lit(400.0))), (col(2), "hc"))
-        anti = _bhj(read, high, [col(2)], [col(0)], "left_anti")
-        return _agg2(anti, [], _aggs(("count_star", None, "c")))
-
-    outs = _run_stages([_shuffle_one(_fact(), [2], len(ing["fact"]), "q16_ex0")], reduce_tree,
+    resources = {"q16_fact": ing["fact"]}
+    outs = _run_stages([_shuffle_one(_fact("q16"), STORE_SALES_SCHEMA, [2], len(ing["fact"]),
+                                     "q16_ex0", 1)], q16_reduce_plan,
                        resources, n_reduce, "q16", work_dir, Configuration(conf or {}), device,
                        stats)
     c = _concat(outs, ["c"], [np.int64])["c"]
@@ -2146,9 +2075,9 @@ def run_q41_class(data: TpcdsData | None = None, device="cuda", conf: dict | Non
                   stats: dict | None = None, ingested: dict | None = None) -> dict:
     """SELECT DISTINCT i_category cat FROM item WHERE i_category LIKE '%o%':
     {cat} sorted."""
-    res = _tail_inputs(data, 1, device, ingested)
-    liked = _filter(_item(), Like(col(3), "%o%"))
-    plan = _agg2(liked, [(col(3), "cat")], [])
+    res = _tail_inputs(data, 1, device, ingested, "q41")
+    liked = B.filter_(_item("q41"), [Like(col(3), "%o%")])
+    plan = _hash_agg2(liked, [(col(3), "cat")], [])
     out = _answer(_tasks(plan, res, 1, conf, device, stats), ["cat"], [object])
     return _sorted_by(out, ["cat"])
 
@@ -2167,12 +2096,12 @@ def run_q48_class(data: TpcdsData | None = None, n_map: int = 2, device="cuda",
     """sum(CASE WHEN quantity < 25 THEN price ELSE 0 END), sum(price) per
     year over a broadcast date join, ``n_map`` tasks merged on the driver:
     {y, cheap_s, all_s} sorted by y."""
-    res = _tail_inputs(data, n_map, device, ingested)
-    j = _bhj(_fact(), _dd(), [col(0)], [col(0)])
+    res = _tail_inputs(data, n_map, device, ingested, "q48")
+    j = _bhj(_fact("q48"), _dd("q48"), [col(0)], [col(0)])
     cheap = Case(((BinaryOp("lt", col(3), lit(25)), col(4)),), lit(0.0))
-    pr = _project(j, (col(6), "y"), (cheap, "cheap"), (col(4), "price"))
-    plan = _agg2(pr, [(col(0), "y")], _aggs(("sum", col(1), "cheap_s"), ("sum", col(2), "all_s")))
-    out = _answer(_tasks(plan, res, len(res["fact"]), conf, device, stats),
+    pr = B.project(j, [(col(6), "y"), (cheap, "cheap"), (col(4), "price")])
+    plan = _hash_agg2(pr, [(col(0), "y")], [("sum", col(1), "cheap_s"), ("sum", col(2), "all_s")])
+    out = _answer(_tasks(plan, res, len(res["q48_fact"]), conf, device, stats),
                   ["y", "cheap_s", "all_s"], [np.int32, np.float64, np.float64])
     y, inv = _group(out["y"])
     return {"y": y.astype(np.int32),
@@ -2203,13 +2132,14 @@ def run_q99_class(data: TpcdsData | None = None, device="cuda", conf: dict | Non
                   stats: dict | None = None, ingested: dict | None = None) -> dict:
     """count(*) per (year, price band), the band a four-way CASE: {y, band,
     n} sorted by (y, band)."""
-    res = _tail_inputs(data, 1, device, ingested)
-    j = _bhj(_fact(), _dd(), [col(0)], [col(0)])
-    band = Case(((BinaryOp("lt", col(4), lit(20.0)), lit(0)), (BinaryOp("lt", col(4), lit(60.0)), lit(1)),
+    res = _tail_inputs(data, 1, device, ingested, "q99")
+    j = _bhj(_fact("q99"), _dd("q99"), [col(0)], [col(0)])
+    band = Case(((BinaryOp("lt", col(4), lit(20.0)), lit(0)),
+                 (BinaryOp("lt", col(4), lit(60.0)), lit(1)),
                  (BinaryOp("lt", col(4), lit(120.0)), lit(2))), lit(3))
-    pr = _project(j, (col(6), "y"), (band, "band"))
-    plan = _agg2(pr, [(col(0), "y"), (col(1), "band")], _aggs(("count_star", None, "n")),
-                 _aggs(("count", col(2), "n")))
+    pr = B.project(j, [(col(6), "y"), (band, "band")])
+    plan = _hash_agg2(pr, [(col(0), "y"), (col(1), "band")], [("count_star", None, "n")],
+                      final_aggs=[("count", col(2), "n")])
     out = _answer(_tasks(plan, res, 1, conf, device, stats), ["y", "band", "n"],
                   [np.int32, np.int32, np.int64])
     return _sorted_by(out, ["y", "band"])
@@ -2230,10 +2160,10 @@ def q99_class_oracle(data: TpcdsData) -> dict:
 def run_q37_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
                   stats: dict | None = None, ingested: dict | None = None) -> dict:
     """count(*), sum(price) of sales whose item's category IN (1, 2, 3): {c, s}."""
-    res = _tail_inputs(data, 1, device, ingested)
-    good = _filter(_item(), In(col(2), tuple(Literal(v, T.INT32) for v in (1, 2, 3))))
-    semi = _bhj(_fact(), good, [col(1)], [col(0)], "left_semi")
-    plan = _agg2(semi, [], _aggs(("count_star", None, "c"), ("sum", col(4), "s")))
+    res = _tail_inputs(data, 1, device, ingested, "q37")
+    good = B.filter_(_item("q37"), [In(col(2), tuple(Literal(v, T.INT32) for v in (1, 2, 3)))])
+    semi = _bhj(_fact("q37"), good, [col(1)], [col(0)], "left_semi")
+    plan = _hash_agg2(semi, [], [("count_star", None, "c"), ("sum", col(4), "s")])
     return _answer(_tasks(plan, res, 1, conf, device, stats), ["c", "s"], [np.int64, np.float64])
 
 
@@ -2247,6 +2177,10 @@ def q37_class_oracle(data: TpcdsData) -> dict:
 # ---- q6-class: a computed aggregate broadcast into a conditional join ----
 
 
+_Q6_BUILDS = ("q6_itA_b", "q6_dd_b", "q6_it_b", "q6_ca_b")
+Q6_CATAVG_SCHEMA = T.Schema((T.Field("cat", T.INT32), T.Field("cat_avg", T.FLOAT64)))
+
+
 def run_q6_class(data: TpcdsData | None = None, n_partitions: int = 2, device="cuda",
                  conf: dict | None = None, stats: dict | None = None,
                  ingested: dict | None = None) -> dict:
@@ -2254,26 +2188,27 @@ def run_q6_class(data: TpcdsData | None = None, n_partitions: int = 2, device="c
     average: stage A computes avg(price) by category (``n_partitions``
     partial tasks, one final task), collected and broadcast into stage B's
     join, whose residual condition is price > 1.2 * cat_avg. Cached builds
-    as in the JAX function. {d_year, cnt} sorted by d_year."""
-    res = _tail_inputs(data, n_partitions, device, ingested)
-    n = len(res["fact"])
-    pr = _project(_bhj(_fact(), _item(), [col(1)], [col(0)], cached_build_id="q6_itA_b"),
-                  (col(7), "cat"), (col(4), "price"))
-    keys, avg = [(col(0), "cat")], _aggs(("avg", col(1), "cat_avg"))
-    part = _partial(pr, keys, avg)
-    res["q6_inter"] = [_tasks(part, res, n, conf, device, stats)]
-    ca = _materialize(_final(_scan(part.schema, "q6_inter"), keys, avg), res, "q6_catavg", conf,
-                      device, stats, n)
-    j1 = _bhj(_fact(), _dd(), [col(0)], [col(0)], cached_build_id="q6_dd_b")
-    j2 = _bhj(j1, _item(), [col(1)], [col(0)], cached_build_id="q6_it_b")
-    # fact(5) + date(3) + item(5): price 4, d_year 6, i_category_id 10, cat_avg 14
-    j3 = _bhj(j2, _scan(ca, "q6_catavg"), [col(10)], [col(0)],
-              condition=BinaryOp("gt", col(4), BinaryOp("mul", lit(1.2), col(14))),
-              cached_build_id="q6_ca_b")
-    plan = _agg2(_project(j3, (col(6), "d_year")), [(col(0), "d_year")],
-                 _aggs(("count_star", None, "cnt")))
-    out = _answer(_tasks(plan, res, n, conf, device, stats), ["d_year", "cnt"],
-                  [np.int32, np.int64])
+    as in the reference. {d_year, cnt} sorted by d_year."""
+    res = _tail_inputs(data, n_partitions, device, ingested, "q6")
+    n = len(res["q6_fact"])
+    j = _bhj(_fact("q6"), _item("q6"), [col(1)], [col(0)], cached_build_id="q6_itA_b")
+    proj = B.project(j, [(col(7), "cat"), (col(4), "price")])
+    partial = B.hash_agg(proj, [(col(0), "cat")], [("avg", col(1), "cat_avg")], "partial")
+    with _cached_builds(*_Q6_BUILDS):
+        res["q6_inter"] = [_tasks(partial, res, n, conf, device, stats)]
+        final = B.hash_agg(B.memory_scan(_agg_inter_schema(partial), "q6_inter"),
+                           [(col(0), "cat")], [("avg", col(1), "cat_avg")], "final")
+        _materialize(final, res, "q6_catavg", conf, device, stats, n)
+        j1 = _bhj(_fact("q6"), _dd("q6"), [col(0)], [col(0)], cached_build_id="q6_dd_b")
+        j2 = _bhj(j1, _item("q6"), [col(1)], [col(0)], cached_build_id="q6_it_b")
+        # fact(5) + date(3) + item(5): price 4, d_year 6, i_category_id 10, cat_avg 14
+        j3 = _bhj(j2, B.memory_scan(Q6_CATAVG_SCHEMA, "q6_catavg"), [col(10)], [col(0)],
+                  condition=BinaryOp("gt", col(4), BinaryOp("mul", lit(1.2), col(14))),
+                  cached_build_id="q6_ca_b")
+        plan = _hash_agg2(B.project(j3, [(col(6), "d_year")]), [(col(0), "d_year")],
+                          [("count_star", None, "cnt")])
+        out = _answer(_tasks(plan, res, n, conf, device, stats), ["d_year", "cnt"],
+                      [np.int32, np.int64])
     y, inv = _group(out["d_year"])
     return {"d_year": y.astype(np.int32),
             "cnt": np.bincount(inv, weights=out["cnt"], minlength=len(y)).astype(np.int64)}
@@ -2304,11 +2239,11 @@ def run_q85_class(data: TpcdsData | None = None, device="cuda", conf: dict | Non
                   stats: dict | None = None, ingested: dict | None = None) -> dict:
     """fact JOIN item ON item_sk AND price > CAST(quantity AS DOUBLE) * 1.5,
     counted per category id: {cat, n} sorted by cat."""
-    res = _tail_inputs(data, 1, device, ingested)
+    res = _tail_inputs(data, 1, device, ingested, "q85")
     cond = BinaryOp("gt", col(4), BinaryOp("mul", Cast(col(3), T.FLOAT64), lit(1.5)))
-    j = _bhj(_fact(), _item(), [col(1)], [col(0)], condition=cond)
-    plan = _agg2(j, [(col(7), "cat")], _aggs(("count_star", None, "n")),
-                 _aggs(("count", col(8), "n")))
+    j = _bhj(_fact("q85"), _item("q85"), [col(1)], [col(0)], condition=cond)
+    plan = _hash_agg2(j, [(col(7), "cat")], [("count_star", None, "n")],
+                      final_aggs=[("count", col(8), "n")])
     out = _answer(_tasks(plan, res, 1, conf, device, stats), ["cat", "n"], [np.int32, np.int64])
     return _sorted_by(out, ["cat"])
 
@@ -2323,7 +2258,7 @@ def q85_class_oracle(data: TpcdsData) -> dict:
 
 # ---- q1-class: a filtered broadcast join, global aggregate ---------------
 
-_Q1_AGGS = (("count_star", None, "cnt"), ("sum", col(0), "total"), ("avg", col(0), "mean"))
+_Q1_AGGS = [("count_star", None, "cnt"), ("sum", col(0), "total"), ("avg", col(0), "mean")]
 
 
 def run_q1_class(data: TpcdsData | None = None, n_partitions: int = 4, year: int = 2000,
@@ -2332,12 +2267,13 @@ def run_q1_class(data: TpcdsData | None = None, n_partitions: int = 4, year: int
     """count(*), sum(price), avg(price) of the sales of one year:
     ``n_partitions`` partial tasks, their states merged by one final task.
     {cnt, total, mean} (one row)."""
-    res = _tail_inputs(data, n_partitions, device, ingested)
-    j = _bhj(_fact(), _filter(_dd(), _year_is(year)), [col(0)], [col(0)],
+    res = _tail_inputs(data, n_partitions, device, ingested, "q1")
+    j = _bhj(_fact("q1"), B.filter_(_dd("q1"), [_year_is(year)]), [col(0)], [col(0)],
              cached_build_id="q1_dd_build")
-    part = _partial(_project(j, (col(4), "price")), [], _aggs(*_Q1_AGGS))
-    res["q1_inter"] = [_tasks(part, res, len(res["fact"]), conf, device, stats)]
-    plan = _final(_scan(part.schema, "q1_inter"), [], _aggs(*_Q1_AGGS))
+    partial = B.hash_agg(B.project(j, [(col(4), "price")]), [], _Q1_AGGS, "partial")
+    with _cached_builds("q1_dd_build"):
+        res["q1_inter"] = [_tasks(partial, res, len(res["q1_fact"]), conf, device, stats)]
+    plan = B.hash_agg(B.memory_scan(_agg_inter_schema(partial), "q1_inter"), [], _Q1_AGGS, "final")
     return _answer(_tasks(plan, res, 1, conf, device, stats), ["cnt", "total", "mean"],
                    [np.int64, np.float64, np.float64])
 
@@ -2359,18 +2295,17 @@ def run_q88_class(data: TpcdsData | None = None, device="cuda", conf: dict | Non
                   stats: dict | None = None, ingested: dict | None = None) -> dict:
     """count(*), sum(price) per quantity band [0, 20), [20, 60), [60, 100),
     a UNION ALL of three filtered scans: {band, c, s} sorted by band."""
-    from auron_tpu_torch.exec.basic import UnionExec
-
-    res = _tail_inputs(data, 1, device, ingested)
-    branches = [_project(_filter(_fact(), BinaryOp("gteq", col(3), lit(lo)),
-                                 BinaryOp("lt", col(3), lit(hi))), (lit(bi), "band"), (col(4), "price"))
+    res = _tail_inputs(data, 1, device, ingested, "q88")
+    scan = _fact("q88")
+    branches = [B.project(B.filter_(scan, [BinaryOp("gteq", col(3), lit(lo)),
+                                           BinaryOp("lt", col(3), lit(hi))]),
+                          [(lit(bi), "band"), (col(4), "price")])
                 for bi, (lo, hi) in enumerate(Q88_BANDS)]
-    plan = _agg2(UnionExec(branches), [(col(0), "band")],
-                 _aggs(("count_star", None, "c"), ("sum", col(1), "s")))
+    plan = _hash_agg2(B.union(branches), [(col(0), "band")],
+                      [("count_star", None, "c"), ("sum", col(1), "s")])
     out = _answer(_tasks(plan, res, 1, conf, device, stats), ["band", "c", "s"],
                   [np.int32, np.int64, np.float64])
     return _sorted_by(out, ["band"])
-
 
 
 def q88_class_oracle(data: TpcdsData) -> dict:
@@ -2391,20 +2326,21 @@ def run_q14b_class(data: TpcdsData | None = None, device="cuda", conf: dict | No
     2000 (distinct sets through left-semi and left-anti joins), counted with
     their min and max: {c, lo, lo_valid, hi, hi_valid} (min and max are NULL
     when no item is left)."""
-    res = _tail_inputs(data, 1, device, ingested)
+    res = _tail_inputs(data, 1, device, ingested, "q14b")
 
     def distinct_items(year: int):
-        j = _bhj(_fact(), _filter(_dd(), _year_is(year)), [col(0)], [col(0)],
+        j = _bhj(_fact("q14b"), B.filter_(_dd("q14b"), [_year_is(year)]), [col(0)], [col(0)],
                  cached_build_id=f"q14b_dd_{year}")
-        return _agg2(_project(j, (col(1), "i")), [(col(0), "i")], [])
+        return _hash_agg2(B.project(j, [(col(1), "i")]), [(col(0), "i")], [])
 
     d98, d99, d00 = (distinct_items(y) for y in (1998, 1999, 2000))
     exc = _bhj(_bhj(d98, d99, [col(0)], [col(0)], "left_semi"), d00, [col(0)], [col(0)],
                "left_anti")
-    plan = _agg2(exc, [], _aggs(("count_star", None, "c"), ("min", col(0), "lo"),
-                                ("max", col(0), "hi")))
-    out = _concat([collect(_tasks(plan, res, 1, conf, device, stats), nulls=True)],
-                  ["c", "lo", "lo_valid", "hi", "hi_valid"],
+    plan = _hash_agg2(exc, [], [("count_star", None, "c"), ("min", col(0), "lo"),
+                                ("max", col(0), "hi")])
+    with _cached_builds(*(f"q14b_dd_{y}" for y in (1998, 1999, 2000))):
+        batches = _tasks(plan, res, 1, conf, device, stats)
+    out = _concat([collect(batches, nulls=True)], ["c", "lo", "lo_valid", "hi", "hi_valid"],
                   [np.int64, np.int64, bool, np.int64, bool])
     for k in ("lo", "hi"):  # NULL (no item left) reads 0
         out[k] = np.where(out[f"{k}_valid"], out[k], 0)
@@ -2429,20 +2365,24 @@ def q14b_class_oracle(data: TpcdsData) -> dict:
 # ---- q2-class: a CTE read twice, self-joined month on month ---------------
 
 
+Q2_CTE_SCHEMA = T.Schema((T.Field("y", T.INT32), T.Field("m", T.INT32), T.Field("rev", T.FLOAT64)))
+
+
 def run_q2_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
                  stats: dict | None = None, ingested: dict | None = None) -> dict:
     """Monthly revenue (a CTE materialized once) joined with itself shifted
     by one month: ratio = next month's revenue over this month's.
     {y, m, ratio} sorted by (y, m)."""
-    res = _tail_inputs(data, 1, device, ingested)
-    pr = _project(_bhj(_fact(), _dd(), [col(0)], [col(0)]), (col(6), "y"), (col(7), "m"),
-                  (col(4), "p"))
-    cte = _materialize(_agg2(pr, [(col(0), "y"), (col(1), "m")], _aggs(("sum", col(2), "rev"))),
-                       res, "q2_cte", conf, device, stats)
-    nxt = _project(_scan(cte, "q2_cte"), (col(0), "y"), (BinaryOp("sub", col(1), lit(1)), "m0"),
-                   (col(2), "rev_next"))
-    jj = _bhj(_scan(cte, "q2_cte"), nxt, [col(0), col(1)], [col(0), col(1)])
-    plan = _project(jj, (col(0), "y"), (col(1), "m"), (BinaryOp("div", col(5), col(2)), "ratio"))
+    res = _tail_inputs(data, 1, device, ingested, "q2")
+    pr = B.project(_bhj(_fact("q2"), _dd("q2"), [col(0)], [col(0)]),
+                   [(col(6), "y"), (col(7), "m"), (col(4), "p")])
+    _materialize(_hash_agg2(pr, [(col(0), "y"), (col(1), "m")], [("sum", col(2), "rev")]), res,
+                 "q2_cte", conf, device, stats)
+    nxt = B.project(B.memory_scan(Q2_CTE_SCHEMA, "q2_cte"),
+                    [(col(0), "y"), (BinaryOp("sub", col(1), lit(1)), "m0"), (col(2), "rev_next")])
+    jj = _bhj(B.memory_scan(Q2_CTE_SCHEMA, "q2_cte"), nxt, [col(0), col(1)], [col(0), col(1)])
+    plan = B.project(jj, [(col(0), "y"), (col(1), "m"),
+                          (BinaryOp("div", col(5), col(2)), "ratio")])
     out = _answer(_tasks(plan, res, 1, conf, device, stats), ["y", "m", "ratio"],
                   [np.int32, np.int32, np.float64])
     return _sorted_by(out, ["y", "m"])
@@ -2462,18 +2402,21 @@ def q2_class_oracle(data: TpcdsData) -> dict:
 # ---- q4-class: a CTE chain: per-customer totals -> filter -> semi join ---
 
 
+Q4_CTE_SCHEMA = T.Schema((T.Field("c", T.INT64), T.Field("s", T.FLOAT64)))
+
+
 def run_q4_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
                  stats: dict | None = None, ingested: dict | None = None) -> dict:
     """Rows per item of the customers whose total spend exceeds 300 (the
     totals a CTE, the high spenders a filter over it, a semi join back to
     the fact): {i, n} sorted by i."""
-    res = _tail_inputs(data, 1, device, ingested)
-    cte = _materialize(_agg2(_fact(), [(col(2), "c")], _aggs(("sum", col(4), "s"))), res,
-                       "q4_cte", conf, device, stats)
-    high = _filter(_scan(cte, "q4_cte"), BinaryOp("gt", col(1), lit(300.0)))
-    semi = _bhj(_fact(), high, [col(2)], [col(0)], "left_semi")
-    plan = _agg2(semi, [(col(1), "i")], _aggs(("count_star", None, "n")),
-                 _aggs(("count", col(2), "n")))
+    res = _tail_inputs(data, 1, device, ingested, "q4")
+    _materialize(_hash_agg2(_fact("q4"), [(col(2), "c")], [("sum", col(4), "s")]), res, "q4_cte",
+                 conf, device, stats)
+    high = B.filter_(B.memory_scan(Q4_CTE_SCHEMA, "q4_cte"), [BinaryOp("gt", col(1), lit(300.0))])
+    semi = _bhj(_fact("q4"), high, [col(2)], [col(0)], "left_semi")
+    plan = _hash_agg2(semi, [(col(1), "i")], [("count_star", None, "n")],
+                      final_aggs=[("count", col(2), "n")])
     out = _answer(_tasks(plan, res, 1, conf, device, stats), ["i", "n"], [np.int64, np.int64])
     return _sorted_by(out, ["i"])
 
@@ -2494,19 +2437,23 @@ def q4_class_oracle(data: TpcdsData) -> dict:
 # ---- q11-class: year-over-year self-join of a CTE ------------------------
 
 
+Q11_CTE_SCHEMA = T.Schema((T.Field("c", T.INT64, True), T.Field("y", T.INT32),
+                           T.Field("s", T.FLOAT64)))
+
+
 def run_q11_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
                   stats: dict | None = None, ingested: dict | None = None) -> dict:
     """Per-(customer, year) revenue (a CTE), 1999 joined with 1998 on
     customer where 1999 grew: {c, s99, s98} sorted by c."""
-    res = _tail_inputs(data, 1, device, ingested)
-    pr = _project(_bhj(_fact(), _dd(), [col(0)], [col(0)]), (col(2), "c"), (col(6), "y"),
-                  (col(4), "p"))
-    cte = _materialize(_agg2(pr, [(col(0), "c"), (col(1), "y")], _aggs(("sum", col(2), "s"))),
-                       res, "q11_cte", conf, device, stats)
-    y98 = _filter(_scan(cte, "q11_cte"), _year_is(1998))
-    y99 = _filter(_scan(cte, "q11_cte"), _year_is(1999))
-    growth = _filter(_bhj(y99, y98, [col(0)], [col(0)]), BinaryOp("gt", col(2), col(5)))
-    plan = _project(growth, (col(0), "c"), (col(2), "s99"), (col(5), "s98"))
+    res = _tail_inputs(data, 1, device, ingested, "q11")
+    pr = B.project(_bhj(_fact("q11"), _dd("q11"), [col(0)], [col(0)]),
+                   [(col(2), "c"), (col(6), "y"), (col(4), "p")])
+    _materialize(_hash_agg2(pr, [(col(0), "c"), (col(1), "y")], [("sum", col(2), "s")]), res,
+                 "q11_cte", conf, device, stats)
+    y98 = B.filter_(B.memory_scan(Q11_CTE_SCHEMA, "q11_cte"), [_year_is(1998)])
+    y99 = B.filter_(B.memory_scan(Q11_CTE_SCHEMA, "q11_cte"), [_year_is(1999)])
+    growth = B.filter_(_bhj(y99, y98, [col(0)], [col(0)]), [BinaryOp("gt", col(2), col(5))])
+    plan = B.project(growth, [(col(0), "c"), (col(2), "s99"), (col(5), "s98")])
     out = _answer(_tasks(plan, res, 1, conf, device, stats), ["c", "s99", "s98"],
                   [np.int64, np.float64, np.float64])
     return _sorted_by(out, ["c"])
@@ -2533,10 +2480,11 @@ def run_q15_class(data: TpcdsData | None = None, device="cuda", conf: dict | Non
                   stats: dict | None = None, ingested: dict | None = None) -> dict:
     """count(*), sum(price) of sales above 50 whose item is in category 3:
     {n, s}."""
-    res = _tail_inputs(data, 1, device, ingested)
-    semi = _bhj(_filter(_fact(), BinaryOp("gt", col(4), lit(50.0))),
-                _filter(_item(), BinaryOp("eq", col(2), lit(3))), [col(1)], [col(0)], "left_semi")
-    plan = _agg2(semi, [], _aggs(("count_star", None, "n"), ("sum", col(4), "s")))
+    res = _tail_inputs(data, 1, device, ingested, "q15")
+    cat3 = B.filter_(_item("q15"), [BinaryOp("eq", col(2), lit(3))])
+    pricey = B.filter_(_fact("q15"), [BinaryOp("gt", col(4), lit(50.0))])
+    semi = _bhj(pricey, cat3, [col(1)], [col(0)], "left_semi")
+    plan = _hash_agg2(semi, [], [("count_star", None, "n"), ("sum", col(4), "s")])
     return _answer(_tasks(plan, res, 1, conf, device, stats), ["n", "s"], [np.int64, np.float64])
 
 
@@ -2551,19 +2499,23 @@ def q15_class_oracle(data: TpcdsData) -> dict:
 # ---- q31-class: a per-group average joined back ---------------------------
 
 
+Q31_AVG_SCHEMA = T.Schema((T.Field("cat", T.INT32), T.Field("a", T.FLOAT64)))
+
+
 def run_q31_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
                   stats: dict | None = None, ingested: dict | None = None) -> dict:
     """Sales priced above twice their category's average, counted per
     category (the averages a broadcast subquery result): {cat, n} sorted."""
-    res = _tail_inputs(data, 1, device, ingested)
-    pr = _project(_bhj(_fact(), _item(), [col(1)], [col(0)]), (col(7), "cat"), (col(4), "p"))
-    avg = _materialize(_agg2(pr, [(col(0), "cat")], _aggs(("avg", col(1), "a"))), res,
-                       "q31_avg", conf, device, stats)
-    j2 = _bhj(_bhj(_fact(), _item(), [col(1)], [col(0)]), _scan(avg, "q31_avg"), [col(7)],
-              [col(0)])
-    hot = _filter(j2, BinaryOp("gt", col(4), BinaryOp("mul", lit(2.0), col(11))))
-    plan = _agg2(hot, [(col(7), "cat")], _aggs(("count_star", None, "n")),
-                 _aggs(("count", col(8), "n")))
+    res = _tail_inputs(data, 1, device, ingested, "q31")
+    pr = B.project(_bhj(_fact("q31"), _item("q31"), [col(1)], [col(0)]),
+                   [(col(7), "cat"), (col(4), "p")])
+    _materialize(_hash_agg2(pr, [(col(0), "cat")], [("avg", col(1), "a")]), res, "q31_avg", conf,
+                 device, stats)
+    j2 = _bhj(_bhj(_fact("q31"), _item("q31"), [col(1)], [col(0)]),
+              B.memory_scan(Q31_AVG_SCHEMA, "q31_avg"), [col(7)], [col(0)])
+    hot = B.filter_(j2, [BinaryOp("gt", col(4), BinaryOp("mul", lit(2.0), col(11)))])
+    plan = _hash_agg2(hot, [(col(7), "cat")], [("count_star", None, "n")],
+                      final_aggs=[("count", col(8), "n")])
     out = _answer(_tasks(plan, res, 1, conf, device, stats), ["cat", "n"], [np.int32, np.int64])
     return _sorted_by(out, ["cat"])
 
@@ -2582,10 +2534,11 @@ def q31_class_oracle(data: TpcdsData) -> dict:
 def run_q34_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
                   stats: dict | None = None, ingested: dict | None = None) -> dict:
     """Customers with 3 to 5 sales: {c, n} sorted by c."""
-    res = _tail_inputs(data, 1, device, ingested)
-    f = _agg2(_fact(), [(col(2), "c")], _aggs(("count_star", None, "n")),
-              _aggs(("count", col(3), "n")))
-    plan = _filter(f, BinaryOp("and", BinaryOp("gteq", col(1), lit(3)), BinaryOp("lteq", col(1), lit(5))))
+    res = _tail_inputs(data, 1, device, ingested, "q34")
+    f = _hash_agg2(_fact("q34"), [(col(2), "c")], [("count_star", None, "n")],
+                   final_aggs=[("count", col(3), "n")])
+    plan = B.filter_(f, [BinaryOp("and", BinaryOp("gteq", col(1), lit(3)),
+                                  BinaryOp("lteq", col(1), lit(5)))])
     out = _answer(_tasks(plan, res, 1, conf, device, stats), ["c", "n"], [np.int64, np.int64])
     return _sorted_by(out, ["c"])
 
@@ -2604,15 +2557,16 @@ def run_q38_class(data: TpcdsData | None = None, device="cuda", conf: dict | Non
                   stats: dict | None = None, ingested: dict | None = None) -> dict:
     """Customers active in 1998, 1999 and 2000 (distinct customer sets
     chained through two semi joins), counted: {n}."""
-    res = _tail_inputs(data, 1, device, ingested)
+    res = _tail_inputs(data, 1, device, ingested, "q38")
 
     def customers_of(year: int):
-        j = _bhj(_fact(), _filter(_dd(), _year_is(year)), [col(0)], [col(0)], "left_semi")
-        return _agg2(j, [(col(2), "c")], [])
+        j = _bhj(_fact("q38"), B.filter_(_dd("q38"), [_year_is(year)]), [col(0)], [col(0)],
+                 "left_semi")
+        return _hash_agg2(j, [(col(2), "c")], [])
 
     inter = _bhj(_bhj(customers_of(1998), customers_of(1999), [col(0)], [col(0)], "left_semi"),
                  customers_of(2000), [col(0)], [col(0)], "left_semi")
-    plan = _agg2(inter, [], _aggs(("count", col(0), "n")))
+    plan = _hash_agg2(inter, [], [("count", col(0), "n")])
     return _answer(_tasks(plan, res, 1, conf, device, stats), ["n"], [np.int64])
 
 
@@ -2633,11 +2587,12 @@ Q54_RANGE = (2_450_900, 2_451_300)
 def run_q54_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
                   stats: dict | None = None, ingested: dict | None = None) -> dict:
     """count(*), avg(price) of the sales on dates BETWEEN two date keys: {n, a}."""
-    res = _tail_inputs(data, 1, device, ingested)
+    res = _tail_inputs(data, 1, device, ingested, "q54")
     lo, hi = Q54_RANGE
-    rng = _filter(_dd(), BinaryOp("and", BinaryOp("gteq", col(0), lit(lo)), BinaryOp("lteq", col(0), lit(hi))))
-    plan = _agg2(_bhj(_fact(), rng, [col(0)], [col(0)]), [],
-                 _aggs(("count_star", None, "n"), ("avg", col(4), "a")))
+    rng = B.filter_(_dd("q54"), [BinaryOp("and", BinaryOp("gteq", col(0), lit(lo)),
+                                          BinaryOp("lteq", col(0), lit(hi)))])
+    plan = _hash_agg2(_bhj(_fact("q54"), rng, [col(0)], [col(0)]), [],
+                      [("count_star", None, "n"), ("avg", col(4), "a")])
     return _answer(_tasks(plan, res, 1, conf, device, stats), ["n", "a"], [np.int64, np.float64])
 
 
@@ -2656,13 +2611,11 @@ def run_q58_class(data: TpcdsData | None = None, device="cuda", conf: dict | Non
                   stats: dict | None = None, ingested: dict | None = None) -> dict:
     """sum(price) per item over the sales of 1998, 1999 and 2000, each year
     a semi-join branch of a UNION ALL: {i, s} sorted by i."""
-    from auron_tpu_torch.exec.basic import UnionExec
-
-    res = _tail_inputs(data, 1, device, ingested)
-    branches = [_project(_bhj(_fact(), _filter(_dd(), _year_is(y)), [col(0)], [col(0)],
-                              "left_semi"), (col(1), "i"), (col(4), "p"))
+    res = _tail_inputs(data, 1, device, ingested, "q58")
+    branches = [B.project(_bhj(_fact("q58"), B.filter_(_dd("q58"), [_year_is(y)]), [col(0)],
+                               [col(0)], "left_semi"), [(col(1), "i"), (col(4), "p")])
                 for y in (1998, 1999, 2000)]
-    plan = _agg2(UnionExec(branches), [(col(0), "i")], _aggs(("sum", col(1), "s")))
+    plan = _hash_agg2(B.union(branches), [(col(0), "i")], [("sum", col(1), "s")])
     out = _answer(_tasks(plan, res, 1, conf, device, stats), ["i", "s"], [np.int64, np.float64])
     return _sorted_by(out, ["i"])
 
@@ -2677,17 +2630,20 @@ def q58_class_oracle(data: TpcdsData) -> dict:
 # ---- q79-class: group-wise argmax joined back -----------------------------
 
 
+Q79_MAX_SCHEMA = T.Schema((T.Field("c", T.INT64, True), T.Field("mx", T.FLOAT64)))
+
+
 def run_q79_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
                   stats: dict | None = None, ingested: dict | None = None) -> dict:
     """Each customer's sales at their own maximum price, counted (the maxima
     a broadcast subquery result): {c, n} sorted by c."""
-    res = _tail_inputs(data, 1, device, ingested)
-    mx = _materialize(_agg2(_fact(), [(col(2), "c")], _aggs(("max", col(4), "mx"))), res,
-                      "q79_max", conf, device, stats)
-    hit = _filter(_bhj(_fact(), _scan(mx, "q79_max"), [col(2)], [col(0)]),
-                  BinaryOp("eq", col(4), col(6)))
-    plan = _agg2(hit, [(col(2), "c")], _aggs(("count_star", None, "n")),
-                 _aggs(("count", col(3), "n")))
+    res = _tail_inputs(data, 1, device, ingested, "q79")
+    _materialize(_hash_agg2(_fact("q79"), [(col(2), "c")], [("max", col(4), "mx")]), res,
+                 "q79_max", conf, device, stats)
+    hit = B.filter_(_bhj(_fact("q79"), B.memory_scan(Q79_MAX_SCHEMA, "q79_max"), [col(2)],
+                         [col(0)]), [BinaryOp("eq", col(4), col(6))])
+    plan = _hash_agg2(hit, [(col(2), "c")], [("count_star", None, "n")],
+                      final_aggs=[("count", col(3), "n")])
     out = _answer(_tasks(plan, res, 1, conf, device, stats), ["c", "n"], [np.int64, np.int64])
     return _sorted_by(out, ["c"])
 
@@ -2709,11 +2665,11 @@ def run_q22_class(data: TpcdsData | None = None, device="cuda", conf: dict | Non
                   stats: dict | None = None, ingested: dict | None = None) -> dict:
     """Items never sold below price 5 (item LEFT ANTI JOIN the cheap sales),
     counted per category id: {cat, n} sorted by cat."""
-    res = _tail_inputs(data, 1, device, ingested)
-    cheap = _project(_filter(_fact(), BinaryOp("lt", col(4), lit(5.0))), (col(1), "i"))
-    anti = _bhj(_item(), cheap, [col(0)], [col(0)], "left_anti")
-    plan = _agg2(anti, [(col(2), "cat")], _aggs(("count_star", None, "n")),
-                 _aggs(("count", col(3), "n")))
+    res = _tail_inputs(data, 1, device, ingested, "q22")
+    cheap = B.project(B.filter_(_fact("q22"), [BinaryOp("lt", col(4), lit(5.0))]), [(col(1), "i")])
+    anti = _bhj(_item("q22"), cheap, [col(0)], [col(0)], "left_anti")
+    plan = _hash_agg2(anti, [(col(2), "cat")], [("count_star", None, "n")],
+                      final_aggs=[("count", col(3), "n")])
     out = _answer(_tasks(plan, res, 1, conf, device, stats), ["cat", "n"], [np.int32, np.int64])
     return _sorted_by(out, ["cat"])
 
@@ -2727,27 +2683,28 @@ def q22_class_oracle(data: TpcdsData) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the join-tail classes: full, right and existence joins through the task
-# runtime with the JAX function's operator tree and task count
+# the join-tail classes: full, right and existence joins, the reference
+# function's plan and task count
 # ---------------------------------------------------------------------------
 
 #: the classes of this section, in the order chip_smoke.py runs them
 JOIN_TAIL_CLASSES = ("q33",)
 
 
-def q33_tree():
+def q33_plan():
     """Two aggregate branches of the fact (quantity below 50, and 50 or
     more: sum of the price by item) FULL OUTER joined on the item, with the
     key coalesced from both sides (reference ``tpcds.py:2275-2298``)."""
     from auron_tpu_torch.exprs.ir import Coalesce
 
     def branch(pred, name):
-        return _agg2(_filter(_fact(), pred), [(col(1), "i")], _aggs(("sum", col(4), name)))
+        return _hash_agg2(B.filter_(_fact("q33"), [pred]), [(col(1), "i")],
+                          [("sum", col(4), name)])
 
     lo = branch(BinaryOp("lt", col(3), lit(50)), "lo")
     hi = branch(BinaryOp("gteq", col(3), lit(50)), "hi")
     full = _bhj(lo, hi, [col(0)], [col(0)], "full")
-    return _project(full, (Coalesce((col(0), col(2))), "i"), (col(1), "lo"), (col(3), "hi"))
+    return B.project(full, [(Coalesce((col(0), col(2))), "i"), (col(1), "lo"), (col(3), "hi")])
 
 
 def run_q33_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
@@ -2755,8 +2712,8 @@ def run_q33_class(data: TpcdsData | None = None, device="cuda", conf: dict | Non
     """Per item, the price sum of its low-quantity and of its high-quantity
     sales, an item sold only one way keeping a NULL on the other:
     {i, lo, lo_valid, hi, hi_valid} sorted by i (a NULL sum reads 0)."""
-    res = _tail_inputs(data, 1, device, ingested)
-    got = _concat([collect(_tasks(q33_tree(), res, 1, conf, device, stats), nulls=True)],
+    res = _tail_inputs(data, 1, device, ingested, "q33")
+    got = _concat([collect(_tasks(q33_plan(), res, 1, conf, device, stats), nulls=True)],
                   ["i", "lo", "lo_valid", "hi", "hi_valid"],
                   [np.int64, np.float64, bool, np.float64, bool])
     for k in ("lo", "hi"):
@@ -2780,9 +2737,9 @@ def q33_class_oracle(data: TpcdsData) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the window, expand and scalar-subquery classes: each through the task
-# runtime with the JAX function's operator tree and task count, over the
-# whole fact table unless ``rows`` takes the JAX function's prefix
+# the window, expand and scalar-subquery classes: each the reference
+# function's plan, resource ids and task count, over the whole fact table
+# unless ``rows`` takes the reference function's prefix
 # ---------------------------------------------------------------------------
 
 #: the classes of this section, in the order chip_smoke.py runs them
@@ -2800,12 +2757,13 @@ def _prefixed(data: TpcdsData, rows: int | None) -> TpcdsData:
                            {k: v[:rows] for k, v in ss.valid.items()}), data.date_dim, data.item)
 
 
-def _window_inputs(data, n: int, device, ingested, rows) -> dict:
-    """(fact in ``n`` partitions, dims) as resources, the fact cut to
-    ``rows`` where no ingested input is given."""
+def _window_inputs(data, n: int, device, ingested, rows, name: str) -> dict:
+    """(fact in ``n`` partitions, dims) as ``<name>_fact``, ``<name>_dd``
+    and ``<name>_item``, the fact cut to ``rows`` where no ingested input
+    is given."""
     if ingested is None:
         ingested = ingest_q3(_prefixed(data, rows), n, device)
-    return _tail_inputs(None, n, device, ingested)
+    return _tail_inputs(None, n, device, ingested, name)
 
 
 def _ordered(batches: list, keys: list[str], keep=None) -> list:
@@ -2830,15 +2788,6 @@ def _ordered(batches: list, keys: list[str], keep=None) -> list:
         ops += [m.to(torch.int64), torch.where(m, dev.values[i], 0).to(torch.int64)]
     perm = lexsort(tuple(ops), kinds=("i64",) * len(ops))
     return [big.with_device(device_take(DeviceBatch(sel, dev.values, dev.validity), perm))]
-
-
-def _window(child, partition_by: list, order_by: list, funcs: list):
-    """WindowExec; ``funcs`` as (kind, agg, expr, offset, frame_whole, name)."""
-    from auron_tpu_torch.exec.window_exec import WindowExec, WindowFunc
-
-    return WindowExec(child, partition_by, order_by,
-                      [(WindowFunc(k, agg=a, expr=e, offset=o or 1, frame_whole=w), name)
-                       for k, a, e, o, w, name in funcs])
 
 
 def _cents(price: np.ndarray) -> np.ndarray:
@@ -2887,23 +2836,31 @@ def _rank_min(part: np.ndarray, key: np.ndarray) -> np.ndarray:
 # ---- windowed: rank by revenue within a date --------------------------------
 
 
+def windowed_plan(money: bool = False):
+    """Revenue per (date, item) (partial + final aggregate), then rank() by
+    revenue DESC within the date (reference ``run_windowed_query``); with
+    ``money`` the revenue is sum(Cast(price AS decimal(7,2)))."""
+    price = Cast(col(4), MONEY) if money else col(4)
+    p = B.hash_agg(_fact("qw"), [(col(0), "d"), (col(1), "item")], [("sum", price, "rev")],
+                   "partial")
+    f = B.hash_agg(p, [(col(0), "d"), (col(1), "item")],
+                   [("sum", col(2) if money else price, "rev")], "final")
+    return B.window(f, [col(0)], [(col(2), SortSpec(asc=False))],
+                    [("rank", None, None, 1, False, "rk")])
+
+
 def run_windowed_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
                        stats: dict | None = None, ingested: dict | None = None,
                        rows: int | None = None, money: bool = False) -> dict:
-    """Revenue per (date, item) (partial + final aggregate), rank() by
-    revenue DESC within the date (WindowExec, one task over the fact's two
-    partitions), then rank <= 2 kept on the host: {d, item, rev, rk} sorted
-    by (d, rk, item). With ``money`` the revenue is sum(Cast(price AS
-    decimal(7,2))), a decimal(17,2) in int64 cents: exact, so ties rank
-    alike."""
-    res = _window_inputs(data, 2, device, ingested, rows)
-    res["fact"] = [[b for part in res["fact"] for b in part]]
-    price = Cast(col(4), MONEY) if money else col(4)
-    agg = _agg2(_fact(), [(col(0), "d"), (col(1), "item")], _aggs(("sum", price, "rev")))
-    plan = _window(agg, [col(0)], [(col(2), SortSpec(asc=False))],
-                   [("rank", None, None, 1, False, "rk")])
-    batches = _ordered(_tasks(plan, res, 1, conf, device, stats), ["d", "rk", "item"],
-                       keep=lambda b: b.col_values(3) <= 2)
+    """Revenue per (date, item), rank() by revenue DESC within the date
+    (``windowed_plan``, one task over the fact's two partitions as one),
+    then rank <= 2 kept on the host: {d, item, rev, rk} sorted by (d, rk,
+    item). With ``money`` the revenue is a decimal(17,2) in int64 cents:
+    exact, so ties rank alike."""
+    res = _window_inputs(data, 2, device, ingested, rows, "qw")
+    res["qw_fact"] = [[b for part in res["qw_fact"] for b in part]]
+    batches = _ordered(_tasks(windowed_plan(money), res, 1, conf, device, stats),
+                       ["d", "rk", "item"], keep=lambda b: b.col_values(3) <= 2)
     return _answer(batches, ["d", "item", "rev", "rk"],
                    [np.int64, np.int64, np.int64 if money else np.float64, np.int32])
 
@@ -3000,10 +2957,10 @@ def run_windowed2_class(data: TpcdsData | None = None, device="cuda", conf: dict
     prev_price (+ prev_price_valid), run_sum} sorted by (item, date)."""
     if ingested is None:
         ingested = ingest_windowed2(data, device, rows)
-    plan = _window(_fact(), [col(1)], [(col(0), SortSpec())],
-                   [("lag", None, col(4), 1, False, "prev_price"),
-                    ("agg", "sum", col(4), 1, False, "run_sum")])
-    batches = _tasks(plan, {"fact": ingested["fact"]}, 1, conf, device, stats)
+    plan = B.window(_fact("qw2"), [col(1)], [(col(0), SortSpec())],
+                    [("lag", None, col(4), 1, False, "prev_price"),
+                     ("agg", "sum", col(4), 1, False, "run_sum")])
+    batches = _tasks(plan, {"qw2_fact": ingested["fact"]}, 1, conf, device, stats)
     out = collect(_ordered(batches, ["ss_item_sk", "ss_sold_date_sk"]), nulls=True)
     return {"ss_item_sk": out["ss_item_sk"], "ss_sold_date_sk": out["ss_sold_date_sk"],
             "prev_price": np.where(out["prev_price_valid"], out["prev_price"], 0.0),
@@ -3031,12 +2988,12 @@ def run_q51_class(data: TpcdsData | None = None, device="cuda", conf: dict | Non
     """fact JOIN date_dim, revenue per (item, year), then the running sum
     per item ordered by year (one task): {item, y, rev, run_rev} sorted by
     (item, y)."""
-    res = _window_inputs(data, 1, device, ingested, rows)
-    pr = _project(_bhj(_fact(), _dd(), [col(0)], [col(0)]),
-                  (col(1), "item"), (col(6), "y"), (col(4), "price"))
-    agg = _agg2(pr, [(col(0), "item"), (col(1), "y")], _aggs(("sum", col(2), "rev")))
-    plan = _window(agg, [col(0)], [(col(1), SortSpec())],
-                   [("agg", "sum", col(2), 1, False, "run_rev")])
+    res = _window_inputs(data, 1, device, ingested, rows, "q51")
+    pr = B.project(_bhj(_fact("q51"), _dd("q51"), [col(0)], [col(0)]),
+                   [(col(1), "item"), (col(6), "y"), (col(4), "price")])
+    agg = _hash_agg2(pr, [(col(0), "item"), (col(1), "y")], [("sum", col(2), "rev")])
+    plan = B.window(agg, [col(0)], [(col(1), SortSpec())],
+                    [("agg", "sum", col(2), 1, False, "run_rev")])
     return _answer(_ordered(_tasks(plan, res, 1, conf, device, stats), ["item", "y"]),
                    ["item", "y", "rev", "run_rev"], [np.int64, np.int32, np.float64, np.float64])
 
@@ -3067,12 +3024,12 @@ def run_q23_class(data: TpcdsData | None = None, device="cuda", conf: dict | Non
     """fact JOIN item, revenue per (category id, brand), rank() by
     (revenue DESC, brand) within the category, rank <= 3 kept on the host:
     {cat, brand, rev, rk} sorted by (cat, rk, brand)."""
-    res = _window_inputs(data, 1, device, ingested, rows)
-    pr = _project(_bhj(_fact(), _item(), [col(1)], [col(0)]),
-                  (col(7), "cat"), (col(6), "brand"), (col(4), "price"))
-    agg = _agg2(pr, [(col(0), "cat"), (col(1), "brand")], _aggs(("sum", col(2), "rev")))
-    plan = _window(agg, [col(0)], [(col(2), SortSpec(asc=False)), (col(1), SortSpec())],
-                   [("rank", None, None, 1, False, "rk")])
+    res = _window_inputs(data, 1, device, ingested, rows, "q23")
+    pr = B.project(_bhj(_fact("q23"), _item("q23"), [col(1)], [col(0)]),
+                   [(col(7), "cat"), (col(6), "brand"), (col(4), "price")])
+    agg = _hash_agg2(pr, [(col(0), "cat"), (col(1), "brand")], [("sum", col(2), "rev")])
+    plan = B.window(agg, [col(0)], [(col(2), SortSpec(asc=False)), (col(1), SortSpec())],
+                    [("rank", None, None, 1, False, "rk")])
     batches = _ordered(_tasks(plan, res, 1, conf, device, stats), ["cat", "rk", "brand"],
                        keep=lambda b: b.col_values(3) <= 3)
     return _answer(batches, ["cat", "brand", "rev", "rk"],
@@ -3109,15 +3066,15 @@ def run_q46_class(data: TpcdsData | None = None, device="cuda", conf: dict | Non
                   stats: dict | None = None, ingested: dict | None = None,
                   rows: int | None = None) -> dict:
     """fact JOIN date_dim, revenue per (year, item), rank() by (revenue
-    DESC, item) within the year, FilterExec rk <= 3 (one task): {y, i, rev,
+    DESC, item) within the year, a filter rk <= 3 (one task): {y, i, rev,
     rk} sorted by (y, rk, i)."""
-    res = _window_inputs(data, 1, device, ingested, rows)
-    pr = _project(_bhj(_fact(), _dd(), [col(0)], [col(0)]),
-                  (col(6), "y"), (col(1), "i"), (col(4), "p"))
-    agg = _agg2(pr, [(col(0), "y"), (col(1), "i")], _aggs(("sum", col(2), "rev")))
-    w = _window(agg, [col(0)], [(col(2), SortSpec(asc=False)), (col(1), SortSpec())],
-                [("rank", None, None, 0, False, "rk")])
-    plan = _filter(w, BinaryOp("lteq", col(3), lit(3)))
+    res = _window_inputs(data, 1, device, ingested, rows, "q46")
+    pr = B.project(_bhj(_fact("q46"), _dd("q46"), [col(0)], [col(0)]),
+                   [(col(6), "y"), (col(1), "i"), (col(4), "p")])
+    agg = _hash_agg2(pr, [(col(0), "y"), (col(1), "i")], [("sum", col(2), "rev")])
+    w = B.window(agg, [col(0)], [(col(2), SortSpec(asc=False)), (col(1), SortSpec())],
+                 [("rank", None, None, 0, False, "rk")])
+    plan = B.filter_(w, [BinaryOp("lteq", col(3), lit(3))])
     return _answer(_ordered(_tasks(plan, res, 1, conf, device, stats), ["y", "rk", "i"]),
                    ["y", "i", "rev", "rk"], [np.int32, np.int64, np.float64, np.int32])
 
@@ -3135,14 +3092,11 @@ _ROLLUP = ((0, True, True), (1, True, False), (3, False, False))
 _CUBE = ((0, True, True), (1, True, False), (2, False, True), (3, False, False))
 
 
-def _expand_tree(sets, aggs):
-    from auron_tpu_torch.exec.basic import ExpandExec
-
+def _expand_plan(name: str, sets, aggs):
     null = Literal(None, T.INT64)
-    ex = ExpandExec(_fact(), [[col(0) if d else null, col(1) if i else null, col(4), lit(gid)]
-                              for gid, d, i in sets], ["d", "i", "price", "gid"])
-    keys = [(col(0), "d"), (col(1), "i"), (col(3), "gid")]
-    return _agg2(ex, keys, aggs)
+    ex = B.expand(_fact(name), [[col(0) if d else null, col(1) if i else null, col(4), lit(gid)]
+                                for gid, d, i in sets], ["d", "i", "price", "gid"])
+    return _hash_agg2(ex, [(col(0), "d"), (col(1), "i"), (col(3), "gid")], aggs)
 
 
 def _grouping_sets_answer(batches, with_count: bool) -> dict:
@@ -3158,12 +3112,12 @@ def _grouping_sets_answer(batches, with_count: bool) -> dict:
 def run_q67_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
                   stats: dict | None = None, ingested: dict | None = None,
                   rows: int | None = None) -> dict:
-    """GROUP BY ROLLUP(date, item): ExpandExec emits the three grouping
+    """GROUP BY ROLLUP(date, item): an expand emits the three grouping
     sets with a grouping id, one partial + final aggregate over the
     expanded stream (one task): {d, i (+ _valid), gid, s} sorted by (gid,
     d, i), NULLs first."""
-    res = _window_inputs(data, 1, device, ingested, rows)
-    plan = _expand_tree(_ROLLUP, _aggs(("sum", col(2), "s")))
+    res = _window_inputs(data, 1, device, ingested, rows, "q67")
+    plan = _expand_plan("q67", _ROLLUP, [("sum", col(2), "s")])
     return _grouping_sets_answer(_tasks(plan, res, 1, conf, device, stats), False)
 
 
@@ -3171,9 +3125,9 @@ def run_q67b_class(data: TpcdsData | None = None, device="cuda", conf: dict | No
                    stats: dict | None = None, ingested: dict | None = None,
                    rows: int | None = None) -> dict:
     """GROUP BY CUBE(date, item): the four grouping sets through one
-    ExpandExec, sum and count(*) (one task): {d, i (+ _valid), gid, s, c}."""
-    res = _window_inputs(data, 1, device, ingested, rows)
-    plan = _expand_tree(_CUBE, _aggs(("sum", col(2), "s"), ("count_star", None, "c")))
+    expand, sum and count(*) (one task): {d, i (+ _valid), gid, s, c}."""
+    res = _window_inputs(data, 1, device, ingested, rows, "q67b")
+    plan = _expand_plan("q67b", _CUBE, [("sum", col(2), "s"), ("count_star", None, "c")])
     return _grouping_sets_answer(_tasks(plan, res, 1, conf, device, stats), True)
 
 
@@ -3214,12 +3168,12 @@ def run_q9_class(data: TpcdsData | None = None, device="cuda", conf: dict | None
     priced above ScalarSubquery("q9_avg"), counted and summed: {c, s}."""
     from auron_tpu_torch.exprs.ir import ScalarSubquery
 
-    res = _window_inputs(data, 1, device, ingested, rows)
-    sub = _agg2(_fact(), [], _aggs(("avg", col(4), "a")))
+    res = _window_inputs(data, 1, device, ingested, rows, "q9")
+    sub = _hash_agg2(_fact("q9"), [], [("avg", col(4), "a")])
     res["q9_avg"] = float(_answer(_tasks(sub, res, 1, conf, device, stats), ["a"],
                                   [np.float64])["a"][0])
-    flt = _filter(_fact(), BinaryOp("gt", col(4), ScalarSubquery("q9_avg", T.FLOAT64)))
-    plan = _agg2(flt, [], _aggs(("count_star", None, "c"), ("sum", col(4), "s")))
+    flt = B.filter_(_fact("q9"), [BinaryOp("gt", col(4), ScalarSubquery("q9_avg", T.FLOAT64))])
+    plan = _hash_agg2(flt, [], [("count_star", None, "c"), ("sum", col(4), "s")])
     return _answer(_tasks(plan, res, 1, conf, device, stats), ["c", "s"], [np.int64, np.float64])
 
 
@@ -3290,10 +3244,10 @@ def ingest_q9b(data: TpcdsData, device="cuda") -> dict:
                                            device=device)]]}
 
 
-def q9b_tree():
-    aggs = _aggs(("sum", col(1), "s"), ("min", col(1), "mn"), ("max", col(1), "mx"),
-                 ("count", col(1), "c"))
-    return _agg2(_scan(Q9B_SCHEMA, "q9b_fact"), [(col(0), "g")], aggs)
+def q9b_plan():
+    aggs = [("sum", col(1), "s"), ("min", col(1), "mn"), ("max", col(1), "mx"),
+            ("count", col(1), "c")]
+    return _hash_agg2(B.memory_scan(Q9B_SCHEMA, "q9b_fact"), [(col(0), "g")], aggs)
 
 
 def run_q9b_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
@@ -3302,7 +3256,7 @@ def run_q9b_class(data: TpcdsData | None = None, device="cuda", conf: dict | Non
     in one task: {g, s, mn, mx, c} by g, the decimals as ``Decimal`` (the
     overflowing group's ``s`` None)."""
     res = dict(ingested) if ingested is not None else ingest_q9b(data, device)
-    out = collect(_tasks(q9b_tree(), res, 1, conf, device, stats))
+    out = collect(_tasks(q9b_plan(), res, 1, conf, device, stats))
     order = np.argsort(out["g"], kind="stable")
     return {k: out[k][order] for k in ("g", "s", "mn", "mx", "c")}
 
@@ -3348,48 +3302,30 @@ def q3_decimal_class_oracle(data: TpcdsData, moy: int = 11, category_id: int = 1
     return _top_k(uniq[:, 0], uniq[:, 1], s, limit)
 
 
-def q42_decimal_exec_tree():
-    """q42's tree with SELECT i_brand_id brand, sum(price * ss_quantity)
+def q42_decimal_plan():
+    """q42's plan with SELECT i_brand_id brand, sum(price * ss_quantity)
     rev, avg(price) avg_price, price = Cast(ss_ext_sales_price AS
     decimal(7,2)): the product is decimal(18,2), its sum decimal(28,2)
     (base-1e9 limbs), the avg decimal(11,6); ORDER BY rev DESC, brand
     LIMIT 10 sorts the wide result by its vocabulary's rank (one K3
     launch)."""
-    from auron_tpu_torch.exec.agg_exec import AggExpr, HashAggExec
-    from auron_tpu_torch.exec.basic import ProjectExec, ResourceScanExec
-    from auron_tpu_torch.exec.joins.bhj import BroadcastHashJoinExec
-    from auron_tpu_torch.exec.sort_exec import SortExec
-
-    fact = ResourceScanExec(STORE_SALES_SCHEMA, "q42_fact")
-    item = ResourceScanExec(ITEM_SCHEMA, "q42_item")
-    j = BroadcastHashJoinExec(fact, item, [col(1)], [col(0)], "inner",
-                              build_side="right", projection=[3, 4, 6])
-    pr = ProjectExec(j, [col(2), Cast(col(1), MONEY), col(0)], ["brand", "p", "q"])
-    aggs = [(AggExpr("sum", BinaryOp("mul", col(1), col(2))), "rev"),
-            (AggExpr("avg", col(1)), "avg_price")]
-    p = HashAggExec(pr, [(col(0), "brand")], aggs, "partial")
-    f = HashAggExec(p, [(col(0), "brand")], [(AggExpr("sum", col(1)), "rev"),
-                                             (AggExpr("avg", col(1)), "avg_price")], "final")
-    return SortExec(f, [col(1), col(0)], [SortSpec(asc=False), SortSpec()], fetch=10)
+    j = _bhj(B.memory_scan(STORE_SALES_SCHEMA, "q42_fact"), B.memory_scan(ITEM_SCHEMA, "q42_item"),
+             [col(1)], [col(0)])
+    pr = B.project(j, [(col(6), "brand"), (Cast(col(4), MONEY), "p"), (col(3), "q")])
+    f = _hash_agg2(pr, [(col(0), "brand")], [("sum", BinaryOp("mul", col(1), col(2)), "rev"),
+                                             ("avg", col(1), "avg_price")],
+                   final_aggs=[("sum", col(1), "rev"), ("avg", col(2), "avg_price")])
+    return B.sort(f, [(col(1), SortSpec(asc=False)), (col(0), SortSpec())], fetch=10)
 
 
 def run_q42_decimal_class(data: TpcdsData | None = None, device="cuda",
                           conf: dict | None = None, ingested: dict | None = None,
                           stats: dict | None = None) -> dict:
-    """The decimal q42 through the task runtime: {brand, rev (int64 cents),
-    avg_price (int64 millionths)}."""
-    from auron_tpu_torch.runtime.task import TaskRuntime
-
+    """The decimal q42 from its ``TaskDefinition`` bytes: {brand, rev (int64
+    cents), avg_price (int64 millionths)}."""
     if ingested is None:
         ingested = ingest_q42(data, device)
-    rt = TaskRuntime(q42_decimal_exec_tree(), resources=dict(ingested),
-                     conf=Configuration(conf or {}), device=device)
-    try:
-        out = collect(list(rt))
-    finally:
-        snapshot = rt.finalize()
-    if stats is not None:
-        add_timers(stats, snapshot)
+    out = collect(_tasks(q42_decimal_plan(), dict(ingested), 1, conf, device, stats))
     rev = np.array([T.unscaled_int(x, 2) for x in out["rev"]], dtype=np.int64)
     return {"brand": out["brand"], "rev": rev, "avg_price": out["avg_price"]}
 
@@ -3425,7 +3361,7 @@ def windowed_decimal_class_oracle(data: TpcdsData, rows: int | None = None) -> d
 # ---------------------------------------------------------------------------
 
 
-def probe_agg_exec_tree():
+def probe_agg_plan():
     """SELECT ss_item_sk, ss_sold_date_sk, sum(ss_ext_sales_price),
     count(ss_customer_sk), min(ss_quantity), max(ss_quantity),
     first(ss_quantity) FROM store_sales GROUP BY ss_item_sk,
@@ -3434,37 +3370,23 @@ def probe_agg_exec_tree():
     the generic path runs, and a key of a later batch has often been seen
     before: the sorted-state probe's workload
     (``exec.agg.incremental.probe``)."""
-    from auron_tpu_torch.exec.agg_exec import AggExpr, HashAggExec
-    from auron_tpu_torch.exec.basic import ResourceScanExec
-
     keys = [(col(1), "item"), (col(0), "date")]
-    p = HashAggExec(ResourceScanExec(STORE_SALES_SCHEMA, "probe_fact"), keys,
-                    [(AggExpr("sum", col(4)), "s"), (AggExpr("count", col(2)), "c"),
-                     (AggExpr("min", col(3)), "lo"), (AggExpr("max", col(3)), "hi"),
-                     (AggExpr("first", col(3)), "f")], "partial")
-    return HashAggExec(p, [(col(0), "item"), (col(1), "date")],
-                       [(AggExpr("sum", col(2)), "s"), (AggExpr("count", col(3)), "c"),
-                        (AggExpr("min", col(4)), "lo"), (AggExpr("max", col(5)), "hi"),
-                        (AggExpr("first", col(6)), "f")], "final")
+    p = B.hash_agg(B.memory_scan(STORE_SALES_SCHEMA, "probe_fact"), keys,
+                   [("sum", col(4), "s"), ("count", col(2), "c"), ("min", col(3), "lo"),
+                    ("max", col(3), "hi"), ("first", col(3), "f")], "partial")
+    return B.hash_agg(p, [(col(0), "item"), (col(1), "date")],
+                      [("sum", col(2), "s"), ("count", col(3), "c"), ("min", col(4), "lo"),
+                       ("max", col(5), "hi"), ("first", col(6), "f")], "final")
 
 
 def run_probe_agg_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
                         ingested: dict | None = None, stats: dict | None = None) -> dict:
-    """The probe class through the task runtime, sorted by (item, date);
-    ``ingested`` = {"probe_fact": partitions} (default: the fact in
+    """The probe class from its ``TaskDefinition`` bytes, sorted by (item,
+    date); ``ingested`` = {"probe_fact": partitions} (default: the fact in
     ``1 << 20``-row batches)."""
-    from auron_tpu_torch.runtime.task import TaskRuntime
-
     if ingested is None:
         ingested = {"probe_fact": to_batches(data.store_sales, 1, device=device)}
-    rt = TaskRuntime(probe_agg_exec_tree(), resources=dict(ingested),
-                     conf=Configuration(conf or {}), device=device)
-    try:
-        out = collect(list(rt))
-    finally:
-        snapshot = rt.finalize()
-    if stats is not None:
-        add_timers(stats, snapshot)
+    out = collect(_tasks(probe_agg_plan(), dict(ingested), 1, conf, device, stats))
     order = np.lexsort((out["date"], out["item"]))
     return {k: v[order] for k, v in out.items()}
 
@@ -3502,15 +3424,14 @@ def _split_tags(i_tags_col: int):
     return ScalarFunc("split", (col(i_tags_col), lit(",")))
 
 
-def generate_exec_tree():
+def generate_plan():
     """SELECT tag, count(*) FROM item LATERAL VIEW explode(split(i_tags, ','))
-    GROUP BY tag: the tree ``task_from_proto`` builds from the reference's
-    ``run_generate_class`` plan (a barrier for column pruning)."""
-    from auron_tpu_torch.exec.generate_exec import GenerateExec
-
-    gen = GenerateExec(_scan(ITEM_SCHEMA, "qg_item"), "explode", _split_tags(4), [0],
-                       elem_name="tag")
-    return _agg2(gen, [(col(1), "tag")], _aggs(("count_star", None, "cnt")))
+    GROUP BY tag: the reference's ``run_generate_class`` plan (the generate
+    is a barrier for column pruning)."""
+    gen = B.generate(B.memory_scan(ITEM_SCHEMA, "qg_item"), "explode", _split_tags(4),
+                     required_cols=[0], elem_name="tag")
+    return _hash_agg2(gen, [(col(1), "tag")], [("count_star", None, "cnt")],
+                      final_groupings=[(col(0), "tag")])
 
 
 def run_generate_class(data: TpcdsData | None = None, device="cuda", conf: dict | None = None,
@@ -3519,7 +3440,7 @@ def run_generate_class(data: TpcdsData | None = None, device="cuda", conf: dict 
     partitions} (default: the item table as one batch)."""
     res = dict(ingested) if ingested is not None else {
         "qg_item": to_batches(data.item, 1, device=device)}
-    out = collect(_tasks(generate_exec_tree(), res, 1, conf, device, stats))
+    out = collect(_tasks(generate_plan(), res, 1, conf, device, stats))
     order = np.argsort(out["tag"].astype(str), kind="stable")
     return {"tag": out["tag"][order], "cnt": out["cnt"][order]}
 
@@ -3541,19 +3462,18 @@ def generate_class_oracle(data: TpcdsData) -> dict:
     return {"tag": tags, "cnt": member.sum(axis=0)}
 
 
-def tag_revenue_exec_tree():
+def tag_revenue_plan():
     """SELECT tag, count(*), sum(ss_ext_sales_price) FROM store_sales JOIN
     item ON ss_item_sk = i_item_sk LATERAL VIEW explode(split(i_tags, ','))
     GROUP BY tag: a broadcast hash join of the fact with item, the explode
     of each joined row's tags (keeping the price), and partial and final
     aggregates by tag. The generate is a pruning barrier, so the join keeps
     all ten columns (i_tags at 9)."""
-    from auron_tpu_torch.exec.generate_exec import GenerateExec
-
-    j = _bhj(_fact(), _item(), [col(1)], [col(0)])
-    gen = GenerateExec(j, "explode", _split_tags(9), [4], elem_name="tag")
-    return _agg2(gen, [(col(1), "tag")],
-                 _aggs(("count_star", None, "cnt"), ("sum", col(0), "rev")))
+    gen = B.generate(_bhj(_fact("tr"), _item("tr"), [col(1)], [col(0)]), "explode",
+                     _split_tags(9), required_cols=[4], elem_name="tag")
+    return _hash_agg2(gen, [(col(1), "tag")], [("count_star", None, "cnt"), ("sum", col(0), "rev")],
+                      final_groupings=[(col(0), "tag")],
+                      final_aggs=[("count_star", None, "cnt"), ("sum", col(2), "rev")])
 
 
 def run_tag_revenue_class(data: TpcdsData | None = None, device="cuda",
@@ -3562,8 +3482,8 @@ def run_tag_revenue_class(data: TpcdsData | None = None, device="cuda",
     """The explode over the whole fact: {tag, cnt, rev} sorted by tag;
     ``ingested`` as ``ingest_q3(data, 1)`` gives it (the fact in ``1 << 20``-row
     batches)."""
-    res = _tail_inputs(data, 1, device, ingested)
-    out = collect(_tasks(tag_revenue_exec_tree(), res, 1, conf, device, stats))
+    res = _tail_inputs(data, 1, device, ingested, "tr")
+    out = collect(_tasks(tag_revenue_plan(), res, 1, conf, device, stats))
     order = np.argsort(out["tag"].astype(str), kind="stable")
     return {k: out[k][order] for k in ("tag", "cnt", "rev")}
 
@@ -4405,8 +4325,8 @@ def run_basket_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: in
         with memory_scope(cfg, stats):
             t0 = time.perf_counter()
             m = basket_map_plan()
-            read = _shuffle_stage(m, tree_from_plan(m).schema, [0], n_map, n_reduce, work,
-                                  "basket_ex0", resources, 1, cfg, device, stats)
+            read = _shuffle_stage(Stage(m, _agg_inter_schema(m), [0], n_map, "basket_ex0", 1),
+                                  n_reduce, work, resources, cfg, device, stats)
             _sync(device)
             t1 = time.perf_counter()
             reduce_plan = basket_reduce_plan(read, limit)
@@ -4637,24 +4557,21 @@ def hive_brand_host_plan() -> dict:
     return _hagg(p, "final", out, [(_hattr(0), "label")], [("count_star", None, "n")])
 
 
-def udf_geo_map_tree():
+def udf_geo_map_plan():
     """fact JOIN date_dim (d_moy = 11) JOIN item, the partial geometric-mean
     UDAF of the price by i_category (pickled accumulator states)."""
-    from auron_tpu_torch.exec.agg_exec import AggExpr
-
-    dd = _filter(_dd(), BinaryOp("eq", col(2), lit(UDF_MOY)))
-    j = _bhj(_bhj(_fact(), dd, [col(0)], [col(0)]), _item(), [col(1)], [col(0)])
-    pr = _project(j, (col(11), "i_category"), (col(4), "price"))
-    return _partial(pr, [(col(0), "i_category")],
-                    [(AggExpr("host_udaf", col(1), udaf=UDF_GEO), "g")])
+    dd = B.filter_(_dd("udf"), [BinaryOp("eq", col(2), lit(UDF_MOY))])
+    j = _bhj(_bhj(_fact("udf"), dd, [col(0)], [col(0)]), _item("udf"), [col(1)], [col(0)])
+    pr = B.project(j, [(col(11), "i_category"), (col(4), "price")])
+    return B.hash_agg(pr, [(col(0), "i_category")], [("host_udaf", col(1), "g", UDF_GEO)],
+                      "partial")
 
 
-def udf_ngram_tree():
+def udf_ngram_plan():
     """The bigram UDTF over item's brand ids, counted by gram."""
-    from auron_tpu_torch.exec.generate_exec import GenerateExec
-
-    g = GenerateExec(_scan(ITEM_SCHEMA, "udf_item"), "host_udtf", col(1), [], udtf=UDF_NGRAMS)
-    return _agg2(g, [(col(0), "gram")], _aggs(("count_star", None, "n")))
+    g = B.generate(B.memory_scan(ITEM_SCHEMA, "udf_item"), "host_udtf", col(1), [])
+    g.generate.udtf = UDF_NGRAMS
+    return _hash_agg2(g, [(col(0), "gram")], [("count_star", None, "n")])
 
 
 def run_udf_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int = 4,
@@ -4703,16 +4620,12 @@ def run_udf_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int =
     walls["hive"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    k = len(ingested["fact"])
-    resources = {"fact": ingested["fact"], "dd": [ingested["dd"]] * k,
-                 "item": [ingested["item"]] * k}
-    tree = udf_geo_map_tree()
-    keys = [(col(0), "i_category")]
-    from auron_tpu_torch.exec.agg_exec import AggExpr
-
-    outs = _run_stages([_shuffle_one(tree, [0], k, "udf_geo")],
-                       lambda r: _final(r, keys, [(AggExpr("host_udaf", col(1), udaf=UDF_GEO),
-                                                   "g")]),
+    resources = _tail_inputs(None, n_map, device, ingested, "udf")
+    geo = udf_geo_map_plan()
+    outs = _run_stages([_shuffle_one(geo, _agg_inter_schema(geo), [0], len(ingested["fact"]),
+                                     "udf_geo", 1)],
+                       lambda r: B.hash_agg(r, [(col(0), "i_category")],
+                                            [("host_udaf", col(1), "g", UDF_GEO)], "final"),
                        resources, n_reduce, "udf_geo", work_dir, Configuration(conf), device,
                        stats.setdefault("geo", {}))
     geo = _concat(outs, ["i_category", "g"], [object, np.float64])
@@ -4721,7 +4634,7 @@ def run_udf_class(data: TpcdsData | None = None, n_map: int = 4, n_reduce: int =
     walls["geo"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    ng = _answer(_tasks(udf_ngram_tree(), {"udf_item": [ingested["item"]]}, 1, conf, device,
+    ng = _answer(_tasks(udf_ngram_plan(), {"udf_item": [ingested["item"]]}, 1, conf, device,
                         stats.setdefault("ngrams", {})), ["gram", "n"], [object, np.int64])
     ng["gram"] = ng["gram"].astype(str)
     out["ngrams"] = _sorted_by(ng, ["gram"])
@@ -4773,3 +4686,106 @@ def udf_mismatch(got: dict, want: dict) -> str | None:
             elif g.tolist() != w.tolist():
                 return f"{part}.{name} differs"
     return None
+
+
+# ---------------------------------------------------------------------------
+# the class gate: the reference's single pass/fail run over its 42 classes
+# ---------------------------------------------------------------------------
+
+#: the reference's class gate (``auron_tpu/models/tpcds.py:2324-2398``): its
+#: record names in its order, each with the port's class and the reference
+#: function's task counts; ``work`` marks the classes with a file shuffle
+GATE_CASES = (
+    ("q1_agg_join", "q1", {}),
+    ("q3_star_join_topk", "q3", {"work": True}),
+    ("q6_bcast_avg_condition", "q6", {}),
+    ("q18_multi_agg_shuffle", "q18", {"work": True, "n_map": 2, "n_reduce": 2}),
+    ("q72_smj_shuffle", "q72", {"work": True, "n_map": 3, "n_reduce": 3}),
+    ("q95_semi_anti", "q95", {"work": True, "n_map": 2, "n_reduce": 2}),
+    ("window_rank_limit", "windowed", {}),
+    ("window_lag_runsum", "windowed2", {}),
+    ("generate_explode", "generate", {}),
+    ("q14_distinct_two_shuffles", "q14", {"work": True, "n_map": 2, "n_reduce": 2}),
+    ("q67_rollup_expand", "q67", {}),
+    ("q9_scalar_subquery", "q9", {}),
+    ("q48_case_when_agg", "q48", {}),
+    ("q88_union_bands", "q88", {}),
+    ("q37_in_subquery_semi", "q37", {}),
+    ("q51_window_over_join", "q51", {}),
+    ("q23_grouped_topk", "q23", {}),
+    ("q16_anti_after_shuffle", "q16", {"work": True}),
+    ("q65_two_shuffle_join_stage", "q65", {"work": True, "n_map": 2, "n_reduce": 2}),
+    ("q5_union_two_shuffles", "q5", {"work": True, "n_map": 2, "n_reduce": 2}),
+    ("q14b_intersect_except", "q14b", {}),
+    ("q67b_cube_expand", "q67b", {}),
+    ("q93_null_skew_join", "q93", {"work": True, "n_map": 2, "n_reduce": 3}),
+    ("q9b_decimal_wide_overflow", "q9b", {}),
+    ("q2_cte_reuse", "q2", {}),
+    ("q4_multi_cte_chain", "q4", {}),
+    ("q11_year_over_year_selfjoin", "q11", {}),
+    ("q15_exists_rewrite", "q15", {}),
+    ("q17_three_way_smj", "q17", {}),
+    ("q31_corr_scalar_by_group", "q31", {}),
+    ("q34_having_band", "q34", {}),
+    ("q38_three_way_intersect", "q38", {}),
+    ("q41_like_distinct", "q41", {}),
+    ("q42_star_topk", "q42", {}),
+    ("q46_windowed_rank_filter", "q46", {}),
+    ("q54_between_range_join", "q54", {}),
+    ("q58_union_three_branches", "q58", {}),
+    ("q79_groupwise_argmax", "q79", {}),
+    ("q85_residual_join_condition", "q85", {}),
+    ("q99_case_banding", "q99", {}),
+    ("q22_not_in_anti", "q22", {}),
+    ("q33_full_outer_branch_merge", "q33", {}),
+)
+
+
+def _gate_case(data: TpcdsData, cls: str, args: dict, ws: str, device):
+    """(the port's answer, its oracle's) of one gate class, with the
+    reference function's task counts and fact prefix (``WINDOW_PREFIX``)."""
+    kw = {k: v for k, v in args.items() if k != "work"}
+    if args.get("work"):
+        kw["work_dir"] = os.path.join(ws, cls)
+    okw = {}
+    if cls in WINDOW_CLASSES:
+        kw["rows"] = okw["rows"] = WINDOW_PREFIX.get(cls)
+    got = globals()[f"run_{cls}_class"](data, device=device, **kw)
+    return got, globals()[f"{cls}_class_oracle"](data, **okw)
+
+
+def run_gate(sf: float = 0.05, seed: int = 42, verbose: bool = True, device="cuda") -> list:
+    """The reference's class gate (``auron_tpu/models/tpcds.py:2312-2416``):
+    every class of ``GATE_CASES`` on ``generate(sf, seed)`` against its
+    oracle, every task from its ``TaskDefinition`` bytes on ``device``
+    (default ``cuda``, which raises without a card). Returns [(name, ok,
+    error, seconds)] in the reference's order; a case compares its answer
+    with its oracle's through ``compare.compare_frames`` (floats at rel
+    1e-6, the reference's ``_cmp_frames``), and an error inside a case is
+    its record's error, as in the reference."""
+    import pandas as pd
+
+    from auron_tpu_torch.device import resolve_device
+    from auron_tpu_torch.models.compare import compare_frames
+
+    device = resolve_device(device)
+    data = generate(sf=sf, seed=seed)
+    ws = tempfile.mkdtemp(prefix="auron_gate_")
+    results = []
+    try:
+        for name, cls, args in GATE_CASES:
+            t0 = time.perf_counter()
+            try:
+                got, want = _gate_case(data, cls, args, ws, device)
+                err = compare_frames(pd.DataFrame(got), pd.DataFrame(want), 1e-6)
+            except Exception as e:  # noqa: BLE001 — the gate reports, not raises
+                err = f"{type(e).__name__}: {e}"
+            results.append((name, err is None, err, time.perf_counter() - t0))
+    finally:
+        shutil.rmtree(ws, ignore_errors=True)
+    if verbose:
+        width = max(len(n) for n, *_ in results)
+        for name, ok, err, secs in results:
+            line = f"{name:<{width}}  {'PASS' if ok else 'FAIL'}  {secs:6.2f}s"
+            print(line + (f"  {err}" if err else ""))
+    return results

@@ -281,17 +281,3 @@ class StreamTaskRuntime:
             err, self._error = self._error, None
             raise RuntimeError(f"stream {self.name} failed") from err
         return st
-
-
-def run_task(plan: ExecOperator, resources: dict, stage_id: int = 0, partition_id: int = 0,
-             conf: Configuration | None = None, device: str = "cuda",
-             shared: dict | None = None) -> tuple[list[Batch], dict]:
-    """Run one task of a stage to its end: (output batches, metric tree).
-    The runtime is finalized on every path out."""
-    rt = TaskRuntime(plan, resources=resources, shared=shared, stage_id=stage_id,
-                     partition_id=partition_id, conf=conf, device=device)
-    try:
-        out = list(rt)
-    finally:
-        metrics = rt.finalize()
-    return out, metrics

@@ -141,6 +141,17 @@ class conf_scope:
         return False
 
 
+def generate_doc() -> str:
+    """Markdown table of every registered option (reference
+    ``utils/config.py:159``, the analog of
+    SparkAuronConfigurationDocGenerator.java)."""
+    rows = ["| key | default | category | doc |", "|---|---|---|---|"]
+    for key in sorted(_REGISTRY):
+        o = _REGISTRY[key]
+        rows.append(f"| `{o.key}` | `{o.default!r}` | {o.category} | {o.doc} |")
+    return "\n".join(rows)
+
+
 # ---------------------------------------------------------------------------
 # keys read by this slice (same keys, same defaults as auron_tpu)
 # ---------------------------------------------------------------------------

@@ -19,8 +19,14 @@
     python3 chip_smoke.py --serve-only  # phases 1, 2 and 24 only
     python3 chip_smoke.py --stream-only  # phases 1, 2 and 25 only
     python3 chip_smoke.py --spmd-only  # phases 1, 2 and 26 only
+    python3 chip_smoke.py --gate-only  # phases 1, 2 and 27 only
 
-Phases, in order, none of them caught — any failure exits non-zero:
+Phases, in order, none of them caught — any failure exits non-zero. Every
+class of phases 4-16 and 21-22 starts each task from its ``TaskDefinition``
+bytes (the reference function's plan from ``plan/builders.py``), and each
+class line prints the run's summed ``task_bytes``, ``decode_s`` and
+``plan_s`` (a line fails if no task of its run started from bytes); the
+driver's runs (phases 7 and 9) take their plan protos whole.
 
 1. identify the card (torch device name + the nvidia-smi name/power line);
 2. build every CUDA source of the port (one nvcc per source, started
@@ -101,15 +107,16 @@ Phases, in order, none of them caught — any failure exits non-zero:
    (both facts through a mesh exchange on item into the SMJ stage, a third
    exchange before the final aggregate) at P = 4 on the mesh and the file
    transport, equal to the q72 oracle and to each other; then the skew plan
-   (``tpcds.skew_join_tree``: 2^20 x SF fact rows, 8,388,608 at SF 8, 70 %
+   (``tpcds.skew_join_plan``: 2^20 x SF fact rows, 8,388,608 at SF 8, 70 %
    on one key) on the
    file transport with AQE skew-join splitting on and off: the hot
    partition must split (more than P skew tasks), and both answers equal
    the oracle. K2 must launch once per source shard of every exchange;
 10. the 22 expression-tail and join-tail classes (``tpcds.TAIL_CLASSES``:
    CASE, IN, LIKE, residual join conditions, a three-way sort-merge join
-   chain, CTE reuse, set operations), each with the JAX function's
-   partition and task counts over the same data: a warm-up and a timed run,
+   chain, CTE reuse, set operations), each the reference function's plan
+   with its partition and task counts over the same data: a warm-up and a
+   timed run,
    each equal to its numpy oracle (keys, counts and order exact, float sums
    and averages at rel 1e-9). The sorts recorded in the warm-up go through
    K3/K4 and the plain network on the card once more, bit for bit (q17's
@@ -122,8 +129,8 @@ Phases, in order, none of them caught — any failure exits non-zero:
    the library sort). Wall, top host timers, launches and peak device
    memory are printed for each;
 11. the eight window, expand and scalar-subquery classes
-   (``tpcds.WINDOW_CLASSES``) over the whole fact table with the JAX
-   functions' operator trees and task counts: windowed (an aggregate on
+   (``tpcds.WINDOW_CLASSES``) over the whole fact table with the reference
+   functions' plans and task counts: windowed (an aggregate on
    (date, item), rank() by revenue within the date), windowed2 (lag and a
    running sum by item over date on the fact de-duplicated on (item,
    date)), q51 (a running sum over a join's aggregate), q23 and q46 (rank
@@ -422,7 +429,13 @@ Phases, in order, none of them caught — any failure exits non-zero:
    relayout, overflow included. Every worker wait has a
    timeout. Per leg and rank: map_s, exchange_s, reduce_s,
    K1/K2 launches, peak device memory, beside the one-process walls;
-27. print the kernel table as one JSON line (each kernel's launches summed
+27. the reference's class gate: ``tpcds.run_gate(sf=0.05, device="cuda")``,
+   its 42 cases in the reference's order, each class with the reference
+   function's task counts, every task from its ``TaskDefinition`` bytes,
+   against its oracle (``compare_frames``, floats at rel 1e-6); each
+   record printed; fails unless all 42 pass (in the first process, after
+   phase 17);
+28. print the kernel table as one JSON line (each kernel's launches summed
    over the timed runs of phases 4-26 in both processes, and per run),
    then the status line.
 
@@ -433,7 +446,7 @@ time limit: once the kernels are built and timed, a second process (this
 script with ``--late-phases``) makes the data from the same seed and runs
 phases 18-26 while this one runs phases 3-17; this one then prints the
 second process's output, takes its results (``late.pkl`` in its work
-directory) and goes on with phase 27. The second process's
+directory) and goes on with phase 28. The second process's
 session is killed if this one fails, and it ends itself when this one
 ends. The walls of phases 3-26 in the whole script are therefore taken
 with the other process on the card and the host; the kernel timing and
@@ -874,10 +887,12 @@ def _launches() -> dict:
 #: transports, 2^20 x 8, past one cluster (the multi-stride merge path),
 #: q72's probe-side SortExec under elision mode build (2^23 x 8 and
 #: 2^24 x 8: the reader's batches of ~5.76 M rows concatenate to either),
-#: and q17's two probe-side SortExecs at SF 8 (2^25 x 5: 23.04 M rows on one
-#: int64 key each, live + null + two value planes + payload)
+#: q17's two probe-side SortExecs at SF 8 (2^25 x 5: 23.04 M rows on one
+#: int64 key each, live + null + two value planes + payload), and the
+#: collect sorts of sql q34 (32,768 x 17) and q46 (262,144 x 17): past the
+#: register kernels' 16 planes, so the general local and global kernels
 SORT_SHAPES = ((16384, 8), (16384, 11), (8192, 11), (1 << 20, 8), (1 << 23, 8), (1 << 24, 8),
-               (1 << 25, 5))
+               (1 << 25, 5), (32768, 17), (262144, 17))
 
 
 def _kernel_name(name: str) -> str:
@@ -1122,7 +1137,8 @@ def run_q42(data, sf: float, t_gen: float) -> dict:
     print(f"q42-class SF {sf}: {rows} fact rows, wall {wall:.4f} s, "
           f"{rows / wall:.1f} fact rows/s, sorts (P, NP) {[s[::-1] for s in shapes]}, "
           f"launches {launches}, host sort timer {sort_ms} ms, top brand "
-          f"{int(got['brand'][0])} rev {float(got['rev'][0]):.2f}", flush=True)
+          f"{int(got['brand'][0])} rev {float(got['rev'][0]):.2f}, {_from_bytes(stats)}",
+          flush=True)
     return {"sf": sf, "fact_rows": rows, "wall_s": wall, "rows_per_s": rows / wall,
             "generate_s": t_gen, "ingest_s": t_ingest, "launches": launches,
             "sort_shapes": shapes, "sort_time_ms": sort_ms,
@@ -1171,6 +1187,17 @@ def _assert_planned_launches(label: str, shapes: list, launches: dict,
 def _print_timers(query: str, stats: dict) -> None:
     for k, v in sorted(stats["timers"].items(), key=lambda kv: -kv[1])[:10]:
         print(f"  {query} host timer {v * 1e3:9.3f} ms  {k}", flush=True)
+
+
+def _from_bytes(stats: dict) -> str:
+    """A run's tasks from ``TaskDefinition`` bytes, summed over its tasks
+    (and over the paths of a run whose stats hold one dict a path): bytes,
+    decode and planning seconds. Fails if no task of the run started from
+    bytes."""
+    parts = [stats] + [v for v in stats.values() if isinstance(v, dict) and "task_bytes" in v]
+    tb, dec, pln = (sum(s.get(k, 0) for s in parts) for k in ("task_bytes", "decode_s", "plan_s"))
+    assert tb > 0, "no task of the run started from TaskDefinition bytes"
+    return f"task_bytes {tb:,}, decode_s {dec * 1e3:.3f} ms, plan_s {pln * 1e3:.3f} ms"
 
 
 def _is_cub_sort(kernel: str) -> bool:
@@ -1235,7 +1262,8 @@ def run_q93(data, fact) -> dict:
     print(f"q93-class: {rows} fact rows, wall {wall:.4f} s (map stage {stats['map_s']:.4f} s, "
           f"reduce stage {stats['reduce_s']:.4f} s), shuffle bytes written "
           f"{stats['shuffle_bytes']}, NULL-key partition {stats['null_partition']} got "
-          f"{null_rows} rows of {sum(stats['partition_rows'])}, launches {launches}", flush=True)
+          f"{null_rows} rows of {sum(stats['partition_rows'])}, launches {launches}, "
+          f"{_from_bytes(stats)}", flush=True)
     _print_timers("q93", stats)
     return {"fact_rows": rows, "wall_s": wall, "rows_per_s": rows / wall, **stats,
             "null_partition_rows": null_rows, "launches": launches,
@@ -1265,8 +1293,8 @@ def run_q3(data, fact) -> dict:
     print(f"q3-class: {rows} fact rows, wall {wall:.4f} s (map stage {stats['map_s']:.4f} s, "
           f"reduce stage {stats['reduce_s']:.4f} s), shuffle bytes written "
           f"{stats['shuffle_bytes']}, launches {launches}, first row "
-          f"({int(got['d_year'][0])}, {int(got['i_brand_id'][0])}, {float(got['s'][0]):.2f})",
-          flush=True)
+          f"({int(got['d_year'][0])}, {int(got['i_brand_id'][0])}, {float(got['s'][0]):.2f}), "
+          f"{_from_bytes(stats)}", flush=True)
     _print_timers("q3", stats)
     return {"fact_rows": rows, "wall_s": wall, "rows_per_s": rows / wall, **stats,
             "launches": launches, "top": {k: v[:10].tolist() for k, v in got.items()}}
@@ -1557,7 +1585,7 @@ def run_gate_classes(data, fact, oracles: dict) -> dict:
         print(f"{label}-class: wall {wall:.4f} s (stages {_fmt_s(stats['stage_s'])}, reduce "
               f"{stats['reduce_s']:.4f} s), shuffle bytes written {stats['shuffle_bytes']}, "
               f"{rows} result rows, kernel sorts (NP, P) {shapes}, launches {launches}, peak "
-              f"device memory {peak / 2**30:.3f} GiB", flush=True)
+              f"device memory {peak / 2**30:.3f} GiB, {_from_bytes(stats)}", flush=True)
         _print_timers(label, stats)
         out[label] = {"wall_s": wall, **stats, "launches": launches, "peak_bytes": peak,
                       "result_rows": rows, "sort_shapes": shapes, "sort_checks": sort_checks}
@@ -1639,8 +1667,8 @@ def run_tail_classes(data, fact) -> dict:
         _assert_must_launch(label, launches, must)
         rows = len(next(iter(got.values())))
         print(f"{label}-class: wall {wall:.4f} s, {rows} result rows, kernel sorts (NP, P) "
-              f"{shapes}, launches {launches}, peak device memory {peak / 2**30:.3f} GiB",
-              flush=True)
+              f"{shapes}, launches {launches}, peak device memory {peak / 2**30:.3f} GiB, "
+              f"{_from_bytes(stats)}", flush=True)
         _print_timers(label, stats)
         top = sorted(stats["timers"].items(), key=lambda kv: -kv[1])[:5]
         out[label] = {"wall_s": wall, "launches": launches, "peak_bytes": peak,
@@ -1782,7 +1810,8 @@ def run_window_classes(data, timed_runs: int = WINDOW_TIMED_RUNS) -> dict:
               f"memory {max(peaks) / 2**30:.3f} GiB, aggregate batches folded in a dense "
               f"table {dense}, generic merges {counters.get('HashAggExec.num_merges', 0)}"
               + (f", tied groups at rank <= 2 {err['ties']}" if "ties" in err
-                 else f", running-sum error {err}" if err else ""), flush=True)
+                 else f", running-sum error {err}" if err else "")
+              + f", {_from_bytes(first_stats)}", flush=True)
         _print_timers(name, first_stats)
         top = sorted(first_stats["timers"].items(), key=lambda kv: -kv[1])[:5]
         out[name] = {"wall_s": walls[0], "walls_s": walls, "launches": runs_launches[0],
@@ -1849,8 +1878,9 @@ def run_q72_mesh_phase(data, fact, oracle: dict, n_parts: int = 4) -> dict:
         _assert_must_launch(label, launches, ("murmur3_pmod", "partition_histogram"))
         answers[mode] = got
         print(f"{label}: P={n_parts}, wall {wall:.4f} s (reduce {stats['reduce_s']:.4f} s), "
-              f"peak device memory {stats['peak_bytes'] / 2**30:.3f} GiB, launches {launches}",
-              flush=True)
+              f"peak device memory {stats['peak_bytes'] / 2**30:.3f} GiB, launches {launches}, "
+              f"the driver's plan proto "
+              f"{len(tpcds.q72_mesh_plan(n_parts).SerializeToString()):,} B", flush=True)
         _print_exchanges(label, stats)
         out[mode] = {"wall_s": wall, **stats, "launches": launches}
     for k in answers["mesh"]:
@@ -1912,8 +1942,9 @@ def run_skew_phase(n: int, n_parts: int = 4) -> dict:
         print(f"{label}: {n} fact rows, P={n_parts}, wall {wall:.4f} s (reduce "
               f"{stats['reduce_s']:.4f} s), join-stage tasks "
               f"{len(tasks['skew_ex_l'] or range(n_parts))}, kernel sorts (NP, P) {shapes}, "
-              f"peak device memory {stats['peak_bytes'] / 2**30:.3f} GiB, launches {launches}",
-              flush=True)
+              f"peak device memory {stats['peak_bytes'] / 2**30:.3f} GiB, launches {launches}, "
+              f"the driver's plan proto "
+              f"{len(tpcds.skew_join_plan(n_parts).SerializeToString()):,} B", flush=True)
         _print_exchanges(label, stats)
         out["on" if enable else "off"] = {"wall_s": wall, **stats, "launches": launches,
                                           "sort_shapes": shapes, "sort_checks": sort_checks}
@@ -2029,7 +2060,7 @@ def run_spill_phase(data, gate: dict, tail: dict, q93_k1: int) -> dict:
                         "spill_counters": spill_counters}
                 print(f"{label} without a budget: wall {wall:.4f} s, peak device memory "
                       f"{peak / 2**30:.3f} GiB, spill counters {spill_counters}, launches "
-                      f"{launches}", flush=True)
+                      f"{launches}, {_from_bytes(stats)}", flush=True)
                 continue
             _assert_spill_answer(label, name, got, oracle)
             _assert_spill_answer(label, name, got, unbudgeted)
@@ -2051,7 +2082,8 @@ def run_spill_phase(data, gate: dict, tail: dict, q93_k1: int) -> dict:
                   f"{({t: round(v, 4) for t, v in spill_timers.items()})} s, host ledger "
                   f"demotions {mem['demotions']} ({mem['demoted_bytes']} B), bytes parked on "
                   f"host {mem['host_bytes']}, on disk {mem['disk_bytes']}, kernel sorts and "
-                  f"merges (NP, P[, merge]) {shapes}, launches {launches}", flush=True)
+                  f"merges (NP, P[, merge]) {shapes}, launches {launches}, "
+                  f"{_from_bytes(stats)}", flush=True)
         assert len(sort_checks) == len(shapes), (label, len(sort_checks), shapes)
         out[label] = {"conf": conf, "runs": runs, "unbudgeted": free, "wall_s": runs[0]["wall_s"],
                       "launches": runs[0]["launches"], "sort_shapes": shapes,
@@ -2064,14 +2096,11 @@ def profile_q42(ingested: dict) -> dict:
     """One more q42 run under torch.profiler (``profile_run``), plus the
     operator metric tree's host timers."""
     from auron_tpu_torch.models import tpcds
-    from auron_tpu_torch.runtime.task import run_task
 
     stats: dict = {}
 
     def run():
-        batches, snap = run_task(tpcds.q42_exec_tree(), dict(ingested), device="cuda")
-        tpcds.collect(batches)
-        tpcds.add_timers(stats, snap)
+        tpcds.run_q42_class(device="cuda", ingested=ingested, stats=stats)
 
     out = profile_run("q42", run)
     out["operator_host_ms"] = {k: v * 1e3 for k, v in stats["timers"].items()}
@@ -2132,7 +2161,7 @@ def run_q33_phase(data, ingested) -> dict:
     print(f"q33-class: walls {[round(w, 4) for w in walls]} s, {len(got['i'])} items "
           f"({n_lo} without a low-quantity sale, {n_hi} without a high one), launches "
           f"{launches[-1]}, peak device memory {max(peaks) / 2**30:.3f} GiB, counters "
-          f"{stats.get('counters')}", flush=True)
+          f"{stats.get('counters')}, {_from_bytes(stats)}", flush=True)
     _print_timers("q33", stats)
     return {"walls_s": walls, "peak_bytes": max(peaks), "launches": launches[-1],
             "launches_per_run": launches, "result_rows": len(got["i"]),
@@ -2428,7 +2457,8 @@ def run_predictor_ab(data, fact4, profile: bool = False) -> dict:
                          "launches": _launches(),
                          "agg_blocking_reads": stats.get("counters", {}).get(
                              "HashAggExec.blocking_reads", 0)})
-            print(f"{name} predictor {mode}: wall {wall:.4f} s, join reads {reads}", flush=True)
+            print(f"{name} predictor {mode}: wall {wall:.4f} s, join reads {reads}, "
+                  f"{_from_bytes(stats)}", flush=True)
         out[name] = runs
         if profile and name in ("q42", "q3"):
             out[f"{name} profiles"] = {mode: profile_run(
@@ -2541,8 +2571,8 @@ def run_decimal_classes(data, profile: bool = False) -> dict:
         print(f"{name}: walls {', '.join(f'{w:.4f}' for w in walls)} s, peak device memory "
               f"{max(peaks) / 2**30:.3f} GiB, K3/K4 launches {kernels}, kernel sorts (NP, P) "
               f"{shapes}, DEC128 columns written {dec128}, ingest {t_ingest:.2f} s, oracle "
-              f"{t_oracle:.2f} s, {len(next(iter(got.values())))} result rows; equal to the "
-              f"exact oracle", flush=True)
+              f"{t_oracle:.2f} s, {len(next(iter(got.values())))} result rows, "
+              f"{_from_bytes(first_stats)}; equal to the exact oracle", flush=True)
         _print_timers(name, first_stats)
         out[name] = {"wall_s": walls[0], "walls_s": walls, "launches": runs_launches[0],
                      "launches_per_run": runs_launches, "peak_bytes": max(peaks),
@@ -2657,7 +2687,8 @@ def _fusion_ab_path(name: str, data, fact4, profile: bool) -> dict:
                          "captures": fs["captures"], "replays": fs["replays"],
                          "segments": fs["segments"], "eager": fs["eager"],
                          "pool_bytes": fs["pool_bytes"], "evictions": fs["evictions"],
-                         "agg": _agg_paths(stats)})
+                         "agg": _agg_paths(stats),
+                         "from_bytes": (None if name == "q3-mesh" else _from_bytes(stats))})
         if mode == "on":
             assert runs[-1]["captures"] == 0, (name, "the timed run captured", runs)
             if name in ("q42", "q3"):
@@ -2677,7 +2708,7 @@ def _fusion_ab_path(name: str, data, fact4, profile: bool) -> dict:
               f"{r['pool_bytes'] / 2**20:.1f} MiB, evictions "
               f"{[x['evictions'] for x in runs]}, peak "
               f"{max(x['peak_bytes'] for x in runs) / 2**30:.3f} GiB{idle}, aggregate paths "
-              f"{r['agg']}", flush=True)
+              f"{r['agg']}" + (f", {r['from_bytes']}" if r["from_bytes"] else ""), flush=True)
         if name == "q42_decimal":
             print(f"{name} fusion {mode}: cub sorts {prof['cub_sorts']}", flush=True)
     _assert_equal_or_close(f"{name}: defaults against every key off", answers["on"],
@@ -2725,7 +2756,7 @@ def _fusion_probe_plan(data) -> dict:
         agg = _agg_paths(stats)
         out[mode] = {"wall_s": wall, "agg": agg, "launches": _launches()}
         print(f"probe class ({mode}): wall {wall:.4f} s, {out['groups']} groups, aggregate "
-              f"paths (partial + final) {agg}", flush=True)
+              f"paths (partial + final) {agg}, {_from_bytes(stats)}", flush=True)
     assert out["on"]["agg"].get("probe_hit_rows", 0) > 0, ("the probe class never hit", out["on"])
     assert "probe_batches" not in out["off"]["agg"], out["off"]
     for k in want:
@@ -2823,8 +2854,8 @@ def run_generate_phase(data, profile: bool = False) -> dict:
               f"exploded rows {counts[0]['exploded_rows']:,}, GenerateExec blocking reads "
               f"{counts[0]['blocking_reads']}, peak device memory {max(peaks) / 2**30:.3f} GiB, "
               f"fusion replays {fusion['replays']} captures {fusion['captures']}, ingest "
-              f"{t_ingest:.2f} s, oracle {t_oracle:.2f} s, {len(got['tag'])} tags; equal to "
-              f"the oracle", flush=True)
+              f"{t_ingest:.2f} s, oracle {t_oracle:.2f} s, {len(got['tag'])} tags, "
+              f"{_from_bytes(first_stats)}; equal to the oracle", flush=True)
         _print_timers(name, first_stats)
         out[name] = {"wall_s": walls[0], "walls_s": walls, "launches": runs_launches[0],
                      "launches_per_run": runs_launches, "peak_bytes": max(peaks),
@@ -2990,7 +3021,7 @@ def _run_plan_ir_bytes(data, fact) -> dict:
     import torch
 
     from auron_tpu_torch.models import tpcds
-    from auron_tpu_torch.runtime.task import run_task
+    from auron_tpu_torch.runtime.task import TaskRuntime
 
     q42_in = tpcds.ingest_q42(data, device="cuda")
     q42_want = _oracle("q42", data)
@@ -3001,7 +3032,11 @@ def _run_plan_ir_bytes(data, fact) -> dict:
         _assert_close(got["rev"], q42_want["rev"])
 
     def q42_tree(st):
-        batches, snap = run_task(tree, dict(q42_in), device="cuda")
+        rt = TaskRuntime(tree, resources=dict(q42_in), device="cuda")
+        try:
+            batches = list(rt)
+        finally:
+            snap = rt.finalize()
         tpcds.add_timers(st, snap)
         out = tpcds.collect(batches)
         return {"brand": out["brand"], "rev": out["rev"]}
@@ -3844,7 +3879,7 @@ def run_collect_phase(data, seed: int, kernels_checked: bool) -> dict:
               f"s), shuffle bytes written {st['shuffle_bytes']:,}, "
               + ", ".join(f"{k} {v:.4f} s" for k, v in picked.items())
               + f", kernel sorts (NP, P) {shapes}, launches {launches}, peak device memory "
-              f"{peak / 2**30:.3f} GiB", flush=True)
+              f"{peak / 2**30:.3f} GiB, {_from_bytes(st)}", flush=True)
         _print_timers(f"basket (run {i})", st)
         runs.append({"wall_s": wall, "launches": launches, "peak_bytes": peak,
                      **{k: st[k] for k in ("map_s", "reduce_s", "top_s", "egress_s",
@@ -3935,7 +3970,7 @@ def _timed(label: str, fn, want: dict, k1: int | None, stats: dict | None = None
           f"compress_time {rec['compress_s']:.4f} s, decode_time {rec['decode_s']:.4f} s, "
           f"push_time {rec['push_s']:.4f} s, shuffle_enc_codec {rec['enc_codec']}, "
           f"shuffle_enc_arrow {rec['enc_arrow']}, launches {launches}, peak "
-          f"{peak / 2**30:.3f} GiB", flush=True)
+          f"{peak / 2**30:.3f} GiB, {_from_bytes(st)}", flush=True)
     return rec
 
 
@@ -5084,6 +5119,42 @@ def run_spmd_phase(data, fact, seed: int, smi: str) -> dict:
 
 
 #: what the second process hands back, in phase order
+#: the class gate's scale: the reference's default
+GATE_SF = 0.05
+
+
+def run_class_gate_phase() -> dict:
+    """Phase 27: the port's ``tpcds.run_gate`` on the card at the
+    reference's default scale, every record printed; fails unless every
+    case passes. Also the run's kernel launches and its task count."""
+    from auron_tpu_torch.bridge import api
+    from auron_tpu_torch.models import tpcds
+
+    tasks = []
+    start = api.call_native
+
+    def counted(task, *args, **kwargs):
+        tasks.append(len(task))
+        return start(task, *args, **kwargs)
+
+    _reset_launches()
+    api.call_native = counted
+    t0 = time.perf_counter()
+    try:
+        res = tpcds.run_gate(sf=GATE_SF, device="cuda")
+    finally:
+        api.call_native = start
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    failed = [(n, e) for n, ok, e, _ in res if not ok]
+    print(f"class gate (SF {GATE_SF}): {len(res) - len(failed)}/{len(res)} PASS in {wall:.1f} s, "
+          f"{len(tasks)} tasks from TaskDefinition bytes ({sum(tasks):,} B), launches "
+          f"{launches}", flush=True)
+    assert len(res) == 42 and not failed, ("class gate", failed)
+    return {"wall_s": wall, "launches": launches, "tasks": len(tasks), "task_bytes": sum(tasks),
+            "records": [{"name": n, "ok": ok, "error": e, "seconds": s} for n, ok, e, s in res]}
+
+
 LATE_RESULTS = ("plan_ir", "convert", "files", "basket", "udf_shuffle", "sql", "serve", "stream",
                 "spmd")
 #: how long the parent waits for the second process past its own phases
@@ -5334,6 +5405,8 @@ def main(argv=None) -> int:
                          "4,000,000 exchange events")
     ap.add_argument("--spmd-only", action="store_true",
                     help="phases 1, 2 and 26 (multi-process SPMD) only")
+    ap.add_argument("--gate-only", action="store_true",
+                    help="phases 1, 2 and 27 (the class gate) only")
     ap.add_argument("--spmd-worker", action="store_true",
                     help="run as one worker process of phase 26 (the parent starts them)")
     ap.add_argument("--spmd-dir", help="phase 26's work directory (with --spmd-worker)")
@@ -5525,6 +5598,15 @@ def main(argv=None) -> int:
                       f, indent=1, default=str)
         return 0
 
+    if args.gate_only:
+        gate = run_class_gate_phase()
+        phase_done("27")
+        os.makedirs(os.path.join(REPO_DIR, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(REPO_DIR, "chiprun_out", "chip_smoke_gate.json"), "w") as f:
+            json.dump({"device": kind, "nvidia_smi": smi, "class_gate": gate,
+                       "phase_s": phase_s}, f, indent=1, default=str)
+        return 0
+
     if args.stream_only:
         check_partition_kernel(args.seed)
         stream = run_stream_phase(STREAM_GATE_EVENTS_ONLY, EXCHANGE_EVENTS_ONLY)
@@ -5555,7 +5637,7 @@ def main(argv=None) -> int:
 def _early_phases_and_report(args, kind, smi, build_s, timing, phase_s, phase_done,
                              late_proc) -> int:
     """The whole script after its build and the kernel timing: phases 3-17
-    here, 18-26 from the second process, phase 27 and the status line."""
+    here, 18-26 from the second process, 27 here, phase 28 and the status line."""
     import torch
 
     from auron_tpu_torch.models import tpcds
@@ -5683,6 +5765,11 @@ def _early_phases_and_report(args, kind, smi, build_s, timing, phase_s, phase_do
     bridge = run_bridge_phase(data, args.profile)
     phase_done("17")
 
+    # 27. the reference's class gate at its default scale, every task from
+    # its TaskDefinition bytes
+    class_gate = run_class_gate_phase()
+    phase_done("27")
+
     # 18-26 ran in the second process beside phases 3-17: its log, its results
     late = _join_late(late_proc)
     phase_done("18-26 (waited for after 17)")
@@ -5690,7 +5777,7 @@ def _early_phases_and_report(args, kind, smi, build_s, timing, phase_s, phase_do
     (plan_ir, convert, files, basket, udf_shuffle, sql, serve, stream,
      spmd) = (late["results"][k] for k in LATE_RESULTS)
 
-    # 27. every kernel sort and run merge of the main paths, held against the
+    # 28. every kernel sort and run merge of the main paths, held against the
     # plain network on the card at its own operands
     checks["main_path_sorts"] = {
         **{f"q3-mesh ({m})": q3_mesh[m]["sort_checks"] for m in q3_mesh},
@@ -5753,6 +5840,7 @@ def _early_phases_and_report(args, kind, smi, build_s, timing, phase_s, phase_do
                 for name, r in files["reads"].items() if name != "sort_checks"
                 for i, run in enumerate(r["runs"])},
              "sorted write": files["sorted write"]["launches"],
+             "class gate": class_gate["launches"],
              **{f"basket run {i}": r["launches"] for i, r in enumerate(basket["runs"])},
              **{label: r["launches"] for label, r in udf_shuffle.items()},
              **{f"sql {name}": r["runs"][-1]["launches"] for name, r in sql["queries"].items()},
@@ -5790,9 +5878,9 @@ def _early_phases_and_report(args, kind, smi, build_s, timing, phase_s, phase_do
                    "fusion": fused, "generate": gen, "bridge": bridge, "plan_ir": plan_ir,
                    "convert": convert, "files": files, "basket": basket,
                    "udf_shuffle": udf_shuffle, "sql": sql, "serve": serve, "stream": stream,
-                   "spmd": spmd, "phase_s": phase_s, "kernels": kernels}, f, indent=1,
-                  default=str)
-    phase_done("27")
+                   "spmd": spmd, "class_gate": class_gate, "phase_s": phase_s,
+                   "kernels": kernels}, f, indent=1, default=str)
+    phase_done("28")
     report_graph_cache()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

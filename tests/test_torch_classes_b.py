@@ -21,8 +21,8 @@ def data():
 
 
 @pytest.mark.parametrize("name", CLASSES)
-def test_class_three_ways(data, name, tmp_path):
-    run_three_ways(jt, pt, *data, name, tmp_path)
+def test_class_three_ways(data, name, tmp_path, monkeypatch):
+    run_three_ways(jt, pt, *data, name, tmp_path, monkeypatch)
 
 
 @pytest.mark.parametrize("year", [1998, 2002, 1990])

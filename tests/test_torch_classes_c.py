@@ -29,8 +29,8 @@ def data():
 
 
 @pytest.mark.parametrize("name", CLASSES)
-def test_class_three_ways(data, name, tmp_path):
-    run_three_ways(jt, pt, *data, name, tmp_path)
+def test_class_three_ways(data, name, tmp_path, monkeypatch):
+    run_three_ways(jt, pt, *data, name, tmp_path, monkeypatch)
 
 
 def test_tail_classes_are_listed_once():

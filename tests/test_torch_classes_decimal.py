@@ -51,8 +51,14 @@ def _same(got: dict, want: dict, label: str) -> None:
         assert np.asarray(got[k]).tolist() == np.asarray(want[k]).tolist(), (label, k)
 
 
-def test_q9b_equals_oracle_and_reference(data):
+def test_q9b_equals_oracle_and_reference(data, monkeypatch):
+    from auron_tpu.bridge import api as japi
+
+    from auron_tpu_torch.bridge import api as papi
+    from torch_classes import assert_same_tasks, record_tasks
+
     jd, pdata = data
+    jtasks, ptasks = record_tasks(monkeypatch, japi), record_tasks(monkeypatch, papi)
     stats: dict = {}
     got = pt.run_q9b_class(pdata, device="cpu", stats=stats)
     want = pt.q9b_class_oracle(pdata)
@@ -60,6 +66,7 @@ def test_q9b_equals_oracle_and_reference(data):
     assert got["s"][7] is None and got["c"][7] > 1011  # the poisoned group overflows
     assert all(s is not None for s in got["s"][:7])
     ref = jt.run_q9b_class(jd)
+    assert_same_tasks(jtasks, ptasks, "q9b")
     assert ref["g"].tolist() == got["g"].tolist()
     for k in ("s", "mn", "mx"):
         assert [None if (v is None or v != v) else pydec.Decimal(v) for v in ref[k]] == \
@@ -97,42 +104,55 @@ def test_q3_decimal_equals_oracle_and_reference(data):
     _same(got, ref, "q3 decimal vs auron_tpu")
 
 
-def test_q42_decimal_equals_oracle_and_reference(data):
+def test_q42_decimal_equals_oracle_and_reference(data, monkeypatch):
+    """Also the port's task: the plan below from the reference's builders."""
+    from auron_tpu_torch.bridge import api as papi
+    from torch_classes import assert_same_tasks, record_tasks
+
     jd, pdata = data
+    ptasks = record_tasks(monkeypatch, papi)
     got = pt.run_q42_decimal_class(pdata, device="cpu")
     _same(got, pt.q42_decimal_class_oracle(pdata), "q42 decimal oracle")
     ss, _, it = _schemas(jd)
-    j = B.hash_join(B.memory_scan(ss, "f"), B.memory_scan(it, "i"), [col(1)], [col(0)],
-                    "inner", build_side="right")
+    j = B.hash_join(B.memory_scan(ss, "q42_fact"), B.memory_scan(it, "q42_item"), [col(1)],
+                    [col(0)], "inner", build_side="right")
     pr = B.project(j, [(col(6), "brand"), (Cast(col(4), MONEY), "p"), (col(3), "q")])
     p = B.hash_agg(pr, [(col(0), "brand")], [("sum", BinaryOp("mul", col(1), col(2)), "rev"),
                                              ("avg", col(1), "avg_price")], "partial")
     f = B.hash_agg(p, [(col(0), "brand")], [("sum", col(1), "rev"),
                                             ("avg", col(2), "avg_price")], "final")
     plan = B.sort(f, [(col(1), SortSpec(asc=False)), (col(0), SortSpec())], fetch=10)
+    assert_same_tasks([B.task(plan).SerializeToString()], ptasks, "q42 decimal")
     fin = jplanner.plan_from_proto(f).schema
     assert [str(x.dtype) for x in fin][1:] == ["decimal(28,2)", "decimal(11,6)"]
-    rows = _jax_rows(plan, {"f": jt.to_batches(jd.store_sales, 1),
-                            "i": jt.to_batches(jd.item, 1)})
+    rows = _jax_rows(plan, {"q42_fact": jt.to_batches(jd.store_sales, 1),
+                            "q42_item": jt.to_batches(jd.item, 1)})
     ref = {"brand": np.array([r[0] for r in rows], np.int32),
            "rev": np.array([_cents(r[1]) for r in rows], np.int64),
            "avg_price": np.array([_cents(r[2], 6) for r in rows], np.int64)}
     _same(got, ref, "q42 decimal vs auron_tpu")
 
 
-def test_windowed_decimal_equals_oracle_and_reference(data):
+def test_windowed_decimal_equals_oracle_and_reference(data, monkeypatch):
+    """Also the port's task: the plan below from the reference's builders."""
+    from auron_tpu_torch.bridge import api as papi
+    from torch_classes import assert_same_tasks, record_tasks
+
     jd, pdata = data
     rows_ = pt.WINDOW_PREFIX["windowed"]
+    ptasks = record_tasks(monkeypatch, papi)
     got = pt.run_windowed_decimal_class(pdata, device="cpu", rows=rows_)
     _same(got, pt.windowed_decimal_class_oracle(pdata, rows_), "windowed decimal oracle")
     ss, _, _ = _schemas(jd)
-    p = B.hash_agg(B.memory_scan(ss, "f"), [(col(0), "d"), (col(1), "item")],
+    p = B.hash_agg(B.memory_scan(ss, "qw_fact"), [(col(0), "d"), (col(1), "item")],
                    [("sum", Cast(col(4), MONEY), "rev")], "partial")
     f = B.hash_agg(p, [(col(0), "d"), (col(1), "item")], [("sum", col(2), "rev")], "final")
     w = B.window(f, [col(0)], [(col(2), SortSpec(asc=False))],
                  [("rank", None, None, 1, False, "rk")])
+    assert_same_tasks([B.task(w).SerializeToString()], ptasks, "windowed decimal")
     fact = jt.to_batches(jd.store_sales.iloc[:rows_], 2)
-    rows = [r for r in _jax_rows(w, {"f": [[b for part in fact for b in part]]}) if r[3] <= 2]
+    rows = [r for r in _jax_rows(w, {"qw_fact": [[b for part in fact for b in part]]})
+            if r[3] <= 2]
     rows.sort(key=lambda r: (r[0], r[3], r[1]))
     ref = {"d": np.array([r[0] for r in rows], np.int64),
            "item": np.array([r[1] for r in rows], np.int64),

@@ -45,11 +45,18 @@ def _assert_same(got: dict, want: dict, label: str) -> None:
             np.testing.assert_array_equal(got[k], w, err_msg=f"{label} {k}")
 
 
-def test_q33_three_ways(data):
+def test_q33_three_ways(data, monkeypatch):
+    from auron_tpu.bridge import api as japi
+
+    from auron_tpu_torch.bridge import api as papi
+    from torch_classes import assert_same_tasks, record_tasks
+
     jd, pdata = data
+    jtasks, ptasks = record_tasks(monkeypatch, japi), record_tasks(monkeypatch, papi)
     want = _from_jax(jt.run_q33_class(jd))
     stats: dict = {}
     got = pt.run_q33_class(pdata, device="cpu", stats=stats)
+    assert_same_tasks(jtasks, ptasks, "q33")
     _assert_same(got, want, "q33 port vs auron_tpu")
     _assert_same(pt.q33_class_oracle(pdata), want, "q33 oracle vs auron_tpu")
     assert stats["timers"]

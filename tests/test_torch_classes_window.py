@@ -19,7 +19,7 @@ import pytest
 from auron_tpu.models import tpcds as jt
 
 from auron_tpu_torch.models import tpcds as pt
-from torch_classes import SF
+from torch_classes import SF, assert_same_tasks, record_tasks
 
 #: the JAX function of each class
 JAX_FUNCS = {"windowed": "run_windowed_query", **{n: f"run_{n}_class"
@@ -75,12 +75,19 @@ def data():
 
 
 @pytest.mark.parametrize("name", pt.WINDOW_CLASSES)
-def test_class_three_ways(data, name):
+def test_class_three_ways(data, name, monkeypatch):
+    """Also the tasks: the port's equal the reference's field by field."""
+    from auron_tpu.bridge import api as japi
+
+    from auron_tpu_torch.bridge import api as papi
+
     jd, pdata = data
     rows = pt.WINDOW_PREFIX.get(name)
+    jtasks, ptasks = record_tasks(monkeypatch, japi), record_tasks(monkeypatch, papi)
     want = from_jax(name, getattr(jt, JAX_FUNCS[name])(jd))
     stats: dict = {}
     got = getattr(pt, f"run_{name}_class")(pdata, device="cpu", stats=stats, rows=rows)
+    assert_same_tasks(jtasks, ptasks, name)
     assert_same(got, want, f"{name} port vs auron_tpu")
     assert_same(getattr(pt, f"{name}_class_oracle")(pdata, rows=rows), want,
                 f"{name} oracle vs auron_tpu")

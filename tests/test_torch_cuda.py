@@ -23,6 +23,19 @@ def _need_card():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
 
 
+def _drain_task(plan, resources=None, conf=None, device="cuda"):
+    """One task of an exec tree run to its end through ``TaskRuntime``:
+    (output batches, metric tree)."""
+    from auron_tpu_torch.runtime.task import TaskRuntime
+
+    rt = TaskRuntime(plan, resources=resources, conf=conf, device=device)
+    try:
+        out = list(rt)
+    finally:
+        metrics = rt.finalize()
+    return out, metrics
+
+
 @contextlib.contextmanager
 def _recording_kernel_shapes(shapes: list):
     """(NP, P) of each kernel sort and (NP, P, True) of each kernel merge of
@@ -490,7 +503,6 @@ def test_budgeted_aggregate_on_card_matches_its_cpu_run():
     from auron_tpu_torch.exec.basic import MemoryScanExec
     from auron_tpu_torch.exprs.ir import col
     from auron_tpu_torch.memory.memmgr import MemManager
-    from auron_tpu_torch.runtime.task import run_task
 
     out = {}
     try:
@@ -503,7 +515,7 @@ def test_budgeted_aggregate_on_card_matches_its_cpu_run():
             final = HashAggExec(partial, [(col(0), "k")],
                                 [(AggExpr("sum", col(1)), "s"), (AggExpr("count", col(2)), "n")],
                                 FINAL)
-            got, metrics = run_task(final, {}, device=dev)
+            got, metrics = _drain_task(final, {}, device=dev)
             assert metrics["children"][0]["values"]["spilled_aggs"] >= 2, metrics
             cols = {}
             for b in got:
@@ -533,7 +545,7 @@ def test_no_spill_file_outlives_its_task_on_card(tmp_path, monkeypatch):
     from auron_tpu_torch.exprs.ir import col
     from auron_tpu_torch.memory.memmgr import MemManager
     from auron_tpu_torch.ops.sortkeys import SortSpec
-    from auron_tpu_torch.runtime.task import TaskRuntime, run_task
+    from auron_tpu_torch.runtime.task import TaskRuntime
     from auron_tpu_torch.utils.config import Configuration, conf_scope
 
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
@@ -543,14 +555,14 @@ def test_no_spill_file_outlives_its_task_on_card(tmp_path, monkeypatch):
     try:
         with conf_scope(conf):
             MemManager.init(budget_bytes=200_000)
-        _, m = run_task(HashAggExec(scan, [(col(0), "k")], [(AggExpr("sum", col(1)), "s")],
+        _, m = _drain_task(HashAggExec(scan, [(col(0), "k")], [(AggExpr("sum", col(1)), "s")],
                                     PARTIAL), {}, conf=conf, device="cuda")
         assert m["values"]["spilled_aggs"] >= 1
-        _, m = run_task(SortExec(scan, [col(0)], [SortSpec()]), {}, conf=conf, device="cuda")
+        _, m = _drain_task(SortExec(scan, [col(0)], [SortSpec()]), {}, conf=conf, device="cuda")
         assert m["values"]["spilled_runs"] >= 2
         writer = ShuffleWriterExec(scan, HashPartitioning([col(0)], 4),
                                    str(tmp_path / "o.data"), str(tmp_path / "o.index"))
-        _, m = run_task(writer, {}, conf=conf, device="cuda")
+        _, m = _drain_task(writer, {}, conf=conf, device="cuda")
         assert m["values"]["spilled_shuffle_runs"] >= 2
         rt = TaskRuntime(HashAggExec(scan, [(col(0), "k")], [(AggExpr("sum", col(1)), "s")],
                                      PARTIAL), conf=conf, device="cuda")
@@ -657,7 +669,6 @@ def test_decimal_sums_on_card_match_their_cpu_run():
     from auron_tpu_torch.exec.agg_exec import FINAL, PARTIAL, AggExpr, HashAggExec
     from auron_tpu_torch.exec.basic import MemoryScanExec
     from auron_tpu_torch.exprs.ir import col
-    from auron_tpu_torch.runtime.task import run_task
 
     out = {}
     for dev in ("cpu", "cuda"):
@@ -666,7 +677,7 @@ def test_decimal_sums_on_card_match_their_cpu_run():
                 (AggExpr("sum", col(2)), "ws"), (AggExpr("max", col(2)), "wmax")]
         partial = HashAggExec(MemoryScanExec([batches], schema), [(col(0), "k")], aggs, PARTIAL)
         final = HashAggExec(partial, [(col(0), "k")], aggs, FINAL)
-        got, _ = run_task(final, {}, device=dev)
+        got, _ = _drain_task(final, {}, device=dev)
         assert all(b.torch_device.type == dev for b in got)
         rows = sorted(r for b in got for r in zip(*b.to_pydict().values()))
         out[dev] = rows

@@ -20,6 +20,7 @@ import torch
 from auron_tpu.models import tpcds as jt
 
 from auron_tpu_torch.models import tpcds as pt
+from torch_classes import assert_same_tasks, record_tasks
 
 SF = 0.02
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -61,12 +62,21 @@ def _from_jax(name: str, out) -> dict:
 
 
 @pytest.mark.parametrize("name", CLASSES)
-def test_gate_class_three_ways(data, name, tmp_path):
+def test_gate_class_three_ways(data, name, tmp_path, monkeypatch):
+    """Also the tasks: the port's equal the reference's at 4 x 4, field by
+    field (``torch_classes.assert_same_tasks``)."""
+    from auron_tpu.bridge import api as japi
+
+    from auron_tpu_torch.bridge import api as papi
+
     jd, pd_ = data
+    jwork, pwork = str(tmp_path / "jax"), str(tmp_path / "port")
+    jtasks, ptasks = record_tasks(monkeypatch, japi), record_tasks(monkeypatch, papi)
     want = _from_jax(name, getattr(jt, f"run_{name}_class")(
-        jd, n_map=4, n_reduce=4, work_dir=str(tmp_path / "jax")))
+        jd, n_map=4, n_reduce=4, work_dir=jwork))
     stats: dict = {}
-    got = getattr(pt, f"run_{name}_class")(pd_, device="cpu", stats=stats)
+    got = getattr(pt, f"run_{name}_class")(pd_, device="cpu", stats=stats, work_dir=pwork)
+    assert_same_tasks(jtasks, ptasks, name, jwork, pwork)
     _assert_same(got, want, f"{name} port vs auron_tpu")
     _assert_same(getattr(pt, f"{name}_class_oracle")(pd_), want, f"{name} oracle vs auron_tpu")
     assert stats["shuffle_bytes"] > 0 and stats["reduce_s"] > 0

@@ -51,9 +51,8 @@ from auron_tpu_torch.exprs import ir as pir
 from auron_tpu_torch.models import tpcds as pt
 from auron_tpu_torch.plan import fusion as pfusion
 from auron_tpu_torch.plan import planner as pplanner
-from auron_tpu_torch.runtime.task import run_task
 from auron_tpu_torch.utils.config import Configuration as PConf
-from torch_carry import carry, rows
+from torch_carry import carry, rows, run_tree
 from torch_classes import SF
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -282,12 +281,17 @@ def _assert_answer(got: dict, want: dict, label: str):
             assert g.tolist() == list(w), (label, k)
 
 
-def test_generate_class_equals_the_reference_and_the_oracle(data):
+def test_generate_class_equals_the_reference_and_the_oracle(data, monkeypatch):
+    from auron_tpu_torch.bridge import api as papi
+    from torch_classes import assert_same_tasks, record_tasks
+
     jd, pdata = data
+    jtasks, ptasks = record_tasks(monkeypatch, api), record_tasks(monkeypatch, papi)
     jout = jt.run_generate_class(jd)
     want = {"tag": jout["tag"].to_numpy(object), "cnt": jout["cnt"].to_numpy(np.int64)}
     stats: dict = {}
     got = pt.run_generate_class(pdata, device="cpu", stats=stats)
+    assert_same_tasks(jtasks, ptasks, "generate")
     _assert_answer(got, want, "generate vs auron_tpu")
     _assert_answer(pt.generate_class_oracle(pdata), want, "oracle vs auron_tpu")
     _assert_answer(jt.generate_class_oracle(jd).to_dict("list"), want, "reference oracle")
@@ -317,7 +321,12 @@ def _by_tag(frame: dict) -> dict:
     return {k: np.asarray(v)[order] for k, v in frame.items()}
 
 
-def test_tag_revenue_class_equals_the_reference_run_of_the_same_proto(data):
+def test_tag_revenue_class_equals_the_reference_run_of_the_same_proto(data, monkeypatch):
+    """The port's task is the reference builders' proto of the plan, field
+    by field, and both answers agree."""
+    from auron_tpu_torch.bridge import api as papi
+    from torch_classes import assert_same_tasks, record_tasks
+
     jd, pdata = data
     rows_per_batch = 16_384  # several input batches at this SF
     ss = jd.store_sales
@@ -342,7 +351,9 @@ def test_tag_revenue_class_equals_the_reference_run_of_the_same_proto(data):
     ingested = {"fact": fact, "dd": pt.to_batches(pdata.date_dim, 1, device="cpu")[0],
                 "item": pt.to_batches(pdata.item, 1, device="cpu")[0]}
     stats: dict = {}
+    ptasks = record_tasks(monkeypatch, papi)
     got = pt.run_tag_revenue_class(pdata, device="cpu", stats=stats, ingested=ingested)
+    assert_same_tasks([task.SerializeToString()], ptasks, "tag revenue")
     _assert_answer(got, want, "tag revenue vs auron_tpu")
     _assert_answer(pt.tag_revenue_class_oracle(pdata), want, "oracle vs auron_tpu")
     c = stats["counters"]
@@ -353,7 +364,7 @@ def test_tag_revenue_class_equals_the_reference_run_of_the_same_proto(data):
     # the same proto through the port's planner
     port_task = pplanner._pb().TaskDefinition.FromString(task.SerializeToString())
     root, stage, part, conf = pplanner.task_from_proto(port_task, "cpu")
-    batches, _ = run_task(root, {"tr_fact": fact, "tr_item": [ingested["item"]]}, stage, part,
+    batches, _ = run_tree(root, {"tr_fact": fact, "tr_item": [ingested["item"]]}, stage, part,
                           conf, "cpu")
     planned = pt.collect(batches)
     _assert_answer(_by_tag(planned), want, "port planner vs auron_tpu")

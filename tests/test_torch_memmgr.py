@@ -28,9 +28,10 @@ from auron_tpu_torch.exec.sort_exec import SortExec
 from auron_tpu_torch.exprs.ir import col
 from auron_tpu_torch.memory import memmgr as PM
 from auron_tpu_torch.ops.sortkeys import SortSpec
-from auron_tpu_torch.runtime.task import TaskRuntime, run_task
+from auron_tpu_torch.runtime.task import TaskRuntime
 from auron_tpu_torch.utils.config import Configuration as PConf
 from auron_tpu_torch.utils.config import conf_scope as pscope
+from torch_carry import run_tree
 
 #: (package tag, memmgr module, Configuration, conf_scope)
 PACKAGES = {"jax": (JM, JConf, jscope), "port": (PM, PConf, pscope)}
@@ -288,12 +289,12 @@ def _sort_tree(n_ok=None, threshold=1 << 23):
 
 def test_task_unregisters_consumers_on_success_error_and_cancel():
     mm = PM.MemManager.init(budget_bytes=1 << 30)
-    out, metrics = run_task(_sort_tree(threshold=500), {}, device="cpu")
+    out, metrics = run_tree(_sort_tree(threshold=500), {}, device="cpu")
     assert sum(b.num_rows() for b in out) == 1800
     assert metrics["values"]["spilled_runs"] == 3
     assert mm.mem_snapshot()["consumers"] == []
     with pytest.raises(RuntimeError, match="failed"):
-        run_task(_sort_tree(n_ok=3), {}, device="cpu")
+        run_tree(_sort_tree(n_ok=3), {}, device="cpu")
     assert mm.mem_snapshot()["consumers"] == []
     rt = TaskRuntime(_sort_tree(), device="cpu")
     rt.finalize()  # cancel, whatever the pump reached
@@ -357,14 +358,14 @@ def test_no_spill_file_outlives_its_task(tmp_path, monkeypatch):
     agg = HashAggExec(HashAggExec(scan, [(col(0), "i")], [(AggExpr("sum", col(1)), "s")],
                                   PARTIAL),
                       [(col(0), "i")], [(AggExpr("sum", col(1)), "s")], FINAL)
-    _, m = run_task(agg, {}, conf=conf, device="cpu")
+    _, m = run_tree(agg, {}, conf=conf, device="cpu")
     assert m["children"][0]["values"]["spilled_aggs"] > 0
     writer = ShuffleWriterExec(scan, HashPartitioning([col(0)], 3),
                                str(tmp_path / "out.data"), str(tmp_path / "out.index"))
-    _, m = run_task(writer, {}, conf=conf, device="cpu")
+    _, m = run_tree(writer, {}, conf=conf, device="cpu")
     assert m["values"]["spilled_shuffle_runs"] > 0
     with pytest.raises(RuntimeError):
-        run_task(ShuffleWriterExec(_Boom(scan, 3), HashPartitioning([col(0)], 3),
+        run_tree(ShuffleWriterExec(_Boom(scan, 3), HashPartitioning([col(0)], 3),
                                    str(tmp_path / "x.data"), str(tmp_path / "x.index")),
                  {}, conf=conf, device="cpu")
     assert sorted(os.listdir(tmp_path)) == ["out.data", "out.index"]

@@ -388,7 +388,9 @@ def test_hand_built_mesh_trees_match_the_planner(tpcds_data):
     collect = B.limit(B.sort(B.memory_scan(_jax_schema(q3.schema), "q3_stage"),
                              [(jcol(0), SortSpec()), (jcol(2), SortSpec(asc=False)),
                               (jcol(1), SortSpec())], fetch=100), 100)
-    assert _describe(pt.q3_collect_tree(q3.schema, 100)) == _describe(_planned(collect))
+    assert pt.q3_collect_plan(q3.schema, 100).SerializeToString() == \
+        collect.SerializeToString(deterministic=True)
+    assert _describe(_planned(pt.q3_collect_plan(q3.schema, 100))) == _describe(_planned(collect))
 
 
 def _jax_schema(ps):

@@ -172,7 +172,7 @@ def test_early_close_releases_windows(monkeypatch, shape):
     from auron_tpu_torch.exec.basic import LimitExec
     from auron_tpu_torch.memory.memmgr import MemManager
     from auron_tpu_torch.runtime import transfer
-    from auron_tpu_torch.runtime.task import run_task
+    from torch_carry import run_tree
     from auron_tpu_torch.utils.config import Configuration
 
     windows = []
@@ -194,7 +194,7 @@ def test_early_close_releases_windows(monkeypatch, shape):
           "chain": lambda: star(PORT, fact, [_dim(), d2], [0, 3]),
           "agg": lambda: _partial_agg(PORT, fact)}[shape]()
     before = list(MemManager.get()._consumers)
-    out, _ = run_task(LimitExec(op, 5), {}, conf=Configuration(dict(TIGHT)), device="cpu")
+    out, _ = run_tree(LimitExec(op, 5), {}, conf=Configuration(dict(TIGHT)), device="cpu")
     assert sum(int(b.device.sel.sum()) for b in out) == 5
     assert windows and all(len(w) == 0 and w.nbytes == 0 for w in windows)
     assert MemManager.get()._consumers == before

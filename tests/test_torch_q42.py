@@ -87,12 +87,18 @@ def _assert_q42_equal(got: dict, want: pd.DataFrame):
     np.testing.assert_allclose(got["rev"], want["rev"].to_numpy(), rtol=1e-9, atol=0)
 
 
-def test_q42_three_ways(data):
+def test_q42_three_ways(data, monkeypatch):
+    from auron_tpu.bridge import api as japi
+    from torch_classes import assert_same_tasks, record_tasks
+
     jd, pd_ = data
+    jtasks, ptasks = record_tasks(monkeypatch, japi), record_tasks(monkeypatch, papi)
     want = jt.run_q42_class(jd)
     assert len(want) == 10
-    # 1. the port's own entry point
+    # 1. the port's own entry point, its task the reference's field by field
     _assert_q42_equal(pt.run_q42_class(pd_, device="cpu"), want)
+    assert_same_tasks(jtasks, ptasks, "q42")
+    monkeypatch.undo()
     # 2. the port driven by the JAX builders' serialized task bytes
     ingested = pt.ingest_q42(pd_, device="cpu")
     for k, v in ingested.items():

@@ -55,12 +55,20 @@ def _assert_q3(got: dict, want: dict):
 
 
 @pytest.mark.parametrize("n_map,n_reduce", [(2, 3), (4, 4)])
-def test_q93_three_ways(data, n_map, n_reduce, tmp_path):
+def test_q93_three_ways(data, n_map, n_reduce, tmp_path, monkeypatch):
+    from auron_tpu.bridge import api as japi
+
+    from auron_tpu_torch.bridge import api as papi
+    from torch_classes import assert_same_tasks, record_tasks
+
     jd, pd_ = data
-    want = _frame_q93(jt.run_q93_class(jd, n_map=n_map, n_reduce=n_reduce,
-                                       work_dir=str(tmp_path / "jax")))
+    jwork, pwork = str(tmp_path / "jax"), str(tmp_path / "port")
+    jtasks, ptasks = record_tasks(monkeypatch, japi), record_tasks(monkeypatch, papi)
+    want = _frame_q93(jt.run_q93_class(jd, n_map=n_map, n_reduce=n_reduce, work_dir=jwork))
     stats: dict = {}
-    got = pt.run_q93_class(pd_, n_map=n_map, n_reduce=n_reduce, device="cpu", stats=stats)
+    got = pt.run_q93_class(pd_, n_map=n_map, n_reduce=n_reduce, device="cpu", stats=stats,
+                           work_dir=pwork)
+    assert_same_tasks(jtasks, ptasks, "q93", jwork, pwork)
     _assert_q93(got, want)
     _assert_q93(pt.q93_class_oracle(pd_), want)
     assert want["rows"][1] > 0.8 * want["rows"].sum()  # the NULL skew
@@ -71,13 +79,21 @@ def test_q93_three_ways(data, n_map, n_reduce, tmp_path):
     assert stats["shuffle_bytes"] > 0 and stats["map_s"] > 0 and stats["reduce_s"] > 0
 
 
-def test_q3_three_ways(data, tmp_path):
+def test_q3_three_ways(data, tmp_path, monkeypatch):
+    from auron_tpu.bridge import api as japi
+
+    from auron_tpu_torch.bridge import api as papi
+    from torch_classes import assert_same_tasks, record_tasks
+
     jd, pd_ = data
-    w = jt.run_q3_class(jd, n_map=4, n_reduce=4, work_dir=str(tmp_path))
+    jwork, pwork = str(tmp_path / "jax"), str(tmp_path / "port")
+    jtasks, ptasks = record_tasks(monkeypatch, japi), record_tasks(monkeypatch, papi)
+    w = jt.run_q3_class(jd, n_map=4, n_reduce=4, work_dir=jwork)
     want = {"d_year": w["d_year"].to_numpy(np.int32),
             "i_brand_id": w["i_brand_id"].to_numpy(np.int32), "s": w["s"].to_numpy()}
     assert len(want["s"]) == 100
-    _assert_q3(pt.run_q3_class(pd_, n_map=4, n_reduce=4, device="cpu"), want)
+    _assert_q3(pt.run_q3_class(pd_, n_map=4, n_reduce=4, device="cpu", work_dir=pwork), want)
+    assert_same_tasks(jtasks, ptasks, "q3", jwork, pwork)
     _assert_q3(pt.q3_class_oracle(pd_), want)
     o = jt.q3_class_oracle(jd)
     _assert_q3(pt.q3_class_oracle(pd_), {"d_year": o["d_year"].to_numpy(),

@@ -141,7 +141,7 @@ def test_rss_end_to_end_matches_file_shuffle(tmp_path):
     reduce tasks read it as the file shuffle's pairs read; replica 1 holds
     the same rows."""
     from auron_tpu_torch.bridge import api
-    from auron_tpu_torch.runtime.task import run_task
+    from torch_carry import run_tree
 
     parts, want = _kv(3000, seed=3, n_parts=3)
     svc = LocalRssService(num_replicas=2)
@@ -154,7 +154,7 @@ def test_rss_end_to_end_matches_file_shuffle(tmp_path):
                              "cpu") as h:
             assert api.next_batch(h) is None
         d, i = str(tmp_path / f"m{m}.data"), str(tmp_path / f"m{m}.index")
-        run_task(ShuffleWriterExec(PScan(parts, KV), HashPartitioning([col(0)], 4), d, i),
+        run_tree(ShuffleWriterExec(PScan(parts, KV), HashPartitioning([col(0)], 4), d, i),
                  {}, 0, m, None, "cpu")
         pairs.append((d, i))
     assert _reduce(RssBlockProvider(svc, "s1"), 4) == want
@@ -198,9 +198,9 @@ def test_rss_fetch_rides_iter_payloads_raw_bytes(tmp_path):
     arrive byte for byte and read to the same rows."""
     parts, want = _kv(2000, seed=9)
     d, i = str(tmp_path / "m.data"), str(tmp_path / "m.index")
-    from auron_tpu_torch.runtime.task import run_task
+    from torch_carry import run_tree
 
-    run_task(ShuffleWriterExec(PScan(parts, KV), HashPartitioning([col(0)], 3), d, i),
+    run_tree(ShuffleWriterExec(PScan(parts, KV), HashPartitioning([col(0)], 3), d, i),
              {}, 0, 0, None, "cpu")
     svc = LocalRssService()
     src = LocalFileBlockProvider(d, i)

@@ -251,10 +251,14 @@ def _planned(plan, mode="off"):
 
 @pytest.mark.parametrize("mode", ["build", "full", "off"])
 def test_hand_built_q72_tree_matches_the_planner(tpcds_data, mode):
-    assert _describe(pt.q72_mesh_tree(P, mode)) == _describe(
-        _planned(_q72_proto(tpcds_data[0]), mode))
+    """The port's q72 mesh plan is the reference driver's plan, byte for
+    byte, and plans to the same tree under each elision mode."""
+    want = _q72_proto(tpcds_data[0])
+    assert pt.q72_mesh_plan(P).SerializeToString() == want.SerializeToString(deterministic=True)
+    assert _describe(_planned(pt.q72_mesh_plan(P), mode)) == _describe(_planned(want, mode))
 
 
 def test_hand_built_skew_tree_matches_the_planner():
     plan = _skew_inputs(100, 0.7)[0]
-    assert _describe(pt.skew_join_tree(P)) == _describe(_planned(plan))
+    assert pt.skew_join_plan(P).SerializeToString() == plan.SerializeToString(deterministic=True)
+    assert _describe(_planned(pt.skew_join_plan(P))) == _describe(_planned(plan))

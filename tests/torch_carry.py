@@ -92,3 +92,19 @@ def rows(batches, decode=True) -> list[tuple]:
 
 def canon(rs: list[tuple]) -> list[tuple]:
     return sorted(rs, key=lambda r: tuple((x is None, x if x is not None else 0) for x in r))
+
+
+def run_tree(plan, resources: dict | None = None, stage_id: int = 0, partition_id: int = 0,
+             conf=None, device: str = "cpu") -> tuple[list, dict]:
+    """One task of an auron_tpu_torch exec tree run to its end through
+    ``TaskRuntime``: (output batches, metric tree); the runtime is
+    finalized on every path out."""
+    from auron_tpu_torch.runtime.task import TaskRuntime
+
+    rt = TaskRuntime(plan, resources=resources, stage_id=stage_id, partition_id=partition_id,
+                     conf=conf, device=device)
+    try:
+        out = list(rt)
+    finally:
+        metrics = rt.finalize()
+    return out, metrics
