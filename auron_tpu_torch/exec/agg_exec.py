@@ -1684,7 +1684,9 @@ class _DenseAggState:
     def _pop_pending(self):
         b, tr = self._pending.popleft()
         self._pending_bytes -= batch_nbytes(b)
-        (ok,) = harvest(tr, self.metrics)
+        # the dense table holds no lock (its mem_used reads attributes),
+        # and neither does its operator here: a wait gives the turn up
+        (ok,) = harvest(tr, self.metrics, yield_turn=True)
         return b, bool(ok)
 
     def finish_pending(self) -> list:

@@ -869,3 +869,100 @@ def decode_block(payload: bytes, schema: T.Schema) -> tuple[int, list]:
         return nrows, cols
     except (struct.error, IndexError, KeyError) as e:
         raise ValueError(f"corrupt v2 shuffle block: {e!r}") from e
+
+
+# ---------------------------------------------------------------------------
+# blocks as pyarrow record batches (reference ``format.py:111``)
+# ---------------------------------------------------------------------------
+
+
+def decode_blocks(data: bytes) -> Iterator:
+    """pyarrow RecordBatches of a concatenation of blocks (v1 and v2 may be
+    mixed; the sniff is per block), each typed by its block's own schema
+    section: the reference's generic consumer path (an RSS fetch). pyarrow
+    is imported here (``utils/arrowlib.pyarrow``); the port's own reader
+    takes payload bytes and its plan schema instead (``decode_block``)."""
+    from auron_tpu_torch.utils.arrowlib import pyarrow
+
+    pa = pyarrow()
+    for payload in iter_block_payloads(data):
+        if is_v2_payload(payload):
+            yield _v2_record_batch(pa, payload)
+        else:
+            with pa.ipc.open_stream(payload) as r:
+                yield from r
+
+
+def _v2_record_batch(pa, payload: bytes):
+    """One v2 payload as a RecordBatch of the Arrow types its schema section
+    names (reference ``decode_block_v2`` + ``block_columns_to_record_batch``).
+    Corrupt blocks raise ValueError."""
+    try:
+        ver, _, ncols, nrows, slen = struct.unpack_from("<BBHII", payload, 4)
+        if ver != 2:
+            raise ValueError(f"unsupported block version {ver}")
+        schema = pa.ipc.read_schema(pa.BufferReader(payload[16 : 16 + slen]))
+        if len(schema) != ncols:
+            raise ValueError("schema/column-count mismatch")
+        pos = 16 + slen
+        arrays = []
+        for i in range(ncols):
+            t = schema.field(i).type
+            enc, hasv = struct.unpack_from("<BB", payload, pos)
+            pos += 2
+            valid = None
+            if hasv:
+                (vlen,) = struct.unpack_from("<I", payload, pos)
+                pos += 4
+                vbits = np.frombuffer(payload, np.uint8, count=vlen, offset=pos)
+                valid = np.unpackbits(vbits, count=nrows, bitorder="little").astype(bool)
+                pos += vlen
+            (plen,) = struct.unpack_from("<I", payload, pos)
+            pos += 4
+            body = payload[pos : pos + plen]
+            if len(body) != plen:
+                raise ValueError("column payload truncated")
+            pos += plen
+            arrays.append(_arrow_column(pa, t, enc, body, valid, nrows))
+        return pa.RecordBatch.from_arrays(arrays, schema=schema)
+    except (struct.error, IndexError, KeyError, pa.ArrowInvalid) as e:
+        raise ValueError(f"corrupt v2 shuffle block: {e!r}") from e
+
+
+def _single_column(pa, stream: bytes):
+    with pa.ipc.open_stream(stream) as r:
+        col = r.read_all().column(0)
+    return col.combine_chunks() if col.num_chunks != 1 else col.chunk(0)
+
+
+def _arrow_column(pa, t, enc: int, body: bytes, valid, nrows: int):
+    """One v2 column as an Arrow array of type ``t``, built from its planes
+    as the reference's ``_column_to_arrow`` builds it."""
+    if enc == ENC_ARROW:
+        arr = _single_column(pa, body)
+        return arr.cast(t) if arr.type != t else arr
+    vbuf, nulls = ((None, 0) if valid is None else
+                   (pa.py_buffer(np.packbits(valid, bitorder="little").tobytes()),
+                    int(nrows - valid.sum())))
+    if enc == ENC_DICT:
+        (dlen,) = struct.unpack_from("<I", body, 0)
+        vocab = _single_column(pa, body[4 : 4 + dlen])
+        denc, dplen = struct.unpack_from("<BI", body, 4 + dlen)
+        start = 4 + dlen + 5
+        codes = decode_int_plane(denc, body[start : start + dplen], nrows, np.dtype(np.int32))
+        idx = pa.array(codes, type=t.index_type, mask=None if valid is None else ~valid)
+        return pa.DictionaryArray.from_arrays(idx, vocab.cast(t.value_type))
+    if enc == ENC_DEC128:
+        le, lplen = struct.unpack_from("<BI", body, 0)
+        planes = np.empty((nrows, 2), dtype=np.int64)
+        planes[:, 0] = decode_int_plane(le, body[5 : 5 + lplen], nrows, np.dtype(np.int64))
+        he, hplen = struct.unpack_from("<BI", body, 5 + lplen)
+        planes[:, 1] = decode_int_plane(he, body[10 + lplen : 10 + lplen + hplen], nrows,
+                                        np.dtype(np.int64))
+        return pa.Array.from_buffers(t, nrows, [vbuf, pa.py_buffer(planes.tobytes())], nulls)
+    vals = decode_column(enc, body, valid, nrows, T.DataType.from_arrow(t))
+    if pa.types.is_boolean(t):
+        data = pa.py_buffer(np.packbits(vals, bitorder="little").tobytes())
+    else:
+        data = pa.py_buffer(np.ascontiguousarray(vals).tobytes())
+    return pa.Array.from_buffers(t, nrows, [vbuf, data], nulls)

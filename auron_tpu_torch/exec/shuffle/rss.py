@@ -10,8 +10,10 @@ immutable, each commit fans out to every replica, and a fetch returns the
 committed blocks of one reduce partition. ``RssPartitionWriterClient`` goes
 into ``RssShuffleWriterExec`` through the resource map and
 ``RssBlockProvider`` into ``IpcReaderExec``; both move block bytes, never
-decoded batches (``iter_payloads``). ``push_payloads`` relays a finished
-map output's blocks into the service as bytes.
+decoded batches (``iter_payloads``). Called with a partition, the provider
+gives that partition's pyarrow RecordBatches instead (``format.
+decode_blocks``), the reference's generic consumer path. ``push_payloads``
+relays a finished map output's blocks into the service as bytes.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import threading
 from collections import defaultdict
 from typing import Iterator
 
-from auron_tpu_torch.exec.shuffle.format import iter_block_payloads
+from auron_tpu_torch.exec.shuffle.format import decode_blocks, iter_block_payloads
 
 
 class LocalRssService:
@@ -132,6 +134,12 @@ class RssBlockProvider:
         self.service = service
         self.shuffle_id = shuffle_id
         self.replica = replica
+
+    def __call__(self, partition: int) -> Iterator:
+        """The pyarrow RecordBatches of one reduce partition, block by
+        block in fetch order (pyarrow is imported here)."""
+        for block in self.service.fetch(self.shuffle_id, partition, self.replica):
+            yield from decode_blocks(block)
 
     def iter_payloads(self, partition: int) -> Iterator[bytes]:
         """The raw block payloads of one reduce partition (what the reader's

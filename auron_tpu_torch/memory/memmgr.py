@@ -11,7 +11,8 @@ follows the JAX package's two protocols:
 - ``update_mem_used``: fair-share limits (max = managed / spillables,
   min = max / 8); a consumer over its share spills itself, one under its
   min share waits for siblings to release, and spills when the wait times
-  out (``memory.wait.timeout.seconds``);
+  out (``memory.wait.timeout.seconds``; at once under a served query's
+  turn, ``runtime/dispatch.py``, where the siblings wait for the turn);
 - ``acquire``: the cascade the operators use before each staged batch —
   the largest other spillable consumers spill first, the requester last.
   The manager's lock is never held across a consumer's ``spill()``; the
@@ -47,6 +48,7 @@ import numpy as np
 import torch
 
 from auron_tpu_torch import obs
+from auron_tpu_torch.runtime import dispatch
 from auron_tpu_torch.utils.config import (
     HBM_BUDGET_BYTES, HOST_SPILL_BUDGET_BYTES, MEM_WAIT_TIMEOUT_S, MEMORY_FRACTION, active_conf,
 )
@@ -215,9 +217,11 @@ class MemManager:
                 return
             if not (spillable and new_used > consumer_min):
                 self.num_waits += 1
+                # under the host's turn the siblings wait for the turn, so
+                # the wait could end only at its timeout: take that at once
                 ok = self._released.wait_for(
                     lambda: self._pool_state()[0] <= self._pool_state()[1],
-                    timeout=self._wait_timeout)
+                    timeout=0.0 if dispatch.held() else self._wait_timeout)
                 if ok or not spillable:
                     return
         # the spill runs outside the manager lock (it takes the consumer's)
@@ -264,8 +268,12 @@ def _settle_streams() -> None:
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         from auron_tpu_torch.plan.fusion import _GRAPH_LOCK
 
+        from auron_tpu_torch.utils.profiling import note_settle
+
         with _GRAPH_LOCK:  # no stage is being captured meanwhile
+            t0 = time.perf_counter()
             torch.cuda.synchronize()
+            note_settle(time.perf_counter() - t0)
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,11 @@ any new compile in legs 2-3, duplicated trace ids, a client error, or
 concurrent/serial throughput below the speedup floor. p50/p99 latency is
 recorded per leg, and the K1-K4 launches: per query in the serial leg
 (the global counts around each submit, which run one at a time) and in
-total over the concurrent leg.
+total over the concurrent leg. ``legs`` holds, for the serial and the
+concurrent leg, what says where their time went: process CPU over wall,
+host syncs by site, settles before spills across tasks, seconds waited on
+the engine's locks, spills and the caching allocator's retries
+(``_leg_record``).
 
 The speedup floor follows the reference's rule: ``SERVEGATE_MIN_SPEEDUP``
 when set, else 2.0 on the card and 1.4 on the CPU. The reference's
@@ -68,6 +72,60 @@ def _frames_identical(a, b) -> bool:
     if list(a.dtypes) != list(b.dtypes):
         return False
     return a.equals(b)
+
+
+#: ``torch.cuda.memory_stats`` counts a leg's record carries: allocations
+#: that freed the allocator's cache and retried, and device segments
+#: allocated and freed (each free waits for the whole card)
+_ALLOC_STATS = ("num_alloc_retries", "num_device_alloc", "num_device_free")
+
+
+def _leg_probe(counters, device) -> dict:
+    """What a leg's record is the difference of: clocks, engine counters,
+    the memory manager's spills and waits, the caching allocator's counts."""
+    from auron_tpu_torch.memory.memmgr import MemManager
+
+    mm = MemManager.get()
+    out = {"wall": time.perf_counter(), "cpu": time.process_time(),
+           "counters": counters.snapshot(top=None),
+           "spills": mm.num_spills, "mem_waits": mm.num_waits}
+    if device.type == "cuda":
+        import torch
+
+        stats = torch.cuda.memory_stats(device)
+        out.update({k: stats.get(k, 0) for k in _ALLOC_STATS})
+    return out
+
+
+def _leg_record(a: dict, b: dict) -> dict:
+    """One leg between two probes: wall and process CPU seconds (CPU over
+    wall near 1.0: one core busy, as when every thread waits for the
+    interpreter lock), host syncs with their sites, the whole-device
+    settles before spills across tasks, seconds waited on the engine's
+    locks, spills, memory waits and the allocator's counts."""
+    ca, cb = a["counters"], b["counters"]
+    wall = b["wall"] - a["wall"]
+    sites = {}
+    for k, (n, sec) in cb["sync_sites"].items():
+        n0, s0 = ca["sync_sites"].get(k, (0, 0.0))
+        if n > n0:
+            sites[k] = [n - n0, round(sec - s0, 3)]
+    locks = {}
+    for k, (n, sec) in cb["lock_waits"].items():
+        n0, s0 = ca["lock_waits"].get(k, (0, 0.0))
+        locks[k] = [n - n0, round(sec - s0, 3)]
+    out = {"wall_s": round(wall, 3), "cpu_s": round(b["cpu"] - a["cpu"], 3),
+           "cpu_per_wall": round((b["cpu"] - a["cpu"]) / wall, 3) if wall else 0.0,
+           "host_syncs": cb["host_syncs"] - ca["host_syncs"],
+           "host_sync_s": round(cb["host_sync_s"] - ca["host_sync_s"], 3),
+           "async_reads": cb["async_reads"] - ca["async_reads"],
+           "sync_sites": dict(sorted(sites.items(), key=lambda kv: -kv[1][1])),
+           "settles": cb["settles"] - ca["settles"],
+           "settle_s": round(cb["settle_s"] - ca["settle_s"], 3),
+           "lock_waits": locks,
+           "spills": b["spills"] - a["spills"], "mem_waits": b["mem_waits"] - a["mem_waits"]}
+    out.update({k: b[k] - a[k] for k in _ALLOC_STATS if k in a})
+    return out
 
 
 def build_server(sf: Optional[float] = None, n_parts: Optional[int] = None,
@@ -135,6 +193,7 @@ def run_gate(sf: Optional[float] = None, clients: Optional[int] = None,
     serial_lat: list[float] = []
     serial_launches: dict[str, dict] = {}
     trace_ids: list[int] = []
+    probe = _leg_probe(counters, server.device)
     t0 = time.perf_counter()
     for c in cases:
         before = _launches()
@@ -148,6 +207,7 @@ def run_gate(sf: Optional[float] = None, clients: Optional[int] = None,
         if not _frames_identical(reference[c.name], df):
             failures.append(f"serial replay diverged: {c.name}")
     serial_s = time.perf_counter() - t0
+    legs = {"serial": _leg_record(probe, _leg_probe(counters, server.device))}
     serial_qps = len(cases) / serial_s if serial_s else 0.0
     replay_compiles = counters.compiles - compiles_warm
     if replay_compiles:
@@ -193,12 +253,14 @@ def run_gate(sf: Optional[float] = None, clients: Optional[int] = None,
                for i in range(clients)]
     compiles_before = counters.compiles
     launches_before = _launches()
+    probe = _leg_probe(counters, server.device)
     t0 = time.perf_counter()
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     conc_s = time.perf_counter() - t0
+    legs["concurrent"] = _leg_record(probe, _leg_probe(counters, server.device))
     conc_launches = {k: v - launches_before[k] for k, v in _launches().items()}
     failures.extend(conc_failures)
     conc_queries = clients * len(cases)
@@ -232,11 +294,70 @@ def run_gate(sf: Optional[float] = None, clients: Optional[int] = None,
         "replay_compiles": replay_compiles,
         "concurrent_compiles": conc_compiles,
         "launches": {"serial": serial_launches, "concurrent": conc_launches},
+        "legs": legs,
         "trace_ids": len(trace_ids),
         "server": server.stats(),
         "failures": failures,
         "ok": not failures,
     }
+
+
+def union_busy_ms(prof) -> float:
+    """Device busy ms of a torch.profiler trace whose streams overlap: the
+    union of the device-side events' intervals."""
+    import torch
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    busy, cur = 0.0, None
+    for lo, hi in spans:
+        if cur is None or lo > cur[1]:
+            if cur is not None:
+                busy += cur[1] - cur[0]
+            cur = [lo, hi]
+        else:
+            cur[1] = max(cur[1], hi)
+    if cur is not None:
+        busy += cur[1] - cur[0]
+    return busy / 1e3
+
+
+def profiled_pass(server, names: list[str], clients: int) -> dict:
+    """The texts of ``names`` once, shared over ``clients`` threads (1:
+    serially), under torch.profiler on the card: wall, device busy
+    (``union_busy_ms``) and the idle share. The K1-K4 launch counts are
+    restored after it."""
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from auron_tpu_torch.models import sqlgate
+    from auron_tpu_torch.ops import bitonic, partition_kernels
+
+    saved = {**bitonic.LAUNCHES, **partition_kernels.LAUNCHES}
+    texts = [sqlgate.case_by_name(n).sql for n in names]
+
+    def client(i):
+        for sql in texts[i::clients]:
+            server.submit(sql, tenant=f"profile{i}")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    for counts in (bitonic.LAUNCHES, partition_kernels.LAUNCHES):
+        counts.update({k: saved[k] for k in counts})
+    busy = union_busy_ms(prof)
+    return {"clients": clients, "wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1 - busy / (wall * 1e3))}
 
 
 def main() -> None:

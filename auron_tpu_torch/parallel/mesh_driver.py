@@ -85,6 +85,7 @@ from auron_tpu_torch.ops.partition_kernels import partition_histogram
 from auron_tpu_torch.parallel.exchange import pid_exchange_step
 from auron_tpu_torch.parallel.mesh import Mesh
 from auron_tpu_torch.plan.fusion import fuse_exec_tree
+from auron_tpu_torch.runtime import dispatch
 from auron_tpu_torch.utils.config import (
     EXCHANGE_COALESCE_ENABLE, EXCHANGE_COALESCE_TARGET_BYTES, EXCHANGE_MESH_MAX_BYTES,
     EXCHANGE_MODE, EXCHANGE_SKEW_ENABLE, EXCHANGE_SKEW_FACTOR, EXCHANGE_SKEW_MIN_BYTES,
@@ -278,9 +279,10 @@ class MeshQueryDriver:
     def _sync(self) -> None:
         """Wait for this run's work: the current stream's, not the whole
         device's (a query served beside others runs on a stream of its own,
-        ``serve/server.py``, and must not wait for theirs)."""
+        ``serve/server.py``, and must not wait for theirs; it gives up the
+        host's turn for the wait, if there is one)."""
         if self.mesh.device.type == "cuda":
-            torch.cuda.current_stream(self.mesh.device).synchronize()
+            dispatch.wait_for(torch.cuda.current_stream(self.mesh.device))
 
     def _cleanup_tmp(self) -> None:
         for d in self._tmp_dirs:

@@ -356,7 +356,27 @@ class _GraphCache:
         return g
 
 
-_GRAPH_LOCK = threading.RLock()
+class _TimedLock:
+    """The graph cache's re-entrant lock; an acquire that finds it held by
+    another thread notes its wait (``utils/profiling.note_lock_wait``)."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+
+    def __enter__(self):
+        if not self._lock.acquire(blocking=False):
+            from auron_tpu_torch.utils.profiling import note_lock_wait
+
+            t0 = time.perf_counter()
+            self._lock.acquire()
+            note_lock_wait("graph", time.perf_counter() - t0)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._lock.release()
+
+
+_GRAPH_LOCK = _TimedLock()
 _GRAPHS = _GraphCache()
 #: the graph cache keeps at most 1/GRAPH_BUDGET_SHARE of the memory budget
 GRAPH_BUDGET_SHARE = 4

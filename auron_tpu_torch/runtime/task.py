@@ -9,8 +9,11 @@ bytes, the seconds its decode took (bytes to message) and the seconds
 ``task_from_proto`` took (elision, pruning, planning, fusion), and the
 metric snapshot of ``finalize`` carries it as ``"task"``.
 The runtime drives the root operator on a background thread into a bounded
-queue, on the CUDA stream that was current where the task started (a task
-slot's own stream when tasks run concurrently);
+queue (a task started under the host's turn, ``runtime/dispatch.py``,
+makes each batch under it, and its consumer gives the turn up while it
+waits on the queue; any other task's pump runs without it), on the CUDA
+stream that was current where the task started (a task slot's own stream
+when tasks run concurrently);
 the consumer pulls batches with ``next_batch`` (or host Arrow batches with
 ``next_arrow``, reference ``task.py:147-153``); an error anywhere in the
 operator stream is re-raised on the consumer side; ``finalize`` cancels,
@@ -52,6 +55,7 @@ from auron_tpu_torch.device import resolve_device
 from auron_tpu_torch.exec.base import ExecOperator, ExecutionContext, TaskCancelled
 from auron_tpu_torch.exec.metrics import MetricNode
 from auron_tpu_torch.memory.memmgr import release_task_consumers
+from auron_tpu_torch.runtime import dispatch
 from auron_tpu_torch.utils.config import TOKIO_EQUIV_PREFETCH_DEPTH, Configuration, conf_scope
 
 _END = object()
@@ -104,6 +108,8 @@ class TaskRuntime:
         # default stream
         self._stream = (torch.cuda.current_stream(torch.device(device))
                         if device.startswith("cuda") else None)
+        # a task a served query starts takes turns with the other queries
+        self._turn = dispatch.turn if dispatch.held() else contextlib.nullcontext
         self._thread = threading.Thread(target=self._pump, daemon=True, name="auron-torch-pump")
         self._thread.start()
 
@@ -120,12 +126,19 @@ class TaskRuntime:
                     parent=self._obs_parent, trace=self._obs_trace,
                     arg={"stage": self.ctx.stage_id, "partition": self.ctx.partition_id}):
                 counters = EngineCounters._installed
-                for batch in self.plan.execute(self.ctx.partition_id, self.ctx):
-                    if counters is not None:
-                        counters.note_batch()
-                    obs.note_pump_batch()
-                    if self._host_prefetch:
-                        batch.prefetch_host()
+                batches = self.plan.execute(self.ctx.partition_id, self.ctx)
+                while True:
+                    # each batch is made under the host's turn (if the task
+                    # started under it), and handed over without it
+                    with self._turn():
+                        batch = next(batches, _END)
+                        if batch is _END:
+                            break
+                        if counters is not None:
+                            counters.note_batch()
+                        obs.note_pump_batch()
+                        if self._host_prefetch:
+                            batch.prefetch_host()
                     self._queue.put(batch)
         except TaskCancelled:
             pass
@@ -147,7 +160,11 @@ class TaskRuntime:
         """Next device batch, or None at end of stream."""
         if self._finalized:
             return None
-        item = self._queue.get()
+        try:
+            item = self._queue.get_nowait()
+        except queue.Empty:
+            with dispatch.waiting():
+                item = self._queue.get()
         if item is _END:
             self._check_error()
             return None
@@ -176,14 +193,15 @@ class TaskRuntime:
         self._finalized = True
         self.ctx.cancel()
         deadline = 30.0
-        while self._thread.is_alive() and deadline > 0:
-            try:
-                while True:
-                    self._queue.get_nowait()
-            except queue.Empty:
-                pass
-            self._thread.join(timeout=0.05)
-            deadline -= 0.05
+        with dispatch.waiting():  # the pump may wait for the turn
+            while self._thread.is_alive() and deadline > 0:
+                try:
+                    while True:
+                        self._queue.get_nowait()
+                except queue.Empty:
+                    pass
+                self._thread.join(timeout=0.05)
+                deadline -= 0.05
         release_task_consumers(self.ctx)
         self._check_error()
         snap = self.ctx.metrics.snapshot()

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from auron_tpu_torch import obs
+from auron_tpu_torch.runtime import dispatch
 from auron_tpu_torch.utils.profiling import note_read
 
 
@@ -76,19 +77,28 @@ def start_host_transfer(*tensors: torch.Tensor) -> HostTransfer:
     return HostTransfer(tuple(host), event)
 
 
-def harvest(tr: HostTransfer, metrics=None, waited_counter: str = "waited_reads"
-            ) -> tuple[np.ndarray, ...]:
+def harvest(tr: HostTransfer, metrics=None, waited_counter: str = "waited_reads",
+            yield_turn: bool = False) -> tuple[np.ndarray, ...]:
     """Resolve a started transfer to host numpy values. Counts one
     ``async_reads`` when its event had completed (or nothing was copied),
-    else one ``waited_counter`` after waiting on the event."""
+    else one ``waited_counter`` after waiting on the event. ``yield_turn``:
+    the caller holds no lock that another thread's dispatch could need, so
+    a wait gives the host's turn up (``runtime/dispatch.py``)."""
     t0 = time.perf_counter_ns()
     waited = tr.event is not None and not tr.event.query()
+    turn_ns = 0  # taking the turn back is a lock wait, not the read's
     if waited:
-        tr.event.synchronize()
+        if yield_turn:
+            with dispatch.waiting():
+                tr.event.synchronize()
+                t_back = time.perf_counter_ns()
+            turn_ns = time.perf_counter_ns() - t_back
+        else:
+            tr.event.synchronize()
     if metrics is not None:
         metrics.add(waited_counter if waited else "async_reads", 1)
     out = tuple(h.numpy() for h in tr.host)
-    dt = time.perf_counter_ns() - t0
+    dt = time.perf_counter_ns() - t0 - turn_ns
     note_read(dt / 1e9, is_async=not waited)
     obs.note_harvest(len(out), dt)
     return out

@@ -35,7 +35,14 @@ Differences from the reference:
 - ``exchange.mode`` stays ``auto`` on every device: the reference forces
   ``file`` on JAX's CPU backend against an XLA:CPU collective hazard the
   port does not have (its CPU gate runs both transports);
-- pandas is imported inside the functions that need it.
+- pandas is imported inside the functions that need it;
+- an admitted query holds the host's turn (``runtime/dispatch.py``) while
+  it plans, dispatches and builds its answer, and gives it up where it
+  waits (a stage's end, the collect barrier, its task's queue, a table
+  upload, its stream's last sync): the threads of concurrent queries take
+  turns at dispatching instead of handing the interpreter lock to each
+  other at every torch call. The reference needs none: its queries are
+  XLA executions that hold no interpreter lock while they run.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from __future__ import annotations
 import threading
 import time
 
+from auron_tpu_torch.runtime import dispatch
 from auron_tpu_torch.serve.admission import AdmissionController
 from auron_tpu_torch.serve.cache import PlanCache, plan_cache_key
 from auron_tpu_torch.utils.config import (
@@ -188,7 +196,8 @@ class SqlServer:
 
                     # other tenants read the view on their own streams:
                     # the upload is finished before anyone sees it
-                    torch.cuda.current_stream(self.device).synchronize()
+                    with dispatch.waiting():
+                        torch.cuda.current_stream(self.device).synchronize()
                 ent["val"] = val
             except BaseException:
                 # failed upload must not wedge waiters or poison the
@@ -199,7 +208,8 @@ class SqlServer:
             finally:
                 ent["done"].set()
             return val
-        ent["done"].wait()
+        with dispatch.waiting():
+            ent["done"].wait()
         if ent["val"] is None:
             raise RuntimeError(
                 f"concurrent upload of {use.rid} failed; retry the query")
@@ -224,8 +234,8 @@ class SqlServer:
                 import torch
 
                 # stage barrier: THIS query's stream, not the device (the
-                # other tenants' streams run on)
-                torch.cuda.current_stream(self.device).synchronize()
+                # other tenants' streams run on, and dispatch meanwhile)
+                dispatch.wait_for(torch.cuda.current_stream(self.device))
             # the collect task ships THIS query's conf (tenant knobs +
             # obs.trace.id) and reads its stage input through the
             # call-scoped resource overlay — no global-map rendezvous,
@@ -297,7 +307,7 @@ class SqlServer:
                 # resolves THIS query's conf, never a sibling handler
                 # thread's
                 try:
-                    with on_stream, conf_scope(conf), obs.query_trace(
+                    with on_stream, dispatch.turn(), conf_scope(conf), obs.query_trace(
                         f"serve.{tenant or 'anon'}", conf=conf
                     ) as qt:
                         lq, key, hit = self.plan(sql, qt.conf or conf)

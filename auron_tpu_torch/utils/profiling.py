@@ -14,6 +14,14 @@ card they are:
   ``drain_waits``) are host syncs; a harvest whose copy had already
   landed is an ``async_read``. Both call ``note_read``.
 
+Two costs of threads sharing the card are counted beside them, for
+concurrent serving: a **settle** (``note_settle``), the wait for every
+stream of the card before a spill across tasks (``memory/memmgr.py``);
+and a **lock wait** (``note_lock_wait``), the seconds a thread waited to
+acquire one of the engine's process-wide locks held by another thread
+(the graph cache's, ``plan/fusion.py``; the host's turn,
+``runtime/dispatch.py``), by lock.
+
 Nothing is patched: neither ``torch.Tensor`` nor anything else. The
 counters count only while installed (``EngineCounters.install()``); the
 span timeline (``obs``) records each event whether or not they are.
@@ -57,6 +65,11 @@ class EngineCounters:
         # ``yield`` is not on the stack, so a consumer's stall never books
         # under its producer)
         self.op_sync: dict[str, list] = {}
+        # whole-device waits before spills across tasks, and contended
+        # lock acquisitions by lock
+        self.settles = 0
+        self.settle_s = 0.0
+        self.lock_waits: dict[str, list] = {}
 
     def _find_site(self) -> tuple[str, str | None]:
         """(nearest engine frame, innermost ExecOperator class name) — one
@@ -123,10 +136,24 @@ class EngineCounters:
         with self._lock:
             self.batches += 1
 
-    def snapshot(self) -> dict:
+    def _settle(self, dt: float) -> None:
+        with self._lock:
+            self.settles += 1
+            self.settle_s += dt
+
+    def _lock_wait(self, name: str, dt: float) -> None:
+        with self._lock:
+            ent = self.lock_waits.setdefault(name, [0, 0.0])
+            ent[0] += 1
+            ent[1] += dt
+
+    def snapshot(self, top: int | None = 10) -> dict:
+        """The totals; ``sync_sites`` and ``op_sync`` keep their ``top``
+        entries by seconds (all of them with ``top=None``)."""
         with self._lock:
             sites = {k: [v[0], v[1]] for k, v in self.sync_sites.items()}
             ops = {k: [v[0], v[1]] for k, v in self.op_sync.items()}
+            locks = {k: [v[0], round(v[1], 3)] for k, v in self.lock_waits.items()}
             out = {
                 "compiles": self.compiles,
                 "compile_s": round(self.compile_s, 3),
@@ -135,10 +162,13 @@ class EngineCounters:
                 "async_reads": self.async_reads,
                 "async_read_s": round(self.async_read_s, 3),
                 "batches": self.batches,
+                "settles": self.settles,
+                "settle_s": round(self.settle_s, 3),
+                "lock_waits": locks,
             }
-        top = sorted(sites.items(), key=lambda kv: -kv[1][1])[:10]
-        out["sync_sites"] = {k: [v[0], round(v[1], 3)] for k, v in top}
-        otop = sorted(ops.items(), key=lambda kv: -kv[1][1])[:10]
+        top_sites = sorted(sites.items(), key=lambda kv: -kv[1][1])[:top]
+        out["sync_sites"] = {k: [v[0], round(v[1], 3)] for k, v in top_sites}
+        otop = sorted(ops.items(), key=lambda kv: -kv[1][1])[:top]
         out["op_sync"] = {k: [v[0], round(v[1], 3)] for k, v in otop}
         return out
 
@@ -149,6 +179,21 @@ def note_compile(seconds: float, what: str) -> None:
     if counters is not None:
         counters._compile(seconds)
     obs.note_compile(int(seconds * 1e9), what)
+
+
+def note_settle(seconds: float) -> None:
+    """One wait of ``seconds`` for every stream of the card before a spill
+    across tasks."""
+    counters = EngineCounters._installed
+    if counters is not None:
+        counters._settle(seconds)
+
+
+def note_lock_wait(name: str, seconds: float) -> None:
+    """``seconds`` one thread waited for the engine lock ``name``."""
+    counters = EngineCounters._installed
+    if counters is not None:
+        counters._lock_wait(name, seconds)
 
 
 def note_read(seconds: float, is_async: bool) -> None:

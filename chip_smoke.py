@@ -362,21 +362,28 @@ driver's runs (phases 7 and 9) take their plan protos whole.
    reference's admission defaults (4 queries at once, each on a CUDA
    stream of its own) over phase 23's tables, and the HTTP service on a
    loopback port. The concurrency gate's three legs over the 24 texts:
-   warm, serial replay, clients at rotated offsets (2 in the whole
-   script, so that it ends inside its limit; 8 on 4 slots, the
-   reference's default, under ``--serve-only``); every warm answer equal
-   to phase 23's oracle, every later
-   answer bit-identical to the warm one, no graph capture or kernel build
-   in legs 2-3, a distinct trace id per query, each query's K1-K4
-   launches in the serial leg equal to phase 23's timed run and the
-   concurrent leg's total the clients times the serial pass's. Then over one
+   warm, serial replay, 8 clients at rotated offsets on 4 slots (the
+   reference's default); every warm answer equal to phase 23's oracle,
+   every later answer bit-identical to the warm one, no graph capture or
+   kernel build in legs 2-3, a distinct trace id per query, each query's
+   K1-K4 launches in the serial leg equal to phase 23's timed run, the
+   concurrent leg's total the clients times the serial pass's, and
+   concurrent/serial queries/s at least ``SERVE_MIN_SPEEDUP`` (1.0; the
+   ratio printed beside the reference's 2.0). In the whole script the
+   phase runs last in the second process, once the first has ended its
+   phases, so that both legs are timed with nothing else on the host.
+   Each timed leg's CPU over wall, host syncs by site, settles, lock
+   waits and spills are printed (``servegate`` ``legs``). Then over one
    keep-alive connection POST /sql of q3, q46 and q65 (rows equal to the
    served answers) and of q53 and a denied conf key (400 each), while a
    client serves queries: /healthz, /metrics, /metrics.prom, /trace?last=5,
    /queries and /serve answer 200 with parseable bodies. Under
    ``--serve-only``, then two serial corpus passes with ``obs.mode`` off
    and two with the recorder, alternating (walls printed, no gate; the
-   whole script leaves them out to keep inside its time limit). Printed: each leg's seconds,
+   whole script leaves them out to keep inside its time limit), and the
+   24 texts once serially and once over the 8 clients under torch.profiler
+   (device busy as the union of the streams' device events, the idle
+   share). Printed: each leg's seconds,
    queries/s, p50 and p99, the concurrent/serial ratio beside the
    reference's 2.0, admission and plan-cache stats, the engine counters,
    peak device memory, the launches and the trace events recorded.
@@ -444,13 +451,17 @@ Each phase prints its seconds.
 The whole script runs in two processes on the one card, to end inside its
 time limit: once the kernels are built and timed, a second process (this
 script with ``--late-phases``) makes the data from the same seed and runs
-phases 18-26 while this one runs phases 3-17; this one then prints the
-second process's output, takes its results (``late.pkl`` in its work
-directory) and goes on with phase 28. The second process's
-session is killed if this one fails, and it ends itself when this one
-ends. The walls of phases 3-26 in the whole script are therefore taken
-with the other process on the card and the host; the kernel timing and
-the ``--*-only`` runs take theirs alone.
+phases 18-23, 25, 26, 14 and 16 while this one runs phases 3-13, 15, 17
+and 27; then this one writes ``parent.idle`` into the second process's
+work directory and waits, and the second process runs phase 24 (so that
+its serial and concurrent legs are timed with nothing else on the host)
+and ends. This one then prints the second process's output, takes its
+results (``late.pkl`` in its work directory) and goes on with phase 28.
+The second process's session is killed if this one fails, and it ends
+itself when this one ends. The walls of phases 3-26 but 24 in the whole
+script are therefore taken with the other process on the card and the
+host; the kernel timing, phase 24 and the ``--*-only`` runs take theirs
+alone.
 
 Every launch count is set to 0 just before the timed run of a query and
 read just after it; launches made to compare kernels are not counted. A
@@ -4206,14 +4217,16 @@ def run_sql_phase(data, seed: int, kernels_checked: bool) -> dict:
     return out, {"tables": tables, "frames": frames, "oracles": oracles}
 
 
-#: phase 24 under ``--serve-only``: the gate's concurrent clients (the
-#: reference's ``serve.gate.clients`` default: 8 clients queue on 4
-#: admission slots)
+#: phase 24: the gate's concurrent clients (the reference's
+#: ``serve.gate.clients`` default: 8 clients queue on 4 admission slots)
 SERVE_CLIENTS = 8
-#: phase 24 in the whole script: fewer clients, every one replaying all 24
-#: queries, so the script ends inside its time limit (8 clients took 198 s
-#: of concurrent leg on an H100, PERF.md §6)
-SERVE_CLIENTS_IN_SCRIPT = 2
+#: phase 24: the concurrent/serial queries/s the gate is held to here: no
+#: slower than one client. The reference's floor on an accelerator is 2.0
+#: (``servegate.run_gate``'s default on cuda), which the port does not
+#: reach: a served query is host dispatch under one interpreter lock, and
+#: with one query dispatching at a time (``runtime/dispatch.py``) 8 clients
+#: get about the serial rate (PERF.md §6). The ratio is printed against 2.0
+SERVE_MIN_SPEEDUP = 1.0
 #: phase 24: the serial corpus passes of the recorder A/B, alternating;
 #: the whole script runs one a mode, so that it ends inside its time limit
 SERVE_AB_MODES = ("off", "recorder", "off", "recorder")
@@ -4363,8 +4376,24 @@ def _serial_pass_s(server, names: list) -> float:
     return time.perf_counter() - t0
 
 
+def _print_serve_legs(rec: dict) -> None:
+    """Where each timed leg's time went (``servegate._leg_record``): CPU
+    over wall, host syncs by site, settles, lock waits, spills."""
+    for leg, r in rec["legs"].items():
+        sites = ", ".join(f"{k} {n}/{sec:.3f} s" for k, (n, sec) in
+                          list(r["sync_sites"].items())[:4])
+        print(f"serve {leg} leg: wall {r['wall_s']:.3f} s, CPU {r['cpu_s']:.3f} s "
+              f"({r['cpu_per_wall']:.3f} of wall), host syncs {r['host_syncs']} "
+              f"({r['host_sync_s']:.3f} s; {sites or 'no site above 1 ms'}), async reads "
+              f"{r['async_reads']}, settles {r['settles']} ({r['settle_s']:.3f} s), "
+              f"lock waits {json.dumps(r['lock_waits'])}, spills {r['spills']}, memory waits "
+              f"{r['mem_waits']}, allocator retries {r.get('num_alloc_retries')}, device "
+              f"segments {r.get('num_device_alloc')}", flush=True)
+
+
 def run_serve_phase(data, sf: float, seed: int, clients: int, sql: dict | None = None,
-                    shared: dict | None = None, ab_modes=SERVE_AB_MODES) -> dict:
+                    shared: dict | None = None, ab_modes=SERVE_AB_MODES,
+                    profile: bool = False) -> dict:
     """Phase 24: the SQL corpus served (``serve/``, ``models/servegate.py``)
     over phase 23's tables (``sql``/``shared``; else built here, with one
     warm-up and one timed run of each query for the launches). A
@@ -4398,8 +4427,9 @@ def run_serve_phase(data, sf: float, seed: int, clients: int, sql: dict | None =
     try:
         answers: dict = {}
         rec = servegate.run_gate(sf=sf, clients=clients, names=names, server=server,
-                                 min_speedup=0.0, answers=answers)
+                                 min_speedup=SERVE_MIN_SPEEDUP, answers=answers)
         out["gate"] = rec
+        _print_serve_legs(rec)
         assert rec["ok"], rec["failures"]
         assert rec["queries"] == 24 and rec["trace_ids"] == 24 * (1 + clients), rec
         for name in names:
@@ -4418,8 +4448,8 @@ def run_serve_phase(data, sf: float, seed: int, clients: int, sql: dict | None =
             print(f"serve {leg}: {rec[leg + '_s']:.3f} s, {rec[leg + '_qps']:.3f} queries/s, "
                   f"p50 {rec[leg]['p50_ms']} ms, p99 {rec[leg]['p99_ms']} ms", flush=True)
         print(f"serve warm: {rec['warm_s']:.3f} s for 24 queries; concurrent/serial "
-              f"{rec['speedup']:.3f}x against the reference's 2.0x: "
-              f"{'met' if reached else 'not met'} (not a gate here)", flush=True)
+              f"{rec['speedup']:.3f}x (asserted >= {SERVE_MIN_SPEEDUP}); the reference's "
+              f"2.0x: {'met' if reached else 'not met'}", flush=True)
         print(f"serve launches: serial pass {serial_total}, {clients} clients "
               f"{rec['launches']['concurrent']}; compiles in legs 2-3: "
               f"{rec['replay_compiles']} / {rec['concurrent_compiles']}", flush=True)
@@ -4440,6 +4470,13 @@ def run_serve_phase(data, sf: float, seed: int, clients: int, sql: dict | None =
         finally:
             obs.set_mode(prev)
         out["recorder_ab"] = ab
+        if profile:
+            out["profile"] = [servegate.profiled_pass(server, names, n) for n in (1, clients)]
+            for p in out["profile"]:
+                print(f"serve profile ({p['clients']} client{'s' * (p['clients'] > 1)}, the 24 "
+                      f"texts once): wall {p['wall_ms']:.3f} ms, device busy "
+                      f"{p['device_busy_ms']:.3f} ms, idle share {p['device_idle_share']:.4f}",
+                      flush=True)
         if ab_modes:
             print(f"serve recorder A/B (serial corpus passes, alternating): off "
                   + " / ".join(f"{x:.4f}" for x in ab["off"]) + " s, recorder "
@@ -5156,13 +5193,19 @@ def run_class_gate_phase() -> dict:
 
 
 LATE_RESULTS = ("plan_ir", "convert", "files", "basket", "udf_shuffle", "sql", "serve", "stream",
-                "spmd")
+                "spmd", "decimal", "generate")
+#: the file in the second process's work directory whose existence says
+#: that the first process has ended its phases (phase 24 waits for it)
+PARENT_IDLE_FILE = "parent.idle"
 #: how long the parent waits for the second process past its own phases
 LATE_TIMEOUT_S = 900
 
 
-def run_late_phases(data, sf: float, seed: int, smi: str, phase_done) -> dict:
-    """Phases 18-26 over ``data``; {name: result} for LATE_RESULTS."""
+def run_late_phases(data, sf: float, seed: int, smi: str, phase_done, profile: bool,
+                    parent_idle) -> dict:
+    """Phases 18-23, 25, 26, 14 and 16 over ``data``, then, once
+    ``parent_idle()`` returns (the first process has ended its phases),
+    phase 24; {name: result} for LATE_RESULTS."""
     from auron_tpu_torch.models import tpcds
 
     # 18. the plan IR without google.protobuf: q42, q93 and q3 from bytes,
@@ -5199,13 +5242,6 @@ def run_late_phases(data, sf: float, seed: int, smi: str, phase_done) -> dict:
     sql, sql_shared = run_sql_phase(data, seed, kernels_checked=True)
     phase_done("23")
 
-    # 24. serving: the 24 corpus texts served to concurrent clients and
-    # over POST /sql, each query under its own trace
-    serve = run_serve_phase(data, sf, seed, SERVE_CLIENTS_IN_SCRIPT, sql=sql,
-                            shared=sql_shared, ab_modes=SERVE_AB_MODES_IN_SCRIPT)
-    del sql_shared
-    phase_done("24")
-
     # 25. streaming: the stream gate, two views served through POST /stream,
     # planned kafka_scan tasks with a keyed exchange
     stream = run_stream_phase(STREAM_GATE_EVENTS, EXCHANGE_EVENTS)
@@ -5219,12 +5255,32 @@ def run_late_phases(data, sf: float, seed: int, smi: str, phase_done) -> dict:
     del fact
     phase_done("26")
 
+    # 14. the decimal paths: q9b, q3 and q42 with the money type, windowed
+    # over decimal revenues
+    decimal = run_decimal_classes(data, profile)
+    phase_done("14")
+
+    # 16. the generate classes: the 42nd class and the explode over the
+    # whole fact
+    gen = run_generate_phase(data, profile)
+    phase_done("16")
+
+    # 24. serving: the 24 corpus texts served to concurrent clients and
+    # over POST /sql, each query under its own trace; its serial and
+    # concurrent legs are timed with the first process's phases ended
+    parent_idle()
+    phase_done("24 (waited for the first process)")
+    serve = run_serve_phase(data, sf, seed, SERVE_CLIENTS, sql=sql,
+                            shared=sql_shared, ab_modes=SERVE_AB_MODES_IN_SCRIPT)
+    del sql_shared
+    phase_done("24")
+
     return dict(zip(LATE_RESULTS, (plan_ir, convert, files, basket, udf_shuffle, sql, serve,
-                                   stream, spmd)))
+                                   stream, spmd, decimal, gen)))
 
 
-def _start_late(sf: float, seed: int) -> dict:
-    """Start phases 18-26 in a second process (this script with
+def _start_late(sf: float, seed: int, profile: bool) -> dict:
+    """Start phases 14, 16 and 18-26 in a second process (this script with
     --late-phases, the kernels already built), its output to files in a
     work directory of its own, in a session of its own so that
     ``_stop_late`` stops its worker processes too."""
@@ -5235,13 +5291,14 @@ def _start_late(sf: float, seed: int) -> dict:
     err = open(os.path.join(work, "late.err"), "w")
     proc = subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--late-phases", "--late-dir", work,
-         "--sf", repr(sf), "--seed", str(seed), "--parent-pid", str(os.getpid())],
+         "--sf", repr(sf), "--seed", str(seed), "--parent-pid", str(os.getpid())]
+        + (["--profile"] if profile else []),
         env=dict(os.environ, PYTHONUNBUFFERED="1"), stdout=out, stderr=err,
         start_new_session=True)
     out.close()
     err.close()
-    print(f"phases 18-26 started in a second process (pid {proc.pid}) beside phases 3-17",
-          flush=True)
+    print(f"phases 14, 16 and 18-26 started in a second process (pid {proc.pid}) beside "
+          f"phases 3-13, 15, 17 and 27", flush=True)
     return {"proc": proc, "work": work, "t0": time.perf_counter()}
 
 
@@ -5272,15 +5329,16 @@ def _join_late(late: dict) -> dict:
         rc = None
     with open(os.path.join(work, "late.log")) as f:
         log = f.read()
-    print(f"--- phases 18-26 (second process, {time.perf_counter() - late['t0']:.1f} s from "
-          f"start to exit, {time.perf_counter() - t_wait:.1f} s waited for after phase 17):",
+    print(f"--- phases 14, 16, 18-26 (second process, {time.perf_counter() - late['t0']:.1f} s "
+          f"from start to exit, {time.perf_counter() - t_wait:.1f} s waited for after phase "
+          f"27):",
           flush=True)
     print(log.rstrip("\n"), flush=True)
     print("--- end of the second process's output", flush=True)
     if rc != 0:
         with open(os.path.join(work, "late.err")) as f:
             tail = "\n".join(f.read().strip().splitlines()[-60:])
-        raise AssertionError(f"phases 18-26: the second process "
+        raise AssertionError(f"phases 14, 16, 18-26: the second process "
                              f"{'hung past %d s' % LATE_TIMEOUT_S if rc is None else 'exited %d' % rc}"
                              f"; its standard error ends:\n{tail}")
     with open(os.path.join(work, "late.pkl"), "rb") as f:
@@ -5300,9 +5358,9 @@ def _follow_parent(parent_pid: int) -> None:
         os.killpg(os.getpgrp(), signal.SIGKILL)
 
 
-def late_main(work: str, sf: float, seed: int, parent_pid: int) -> int:
-    """``chip_smoke.py --late-phases``: phases 18-26 as the whole script's
-    second process. The parent built the kernels; this process loads them,
+def late_main(work: str, sf: float, seed: int, parent_pid: int, profile: bool) -> int:
+    """``chip_smoke.py --late-phases``: phases 14, 16 and 18-26 as the whole
+    script's second process. The parent built the kernels; this process loads them,
     makes the data from the same seed, runs the phases and hands their
     results (with its phase seconds) back in ``late.pkl``."""
     import pickle
@@ -5330,7 +5388,12 @@ def late_main(work: str, sf: float, seed: int, parent_pid: int) -> int:
     cuda_build.build_all()
     data = tpcds.generate(sf, seed)
     phase_done("18-26 set-up (kernels loaded, the data made)")
-    results = run_late_phases(data, sf, seed, smi, phase_done)
+
+    def parent_idle() -> None:
+        while not os.path.exists(os.path.join(work, PARENT_IDLE_FILE)):
+            time.sleep(0.1)
+
+    results = run_late_phases(data, sf, seed, smi, phase_done, profile, parent_idle)
     report_graph_cache()
     try:
         blob = pickle.dumps({"results": results, "phase_s": phase_s})
@@ -5411,7 +5474,7 @@ def main(argv=None) -> int:
                     help="run as one worker process of phase 26 (the parent starts them)")
     ap.add_argument("--spmd-dir", help="phase 26's work directory (with --spmd-worker)")
     ap.add_argument("--late-phases", action="store_true",
-                    help="run phases 18-26 as the whole script's second process "
+                    help="run phases 14, 16 and 18-26 as the whole script's second process "
                          "(the parent starts it)")
     ap.add_argument("--late-dir", help="the second process's work directory")
     ap.add_argument("--parent-pid", type=int, help="the parent's pid (with --late-phases)")
@@ -5424,7 +5487,7 @@ def main(argv=None) -> int:
     if args.spmd_worker:
         return spmd_worker_main(args.spmd_dir, args.seed)
     if args.late_phases:
-        return late_main(args.late_dir, args.sf, args.seed, args.parent_pid)
+        return late_main(args.late_dir, args.sf, args.seed, args.parent_pid, args.profile)
 
     import torch
 
@@ -5577,7 +5640,7 @@ def main(argv=None) -> int:
 
     if args.serve_only:
         data = tpcds.generate(args.sf, args.seed)
-        serve = run_serve_phase(data, args.sf, args.seed, SERVE_CLIENTS)
+        serve = run_serve_phase(data, args.sf, args.seed, SERVE_CLIENTS, profile=True)
         phase_done("24")
         os.makedirs(os.path.join(REPO_DIR, "chiprun_out"), exist_ok=True)
         with open(os.path.join(REPO_DIR, "chiprun_out", "chip_smoke_serve.json"), "w") as f:
@@ -5624,9 +5687,9 @@ def main(argv=None) -> int:
     timing["partition_histogram"] = time_histogram_kernel(args.seed)
     phase_done("3 (timing)")
 
-    # 18-26 start in a second process (this script with --late-phases) and
-    # run beside phases 3-17 on the same card
-    late_proc = _start_late(args.sf, args.seed)
+    # 14, 16 and 18-26 start in a second process (this script with
+    # --late-phases) and run beside phases 3-13, 15, 17 and 27 on the card
+    late_proc = _start_late(args.sf, args.seed, args.profile)
     try:
         return _early_phases_and_report(args, kind, smi, build_s, timing, phase_s, phase_done,
                                         late_proc)
@@ -5636,8 +5699,9 @@ def main(argv=None) -> int:
 
 def _early_phases_and_report(args, kind, smi, build_s, timing, phase_s, phase_done,
                              late_proc) -> int:
-    """The whole script after its build and the kernel timing: phases 3-17
-    here, 18-26 from the second process, 27 here, phase 28 and the status line."""
+    """The whole script after its build and the kernel timing: phases 3-13,
+    15, 17 and 27 here, 14, 16 and 18-26 from the second process (its phase
+    24 once this one is idle), phase 28 and the status line."""
     import torch
 
     from auron_tpu_torch.models import tpcds
@@ -5745,20 +5809,10 @@ def _early_phases_and_report(args, kind, smi, build_s, timing, phase_s, phase_do
     q33, sweep, ab = run_join_tail_phase(data, args.profile)
     phase_done("13")
 
-    # 14. the decimal paths: q9b, q3 and q42 with the money type, windowed
-    # over decimal revenues
-    decimal = run_decimal_classes(data, args.profile)
-    phase_done("14")
-
     # 15. this slice's A/B (fusion and the incremental aggregate, defaults
     # against every key off) and the probe at full width
     fused = run_fusion_phase(data, args.profile)
     phase_done("15")
-
-    # 16. the generate classes: the 42nd class and the explode over the
-    # whole fact
-    gen = run_generate_phase(data, args.profile)
-    phase_done("16")
 
     # 17. the host boundary: q42 and q93 with inputs on the card and from
     # host Arrow batches to host answers
@@ -5770,12 +5824,14 @@ def _early_phases_and_report(args, kind, smi, build_s, timing, phase_s, phase_do
     class_gate = run_class_gate_phase()
     phase_done("27")
 
-    # 18-26 ran in the second process beside phases 3-17: its log, its results
+    # 14, 16 and 18-26 ran in the second process beside this one's phases;
+    # its phase 24 starts now, with this process idle: its log, its results
+    open(os.path.join(late_proc["work"], PARENT_IDLE_FILE), "w").close()
     late = _join_late(late_proc)
-    phase_done("18-26 (waited for after 17)")
+    phase_done("second process (waited for after 27)")
     phase_s.update(late["phase_s"])
     (plan_ir, convert, files, basket, udf_shuffle, sql, serve, stream,
-     spmd) = (late["results"][k] for k in LATE_RESULTS)
+     spmd, decimal, gen) = (late["results"][k] for k in LATE_RESULTS)
 
     # 28. every kernel sort and run merge of the main paths, held against the
     # plain network on the card at its own operands

@@ -1600,6 +1600,70 @@ def test_servegate_on_card_toy_bit_identity_and_zero_compiles():
 
 
 @pytest.mark.cuda
+def test_four_served_queries_at_once_on_card_equal_their_serial_runs():
+    """q3, q65, q5a and q96 served by four threads at once (each query on
+    its own CUDA stream, the threads taking the host's turn): every answer
+    is bit-identical to its serial run, the passes add no compile, K1 and
+    K2 launch as often as in the serial pass, and the concurrent pass is
+    no slower than the serial one (the best of three passes each, taken in
+    turns)."""
+    _need_card()
+    import threading
+    import time
+
+    from auron_tpu_torch.models import servegate, sqlgate
+    from auron_tpu_torch.serve import SqlServer
+    from auron_tpu_torch.utils.profiling import EngineCounters
+
+    counters = EngineCounters.install()
+    names = ["q3", "q65", "q5a", "q96"]
+    texts = {n: sqlgate.case_by_name(n).sql for n in names}
+    srv = SqlServer(sqlgate.gate_catalog(), sqlgate.gate_tables(1.0), n_parts=2, device="cuda")
+    want = {n: srv.submit(texts[n], tenant="warm")[0] for n in names}
+
+    def serial_pass():
+        t0 = time.perf_counter()
+        got = {n: srv.submit(texts[n], tenant="serial")[0] for n in names}
+        return time.perf_counter() - t0, got
+
+    def concurrent_pass():
+        got, errors = {}, []
+
+        def client(n):
+            try:
+                got[n] = srv.submit(texts[n], tenant=f"client-{n}")[0]
+            except Exception as e:  # noqa: BLE001 — asserted below
+                errors.append((n, e))
+
+        threads = [threading.Thread(target=client, args=(n,)) for n in names]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert not errors, errors
+        return time.perf_counter() - t0, got
+
+    kernels = ("murmur3_pmod", "partition_histogram")
+    walls = {"serial": [], "concurrent": []}
+    launches = {}
+    compiles = counters.compiles
+    for _ in range(3):
+        for kind, run in (("serial", serial_pass), ("concurrent", concurrent_pass)):
+            before = sqlgate._launches()
+            wall, got = run()
+            delta = {k: sqlgate._launches()[k] - before[k] for k in kernels}
+            assert launches.setdefault(kind, delta) == delta, (kind, launches[kind], delta)
+            walls[kind].append(wall)
+            for n in names:
+                assert servegate._frames_identical(want[n], got[n]), (kind, n)
+    assert counters.compiles == compiles
+    assert launches["serial"] == launches["concurrent"] and launches["serial"][
+        "partition_histogram"] > 0, launches
+    assert min(walls["concurrent"]) <= min(walls["serial"]), walls
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("groups", [1, 50, 100_000])
 def test_fixed_order_float_sums_repeat_bit_for_bit_on_card(groups):
     """``segments.add_at_`` on the card: five runs of a float sum by index

@@ -254,6 +254,79 @@ def test_blocks_cross_the_service_between_packages(writer):
     assert got == want
 
 
+def _mixed_batch(n=1500, seed=6):
+    """The reference's batch of int, float, string (dictionary), bool and
+    nullable columns: the plane encoders' kinds, ENC_DICT and validity."""
+    rng = np.random.default_rng(seed)
+    words = np.array(["a", "bb", "ccc", "dddd", "ee"], dtype=object)
+    return jax_batch(
+        {"k": rng.integers(0, 40, n).astype(np.int64),
+         "x": rng.choice(np.sqrt(np.arange(2, 30)), n),
+         "s": words[rng.integers(0, len(words), n)],
+         "b": rng.random(n) < 0.3,
+         "m": rng.integers(-5, 5, n).astype(np.int32)},
+        valid={"s": rng.random(n) < 0.9, "m": rng.random(n) < 0.4})
+
+
+@pytest.mark.parametrize("encoding", ["on", "off"])
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_rss_provider_batches_equal_the_reference(writer, encoding):
+    """One pushed shuffle (v2 blocks, or v1 Arrow IPC blocks with the
+    encoding off) read through ``RssBlockProvider.__call__``: every
+    partition's RecordBatches equal the reference provider's over the same
+    blocks, schema and values, and ``decode_blocks`` of each block equals
+    the reference's ``decode_blocks``."""
+    from auron_tpu.exec.shuffle import format as jf
+    from auron_tpu.utils.config import Configuration as JConf
+
+    from auron_tpu_torch.utils.config import Configuration as PConf
+
+    jb = _mixed_batch()
+    svc = LocalRssService()
+    key = "exec.shuffle.encoding"
+    if writer == "jax":
+        w = JRssWriter(JScan([[jb]], jb.schema), JHash([jcol(0)], 3), "w")
+        list(w.execute(0, JCtx(conf=JConf().set(key, encoding),
+                               resources={"w": RssPartitionWriterClient(svc, "mx", 0)})))
+    else:
+        pb = carry(jb)
+        w = RssShuffleWriterExec(PScan([[pb]], pb.schema), HashPartitioning([col(0)], 3), "w")
+        list(w.execute(0, PCtx(device="cpu", conf=PConf().set(key, encoding),
+                               resources={"w": RssPartitionWriterClient(svc, "mx", 0)})))
+    port, ref = RssBlockProvider(svc, "mx"), jrss.RssBlockProvider(svc, "mx")
+    n_rows = 0
+    for p in range(3):
+        got, want = list(port(p)), list(ref(p))
+        assert got and len(got) == len(want)
+        for g, r in zip(got, want):
+            assert g.schema.equals(r.schema, check_metadata=True), (g.schema, r.schema)
+            assert g.equals(r)
+            n_rows += g.num_rows
+        for block in svc.fetch("mx", p):
+            assert [b.to_pydict() for b in pf.decode_blocks(block)] == \
+                [b.to_pydict() for b in jf.decode_blocks(block)]
+            assert all(pf.is_v2_payload(x) == (encoding == "on")
+                       for x in pf.iter_block_payloads(block))
+    assert n_rows == 1500
+
+
+def test_decode_blocks_refuses_a_corrupt_v2_block():
+    """A v2 block whose column count disagrees with its schema section, or
+    whose column payload is cut short, raises ValueError, as the
+    reference's does."""
+    from auron_tpu.exec.shuffle import format as jf
+
+    block = _block([1, 2, 3])
+    assert [b.to_pydict() for b in pf.decode_blocks(block)] == [{"x": [1, 2, 3]}]
+    two_cols = block[:14] + struct.pack("<H", 2) + block[16:]
+    cut = struct.pack("<Q", len(block) - 9) + block[8:-1]
+    for bad in (two_cols, cut):
+        with pytest.raises(ValueError, match="corrupt|mismatch|truncated"):
+            list(pf.decode_blocks(bad))
+        with pytest.raises(ValueError):
+            list(jf.decode_blocks(bad))
+
+
 def test_q93_through_the_rss_equals_the_reference_file_shuffle():
     from auron_tpu.models import tpcds as jt
 
