@@ -668,7 +668,7 @@ def _host_array(a: ArrowArray, field: _Field, owner: _Owner, extra_offset: int =
     return HostArray(fmt, dtype, n, nulls, off, buffers, children, dictionary)
 
 
-def _import_struct(own: ArrowArray, top: _Field) -> HostBatch:
+def _import_struct(own: ArrowArray, top: _Field, schema: T.Schema | None = None) -> HostBatch:
     owner = _Owner(own)
     try:
         if own.n_children != len(top.children):
@@ -680,7 +680,7 @@ def _import_struct(own: ArrowArray, top: _Field) -> HostBatch:
     except BaseException:
         owner.close()
         raise
-    return HostBatch(_schema_of(top), int(own.length), cols)
+    return HostBatch(schema or _schema_of(top), int(own.length), cols)
 
 
 def import_batch(array_addr: int, schema_addr: int) -> HostBatch:
@@ -692,12 +692,31 @@ def import_batch(array_addr: int, schema_addr: int) -> HostBatch:
     return _import_struct(_move(array_addr, ArrowArray), top)
 
 
+#: (pyarrow schema, its parsed fields, the port's schema) of the last
+#: ``import_from`` of an object with a ``schema``: a stream of batches of
+#: one schema parses it once
+_LAST_SCHEMA: tuple = (None, None, None)
+
+
 def import_from(obj) -> HostBatch:
     """A record batch from any object with Arrow's ``_export_to_c(array,
-    schema)`` method (a pyarrow RecordBatch), through the C structs."""
-    arr, sch = ArrowArray(), ArrowSchema()
-    obj._export_to_c(ctypes.addressof(arr), ctypes.addressof(sch))
-    return import_batch(ctypes.addressof(arr), ctypes.addressof(sch))
+    schema)`` method (a pyarrow RecordBatch), through the C structs. The
+    schema is exported and parsed only when it differs from the last
+    one's."""
+    global _LAST_SCHEMA
+    arr = ArrowArray()
+    key = getattr(obj, "schema", None)
+    last, top, schema = _LAST_SCHEMA
+    if key is None or last is None or not key.equals(last):
+        sch = ArrowSchema()
+        obj._export_to_c(ctypes.addressof(arr), ctypes.addressof(sch))
+        top = _take_schema(ctypes.addressof(sch))
+        schema = _schema_of(top)
+        if key is not None:
+            _LAST_SCHEMA = (key, top, schema)
+    else:
+        obj._export_to_c(ctypes.addressof(arr))
+    return _import_struct(_move(ctypes.addressof(arr), ArrowArray), top, schema)
 
 
 class ArrowStreamReader:

@@ -379,10 +379,16 @@ class Batch:
         strings and binaries dictionary-encoded into the per-batch
         vocabulary, decimal128 at p <= 18 into the decimal64 plane (a value
         outside int64 as NULL), wider ones into the wide vocabulary, LIST,
-        MAP and STRUCT as identity codes. Every host plane crosses through
-        its own pinned staging buffer (``_to_device``); a column with NULLs
-        crosses its validity bitmap packed, unpacked and its NULL lanes
-        zeroed on the device."""
+        MAP and STRUCT as identity codes. On the card the host planes and
+        the live mask cross through one pinned staging buffer and one copy
+        when they hold at most ``transfer.PACK_BYTES`` (``_to_device_packed``:
+        a small batch pays one copy's overhead, not one a plane), else each
+        through its own (``_to_device``: a large batch's columns do not
+        share, and so do not keep alive, one device buffer); a column with
+        NULLs crosses its validity bitmap packed, unpacked and its NULL
+        lanes zeroed on the device."""
+        from auron_tpu_torch.runtime import transfer
+
         t0 = time.perf_counter()
         dev = resolve_device(device)
         n = hb.length
@@ -390,14 +396,13 @@ class Batch:
         assert cap >= n, (cap, n)
         zc = zero_copy_enabled(conf)
         counts = {"zerocopy_planes": 0, "copied_planes": 0, "ingest_bytes": 0}
-        live = torch.arange(cap, device=dev) < n
-        vals, masks, dicts = [], [], []
+        # (host plane, slots) to copy, the live mask first; per column what
+        # to make of them
+        stage, cols = [(np.ones(n, bool), cap)], []
         for f, arr in zip(hb.schema, hb.columns):
             plane, is_view, validity, vocab = host_plane(arr, f.dtype)
             if plane is None:  # the NULL type
-                vals.append(torch.zeros(cap, dtype=torch.int8, device=dev))
-                masks.append(torch.zeros(cap, dtype=torch.bool, device=dev))
-                dicts.append(None)
+                cols.append(None)
                 continue
             if is_view and zc:
                 counts["zerocopy_planes"] += 1
@@ -405,18 +410,35 @@ class Batch:
                 if is_view:
                     plane = np.array(plane)  # the owned copy the key's off setting makes
                 counts["copied_planes"] += 1
-            v = _to_device(plane, cap, dev)
+            stage.append((plane, cap))
+            mask = None
+            if validity is not None:
+                bits, bit_off = validity if isinstance(validity, tuple) else (validity, None)
+                mask = (len(stage), bit_off)
+                stage.append((bits, cap if bit_off is None else len(bits)))
+            cols.append((len(stage) - 1 - (mask is not None), mask, vocab))
+        if dev.type == "cuda" and sum(slots * p.dtype.itemsize for p, slots in stage) \
+                <= transfer.PACK_BYTES:
+            staged = _to_device_packed(stage, dev)
+        else:
+            staged = [_to_device(plane, slots, dev) for plane, slots in stage]
+        live = staged[0]
+        vals, masks, dicts = [], [], []
+        for c in cols:
+            if c is None:
+                vals.append(torch.zeros(cap, dtype=torch.int8, device=dev))
+                masks.append(torch.zeros(cap, dtype=torch.bool, device=dev))
+                dicts.append(None)
+                continue
+            i, mask, vocab = c
+            v = staged[i]
             counts["ingest_bytes"] += v.numel() * v.element_size()
-            if validity is None:
+            if mask is None:
                 m = live
             else:
-                if isinstance(validity, tuple):
-                    packed, bit_off = validity
-                    m = _unpack_bits(_to_device(packed, len(packed), dev), bit_off, n, cap)
-                    counts["ingest_bytes"] += len(packed)
-                else:
-                    m = _to_device(validity, cap, dev)
-                    counts["ingest_bytes"] += cap
+                j, bit_off = mask
+                counts["ingest_bytes"] += staged[j].numel()
+                m = staged[j] if bit_off is None else _unpack_bits(staged[j], bit_off, n, cap)
                 v = torch.where(m, v, torch.zeros((), dtype=v.dtype, device=dev))
             vals.append(v)
             masks.append(m)
@@ -601,6 +623,26 @@ def _to_device(plane: np.ndarray, cap: int, dev: torch.device) -> torch.Tensor:
     h[:n] = plane
     h[n:] = 0
     return st.to(dev, non_blocking=True)
+
+
+def _to_device_packed(stage: list, dev: torch.device) -> list:
+    """``_to_device`` of every (plane, slots) in ``stage`` through one pinned
+    staging buffer and one ``non_blocking`` copy: each result is a view of
+    one device buffer, its region 16-byte aligned (the staging buffer is
+    freed under its copy as ``_to_device``'s is)."""
+    offs, total = [], 0
+    for plane, slots in stage:
+        offs.append(total)
+        total += -(-slots * plane.dtype.itemsize // 16) * 16
+    st = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+    h = st.numpy()
+    for (plane, slots), off in zip(stage, offs):
+        view = h[off: off + slots * plane.dtype.itemsize].view(plane.dtype)
+        view[:len(plane)] = plane
+        view[len(plane):] = 0
+    d = st.to(dev, non_blocking=True)
+    return [d[off: off + slots * plane.dtype.itemsize].view(_TORCH_DTYPE[plane.dtype])
+            for (plane, slots), off in zip(stage, offs)]
 
 
 def _unpack_bits(packed: torch.Tensor, bit_off: int, n: int, cap: int) -> torch.Tensor:

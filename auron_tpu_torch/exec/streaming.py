@@ -13,16 +13,21 @@
   in ``ctx.resources["<id>.offsets"]`` and in ``kafka_offset_p*`` metrics
   on every exit path (the resume point of an aborted stream).
 
-Micro-batches reach the device through ``Batch.from_arrow(rb, device=,
-conf=)``. pyarrow is imported only inside the functions that build record
-batches, never when this module is imported.
+Micro-batches reach the device through ``upload_batch`` (``Batch.from_arrow``
+with strings dictionary-encoded by pyarrow). pyarrow is imported only
+inside the functions that build record batches, never when this module is
+imported.
 """
 
 from __future__ import annotations
 
 import json
+import re
+import sys
 from dataclasses import dataclass, field
 from typing import Iterator, Protocol
+
+import numpy as np
 
 from auron_tpu_torch import types as T
 from auron_tpu_torch.columnar.batch import Batch
@@ -95,8 +100,120 @@ class _RowDeserializerBase:
         return pa.RecordBatch.from_arrays(arrays, schema=self.schema.to_arrow())
 
 
+#: field kinds the columnar JSON read is held to the record loop on; a
+#: schema with any other kind (FLOAT32 too: its double rounding can differ)
+#: always takes the loop
+_COLUMNAR_KINDS = frozenset((T.TypeKind.STRING, T.TypeKind.INT32, T.TypeKind.INT64,
+                             T.TypeKind.FLOAT64, T.TypeKind.BOOL))
+#: a JSON escape of a UTF-16 surrogate (a pair, or a lone one json.loads keeps)
+_SURROGATE_ESCAPE = re.compile(rb"\\u[dD][89a-fA-F]")
+#: a NaN or infinity literal (pyarrow's parser takes Inf, -NaN, ... that
+#: json.loads refuses); may match inside a string, which only costs the loop
+_NONFINITE_LITERAL = re.compile(rb"[:,\[]\s*-?(?:Inf|NaN)")
+#: nesting below which json.loads cannot run out of recursion
+_MAX_NESTING = 256
+#: doubles from which an integer literal may have been rounded (the loop
+#: refuses an inexact int -> double; pyarrow's reader rounds)
+_EXACT_INT_BOUND = float(1 << 53)
+#: the integer literal -0 (the loop reads 0.0 into a double, the reader
+#: -0.0); may match inside a string, which only costs the loop
+_NEG_ZERO_INT = re.compile(rb"-0(?![.eE0-9])")
+_NEG_ZERO_BITS = 1 << 63
+
+
 class JsonRowDeserializer(_RowDeserializerBase):
-    """JSON payloads -> Arrow rows."""
+    """JSON payloads -> Arrow rows.
+
+    A poll is read in one columnar parse (``pyarrow.json.read_json`` over
+    the payloads joined by newlines, with the schema explicit) when that
+    is provably the record loop's result: every payload one object on
+    one line, valid UTF-8 without NUL, no surrogate escape, no NaN or
+    infinity literal, shallow nesting, no integer past ``int``'s digit
+    limit, one row a payload, and every FLOAT64 value finite and below
+    2^53 in magnitude (an integer literal past it the loop refuses) and
+    -0.0 only where no integer literal -0 (the loop's 0.0) is. Any other
+    poll, and any poll the reader refuses, goes through the record loop
+    unchanged: the same rows, counters and raises, only slower.
+    ``columnar_polls`` and ``loop_polls`` count the two paths."""
+
+    def __init__(self, schema: T.Schema, on_error: str = ON_ERROR_SKIP):
+        super().__init__(schema, on_error)
+        self.columnar_polls = 0
+        self.loop_polls = 0
+        self._columnar = all(f.dtype.kind in _COLUMNAR_KINDS for f in schema)
+        self._reader = None  # (Arrow schema, read options, parse options), made once
+
+    def deserialize(self, payloads: list[bytes]):
+        rb = None
+        if self._columnar and payloads:
+            try:
+                rb = self._read_columnar(payloads)
+            except Exception:  # noqa: BLE001 — the record loop decides
+                rb = None
+        if rb is None:
+            self.loop_polls += 1
+            return super().deserialize(payloads)
+        self.columnar_polls += 1
+        return rb
+
+    def _read_columnar(self, payloads: list[bytes]):
+        """The poll's RecordBatch from one columnar parse, or None where it
+        could differ from the record loop's (a raise, the reader's refusal
+        too, means the same)."""
+        buf = b"\n".join(payloads)
+        n = len(payloads)
+        if not buf or b"\r" in buf or b"\x00" in buf or len(buf) >= 1 << 30:
+            return None
+        # the bytes as numpy: one pass for each guard, not a Python loop
+        a = np.frombuffer(buf, np.uint8)
+        nl = np.flatnonzero(a == 10)
+        if len(nl) != n - 1 or a[-1] == 10:  # a payload holds a newline, or one is empty
+            return None
+        if not (a[0] == 123 and (a[nl + 1] == 123).all()) and not all(
+                p.lstrip(b" \t").startswith(b"{") for p in payloads):
+            return None
+        if not buf.isascii():
+            try:
+                buf.decode("utf-8")  # strict: json.loads lets an encoded surrogate through
+            except UnicodeDecodeError:
+                return None
+        if (b"\\u" in buf and _SURROGATE_ESCAPE.search(buf)) or (
+                (b"Inf" in buf or b"NaN" in buf) and _NONFINITE_LITERAL.search(buf)):
+            return None
+        if np.count_nonzero((a == 123) | (a == 91)) - n >= _MAX_NESTING and max(
+                p.count(b"{") + p.count(b"[") for p in payloads) >= _MAX_NESTING:
+            return None
+        digits = sys.get_int_max_str_digits()
+        if digits and int(np.diff(nl, prepend=-1, append=len(buf)).max()) - 1 > digits \
+                and re.search(rb"[0-9]{%d}" % (digits + 1), buf):
+            return None
+        from auron_tpu_torch.utils.arrowlib import pyarrow
+
+        pa = pyarrow()
+        import pyarrow.json as pj
+
+        if self._reader is None:
+            schema = self.schema.to_arrow()
+            self._reader = (schema, pj.ReadOptions(use_threads=False, block_size=1 << 22),
+                            pj.ParseOptions(explicit_schema=schema,
+                                            unexpected_field_behavior="ignore"))
+        schema, read_options, parse_options = self._reader
+        tbl = pj.read_json(pa.BufferReader(buf), read_options=read_options,
+                           parse_options=parse_options)
+        if tbl.num_rows != n or tbl.schema.names != schema.names:
+            return None
+        arrays = []
+        for f, col in zip(self.schema, tbl.columns):
+            c = col.chunk(0) if col.num_chunks == 1 else col.combine_chunks()
+            if f.dtype.kind == T.TypeKind.FLOAT64:
+                v = np.asarray(c.fill_null(0.0) if c.null_count else c)
+                # NaN, an infinity or a magnitude past 2^53 fails the compare
+                if not np.abs(v).max() < _EXACT_INT_BOUND:
+                    return None
+                if (v.view(np.uint64) == _NEG_ZERO_BITS).any() and _NEG_ZERO_INT.search(buf):
+                    return None
+            arrays.append(c)
+        return pa.RecordBatch.from_arrays(arrays, schema=schema)
 
     def _parse_one(self, payload: bytes) -> dict:
         obj = json.loads(payload)
@@ -188,6 +305,23 @@ class ProtobufRowDeserializer(_RowDeserializerBase):
             else:
                 raise DeserializeError(f"unsupported wire type {wire}")
         return out
+
+
+def upload_batch(rb, device, conf=None) -> Batch:
+    """A deserialized micro-batch on ``device``: ``Batch.from_arrow`` with
+    each plain STRING column dictionary-encoded by pyarrow first, so the
+    ingest takes its codes and vocabulary as they are (the same codes and
+    first-occurrence vocabulary it would build from the strings)."""
+    from auron_tpu_torch.utils.arrowlib import pyarrow
+
+    pa = pyarrow()
+    if any(t == pa.string() for t in rb.schema.types):
+        import pyarrow.compute as pc
+
+        cols = [pc.dictionary_encode(c) if c.type == pa.string() else c for c in rb.columns]
+        rb = pa.RecordBatch.from_arrays(cols, schema=pa.schema(
+            [f.with_type(c.type) for f, c in zip(rb.schema, cols)], metadata=rb.schema.metadata))
+    return Batch.from_arrow(rb, device=device, conf=conf)
 
 
 class StreamSource(Protocol):
@@ -338,7 +472,7 @@ class StreamingCalcExec:
             rb = self.deserializer.deserialize(payloads)
             if rb.num_rows == 0:
                 continue
-            b = Batch.from_arrow(rb, device=self.device, conf=ctx.conf)
+            b = upload_batch(rb, self.device, ctx.conf)
             if chain is not None:
                 src.slot = b
                 outs = list(chain.execute(0, ctx))
@@ -410,7 +544,7 @@ class KafkaScanExec(ExecOperator):
                     rb = de.deserialize(payloads)
                 ctx.metrics.add("stream_batches", 1)
                 if rb.num_rows:
-                    yield Batch.from_arrow(rb, device=ctx.device, conf=ctx.conf)
+                    yield upload_batch(rb, ctx.device, ctx.conf)
         finally:
             # an aborted stream is exactly when resume offsets matter: the
             # checkpoint state and the error count surface on every exit

@@ -5,9 +5,9 @@ Four legs over one deterministic event corpus (seeded JSON records, two
 partitions) and one calc-heavy CREATE STREAMING VIEW, on ``device``:
 
 1. FUSED: the pipeline with ``stream.calc.fuse=on`` — on the card the Calc
-   chain replays captured CUDA graphs. A warm-up run first, then the best
-   of ``STREAMGATE_REPS`` timed runs is the ``fused_events_s`` figure; the
-   emissions of the first timed run are the reference output.
+   chain replays captured CUDA graphs. The best of ``STREAMGATE_REPS``
+   timed runs is the ``fused_events_s`` figure; the emissions of the
+   first timed run are the reference output.
 2. EAGER: the same corpus with ``stream.calc.fuse=off`` (the unfused
    chain). Emissions must be bit-identical to leg 1, and fused events/s
    must beat eager by ``min_fused_speedup`` (``STREAMGATE_MIN_FUSED_SPEEDUP``,
@@ -19,6 +19,15 @@ partitions) and one calc-heavy CREATE STREAMING VIEW, on ``device``:
    hard-stopped mid-run (a step cap landing between barriers), then
    resumed via ``StreamPipeline.restore``. The stitched emission log must
    be bit-identical to leg 1.
+
+Legs 1 and 2 each take a warm-up run first (the fused one captures).
+Each timed rep then runs both legs over the corpus at once, their steps
+in turns of ``TURN_STEPS`` (eight fused steps, eight eager steps, ...;
+``_paired_run``), and a leg's wall is the sum of its own steps and
+drain: a host that slows down for a while slows both legs alike, so the
+ratio reads the fusion's gain and not how busy the host was at the time,
+and a turn is long enough that a leg's steps do not each start where the
+other leg left the host's caches.
 
 The gate FAILS on emission divergence in any leg, a fused speedup below
 the floor, or any replay compile. The reference's ``PERF_RATCHET.json``
@@ -105,6 +114,56 @@ def _run_once(plan, parts, conf, device, checkpoint_dir=None, max_steps=None):
     return events / wall if wall else 0.0, [e.to_json() for e in sink.emissions], steps
 
 
+#: steps a leg takes in one turn of a timed rep (``_paired_run``)
+TURN_STEPS = 8
+
+
+def _paired_run(plan, parts, poll, device, counters, stats=None) -> dict:
+    """One timed rep of legs 1 and 2: a fused and an eager pipeline over
+    ``parts``, stepped in turns of ``TURN_STEPS`` until both are drained,
+    each leg's wall summed over its own ``step`` and ``drain`` calls. Per
+    leg ("fused", "eager"): events/s, emissions, steps and the
+    ``counters``' compiles and host reads within its own calls. ``stats``
+    (optional) gets the fused deserializer's ``columnar_polls`` and
+    ``loop_polls``."""
+    from auron_tpu_torch.exec.streaming import JsonRowDeserializer, MockKafkaSource
+    from auron_tpu_torch.stream import CollectSink, StreamPipeline
+
+    legs = {}
+    for leg, fuse in (("fused", True), ("eager", False)):
+        sink = CollectSink()
+        p = StreamPipeline(plan, MockKafkaSource(parts), JsonRowDeserializer(SCHEMA), sink,
+                           conf=_conf(fuse, poll), device=device)
+        legs[leg] = {"p": p, "sink": sink, "wall": 0.0, "live": True, "compiles": 0,
+                     "reads": 0}
+    while any(r["live"] for r in legs.values()):
+        for r in legs.values():
+            if not r["live"]:
+                continue
+            c, h, a = counters.compiles, counters.syncs, counters.async_reads
+            t0 = time.perf_counter()
+            for _ in range(TURN_STEPS):
+                r["live"] = r["p"].step()
+                if not r["live"]:
+                    r["p"].drain()
+                    break
+            r["wall"] += time.perf_counter() - t0
+            r["compiles"] += counters.compiles - c
+            r["reads"] += counters.syncs + counters.async_reads - h - a
+    out = {}
+    for leg, r in legs.items():
+        p = r["p"]
+        events, steps = p.metrics["events_in"], p.steps
+        if leg == "fused" and stats is not None:
+            de = p.calc.deserializer
+            stats.update(columnar_polls=de.columnar_polls, loop_polls=de.loop_polls)
+        p.close()
+        out[leg] = {"events_s": events / r["wall"] if r["wall"] else 0.0,
+                    "emissions": [e.to_json() for e in r["sink"].emissions], "steps": steps,
+                    "compiles": r["compiles"], "reads": r["reads"]}
+    return out
+
+
 def run_gate(events: int | None = None, reps: int | None = None, poll: int = 512,
              min_fused_speedup: float | None = None, device: str = "cuda",
              emissions: list | None = None) -> dict:
@@ -133,37 +192,36 @@ def run_gate(events: int | None = None, reps: int | None = None, poll: int = 512
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
 
-    # ---- leg 1: fused (a warm-up run captures; the best timed rep is the figure)
-    fused_eps, reference = 0.0, None
+    # ---- legs 1 and 2: a warm-up run of each (the fused one captures),
+    # then the timed reps, both legs' steps in turns of TURN_STEPS; the
+    # best rep of each leg is its figure
+    fused_eps, eager_eps, reference, ingest = 0.0, 0.0, None, {}
     c0 = counters.compiles
     _, _, steps = _run_once(plan, parts, _conf(True, poll), device)
     compiles_warm = counters.compiles - c0
-    snap0 = counters.snapshot()
+    _run_once(plan, parts, _conf(False, poll), device)
+    replay_compiles = reads = 0
+    eager_diverged = False
     for _ in range(reps):
-        eps, ems, _ = _run_once(plan, parts, _conf(True, poll), device)
-        fused_eps = max(fused_eps, eps)
+        rep = _paired_run(plan, parts, poll, device, counters,
+                          stats=ingest if reference is None else None)
+        fused, eager = rep["fused"], rep["eager"]
+        replay_compiles += fused["compiles"]
+        reads += fused["reads"]
+        fused_eps = max(fused_eps, fused["events_s"])
+        eager_eps = max(eager_eps, eager["events_s"])
         if reference is None:
-            reference = ems
-        elif ems != reference:
+            reference = fused["emissions"]
+        elif fused["emissions"] != reference:
             failures.append("fused reruns diverged (nondeterminism)")
-    snap1 = counters.snapshot()
+        eager_diverged = eager_diverged or eager["emissions"] != reference
+    if eager_diverged:
+        failures.append("eager emissions diverged from fused")
 
     # ---- leg 3 folded in: the timed fused reps must not compile
-    replay_compiles = snap1["compiles"] - snap0["compiles"]
     if replay_compiles:
         failures.append(f"fused replay added {replay_compiles} compiles "
                         "(graph captures or kernel builds: the stage cache failed)")
-    reads = (snap1["host_syncs"] + snap1["async_reads"]
-             - snap0["host_syncs"] - snap0["async_reads"])
-
-    # ---- leg 2: eager differential
-    eager_eps = 0.0
-    for _ in range(reps):
-        eps, ems, _ = _run_once(plan, parts, _conf(False, poll), device)
-        eager_eps = max(eager_eps, eps)
-        if ems != reference:
-            failures.append("eager emissions diverged from fused")
-            break
     speedup = fused_eps / eager_eps if eager_eps else 0.0
     if speedup < min_fused_speedup:
         failures.append(f"fused/eager events/s {speedup:.3f}x < required "
@@ -201,6 +259,7 @@ def run_gate(events: int | None = None, reps: int | None = None, poll: int = 512
         "warm_compiles": compiles_warm,
         "replay_compiles": replay_compiles,
         "host_reads_per_step": round(reads / (reps * steps), 3) if steps else 0.0,
+        "columnar_polls": ingest.get("columnar_polls"), "loop_polls": ingest.get("loop_polls"),
         "emissions": len(reference or ()),
         "checkpoints": checkpoints,
         "resumed_at_step": capped, "committed_seq": committed,
@@ -208,6 +267,130 @@ def run_gate(events: int | None = None, reps: int | None = None, poll: int = 512
         "failures": failures,
         "ok": not failures,
     }
+
+
+#: a second schema for the ingest checks: the INT32 and BOOL kinds too
+INGEST_SCHEMA = T.Schema.of(T.Field("k", T.STRING), T.Field("v", T.FLOAT64),
+                            T.Field("ts", T.INT64), T.Field("i", T.INT32),
+                            T.Field("b", T.BOOL))
+_GOOD = b'{"k":"a","v":1.5,"ts":3,"i":7,"b":true}'
+
+
+def ingest_edge_polls() -> list[tuple[str, list[bytes]]]:
+    """(name, poll) cases where a columnar JSON read could part from the
+    record loop: each payload between two good records. The first three
+    are the ones pyarrow's reader gets silently different (an integer past
+    2^53 or the integer -0 in a double, two objects on one line beside a
+    blank payload); the reader refuses most of the rest; the last few it
+    reads as the loop does."""
+    deep = b"[" * 5000 + b"]" * 5000
+    cases = [
+        ("int past 2^53 in a double", [b'{"k":"a","v":9007199254740993,"ts":1}',
+                                       b'{"v":9223372036854775808}']),
+        ("integer -0 in a double", [b'{"k":"a","v":-0,"ts":1}', b'{"v": -0 }']),
+        ("blank payload, two objects on a line",
+         [b"   ", b'{"k":"a","v":1.0,"ts":1}{"k":"b","v":2.0,"ts":2}']),
+        ("two objects on a line, a tab payload", [b'{"ts":1}{"ts":2}', b"\t"]),
+        ("two objects on a line", [b'{"k":"x","ts":1} {"k":"y","ts":2}']),
+        ("int written 3.5", [b'{"ts":3.5}']),
+        ("int written 1E5", [b'{"ts":1E5}']),
+        ("int past int64", [b'{"ts":9223372036854775808}']),
+        ("int past int32", [b'{"i":2147483648}', b'{"i":-2147483649}']),
+        ("int32 written 1.0", [b'{"i":1.0}']),
+        ("string for a double", [b'{"v":"1.5"}']),
+        ("number for a string", [b'{"k":5}']),
+        ("object for a string", [b'{"k":{"a":1}}']),
+        ("true for a double", [b'{"v":true}']),
+        ("number for a bool", [b'{"b":1}']),
+        ("duplicate keys", [b'{"k":"a","k":"b"}', b'{"v":1.0,"v":2.0}']),
+        ("1e400", [b'{"v":1e400}']),
+        ("Inf, -Inf, -NaN", [b'{"v":Inf}', b'{"v":-Inf}', b'{"v":-NaN}']),
+        ("Inf in an extra field", [b'{"x":Inf,"k":"a"}']),
+        ("invalid UTF-8", [b'{"k":"\xff"}', b'{"x":"\xff","k":"a"}', b'{"k":"\xc0\x80"}']),
+        ("encoded surrogate", [b'{"k":"\xed\xa0\x80"}']),
+        ("lone surrogate escapes", [b'{"k":"\\ud800"}', b'{"x":"\\udc00","k":"a"}']),
+        ("empty payload", [b""]),
+        ("trailing garbage", [b'{"k":"a"}x', b'{"k":"a"} /* c */']),
+        ("UTF-16 payload", ['{"k":"a","ts":1}'.encode("utf-16-le"),
+                            '{"k":"b"}'.encode("utf-16")]),
+        ("UTF-8 BOM", [b'\xef\xbb\xbf{"k":"a"}']),
+        ("non-object records", [b"[1,2]", b"null", b'"s"', b"5"]),
+        ("newline and CR inside", [b'{"k":\n"a"}', b'{"k":"a",\r"ts":2}']),
+        ("control character in a string", [b'{"k":"a\tb"}']),
+        ("nesting past the loop's recursion", [b'{"x":' + deep + b',"k":"a"}']),
+        ("5000-digit int in an extra field", [b'{"x":' + b"1" * 5000 + b',"k":"a"}']),
+        ("NULLs, missing and extra fields",
+         [b'{"k":null,"v":null,"ts":null,"i":null,"b":null}', b"{}",
+          b'{"x":[1,{"y":2}],"z":"q","k":"c"}']),
+        ("NaN, -0.0, subnormals", [b'{"v":NaN}', b'{"v":-0.0}', b'{"v":5e-324}',
+                                   b'{"v":-1e-400}', b'{"v":2.2250738585072011e-308}']),
+        ("escapes and NUL", [b'{"k":"\\u00e9\\u0000\\n\\/"}', b'{"\\u006b":"e"}',
+                             b'{"k":"\\ud83d\\ude00"}']),
+        ("whitespace around", [b'  \t{"k":"a", "v" : 2 }\t ', b'{"k":"b"}   ']),
+        ("ints, bools and big doubles", [b'{"ts":-9223372036854775808,"i":-2147483648,'
+                                         b'"b":false,"v":9007199254740992}',
+                                         b'{"v":1e300,"ts":-0}']),
+    ]
+    return [(name, [_GOOD, *poll, _GOOD]) for name, poll in cases]
+
+
+def batch_bits(rb) -> list:
+    """A RecordBatch as comparable Python values, doubles by bit pattern
+    (so -0.0 and NaN payloads count): per column (type, values)."""
+    import struct
+
+    out = []
+    for f, col in zip(rb.schema, rb.columns):
+        vals = col.to_pylist()
+        if str(f.type) == "double":
+            vals = [None if x is None else struct.pack("<d", x) for x in vals]
+        out.append((f.name, str(f.type), vals))
+    return out
+
+
+def deserialize_outcome(de, poll: list[bytes], loop: bool = False) -> dict:
+    """What a deserializer makes of a poll: its rows (``batch_bits``) or
+    what it raised, and its counters after. ``loop``: through the record
+    loop alone (``_RowDeserializerBase.deserialize``)."""
+    from auron_tpu_torch.exec.streaming import _RowDeserializerBase
+
+    try:
+        rb = _RowDeserializerBase.deserialize(de, poll) if loop else de.deserialize(poll)
+        got = {"rows": batch_bits(rb)}
+    except Exception as e:  # noqa: BLE001 — the raise is the outcome
+        got = {"raised": f"{type(e).__name__}: {e}"}
+    got.update(errors=de.errors, coerce_errors=de.coerce_errors)
+    return got
+
+
+def ingest_mismatches() -> tuple[list[str], dict]:
+    """The port's JSON deserializer against its own record loop on every
+    ``ingest_edge_polls`` case under each error policy (rows bit for bit,
+    counters, raises), and on the gate's corpus: (what differs, the
+    columnar and loop polls of the edge cases and of the corpus)."""
+    from auron_tpu_torch.exec.streaming import JsonRowDeserializer
+
+    bad: list[str] = []
+    edge = JsonRowDeserializer(INGEST_SCHEMA)
+    for name, poll in ingest_edge_polls():
+        for policy in ("skip", "null", "fail"):
+            de = JsonRowDeserializer(INGEST_SCHEMA, policy)
+            got = deserialize_outcome(de, poll)
+            want = deserialize_outcome(JsonRowDeserializer(INGEST_SCHEMA, policy), poll,
+                                       loop=True)
+            if got != want:
+                bad.append(f"{name} ({policy})")
+        deserialize_outcome(edge, poll)
+    corpus = JsonRowDeserializer(SCHEMA)
+    for part in _corpus(20_000):
+        for i in range(0, len(part), 512):
+            poll = part[i:i + 512]
+            if batch_bits(corpus.deserialize(poll)) != \
+                    deserialize_outcome(corpus, poll, loop=True)["rows"]:
+                bad.append(f"gate corpus poll at {i}")
+    return bad, {"edge_columnar_polls": edge.columnar_polls, "edge_loop_polls": edge.loop_polls,
+                 "corpus_columnar_polls": corpus.columnar_polls,
+                 "corpus_loop_polls": corpus.loop_polls}
 
 
 def view_oracle(parts: list[list[bytes]], poll: int = 512) -> list[dict]:

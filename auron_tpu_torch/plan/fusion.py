@@ -30,9 +30,12 @@ pass off (``exec.fuse.enable=off``).
   outputs. A replay copies the batch columns the program reads into the
   inputs, and its outputs are cloned after the replay, so no batch held
   downstream (transfer windows, staged aggregate parts, pending join
-  harvests) ever aliases a graph buffer. Side inputs (a join's build
-  tensors, a dense table's anchor geometry) are copied only when they
-  change; the graph holds its sources weakly, so it keeps no build alive.
+  harvests) ever aliases a graph buffer. Outputs of at most
+  ``transfer.PACK_BYTES`` together are written into one buffer at the end
+  of the program, so one clone serves them all (as views of it). Side
+  inputs (a join's build tensors, a dense table's anchor geometry) are
+  copied only when they change; the graph holds its sources weakly, so it
+  keeps no build alive.
 - **Memory.** Each graph captures into a private pool. The cache is
   bounded (a quarter of the memory manager's budget, least recently
   replayed out) and is one spillable consumer of the memory manager,
@@ -68,6 +71,7 @@ from auron_tpu_torch.exec.base import ExecOperator, ExecutionContext
 from auron_tpu_torch.exprs import ir
 from auron_tpu_torch.exprs.eval import ColumnVal, Evaluator
 from auron_tpu_torch.ops import launch_count
+from auron_tpu_torch.runtime.transfer import PACK_BYTES, flat_bytes
 from auron_tpu_torch.utils.config import (
     FUSE_AGG_INPUTS, FUSE_ENABLE, FUSE_MIN_OPS, FUSE_PROBE, FUSE_SHUFFLE, Configuration,
     resolve_tri,
@@ -196,8 +200,8 @@ def _kernel_locks() -> list:
 
 
 class _Graph:
-    __slots__ = ("graph", "static_in", "static_side", "side_src", "static_out", "tally", "label",
-                 "nbytes", "done")
+    __slots__ = ("graph", "static_in", "static_side", "side_src", "static_out", "out_plan",
+                 "tally", "label", "nbytes", "done")
 
     def replay(self, batch_in: tuple, side_in: tuple) -> tuple:
         stream = torch.cuda.current_stream(batch_in[0].device)
@@ -222,10 +226,54 @@ class _Graph:
         for counts, lock, tally in zip(_kernel_counters(), _kernel_locks(), self.tally):
             for k, n in tally.items():
                 launch_count.add(counts, lock, k, n)
-        out = tuple(o.clone() for o in self.static_out)
-        self.done = torch.cuda.Event()
-        self.done.record(stream)
+        if self.out_plan is None:
+            out = tuple(o.clone() for o in self.static_out)
+        else:
+            out = _unpack(self.static_out[0].clone(), self.out_plan)
+        if self.done is None:
+            self.done = torch.cuda.Event()
+        self.done.record(stream)  # re-recorded: a wait takes its latest record
         return out
+
+
+def _pack_plan(outs: tuple):
+    """How a graph's outputs lie in one byte buffer: (the outputs' order in
+    it, and per run of outputs of one dtype and shape (start byte, end
+    byte, dtype, shape, their indices)), the widest elements first so every
+    view stays aligned; or None where they are one tensor, pass
+    ``PACK_BYTES`` or are not all contiguous."""
+    if len(outs) < 2 or not all(isinstance(o, torch.Tensor) and o.is_contiguous()
+                                for o in outs):
+        return None
+    if sum(o.numel() * o.element_size() for o in outs) > PACK_BYTES:
+        return None
+    order = sorted(range(len(outs)), key=lambda i: (-outs[i].element_size(),
+                                                     str(outs[i].dtype), tuple(outs[i].shape)))
+    runs, pos = [], 0
+    for i in order:
+        o = outs[i]
+        nbytes = o.numel() * o.element_size()
+        if runs and runs[-1][2] == o.dtype and runs[-1][3] == o.shape:
+            runs[-1][1] += nbytes
+            runs[-1][4].append(i)
+        else:
+            runs.append([pos, pos + nbytes, o.dtype, o.shape, [i]])
+        pos += nbytes
+    return tuple(order), tuple((a, b, dt, sh, tuple(ix)) for a, b, dt, sh, ix in runs)
+
+
+def _unpack(buf: torch.Tensor, plan) -> tuple:
+    """The outputs a packed buffer holds, as views of it (a run of outputs
+    of one dtype and shape comes out of one view)."""
+    out = [None] * len(plan[0])
+    for a, b, dtype, shape, ix in plan[1]:
+        v = buf[a:b].view(dtype)
+        if len(ix) == 1:
+            out[ix[0]] = v.view(shape)
+        else:
+            for i, t in zip(ix, v.view((len(ix), *shape)).unbind(0)):
+                out[i] = t
+    return tuple(out)
 
 
 def _pool_segment_bytes(pool) -> int:
@@ -344,7 +392,12 @@ class _GraphCache:
         with launch_count.diverted() as tally:
             try:
                 with torch.cuda.graph(g.graph, pool=pool, capture_error_mode="thread_local"):
-                    g.static_out = tuple(fn(g.static_in, g.static_side))
+                    outs = tuple(fn(g.static_in, g.static_side))
+                    # small outputs land in one buffer, so a replay clones
+                    # it once and hands out views
+                    g.out_plan = _pack_plan(outs)
+                    g.static_out = outs if g.out_plan is None else (
+                        torch.cat([flat_bytes(outs[i]) for i in g.out_plan[0]]),)
             except Exception as e:  # noqa: BLE001 — re-raised, naming the step
                 raise StageCaptureError(f"capture of fused stage {label} failed: {e}") from e
         g.tally = [tally.get(id(c), {}) for c in _kernel_counters()]
@@ -513,6 +566,25 @@ def _planes_of(batch_in: tuple, reads: tuple, n_cols: int):
     return batch_in[0], tuple(vals), tuple(masks)
 
 
+class _Sig:
+    """A stage program's signature with its hash taken once: it holds
+    schemas and expression trees, whose hash a tuple recomputes on every
+    lookup, and a batch looks its program up three times."""
+
+    __slots__ = ("sig", "_hash")
+
+    def __init__(self, sig: tuple):
+        self.sig = sig
+        self._hash = hash(sig)
+
+    def __hash__(self) -> int:
+        return self._hash
+
+    def __eq__(self, other) -> bool:
+        return self is other or (isinstance(other, _Sig) and self._hash == other._hash
+                                 and self.sig == other.sig)
+
+
 def _key(sig, cap: int, inputs: tuple):
     """A graph's cache key: the program, the capacity bucket and the
     inputs' dtypes, shapes and device."""
@@ -569,6 +641,8 @@ class FusedStageExec(ExecOperator):
         self.probe_link: ProbePrepLink | None = None
         self._probe_cfg: tuple = ()
         self.shuffle: tuple | None = None
+        #: (extension, its config, reads) -> the program's signature
+        self._sigs: dict = {}
         _count("segments")
 
     # -- extensions
@@ -649,7 +723,10 @@ class FusedStageExec(ExecOperator):
         emitted batch, extension outputs)."""
         dev = b.device
         batch_in = _batch_in(dev, self.reads)
-        sig = (self.steps, self.src, self.reads, ext_name, ext_cfg)
+        sig = self._sigs.get((ext_name, ext_cfg, self.reads))
+        if sig is None:
+            sig = self._sigs[(ext_name, ext_cfg, self.reads)] = _Sig(
+                (self.steps, self.src, self.reads, ext_name, ext_cfg))
         key = _key(sig, b.capacity, batch_in + side_in)
         with _FUSE_LOCK:
             if sig not in _SEEN_PROGRAMS:

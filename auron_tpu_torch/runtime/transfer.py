@@ -8,7 +8,8 @@ The window takes that stall off the critical path:
 
 - ``start_host_transfer`` starts a ``copy_(src, non_blocking=True)`` of
   each CUDA tensor into a **pinned** host tensor (a copy into pageable
-  memory would not be asynchronous) and records one ``torch.cuda.Event``
+  memory would not be asynchronous), or of a small batch of them gathered
+  into one buffer (``PACK_BYTES``), and records one ``torch.cuda.Event``
   on the current stream behind the copies. Pinned tensors come from
   PyTorch's caching host allocator, which reuses freed blocks, so a batch
   does not pay a ``cudaHostAlloc``. A CPU tensor is not copied at all;
@@ -57,24 +58,58 @@ class HostTransfer:
         self.event = event
 
 
+#: the most bytes a transfer of several CUDA tensors gathers into one copy
+#: (and ``Batch.from_host_arrow`` stages as one): below it a copy's fixed
+#: cost outweighs moving the bytes twice on the device; above it the
+#: tensors keep copies of their own
+PACK_BYTES = 1 << 20
+
+
 def start_host_transfer(*tensors: torch.Tensor) -> HostTransfer:
     """Start non-blocking copies of the CUDA tensors into pinned host
-    memory, under one event; CPU tensors pass through uncopied."""
+    memory, under one event; CPU tensors pass through uncopied. Several
+    CUDA tensors of at most ``PACK_BYTES`` together are gathered into one
+    device buffer (one ``torch.cat``, the widest elements first so every
+    view stays aligned) and copied into one pinned buffer, of which the
+    host values are numpy views; else each has its own pinned tensor."""
     obs.note_transfer_start(len(tensors))
-    cuda = [t for t in tensors if t.device.type == "cuda"]
+    cuda = [i for i, t in enumerate(tensors) if t.device.type == "cuda"]
     if not cuda:
         return HostTransfer(tuple(tensors), None)
-    host = []
-    for t in tensors:
-        if t.device.type == "cuda":
-            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            h.copy_(t, non_blocking=True)
-            host.append(h)
-        else:
-            host.append(t)
+    host = list(tensors)
+    if len(cuda) > 1 and all(tensors[i].dtype in _NUMPY_DTYPE for i in cuda) and sum(
+            tensors[i].numel() * tensors[i].element_size() for i in cuda) <= PACK_BYTES:
+        order = sorted(cuda, key=lambda i: -tensors[i].element_size())
+        flat = [flat_bytes(tensors[i]) for i in order]
+        pinned = torch.empty(sum(len(f) for f in flat), dtype=torch.uint8, pin_memory=True)
+        pinned.copy_(torch.cat(flat), non_blocking=True)
+        h, off = pinned.numpy(), 0
+        for i, f in zip(order, flat):
+            t = tensors[i]
+            host[i] = h[off:off + len(f)].view(_NUMPY_DTYPE[t.dtype]).reshape(t.shape)
+            off += len(f)
+    else:
+        for i in cuda:
+            host[i] = torch.empty(tensors[i].shape, dtype=tensors[i].dtype, pin_memory=True)
+            host[i].copy_(tensors[i], non_blocking=True)
     event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(cuda[0].device))
+    event.record(torch.cuda.current_stream(tensors[cuda[0]].device))
     return HostTransfer(tuple(host), event)
+
+
+#: numpy dtypes of the torch dtypes a gathered transfer reads
+_NUMPY_DTYPE = {t: np.dtype(d) for t, d in (
+    (torch.bool, np.bool_), (torch.int8, np.int8), (torch.uint8, np.uint8),
+    (torch.int16, np.int16), (torch.int32, np.int32), (torch.int64, np.int64),
+    (torch.float32, np.float32), (torch.float64, np.float64))}
+
+
+def flat_bytes(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bytes as a flat uint8 tensor (a view of a contiguous vector,
+    the batches' planes)."""
+    if t.dim() == 1 and t.is_contiguous():
+        return t.view(torch.uint8)
+    return t.contiguous().view(-1).view(torch.uint8)
 
 
 def harvest(tr: HostTransfer, metrics=None, waited_counter: str = "waited_reads",
@@ -97,7 +132,7 @@ def harvest(tr: HostTransfer, metrics=None, waited_counter: str = "waited_reads"
             tr.event.synchronize()
     if metrics is not None:
         metrics.add(waited_counter if waited else "async_reads", 1)
-    out = tuple(h.numpy() for h in tr.host)
+    out = tuple(h if isinstance(h, np.ndarray) else h.numpy() for h in tr.host)
     dt = time.perf_counter_ns() - t0 - turn_ns
     note_read(dt / 1e9, is_async=not waited)
     obs.note_harvest(len(out), dt)

@@ -21,9 +21,11 @@ tests/test_torch_stream_exactly_once.py).
 
 Port of ``auron_tpu/stream/pipeline.py``. The Calc chain runs on the
 pipeline's ``device`` (default ``cuda``; a CUDA request without a card
-raises); each micro-batch reaches it through ``Batch.from_arrow`` and
-its output comes back through one host read (``Batch.to_arrow``, counted
-by ``utils/profiling.EngineCounters`` as every transfer-window read is).
+raises); each micro-batch reaches it through ``Batch.from_arrow`` (its
+strings dictionary-encoded by pyarrow first: ``upload_batch``) and its
+output comes back as host planes (``_host_columns``,
+counted by ``utils/profiling.EngineCounters`` as every transfer-window
+read is).
 The window fold, the watermark and the checkpoints stay on the host, as
 in the reference, so emissions and checkpoint bytes equal the
 reference's for the same input. pyarrow is imported inside the functions
@@ -42,10 +44,11 @@ from typing import Callable
 import numpy as np
 
 from auron_tpu_torch import obs
+from auron_tpu_torch import types as T
 from auron_tpu_torch.columnar.batch import Batch
 from auron_tpu_torch.device import resolve_device
 from auron_tpu_torch.exec.base import ExecutionContext
-from auron_tpu_torch.exec.streaming import OFFSETS, StreamingCalcExec
+from auron_tpu_torch.exec.streaming import OFFSETS, StreamingCalcExec, upload_batch
 from auron_tpu_torch.exprs import ir
 from auron_tpu_torch.stream.checkpoint import CheckpointCoordinator
 from auron_tpu_torch.stream.lowering import StreamingPlan
@@ -66,6 +69,49 @@ FAULT_POINTS = ("poll", "post-calc", "post-fold", "pre-emit", "mid-emit",
 
 class StreamKilled(RuntimeError):
     """Raised by a fault hook to simulate a crash at an exact seam."""
+
+
+#: output kinds read straight from the chain's host planes (a BOOL goes
+#: through Arrow, where a NULL among its values raises, as in the reference)
+_PLANE_KINDS = frozenset((T.TypeKind.INT8, T.TypeKind.INT16, T.TypeKind.INT32,
+                          T.TypeKind.INT64, T.TypeKind.FLOAT32, T.TypeKind.FLOAT64,
+                          T.TypeKind.STRING))
+
+
+def _host_columns(out: Batch, metrics) -> tuple[list, list]:
+    """(columns, codes). ``columns``: the (values, valid) host views of the
+    output's live rows, one a column, as ``_host_column`` gives them from
+    ``Batch.to_arrow``: null lanes carry a type zero ("" for a string).
+    ``codes``: for a string column whose vocabulary's entries are distinct,
+    its codes (a NULL's the code of "", or -1), which are equal exactly
+    where the strings are; else None. The planes come back through
+    ``live_host_planes`` (a small output's in one pinned copy) and the
+    strings are the vocabulary's, gathered by code. An output with a
+    column of another kind goes through ``to_arrow``."""
+    if not all(f.dtype.kind in _PLANE_KINDS for f in out.schema):
+        rb = out.to_arrow(metrics)
+        return [_host_column(rb.column(i)) for i in range(rb.num_columns)], \
+            [None] * rb.num_columns
+    _, planes = out.live_host_planes(metrics)
+    cols, codes = [], []
+    for f, vocab, (v, m) in zip(out.schema, out.dicts, planes):
+        nulls = not m.all()
+        c = None
+        if f.dtype.kind == T.TypeKind.STRING:
+            entries = vocab.tolist()
+            if len(set(entries)) == len(entries):
+                c = v.astype(np.int64)
+                if nulls:
+                    c[~m] = entries.index("") if "" in entries else -1
+            v = vocab[np.where(m, v, 0) if nulls else v] if len(vocab) \
+                else np.full(len(v), "", dtype=object)
+            if nulls:
+                v[~m] = ""
+        elif nulls:
+            v = np.where(m, v, np.zeros((), v.dtype))
+        cols.append((v, m))
+        codes.append(c)
+    return cols, codes
 
 
 def _host_column(arr) -> tuple[np.ndarray, np.ndarray]:
@@ -152,7 +198,7 @@ class StreamPipeline:
         self.metrics["events_in"] += len(payloads)
         rb = self.calc.deserializer.deserialize(payloads)
         if rb.num_rows:
-            self._chain_src.slot = Batch.from_arrow(rb, device=self.device, conf=self.conf)
+            self._chain_src.slot = upload_batch(rb, self.device, self.conf)
             for out in self._chain.execute(0, self.ctx):
                 self.fault("post-calc")
                 self._fold(out)
@@ -165,10 +211,9 @@ class StreamPipeline:
         return True
 
     def _fold(self, out: Batch) -> None:
-        rb = out.to_arrow(self.ctx.metrics)
-        if rb.num_rows == 0:
+        cols, codes = _host_columns(out, self.ctx.metrics)
+        if len(cols[0][0]) == 0:
             return
-        cols = [_host_column(rb.column(i)) for i in range(rb.num_columns)]
         ts_vals, ts_valid = cols[0]
         wm_vals, wm_valid = cols[self._wm_slot]
         # NULL event time has no window; dropped and counted, never folded
@@ -183,6 +228,11 @@ class StreamPipeline:
         sel = np.flatnonzero(ts_valid)[rows]
         keys = [cols[self._key_base + i][0][sel]
                 for i in range(len(self.plan.keys))]
+        # what the store sorts on: a string key's codes, a numeric key itself
+        group_keys = [k if c is None else c[sel] for k, c in
+                      zip(keys, codes[self._key_base:self._key_base + len(keys)])]
+        if any(k.dtype == object for k in group_keys):
+            group_keys = None
         vals = []
         for slot in self._val_slots:
             if slot is None:
@@ -191,7 +241,7 @@ class StreamPipeline:
                 v, ok = cols[slot]
                 vals.append((v[sel], ok[sel]))
         self.metrics["rows_folded"] += len(sel)
-        self.metrics["groups_touched"] += self.store.update(wins, keys, vals)
+        self.metrics["groups_touched"] += self.store.update(wins, keys, vals, group_keys)
 
     # -- emission -----------------------------------------------------------
 

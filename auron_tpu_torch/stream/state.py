@@ -65,13 +65,18 @@ class WindowStore:
     # -- fold ---------------------------------------------------------------
 
     def update(self, wins: np.ndarray, keys: list[np.ndarray],
-               vals: list[tuple[np.ndarray, np.ndarray] | None]) -> int:
+               vals: list[tuple[np.ndarray, np.ndarray] | None],
+               group_keys: list[np.ndarray] | None = None) -> int:
         """Fold assigned rows: ``wins``/``keys`` aligned per row, ``vals[j]``
         = (values, valid) for agg j (None for count(*)). Returns the
-        number of distinct groups touched."""
+        number of distinct groups touched. ``group_keys`` (optional): per
+        key a numeric stand-in equal where the key is equal and nowhere
+        else (a string's code in a vocabulary of distinct entries), sorted
+        on in its place: the same groups, each folding its rows in the
+        same order, so the state is what sorting on ``keys`` gives."""
         if len(wins) == 0:
             return 0
-        order, starts = _group_segments(wins, keys)
+        order, starts = _group_segments(wins, group_keys or keys)
         ws = wins[order]
         ks = [np.asarray(k)[order] for k in keys]
         sizes = np.diff(np.concatenate((starts, [len(order)])))
@@ -102,27 +107,30 @@ class WindowStore:
                 acc[~valid] = fill
                 red = np.minimum if func == "min" else np.maximum
                 partials.append([red.reduceat(acc, starts), n])
-        for g, s in enumerate(starts):
-            gkey = (int(ws[s]),) + tuple(
-                k[s].item() if hasattr(k[s], "item") else k[s] for k in ks)
+        # Python scalars once an array (``tolist`` gives what ``item`` does)
+        gwins = ws[starts].tolist()
+        gkeys = [k[starts].tolist() if k.dtype != object else
+                 [x.item() if hasattr(x, "item") else x for x in k[starts]] for k in ks]
+        partials = [[p.tolist() for p in agg] for agg in partials]
+        for g in range(len(starts)):
+            gkey = (gwins[g],) + tuple(k[g] for k in gkeys)
             row = self._state.get(gkey)
             if row is None:
-                self._state[gkey] = [p[g].item() for agg in partials
-                                     for p in agg]
+                self._state[gkey] = [p[g] for agg in partials for p in agg]
                 continue
             i = 0
             for func, agg in zip(self.agg_funcs, partials):
                 if func in ("sum", "avg"):
-                    row[i] += agg[0][g].item()
-                    row[i + 1] += agg[1][g].item()
+                    row[i] += agg[0][g]
+                    row[i + 1] += agg[1][g]
                 elif func in ("min", "max"):
                     pick = min if func == "min" else max
                     if agg[1][g]:  # only valid-lane partials participate
-                        row[i] = (agg[0][g].item() if row[i + 1] == 0
-                                  else pick(row[i], agg[0][g].item()))
-                    row[i + 1] += agg[1][g].item()
+                        row[i] = (agg[0][g] if row[i + 1] == 0
+                                  else pick(row[i], agg[0][g]))
+                    row[i + 1] += agg[1][g]
                 else:
-                    row[i] += agg[0][g].item()
+                    row[i] += agg[0][g]
                 i += _SLOTS[func]
         return len(starts)
 

@@ -392,15 +392,24 @@ driver's runs (phases 7 and 9) take their plan protos whole.
 25. streaming (``exec/streaming.py``, ``exec/kafka_wire.py``, ``stream/``,
    ``StreamTaskRuntime``, ``serve/streams.py``, ``POST /stream``,
    ``models/streamgate.py``, ``models/kafka_exchange.py``) on the card:
-   (a) the stream gate at the reference's defaults (60,000 events, 3 reps,
-   poll 512; 1,000,000 events under ``--stream-only``): fused and eager
-   emissions and the crash-resumed log bit-identical, no graph capture or
-   kernel build in the timed fused reps, every emission equal to the
-   numpy oracle of the view (keys, bounds and counts exact, floats at rel
-   1e-9); fused/eager events/s printed beside the reference's 1.05 (not a
-   gate here); (b) a ``StreamServer`` with two topics and two views (the
-   gate's and a 2 s / 1 s HOP view) registered through POST /stream on a
-   loopback port, inspected while they run, the 429 at
+   (a) the JSON deserializer's columnar read equal to its record loop on
+   ``streamgate.ingest_edge_polls`` under each error policy and on the
+   gate's corpus (every poll of which it reads columnar), then the stream
+   gate at the reference's defaults (60,000 events, 3 reps, poll 512, the
+   floor 1.05; 1,000,000 events under ``--stream-only``): fused/eager
+   events/s at least 1.05 (a failed gate fails the script), fused and
+   eager emissions and the crash-resumed log bit-identical, no graph
+   capture or kernel build in the timed fused reps, every emission equal
+   to the numpy oracle of the view (keys, bounds and counts exact, floats
+   at rel 1e-9), each timed rep stepping both legs in turns of eight
+   steps after a warm-up run of each; after the gate, each leg's step taken apart and printed
+   (``tools/stream_diag.py``: poll, deserialize, upload, the chain by host
+   clock and CUDA events, the host read, the window fold, emission). In
+   the whole script (a) runs in the second process once the first has
+   ended its phases, before phase 24, so that its legs are timed with the
+   host to themselves; (b) a ``StreamServer`` with two topics and two
+   views (the gate's and a 2 s / 1 s HOP view) registered through POST
+   /stream on a loopback port, inspected while they run, the 429 at
    ``stream.serve.max.streams``, cancelled with drain: each stream's
    emissions bit-identical to its view run alone, each under its own
    ``stream.<view>`` trace in /queries; (c) planned ``kafka_scan`` tasks
@@ -451,17 +460,19 @@ Each phase prints its seconds.
 The whole script runs in two processes on the one card, to end inside its
 time limit: once the kernels are built and timed, a second process (this
 script with ``--late-phases``) makes the data from the same seed and runs
-phases 18-23, 25, 26, 14 and 16 while this one runs phases 3-13, 15, 17
-and 27; then this one writes ``parent.idle`` into the second process's
-work directory and waits, and the second process runs phase 24 (so that
-its serial and concurrent legs are timed with nothing else on the host)
-and ends. This one then prints the second process's output, takes its
-results (``late.pkl`` in its work directory) and goes on with phase 28.
+phases 18-23, 25 (b, c), 26, 14 and 16 while this one runs phases 3-13,
+15, 17 and 27; then this one writes ``parent.idle`` into the second
+process's work directory and waits, and the second process runs phase 25
+(a) and phase 24 (so that the stream gate's fused and eager legs and the
+serving gate's serial and concurrent legs are timed with nothing else on
+the host) and ends. This one then prints the second process's output,
+takes its results (``late.pkl`` in its work directory) and goes on with
+phase 28.
 The second process's session is killed if this one fails, and it ends
-itself when this one ends. The walls of phases 3-26 but 24 in the whole
-script are therefore taken with the other process on the card and the
-host; the kernel timing, phase 24 and the ``--*-only`` runs take theirs
-alone.
+itself when this one ends. The walls of phases 3-26 but 24 and 25 (a)
+in the whole script are therefore taken with the other process on the
+card and the host; the kernel timing, phases 24 and 25 (a) and the
+``--*-only`` runs take theirs alone.
 
 Every launch count is set to 0 just before the timed run of a query and
 read just after it; launches made to compare kernels are not counted. A
@@ -4519,37 +4530,79 @@ EXCHANGE_USERS = 200_000
 EXCHANGE_REDUCE = 4
 
 
+def _stream_diag():
+    """``tools/stream_diag.py`` of this checkout, as a module (its
+    breakdown of a step wraps the pipeline's calls from outside)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "stream_diag", os.path.join(REPO_DIR, "tools", "stream_diag.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _stream_gate_leg(events: int) -> dict:
-    """Phase 25 (a): the stream gate on the card, its emissions against the
-    numpy oracle of the view."""
+    """Phase 25 (a): the JSON deserializer held to its record loop on the
+    ingest edge cases and the gate's corpus; the stream gate on the card at
+    the reference's floor (``run_gate``'s default, 1.05x), its emissions
+    against the numpy oracle of the view; then a step of each leg taken
+    apart (``tools/stream_diag.py``), printed."""
     from auron_tpu_torch.models import streamgate
 
+    t0 = time.perf_counter()
+    bad, ingest = streamgate.ingest_mismatches()
+    print(f"stream ingest: the columnar JSON read equals the record loop on "
+          f"{len(streamgate.ingest_edge_polls())} edge polls under skip, null and fail "
+          f"(columnar {ingest['edge_columnar_polls']}, loop {ingest['edge_loop_polls']}) and "
+          f"on the gate's corpus (columnar {ingest['corpus_columnar_polls']}, loop "
+          f"{ingest['corpus_loop_polls']}); differing: {bad or 'none'} "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    assert not bad, bad
+    assert ingest["corpus_loop_polls"] == 0, ingest
     ems: list = []
     _reset_launches()
     t0 = time.perf_counter()
     rec = streamgate.run_gate(events=events, reps=STREAM_GATE_REPS, poll=STREAM_POLL,
-                              min_fused_speedup=0.0, device="cuda", emissions=ems)
+                              device="cuda", emissions=ems)
     rec["wall_s"] = time.perf_counter() - t0
     rec["launches"] = _launches()
+    rec["ingest"] = ingest
+    print(f"stream gate: fused {rec['fused_events_s']:,.1f} events/s, eager "
+          f"{rec['eager_events_s']:,.1f} events/s (best of {STREAM_GATE_REPS} reps each, "
+          f"a rep stepping both legs in turns of {streamgate.TURN_STEPS} steps, after a "
+          f"warm-up run of each), "
+          f"fused/eager {rec['speedup']:.3f}x against the reference's floor "
+          f"{rec['min_fused_speedup']:.2f}x: {'met' if rec['ok'] else 'FAILED'}; graph "
+          f"captures and builds {rec['warm_compiles']} in the warm run, "
+          f"{rec['replay_compiles']} in the timed reps; {rec['host_reads_per_step']} host "
+          f"reads a step; polls read columnar {rec['columnar_polls']}, by the record loop "
+          f"{rec['loop_polls']} (a timed fused run); peak device memory "
+          f"{rec['peak_bytes'] / 2**20:.1f} MiB; {rec['wall_s']:.2f} s, launches "
+          f"{rec['launches']}", flush=True)
     assert rec["ok"], rec["failures"]
     assert rec["replay_compiles"] == 0, rec
+    assert rec["min_fused_speedup"] == 1.05, rec
     t0 = time.perf_counter()
     err = streamgate.oracle_mismatch(ems, streamgate.view_oracle(streamgate._corpus(events),
                                                                  STREAM_POLL))
     rec["oracle_s"] = time.perf_counter() - t0
     assert err is None, err
-    met = rec["speedup"] >= 1.05
     print(f"stream gate: {events:,} events, poll {STREAM_POLL}, {rec['steps']} steps a run, "
           f"{rec['emissions']} emissions (each equal to the numpy oracle: keys, bounds and "
           f"counts exact, floats at rel 1e-9), {rec['checkpoints']} checkpoints in the "
           f"resumed run; fused, eager and crash-resumed logs bit-identical", flush=True)
-    print(f"stream gate: fused {rec['fused_events_s']:,.1f} events/s, eager "
-          f"{rec['eager_events_s']:,.1f} events/s, fused/eager {rec['speedup']:.3f}x against "
-          f"the reference's 1.05x: {'met' if met else 'not met'} (not a gate here); graph "
-          f"captures and builds {rec['warm_compiles']} in the warm run, "
-          f"{rec['replay_compiles']} in the timed reps; {rec['host_reads_per_step']} host "
-          f"reads a step; peak device memory {rec['peak_bytes'] / 2**20:.1f} MiB; "
-          f"{rec['wall_s']:.2f} s, launches {rec['launches']}", flush=True)
+    # after the gate, so that its result does not depend on the wrapped
+    # runs: a step of each leg taken apart, printed
+    t0 = time.perf_counter()
+    rec["breakdown"] = _stream_diag().breakdown(events, STREAM_GATE_REPS, STREAM_POLL, "cuda")
+    for leg, r in rec["breakdown"].items():
+        parts = ", ".join(f"{k} {v:.3f}" for k, v in r["ms_per_step"].items() if k != "step")
+        print(f"stream gate step, {leg} (tools/stream_diag.py, the fastest of "
+              f"{STREAM_GATE_REPS} wrapped runs): {r['ms_per_step']['step']:.3f} ms a step "
+              f"({parts}; the chain between CUDA events {r['calc_device_ms_per_step']} ms), "
+              f"{r['events_s']:,.1f} events/s", flush=True)
+    rec["breakdown_s"] = time.perf_counter() - t0
     return rec
 
 
@@ -4706,17 +4759,27 @@ def _stream_exchange_leg(events: int) -> dict:
     return out
 
 
-def run_stream_phase(gate_events: int, exchange_events: int) -> dict:
+def run_stream_phase(gate_events: int | None, exchange_events: int) -> dict:
     """Phase 25: streaming (``exec/streaming.py``, ``exec/kafka_wire.py``,
     ``stream/``, ``StreamTaskRuntime``, ``serve/streams.py``, ``POST
     /stream``, ``models/streamgate.py``) on the card: (a) the stream gate,
     (b) two views served through POST /stream, (c) planned kafka_scan
-    tasks with a keyed exchange."""
-    out = {"gate": _stream_gate_leg(gate_events), "serve": _stream_serve_leg(STREAM_GATE_EVENTS)}
+    tasks with a keyed exchange. ``gate_events`` None leaves (a) to
+    ``run_stream_gate`` (the whole script times it once the first process
+    has ended its phases)."""
+    out = {} if gate_events is None else {"gate": _stream_gate_leg(gate_events)}
+    out["serve"] = _stream_serve_leg(STREAM_GATE_EVENTS)
     out["exchange"] = _stream_exchange_leg(exchange_events)
-    out["launches"] = {"stream gate": out["gate"]["launches"],
-                       "stream exchange": out["exchange"]["launches"]}
+    out["launches"] = {"stream exchange": out["exchange"]["launches"]}
+    if "gate" in out:
+        out["launches"]["stream gate"] = out["gate"]["launches"]
     return out
+
+
+def run_stream_gate(stream: dict, gate_events: int) -> None:
+    """Phase 25 (a) into ``stream`` (``run_stream_phase``'s record)."""
+    stream["gate"] = _stream_gate_leg(gate_events)
+    stream["launches"]["stream gate"] = stream["gate"]["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -5203,9 +5266,9 @@ LATE_TIMEOUT_S = 900
 
 def run_late_phases(data, sf: float, seed: int, smi: str, phase_done, profile: bool,
                     parent_idle) -> dict:
-    """Phases 18-23, 25, 26, 14 and 16 over ``data``, then, once
+    """Phases 18-23, 25 (b, c), 26, 14 and 16 over ``data``, then, once
     ``parent_idle()`` returns (the first process has ended its phases),
-    phase 24; {name: result} for LATE_RESULTS."""
+    phase 25 (a) and phase 24; {name: result} for LATE_RESULTS."""
     from auron_tpu_torch.models import tpcds
 
     # 18. the plan IR without google.protobuf: q42, q93 and q3 from bytes,
@@ -5242,10 +5305,10 @@ def run_late_phases(data, sf: float, seed: int, smi: str, phase_done, profile: b
     sql, sql_shared = run_sql_phase(data, seed, kernels_checked=True)
     phase_done("23")
 
-    # 25. streaming: the stream gate, two views served through POST /stream,
-    # planned kafka_scan tasks with a keyed exchange
-    stream = run_stream_phase(STREAM_GATE_EVENTS, EXCHANGE_EVENTS)
-    phase_done("25")
+    # 25 (b, c). streaming: two views served through POST /stream, planned
+    # kafka_scan tasks with a keyed exchange (the gate, (a), runs below)
+    stream = run_stream_phase(None, EXCHANGE_EVENTS)
+    phase_done("25 (b, c)")
 
     # 26. multi-process SPMD: q93-mesh, a STRING group-by and the sharded
     # aggregation step across two worker processes on the card, the NCCL
@@ -5270,6 +5333,12 @@ def run_late_phases(data, sf: float, seed: int, smi: str, phase_done, profile: b
     # concurrent legs are timed with the first process's phases ended
     parent_idle()
     phase_done("24 (waited for the first process)")
+
+    # 25 (a). the stream gate at the reference's floor: its fused and eager
+    # legs, like phase 24's, timed with the first process's phases ended
+    run_stream_gate(stream, STREAM_GATE_EVENTS)
+    phase_done("25 (a)")
+
     serve = run_serve_phase(data, sf, seed, SERVE_CLIENTS, sql=sql,
                             shared=sql_shared, ab_modes=SERVE_AB_MODES_IN_SCRIPT)
     del sql_shared

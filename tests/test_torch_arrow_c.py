@@ -263,3 +263,28 @@ def test_host_batch_from_numpy_views_fixed_widthcolumns():
     want = Batch.from_numpy([a, s, a.astype(np.int32), a * 7], schema,
                             [None, valid, None, valid], device="cpu")
     assert_batches_equal(Batch.from_host_arrow(hb, device="cpu"), want)
+
+
+def test_import_parses_a_repeated_schema_once(monkeypatch):
+    """Batches of one schema parse it once; a batch of another schema (a
+    name, a nullability or a type apart) parses its own, and every import
+    reads its batch's own values and schema."""
+    calls = []
+    take = C._take_schema
+    monkeypatch.setattr(C, "_take_schema", lambda addr: calls.append(addr) or take(addr))
+    monkeypatch.setattr(C, "_LAST_SCHEMA", (None, None, None))
+    a = pa.record_batch([pa.array([1, None, 3]), pa.array(["x", "y", None])], names=["i", "s"])
+    b = pa.record_batch([pa.array([4, 5, 6]), pa.array(["p", None, "q"])], names=["i", "s"])
+    c = pa.record_batch([pa.array([7.5]), pa.array(["z"])], names=["i", "s"])
+    d = pa.record_batch([pa.array([8]), pa.array(["w"])],
+                        schema=pa.schema([pa.field("i", pa.int64(), nullable=False),
+                                          pa.field("s", pa.string())]))
+    parsed = []
+    for rb in (a, b, b, c, a, d):
+        n = len(calls)
+        hb = C.import_from(rb)
+        parsed.append(len(calls) - n)
+        want = export(rb)  # parsed on its own
+        assert hb.schema == want.schema and hb.to_pydict() == rb.to_pydict()
+    assert parsed == [1, 0, 0, 1, 1, 1]
+    assert [f.nullable for f in C.import_from(d).schema] == [False, True]

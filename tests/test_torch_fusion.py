@@ -791,6 +791,50 @@ def test_capture_counts_launches_per_replay_and_raises_on_failure(monkeypatch, f
     pk.LAUNCHES.update(before)
 
 
+@pytest.mark.parametrize("rows", [64, 1 << 18])
+def test_replay_hands_small_outputs_out_as_views_of_one_clone(monkeypatch, rows):
+    """Outputs of at most ``transfer.PACK_BYTES`` together are written into
+    one buffer inside the graph: a replay clones that buffer once and
+    returns views of it with each output's dtype, shape and bytes (a bool,
+    a double, a 2-D int32 and a scalar). Past ``PACK_BYTES`` each output
+    is cloned on its own, as before."""
+    from auron_tpu_torch.runtime.transfer import PACK_BYTES
+
+    _stub_cuda(monkeypatch, False)
+
+    def fn(batch_in, side_in):
+        x = batch_in[0]
+        return (x > 2, x.to(torch.float64) * -0.5, (x[:8] * 3).to(torch.int32).reshape(2, 4),
+                x.sum())
+
+    x = torch.arange(rows, dtype=torch.int64)
+    want = fn((x,), ())
+    g = pfusion._GraphCache()._capture("test", fn, (x,), ())
+    out = g.replay((torch.arange(rows, dtype=torch.int64) + 1,), ())
+    small = sum(t.numel() * t.element_size() for t in want) <= PACK_BYTES
+    assert (g.out_plan is not None) == small and len(g.static_out) == (1 if small else 4)
+    for w, o in zip(want, out):  # the fake graph does not recompute
+        assert o.dtype == w.dtype and o.shape == w.shape
+        assert torch.equal(o.reshape(-1).view(torch.uint8), w.reshape(-1).view(torch.uint8))
+    ptrs = {o.untyped_storage().data_ptr() for o in out}
+    assert len(ptrs) == (1 if small else 4)
+    assert all(o.untyped_storage().data_ptr() != s.untyped_storage().data_ptr()
+               for o in out for s in g.static_out)  # clones: later replays cannot overwrite
+
+
+def test_stage_signature_hashes_once_and_compares_by_value():
+    """A stage program's signature is hashed once; two stages with equal
+    programs have equal signatures (so they share graphs), and a signature
+    equals no plain tuple."""
+    import copy
+
+    sig = (("filter", PT.Schema.of(PT.Field("v", PT.FLOAT64)),
+            (pir.BinaryOp("gt", pir.Column(0, "v"), pir.Literal(1.0, PT.FLOAT64)),)), None, (0,))
+    a, b = pfusion._Sig(sig), pfusion._Sig(copy.deepcopy(sig))
+    assert a == b and hash(a) == hash(b) == hash(sig) and {a: 1}[b] == 1
+    assert a != sig and a != pfusion._Sig(sig[:2] + ((1,),))
+
+
 def test_graph_cache_stays_bounded_over_distinct_builds(monkeypatch):
     """Graphs of many distinct builds (a key each) under a cap: the cache
     keeps at most the cap (the newest graph always stays), drops the least
